@@ -1,0 +1,82 @@
+"""The port's package boundary.
+
+``tpu_trainer_torch`` must run where JAX is not installed: importing it
+loads neither JAX, Flax nor the JAX package (whose ``__init__`` loads
+Flax), no module of the port imports them, and its entry points never
+drop to the CPU unless the caller asks for it.
+"""
+
+import ast
+import json
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import tpu_trainer_torch
+
+PKG = pathlib.Path(tpu_trainer_torch.__file__).resolve().parent
+ROOT = PKG.parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tpu_trainer")
+# Every module of the port, so the subprocess imports all of them.
+MODULES = sorted(
+    ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(
+        ".__init__")
+    for p in PKG.rglob("*.py"))
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in FORBIDDEN
+
+
+def test_import_leaves_jax_out_of_sys_modules():
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print(json.dumps(sorted(sys.modules)))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "tpu_trainer_torch.serving.engine" in loaded
+    assert [m for m in loaded if _forbidden(m)] == []
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")))
+def test_no_jax_or_jax_package_import(path):
+    tree = ast.parse((ROOT / path).read_text(), filename=path)
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if _forbidden(node.module or ""):
+                bad.append(node.module)
+    assert bad == []
+
+
+def test_engine_without_cuda_or_cpu_device_raises():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the default device is valid")
+    from tpu_trainer_torch.models.config import GPTConfig
+    from tpu_trainer_torch.serving.engine import ServingEngine
+
+    cfg = GPTConfig(vocab_size=64, hidden_size=16, num_layers=1,
+                    num_heads=2, max_seq_len=32, dtype="float32")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ServingEngine({}, cfg)
+
+
+def test_cli_without_cuda_raises():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the default device is valid")
+    from tpu_trainer_torch.serving.engine import _main
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        _main(["--requests", "1", "--vocab", "64", "--hidden", "16",
+               "--layers", "1", "--heads", "2", "--max-seq-len", "32"])

@@ -1,0 +1,589 @@
+"""Serving engine (port of ``tpu_trainer/serving/engine.py``): eager
+prefill/decode steps over the paged model path.
+
+The engine owns a fixed slot batch (``max_batch`` rows). Every iteration
+the scheduler picks ONE of:
+
+- **prefill** — requests mid-prefill feed ``seq[cursor:cursor+chunk]``
+  (width bucketed to a power of two) at their global offset; chunks past
+  offset 0 also attend the pooled history through a ``hist_blocks``-wide
+  table gather. Feeding generated tokens too on re-admission makes
+  recompute-preemption exact.
+- **decode** — every running request that finished prefill advances one
+  token in a single ``[slots, 1]`` forward, whose attention is the CUDA
+  flash-decode kernel on the card.
+
+Each step copies the scheduler's host tables / lengths / offsets into the
+device cache, runs the model under ``torch.inference_mode()``, samples
+(``serving/sampling.py``), and reads the tokens back — the one host sync
+of the step. Idle and non-stepped rows carry table 0 and length 0: their
+writes land in the null block and their sampled tokens are ignored.
+
+``python -m tpu_trainer_torch.serving.engine`` replays a seeded open-loop
+Poisson trace against a synthetic checkpoint and prints the summary. It
+runs on CUDA unless ``--device cpu`` is given.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from tpu_trainer_torch.models.config import GPTConfig
+from tpu_trainer_torch.models.gpt import GPT, init_paged_cache
+from tpu_trainer_torch.serving.paged_cache import PagedKVCache
+from tpu_trainer_torch.serving.sampling import sample_tokens
+from tpu_trainer_torch.serving.scheduler import Request, SamplingParams, Scheduler
+from tpu_trainer_torch.serving.tracing import ServingLedger, SpanTracer
+from tpu_trainer_torch.utils.device import resolve_device
+
+
+def _bucket_pow2(n: int, lo: int = 8) -> int:
+    w = lo
+    while w < n:
+        w *= 2
+    return w
+
+
+class ServingEngine:
+    """Continuous-batching engine over one model + parameter set.
+
+    ``params`` is a state dict for ``GPT(config)`` (``models.weights``).
+    ``device`` defaults to CUDA and raises without it; ``device="cpu"``
+    runs the plain attention path on the CPU.
+    """
+
+    def __init__(
+        self,
+        params: Dict[str, torch.Tensor],
+        config: GPTConfig,
+        *,
+        max_batch: int = 8,
+        block_size: int = 16,
+        num_blocks: Optional[int] = None,
+        max_blocks_per_request: Optional[int] = None,
+        kv_int8: bool = False,
+        attention: str = "auto",
+        eos_id: Optional[int] = None,
+        watermark_blocks: int = 0,
+        prefill_chunk_tokens: Optional[int] = None,
+        prefix_cache: bool = False,
+        clock=time.perf_counter,
+        trace: bool = True,
+        ts_interval: int = 32,
+        device=None,
+    ):
+        self.device = resolve_device(device)
+        if attention == "reference" and self.device.type == "cuda":
+            raise ValueError(
+                "attention='reference' is the CPU path; on CUDA decode "
+                "attention always runs the flash-decode kernel")
+        if max_blocks_per_request is None:
+            max_blocks_per_request = -(-config.max_seq_len // block_size)
+        if num_blocks is None:
+            # Enough for every slot to run at full context, + null block.
+            num_blocks = max_batch * max_blocks_per_request + 1
+        self.config = dataclasses.replace(
+            config,
+            dropout=0.0,
+            attention_dropout=0.0,
+            decode_paged=True,
+            decode_ragged=False,
+            paged_block_size=block_size,
+            paged_num_blocks=num_blocks,
+            paged_max_blocks=max_blocks_per_request,
+            paged_kv_int8=kv_int8,
+            paged_attention=attention,
+        )
+        self.model = _build_model(self.config, params, self.device)
+        self.max_batch = max_batch
+        self.eos_id = eos_id
+        self.clock = clock
+        self.prefix_cache = prefix_cache
+        self.cache_state = PagedKVCache(
+            self.config, max_batch, prefix_cache=prefix_cache)
+        self.scheduler = Scheduler(
+            self.cache_state, watermark_blocks=watermark_blocks,
+            prefill_chunk_tokens=prefill_chunk_tokens)
+        # Host-side observability; never touches the device path.
+        self.tracer = SpanTracer(enabled=trace)
+        self.scheduler.tracer = self.tracer
+        self.scheduler.now_fn = self._now
+        self.ledger = ServingLedger()
+        self.ts_interval = int(ts_interval)
+        self.serve_ts: List[dict] = []
+        self.device_cache = init_paged_cache(
+            self.config, max_batch, device=self.device)
+        self._k_cap = 1
+        self._iters = 0
+        self._t0 = None
+        self.wall_elapsed = 0.0
+        self._deadline_margins: List[float] = []
+        self.stats: Dict[str, float] = {
+            "prefill_iters": 0, "decode_iters": 0, "idle_iters": 0,
+            "prefill_tokens": 0, "prefill_chunks": 0,
+            "generated_tokens": 0,
+            "occupancy_sum": 0.0, "occupancy_samples": 0,
+            "occupancy_max": 0.0,
+            "finished": 0, "cancelled": 0, "deadline_exceeded": 0,
+            "failed": 0,
+        }
+
+    def reset_stats(self) -> None:
+        """Zero counters and clock between a warm-up and a timed run. The
+        engine must be drained; stale pool contents are masked by length."""
+        if self.scheduler.has_work():
+            raise RuntimeError("reset_stats on a busy engine")
+        self._iters = 0
+        self._t0 = None
+        sch = self.scheduler
+        sch.n_preemptions = sch.n_admissions = 0
+        sch.prefix_hit_tokens = sch.prompt_tokens = 0
+        for k in sch.terminal_counts:
+            sch.terminal_counts[k] = 0
+        self.cache_state.n_prefix_evictions = 0
+        self.wall_elapsed = 0.0
+        self._deadline_margins = []
+        self.tracer.reset()
+        self.ledger.reset()
+        self.serve_ts = []
+        for k in self.stats:
+            self.stats[k] = 0.0 if isinstance(self.stats[k], float) else 0
+
+    # -- one engine iteration ----------------------------------------------
+
+    def step(self) -> List[Request]:
+        """Run one scheduler iteration. Returns the requests that reached a
+        terminal state this iteration (finished, or retired by the
+        deadline sweep)."""
+        self._iters += 1
+        with self.ledger.track("host_sched"):
+            terminal = self._expire_deadlines()
+            kind, reqs = self.scheduler.schedule()
+        if kind == "idle":
+            self.stats["idle_iters"] += 1
+            return terminal
+        if kind == "prefill":
+            terminal += self._forward(reqs, prefill=True)
+            self.stats["prefill_iters"] += 1
+        else:
+            reqs = self.scheduler.ensure_decode_blocks()
+            if not reqs:          # everything preempted itself back out
+                return terminal
+            terminal += self._forward(reqs, prefill=False)
+            self.stats["decode_iters"] += 1
+        occ = self.cache_state.pool.occupancy
+        self.stats["occupancy_sum"] += occ
+        self.stats["occupancy_samples"] += 1
+        self.stats["occupancy_max"] = max(self.stats["occupancy_max"], occ)
+        return terminal
+
+    def _expire_deadlines(self) -> List[Request]:
+        s = self.scheduler
+        if (all(r.deadline is None for r in s.waiting)
+                and all(r.deadline is None for r in s.running)):
+            return []
+        now = self._now()
+        expired = s.expire(now)
+        for r in expired:
+            r.finished_at = now
+            self.stats["deadline_exceeded"] += 1
+            self._observe_deadline(r, now)
+        return expired
+
+    def _observe_deadline(self, r: Request, now: float) -> None:
+        if r.deadline is not None:
+            self._deadline_margins.append(now - r.deadline)
+
+    def cancel(self, rid: int) -> bool:
+        """Cancel a queued or in-flight request now (slot and blocks back
+        in the pool before this returns). False if ``rid`` is unknown."""
+        req = self.scheduler.cancel(rid)
+        if req is None:
+            return False
+        req.finished_at = self._now()
+        self.stats["cancelled"] += 1
+        return True
+
+    def _forward(self, reqs: List[Request], *, prefill: bool) -> List[Request]:
+        slots = self.max_batch
+        cs = self.cache_state
+        # Only the stepped rows carry real tables; the others are nulled
+        # so this pass cannot touch their blocks.
+        tables = np.zeros_like(cs.tables)
+        lengths = np.zeros((slots,), np.int32)
+        offsets = np.zeros((slots,), np.int32)
+        hist_blocks = 0
+        if prefill:
+            width = _bucket_pow2(max(r.prefill_chunk for r in reqs))
+            width = min(width, cs.capacity_tokens())
+            ids = np.zeros((slots, width), np.int64)
+            max_cursor = 0
+            for r in reqs:
+                seq = r.prompt + r.generated
+                cur, n = r.prefill_cursor, r.prefill_chunk
+                ids[r.slot, :n] = seq[cur:cur + n]
+                tables[r.slot] = cs.tables[r.slot]
+                lengths[r.slot] = cur + n
+                offsets[r.slot] = cur
+                max_cursor = max(max_cursor, cur)
+                self.stats["prefill_tokens"] += n
+                self.stats["prefill_chunks"] += 1
+            if max_cursor > 0:
+                hist_blocks = min(
+                    _bucket_pow2(cs.blocks_for(max_cursor), lo=1),
+                    cs.max_blocks)
+        else:
+            ids = np.zeros((slots, 1), np.int64)
+            for r in reqs:
+                ids[r.slot, 0] = (r.prompt + r.generated)[-1]
+                tables[r.slot] = cs.tables[r.slot]
+                lengths[r.slot] = r.cached_tokens()
+        temps = np.zeros((slots,), np.float32)
+        topks = np.zeros((slots,), np.int64)
+        topps = np.ones((slots,), np.float32)
+        keys = [0] * slots
+        steps = [0] * slots
+        for r in reqs:
+            temps[r.slot] = r.sampling.temperature
+            topks[r.slot] = r.sampling.top_k
+            topps[r.slot] = r.sampling.top_p
+            keys[r.slot] = r.key()
+            steps[r.slot] = len(r.generated)   # index of the draw made now
+            if r.sampling.top_k > self._k_cap:
+                self._k_cap = r.sampling.top_k
+
+        with self.ledger.track("dispatch"):
+            tokens = _engine_step(
+                self.model, self.device_cache, tables, lengths, offsets, ids,
+                temps, topks, topps, keys, steps, k_cap=self._k_cap,
+                prefill=prefill, hist_blocks=hist_blocks)
+            tokens = tokens.cpu().numpy()   # host read = dispatch sync
+
+        now = self._now()
+        finished: List[Request] = []
+        for r in reqs:
+            if prefill:
+                r.prefill_cursor += r.prefill_chunk
+                cs.lengths[r.slot] = r.prefill_cursor
+                self.tracer.emit(r.rid, "prefill_chunk", now,
+                                 tokens=r.prefill_chunk,
+                                 cursor=r.prefill_cursor)
+                if self.prefix_cache:
+                    self._register_prefix_blocks(r)
+                if r.prefilling():
+                    # Mid-prefill chunk: the draw is discarded; the final
+                    # chunk redraws at the same (seed, token index).
+                    continue
+            tok = int(tokens[r.slot])
+            r.generated.append(tok)
+            r.token_times.append(now)
+            self.stats["generated_tokens"] += 1
+            # Cache now holds everything fed this pass (not the new token).
+            cs.lengths[r.slot] = r.context_len() - 1
+            if r.first_token_at is None:
+                r.first_token_at = now
+                self.tracer.emit(r.rid, "first_token", now)
+            if (r.eos_id is not None and tok == r.eos_id) or (
+                    len(r.generated) >= r.max_new_tokens):
+                r.finished_at = now
+                self.scheduler.retire(r)
+                self.stats["finished"] += 1
+                self._observe_deadline(r, now)
+                finished.append(r)
+        return finished
+
+    def _register_prefix_blocks(self, r: Request) -> None:
+        """Publish the request's newly completed full PROMPT blocks in the
+        prefix index (a no-op on an existing digest)."""
+        cs = self.cache_state
+        done = min(r.prefill_cursor, len(r.prompt)) // cs.block_size
+        if done <= r._blocks_registered:
+            return
+        if r._prompt_digests is None:
+            r._prompt_digests = cs.block_digests(r.prompt)
+        blocks = cs.slot_blocks(r.slot)
+        for i in range(r._blocks_registered, done):
+            cs.prefix_register(r._prompt_digests[i], blocks[i])
+        r._blocks_registered = done
+
+    def _now(self) -> float:
+        if self._t0 is None:
+            self._t0 = self.clock()
+        return self.clock() - self._t0
+
+    # -- load signals ------------------------------------------------------
+
+    @property
+    def queue_depth(self) -> int:
+        return self.scheduler.queue_depth
+
+    @property
+    def outstanding_tokens(self) -> int:
+        return self.scheduler.outstanding_tokens
+
+    def oldest_wait_age(self, now: Optional[float] = None) -> float:
+        arr = self.scheduler.oldest_waiting_arrival
+        if arr is None:
+            return 0.0
+        return max(0.0, (self._now() if now is None else now) - arr)
+
+    # -- trace replay ------------------------------------------------------
+
+    def run(self, requests: Sequence[Request], *, time_mode: str = "wall",
+            max_iters: int = 10_000_000) -> List[Request]:
+        """Replay an open-loop trace: each request joins the queue when the
+        clock passes its ``arrival_time`` (seconds in ``"wall"`` mode,
+        engine iterations in the deterministic ``"steps"`` mode). Returns
+        the finished requests in input order. Every ``ts_interval``
+        iterations a ``kind: "serve_ts"`` sample goes to ``serve_ts``."""
+        if time_mode not in ("wall", "steps"):
+            raise ValueError(f"time_mode={time_mode!r}")
+        pending = sorted(requests, key=lambda r: (r.arrival_time, r.rid))
+        self._t0 = self.clock()
+        t_start = self._t0
+        done: List[Request] = []
+        while pending or self.scheduler.has_work():
+            now = float(self._iters) if time_mode == "steps" else self._now()
+            while pending and pending[0].arrival_time <= now:
+                self.scheduler.add(pending.pop(0))
+            if not self.scheduler.has_work():
+                with self.ledger.track("idle"):
+                    if time_mode == "wall":
+                        time.sleep(min(
+                            1e-3, max(0.0, pending[0].arrival_time - now)))
+                    else:
+                        self._iters += 1  # idle tick advances the clock
+                continue
+            done.extend(self.step())
+            if self.ts_interval and self._iters % self.ts_interval == 0:
+                self._emit_ts()
+            if self._iters >= max_iters:
+                raise RuntimeError(f"engine did not drain in {max_iters} iters")
+        self.wall_elapsed = self.clock() - t_start
+        self._emit_ts(final=True)
+        by_rid = {r.rid: r for r in done if r.status == "finished"}
+        return [by_rid[r.rid] for r in requests if r.rid in by_rid]
+
+    def _emit_ts(self, final: bool = False) -> dict:
+        s = self.stats
+        gauges = {
+            "t": round(self._now(), 6),
+            "iter": int(self._iters),
+            "queue_depth": self.queue_depth,
+            "running": len(self.scheduler.running),
+            "outstanding_tokens": self.outstanding_tokens,
+            "occupancy": round(float(self.cache_state.pool.occupancy), 4),
+            "generated_tokens": int(s["generated_tokens"]),
+            "prefix_hit_rate": round(
+                self.scheduler.prefix_hit_tokens
+                / max(1, self.scheduler.prompt_tokens), 4),
+        }
+        rec = self.ledger.record(gauges, final=final)
+        self.serve_ts.append(rec)
+        return rec
+
+    def summary(self) -> Dict[str, float]:
+        s = dict(self.stats)
+        n = max(1, int(s.pop("occupancy_samples")))
+        s["occupancy_mean"] = s.pop("occupancy_sum") / n
+        s["preemptions"] = self.scheduler.n_preemptions
+        s["iters"] = self._iters
+        s["prompt_tokens"] = self.scheduler.prompt_tokens
+        s["prefix_hit_tokens"] = self.scheduler.prefix_hit_tokens
+        s["prefix_hit_rate"] = (self.scheduler.prefix_hit_tokens
+                                / max(1, self.scheduler.prompt_tokens))
+        s["prefix_evictions"] = self.cache_state.n_prefix_evictions
+        s.update(self.cache_state.fragmentation())
+        s.update(self.scheduler.pool_shard_stats())
+        s["queue_depth"] = self.queue_depth
+        s["outstanding_tokens"] = self.outstanding_tokens
+        s["oldest_wait_s"] = (
+            self.oldest_wait_age() if self.scheduler.waiting else 0.0)
+        if self._deadline_margins:
+            margins = np.asarray(self._deadline_margins)
+            slack = np.maximum(margins, 0.0)
+            s["deadline_miss_rate"] = float(np.mean(margins > 0))
+            s["deadline_miss_slack_p50"] = float(np.percentile(slack, 50))
+            s["deadline_miss_slack_p99"] = float(np.percentile(slack, 99))
+        if self.wall_elapsed:
+            s["wall_s"] = self.wall_elapsed
+            s["tokens_per_s"] = s["generated_tokens"] / self.wall_elapsed
+        return s
+
+
+def _build_model(config: GPTConfig, params: Dict[str, torch.Tensor],
+                 device: torch.device) -> GPT:
+    """``GPT(config)`` on ``device`` holding ``params`` (moved/cast to each
+    parameter's device and dtype; a missing or extra name raises)."""
+    model = GPT(config, device="meta")
+    specs = dict(model.named_parameters())
+    state = {}
+    for name, value in params.items():
+        if name not in specs:
+            raise ValueError(f"unexpected parameter {name!r}")
+        state[name] = value.to(device=device, dtype=specs[name].dtype)
+    model.load_state_dict(state, strict=True, assign=True)
+    return model.requires_grad_(False).eval()
+
+
+@torch.inference_mode()
+def _engine_step(
+    model: GPT, cache, tables, lengths, offsets, ids, temps, topks, topps,
+    keys, steps, *, k_cap: int, prefill: bool, hist_blocks: int,
+) -> torch.Tensor:
+    """One engine step: copy host scheduling state into the device cache,
+    forward (the pools update in place), take each row's last real logit
+    (position ``lengths - offsets - 1`` of a prefill chunk), sample."""
+    dev = cache["tables"].device
+    cache["tables"].copy_(torch.from_numpy(tables))
+    cache["lengths"].copy_(torch.from_numpy(lengths))
+    cache["offsets"].copy_(torch.from_numpy(offsets))
+    logits_at = None
+    if prefill:
+        logits_at = torch.from_numpy(
+            np.maximum(lengths - offsets - 1, 0)).to(dev)
+    logits = model(torch.from_numpy(ids).to(dev), cache,
+                   hist_blocks=hist_blocks, logits_at=logits_at)[:, 0]
+    return sample_tokens(logits, temps, topks, topps, keys, steps,
+                         k_cap=k_cap)
+
+
+def poisson_trace(
+    n_requests: int,
+    *,
+    vocab_size: int,
+    rate: float = 8.0,
+    seed: int = 0,
+    prompt_len_range: Tuple[int, int] = (8, 64),
+    max_new_range: Tuple[int, int] = (8, 32),
+    temperature: float = 1.0,
+    top_k: int = 0,
+    top_p: float = 1.0,
+    eos_id: Optional[int] = None,
+) -> List[Request]:
+    """Synthetic open-loop trace: exponential inter-arrivals at ``rate``
+    per time unit, uniform prompt/output lengths, one sampling seed per
+    request — all from ``seed``, the same trace the JAX package builds."""
+    rs = np.random.RandomState(seed)
+    arrivals = np.cumsum(rs.exponential(1.0 / rate, size=n_requests))
+    out = []
+    for i in range(n_requests):
+        plen = int(rs.randint(prompt_len_range[0], prompt_len_range[1] + 1))
+        mnew = int(rs.randint(max_new_range[0], max_new_range[1] + 1))
+        prompt = rs.randint(1, vocab_size, size=plen).tolist()
+        out.append(Request(
+            rid=i,
+            prompt=[int(t) for t in prompt],
+            max_new_tokens=mnew,
+            sampling=SamplingParams(
+                temperature=temperature, top_k=top_k, top_p=top_p,
+                seed=int(rs.randint(0, 2**31 - 1)),
+            ),
+            arrival_time=float(arrivals[i]),
+            eos_id=eos_id,
+        ))
+    return out
+
+
+def request_metrics(reqs: Sequence[Request]) -> Dict[str, List[float]]:
+    """Latency series on the engine's time axis: TTFT (first token minus
+    arrival, one per request), TPOT (every inter-token gap), queue_wait
+    (first admission minus arrival)."""
+    ttft, tpot, queue_wait = [], [], []
+    for r in reqs:
+        if r.admitted_at is not None:
+            queue_wait.append(max(0.0, r.admitted_at - r.arrival_time))
+        if r.first_token_at is None:
+            continue
+        ttft.append(r.first_token_at - r.arrival_time)
+        if len(r.token_times) >= 2:
+            tpot.extend(b - a for a, b in zip(r.token_times, r.token_times[1:]))
+        elif not r.token_times:
+            n_rest = len(r.generated) - 1
+            if n_rest > 0 and r.finished_at is not None:
+                tpot.append((r.finished_at - r.first_token_at) / n_rest)
+    return {"ttft": ttft, "tpot": tpot, "queue_wait": queue_wait}
+
+
+def _main(argv=None) -> int:
+    import argparse
+    import json
+
+    from tpu_trainer_torch.models.weights import init_params
+
+    p = argparse.ArgumentParser(
+        description="Replay a seeded Poisson trace through the serving "
+        "engine on a synthetic checkpoint.")
+    p.add_argument("--requests", type=int, default=32)
+    p.add_argument("--rate", type=float, default=8.0)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--max-batch", type=int, default=8)
+    p.add_argument("--block-size", type=int, default=16)
+    p.add_argument("--num-blocks", type=int, default=0,
+                   help="KV pool blocks (0 = size for max_batch full contexts)")
+    p.add_argument("--kv-int8", action="store_true")
+    p.add_argument("--prefill-chunk", type=int, default=0,
+                   help="chunked-prefill token budget per iteration "
+                        "(0 = whole-prompt prefill)")
+    p.add_argument("--prefix-cache", action="store_true",
+                   help="copy-on-write prefix sharing in the block pool")
+    p.add_argument("--attention", default="auto",
+                   choices=("auto", "reference", "kernel"))
+    p.add_argument("--temperature", type=float, default=1.0)
+    p.add_argument("--top-k", type=int, default=0)
+    p.add_argument("--top-p", type=float, default=1.0,
+                   help="nucleus sampling mass (1.0 = off)")
+    p.add_argument("--spec", default="off", choices=("off", "ngram", "draft"),
+                   help="speculative decoding proposer (only off is ported)")
+    p.add_argument("--spec-k", type=int, default=4)
+    p.add_argument("--spec-draft-layers", type=int, default=1)
+    p.add_argument("--time-mode", default="wall", choices=("wall", "steps"))
+    p.add_argument("--vocab", type=int, default=512)
+    p.add_argument("--hidden", type=int, default=128)
+    p.add_argument("--layers", type=int, default=2)
+    p.add_argument("--heads", type=int, default=4)
+    p.add_argument("--max-seq-len", type=int, default=256)
+    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    args = p.parse_args(argv)
+    if args.spec != "off":
+        raise NotImplementedError(
+            f"--spec {args.spec}: speculative decoding is not ported yet")
+
+    config = GPTConfig(
+        vocab_size=args.vocab, hidden_size=args.hidden,
+        num_layers=args.layers, num_heads=args.heads,
+        max_seq_len=args.max_seq_len, dropout=0.0, attention_dropout=0.0,
+        dtype="float32", param_dtype="float32",
+    )
+    params = init_params(config, args.seed, device=args.device)
+    engine = ServingEngine(
+        params, config, max_batch=args.max_batch,
+        block_size=args.block_size, num_blocks=args.num_blocks or None,
+        kv_int8=args.kv_int8, attention=args.attention,
+        prefill_chunk_tokens=args.prefill_chunk or None,
+        prefix_cache=args.prefix_cache, device=args.device,
+    )
+    trace = poisson_trace(
+        args.requests, vocab_size=args.vocab, rate=args.rate,
+        seed=args.seed, temperature=args.temperature, top_k=args.top_k,
+        top_p=args.top_p)
+    finished = engine.run(trace, time_mode=args.time_mode)
+    summary = engine.summary()
+    summary["device"] = str(engine.device)
+    lat = request_metrics(finished)
+    for name, series in lat.items():
+        if series:
+            summary[f"{name}_p50"] = float(np.percentile(series, 50))
+            summary[f"{name}_p99"] = float(np.percentile(series, 99))
+    print(json.dumps({k: round(v, 6) if isinstance(v, float) else v
+                      for k, v in sorted(summary.items())}, indent=2))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(_main())
