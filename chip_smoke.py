@@ -5,12 +5,13 @@ Drives the port on one NVIDIA GPU (written for the H100) and nothing of the
 JAX package. Phases, each fatal on failure:
 
 1. card    -- the card's name and power limit; builds every CUDA kernel of
-              the serving path from ``tpu_trainer_torch/csrc`` with nvcc
-              for sm_90a and prints the build time and ptxas's report.
+              ``tpu_trainer_torch/csrc`` with nvcc for sm_90a (one nvcc a
+              source, all started together) and prints the build time and
+              ptxas's report.
 2. kernel  -- ``flash_decode``'s kernel against its plain PyTorch version
-              (``paged_attention_reference``) on the card: the main path's
-              shape (b=8, h=kvh=12, d=64, block 16, 64 blocks a row, 513
-              pool blocks, 4 splits, ragged lengths 1..1024 with a
+              (``paged_attention_reference``) on the card: the serving
+              path's shape (b=8, h=kvh=12, d=64, block 16, 64 blocks a row,
+              513 pool blocks, 4 splits, ragged lengths 1..1024 with a
               null-block row), a GQA shape (h=32, kvh=8, d=128) and odd
               splits (mb=3), each with f32, bf16 and int8 pools. Times the
               kernel (also at 8 and 16 splits), the plain version and
@@ -22,7 +23,7 @@ JAX package. Phases, each fatal on failure:
 3. reference -- a tiny f32 engine on the card against the same engine on
               the CPU (the plain attention path): greedy streams, scheduler
               counters and kernel launches.
-4. engine  -- the main path: ``ServingEngine(device="cuda")`` at GPT-2
+4. engine  -- the serving path: ``ServingEngine(device="cuda")`` at GPT-2
               small full width (vocab 50257, hidden 768, 12 layers, 12
               heads), bf16 compute over f32 params from ``init_params``,
               max_batch 8, block 16, replays a seeded Poisson trace of 24
@@ -34,6 +35,44 @@ JAX package. Phases, each fatal on failure:
               time goes: device busy share and the top kernels and host
               ops of a short trace under ``torch.profiler``.
 5. int8    -- a short ``kv_int8=True`` run of the same engine, same checks.
+6. train-kernel -- the flash forward and fused backward kernels against
+              ``flash_attention_reference`` (o, lse, the rotated q/k, and
+              dq/dk/dv through autograd of the plain version) at the
+              training shape (b=8, s=1024, h=12, d=64; f32 and bf16, with
+              and without dropout), a GQA shape (h=32, kvh=8, d=128) and a
+              ragged s=1000; the head + CE kernel against
+              ``head_ce_reference`` at T=8192, H=768, V=50257 bf16 and at
+              V=1000 (logits, lse, label logit, loss, dx/dE through the
+              backward). f32 results are held against the f32 plain
+              version; bf16 results against the plain version run in f32
+              (the truth), next to the bf16 plain version's error; the
+              check must reject planted faults. Times each kernel, its
+              plain version and one PyTorch call as a yardstick (SDPA
+              forward/backward; matmul + ``cross_entropy``) with CUDA
+              events, and computes the bounds.
+7. mask    -- the dropout keep mask dumped by a CUDA kernel through the
+              flash kernels' ``__device__`` hash, under 128/64/256 tilings
+              in q-major and k-major order, bitwise against the torch
+              ``_keep_mask``; keep rate within 3 sigma of 1 - rate.
+8. train-reference -- a tiny f32 ``Trainer`` (hidden 128, 2 heads of 64,
+              2 layers, vocab 512, dropout off) for 5 steps on the card
+              against the same on the CPU, equal weights and batches: loss,
+              grad-norm and lr trajectories.
+9. train-grads -- one GPT-2 small bf16 step (batch 8 x 1024, dropout 0.1)
+              through the kernels and through their plain versions, both
+              held against the plain step in f32 on the same weights,
+              batch and dropout seeds: loss, global grad norm and every
+              parameter's gradient.
+10. train  -- the training path: ``Trainer(device="cuda")`` at GPT-2 small
+              full width and depth with the configuration bench.py
+              measures (batch 8 x 1024, bf16 over f32 masters, dropout 0.1
+              on the residuals and in attention, flash attention, fused
+              head + CE, accumulation 1), 10 steps of ``DummyDataLoader``
+              batches with the launch counts zeroed just before. Checks
+              every loss finite (the first near ln(vocab)), forward ==
+              backward launches == 12 x steps, head-CE launches == steps;
+              prints step ms, tok/s, MFU, peak device memory and a
+              ``torch.profiler`` split of two more steps.
 
 Then the ``kernels`` JSON line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. Without CUDA it exits 2 and prints no
@@ -333,6 +372,712 @@ def phase_reference(results: dict) -> None:
     results["reference"] = "ok"
 
 
+# -- training phases ---------------------------------------------------------
+
+# Dense bf16 tensor-core peak of an H100 SXM (NVIDIA data sheet, 700 W).
+BF16_FLOPS = 989e12
+# f32 kernel vs its f32 plain version on the same inputs: |err| <= atol +
+# rtol * max|plain|. Reduction order only (dq adds across blocks with
+# atomics, so its order changes from run to run).
+F32_TOL = (1e-4, 1e-4)
+# A bf16 kernel and its bf16 plain version both round (p, the products'
+# operands, the outputs), each in its own places, so neither is the truth.
+# Both are held against the plain version run in f32 on the same values:
+# the kernel's error must stay within NEAR_FACTOR times the bf16 plain
+# version's, as the worst element and as an L2 norm, plus a floor of
+# NEAR_FLOOR[dtype of the result] times the truth's rms (for bf16 results
+# half the unit roundoff 2^-8 of a typical element; f32 results such as
+# lse come from f32 sums on both sides).
+NEAR_FACTOR = 2.0
+NEAR_FLOOR = {torch.bfloat16: 2.0**-9, torch.float32: 2.0**-15}
+# The tiny f32 trainer on the card against the same trainer on the CPU:
+# f32 sums in other orders (TF32 off); Adam turns O(ulp) differences of
+# near-zero gradients into O(lr) parameter differences, which the loss and
+# grad norm see at the 1e-5 level after 5 steps.
+TRAIN_REF_RTOL = 1e-4
+
+
+def event_ms(fn, n: int, *, reps: int = 5) -> float:
+    """Device time of one call: ``fn(i)`` for i in 0..n-1 between CUDA
+    events after a warm-up round, median over ``reps``. For calls of a
+    millisecond or more, where host launch time hides behind the device."""
+    for i in range(n):
+        fn(i)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(n):
+            fn(i)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return statistics.median(times)
+
+
+def _close(what, got, want) -> float:
+    """An f32 kernel result against its f32 plain version (F32_TOL);
+    returns max |kernel - plain|."""
+    atol, rtol = F32_TOL
+    got, want = got.detach().float(), want.detach().float()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: non-finite kernel output")
+    err = float((got - want).abs().max())
+    lim = atol + rtol * float(want.abs().max())
+    if err > lim:
+        raise AssertionError(f"{what}: kernel vs plain max |err| {err:.3e} "
+                             f"> {lim:.3e}")
+    return err
+
+
+def _near_truth(what, got, plain, truth) -> dict:
+    """A bf16 kernel result against the f32 truth, next to its bf16 plain
+    version's error (NEAR_FACTOR, NEAR_FLOOR). Returns the errors; raises
+    when the kernel's worst element or L2 error is past its limit."""
+    floor = NEAR_FLOOR[got.dtype]
+    got, plain, truth = (t.detach().float() for t in (got, plain, truth))
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: non-finite kernel output")
+    rms = float(torch.linalg.vector_norm(truth, dtype=torch.float64)
+                ) / math.sqrt(truth.numel())
+    out = {"vs_plain": float((got - plain).abs().max())}
+    for name, norm in (("max", lambda t: float(t.abs().max())),
+                       ("l2", lambda t: float(torch.linalg.vector_norm(
+                           t, dtype=torch.float64)))):
+        k, p = norm(got - truth), norm(plain - truth)
+        n = 1.0 if name == "max" else math.sqrt(truth.numel())
+        lim = NEAR_FACTOR * p + floor * rms * n
+        out[name] = {"kernel": k, "plain": p, "limit": lim}
+        if not k <= lim:
+            raise AssertionError(
+                f"{what}: kernel {name} error vs the f32 truth {k:.3e} > "
+                f"{lim:.3e} ({NEAR_FACTOR:g} x the bf16 plain version's "
+                f"{p:.3e} + {floor:.1e} x rms {rms:.3e} x {n:.0f})")
+    return out
+
+
+def _attn_set(b, s, h, kvh, d, dtype, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dt = getattr(torch, dtype)
+    mk = lambda heads: torch.randn((b, s, heads, d), generator=gen,  # noqa
+                                   device="cuda").to(dt)
+    return mk(h), mk(kvh), mk(kvh), mk(h)
+
+
+def _attn_bounds(b, s, h, kvh, d, elem) -> dict:
+    """Least times of the forward and backward: bytes (each input read
+    once, each output written once) over 3.35 TB/s; the tensor-core
+    products' flops on the causal pairs over 989 TFLOP/s."""
+    pairs = b * s * (s + 1) // 2
+    qb, kvb = b * s * h * d * elem, b * s * kvh * d * elem
+    rows, rope = b * h * s * 4, 2 * s * d * 4
+    fwd_bytes = qb + 2 * kvb + rope + 2 * qb + kvb + rows   # -> o, qs, ks, lse
+    bwd_bytes = 3 * qb + 2 * kvb + rows + rope + qb + 2 * kvb
+    out = {}
+    for name, nbytes, flops in (("fwd", fwd_bytes, 4 * d * h * pairs),
+                                ("bwd", bwd_bytes, 10 * d * h * pairs)):
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+        out[name] = {"bound_ms": 1e3 * max(t_b, t_o),
+                     "bound_by": "bytes" if t_b >= t_o else "operations",
+                     "bytes": nbytes, "flops": flops}
+    return out
+
+
+def _must_reject(what, check) -> None:
+    """``check()`` holds a planted fault against the truth and must
+    raise."""
+    try:
+        check()
+    except AssertionError:
+        return
+    raise AssertionError(f"the check passed a planted fault: {what}")
+
+
+def _flash_case(tag, b, s, h, kvh, d, dtype, rate) -> dict:
+    """One shape through the kernels (the autograd Function, and
+    ``flash_forward`` alone) and through the plain version: f32 results
+    against the f32 plain version, bf16 results against the f32 truth
+    next to the bf16 plain version. The rotated q/k residuals must equal
+    the plain version's bitwise. Returns max |kernel - plain| per result
+    (and the truth errors for bf16)."""
+    from tpu_trainer_torch.ops import flash
+    from tpu_trainer_torch.ops.rope import rope_tables
+
+    q, k, v, do = _attn_set(b, s, h, kvh, d, dtype, seed=s + h)
+    kw = dict(dropout_rate=rate, seed=0x5EED if rate else None,
+              rope=rope_tables(s, d, device="cuda"))
+
+    def plain(xs, grad_out):
+        xs = [x.clone().requires_grad_(True) for x in xs]
+        o, lse, qs, ks = flash._reference_parts(*xs, causal=True,
+                                                segment_ids=None, **kw)
+        o.backward(grad_out)
+        return {"o": o, "lse": lse, "qs": qs, "ks": ks, "dq": xs[0].grad,
+                "dk": xs[1].grad, "dv": xs[2].grad}
+
+    tq, tk, tv = (t.clone().requires_grad_(True) for t in (q, k, v))
+    out = flash.flash_attention(tq, tk, tv, **kw)
+    out.backward(do)
+    o, lse, qs, ks = flash.flash_forward(q, k, v, **kw)
+    torch.cuda.synchronize()
+    got = {"o": out, "o_direct": o, "lse": lse, "dq": tq.grad,
+           "dk": tk.grad, "dv": tv.grad}
+    ref = plain((q, k, v), do)
+    ref["o_direct"] = ref["o"]
+    for name, a, r in (("rotated q", qs, ref["qs"]),
+                       ("rotated k", ks, ref["ks"])):
+        if not torch.equal(a, r):
+            raise AssertionError(f"{tag} {name}: {int((a != r).sum())} "
+                                 f"elements differ from the plain version")
+    if dtype == "float32":
+        errs = {n: _close(f"{tag} {n}", t, ref[n]) for n, t in got.items()}
+        log("train-kernel", f"flash {tag:<24} b={b} s={s} h={h} kvh={kvh} "
+                            f"d={d}: rotated q/k bitwise; max|kernel - "
+                            f"plain| " + ", ".join(
+                                f"{n} {e:.2e}" for n, e in errs.items()))
+        return errs
+    truth = plain([x.float() for x in (q, k, v)], do.float())
+    near = {n: _near_truth(f"{tag} {n}", t, ref[n], truth[n.split("_")[0]])
+            for n, t in got.items()}
+    if rate and tag.startswith("main"):
+        _must_reject(f"{tag} o divided by l, not l (1 - rate)",
+                     lambda: _near_truth("o", out * (1 - rate), ref["o"],
+                                         truth["o"]))
+        _must_reject(f"{tag} dq all zero",
+                     lambda: _near_truth("dq", torch.zeros_like(tq.grad),
+                                         ref["dq"], truth["dq"]))
+    log("train-kernel", f"flash {tag:<24} b={b} s={s} h={h} kvh={kvh} "
+                        f"d={d}: rotated q/k bitwise; error vs the f32 "
+                        f"truth, kernel/plain bf16, max and L2: " + ", ".join(
+                            f"{n} {r['max']['kernel']:.1e}/"
+                            f"{r['max']['plain']:.1e} "
+                            f"{r['l2']['kernel']:.2e}/{r['l2']['plain']:.2e}"
+                            for n, r in near.items() if n != "o_direct"))
+    return {**{n: r["vs_plain"] for n, r in near.items()}, "truth": near}
+
+
+def phase_train_kernel(results: dict) -> dict:
+    """Flash forward/backward against ``flash_attention_reference`` (o,
+    lse, rotated q/k, and dq/dk/dv through autograd of the plain version),
+    and the head + CE kernel against ``head_ce_reference`` (logits, lse,
+    label logit, loss, dx/dE through the two-matmul backward). Every case
+    runs; the phase fails after the last if any failed."""
+    import torch.nn.functional as F
+
+    from tpu_trainer_torch.ops import flash
+    from tpu_trainer_torch.ops.rope import rope_tables
+
+    cases = [("main", 8, 1024, 12, 12, 64, dt, rate)
+             for dt in ("float32", "bfloat16") for rate in (0.0, 0.1)]
+    cases += [("gqa", 2, 1024, 32, 8, 128, "bfloat16", 0.1),
+              ("ragged", 2, 1000, 12, 12, 64, "bfloat16", 0.1)]
+    rows, fwd_err, bwd_err, failures = [], 0.0, 0.0, []
+    for name, b, s, h, kvh, d, dtype, rate in cases:
+        tag = f"{name}/{dtype}/p={rate}"
+        try:
+            row = _flash_case(tag, b, s, h, kvh, d, dtype, rate)
+        except AssertionError as e:
+            failures.append(str(e))
+            log("train-kernel", f"flash {tag}: FAILED: {e}")
+            continue
+        fwd_err = max(fwd_err, *(row[n] for n in ("o", "o_direct", "lse")))
+        bwd_err = max(bwd_err, *(row[n] for n in ("dq", "dk", "dv")))
+        rows.append({"case": name, "dtype": dtype, "dropout": rate,
+                     "shape": [b, s, h, kvh, d], **row})
+
+    # Times at the main path's shape and settings (bf16, dropout 0.1,
+    # RoPE), four input sets so L2 holds none between calls.
+    b, s, h, d = 8, 1024, 12, 64
+    sets = [_attn_set(b, s, h, h, d, "bfloat16", seed=i) for i in range(4)]
+    rope = rope_tables(s, d, device="cuda")
+    kw = dict(dropout_rate=0.1, seed=7, rope=rope)
+    res = [flash.flash_forward(q, k, v, **kw) for q, k, v, _ in sets]
+    t = {"fwd_ms": event_ms(lambda i: flash.flash_forward(
+             *sets[i][:3], **kw), 4),
+         "bwd_ms": event_ms(lambda i: flash.flash_backward(
+             res[i][2], res[i][3], sets[i][2], res[i][0], res[i][1],
+             sets[i][3], **kw), 4)}
+    with torch.no_grad():
+        t["plain_fwd_ms"] = event_ms(lambda i: flash.flash_attention_reference(
+            *sets[i][:3], **kw), 4, reps=3)
+    q, k, v, do = (x.clone().requires_grad_(i < 3)
+                   for i, x in enumerate(sets[0]))
+    ref = flash.flash_attention_reference(q, k, v, **kw)
+    t["plain_bwd_ms"] = event_ms(lambda i: torch.autograd.grad(
+        ref, (q, k, v), do, retain_graph=True), 2, reps=3)
+    del ref
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                  for x in sets[0][:3])
+    dot = sets[0][3].transpose(1, 2).contiguous()
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=True, dropout_p=0.1)
+    with torch.no_grad():
+        t["sdpa_fwd_ms"] = event_ms(lambda i: sdpa(), 4)
+    lib_out = sdpa()
+    t["sdpa_bwd_ms"] = event_ms(lambda i: torch.autograd.grad(
+        lib_out, (qt, kt, vt), dot, retain_graph=True), 4)
+    del lib_out, res, sets
+    bounds = _attn_bounds(b, s, h, h, d, 2)
+    log("train-kernel", f"flash at b={b} s={s} h={h} d={d} bf16, dropout "
+                        f"0.1, RoPE: forward {t['fwd_ms']:.3f} ms (bound "
+                        f"{bounds['fwd']['bound_ms']:.4f} ms by "
+                        f"{bounds['fwd']['bound_by']}: "
+                        f"{bounds['fwd']['bytes'] / 1e6:.1f} MB, "
+                        f"{bounds['fwd']['flops'] / 1e9:.2f} GFLOP), plain "
+                        f"{t['plain_fwd_ms']:.3f} ms, SDPA "
+                        f"{t['sdpa_fwd_ms']:.3f} ms")
+    log("train-kernel", f"flash backward {t['bwd_ms']:.3f} ms (bound "
+                        f"{bounds['bwd']['bound_ms']:.4f} ms by "
+                        f"{bounds['bwd']['bound_by']}: "
+                        f"{bounds['bwd']['bytes'] / 1e6:.1f} MB, "
+                        f"{bounds['bwd']['flops'] / 1e9:.2f} GFLOP), plain "
+                        f"{t['plain_bwd_ms']:.3f} ms, SDPA "
+                        f"{t['sdpa_bwd_ms']:.3f} ms")
+    head = _head_ce_checks(failures)
+    results["train_kernel"] = {"flash_checks": rows, "flash_times": t,
+                               "flash_bounds": bounds, "head_ce": head,
+                               "failures": failures}
+    if failures:
+        raise AssertionError(f"train-kernel: {len(failures)} failed: "
+                             + " | ".join(failures))
+    return {"fwd_err": fwd_err, "bwd_err": bwd_err, "times": t,
+            "bounds": bounds, "head": head}
+
+
+def _head_ce_case(T, H, V, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((T, H), generator=gen, device="cuda").bfloat16()
+    e = (torch.randn((V, H), generator=gen, device="cuda") * 0.05).bfloat16()
+    lab = torch.randint(0, V, (T,), generator=gen, device="cuda")
+    w = torch.ones(T, device="cuda")
+    w[1023::1024] = 0.0                       # each row's last position
+    return x, e, lab, w / w.sum()
+
+
+def _head_ce_checks(failures: list) -> dict:
+    """The head + CE kernel and the backward from its logits against the
+    f32 truth (``head_ce_reference`` on f32 values, whose lse and label
+    logit the bf16 plain version shares), next to the bf16 plain version.
+    A failing shape is added to ``failures``."""
+    import torch.nn.functional as F
+
+    from tpu_trainer_torch.ops import head_ce
+
+    out = {"checks": [], "max_abs_err": 0.0}
+    for T, H, V in ((8192, 768, 50257), (2048, 768, 1000)):
+        x, e, lab, w = _head_ce_case(T, H, V, seed=V)
+        tag = f"head_ce T={T} H={H} V={V}"
+        lg, lse, ll = head_ce.head_ce_forward(x, e, lab)
+        torch.cuda.synchronize()
+        got = {"logits": lg, "lse": lse, "ll": ll,
+               "loss": ((lse - ll) * w).sum()}
+        plain = dict(zip(("logits", "lse", "ll"),
+                         head_ce.head_ce_reference(x, e, lab)))
+        plain["loss"] = ((plain["lse"] - plain["ll"]) * w).sum()
+        truth = dict(zip(("logits", "lse", "ll"), head_ce.head_ce_reference(
+            x.float(), e.float(), lab)))
+        truth["loss"] = ((truth["lse"] - truth["ll"]) * w).sum()
+        try:
+            near = {n: _near_truth(f"{tag} {n}", got[n], plain[n], truth[n])
+                    for n in got}
+            grads = {}
+            for name, src, xs in (("got", got, (x, e)),
+                                  ("plain", plain, (x, e)),
+                                  ("truth", truth, (x.float(), e.float()))):
+                # head_ce_grads consumes f32 logits in place: truth last.
+                grads[name] = dict(zip(("dx", "dE"), head_ce.head_ce_grads(
+                    src["logits"], src["lse"], lab, w, *xs)))
+            for n in ("dx", "dE"):
+                near[n] = _near_truth(f"{tag} {n}", grads["got"][n],
+                                      grads["plain"][n], grads["truth"][n])
+            if V == 50257:
+                _must_reject(f"{tag} dE all zero", lambda: _near_truth(
+                    "dE", torch.zeros_like(grads["got"]["dE"]),
+                    grads["plain"]["dE"], grads["truth"]["dE"]))
+        except AssertionError as err:
+            failures.append(str(err))
+            log("train-kernel", f"{tag}: FAILED: {err}")
+            continue
+        errs = {n: r["vs_plain"] for n, r in near.items()}
+        out["checks"].append({"shape": [T, H, V], **errs, "truth": near})
+        out["max_abs_err"] = max(out["max_abs_err"], *errs.values())
+        log("train-kernel", tag + ": error vs the f32 truth, kernel/plain "
+            "bf16, max and L2: " + ", ".join(
+                f"{n} {r['max']['kernel']:.1e}/{r['max']['plain']:.1e} "
+                f"{r['l2']['kernel']:.2e}/{r['l2']['plain']:.2e}"
+                for n, r in near.items()))
+        del got, plain, truth, grads
+    T, H, V = 8192, 768, 50257
+    x, e, lab, _ = _head_ce_case(T, H, V, seed=1)
+    out["ms"] = event_ms(lambda i: head_ce.head_ce_forward(x, e, lab), 3)
+    with torch.no_grad():
+        out["plain_ms"] = event_ms(
+            lambda i: head_ce.head_ce_reference(x, e, lab), 2, reps=3)
+        out["library_ms"] = event_ms(lambda i: F.cross_entropy(
+            (x @ e.T).float(), lab), 3)
+    nbytes = T * H * 2 + V * H * 2 + T * 8 + V * T * 2 + 2 * T * 4
+    flops = 2 * T * V * H
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    out.update(bound_ms=1e3 * max(t_b, t_o),
+               bound_by="bytes" if t_b >= t_o else "operations",
+               bytes=nbytes, flops=flops)
+    log("train-kernel", f"head_ce at T={T} H={H} V={V} bf16: kernel "
+                        f"{out['ms']:.3f} ms (bound {out['bound_ms']:.4f} ms "
+                        f"by {out['bound_by']}: {nbytes / 1e6:.1f} MB, "
+                        f"{flops / 1e9:.1f} GFLOP), plain "
+                        f"{out['plain_ms']:.3f} ms, matmul + cross_entropy "
+                        f"{out['library_ms']:.3f} ms")
+    return out
+
+
+def phase_mask(results: dict) -> dict:
+    """The dropout keep mask dumped by the CUDA kernel (the flash kernels'
+    ``__device__`` hash) under several tilings and block orders, bitwise
+    against the torch ``_keep_mask``; keep rate within 3 sigma."""
+    from tpu_trainer_torch.ops import flash
+
+    seq, rate, seed, salt = 1024, 0.1, 0xFEEDBEEF, 5
+    want = flash._keep_mask(seed, torch.tensor(salt, device="cuda"), 0, 0,
+                            seq, seq, seq, rate)
+    rows = []
+    for bq, bk, k_major in ((128, 128, False), (128, 128, True),
+                            (64, 64, False), (256, 256, True),
+                            (64, 256, False), (256, 64, True)):
+        got = flash.keep_mask_cuda(seed, salt, seq, rate, block_q=bq,
+                                   block_k=bk, k_major=k_major)
+        if not torch.equal(got, want):
+            raise AssertionError(f"mask {bq}x{bk} k_major={k_major}: "
+                                 f"{int((got != want).sum())} bits differ")
+        rows.append([bq, bk, k_major])
+    n = seq * seq
+    keep = float(want.float().mean())
+    sigma = math.sqrt(rate * (1 - rate) / n)
+    if abs(keep - (1 - rate)) > 3 * sigma:
+        raise AssertionError(f"keep rate {keep:.5f} outside 3 sigma of "
+                             f"{1 - rate}")
+    salt_t = torch.tensor(salt, device="cuda")
+    rec = {"tilings": rows, "keep_rate": keep, "sigma": sigma,
+           "ms": event_ms(lambda i: flash.keep_mask_cuda(
+               seed, salt, seq, rate, block_q=128, block_k=128), 8),
+           "plain_ms": event_ms(lambda i: flash._keep_mask(
+               seed, salt_t, 0, 0, seq, seq, seq, rate), 8),
+           "bound_ms": 1e3 * n / HBM_BYTES_PER_S, "bound_by": "bytes"}
+    results["mask"] = rec
+    log("mask", f"keep mask [{seq}, {seq}] bitwise equal to _keep_mask under "
+                f"{len(rows)} tilings (q- and k-major); keep rate {keep:.5f} "
+                f"vs {1 - rate} +- 3 sigma {3 * sigma:.5f}; kernel "
+                f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound "
+                f"{rec['bound_ms']:.5f} ms (1 byte an element written)")
+    return rec
+
+
+def phase_train_reference(results: dict) -> None:
+    """A tiny f32 Trainer on the card against the same on the CPU: equal
+    weights and batches, dropout off, 5 steps."""
+    from tpu_trainer_torch.data.dummy import DummyDataLoader
+    from tpu_trainer_torch.models.config import GPTConfig
+    from tpu_trainer_torch.models.weights import init_params
+    from tpu_trainer_torch.ops import flash
+    from tpu_trainer_torch.training.config import TrainingConfig
+    from tpu_trainer_torch.training.trainer import Trainer
+
+    cfg = GPTConfig(vocab_size=512, hidden_size=128, num_layers=2,
+                    num_heads=2, max_seq_len=128, dropout=0.0,
+                    attention_dropout=0.0, use_flash_attention=True)
+    tc = TrainingConfig(batch_size=2, max_seq_len=128,
+                        gradient_accumulation_steps=1, mixed_precision="fp32",
+                        learning_rate=1e-3, warmup_steps=2, max_steps=5)
+    params = init_params(cfg, seed=0, device="cpu")
+    traj = {}
+    for dev in ("cpu", "cuda"):
+        trainer = Trainer(cfg, tc, device=dev)
+        state = trainer.init_state(0, params=params)
+        before = (flash.flash_forward.launches, flash.flash_backward.launches)
+        traj[dev] = []
+        for batch in DummyDataLoader(2, 128, 512, 5):
+            state, m = trainer.train_step(state, batch)
+            traj[dev].append(m)
+        launches = (flash.flash_forward.launches - before[0],
+                    flash.flash_backward.launches - before[1])
+        want = (0, 0) if dev == "cpu" else (10, 10)
+        if launches != want:
+            raise AssertionError(f"train-reference {dev}: flash launches "
+                                 f"{launches}, want {want}")
+    worst = 0.0
+    for c, g in zip(traj["cpu"], traj["cuda"]):
+        for key in ("loss", "grad_norm", "lr"):
+            rel = abs(g[key] - c[key]) / max(abs(c[key]), 1e-12)
+            worst = max(worst, rel)
+            if rel > TRAIN_REF_RTOL:
+                raise AssertionError(f"train-reference {key}: cuda {g[key]} "
+                                     f"cpu {c[key]} (rel {rel:.2e})")
+    results["train_reference"] = {"cpu": traj["cpu"], "cuda": traj["cuda"],
+                                  "max_rel": worst}
+    log("train-reference", "tiny f32 trainer 5 steps: losses "
+        + " ".join(f"{m['loss']:.5f}" for m in traj["cuda"])
+        + f" on cuda; loss/grad_norm/lr within {worst:.1e} relative of the "
+          f"cpu run (<= {TRAIN_REF_RTOL:.0e}); 10 forward + 10 backward "
+          f"kernel launches")
+
+
+# One full-width bf16 step's gradients through the kernels and through
+# their plain versions, each held against the plain step run in f32 (the
+# truth) on the same weights, batch and dropout seeds: the kernel step's
+# relative L2 error on every parameter's gradient, on the global gradient
+# norm and on the loss must stay within STEP_FACTOR times the plain bf16
+# step's plus STEP_FLOOR (half the bf16 unit roundoff 2^-8, relative).
+STEP_FACTOR, STEP_FLOOR = 2.0, 2.0**-9
+
+
+def _step_grads(cfg, params, tokens, *, plain: bool):
+    """Loss and f32 gradients of one training forward/backward of ``GPT``
+    at ``cfg`` (dropout seeds from a generator seeded 1). ``plain`` swaps
+    the flash kernels for ``flash_attention_reference`` and the head + CE
+    kernel for the chunked cross entropy (``fused_loss_pallas=False``)."""
+    import dataclasses
+
+    from torch import nn
+
+    from tpu_trainer_torch.models.gpt import GPT
+    from tpu_trainer_torch.ops import flash
+
+    model = GPT(dataclasses.replace(cfg, fused_loss_pallas=not plain),
+                device="meta")
+    model.load_state_dict({n: nn.Parameter(t.clone())
+                           for n, t in params.items()}, strict=True,
+                          assign=True)
+    names, leaves = zip(*model.named_parameters())
+    kernel = flash.flash_attention
+    if plain:
+        flash.flash_attention = flash.flash_attention_reference
+    try:
+        _, loss = model(tokens, tokens, train=True,
+                        generator=torch.Generator().manual_seed(1))
+        grads = torch.autograd.grad(loss, leaves)
+    finally:
+        flash.flash_attention = kernel
+    return float(loss.detach()), {n: g.float() for n, g in zip(names, grads)}
+
+
+def phase_train_grads(results: dict) -> dict:
+    """The main path's model and batch shape (GPT-2 small, 8 x 1024,
+    dropout 0.1 in attention and on the residuals): one bf16 step's
+    gradients through the kernels against the f32 truth, next to the bf16
+    plain step's (STEP_FACTOR, STEP_FLOOR)."""
+    import dataclasses
+
+    from tpu_trainer_torch.data.dummy import DummyDataLoader
+    from tpu_trainer_torch.models.config import GPTConfig
+    from tpu_trainer_torch.models.weights import init_params
+    from tpu_trainer_torch.ops import flash, head_ce
+    from tpu_trainer_torch.training.optimizer import global_norm
+
+    cfg = GPTConfig.preset("small", max_seq_len=1024, use_flash_attention=True,
+                           gradient_checkpointing=False, dropout=0.1,
+                           attention_dropout=0.1, dtype="bfloat16",
+                           param_dtype="float32")
+    params = init_params(cfg, seed=0, device="cuda")
+    batch = next(iter(DummyDataLoader(8, 1024, cfg.vocab_size, 1)))
+    tokens = torch.as_tensor(batch, dtype=torch.long, device="cuda")
+    counters = (flash.flash_forward, flash.flash_backward,
+                head_ce.head_ce_forward)
+    runs, launches = {}, {}
+    for name, dtype, plain in (("kernel", "bfloat16", False),
+                               ("plain", "bfloat16", True),
+                               ("truth", "float32", True)):
+        before = [c.launches for c in counters]
+        runs[name] = _step_grads(dataclasses.replace(cfg, dtype=dtype),
+                                 params, tokens, plain=plain)
+        torch.cuda.synchronize()
+        launches[name] = [c.launches - b for c, b in zip(counters, before)]
+    want = {"kernel": [12, 12, 1], "plain": [0, 0, 0], "truth": [0, 0, 0]}
+    if launches != want:
+        raise AssertionError(f"train-grads: launches (flash forward, "
+                             f"backward, head_ce) {launches}, want {want}")
+
+    def rel(a, b):
+        return float(torch.linalg.vector_norm(a - b, dtype=torch.float64)
+                     / torch.linalg.vector_norm(b, dtype=torch.float64))
+
+    truth = runs["truth"][1]
+    errs = {n: (rel(runs["kernel"][1][n], g), rel(runs["plain"][1][n], g))
+            for n, g in truth.items()}
+    norms = {k: float(global_norm(r[1].values())) for k, r in runs.items()}
+    for key, vals in (("grad_norm", norms),
+                      ("loss", {k: r[0] for k, r in runs.items()})):
+        t = vals["truth"]
+        errs[key] = (abs(vals["kernel"] - t) / t, abs(vals["plain"] - t) / t)
+    ratio = {n: k / (STEP_FACTOR * p + STEP_FLOOR)
+             for n, (k, p) in errs.items()}
+    worst = max(ratio, key=ratio.get)
+    rec = {"loss": {k: r[0] for k, r in runs.items()}, "grad_norm": norms,
+           "rel_err": errs, "worst": worst, "worst_ratio": ratio[worst],
+           "launches": launches}
+    results["train_grads"] = rec
+    bad = [f"{n} {errs[n][0]:.3e} vs plain {errs[n][1]:.3e}"
+           for n, r in ratio.items() if not r <= 1.0]
+    if bad:
+        raise AssertionError("train-grads: kernel step past STEP_FACTOR x "
+                             "the plain step's error + STEP_FLOOR: "
+                             + "; ".join(bad))
+    k, p = errs[worst]
+    log("train-grads", f"GPT-2 small bf16 step, batch 8 x 1024, dropout 0.1: "
+                       f"loss kernel {rec['loss']['kernel']:.5f} plain "
+                       f"{rec['loss']['plain']:.5f} f32 "
+                       f"{rec['loss']['truth']:.5f}; grad norm "
+                       f"{norms['kernel']:.5f} / {norms['plain']:.5f} / "
+                       f"{norms['truth']:.5f}; relative error vs f32 "
+                       f"(kernel/plain): grad_norm {errs['grad_norm'][0]:.2e}/"
+                       f"{errs['grad_norm'][1]:.2e}, worst of the "
+                       f"{len(truth)} gradients, norm and loss: {worst} "
+                       f"{k:.2e}/{p:.2e} "
+                       f"({ratio[worst]:.2f} of its limit); launches "
+                       f"{launches['kernel']}")
+    return rec
+
+
+def phase_train(results: dict) -> dict:
+    """The main path: ``Trainer`` at GPT-2 small full width and depth, the
+    configuration bench.py measures (bf16 over f32 masters, dropout 0.1 on
+    the residuals and in attention, flash attention, fused head + CE,
+    batch 8 x 1024, accumulation 1), 10 steps of ``DummyDataLoader``
+    batches."""
+    from tpu_trainer_torch.data.dummy import DummyDataLoader
+    from tpu_trainer_torch.models.config import GPTConfig
+    from tpu_trainer_torch.ops import flash, head_ce
+    from tpu_trainer_torch.training.config import TrainingConfig
+    from tpu_trainer_torch.training.trainer import Trainer
+    from tpu_trainer_torch.utils.guards import check_finite
+    from tpu_trainer_torch.utils.logging import (
+        flops_per_token, mfu, peak_flops_for_name)
+
+    steps, bs, seq = 10, 8, 1024
+    cfg = GPTConfig.preset("small", max_seq_len=seq, use_flash_attention=True,
+                           gradient_checkpointing=False, dropout=0.1,
+                           attention_dropout=0.1)
+    tc = TrainingConfig(batch_size=bs, max_seq_len=seq,
+                        gradient_accumulation_steps=1, mixed_precision="bf16",
+                        optimizer_state_dtype="float32")
+    trainer = Trainer(cfg, tc, device="cuda")
+    state = trainer.init_state(0)
+    loader = DummyDataLoader(batch_size=bs, seq_len=seq,
+                             vocab_size=cfg.vocab_size, num_batches=steps + 2)
+    batches = [trainer.put_batch(b) for b in loader]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash.flash_forward.launches = 0
+    flash.flash_backward.launches = 0
+    head_ce.head_ce_forward.launches = 0
+    metrics, step_ms = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        state, m = trainer.train_step(state, batches[i])
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        check_finite(i, m["loss"])
+        metrics.append(m)
+    launches = {"flash_forward": flash.flash_forward.launches,
+                "flash_backward": flash.flash_backward.launches,
+                "head_ce": head_ce.head_ce_forward.launches}
+    want = {"flash_forward": cfg.num_layers * steps,
+            "flash_backward": cfg.num_layers * steps, "head_ce": steps}
+    if launches != want:
+        raise AssertionError(f"train: launches {launches}, want {want}")
+    if not 9.0 < metrics[0]["loss"] < 12.5:
+        raise AssertionError(f"train: first loss {metrics[0]['loss']} is not "
+                             f"near ln(vocab) = {math.log(cfg.vocab_size):.2f}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steady = step_ms[2:]
+    ms = statistics.median(steady)
+    tok_s = bs * seq / (ms / 1e3)
+    name = torch.cuda.get_device_name(0)
+    util = mfu(tok_s, cfg, peak_flops=peak_flops_for_name(name), seq_len=seq)
+    rec = {"steps": steps, "losses": [m["loss"] for m in metrics],
+           "grad_norms": [m["grad_norm"] for m in metrics],
+           "lrs": [m["lr"] for m in metrics], "step_ms": step_ms,
+           "step_ms_median_3_to_10": ms, "tokens_per_s": tok_s, "mfu": util,
+           "flops_per_token": flops_per_token(cfg, seq),
+           "peak_memory_gb": peak_gb, "launches": launches}
+    rec["profile"] = _profile_steps(trainer, state, batches[steps:], ms)
+    results["train"] = rec
+    log("train", f"GPT-2 small, batch {bs} x {seq}, bf16 over f32 masters, "
+                 f"dropout 0.1: {steps} steps, losses "
+                 + " ".join(f"{x:.4f}" for x in rec["losses"]))
+    log("train", f"launches {launches} == 12 x {steps} forward, 12 x {steps} "
+                 f"backward, {steps} head_ce")
+    log("train", f"step {ms:.2f} ms (median of steps 3-{steps}; all: "
+                 + " ".join(f"{x:.1f}" for x in step_ms)
+                 + f"), {tok_s:.0f} tok/s, MFU {util:.4f} against "
+                   f"{peak_flops_for_name(name) / 1e12:.0f} TFLOP/s, peak "
+                   f"device memory {peak_gb:.2f} GB on "
+                   f"{results['card']['nvidia_smi']}")
+    p = rec["profile"]
+    log("profile", f"2 profiled steps: device kernels busy "
+                   f"{p['device_busy_ms_per_step']:.1f} ms a step = "
+                   f"{p['device_busy_frac_of_step']:.3f} of the unprofiled "
+                   f"step; {p['kernel_launches_per_step']:.0f} launches a "
+                   f"step")
+    for g, ms_g in p["groups_ms_per_step"].items():
+        log("profile", f"  group  {ms_g:8.3f} ms/step  {g}")
+    for k in p["kernels"]:
+        log("profile", f"  device {k['ms_per_step']:8.3f} ms/step "
+                       f"x{k['count']:<5} {k['name']}")
+    return launches
+
+
+# Device kernels by what they serve, for the step's breakdown (first
+# match wins): the port's kernels, the GEMMs (cuBLAS), and the int64
+# elementwise kernels, which are the counter-based residual dropout's
+# uint32 hash (ops/dropout.py) and the flash backward's dk/dv group sum.
+_KERNEL_GROUPS = (
+    ("flash attention (csrc/flash_attn.cu)",
+     ("flash_fwd_kernel", "flash_bwd_kernel", "rope_prep_kernel",
+      "delta_kernel", "dq_finalize_kernel")),
+    ("head + CE forward (csrc/head_ce.cu)", ("head_ce_",)),
+    ("GEMMs (cuBLAS)", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
+    ("int64 elementwise (hash dropout)", ("<long", "long>", "long,")),
+)
+
+
+def _profile_steps(trainer, state, batches, step_ms: float) -> dict:
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for batch in batches:
+            state, _ = trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    n = len(batches)
+    avgs = list(prof.key_averages())
+    kernels = sorted((e for e in avgs if e.device_type == DeviceType.CUDA
+                      and dev_us(e) > 0), key=dev_us, reverse=True)
+    busy = sum(dev_us(e) for e in kernels) / 1e3 / n
+    launches = sum(e.count for e in avgs if e.key in (
+        "cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx"))
+    groups = {}
+    for e in kernels:
+        name = e.key
+        group = next((g for g, keys in _KERNEL_GROUPS if any(
+            k in name for k in keys)), "other elementwise / copies")
+        groups[group] = groups.get(group, 0.0) + dev_us(e) / 1e3 / n
+    return {"device_busy_ms_per_step": busy,
+            "device_busy_frac_of_step": busy / step_ms,
+            "kernel_launches_per_step": launches / n,
+            "groups_ms_per_step": dict(sorted(groups.items(),
+                                              key=lambda kv: -kv[1])),
+            "kernels": [{"name": e.key[:90], "count": e.count // n,
+                         "ms_per_step": dev_us(e) / 1e3 / n}
+                        for e in kernels[:15]]}
+
+
 # -- phases 4 and 5 --------------------------------------------------------
 
 def _trace(n, *, seed, prompt_len_range, max_new_range, vocab):
@@ -565,10 +1310,18 @@ def main(argv=None) -> int:
     profile_engine(results, engine)
     del engine
     phase_engine(results, kv_int8=True)
+    torch.cuda.empty_cache()
+    train_k = phase_train_kernel(results)
+    phase_mask(results)
+    phase_train_reference(results)
+    phase_train_grads(results)
+    torch.cuda.empty_cache()
+    train_launches = phase_train(results)
 
     max_err = max(results["kernel_max_abs_err"],
                   results["engine"]["live_step_max_abs_err"],
                   results["int8"]["live_step_max_abs_err"])
+    t, bounds, head = train_k["times"], train_k["bounds"], train_k["head"]
     kernels = {"kernels": [{
         "name": "flash_decode",
         "route": "cuda",
@@ -581,6 +1334,42 @@ def main(argv=None) -> int:
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
+    }, {
+        "name": "flash_attn_forward",
+        "route": "cuda",
+        "source": "tpu_trainer_torch/csrc/flash_attn.cu",
+        "replaces": "tpu_trainer/ops/flash.py:250",
+        "launches": train_launches["flash_forward"],
+        "max_abs_err": train_k["fwd_err"],
+        "ms": t["fwd_ms"],
+        "plain_ms": t["plain_fwd_ms"],
+        "bound_ms": bounds["fwd"]["bound_ms"],
+        "bound_by": bounds["fwd"]["bound_by"],
+        "library_ms": t["sdpa_fwd_ms"],
+    }, {
+        "name": "flash_attn_backward",
+        "route": "cuda",
+        "source": "tpu_trainer_torch/csrc/flash_attn.cu",
+        "replaces": "tpu_trainer/ops/flash.py:577",
+        "launches": train_launches["flash_backward"],
+        "max_abs_err": train_k["bwd_err"],
+        "ms": t["bwd_ms"],
+        "plain_ms": t["plain_bwd_ms"],
+        "bound_ms": bounds["bwd"]["bound_ms"],
+        "bound_by": bounds["bwd"]["bound_by"],
+        "library_ms": t["sdpa_bwd_ms"],
+    }, {
+        "name": "head_ce_forward",
+        "route": "cuda",
+        "source": "tpu_trainer_torch/csrc/head_ce.cu",
+        "replaces": "tpu_trainer/ops/head_ce.py:67",
+        "launches": train_launches["head_ce"],
+        "max_abs_err": head["max_abs_err"],
+        "ms": head["ms"],
+        "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"],
     }]}
     results["kernels"] = kernels["kernels"]
     results["seconds"] = time.perf_counter() - t0

@@ -42,7 +42,12 @@ def test_import_leaves_jax_out_of_sys_modules():
                          capture_output=True, text=True, timeout=120,
                          check=True)
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
-    assert "tpu_trainer_torch.serving.engine" in loaded
+    for mod in ("tpu_trainer_torch.serving.engine",
+                "tpu_trainer_torch.training.trainer",
+                "tpu_trainer_torch.ops.head_ce",
+                "tpu_trainer_torch.ops.loss",
+                "tpu_trainer_torch.data.dummy"):
+        assert mod in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
 
@@ -70,6 +75,39 @@ def test_engine_without_cuda_or_cpu_device_raises():
                     num_heads=2, max_seq_len=32, dtype="float32")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ServingEngine({}, cfg)
+
+
+def test_trainer_without_cuda_or_cpu_device_raises():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the default device is valid")
+    from tpu_trainer_torch.models.config import GPTConfig
+    from tpu_trainer_torch.training.trainer import Trainer
+
+    cfg = GPTConfig(vocab_size=64, hidden_size=16, num_layers=1,
+                    num_heads=2, max_seq_len=32, dtype="float32")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(cfg)
+
+
+@pytest.mark.parametrize("module,fn", [
+    ("tpu_trainer_torch.ops.flash", "flash_forward"),
+    ("tpu_trainer_torch.ops.flash", "flash_backward"),
+    ("tpu_trainer_torch.ops.flash", "keep_mask_cuda"),
+])
+def test_kernel_wrappers_refuse_cpu_tensors(module, fn):
+    """The kernel wrappers never run a plain version themselves: given CPU
+    tensors they raise (the CPU path is the dispatch's, not theirs)."""
+    import importlib
+
+    wrapper = getattr(importlib.import_module(module), fn)
+    x = torch.zeros((1, 8, 2, 64))
+    with pytest.raises(ValueError, match="CUDA"):
+        if fn == "flash_forward":
+            wrapper(x, x, x)
+        elif fn == "flash_backward":
+            wrapper(x, x, x, x, torch.zeros((1, 2, 8)), x)
+        else:
+            wrapper(1, 2, 8, 0.1, block_q=4, block_k=4, device="cpu")
 
 
 def test_cli_without_cuda_raises():

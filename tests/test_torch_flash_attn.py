@@ -1,0 +1,319 @@
+"""Port parity: training flash attention and the dropout masks.
+
+- The port's ``_keep_mask`` and ``hash_dropout`` against the JAX
+  package's, bitwise, including positions whose ``row * seq`` wraps
+  2**32.
+- ``flash_attention_reference`` (which ``flash_attention`` runs on CPU
+  tensors) against the JAX Pallas kernel in interpret mode
+  (``tpu_trainer.ops.flash.flash_attention(..., interpret=True)`` with
+  32-blocks, so the kernel streams two blocks and regenerates the dropout
+  mask per block): outputs and q/k/v gradients for MHA and GQA, RoPE on
+  and off, dropout with the same seed bits, and segment ids. f32 inputs
+  from a numpy seed. Tolerance atol=rtol=2e-5: both sides are f32 softmax
+  sums over at most 64 unit-scale positions whose reduction orders differ
+  (online vs one-shot softmax); that is a few ulp of O(1) values, and the
+  gradients add one more reduction.
+
+The JAX side comes in through the ``jx`` fixture: the card's machine has
+no JAX, and there the ``gpu`` tests at the end run alone
+(``pytest --noconftest -m gpu tests/test_torch_flash_attn.py``) while the
+parity tests skip.
+"""
+
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from tpu_trainer_torch.ops import dropout as tdrop
+from tpu_trainer_torch.ops import flash as tflash
+from tpu_trainer_torch.ops.rope import rope_tables
+
+TOL = dict(atol=2e-5, rtol=2e-5)
+
+
+@pytest.fixture(scope="module")
+def jx():
+    """The JAX package's flash and dropout modules, ``jax`` and
+    ``jax.numpy``."""
+    pytest.importorskip("jax", reason="the JAX reference is not installed")
+    import jax
+    import jax.numpy as jnp
+
+    from tpu_trainer.ops import dropout, flash
+    return types.SimpleNamespace(jax=jax, jnp=jnp, flash=flash,
+                                 dropout=dropout)
+
+
+@pytest.mark.parametrize("seed,salt,q_start,k_start,bq,bk,seq,rate", [
+    (0xFEEDBEEF, 5, 0, 0, 64, 64, 64, 0.25),
+    (123, 0, 512, 256, 32, 48, 1024, 0.1),
+    (2**32 - 1, 2**20 + 7, 0, 0, 16, 16, 16, 0.5),
+    # row * seq wraps 2**32: rows near 2**31, seq 60000.
+    (77, 3, 2**31 - 64, 1000, 32, 40, 60000, 0.1),
+    (9, 11, 4096, 0, 8, 8, 65535, 0.9),
+])
+def test_keep_mask_bitwise(jx, seed, salt, q_start, k_start, bq, bk, seq,
+                           rate):
+    jnp = jx.jnp
+    want = np.asarray(jx.flash._keep_mask(
+        jnp.uint32(seed), jnp.uint32(salt), q_start, k_start, bq, bk, seq,
+        rate))
+    got = tflash._keep_mask(seed, salt, q_start, k_start, bq, bk, seq, rate)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_keep_mask_full_salts(jx):
+    """The [b, h, s, s] mask takes salt b * heads + h per (batch, head)."""
+    jnp = jx.jnp
+    full = tflash.keep_mask_full(99, 2, 3, 40, 0.3)
+    for ib in range(2):
+        for ih in range(3):
+            want = np.asarray(jx.flash._keep_mask(
+                jnp.uint32(99), jnp.uint32(ib * 3 + ih), 0, 0, 40, 40, 40,
+                0.3))
+            np.testing.assert_array_equal(full[ib, ih].numpy(), want)
+
+
+@pytest.mark.parametrize("shape,dtype,rate", [
+    ((4, 16, 32), "float32", 0.1),
+    ((2, 8, 24), "bfloat16", 0.1),
+    ((3, 50), "float32", 0.5),
+])
+@pytest.mark.parametrize("key", [0, 17])
+def test_hash_dropout_bitwise(jx, shape, dtype, rate, key):
+    jax, jnp = jx.jax, jx.jnp
+    x = np.random.RandomState(key).standard_normal(shape).astype(np.float32)
+    rng = jax.random.PRNGKey(key)
+    want = jx.dropout.hash_dropout(jnp.asarray(x).astype(dtype), rate, rng)
+    seed = int(jax.random.bits(rng, dtype=jnp.uint32))
+    got = tdrop.hash_dropout(torch.from_numpy(x).to(getattr(torch, dtype)),
+                             rate, seed)
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want.astype(jnp.float32)))
+
+
+def test_mul32_matches_uint32():
+    rs = np.random.RandomState(0)
+    x = rs.randint(0, 2**32, 1000, dtype=np.uint64)
+    for c in (0x85EBCA6B, 0xC2B2AE35, 0x9E3779B9, 0xFFFFFFFF, 1):
+        want = (x * np.uint64(c)) & np.uint64(0xFFFFFFFF)
+        got = tdrop.mul32(torch.from_numpy(x.astype(np.int64)), c)
+        np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
+
+
+CASES = {
+    # name: (h, kvh, rope, dropout_rate, segmented)
+    "mha": (4, 4, False, 0.0, False),
+    "mha_rope": (4, 4, True, 0.0, False),
+    "gqa_rope": (4, 2, True, 0.0, False),
+    "dropout_rope": (4, 4, True, 0.3, False),
+    "gqa_dropout": (4, 2, False, 0.3, False),
+    "segments": (4, 2, True, 0.0, True),
+}
+
+
+def _inputs(h, kvh, b=2, s=64, d=16, seed=0):
+    rs = np.random.RandomState(seed)
+    q = rs.standard_normal((b, s, h, d)).astype(np.float32)
+    k = rs.standard_normal((b, s, kvh, d)).astype(np.float32)
+    v = rs.standard_normal((b, s, kvh, d)).astype(np.float32)
+    do = rs.standard_normal((b, s, h, d)).astype(np.float32)
+    seg = np.repeat(np.array([[1, 1, 2, 3], [1, 2, 2, 0]]), s // 4, axis=1)
+    return q, k, v, do, seg.astype(np.int32)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_reference_matches_jax_interpret_kernel(jx, case):
+    jax, jnp = jx.jax, jx.jnp
+    h, kvh, rope, rate, segmented = CASES[case]
+    q, k, v, do, seg = _inputs(h, kvh)
+    s, d = q.shape[1], q.shape[3]
+    cos, sin = rope_tables(s, d)
+    rng = jax.random.PRNGKey(5) if rate else None
+    seed = int(jax.random.bits(rng, dtype=jnp.uint32)) if rate else None
+
+    def jfn(q_, k_, v_):
+        return jx.flash.flash_attention(
+            q_, k_, v_, block_q=32, block_k=32, interpret=True,
+            dropout_rate=rate, dropout_rng=rng,
+            rope=(jnp.asarray(cos.numpy()), jnp.asarray(sin.numpy()))
+            if rope else None,
+            segment_ids=jnp.asarray(seg) if segmented else None)
+
+    want, vjp = jax.vjp(jfn, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want_grads = vjp(jnp.asarray(do))
+
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
+    got = tflash.flash_attention_reference(
+        tq, tk, tv, dropout_rate=rate, seed=seed,
+        rope=(cos, sin) if rope else None,
+        segment_ids=torch.from_numpy(seg) if segmented else None)
+    got.backward(torch.from_numpy(do))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
+    for t, w in zip((tq, tk, tv), want_grads):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), **TOL)
+
+
+def test_cpu_dispatch_is_the_plain_version():
+    q, k, v, _, seg = _inputs(4, 2)
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    rope = rope_tables(q.shape[1], q.shape[3])
+    before = (tflash.flash_forward.launches, tflash.flash_backward.launches)
+    for kw in ({}, {"dropout_rate": 0.2, "seed": 3, "rope": rope},
+               {"segment_ids": torch.from_numpy(seg)}):
+        got = tflash.flash_attention(tq, tk, tv, **kw)
+        want = tflash.flash_attention_reference(tq, tk, tv, **kw)
+        assert torch.equal(got, want)
+    assert (tflash.flash_forward.launches,
+            tflash.flash_backward.launches) == before
+
+
+def test_lse_and_residuals_of_the_plain_version():
+    """lse is the f32 logsumexp of the scaled scores; the residuals are
+    the RoPE'd q times 1/sqrt(d) and the RoPE'd k."""
+    q, k, v, _, _ = _inputs(4, 4)
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    cos, sin = rope_tables(q.shape[1], q.shape[3])
+    o, lse, qs, ks = tflash._reference_parts(
+        tq, tk, tv, causal=True, dropout_rate=0.0, seed=None,
+        rope=(cos, sin), segment_ids=None)
+    from tpu_trainer_torch.ops.rope import apply_rotary_pos_emb
+
+    qr, kr = apply_rotary_pos_emb(tq, tk, cos, sin)
+    torch.testing.assert_close(qs, qr * 0.25, atol=1e-6, rtol=1e-6)
+    torch.testing.assert_close(ks, kr, atol=1e-6, rtol=1e-6)
+    sc = torch.einsum("bqhd,bkhd->bhqk", qs, ks)
+    sc = sc.masked_fill(~torch.ones(64, 64, dtype=torch.bool).tril(),
+                        float("-inf"))
+    torch.testing.assert_close(lse, torch.logsumexp(sc, -1), **TOL)
+    assert o.shape == tq.shape
+
+
+@pytest.mark.parametrize("bad", ["rank", "kv_heads", "no_seed", "segments"])
+def test_rejects_bad_operands(bad):
+    q, k, v, _, seg = (torch.from_numpy(x) for x in _inputs(4, 2))
+    kw = {}
+    if bad == "rank":
+        q = q[0]
+    elif bad == "kv_heads":
+        k, v = k[:, :, :1].repeat(1, 1, 3, 1), v[:, :, :1].repeat(1, 1, 3, 1)
+    elif bad == "no_seed":
+        kw["dropout_rate"] = 0.1
+    elif bad == "segments":
+        kw["segment_ids"] = seg[:, :10]
+    with pytest.raises(ValueError):
+        tflash.flash_attention(q, k, v, **kw)
+
+
+# -- on the card -------------------------------------------------------------
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+GPU_CASES = [
+    # (b, s, h, kvh, d, dtype, rope, rate)
+    (2, 128, 4, 4, 64, "float32", True, 0.0),
+    (2, 128, 4, 4, 64, "bfloat16", True, 0.1),
+    (1, 100, 4, 2, 128, "bfloat16", True, 0.0),
+    (2, 77, 4, 1, 64, "float16", False, 0.2),
+    (1, 200, 2, 2, 128, "float32", False, 0.1),
+]
+# f32 kernel vs plain on the same inputs: reduction order only. bf16/fp16:
+# the kernels and the plain version both round (p, the products' operands,
+# the outputs), each in its own places, so neither is the truth; both are
+# held against the plain version run in f32 on the same values, and the
+# kernel's worst-element and L2 errors must stay within NEAR_FACTOR times
+# the plain version's plus NEAR_FLOOR times the truth's rms (half the unit
+# roundoff of the result's type, 2**-8 for bf16 and 2**-11 for fp16; f32
+# results such as lse come from f32 sums on both sides and get 2**-15).
+F32_TOL = 1e-4
+NEAR_FACTOR = 2.0
+NEAR_FLOOR = {torch.bfloat16: 2.0**-9, torch.float16: 2.0**-12,
+              torch.float32: 2.0**-15}
+
+
+def _assert_near_truth(what, got, plain, truth):
+    floor = NEAR_FLOOR[got.dtype]
+    got, plain, truth = (t.detach().double() for t in (got, plain, truth))
+    assert torch.isfinite(got).all(), what
+    rms = float(truth.pow(2).mean().sqrt())
+    for norm, n in ((lambda t: float(t.abs().max()), 1.0),
+                    (lambda t: float(t.norm()), truth.numel() ** 0.5)):
+        k, p = norm(got - truth), norm(plain - truth)
+        assert k <= NEAR_FACTOR * p + floor * rms * n, (what, k, p, rms)
+
+
+def _plain_parts(xs, do, kw):
+    xs = [x.detach().clone().requires_grad_(True) for x in xs]
+    o, lse, qs, ks = tflash._reference_parts(*xs, causal=True,
+                                             segment_ids=None, **kw)
+    o.backward(do)
+    return [o, lse] + [x.grad for x in xs], (qs, ks)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,kvh,d,dtype,rope,rate", GPU_CASES)
+def test_kernels_match_plain_on_card(cuda_device, b, s, h, kvh, d, dtype,
+                                     rope, rate):
+    dev = cuda_device
+    dt = getattr(torch, dtype)
+    q, k, v, do, _ = _inputs(h, kvh, b=b, s=s, d=d, seed=s)
+    tq, tk, tv = (torch.from_numpy(x).to(dev, dt).requires_grad_(True)
+                  for x in (q, k, v))
+    tdo = torch.from_numpy(do).to(dev, dt)
+    tabs = rope_tables(s, d, device=dev) if rope else None
+    kw = dict(dropout_rate=rate, seed=1234 if rate else None, rope=tabs)
+    before = (tflash.flash_forward.launches, tflash.flash_backward.launches)
+    got = tflash.flash_attention(tq, tk, tv, **kw)
+    got.backward(tdo)
+    torch.cuda.synchronize()
+    assert (tflash.flash_forward.launches,
+            tflash.flash_backward.launches) == (before[0] + 1, before[1] + 1)
+    _, lse, qs, ks = tflash.flash_forward(tq.detach(), tk.detach(),
+                                          tv.detach(), **kw)
+    kernel = [got, lse, tq.grad, tk.grad, tv.grad]
+    plain, (rqs, rks) = _plain_parts((tq, tk, tv), tdo, kw)
+    torch.testing.assert_close(qs, rqs, atol=0, rtol=0)
+    torch.testing.assert_close(ks, rks, atol=0, rtol=0)
+    names = ("o", "lse", "dq", "dk", "dv")
+    if dt == torch.float32:
+        for n, a, r in zip(names, kernel, plain):
+            torch.testing.assert_close(a, r, atol=F32_TOL, rtol=F32_TOL,
+                                       msg=n)
+        return
+    truth, _ = _plain_parts([t.float() for t in (tq, tk, tv)], tdo.float(),
+                            kw)
+    for n, a, r, t in zip(names, kernel, plain, truth):
+        _assert_near_truth(n, a, r, t)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bq,bk,k_major", [(128, 128, False), (64, 256, True),
+                                           (256, 64, False)])
+def test_keep_mask_kernel_bitwise(cuda_device, bq, bk, k_major):
+    got = tflash.keep_mask_cuda(0xFEEDBEEF, 5, 1000, 0.25, block_q=bq,
+                                block_k=bk, k_major=k_major)
+    want = tflash._keep_mask(0xFEEDBEEF, 5, 0, 0, 1000, 1000, 1000, 0.25)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_kernel_rejects_what_it_cannot_take(cuda_device):
+    q, k, v, _, seg = (torch.from_numpy(x).to(cuda_device)
+                       for x in _inputs(4, 2, d=16))
+    with pytest.raises(ValueError, match="head_dim"):
+        tflash.flash_attention(q, k, v)
+    q, k, v, _, seg = (torch.from_numpy(x).to(cuda_device)
+                       for x in _inputs(4, 2, d=64))
+    with pytest.raises(NotImplementedError, match="segment_ids"):
+        tflash.flash_attention(q, k, v, segment_ids=seg)
+    with pytest.raises(ValueError, match="contiguous"):
+        tflash.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                               k, v)

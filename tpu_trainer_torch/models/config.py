@@ -3,9 +3,11 @@
 Same fields, defaults, validation and presets as the JAX package, so one
 set of keyword arguments builds both configs in the parity tests. Dtypes
 stay strings; ``compute_dtype`` / ``params_dtype`` map them to torch
-dtypes. Fields that only the training path reads (remat, fused loss,
-pipeline, dropout variants) are carried for parity and are not read by
-this package yet.
+dtypes. The training forward reads the dropout, flash-attention, fused
+loss and fused-projection fields; ``gradient_checkpointing``,
+``remat_lm_head`` (without ``fused_loss``) and ``num_experts > 0`` raise
+``NotImplementedError`` until their slices land, and the pipeline fields
+are carried for parity only (one device).
 """
 
 from __future__ import annotations
@@ -64,7 +66,8 @@ class GPTConfig:
     moe_aux_weight: float = 0.01
     router_z_weight: float = 0.0
 
-    # Training-path switches (carried for parity; not read here yet).
+    # Training-path switches. Read by GPT's training forward, except remat
+    # (raises until ported) and the pipeline fields (parity only).
     use_flash_attention: bool = False
     gradient_checkpointing: bool = False
     remat_policy: str = "full"
@@ -183,6 +186,28 @@ class GPTConfig:
         """Resolved K/V head count (num_kv_heads, defaulting to num_heads)."""
         return (self.num_kv_heads if self.num_kv_heads is not None
                 else self.num_heads)
+
+    def num_parameters(self) -> int:
+        """Exact parameter count: tied embedding V*H; per layer q/o 2*H^2,
+        k/v 2*H*kv, SwiGLU 3*H*I (MoE: E*3*H*I + H*E), two norms 2*H;
+        final norm H."""
+        h, i = self.hidden_size, self.intermediate_size
+        kv = self.kv_heads * self.head_dim
+        if self.num_experts > 0:
+            ffn = self.num_experts * 3 * h * i + h * self.num_experts
+        else:
+            ffn = 3 * h * i
+        per_layer = 2 * h * h + 2 * h * kv + ffn + 2 * h
+        return self.vocab_size * h + self.num_layers * per_layer + h
+
+    def num_active_parameters(self) -> int:
+        """Parameters one token flows through (MoE: only the top-k
+        experts' FFNs); the N of the 6N flops-per-token estimate."""
+        if self.num_experts <= 0:
+            return self.num_parameters()
+        h, i = self.hidden_size, self.intermediate_size
+        inactive = (self.num_experts - self.moe_top_k) * 3 * h * i
+        return self.num_parameters() - self.num_layers * inactive
 
     @property
     def compute_dtype(self) -> torch.dtype:

@@ -1,8 +1,23 @@
-"""GPT in paged-decode mode (port of ``tpu_trainer/models/gpt.py``).
+"""GPT (port of ``tpu_trainer/models/gpt.py``): training and paged decode.
 
-The serving path of the JAX model: ``GPT.__call__(decode=True)`` over the
-paged KV cache (``_paged_decode_attention``), with the rolled layer stack
-as a Python loop over stacked ``[num_layers, ...]`` parameters.
+Two branches of ``GPT.forward``, chosen by ``config.decode_paged``:
+
+- **Training / evaluation** (``GPT.__call__`` without ``decode``):
+  ``forward(input_ids, labels=None, *, train=False, segment_ids=None,
+  generator=None) -> (logits, loss)``. The layer stack runs as the JAX
+  package's unrolled path (``scan_unroll``): each stacked ``[num_layers,
+  ...]`` parameter is unbound once per forward, so autograd stacks each
+  layer's gradient with one write instead of a zeroed full-size buffer per
+  layer (the role of the JAX ``_unstack_layers``). Attention goes through
+  ``ops.flash.flash_attention`` (the CUDA kernels on a CUDA tensor)
+  when ``use_flash_attention``, else ``reference_attention``; residual
+  dropout is ``ops.dropout.hash_dropout`` (``fast_dropout``). Every
+  dropout seed is drawn from ``generator``. The loss is the fused head +
+  shifted CE (``ops.loss``) when ``fused_loss``.
+- **Paged decode** (``decode=True`` with ``decode_paged``):
+  ``forward(input_ids, cache, *, hist_blocks=0, logits_at=None)`` over the
+  paged KV cache (``_paged_decode_attention``), decode attention through
+  ``ops.flash.flash_decode``.
 
 Parameter names and layouts are the Flax ones with ``/`` written ``.``
 (``embed_tokens.embedding``, ``layers.attention.q_proj.kernel`` ...):
@@ -13,8 +28,8 @@ maps onto this module name for name (``models/weights.py``).
 Numerics follow the JAX module: RMSNorm in f32 with the output cast to
 the compute dtype; projections as compute-dtype matmuls (q/k/v and
 gate/up fused into one matmul over concatenated kernels); RoPE in f32;
-prefill scores in the compute dtype masked with ``finfo.min`` and an f32
-softmax cast back before the PV product; decode attention through
+paged prefill scores in the compute dtype masked with ``finfo.min`` and
+an f32 softmax cast back before the PV product; decode attention through
 ``ops.flash.flash_decode`` (f32 result cast back); the tied head in the
 compute dtype, logits returned as f32.
 
@@ -33,7 +48,12 @@ from torch import nn
 
 from tpu_trainer_torch.models.config import GPTConfig
 from tpu_trainer_torch.ops import flash as flash_lib
-from tpu_trainer_torch.ops.attention import repeat_kv
+from tpu_trainer_torch.ops.attention import reference_attention, repeat_kv
+from tpu_trainer_torch.ops.dropout import hash_dropout
+from tpu_trainer_torch.ops.loss import (
+    fused_shifted_cross_entropy,
+    segment_target_mask,
+)
 from tpu_trainer_torch.ops.rope import apply_rotary_pos_emb, rope_tables
 from tpu_trainer_torch.utils.quant import (
     dequantize_kv_int8,
@@ -43,8 +63,7 @@ from tpu_trainer_torch.utils.quant import (
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
-                        requires_grad=False)
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
 
 
 class RMSNorm(nn.Module):
@@ -62,9 +81,14 @@ class RMSNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, layer: Optional[int] = None):
         w = self.weight if layer is None else self.weight[layer]
-        x32 = x.float()
-        rms = torch.rsqrt(x32.square().mean(dim=-1, keepdim=True) + self.eps)
-        return (x32 * rms * w).to(self.dtype)
+        return _rms_norm(x, w, self.eps, self.dtype)
+
+
+def _rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float,
+              dtype: torch.dtype) -> torch.Tensor:
+    x32 = x.float()
+    rms = torch.rsqrt(x32.square().mean(dim=-1, keepdim=True) + eps)
+    return (x32 * rms * w).to(dtype)
 
 
 class Dense(nn.Module):
@@ -287,8 +311,8 @@ class Embed(nn.Module):
 
 
 class GPT(nn.Module):
-    """GPT for causal LM, paged-decode forward. Parameters are allocated
-    uninitialized (``device="meta"`` allocates nothing): load them from
+    """GPT for causal LM. Parameters are allocated uninitialized
+    (``device="meta"`` allocates nothing): load them from
     ``models.weights.init_params`` / ``from_jax_params``."""
 
     def __init__(self, config: GPTConfig, *, device=None):
@@ -303,9 +327,133 @@ class GPT(nn.Module):
         self.norm = RMSNorm(cfg.hidden_size, dtype=cfg.compute_dtype,
                             device=device)
 
-    def forward(self, input_ids: torch.Tensor, cache: Dict[str, torch.Tensor],
-                *, hist_blocks: int = 0,
-                logits_at: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, input_ids: torch.Tensor, *args, **kwargs):
+        """``config.decode_paged``: ``_paged_forward(input_ids, cache, *,
+        hist_blocks=0, logits_at=None) -> logits``; otherwise
+        ``_train_forward(input_ids, labels=None, *, train=False,
+        segment_ids=None, generator=None) -> (logits, loss)``."""
+        if self.config.decode_paged:
+            return self._paged_forward(input_ids, *args, **kwargs)
+        return self._train_forward(input_ids, *args, **kwargs)
+
+    # -- training / evaluation ---------------------------------------------
+
+    def _train_forward(self, input_ids: torch.Tensor,
+                       labels: Optional[torch.Tensor] = None, *,
+                       train: bool = False,
+                       segment_ids: Optional[torch.Tensor] = None,
+                       generator: Optional[torch.Generator] = None):
+        """Full-sequence forward over ``input_ids [b, s]``.
+
+        ``train`` turns dropout on; every dropout seed is drawn from
+        ``generator`` (a CPU ``torch.Generator``). ``segment_ids [b, s]``
+        (0 = padding, documents 1..K) isolate packed documents in attention
+        and mask loss targets that cross a boundary.
+
+        Returns ``(logits [b, s, vocab] f32, loss | None)``. With ``labels``
+        and ``fused_loss`` the loss never needs the logits, and ``logits``
+        is None (the JAX graph drops them as dead code; eager PyTorch would
+        compute them).
+        """
+        cfg = self.config
+        check_trainable(cfg)
+        dropout_on = train and (cfg.dropout > 0.0
+                                or cfg.attention_dropout > 0.0)
+        if dropout_on and generator is None:
+            raise ValueError("train=True with dropout needs a generator")
+        b, s = input_ids.shape
+        x = self.embed_tokens(input_ids)
+        rope = rope_tables(s, cfg.head_dim, cfg.rope_theta, device=x.device)
+        step = _TrainStep(train=train, generator=generator, rope=rope,
+                          segment_ids=segment_ids)
+        for p in self._unstacked_layers():
+            x = self._train_block(x, p, step)
+        x = self.norm(x)
+
+        logits = None
+        if labels is None or not cfg.fused_loss:
+            logits = self.embed_tokens.attend(x).float()
+        loss = None
+        if labels is not None:
+            if cfg.fused_loss:
+                loss = fused_shifted_cross_entropy(
+                    self.embed_tokens.embedding, x, labels,
+                    chunk_size=cfg.loss_chunk_size,
+                    allow_pallas=cfg.fused_loss_pallas,
+                    segment_ids=segment_ids)
+            else:
+                loss = _masked_shifted_mean(
+                    softmax_cross_entropy(logits[:, :-1], labels[:, 1:]),
+                    segment_ids)
+        return logits, loss
+
+    def _unstacked_layers(self) -> List[Dict[str, torch.Tensor]]:
+        """Per-layer views of the stacked ``layers.*`` parameters, one
+        ``unbind`` per parameter (its backward is a single stack)."""
+        named = list(self.layers.named_parameters())
+        views = [p.unbind(0) for _, p in named]
+        return [{n: v[i] for (n, _), v in zip(named, views)}
+                for i in range(self.config.num_layers)]
+
+    def _train_block(self, x, p, step: "_TrainStep"):
+        cfg = self.config
+        cd = cfg.compute_dtype
+        b, s, _ = x.shape
+        eps = self.layers.input_layernorm.eps
+        h = _rms_norm(x, p["input_layernorm.weight"], eps, cd)
+        q, k, v = _matmuls(h, [p["attention.q_proj.kernel"],
+                               p["attention.k_proj.kernel"],
+                               p["attention.v_proj.kernel"]], cd,
+                           cfg.fused_projections)
+        q = q.reshape(b, s, cfg.num_heads, cfg.head_dim)
+        k = k.reshape(b, s, cfg.kv_heads, cfg.head_dim)
+        v = v.reshape(b, s, cfg.kv_heads, cfg.head_dim)
+        attn_drop = step.train and cfg.attention_dropout > 0.0
+        if cfg.use_flash_attention:
+            out = flash_lib.flash_attention(
+                q.contiguous(), k.contiguous(), v.contiguous(),
+                dropout_rate=cfg.attention_dropout if attn_drop else 0.0,
+                seed=step.seed() if attn_drop else None, rope=step.rope,
+                segment_ids=step.segment_ids)
+        else:
+            q, k = apply_rotary_pos_emb(q, k, *step.rope)
+            out = reference_attention(
+                q, k, v, dropout_rate=cfg.attention_dropout,
+                deterministic=not step.train, generator=step.generator,
+                segment_ids=step.segment_ids)
+        out = _matmuls(out.reshape(b, s, cfg.hidden_size),
+                       [p["attention.o_proj.kernel"]], cd, False)[0]
+        x = x + self._residual_dropout(out, step)
+
+        h = _rms_norm(x, p["post_attention_layernorm.weight"], eps, cd)
+        gate, up = _matmuls(h, [p["mlp.gate_proj.kernel"],
+                                p["mlp.up_proj.kernel"]], cd,
+                            cfg.fused_projections)
+        act = (F.silu(gate) if cfg.activation == "silu"
+               else F.gelu(gate, approximate="tanh"))
+        out = _matmuls(act * up, [p["mlp.down_proj.kernel"]], cd, False)[0]
+        return x + self._residual_dropout(out, step)
+
+    def _residual_dropout(self, x, step: "_TrainStep"):
+        """Residual-stream dropout: the counter-based hash mask with
+        ``fast_dropout``, a Bernoulli mask otherwise."""
+        rate = self.config.dropout
+        if not step.train or rate <= 0.0:
+            return x
+        if self.config.fast_dropout:
+            return hash_dropout(x, rate, step.seed())
+        gen = step.generator
+        keep = (torch.rand(x.shape, generator=gen, device=gen.device)
+                >= rate).to(x.device)
+        return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+    # -- paged decode ---------------------------------------------------------
+
+    def _paged_forward(self, input_ids: torch.Tensor,
+                       cache: Dict[str, torch.Tensor], *,
+                       hist_blocks: int = 0,
+                       logits_at: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
         """One paged pass over ``input_ids [b, s]`` (``s == 1``: decode).
 
         ``cache`` is ``init_paged_cache``'s dict; its ``tables`` /
@@ -317,8 +465,6 @@ class GPT(nn.Module):
         given (the final norm and head then run on those rows only).
         """
         cfg = self.config
-        if not cfg.decode_paged:
-            raise ValueError("GPT.forward needs config.decode_paged=True")
         x = self.embed_tokens(input_ids)
         step = paged_step(cfg, cache, input_ids.shape[1], hist_blocks)
         for layer in range(cfg.num_layers):
@@ -328,6 +474,61 @@ class GPT(nn.Module):
             x = x[rows, logits_at.long()][:, None]
         x = self.norm(x)
         return self.embed_tokens.attend(x).float()
+
+
+@dataclasses.dataclass
+class _TrainStep:
+    """What every layer of one training forward shares."""
+
+    train: bool
+    generator: Optional[torch.Generator]
+    rope: tuple                       # (cos, sin) f32 [s, head_dim]
+    segment_ids: Optional[torch.Tensor]
+
+    def seed(self) -> int:
+        """A fresh uint32 dropout seed from the generator."""
+        return int(torch.randint(0, 2**32, (1,), generator=self.generator,
+                                 dtype=torch.int64).item())
+
+
+def _matmuls(x: torch.Tensor, kernels: List[torch.Tensor], dtype,
+             fused: bool) -> List[torch.Tensor]:
+    """No-bias projections of ``x`` in the compute dtype; ``fused`` runs
+    them as one matmul over the concatenated kernels."""
+    x = x.to(dtype)
+    if fused and len(kernels) > 1:
+        out = x @ torch.cat(kernels, dim=1).to(dtype)
+        return list(torch.split(out, [w.shape[-1] for w in kernels], dim=-1))
+    return [x @ w.to(dtype) for w in kernels]
+
+
+def check_trainable(cfg: GPTConfig) -> None:
+    """Raise on training options that later slices port."""
+    if cfg.gradient_checkpointing:
+        raise NotImplementedError(
+            "gradient_checkpointing (remat) is not ported yet (ROADMAP "
+            "Queue 1, the training slice's follow-up)")
+    if not cfg.fused_loss and cfg.remat_lm_head:
+        raise NotImplementedError(
+            "remat_lm_head is not ported yet (ROADMAP Queue 1, with remat)")
+
+
+def softmax_cross_entropy(logits: torch.Tensor,
+                          labels: torch.Tensor) -> torch.Tensor:
+    """Integer-label softmax cross entropy in f32 (the JAX package's
+    ``optax_softmax_cross_entropy``)."""
+    logits = logits.float()
+    label_logits = logits.gather(-1, labels[..., None].long())[..., 0]
+    return torch.logsumexp(logits, dim=-1) - label_logits
+
+
+def _masked_shifted_mean(ce: torch.Tensor, segment_ids) -> torch.Tensor:
+    """Mean of per-position shifted CE ``[b, s-1]``, dropping targets that
+    cross a packed-document boundary (a plain mean without segments)."""
+    if segment_ids is None:
+        return ce.mean()
+    m = segment_target_mask(segment_ids)[:, :-1]
+    return (ce * m).sum() / torch.clamp(m.sum(), min=1.0)
 
 
 def paged_step(cfg: GPTConfig, cache, s: int, hist_blocks: int) -> PagedStep:

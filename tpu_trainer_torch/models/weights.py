@@ -10,7 +10,7 @@ means no decay) reads the same in both packages.
 - ``load_params_npz`` reads the ``a/b/c``-key npz that the JAX package's
   ``save_params_npz`` writes (``tpu_trainer/serving/remote.py``).
 - ``from_jax_params`` maps a nested-dict Flax tree of numpy arrays onto
-  a state dict for ``GPT``.
+  a state dict for ``GPT``; ``to_jax_params`` is its inverse.
 - ``init_params`` draws a fresh state dict the way Flax initializes the
   model: normal(std=initializer_range) kernels and embedding, ones for
   the norm weights.
@@ -81,6 +81,19 @@ def from_jax_params(tree, config: GPTConfig, device=None
             device=dev, dtype=dtype)
         for n, (_, dtype) in want.items()
     }
+
+
+def to_jax_params(state: Dict[str, torch.Tensor]) -> dict:
+    """The nested-dict Flax tree (f32 numpy arrays) of a ``GPT`` state dict
+    or named-parameter dict: the inverse of ``from_jax_params``."""
+    tree: dict = {}
+    for name, t in state.items():
+        *path, leaf = name.split(".")
+        cur = tree
+        for key in path:
+            cur = cur.setdefault(key, {})
+        cur[leaf] = t.detach().float().cpu().numpy()
+    return tree
 
 
 def init_params(config: GPTConfig, seed: int = 0, device=None

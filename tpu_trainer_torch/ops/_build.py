@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface. It is compiled with
 ``nvcc`` for ``sm_90a`` into ``tpu_trainer_torch/_build/lib<name>-<hash>.so``
-at first use, where ``<hash>`` covers the source and the flags, so an
-edited source rebuilds. The library is loaded with ``ctypes``. A missing
+at first use, where ``<hash>`` covers the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header rebuilds. The library is loaded with ``ctypes``. A missing
 ``nvcc`` or a failed build raises; nothing here runs at import time.
 """
 
@@ -47,6 +47,8 @@ def _nvcc() -> str:
 def _target(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

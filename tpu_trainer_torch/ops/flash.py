@@ -1,16 +1,28 @@
-"""Paged flash-decode (port of ``tpu_trainer/ops/flash.py`` decode path).
+"""Flash attention (port of ``tpu_trainer/ops/flash.py``).
 
-``flash_decode`` is single-query attention over a paged KV pool. On a
-CUDA tensor it launches the hand-written Hopper kernel
-``csrc/flash_decode.cu``, which replaces the Pallas TPU kernel
-``tpu_trainer/ops/flash.py::_decode_kernel``; on a CPU tensor it runs
-``paged_attention_reference``, the plain PyTorch version with the same
-operands and result. There is no other fallback: a CUDA call either
-launches the kernel or raises.
+Two kernels, each with its plain PyTorch version in this module:
 
-The kernel is memory-bound: its least time on the card is the K/V bytes
-it must read (positions below each row's length) over the card's memory
-rate, 3.35 TB/s on an H100 SXM (NVIDIA data sheet, 700 W).
+- ``flash_attention``: causal training attention with fused RoPE and
+  counter-based attention dropout, BSHD in and out, differentiable. On a
+  CUDA tensor the forward launches ``flash_forward`` and the backward
+  ``flash_backward``, the hand-written Hopper kernels of
+  ``csrc/flash_attn.cu`` that replace the Pallas TPU kernels
+  ``tpu_trainer/ops/flash.py::_fwd_kernel`` and ``::_bwd_fused_kernel``;
+  on a CPU tensor it runs ``flash_attention_reference``, dense attention
+  with the same mask, RoPE fold, scale and dropout, differentiated by
+  autograd.
+- ``flash_decode``: single-query attention over a paged KV pool. On a
+  CUDA tensor it launches ``csrc/flash_decode.cu``, which replaces
+  ``tpu_trainer/ops/flash.py::_decode_kernel``; on a CPU tensor it runs
+  ``paged_attention_reference``.
+
+There is no other fallback: a CUDA call either launches its kernel or
+raises. Each wrapper counts its launches in ``<wrapper>.launches``.
+
+The decode kernel is memory-bound: its least time on the card is the K/V
+bytes it must read (positions below each row's length) over the card's
+memory rate, 3.35 TB/s on an H100 SXM (NVIDIA data sheet, 700 W). The
+training kernels are bound by operations (see ``csrc/flash_attn.cu``).
 """
 
 from __future__ import annotations
@@ -22,6 +34,9 @@ from typing import Optional
 import torch
 
 from tpu_trainer_torch.ops import _build
+from tpu_trainer_torch.ops.attention import repeat_kv
+from tpu_trainer_torch.ops.dropout import mul32, threshold_u32
+from tpu_trainer_torch.ops.rope import rotate_half
 
 _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _KERNEL_HEAD_DIMS = (16, 32, 64, 128)
@@ -221,3 +236,361 @@ def paged_attention_reference(
                     torch.full_like(s, float("-inf")))
     w = torch.softmax(s, dim=-1)
     return torch.einsum("bhk,bkhd->bhd", w, v)
+
+
+# --------------------------------------------------------------------------
+# training attention: flash forward / fused backward
+# --------------------------------------------------------------------------
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_TRAIN_HEAD_DIMS = (64, 128)
+_GOLDEN = 0x9E3779B9
+_U32 = 0xFFFFFFFF
+
+
+def _keep_mask(seed: int, salt, q_start: int, k_start: int, bq: int,
+               bk: int, seq: int, rate: float) -> torch.Tensor:
+    """Boolean keep mask of one ``[bq, bk]`` score block (port of the JAX
+    ``_keep_mask``): the multiply-xorshift hash of the global position
+    ``row * seq + col`` XOR ``seed + salt * golden``, uint32 throughout.
+
+    ``salt`` is an int or an int64 tensor of salts (one per (batch,
+    head)); the result has shape ``salt.shape + (bq, bk)``.
+    """
+    salt = torch.as_tensor(salt, dtype=torch.int64)
+    dev = salt.device
+    rows = (q_start + torch.arange(bq, dtype=torch.int64, device=dev)) & _U32
+    cols = (k_start + torch.arange(bk, dtype=torch.int64, device=dev)) & _U32
+    x = (mul32(rows, seq)[:, None] + cols[None, :]) & _U32
+    key = (int(seed) + mul32(salt & _U32, _GOLDEN)) & _U32
+    x = x ^ key[..., None, None]
+    x = mul32(x, 0xC2B2AE35)
+    x = x ^ (x >> 16)
+    x = mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    return x >= threshold_u32(rate)
+
+
+def keep_mask_full(seed: int, batch: int, heads: int, seq: int, rate: float,
+                   device=None) -> torch.Tensor:
+    """``[batch, heads, seq, seq]`` keep mask of a whole attention call:
+    salt ``batch * heads + head`` per (batch, head), as the kernels use."""
+    salts = torch.arange(batch * heads, dtype=torch.int64,
+                         device=device).reshape(batch, heads)
+    return _keep_mask(seed, salts, 0, 0, seq, seq, seq, rate)
+
+
+def _rope_fold(q, k, rope, scale: float):
+    """The kernels' q/k residuals: q rotated (f32) and scaled by
+    ``1/sqrt(d)`` then cast; k rotated then cast (k unchanged without
+    RoPE)."""
+    q32 = q.float()
+    if rope is None:
+        return (q32 * scale).to(q.dtype), k
+    cos, sin = (t.float()[None, :, None, :] for t in rope)
+    k32 = k.float()
+    qr = (q32 * cos + rotate_half(q32) * sin) * scale
+    kr = k32 * cos + rotate_half(k32) * sin
+    return qr.to(q.dtype), kr.to(k.dtype)
+
+
+def _reference_parts(q, k, v, *, causal, dropout_rate, seed, rope,
+                     segment_ids):
+    """``(o, lse [b, h, s] f32, qs, ks)`` of the plain version."""
+    b, s, h, d = q.shape
+    scale = 1.0 / math.sqrt(d)
+    qs, ks = _rope_fold(q, k, rope, scale)
+    kx, vx = repeat_kv(ks, v, h)
+    sc = torch.einsum("bqhd,bkhd->bhqk", qs.float(), kx.float())
+    allowed = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        allowed = torch.tril(allowed)
+    allowed = allowed[None, None]
+    if segment_ids is not None:
+        seg = segment_ids.to(q.device)
+        allowed = allowed & (seg[:, None, :, None] == seg[:, None, None, :])
+    sc = sc.masked_fill(~allowed, float("-inf"))
+    m = sc.amax(dim=-1, keepdim=True).detach()
+    p = torch.exp(sc - m)
+    l = p.sum(dim=-1, keepdim=True)
+    if dropout_rate > 0.0:
+        keep = keep_mask_full(seed, b, h, s, dropout_rate, device=q.device)
+        p = torch.where(keep, p, torch.zeros_like(p))
+        l_div = l * (1.0 - dropout_rate)
+    else:
+        l_div = l
+    acc = torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype).float(), vx.float())
+    o = (acc / l_div).transpose(1, 2).to(q.dtype)
+    lse = (m + torch.log(l))[..., 0]
+    return o, lse, qs, ks
+
+
+def flash_attention_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    dropout_rate: float = 0.0,
+    seed: Optional[int] = None,
+    rope: Optional[tuple] = None,
+    segment_ids: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain ``flash_attention``: dense scores from the same q/k fold
+    (RoPE in f32, ``1/sqrt(d)`` folded into q, cast to the input dtype),
+    f32 softmax normalised over the undropped weights, the same keep mask,
+    ``p`` cast to v's dtype for the PV product, ``o = acc / (l * (1 -
+    rate))``. Differentiable by autograd."""
+    _check_train(q, k, v, dropout_rate, seed, segment_ids)
+    return _reference_parts(q, k, v, causal=causal, dropout_rate=dropout_rate,
+                            seed=seed, rope=rope, segment_ids=segment_ids)[0]
+
+
+def _check_train(q, k, v, dropout_rate, seed, segment_ids):
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(
+            f"q, k, v must be [batch, seq, heads, head_dim] with k/v alike; "
+            f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    b, s, h, d = q.shape
+    if k.shape[0] != b or k.shape[1] != s or k.shape[3] != d or h % k.shape[2]:
+        raise ValueError(f"k/v {tuple(k.shape)} do not fit q {tuple(q.shape)}")
+    if dropout_rate > 0.0 and seed is None:
+        raise ValueError("dropout_rate > 0 requires a seed")
+    if segment_ids is not None and tuple(segment_ids.shape) != (b, s):
+        raise ValueError(f"segment_ids must be [batch, seq] = {(b, s)}; got "
+                         f"{tuple(segment_ids.shape)}")
+
+
+def _train_operands(q, k, v, rope):
+    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"q/k/v dtypes {q.dtype}/{k.dtype}/{v.dtype}: one "
+                         f"of float32, bfloat16, float16")
+    if q.shape[-1] not in _TRAIN_HEAD_DIMS:
+        raise ValueError(f"head_dim {q.shape[-1]} unsupported by the kernel "
+                         f"{_TRAIN_HEAD_DIMS}")
+    if q.shape[1] >= 2**16:
+        raise ValueError("kernel positions are uint32: seq must be < 65536")
+    for t in (k, v) + (tuple(rope) if rope is not None else ()):
+        if t.device != q.device:
+            raise ValueError(f"operand on {t.device}, q on {q.device}")
+    for t in (q, k, v) + (tuple(rope) if rope is not None else ()):
+        if not t.is_contiguous():
+            raise ValueError("flash_attention operands must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError("flash_attention operands must start 16-byte "
+                             "aligned (the kernels load 16 bytes at a time)")
+    if rope is not None:
+        s, d = q.shape[1], q.shape[3]
+        if any(t.dtype != torch.float32 or tuple(t.shape) != (s, d)
+               for t in rope):
+            raise ValueError(f"rope tables must be f32 [seq, head_dim] = "
+                             f"{(s, d)}")
+
+
+def _train_lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attn")
+    if lib.flash_attn_fwd.argtypes is None:
+        P, I, F, U = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                      ctypes.c_uint32)
+        lib.flash_attn_fwd.argtypes = [P] * 9 + [I] * 7 + [F, U, U, F, I, P]
+        lib.flash_attn_fwd.restype = I
+        lib.flash_attn_bwd.argtypes = [P] * 13 + [I] * 7 + [F, U, U, F, I, P]
+        lib.flash_attn_bwd.restype = I
+        lib.flash_attn_keep_mask.argtypes = [P, U, U, I, U, I, I, I, P]
+        lib.flash_attn_keep_mask.restype = I
+        lib.flash_attn_error_string.argtypes = [I]
+        lib.flash_attn_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _raise_on(lib, err: int, what: str) -> None:
+    if err != 0:
+        msg = lib.flash_attn_error_string(err).decode()
+        raise RuntimeError(f"{what} kernel launch failed: {msg} ({err})")
+
+
+def _ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
+
+
+def _dropout_args(dropout_rate: float, seed: Optional[int]):
+    on = dropout_rate > 0.0
+    return (ctypes.c_uint32(int(seed) & _U32 if on else 0),
+            ctypes.c_uint32(threshold_u32(dropout_rate) if on else 0),
+            ctypes.c_float(1.0 - dropout_rate), int(on))
+
+
+def flash_forward(q, k, v, *, causal: bool = True, dropout_rate: float = 0.0,
+                  seed: Optional[int] = None, rope: Optional[tuple] = None):
+    """The forward kernel on CUDA tensors: ``(o, lse [b, h, s] f32, qs,
+    ks)`` where ``qs`` is q rotated and scaled by ``1/sqrt(d)`` and ``ks``
+    the rotated k (k itself without RoPE), the backward's residuals."""
+    _check_train(q, k, v, dropout_rate, seed, None)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_forward runs on CUDA tensors; got {q.device}")
+    _train_operands(q, k, v, rope)
+    b, s, h, d = q.shape
+    kvh = k.shape[2]
+    o = torch.empty_like(q)
+    qs = torch.empty_like(q)
+    ks = torch.empty_like(k) if rope is not None else k
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    cos, sin = rope if rope is not None else (None, None)
+    lib = _train_lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attn_fwd(
+            _ptr(q), _ptr(k), _ptr(v), _ptr(cos), _ptr(sin), _ptr(o),
+            _ptr(lse), _ptr(qs), _ptr(ks if rope is not None else None),
+            b, s, h, kvh, d, _DTYPE_CODES[q.dtype], int(causal),
+            ctypes.c_float(1.0 / math.sqrt(d)),
+            *_dropout_args(dropout_rate, seed), ctypes.c_void_p(stream))
+    _raise_on(lib, err, "flash_forward")
+    flash_forward.launches += 1
+    return o, lse, qs, ks
+
+
+flash_forward.launches = 0
+
+
+def flash_backward(qs, ks, v, o, lse, do, *, causal: bool = True,
+                   dropout_rate: float = 0.0, seed: Optional[int] = None,
+                   rope: Optional[tuple] = None):
+    """The fused backward kernel on CUDA tensors: ``(dq, dk, dv)`` from the
+    forward's residuals (``qs``, ``ks``, ``o``, ``lse``) and ``do``. dq is
+    accumulated in f32 with atomics (order varies run to run), dk/dv are
+    f32 per-query-head partials group-summed here and rounded once."""
+    if qs.device.type != "cuda":
+        raise ValueError(f"flash_backward runs on CUDA tensors; got "
+                         f"{qs.device}")
+    _train_operands(qs, ks, v, rope)
+    b, s, h, d = qs.shape
+    kvh = ks.shape[2]
+    if o.shape != qs.shape or do.shape != qs.shape or do.dtype != qs.dtype:
+        raise ValueError("o / do must match q's shape and dtype")
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, s):
+        raise ValueError(f"lse must be f32 [b, h, s] = {(b, h, s)}")
+    do = do.contiguous()
+    if do.data_ptr() % 16:
+        do = do.clone()
+    for t in (o, lse):
+        if not t.is_contiguous():
+            raise ValueError("flash_backward operands must be contiguous")
+    f32 = dict(dtype=torch.float32, device=qs.device)
+    delta = torch.empty((b, h, s), **f32)
+    dq_acc = torch.empty((b, s, h, d), **f32)
+    dk_part = torch.empty((b, s, h, d), **f32)
+    dv_part = torch.empty((b, s, h, d), **f32)
+    dq = torch.empty_like(qs)
+    cos, sin = rope if rope is not None else (None, None)
+    lib = _train_lib()
+    with torch.cuda.device(qs.device):
+        stream = torch.cuda.current_stream(qs.device).cuda_stream
+        err = lib.flash_attn_bwd(
+            _ptr(qs), _ptr(ks), _ptr(v), _ptr(o), _ptr(do), _ptr(lse),
+            _ptr(cos), _ptr(sin), _ptr(delta), _ptr(dq_acc), _ptr(dq),
+            _ptr(dk_part), _ptr(dv_part), b, s, h, kvh, d,
+            _DTYPE_CODES[qs.dtype], int(causal),
+            ctypes.c_float(1.0 / math.sqrt(d)),
+            *_dropout_args(dropout_rate, seed), ctypes.c_void_p(stream))
+    _raise_on(lib, err, "flash_backward")
+    flash_backward.launches += 1
+    group = h // kvh
+    dk = dk_part.view(b, s, kvh, group, d).sum(dim=3).to(ks.dtype)
+    dv = dv_part.view(b, s, kvh, group, d).sum(dim=3).to(v.dtype)
+    return dq, dk, dv
+
+
+flash_backward.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Kernel forward (saving o, lse and the rotated q/k), kernel
+    backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, cos, sin, causal, dropout_rate, seed):
+        rope = (cos, sin) if cos is not None else None
+        o, lse, qs, ks = flash_forward(q, k, v, causal=causal,
+                                       dropout_rate=dropout_rate, seed=seed,
+                                       rope=rope)
+        ctx.save_for_backward(qs, ks, v, o, lse, cos, sin)
+        ctx.opts = (causal, dropout_rate, seed)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        qs, ks, v, o, lse, cos, sin = ctx.saved_tensors
+        causal, dropout_rate, seed = ctx.opts
+        rope = (cos, sin) if cos is not None else None
+        dq, dk, dv = flash_backward(qs, ks, v, o, lse, do, causal=causal,
+                                    dropout_rate=dropout_rate, seed=seed,
+                                    rope=rope)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    dropout_rate: float = 0.0,
+    seed: Optional[int] = None,
+    rope: Optional[tuple] = None,
+    segment_ids: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Causal flash attention for training; BSHD in, BSHD out.
+
+    - ``q [b, s, h, d]``, ``k``/``v`` ``[b, s, kvh, d]`` (GQA: query head
+      ``i`` reads kv head ``i // (h // kvh)``).
+    - ``dropout_rate > 0`` drops attention weights with the counter-based
+      mask of ``seed`` (a uint32), bitwise the JAX interpret-mode mask.
+    - ``rope=(cos, sin)`` (f32 ``[s, d]``) rotates q/k inside the kernel.
+    - ``segment_ids [b, s]`` isolate packed documents: the plain version
+      (CPU tensors) supports them; the CUDA kernels do not yet, and raise.
+
+    CPU tensors run ``flash_attention_reference``; CUDA tensors the
+    kernels (head_dim 64 or 128, f32 / bf16 / fp16), or raise.
+    """
+    _check_train(q, k, v, dropout_rate, seed, segment_ids)
+    if q.device.type == "cpu":
+        return _reference_parts(q, k, v, causal=causal,
+                                dropout_rate=dropout_rate, seed=seed,
+                                rope=rope, segment_ids=segment_ids)[0]
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    if segment_ids is not None:
+        raise NotImplementedError(
+            "segment_ids on CUDA need the split backward kernels, which are "
+            "not ported yet (ROADMAP Queue 2)")
+    cos, sin = rope if rope is not None else (None, None)
+    return _FlashAttention.apply(q, k, v, cos, sin, causal, dropout_rate,
+                                 seed)
+
+
+def keep_mask_cuda(seed: int, salt: int, seq: int, rate: float, *,
+                   block_q: int, block_k: int, k_major: bool = False,
+                   device="cuda") -> torch.Tensor:
+    """``[seq, seq]`` bool keep mask of stream (seed, salt) dumped by a CUDA
+    kernel through the same ``__device__`` hash the flash kernels use,
+    generated tile by tile in q-major or k-major order (the counterpart of
+    the JAX package's ``validate.py`` mask dump)."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"keep_mask_cuda runs on CUDA; got {dev}")
+    out = torch.empty((seq, seq), dtype=torch.uint8, device=dev)
+    lib = _train_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.flash_attn_keep_mask(
+            _ptr(out), ctypes.c_uint32(int(seed) & _U32),
+            ctypes.c_uint32(int(salt) & _U32), seq,
+            ctypes.c_uint32(threshold_u32(rate)), block_q, block_k,
+            int(k_major), ctypes.c_void_p(stream))
+    _raise_on(lib, err, "keep_mask_cuda")
+    keep_mask_cuda.launches += 1
+    return out.bool()
+
+
+keep_mask_cuda.launches = 0
