@@ -54,25 +54,60 @@ JAX package. Phases, each fatal on failure:
               flash kernels' ``__device__`` hash, under 128/64/256 tilings
               in q-major and k-major order, bitwise against the torch
               ``_keep_mask``; keep rate within 3 sigma of 1 - rate.
-8. train-reference -- a tiny f32 ``Trainer`` (hidden 128, 2 heads of 64,
+8. train-split -- the segmented forward and the split backward (dk/dv and
+              dq kernels) against the plain version the same way: packed
+              rows of the port's packer at b=8, s=1024, h=12, d=64 (f32 and
+              bf16, with and without dropout, RoPE), GQA (h=32, kvh=8,
+              d=128), a ragged s=1000 with documents shorter than a tile
+              and across several tiles, unsegmented s=4096 through
+              ``backward="split"``; planted faults (the split dq without
+              the segment mask, the fused backward on segments) must fail.
+              Times at the packed shape next to SDPA with the equivalent
+              boolean mask, and the fused/split table (unsegmented, b*s =
+              8192, s = 1024..8192) behind ``_FUSED_BWD_MAX_SEQ``.
+9. gmm     -- the grouped-matmul kernels (gmm, its dgrad against rhs^T,
+              tgmm) against ``gmm_reference`` / ``tgmm_reference`` at the
+              MoE path's shapes (G=16384, E=8, 768 -> 3072 and 3072 -> 768;
+              f32 and bf16) for balanced, skewed, empty-group and
+              G % 128 != 0 group sizes, tgmm's output pre-filled with NaN;
+              planted faults (a boundary tile's second group left out, an
+              all-zero tgmm) must fail. Times next to ``torch._grouped_mm``
+              (or a per-expert matmul loop where this torch lacks it).
+10. train-reference -- a tiny f32 ``Trainer`` (hidden 128, 2 heads of 64,
               2 layers, vocab 512, dropout off) for 5 steps on the card
               against the same on the CPU, equal weights and batches: loss,
               grad-norm and lr trajectories.
-9. train-grads -- one GPT-2 small bf16 step (batch 8 x 1024, dropout 0.1)
+11. train-grads -- one GPT-2 small bf16 step (batch 8 x 1024, dropout 0.1)
               through the kernels and through their plain versions, both
               held against the plain step in f32 on the same weights,
               batch and dropout seeds: loss, global grad norm and every
               parameter's gradient.
-10. train  -- the training path: ``Trainer(device="cuda")`` at GPT-2 small
+12. train  -- the training path: ``Trainer(device="cuda")`` at GPT-2 small
               full width and depth with the configuration bench.py
               measures (batch 8 x 1024, bf16 over f32 masters, dropout 0.1
               on the residuals and in attention, flash attention, fused
               head + CE, accumulation 1), 10 steps of ``DummyDataLoader``
-              batches with the launch counts zeroed just before. Checks
-              every loss finite (the first near ln(vocab)), forward ==
-              backward launches == 12 x steps, head-CE launches == steps;
-              prints step ms, tok/s, MFU, peak device memory and a
-              ``torch.profiler`` split of two more steps.
+              batches with every launch count zeroed just before. Checks
+              every loss finite (the first near ln(vocab)) and the launches
+              the path must make (forward == fused backward == 12 x steps,
+              head-CE == steps); prints step ms, tok/s, MFU, peak device
+              memory and a ``torch.profiler`` split of two more steps.
+13. train-packed -- the packed path: the same trainer on [8, 1024, 2]
+              batches of ``packed_synthetic_loader`` (first-fit, mean
+              document 256, corpus seed 17: bench.py --packed's packed
+              lane), 10 steps: forward == dk/dv == dq launches == 12 x
+              steps, no fused backward, head-CE == steps; also effective
+              (non-pad) tok/s and ``non_pad_frac``.
+14. moe-grads -- as train-grads with the MoE lane's dropless experts.
+15. train-moe -- the dropless MoE path: bench.py --moe's dropless lane (8
+              experts, top-2, z-loss 1e-3) at GPT-2 small width, 10 steps
+              on ``DummyDataLoader`` batches and 10 on bench.py's skewed
+              4-id stream: gmm == 6 x 12 x steps, tgmm == 3 x 12 x steps,
+              forward == fused backward == 12 x steps; per-layer group
+              sizes of one step; MFU on the active parameters.
+
+The earlier phases run at full depth; the whole run takes about three
+minutes on an H100, builds included.
 
 Then the ``kernels`` JSON line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. Without CUDA it exits 2 and prints no
@@ -466,23 +501,53 @@ def _attn_set(b, s, h, kvh, d, dtype, seed):
     return mk(h), mk(kvh), mk(kvh), mk(h)
 
 
-def _attn_bounds(b, s, h, kvh, d, elem) -> dict:
-    """Least times of the forward and backward: bytes (each input read
-    once, each output written once) over 3.35 TB/s; the tensor-core
-    products' flops on the causal pairs over 989 TFLOP/s."""
-    pairs = b * s * (s + 1) // 2
+def _bound(nbytes: float, flops: float) -> dict:
+    """Least time: bytes over 3.35 TB/s or tensor-core flops over 989
+    TFLOP/s, whichever is larger."""
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    return {"bound_ms": 1e3 * max(t_b, t_o),
+            "bound_by": "bytes" if t_b >= t_o else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+def _causal_pairs(b, s, seg=None) -> int:
+    """(q, k) pairs a causal call attends: all k <= q, or with segment ids
+    those inside one id (c (c + 1) / 2 for an id held by c positions of a
+    row, whatever the layout)."""
+    if seg is None:
+        return b * s * (s + 1) // 2
+    pairs = 0
+    for row in seg.cpu():
+        c = torch.unique(row, return_counts=True)[1].long()
+        pairs += int((c * (c + 1) // 2).sum())
+    return pairs
+
+
+def _attn_bounds(b, s, h, kvh, d, elem, seg=None) -> dict:
+    """Least times of the forward, the fused backward and the split pair's
+    two calls: bytes (each input read once, each output written once) over
+    3.35 TB/s; the tensor-core products' flops on the attended pairs
+    (``_causal_pairs``) over 989 TFLOP/s: 4d a pair and head forward, 10d
+    fused, 8d in the dk/dv call (S, dP, dV, dK) and 6d in the dq call (S,
+    dP, dQ)."""
+    pairs = _causal_pairs(b, s, seg)
     qb, kvb = b * s * h * d * elem, b * s * kvh * d * elem
     rows, rope = b * h * s * 4, 2 * s * d * 4
-    fwd_bytes = qb + 2 * kvb + rope + 2 * qb + kvb + rows   # -> o, qs, ks, lse
-    bwd_bytes = 3 * qb + 2 * kvb + rows + rope + qb + 2 * kvb
-    out = {}
-    for name, nbytes, flops in (("fwd", fwd_bytes, 4 * d * h * pairs),
-                                ("bwd", bwd_bytes, 10 * d * h * pairs)):
-        t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
-        out[name] = {"bound_ms": 1e3 * max(t_b, t_o),
-                     "bound_by": "bytes" if t_b >= t_o else "operations",
-                     "bytes": nbytes, "flops": flops}
-    return out
+    segb = 0 if seg is None else b * s * 4
+    return {
+        # q, k, v -> o, qs, ks, lse
+        "fwd": _bound(qb + 2 * kvb + rope + segb + 2 * qb + kvb + rows,
+                      4 * d * h * pairs),
+        # qs, ks, v, o, do, lse -> dq, dk, dv
+        "bwd": _bound(3 * qb + 2 * kvb + rows + rope + qb + 2 * kvb,
+                      10 * d * h * pairs),
+        # qs, ks, v, o, do, lse -> dk, dv, delta
+        "dkv": _bound(3 * qb + 2 * kvb + rows + rope + segb + 2 * kvb + rows,
+                      8 * d * h * pairs),
+        # qs, ks, v, do, lse, delta -> dq
+        "dq": _bound(2 * qb + 2 * kvb + 2 * rows + rope + segb + qb,
+                     6 * d * h * pairs),
+    }
 
 
 def _must_reject(what, check) -> None:
@@ -495,13 +560,17 @@ def _must_reject(what, check) -> None:
     raise AssertionError(f"the check passed a planted fault: {what}")
 
 
-def _flash_case(tag, b, s, h, kvh, d, dtype, rate) -> dict:
+def _flash_case(tag, b, s, h, kvh, d, dtype, rate, seg=None,
+                backward=None, faults=False) -> dict:
     """One shape through the kernels (the autograd Function, and
     ``flash_forward`` alone) and through the plain version: f32 results
     against the f32 plain version, bf16 results against the f32 truth
     next to the bf16 plain version. The rotated q/k residuals must equal
-    the plain version's bitwise. Returns max |kernel - plain| per result
-    (and the truth errors for bf16)."""
+    the plain version's bitwise. ``seg`` (int32 [b, s] segment ids) and
+    ``backward`` go to ``flash_attention``; the launches of the backward
+    ``backward_impl`` picks are checked. ``faults``: also hold planted
+    faults of the split backward against the same check. Returns max
+    |kernel - plain| per result (and the truth errors for bf16)."""
     from tpu_trainer_torch.ops import flash
     from tpu_trainer_torch.ops.rope import rope_tables
 
@@ -512,15 +581,26 @@ def _flash_case(tag, b, s, h, kvh, d, dtype, rate) -> dict:
     def plain(xs, grad_out):
         xs = [x.clone().requires_grad_(True) for x in xs]
         o, lse, qs, ks = flash._reference_parts(*xs, causal=True,
-                                                segment_ids=None, **kw)
+                                                segment_ids=seg, **kw)
         o.backward(grad_out)
         return {"o": o, "lse": lse, "qs": qs, "ks": ks, "dq": xs[0].grad,
                 "dk": xs[1].grad, "dv": xs[2].grad}
 
+    impl = flash.backward_impl(s, seg is not None, backward)
+    counters = (flash.flash_forward, flash.flash_backward,
+                flash.flash_backward_dkv, flash.flash_backward_dq)
+    before = [c.launches for c in counters]
     tq, tk, tv = (t.clone().requires_grad_(True) for t in (q, k, v))
-    out = flash.flash_attention(tq, tk, tv, **kw)
+    out = flash.flash_attention(tq, tk, tv, segment_ids=seg,
+                                backward=backward, **kw)
     out.backward(do)
-    o, lse, qs, ks = flash.flash_forward(q, k, v, **kw)
+    torch.cuda.synchronize()
+    launched = [c.launches - n for c, n in zip(counters, before)]
+    want = [1, 1, 0, 0] if impl == "fused" else [1, 0, 1, 1]
+    if launched != want:
+        raise AssertionError(f"{tag}: launches (forward, fused, dkv, dq) "
+                             f"{launched}, want {want}")
+    o, lse, qs, ks = flash.flash_forward(q, k, v, segment_ids=seg, **kw)
     torch.cuda.synchronize()
     got = {"o": out, "o_direct": o, "lse": lse, "dq": tq.grad,
            "dk": tk.grad, "dv": tv.grad}
@@ -531,11 +611,11 @@ def _flash_case(tag, b, s, h, kvh, d, dtype, rate) -> dict:
         if not torch.equal(a, r):
             raise AssertionError(f"{tag} {name}: {int((a != r).sum())} "
                                  f"elements differ from the plain version")
+    shape = f"b={b} s={s} h={h} kvh={kvh} d={d} {impl}"
     if dtype == "float32":
         errs = {n: _close(f"{tag} {n}", t, ref[n]) for n, t in got.items()}
-        log("train-kernel", f"flash {tag:<24} b={b} s={s} h={h} kvh={kvh} "
-                            f"d={d}: rotated q/k bitwise; max|kernel - "
-                            f"plain| " + ", ".join(
+        log("train-kernel", f"flash {tag:<24} {shape}: rotated q/k bitwise; "
+                            f"max|kernel - plain| " + ", ".join(
                                 f"{n} {e:.2e}" for n, e in errs.items()))
         return errs
     truth = plain([x.float() for x in (q, k, v)], do.float())
@@ -548,9 +628,23 @@ def _flash_case(tag, b, s, h, kvh, d, dtype, rate) -> dict:
         _must_reject(f"{tag} dq all zero",
                      lambda: _near_truth("dq", torch.zeros_like(tq.grad),
                                          ref["dq"], truth["dq"]))
-    log("train-kernel", f"flash {tag:<24} b={b} s={s} h={h} kvh={kvh} "
-                        f"d={d}: rotated q/k bitwise; error vs the f32 "
-                        f"truth, kernel/plain bf16, max and L2: " + ", ".join(
+    if faults:
+        # The split dq without the segment mask, and the fused backward
+        # (which has none) on the segmented forward's residuals.
+        kwb = dict(kw, segment_ids=seg)
+        _, _, delta = flash.flash_backward_dkv(qs, ks, v, o, lse, do, **kwb)
+        bad_dq = flash.flash_backward_dq(qs, ks, v, do, lse, delta, **kw)
+        _must_reject(f"{tag} split dq without the segment mask",
+                     lambda: _near_truth("dq", bad_dq, ref["dq"],
+                                         truth["dq"]))
+        fused = flash.flash_backward(qs, ks, v, o, lse, do, **kw)
+        for n, g in zip(("dq", "dk", "dv"), fused):
+            _must_reject(f"{tag} the fused backward's {n} on segments",
+                         lambda g=g, n=n: _near_truth(n, g, ref[n],
+                                                      truth[n]))
+    log("train-kernel", f"flash {tag:<24} {shape}: rotated q/k bitwise; "
+                        f"error vs the f32 truth, kernel/plain bf16, max and "
+                        f"L2: " + ", ".join(
                             f"{n} {r['max']['kernel']:.1e}/"
                             f"{r['max']['plain']:.1e} "
                             f"{r['l2']['kernel']:.2e}/{r['l2']['plain']:.2e}"
@@ -773,6 +867,391 @@ def phase_mask(results: dict) -> dict:
     return rec
 
 
+def _packed_segments(b, s, seed) -> torch.Tensor:
+    """int32 [b, s] segment ids of ``b`` rows from the port's packer
+    (first-fit over the synthetic ragged corpus, mean document s // 4)."""
+    from tpu_trainer_torch.data.packing import packed_synthetic_loader
+
+    batch = next(iter(packed_synthetic_loader(b, s, 50257, 1, seed)))
+    return torch.as_tensor(batch[..., 1], dtype=torch.int32, device="cuda")
+
+
+def _mixed_segments(s) -> torch.Tensor:
+    """Two rows of length ``s``: row 0 documents of 1 to 40 tokens (many
+    inside one 64-tile), row 1 documents of 300 to 600 (each across several
+    tiles); both end in a padding tail (id 0)."""
+    gen = torch.Generator().manual_seed(s)
+    rows = []
+    for lo, hi in ((1, 41), (300, 601)):
+        ids, pos, doc = [], 0, 1
+        while pos < s - 37:
+            n = min(int(torch.randint(lo, hi, (1,), generator=gen)),
+                    s - 37 - pos)
+            ids += [doc] * n
+            pos, doc = pos + n, doc + 1
+        rows.append(ids + [0] * (s - pos))
+    return torch.tensor(rows, dtype=torch.int32, device="cuda")
+
+
+def _sdpa_mask(seg, s) -> torch.Tensor:
+    """The boolean [b, 1, s, s] mask equal to causal and segment masking."""
+    causal = torch.ones((s, s), dtype=torch.bool, device="cuda").tril()
+    if seg is None:
+        return causal[None, None]
+    return (causal[None] & (seg[:, :, None] == seg[:, None, :]))[:, None]
+
+
+def _split_times(seg, b, s, h, d, rate=0.1) -> dict:
+    """Device times at one shape (bf16, RoPE, ``rate`` dropout): the
+    forward, the split pair's dk/dv and dq calls, their plain versions
+    (autograd of ``flash_attention_reference`` to (k, v) and to q) and
+    ``scaled_dot_product_attention`` with the equivalent boolean mask
+    (forward, and backward to (k, v) and to q) as yardsticks."""
+    import torch.nn.functional as F
+
+    from tpu_trainer_torch.ops import flash
+    from tpu_trainer_torch.ops.rope import rope_tables
+
+    sets = [_attn_set(b, s, h, h, d, "bfloat16", seed=i) for i in range(4)]
+    kw = dict(dropout_rate=rate, seed=7 if rate else None,
+              rope=rope_tables(s, d, device="cuda"))
+    res = [flash.flash_forward(q, k, v, segment_ids=seg, **kw)
+           for q, k, v, _ in sets]
+    dkv = [flash.flash_backward_dkv(r[2], r[3], st[2], r[0], r[1], st[3],
+                                    segment_ids=seg, **kw)
+           for r, st in zip(res, sets)]
+    t = {"fwd_ms": event_ms(lambda i: flash.flash_forward(
+             *sets[i][:3], segment_ids=seg, **kw), 4),
+         "dkv_ms": event_ms(lambda i: flash.flash_backward_dkv(
+             res[i][2], res[i][3], sets[i][2], res[i][0], res[i][1],
+             sets[i][3], segment_ids=seg, **kw), 4),
+         "dq_ms": event_ms(lambda i: flash.flash_backward_dq(
+             res[i][2], res[i][3], sets[i][2], sets[i][3], res[i][1],
+             dkv[i][2], segment_ids=seg, **kw), 4)}
+    del dkv, res
+    q, k, v, do = (x.clone().requires_grad_(i < 3)
+                   for i, x in enumerate(sets[0]))
+    with torch.no_grad():
+        t["plain_fwd_ms"] = event_ms(lambda i: flash.flash_attention_reference(
+            q, k, v, segment_ids=seg, **kw), 2, reps=3)
+    ref = flash.flash_attention_reference(q, k, v, segment_ids=seg, **kw)
+    t["plain_dkv_ms"] = event_ms(lambda i: torch.autograd.grad(
+        ref, (k, v), do, retain_graph=True), 2, reps=3)
+    t["plain_dq_ms"] = event_ms(lambda i: torch.autograd.grad(
+        ref, (q,), do, retain_graph=True), 2, reps=3)
+    del ref
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                  for x in sets[0][:3])
+    dot = sets[0][3].transpose(1, 2).contiguous()
+    mask = _sdpa_mask(seg, s).expand(b, 1, s, s)
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, attn_mask=mask, dropout_p=rate)
+    with torch.no_grad():
+        t["sdpa_fwd_ms"] = event_ms(lambda i: sdpa(), 4)
+    lib = sdpa()
+    t["sdpa_dkv_ms"] = event_ms(lambda i: torch.autograd.grad(
+        lib, (kt, vt), dot, retain_graph=True), 4)
+    t["sdpa_dq_ms"] = event_ms(lambda i: torch.autograd.grad(
+        lib, (qt,), dot, retain_graph=True), 4)
+    return t
+
+
+def phase_train_split(results: dict) -> dict:
+    """The segmented forward and the split backward against the plain
+    version (``_flash_case``): packed rows from the port's packer at the
+    packed path's shape (b=8, s=1024, h=12, d=64; f32 and bf16, with and
+    without dropout; RoPE), a GQA shape (h=32, kvh=8, d=128), a ragged
+    s=1000 with documents shorter than a tile and across several tiles,
+    and unsegmented s=4096 through ``backward="split"``; planted faults of
+    the split dq and of the fused backward on segments must fail the
+    check. Then times at the packed shape and the fused/split table
+    (unsegmented, b*s = 8192) that sets ``_FUSED_BWD_MAX_SEQ``."""
+    from tpu_trainer_torch.ops import flash
+    from tpu_trainer_torch.ops.rope import rope_tables
+
+    main_seg = _packed_segments(8, 1024, 17)
+    cases = [(f"main/packed/{dt}/p={rate}", 8, 1024, 12, 12, 64, dt, rate,
+              main_seg, None, dt == "bfloat16" and rate > 0)
+             for dt in ("float32", "bfloat16") for rate in (0.0, 0.1)]
+    cases += [
+        ("gqa/packed/bf16", 2, 1024, 32, 8, 128, "bfloat16", 0.1,
+         _packed_segments(2, 1024, 18), None, False),
+        ("ragged/mixed-docs/bf16", 2, 1000, 12, 12, 64, "bfloat16", 0.1,
+         _mixed_segments(1000), None, False),
+        ("ragged/mixed-docs/f32", 2, 1000, 12, 12, 64, "float32", 0.0,
+         _mixed_segments(1000), None, False),
+        ("long/unsegmented/split", 2, 4096, 12, 12, 64, "bfloat16", 0.1,
+         None, "split", False),
+    ]
+    rows, failures, fwd_err, dkv_err, dq_err = [], [], 0.0, 0.0, 0.0
+    for tag, b, s, h, kvh, d, dtype, rate, seg, bwd, faults in cases:
+        try:
+            row = _flash_case(tag, b, s, h, kvh, d, dtype, rate, seg=seg,
+                              backward=bwd, faults=faults)
+        except AssertionError as e:
+            failures.append(str(e))
+            log("train-split", f"{tag}: FAILED: {e}")
+            continue
+        fwd_err = max(fwd_err, *(row[n] for n in ("o", "o_direct", "lse")))
+        dkv_err = max(dkv_err, row["dk"], row["dv"])
+        dq_err = max(dq_err, row["dq"])
+        rows.append({"case": tag, "shape": [b, s, h, kvh, d],
+                     "segments": None if seg is None else int(
+                         sum(len(torch.unique(r)) for r in seg.cpu())),
+                     **row})
+    if failures:
+        results["train_split"] = {"checks": rows, "failures": failures}
+        raise AssertionError(f"train-split: {len(failures)} failed: "
+                             + " | ".join(failures))
+
+    b, s, h, d = 8, 1024, 12, 64
+    t = _split_times(main_seg, b, s, h, d)
+    bounds = _attn_bounds(b, s, h, h, d, 2, seg=main_seg)
+    nonpad = float((main_seg != 0).float().mean())
+    log("train-split", f"packed b={b} s={s} h={h} d={d} bf16, dropout 0.1, "
+                       f"RoPE, {int(sum(len(torch.unique(r)) for r in main_seg.cpu()))} "
+                       f"segments, non-pad {nonpad:.4f}, "
+                       f"{_causal_pairs(b, s, main_seg)} attended pairs:")
+    for name in ("fwd", "dkv", "dq"):
+        bd = bounds[name]
+        log("train-split", f"  {name:<4} kernel {t[name + '_ms']:.3f} ms (bound "
+                           f"{bd['bound_ms']:.4f} ms by {bd['bound_by']}: "
+                           f"{bd['bytes'] / 1e6:.1f} MB, "
+                           f"{bd['flops'] / 1e9:.2f} GFLOP), plain "
+                           f"{t['plain_' + name + '_ms']:.3f} ms, SDPA with "
+                           f"the boolean mask {t['sdpa_' + name + '_ms']:.3f} "
+                           f"ms")
+
+    # Fused against split, unsegmented, b * s = 8192 tokens.
+    sweep = []
+    for s_ in (1024, 2048, 4096, 8192):
+        b_ = 8192 // s_
+        sets = [_attn_set(b_, s_, h, h, d, "bfloat16", seed=i)
+                for i in range(2)]
+        kw = dict(dropout_rate=0.1, seed=7,
+                  rope=rope_tables(s_, d, device="cuda"))
+        res = [flash.flash_forward(q, k, v, **kw) for q, k, v, _ in sets]
+        args = lambda i: (res[i][2], res[i][3], sets[i][2], res[i][0],  # noqa
+                          res[i][1], sets[i][3])
+        fused = event_ms(lambda i: flash.flash_backward(*args(i), **kw), 2)
+        split = event_ms(lambda i: flash.flash_backward_split(*args(i), **kw),
+                         2)
+        sweep.append({"s": s_, "b": b_, "fused_ms": fused, "split_ms": split})
+        log("train-split", f"  unsegmented backward b={b_} s={s_}: fused "
+                           f"{fused:.3f} ms, split {split:.3f} ms "
+                           f"({split / fused:.2f}x)")
+        del sets, res
+    rec = {"checks": rows, "times": t, "bounds": bounds, "sweep": sweep,
+           "fused_max_seq": flash._FUSED_BWD_MAX_SEQ, "fwd_err": fwd_err,
+           "dkv_err": dkv_err, "dq_err": dq_err, "non_pad_frac": nonpad}
+    results["train_split"] = rec
+    return rec
+
+
+def _group_sizes(kind: str, G: int, E: int = 8) -> torch.Tensor:
+    """Group sizes of ``G`` rows over ``E`` experts: balanced, skewed (one
+    group with >= 90% of the rows), with empty groups (and boundaries inside
+    tiles), or summing to a G that is not a multiple of 128."""
+    if kind == "balanced":
+        sizes = [G // E] * E
+        sizes[-1] += G - sum(sizes)
+    elif kind == "skewed":
+        rest = [37, 0, 129, 1, 300, 0, 211]
+        sizes = [G - sum(rest)] + rest
+    elif kind == "empty":
+        sizes = [0, 5000, 0, 0, 3001, 6000, 0, 0]
+        sizes[-1] = G - sum(sizes)
+    else:
+        raise ValueError(kind)
+    assert sum(sizes) == G and len(sizes) == E and min(sizes) >= 0
+    return torch.tensor(sizes, dtype=torch.int32, device="cuda")
+
+
+def _gmm_bound(sizes, K, N, elem, wgrad=False) -> dict:
+    """Least time of one gmm (or tgmm): 2 K N flops a routed row; bytes:
+    lhs [G, K] (tgmm: and dout [G, N]) read, the weights of every non-empty
+    group read (tgmm: written f32 for every group), the output written."""
+    G = int(sizes.sum())
+    used = int((sizes > 0).sum())
+    E = sizes.numel()
+    if wgrad:
+        nbytes = G * K * elem + G * N * elem + E * K * N * 4 + (E + 1) * 4
+    else:
+        nbytes = G * K * elem + used * K * N * elem + G * N * elem + \
+            (E + 1) * 4
+    return _bound(nbytes, 2 * G * K * N)
+
+
+def _gmm_library(lhs, rhs, sizes):
+    """One PyTorch call for the same grouped product, as a yardstick:
+    ``torch._grouped_mm`` where this torch has it for these operands, else
+    a per-expert ``torch.matmul`` loop. Returns (callable, label)."""
+    offs = torch.cumsum(sizes, 0, dtype=torch.int32)
+    gm = getattr(torch, "_grouped_mm", None)
+    if gm is not None and lhs.dtype == torch.bfloat16:
+        try:
+            gm(lhs, rhs, offs=offs)
+            torch.cuda.synchronize()
+            return (lambda: gm(lhs, rhs, offs=offs)), "torch._grouped_mm"
+        except Exception as e:  # noqa: BLE001 - a yardstick only
+            log("gmm", f"torch._grouped_mm refused these operands ({e!r:.120})"
+                       f"; timing a per-expert torch.matmul loop instead")
+    bounds = [0] + offs.tolist()
+
+    def loop():
+        return [lhs[a:b] @ rhs[e] for e, (a, b) in
+                enumerate(zip(bounds[:-1], bounds[1:])) if b > a]
+    return loop, "per-expert torch.matmul loop"
+
+
+def phase_gmm(results: dict) -> dict:
+    """gmm (forward and the dgrad against rhs^T) and tgmm against
+    ``gmm_reference`` / ``tgmm_reference`` at the MoE path's shapes (G =
+    16384 routed rows, E = 8, H = 768 -> N = 3072 and 3072 -> 768; f32
+    against the f32 plain version, bf16 against the plain version run in
+    f32 next to the bf16 plain version) for balanced, skewed, empty-group
+    and G % 128 != 0 group sizes; tgmm's output pre-filled with NaN. Planted
+    faults (a boundary tile's second group left out of a gmm, an all-zero
+    tgmm) must fail the check. Then times of each kernel, its plain version
+    and one PyTorch call at the path's shapes."""
+    from tpu_trainer_torch.ops import grouped_matmul as gm
+
+    E, G = 8, 16384
+    cases = [(kind, G, H, N) for kind in ("balanced", "skewed", "empty")
+             for H, N in ((768, 3072), (3072, 768))]
+    cases += [("ragged-G", G - 37, 768, 3072)]
+    checks, failures, gmm_err, tgmm_err = [], [], 0.0, 0.0
+    for kind, g, H, N in cases:
+        sizes = _group_sizes("balanced" if kind == "ragged-G" else kind, g)
+        offs = gm.group_offsets(sizes)
+        gen = torch.Generator(device="cuda").manual_seed(H + N + g)
+        lhs32 = torch.randn((g, H), generator=gen, device="cuda")
+        rhs32 = torch.randn((E, H, N), generator=gen, device="cuda") * 0.05
+        dout32 = torch.randn((g, N), generator=gen, device="cuda")
+        for dtype in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype)
+            lhs, rhs, dout = (t.to(dt) for t in (lhs32, rhs32, dout32))
+            tag = f"{kind} G={g} {H}->{N} {dtype}"
+            try:
+                got = {"gmm": gm.gmm_cuda(lhs, rhs, offs),
+                       "dgrad": gm.gmm_cuda(dout, rhs, offs,
+                                            transpose_rhs=True)}
+                tg = torch.full((E, H, N), float("nan"), device="cuda")
+                got["tgmm"] = gm.tgmm_cuda(lhs, dout, offs, out=tg)
+                torch.cuda.synchronize()
+                plain = {"gmm": gm.gmm_reference(lhs, rhs, sizes),
+                         "dgrad": gm.gmm_reference(dout, rhs, sizes,
+                                                   transpose_rhs=True),
+                         "tgmm": gm.tgmm_reference(lhs, dout, sizes)}
+                # tgmm's result is f32 from f32 sums of exact products
+                # whatever the input type: reduction order only, F32_TOL.
+                errs = {"tgmm": _close(f"{tag} tgmm", got["tgmm"],
+                                       plain["tgmm"])}
+                if dtype == "float32":
+                    errs.update({n: _close(f"{tag} {n}", got[n], plain[n])
+                                 for n in ("gmm", "dgrad")})
+                else:
+                    f = (lhs.float(), rhs.float(), dout.float())
+                    truth = {"gmm": gm.gmm_reference(f[0], f[1], sizes),
+                             "dgrad": gm.gmm_reference(f[2], f[1], sizes,
+                                                       transpose_rhs=True)}
+                    near = {n: _near_truth(f"{tag} {n}", got[n], plain[n],
+                                           truth[n]) for n in truth}
+                    errs.update({n: r["vs_plain"] for n, r in near.items()})
+                if kind == "empty" and H == 768 and dtype == "bfloat16":
+                    _must_reject(f"{tag} gmm with a boundary tile's second "
+                                 f"group left out", lambda: _near_truth(
+                                     "gmm", _drop_second_group(got["gmm"],
+                                                               sizes),
+                                     plain["gmm"], truth["gmm"]))
+                    _must_reject(f"{tag} all-zero tgmm", lambda: _close(
+                        "tgmm", torch.zeros_like(got["tgmm"]),
+                        plain["tgmm"]))
+            except AssertionError as e:
+                failures.append(str(e))
+                log("gmm", f"{tag}: FAILED: {e}")
+                continue
+            gmm_err = max(gmm_err, errs["gmm"], errs["dgrad"])
+            tgmm_err = max(tgmm_err, errs["tgmm"])
+            checks.append({"case": kind, "G": g, "H": H, "N": N,
+                           "dtype": dtype, "sizes": sizes.tolist(), **errs})
+            log("gmm", f"{tag}: max|kernel - plain| " + ", ".join(
+                f"{n} {e:.2e}" for n, e in errs.items())
+                + ("" if dtype == "float32" else
+                   " (bf16 gmm/dgrad within the f32-truth limits)")
+                + ("; tgmm's NaN-filled output fully written"
+                   if "empty" == kind else ""))
+        del lhs32, rhs32, dout32
+    if failures:
+        results["gmm"] = {"checks": checks, "failures": failures}
+        raise AssertionError(f"gmm: {len(failures)} failed: "
+                             + " | ".join(failures))
+
+    # Times at the path's shapes, bf16, balanced and skewed groups.
+    times = {}
+    for kind in ("balanced", "skewed"):
+        sizes = _group_sizes(kind, G)
+        offs = gm.group_offsets(sizes)
+        for H, N in ((768, 3072), (3072, 768)):
+            gen = torch.Generator(device="cuda").manual_seed(1)
+            ins = [(torch.randn((G, H), generator=gen, device="cuda").bfloat16(),
+                    (torch.randn((E, H, N), generator=gen, device="cuda")
+                     * 0.05).bfloat16(),
+                    torch.randn((G, N), generator=gen, device="cuda").bfloat16())
+                   for _ in range(2)]
+            lib_fn, lib_label = _gmm_library(ins[0][0], ins[0][1], sizes)
+            rec = {
+                "gmm_ms": event_ms(lambda i: gm.gmm_cuda(
+                    ins[i][0], ins[i][1], offs), 2),
+                "dgrad_ms": event_ms(lambda i: gm.gmm_cuda(
+                    ins[i][2], ins[i][1], offs, transpose_rhs=True), 2),
+                "tgmm_ms": event_ms(lambda i: gm.tgmm_cuda(
+                    ins[i][0], ins[i][2], offs), 2),
+                "plain_gmm_ms": event_ms(lambda i: gm.gmm_reference(
+                    ins[i][0], ins[i][1], sizes), 2, reps=3),
+                "plain_tgmm_ms": event_ms(lambda i: gm.tgmm_reference(
+                    ins[i][0], ins[i][2], sizes), 2, reps=3),
+                "library_gmm_ms": event_ms(lambda i: lib_fn(), 2),
+                "library_gmm": lib_label,
+                "library_tgmm_ms": event_ms(lambda i: [
+                    ins[0][0][a:b].T @ ins[0][2][a:b] for a, b in zip(
+                        [0] + torch.cumsum(sizes, 0).tolist()[:-1],
+                        torch.cumsum(sizes, 0).tolist()) if b > a], 2),
+                "library_tgmm": "per-expert torch.matmul loop",
+                "gmm_bound": _gmm_bound(sizes, H, N, 2),
+                "tgmm_bound": _gmm_bound(sizes, H, N, 2, wgrad=True),
+            }
+            times[f"{kind} {H}->{N}"] = rec
+            log("gmm", f"{kind} G={G} {H}->{N} bf16: gmm {rec['gmm_ms']:.3f} "
+                       f"ms (bound {rec['gmm_bound']['bound_ms']:.4f} ms by "
+                       f"{rec['gmm_bound']['bound_by']}, "
+                       f"{rec['gmm_bound']['flops'] / 1e9:.1f} GFLOP), dgrad "
+                       f"{rec['dgrad_ms']:.3f} ms, tgmm {rec['tgmm_ms']:.3f} ms "
+                       f"(bound {rec['tgmm_bound']['bound_ms']:.4f} ms); plain "
+                       f"gmm {rec['plain_gmm_ms']:.3f} ms, tgmm "
+                       f"{rec['plain_tgmm_ms']:.3f} ms; {lib_label} "
+                       f"{rec['library_gmm_ms']:.3f} ms, tgmm loop "
+                       f"{rec['library_tgmm_ms']:.3f} ms")
+            del ins
+    out = {"checks": checks, "times": times, "gmm_err": gmm_err,
+           "tgmm_err": tgmm_err}
+    results["gmm"] = out
+    return out
+
+
+def _drop_second_group(out, sizes) -> torch.Tensor:
+    """A planted gmm fault: in the first 128-row tile that straddles a group
+    boundary, the rows of the tile's second group zeroed."""
+    bad = out.clone()
+    ends = torch.cumsum(sizes, 0).tolist()
+    for end in ends[:-1]:
+        if end % 128 and end < out.shape[0]:
+            tile_end = min((end // 128 + 1) * 128, out.shape[0])
+            bad[end:tile_end] = 0
+            return bad
+    raise AssertionError("no group boundary inside a tile")
+
+
 def phase_train_reference(results: dict) -> None:
     """A tiny f32 Trainer on the card against the same on the CPU: equal
     weights and batches, dropout off, 5 steps."""
@@ -834,14 +1313,17 @@ STEP_FACTOR, STEP_FLOOR = 2.0, 2.0**-9
 def _step_grads(cfg, params, tokens, *, plain: bool):
     """Loss and f32 gradients of one training forward/backward of ``GPT``
     at ``cfg`` (dropout seeds from a generator seeded 1). ``plain`` swaps
-    the flash kernels for ``flash_attention_reference`` and the head + CE
-    kernel for the chunked cross entropy (``fused_loss_pallas=False``)."""
+    the flash kernels for ``flash_attention_reference``, the head + CE
+    kernel for the chunked cross entropy (``fused_loss_pallas=False``) and
+    the grouped-matmul kernels for ``gmm_reference`` (differentiated by
+    autograd)."""
     import dataclasses
 
     from torch import nn
 
+    from tpu_trainer_torch.models import moe
     from tpu_trainer_torch.models.gpt import GPT
-    from tpu_trainer_torch.ops import flash
+    from tpu_trainer_torch.ops import flash, grouped_matmul
 
     model = GPT(dataclasses.replace(cfg, fused_loss_pallas=not plain),
                 device="meta")
@@ -849,53 +1331,98 @@ def _step_grads(cfg, params, tokens, *, plain: bool):
                            for n, t in params.items()}, strict=True,
                           assign=True)
     names, leaves = zip(*model.named_parameters())
-    kernel = flash.flash_attention
+    kernels = (flash.flash_attention, moe.gmm)
     if plain:
         flash.flash_attention = flash.flash_attention_reference
+        moe.gmm = grouped_matmul.gmm_reference
     try:
         _, loss = model(tokens, tokens, train=True,
                         generator=torch.Generator().manual_seed(1))
         grads = torch.autograd.grad(loss, leaves)
     finally:
-        flash.flash_attention = kernel
+        flash.flash_attention, moe.gmm = kernels
     return float(loss.detach()), {n: g.float() for n, g in zip(names, grads)}
 
 
-def phase_train_grads(results: dict) -> dict:
+def _small_config(**kw):
+    """GPT-2 small as bench.py sets it for the training lanes: seq 1024,
+    flash attention, dropout 0.1 on the residuals and in attention, fused
+    head + CE, fused projections, no remat (``kw`` adds e.g. the MoE
+    fields)."""
+    from tpu_trainer_torch.models.config import GPTConfig
+
+    return GPTConfig.preset("small", max_seq_len=1024, use_flash_attention=True,
+                            gradient_checkpointing=False, dropout=0.1,
+                            attention_dropout=0.1, **kw)
+
+
+# The MoE lane of bench.py --moe: 8 routed experts, top-2, dropless,
+# z-loss 1e-3 (moe_aux_weight keeps its default 0.01).
+MOE = dict(num_experts=8, moe_top_k=2, moe_impl="dropless",
+           router_z_weight=1e-3)
+
+
+def _counters():
+    """Every kernel wrapper's launch counter, by name."""
+    from tpu_trainer_torch.ops import flash, grouped_matmul, head_ce
+
+    return {"flash_forward": flash.flash_forward,
+            "flash_backward": flash.flash_backward,
+            "flash_backward_dkv": flash.flash_backward_dkv,
+            "flash_backward_dq": flash.flash_backward_dq,
+            "head_ce": head_ce.head_ce_forward,
+            "gmm": grouped_matmul.gmm_cuda, "tgmm": grouped_matmul.tgmm_cuda}
+
+
+def _want_launches(cfg, steps: int, *, segmented: bool, seq: int = 1024):
+    """The launches ``steps`` training steps of ``cfg`` must make: one
+    forward a layer and the backward ``backward_impl`` picks, one head + CE
+    a step, and with MoE 6 gmm (3 forward, 3 dgrad) and 3 tgmm a layer."""
+    from tpu_trainer_torch.ops import flash
+
+    n = cfg.num_layers * steps
+    fused = flash.backward_impl(seq, segmented) == "fused"
+    moe_on = cfg.num_experts > 0
+    return {"flash_forward": n, "flash_backward": n if fused else 0,
+            "flash_backward_dkv": 0 if fused else n,
+            "flash_backward_dq": 0 if fused else n, "head_ce": steps,
+            "gmm": 6 * n if moe_on else 0, "tgmm": 3 * n if moe_on else 0}
+
+
+def phase_train_grads(results: dict, *, moe: bool = False) -> dict:
     """The main path's model and batch shape (GPT-2 small, 8 x 1024,
-    dropout 0.1 in attention and on the residuals): one bf16 step's
-    gradients through the kernels against the f32 truth, next to the bf16
-    plain step's (STEP_FACTOR, STEP_FLOOR)."""
+    dropout 0.1 in attention and on the residuals; ``moe``: with the MoE
+    lane's dropless experts): one bf16 step's gradients through the kernels
+    against the f32 truth, next to the bf16 plain step's (STEP_FACTOR,
+    STEP_FLOOR)."""
     import dataclasses
 
     from tpu_trainer_torch.data.dummy import DummyDataLoader
-    from tpu_trainer_torch.models.config import GPTConfig
     from tpu_trainer_torch.models.weights import init_params
-    from tpu_trainer_torch.ops import flash, head_ce
     from tpu_trainer_torch.training.optimizer import global_norm
 
-    cfg = GPTConfig.preset("small", max_seq_len=1024, use_flash_attention=True,
-                           gradient_checkpointing=False, dropout=0.1,
-                           attention_dropout=0.1, dtype="bfloat16",
-                           param_dtype="float32")
+    phase = "moe-grads" if moe else "train-grads"
+    cfg = _small_config(dtype="bfloat16", param_dtype="float32",
+                        **(MOE if moe else {}))
     params = init_params(cfg, seed=0, device="cuda")
     batch = next(iter(DummyDataLoader(8, 1024, cfg.vocab_size, 1)))
     tokens = torch.as_tensor(batch, dtype=torch.long, device="cuda")
-    counters = (flash.flash_forward, flash.flash_backward,
-                head_ce.head_ce_forward)
+    counters = _counters()
     runs, launches = {}, {}
     for name, dtype, plain in (("kernel", "bfloat16", False),
                                ("plain", "bfloat16", True),
                                ("truth", "float32", True)):
-        before = [c.launches for c in counters]
+        before = {k: c.launches for k, c in counters.items()}
         runs[name] = _step_grads(dataclasses.replace(cfg, dtype=dtype),
                                  params, tokens, plain=plain)
         torch.cuda.synchronize()
-        launches[name] = [c.launches - b for c, b in zip(counters, before)]
-    want = {"kernel": [12, 12, 1], "plain": [0, 0, 0], "truth": [0, 0, 0]}
+        launches[name] = {k: c.launches - before[k]
+                          for k, c in counters.items()}
+    zero = {k: 0 for k in counters}
+    want = {"kernel": _want_launches(cfg, 1, segmented=False),
+            "plain": zero, "truth": zero}
     if launches != want:
-        raise AssertionError(f"train-grads: launches (flash forward, "
-                             f"backward, head_ce) {launches}, want {want}")
+        raise AssertionError(f"{phase}: launches {launches}, want {want}")
 
     def rel(a, b):
         return float(torch.linalg.vector_norm(a - b, dtype=torch.float64)
@@ -914,62 +1441,49 @@ def phase_train_grads(results: dict) -> dict:
     worst = max(ratio, key=ratio.get)
     rec = {"loss": {k: r[0] for k, r in runs.items()}, "grad_norm": norms,
            "rel_err": errs, "worst": worst, "worst_ratio": ratio[worst],
-           "launches": launches}
-    results["train_grads"] = rec
+           "launches": launches["kernel"]}
+    results[phase.replace("-", "_")] = rec
     bad = [f"{n} {errs[n][0]:.3e} vs plain {errs[n][1]:.3e}"
            for n, r in ratio.items() if not r <= 1.0]
     if bad:
-        raise AssertionError("train-grads: kernel step past STEP_FACTOR x "
-                             "the plain step's error + STEP_FLOOR: "
+        raise AssertionError(f"{phase}: kernel step past STEP_FACTOR x the "
+                             "plain step's error + STEP_FLOOR: "
                              + "; ".join(bad))
     k, p = errs[worst]
-    log("train-grads", f"GPT-2 small bf16 step, batch 8 x 1024, dropout 0.1: "
-                       f"loss kernel {rec['loss']['kernel']:.5f} plain "
-                       f"{rec['loss']['plain']:.5f} f32 "
-                       f"{rec['loss']['truth']:.5f}; grad norm "
-                       f"{norms['kernel']:.5f} / {norms['plain']:.5f} / "
-                       f"{norms['truth']:.5f}; relative error vs f32 "
-                       f"(kernel/plain): grad_norm {errs['grad_norm'][0]:.2e}/"
-                       f"{errs['grad_norm'][1]:.2e}, worst of the "
-                       f"{len(truth)} gradients, norm and loss: {worst} "
-                       f"{k:.2e}/{p:.2e} "
-                       f"({ratio[worst]:.2f} of its limit); launches "
-                       f"{launches['kernel']}")
+    log(phase, f"GPT-2 small{' MoE 8 x top-2' if moe else ''} bf16 step, "
+               f"batch 8 x 1024, dropout 0.1: loss kernel "
+               f"{rec['loss']['kernel']:.5f} plain {rec['loss']['plain']:.5f} "
+               f"f32 {rec['loss']['truth']:.5f}; grad norm "
+               f"{norms['kernel']:.5f} / {norms['plain']:.5f} / "
+               f"{norms['truth']:.5f}; relative error vs f32 (kernel/plain): "
+               f"grad_norm {errs['grad_norm'][0]:.2e}/"
+               f"{errs['grad_norm'][1]:.2e}, worst of the {len(truth)} "
+               f"gradients, norm and loss: {worst} {k:.2e}/{p:.2e} "
+               f"({ratio[worst]:.2f} of its limit); launches "
+               f"{ {n: v for n, v in launches['kernel'].items() if v} }")
     return rec
 
 
-def phase_train(results: dict) -> dict:
-    """The main path: ``Trainer`` at GPT-2 small full width and depth, the
-    configuration bench.py measures (bf16 over f32 masters, dropout 0.1 on
-    the residuals and in attention, flash attention, fused head + CE,
-    batch 8 x 1024, accumulation 1), 10 steps of ``DummyDataLoader``
-    batches."""
-    from tpu_trainer_torch.data.dummy import DummyDataLoader
-    from tpu_trainer_torch.models.config import GPTConfig
-    from tpu_trainer_torch.ops import flash, head_ce
-    from tpu_trainer_torch.training.config import TrainingConfig
-    from tpu_trainer_torch.training.trainer import Trainer
+def _train_steps(phase, trainer, state, batches, steps, *, segmented,
+                 profile=True) -> dict:
+    """``steps`` training steps over ``batches`` with every launch count
+    zeroed just before and read just after (they must equal
+    ``_want_launches``), each step timed on the host clock up to a
+    synchronize; every loss finite and the first near ln(vocab) (plus the
+    router auxiliaries with MoE). Then, with the counts read, a profile of
+    two more steps (``profile``)."""
     from tpu_trainer_torch.utils.guards import check_finite
     from tpu_trainer_torch.utils.logging import (
         flops_per_token, mfu, peak_flops_for_name)
 
-    steps, bs, seq = 10, 8, 1024
-    cfg = GPTConfig.preset("small", max_seq_len=seq, use_flash_attention=True,
-                           gradient_checkpointing=False, dropout=0.1,
-                           attention_dropout=0.1)
-    tc = TrainingConfig(batch_size=bs, max_seq_len=seq,
-                        gradient_accumulation_steps=1, mixed_precision="bf16",
-                        optimizer_state_dtype="float32")
-    trainer = Trainer(cfg, tc, device="cuda")
-    state = trainer.init_state(0)
-    loader = DummyDataLoader(batch_size=bs, seq_len=seq,
-                             vocab_size=cfg.vocab_size, num_batches=steps + 2)
-    batches = [trainer.put_batch(b) for b in loader]
+    cfg = trainer.model_config
+    seq = batches[0].shape[2]
+    bs = batches[0].shape[1]
+    counters = _counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    flash.flash_forward.launches = 0
-    flash.flash_backward.launches = 0
-    head_ce.head_ce_forward.launches = 0
+    for c in counters.values():
+        c.launches = 0
     metrics, step_ms = [], []
     for i in range(steps):
         t0 = time.perf_counter()
@@ -978,16 +1492,14 @@ def phase_train(results: dict) -> dict:
         step_ms.append(1e3 * (time.perf_counter() - t0))
         check_finite(i, m["loss"])
         metrics.append(m)
-    launches = {"flash_forward": flash.flash_forward.launches,
-                "flash_backward": flash.flash_backward.launches,
-                "head_ce": head_ce.head_ce_forward.launches}
-    want = {"flash_forward": cfg.num_layers * steps,
-            "flash_backward": cfg.num_layers * steps, "head_ce": steps}
+    launches = {k: c.launches for k, c in counters.items()}
+    want = _want_launches(cfg, steps, segmented=segmented, seq=seq)
     if launches != want:
-        raise AssertionError(f"train: launches {launches}, want {want}")
+        raise AssertionError(f"{phase}: launches {launches}, want {want}")
     if not 9.0 < metrics[0]["loss"] < 12.5:
-        raise AssertionError(f"train: first loss {metrics[0]['loss']} is not "
-                             f"near ln(vocab) = {math.log(cfg.vocab_size):.2f}")
+        raise AssertionError(f"{phase}: first loss {metrics[0]['loss']} is "
+                             f"not near ln(vocab) = "
+                             f"{math.log(cfg.vocab_size):.2f}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     steady = step_ms[2:]
     ms = statistics.median(steady)
@@ -999,32 +1511,147 @@ def phase_train(results: dict) -> dict:
            "lrs": [m["lr"] for m in metrics], "step_ms": step_ms,
            "step_ms_median_3_to_10": ms, "tokens_per_s": tok_s, "mfu": util,
            "flops_per_token": flops_per_token(cfg, seq),
-           "peak_memory_gb": peak_gb, "launches": launches}
-    rec["profile"] = _profile_steps(trainer, state, batches[steps:], ms)
+           "peak_memory_gb": peak_gb,
+           "launches": {k: v for k, v in launches.items() if v}}
+    log(phase, f"{steps} steps, losses "
+               + " ".join(f"{x:.4f}" for x in rec["losses"]))
+    log(phase, f"launches {rec['launches']} as the path must make them")
+    log(phase, f"step {ms:.2f} ms (median of steps 3-{steps}; all: "
+               + " ".join(f"{x:.1f}" for x in step_ms)
+               + f"), {tok_s:.0f} tok/s, MFU {util:.4f} against "
+                 f"{peak_flops_for_name(name) / 1e12:.0f} TFLOP/s "
+                 f"({rec['flops_per_token'] / 1e9:.3f} GFLOP a token), peak "
+                 f"device memory {peak_gb:.2f} GB")
+    if profile:
+        rec["profile"] = p = _profile_steps(trainer, state,
+                                            batches[steps:steps + 2], ms)
+        log("profile", f"{phase}: 2 profiled steps: device kernels busy "
+                       f"{p['device_busy_ms_per_step']:.1f} ms a step = "
+                       f"{p['device_busy_frac_of_step']:.3f} of the "
+                       f"unprofiled step; "
+                       f"{p['kernel_launches_per_step']:.0f} launches a step")
+        for g, ms_g in p["groups_ms_per_step"].items():
+            log("profile", f"  group  {ms_g:8.3f} ms/step  {g}")
+        for k in p["kernels"]:
+            log("profile", f"  device {k['ms_per_step']:8.3f} ms/step "
+                           f"x{k['count']:<5} {k['name']}")
+    return rec
+
+
+def _trainer(cfg):
+    from tpu_trainer_torch.training.config import TrainingConfig
+    from tpu_trainer_torch.training.trainer import Trainer
+
+    tc = TrainingConfig(batch_size=8, max_seq_len=1024,
+                        gradient_accumulation_steps=1, mixed_precision="bf16",
+                        optimizer_state_dtype="float32")
+    trainer = Trainer(cfg, tc, device="cuda")
+    return trainer, trainer.init_state(0)
+
+
+def phase_train(results: dict) -> dict:
+    """The main path: ``Trainer`` at GPT-2 small full width and depth, the
+    configuration bench.py measures (bf16 over f32 masters, dropout 0.1 on
+    the residuals and in attention, flash attention, fused head + CE,
+    batch 8 x 1024, accumulation 1), 10 steps of ``DummyDataLoader``
+    batches."""
+    from tpu_trainer_torch.data.dummy import DummyDataLoader
+
+    steps = 10
+    cfg = _small_config()
+    trainer, state = _trainer(cfg)
+    loader = DummyDataLoader(batch_size=8, seq_len=1024,
+                             vocab_size=cfg.vocab_size, num_batches=steps + 2)
+    batches = [trainer.put_batch(b) for b in loader]
+    log("train", "GPT-2 small, batch 8 x 1024, bf16 over f32 masters, "
+                 "dropout 0.1, DummyDataLoader batches:")
+    rec = _train_steps("train", trainer, state, batches, steps,
+                       segmented=False)
     results["train"] = rec
-    log("train", f"GPT-2 small, batch {bs} x {seq}, bf16 over f32 masters, "
-                 f"dropout 0.1: {steps} steps, losses "
-                 + " ".join(f"{x:.4f}" for x in rec["losses"]))
-    log("train", f"launches {launches} == 12 x {steps} forward, 12 x {steps} "
-                 f"backward, {steps} head_ce")
-    log("train", f"step {ms:.2f} ms (median of steps 3-{steps}; all: "
-                 + " ".join(f"{x:.1f}" for x in step_ms)
-                 + f"), {tok_s:.0f} tok/s, MFU {util:.4f} against "
-                   f"{peak_flops_for_name(name) / 1e12:.0f} TFLOP/s, peak "
-                   f"device memory {peak_gb:.2f} GB on "
-                   f"{results['card']['nvidia_smi']}")
-    p = rec["profile"]
-    log("profile", f"2 profiled steps: device kernels busy "
-                   f"{p['device_busy_ms_per_step']:.1f} ms a step = "
-                   f"{p['device_busy_frac_of_step']:.3f} of the unprofiled "
-                   f"step; {p['kernel_launches_per_step']:.0f} launches a "
-                   f"step")
-    for g, ms_g in p["groups_ms_per_step"].items():
-        log("profile", f"  group  {ms_g:8.3f} ms/step  {g}")
-    for k in p["kernels"]:
-        log("profile", f"  device {k['ms_per_step']:8.3f} ms/step "
-                       f"x{k['count']:<5} {k['name']}")
-    return launches
+    return rec["launches"]
+
+
+def phase_train_packed(results: dict) -> dict:
+    """The packed path: the same ``Trainer`` on ``[8, 1024, 2]`` batches of
+    the port's packer (``packed_synthetic_loader``: first-fit, mean document
+    256 tokens, corpus seed 17, as bench.py --packed's packed lane): the
+    segmented flash forward, the split backward and head + CE with the
+    segment target mask; 10 steps."""
+    from tpu_trainer_torch.data.packing import packed_synthetic_loader
+
+    steps = 10
+    cfg = _small_config()
+    trainer, state = _trainer(cfg)
+    loader = packed_synthetic_loader(8, 1024, cfg.vocab_size, steps + 2, 17)
+    host = list(loader)
+    batches = [trainer.put_batch(b) for b in host]
+    nonpad = float(sum((b[..., 1] != 0).sum() for b in host[:steps])
+                   / sum(b[..., 1].size for b in host[:steps]))
+    docs = sum(len(set(r.tolist()) - {0}) for b in host[:steps]
+               for r in b[..., 1])
+    log("train-packed", f"GPT-2 small, packed batches 8 x 1024 x 2, "
+                        f"{docs} documents in {steps} batches, non_pad_frac "
+                        f"{nonpad:.4f}:")
+    rec = _train_steps("train-packed", trainer, state, batches, steps,
+                       segmented=True)
+    rec["non_pad_frac"] = nonpad
+    rec["effective_tokens_per_s"] = rec["tokens_per_s"] * nonpad
+    log("train-packed", f"effective (non-pad) {rec['effective_tokens_per_s']:.0f} "
+                        f"tok/s at non_pad_frac {nonpad:.4f}")
+    results["train_packed"] = rec
+    return rec["launches"]
+
+
+def phase_train_moe(results: dict) -> dict:
+    """The dropless MoE path: ``Trainer`` at GPT-2 small with bench.py
+    --moe's dropless lane (8 experts, top-2, z-loss 1e-3, aux weight 0.01;
+    dropout 0.1, flash, fused head + CE; batch 8 x 1024, bf16 over f32
+    masters), 10 steps on ``DummyDataLoader`` batches and 10 on bench.py's
+    skewed stream (``default_rng(23).integers(0, 4, (8, 1024))``, which
+    piles the top-2 choices onto a few experts). Prints the per-layer group
+    sizes of one more step on each stream."""
+    import numpy as np
+
+    from tpu_trainer_torch.data.dummy import DummyDataLoader
+    from tpu_trainer_torch.models import moe
+
+    steps = 10
+    cfg = _small_config(**MOE)
+    trainer, state = _trainer(cfg)
+    log("train-moe", f"GPT-2 small MoE {cfg.num_experts} experts top-"
+                     f"{cfg.moe_top_k} dropless, {cfg.num_parameters() / 1e9:.3f}"
+                     f" B parameters ({cfg.num_active_parameters() / 1e9:.3f} B "
+                     f"active), batch 8 x 1024, bf16 over f32 masters")
+    rng = np.random.default_rng(23)
+    streams = {
+        "dummy": [trainer.put_batch(b) for b in DummyDataLoader(
+            8, 1024, cfg.vocab_size, steps + 3)],
+        "skewed": [trainer.put_batch(rng.integers(0, 4, (8, 1024),
+                                                  dtype=np.int32))
+                   for _ in range(steps + 3)]}
+    out = {}
+    for name, batches in streams.items():
+        rec = _train_steps(f"train-moe/{name}", trainer, state,
+                           batches[:steps + 2], steps, segmented=False,
+                           profile=name == "dummy")
+        sizes, dispatch = [], moe.dispatch
+
+        def record(gate_idx, num_experts):
+            counts, perm, inv = dispatch(gate_idx, num_experts)
+            sizes.append(counts.tolist())
+            return counts, perm, inv
+
+        moe.dispatch = record
+        try:
+            trainer.train_step(state, batches[steps + 2])
+        finally:
+            moe.dispatch = dispatch
+        rec["group_sizes"] = sizes
+        log(f"train-moe/{name}", "group sizes of one step, layer by layer: "
+            + " | ".join(",".join(str(c) for c in layer) for layer in sizes))
+        out[name] = rec
+    results["train_moe"] = out
+    return out["dummy"]["launches"]
 
 
 # Device kernels by what they serve, for the step's breakdown (first
@@ -1033,9 +1660,10 @@ def phase_train(results: dict) -> dict:
 # uint32 hash (ops/dropout.py) and the flash backward's dk/dv group sum.
 _KERNEL_GROUPS = (
     ("flash attention (csrc/flash_attn.cu)",
-     ("flash_fwd_kernel", "flash_bwd_kernel", "rope_prep_kernel",
-      "delta_kernel", "dq_finalize_kernel")),
+     ("flash_fwd_kernel", "flash_bwd_kernel", "flash_bwd_dq_kernel",
+      "rope_prep_kernel", "delta_kernel", "dq_finalize_kernel")),
     ("head + CE forward (csrc/head_ce.cu)", ("head_ce_",)),
+    ("grouped matmuls (csrc/grouped_matmul.cu)", ("gmm_kernel",)),
     ("GEMMs (cuBLAS)", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
     ("int64 elementwise (hash dropout)", ("<long", "long>", "long,")),
 )
@@ -1312,65 +1940,73 @@ def main(argv=None) -> int:
     phase_engine(results, kv_int8=True)
     torch.cuda.empty_cache()
     train_k = phase_train_kernel(results)
-    phase_mask(results)
+    mask = phase_mask(results)
+    split = phase_train_split(results)
+    grouped = phase_gmm(results)
+    torch.cuda.empty_cache()
     phase_train_reference(results)
     phase_train_grads(results)
     torch.cuda.empty_cache()
     train_launches = phase_train(results)
+    torch.cuda.empty_cache()
+    packed_launches = phase_train_packed(results)
+    torch.cuda.empty_cache()
+    phase_train_grads(results, moe=True)
+    torch.cuda.empty_cache()
+    moe_launches = phase_train_moe(results)
 
     max_err = max(results["kernel_max_abs_err"],
                   results["engine"]["live_step_max_abs_err"],
                   results["int8"]["live_step_max_abs_err"])
     t, bounds, head = train_k["times"], train_k["bounds"], train_k["head"]
-    kernels = {"kernels": [{
-        "name": "flash_decode",
-        "route": "cuda",
-        "source": "tpu_trainer_torch/csrc/flash_decode.cu",
-        "replaces": "tpu_trainer/ops/flash.py:1574",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"],
-    }, {
-        "name": "flash_attn_forward",
-        "route": "cuda",
-        "source": "tpu_trainer_torch/csrc/flash_attn.cu",
-        "replaces": "tpu_trainer/ops/flash.py:250",
-        "launches": train_launches["flash_forward"],
-        "max_abs_err": train_k["fwd_err"],
-        "ms": t["fwd_ms"],
-        "plain_ms": t["plain_fwd_ms"],
-        "bound_ms": bounds["fwd"]["bound_ms"],
-        "bound_by": bounds["fwd"]["bound_by"],
-        "library_ms": t["sdpa_fwd_ms"],
-    }, {
-        "name": "flash_attn_backward",
-        "route": "cuda",
-        "source": "tpu_trainer_torch/csrc/flash_attn.cu",
-        "replaces": "tpu_trainer/ops/flash.py:577",
-        "launches": train_launches["flash_backward"],
-        "max_abs_err": train_k["bwd_err"],
-        "ms": t["bwd_ms"],
-        "plain_ms": t["plain_bwd_ms"],
-        "bound_ms": bounds["bwd"]["bound_ms"],
-        "bound_by": bounds["bwd"]["bound_by"],
-        "library_ms": t["sdpa_bwd_ms"],
-    }, {
-        "name": "head_ce_forward",
-        "route": "cuda",
-        "source": "tpu_trainer_torch/csrc/head_ce.cu",
-        "replaces": "tpu_trainer/ops/head_ce.py:67",
-        "launches": train_launches["head_ce"],
-        "max_abs_err": head["max_abs_err"],
-        "ms": head["ms"],
-        "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"],
-        "bound_by": head["bound_by"],
-        "library_ms": head["library_ms"],
-    }]}
+    st, sb = split["times"], split["bounds"]
+    gt = grouped["times"]["balanced 768->3072"]
+
+    def row(name, source, replaces, launched, err, ms, plain_ms, bound,
+            library_ms):
+        return {"name": name, "route": "cuda",
+                "source": f"tpu_trainer_torch/csrc/{source}",
+                "replaces": replaces, "launches": launched,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+                "library_ms": library_ms}
+
+    kernels = {"kernels": [
+        row("flash_decode", "flash_decode.cu",
+            "tpu_trainer/ops/flash.py:1574", launches, max_err,
+            main_row["ms"], main_row["plain_ms"], main_row,
+            main_row["library_ms"]),
+        row("flash_attn_forward", "flash_attn.cu",
+            "tpu_trainer/ops/flash.py:250", train_launches["flash_forward"],
+            max(train_k["fwd_err"], split["fwd_err"]), t["fwd_ms"],
+            t["plain_fwd_ms"], bounds["fwd"], t["sdpa_fwd_ms"]),
+        row("flash_attn_backward", "flash_attn.cu",
+            "tpu_trainer/ops/flash.py:577", train_launches["flash_backward"],
+            train_k["bwd_err"], t["bwd_ms"], t["plain_bwd_ms"], bounds["bwd"],
+            t["sdpa_bwd_ms"]),
+        row("head_ce_forward", "head_ce.cu", "tpu_trainer/ops/head_ce.py:67",
+            train_launches["head_ce"], head["max_abs_err"], head["ms"],
+            head["plain_ms"], head, head["library_ms"]),
+        row("flash_attn_backward_dkv", "flash_attn.cu",
+            "tpu_trainer/ops/flash.py:762",
+            packed_launches["flash_backward_dkv"], split["dkv_err"],
+            st["dkv_ms"], st["plain_dkv_ms"], sb["dkv"], st["sdpa_dkv_ms"]),
+        row("flash_attn_backward_dq", "flash_attn.cu",
+            "tpu_trainer/ops/flash.py:892",
+            packed_launches["flash_backward_dq"], split["dq_err"],
+            st["dq_ms"], st["plain_dq_ms"], sb["dq"], st["sdpa_dq_ms"]),
+        row("gmm", "grouped_matmul.cu",
+            "tpu_trainer/ops/grouped_matmul.py:232", moe_launches["gmm"],
+            grouped["gmm_err"], gt["gmm_ms"], gt["plain_gmm_ms"],
+            gt["gmm_bound"], gt["library_gmm_ms"]),
+        row("tgmm", "grouped_matmul.cu",
+            "tpu_trainer/ops/grouped_matmul.py:254", moe_launches["tgmm"],
+            grouped["tgmm_err"], gt["tgmm_ms"], gt["plain_tgmm_ms"],
+            gt["tgmm_bound"], gt["library_tgmm_ms"]),
+        # The test-only mask dump is on no path (0 launches there); bitwise.
+        row("keep_mask", "flash_attn.cu", "tpu_trainer/validate.py:65", 0,
+            0.0, mask["ms"], mask["plain_ms"], mask, None),
+    ]}
     results["kernels"] = kernels["kernels"]
     results["seconds"] = time.perf_counter() - t0
     if args.out:

@@ -46,7 +46,10 @@ def test_import_leaves_jax_out_of_sys_modules():
                 "tpu_trainer_torch.training.trainer",
                 "tpu_trainer_torch.ops.head_ce",
                 "tpu_trainer_torch.ops.loss",
-                "tpu_trainer_torch.data.dummy"):
+                "tpu_trainer_torch.ops.grouped_matmul",
+                "tpu_trainer_torch.models.moe",
+                "tpu_trainer_torch.data.dummy",
+                "tpu_trainer_torch.data.packing"):
         assert mod in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
@@ -92,6 +95,8 @@ def test_trainer_without_cuda_or_cpu_device_raises():
 @pytest.mark.parametrize("module,fn", [
     ("tpu_trainer_torch.ops.flash", "flash_forward"),
     ("tpu_trainer_torch.ops.flash", "flash_backward"),
+    ("tpu_trainer_torch.ops.flash", "flash_backward_dkv"),
+    ("tpu_trainer_torch.ops.flash", "flash_backward_dq"),
     ("tpu_trainer_torch.ops.flash", "keep_mask_cuda"),
 ])
 def test_kernel_wrappers_refuse_cpu_tensors(module, fn):
@@ -104,8 +109,10 @@ def test_kernel_wrappers_refuse_cpu_tensors(module, fn):
     with pytest.raises(ValueError, match="CUDA"):
         if fn == "flash_forward":
             wrapper(x, x, x)
-        elif fn == "flash_backward":
+        elif fn in ("flash_backward", "flash_backward_dkv"):
             wrapper(x, x, x, x, torch.zeros((1, 2, 8)), x)
+        elif fn == "flash_backward_dq":
+            wrapper(x, x, x, x, torch.zeros((1, 2, 8)), torch.zeros((1, 2, 8)))
         else:
             wrapper(1, 2, 8, 0.1, block_q=4, block_k=4, device="cpu")
 

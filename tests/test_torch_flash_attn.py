@@ -4,7 +4,7 @@
   package's, bitwise, including positions whose ``row * seq`` wraps
   2**32.
 - ``flash_attention_reference`` (which ``flash_attention`` runs on CPU
-  tensors) against the JAX Pallas kernel in interpret mode
+  tensors) against the JAX Pallas kernels in interpret mode
   (``tpu_trainer.ops.flash.flash_attention(..., interpret=True)`` with
   32-blocks, so the kernel streams two blocks and regenerates the dropout
   mask per block): outputs and q/k/v gradients for MHA and GQA, RoPE on
@@ -12,7 +12,8 @@
   from a numpy seed. Tolerance atol=rtol=2e-5: both sides are f32 softmax
   sums over at most 64 unit-scale positions whose reduction orders differ
   (online vs one-shot softmax); that is a few ulp of O(1) values, and the
-  gradients add one more reduction.
+  gradients add one more reduction. With segment ids, against the JAX
+  forward and split backward (``backward="split"``) at atol=rtol=1e-5.
 
 The JAX side comes in through the ``jx`` fixture: the card's machine has
 no JAX, and there the ``gpu`` tests at the end run alone
@@ -156,18 +157,92 @@ def test_reference_matches_jax_interpret_kernel(jx, case):
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), **TOL)
 
 
+SEG_LAYOUTS = {
+    # [b=2, s=64] segment ids, 0 = padding.
+    "packed": [[1] * 20 + [2] * 30 + [3] * 10 + [0] * 4,
+               [1] * 5 + [2] * 3 + [3] * 40 + [4] * 16],
+    "short_docs": [[i // 3 + 1 for i in range(60)] + [0] * 4,
+                   [1] * 64],
+    "across_blocks": [[1] * 50 + [2] * 14, [1] * 2 + [2] * 61 + [0]],
+}
+SEG_CASES = {
+    # name: (h, kvh, rope, dropout_rate, layout)
+    "mha_rope_packed": (4, 4, True, 0.0, "packed"),
+    "gqa_rope_short_docs": (4, 2, True, 0.0, "short_docs"),
+    "dropout_rope_across_blocks": (4, 4, True, 0.3, "across_blocks"),
+    "gqa_dropout_packed": (4, 2, False, 0.3, "packed"),
+}
+SEG_TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("case", sorted(SEG_CASES))
+def test_segmented_reference_matches_jax_split_kernels(jx, case):
+    """The plain version with segment ids against the JAX forward and
+    split backward kernels in interpret mode (32-blocks, so tiles are
+    skipped, masked and uniform), GQA, RoPE and dropout with the same seed
+    bits. atol=rtol=1e-5: f32 softmax sums over at most 64 positions in
+    another order."""
+    jax, jnp = jx.jax, jx.jnp
+    h, kvh, rope, rate, layout = SEG_CASES[case]
+    q, k, v, do, _ = _inputs(h, kvh, seed=3)
+    seg = np.asarray(SEG_LAYOUTS[layout], np.int32)
+    s, d = q.shape[1], q.shape[3]
+    cos, sin = rope_tables(s, d)
+    rng = jax.random.PRNGKey(9) if rate else None
+    seed = int(jax.random.bits(rng, dtype=jnp.uint32)) if rate else None
+
+    def jfn(q_, k_, v_):
+        return jx.flash.flash_attention(
+            q_, k_, v_, block_q=32, block_k=32, interpret=True,
+            dropout_rate=rate, dropout_rng=rng, backward="split",
+            rope=(jnp.asarray(cos.numpy()), jnp.asarray(sin.numpy()))
+            if rope else None, segment_ids=jnp.asarray(seg))
+
+    want, vjp = jax.vjp(jfn, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want_grads = vjp(jnp.asarray(do))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
+    got = tflash.flash_attention(
+        tq, tk, tv, dropout_rate=rate, seed=seed,
+        rope=(cos, sin) if rope else None, segment_ids=torch.from_numpy(seg),
+        backward="split")
+    got.backward(torch.from_numpy(do))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               **SEG_TOL)
+    for t, w in zip((tq, tk, tv), want_grads):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), **SEG_TOL)
+
+
+def test_backward_choice():
+    """Segment ids take the split backward; "fused" with them raises, as
+    in the JAX package (on any device); unsegmented calls take the fused
+    backward up to _FUSED_BWD_MAX_SEQ."""
+    top = tflash._FUSED_BWD_MAX_SEQ
+    assert tflash.backward_impl(top, False) == "fused"
+    assert tflash.backward_impl(top + 1, False) == "split"
+    assert tflash.backward_impl(64, False, "split") == "split"
+    assert tflash.backward_impl(64, True) == "split"
+    with pytest.raises(NotImplementedError, match="split backward"):
+        tflash.backward_impl(64, True, "fused")
+    with pytest.raises(ValueError, match="backward"):
+        tflash.backward_impl(64, False, "auto-ish")
+    q, k, v, _, seg = (torch.from_numpy(x) for x in _inputs(4, 2))
+    with pytest.raises(NotImplementedError, match="segment_ids"):
+        tflash.flash_attention(q, k, v, segment_ids=seg, backward="fused")
+
+
 def test_cpu_dispatch_is_the_plain_version():
     q, k, v, _, seg = _inputs(4, 2)
     tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
     rope = rope_tables(q.shape[1], q.shape[3])
-    before = (tflash.flash_forward.launches, tflash.flash_backward.launches)
+    counters = (tflash.flash_forward, tflash.flash_backward,
+                tflash.flash_backward_dkv, tflash.flash_backward_dq)
+    before = [c.launches for c in counters]
     for kw in ({}, {"dropout_rate": 0.2, "seed": 3, "rope": rope},
                {"segment_ids": torch.from_numpy(seg)}):
         got = tflash.flash_attention(tq, tk, tv, **kw)
         want = tflash.flash_attention_reference(tq, tk, tv, **kw)
         assert torch.equal(got, want)
-    assert (tflash.flash_forward.launches,
-            tflash.flash_backward.launches) == before
+    assert [c.launches for c in counters] == before
 
 
 def test_lse_and_residuals_of_the_plain_version():
@@ -306,14 +381,80 @@ def test_keep_mask_kernel_bitwise(cuda_device, bq, bk, k_major):
 
 @pytest.mark.gpu
 def test_kernel_rejects_what_it_cannot_take(cuda_device):
+    """Segment ids run on CUDA and match the plain version; "fused" with
+    them raises; the kernels refuse what they cannot take."""
     q, k, v, _, seg = (torch.from_numpy(x).to(cuda_device)
                        for x in _inputs(4, 2, d=16))
     with pytest.raises(ValueError, match="head_dim"):
         tflash.flash_attention(q, k, v)
     q, k, v, _, seg = (torch.from_numpy(x).to(cuda_device)
                        for x in _inputs(4, 2, d=64))
+    before = tflash.flash_backward_dq.launches
+    got = tflash.flash_attention(q, k, v, segment_ids=seg)
+    torch.testing.assert_close(got, tflash.flash_attention_reference(
+        q, k, v, segment_ids=seg), atol=F32_TOL, rtol=F32_TOL)
+    assert tflash.flash_backward_dq.launches == before
     with pytest.raises(NotImplementedError, match="segment_ids"):
-        tflash.flash_attention(q, k, v, segment_ids=seg)
+        tflash.flash_attention(q, k, v, segment_ids=seg, backward="fused")
     with pytest.raises(ValueError, match="contiguous"):
         tflash.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
                                k, v)
+
+
+SEG_GPU_CASES = [
+    # (b, s, h, kvh, d, dtype, layout, rate, backward)
+    (2, 64, 4, 4, 64, "float32", "packed", 0.0, None),
+    (2, 64, 4, 2, 64, "bfloat16", "short_docs", 0.1, None),
+    (2, 64, 4, 4, 128, "bfloat16", "across_blocks", 0.0, None),
+    (2, 300, 4, 4, 64, "bfloat16", None, 0.1, "split"),
+    (1, 200, 2, 2, 128, "float32", None, 0.1, "split"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,kvh,d,dtype,layout,rate,backward",
+                         SEG_GPU_CASES)
+def test_split_kernels_match_plain_on_card(cuda_device, b, s, h, kvh, d,
+                                           dtype, layout, rate, backward):
+    """The segmented forward and the split backward (dk/dv and dq kernels)
+    against the plain version, held as test_kernels_match_plain_on_card
+    holds the fused pair."""
+    dev = cuda_device
+    dt = getattr(torch, dtype)
+    q, k, v, do, _ = _inputs(h, kvh, b=b, s=s, d=d, seed=s + 1)
+    seg = None if layout is None else torch.tensor(
+        SEG_LAYOUTS[layout], dtype=torch.int32, device=dev)
+    tq, tk, tv = (torch.from_numpy(x).to(dev, dt).requires_grad_(True)
+                  for x in (q, k, v))
+    tdo = torch.from_numpy(do).to(dev, dt)
+    kw = dict(dropout_rate=rate, seed=99 if rate else None,
+              rope=rope_tables(s, d, device=dev))
+    counters = (tflash.flash_backward, tflash.flash_backward_dkv,
+                tflash.flash_backward_dq)
+    before = [c.launches for c in counters]
+    got = tflash.flash_attention(tq, tk, tv, segment_ids=seg,
+                                 backward=backward, **kw)
+    got.backward(tdo)
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counters, before)] == [0, 1, 1]
+    _, lse, _, _ = tflash.flash_forward(tq.detach(), tk.detach(), tv.detach(),
+                                        segment_ids=seg, **kw)
+    kernel = [got, lse, tq.grad, tk.grad, tv.grad]
+
+    def plain(xs, grad_out):
+        xs = [x.detach().clone().requires_grad_(True) for x in xs]
+        o, lse_, _, _ = tflash._reference_parts(*xs, causal=True,
+                                                segment_ids=seg, **kw)
+        o.backward(grad_out)
+        return [o, lse_] + [x.grad for x in xs]
+
+    names = ("o", "lse", "dq", "dk", "dv")
+    ref = plain((tq, tk, tv), tdo)
+    if dt == torch.float32:
+        for n, a, r in zip(names, kernel, ref):
+            torch.testing.assert_close(a, r, atol=F32_TOL, rtol=F32_TOL,
+                                       msg=n)
+        return
+    truth = plain([t.float() for t in (tq, tk, tv)], tdo.float())
+    for n, a, r, t in zip(names, kernel, ref, truth):
+        _assert_near_truth(n, a, r, t)

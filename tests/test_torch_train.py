@@ -331,6 +331,21 @@ def test_unported_options_raise(kw, err):
         TTrainer(TConfig(**{**BASE, **kw}), TTrain(), device="cpu")
 
 
+def test_dropless_moe_trains():
+    """The dropless counterpart of the num_experts case above: a Trainer
+    builds, holds the stacked MoE leaves and takes steps on the CPU."""
+    kw = {**BASE, "num_experts": 2, "moe_impl": "dropless", "moe_top_k": 1}
+    tr = TTrainer(TConfig(**kw), TTrain(batch_size=2, max_seq_len=16,
+                                        gradient_accumulation_steps=1,
+                                        mixed_precision="fp32",
+                                        warmup_steps=1), device="cpu")
+    state = tr.init_state(0)
+    assert state.params["layers.moe_mlp.experts_up"].shape == (2, 2, 32, 128)
+    losses = [tr.train_step(state, b)[1]["loss"]
+              for b in DummyDataLoader(2, 16, 128, 2)]
+    assert all(np.isfinite(losses)) and state.step == 2
+
+
 def test_unported_optimizer_state_dtype_raises():
     with pytest.raises(NotImplementedError, match="float32"):
         make_optimizer(TTrain(optimizer_state_dtype="bfloat16"))

@@ -4,10 +4,10 @@ Same fields, defaults, validation and presets as the JAX package, so one
 set of keyword arguments builds both configs in the parity tests. Dtypes
 stay strings; ``compute_dtype`` / ``params_dtype`` map them to torch
 dtypes. The training forward reads the dropout, flash-attention, fused
-loss and fused-projection fields; ``gradient_checkpointing``,
-``remat_lm_head`` (without ``fused_loss``) and ``num_experts > 0`` raise
-``NotImplementedError`` until their slices land, and the pipeline fields
-are carried for parity only (one device).
+loss, fused-projection and MoE fields; ``gradient_checkpointing``,
+``remat_lm_head`` (without ``fused_loss``) and ``num_experts > 0`` with
+``moe_impl="capacity"`` raise ``NotImplementedError`` until their slices
+land, and the pipeline fields are carried for parity only (one device).
 """
 
 from __future__ import annotations
@@ -57,7 +57,8 @@ class GPTConfig:
     activation: str = "silu"
     rope_theta: float = 10000.0
 
-    # Mixture-of-Experts (0 = dense). Not ported yet.
+    # Mixture-of-Experts (0 = dense). Only moe_impl="dropless" is ported
+    # (models/moe.py); moe_dispatch belongs to the capacity router.
     num_experts: int = 0
     moe_top_k: int = 1
     expert_capacity_factor: float = 1.25

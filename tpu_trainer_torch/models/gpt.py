@@ -13,11 +13,14 @@ Two branches of ``GPT.forward``, chosen by ``config.decode_paged``:
   when ``use_flash_attention``, else ``reference_attention``; residual
   dropout is ``ops.dropout.hash_dropout`` (``fast_dropout``). Every
   dropout seed is drawn from ``generator``. The loss is the fused head +
-  shifted CE (``ops.loss``) when ``fused_loss``.
+  shifted CE (``ops.loss``) when ``fused_loss``. With ``num_experts > 0``
+  (``moe_impl="dropless"``) each layer's FFN is the dropless MoE of
+  ``models/moe.py`` and the loss adds the layers' mean router auxiliary.
 - **Paged decode** (``decode=True`` with ``decode_paged``):
   ``forward(input_ids, cache, *, hist_blocks=0, logits_at=None)`` over the
   paged KV cache (``_paged_decode_attention``), decode attention through
-  ``ops.flash.flash_decode``.
+  ``ops.flash.flash_decode``. MoE decode is not ported: a paged MoE
+  config raises.
 
 Parameter names and layouts are the Flax ones with ``/`` written ``.``
 (``embed_tokens.embedding``, ``layers.attention.q_proj.kernel`` ...):
@@ -47,6 +50,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpu_trainer_torch.models.config import GPTConfig
+from tpu_trainer_torch.models.moe import check_moe, dropless_moe
 from tpu_trainer_torch.ops import flash as flash_lib
 from tpu_trainer_torch.ops.attention import reference_attention, repeat_kv
 from tpu_trainer_torch.ops.dropout import hash_dropout
@@ -274,6 +278,24 @@ class MLP(nn.Module):
         return self.down_proj(act * up, layer)
 
 
+class MoEMLP(nn.Module):
+    """The dropless MoE FFN's stacked parameters under their Flax names:
+    ``router.kernel [L, H, E]`` (f32), ``experts_gate`` / ``experts_up``
+    ``[L, E, H, I]`` and ``experts_down [L, E, I, H]``; the computation is
+    ``models.moe.dropless_moe``."""
+
+    def __init__(self, config: GPTConfig, device=None):
+        super().__init__()
+        cfg = config
+        L, E = cfg.num_layers, cfg.num_experts
+        H, I = cfg.hidden_size, cfg.intermediate_size
+        self.router = Dense(H, E, stack=L, dtype=torch.float32,
+                            param_dtype=torch.float32, device=device)
+        self.experts_gate = _param((L, E, H, I), cfg.params_dtype, device)
+        self.experts_up = _param((L, E, H, I), cfg.params_dtype, device)
+        self.experts_down = _param((L, E, I, H), cfg.params_dtype, device)
+
+
 class TransformerBlock(nn.Module):
     """Pre-norm block; holds every layer's parameters stacked."""
 
@@ -285,7 +307,10 @@ class TransformerBlock(nn.Module):
         self.input_layernorm = RMSNorm(cfg.hidden_size, **norm)
         self.attention = CausalSelfAttention(cfg, device=device)
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size, **norm)
-        self.mlp = MLP(cfg, device=device)
+        if cfg.num_experts > 0:
+            self.moe_mlp = MoEMLP(cfg, device=device)
+        else:
+            self.mlp = MLP(cfg, device=device)
 
     def forward(self, x, layer: int, cache, step: PagedStep):
         x = x + self.attention(self.input_layernorm(x, layer), layer, cache,
@@ -317,8 +342,11 @@ class GPT(nn.Module):
 
     def __init__(self, config: GPTConfig, *, device=None):
         super().__init__()
-        if config.num_experts > 0:
-            raise NotImplementedError("MoE is not ported yet")
+        check_moe(config)
+        if config.num_experts > 0 and config.decode_paged:
+            raise NotImplementedError(
+                "MoE decode is not ported: the paged engine serves dense "
+                "models only (ROADMAP Queue 1)")
         self.config = cfg = config
         self.embed_tokens = Embed(cfg.vocab_size, cfg.hidden_size,
                                   dtype=cfg.compute_dtype,
@@ -385,6 +413,9 @@ class GPT(nn.Module):
                 loss = _masked_shifted_mean(
                     softmax_cross_entropy(logits[:, :-1], labels[:, 1:]),
                     segment_ids)
+            if cfg.num_experts > 0:
+                # The layers' pre-weighted router auxiliaries, meaned.
+                loss = loss + step.moe_aux / cfg.num_layers
         return logits, loss
 
     def _unstacked_layers(self) -> List[Dict[str, torch.Tensor]]:
@@ -426,12 +457,19 @@ class GPT(nn.Module):
         x = x + self._residual_dropout(out, step)
 
         h = _rms_norm(x, p["post_attention_layernorm.weight"], eps, cd)
-        gate, up = _matmuls(h, [p["mlp.gate_proj.kernel"],
-                                p["mlp.up_proj.kernel"]], cd,
-                            cfg.fused_projections)
-        act = (F.silu(gate) if cfg.activation == "silu"
-               else F.gelu(gate, approximate="tanh"))
-        out = _matmuls(act * up, [p["mlp.down_proj.kernel"]], cd, False)[0]
+        if cfg.num_experts > 0:
+            out, aux = dropless_moe(
+                h, p["moe_mlp.router.kernel"], p["moe_mlp.experts_gate"],
+                p["moe_mlp.experts_up"], p["moe_mlp.experts_down"], cfg)
+            step.moe_aux = step.moe_aux + aux
+        else:
+            gate, up = _matmuls(h, [p["mlp.gate_proj.kernel"],
+                                    p["mlp.up_proj.kernel"]], cd,
+                                cfg.fused_projections)
+            act = (F.silu(gate) if cfg.activation == "silu"
+                   else F.gelu(gate, approximate="tanh"))
+            out = _matmuls(act * up, [p["mlp.down_proj.kernel"]], cd,
+                           False)[0]
         return x + self._residual_dropout(out, step)
 
     def _residual_dropout(self, x, step: "_TrainStep"):
@@ -484,6 +522,7 @@ class _TrainStep:
     generator: Optional[torch.Generator]
     rope: tuple                       # (cos, sin) f32 [s, head_dim]
     segment_ids: Optional[torch.Tensor]
+    moe_aux: object = 0.0             # sum of the layers' router aux
 
     def seed(self) -> int:
         """A fresh uint32 dropout seed from the generator."""

@@ -1,13 +1,16 @@
 """Flash attention (port of ``tpu_trainer/ops/flash.py``).
 
-Two kernels, each with its plain PyTorch version in this module:
+Two kinds of kernel, each with its plain PyTorch version in this module:
 
-- ``flash_attention``: causal training attention with fused RoPE and
-  counter-based attention dropout, BSHD in and out, differentiable. On a
-  CUDA tensor the forward launches ``flash_forward`` and the backward
-  ``flash_backward``, the hand-written Hopper kernels of
-  ``csrc/flash_attn.cu`` that replace the Pallas TPU kernels
-  ``tpu_trainer/ops/flash.py::_fwd_kernel`` and ``::_bwd_fused_kernel``;
+- ``flash_attention``: causal training attention with fused RoPE,
+  counter-based attention dropout and packed-sequence segment ids, BSHD in
+  and out, differentiable. On a CUDA tensor the forward launches
+  ``flash_forward`` and the backward either the fused ``flash_backward``
+  or the split pair ``flash_backward_dkv`` + ``flash_backward_dq``
+  (``backward_impl``: segment ids and long sequences take the split pair),
+  the hand-written Hopper kernels of ``csrc/flash_attn.cu`` that replace
+  the Pallas TPU kernels ``tpu_trainer/ops/flash.py::_fwd_kernel``,
+  ``::_bwd_fused_kernel``, ``::_bwd_dkv_kernel`` and ``::_bwd_dq_kernel``;
   on a CPU tensor it runs ``flash_attention_reference``, dense attention
   with the same mask, RoPE fold, scale and dropout, differentiated by
   autograd.
@@ -239,13 +242,37 @@ def paged_attention_reference(
 
 
 # --------------------------------------------------------------------------
-# training attention: flash forward / fused backward
+# training attention: flash forward / fused and split backward
 # --------------------------------------------------------------------------
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _TRAIN_HEAD_DIMS = (64, 128)
 _GOLDEN = 0x9E3779B9
 _U32 = 0xFFFFFFFF
+# Unsegmented calls up to this length take the fused backward, longer ones
+# the split pair. chip_smoke.py's train-split phase times both at b*s =
+# 8192 tokens (12 heads of 64, bf16) on an H100: the fused kernel is faster
+# at every s it measured, up to 8192, where the split pair's second score
+# evaluation costs more than the fused kernel's dq atomics (PERF.md).
+_FUSED_BWD_MAX_SEQ = 8192
+_BACKWARDS = (None, "fused", "split")
+
+
+def backward_impl(seq: int, segmented: bool, backward=None) -> str:
+    """``"fused"`` or ``"split"``: the backward a call takes. Segment ids
+    always take the split pair (``"fused"`` with them raises, as in the
+    JAX package); otherwise ``backward`` when given, else fused up to
+    ``_FUSED_BWD_MAX_SEQ`` and split beyond."""
+    if backward not in _BACKWARDS:
+        raise ValueError(f"backward must be 'fused', 'split' or None; got "
+                         f"{backward!r}")
+    if segmented:
+        if backward == "fused":
+            raise NotImplementedError(
+                "segment_ids require the split backward (the fused kernel "
+                "has no segment masking)")
+        return "split"
+    return backward or ("fused" if seq <= _FUSED_BWD_MAX_SEQ else "split")
 
 
 def _keep_mask(seed: int, salt, q_start: int, k_start: int, bq: int,
@@ -392,10 +419,12 @@ def _train_lib() -> ctypes.CDLL:
     if lib.flash_attn_fwd.argtypes is None:
         P, I, F, U = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                       ctypes.c_uint32)
-        lib.flash_attn_fwd.argtypes = [P] * 9 + [I] * 7 + [F, U, U, F, I, P]
-        lib.flash_attn_fwd.restype = I
-        lib.flash_attn_bwd.argtypes = [P] * 13 + [I] * 7 + [F, U, U, F, I, P]
-        lib.flash_attn_bwd.restype = I
+        tail = [I] * 7 + [F, U, U, F, I, P]
+        for fn, n_ptrs in (("flash_attn_fwd", 10), ("flash_attn_bwd", 13),
+                           ("flash_attn_bwd_dkv", 12),
+                           ("flash_attn_bwd_dq", 10)):
+            getattr(lib, fn).argtypes = [P] * n_ptrs + tail
+            getattr(lib, fn).restype = I
         lib.flash_attn_keep_mask.argtypes = [P, U, U, I, U, I, I, I, P]
         lib.flash_attn_keep_mask.restype = I
         lib.flash_attn_error_string.argtypes = [I]
@@ -420,17 +449,64 @@ def _dropout_args(dropout_rate: float, seed: Optional[int]):
             ctypes.c_float(1.0 - dropout_rate), int(on))
 
 
+def _segments(segment_ids, q) -> Optional[torch.Tensor]:
+    """The kernels' segment operand: int32 ``[b, s]`` contiguous on q's
+    device (None without segments)."""
+    if segment_ids is None:
+        return None
+    b, s = q.shape[:2]
+    if tuple(segment_ids.shape) != (b, s) or segment_ids.device != q.device:
+        raise ValueError(f"segment_ids must be [batch, seq] = {(b, s)} on "
+                         f"{q.device}; got {tuple(segment_ids.shape)} on "
+                         f"{segment_ids.device}")
+    return segment_ids.to(torch.int32).contiguous()
+
+
+def _backward_operands(qs, ks, v, o, lse, do, rope, what):
+    """Checks shared by the backward wrappers; returns ``do`` contiguous
+    and 16-byte aligned."""
+    if qs.device.type != "cuda":
+        raise ValueError(f"{what} runs on CUDA tensors; got {qs.device}")
+    _train_operands(qs, ks, v, rope)
+    b, s, h, _ = qs.shape
+    if ((o is not None and o.shape != qs.shape) or do.shape != qs.shape
+            or do.dtype != qs.dtype):
+        raise ValueError("o / do must match q's shape and dtype")
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, s):
+        raise ValueError(f"lse must be f32 [b, h, s] = {(b, h, s)}")
+    do = do.contiguous()
+    if do.data_ptr() % 16:
+        do = do.clone()
+    for t in (o, lse):
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"{what} operands must be contiguous")
+    return do
+
+
+def _common_args(q, k, causal, dropout_rate, seed):
+    b, s, h, d = q.shape
+    return (b, s, h, k.shape[2], d, _DTYPE_CODES[q.dtype], int(causal),
+            ctypes.c_float(1.0 / math.sqrt(d)),
+            *_dropout_args(dropout_rate, seed))
+
+
+def _stream(device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
 def flash_forward(q, k, v, *, causal: bool = True, dropout_rate: float = 0.0,
-                  seed: Optional[int] = None, rope: Optional[tuple] = None):
+                  seed: Optional[int] = None, rope: Optional[tuple] = None,
+                  segment_ids: Optional[torch.Tensor] = None):
     """The forward kernel on CUDA tensors: ``(o, lse [b, h, s] f32, qs,
     ks)`` where ``qs`` is q rotated and scaled by ``1/sqrt(d)`` and ``ks``
-    the rotated k (k itself without RoPE), the backward's residuals."""
-    _check_train(q, k, v, dropout_rate, seed, None)
+    the rotated k (k itself without RoPE), the backward's residuals.
+    ``segment_ids [b, s]`` (any integer dtype) isolate packed documents."""
+    _check_train(q, k, v, dropout_rate, seed, segment_ids)
     if q.device.type != "cuda":
         raise ValueError(f"flash_forward runs on CUDA tensors; got {q.device}")
     _train_operands(q, k, v, rope)
+    seg = _segments(segment_ids, q)
     b, s, h, d = q.shape
-    kvh = k.shape[2]
     o = torch.empty_like(q)
     qs = torch.empty_like(q)
     ks = torch.empty_like(k) if rope is not None else k
@@ -438,19 +514,25 @@ def flash_forward(q, k, v, *, causal: bool = True, dropout_rate: float = 0.0,
     cos, sin = rope if rope is not None else (None, None)
     lib = _train_lib()
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attn_fwd(
             _ptr(q), _ptr(k), _ptr(v), _ptr(cos), _ptr(sin), _ptr(o),
             _ptr(lse), _ptr(qs), _ptr(ks if rope is not None else None),
-            b, s, h, kvh, d, _DTYPE_CODES[q.dtype], int(causal),
-            ctypes.c_float(1.0 / math.sqrt(d)),
-            *_dropout_args(dropout_rate, seed), ctypes.c_void_p(stream))
+            _ptr(seg), *_common_args(q, k, causal, dropout_rate, seed),
+            _stream(q.device))
     _raise_on(lib, err, "flash_forward")
     flash_forward.launches += 1
     return o, lse, qs, ks
 
 
 flash_forward.launches = 0
+
+
+def _group_sum(part, like):
+    """f32 per-query-head dk/dv partials ``[b, s, h, d]`` summed over each
+    kv head's group and rounded once to ``like``'s dtype."""
+    b, s, h, d = part.shape
+    kvh = like.shape[2]
+    return part.view(b, s, kvh, h // kvh, d).sum(dim=3).to(like.dtype)
 
 
 def flash_backward(qs, ks, v, o, lse, do, *, causal: bool = True,
@@ -460,22 +542,8 @@ def flash_backward(qs, ks, v, o, lse, do, *, causal: bool = True,
     forward's residuals (``qs``, ``ks``, ``o``, ``lse``) and ``do``. dq is
     accumulated in f32 with atomics (order varies run to run), dk/dv are
     f32 per-query-head partials group-summed here and rounded once."""
-    if qs.device.type != "cuda":
-        raise ValueError(f"flash_backward runs on CUDA tensors; got "
-                         f"{qs.device}")
-    _train_operands(qs, ks, v, rope)
+    do = _backward_operands(qs, ks, v, o, lse, do, rope, "flash_backward")
     b, s, h, d = qs.shape
-    kvh = ks.shape[2]
-    if o.shape != qs.shape or do.shape != qs.shape or do.dtype != qs.dtype:
-        raise ValueError("o / do must match q's shape and dtype")
-    if lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, s):
-        raise ValueError(f"lse must be f32 [b, h, s] = {(b, h, s)}")
-    do = do.contiguous()
-    if do.data_ptr() % 16:
-        do = do.clone()
-    for t in (o, lse):
-        if not t.is_contiguous():
-            raise ValueError("flash_backward operands must be contiguous")
     f32 = dict(dtype=torch.float32, device=qs.device)
     delta = torch.empty((b, h, s), **f32)
     dq_acc = torch.empty((b, s, h, d), **f32)
@@ -485,48 +553,117 @@ def flash_backward(qs, ks, v, o, lse, do, *, causal: bool = True,
     cos, sin = rope if rope is not None else (None, None)
     lib = _train_lib()
     with torch.cuda.device(qs.device):
-        stream = torch.cuda.current_stream(qs.device).cuda_stream
         err = lib.flash_attn_bwd(
             _ptr(qs), _ptr(ks), _ptr(v), _ptr(o), _ptr(do), _ptr(lse),
             _ptr(cos), _ptr(sin), _ptr(delta), _ptr(dq_acc), _ptr(dq),
-            _ptr(dk_part), _ptr(dv_part), b, s, h, kvh, d,
-            _DTYPE_CODES[qs.dtype], int(causal),
-            ctypes.c_float(1.0 / math.sqrt(d)),
-            *_dropout_args(dropout_rate, seed), ctypes.c_void_p(stream))
+            _ptr(dk_part), _ptr(dv_part),
+            *_common_args(qs, ks, causal, dropout_rate, seed),
+            _stream(qs.device))
     _raise_on(lib, err, "flash_backward")
     flash_backward.launches += 1
-    group = h // kvh
-    dk = dk_part.view(b, s, kvh, group, d).sum(dim=3).to(ks.dtype)
-    dv = dv_part.view(b, s, kvh, group, d).sum(dim=3).to(v.dtype)
-    return dq, dk, dv
+    return dq, _group_sum(dk_part, ks), _group_sum(dv_part, v)
 
 
 flash_backward.launches = 0
 
 
+def flash_backward_dkv(qs, ks, v, o, lse, do, *, causal: bool = True,
+                       dropout_rate: float = 0.0, seed: Optional[int] = None,
+                       rope: Optional[tuple] = None,
+                       segment_ids: Optional[torch.Tensor] = None):
+    """The split backward's dk/dv kernel on CUDA tensors: ``(dk, dv,
+    delta)``, dk/dv group-summed from f32 per-query-head partials and
+    rounded once, ``delta [b, h, s] = rowsum(do * o)`` f32 for
+    ``flash_backward_dq``."""
+    do = _backward_operands(qs, ks, v, o, lse, do, rope,
+                            "flash_backward_dkv")
+    seg = _segments(segment_ids, qs)
+    b, s, h, d = qs.shape
+    f32 = dict(dtype=torch.float32, device=qs.device)
+    delta = torch.empty((b, h, s), **f32)
+    dk_part = torch.empty((b, s, h, d), **f32)
+    dv_part = torch.empty((b, s, h, d), **f32)
+    cos, sin = rope if rope is not None else (None, None)
+    lib = _train_lib()
+    with torch.cuda.device(qs.device):
+        err = lib.flash_attn_bwd_dkv(
+            _ptr(qs), _ptr(ks), _ptr(v), _ptr(o), _ptr(do), _ptr(lse),
+            _ptr(cos), _ptr(sin), _ptr(seg), _ptr(delta), _ptr(dk_part),
+            _ptr(dv_part), *_common_args(qs, ks, causal, dropout_rate, seed),
+            _stream(qs.device))
+    _raise_on(lib, err, "flash_backward_dkv")
+    flash_backward_dkv.launches += 1
+    return _group_sum(dk_part, ks), _group_sum(dv_part, v), delta
+
+
+flash_backward_dkv.launches = 0
+
+
+def flash_backward_dq(qs, ks, v, do, lse, delta, *, causal: bool = True,
+                      dropout_rate: float = 0.0, seed: Optional[int] = None,
+                      rope: Optional[tuple] = None,
+                      segment_ids: Optional[torch.Tensor] = None):
+    """The split backward's dq kernel on CUDA tensors: dq in q's dtype,
+    written once by the block that owns its q tile (deterministic)."""
+    do = _backward_operands(qs, ks, v, None, lse, do, rope,
+                            "flash_backward_dq")
+    b, s, h, _ = qs.shape
+    if (delta.dtype != torch.float32 or tuple(delta.shape) != (b, h, s)
+            or not delta.is_contiguous()):
+        raise ValueError(f"delta must be contiguous f32 [b, h, s] = "
+                         f"{(b, h, s)}")
+    seg = _segments(segment_ids, qs)
+    dq = torch.empty_like(qs)
+    cos, sin = rope if rope is not None else (None, None)
+    lib = _train_lib()
+    with torch.cuda.device(qs.device):
+        err = lib.flash_attn_bwd_dq(
+            _ptr(qs), _ptr(ks), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta),
+            _ptr(cos), _ptr(sin), _ptr(seg), _ptr(dq),
+            *_common_args(qs, ks, causal, dropout_rate, seed),
+            _stream(qs.device))
+    _raise_on(lib, err, "flash_backward_dq")
+    flash_backward_dq.launches += 1
+    return dq
+
+
+flash_backward_dq.launches = 0
+
+
+def flash_backward_split(qs, ks, v, o, lse, do, **kw):
+    """``(dq, dk, dv)`` through the split pair: ``flash_backward_dkv``,
+    then ``flash_backward_dq`` on its delta. Keywords as theirs."""
+    dk, dv, delta = flash_backward_dkv(qs, ks, v, o, lse, do, **kw)
+    return flash_backward_dq(qs, ks, v, do, lse, delta, **kw), dk, dv
+
+
 class _FlashAttention(torch.autograd.Function):
     """Kernel forward (saving o, lse and the rotated q/k), kernel
-    backward."""
+    backward: fused, or the split pair."""
 
     @staticmethod
-    def forward(ctx, q, k, v, cos, sin, causal, dropout_rate, seed):
+    def forward(ctx, q, k, v, cos, sin, seg, causal, dropout_rate, seed,
+                impl):
         rope = (cos, sin) if cos is not None else None
         o, lse, qs, ks = flash_forward(q, k, v, causal=causal,
                                        dropout_rate=dropout_rate, seed=seed,
-                                       rope=rope)
-        ctx.save_for_backward(qs, ks, v, o, lse, cos, sin)
-        ctx.opts = (causal, dropout_rate, seed)
+                                       rope=rope, segment_ids=seg)
+        ctx.save_for_backward(qs, ks, v, o, lse, cos, sin, seg)
+        ctx.opts = (causal, dropout_rate, seed, impl)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        qs, ks, v, o, lse, cos, sin = ctx.saved_tensors
-        causal, dropout_rate, seed = ctx.opts
-        rope = (cos, sin) if cos is not None else None
-        dq, dk, dv = flash_backward(qs, ks, v, o, lse, do, causal=causal,
-                                    dropout_rate=dropout_rate, seed=seed,
-                                    rope=rope)
-        return dq, dk, dv, None, None, None, None, None
+        qs, ks, v, o, lse, cos, sin, seg = ctx.saved_tensors
+        causal, dropout_rate, seed, impl = ctx.opts
+        kw = dict(causal=causal, dropout_rate=dropout_rate, seed=seed,
+                  rope=(cos, sin) if cos is not None else None)
+        if impl == "fused":
+            dq, dk, dv = flash_backward(qs, ks, v, o, lse, do, **kw)
+        else:
+            dq, dk, dv = flash_backward_split(qs, ks, v, o, lse, do,
+                                              segment_ids=seg, **kw)
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
 def flash_attention(
@@ -539,6 +676,7 @@ def flash_attention(
     seed: Optional[int] = None,
     rope: Optional[tuple] = None,
     segment_ids: Optional[torch.Tensor] = None,
+    backward: Optional[str] = None,
 ) -> torch.Tensor:
     """Causal flash attention for training; BSHD in, BSHD out.
 
@@ -547,26 +685,26 @@ def flash_attention(
     - ``dropout_rate > 0`` drops attention weights with the counter-based
       mask of ``seed`` (a uint32), bitwise the JAX interpret-mode mask.
     - ``rope=(cos, sin)`` (f32 ``[s, d]``) rotates q/k inside the kernel.
-    - ``segment_ids [b, s]`` isolate packed documents: the plain version
-      (CPU tensors) supports them; the CUDA kernels do not yet, and raise.
+    - ``segment_ids [b, s]`` isolate packed documents (0 = padding):
+      position i attends j only within one segment id.
+    - ``backward``: ``"fused"``, ``"split"`` or None (``backward_impl``);
+      ``"fused"`` with segment ids raises.
 
     CPU tensors run ``flash_attention_reference``; CUDA tensors the
     kernels (head_dim 64 or 128, f32 / bf16 / fp16), or raise.
     """
     _check_train(q, k, v, dropout_rate, seed, segment_ids)
+    impl = backward_impl(q.shape[1], segment_ids is not None, backward)
     if q.device.type == "cpu":
         return _reference_parts(q, k, v, causal=causal,
                                 dropout_rate=dropout_rate, seed=seed,
                                 rope=rope, segment_ids=segment_ids)[0]
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    if segment_ids is not None:
-        raise NotImplementedError(
-            "segment_ids on CUDA need the split backward kernels, which are "
-            "not ported yet (ROADMAP Queue 2)")
     cos, sin = rope if rope is not None else (None, None)
-    return _FlashAttention.apply(q, k, v, cos, sin, causal, dropout_rate,
-                                 seed)
+    return _FlashAttention.apply(q, k, v, cos, sin,
+                                 _segments(segment_ids, q), causal,
+                                 dropout_rate, seed, impl)
 
 
 def keep_mask_cuda(seed: int, salt: int, seq: int, rate: float, *,
