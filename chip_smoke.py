@@ -46,10 +46,12 @@ JAX package. Phases, each fatal on failure:
               backward). f32 results are held against the f32 plain
               version; bf16 results against the plain version run in f32
               (the truth), next to the bf16 plain version's error; the
-              check must reject planted faults. Times each kernel, its
-              plain version and one PyTorch call as a yardstick (SDPA
-              forward/backward; matmul + ``cross_entropy``) with CUDA
-              events, and computes the bounds.
+              check must reject planted faults (among them the plain
+              version run with another dropout seed: the masks at other
+              positions). Times each kernel, its plain version and one
+              PyTorch call as a yardstick (SDPA forward/backward; matmul
+              + ``cross_entropy``) with CUDA events, computes the bounds,
+              and times the bf16 forward without dropout and RoPE.
 7. mask    -- the dropout keep mask dumped by a CUDA kernel through the
               flash kernels' ``__device__`` hash, under 128/64/256 tilings
               in q-major and k-major order, bitwise against the torch
@@ -72,7 +74,9 @@ JAX package. Phases, each fatal on failure:
               G % 128 != 0 group sizes, tgmm's output pre-filled with NaN;
               planted faults (a boundary tile's second group left out, an
               all-zero tgmm) must fail. Times next to ``torch._grouped_mm``
-              (or a per-expert matmul loop where this torch lacks it).
+              (or a per-expert matmul loop where this torch lacks it or
+              refuses the operands), for the dgrad on the transposed view
+              of rhs too.
 10. train-reference -- a tiny f32 ``Trainer`` (hidden 128, 2 heads of 64,
               2 layers, vocab 512, dropout off) for 5 steps on the card
               against the same on the CPU, equal weights and batches: loss,
@@ -625,6 +629,13 @@ def _flash_case(tag, b, s, h, kvh, d, dtype, rate, seg=None,
         _must_reject(f"{tag} o divided by l, not l (1 - rate)",
                      lambda: _near_truth("o", out * (1 - rate), ref["o"],
                                          truth["o"]))
+        # The same dropout masks at other positions (another seed): what a
+        # kernel that maps its accumulator elements to the wrong (row, col)
+        # would produce.
+        moved = flash._reference_parts(q, k, v, causal=True, segment_ids=seg,
+                                       **dict(kw, seed=kw["seed"] + 1))[0]
+        _must_reject(f"{tag} o with the dropout masks moved",
+                     lambda: _near_truth("o", moved, ref["o"], truth["o"]))
         _must_reject(f"{tag} dq all zero",
                      lambda: _near_truth("dq", torch.zeros_like(tq.grad),
                                          ref["dq"], truth["dq"]))
@@ -690,6 +701,11 @@ def phase_train_kernel(results: dict) -> dict:
     res = [flash.flash_forward(q, k, v, **kw) for q, k, v, _ in sets]
     t = {"fwd_ms": event_ms(lambda i: flash.flash_forward(
              *sets[i][:3], **kw), 4),
+         # What the dropout hash and the RoPE prologue's k rotation cost.
+         "fwd_no_dropout_ms": event_ms(lambda i: flash.flash_forward(
+             *sets[i][:3], rope=rope), 4),
+         "fwd_no_dropout_no_rope_ms": event_ms(lambda i: flash.flash_forward(
+             *sets[i][:3]), 4),
          "bwd_ms": event_ms(lambda i: flash.flash_backward(
              res[i][2], res[i][3], sets[i][2], res[i][0], res[i][1],
              sets[i][3], **kw), 4)}
@@ -722,6 +738,9 @@ def phase_train_kernel(results: dict) -> dict:
                         f"{bounds['fwd']['flops'] / 1e9:.2f} GFLOP), plain "
                         f"{t['plain_fwd_ms']:.3f} ms, SDPA "
                         f"{t['sdpa_fwd_ms']:.3f} ms")
+    log("train-kernel", f"forward without dropout "
+                        f"{t['fwd_no_dropout_ms']:.4f} ms, without dropout "
+                        f"and RoPE {t['fwd_no_dropout_no_rope_ms']:.4f} ms")
     log("train-kernel", f"flash backward {t['bwd_ms']:.3f} ms (bound "
                         f"{bounds['bwd']['bound_ms']:.4f} ms by "
                         f"{bounds['bwd']['bound_by']}: "
@@ -1200,6 +1219,8 @@ def phase_gmm(results: dict) -> dict:
                     torch.randn((G, N), generator=gen, device="cuda").bfloat16())
                    for _ in range(2)]
             lib_fn, lib_label = _gmm_library(ins[0][0], ins[0][1], sizes)
+            lib_dgrad, lib_dgrad_label = _gmm_library(
+                ins[0][2], ins[0][1].transpose(1, 2), sizes)
             rec = {
                 "gmm_ms": event_ms(lambda i: gm.gmm_cuda(
                     ins[i][0], ins[i][1], offs), 2),
@@ -1213,6 +1234,8 @@ def phase_gmm(results: dict) -> dict:
                     ins[i][0], ins[i][2], sizes), 2, reps=3),
                 "library_gmm_ms": event_ms(lambda i: lib_fn(), 2),
                 "library_gmm": lib_label,
+                "library_dgrad_ms": event_ms(lambda i: lib_dgrad(), 2),
+                "library_dgrad": lib_dgrad_label,
                 "library_tgmm_ms": event_ms(lambda i: [
                     ins[0][0][a:b].T @ ins[0][2][a:b] for a, b in zip(
                         [0] + torch.cumsum(sizes, 0).tolist()[:-1],
@@ -1230,7 +1253,9 @@ def phase_gmm(results: dict) -> dict:
                        f"(bound {rec['tgmm_bound']['bound_ms']:.4f} ms); plain "
                        f"gmm {rec['plain_gmm_ms']:.3f} ms, tgmm "
                        f"{rec['plain_tgmm_ms']:.3f} ms; {lib_label} "
-                       f"{rec['library_gmm_ms']:.3f} ms, tgmm loop "
+                       f"{rec['library_gmm_ms']:.3f} ms, dgrad "
+                       f"{rec['library_dgrad_ms']:.3f} ms "
+                       f"({lib_dgrad_label} on rhs^T), tgmm loop "
                        f"{rec['library_tgmm_ms']:.3f} ms")
             del ins
     out = {"checks": checks, "times": times, "gmm_err": gmm_err,
@@ -1660,10 +1685,12 @@ def phase_train_moe(results: dict) -> dict:
 # uint32 hash (ops/dropout.py) and the flash backward's dk/dv group sum.
 _KERNEL_GROUPS = (
     ("flash attention (csrc/flash_attn.cu)",
-     ("flash_fwd_kernel", "flash_bwd_kernel", "flash_bwd_dq_kernel",
-      "rope_prep_kernel", "delta_kernel", "dq_finalize_kernel")),
+     ("flash_fwd_kernel", "flash_fwd_tma_kernel", "flash_bwd_kernel",
+      "flash_bwd_dq_kernel", "rope_prep_kernel", "delta_kernel",
+      "dq_finalize_kernel")),
     ("head + CE forward (csrc/head_ce.cu)", ("head_ce_",)),
-    ("grouped matmuls (csrc/grouped_matmul.cu)", ("gmm_kernel",)),
+    ("grouped matmuls (csrc/grouped_matmul.cu)", ("gmm_kernel",
+                                                  "gmm_tma_kernel")),
     ("GEMMs (cuBLAS)", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
     ("int64 elementwise (hash dropout)", ("<long", "long>", "long,")),
 )

@@ -111,6 +111,8 @@ CASES = {
     "gqa_rope": (4, 2, True, 0.0, False),
     "dropout_rope": (4, 4, True, 0.3, False),
     "gqa_dropout": (4, 2, False, 0.3, False),
+    "gqa_rope_dropout": (4, 2, True, 0.3, False),
+    "gqa_rope_dropout_segments": (4, 2, True, 0.3, True),
     "segments": (4, 2, True, 0.0, True),
 }
 
@@ -299,6 +301,11 @@ GPU_CASES = [
     (1, 100, 4, 2, 128, "bfloat16", True, 0.0),
     (2, 77, 4, 1, 64, "float16", False, 0.2),
     (1, 200, 2, 2, 128, "float32", False, 0.1),
+    # The 16-bit forward's 128-row q tile: s one past a tile, a ragged
+    # last tile, and d = 128 with GQA under dropout.
+    (1, 129, 4, 4, 64, "bfloat16", True, 0.1),
+    (1, 1000, 4, 2, 64, "bfloat16", True, 0.1),
+    (1, 300, 8, 2, 128, "bfloat16", True, 0.1),
 ]
 # f32 kernel vs plain on the same inputs: reduction order only. bf16/fp16:
 # the kernels and the plain version both round (p, the products' operands,
@@ -325,9 +332,9 @@ def _assert_near_truth(what, got, plain, truth):
         assert k <= NEAR_FACTOR * p + floor * rms * n, (what, k, p, rms)
 
 
-def _plain_parts(xs, do, kw):
+def _plain_parts(xs, do, kw, causal=True):
     xs = [x.detach().clone().requires_grad_(True) for x in xs]
-    o, lse, qs, ks = tflash._reference_parts(*xs, causal=True,
+    o, lse, qs, ks = tflash._reference_parts(*xs, causal=causal,
                                              segment_ids=None, **kw)
     o.backward(do)
     return [o, lse] + [x.grad for x in xs], (qs, ks)
@@ -366,6 +373,34 @@ def test_kernels_match_plain_on_card(cuda_device, b, s, h, kvh, d, dtype,
     truth, _ = _plain_parts([t.float() for t in (tq, tk, tv)], tdo.float(),
                             kw)
     for n, a, r, t in zip(names, kernel, plain, truth):
+        _assert_near_truth(n, a, r, t)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal,seed", [(True, 1234), (True, 99),
+                                         (False, 1234)])
+def test_forward_dropout_seeds_on_card(cuda_device, causal, seed):
+    """The 16-bit forward, causal and not, with dropout at two seeds (a
+    wrong element-to-(row, col) map in the kernel moves the masks),
+    through the backward too."""
+    dev, dt = cuda_device, torch.bfloat16
+    q, k, v, do, _ = _inputs(4, 2, b=2, s=200, d=64, seed=seed)
+    tq, tk, tv = (torch.from_numpy(x).to(dev, dt).requires_grad_(True)
+                  for x in (q, k, v))
+    tdo = torch.from_numpy(do).to(dev, dt)
+    kw = dict(dropout_rate=0.1, seed=seed, rope=rope_tables(200, 64,
+                                                            device=dev))
+    got = tflash.flash_attention(tq, tk, tv, causal=causal, **kw)
+    got.backward(tdo)
+    _, lse, _, _ = tflash.flash_forward(tq.detach(), tk.detach(), tv.detach(),
+                                        causal=causal, **kw)
+    torch.cuda.synchronize()
+    kernel = [got, lse, tq.grad, tk.grad, tv.grad]
+    plain, _ = _plain_parts((tq, tk, tv), tdo, kw, causal=causal)
+    truth, _ = _plain_parts([t.float() for t in (tq, tk, tv)], tdo.float(),
+                            kw, causal=causal)
+    for n, a, r, t in zip(("o", "lse", "dq", "dk", "dv"), kernel, plain,
+                          truth):
         _assert_near_truth(n, a, r, t)
 
 

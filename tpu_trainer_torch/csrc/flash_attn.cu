@@ -23,37 +23,75 @@
 // pairs are those inside one document. chip_smoke.py computes the bounds
 // from each run's shapes and segments.
 //
-// Design:
-// - One thread block per (q tile, head, batch) in the forward and in the
-//   split dq kernel, walking the causally needed k tiles in a loop (the
+// The bf16/fp16 forward (flash_fwd_tma_kernel, replacing _fwd_kernel on
+// the training path): what held the first version back was not the
+// card's bytes or operations but the way to the tensor cores. Its 16x16
+// WMMA products read their operands from shared memory and wrote the f32
+// score tile there, a warp per row ran the softmax over it in scalar
+// code, the f32 output accumulator lived in shared memory with a separate
+// rescale pass, K/V loads were synchronous, and six barriers a k tile
+// serialised it all: 45x its bound. This design:
+// - A block owns a 128-row q tile of one (head, batch): warps 0-7 are two
+//   consumer warpgroups of 64 rows, warp 8 a producer. The producer loads
+//   the q tile once and keeps K/V tiles (BK = 128 keys, a little faster
+//   than 64 on the card) arriving by TMA
+//   (cp.async.bulk.tensor over a CUtensorMap of the [b, s, kvh, d]
+//   layout, rows strided by kvh*d, zero-filled past s, 64-column boxes so
+//   a 256-byte d = 128 row fits the 128-byte swizzle) into a ring of 2-3
+//   stages completed on mbarriers; consumers free a stage with one
+//   arrival per warp. GQA blocks of one kv head read the same tiles
+//   through L2.
+// - S = Q K^T is a wgmma (m64n128k16, A and B from shared memory) into f32
+//   registers: no score tile in shared memory. Each thread derives the
+//   global (row, col) of its accumulator elements from the wgmma layout
+//   (hopper.cuh) and applies there the causal, ragged and segment masks
+//   and the dropout hash; row max and row sum take two shuffles over the
+//   four lanes of a row; alpha = exp(m_old - m_new) rescales the O
+//   registers. O += P V is a wgmma with P as the register A operand (the
+//   f32 scores rounded in place into 16-bit pairs) and V read MN-major
+//   from shared memory through the descriptor's transpose bit. O stays in
+//   registers to the epilogue, which divides by l (1 - rate) and writes o
+//   and lse once, masked at s.
+// - A warpgroup skips the products of a k tile wholly above its rows'
+//   diagonal (it still frees the stage), and masks element by element
+//   only on tiles that touch the diagonal, the ragged edge or segments.
+// - The q tiles with the most causal work launch first (blockIdx.y
+//   counts down from the last tile), so the heavy blocks do not form the
+//   tail.
+// - The f32 instantiation (flash_fwd_kernel, 32x32 tiles on the CUDA
+//   cores) is a checking path, not the training path, and keeps the first
+//   design below.
+//
+// The first design, which the f32 forward and every backward keep:
+// - One thread block per (q tile, head, batch) in the f32 forward and in
+//   the split dq kernel, walking the causally needed k tiles in a loop (the
 //   TPU walks a sequential grid axis); one block per (k tile, head, batch)
 //   in the fused backward and the split dk/dv kernel, walking the q tiles
 //   at or below the diagonal. Tiles are 64x64 for bf16/fp16 and 32x32 for
 //   f32 (shared memory), the ragged edge (s not a multiple of the tile)
 //   masked in the kernel, so every s runs here.
-// - The products QK^T, PV, dO V^T, P^T dO, dS^T Q and dS K run on the tensor
-//   cores through nvcuda::wmma 16x16x16 bf16/fp16 fragments with f32
-//   accumulators, operands staged in shared memory; f32 inputs take the
-//   same structure with the products on the CUDA cores (exact f32). The
-//   online softmax, masking, dropout and RoPE are scalar f32 code over the
-//   f32 score tile in shared memory.
+// - The products dO V^T, P^T dO, dS^T Q and dS K (and the backwards'
+//   recomputed QK^T) run on the tensor cores through nvcuda::wmma 16x16x16
+//   bf16/fp16 fragments with f32 accumulators, operands staged in shared
+//   memory; f32 inputs take the same structure with the products on the
+//   CUDA cores (exact f32). Masking, dropout and the score gradients are
+//   scalar f32 code over the f32 score tile in shared memory.
 // - RoPE as in flash.py:195-214: f32 rotation, 1/sqrt(d) folded into q,
 //   cast to the compute type. A prologue pass of the forward call rotates
 //   q and k once and writes them as the backward's residuals (flash.py:
 //   275-280); the flash kernel reads its tiles from them, so no k tile is
 //   rotated again by every q tile that reads it. The backward un-rotates
 //   dq and dk (flash.py:217-223).
-// - Tiles move global -> shared with 16-byte loads, each thread's loads
-//   issued together before its stores (one memory latency a tile, not one
-//   an element).
+// - The first design's tiles move global -> shared with 16-byte loads,
+//   each thread's loads issued together before its stores.
 // - Dropout: the keep test is dropout_hash::keep over global positions
 //   (csrc/dropout_hash.cuh), salt batch * heads + head: bitwise the masks
 //   of the JAX kernel in interpret mode, in every kernel. The softmax
 //   normaliser sums the undropped weights; o = acc / (l * (1 - rate)).
 // - Segment ids (int32 [b, s], 0 = padding) as flash.py:226-242 and
 //   :432-458: a tile pair whose q rows and k columns share no segment id
-//   interval ([min, max] of each tile, computed by every warp from the ids
-//   in shared memory) is skipped, as the causal skip skips tiles above the
+//   interval ([min, max] of each tile, computed by every warp from the ids,
+//   so every warp takes the same skips) is skipped, as the causal skip skips tiles above the
 //   diagonal; the others mask element by element. Masked scores take
 //   -1e30, not -inf, when segments are on (flash.py:79-90): a q row whose
 //   first processed k tile lies wholly in another segment then keeps a
@@ -90,6 +128,7 @@
 #include <type_traits>
 
 #include "dropout_hash.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -550,6 +589,333 @@ __global__ void __launch_bounds__(kFwdThreads) flash_fwd_kernel(FwdParams p) {
   }
 }
 
+// -- the bf16/fp16 forward: TMA ring, wgmma, softmax in registers -----------
+
+constexpr int kFwdBQ = 128;          // q rows a block: two warpgroups of 64
+constexpr int kFwdBK = 128;          // keys a K/V tile
+constexpr int kFwdConsumers = 256;   // two consumer warpgroups
+constexpr int kFwdTmaThreads = kFwdConsumers + 32;  // + one producer warp
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x by the SFU (ex2.approx: ~2 ulp; 2^-inf = 0). Its error is far below
+// the 16-bit rounding of p that follows.
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Shared memory of the forward at head dim D: the q tile (D / 64 boxes of
+// [128][64]), a ring of K/V stages (each D / 64 boxes of [BK][64] for K,
+// then for V), the segment ids of each warpgroup's current k tile
+// (double-buffered), the mbarriers, and slack to align the tiles to 1024
+// bytes.
+template <int D>
+struct FwdTmaSmem {
+  static constexpr int BK = kFwdBK;
+  static constexpr int kStages = D == 128 ? 2 : 3;
+  static constexpr int kQBytes = kFwdBQ * D * 2;
+  static constexpr int kTileBytes = BK * D * 2;  // one K or V tile
+  static constexpr int kStageBytes = 2 * kTileBytes;
+  static constexpr int kSegOffset = kQBytes + kStages * kStageBytes;
+  static constexpr int kBarOffset = kSegOffset + 2 * 2 * BK * 4;
+  // q barrier, then full[kStages], then empty[kStages]
+  static constexpr int kBytes = kBarOffset + 8 * (1 + 2 * kStages) + 1024;
+};
+
+struct FwdTmaParams {
+  CUtensorMap q;  // qs [b, s, h, D]: boxes {64, 1, 128, 1}
+  CUtensorMap k;  // k tiles [b, s, kvh, D]: boxes {64, 1, BK, 1}
+  CUtensorMap v;  // v [b, s, kvh, D]: boxes {64, 1, BK, 1}
+  FwdParams f;
+};
+
+// [min, max] segment id of positions [r0, min(r0 + n, s)) of one batch
+// row, computed by one warp (every lane holds it).
+__device__ __forceinline__ int2 seg_range_g(const int* seg, int r0, int n,
+                                            int s) {
+  int lo = INT_MAX, hi = INT_MIN;
+  const int end = min(r0 + n, s);
+  for (int i = r0 + (threadIdx.x & 31); i < end; i += 32) {
+    const int x = __ldg(seg + i);
+    lo = min(lo, x);
+    hi = max(hi, x);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+  }
+  return make_int2(lo, hi);
+}
+
+// Whether k tile [k0, k0 + kFwdBK) may share a segment with the q tile whose
+// id interval is qr (always without segments). Every warp evaluates it
+// alike, so producer and consumers walk the same tile list.
+__device__ __forceinline__ bool fwd_tile_needed(const int* seg, int2 qr,
+                                                int k0, int s) {
+  if (seg == nullptr) return true;
+  const int2 kr = seg_range_g(seg, k0, kFwdBK, s);
+  return qr.x <= kr.y && kr.x <= qr.y;
+}
+
+// One block per (128-row q tile, head, batch); the q tiles with the most
+// causal work launch first (blockIdx.y counts down the diagonal). Warps
+// 0-7 are two consumer warpgroups, each owning 64 q rows; warp 8 is the
+// producer.
+template <typename T, int D>
+__global__ void __launch_bounds__(kFwdTmaThreads, 1)
+    flash_fwd_tma_kernel(const __grid_constant__ FwdTmaParams p) {
+  using namespace hopper;
+  using L = FwdTmaSmem<D>;
+  constexpr int BK = kFwdBK;
+  constexpr int S = L::kStages;
+  const FwdParams& f = p.f;
+  const int s = f.s, h = f.h;
+  const int ih = blockIdx.x % h;
+  const int ib = blockIdx.x / h;
+  const int nq = (s + kFwdBQ - 1) / kFwdBQ;
+  const int iq = nq - 1 - static_cast<int>(blockIdx.y);
+  const int q0 = iq * kFwdBQ;
+  const int ikv = ih / (h / f.kvh);
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int* seg =
+      f.seg != nullptr ? f.seg + static_cast<size_t>(ib) * s : nullptr;
+  const int nk = (s + BK - 1) / BK;
+  const int jend = f.causal ? min((q0 + kFwdBQ + BK - 1) / BK, nk) : nk;
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t q_s = smem_u32(base);
+  const uint32_t ring = q_s + L::kQBytes;
+  int* kseg_s = reinterpret_cast<int*>(base + L::kSegOffset);  // [2][2][BK]
+  const uint32_t bars = smem_u32(base + L::kBarOffset);
+  const uint32_t q_bar = bars;
+  auto full = [&](int st) { return bars + 8 * (1 + st); };
+  auto empty = [&](int st) { return bars + 8 * (1 + S + st); };
+  auto k_tile = [&](int st) { return ring + st * L::kStageBytes; };
+  auto v_tile = [&](int st) { return ring + st * L::kStageBytes + L::kTileBytes; };
+
+  if (tid == 0) {
+    mbar_init(q_bar, 1);
+    for (int st = 0; st < S; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), kFwdConsumers / 32);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+  const int2 qr = seg != nullptr ? seg_range_g(seg, q0, kFwdBQ, s)
+                                 : make_int2(0, 0);
+
+  if (warp == kFwdConsumers / 32) {
+    // Producer: q once, then the needed K/V tiles through the ring.
+    if (lane == 0) {
+      mbar_expect_tx(q_bar, L::kQBytes);
+      for (int c = 0; c < D / 64; ++c)
+        tma_load_4d(q_s + c * kFwdBQ * 128, &p.q, q_bar, c * 64, ih, q0, ib);
+    }
+    int n = 0;
+    for (int j = 0; j < jend; ++j) {
+      if (!fwd_tile_needed(seg, qr, j * BK, s)) continue;
+      const int st = n % S;
+      if (lane == 0) {
+        mbar_wait(empty(st), ((n / S) & 1) ^ 1);
+        mbar_expect_tx(full(st), L::kStageBytes);
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load_4d(k_tile(st) + c * BK * 128, &p.k, full(st), c * 64, ikv,
+                      j * BK, ib);
+          tma_load_4d(v_tile(st) + c * BK * 128, &p.v, full(st), c * 64, ikv,
+                      j * BK, ib);
+        }
+      }
+      __syncwarp();
+      ++n;
+    }
+    return;
+  }
+
+  // Consumers: warpgroup wg owns q rows [q0 + 64 wg, q0 + 64 wg + 64); this
+  // thread holds rows row_a and row_b = row_a + 8 of each accumulator.
+  const int wg = warp >> 2;
+  const int t4 = lane & 3;
+  const int wg_row0 = q0 + 64 * wg;
+  const int row_a = wg_row0 + 16 * (warp & 3) + (lane >> 2);
+  const int row_b = row_a + 8;
+  const bool wg_live = wg_row0 < s;
+  const float mask_val = seg != nullptr ? kSegMask : -INFINITY;
+  const uint32_t key = dropout_hash::stream_key(
+      f.seed, static_cast<uint32_t>(ib * h + ih));
+  const int qseg_a = seg != nullptr && row_a < s ? __ldg(seg + row_a) : -2;
+  const int qseg_b = seg != nullptr && row_b < s ? __ldg(seg + row_b) : -2;
+  const Elem<T> et{};
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
+  mbar_wait(q_bar, 0);
+
+  int n = 0;
+  for (int j = 0; j < jend; ++j) {
+    const int k0 = j * BK;
+    if (!fwd_tile_needed(seg, qr, k0, s)) continue;
+    const int st = n % S;
+    const uint32_t parity = (n / S) & 1;
+    int* kseg = kseg_s + (wg * 2 + (n & 1)) * BK;
+    ++n;
+    if (seg != nullptr) {
+      // This warpgroup's copy of the tile's segment ids (the buffer it
+      // overwrites was last read two tiles ago, before the barrier of the
+      // tile in between).
+      const int i = tid & 127;
+      if (i < BK) kseg[i] = k0 + i < s ? __ldg(seg + k0 + i) : -1;
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+    }
+    mbar_wait(full(st), parity);
+    if (wg_live && (!f.causal || k0 <= wg_row0 + 63)) {
+      // S = Q K^T: [64, BK] f32 in registers.
+      float sc[BK / 2];
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) sc[i] = 0.f;
+      fence_regs(sc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint64_t da = desc_sw128(
+            q_s + (kk / 4) * kFwdBQ * 128 + wg * 64 * 128 + (kk % 4) * 32, 16,
+            1024);
+        const uint64_t db =
+            desc_sw128(k_tile(st) + (kk / 4) * BK * 128 + (kk % 4) * 32, 16,
+                       1024);
+        wgmma_ss<0>(Shape<BK>{}, et, sc, da, db, kk > 0 ? 1 : 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+
+      // Masks: the causal diagonal, the ragged edge (TMA's zero rows past s
+      // score 0, a valid-looking value), and the segments.
+      if (seg != nullptr || k0 + BK > s ||
+          (f.causal && k0 + BK - 1 > wg_row0)) {
+#pragma unroll
+        for (int jj = 0; jj < BK / 8; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = 8 * jj + 2 * t4 + (e & 1);
+            const int col = k0 + c;
+            const int row = e < 2 ? row_a : row_b;
+            bool ok = col < s && (!f.causal || col <= row);
+            if (seg != nullptr) ok = ok && (e < 2 ? qseg_a : qseg_b) == kseg[c];
+            if (!ok) sc[4 * jj + e] = mask_val;
+          }
+      }
+      // Online softmax over the undropped weights: the row max over the
+      // four lanes that share a row, rescale of l and O by alpha.
+      float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+      for (int jj = 0; jj < BK / 8; ++jj) {
+        mx_a = fmaxf(mx_a, fmaxf(sc[4 * jj], sc[4 * jj + 1]));
+        mx_b = fmaxf(mx_b, fmaxf(sc[4 * jj + 2], sc[4 * jj + 3]));
+      }
+#pragma unroll
+      for (int x = 1; x <= 2; x <<= 1) {
+        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, x));
+        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, x));
+      }
+      const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+      const float alpha_a =
+          mn_a == -INFINITY ? 1.f : fast_exp2((m_a - mn_a) * kLog2e);
+      const float alpha_b =
+          mn_b == -INFINITY ? 1.f : fast_exp2((m_b - mn_b) * kLog2e);
+      const float mu_a = mn_a == -INFINITY ? 0.f : mn_a;
+      const float mu_b = mn_b == -INFINITY ? 0.f : mn_b;
+      m_a = mn_a;
+      m_b = mn_b;
+      float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < BK / 8; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float pv =
+              fast_exp2((sc[4 * jj + e] - (e < 2 ? mu_a : mu_b)) * kLog2e);
+          if (e < 2) {
+            sum_a += pv;
+          } else {
+            sum_b += pv;
+          }
+          if (f.dropout &&
+              !dropout_hash::keep(
+                  key, static_cast<uint32_t>(e < 2 ? row_a : row_b),
+                  static_cast<uint32_t>(k0 + 8 * jj + 2 * t4 + (e & 1)),
+                  static_cast<uint32_t>(s), f.threshold))
+            pv = 0.f;
+          sc[4 * jj + e] = pv;
+        }
+      l_a = l_a * alpha_a + sum_a;
+      l_b = l_b * alpha_b + sum_b;
+#pragma unroll
+      for (int jj = 0; jj < D / 8; ++jj) {
+        o[4 * jj] *= alpha_a;
+        o[4 * jj + 1] *= alpha_a;
+        o[4 * jj + 2] *= alpha_b;
+        o[4 * jj + 3] *= alpha_b;
+      }
+      // P (dropped, rounded to T) as the register A operand of O += P V.
+      uint32_t pa[BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          pa[kk][r] = pack2(et, sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+      fence_regs(o);
+      fence_regs(pa);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint64_t db =
+            desc_sw128(v_tile(st) + kk * 16 * 128, BK * 128, 1024);
+        wgmma_rs<1>(Shape<D>{}, et, o, pa[kk], db, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(st));
+  }
+  if (!wg_live) return;
+
+  // Epilogue: l over the row's four lanes; o = acc / (l (1 - rate)) and
+  // lse = m + log l, masked at s.
+#pragma unroll
+  for (int x = 1; x <= 2; x <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, x);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, x);
+  }
+  const float keep = f.dropout ? f.keep_prob : 1.f;
+  const float inv_a = 1.f / (l_a * keep), inv_b = 1.f / (l_b * keep);
+  T* o_base = static_cast<T*>(f.o);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = half == 0 ? row_a : row_b;
+    if (row >= s) continue;
+    const float inv = half == 0 ? inv_a : inv_b;
+    uint32_t* orow = reinterpret_cast<uint32_t*>(
+        o_base + ((static_cast<size_t>(ib) * s + row) * h + ih) * D);
+#pragma unroll
+    for (int jj = 0; jj < D / 8; ++jj)
+      orow[(8 * jj + 2 * t4) / 2] = pack2(et, o[4 * jj + 2 * half] * inv,
+                                          o[4 * jj + 2 * half + 1] * inv);
+    if (t4 == 0)
+      f.lse[(static_cast<size_t>(ib) * h + ih) * s + row] =
+          (half == 0 ? m_a : m_b) + logf(half == 0 ? l_a : l_b);
+  }
+}
+
 // delta[b, h, s] = rowsum(dO * O) in f32: one warp per (b, s, h) row.
 template <typename T, int D>
 __global__ void delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
@@ -927,8 +1293,42 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 }
 
 template <typename T, int D>
+cudaError_t launch_fwd_tma(const FwdParams& p, cudaStream_t stream) {
+  using L = FwdTmaSmem<D>;
+  FwdTmaParams a;
+  a.f = p;
+  const bool fp16 = std::is_same<T, __half>::value;
+  const cuuint64_t e = sizeof(T);
+  const cuuint64_t dq[4] = {D, static_cast<cuuint64_t>(p.h),
+                            static_cast<cuuint64_t>(p.s),
+                            static_cast<cuuint64_t>(p.b)};
+  const cuuint64_t sq[3] = {D * e, p.h * D * e,
+                            static_cast<cuuint64_t>(p.s) * p.h * D * e};
+  const cuuint64_t dk[4] = {D, static_cast<cuuint64_t>(p.kvh),
+                            static_cast<cuuint64_t>(p.s),
+                            static_cast<cuuint64_t>(p.b)};
+  const cuuint64_t sk[3] = {D * e, p.kvh * D * e,
+                            static_cast<cuuint64_t>(p.s) * p.kvh * D * e};
+  const cuuint32_t box_q[4] = {64, 1, kFwdBQ, 1};
+  const cuuint32_t box_kv[4] = {64, 1, kFwdBK, 1};
+  cudaError_t err = hopper_host::make_map(&a.q, fp16, 4, p.qs, dq, sq, box_q);
+  if (err == cudaSuccess)
+    err = hopper_host::make_map(&a.k, fp16, 4,
+                                p.cos != nullptr ? p.ks : p.k, dk, sk,
+                                box_kv);
+  if (err == cudaSuccess)
+    err = hopper_host::make_map(&a.v, fp16, 4, p.v, dk, sk, box_kv);
+  if (err != cudaSuccess) return err;
+  auto kernel = flash_fwd_tma_kernel<T, D>;
+  err = allow_smem(kernel, L::kBytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid(p.h * p.b, (p.s + kFwdBQ - 1) / kFwdBQ);
+  kernel<<<grid, kFwdTmaThreads, L::kBytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
 cudaError_t launch_fwd(const FwdParams& p, cudaStream_t stream) {
-  constexpr int B = tile_of<T>();
   const size_t nq = static_cast<size_t>(p.b) * p.s * p.h * D;
   const size_t nk =
       p.cos != nullptr ? static_cast<size_t>(p.b) * p.s * p.kvh * D : 0;
@@ -940,13 +1340,18 @@ cudaError_t launch_fwd(const FwdParams& p, cudaStream_t stream) {
       p.scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const size_t smem = fwd_smem<T, D>();
-  auto kernel = flash_fwd_kernel<T, D, B>;
-  err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((p.s + B - 1) / B, p.h, p.b);
-  kernel<<<grid, kFwdThreads, smem, stream>>>(p);
-  return cudaGetLastError();
+  if constexpr (std::is_same<T, float>::value) {
+    constexpr int B = tile_of<T>();
+    const size_t smem = fwd_smem<T, D>();
+    auto kernel = flash_fwd_kernel<T, D, B>;
+    err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    dim3 grid((p.s + B - 1) / B, p.h, p.b);
+    kernel<<<grid, kFwdThreads, smem, stream>>>(p);
+    return cudaGetLastError();
+  } else {
+    return launch_fwd_tma<T, D>(p, stream);
+  }
 }
 
 template <typename T, int D>
