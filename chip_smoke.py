@@ -51,7 +51,9 @@ JAX package. Phases, each fatal on failure:
               positions). Times each kernel, its plain version and one
               PyTorch call as a yardstick (SDPA forward/backward; matmul
               + ``cross_entropy``) with CUDA events, computes the bounds,
-              and times the bf16 forward without dropout and RoPE.
+              times the bf16 forward without dropout and RoPE, and splits
+              the fused backward's device time (``torch.profiler``) into
+              its pre-pass, its kernel and its dq finalize.
 7. mask    -- the dropout keep mask dumped by a CUDA kernel through the
               flash kernels' ``__device__`` hash, under 128/64/256 tilings
               in q-major and k-major order, bitwise against the torch
@@ -456,6 +458,31 @@ def event_ms(fn, n: int, *, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def device_ms_by_kernel(fn, n: int, *, names) -> dict:
+    """Device time of one call ``fn(i)`` (i in 0..n-1, after a warm-up
+    round) by kernel, from ``torch.profiler``: each of ``names`` (a kernel
+    counts toward the first name its symbol contains) and "other"."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for i in range(n):
+        fn(i)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            fn(i)
+        torch.cuda.synchronize()
+    out = {k: 0.0 for k in (*names, "other")}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        if e.device_type != DeviceType.CUDA or us <= 0:
+            continue
+        key = next((k for k in names if k in e.key), "other")
+        out[key] += us / 1e3 / n
+    return out
+
+
 def _close(what, got, want) -> float:
     """An f32 kernel result against its f32 plain version (F32_TOL);
     returns max |kernel - plain|."""
@@ -709,6 +736,12 @@ def phase_train_kernel(results: dict) -> dict:
          "bwd_ms": event_ms(lambda i: flash.flash_backward(
              res[i][2], res[i][3], sets[i][2], res[i][0], res[i][1],
              sets[i][3], **kw), 4)}
+    # The backward's device time by kernel: the pre-pass (delta, padded
+    # lse, zeroed dq accumulator), the kernel itself and the dq finalize.
+    t["bwd_parts_ms"] = device_ms_by_kernel(lambda i: flash.flash_backward(
+        res[i][2], res[i][3], sets[i][2], res[i][0], res[i][1], sets[i][3],
+        **kw), 4, names=("bwd_prep_kernel", "flash_bwd_tma_kernel",
+                         "dq_finalize_kernel"))
     with torch.no_grad():
         t["plain_fwd_ms"] = event_ms(lambda i: flash.flash_attention_reference(
             *sets[i][:3], **kw), 4, reps=3)
@@ -748,6 +781,8 @@ def phase_train_kernel(results: dict) -> dict:
                         f"{bounds['bwd']['flops'] / 1e9:.2f} GFLOP), plain "
                         f"{t['plain_bwd_ms']:.3f} ms, SDPA "
                         f"{t['sdpa_bwd_ms']:.3f} ms")
+    log("train-kernel", "flash backward device time by kernel: " + ", ".join(
+        f"{n} {v:.4f} ms" for n, v in t["bwd_parts_ms"].items()))
     head = _head_ce_checks(failures)
     results["train_kernel"] = {"flash_checks": rows, "flash_times": t,
                                "flash_bounds": bounds, "head_ce": head,
@@ -1682,12 +1717,12 @@ def phase_train_moe(results: dict) -> dict:
 # Device kernels by what they serve, for the step's breakdown (first
 # match wins): the port's kernels, the GEMMs (cuBLAS), and the int64
 # elementwise kernels, which are the counter-based residual dropout's
-# uint32 hash (ops/dropout.py) and the flash backward's dk/dv group sum.
+# uint32 hash (ops/dropout.py).
 _KERNEL_GROUPS = (
     ("flash attention (csrc/flash_attn.cu)",
      ("flash_fwd_kernel", "flash_fwd_tma_kernel", "flash_bwd_kernel",
-      "flash_bwd_dq_kernel", "rope_prep_kernel", "delta_kernel",
-      "dq_finalize_kernel")),
+      "flash_bwd_tma_kernel", "flash_bwd_dq_kernel", "rope_prep_kernel",
+      "delta_kernel", "bwd_prep_kernel", "dq_finalize_kernel")),
     ("head + CE forward (csrc/head_ce.cu)", ("head_ce_",)),
     ("grouped matmuls (csrc/grouped_matmul.cu)", ("gmm_kernel",
                                                   "gmm_tma_kernel")),

@@ -295,17 +295,25 @@ def cuda_device():
 
 
 GPU_CASES = [
-    # (b, s, h, kvh, d, dtype, rope, rate)
-    (2, 128, 4, 4, 64, "float32", True, 0.0),
-    (2, 128, 4, 4, 64, "bfloat16", True, 0.1),
-    (1, 100, 4, 2, 128, "bfloat16", True, 0.0),
-    (2, 77, 4, 1, 64, "float16", False, 0.2),
-    (1, 200, 2, 2, 128, "float32", False, 0.1),
+    # (b, s, h, kvh, d, dtype, rope, rate, causal)
+    (2, 128, 4, 4, 64, "float32", True, 0.0, True),
+    (2, 128, 4, 4, 64, "bfloat16", True, 0.1, True),
+    (1, 100, 4, 2, 128, "bfloat16", True, 0.0, True),
+    (2, 77, 4, 1, 64, "float16", False, 0.2, True),
+    (1, 200, 2, 2, 128, "float32", False, 0.1, True),
     # The 16-bit forward's 128-row q tile: s one past a tile, a ragged
     # last tile, and d = 128 with GQA under dropout.
-    (1, 129, 4, 4, 64, "bfloat16", True, 0.1),
-    (1, 1000, 4, 2, 64, "bfloat16", True, 0.1),
-    (1, 300, 8, 2, 128, "bfloat16", True, 0.1),
+    (1, 129, 4, 4, 64, "bfloat16", True, 0.1, True),
+    (1, 1000, 4, 2, 64, "bfloat16", True, 0.1, True),
+    (1, 300, 8, 2, 128, "bfloat16", True, 0.1, True),
+    # The 16-bit fused backward (128-key tiles, 64-row q tiles): a
+    # non-causal call; s = 1000 under dropout with a ragged k tile and dk/dv
+    # written in the compute type; a GQA group of 4 at d = 128 under
+    # dropout on the f32-partials path; fp16 without GQA.
+    (2, 256, 4, 4, 64, "bfloat16", True, 0.1, False),
+    (1, 1000, 4, 4, 64, "bfloat16", True, 0.1, True),
+    (1, 640, 8, 2, 128, "bfloat16", True, 0.1, True),
+    (2, 200, 4, 4, 64, "float16", True, 0.1, True),
 ]
 # f32 kernel vs plain on the same inputs: reduction order only. bf16/fp16:
 # the kernels and the plain version both round (p, the products' operands,
@@ -341,9 +349,9 @@ def _plain_parts(xs, do, kw, causal=True):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,s,h,kvh,d,dtype,rope,rate", GPU_CASES)
+@pytest.mark.parametrize("b,s,h,kvh,d,dtype,rope,rate,causal", GPU_CASES)
 def test_kernels_match_plain_on_card(cuda_device, b, s, h, kvh, d, dtype,
-                                     rope, rate):
+                                     rope, rate, causal):
     dev = cuda_device
     dt = getattr(torch, dtype)
     q, k, v, do, _ = _inputs(h, kvh, b=b, s=s, d=d, seed=s)
@@ -353,15 +361,15 @@ def test_kernels_match_plain_on_card(cuda_device, b, s, h, kvh, d, dtype,
     tabs = rope_tables(s, d, device=dev) if rope else None
     kw = dict(dropout_rate=rate, seed=1234 if rate else None, rope=tabs)
     before = (tflash.flash_forward.launches, tflash.flash_backward.launches)
-    got = tflash.flash_attention(tq, tk, tv, **kw)
+    got = tflash.flash_attention(tq, tk, tv, causal=causal, **kw)
     got.backward(tdo)
     torch.cuda.synchronize()
     assert (tflash.flash_forward.launches,
             tflash.flash_backward.launches) == (before[0] + 1, before[1] + 1)
     _, lse, qs, ks = tflash.flash_forward(tq.detach(), tk.detach(),
-                                          tv.detach(), **kw)
+                                          tv.detach(), causal=causal, **kw)
     kernel = [got, lse, tq.grad, tk.grad, tv.grad]
-    plain, (rqs, rks) = _plain_parts((tq, tk, tv), tdo, kw)
+    plain, (rqs, rks) = _plain_parts((tq, tk, tv), tdo, kw, causal=causal)
     torch.testing.assert_close(qs, rqs, atol=0, rtol=0)
     torch.testing.assert_close(ks, rks, atol=0, rtol=0)
     names = ("o", "lse", "dq", "dk", "dv")
@@ -371,7 +379,7 @@ def test_kernels_match_plain_on_card(cuda_device, b, s, h, kvh, d, dtype,
                                        msg=n)
         return
     truth, _ = _plain_parts([t.float() for t in (tq, tk, tv)], tdo.float(),
-                            kw)
+                            kw, causal=causal)
     for n, a, r, t in zip(names, kernel, plain, truth):
         _assert_near_truth(n, a, r, t)
 

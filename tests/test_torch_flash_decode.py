@@ -57,6 +57,18 @@ CASES = {
     "one_split": ({}, 1, False),
     "gqa_int8": ({}, 0, True),
     "mha_int8_d32": ({"h": 2, "kvh": 2, "d": 32}, 3, True),
+    # Lengths at and one past page boundaries; block sizes 16 and 32.
+    "page_edges": ({"bsz": 16, "lengths": (16, 17, 32)}, 0, False),
+    "page_edges_int8": ({"bsz": 16, "lengths": (16, 17, 32)}, 0, True),
+    "block32": ({"bsz": 32, "lengths": (1, 40, 96)}, 0, False),
+    # One split over a 64-page row.
+    "one_split_64_pages": ({"mb": 64, "nblk": 200,
+                            "lengths": (1, 300, 512)}, 1, False),
+    # GQA groups of 4 and 8 at head_dim 128.
+    "gqa4_d128": ({"h": 8, "kvh": 2, "d": 128}, 0, False),
+    "gqa4_d128_int8": ({"h": 8, "kvh": 2, "d": 128}, 0, True),
+    "gqa8_d128": ({"h": 16, "kvh": 2, "d": 128}, 0, False),
+    "gqa8_d128_int8": ({"h": 16, "kvh": 2, "d": 128}, 0, True),
 }
 
 

@@ -1,6 +1,6 @@
 // Causal flash attention for training on Hopper (sm_90a): the forward with
 // fused RoPE, counter-based attention dropout and packed-sequence segment
-// ids, the fused backward, the split backward (a dk/dv kernel and a dq
+// ids, the fused backward (causal or not), the split backward (a dk/dv kernel and a dq
 // kernel, segment-aware), and a dump of the dropout keep mask.
 //
 // Replaces the Pallas TPU kernels tpu_trainer/ops/flash.py::_fwd_kernel
@@ -62,7 +62,47 @@
 //   cores) is a checking path, not the training path, and keeps the first
 //   design below.
 //
-// The first design, which the f32 forward and every backward keep:
+// The bf16/fp16 fused backward (flash_bwd_tma_kernel, replacing
+// _bwd_fused_kernel on the training path). It is bound by operations (10*d
+// flops a causal pair per head); the first version ran at 58x that bound
+// for the same reasons as the first forward (WMMA from shared memory, the
+// f32 S and dP tiles in shared memory walked one thread an element,
+// synchronous loads, six barriers a q tile), plus 4096 scalar dq atomics a
+// tile pair and three passes around it. This design:
+// - A block owns a 128-key tile of one (head, batch): warps 0-7 are two
+//   consumer warpgroups of 64 keys each, warpgroup 2 the producer, which
+//   gives its registers away (setmaxnreg 24; consumers 240: without it
+//   ptxas serialises the wgmma for want of registers, and d = 128 still
+//   spills 8 bytes). The producer loads K and V
+//   once and keeps 64-row Q and dO tiles, with the tile's lse and delta
+//   rows (1-D bulk copies on the same mbarrier), arriving through a ring of
+//   2-3 stages. The k tiles with the most causal work launch first.
+// - Scores transposed, keys as M: S^T = K Q^T and dP^T = V dO^T are wgmma
+//   (m64n64k16, both operands K-major in shared memory) into registers. Each
+//   element of S^T sits at (key, q), so the causal test is q >= key, the
+//   hash is keep(row = q, col = key), and lse and delta broadcast along the
+//   columns. P^T and dS^T = P^T (dP'^T - delta) are formed in registers
+//   and feed dV += P_drop^T dO and dK += dS^T Q as the register A operand,
+//   dO and Q read MN-major through the transpose bit: dK and dV never leave
+//   registers until the epilogue, which un-rotates dK within the thread
+//   (columns c and c +- d/2 are the same thread's) and writes dk/dv once,
+//   in T at group 1 (bitwise what the group sum of one f32 value gives)
+//   and as f32 per-query-head partials under GQA.
+// - dQ: dS^T is stored once in T into shared memory (128-byte swizzled
+//   rows, conflict free) and read back as an MN-major A operand of dQ_part
+//   = dS K (K MN-major), 64 columns at a time; the f32 part goes to shared
+//   memory and one cp.reduce.async.bulk .add.f32 per tile pair adds it into
+//   dq_acc [b, h, s_pad, d], whose rows of a q tile are contiguous (25 MB
+//   at the training shape, inside the 50 MB L2). The order of those adds
+//   varies from run to run, as the atomics' did.
+// - Around the kernel: one pre-pass computes delta = rowsum(dO * O) with
+//   16-byte loads, pads lse (+inf past s, so rows past s get p = 0) and
+//   zeroes dq_acc; a finalize pass un-rotates and casts dq.
+// - The f32 instantiation, the split pair and the mask dump keep the first
+//   design below.
+//
+// The first design, which the f32 forward, the f32 fused backward and the
+// split backward keep:
 // - One thread block per (q tile, head, batch) in the f32 forward and in
 //   the split dq kernel, walking the causally needed k tiles in a loop (the
 //   TPU walks a sequential grid axis); one block per (k tile, head, batch)
@@ -100,9 +140,9 @@
 //   itself, so its diagonal tile always has a valid column.
 // - The TPU's fused kernel keeps the whole dq row resident across
 //   sequential grid steps (flash.py:698-747). Blocks here run in no order,
-//   so the fused kernel adds its dq contribution into a zeroed f32 buffer
-//   with atomicAdd and a small pass un-rotates and casts it (the summation
-//   order of dq changes from run to run). The split pair recomputes S and
+//   so the f32 fused kernel adds its dq contribution into a zeroed f32
+//   buffer with atomicAdd and a small pass un-rotates and casts it (the
+//   summation order of dq changes from run to run). The split pair recomputes S and
 //   dP in each kernel (7 products a tile pair, not 5) but needs no atomics:
 //   the dq kernel owns its q tile, accumulates dq in registers over its
 //   k-tile walk, un-rotates and writes it once, deterministic. dk and dv
@@ -773,7 +813,7 @@ __global__ void __launch_bounds__(kFwdTmaThreads, 1)
       // tile in between).
       const int i = tid & 127;
       if (i < BK) kseg[i] = k0 + i < s ? __ldg(seg + k0 + i) : -1;
-      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+      named_barrier(1 + wg, 128);
     }
     mbar_wait(full(st), parity);
     if (wg_live && (!f.causal || k0 <= wg_row0 + 63)) {
@@ -1218,22 +1258,477 @@ __global__ void __launch_bounds__(kBwdThreads) flash_bwd_dq_kernel(BwdParams p) 
   }
 }
 
-// dq = unrotate(dq_acc) cast to T, one thread per element.
-template <typename T, int D>
+// dq [b, s, h, D] = unrotate(dq_acc) cast to T. dq_acc is [b, s, h, D]
+// (the f32 fused backward) or, HEAD_MAJOR, [b, h, s_pad, D]
+// (flash_bwd_tma_kernel, whose q tiles reduce into contiguous rows). A
+// thread takes columns [c, c + 4) of one row and their rotation partners
+// [c + D/2, c + D/2 + 4) (16-byte loads), rounded like unrope_elem.
+template <typename T, int D, bool HEAD_MAJOR>
 __global__ void dq_finalize_kernel(const float* __restrict__ acc,
                                    const float* __restrict__ cos,
                                    const float* __restrict__ sin,
-                                   T* __restrict__ dq, size_t n, int s,
-                                   int h) {
-  for (size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       idx < n; idx += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    const int c = static_cast<int>(idx % D);
-    float g = acc[idx];
+                                   T* __restrict__ dq, size_t rows, int s,
+                                   int h, int s_pad) {
+  constexpr int kPer = D / 8;  // threads a row
+  for (size_t t = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       t < rows * kPer; t += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const size_t bsh = t / kPer;  // (batch, position, head)
+    const int c = static_cast<int>(t % kPer) * 4;
+    const int row = static_cast<int>((bsh / h) % s);
+    const float* src =
+        HEAD_MAJOR ? acc + ((bsh / (static_cast<size_t>(h) * s) * h +
+                             bsh % h) * s_pad + row) * D
+                   : acc + bsh * D;
+    const float4 lo = *reinterpret_cast<const float4*>(src + c);
+    const float4 hi = *reinterpret_cast<const float4*>(src + c + D / 2);
+    float a[4] = {lo.x, lo.y, lo.z, lo.w}, b[4] = {hi.x, hi.y, hi.z, hi.w};
     if (cos != nullptr) {
-      const int row = static_cast<int>((idx / (static_cast<size_t>(h) * D)) % s);
-      g = unrope_elem<D>(acc + (idx - c), c, cos + row * D, sin + row * D);
+      const float* cr = cos + static_cast<size_t>(row) * D;
+      const float* sr = sin + static_cast<size_t>(row) * D;
+      const float4 cl = *reinterpret_cast<const float4*>(cr + c);
+      const float4 ch = *reinterpret_cast<const float4*>(cr + c + D / 2);
+      const float4 sl = *reinterpret_cast<const float4*>(sr + c);
+      const float4 sh = *reinterpret_cast<const float4*>(sr + c + D / 2);
+      const float cla[4] = {cl.x, cl.y, cl.z, cl.w};
+      const float cha[4] = {ch.x, ch.y, ch.z, ch.w};
+      const float sla[4] = {sl.x, sl.y, sl.z, sl.w};
+      const float sha[4] = {sh.x, sh.y, sh.z, sh.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float ga = a[i], gb = b[i];
+        a[i] = __fadd_rn(__fmul_rn(ga, cla[i]), __fmul_rn(gb, sha[i]));
+        b[i] = __fadd_rn(__fmul_rn(gb, cha[i]), -__fmul_rn(ga, sla[i]));
+      }
     }
-    dq[idx] = from_f32<T>(g);
+    T oa[4], ob[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      oa[i] = from_f32<T>(a[i]);
+      ob[i] = from_f32<T>(b[i]);
+    }
+    using V = typename std::conditional<sizeof(T) == 4, float4, uint2>::type;
+    *reinterpret_cast<V*>(dq + bsh * D + c) = *reinterpret_cast<V*>(oa);
+    *reinterpret_cast<V*>(dq + bsh * D + c + D / 2) =
+        *reinterpret_cast<V*>(ob);
+  }
+}
+
+// -- the bf16/fp16 fused backward: TMA ring, wgmma, transposed scores --------
+
+constexpr int kBwdBQ = 64;             // q rows a ring stage
+constexpr int kBwdBK = 128;            // keys a block: two warpgroups of 64
+constexpr int kBwdConsumers = 256;     // two consumer warpgroups
+constexpr int kBwdTmaThreads = kBwdConsumers + 128;  // + a producer warpgroup
+
+// The fused backward's pre-pass, one call: delta = rowsum(dO * O) in f32
+// into delta_pad [b, h, s_pad] (0 past s), lse * log2(e) into lse_pad [b,
+// h, s_pad] (+inf past s, so rows past s get p = 0), and dq_acc [b, h,
+// s_pad, D] zeroed. D / 8 threads a row, one 16-byte load of o and of do
+// each.
+template <typename T, int D>
+__global__ void bwd_prep_kernel(const T* __restrict__ o,
+                                const T* __restrict__ dout,
+                                const float* __restrict__ lse,
+                                float* __restrict__ lse_pad,
+                                float* __restrict__ delta_pad,
+                                float* __restrict__ dq_acc, size_t rows,
+                                int s, int h, int s_pad) {
+  constexpr int kPer = D / 8;
+  const size_t t = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const size_t row = t / kPer;  // [b, h, s_pad] order
+  const int c = static_cast<int>(t % kPer);
+  const bool valid = row < rows;
+  const int sp = static_cast<int>(row % s_pad);
+  const size_t bh = row / s_pad;
+  float acc = 0.f;
+  if (valid && sp < s) {
+    const size_t off =
+        ((bh / h * s + sp) * h + bh % h) * D + static_cast<size_t>(c) * 8;
+    const uint4 a = *reinterpret_cast<const uint4*>(o + off);
+    const uint4 b = *reinterpret_cast<const uint4*>(dout + off);
+    const T* av = reinterpret_cast<const T*>(&a);
+    const T* bv = reinterpret_cast<const T*>(&b);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc += to_f32(av[i]) * to_f32(bv[i]);
+  }
+#pragma unroll
+  for (int x = kPer / 2; x > 0; x >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, x);
+  if (!valid) return;
+  float4* z = reinterpret_cast<float4*>(dq_acc + row * D + c * 8);
+  z[0] = make_float4(0.f, 0.f, 0.f, 0.f);
+  z[1] = z[0];
+  if (c == 0) {
+    delta_pad[row] = acc;
+    lse_pad[row] = sp < s ? lse[bh * s + sp] * kLog2e : INFINITY;
+  }
+}
+
+// Shared memory of the fused backward at head dim D (tiles 1024-byte
+// aligned): the block's K and V tiles (D / 64 boxes of [128 keys][64] each),
+// a ring of Q and dO tiles (D / 64 boxes of [64 q][64] each), each
+// warpgroup's dS^T tile ([64 keys][64 q] in T, 128-byte swizzled rows) and
+// f32 dQ part ([64 q][D], the source of its bulk reduction), the ring's lse
+// and delta rows, and the mbarriers.
+template <int D>
+struct BwdTmaSmem {
+  static constexpr int kStages = D == 128 ? 2 : 3;
+  static constexpr int kKBytes = kBwdBK * D * 2;  // K tile; V the same
+  static constexpr int kQBytes = kBwdBQ * D * 2;  // one Q or dO tile
+  static constexpr int kRingOffset = 2 * kKBytes;
+  static constexpr int kDsOffset = kRingOffset + kStages * 2 * kQBytes;
+  static constexpr int kDqOffset = kDsOffset + 2 * 64 * kBwdBQ * 2;
+  static constexpr int kRowsOffset = kDqOffset + 2 * kBwdBQ * D * 4;
+  static constexpr int kBarOffset = kRowsOffset + kStages * 2 * kBwdBQ * 4;
+  // kv barrier, then full[kStages], then empty[kStages]
+  static constexpr int kBytes = kBarOffset + 8 * (1 + 2 * kStages) + 1024;
+  static constexpr uint32_t kStageTx = 2 * kQBytes + 2 * kBwdBQ * 4;
+};
+
+struct BwdTmaParams {
+  CUtensorMap q;   // qs [b, s, h, D]: boxes {64, 1, 64, 1}
+  CUtensorMap d;   // dout [b, s, h, D]: the same boxes
+  CUtensorMap k;   // ks [b, s, kvh, D]: boxes {64, 1, 128, 1}
+  CUtensorMap v;   // v [b, s, kvh, D]: the same boxes
+  BwdParams f;     // lse / delta: the pre-pass's lse_pad / delta_pad;
+                   // dq_acc [b, h, s_pad, D]; dk / dv in T [b, s, kvh, D]
+                   // at group 1, else f32 [b, s, h, D] partials
+  int s_pad;
+};
+
+// One block per (128-key tile, head, batch), k tiles with the most causal
+// work first (blockIdx.y = 0 is the first k tile). Warps 0-7 are two
+// consumer warpgroups, each owning 64 keys with dK and dV in registers over
+// the whole q walk; warpgroup 2 is the producer (one thread issues).
+template <typename T, int D>
+__global__ void __launch_bounds__(kBwdTmaThreads, 1)
+    flash_bwd_tma_kernel(const __grid_constant__ BwdTmaParams p) {
+  using namespace hopper;
+  using L = BwdTmaSmem<D>;
+  constexpr int S = L::kStages;
+  constexpr int BQ = kBwdBQ;
+  const BwdParams& f = p.f;
+  const int s = f.s, h = f.h;
+  const int ih = blockIdx.x % h;
+  const int ib = blockIdx.x / h;
+  const int k0 = blockIdx.y * kBwdBK;
+  const int ikv = ih / (h / f.kvh);
+  const int nq = (s + BQ - 1) / BQ;
+  const int i0 = f.causal ? k0 / BQ : 0;  // first q tile with a row >= k0
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t k_s = smem_u32(base);
+  const uint32_t v_s = k_s + L::kKBytes;
+  const uint32_t ring = k_s + L::kRingOffset;
+  const uint32_t bars = smem_u32(base + L::kBarOffset);
+  const uint32_t kv_bar = bars;
+  auto full = [&](int st) { return bars + 8 * (1 + st); };
+  auto empty = [&](int st) { return bars + 8 * (1 + S + st); };
+  auto q_tile = [&](int st) { return ring + st * 2 * L::kQBytes; };
+  auto do_tile = [&](int st) { return q_tile(st) + L::kQBytes; };
+  // lse then delta of stage st's q tile.
+  auto rows = [&](int st) {
+    return reinterpret_cast<float*>(base + L::kRowsOffset) + st * 2 * BQ;
+  };
+
+  if (tid == 0) {
+    mbar_init(kv_bar, 1);
+    for (int st = 0; st < S; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), kBwdConsumers / 32);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp >= kBwdConsumers / 32) {
+    // Producer: K and V once, then Q, dO, lse and delta of each q tile the
+    // block walks (the same list as the consumers) through the ring.
+    regs_dealloc<24>();
+    if (warp == kBwdConsumers / 32 && lane == 0) {
+      mbar_expect_tx(kv_bar, 2 * L::kKBytes);
+      for (int c = 0; c < D / 64; ++c) {
+        tma_load_4d(k_s + c * kBwdBK * 128, &p.k, kv_bar, c * 64, ikv, k0, ib);
+        tma_load_4d(v_s + c * kBwdBK * 128, &p.v, kv_bar, c * 64, ikv, k0, ib);
+      }
+      const size_t rbase = (static_cast<size_t>(ib) * h + ih) * p.s_pad;
+      for (int i = i0, n = 0; i < nq; ++i, ++n) {
+        const int st = n % S;
+        mbar_wait(empty(st), ((n / S) & 1) ^ 1);
+        mbar_expect_tx(full(st), L::kStageTx);
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load_4d(q_tile(st) + c * BQ * 128, &p.q, full(st), c * 64, ih,
+                      i * BQ, ib);
+          tma_load_4d(do_tile(st) + c * BQ * 128, &p.d, full(st), c * 64, ih,
+                      i * BQ, ib);
+        }
+        bulk_load(smem_u32(rows(st)), f.lse + rbase + i * BQ, BQ * 4,
+                  full(st));
+        bulk_load(smem_u32(rows(st) + BQ), f.delta + rbase + i * BQ, BQ * 4,
+                  full(st));
+      }
+    }
+  } else {
+    regs_alloc<240>();
+    // Consumers: warpgroup wg owns keys [kw0, kw0 + 64); this thread holds
+    // key rows key_a and key_b = key_a + 8 of each transposed accumulator
+    // (S^T, dP^T: [64 keys, 64 q]; dK, dV: [64 keys, D]).
+    const int wg = warp >> 2;
+    const int t4 = lane & 3;
+    const int g8 = lane >> 2;
+    const int kw0 = k0 + 64 * wg;
+    const int ra = 16 * (warp & 3) + g8;  // key_a - kw0; also a q row of dQ
+    const int key_a = kw0 + ra;
+    const int key_b = key_a + 8;
+    const bool issuer = (tid & 127) == 0;
+    const float inv_keep = 1.f / f.keep_prob;
+    const uint32_t hkey = dropout_hash::stream_key(
+        f.seed, static_cast<uint32_t>(ib * h + ih));
+    const Elem<T> et{};
+    const uint32_t kw_s = k_s + wg * 64 * 128;  // this warpgroup's K rows
+    const uint32_t vw_s = v_s + wg * 64 * 128;
+    const uint32_t ds_s = smem_u32(base + L::kDsOffset) + wg * 64 * BQ * 2;
+    float* dq_s =
+        reinterpret_cast<float*>(base + L::kDqOffset) + wg * BQ * D;
+    // The warpgroup computes the q tiles [ifirst, nq): under causal masking
+    // those with a row at or below its first key. It still takes its turn
+    // in freeing the ring stages of the tiles before.
+    const int ifirst = kw0 >= s ? nq : (f.causal ? kw0 / BQ : 0);
+
+    float dk[D / 2], dv[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+    mbar_wait(kv_bar, 0);
+
+    for (int i = i0; i < nq; ++i) {
+      const int st = (i - i0) % S;
+      const int q0 = i * BQ;
+      mbar_wait(full(st), ((i - i0) / S) & 1);
+      if (i < ifirst) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty(st));
+        continue;
+      }
+      // S^T = K Q^T and dP^T = V dO^T, keys as M: [64, 64] f32 each.
+      float sc[32], dp[32];
+#pragma unroll
+      for (int x = 0; x < 32; ++x) sc[x] = dp[x] = 0.f;
+      fence_regs(sc);
+      fence_regs(dp);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t ko = (kk / 4) * kBwdBK * 128 + (kk % 4) * 32;
+        const uint32_t qo = (kk / 4) * BQ * 128 + (kk % 4) * 32;
+        wgmma_ss<0>(Shape<64>{}, et, sc, desc_sw128(kw_s + ko, 16, 1024),
+                    desc_sw128(q_tile(st) + qo, 16, 1024), kk > 0 ? 1 : 0);
+        wgmma_ss<0>(Shape<64>{}, et, dp, desc_sw128(vw_s + ko, 16, 1024),
+                    desc_sw128(do_tile(st) + qo, 16, 1024), kk > 0 ? 1 : 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+
+      // P^T = exp(S^T - lse) and dS^T = P^T (dP'^T - delta), with lse (in
+      // log2 units) and delta broadcast along the columns (q) and the masks
+      // and the dropout hash at (row = q, col = key). Only the diagonal
+      // tile and the ragged key edge need the element masks (q rows past s
+      // have lse = +inf, so p = 0 there).
+      const float* lse_r = rows(st);
+      const float* dl_r = lse_r + BQ;
+      const bool edge = kw0 + 63 >= s || (f.causal && q0 < kw0 + 63);
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int c = 8 * jj + 2 * t4;
+        const float2 lz = *reinterpret_cast<const float2*>(lse_r + c);
+        const float2 dz = *reinterpret_cast<const float2*>(dl_r + c);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = e < 2 ? key_a : key_b;
+          const int q = q0 + c + (e & 1);
+          float pv = fast_exp2(
+              fmaf(sc[4 * jj + e], kLog2e, -((e & 1) ? lz.y : lz.x)));
+          if (edge && !(key < s && (!f.causal || q >= key))) pv = 0.f;
+          float dpv = dp[4 * jj + e];
+          float pdv = pv;
+          if (f.dropout) {
+            const bool kp = dropout_hash::keep(
+                hkey, static_cast<uint32_t>(q), static_cast<uint32_t>(key),
+                static_cast<uint32_t>(s), f.threshold);
+            pdv = kp ? pv : 0.f;
+            dpv = kp ? dpv * inv_keep : 0.f;
+          }
+          sc[4 * jj + e] = pdv;
+          dp[4 * jj + e] = pv * (dpv - ((e & 1) ? dz.y : dz.x));
+        }
+      }
+      // P_drop^T and dS^T rounded to T as register A operands (k16 step kk
+      // covers q columns 16 kk ..); dS^T also into shared memory, the A
+      // operand (MN-major, q consecutive) of dQ = dS K.
+      uint32_t pa[4][4], da[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          pa[kk][r] = pack2(et, sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+          da[kk][r] = pack2(et, dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1]);
+          // register r holds row ra (+ 8 for odd r), n8 block 2 kk + r / 2
+          const int row = ra + 8 * (r & 1);
+          const int chunk = (2 * kk + (r >> 1)) ^ g8;
+          asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(
+                           ds_s + row * 128 + chunk * 16 + 4 * t4),
+                       "r"(da[kk][r])
+                       : "memory");
+        }
+      fence_proxy_async();
+      if (issuer) bulk_wait_read();  // the last dQ reduction left dq_s
+      named_barrier(1 + wg, 128);
+
+      // dV += P_drop^T dO and dK += dS^T Q (dO, Q MN-major), then dQ_part
+      // = dS K in 64-column chunks (dS^T and K both MN-major).
+      fence_regs(dv);
+      fence_regs(dk);
+      fence_regs(pa);
+      fence_regs(da);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_rs<1>(Shape<D>{}, et, dv, pa[kk],
+                    desc_sw128(do_tile(st) + kk * 16 * 128, BQ * 128, 1024),
+                    1);
+        wgmma_rs<1>(Shape<D>{}, et, dk, da[kk],
+                    desc_sw128(q_tile(st) + kk * 16 * 128, BQ * 128, 1024),
+                    1);
+      }
+      wgmma_commit();
+#pragma unroll
+      for (int ch = 0; ch < D / 64; ++ch) {
+        float dq[32];
+#pragma unroll
+        for (int x = 0; x < 32; ++x) dq[x] = 0.f;
+        fence_regs(dq);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss<1, 1>(
+              Shape<64>{}, et, dq,
+              desc_sw128(ds_s + kk * 16 * 128, 64 * 128, 1024),
+              desc_sw128(kw_s + ch * kBwdBK * 128 + kk * 16 * 128,
+                         kBwdBK * 128, 1024),
+              kk > 0 ? 1 : 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dq);
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const int col = 64 * ch + 8 * jj + 2 * t4;
+          *reinterpret_cast<float2*>(dq_s + ra * D + col) =
+              make_float2(dq[4 * jj] * f.scale, dq[4 * jj + 1] * f.scale);
+          *reinterpret_cast<float2*>(dq_s + (ra + 8) * D + col) =
+              make_float2(dq[4 * jj + 2] * f.scale, dq[4 * jj + 3] * f.scale);
+        }
+      }
+      fence_regs(dv);
+      fence_regs(dk);
+      // One bulk f32 reduction of the [64, D] part into dq_acc's rows.
+      fence_proxy_async();
+      named_barrier(1 + wg, 128);
+      if (issuer) {
+        bulk_reduce_add_f32(
+            f.dq_acc +
+                ((static_cast<size_t>(ib) * h + ih) * p.s_pad + q0) * D,
+            smem_u32(dq_s), BQ * D * 4);
+        bulk_commit();
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(st));
+    }
+    // Epilogue, through this warpgroup's f32 staging tile (its last dQ
+    // reduction has read it): dK, then dV, row by row into shared memory,
+    // then out with 16-byte reads, each thread taking columns [c, c + 4)
+    // of a key row and their rotation partners c + D/2 (dK un-rotated as
+    // unrope_elem rounds it; dV / (1 - rate)). T at group 1, else f32
+    // per-query-head partials.
+    if (issuer) bulk_wait();
+    const bool rope = f.cos != nullptr;
+    const bool direct = h == f.kvh;
+    auto stage_rows = [&](const float (&acc)[D / 2]) {
+      named_barrier(1 + wg, 128);  // the staging tile is free
+#pragma unroll
+      for (int jj = 0; jj < D / 8; ++jj) {
+        const int col = 8 * jj + 2 * t4;
+        *reinterpret_cast<float2*>(dq_s + ra * D + col) =
+            make_float2(acc[4 * jj], acc[4 * jj + 1]);
+        *reinterpret_cast<float2*>(dq_s + (ra + 8) * D + col) =
+            make_float2(acc[4 * jj + 2], acc[4 * jj + 3]);
+      }
+      named_barrier(1 + wg, 128);
+    };
+    for (int which = 0; which < 2; ++which) {
+      if (which == 0) {
+        stage_rows(dk);
+      } else {
+        stage_rows(dv);
+      }
+      float* out = which == 0 ? f.dk : f.dv;
+      for (int w = tid & 127; w < 64 * D / 8; w += 128) {
+        const int r = w / (D / 8);
+        const int c = (w % (D / 8)) * 4;
+        const int key = kw0 + r;
+        if (key >= s) continue;
+        const float4 lo = *reinterpret_cast<const float4*>(dq_s + r * D + c);
+        const float4 hi =
+            *reinterpret_cast<const float4*>(dq_s + r * D + c + D / 2);
+        float va[4] = {lo.x, lo.y, lo.z, lo.w};
+        float vb[4] = {hi.x, hi.y, hi.z, hi.w};
+        if (which == 0 && rope) {
+          const float* cr = f.cos + static_cast<size_t>(key) * D;
+          const float* sr = f.sin + static_cast<size_t>(key) * D;
+          const float4 cl = __ldg(reinterpret_cast<const float4*>(cr + c));
+          const float4 ch =
+              __ldg(reinterpret_cast<const float4*>(cr + c + D / 2));
+          const float4 sl = __ldg(reinterpret_cast<const float4*>(sr + c));
+          const float4 sh =
+              __ldg(reinterpret_cast<const float4*>(sr + c + D / 2));
+          const float cla[4] = {cl.x, cl.y, cl.z, cl.w};
+          const float cha[4] = {ch.x, ch.y, ch.z, ch.w};
+          const float sla[4] = {sl.x, sl.y, sl.z, sl.w};
+          const float sha[4] = {sh.x, sh.y, sh.z, sh.w};
+#pragma unroll
+          for (int x = 0; x < 4; ++x) {
+            const float ga = va[x], gb = vb[x];
+            va[x] = __fadd_rn(__fmul_rn(ga, cla[x]), __fmul_rn(gb, sha[x]));
+            vb[x] = __fadd_rn(__fmul_rn(gb, cha[x]), -__fmul_rn(ga, sla[x]));
+          }
+        }
+        if (which == 1 && f.dropout) {
+#pragma unroll
+          for (int x = 0; x < 4; ++x) {
+            va[x] /= f.keep_prob;
+            vb[x] /= f.keep_prob;
+          }
+        }
+        if (direct) {
+          T* o = static_cast<T*>(static_cast<void*>(out)) +
+                 ((static_cast<size_t>(ib) * s + key) * f.kvh + ikv) * D + c;
+          *reinterpret_cast<uint2*>(o) =
+              make_uint2(pack2(et, va[0], va[1]), pack2(et, va[2], va[3]));
+          *reinterpret_cast<uint2*>(o + D / 2) =
+              make_uint2(pack2(et, vb[0], vb[1]), pack2(et, vb[2], vb[3]));
+        } else {
+          float* o = out + ((static_cast<size_t>(ib) * s + key) * h + ih) * D + c;
+          *reinterpret_cast<float4*>(o) = make_float4(va[0], va[1], va[2], va[3]);
+          *reinterpret_cast<float4*>(o + D / 2) =
+              make_float4(vb[0], vb[1], vb[2], vb[3]);
+        }
+      }
+    }
   }
 }
 
@@ -1364,7 +1859,20 @@ cudaError_t launch_delta(const BwdParams& p, const void* o, float* delta,
   return cudaGetLastError();
 }
 
-// The fused backward (DQ) or the split dk/dv kernel, after delta.
+template <typename T, int D, bool HEAD_MAJOR>
+cudaError_t launch_dq_finalize(const BwdParams& p, int s_pad,
+                               cudaStream_t stream) {
+  const size_t rows = static_cast<size_t>(p.b) * p.s * p.h;
+  const size_t n = rows * (D / 8);
+  const unsigned blocks =
+      static_cast<unsigned>(n / 256 + 1 < 65535 ? n / 256 + 1 : 65535);
+  dq_finalize_kernel<T, D, HEAD_MAJOR><<<blocks, 256, 0, stream>>>(
+      p.dq_acc, p.cos, p.sin, static_cast<T*>(p.dq), rows, p.s, p.h, s_pad);
+  return cudaGetLastError();
+}
+
+// The first design's fused backward (DQ; the f32 checking path) or the
+// split dk/dv kernel, after delta.
 template <typename T, int D, bool DQ>
 cudaError_t launch_kv(const BwdParams& p, const void* o, float* delta,
                       cudaStream_t stream) {
@@ -1387,13 +1895,67 @@ cudaError_t launch_kv(const BwdParams& p, const void* o, float* delta,
   dim3 grid((p.s + B - 1) / B, p.h, p.b);
   kernel<<<grid, kBwdThreads, smem, stream>>>(q);
   err = cudaGetLastError();
-  if (err != cudaSuccess || !DQ) return err;
-  const size_t n = static_cast<size_t>(p.b) * p.s * p.h * D;
-  const unsigned blocks =
-      static_cast<unsigned>(n / 256 + 1 < 65535 ? n / 256 + 1 : 65535);
-  dq_finalize_kernel<T, D><<<blocks, 256, 0, stream>>>(
-      p.dq_acc, p.cos, p.sin, static_cast<T*>(p.dq), n, p.s, p.h);
-  return cudaGetLastError();
+  if constexpr (DQ) {
+    if (err != cudaSuccess) return err;
+    return launch_dq_finalize<T, D, false>(p, 0, stream);
+  }
+  return err;
+}
+
+// The bf16/fp16 fused backward: the pre-pass, flash_bwd_tma_kernel and the
+// finalize. scratch: delta_pad then lse_pad, [b, h, s_pad] f32 each;
+// p.dq_acc [b, h, s_pad, D] f32.
+template <typename T, int D>
+cudaError_t launch_bwd_tma(const BwdParams& p, const void* o, float* scratch,
+                           cudaStream_t stream) {
+  using L = BwdTmaSmem<D>;
+  const int s_pad = (p.s + kBwdBQ - 1) / kBwdBQ * kBwdBQ;
+  const size_t rows = static_cast<size_t>(p.b) * p.h * s_pad;
+  float* delta_pad = scratch;
+  float* lse_pad = scratch + rows;
+  const size_t threads = rows * (D / 8);
+  bwd_prep_kernel<T, D><<<static_cast<unsigned>((threads + 255) / 256), 256,
+                          0, stream>>>(
+      static_cast<const T*>(o), static_cast<const T*>(p.dout), p.lse, lse_pad,
+      delta_pad, p.dq_acc, rows, p.s, p.h, s_pad);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  BwdTmaParams a;
+  a.f = p;
+  a.f.lse = lse_pad;
+  a.f.delta = delta_pad;
+  a.s_pad = s_pad;
+  const bool fp16 = std::is_same<T, __half>::value;
+  const cuuint64_t e = sizeof(T);
+  const cuuint64_t dq[4] = {D, static_cast<cuuint64_t>(p.h),
+                            static_cast<cuuint64_t>(p.s),
+                            static_cast<cuuint64_t>(p.b)};
+  const cuuint64_t sq[3] = {D * e, p.h * D * e,
+                            static_cast<cuuint64_t>(p.s) * p.h * D * e};
+  const cuuint64_t dk[4] = {D, static_cast<cuuint64_t>(p.kvh),
+                            static_cast<cuuint64_t>(p.s),
+                            static_cast<cuuint64_t>(p.b)};
+  const cuuint64_t sk[3] = {D * e, p.kvh * D * e,
+                            static_cast<cuuint64_t>(p.s) * p.kvh * D * e};
+  const cuuint32_t box_q[4] = {64, 1, kBwdBQ, 1};
+  const cuuint32_t box_k[4] = {64, 1, kBwdBK, 1};
+  err = hopper_host::make_map(&a.q, fp16, 4, p.qs, dq, sq, box_q);
+  if (err == cudaSuccess)
+    err = hopper_host::make_map(&a.d, fp16, 4, p.dout, dq, sq, box_q);
+  if (err == cudaSuccess)
+    err = hopper_host::make_map(&a.k, fp16, 4, p.ks, dk, sk, box_k);
+  if (err == cudaSuccess)
+    err = hopper_host::make_map(&a.v, fp16, 4, p.v, dk, sk, box_k);
+  if (err != cudaSuccess) return err;
+  auto kernel = flash_bwd_tma_kernel<T, D>;
+  err = allow_smem(kernel, L::kBytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid(p.h * p.b, (p.s + kBwdBK - 1) / kBwdBK);
+  kernel<<<grid, kBwdTmaThreads, L::kBytes, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_dq_finalize<T, D, true>(p, s_pad, stream);
 }
 
 template <typename T, int D>
@@ -1469,8 +2031,10 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
 }
 
 // The fused backward. qs / ks / v / o / dout in `dtype`; lse [b, h, s] f32;
-// delta [b, h, s] f32 scratch; dq_acc [b, s, h, d] f32 scratch; dq
-// [b, s, h, d] in dtype; dk / dv [b, s, h, d] f32 per-query-head partials.
+// dq [b, s, h, d] in dtype. Scratch, with s_pad = s rounded up to 64:
+// delta 2 * b * h * s_pad f32, dq_acc b * h * s_pad * d f32. dk / dv: f32
+// [b, s, h, d] per-query-head partials, except for bf16/fp16 at h == kvh,
+// where they are dk / dv themselves, [b, s, kvh, d] in dtype.
 extern "C" int flash_attn_bwd(const void* qs, const void* ks, const void* v,
                               const void* o, const void* dout, const void* lse,
                               const void* cos, const void* sin, void* delta,
@@ -1489,8 +2053,13 @@ extern "C" int flash_attn_bwd(const void* qs, const void* ks, const void* v,
   float* dl = static_cast<float*>(delta);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(dispatch(dtype, d, [&](auto t, auto dd) {
-    return launch_kv<typename decltype(t)::type, decltype(dd)::value, true>(
-        p, o, dl, st);
+    using T = typename decltype(t)::type;
+    constexpr int D = decltype(dd)::value;
+    if constexpr (std::is_same<T, float>::value) {
+      return launch_kv<T, D, true>(p, o, dl, st);
+    } else {
+      return launch_bwd_tma<T, D>(p, o, dl, st);
+    }
   }));
 }
 

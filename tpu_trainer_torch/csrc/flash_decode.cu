@@ -9,27 +9,38 @@
 // and does 4*d flops per (head, position) against 2*d*bytes(pool) read,
 // i.e. about one flop per byte for bf16 pools, far below the ~295
 // flops/byte at which an H100's bf16 tensor cores, not its memory, would
-// limit. The least time is the K/V (+ int8 scales) bytes of the positions
-// below each row's length over the memory rate: 3.35 TB/s on an H100 SXM
-// (NVIDIA data sheet, 700 W; chip_smoke.py prints the card's limit).
+// limit (so the products stay on the CUDA cores, in f32). The least time is
+// the K/V (+ int8 scales) bytes of the positions below each row's length
+// over the memory rate: 3.35 TB/s on an H100 SXM (NVIDIA data sheet, 700 W;
+// chip_smoke.py prints the card's limit).
 //
-// Design:
-// - One thread block per (split, kv head, row): the block stages each
-//   K/V page of its kv head in shared memory once and serves every query
-//   head of the GQA group from it, so a page is read from device memory
-//   once per kv head, not once per query head.
-// - The TPU grid's sequential block axis becomes a loop inside the block
-//   over the split's table entries; the block reads tables[row, j] itself
-//   and stops at the first page wholly past lengths[row] (pages are in
-//   position order). Positions at or past the length inside the last
-//   page are masked to -inf.
-// - int8 pages are dequantized while they are staged, with the blockwise
-//   absmax scales [nblk, bsz, kvh, d / qb].
-// - Online softmax in f32 with p kept in f32 for the PV product (the TPU
-//   kernel rounds p to the pool dtype; this one does not), so the kernel
-//   agrees with the plain version to f32 rounding on the same pool values.
-// - Each block writes its split's partial (m, l, acc); a second small
-//   kernel merges the splits as ops/flash.py:1746-1749 does.
+// What held the first version back was latency, not bytes: one block per
+// (split, kv head, row) walked its split's pages one at a time, each page a
+// serial chain of a table read, a page load staged through shared memory
+// with 2-byte loads, and three __syncthreads around the scores, the softmax
+// and PV, so a 16-page split took 16 page latencies. This design:
+// - One block of 8 warps per (split, kv head, row). The warps take the
+//   split's pages in turn (page j to warp j % 8), so the pages of a split
+//   are in flight at once; no barrier runs per page.
+// - Each warp reads its pages' table entries once, up front (lane i holds
+//   the entry of its i-th page), and stops at the first page wholly past
+//   lengths[row] (pages are in position order).
+// - A page's K and V rows of this kv head load as 16-byte vectors, L =
+//   d * bytes / 16 lanes a row and 32 / L rows a pass, up to 4 passes'
+//   loads issued before any is used. int8 is dequantized in registers with
+//   the blockwise absmax scales [nblk, bsz, kvh, d / qb].
+// - Scores: each lane dots its chunk with q (scaled by 1/sqrt(d) in f32 as
+//   it is loaded), then a shuffle sum over the row's L lanes. An online
+//   softmax per warp in f32 (p stays f32 for the PV product, as the plain
+//   version has it); each lane accumulates p * v over its own rows, summed
+//   over the rows' lanes once, at the end.
+// - GQA: the block serves every query head of its kv head, up to 16 / E
+//   heads at a time in registers (E the elements of a 16-byte chunk), so a
+//   page is read from device memory once per kv head (again from L2 for
+//   groups wider than that).
+// - The warps' (m, l, acc) merge in shared memory once, at the end; each
+//   block writes its split's partial, and a second small kernel merges the
+//   splits as ops/flash.py:1746-1749 does.
 //
 // Plain C interface (built with nvcc into a shared library and loaded
 // with ctypes): flash_decode_launch returns cudaGetLastError() after the
@@ -44,35 +55,49 @@
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-// Accumulator slots per thread: group * d <= kThreads * kMaxPerThread.
-constexpr int kMaxPerThread = 16;
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kAccFloats = 16;  // a lane's accumulators: heads a pass x E
+constexpr int kRounds = 4;      // passes of 16-byte K and V loads in flight
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ float to_f32(int8_t x) {
-  return static_cast<float>(x);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
+// The E = 16 / sizeof(T) elements of one 16-byte chunk, in f32.
+__device__ __forceinline__ void unpack(const uint4& u, float (&x)[4]) {
+  const float* f = reinterpret_cast<const float*>(&u);
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+  for (int i = 0; i < 4; ++i) x[i] = f[i];
+}
+__device__ __forceinline__ void unpack(const uint4& u, float (&x)[8]) {
+  const __nv_bfloat16* f = reinterpret_cast<const __nv_bfloat16*>(&u);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) x[i] = __bfloat162float(f[i]);
+}
+__device__ __forceinline__ void unpack(const uint4& u, float (&x)[16]) {
+  const int8_t* f = reinterpret_cast<const int8_t*>(&u);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) x[i] = static_cast<float>(f[i]);
 }
 
-__device__ __forceinline__ float warp_max(float v) {
+// Multiplies chunk c of an int8 row by its blockwise scales (qb elements a
+// scale); a no-op for float pools.
+template <typename T, int E>
+__device__ __forceinline__ void dequant(float (&x)[E], const float* scale,
+                                        size_t row, int nbq, int qb, int c) {
+  if constexpr (std::is_same<T, int8_t>::value) {
+    const float* sr = scale + row * nbq;
+    if (qb % E == 0) {
+      const float sc = __ldg(sr + c * E / qb);
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+      for (int e = 0; e < E; ++e) x[e] *= sc;
+    } else {
+#pragma unroll
+      for (int e = 0; e < E; ++e) x[e] *= __ldg(sr + (c * E + e) / qb);
+    }
+  }
 }
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) decode_partial_kernel(
-    const float* __restrict__ q,        // [b, h, D], pre-scaled by 1/sqrt(D)
+    const float* __restrict__ q,        // [b, h, D] f32
     const T* __restrict__ pool_k,       // [nblk, bsz, kvh, D]
     const T* __restrict__ pool_v,       // [nblk, bsz, kvh, D]
     const float* __restrict__ k_scale,  // [nblk, bsz, kvh, nbq] (int8 only)
@@ -82,133 +107,198 @@ __global__ void __launch_bounds__(kThreads) decode_partial_kernel(
     float* __restrict__ m_out,          // [b, h, S]
     float* __restrict__ l_out,          // [b, h, S]
     float* __restrict__ acc_out,        // [b, h, S, D]
-    int h, int kvh, int nblk, int bsz, int mb, int n_splits, int nbq) {
+    int h, int kvh, int nblk, int bsz, int mb, int n_splits, int nbq,
+    float scale) {
+  constexpr int E = 16 / sizeof(T);
+  constexpr int L = D * static_cast<int>(sizeof(T)) / 16;  // lanes a row
+  constexpr int P = 32 / L;                                // rows a pass
+  constexpr int GC = kAccFloats / E;                       // heads a pass
+  static_assert(L >= 1 && L <= 32 && 32 % L == 0, "row lanes");
   const int isp = blockIdx.x;
   const int ikv = blockIdx.y;
   const int ib = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int c = lane % L;   // this lane's 16-byte chunk of a row
+  const int pr = lane / L;  // this lane's row within a pass
   const int group = h / kvh;
-  const int gd = group * D;
+  const int h0 = ikv * group;  // first query head of this kv head's group
   const int bps = mb / n_splits;
   const int length = lengths[ib];
-  const int h0 = ikv * group;  // first query head of this kv head's group
-
-  extern __shared__ float smem[];
-  float* q_s = smem;               // [group, D]
-  float* k_s = q_s + gd;           // [bsz, D]
-  float* v_s = k_s + bsz * D;      // [bsz, D]
-  float* p_s = v_s + bsz * D;      // [group, bsz] scores, then probabilities
-  float* m_s = p_s + group * bsz;  // [group] running max
-  float* l_s = m_s + group;        // [group] running sum
-  float* a_s = l_s + group;        // [group] this page's rescale factor
-
-  // The group's query heads h0 .. h0 + group - 1 are contiguous in q.
-  for (int e = tid; e < gd; e += kThreads)
-    q_s[e] = q[(static_cast<size_t>(ib) * h + h0) * D + e];
-  for (int g = tid; g < group; g += kThreads) {
-    m_s[g] = -INFINITY;
-    l_s[g] = 0.f;
-  }
-
-  float acc[kMaxPerThread];
-#pragma unroll
-  for (int i = 0; i < kMaxPerThread; ++i) acc[i] = 0.f;
-
   const int qb = D / nbq;
-  for (int j = 0; j < bps; ++j) {
-    const int jb = isp * bps + j;
-    const int start = jb * bsz;
-    if (start >= length) break;  // block-uniform: later pages are past it too
-    const int blk = tables[static_cast<size_t>(ib) * mb + jb];
-    if (blk < 0 || blk >= nblk) __trap();
-    // Readers of the previous page (and the q/m/l setup) are done.
-    __syncthreads();
+  // Pages of this split that hold a position below the length.
+  const int npages =
+      max(0, min(bps, (length + bsz - 1) / bsz - isp * bps));
 
-    const size_t page = static_cast<size_t>(blk) * bsz;
-    for (int e = tid; e < bsz * D; e += kThreads) {
-      const int t = e / D;
-      const int dd = e - t * D;
-      const size_t row = (page + t) * kvh + ikv;
-      float kx = to_f32(pool_k[row * D + dd]);
-      float vx = to_f32(pool_v[row * D + dd]);
-      if constexpr (std::is_same<T, int8_t>::value) {
-        kx *= k_scale[row * nbq + dd / qb];
-        vx *= v_scale[row * nbq + dd / qb];
-      }
-      k_s[e] = kx;
-      v_s[e] = vx;
-    }
-    __syncthreads();
+  __shared__ float m_s[kWarps][GC];
+  __shared__ float l_s[kWarps][GC];
+  __shared__ float acc_s[kWarps][GC][D];
 
-    // Scores: one warp per (query head, position), lanes split head_dim.
-    for (int p = warp; p < group * bsz; p += kWarps) {
-      const int g = p / bsz;
-      const int t = p - g * bsz;
-      float s = 0.f;
+  for (int g0 = 0; g0 < group; g0 += GC) {
+    float qv[GC][E], m[GC], l[GC], acc[GC][E];
 #pragma unroll
-      for (int i = lane; i < D; i += 32) s += q_s[g * D + i] * k_s[t * D + i];
-      s = warp_sum(s);
-      if (lane == 0) p_s[p] = (start + t < length) ? s : -INFINITY;
+    for (int g = 0; g < GC; ++g) {
+      const bool ok = g0 + g < group;
+      const float* qr =
+          q + (static_cast<size_t>(ib) * h + h0 + g0 + g) * D + c * E;
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        qv[g][e] = ok ? __ldg(qr + e) * scale : 0.f;
+        acc[g][e] = 0.f;
+      }
+      m[g] = -INFINITY;
+      l[g] = 0.f;
+    }
+
+    // This warp's pages warp, warp + 8, ...: their table entries, 32 at a
+    // time (lane i holds the i-th), read before any page.
+    for (int w0 = warp; w0 < npages; w0 += 32 * kWarps) {
+      const int jl = w0 + lane * kWarps;
+      const int mine =
+          jl < npages
+              ? tables[static_cast<size_t>(ib) * mb + isp * bps + jl]
+              : 0;
+      const int count = min(32, (npages - w0 + kWarps - 1) / kWarps);
+      for (int i = 0; i < count; ++i) {
+        const int blk = __shfl_sync(0xffffffffu, mine, i);
+        if (blk < 0 || blk >= nblk) __trap();
+        const int start = (isp * bps + w0 + i * kWarps) * bsz;
+        for (int t0 = 0; t0 < bsz; t0 += P * kRounds) {
+          uint4 kr[kRounds], vr[kRounds];
+#pragma unroll
+          for (int r = 0; r < kRounds; ++r) {
+            const int t = t0 + r * P + pr;
+            kr[r] = vr[r] = make_uint4(0u, 0u, 0u, 0u);
+            if (t < bsz) {
+              const size_t off =
+                  ((static_cast<size_t>(blk) * bsz + t) * kvh + ikv) * D +
+                  c * E;
+              kr[r] = __ldg(reinterpret_cast<const uint4*>(pool_k + off));
+              vr[r] = __ldg(reinterpret_cast<const uint4*>(pool_v + off));
+            }
+          }
+          // Scores of the round's rows, summed over each row's L lanes;
+          // -inf at or past the length (and past the page).
+          float sc[GC][kRounds];
+#pragma unroll
+          for (int r = 0; r < kRounds; ++r) {
+            const int t = t0 + r * P + pr;
+            const size_t row =
+                (static_cast<size_t>(blk) * bsz + t) * kvh + ikv;
+            float kx[E];
+            unpack(kr[r], kx);
+            if (t < bsz) dequant<T, E>(kx, k_scale, row, nbq, qb, c);
+#pragma unroll
+            for (int g = 0; g < GC; ++g) {
+              float s = 0.f;
+#pragma unroll
+              for (int e = 0; e < E; ++e) s = fmaf(qv[g][e], kx[e], s);
+#pragma unroll
+              for (int x = 1; x < L; x <<= 1)
+                s += __shfl_xor_sync(0xffffffffu, s, x);
+              sc[g][r] = (t < bsz && start + t < length) ? s : -INFINITY;
+            }
+          }
+          // Online softmax over the round, per head: the max and the sum
+          // over the rows' lanes (lanes of one chunk differ in bits >= L).
+#pragma unroll
+          for (int g = 0; g < GC; ++g) {
+            float mx = -INFINITY;
+#pragma unroll
+            for (int r = 0; r < kRounds; ++r) mx = fmaxf(mx, sc[g][r]);
+#pragma unroll
+            for (int x = L; x < 32; x <<= 1)
+              mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, x));
+            if (mx == -INFINITY) {  // no position of the round is live
+#pragma unroll
+              for (int r = 0; r < kRounds; ++r) sc[g][r] = 0.f;
+              continue;
+            }
+            const float m_new = fmaxf(m[g], mx);
+            const float alpha = expf(m[g] - m_new);
+            m[g] = m_new;
+            float sum = 0.f;
+#pragma unroll
+            for (int r = 0; r < kRounds; ++r) {
+              sc[g][r] = expf(sc[g][r] - m_new);
+              sum += sc[g][r];
+            }
+#pragma unroll
+            for (int x = L; x < 32; x <<= 1)
+              sum += __shfl_xor_sync(0xffffffffu, sum, x);
+            l[g] = l[g] * alpha + sum;
+#pragma unroll
+            for (int e = 0; e < E; ++e) acc[g][e] *= alpha;
+          }
+          // p * v over the lane's rows, in f32.
+#pragma unroll
+          for (int r = 0; r < kRounds; ++r) {
+            const int t = t0 + r * P + pr;
+            float vx[E];
+            unpack(vr[r], vx);
+            if (t < bsz)
+              dequant<T, E>(vx, v_scale,
+                            (static_cast<size_t>(blk) * bsz + t) * kvh + ikv,
+                            nbq, qb, c);
+#pragma unroll
+            for (int g = 0; g < GC; ++g)
+#pragma unroll
+              for (int e = 0; e < E; ++e)
+                acc[g][e] = fmaf(sc[g][r], vx[e], acc[g][e]);
+          }
+        }
+      }
+    }
+
+    // The warp's accumulators summed over its rows' lanes, then the warps
+    // merged in shared memory. An empty split (no page below the length)
+    // writes m = -inf, l = 0, acc = 0: weight exp(-inf) = 0 in the merge.
+#pragma unroll
+    for (int g = 0; g < GC; ++g)
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+#pragma unroll
+        for (int x = L; x < 32; x <<= 1)
+          acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], x);
+    if (lane < L) {
+#pragma unroll
+      for (int g = 0; g < GC; ++g)
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc_s[warp][g][c * E + e] = acc[g][e];
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int g = 0; g < GC; ++g) {
+        m_s[warp][g] = m[g];
+        l_s[warp][g] = l[g];
+      }
     }
     __syncthreads();
-
-    // Online softmax: one warp per query head. Position start < length,
-    // so every page has a finite score and m_new is finite.
-    for (int g = warp; g < group; g += kWarps) {
-      float mx = -INFINITY;
-      for (int t = lane; t < bsz; t += 32) mx = fmaxf(mx, p_s[g * bsz + t]);
-      mx = warp_max(mx);
-      const float m_old = m_s[g];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-      for (int t = lane; t < bsz; t += 32) {
-        const float pv = expf(p_s[g * bsz + t] - m_new);
-        p_s[g * bsz + t] = pv;
-        sum += pv;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        a_s[g] = alpha;
-        l_s[g] = l_s[g] * alpha + sum;
-        m_s[g] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // PV in f32: each thread owns output elements tid + i * kThreads.
+    for (int idx = threadIdx.x; idx < GC * D; idx += kThreads) {
+      const int g = idx / D;
+      const int dd = idx - g * D;
+      if (g0 + g >= group) continue;
+      float ms = -INFINITY;
 #pragma unroll
-    for (int i = 0; i < kMaxPerThread; ++i) {
-      const int e = tid + i * kThreads;
-      if (e < gd) {
-        const int g = e / D;
-        const int dd = e - g * D;
-        float a = acc[i] * a_s[g];
-        for (int t = 0; t < bsz; ++t) a += p_s[g * bsz + t] * v_s[t * D + dd];
-        acc[i] = a;
+      for (int w = 0; w < kWarps; ++w) ms = fmaxf(ms, m_s[w][g]);
+      float lt = 0.f, a = 0.f;
+      if (ms != -INFINITY) {
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) {
+          const float wt = expf(m_s[w][g] - ms);
+          lt += l_s[w][g] * wt;
+          a += acc_s[w][g][dd] * wt;
+        }
+      }
+      const size_t o =
+          (static_cast<size_t>(ib) * h + h0 + g0 + g) * n_splits + isp;
+      acc_out[o * D + dd] = a;
+      if (dd == 0) {
+        m_out[o] = ms;
+        l_out[o] = lt;
       }
     }
-  }
-  __syncthreads();
-
-  // An empty split (its first page past the length) writes m = -inf,
-  // l = 0, acc = 0: weight exp(-inf) = 0 in the merge.
-#pragma unroll
-  for (int i = 0; i < kMaxPerThread; ++i) {
-    const int e = tid + i * kThreads;
-    if (e < gd) {
-      const int g = e / D;
-      const int dd = e - g * D;
-      acc_out[((static_cast<size_t>(ib) * h + h0 + g) * n_splits + isp) * D +
-              dd] = acc[i];
-    }
-  }
-  for (int g = tid; g < group; g += kThreads) {
-    const size_t o = (static_cast<size_t>(ib) * h + h0 + g) * n_splits + isp;
-    m_out[o] = m_s[g];
-    l_out[o] = l_s[g];
+    __syncthreads();  // before the next heads reuse the shared arrays
   }
 }
 
@@ -235,57 +325,48 @@ __global__ void merge_splits_kernel(const float* __restrict__ m,
   out[bh * d + dd] = o / l_tot;
 }
 
+struct Args {
+  const float* q;
+  const void* pool_k;
+  const void* pool_v;
+  const float* k_scale;
+  const float* v_scale;
+  const int* tables;
+  const int* lengths;
+  float* m_part;
+  float* l_part;
+  float* acc_part;
+  float* out;
+  int b, h, kvh, nblk, bsz, mb, n_splits, nbq;
+};
+
 template <typename T, int D>
-cudaError_t launch(const float* q, const void* pool_k, const void* pool_v,
-                   const float* k_scale, const float* v_scale,
-                   const int* tables, const int* lengths, float* m_part,
-                   float* l_part, float* acc_part, float* out, int b, int h,
-                   int kvh, int nblk, int bsz, int mb, int n_splits, int nbq,
-                   cudaStream_t stream) {
-  const int group = h / kvh;
-  const size_t smem =
-      sizeof(float) *
-      (static_cast<size_t>(group) * D + 2 * static_cast<size_t>(bsz) * D +
-       static_cast<size_t>(group) * bsz + 3 * static_cast<size_t>(group));
-  if (group * D > kThreads * kMaxPerThread || smem > 48 * 1024)
-    return cudaErrorInvalidValue;
-  dim3 grid(n_splits, kvh, b);
-  decode_partial_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      q, static_cast<const T*>(pool_k), static_cast<const T*>(pool_v),
-      k_scale, v_scale, tables, lengths, m_part, l_part, acc_part, h, kvh,
-      nblk, bsz, mb, n_splits, nbq);
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  dim3 grid(a.n_splits, a.kvh, a.b);
+  decode_partial_kernel<T, D><<<grid, kThreads, 0, stream>>>(
+      a.q, static_cast<const T*>(a.pool_k), static_cast<const T*>(a.pool_v),
+      a.k_scale, a.v_scale, a.tables, a.lengths, a.m_part, a.l_part,
+      a.acc_part, a.h, a.kvh, a.nblk, a.bsz, a.mb, a.n_splits, a.nbq,
+      1.0f / sqrtf(static_cast<float>(D)));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  merge_splits_kernel<<<b * h, D, 0, stream>>>(m_part, l_part, acc_part, out,
-                                               n_splits, D);
+  merge_splits_kernel<<<a.b * a.h, D, 0, stream>>>(a.m_part, a.l_part,
+                                                   a.acc_part, a.out,
+                                                   a.n_splits, D);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch_d(int d, const float* q, const void* pool_k,
-                       const void* pool_v, const float* k_scale,
-                       const float* v_scale, const int* tables,
-                       const int* lengths, float* m_part, float* l_part,
-                       float* acc_part, float* out, int b, int h, int kvh,
-                       int nblk, int bsz, int mb, int n_splits, int nbq,
-                       cudaStream_t stream) {
+cudaError_t dispatch_d(int d, const Args& a, cudaStream_t stream) {
   switch (d) {
     case 16:
-      return launch<T, 16>(q, pool_k, pool_v, k_scale, v_scale, tables,
-                           lengths, m_part, l_part, acc_part, out, b, h, kvh,
-                           nblk, bsz, mb, n_splits, nbq, stream);
+      return launch<T, 16>(a, stream);
     case 32:
-      return launch<T, 32>(q, pool_k, pool_v, k_scale, v_scale, tables,
-                           lengths, m_part, l_part, acc_part, out, b, h, kvh,
-                           nblk, bsz, mb, n_splits, nbq, stream);
+      return launch<T, 32>(a, stream);
     case 64:
-      return launch<T, 64>(q, pool_k, pool_v, k_scale, v_scale, tables,
-                           lengths, m_part, l_part, acc_part, out, b, h, kvh,
-                           nblk, bsz, mb, n_splits, nbq, stream);
+      return launch<T, 64>(a, stream);
     case 128:
-      return launch<T, 128>(q, pool_k, pool_v, k_scale, v_scale, tables,
-                            lengths, m_part, l_part, acc_part, out, b, h, kvh,
-                            nblk, bsz, mb, n_splits, nbq, stream);
+      return launch<T, 128>(a, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -293,6 +374,7 @@ cudaError_t dispatch_d(int d, const float* q, const void* pool_k,
 
 }  // namespace
 
+// q: [b, h, d] f32, unscaled (the kernel multiplies by 1/sqrt(d)).
 // kv_dtype: 0 = float32, 1 = bfloat16, 2 = int8 (with k_scale / v_scale).
 // m_part / l_part: [b, h, n_splits] f32; acc_part: [b, h, n_splits, d] f32;
 // out: [b, h, d] f32. Returns a cudaError_t code (0 = launched).
@@ -306,39 +388,29 @@ extern "C" int flash_decode_launch(
       n_splits <= 0 || mb % n_splits != 0 || bsz <= 0 || nbq <= 0 ||
       d % nbq != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const float* qf = static_cast<const float*>(q);
-  const float* ks = static_cast<const float*>(k_scale);
-  const float* vs = static_cast<const float*>(v_scale);
-  const int* tb = static_cast<const int*>(tables);
-  const int* ln = static_cast<const int*>(lengths);
-  float* mp = static_cast<float*>(m_part);
-  float* lp = static_cast<float*>(l_part);
-  float* ap = static_cast<float*>(acc_part);
-  float* o = static_cast<float*>(out);
+  Args a{static_cast<const float*>(q), pool_k, pool_v,
+         static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
+         static_cast<const int*>(tables), static_cast<const int*>(lengths),
+         static_cast<float*>(m_part), static_cast<float*>(l_part),
+         static_cast<float*>(acc_part), static_cast<float*>(out), b, h, kvh,
+         nblk, bsz, mb, n_splits, nbq};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
   switch (kv_dtype) {
     case 0:
-      err = dispatch_d<float>(d, qf, pool_k, pool_v, nullptr, nullptr, tb, ln,
-                              mp, lp, ap, o, b, h, kvh, nblk, bsz, mb,
-                              n_splits, 1, st);
-      break;
+      a.k_scale = a.v_scale = nullptr;
+      a.nbq = 1;
+      return static_cast<int>(dispatch_d<float>(d, a, st));
     case 1:
-      err = dispatch_d<__nv_bfloat16>(d, qf, pool_k, pool_v, nullptr, nullptr,
-                                      tb, ln, mp, lp, ap, o, b, h, kvh, nblk,
-                                      bsz, mb, n_splits, 1, st);
-      break;
+      a.k_scale = a.v_scale = nullptr;
+      a.nbq = 1;
+      return static_cast<int>(dispatch_d<__nv_bfloat16>(d, a, st));
     case 2:
-      if (ks == nullptr || vs == nullptr)
+      if (a.k_scale == nullptr || a.v_scale == nullptr)
         return static_cast<int>(cudaErrorInvalidValue);
-      err = dispatch_d<int8_t>(d, qf, pool_k, pool_v, ks, vs, tb, ln, mp, lp,
-                               ap, o, b, h, kvh, nblk, bsz, mb, n_splits, nbq,
-                               st);
-      break;
+      return static_cast<int>(dispatch_d<int8_t>(d, a, st));
     default:
-      err = cudaErrorInvalidValue;
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(err);
 }
 
 extern "C" const char* flash_decode_error_string(int code) {

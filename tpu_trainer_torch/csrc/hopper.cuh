@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA/wgmma kernels
-// (the bf16/fp16 flash forward in flash_attn.cu, the bf16/fp16 gmm in
-// grouped_matmul.cu): mbarriers, TMA tile loads, wgmma shared-memory
-// descriptors, the wgmma instructions in inline PTX, and the host-side
-// encoding of a TMA tensor map through the function pointer that the CUDA
-// runtime hands out for it (so the libraries need no -lcuda).
+// (the bf16/fp16 flash forward and fused backward in flash_attn.cu, the
+// bf16/fp16 gmm in grouped_matmul.cu): mbarriers, TMA tile loads, 1-D bulk
+// copies and bulk f32 reductions, warpgroup register reallocation, wgmma
+// shared-memory descriptors, the wgmma instructions in inline PTX, and the
+// host-side encoding of a TMA tensor map through the function pointer that
+// the CUDA runtime hands out for it (so the libraries need no -lcuda).
 //
 // Shared-memory operands use the 128-byte swizzle throughout: a TMA box
 // whose inner extent is 64 16-bit elements (128 bytes) lands as rows of
@@ -70,18 +71,18 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
 
 // Spins until the phase of parity `parity` has completed (a fresh barrier
 // counts its phase "1" as completed, so a producer's first wait on an
-// empty slot with parity 1 passes).
+// empty slot with parity 1 passes). The loop is inside the PTX, so the
+// compiler sees no data-dependent branch around the wgmma that follow.
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
 }
 
 // -- TMA loads (zero-filled outside the tensor) ------------------------------
@@ -115,6 +116,66 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3)
       : "memory");
+}
+
+// -- 1-D bulk copies and reductions ------------------------------------------
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from global to
+// shared memory, completing as transactions on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// dst[i] += src[i] over `bytes` of f32 (a multiple of 16), shared to global,
+// performed by the memory system as one bulk operation; tracked by the
+// issuing thread's bulk groups.
+__device__ __forceinline__ void bulk_reduce_add_f32(float* dst, uint32_t src,
+                                                    uint32_t bytes) {
+  asm volatile(
+      "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], "
+      "%2;\n" ::"l"(reinterpret_cast<uint64_t>(dst)),
+      "r"(src), "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until the thread's bulk groups have finished reading shared memory.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// Waits until the thread's bulk groups are complete.
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// Orders this thread's generic-proxy shared-memory writes before later
+// async-proxy reads (wgmma operands, bulk copies out of shared memory).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Named barrier over `threads` threads (barrier 0 is __syncthreads).
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Warpgroup register reallocation: the whole warpgroup executes it.
+template <int N>
+__device__ __forceinline__ void regs_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void regs_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // -- wgmma -------------------------------------------------------------------
@@ -170,8 +231,9 @@ __device__ __forceinline__ uint32_t pack2(Elem<__half>, float a, float b) {
 }
 
 // wgmma_ss: D[64, N] (+)= A[64, 16] B[16, N], A and B in shared memory
-// (descriptors; A K-major). wgmma_rs: the same with A in registers.
-// TRANS_B: 0 for a K-major B, 1 for an MN-major B. scale_d 0 overwrites D.
+// (descriptors). wgmma_rs: the same with A in registers. TRANS_B: 0 for a
+// K-major B, 1 for an MN-major B; TRANS_A likewise for A in shared memory.
+// scale_d 0 overwrites D.
 // Each (shape, form) the kernels use is written once below, as a macro of
 // the operand type (its PTX name and its C type), and stamped out for bf16
 // and fp16.
@@ -195,8 +257,23 @@ __device__ __forceinline__ uint32_t pack2(Elem<__half>, float a, float b) {
   "%49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, "              \
   "%61, %62, %63}"
 
-// m64n128k16, A and B from shared memory (operands after d: %64 da,
-// %65 db, %66 scale_d, %67 TRANS_B).
+// m64n64k16, A and B from shared memory (operands after the accumulators:
+// da, db, scale_d, TRANS_A, TRANS_B); m64n128k16 the same with a K-major A
+// (no TRANS_A operand).
+#define HOPPER_WGMMA_SS_N64(PTX, CT)                                         \
+  template <int TRANS_B, int TRANS_A = 0>                                    \
+  __device__ __forceinline__ void wgmma_ss(Shape<64>, Elem<CT>,              \
+                                           float (&d)[32], uint64_t da,      \
+                                           uint64_t db, int scale_d) {       \
+    asm volatile("{\n.reg .pred p;\n"                                        \
+                 "setp.ne.b32 p, %34, 0;\n"                                  \
+                 "wgmma.mma_async.sync.aligned.m64n64k16.f32." PTX "." PTX   \
+                 " " HOPPER_R32 ", %32, %33, p, 1, 1, %35, %36;\n}\n"        \
+                 : HOPPER_D32                                                \
+                 : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_A),            \
+                   "n"(TRANS_B));                                            \
+  }
+
 #define HOPPER_WGMMA_SS_N128(PTX, CT)                                        \
   template <int TRANS_B>                                                     \
   __device__ __forceinline__ void wgmma_ss(Shape<128>, Elem<CT>,             \
@@ -244,6 +321,8 @@ __device__ __forceinline__ uint32_t pack2(Elem<__half>, float a, float b) {
                    "r"(scale_d), "n"(TRANS_B));                              \
   }
 
+HOPPER_WGMMA_SS_N64("bf16", __nv_bfloat16)
+HOPPER_WGMMA_SS_N64("f16", __half)
 HOPPER_WGMMA_SS_N128("bf16", __nv_bfloat16)
 HOPPER_WGMMA_SS_N128("f16", __half)
 HOPPER_WGMMA_RS_N64("bf16", __nv_bfloat16)
@@ -254,6 +333,7 @@ HOPPER_WGMMA_RS_N128("f16", __half)
 #undef HOPPER_WGMMA_RS_N128
 #undef HOPPER_WGMMA_RS_N64
 #undef HOPPER_WGMMA_SS_N128
+#undef HOPPER_WGMMA_SS_N64
 #undef HOPPER_R64
 #undef HOPPER_R32
 #undef HOPPER_D64

@@ -43,8 +43,6 @@ from tpu_trainer_torch.ops.rope import rotate_half
 
 _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _KERNEL_HEAD_DIMS = (16, 32, 64, 128)
-_THREADS, _MAX_PER_THREAD = 128, 16       # csrc/flash_decode.cu constants
-_SMEM_LIMIT = 48 * 1024
 
 
 def _auto_splits(max_blocks: int) -> int:
@@ -116,7 +114,9 @@ def flash_decode(
 
     Returns f32 ``[batch, heads, head_dim]``. GQA: query head ``ih`` reads
     kv head ``ih // (heads // kv_heads)``. ``flash_decode.launches``
-    counts kernel launches (CUDA calls only).
+    counts kernel launches (CUDA calls only). The kernel takes head_dim
+    16, 32, 64 or 128, any block size and group, and pools that start
+    16-byte aligned.
     """
     _check(q, pool_k, pool_v, tables, lengths, k_scale, v_scale)
     mb = tables.shape[1]
@@ -141,19 +141,11 @@ def _launch(q, pool_k, pool_v, tables, lengths, k_scale, v_scale, n_splits):
     b, h, d = q.shape
     nblk, bsz, kvh, _ = pool_k.shape
     mb = tables.shape[1]
-    group = h // kvh
     int8 = pool_k.dtype == torch.int8
     nbq = k_scale.shape[-1] if int8 else 1
     if d not in _KERNEL_HEAD_DIMS:
         raise ValueError(
             f"head_dim {d} unsupported by the kernel {_KERNEL_HEAD_DIMS}")
-    if group * d > _THREADS * _MAX_PER_THREAD:
-        raise ValueError(f"GQA group {group} x head_dim {d} > "
-                         f"{_THREADS * _MAX_PER_THREAD}")
-    smem = 4 * (group * d + 2 * bsz * d + group * bsz + 3 * group)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"block_size {bsz} needs {smem} B of shared memory "
-                         f"> {_SMEM_LIMIT}")
     operands = [pool_k, pool_v, tables, lengths] + (
         [k_scale, v_scale] if int8 else [])
     for t in operands:
@@ -161,8 +153,12 @@ def _launch(q, pool_k, pool_v, tables, lengths, k_scale, v_scale, n_splits):
             raise ValueError(f"operand on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError("flash_decode operands must be contiguous")
+    if pool_k.data_ptr() % 16 or pool_v.data_ptr() % 16:
+        raise ValueError("flash_decode pools must start 16-byte aligned (the "
+                         "kernel loads 16 bytes at a time)")
 
-    qf = (q.float() * (1.0 / math.sqrt(d))).contiguous()
+    # The kernel scales q by 1/sqrt(d) in f32 as it loads it.
+    qf = q.float().contiguous()
     m_part = torch.empty((b, h, n_splits), dtype=torch.float32,
                          device=q.device)
     l_part = torch.empty_like(m_part)
@@ -252,10 +248,13 @@ _U32 = 0xFFFFFFFF
 # Unsegmented calls up to this length take the fused backward, longer ones
 # the split pair. chip_smoke.py's train-split phase times both at b*s =
 # 8192 tokens (12 heads of 64, bf16) on an H100: the fused kernel is faster
-# at every s it measured, up to 8192, where the split pair's second score
-# evaluation costs more than the fused kernel's dq atomics (PERF.md).
+# at every s it measured, up to 8192 (PERF.md); longer sequences are not
+# measured.
 _FUSED_BWD_MAX_SEQ = 8192
 _BACKWARDS = (None, "fused", "split")
+# q rows a ring stage of the bf16/fp16 fused backward (csrc/flash_attn.cu
+# kBwdBQ): its dq accumulator and lse/delta rows are padded to a multiple.
+_BWD_Q_TILE = 64
 
 
 def backward_impl(seq: int, segmented: bool, backward=None) -> str:
@@ -539,16 +538,27 @@ def flash_backward(qs, ks, v, o, lse, do, *, causal: bool = True,
                    dropout_rate: float = 0.0, seed: Optional[int] = None,
                    rope: Optional[tuple] = None):
     """The fused backward kernel on CUDA tensors: ``(dq, dk, dv)`` from the
-    forward's residuals (``qs``, ``ks``, ``o``, ``lse``) and ``do``. dq is
-    accumulated in f32 with atomics (order varies run to run), dk/dv are
-    f32 per-query-head partials group-summed here and rounded once."""
+    forward's residuals (``qs``, ``ks``, ``o``, ``lse``) and ``do``.
+
+    dq is summed in f32 across the kernel's blocks (bulk reductions for
+    bf16/fp16, scalar atomics for f32), so the order of its sums, and its
+    last bits, vary from run to run; dk and dv are owned by one block each
+    and are deterministic. bf16/fp16 without GQA: the kernel writes dk/dv
+    in the compute type; otherwise f32 per-query-head partials are
+    group-summed here and rounded once (bitwise the same for a group of
+    one)."""
     do = _backward_operands(qs, ks, v, o, lse, do, rope, "flash_backward")
     b, s, h, d = qs.shape
     f32 = dict(dtype=torch.float32, device=qs.device)
-    delta = torch.empty((b, h, s), **f32)
-    dq_acc = torch.empty((b, s, h, d), **f32)
-    dk_part = torch.empty((b, s, h, d), **f32)
-    dv_part = torch.empty((b, s, h, d), **f32)
+    s_pad = -(-s // _BWD_Q_TILE) * _BWD_Q_TILE
+    delta = torch.empty((2, b, h, s_pad), **f32)
+    dq_acc = torch.empty((b, h, s_pad, d), **f32)
+    direct = qs.dtype != torch.float32 and ks.shape[2] == h
+    if direct:
+        dk, dv = torch.empty_like(ks), torch.empty_like(v)
+    else:
+        dk = torch.empty((b, s, h, d), **f32)
+        dv = torch.empty((b, s, h, d), **f32)
     dq = torch.empty_like(qs)
     cos, sin = rope if rope is not None else (None, None)
     lib = _train_lib()
@@ -556,12 +566,14 @@ def flash_backward(qs, ks, v, o, lse, do, *, causal: bool = True,
         err = lib.flash_attn_bwd(
             _ptr(qs), _ptr(ks), _ptr(v), _ptr(o), _ptr(do), _ptr(lse),
             _ptr(cos), _ptr(sin), _ptr(delta), _ptr(dq_acc), _ptr(dq),
-            _ptr(dk_part), _ptr(dv_part),
+            _ptr(dk), _ptr(dv),
             *_common_args(qs, ks, causal, dropout_rate, seed),
             _stream(qs.device))
     _raise_on(lib, err, "flash_backward")
     flash_backward.launches += 1
-    return dq, _group_sum(dk_part, ks), _group_sum(dv_part, v)
+    if direct:
+        return dq, dk, dv
+    return dq, _group_sum(dk, ks), _group_sum(dv, v)
 
 
 flash_backward.launches = 0
