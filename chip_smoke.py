@@ -53,7 +53,10 @@ JAX package. Phases, each fatal on failure:
               + ``cross_entropy``) with CUDA events, computes the bounds,
               times the bf16 forward without dropout and RoPE, and splits
               the fused backward's device time (``torch.profiler``) into
-              its pre-pass, its kernel and its dq finalize.
+              its pre-pass, its kernel and its dq finalize. The fused
+              backward runs twice on the same inputs (bf16 and f32 at
+              the main shape, bf16 GQA d=128): dq, dk and dv must be
+              bitwise equal (dq's fixed summation order).
 7. mask    -- the dropout keep mask dumped by a CUDA kernel through the
               flash kernels' ``__device__`` hash, under 128/64/256 tilings
               in q-major and k-major order, bitwise against the torch
@@ -65,7 +68,10 @@ JAX package. Phases, each fatal on failure:
               d=128), a ragged s=1000 with documents shorter than a tile
               and across several tiles, unsegmented s=4096 through
               ``backward="split"``; planted faults (the split dq without
-              the segment mask, the fused backward on segments) must fail.
+              the segment mask, the fused backward on segments) must fail;
+              the dk/dv kernel twice on the same inputs (packed, packed
+              GQA) must give bitwise equal results; at group 1 in bf16
+              without summing f32 partials afterwards.
               Times at the packed shape next to SDPA with the equivalent
               boolean mask, and the fused/split table (unsegmented, b*s =
               8192, s = 1024..8192) behind ``_FUSED_BWD_MAX_SEQ``.
@@ -75,7 +81,9 @@ JAX package. Phases, each fatal on failure:
               f32 and bf16) for balanced, skewed, empty-group and
               G % 128 != 0 group sizes, tgmm's output pre-filled with NaN;
               planted faults (a boundary tile's second group left out, an
-              all-zero tgmm) must fail. Times next to ``torch._grouped_mm``
+              all-zero tgmm) must fail; tgmm twice on the skewed sizes
+              (one group of 15706 rows) must be bitwise equal. Times next
+              to ``torch._grouped_mm``
               (or a per-expert matmul loop where this torch lacks it or
               refuses the operands), for the dgrad on the transposed view
               of rhs too.
@@ -581,6 +589,24 @@ def _attn_bounds(b, s, h, kvh, d, elem, seg=None) -> dict:
     }
 
 
+def _bitwise_twice(what, fn) -> int:
+    """Runs ``fn()`` (a tuple of tensors) twice on the same inputs and
+    requires every output bitwise equal (the kernels' fixed summation
+    orders); returns the number of elements compared."""
+    first = [t.clone() for t in fn()]
+    second = fn()
+    torch.cuda.synchronize()
+    n = 0
+    for i, (a, b) in enumerate(zip(first, second)):
+        if not torch.equal(a, b):
+            diff = int((a != b).sum())
+            raise AssertionError(f"{what}: output {i} differs between two "
+                                 f"runs on the same inputs in {diff} of "
+                                 f"{a.numel()} elements")
+        n += a.numel()
+    return n
+
+
 def _must_reject(what, check) -> None:
     """``check()`` holds a planted fault against the truth and must
     raise."""
@@ -719,6 +745,29 @@ def phase_train_kernel(results: dict) -> dict:
         rows.append({"case": name, "dtype": dtype, "dropout": rate,
                      "shape": [b, s, h, kvh, d], **row})
 
+    # The fused backward twice on the same inputs: dq (summed across blocks
+    # in a fixed order), dk and dv bitwise equal, bf16 under dropout and
+    # RoPE and f32, at the main shape and the GQA d = 128 one.
+    rows_det = []
+    for dt, (b, s, h, kvh, d) in (("bfloat16", (8, 1024, 12, 12, 64)),
+                                  ("float32", (8, 1024, 12, 12, 64)),
+                                  ("bfloat16", (2, 1024, 32, 8, 128))):
+        tag = f"fused backward twice, {dt} b={b} s={s} h={h} kvh={kvh} d={d}"
+        try:
+            q, k, v, do = _attn_set(b, s, h, kvh, d, dt, seed=11)
+            kw = dict(dropout_rate=0.1, seed=7,
+                      rope=rope_tables(s, d, device="cuda"))
+            o, lse, qs, ks = flash.flash_forward(q, k, v, **kw)
+            n = _bitwise_twice(tag, lambda: flash.flash_backward(
+                qs, ks, v, o, lse, do, **kw))
+            rows_det.append({"dtype": dt, "shape": [b, s, h, kvh, d],
+                             "elements": n})
+            log("train-kernel", f"{tag}: dq, dk, dv bitwise equal ({n} "
+                                f"elements)")
+        except AssertionError as e:
+            failures.append(str(e))
+            log("train-kernel", f"{tag}: FAILED: {e}")
+
     # Times at the main path's shape and settings (bf16, dropout 0.1,
     # RoPE), four input sets so L2 holds none between calls.
     b, s, h, d = 8, 1024, 12, 64
@@ -786,6 +835,7 @@ def phase_train_kernel(results: dict) -> dict:
     head = _head_ce_checks(failures)
     results["train_kernel"] = {"flash_checks": rows, "flash_times": t,
                                "flash_bounds": bounds, "head_ce": head,
+                               "bitwise_twice": rows_det,
                                "failures": failures}
     if failures:
         raise AssertionError(f"train-kernel: {len(failures)} failed: "
@@ -1053,6 +1103,41 @@ def phase_train_split(results: dict) -> dict:
                      "segments": None if seg is None else int(
                          sum(len(torch.unique(r)) for r in seg.cpu())),
                      **row})
+    # The dk/dv kernel twice on the same inputs, bitwise (packed bf16 with
+    # dropout; packed GQA d = 128, whose f32 partials are group-summed);
+    # at group 1 it writes dk/dv in the compute type itself: a third call
+    # counts the calls of flash._group_sum (0 at group 1, dk and dv under
+    # GQA).
+    for tag, (b, s, h, kvh, d), seg in (
+            ("packed bf16", (8, 1024, 12, 12, 64), main_seg),
+            ("packed GQA bf16", (2, 1024, 32, 8, 128),
+             _packed_segments(2, 1024, 18))):
+        what = f"dk/dv kernel twice, {tag} b={b} s={s} h={h} kvh={kvh} d={d}"
+        try:
+            q, k, v, do = _attn_set(b, s, h, kvh, d, "bfloat16", seed=5)
+            kw = dict(dropout_rate=0.1, seed=7, segment_ids=seg,
+                      rope=rope_tables(s, d, device="cuda"))
+            o, lse, qs, ks = flash.flash_forward(q, k, v, **kw)
+            n = _bitwise_twice(what, lambda: flash.flash_backward_dkv(
+                qs, ks, v, o, lse, do, **kw))
+            sums, group_sum = [], flash._group_sum
+            flash._group_sum = lambda *a: sums.append(1) or group_sum(*a)
+            try:
+                dk, dv, _ = flash.flash_backward_dkv(qs, ks, v, o, lse, do,
+                                                     **kw)
+            finally:
+                flash._group_sum = group_sum
+            want = 0 if kvh == h else 2
+            if (dk.dtype, dv.dtype) != (k.dtype, v.dtype) or len(sums) != want:
+                raise AssertionError(f"{what}: dk/dv {dk.dtype}/{dv.dtype} "
+                                     f"after {len(sums)} f32 partial sums, "
+                                     f"want {k.dtype} after {want}")
+            log("train-split", f"{what}: dk, dv, delta bitwise equal ({n} "
+                               f"elements), dk/dv {dk.dtype} after "
+                               f"{len(sums)} f32 partial sums")
+        except AssertionError as e:
+            failures.append(str(e))
+            log("train-split", f"{what}: FAILED: {e}")
     if failures:
         results["train_split"] = {"checks": rows, "failures": failures}
         raise AssertionError(f"train-split: {len(failures)} failed: "
@@ -1236,6 +1321,22 @@ def phase_gmm(results: dict) -> dict:
                 + ("; tgmm's NaN-filled output fully written"
                    if "empty" == kind else ""))
         del lhs32, rhs32, dout32
+    # tgmm twice on the same inputs, bitwise, at the skewed sizes (the heavy
+    # group's tiles listed first).
+    for H, N in ((768, 3072), (3072, 768)):
+        sizes = _group_sizes("skewed", G)
+        what = f"tgmm twice, skewed G={G} {H}->{N} bf16"
+        try:
+            gen = torch.Generator(device="cuda").manual_seed(H + N)
+            lhs = torch.randn((G, H), generator=gen, device="cuda").bfloat16()
+            dout = torch.randn((G, N), generator=gen, device="cuda").bfloat16()
+            offs = gm.group_offsets(sizes)
+            n = _bitwise_twice(what, lambda: (gm.tgmm_cuda(lhs, dout, offs),))
+            log("gmm", f"{what}: bitwise equal ({n} elements; the largest "
+                       f"group {int(sizes.max())} rows)")
+        except AssertionError as e:
+            failures.append(str(e))
+            log("gmm", f"{what}: FAILED: {e}")
     if failures:
         results["gmm"] = {"checks": checks, "failures": failures}
         raise AssertionError(f"gmm: {len(failures)} failed: "

@@ -13,6 +13,12 @@ out of step hang instead of failing):
   col = key); phase ``train_kernel`` must fail.
 - ``decode_drops_page_end``: flash-decode masks the last position of every
   page; phase ``kernel`` must fail.
+- ``dkv_no_segment_test``: the split dk/dv kernel (``flash_bwd_tma_kernel``
+  without DQ) drops its element-wise ``qseg == kseg`` test, keeping only
+  the tile skips; phase ``train_split`` must fail.
+- ``tgmm_tail_rows_kept``: tgmm leaves the rows of a group's last chunk
+  that lie past ``offsets[e + 1]`` (the next group's) unzeroed; phase
+  ``gmm`` must fail.
 
 Needs one CUDA GPU and nvcc; writes nothing into the checkout. Run from the
 repository root: ``python3 scripts/torch_kernel_mutations.py [name ...]``.
@@ -41,6 +47,16 @@ MUTATIONS = {
         "sc[g][r] = (t < bsz && start + t < length) ? s : -INFINITY;",
         "sc[g][r] = (t < bsz - 1 && start + t < length) ? s : -INFINITY;",
         "kernel"),
+    "dkv_no_segment_test": (
+        "tpu_trainer_torch/csrc/flash_attn.cu",
+        "ok = ok && ((e & 1) ? qz.y : qz.x) == (e < 2 ? kseg_a : kseg_b);",
+        "ok = ok && qz.x == qz.x;",
+        "train_split"),
+    "tgmm_tail_rows_kept": (
+        "tpu_trainer_torch/csrc/grouped_matmul.cu",
+        "if (keep < kTgmmChunk) {",
+        "if (keep < 0) {",
+        "gmm"),
 }
 
 

@@ -284,6 +284,38 @@ def test_rejects_bad_operands(bad):
         tflash.flash_attention(q, k, v, **kw)
 
 
+@pytest.mark.parametrize("fn", ["flash_backward", "flash_backward_dkv",
+                                "flash_backward_dq"])
+def test_backward_wrappers_refuse_cpu_tensors(fn):
+    """The backward kernels' wrappers launch or raise: a CPU tensor is
+    refused, not sent to the plain version."""
+    q, k, v, do, seg = (torch.from_numpy(x) for x in _inputs(4, 4, d=64))
+    lse = torch.zeros((2, 4, 64))
+    with pytest.raises(ValueError, match="CUDA"):
+        if fn == "flash_backward":
+            tflash.flash_backward(q, k, v, q, lse, do)
+        elif fn == "flash_backward_dkv":
+            tflash.flash_backward_dkv(q, k, v, q, lse, do, segment_ids=seg)
+        else:
+            tflash.flash_backward_dq(q, k, v, do, lse, lse)
+
+
+@pytest.mark.parametrize("dtype,kvh,direct", [
+    ("bfloat16", 4, True), ("float16", 4, True), ("bfloat16", 2, False),
+    ("float32", 4, False)])
+def test_dkv_outputs_direct_only_at_group_one(dtype, kvh, direct):
+    """The backward kernels write dk/dv in a 16-bit compute type at GQA
+    group 1; otherwise into f32 per-query-head partials [b, s, h, d] that
+    are group-summed after the kernel."""
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(x).to(dt) for x in _inputs(4, kvh)[:3])
+    dk, dv, got = tflash._dkv_outputs(q, k, v)
+    assert got is direct
+    want = (k.shape, dt) if direct else (q.shape, torch.float32)
+    for t in (dk, dv):
+        assert (t.shape, t.dtype) == want
+
+
 # -- on the card -------------------------------------------------------------
 
 @pytest.fixture
@@ -501,3 +533,67 @@ def test_split_kernels_match_plain_on_card(cuda_device, b, s, h, kvh, d,
     truth = plain([t.float() for t in (tq, tk, tv)], tdo.float())
     for n, a, r, t in zip(names, kernel, ref, truth):
         _assert_near_truth(n, a, r, t)
+
+
+DET_CASES = [
+    # (b, s, h, kvh, d, dtype, rate, causal): the fused backward's dq parts
+    # summed in a fixed order: ragged s, GQA at d = 128, a non-causal call
+    # (every key tile reaches every q tile), the f32 checking path.
+    (2, 1000, 4, 4, 64, "bfloat16", 0.1, True),
+    (1, 640, 8, 2, 128, "bfloat16", 0.1, True),
+    (2, 256, 4, 4, 64, "bfloat16", 0.0, False),
+    (2, 300, 4, 4, 64, "float32", 0.1, True),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,kvh,d,dtype,rate,causal", DET_CASES)
+def test_fused_backward_bitwise_twice_on_card(cuda_device, b, s, h, kvh, d,
+                                              dtype, rate, causal):
+    """The fused backward twice on the same inputs: dq, dk and dv bitwise
+    equal."""
+    dev, dt = cuda_device, getattr(torch, dtype)
+    q, k, v, do = (torch.from_numpy(x).to(dev, dt)
+                   for x in _inputs(h, kvh, b=b, s=s, d=d, seed=s)[:4])
+    kw = dict(dropout_rate=rate, seed=77 if rate else None,
+              rope=rope_tables(s, d, device=dev))
+    o, lse, qs, ks = tflash.flash_forward(q, k, v, causal=causal, **kw)
+    first = tflash.flash_backward(qs, ks, v, o, lse, do, causal=causal, **kw)
+    first = [t.clone() for t in first]
+    second = tflash.flash_backward(qs, ks, v, o, lse, do, causal=causal, **kw)
+    torch.cuda.synchronize()
+    for name, a, c in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, c), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,kvh,d,dtype,layout", [
+    (4, 4, 64, "bfloat16", "packed"),
+    (4, 2, 128, "bfloat16", "short_docs"),
+    (4, 4, 128, "float16", "across_blocks"),
+    (4, 4, 64, "float32", "packed"),
+])
+def test_split_dkv_bitwise_twice_on_card(cuda_device, monkeypatch, h, kvh,
+                                         d, dtype, layout):
+    """The split dk/dv kernel twice on the same inputs: dk, dv and delta
+    bitwise equal; at group 1 in a 16-bit type the kernel writes dk/dv in
+    that type itself (no f32 partials group-summed after it)."""
+    dev, dt = cuda_device, getattr(torch, dtype)
+    q, k, v, do = (torch.from_numpy(x).to(dev, dt)
+                   for x in _inputs(h, kvh, d=d, seed=8)[:4])
+    seg = torch.tensor(SEG_LAYOUTS[layout], dtype=torch.int32, device=dev)
+    kw = dict(dropout_rate=0.1, seed=5, rope=rope_tables(64, d, device=dev),
+              segment_ids=seg)
+    o, lse, qs, ks = tflash.flash_forward(q, k, v, **kw)
+    if h == kvh and dt != torch.float32:
+        def no_group_sum(*_):
+            raise AssertionError("group-summed at group 1")
+        monkeypatch.setattr(tflash, "_group_sum", no_group_sum)
+    first = [t.clone() for t in tflash.flash_backward_dkv(
+        qs, ks, v, o, lse, do, **kw)]
+    second = tflash.flash_backward_dkv(qs, ks, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert first[0].dtype == first[1].dtype == dt
+    assert tuple(first[2].shape) == (2, h, 64)
+    for name, a, c in zip(("dk", "dv", "delta"), first, second):
+        assert torch.equal(a, c), name

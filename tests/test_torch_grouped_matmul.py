@@ -256,3 +256,50 @@ def test_kernel_rejects_what_it_cannot_take(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         tgm.gmm_cuda(torch.zeros((16, 8), device=cuda_device).T,
                      torch.zeros((2, 16, 8), device=cuda_device), offs)
+
+
+# Group sizes with one group of 1900 rows (30 chunks of 64 rows, so the
+# ring wraps many times inside one output tile), partial last chunks, an
+# empty group and a group of one row; the heavy group first, and last (the
+# kernel lists the groups with the most rows first). Widths that end in a
+# partial output tile, and two full ones. tgmm's f32 sums of exact bf16
+# products against the plain version's: reduction order only, _f32_tol of
+# the longest sum.
+HEAVY_SIZES = {"heavy_first": [1900, 0, 1, 77, 70],
+               "heavy_last": [70, 77, 1, 0, 1900]}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", sorted(HEAVY_SIZES))
+@pytest.mark.parametrize("H,N", [(200, 136), (128, 256)])
+def test_tgmm_heavy_group_on_card(cuda_device, H, N, layout):
+    """A group many chunks long, listed first whatever its index, matches
+    the plain version, and the same call twice is bitwise equal."""
+    sizes = HEAVY_SIZES[layout]
+    G = sum(sizes)
+    lhs, _, dout, sz = (torch.from_numpy(x).to(cuda_device)
+                        for x in _inputs(G, H, N, sizes, seed=4))
+    lhs, dout = lhs.bfloat16(), dout.bfloat16()
+    offs = tgm.group_offsets(sz)
+    got = tgm.tgmm_cuda(lhs, dout, offs)
+    again = tgm.tgmm_cuda(lhs, dout, offs)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, tgm.tgmm_reference(lhs, dout, sz),
+                               **_f32_tol(max(sizes)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,N", [(768, 3072), (3072, 768)])
+def test_tgmm_bitwise_twice_on_card(cuda_device, H, N):
+    """tgmm twice on the same inputs at the MoE widths and skewed sizes
+    (one group above 90% of 16384 rows): bitwise equal."""
+    sizes = [16384 - 678, 37, 0, 129, 1, 300, 0, 211]
+    gen = torch.Generator(device=cuda_device).manual_seed(H)
+    lhs = torch.randn((16384, H), generator=gen, device=cuda_device)
+    dout = torch.randn((16384, N), generator=gen, device=cuda_device)
+    offs = tgm.group_offsets(torch.tensor(sizes, device=cuda_device))
+    first = tgm.tgmm_cuda(lhs.bfloat16(), dout.bfloat16(), offs)
+    second = tgm.tgmm_cuda(lhs.bfloat16(), dout.bfloat16(), offs)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)

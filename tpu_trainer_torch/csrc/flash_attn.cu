@@ -90,19 +90,42 @@
 //   and as f32 per-query-head partials under GQA.
 // - dQ: dS^T is stored once in T into shared memory (128-byte swizzled
 //   rows, conflict free) and read back as an MN-major A operand of dQ_part
-//   = dS K (K MN-major), 64 columns at a time; the f32 part goes to shared
-//   memory and one cp.reduce.async.bulk .add.f32 per tile pair adds it into
-//   dq_acc [b, h, s_pad, d], whose rows of a q tile are contiguous (25 MB
-//   at the training shape, inside the 50 MB L2). The order of those adds
-//   varies from run to run, as the atomics' did.
+//   = dS K (K MN-major), 64 columns at a time; the f32 part goes to one of
+//   the warpgroup's shared buffers, and a reducer warp of the producer
+//   warpgroup adds it into dq_acc [b, h, s_pad, d] (a q tile's rows
+//   contiguous; 25 MB at the training shape, inside the 50 MB L2) with one
+//   cp.reduce.async.bulk .add.f32.
+// - dq in one fixed order (the TPU kernel keeps a q tile's dq resident over
+//   its sequential grid, one order; blocks here run in no order): the parts
+//   of one q tile come from the 64-key sub-tiles at or above the diagonal
+//   and are added in ascending sub-tile order. One int32 turn a (b, h, q
+//   tile), zeroed by the pre-pass: the reducer waits (acquire) until the
+//   turn equals its block's rank, adds its warpgroups' parts one after the
+//   other, each waited complete, and passes the turn (release). dq is then
+//   bitwise the same from run to run (hopper.cuh Turn; the deadlock
+//   argument is beside the reducer).
 // - Around the kernel: one pre-pass computes delta = rowsum(dO * O) with
 //   16-byte loads, pads lse (+inf past s, so rows past s get p = 0) and
-//   zeroes dq_acc; a finalize pass un-rotates and casts dq.
-// - The f32 instantiation, the split pair and the mask dump keep the first
-//   design below.
+//   zeroes dq_acc and the turns; a finalize pass un-rotates and casts dq.
 //
-// The first design, which the f32 forward, the f32 fused backward and the
-// split backward keep:
+// The bf16/fp16 split dk/dv kernel (flash_bwd_tma_kernel<..., DQ = false>,
+// replacing _bwd_dkv_kernel on the packed path) is the same kernel without
+// the dq products, their stage and the reducer, plus segments as the
+// forward has them: the block's tile list keeps the q tiles whose id
+// interval meets its 128 keys' (computed alike by producer and consumers
+// from the ids; a warpgroup also skips a listed tile that misses its own 64
+// keys), each thread loads its two keys' ids once, each q tile's ids arrive
+// with its ring stage (from a padded copy the pre-pass writes), and
+// segmented tiles test qseg == kseg element by element. It writes dk/dv in
+// T at group 1 (f32 partials under GQA) and leaves delta [b, h, s_pad] for
+// the split dq kernel. Its first design wrote f32 S and dP tiles to shared
+// memory, walked them one element a thread, loaded tiles synchronously and
+// always wrote f32 partials: 41x its bound.
+// - The f32 instantiations, the split dq kernel and the mask dump keep the
+//   first design below.
+//
+// The first design, which the f32 forward and backwards and the split dq
+// kernel keep:
 // - One thread block per (q tile, head, batch) in the f32 forward and in
 //   the split dq kernel, walking the causally needed k tiles in a loop (the
 //   TPU walks a sequential grid axis); one block per (k tile, head, batch)
@@ -112,10 +135,11 @@
 //   masked in the kernel, so every s runs here.
 // - The products dO V^T, P^T dO, dS^T Q and dS K (and the backwards'
 //   recomputed QK^T) run on the tensor cores through nvcuda::wmma 16x16x16
-//   bf16/fp16 fragments with f32 accumulators, operands staged in shared
-//   memory; f32 inputs take the same structure with the products on the
-//   CUDA cores (exact f32). Masking, dropout and the score gradients are
-//   scalar f32 code over the f32 score tile in shared memory.
+//   bf16/fp16 fragments with f32 accumulators (the split dq kernel),
+//   operands staged in shared memory; f32 inputs take the same structure
+//   with the products on the CUDA cores (exact f32). Masking, dropout and
+//   the score gradients are scalar f32 code over the f32 score tile in
+//   shared memory.
 // - RoPE as in flash.py:195-214: f32 rotation, 1/sqrt(d) folded into q,
 //   cast to the compute type. A prologue pass of the forward call rotates
 //   q and k once and writes them as the backward's residuals (flash.py:
@@ -141,8 +165,8 @@
 // - The TPU's fused kernel keeps the whole dq row resident across
 //   sequential grid steps (flash.py:698-747). Blocks here run in no order,
 //   so the f32 fused kernel adds its dq contribution into a zeroed f32
-//   buffer with atomicAdd and a small pass un-rotates and casts it (the
-//   summation order of dq changes from run to run). The split pair recomputes S and
+//   buffer in ascending k-tile order (a Turn a q tile, as the TMA kernel)
+//   and a small pass un-rotates and casts it. The split pair recomputes S and
 //   dP in each kernel (7 products a tile pair, not 5) but needs no atomics:
 //   the dq kernel owns its q tile, accumulates dq in registers over its
 //   k-tile walk, un-rotates and writes it once, deterministic. dk and dv
@@ -956,7 +980,15 @@ __global__ void __launch_bounds__(kFwdTmaThreads, 1)
   }
 }
 
-// delta[b, h, s] = rowsum(dO * O) in f32: one warp per (b, s, h) row.
+// The backwards' per-row f32 inputs (lse / delta) are padded to a multiple
+// of this many rows, the TMA backward's q tile.
+constexpr int kRowPad = 64;
+
+__host__ __device__ constexpr int pad_rows(int s) {
+  return (s + kRowPad - 1) / kRowPad * kRowPad;
+}
+
+// delta[b, h, s_pad] = rowsum(dO * O) in f32: one warp per (b, s, h) row.
 template <typename T, int D>
 __global__ void delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
                              float* __restrict__ delta, int b, int s, int h) {
@@ -973,7 +1005,7 @@ __global__ void delta_kernel(const T* __restrict__ o, const T* __restrict__ dout
     const size_t bs = rowi / h;
     const int row = static_cast<int>(bs % s);
     const int ib = static_cast<int>(bs / s);
-    delta[(static_cast<size_t>(ib) * h + ih) * s + row] = acc;
+    delta[(static_cast<size_t>(ib) * h + ih) * pad_rows(s) + row] = acc;
   }
 }
 
@@ -990,7 +1022,7 @@ struct BwdParams {
   const void* v;      // [b, s, kvh, D]
   const void* dout;   // [b, s, h, D]
   const float* lse;   // [b, h, s]
-  const float* delta; // [b, h, s]
+  const float* delta; // [b, h, s_pad], s_pad = s rounded up to kRowPad
   const float* cos;   // [s, D] or null
   const float* sin;   // [s, D] or null
   const int* seg;     // [b, s] segment ids or null
@@ -998,6 +1030,7 @@ struct BwdParams {
   void* dq;           // split dq kernel: [b, s, h, D] in T
   float* dk;          // [b, s, h, D] f32 per-query-head partials
   float* dv;          // [b, s, h, D] f32 per-query-head partials
+  int* turns;         // fused: zeroed int32 turns, one a (b, h, q tile)
   int b, s, h, kvh, causal, dropout;
   float scale, keep_prob;
   uint32_t seed, threshold;
@@ -1043,16 +1076,21 @@ __device__ __forceinline__ void load_rows(const BwdParams& p, float* lse_s,
                                           int q0) {
   for (int r = threadIdx.x; r < BQ; r += blockDim.x) {
     const int row = q0 + r;
-    const size_t off = (static_cast<size_t>(ib) * p.h + ih) * p.s + row;
-    lse_s[r] = row < p.s ? p.lse[off] : INFINITY;
-    dl_s[r] = row < p.s ? p.delta[off] : 0.f;
+    const size_t hb = static_cast<size_t>(ib) * p.h + ih;
+    lse_s[r] = row < p.s ? p.lse[hb * p.s + row] : INFINITY;
+    dl_s[r] = row < p.s ? p.delta[hb * pad_rows(p.s) + row] : 0.f;
   }
 }
 
 // One block per (k tile, head, batch), walking the q tiles at or below the
 // diagonal; dK and dV in registers. DQ: the fused backward, which also adds
-// each q tile's dQ part into dq_acc with atomics. Without DQ: the split
-// backward's dk/dv kernel (tpu_trainer/ops/flash.py::_bwd_dkv_kernel).
+// each q tile's dQ part into dq_acc, in ascending k-tile order (a Turn per
+// q tile: the blocks that reach q tile i are k tiles 0..i under causal
+// masking, all of them without, and k tile jk holds rank jk; a block waits
+// only on blocks of a lower blockIdx.x of its (head, batch), dispatched
+// before it). Without DQ: the split backward's dk/dv kernel
+// (tpu_trainer/ops/flash.py::_bwd_dkv_kernel). The f32 instantiations only
+// (the checking path); bf16/fp16 take flash_bwd_tma_kernel.
 template <typename T, int D, int BT, bool DQ>
 __global__ void __launch_bounds__(kBwdThreads) flash_bwd_kernel(BwdParams p) {
   constexpr int BQ = BT;
@@ -1130,16 +1168,21 @@ __global__ void __launch_bounds__(kBwdThreads) flash_bwd_kernel(BwdParams p) {
     if constexpr (DQ) {
       // dQ_part = dS K into the f32 region (S and dP are consumed).
       tile_mma<T, false, false, false>(ds_s, BK, k_s, D, dq_s, D, BQ, D, BK);
+      const hopper::Turn turn{p.turns + (static_cast<size_t>(ib) * h + ih) * nq + i};
+      if (tid == 0) turn.wait(jk);
       __syncthreads();
       for (int e = tid; e < BQ * D; e += blockDim.x) {
         const int r = e / D;
         const int c = e - r * D;
         const int row = q0 + r;
-        if (row < s)
-          atomicAdd(&p.dq_acc[((static_cast<size_t>(ib) * s + row) * h + ih) *
-                                  D + c],
-                    dq_s[e] * p.scale);
+        if (row < s) {
+          float* acc =
+              p.dq_acc + ((static_cast<size_t>(ib) * s + row) * h + ih) * D + c;
+          *acc += dq_s[e] * p.scale;
+        }
       }
+      __syncthreads();
+      if (tid == 0) turn.pass();
     }
   }
 
@@ -1313,26 +1356,31 @@ __global__ void dq_finalize_kernel(const float* __restrict__ acc,
   }
 }
 
-// -- the bf16/fp16 fused backward: TMA ring, wgmma, transposed scores --------
+// -- the bf16/fp16 backwards: TMA ring, wgmma, transposed scores ------------
 
 constexpr int kBwdBQ = 64;             // q rows a ring stage
 constexpr int kBwdBK = 128;            // keys a block: two warpgroups of 64
 constexpr int kBwdConsumers = 256;     // two consumer warpgroups
 constexpr int kBwdTmaThreads = kBwdConsumers + 128;  // + a producer warpgroup
 
-// The fused backward's pre-pass, one call: delta = rowsum(dO * O) in f32
-// into delta_pad [b, h, s_pad] (0 past s), lse * log2(e) into lse_pad [b,
-// h, s_pad] (+inf past s, so rows past s get p = 0), and dq_acc [b, h,
-// s_pad, D] zeroed. D / 8 threads a row, one 16-byte load of o and of do
+// The TMA backwards' pre-pass, one call: delta = rowsum(dO * O) in f32 into
+// delta_pad [b, h, s_pad] (0 past s), lse * log2(e) into lse_pad [b, h,
+// s_pad] (+inf past s, so rows past s get p = 0); for the split dk/dv
+// kernel with segments, the ids into seg_pad [b, s_pad] (-1 past s); for
+// the fused backward, dq_acc [b, h, s_pad, D] and the dq turns [b, h,
+// s_pad / 64] zeroed. D / 8 threads a row, one 16-byte load of o and of do
 // each.
 template <typename T, int D>
 __global__ void bwd_prep_kernel(const T* __restrict__ o,
                                 const T* __restrict__ dout,
                                 const float* __restrict__ lse,
+                                const int* __restrict__ seg,
                                 float* __restrict__ lse_pad,
                                 float* __restrict__ delta_pad,
-                                float* __restrict__ dq_acc, size_t rows,
-                                int s, int h, int s_pad) {
+                                int* __restrict__ seg_pad,
+                                float* __restrict__ dq_acc,
+                                int* __restrict__ turns, size_t rows, int s,
+                                int h, int s_pad) {
   constexpr int kPer = D / 8;
   const size_t t = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   const size_t row = t / kPer;  // [b, h, s_pad] order
@@ -1355,33 +1403,46 @@ __global__ void bwd_prep_kernel(const T* __restrict__ o,
   for (int x = kPer / 2; x > 0; x >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, x);
   if (!valid) return;
-  float4* z = reinterpret_cast<float4*>(dq_acc + row * D + c * 8);
-  z[0] = make_float4(0.f, 0.f, 0.f, 0.f);
-  z[1] = z[0];
-  if (c == 0) {
-    delta_pad[row] = acc;
-    lse_pad[row] = sp < s ? lse[bh * s + sp] * kLog2e : INFINITY;
+  if (dq_acc != nullptr) {
+    float4* z = reinterpret_cast<float4*>(dq_acc + row * D + c * 8);
+    z[0] = make_float4(0.f, 0.f, 0.f, 0.f);
+    z[1] = z[0];
+  }
+  if (c != 0) return;
+  delta_pad[row] = acc;
+  lse_pad[row] = sp < s ? lse[bh * s + sp] * kLog2e : INFINITY;
+  if (turns != nullptr && sp % kBwdBQ == 0) turns[row / kBwdBQ] = 0;
+  if (seg_pad != nullptr && bh % h == 0) {
+    const size_t ib = bh / h;
+    seg_pad[ib * s_pad + sp] = sp < s ? seg[ib * s + sp] : -1;
   }
 }
 
-// Shared memory of the fused backward at head dim D (tiles 1024-byte
-// aligned): the block's K and V tiles (D / 64 boxes of [128 keys][64] each),
-// a ring of Q and dO tiles (D / 64 boxes of [64 q][64] each), each
-// warpgroup's dS^T tile ([64 keys][64 q] in T, 128-byte swizzled rows) and
-// f32 dQ part ([64 q][D], the source of its bulk reduction), the ring's lse
-// and delta rows, and the mbarriers.
-template <int D>
+// Shared memory of the TMA backward at head dim D (tiles 1024-byte aligned):
+// the block's K and V tiles (D / 64 boxes of [128 keys][64] each), a ring of
+// Q and dO tiles (D / 64 boxes of [64 q][64] each); DQ (the fused backward):
+// each warpgroup's dS^T tile ([64 keys][64 q] in T, 128-byte swizzled rows);
+// each warpgroup's f32 [64 q][D] buffers (DQ: its dQ parts, the sources of
+// the ordered bulk reductions, two at D = 64; the dK/dV staging of the
+// epilogue in both kernels); the ring's lse, delta and segment-id rows; and
+// the mbarriers.
+template <int D, bool DQ>
 struct BwdTmaSmem {
   static constexpr int kStages = D == 128 ? 2 : 3;
+  static constexpr int kDqBufs = DQ && D == 64 ? 2 : 1;
   static constexpr int kKBytes = kBwdBK * D * 2;  // K tile; V the same
   static constexpr int kQBytes = kBwdBQ * D * 2;  // one Q or dO tile
   static constexpr int kRingOffset = 2 * kKBytes;
   static constexpr int kDsOffset = kRingOffset + kStages * 2 * kQBytes;
-  static constexpr int kDqOffset = kDsOffset + 2 * 64 * kBwdBQ * 2;
-  static constexpr int kRowsOffset = kDqOffset + 2 * kBwdBQ * D * 4;
-  static constexpr int kBarOffset = kRowsOffset + kStages * 2 * kBwdBQ * 4;
-  // kv barrier, then full[kStages], then empty[kStages]
-  static constexpr int kBytes = kBarOffset + 8 * (1 + 2 * kStages) + 1024;
+  static constexpr int kDqOffset = kDsOffset + (DQ ? 2 * 64 * kBwdBQ * 2 : 0);
+  static constexpr int kDqBytes = kBwdBQ * D * 4;  // one f32 [64, D] buffer
+  static constexpr int kRowsOffset = kDqOffset + 2 * kDqBufs * kDqBytes;
+  static constexpr int kRowBytes = 3 * kBwdBQ * 4;  // lse, delta, ids
+  static constexpr int kBarOffset = kRowsOffset + kStages * kRowBytes;
+  // kv barrier, full[kStages], empty[kStages], dq_full[2][kDqBufs],
+  // dq_empty[2][kDqBufs]
+  static constexpr int kBytes =
+      kBarOffset + 8 * (1 + 2 * kStages + 4 * kDqBufs) + 1024;
   static constexpr uint32_t kStageTx = 2 * kQBytes + 2 * kBwdBQ * 4;
 };
 
@@ -1391,21 +1452,27 @@ struct BwdTmaParams {
   CUtensorMap k;   // ks [b, s, kvh, D]: boxes {64, 1, 128, 1}
   CUtensorMap v;   // v [b, s, kvh, D]: the same boxes
   BwdParams f;     // lse / delta: the pre-pass's lse_pad / delta_pad;
-                   // dq_acc [b, h, s_pad, D]; dk / dv in T [b, s, kvh, D]
-                   // at group 1, else f32 [b, s, h, D] partials
+                   // DQ: dq_acc [b, h, s_pad, D] and turns [b, h, s_pad /
+                   // 64]; dk / dv in T [b, s, kvh, D] at group 1, else f32
+                   // [b, s, h, D] partials; seg: [b, s] ids or null
+  const int* seg_pad;  // the pre-pass's [b, s_pad] ids (with f.seg)
   int s_pad;
 };
 
 // One block per (128-key tile, head, batch), k tiles with the most causal
 // work first (blockIdx.y = 0 is the first k tile). Warps 0-7 are two
 // consumer warpgroups, each owning 64 keys with dK and dV in registers over
-// the whole q walk; warpgroup 2 is the producer (one thread issues).
-template <typename T, int D>
+// the whole q walk; warpgroup 2 is the producer: warp 8 loads, and under DQ
+// warp 9 adds the dQ parts into dq_acc in their fixed order. DQ: the fused
+// backward (dq, dk, dv; no segments). Without DQ: the split backward's
+// dk/dv kernel (tpu_trainer/ops/flash.py::_bwd_dkv_kernel), with segments.
+template <typename T, int D, bool DQ>
 __global__ void __launch_bounds__(kBwdTmaThreads, 1)
     flash_bwd_tma_kernel(const __grid_constant__ BwdTmaParams p) {
   using namespace hopper;
-  using L = BwdTmaSmem<D>;
+  using L = BwdTmaSmem<D, DQ>;
   constexpr int S = L::kStages;
+  constexpr int NB = L::kDqBufs;
   constexpr int BQ = kBwdBQ;
   const BwdParams& f = p.f;
   const int s = f.s, h = f.h;
@@ -1418,6 +1485,9 @@ __global__ void __launch_bounds__(kBwdTmaThreads, 1)
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
+  const int* seg = (DQ || f.seg == nullptr)
+                       ? nullptr
+                       : f.seg + static_cast<size_t>(ib) * s;
 
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
@@ -1429,11 +1499,23 @@ __global__ void __launch_bounds__(kBwdTmaThreads, 1)
   const uint32_t kv_bar = bars;
   auto full = [&](int st) { return bars + 8 * (1 + st); };
   auto empty = [&](int st) { return bars + 8 * (1 + S + st); };
+  auto dq_full = [&](int wg, int bf) {
+    return bars + 8 * (1 + 2 * S + wg * NB + bf);
+  };
+  auto dq_empty = [&](int wg, int bf) {
+    return bars + 8 * (1 + 2 * S + 2 * NB + wg * NB + bf);
+  };
   auto q_tile = [&](int st) { return ring + st * 2 * L::kQBytes; };
   auto do_tile = [&](int st) { return q_tile(st) + L::kQBytes; };
-  // lse then delta of stage st's q tile.
+  // Warpgroup wg's f32 buffer bf.
+  auto dq_buf = [&](int wg, int bf) {
+    return reinterpret_cast<float*>(base + L::kDqOffset +
+                                    (wg * NB + bf) * L::kDqBytes);
+  };
+  // lse, then delta, then (as int) the segment ids of stage st's q tile.
   auto rows = [&](int st) {
-    return reinterpret_cast<float*>(base + L::kRowsOffset) + st * 2 * BQ;
+    return reinterpret_cast<float*>(base + L::kRowsOffset +
+                                    st * L::kRowBytes);
   };
 
   if (tid == 0) {
@@ -1442,35 +1524,103 @@ __global__ void __launch_bounds__(kBwdTmaThreads, 1)
       mbar_init(full(st), 1);
       mbar_init(empty(st), kBwdConsumers / 32);
     }
+    for (int wg = 0; wg < 2; ++wg)
+      for (int bf = 0; bf < NB; ++bf) {
+        mbar_init(dq_full(wg, bf), 4);
+        mbar_init(dq_empty(wg, bf), 1);
+      }
     fence_barrier_init();
   }
   __syncthreads();
 
+  // Segments: the block walks the q tiles whose id interval meets its
+  // keys' (flash.py::_seg_predicates' interval test). Each warp evaluates it
+  // alike, so producer and consumers walk one list (a mismatch hangs).
+  const int2 kr =
+      seg != nullptr ? seg_range_g(seg, k0, kBwdBK, s) : make_int2(0, 0);
+  auto tile_needed = [&](int i, int2* qr) {
+    if (seg == nullptr) return true;
+    *qr = seg_range_g(seg, i * BQ, BQ, s);
+    return qr->x <= kr.y && kr.x <= qr->y;
+  };
+  // The first q tile each warpgroup computes: under causal masking the one
+  // holding its first key's row; none when its keys start past s.
+  auto first_tile = [&](int wg) {
+    const int kw0 = k0 + 64 * wg;
+    return kw0 >= s ? nq : (f.causal ? kw0 / BQ : 0);
+  };
+
   if (warp >= kBwdConsumers / 32) {
-    // Producer: K and V once, then Q, dO, lse and delta of each q tile the
-    // block walks (the same list as the consumers) through the ring.
     regs_dealloc<24>();
-    if (warp == kBwdConsumers / 32 && lane == 0) {
-      mbar_expect_tx(kv_bar, 2 * L::kKBytes);
-      for (int c = 0; c < D / 64; ++c) {
-        tma_load_4d(k_s + c * kBwdBK * 128, &p.k, kv_bar, c * 64, ikv, k0, ib);
-        tma_load_4d(v_s + c * kBwdBK * 128, &p.v, kv_bar, c * 64, ikv, k0, ib);
+    if (warp == kBwdConsumers / 32) {
+      // Producer: K and V once, then Q, dO, lse, delta (and the ids) of
+      // each q tile the block walks through the ring.
+      if (lane == 0) {
+        mbar_expect_tx(kv_bar, 2 * L::kKBytes);
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load_4d(k_s + c * kBwdBK * 128, &p.k, kv_bar, c * 64, ikv, k0,
+                      ib);
+          tma_load_4d(v_s + c * kBwdBK * 128, &p.v, kv_bar, c * 64, ikv, k0,
+                      ib);
+        }
       }
       const size_t rbase = (static_cast<size_t>(ib) * h + ih) * p.s_pad;
-      for (int i = i0, n = 0; i < nq; ++i, ++n) {
+      const uint32_t tx = L::kStageTx + (seg != nullptr ? BQ * 4 : 0);
+      int n = 0;
+      for (int i = i0; i < nq; ++i) {
+        int2 qr;
+        if (!tile_needed(i, &qr)) continue;
         const int st = n % S;
-        mbar_wait(empty(st), ((n / S) & 1) ^ 1);
-        mbar_expect_tx(full(st), L::kStageTx);
-        for (int c = 0; c < D / 64; ++c) {
-          tma_load_4d(q_tile(st) + c * BQ * 128, &p.q, full(st), c * 64, ih,
-                      i * BQ, ib);
-          tma_load_4d(do_tile(st) + c * BQ * 128, &p.d, full(st), c * 64, ih,
-                      i * BQ, ib);
+        if (lane == 0) {
+          mbar_wait(empty(st), ((n / S) & 1) ^ 1);
+          mbar_expect_tx(full(st), tx);
+          for (int c = 0; c < D / 64; ++c) {
+            tma_load_4d(q_tile(st) + c * BQ * 128, &p.q, full(st), c * 64,
+                        ih, i * BQ, ib);
+            tma_load_4d(do_tile(st) + c * BQ * 128, &p.d, full(st), c * 64,
+                        ih, i * BQ, ib);
+          }
+          bulk_load(smem_u32(rows(st)), f.lse + rbase + i * BQ, BQ * 4,
+                    full(st));
+          bulk_load(smem_u32(rows(st) + BQ), f.delta + rbase + i * BQ,
+                    BQ * 4, full(st));
+          if (seg != nullptr)
+            bulk_load(smem_u32(rows(st) + 2 * BQ),
+                      p.seg_pad + static_cast<size_t>(ib) * p.s_pad + i * BQ,
+                      BQ * 4, full(st));
         }
-        bulk_load(smem_u32(rows(st)), f.lse + rbase + i * BQ, BQ * 4,
-                  full(st));
-        bulk_load(smem_u32(rows(st) + BQ), f.delta + rbase + i * BQ, BQ * 4,
-                  full(st));
+        __syncwarp();
+        ++n;
+      }
+    } else if (DQ && warp == kBwdConsumers / 32 + 1 && lane == 0) {
+      // The dQ reducer. Q tile i receives the parts of the 64-key
+      // sub-tiles at or above the causal diagonal (all of them without
+      // causal masking): sub-tiles 0..i, of blocks 0..i / 2. They are added
+      // in ascending sub-tile order, whatever the timing: this block holds
+      // rank blockIdx.y among the blocks that reach tile i (blocks y <=
+      // i / 2 under causal masking, all of them without), waits on tile
+      // i's turn until the blocks before it have added their parts, adds
+      // its warpgroups' parts in order (each waited complete), and passes
+      // the turn. No deadlock: a block waits only on blocks of a lower
+      // blockIdx.y of the same (head, batch), which the grid's order
+      // (blockIdx.x fastest) dispatched before it, and those wait only on
+      // blocks before them; block 0 waits on none.
+      const int first0 = first_tile(0), first1 = first_tile(1);
+      const size_t hb = static_cast<size_t>(ib) * h + ih;
+      for (int i = first0; i < nq; ++i) {
+        const Turn turn{f.turns + hb * (p.s_pad / BQ) + i};
+        turn.wait(static_cast<int>(blockIdx.y));
+        for (int wg = 0; wg < 2; ++wg) {
+          const int m = i - (wg == 0 ? first0 : first1);
+          if (m < 0) continue;
+          mbar_wait(dq_full(wg, m % NB), (m / NB) & 1);
+          bulk_reduce_add_f32(f.dq_acc + (hb * p.s_pad + i * BQ) * D,
+                              smem_u32(dq_buf(wg, m % NB)), BQ * D * 4);
+          bulk_commit();
+          bulk_wait();
+          mbar_arrive(dq_empty(wg, m % NB));
+        }
+        turn.pass();
       }
     }
   } else {
@@ -1485,7 +1635,6 @@ __global__ void __launch_bounds__(kBwdTmaThreads, 1)
     const int ra = 16 * (warp & 3) + g8;  // key_a - kw0; also a q row of dQ
     const int key_a = kw0 + ra;
     const int key_b = key_a + 8;
-    const bool issuer = (tid & 127) == 0;
     const float inv_keep = 1.f / f.keep_prob;
     const uint32_t hkey = dropout_hash::stream_key(
         f.seed, static_cast<uint32_t>(ib * h + ih));
@@ -1493,23 +1642,30 @@ __global__ void __launch_bounds__(kBwdTmaThreads, 1)
     const uint32_t kw_s = k_s + wg * 64 * 128;  // this warpgroup's K rows
     const uint32_t vw_s = v_s + wg * 64 * 128;
     const uint32_t ds_s = smem_u32(base + L::kDsOffset) + wg * 64 * BQ * 2;
-    float* dq_s =
-        reinterpret_cast<float*>(base + L::kDqOffset) + wg * BQ * D;
-    // The warpgroup computes the q tiles [ifirst, nq): under causal masking
-    // those with a row at or below its first key. It still takes its turn
-    // in freeing the ring stages of the tiles before.
-    const int ifirst = kw0 >= s ? nq : (f.causal ? kw0 / BQ : 0);
+    // The warpgroup computes the q tiles [ifirst, nq) of the block's list;
+    // with segments only those whose ids meet its own 64 keys'. It still
+    // takes its turn in freeing the ring stages of the others.
+    const int ifirst = first_tile(wg);
+    const int2 wr =
+        seg != nullptr ? seg_range_g(seg, kw0, 64, s) : make_int2(0, 0);
+    const int kseg_a = seg != nullptr && key_a < s ? __ldg(seg + key_a) : -2;
+    const int kseg_b = seg != nullptr && key_b < s ? __ldg(seg + key_b) : -2;
 
     float dk[D / 2], dv[D / 2];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
     mbar_wait(kv_bar, 0);
 
+    int n = 0, m = 0;  // ring stages walked; dQ parts written
     for (int i = i0; i < nq; ++i) {
-      const int st = (i - i0) % S;
+      int2 qr;
+      if (!tile_needed(i, &qr)) continue;
+      const int st = n % S;
       const int q0 = i * BQ;
-      mbar_wait(full(st), ((i - i0) / S) & 1);
-      if (i < ifirst) {
+      mbar_wait(full(st), (n / S) & 1);
+      ++n;
+      if (i < ifirst ||
+          (seg != nullptr && !(qr.x <= wr.y && wr.x <= qr.y))) {
         __syncwarp();
         if (lane == 0) mbar_arrive(empty(st));
         continue;
@@ -1536,25 +1692,37 @@ __global__ void __launch_bounds__(kBwdTmaThreads, 1)
       fence_regs(dp);
 
       // P^T = exp(S^T - lse) and dS^T = P^T (dP'^T - delta), with lse (in
-      // log2 units) and delta broadcast along the columns (q) and the masks
-      // and the dropout hash at (row = q, col = key). Only the diagonal
-      // tile and the ragged key edge need the element masks (q rows past s
-      // have lse = +inf, so p = 0 there).
+      // log2 units), delta and the q ids broadcast along the columns (q)
+      // and the masks and the dropout hash at (row = q, col = key). Only
+      // the diagonal tile, the ragged key edge and segmented tiles need the
+      // element masks (q rows past s have lse = +inf, so p = 0 there). A
+      // masked element gets p = 0, what the reference's masked score
+      // (-inf, or _SEG_MASK = -1e30 with segments) gives.
       const float* lse_r = rows(st);
       const float* dl_r = lse_r + BQ;
-      const bool edge = kw0 + 63 >= s || (f.causal && q0 < kw0 + 63);
+      const int* qseg_r = reinterpret_cast<const int*>(lse_r + 2 * BQ);
+      const bool edge = seg != nullptr || kw0 + 63 >= s ||
+                        (f.causal && q0 < kw0 + 63);
 #pragma unroll
       for (int jj = 0; jj < 8; ++jj) {
         const int c = 8 * jj + 2 * t4;
         const float2 lz = *reinterpret_cast<const float2*>(lse_r + c);
         const float2 dz = *reinterpret_cast<const float2*>(dl_r + c);
+        const int2 qz = seg != nullptr
+                            ? *reinterpret_cast<const int2*>(qseg_r + c)
+                            : make_int2(0, 0);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int key = e < 2 ? key_a : key_b;
           const int q = q0 + c + (e & 1);
           float pv = fast_exp2(
               fmaf(sc[4 * jj + e], kLog2e, -((e & 1) ? lz.y : lz.x)));
-          if (edge && !(key < s && (!f.causal || q >= key))) pv = 0.f;
+          if (edge) {
+            bool ok = key < s && (!f.causal || q >= key);
+            if (seg != nullptr)
+              ok = ok && ((e & 1) ? qz.y : qz.x) == (e < 2 ? kseg_a : kseg_b);
+            if (!ok) pv = 0.f;
+          }
           float dpv = dp[4 * jj + e];
           float pdv = pv;
           if (f.dropout) {
@@ -1569,7 +1737,7 @@ __global__ void __launch_bounds__(kBwdTmaThreads, 1)
         }
       }
       // P_drop^T and dS^T rounded to T as register A operands (k16 step kk
-      // covers q columns 16 kk ..); dS^T also into shared memory, the A
+      // covers q columns 16 kk ..); DQ: dS^T also into shared memory, the A
       // operand (MN-major, q consecutive) of dQ = dS K.
       uint32_t pa[4][4], da[4][4];
 #pragma unroll
@@ -1578,20 +1746,25 @@ __global__ void __launch_bounds__(kBwdTmaThreads, 1)
         for (int r = 0; r < 4; ++r) {
           pa[kk][r] = pack2(et, sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
           da[kk][r] = pack2(et, dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1]);
-          // register r holds row ra (+ 8 for odd r), n8 block 2 kk + r / 2
-          const int row = ra + 8 * (r & 1);
-          const int chunk = (2 * kk + (r >> 1)) ^ g8;
-          asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(
-                           ds_s + row * 128 + chunk * 16 + 4 * t4),
-                       "r"(da[kk][r])
-                       : "memory");
+          if constexpr (DQ) {
+            // register r holds row ra (+ 8 for odd r), n8 block 2 kk + r / 2
+            const int row = ra + 8 * (r & 1);
+            const int chunk = (2 * kk + (r >> 1)) ^ g8;
+            asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(
+                             ds_s + row * 128 + chunk * 16 + 4 * t4),
+                         "r"(da[kk][r])
+                         : "memory");
+          }
         }
-      fence_proxy_async();
-      if (issuer) bulk_wait_read();  // the last dQ reduction left dq_s
-      named_barrier(1 + wg, 128);
+      if constexpr (DQ) {
+        fence_proxy_async();
+        named_barrier(1 + wg, 128);
+      }
 
-      // dV += P_drop^T dO and dK += dS^T Q (dO, Q MN-major), then dQ_part
-      // = dS K in 64-column chunks (dS^T and K both MN-major).
+      // dV += P_drop^T dO and dK += dS^T Q (dO, Q MN-major); DQ: then
+      // dQ_part = dS K in 64-column chunks (dS^T and K both MN-major) into
+      // one of the warpgroup's dQ buffers, which the reducer adds into
+      // dq_acc in order.
       fence_regs(dv);
       fence_regs(dk);
       fence_regs(pa);
@@ -1607,55 +1780,61 @@ __global__ void __launch_bounds__(kBwdTmaThreads, 1)
                     1);
       }
       wgmma_commit();
+      if constexpr (DQ) {
+        float* dq_s = dq_buf(wg, m % NB);
+        mbar_wait(dq_empty(wg, m % NB), ((m / NB) & 1) ^ 1);
 #pragma unroll
-      for (int ch = 0; ch < D / 64; ++ch) {
-        float dq[32];
+        for (int ch = 0; ch < D / 64; ++ch) {
+          float dq[32];
 #pragma unroll
-        for (int x = 0; x < 32; ++x) dq[x] = 0.f;
-        fence_regs(dq);
-        wgmma_fence();
+          for (int x = 0; x < 32; ++x) dq[x] = 0.f;
+          fence_regs(dq);
+          wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          wgmma_ss<1, 1>(
-              Shape<64>{}, et, dq,
-              desc_sw128(ds_s + kk * 16 * 128, 64 * 128, 1024),
-              desc_sw128(kw_s + ch * kBwdBK * 128 + kk * 16 * 128,
-                         kBwdBK * 128, 1024),
-              kk > 0 ? 1 : 0);
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(dq);
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_ss<1, 1>(
+                Shape<64>{}, et, dq,
+                desc_sw128(ds_s + kk * 16 * 128, 64 * 128, 1024),
+                desc_sw128(kw_s + ch * kBwdBK * 128 + kk * 16 * 128,
+                           kBwdBK * 128, 1024),
+                kk > 0 ? 1 : 0);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(dq);
 #pragma unroll
-        for (int jj = 0; jj < 8; ++jj) {
-          const int col = 64 * ch + 8 * jj + 2 * t4;
-          *reinterpret_cast<float2*>(dq_s + ra * D + col) =
-              make_float2(dq[4 * jj] * f.scale, dq[4 * jj + 1] * f.scale);
-          *reinterpret_cast<float2*>(dq_s + (ra + 8) * D + col) =
-              make_float2(dq[4 * jj + 2] * f.scale, dq[4 * jj + 3] * f.scale);
+          for (int jj = 0; jj < 8; ++jj) {
+            const int col = 64 * ch + 8 * jj + 2 * t4;
+            *reinterpret_cast<float2*>(dq_s + ra * D + col) =
+                make_float2(dq[4 * jj] * f.scale, dq[4 * jj + 1] * f.scale);
+            *reinterpret_cast<float2*>(dq_s + (ra + 8) * D + col) =
+                make_float2(dq[4 * jj + 2] * f.scale,
+                            dq[4 * jj + 3] * f.scale);
+          }
         }
+        // The part is complete once each warp's writes are: one arrival a
+        // warp, after the fence that orders them before the bulk read.
+        fence_proxy_async();
+        __syncwarp();
+        if (lane == 0) mbar_arrive(dq_full(wg, m % NB));
+        ++m;
+      } else {
+        wgmma_wait<0>();
       }
       fence_regs(dv);
       fence_regs(dk);
-      // One bulk f32 reduction of the [64, D] part into dq_acc's rows.
-      fence_proxy_async();
-      named_barrier(1 + wg, 128);
-      if (issuer) {
-        bulk_reduce_add_f32(
-            f.dq_acc +
-                ((static_cast<size_t>(ib) * h + ih) * p.s_pad + q0) * D,
-            smem_u32(dq_s), BQ * D * 4);
-        bulk_commit();
-      }
       __syncwarp();
       if (lane == 0) mbar_arrive(empty(st));
     }
-    // Epilogue, through this warpgroup's f32 staging tile (its last dQ
-    // reduction has read it): dK, then dV, row by row into shared memory,
-    // then out with 16-byte reads, each thread taking columns [c, c + 4)
-    // of a key row and their rotation partners c + D/2 (dK un-rotated as
-    // unrope_elem rounds it; dV / (1 - rate)). T at group 1, else f32
-    // per-query-head partials.
-    if (issuer) bulk_wait();
+    // Epilogue, through this warpgroup's first f32 buffer (DQ: once the
+    // reducer has added its last part, and with it every earlier one): dK,
+    // then dV, row by row into shared memory, then out with 16-byte reads,
+    // each thread taking columns [c, c + 4) of a key row and their rotation
+    // partners c + D/2 (dK un-rotated as unrope_elem rounds it; dV / (1 -
+    // rate)). T at group 1, else f32 per-query-head partials.
+    if constexpr (DQ) {
+      if (m > 0) mbar_wait(dq_empty(wg, (m - 1) % NB), ((m - 1) / NB) & 1);
+    }
+    float* stage = dq_buf(wg, 0);
     const bool rope = f.cos != nullptr;
     const bool direct = h == f.kvh;
     auto stage_rows = [&](const float (&acc)[D / 2]) {
@@ -1663,9 +1842,9 @@ __global__ void __launch_bounds__(kBwdTmaThreads, 1)
 #pragma unroll
       for (int jj = 0; jj < D / 8; ++jj) {
         const int col = 8 * jj + 2 * t4;
-        *reinterpret_cast<float2*>(dq_s + ra * D + col) =
+        *reinterpret_cast<float2*>(stage + ra * D + col) =
             make_float2(acc[4 * jj], acc[4 * jj + 1]);
-        *reinterpret_cast<float2*>(dq_s + (ra + 8) * D + col) =
+        *reinterpret_cast<float2*>(stage + (ra + 8) * D + col) =
             make_float2(acc[4 * jj + 2], acc[4 * jj + 3]);
       }
       named_barrier(1 + wg, 128);
@@ -1682,9 +1861,9 @@ __global__ void __launch_bounds__(kBwdTmaThreads, 1)
         const int c = (w % (D / 8)) * 4;
         const int key = kw0 + r;
         if (key >= s) continue;
-        const float4 lo = *reinterpret_cast<const float4*>(dq_s + r * D + c);
+        const float4 lo = *reinterpret_cast<const float4*>(stage + r * D + c);
         const float4 hi =
-            *reinterpret_cast<const float4*>(dq_s + r * D + c + D / 2);
+            *reinterpret_cast<const float4*>(stage + r * D + c + D / 2);
         float va[4] = {lo.x, lo.y, lo.z, lo.w};
         float vb[4] = {hi.x, hi.y, hi.z, hi.w};
         if (which == 0 && rope) {
@@ -1871,8 +2050,8 @@ cudaError_t launch_dq_finalize(const BwdParams& p, int s_pad,
   return cudaGetLastError();
 }
 
-// The first design's fused backward (DQ; the f32 checking path) or the
-// split dk/dv kernel, after delta.
+// The first design's fused backward (DQ) or split dk/dv kernel, the f32
+// checking path, after delta.
 template <typename T, int D, bool DQ>
 cudaError_t launch_kv(const BwdParams& p, const void* o, float* delta,
                       cudaStream_t stream) {
@@ -1884,6 +2063,11 @@ cudaError_t launch_kv(const BwdParams& p, const void* o, float* delta,
                           static_cast<size_t>(p.b) * p.s * p.h * D *
                               sizeof(float),
                           stream);
+    if (err == cudaSuccess)
+      err = cudaMemsetAsync(p.turns, 0,
+                            static_cast<size_t>(p.b) * p.h *
+                                ((p.s + B - 1) / B) * sizeof(int),
+                            stream);
     if (err != cudaSuccess) return err;
   }
   const size_t smem = bwd_smem<T, D>();
@@ -1902,22 +2086,26 @@ cudaError_t launch_kv(const BwdParams& p, const void* o, float* delta,
   return err;
 }
 
-// The bf16/fp16 fused backward: the pre-pass, flash_bwd_tma_kernel and the
-// finalize. scratch: delta_pad then lse_pad, [b, h, s_pad] f32 each;
-// p.dq_acc [b, h, s_pad, D] f32.
-template <typename T, int D>
+// The bf16/fp16 backwards: the pre-pass, flash_bwd_tma_kernel<DQ> and (DQ)
+// the finalize. scratch: delta_pad then lse_pad, [b, h, s_pad] f32 each,
+// then (with segments) seg_pad [b, s_pad] int32; DQ: p.dq_acc [b, h, s_pad,
+// D] f32 and p.turns [b, h, s_pad / 64] int32.
+template <typename T, int D, bool DQ>
 cudaError_t launch_bwd_tma(const BwdParams& p, const void* o, float* scratch,
                            cudaStream_t stream) {
-  using L = BwdTmaSmem<D>;
-  const int s_pad = (p.s + kBwdBQ - 1) / kBwdBQ * kBwdBQ;
+  using L = BwdTmaSmem<D, DQ>;
+  const int s_pad = pad_rows(p.s);
   const size_t rows = static_cast<size_t>(p.b) * p.h * s_pad;
   float* delta_pad = scratch;
   float* lse_pad = scratch + rows;
+  int* seg_pad =
+      p.seg != nullptr ? reinterpret_cast<int*>(scratch + 2 * rows) : nullptr;
   const size_t threads = rows * (D / 8);
   bwd_prep_kernel<T, D><<<static_cast<unsigned>((threads + 255) / 256), 256,
                           0, stream>>>(
-      static_cast<const T*>(o), static_cast<const T*>(p.dout), p.lse, lse_pad,
-      delta_pad, p.dq_acc, rows, p.s, p.h, s_pad);
+      static_cast<const T*>(o), static_cast<const T*>(p.dout), p.lse, p.seg,
+      lse_pad, delta_pad, seg_pad, DQ ? p.dq_acc : nullptr,
+      DQ ? p.turns : nullptr, rows, p.s, p.h, s_pad);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
@@ -1925,6 +2113,7 @@ cudaError_t launch_bwd_tma(const BwdParams& p, const void* o, float* scratch,
   a.f = p;
   a.f.lse = lse_pad;
   a.f.delta = delta_pad;
+  a.seg_pad = seg_pad;
   a.s_pad = s_pad;
   const bool fp16 = std::is_same<T, __half>::value;
   const cuuint64_t e = sizeof(T);
@@ -1948,13 +2137,13 @@ cudaError_t launch_bwd_tma(const BwdParams& p, const void* o, float* scratch,
   if (err == cudaSuccess)
     err = hopper_host::make_map(&a.v, fp16, 4, p.v, dk, sk, box_k);
   if (err != cudaSuccess) return err;
-  auto kernel = flash_bwd_tma_kernel<T, D>;
+  auto kernel = flash_bwd_tma_kernel<T, D, DQ>;
   err = allow_smem(kernel, L::kBytes);
   if (err != cudaSuccess) return err;
   dim3 grid(p.h * p.b, (p.s + kBwdBK - 1) / kBwdBK);
   kernel<<<grid, kBwdTmaThreads, L::kBytes, stream>>>(a);
   err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  if (err != cudaSuccess || !DQ) return err;
   return launch_dq_finalize<T, D, true>(p, s_pad, stream);
 }
 
@@ -2030,15 +2219,26 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
   }));
 }
 
+// Length in int32 of the fused backward's `turns` scratch: one a (b, h, q
+// tile) of the kernel that `dtype` selects.
+extern "C" long long flash_attn_bwd_turns(int b, int s, int h, int dtype) {
+  constexpr int kF32Tile = tile_of<float>();
+  const int tiles =
+      dtype == 0 ? (s + kF32Tile - 1) / kF32Tile : pad_rows(s) / kBwdBQ;
+  return static_cast<long long>(b) * h * tiles;
+}
+
 // The fused backward. qs / ks / v / o / dout in `dtype`; lse [b, h, s] f32;
 // dq [b, s, h, d] in dtype. Scratch, with s_pad = s rounded up to 64:
-// delta 2 * b * h * s_pad f32, dq_acc b * h * s_pad * d f32. dk / dv: f32
-// [b, s, h, d] per-query-head partials, except for bf16/fp16 at h == kvh,
-// where they are dk / dv themselves, [b, s, kvh, d] in dtype.
+// delta 2 * b * h * s_pad f32, dq_acc b * h * s_pad * d f32, turns of
+// flash_attn_bwd_turns int32. dk / dv: f32 [b, s, h, d] per-query-head partials,
+// except for bf16/fp16 at h == kvh, where they are dk / dv themselves, [b,
+// s, kvh, d] in dtype. dq, dk and dv are bitwise the same from run to run.
 extern "C" int flash_attn_bwd(const void* qs, const void* ks, const void* v,
                               const void* o, const void* dout, const void* lse,
                               const void* cos, const void* sin, void* delta,
-                              void* dq_acc, void* dq, void* dk, void* dv, int b,
+                              void* dq_acc, void* turns, void* dq, void* dk,
+                              void* dv, int b,
                               int s, int h, int kvh, int d, int dtype,
                               int causal, float scale, uint32_t seed,
                               uint32_t threshold, float keep_prob, int dropout,
@@ -2048,8 +2248,9 @@ extern "C" int flash_attn_bwd(const void* qs, const void* ks, const void* v,
   BwdParams p{qs, ks, v, dout, static_cast<const float*>(lse), nullptr,
               static_cast<const float*>(cos), static_cast<const float*>(sin),
               nullptr, static_cast<float*>(dq_acc), dq,
-              static_cast<float*>(dk), static_cast<float*>(dv), b, s, h, kvh,
-              causal, dropout, scale, keep_prob, seed, threshold};
+              static_cast<float*>(dk), static_cast<float*>(dv),
+              static_cast<int*>(turns), b, s, h, kvh, causal, dropout, scale,
+              keep_prob, seed, threshold};
   float* dl = static_cast<float*>(delta);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(dispatch(dtype, d, [&](auto t, auto dd) {
@@ -2058,14 +2259,15 @@ extern "C" int flash_attn_bwd(const void* qs, const void* ks, const void* v,
     if constexpr (std::is_same<T, float>::value) {
       return launch_kv<T, D, true>(p, o, dl, st);
     } else {
-      return launch_bwd_tma<T, D>(p, o, dl, st);
+      return launch_bwd_tma<T, D, true>(p, o, dl, st);
     }
   }));
 }
 
-// The split backward's first half: delta (written to `delta`, which the dq
-// half reads) and the dk/dv kernel. seg: int32 [b, s] or null. dk / dv
-// [b, s, h, d] f32 per-query-head partials.
+// The split backward's first half: delta and the dk/dv kernel. seg: int32
+// [b, s] or null. `delta`: scratch of 2 * b * h * s_pad + b * s_pad floats
+// (s_pad = s rounded up to 64), whose first b * h * s_pad hold delta [b, h,
+// s_pad] for the dq half. dk / dv: as flash_attn_bwd's.
 extern "C" int flash_attn_bwd_dkv(const void* qs, const void* ks,
                                   const void* v, const void* o,
                                   const void* dout, const void* lse,
@@ -2081,18 +2283,23 @@ extern "C" int flash_attn_bwd_dkv(const void* qs, const void* ks,
   BwdParams p{qs, ks, v, dout, static_cast<const float*>(lse), nullptr,
               static_cast<const float*>(cos), static_cast<const float*>(sin),
               static_cast<const int*>(seg), nullptr, nullptr,
-              static_cast<float*>(dk), static_cast<float*>(dv), b, s, h, kvh,
-              causal, dropout, scale, keep_prob, seed, threshold};
+              static_cast<float*>(dk), static_cast<float*>(dv), nullptr, b, s,
+              h, kvh, causal, dropout, scale, keep_prob, seed, threshold};
   float* dl = static_cast<float*>(delta);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(dispatch(dtype, d, [&](auto t, auto dd) {
-    return launch_kv<typename decltype(t)::type, decltype(dd)::value, false>(
-        p, o, dl, st);
+    using T = typename decltype(t)::type;
+    constexpr int D = decltype(dd)::value;
+    if constexpr (std::is_same<T, float>::value) {
+      return launch_kv<T, D, false>(p, o, dl, st);
+    } else {
+      return launch_bwd_tma<T, D, false>(p, o, dl, st);
+    }
   }));
 }
 
 // The split backward's second half: dq [b, s, h, d] in dtype from the
-// residuals and the delta of flash_attn_bwd_dkv.
+// residuals and the delta [b, h, s_pad] of flash_attn_bwd_dkv.
 extern "C" int flash_attn_bwd_dq(const void* qs, const void* ks,
                                  const void* v, const void* dout,
                                  const void* lse, const void* delta,
@@ -2107,8 +2314,9 @@ extern "C" int flash_attn_bwd_dq(const void* qs, const void* ks,
   BwdParams p{qs, ks, v, dout, static_cast<const float*>(lse),
               static_cast<const float*>(delta),
               static_cast<const float*>(cos), static_cast<const float*>(sin),
-              static_cast<const int*>(seg), nullptr, dq, nullptr, nullptr, b,
-              s, h, kvh, causal, dropout, scale, keep_prob, seed, threshold};
+              static_cast<const int*>(seg), nullptr, dq, nullptr, nullptr,
+              nullptr, b, s, h, kvh, causal, dropout, scale, keep_prob, seed,
+              threshold};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(dispatch(dtype, d, [&](auto t, auto dd) {
     return launch_dq<typename decltype(t)::type, decltype(dd)::value>(p, st);

@@ -49,10 +49,32 @@
 //   rows: at most E - 1 extra tile products a column of tiles. A
 //   warpgroup whose 64 rows hold none of the group skips the products.
 //   Rows past offsets[E] are written as zeros.
-// - The f32 gmm (gmm_f32_kernel, with SimtAcc) is a checking path
-//   and keeps the first design below, as tgmm does.
 //
-// The first design (tgmm, and gmm for f32):
+// The bf16/fp16 tgmm (tgmm_tma_kernel, replacing _tgmm_kernel on the MoE
+// path). The first version ran 16x16 WMMA on 32-row chunks loaded through
+// registers behind barriers (loads and tensor-core work never overlapped),
+// one block per (expert, 128 x 128 output tile) walking all of its group's
+// rows, so a skewed stream's heavy expert serialised on its blocks: 12x its
+// bound balanced, 1.5x slower again skewed. This design:
+// - gmm_tma_kernel's shape: a persistent grid, a producer warp keeping a
+//   ring of 4 stages of 64-row chunks arriving by TMA from the group's first
+//   row (TMA coordinates need no tile alignment), two consumer warpgroups
+//   running wgmma with both operands MN-major from shared memory (lhs^T is
+//   A through the transpose bit, the chunk's rows its reduction), f32
+//   accumulators in registers, 128 columns (the gmm's reading; 256 spills
+//   at nine warps' register cap).
+// - Work units (group, output tile) listed from the device offsets, the
+//   groups with the most rows first (each block sorts the groups into
+//   shared memory), so the heavy expert's tiles start first and the light
+//   groups fill the tail. A unit owns its output tile and stores it once:
+//   bitwise the same from run to run, no atomics, no waits between blocks.
+//   Splitting a large group's rows over several units, summed in one
+//   order, measured no faster on the skewed stream (PERF.md) and was left
+//   out.
+// - The rows of a group's last chunk past offsets[e + 1] (the next group's)
+//   are zeroed in shared memory before the products read them.
+//
+// The first design, which the f32 instances keep as checking paths:
 // - gmm: one block per (128-row tile, 128-column tile) that owns its
 //   output tile. Thread 0 finds the first group overlapping the tile's rows
 //   by binary search in offsets; the block loops over the groups the tile
@@ -62,11 +84,8 @@
 // - tgmm: one block per (expert, 128-row tile of H, 128-column tile of N),
 //   walking its group's rows in 32-row chunks, rows past the group zero;
 //   an empty group's block writes its zeros.
-// - 16-bit inputs (tgmm): nvcuda::wmma 16x16x16 fragments with f32
-//   accumulators, 8 warps as 2 x 4, each warp a 64 x 32 sub-tile; operand
-//   tiles move global -> shared with 16-byte loads into rows padded by 8
-//   elements (bank spread). f32 inputs: the same tiles with the products
-//   on the CUDA cores, an 8 x 8 micro tile a thread (exact f32 fused
+// - Tiles move global -> shared with 16-byte loads; the products run on the
+//   CUDA cores, an 8 x 8 micro tile a thread (exact f32 fused
 //   multiply-adds). K and N must be multiples of 8 (the wrappers check;
 //   TMA needs 16-byte strides).
 //
@@ -77,7 +96,6 @@
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <algorithm>
@@ -91,7 +109,6 @@ constexpr int BM = 128;  // output rows a block
 constexpr int BN = 128;  // output columns a block
 constexpr int BK = 32;   // reduction chunk
 constexpr int NT = 256;  // threads a block (8 warps)
-constexpr int PAD = 8;   // 16-bit shared rows padded by 8 elements
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -149,85 +166,6 @@ __device__ __forceinline__ void load_tile(T* dst, int dst_ld, const T* src,
   }
 }
 
-// The block's [BM, BN] f32 accumulator for 16-bit inputs: warp w owns rows
-// (w / 4) * 64 + [0, 64) and columns (w % 4) * 32 + [0, 32), 4 x 2
-// fragments. A_COL: element (m, k) of A at A[k * lda + m], else
-// A[m * lda + k]; B_COL: element (k, n) at B[n * ldb + k], else
-// B[k * ldb + n].
-template <typename T>
-struct WmmaAcc {
-  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float> c[4][2];
-
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) nvcuda::wmma::fill_fragment(c[i][j], 0.f);
-  }
-
-  template <bool A_COL, bool B_COL>
-  __device__ __forceinline__ void step(const T* A, int lda, const T* B,
-                                       int ldb) {
-    using namespace nvcuda;
-    using ALayout =
-        typename std::conditional<A_COL, wmma::col_major, wmma::row_major>::type;
-    using BLayout =
-        typename std::conditional<B_COL, wmma::col_major, wmma::row_major>::type;
-    const int warp = threadIdx.x >> 5;
-    const int wm = warp >> 2, wn = warp & 3;
-#pragma unroll
-    for (int k0 = 0; k0 < BK; k0 += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, ALayout> a[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, BLayout> b[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = wm * 64 + i * 16;
-        wmma::load_matrix_sync(
-            a[i], A_COL ? A + k0 * lda + row : A + row * lda + k0, lda);
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int col = wn * 32 + j * 16;
-        wmma::load_matrix_sync(
-            b[j], B_COL ? B + col * ldb + k0 : B + k0 * ldb + col, ldb);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(c[i][j], a[i], b[j], c[i][j]);
-    }
-  }
-
-  // out[(m0 + m) * ld + n0 + n] for m0 + m < m_hi, n0 + n < n_hi, through
-  // this warp's 256-float staging slice.
-  template <typename O>
-  __device__ __forceinline__ void store(O* out, size_t ld, int m0, int n0,
-                                        int m_hi, int n_hi, float* stage) {
-    const int warp = threadIdx.x >> 5;
-    const int lane = threadIdx.x & 31;
-    const int wm = warp >> 2, wn = warp & 3;
-    float* st = stage + warp * 256;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        nvcuda::wmma::store_matrix_sync(st, c[i][j], 16,
-                                        nvcuda::wmma::mem_row_major);
-        __syncwarp();
-#pragma unroll
-        for (int t = 0; t < 8; ++t) {
-          const int e = lane * 8 + t;
-          const int gm = m0 + wm * 64 + i * 16 + (e >> 4);
-          const int gn = n0 + wn * 32 + j * 16 + (e & 15);
-          if (gm < m_hi && gn < n_hi)
-            out[static_cast<size_t>(gm) * ld + gn] = from_f32<O>(st[e]);
-        }
-        __syncwarp();
-      }
-  }
-};
-
 // The f32 accumulator: thread (ty, tx) of a 16 x 16 grid owns rows
 // ty + 16 i and columns tx + 16 j (i, j < 8) of the tile, from A stored
 // [BK][BM] and B stored [BK][BN] in shared memory.
@@ -271,17 +209,6 @@ struct SimtAcc {
       }
   }
 };
-
-template <typename T>
-using AccOf = typename std::conditional<std::is_same<T, float>::value,
-                                        SimtAcc, WmmaAcc<T>>::type;
-
-// Shared memory of tgmm: the A and B tiles (16-bit: [BK][BM + PAD] and
-// [BK][BN + PAD]; f32: [BK][BM] and [BK][BN]) and the 16-bit epilogue's
-// staging.
-constexpr int kTileBytes = BK * BM * 4;  // >= 16-bit padded tiles
-static_assert(BK * (BM + PAD) * 2 <= kTileBytes, "A tile (16-bit)");
-static_assert(BK * (BN + PAD) * 2 <= kTileBytes, "B tile (16-bit)");
 
 // The first index e with offsets[e + 1] > m0: the first group whose rows
 // end past row m0 (E when none does).
@@ -336,41 +263,32 @@ __global__ void __launch_bounds__(NT)
   acc.store(out, N, m0, n0, G, N, nullptr);
 }
 
-template <typename T>
+// The f32 tgmm (the first design): one block per (expert, 128-row tile of
+// H, 128-column tile of N), walking its group's rows in 32-row chunks.
 __global__ void __launch_bounds__(NT)
-    tgmm_kernel(const T* __restrict__ lhs, const T* __restrict__ dout,
-                const int* __restrict__ offsets, float* __restrict__ out,
-                int G, int H, int N) {
-  constexpr bool kF32 = std::is_same<T, float>::value;
-  __shared__ __align__(128) unsigned char a_raw[kTileBytes];
-  __shared__ __align__(128) unsigned char b_raw[kTileBytes];
-  __shared__ __align__(128) float stage[8 * 256];
-  T* As = reinterpret_cast<T*>(a_raw);
-  T* Bs = reinterpret_cast<T*>(b_raw);
+    tgmm_f32_kernel(const float* __restrict__ lhs,
+                    const float* __restrict__ dout,
+                    const int* __restrict__ offsets, float* __restrict__ out,
+                    int G, int H, int N) {
+  __shared__ __align__(128) float As[BK * BM];
+  __shared__ __align__(128) float Bs[BK * BN];
   const int m0 = blockIdx.x * BM;  // rows of H
   const int n0 = blockIdx.y * BN;
   const int e = blockIdx.z;
   const int lo = min(offsets[e], G);
   const int hi = min(offsets[e + 1], G);
 
-  AccOf<T> acc;
+  SimtAcc acc;
   acc.zero();
   for (int r0 = lo; r0 < hi; r0 += BK) {
     __syncthreads();  // the previous chunk's readers are done
     // A^T: the chunk's lhs rows [BK][BM] read as A (m = h, k = row).
-    if constexpr (kF32) {
-      load_tile<T, BK, BM, false>(As, BM, lhs, H, r0, lo, hi, m0, H);
-      load_tile<T, BK, BN, false>(Bs, BN, dout, N, r0, lo, hi, n0, N);
-      __syncthreads();
-      acc.step(As, Bs);
-    } else {
-      load_tile<T, BK, BM, false>(As, BM + PAD, lhs, H, r0, lo, hi, m0, H);
-      load_tile<T, BK, BN, false>(Bs, BN + PAD, dout, N, r0, lo, hi, n0, N);
-      __syncthreads();
-      acc.template step<true, false>(As, BM + PAD, Bs, BN + PAD);
-    }
+    load_tile<float, BK, BM, false>(As, BM, lhs, H, r0, lo, hi, m0, H);
+    load_tile<float, BK, BN, false>(Bs, BN, dout, N, r0, lo, hi, n0, N);
+    __syncthreads();
+    acc.step(As, Bs);
   }
-  acc.store(out + static_cast<size_t>(e) * H * N, N, m0, n0, H, N, stage);
+  acc.store(out + static_cast<size_t>(e) * H * N, N, m0, n0, H, N, nullptr);
 }
 
 // -- the bf16/fp16 gmm: persistent, TMA ring, wgmma -------------------------
@@ -555,6 +473,192 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
   }
 }
 
+// -- the bf16/fp16 tgmm: persistent, TMA ring, wgmma --------------------------
+
+// Rows of a tgmm chunk (one ring stage).
+constexpr int kTgmmChunk = 64;
+
+struct TgmmTmaParams {
+  CUtensorMap a;  // lhs [G, H]: boxes {64, 64}
+  CUtensorMap b;  // dout [G, N]: boxes {64, 64}
+  const int* offsets;
+  float* out;     // [E, H, N] f32
+  int G, H, N, E;
+};
+
+// Dynamic shared memory of tgmm: gmm's ring and barriers, then the block's
+// group order (E ints).
+inline size_t tgmm_smem_bytes(int E) {
+  return GmmSmem::kBytes + sizeof(int) * static_cast<size_t>(E);
+}
+
+// Rows [lo, hi) of group e, clipped to G.
+__device__ __forceinline__ void tgmm_span(const int* offsets, int G, int e,
+                                          int* lo, int* hi) {
+  *lo = min(__ldg(offsets + e), G);
+  *hi = max(*lo, min(__ldg(offsets + e + 1), G));
+}
+
+// order[k] = the group with the k-th most rows (ties in group order), built
+// by the block's threads together from the device offsets.
+__device__ __forceinline__ void tgmm_order(const int* offsets, int G, int E,
+                                           int* order) {
+  for (int e = threadIdx.x; e < E; e += blockDim.x) {
+    int lo, hi;
+    tgmm_span(offsets, G, e, &lo, &hi);
+    int rank = 0;
+    for (int f = 0; f < E; ++f) {
+      int flo, fhi;
+      tgmm_span(offsets, G, f, &flo, &fhi);
+      rank += fhi - flo > hi - lo || (fhi - flo == hi - lo && f < e);
+    }
+    order[rank] = e;
+  }
+}
+
+// A persistent grid (one block an SM) walks the work list, unit u being
+// output tile u % tiles (a 128-row tile of H, a BN-column tile of N) of
+// the group order[u / tiles], block b taking units b, b + grid, ...;
+// producer and consumers walk the same units. Warp 8 keeps a ring of
+// 64-row chunks arriving by TMA (the lhs chunk's H columns and the dout
+// chunk's N columns, each as [64 rows][64] boxes starting at the group's
+// first row, wherever it lies); warps 0-7 are two consumer warpgroups,
+// each owning 64 rows of H, running wgmma m64n128k16 with both operands
+// MN-major (lhs^T as A: the chunk's rows are the reduction; dout as B),
+// f32 accumulators in registers. A group's last chunk runs past its rows
+// into the next group's (or past G, which TMA reads as zeros): those rows
+// are zeroed in shared memory before the products read them. Each unit
+// stores its own tile (zeros for an empty group).
+template <typename T>
+__global__ void __launch_bounds__(kTmaThreads, 1)
+    tgmm_tma_kernel(const __grid_constant__ TgmmTmaParams p) {
+  using namespace hopper;
+  using L = GmmSmem;
+  constexpr int S = kTmaStages;
+  constexpr int kBoxes = 2 + BN / 64;  // lhs [64][128 of H], dout [64][BN]
+  const int H = p.H, N = p.N;
+  const int n_n = (N + BN - 1) / BN;
+  const int tiles = ((H + kTmaBM - 1) / kTmaBM) * n_n;
+  const int units = p.E * tiles;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t ring = smem_u32(base);
+  const uint32_t bars = smem_u32(base + L::kBarOffset);
+  int* order = reinterpret_cast<int*>(base + L::kBarOffset + 8 * 2 * S);
+  auto full = [&](int st) { return bars + 8 * st; };
+  auto empty = [&](int st) { return bars + 8 * (S + st); };
+  auto a_tile = [&](int st) { return ring + st * L::kStageBytes; };
+  auto b_tile = [&](int st) { return ring + st * L::kStageBytes + L::kABytes; };
+
+  if (tid == 0) {
+    for (int st = 0; st < S; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), kTmaConsumers / 32);
+    }
+    fence_barrier_init();
+  }
+  tgmm_order(p.offsets, p.G, p.E, order);
+  __syncthreads();
+
+  if (warp == kTmaConsumers / 32) {
+    if (lane != 0) return;
+    int n = 0;
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      int r0, r1;
+      tgmm_span(p.offsets, p.G, order[u / tiles], &r0, &r1);
+      const int h0 = ((u % tiles) / n_n) * kTmaBM;
+      const int n0 = ((u % tiles) % n_n) * BN;
+      for (int r = r0; r < r1; r += kTgmmChunk, ++n) {
+        const int st = n % S;
+        mbar_wait(empty(st), ((n / S) & 1) ^ 1);
+        mbar_expect_tx(full(st), L::kStageBytes);
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          tma_load_2d(a_tile(st) + c * kTgmmChunk * 128, &p.a, full(st),
+                      h0 + 64 * c, r);
+#pragma unroll
+        for (int c = 0; c < BN / 64; ++c)
+          tma_load_2d(b_tile(st) + c * kTgmmChunk * 128, &p.b, full(st),
+                      n0 + 64 * c, r);
+      }
+    }
+    return;
+  }
+
+  // Consumers: warpgroup wg owns rows [h0 + 64 wg, h0 + 64 wg + 64) of H;
+  // this thread holds rows h0 + wrow and h0 + wrow + 8.
+  const int wg = warp >> 2;
+  const int t4 = lane & 3;
+  const int wrow = 64 * wg + 16 * (warp & 3) + (lane >> 2);
+  const Elem<T> et{};
+  int n = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const int e = order[u / tiles];
+    int r0, r1;
+    tgmm_span(p.offsets, p.G, e, &r0, &r1);
+    const int h0 = ((u % tiles) / n_n) * kTmaBM;
+    const int n0 = ((u % tiles) % n_n) * BN;
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    for (int r = r0; r < r1; r += kTgmmChunk, ++n) {
+      const int st = n % S;
+      mbar_wait(full(st), (n / S) & 1);
+      const int keep = r1 - r;  // rows of this chunk inside the group
+      if (keep < kTgmmChunk) {
+        // Zero rows [keep, 64) of every box of the stage (whole 128-byte
+        // rows, which the swizzle permutes only within), then order those
+        // writes before the products' reads.
+        const int n16 = (kTgmmChunk - keep) * 8;  // 16-byte stores a box
+        for (int x = tid; x < kBoxes * n16; x += kTmaConsumers) {
+          const int box = x / n16;
+          const int y = x - box * n16;
+          *reinterpret_cast<uint4*>(base + st * L::kStageBytes +
+                                    box * kTgmmChunk * 128 + keep * 128 +
+                                    y * 16) = make_uint4(0u, 0u, 0u, 0u);
+        }
+        fence_proxy_async();
+        named_barrier(1, kTmaConsumers);
+      }
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kTgmmChunk / 16; ++kk) {
+        const uint64_t da = desc_sw128(
+            a_tile(st) + wg * kTgmmChunk * 128 + kk * 16 * 128,
+            kTgmmChunk * 128, 1024);
+        const uint64_t db = desc_sw128(b_tile(st) + kk * 16 * 128,
+                                       kTgmmChunk * 128, 1024);
+        wgmma_ss<1, 1>(Shape<BN>{}, et, acc, da, db, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(st));
+    }
+    float* out = p.out + static_cast<size_t>(e) * H * N;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = h0 + wrow + 8 * half;
+      if (row >= H) continue;
+#pragma unroll
+      for (int jj = 0; jj < BN / 8; ++jj) {
+        const int col = n0 + 8 * jj + 2 * t4;
+        if (col < N)
+          *reinterpret_cast<float2*>(out + static_cast<size_t>(row) * N +
+                                     col) =
+              make_float2(acc[4 * jj + 2 * half], acc[4 * jj + 2 * half + 1]);
+      }
+    }
+  }
+}
+
 template <typename T>
 struct TypeTag {
   using type = T;
@@ -620,6 +724,43 @@ cudaError_t launch_gmm_tma(const void* lhs, const void* rhs, const int* off,
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t launch_tgmm_tma(const void* lhs, const void* dout, const int* off,
+                            float* out, int G, int H, int N, int E,
+                            cudaStream_t stream) {
+  const bool fp16 = std::is_same<T, __half>::value;
+  const cuuint64_t e = sizeof(T);
+  TgmmTmaParams p;
+  p.offsets = off;
+  p.out = out;
+  p.G = G;
+  p.H = H;
+  p.N = N;
+  p.E = E;
+  const cuuint32_t box[2] = {64, kTgmmChunk};
+  const cuuint64_t da[2] = {static_cast<cuuint64_t>(H),
+                            static_cast<cuuint64_t>(G)};
+  const cuuint64_t sa[1] = {H * e};
+  const cuuint64_t db[2] = {static_cast<cuuint64_t>(N),
+                            static_cast<cuuint64_t>(G)};
+  const cuuint64_t sb[1] = {N * e};
+  cudaError_t err = hopper_host::make_map(&p.a, fp16, 2, lhs, da, sa, box);
+  if (err == cudaSuccess)
+    err = hopper_host::make_map(&p.b, fp16, 2, dout, db, sb, box);
+  if (err != cudaSuccess) return err;
+  const size_t units =
+      static_cast<size_t>(E) * ((H + kTmaBM - 1) / kTmaBM) * ((N + BN - 1) / BN);
+  const size_t smem = tgmm_smem_bytes(E);
+  auto kernel = tgmm_tma_kernel<T>;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int grid = static_cast<int>(
+      std::min(units, static_cast<size_t>(hopper_host::sm_count())));
+  kernel<<<grid, kTmaThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
 bool bad_dims(int G, int K, int N, int E) {
   return G <= 0 || K <= 0 || N <= 0 || E <= 0 || K % 8 != 0 || N % 8 != 0 ||
          (N + BN - 1) / BN > 65535;
@@ -662,13 +803,20 @@ extern "C" int tgmm_launch(const void* lhs, const void* dout,
   if (bad_dims(G, H, N, E) || E > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 grid((H + BM - 1) / BM, (N + BN - 1) / BN, E);
   return static_cast<int>(by_dtype(dtype, [&](auto tag) {
     using T = typename decltype(tag)::type;
-    tgmm_kernel<T><<<grid, NT, 0, st>>>(
-        static_cast<const T*>(lhs), static_cast<const T*>(dout),
-        static_cast<const int*>(offsets), static_cast<float*>(out), G, H, N);
-    return cudaGetLastError();
+    const int* off = static_cast<const int*>(offsets);
+    if constexpr (std::is_same<T, float>::value) {
+      dim3 grid((H + BM - 1) / BM, (N + BN - 1) / BN, E);
+      tgmm_f32_kernel<<<grid, NT, 0, st>>>(static_cast<const float*>(lhs),
+                                           static_cast<const float*>(dout),
+                                           off, static_cast<float*>(out), G,
+                                           H, N);
+      return cudaGetLastError();
+    } else {
+      return launch_tgmm_tma<T>(lhs, dout, off, static_cast<float*>(out), G,
+                                H, N, E, st);
+    }
   }));
 }
 

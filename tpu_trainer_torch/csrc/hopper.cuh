@@ -1,10 +1,11 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA/wgmma kernels
-// (the bf16/fp16 flash forward and fused backward in flash_attn.cu, the
-// bf16/fp16 gmm in grouped_matmul.cu): mbarriers, TMA tile loads, 1-D bulk
-// copies and bulk f32 reductions, warpgroup register reallocation, wgmma
-// shared-memory descriptors, the wgmma instructions in inline PTX, and the
-// host-side encoding of a TMA tensor map through the function pointer that
-// the CUDA runtime hands out for it (so the libraries need no -lcuda).
+// (the bf16/fp16 flash forward and backwards in flash_attn.cu, the bf16/fp16
+// gmm and tgmm in grouped_matmul.cu): mbarriers, TMA tile loads, 1-D bulk
+// copies and bulk f32 reductions, the fixed-order accumulation across
+// blocks (Turn, the fused backward's dq), warpgroup register reallocation,
+// wgmma shared-memory descriptors, the wgmma instructions in inline PTX, and
+// the host-side encoding of a TMA tensor map through the function pointer
+// that the CUDA runtime hands out for it (so the libraries need no -lcuda).
 //
 // Shared-memory operands use the 128-byte swizzle throughout: a TMA box
 // whose inner extent is 64 16-bit elements (128 bytes) lands as rows of
@@ -163,10 +164,57 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// The same for global memory: orders the async proxy's global writes (a
+// completed bulk reduction) against this thread's generic-proxy accesses
+// around it (the release and acquire of a Turn).
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
 // Named barrier over `threads` threads (barrier 0 is __syncthreads).
 __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
+
+// -- fixed-order accumulation across blocks ----------------------------------
+//
+// Several blocks add their f32 parts into one region of global memory, each
+// with a rank 0, 1, 2, ... that the work's shape fixes. A Turn is an int32
+// counter in global memory for that region, zeroed before the kernel; the
+// part of rank r is added after the parts 0..r-1 and before r+1, so the sum
+// is bitwise the same from run to run. One thread calls wait(r), the adds
+// are issued and completed (a bulk reduction waited with bulk_wait(), or
+// plain stores ordered by a barrier of the threads that made them), and the
+// same thread calls pass().
+//
+// Deadlock freedom is the caller's: a waiting block must wait only on ranks
+// held by blocks of a lower linear block index, which were dispatched
+// before it, so the earliest unfinished rank can always proceed. Blocks
+// that are not yet resident give no such guarantee: a persistent grid
+// that assumes all of its blocks are on the card at once must not wait.
+struct Turn {
+  int* counter;
+
+  // Spins (acquire, gpu scope) until `rank` parts have been added.
+  __device__ __forceinline__ void wait(int rank) const {
+    int v;
+    do {
+      asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n"
+                   : "=r"(v)
+                   : "l"(counter)
+                   : "memory");
+    } while (v != rank);
+    fence_proxy_async_global();
+  }
+
+  // This rank's adds are complete: hands the region to the next rank
+  // (release, gpu scope).
+  __device__ __forceinline__ void pass() const {
+    fence_proxy_async_global();
+    asm volatile("red.release.gpu.global.add.s32 [%0], 1;\n" ::"l"(counter)
+                 : "memory");
+  }
+};
 
 // Warpgroup register reallocation: the whole warpgroup executes it.
 template <int N>
@@ -257,9 +305,8 @@ __device__ __forceinline__ uint32_t pack2(Elem<__half>, float a, float b) {
   "%49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, "              \
   "%61, %62, %63}"
 
-// m64n64k16, A and B from shared memory (operands after the accumulators:
-// da, db, scale_d, TRANS_A, TRANS_B); m64n128k16 the same with a K-major A
-// (no TRANS_A operand).
+// m64n64k16 and m64n128k16, A and B from shared memory (operands after the
+// accumulators: da, db, scale_d, TRANS_A, TRANS_B).
 #define HOPPER_WGMMA_SS_N64(PTX, CT)                                         \
   template <int TRANS_B, int TRANS_A = 0>                                    \
   __device__ __forceinline__ void wgmma_ss(Shape<64>, Elem<CT>,              \
@@ -275,16 +322,17 @@ __device__ __forceinline__ uint32_t pack2(Elem<__half>, float a, float b) {
   }
 
 #define HOPPER_WGMMA_SS_N128(PTX, CT)                                        \
-  template <int TRANS_B>                                                     \
+  template <int TRANS_B, int TRANS_A = 0>                                    \
   __device__ __forceinline__ void wgmma_ss(Shape<128>, Elem<CT>,             \
                                            float (&d)[64], uint64_t da,      \
                                            uint64_t db, int scale_d) {       \
     asm volatile("{\n.reg .pred p;\n"                                        \
                  "setp.ne.b32 p, %66, 0;\n"                                  \
                  "wgmma.mma_async.sync.aligned.m64n128k16.f32." PTX "." PTX  \
-                 " " HOPPER_R64 ", %64, %65, p, 1, 1, 0, %67;\n}\n"          \
+                 " " HOPPER_R64 ", %64, %65, p, 1, 1, %67, %68;\n}\n"        \
                  : HOPPER_D64                                                \
-                 : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));           \
+                 : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_A),            \
+                   "n"(TRANS_B));                                            \
   }
 
 // m64n64k16 and m64n128k16 with A in registers (operands after the

@@ -252,9 +252,14 @@ _U32 = 0xFFFFFFFF
 # measured.
 _FUSED_BWD_MAX_SEQ = 8192
 _BACKWARDS = (None, "fused", "split")
-# q rows a ring stage of the bf16/fp16 fused backward (csrc/flash_attn.cu
-# kBwdBQ): its dq accumulator and lse/delta rows are padded to a multiple.
+# q rows a ring stage of the bf16/fp16 backwards (csrc/flash_attn.cu
+# kBwdBQ, kRowPad): the dq accumulator and the lse/delta rows are padded to
+# a multiple.
 _BWD_Q_TILE = 64
+
+
+def _padded(s: int) -> int:
+    return -(-s // _BWD_Q_TILE) * _BWD_Q_TILE
 
 
 def backward_impl(seq: int, segmented: bool, backward=None) -> str:
@@ -419,11 +424,13 @@ def _train_lib() -> ctypes.CDLL:
         P, I, F, U = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                       ctypes.c_uint32)
         tail = [I] * 7 + [F, U, U, F, I, P]
-        for fn, n_ptrs in (("flash_attn_fwd", 10), ("flash_attn_bwd", 13),
+        for fn, n_ptrs in (("flash_attn_fwd", 10), ("flash_attn_bwd", 14),
                            ("flash_attn_bwd_dkv", 12),
                            ("flash_attn_bwd_dq", 10)):
             getattr(lib, fn).argtypes = [P] * n_ptrs + tail
             getattr(lib, fn).restype = I
+        lib.flash_attn_bwd_turns.argtypes = [I] * 4
+        lib.flash_attn_bwd_turns.restype = ctypes.c_longlong
         lib.flash_attn_keep_mask.argtypes = [P, U, U, I, U, I, I, I, P]
         lib.flash_attn_keep_mask.restype = I
         lib.flash_attn_error_string.argtypes = [I]
@@ -534,39 +541,47 @@ def _group_sum(part, like):
     return part.view(b, s, kvh, h // kvh, d).sum(dim=3).to(like.dtype)
 
 
+def _dkv_outputs(qs, ks, v):
+    """``(dk, dv, direct)`` as the backward kernels write them: bf16/fp16
+    without GQA in the compute type (``direct``), otherwise f32
+    per-query-head partials ``[b, s, h, d]`` for ``_group_sum``."""
+    if qs.dtype != torch.float32 and ks.shape[2] == qs.shape[2]:
+        return torch.empty_like(ks), torch.empty_like(v), True
+    f32 = dict(dtype=torch.float32, device=qs.device)
+    return torch.empty(qs.shape, **f32), torch.empty(qs.shape, **f32), False
+
+
 def flash_backward(qs, ks, v, o, lse, do, *, causal: bool = True,
                    dropout_rate: float = 0.0, seed: Optional[int] = None,
                    rope: Optional[tuple] = None):
     """The fused backward kernel on CUDA tensors: ``(dq, dk, dv)`` from the
     forward's residuals (``qs``, ``ks``, ``o``, ``lse``) and ``do``.
 
-    dq is summed in f32 across the kernel's blocks (bulk reductions for
-    bf16/fp16, scalar atomics for f32), so the order of its sums, and its
-    last bits, vary from run to run; dk and dv are owned by one block each
-    and are deterministic. bf16/fp16 without GQA: the kernel writes dk/dv
-    in the compute type; otherwise f32 per-query-head partials are
-    group-summed here and rounded once (bitwise the same for a group of
-    one)."""
+    dq is summed in f32 across the kernel's blocks, each q tile's parts in
+    ascending key-tile order whatever the timing (the JAX kernel's one
+    order of a resident dq block), and dk and dv are owned by one block
+    each: all three are bitwise the same from run to run. bf16/fp16
+    without GQA: the kernel writes dk/dv in the compute type; otherwise
+    f32 per-query-head partials are group-summed here and rounded once
+    (bitwise the same for a group of one)."""
     do = _backward_operands(qs, ks, v, o, lse, do, rope, "flash_backward")
     b, s, h, d = qs.shape
     f32 = dict(dtype=torch.float32, device=qs.device)
-    s_pad = -(-s // _BWD_Q_TILE) * _BWD_Q_TILE
+    s_pad = _padded(s)
     delta = torch.empty((2, b, h, s_pad), **f32)
     dq_acc = torch.empty((b, h, s_pad, d), **f32)
-    direct = qs.dtype != torch.float32 and ks.shape[2] == h
-    if direct:
-        dk, dv = torch.empty_like(ks), torch.empty_like(v)
-    else:
-        dk = torch.empty((b, s, h, d), **f32)
-        dv = torch.empty((b, s, h, d), **f32)
+    dk, dv, direct = _dkv_outputs(qs, ks, v)
     dq = torch.empty_like(qs)
     cos, sin = rope if rope is not None else (None, None)
     lib = _train_lib()
+    turns = torch.empty(
+        (lib.flash_attn_bwd_turns(b, s, h, _DTYPE_CODES[qs.dtype]),),
+        dtype=torch.int32, device=qs.device)
     with torch.cuda.device(qs.device):
         err = lib.flash_attn_bwd(
             _ptr(qs), _ptr(ks), _ptr(v), _ptr(o), _ptr(do), _ptr(lse),
-            _ptr(cos), _ptr(sin), _ptr(delta), _ptr(dq_acc), _ptr(dq),
-            _ptr(dk), _ptr(dv),
+            _ptr(cos), _ptr(sin), _ptr(delta), _ptr(dq_acc), _ptr(turns),
+            _ptr(dq), _ptr(dk), _ptr(dv),
             *_common_args(qs, ks, causal, dropout_rate, seed),
             _stream(qs.device))
     _raise_on(lib, err, "flash_backward")
@@ -584,28 +599,35 @@ def flash_backward_dkv(qs, ks, v, o, lse, do, *, causal: bool = True,
                        rope: Optional[tuple] = None,
                        segment_ids: Optional[torch.Tensor] = None):
     """The split backward's dk/dv kernel on CUDA tensors: ``(dk, dv,
-    delta)``, dk/dv group-summed from f32 per-query-head partials and
-    rounded once, ``delta [b, h, s] = rowsum(do * o)`` f32 for
-    ``flash_backward_dq``."""
+    delta)``, ``delta [b, h, s_pad] = rowsum(do * o)`` f32 (``s_pad`` = s
+    rounded up to 64, rows past s unused) for ``flash_backward_dq``. dk/dv
+    are owned by one block each (bitwise the same from run to run);
+    bf16/fp16 without GQA: written by the kernel in the compute type;
+    otherwise group-summed here from f32 per-query-head partials and
+    rounded once."""
     do = _backward_operands(qs, ks, v, o, lse, do, rope,
                             "flash_backward_dkv")
     seg = _segments(segment_ids, qs)
-    b, s, h, d = qs.shape
+    b, s, h, _ = qs.shape
     f32 = dict(dtype=torch.float32, device=qs.device)
-    delta = torch.empty((b, h, s), **f32)
-    dk_part = torch.empty((b, s, h, d), **f32)
-    dv_part = torch.empty((b, s, h, d), **f32)
+    s_pad = _padded(s)
+    # delta_pad and lse_pad [b, h, s_pad], then the ids [b, s_pad] (int32).
+    scratch = torch.empty((2 * b * h * s_pad + b * s_pad,), **f32)
+    dk, dv, direct = _dkv_outputs(qs, ks, v)
     cos, sin = rope if rope is not None else (None, None)
     lib = _train_lib()
     with torch.cuda.device(qs.device):
         err = lib.flash_attn_bwd_dkv(
             _ptr(qs), _ptr(ks), _ptr(v), _ptr(o), _ptr(do), _ptr(lse),
-            _ptr(cos), _ptr(sin), _ptr(seg), _ptr(delta), _ptr(dk_part),
-            _ptr(dv_part), *_common_args(qs, ks, causal, dropout_rate, seed),
+            _ptr(cos), _ptr(sin), _ptr(seg), _ptr(scratch), _ptr(dk),
+            _ptr(dv), *_common_args(qs, ks, causal, dropout_rate, seed),
             _stream(qs.device))
     _raise_on(lib, err, "flash_backward_dkv")
     flash_backward_dkv.launches += 1
-    return _group_sum(dk_part, ks), _group_sum(dv_part, v), delta
+    delta = scratch[:b * h * s_pad].view(b, h, s_pad)
+    if direct:
+        return dk, dv, delta
+    return _group_sum(dk, ks), _group_sum(dv, v), delta
 
 
 flash_backward_dkv.launches = 0
@@ -616,14 +638,16 @@ def flash_backward_dq(qs, ks, v, do, lse, delta, *, causal: bool = True,
                       rope: Optional[tuple] = None,
                       segment_ids: Optional[torch.Tensor] = None):
     """The split backward's dq kernel on CUDA tensors: dq in q's dtype,
-    written once by the block that owns its q tile (deterministic)."""
+    written once by the block that owns its q tile (deterministic).
+    ``delta`` is ``flash_backward_dkv``'s, ``[b, h, s_pad]``."""
     do = _backward_operands(qs, ks, v, None, lse, do, rope,
                             "flash_backward_dq")
     b, s, h, _ = qs.shape
-    if (delta.dtype != torch.float32 or tuple(delta.shape) != (b, h, s)
+    want = (b, h, _padded(s))
+    if (delta.dtype != torch.float32 or tuple(delta.shape) != want
             or not delta.is_contiguous()):
-        raise ValueError(f"delta must be contiguous f32 [b, h, s] = "
-                         f"{(b, h, s)}")
+        raise ValueError(f"delta must be contiguous f32 [b, h, s_pad] = "
+                         f"{want}")
     seg = _segments(segment_ids, qs)
     dq = torch.empty_like(qs)
     cos, sin = rope if rope is not None else (None, None)

@@ -128,7 +128,8 @@ def tgmm_cuda(lhs: torch.Tensor, dout: torch.Tensor, offsets: torch.Tensor,
     ``lhs^T @ dout`` from ``lhs [G, H]``, ``dout [G, N]`` and ``offsets``
     (``group_offsets``, E + 1 entries), into ``out`` when given; every
     group's block is written, zeros for an empty one. H and N must be
-    multiples of 8."""
+    multiples of 8. Each output tile is summed by one block, in one order:
+    the result is bitwise the same from run to run."""
     if lhs.dim() != 2 or dout.dim() != 2 or dout.shape[0] != lhs.shape[0]:
         raise ValueError(f"lhs [G, H] and dout [G, N] expected; got "
                          f"{tuple(lhs.shape)}, {tuple(dout.shape)}")
