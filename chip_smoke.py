@@ -41,19 +41,23 @@ JAX package. Phases, each fatal on failure:
               training shape (b=8, s=1024, h=12, d=64; f32 and bf16, with
               and without dropout), a GQA shape (h=32, kvh=8, d=128) and a
               ragged s=1000; the head + CE kernel against
-              ``head_ce_reference`` at T=8192, H=768, V=50257 bf16 and at
-              V=1000 (logits, lse, label logit, loss, dx/dE through the
-              backward). f32 results are held against the f32 plain
+              ``head_ce_reference`` at T=8192, H=768, V=50257 bf16, at
+              V=1000 and at T=300, H=100 (the padded row stride and hidden
+              dim) (logits, lse, label logit, loss, dx/dE through the
+              backward), each twice on the same inputs with logits, lse and
+              ll bitwise equal. f32 results are held against the f32 plain
               version; bf16 results against the plain version run in f32
               (the truth), next to the bf16 plain version's error; the
               check must reject planted faults (among them the plain
               version run with another dropout seed: the masks at other
               positions). Times each kernel, its plain version and one
               PyTorch call as a yardstick (SDPA forward/backward; matmul
-              + ``cross_entropy``) with CUDA events, computes the bounds,
+              + ``cross_entropy``, and cuBLAS's bf16 product alone with V
+              padded to 50304) with CUDA events, computes the bounds,
               times the bf16 forward without dropout and RoPE, and splits
               the fused backward's device time (``torch.profiler``) into
-              its pre-pass, its kernel and its dq finalize. The fused
+              its pre-pass, its kernel and its dq finalize, and head +
+              CE's into its GEMM and its merge. The fused
               backward runs twice on the same inputs (bf16 and f32 at
               the main shape, bf16 GQA d=128): dq, dk and dv must be
               bitwise equal (dq's fixed summation order).
@@ -71,7 +75,8 @@ JAX package. Phases, each fatal on failure:
               the segment mask, the fused backward on segments) must fail;
               the dk/dv kernel twice on the same inputs (packed, packed
               GQA) must give bitwise equal results; at group 1 in bf16
-              without summing f32 partials afterwards.
+              without summing f32 partials afterwards; the dq kernel twice
+              (packed bf16, packed GQA d=128, mixed-docs fp16, f32) too.
               Times at the packed shape next to SDPA with the equivalent
               boolean mask, and the fused/split table (unsegmented, b*s =
               8192, s = 1024..8192) behind ``_FUSED_BWD_MAX_SEQ``.
@@ -211,7 +216,8 @@ def phase_card(results: dict) -> None:
     log("card", f"built {list(_build.SOURCES)} in {secs:.1f} s")
     for name in _build.SOURCES:
         for ln in _build.BUILD_LOG.get(name, "").splitlines():
-            if "properties for" in ln or "registers" in ln or "spill" in ln:
+            if any(w in ln for w in ("properties for", "registers", "spill",
+                                     "warning")):
                 log("card", f"ptxas {name}: {ln.strip()}")
     results["card"] = {"nvidia_smi": line, "build_s": secs}
 
@@ -864,11 +870,22 @@ def _head_ce_checks(failures: list) -> dict:
     from tpu_trainer_torch.ops import head_ce
 
     out = {"checks": [], "max_abs_err": 0.0}
-    for T, H, V in ((8192, 768, 50257), (2048, 768, 1000)):
+    # The main shape, a small vocab, and T and H off a multiple of 8 (the
+    # wrapper's padded hidden dim and logits row stride).
+    for T, H, V in ((8192, 768, 50257), (2048, 768, 1000), (300, 100, 2050)):
         x, e, lab, w = _head_ce_case(T, H, V, seed=V)
         tag = f"head_ce T={T} H={H} V={V}"
         lg, lse, ll = head_ce.head_ce_forward(x, e, lab)
         torch.cuda.synchronize()
+        try:
+            # Every logit owned by one unit, the splits merged in a fixed
+            # order: logits, lse and ll bitwise the same from run to run.
+            n_bits = _bitwise_twice(
+                f"{tag} twice", lambda: head_ce.head_ce_forward(x, e, lab))
+        except AssertionError as err:
+            failures.append(str(err))
+            log("train-kernel", f"{tag}: FAILED: {err}")
+            continue
         got = {"logits": lg, "lse": lse, "ll": ll,
                "loss": ((lse - ll) * w).sum()}
         plain = dict(zip(("logits", "lse", "ll"),
@@ -899,9 +916,11 @@ def _head_ce_checks(failures: list) -> dict:
             log("train-kernel", f"{tag}: FAILED: {err}")
             continue
         errs = {n: r["vs_plain"] for n, r in near.items()}
-        out["checks"].append({"shape": [T, H, V], **errs, "truth": near})
+        out["checks"].append({"shape": [T, H, V], **errs, "truth": near,
+                              "bitwise_twice_elements": n_bits})
         out["max_abs_err"] = max(out["max_abs_err"], *errs.values())
-        log("train-kernel", tag + ": error vs the f32 truth, kernel/plain "
+        log("train-kernel", tag + f": logits, lse, ll bitwise equal over two "
+            f"runs ({n_bits} elements); error vs the f32 truth, kernel/plain "
             "bf16, max and L2: " + ", ".join(
                 f"{n} {r['max']['kernel']:.1e}/{r['max']['plain']:.1e} "
                 f"{r['l2']['kernel']:.2e}/{r['l2']['plain']:.2e}"
@@ -915,6 +934,21 @@ def _head_ce_checks(failures: list) -> dict:
             lambda i: head_ce.head_ce_reference(x, e, lab), 2, reps=3)
         out["library_ms"] = event_ms(lambda i: F.cross_entropy(
             (x @ e.T).float(), lab), 3)
+        # The floor of any library route: cuBLAS's bf16 product alone, with
+        # V padded to a multiple of 64 (50304) so its leading dimension is
+        # aligned, vocab-major as the kernel stores it.
+        e_pad = torch.zeros((-(-V // 64) * 64, H), dtype=e.dtype,
+                            device="cuda")
+        e_pad[:V] = e
+        out["cublas_product_ms"] = event_ms(lambda i: e_pad @ x.T, 3)
+        del e_pad
+    # The kernel's device time by kernel: the persistent GEMM with its
+    # epilogue, and the merge of the splits. (Inside the GEMM the profiler
+    # sees one kernel: the mainloop's and the epilogue's shares are not
+    # separable there.)
+    out["parts_ms"] = device_ms_by_kernel(
+        lambda i: head_ce.head_ce_forward(x, e, lab), 3,
+        names=("head_ce_tma_kernel", "head_ce_merge_kernel"))
     nbytes = T * H * 2 + V * H * 2 + T * 8 + V * T * 2 + 2 * T * 4
     flops = 2 * T * V * H
     t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
@@ -924,9 +958,14 @@ def _head_ce_checks(failures: list) -> dict:
     log("train-kernel", f"head_ce at T={T} H={H} V={V} bf16: kernel "
                         f"{out['ms']:.3f} ms (bound {out['bound_ms']:.4f} ms "
                         f"by {out['bound_by']}: {nbytes / 1e6:.1f} MB, "
-                        f"{flops / 1e9:.1f} GFLOP), plain "
+                        f"{flops / 1e9:.1f} GFLOP; "
+                        f"{flops / out['ms'] / 1e9:.0f} TFLOP/s), plain "
                         f"{out['plain_ms']:.3f} ms, matmul + cross_entropy "
-                        f"{out['library_ms']:.3f} ms")
+                        f"{out['library_ms']:.3f} ms, cuBLAS bf16 product "
+                        f"alone (V padded to 64) "
+                        f"{out['cublas_product_ms']:.3f} ms")
+    log("train-kernel", "head_ce device time by kernel: " + ", ".join(
+        f"{n} {v:.4f} ms" for n, v in out["parts_ms"].items()))
     return out
 
 
@@ -1135,6 +1174,32 @@ def phase_train_split(results: dict) -> dict:
             log("train-split", f"{what}: dk, dv, delta bitwise equal ({n} "
                                f"elements), dk/dv {dk.dtype} after "
                                f"{len(sums)} f32 partial sums")
+        except AssertionError as e:
+            failures.append(str(e))
+            log("train-split", f"{what}: FAILED: {e}")
+    # The split dq kernel twice on the same inputs: dq bitwise equal (its
+    # blocks own their q tiles; no cross-block sums), packed bf16 with
+    # dropout, packed GQA d = 128, fp16 across blocks and the f32 path.
+    for tag, (b, s, h, kvh, d), dt, seg in (
+            ("packed bf16", (8, 1024, 12, 12, 64), "bfloat16", main_seg),
+            ("packed GQA bf16", (2, 1024, 32, 8, 128), "bfloat16",
+             _packed_segments(2, 1024, 18)),
+            ("mixed-docs fp16", (2, 1000, 12, 12, 64), "float16",
+             _mixed_segments(1000)),
+            ("packed f32", (2, 1024, 12, 12, 64), "float32",
+             _packed_segments(2, 1024, 19))):
+        what = (f"dq kernel twice, {tag} b={b} s={s} h={h} kvh={kvh} "
+                f"d={d}")
+        try:
+            q, k, v, do = _attn_set(b, s, h, kvh, d, dt, seed=6)
+            kw = dict(dropout_rate=0.1, seed=7, segment_ids=seg,
+                      rope=rope_tables(s, d, device="cuda"))
+            o, lse, qs, ks = flash.flash_forward(q, k, v, **kw)
+            _, _, delta = flash.flash_backward_dkv(qs, ks, v, o, lse, do,
+                                                   **kw)
+            n = _bitwise_twice(what, lambda: (flash.flash_backward_dq(
+                qs, ks, v, do, lse, delta, **kw),))
+            log("train-split", f"{what}: dq bitwise equal ({n} elements)")
         except AssertionError as e:
             failures.append(str(e))
             log("train-split", f"{what}: FAILED: {e}")
@@ -1822,8 +1887,9 @@ def phase_train_moe(results: dict) -> dict:
 _KERNEL_GROUPS = (
     ("flash attention (csrc/flash_attn.cu)",
      ("flash_fwd_kernel", "flash_fwd_tma_kernel", "flash_bwd_kernel",
-      "flash_bwd_tma_kernel", "flash_bwd_dq_kernel", "rope_prep_kernel",
-      "delta_kernel", "bwd_prep_kernel", "dq_finalize_kernel")),
+      "flash_bwd_tma_kernel", "flash_bwd_dq_kernel", "flash_bwd_dq_tma_kernel",
+      "rope_prep_kernel", "delta_kernel", "bwd_prep_kernel",
+      "dq_finalize_kernel")),
     ("head + CE forward (csrc/head_ce.cu)", ("head_ce_",)),
     ("grouped matmuls (csrc/grouped_matmul.cu)", ("gmm_kernel",
                                                   "gmm_tma_kernel")),

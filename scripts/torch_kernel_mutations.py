@@ -19,6 +19,12 @@ out of step hang instead of failing):
 - ``tgmm_tail_rows_kept``: tgmm leaves the rows of a group's last chunk
   that lie past ``offsets[e + 1]`` (the next group's) unzeroed; phase
   ``gmm`` must fail.
+- ``dq_no_segment_test``: the split dq kernel (``flash_bwd_dq_tma_kernel``)
+  drops its element-wise ``qseg == kseg`` test, keeping only the tile
+  skips; phase ``train_split`` must fail.
+- ``head_ce_no_vocab_mask``: the head + CE kernel leaves the columns past
+  V of its last vocab tile (E's zero-filled rows, logit 0) in the
+  statistics; phase ``train_kernel`` must fail.
 
 Needs one CUDA GPU and nvcc; writes nothing into the checkout. Run from the
 repository root: ``python3 scripts/torch_kernel_mutations.py [name ...]``.
@@ -57,6 +63,16 @@ MUTATIONS = {
         "if (keep < kTgmmChunk) {",
         "if (keep < 0) {",
         "gmm"),
+    "dq_no_segment_test": (
+        "tpu_trainer_torch/csrc/flash_attn.cu",
+        "ok = ok && ((e & 1) ? kz.y : kz.x) == (e < 2 ? qseg_a : qseg_b);",
+        "ok = ok && kz.x == kz.x;",
+        "train_split"),
+    "head_ce_no_vocab_mask": (
+        "tpu_trainer_torch/csrc/head_ce.cu",
+        "if (ragged && v0 + col >= V) x = acc[4 * j + e] = kNeg;",
+        "if (ragged && v0 + col < 0) x = acc[4 * j + e] = kNeg;",
+        "train_kernel"),
 }
 
 

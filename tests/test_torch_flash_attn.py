@@ -476,29 +476,58 @@ def test_kernel_rejects_what_it_cannot_take(cuda_device):
                                k, v)
 
 
+def _mixed_docs(s):
+    """[2, s] ids: row 0 documents of 1 to 40 tokens (many inside one
+    tile), row 1 documents of 300 to 600 (each across tiles); both end in a
+    padding tail (id 0) that makes s ragged against every tile."""
+    rs = np.random.RandomState(s)
+    rows = []
+    for lo, hi in ((1, 41), (300, 601)):
+        ids, pos, doc = [], 0, 1
+        while pos < s - 37:
+            n = min(int(rs.randint(lo, hi)), s - 37 - pos)
+            ids += [doc] * n
+            pos, doc = pos + n, doc + 1
+        rows.append(ids + [0] * (s - pos))
+    return rows
+
+
+def _seg_ids(layout, s, device):
+    """The int32 [2, s] ids of a named layout (None: no segments)."""
+    if layout is None:
+        return None
+    ids = _mixed_docs(s) if layout == "mixed_docs" else SEG_LAYOUTS[layout]
+    return torch.tensor(ids, dtype=torch.int32, device=device)
+
+
 SEG_GPU_CASES = [
-    # (b, s, h, kvh, d, dtype, layout, rate, backward)
-    (2, 64, 4, 4, 64, "float32", "packed", 0.0, None),
-    (2, 64, 4, 2, 64, "bfloat16", "short_docs", 0.1, None),
-    (2, 64, 4, 4, 128, "bfloat16", "across_blocks", 0.0, None),
-    (2, 300, 4, 4, 64, "bfloat16", None, 0.1, "split"),
-    (1, 200, 2, 2, 128, "float32", None, 0.1, "split"),
+    # (b, s, h, kvh, d, dtype, layout, rate, backward, causal)
+    (2, 64, 4, 4, 64, "float32", "packed", 0.0, None, True),
+    (2, 64, 4, 2, 64, "bfloat16", "short_docs", 0.1, None, True),
+    (2, 64, 4, 4, 128, "bfloat16", "across_blocks", 0.0, None, True),
+    (2, 300, 4, 4, 64, "bfloat16", None, 0.1, "split", True),
+    (1, 200, 2, 2, 128, "float32", None, 0.1, "split", True),
+    # The 16-bit dq kernel's 128-row q tiles: a ragged s = 1000 with
+    # documents inside one tile and across several, and a non-causal call
+    # (every k tile reaches every q tile).
+    (2, 1000, 4, 4, 64, "bfloat16", "mixed_docs", 0.1, None, True),
+    (2, 300, 4, 2, 128, "bfloat16", None, 0.1, "split", False),
 ]
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,s,h,kvh,d,dtype,layout,rate,backward",
+@pytest.mark.parametrize("b,s,h,kvh,d,dtype,layout,rate,backward,causal",
                          SEG_GPU_CASES)
 def test_split_kernels_match_plain_on_card(cuda_device, b, s, h, kvh, d,
-                                           dtype, layout, rate, backward):
+                                           dtype, layout, rate, backward,
+                                           causal):
     """The segmented forward and the split backward (dk/dv and dq kernels)
     against the plain version, held as test_kernels_match_plain_on_card
     holds the fused pair."""
     dev = cuda_device
     dt = getattr(torch, dtype)
     q, k, v, do, _ = _inputs(h, kvh, b=b, s=s, d=d, seed=s + 1)
-    seg = None if layout is None else torch.tensor(
-        SEG_LAYOUTS[layout], dtype=torch.int32, device=dev)
+    seg = _seg_ids(layout, s, dev)
     tq, tk, tv = (torch.from_numpy(x).to(dev, dt).requires_grad_(True)
                   for x in (q, k, v))
     tdo = torch.from_numpy(do).to(dev, dt)
@@ -507,18 +536,18 @@ def test_split_kernels_match_plain_on_card(cuda_device, b, s, h, kvh, d,
     counters = (tflash.flash_backward, tflash.flash_backward_dkv,
                 tflash.flash_backward_dq)
     before = [c.launches for c in counters]
-    got = tflash.flash_attention(tq, tk, tv, segment_ids=seg,
+    got = tflash.flash_attention(tq, tk, tv, causal=causal, segment_ids=seg,
                                  backward=backward, **kw)
     got.backward(tdo)
     torch.cuda.synchronize()
     assert [c.launches - n for c, n in zip(counters, before)] == [0, 1, 1]
     _, lse, _, _ = tflash.flash_forward(tq.detach(), tk.detach(), tv.detach(),
-                                        segment_ids=seg, **kw)
+                                        causal=causal, segment_ids=seg, **kw)
     kernel = [got, lse, tq.grad, tk.grad, tv.grad]
 
     def plain(xs, grad_out):
         xs = [x.detach().clone().requires_grad_(True) for x in xs]
-        o, lse_, _, _ = tflash._reference_parts(*xs, causal=True,
+        o, lse_, _, _ = tflash._reference_parts(*xs, causal=causal,
                                                 segment_ids=seg, **kw)
         o.backward(grad_out)
         return [o, lse_] + [x.grad for x in xs]
@@ -597,3 +626,36 @@ def test_split_dkv_bitwise_twice_on_card(cuda_device, monkeypatch, h, kvh,
     assert tuple(first[2].shape) == (2, h, 64)
     for name, a, c in zip(("dk", "dv", "delta"), first, second):
         assert torch.equal(a, c), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,kvh,d,dtype,layout", [
+    (8, 1024, 4, 4, 64, "bfloat16", "packed_rows"),
+    (2, 64, 4, 2, 128, "bfloat16", "short_docs"),
+    (2, 64, 4, 4, 128, "float16", "across_blocks"),
+    (2, 64, 4, 4, 64, "float32", "packed"),
+])
+def test_split_dq_bitwise_twice_on_card(cuda_device, b, s, h, kvh, d, dtype,
+                                        layout):
+    """The split dq kernel twice on the same inputs under dropout: dq
+    bitwise equal (each block owns its q tile and sums its k tiles in
+    order). "packed_rows": rows of the port's packer at the packed path's
+    b and s."""
+    dev, dt = cuda_device, getattr(torch, dtype)
+    q, k, v, do = (torch.from_numpy(x).to(dev, dt)
+                   for x in _inputs(h, kvh, b=b, s=s, d=d, seed=9)[:4])
+    if layout == "packed_rows":
+        from tpu_trainer_torch.data.packing import packed_synthetic_loader
+        rows = next(iter(packed_synthetic_loader(b, s, 50257, 1, 17)))
+        seg = torch.as_tensor(rows[..., 1], dtype=torch.int32, device=dev)
+    else:
+        seg = _seg_ids(layout, s, dev)
+    kw = dict(dropout_rate=0.1, seed=5, rope=rope_tables(s, d, device=dev),
+              segment_ids=seg)
+    o, lse, qs, ks = tflash.flash_forward(q, k, v, **kw)
+    _, _, delta = tflash.flash_backward_dkv(qs, ks, v, o, lse, do, **kw)
+    first = tflash.flash_backward_dq(qs, ks, v, do, lse, delta, **kw).clone()
+    second = tflash.flash_backward_dq(qs, ks, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert first.dtype == dt
+    assert torch.equal(first, second)

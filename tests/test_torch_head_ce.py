@@ -162,6 +162,81 @@ def test_pallas_rule_is_cuda_bf16_in_range():
     assert thce.head_ce_forward.launches == before
 
 
+@pytest.mark.parametrize("T,V,sms", [(8192, 50257, 132), (2048, 50257, 132),
+                                     (300, 2050, 132), (256, 97, 132),
+                                     (8192, 50257, 114), (200, 300, 7)])
+def test_work_split_covers_every_tile_once(T, V, sms):
+    """The kernel's persistent walk (unit u = token tile u % nt, split
+    u // nt; block b takes units b, b + grid, ...) over work_split's count
+    covers every (token tile, vocab tile) once, leaves no split empty, and
+    gives the busiest block the fewest vocab tiles of any split count."""
+    bt, bv = thce._BLOCK_T, thce._BLOCK_V
+    nt, nv = -(-T // bt), -(-V // bv)
+
+    def walk(n):
+        tps = -(-nv // n)
+        units = nt * n
+        grid = min(sms, units)
+        seen, busiest = [], 0
+        for blk in range(grid):
+            tiles = 0
+            for u in range(blk, units, grid):
+                vts = range(u // nt * tps, min(nv, (u // nt + 1) * tps))
+                seen += [(u % nt, vt) for vt in vts]
+                tiles += len(vts)
+            busiest = max(busiest, tiles)
+        return seen, busiest, tps
+
+    n = thce.work_split(T, V, sms)
+    seen, busiest, tps = walk(n)
+    assert sorted(seen) == [(t, v) for t in range(nt) for v in range(nv)]
+    assert (n - 1) * tps < nv
+    assert busiest == min(walk(m)[1] for m in range(1, nv + 1)
+                          if (m - 1) * -(-nv // m) < nv)
+
+
+def test_pad_hidden_keeps_the_logits():
+    """H off a multiple of 8 gets zero columns (TMA's 16-byte rows); the
+    plain version's logits, lse and label logit on the padded operands are
+    those of the originals."""
+    rs = np.random.RandomState(4)
+    x = torch.from_numpy(rs.standard_normal((30, 100)).astype(np.float32))
+    e = torch.from_numpy(rs.standard_normal((50, 100)).astype(np.float32))
+    lab = torch.from_numpy(rs.randint(0, 50, 30))
+    xp, ep = thce._pad_hidden(x, e)
+    assert xp.shape == (30, 104) and ep.shape == (50, 104)
+    assert torch.equal(xp[:, :100], x) and not xp[:, 100:].any()
+    assert torch.equal(ep[:, :100], e) and not ep[:, 100:].any()
+    for a, b in zip(thce.head_ce_reference(xp, ep, lab),
+                    thce.head_ce_reference(x, e, lab)):
+        torch.testing.assert_close(a, b, **TOL)
+    x8, e8 = x[:, :96].contiguous(), e[:, :96].contiguous()
+    assert thce._pad_hidden(x8, e8) == (x8, e8)
+
+
+@pytest.mark.parametrize("T,ldt", [(300, 304), (8192, 8192), (5, 8)])
+def test_logits_buffer_rows_are_16_byte_strided(T, ldt):
+    """The kernel's [V, T] logits have rows a multiple of 8 elements apart;
+    head_ce_grads takes the strided view as it takes a contiguous copy."""
+    buf = thce._logits_buffer(7, T, torch.zeros((), dtype=torch.bfloat16))
+    assert buf.shape == (7, T) and buf.stride() == (ldt, 1)
+    assert buf.dtype == torch.bfloat16
+    assert buf.is_contiguous() == (T == ldt)
+    if T > 8:
+        return
+    rs = np.random.RandomState(T)
+    x = torch.from_numpy(rs.standard_normal((T, 16)).astype(np.float32))
+    e = torch.from_numpy(rs.standard_normal((7, 16)).astype(np.float32))
+    lab = torch.from_numpy(rs.randint(0, 7, T))
+    lg, lse, _ = thce.head_ce_reference(x, e, lab)
+    view = thce._logits_buffer(7, T, lg)
+    view.copy_(lg)
+    w = torch.full((T,), 1.0 / T)
+    for a, b in zip(thce.head_ce_grads(view, lse, lab, w, x, e),
+                    thce.head_ce_grads(lg.clone(), lse, lab, w, x, e)):
+        assert torch.equal(a, b)
+
+
 # -- on the card -------------------------------------------------------------
 
 @pytest.fixture
@@ -173,9 +248,11 @@ def cuda_device():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("T,H,V", [(256, 64, 97), (300, 768, 2050),
+@pytest.mark.parametrize("T,H,V", [(256, 64, 97),
+                                   (300, 768, 2050),   # T % 8: padded rows
                                    (2048, 96, 50257),
-                                   (200, 100, 300)])   # H % 8: scalar staging
+                                   (200, 100, 300),    # H % 8: padded H
+                                   (8192, 768, 50257)])  # the training shape
 def test_kernel_matches_plain_on_card(cuda_device, T, H, V):
     rs = np.random.RandomState(T)
     x = torch.from_numpy(rs.standard_normal((T, H)).astype(np.float32))
@@ -195,6 +272,26 @@ def test_kernel_matches_plain_on_card(cuda_device, T, H, V):
                                rtol=2**-7)
     torch.testing.assert_close(lse, rlse, atol=1e-3, rtol=1e-5)
     torch.testing.assert_close(ll, rll, atol=1e-3, rtol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,H,V,dtype", [(8192, 768, 50257, "bfloat16"),
+                                         (300, 100, 2050, "float16")])
+def test_kernel_bitwise_twice_on_card(cuda_device, T, H, V, dtype):
+    """Every logit is owned by one unit of the persistent grid and the vocab
+    splits merge in a fixed order: logits, lse and ll are bitwise the same
+    from run to run."""
+    rs = np.random.RandomState(V)
+    x = torch.from_numpy(rs.standard_normal((T, H)).astype(np.float32))
+    e = torch.from_numpy((rs.standard_normal((V, H)) * 0.05).astype(np.float32))
+    lab = torch.from_numpy(rs.randint(0, V, T).astype(np.int64))
+    dt = getattr(torch, dtype)
+    x, e, lab = x.to(cuda_device, dt), e.to(cuda_device, dt), lab.to(cuda_device)
+    first = [t.clone() for t in thce.head_ce_forward(x, e, lab)]
+    second = thce.head_ce_forward(x, e, lab)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("logits", "lse", "ll"), first, second):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.gpu

@@ -121,25 +121,46 @@
 // the split dq kernel. Its first design wrote f32 S and dP tiles to shared
 // memory, walked them one element a thread, loaded tiles synchronously and
 // always wrote f32 partials: 41x its bound.
-// - The f32 instantiations, the split dq kernel and the mask dump keep the
-//   first design below.
 //
-// The first design, which the f32 forward and backwards and the split dq
-// kernel keep:
+// The bf16/fp16 split dq kernel (flash_bwd_dq_tma_kernel, replacing
+// _bwd_dq_kernel on the packed path) is the forward's structure with the
+// backward's chain. Its first design (nvcuda::wmma 16x16 products through
+// shared memory, S and dP as f32 tiles there walked one element a thread,
+// synchronous K/V loads, the segment ids reloaded and tested for every k
+// tile, four to five barriers a tile) ran at 44x its bound. This design:
+// - A block owns a 128-row q tile of one (head, batch): warps 0-7 are two
+//   consumer warpgroups of 64 rows, warpgroup 2 the producer (setmaxnreg
+//   24; consumers 240). The producer loads Q and dO once and keeps 64-key
+//   K/V tiles arriving through a ring of 3 stages (DqTmaSmem says why),
+//   each with its keys' segment ids, written by the producer warp's lanes
+//   before the stage completes (no padded copy needed). The q tiles with
+//   the most causal work launch first.
+// - S = Q K^T and dP = dO V^T are SS wgmma into f32 registers; each thread's
+//   two rows' lse, delta and ids are loaded once. dS = P (dP' - delta) is
+//   formed in registers (masks and the hash only on tiles that touch the
+//   diagonal, the ragged edge or segments), rounded in place into 16-bit
+//   pairs and fed as the register A operand of dQ += dS K, K read MN-major
+//   through the transpose bit. dQ stays in registers over the whole k walk.
+// - Segments: producer and consumers walk one block-uniform list of k tiles
+//   whose id interval meets the q tile's (seg_range_g, the dk/dv kernel's
+//   rule mirrored); a warpgroup skips a listed tile that misses its own 64
+//   rows but still frees the stage.
+// - The epilogue scales dQ and un-rotates it within the thread (columns c
+//   and c + d/2 are the same thread's) and writes dq once in T, masked at s:
+//   no atomics and no turns, bitwise the same from run to run.
+// - The f32 instantiations and the mask dump keep the first design below.
+//
+// The first design, which the f32 forward, backwards and dq kernel keep:
 // - One thread block per (q tile, head, batch) in the f32 forward and in
 //   the split dq kernel, walking the causally needed k tiles in a loop (the
 //   TPU walks a sequential grid axis); one block per (k tile, head, batch)
 //   in the fused backward and the split dk/dv kernel, walking the q tiles
-//   at or below the diagonal. Tiles are 64x64 for bf16/fp16 and 32x32 for
-//   f32 (shared memory), the ragged edge (s not a multiple of the tile)
-//   masked in the kernel, so every s runs here.
-// - The products dO V^T, P^T dO, dS^T Q and dS K (and the backwards'
-//   recomputed QK^T) run on the tensor cores through nvcuda::wmma 16x16x16
-//   bf16/fp16 fragments with f32 accumulators (the split dq kernel),
-//   operands staged in shared memory; f32 inputs take the same structure
-//   with the products on the CUDA cores (exact f32). Masking, dropout and
-//   the score gradients are scalar f32 code over the f32 score tile in
-//   shared memory.
+//   at or below the diagonal. Tiles are 32x32 (shared memory), the ragged
+//   edge (s not a multiple of the tile) masked in the kernel, so every s
+//   runs here.
+// - The products run on the CUDA cores in exact f32, operands staged in
+//   shared memory. Masking, dropout and the score gradients are scalar f32
+//   code over the f32 score tile in shared memory.
 // - RoPE as in flash.py:195-214: f32 rotation, 1/sqrt(d) folded into q,
 //   cast to the compute type. A prologue pass of the forward call rotates
 //   q and k once and writes them as the backward's residuals (flash.py:
@@ -186,7 +207,6 @@
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -234,117 +254,33 @@ __device__ __forceinline__ float warp_max(float v) {
 }
 
 // C[M, N] (f32, row-major, ldc) = or += A[M, K] * B[K, N], all in shared
-// memory. A_COL: A stored column-major (element (m, k) at A[k * lda + m]);
-// B_COL: element (k, n) at B[n * ldb + k]. M, N, K multiples of 16. The
-// whole block calls it; each warp owns whole 16x16 output fragments.
+// memory, on the CUDA cores in exact f32 (the checking path's products).
+// A_COL: A stored column-major (element (m, k) at A[k * lda + m]); B_COL:
+// element (k, n) at B[n * ldb + k]. The whole block calls it.
 template <typename T, bool A_COL, bool B_COL, bool ACC>
 __device__ __forceinline__ void tile_mma(const T* A, int lda, const T* B,
                                          int ldb, float* C, int ldc, int M,
                                          int N, int K) {
-  if constexpr (std::is_same<T, float>::value) {
-    for (int e = threadIdx.x; e < M * N; e += blockDim.x) {
-      const int m = e / N;
-      const int n = e - m * N;
-      float c = ACC ? C[m * ldc + n] : 0.f;
-      for (int k = 0; k < K; ++k) {
-        const float a = A_COL ? A[k * lda + m] : A[m * lda + k];
-        const float b = B_COL ? B[n * ldb + k] : B[k * ldb + n];
-        c = fmaf(a, b, c);
-      }
-      C[m * ldc + n] = c;
+  static_assert(std::is_same<T, float>::value, "the f32 checking path only");
+  for (int e = threadIdx.x; e < M * N; e += blockDim.x) {
+    const int m = e / N;
+    const int n = e - m * N;
+    float c = ACC ? C[m * ldc + n] : 0.f;
+    for (int k = 0; k < K; ++k) {
+      const float a = A_COL ? A[k * lda + m] : A[m * lda + k];
+      const float b = B_COL ? B[n * ldb + k] : B[k * ldb + n];
+      c = fmaf(a, b, c);
     }
-  } else {
-    using namespace nvcuda;
-    using ALayout =
-        typename std::conditional<A_COL, wmma::col_major, wmma::row_major>::type;
-    using BLayout =
-        typename std::conditional<B_COL, wmma::col_major, wmma::row_major>::type;
-    const int warp = threadIdx.x >> 5;
-    const int nwarps = blockDim.x >> 5;
-    const int tn = N / 16;
-    const int frags = (M / 16) * tn;
-    for (int f = warp; f < frags; f += nwarps) {
-      const int i = f / tn;
-      const int j = f - i * tn;
-      float* cp = C + i * 16 * ldc + j * 16;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-      if (ACC) {
-        wmma::load_matrix_sync(c, cp, ldc, wmma::mem_row_major);
-      } else {
-        wmma::fill_fragment(c, 0.f);
-      }
-      for (int k0 = 0; k0 < K; k0 += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, T, ALayout> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, BLayout> b;
-        const T* ap = A_COL ? A + k0 * lda + i * 16 : A + i * 16 * lda + k0;
-        const T* bp = B_COL ? B + j * 16 * ldb + k0 : B + k0 * ldb + j * 16;
-        wmma::load_matrix_sync(a, ap, lda);
-        wmma::load_matrix_sync(b, bp, ldb);
-        wmma::mma_sync(c, a, b, c);
-      }
-      wmma::store_matrix_sync(cp, c, ldc, wmma::mem_row_major);
-    }
+    C[m * ldc + n] = c;
   }
 }
 
-// An [M, N] f32 tile accumulated in registers across calls (the
-// backward's dK and dV over its q-tile loop): each warp owns whole 16x16
-// WMMA fragments (f32 inputs: each thread owns M*N/NT elements).
+// An [M, N] f32 tile accumulated in registers across calls (the f32
+// backwards' dK and dV over their q-tile walk, the f32 dq kernel's dQ):
+// each thread owns M*N/NT elements.
 template <typename T, int M, int N, int NT>
 struct Acc {
-  static constexpr int kWarps = NT / 32;
-  static constexpr int kFrags = (M / 16) * (N / 16) / kWarps;
-  static_assert((M / 16) * (N / 16) % kWarps == 0, "fragments per warp");
-  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float>
-      f[kFrags];
-
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int i = 0; i < kFrags; ++i) nvcuda::wmma::fill_fragment(f[i], 0.f);
-  }
-
-  // this += A[M, K] * B[K, N] (layouts as tile_mma's).
-  template <bool A_COL, bool B_COL>
-  __device__ __forceinline__ void mma(const T* A, int lda, const T* B,
-                                      int ldb, int K) {
-    using namespace nvcuda;
-    using ALayout =
-        typename std::conditional<A_COL, wmma::col_major, wmma::row_major>::type;
-    using BLayout =
-        typename std::conditional<B_COL, wmma::col_major, wmma::row_major>::type;
-    const int warp = threadIdx.x >> 5;
-#pragma unroll
-    for (int i = 0; i < kFrags; ++i) {
-      const int fi = warp + i * kWarps;
-      const int r = fi / (N / 16);
-      const int c = fi - r * (N / 16);
-      for (int k0 = 0; k0 < K; k0 += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, T, ALayout> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, BLayout> b;
-        wmma::load_matrix_sync(
-            a, A_COL ? A + k0 * lda + r * 16 : A + r * 16 * lda + k0, lda);
-        wmma::load_matrix_sync(
-            b, B_COL ? B + c * 16 * ldb + k0 : B + k0 * ldb + c * 16, ldb);
-        wmma::mma_sync(f[i], a, b, f[i]);
-      }
-    }
-  }
-
-  __device__ __forceinline__ void store(float* C, int ldc) const {
-    const int warp = threadIdx.x >> 5;
-#pragma unroll
-    for (int i = 0; i < kFrags; ++i) {
-      const int fi = warp + i * kWarps;
-      const int r = fi / (N / 16);
-      const int c = fi - r * (N / 16);
-      nvcuda::wmma::store_matrix_sync(C + r * 16 * ldc + c * 16, f[i], ldc,
-                                      nvcuda::wmma::mem_row_major);
-    }
-  }
-};
-
-template <int M, int N, int NT>
-struct Acc<float, M, N, NT> {
+  static_assert(std::is_same<T, float>::value, "the f32 checking path only");
   static constexpr int kPer = M * N / NT;
   static_assert(M * N % NT == 0, "elements per thread");
   float v[kPer];
@@ -354,6 +290,7 @@ struct Acc<float, M, N, NT> {
     for (int i = 0; i < kPer; ++i) v[i] = 0.f;
   }
 
+  // this += A[M, K] * B[K, N] (layouts as tile_mma's).
   template <bool A_COL, bool B_COL>
   __device__ __forceinline__ void mma(const float* A, int lda, const float* B,
                                       int ldb, int K) {
@@ -1911,6 +1848,314 @@ __global__ void __launch_bounds__(kBwdTmaThreads, 1)
   }
 }
 
+// -- the bf16/fp16 split dq kernel: TMA ring, wgmma, dQ in registers --------
+
+constexpr int kDqBQ = 128;                // q rows a block: two warpgroups of 64
+constexpr int kDqConsumers = 256;         // two consumer warpgroups
+constexpr int kDqTmaThreads = kDqConsumers + 128;  // + a producer warpgroup
+
+// Shared memory of the split dq kernel at head dim D (tiles 1024-byte
+// aligned): the block's Q and dO tiles (D / 64 boxes of [128 q][64] each), a
+// ring of K/V stages (D / 64 boxes of [BK keys][64] for K, then for V), the
+// segment ids of each stage's keys, and the mbarriers. BK = 64 keys: at
+// D = 128 S, dP and dQ in f32 registers would not fit beside a 128-key
+// tile, and at D = 64 a 128-key tile (or a ring of 2 or 4 stages) measured
+// the same time and spilled (scripts/torch_kernel_variants.py).
+template <int D>
+struct DqTmaSmem {
+  static constexpr int BK = 64;
+  static constexpr int kStages = 3;
+  static constexpr int kQBytes = kDqBQ * D * 2;    // the Q or the dO tile
+  static constexpr int kTileBytes = BK * D * 2;    // one K or V tile
+  static constexpr int kStageBytes = 2 * kTileBytes;
+  static constexpr int kRingOffset = 2 * kQBytes;
+  static constexpr int kSegOffset = kRingOffset + kStages * kStageBytes;
+  static constexpr int kBarOffset = kSegOffset + kStages * BK * 4;
+  // q barrier, then full[kStages], then empty[kStages]
+  static constexpr int kBytes = kBarOffset + 8 * (1 + 2 * kStages) + 1024;
+};
+
+struct DqTmaParams {
+  CUtensorMap q;   // qs [b, s, h, D]: boxes {64, 1, 128, 1}
+  CUtensorMap d;   // dout [b, s, h, D]: the same boxes
+  CUtensorMap k;   // ks [b, s, kvh, D]: boxes {64, 1, BK, 1}
+  CUtensorMap v;   // v [b, s, kvh, D]: the same boxes
+  BwdParams f;     // lse [b, h, s]; delta [b, h, s_pad]; dq [b, s, h, D] in
+                   // T; seg [b, s] ids or null
+};
+
+// The split backward's dq kernel (tpu_trainer/ops/flash.py::_bwd_dq_kernel),
+// bf16/fp16: one block per (128-row q tile, head, batch), the q tiles with
+// the most causal work first (blockIdx.y counts down the diagonal). Warps 0-7
+// are two consumer warpgroups of 64 q rows with dQ in registers over the
+// whole k walk; warpgroup 2 is the producer (warp 8 loads). The f32
+// instantiation takes flash_bwd_dq_kernel.
+template <typename T, int D>
+__global__ void __launch_bounds__(kDqTmaThreads, 1)
+    flash_bwd_dq_tma_kernel(const __grid_constant__ DqTmaParams p) {
+  using namespace hopper;
+  using L = DqTmaSmem<D>;
+  constexpr int BK = L::BK;
+  constexpr int S = L::kStages;
+  const BwdParams& f = p.f;
+  const int s = f.s, h = f.h;
+  const int ih = blockIdx.x % h;
+  const int ib = blockIdx.x / h;
+  const int nq = (s + kDqBQ - 1) / kDqBQ;
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.y)) * kDqBQ;
+  const int ikv = ih / (h / f.kvh);
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int* seg =
+      f.seg != nullptr ? f.seg + static_cast<size_t>(ib) * s : nullptr;
+  const int nk = (s + BK - 1) / BK;
+  const int jend = f.causal ? min((q0 + kDqBQ + BK - 1) / BK, nk) : nk;
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t q_s = smem_u32(base);
+  const uint32_t do_s = q_s + L::kQBytes;
+  const uint32_t ring = q_s + L::kRingOffset;
+  int* kseg_ring = reinterpret_cast<int*>(base + L::kSegOffset);  // [S][BK]
+  const uint32_t bars = smem_u32(base + L::kBarOffset);
+  const uint32_t q_bar = bars;
+  auto full = [&](int st) { return bars + 8 * (1 + st); };
+  auto empty = [&](int st) { return bars + 8 * (1 + S + st); };
+  auto k_tile = [&](int st) { return ring + st * L::kStageBytes; };
+  auto v_tile = [&](int st) { return k_tile(st) + L::kTileBytes; };
+
+  if (tid == 0) {
+    mbar_init(q_bar, 1);
+    for (int st = 0; st < S; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), kDqConsumers / 32);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  // Segments: the block walks the k tiles whose id interval meets its q
+  // tile's (the dk/dv kernel's rule, mirrored). Each warp evaluates it alike,
+  // so producer and consumers walk one list (a mismatch hangs).
+  const int2 qr =
+      seg != nullptr ? seg_range_g(seg, q0, kDqBQ, s) : make_int2(0, 0);
+  auto tile_needed = [&](int j, int2* kr) {
+    if (seg == nullptr) return true;
+    *kr = seg_range_g(seg, j * BK, BK, s);
+    return qr.x <= kr->y && kr->x <= qr.y;
+  };
+
+  if (warp >= kDqConsumers / 32) {
+    regs_dealloc<24>();
+    if (warp == kDqConsumers / 32) {
+      // Producer: Q and dO once, then K, V and the keys' ids of each k tile
+      // the block walks. The ids (-1 past s) are written by the warp's lanes
+      // into the stage before lane 0's arrival completes it.
+      if (lane == 0) {
+        mbar_expect_tx(q_bar, 2 * L::kQBytes);
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load_4d(q_s + c * kDqBQ * 128, &p.q, q_bar, c * 64, ih, q0, ib);
+          tma_load_4d(do_s + c * kDqBQ * 128, &p.d, q_bar, c * 64, ih, q0,
+                      ib);
+        }
+      }
+      int n = 0;
+      for (int j = 0; j < jend; ++j) {
+        int2 kr;
+        if (!tile_needed(j, &kr)) continue;
+        const int st = n % S;
+        const int k0 = j * BK;
+        mbar_wait(empty(st), ((n / S) & 1) ^ 1);
+        if (seg != nullptr) {
+          int* ids = kseg_ring + st * BK;
+          for (int i = lane; i < BK; i += 32)
+            ids[i] = k0 + i < s ? __ldg(seg + k0 + i) : -1;
+        }
+        __syncwarp();
+        if (lane == 0) {
+          mbar_expect_tx(full(st), L::kStageBytes);
+          for (int c = 0; c < D / 64; ++c) {
+            tma_load_4d(k_tile(st) + c * BK * 128, &p.k, full(st), c * 64,
+                        ikv, k0, ib);
+            tma_load_4d(v_tile(st) + c * BK * 128, &p.v, full(st), c * 64,
+                        ikv, k0, ib);
+          }
+        }
+        __syncwarp();
+        ++n;
+      }
+    }
+    return;
+  }
+
+  regs_alloc<240>();
+  // Consumers: warpgroup wg owns q rows [wg_row0, wg_row0 + 64); this thread
+  // holds rows row_a and row_b = row_a + 8 of each accumulator (S, dP: [64,
+  // BK]; dQ: [64, D]), and their lse (log2 units), delta and segment ids.
+  const int wg = warp >> 2;
+  const int t4 = lane & 3;
+  const int wg_row0 = q0 + 64 * wg;
+  const int row_a = wg_row0 + 16 * (warp & 3) + (lane >> 2);
+  const int row_b = row_a + 8;
+  const bool wg_live = wg_row0 < s;
+  const size_t hb = static_cast<size_t>(ib) * h + ih;
+  const int s_pad = pad_rows(s);
+  // Rows past s: lse = +inf, so p = 0 there (nothing of them is written).
+  const float lse_a = row_a < s ? f.lse[hb * s + row_a] * kLog2e : INFINITY;
+  const float lse_b = row_b < s ? f.lse[hb * s + row_b] * kLog2e : INFINITY;
+  const float dl_a = row_a < s ? f.delta[hb * s_pad + row_a] : 0.f;
+  const float dl_b = row_b < s ? f.delta[hb * s_pad + row_b] : 0.f;
+  const int qseg_a = seg != nullptr && row_a < s ? __ldg(seg + row_a) : -2;
+  const int qseg_b = seg != nullptr && row_b < s ? __ldg(seg + row_b) : -2;
+  const int2 wr =
+      seg != nullptr ? seg_range_g(seg, wg_row0, 64, s) : make_int2(0, 0);
+  const float inv_keep = 1.f / f.keep_prob;
+  const uint32_t hkey = dropout_hash::stream_key(
+      f.seed, static_cast<uint32_t>(ib * h + ih));
+  const Elem<T> et{};
+
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+  mbar_wait(q_bar, 0);
+
+  int n = 0;
+  for (int j = 0; j < jend; ++j) {
+    const int k0 = j * BK;
+    int2 kr;
+    if (!tile_needed(j, &kr)) continue;
+    const int st = n % S;
+    mbar_wait(full(st), (n / S) & 1);
+    ++n;
+    // The warpgroup computes the listed tiles that reach its rows: not
+    // wholly above their diagonal, and with segments meeting their ids. It
+    // frees every stage either way.
+    if (wg_live && (!f.causal || k0 <= wg_row0 + 63) &&
+        (seg == nullptr || (wr.x <= kr.y && kr.x <= wr.y))) {
+      // S = Q K^T and dP = dO V^T: [64, BK] f32 each.
+      float sc[BK / 2], dp[BK / 2];
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) sc[i] = dp[i] = 0.f;
+      fence_regs(sc);
+      fence_regs(dp);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t qo = (kk / 4) * kDqBQ * 128 + wg * 64 * 128 + (kk % 4) * 32;
+        const uint32_t ko = (kk / 4) * BK * 128 + (kk % 4) * 32;
+        wgmma_ss<0>(Shape<BK>{}, et, sc, desc_sw128(q_s + qo, 16, 1024),
+                    desc_sw128(k_tile(st) + ko, 16, 1024), kk > 0 ? 1 : 0);
+        wgmma_ss<0>(Shape<BK>{}, et, dp, desc_sw128(do_s + qo, 16, 1024),
+                    desc_sw128(v_tile(st) + ko, 16, 1024), kk > 0 ? 1 : 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+
+      // dS = P (dP' - delta), P = exp(S - lse), into sc. The masks (causal,
+      // ragged keys, segments) only on tiles that touch the diagonal, the
+      // ragged edge or segments; a masked element gets p = 0, what the
+      // reference's masked score (-inf, or -1e30 with segments) gives.
+      const bool edge = seg != nullptr || k0 + BK > s ||
+                        (f.causal && k0 + BK - 1 > wg_row0);
+      const int* kseg = kseg_ring + st * BK;
+#pragma unroll
+      for (int jj = 0; jj < BK / 8; ++jj) {
+        const int c = 8 * jj + 2 * t4;
+        const int2 kz = seg != nullptr ? *reinterpret_cast<const int2*>(kseg + c)
+                                       : make_int2(0, 0);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = e < 2 ? row_a : row_b;
+          const int col = k0 + c + (e & 1);
+          float pv = fast_exp2(
+              fmaf(sc[4 * jj + e], kLog2e, -(e < 2 ? lse_a : lse_b)));
+          if (edge) {
+            bool ok = col < s && (!f.causal || col <= row);
+            if (seg != nullptr)
+              ok = ok && ((e & 1) ? kz.y : kz.x) == (e < 2 ? qseg_a : qseg_b);
+            if (!ok) pv = 0.f;
+          }
+          float dpv = dp[4 * jj + e];
+          if (f.dropout)
+            dpv = dropout_hash::keep(hkey, static_cast<uint32_t>(row),
+                                     static_cast<uint32_t>(col),
+                                     static_cast<uint32_t>(s), f.threshold)
+                      ? dpv * inv_keep
+                      : 0.f;
+          sc[4 * jj + e] = pv * (dpv - (e < 2 ? dl_a : dl_b));
+        }
+      }
+      // dQ += dS K: dS rounded to T as the register A operand (k16 step kk
+      // covers keys 16 kk ..), K read MN-major through the transpose bit.
+      uint32_t da[BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          da[kk][r] = pack2(et, sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+      fence_regs(dq);
+      fence_regs(da);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_rs<1>(Shape<D>{}, et, dq, da[kk],
+                    desc_sw128(k_tile(st) + kk * 16 * 128, BK * 128, 1024), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dq);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(st));
+  }
+  if (!wg_live) return;
+
+  // Epilogue: dq = unrotate(scale * dQ), cast to T once, masked at s.
+  // Columns c and c + D/2 (the rotation's partners) are this thread's:
+  // n8 blocks jj and jj + D/16. Rounded as unrope_elem rounds.
+  T* out = static_cast<T*>(f.dq);
+  const bool rope = f.cos != nullptr;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = half == 0 ? row_a : row_b;
+    if (row >= s) continue;
+    T* orow = out + ((static_cast<size_t>(ib) * s + row) * h + ih) * D;
+#pragma unroll
+    for (int jj = 0; jj < D / 16; ++jj) {
+      const int c = 8 * jj + 2 * t4;
+      float a[2], b[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        a[e] = dq[4 * jj + 2 * half + e] * f.scale;
+        b[e] = dq[4 * (jj + D / 16) + 2 * half + e] * f.scale;
+      }
+      if (rope) {
+        const float2 cl = __ldg(reinterpret_cast<const float2*>(
+            f.cos + static_cast<size_t>(row) * D + c));
+        const float2 ch = __ldg(reinterpret_cast<const float2*>(
+            f.cos + static_cast<size_t>(row) * D + c + D / 2));
+        const float2 sl = __ldg(reinterpret_cast<const float2*>(
+            f.sin + static_cast<size_t>(row) * D + c));
+        const float2 sh = __ldg(reinterpret_cast<const float2*>(
+            f.sin + static_cast<size_t>(row) * D + c + D / 2));
+        const float cla[2] = {cl.x, cl.y}, cha[2] = {ch.x, ch.y};
+        const float sla[2] = {sl.x, sl.y}, sha[2] = {sh.x, sh.y};
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float ga = a[e], gb = b[e];
+          a[e] = __fadd_rn(__fmul_rn(ga, cla[e]), __fmul_rn(gb, sha[e]));
+          b[e] = __fadd_rn(__fmul_rn(gb, cha[e]), -__fmul_rn(ga, sla[e]));
+        }
+      }
+      *reinterpret_cast<uint32_t*>(orow + c) = pack2(et, a[0], a[1]);
+      *reinterpret_cast<uint32_t*>(orow + c + D / 2) = pack2(et, b[0], b[1]);
+    }
+  }
+}
+
 __global__ void keep_mask_kernel(uint8_t* __restrict__ out, uint32_t key,
                                  int seq, uint32_t threshold, int bq, int bk,
                                  int kmajor) {
@@ -1929,9 +2174,12 @@ __global__ void keep_mask_kernel(uint8_t* __restrict__ out, uint32_t key,
   }
 }
 
+// The first design's square tile: only its f32 instantiations remain (the
+// checking path; every 16-bit call takes a TMA/wgmma kernel).
 template <typename T>
 constexpr int tile_of() {
-  return sizeof(T) == 4 ? 32 : 64;
+  static_assert(std::is_same<T, float>::value, "the f32 checking path only");
+  return 32;
 }
 
 template <typename T, int D>
@@ -2147,16 +2395,52 @@ cudaError_t launch_bwd_tma(const BwdParams& p, const void* o, float* scratch,
   return launch_dq_finalize<T, D, true>(p, s_pad, stream);
 }
 
+// The split dq kernel: the first design for f32 (the checking path),
+// flash_bwd_dq_tma_kernel for bf16/fp16.
 template <typename T, int D>
 cudaError_t launch_dq(const BwdParams& p, cudaStream_t stream) {
-  constexpr int B = tile_of<T>();
-  const size_t smem = dq_smem<T, D>();
-  auto kernel = flash_bwd_dq_kernel<T, D, B>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((p.s + B - 1) / B, p.h, p.b);
-  kernel<<<grid, kBwdThreads, smem, stream>>>(p);
-  return cudaGetLastError();
+  if constexpr (std::is_same<T, float>::value) {
+    constexpr int B = tile_of<T>();
+    const size_t smem = dq_smem<T, D>();
+    auto kernel = flash_bwd_dq_kernel<T, D, B>;
+    cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    dim3 grid((p.s + B - 1) / B, p.h, p.b);
+    kernel<<<grid, kBwdThreads, smem, stream>>>(p);
+    return cudaGetLastError();
+  } else {
+    using L = DqTmaSmem<D>;
+    DqTmaParams a;
+    a.f = p;
+    const bool fp16 = std::is_same<T, __half>::value;
+    const cuuint64_t e = sizeof(T);
+    const cuuint64_t dq[4] = {D, static_cast<cuuint64_t>(p.h),
+                              static_cast<cuuint64_t>(p.s),
+                              static_cast<cuuint64_t>(p.b)};
+    const cuuint64_t sq[3] = {D * e, p.h * D * e,
+                              static_cast<cuuint64_t>(p.s) * p.h * D * e};
+    const cuuint64_t dk[4] = {D, static_cast<cuuint64_t>(p.kvh),
+                              static_cast<cuuint64_t>(p.s),
+                              static_cast<cuuint64_t>(p.b)};
+    const cuuint64_t sk[3] = {D * e, p.kvh * D * e,
+                              static_cast<cuuint64_t>(p.s) * p.kvh * D * e};
+    const cuuint32_t box_q[4] = {64, 1, kDqBQ, 1};
+    const cuuint32_t box_k[4] = {64, 1, L::BK, 1};
+    cudaError_t err = hopper_host::make_map(&a.q, fp16, 4, p.qs, dq, sq, box_q);
+    if (err == cudaSuccess)
+      err = hopper_host::make_map(&a.d, fp16, 4, p.dout, dq, sq, box_q);
+    if (err == cudaSuccess)
+      err = hopper_host::make_map(&a.k, fp16, 4, p.ks, dk, sk, box_k);
+    if (err == cudaSuccess)
+      err = hopper_host::make_map(&a.v, fp16, 4, p.v, dk, sk, box_k);
+    if (err != cudaSuccess) return err;
+    auto kernel = flash_bwd_dq_tma_kernel<T, D>;
+    err = allow_smem(kernel, L::kBytes);
+    if (err != cudaSuccess) return err;
+    dim3 grid(p.h * p.b, (p.s + kDqBQ - 1) / kDqBQ);
+    kernel<<<grid, kDqTmaThreads, L::kBytes, stream>>>(a);
+    return cudaGetLastError();
+  }
 }
 
 template <typename T>

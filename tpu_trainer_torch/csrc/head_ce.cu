@@ -1,6 +1,6 @@
 // Fused LM-head + cross-entropy forward for Hopper (sm_90a): logits of the
 // tied head, stored vocab-major in the compute type, with the softmax
-// statistics folded in while each logits tile is still on the chip.
+// statistics folded in while each logits tile is still in registers.
 //
 // Replaces the Pallas TPU kernel tpu_trainer/ops/head_ce.py::
 // _head_ce_fwd_kernel (head_ce.py:67, the pallas_call at :144). The Python
@@ -12,26 +12,39 @@
 // a byte, above the H100's ~295 flops/byte bf16 balance point (989 TFLOP/s
 // over 3.35 TB/s, NVIDIA data sheet): the tensor cores are the limit.
 //
-// Design:
-// - The logits product is in this kernel: nvcuda::wmma 16x16x16 bf16/fp16
-//   fragments with f32 accumulators, a 128 (vocab) x 128 (token) tile per
-//   block, the hidden dim walked in chunks of 32 staged in shared memory.
-//   The next chunk is fetched into registers (16-byte loads) while the
-//   current one is multiplied, so its memory latency hides behind the
-//   products.
-// - Each tile is stored vocab-major [V, T] in the compute type (the layout
-//   the backward's two matrix products consume, head_ce.py:73-90). Rows at
-//   or past V are masked to -1e30. The label logit is taken from the f32
-//   accumulator before rounding (head_ce.py:92-95).
-// - The TPU carries (max, scaled exp-sum, label logit) across vocab tiles
-//   in scratch over a sequential grid (head_ce.py:97-119). Here the vocab
-//   is split across blocks: block (token tile, split) walks its split's
-//   vocab tiles in a loop with the running statistics of its 128 tokens in
-//   registers (two threads a token, each over half of a tile's rows), writes
-//   per-split partials, and a small
-//   second kernel merges the splits (the recombination flash_decode.cu
-//   uses). The split count fills the card: T/128 token tiles alone are
-//   fewer blocks than SMs at T = 8192.
+// Design (the first one, 16x16 WMMA fragments from shared memory over
+// 32-column chunks staged by hand through registers, 24 barrier-bound chunk
+// steps a tile and the statistics two threads a token through shared
+// memory, reached 67 TFLOP/s):
+// - A GEMM with the tokens as the wgmma M and the vocab as N: a tile is 128
+//   tokens (two consumer warpgroups of 64) by kBV vocab rows. The hidden dim
+//   is streamed in 64-column chunks of x and E through a TMA ring of
+//   128-byte-swizzled stages (zero-filled past T, V and H), fed by a
+//   producer warp; the products are SS wgmma m64nNk16 into f32 registers.
+//   x (12.6 MB at the training shape) is re-read from L2 for every vocab
+//   tile.
+// - A persistent grid of one block an SM walks (token tile, vocab split)
+//   units, the token tile fastest, so the blocks at work at any moment
+//   share a few E tiles in L2. A unit walks its split's vocab tiles with
+//   each token's running (max, exp-sum, label logit) in registers: a
+//   token's row of the accumulator sits in one quad of lanes, so the tile's
+//   row max takes two shuffles and the exp-sums stay per lane until the
+//   unit ends. The unit writes its split's partials; a second small kernel
+//   merges the splits in a fixed order (the recombination flash_decode.cu
+//   uses), so lse and ll are bitwise the same from run to run, and so is
+//   every logit, which one unit owns. The split count is derived from T, V
+//   and the SM count by the wrapper (ops/head_ce.py::work_split).
+// - Epilogue of a tile, in registers: columns >= V (zero rows of E) become
+//   -1e30, the label's column is caught from the f32 accumulator before
+//   rounding (head_ce.py:92-95), the statistics fold in. Then the tile is
+//   rounded to T and stored transposed (stmatrix .trans) into a swizzled
+//   staging buffer of the warpgroup, and one TMA store writes it to the
+//   vocab-major logits [V, ldt] (clipped at T and V). The store is waited
+//   on only before the buffer is written again, a whole tile later, so the
+//   0.82 GB of logits overlaps the products.
+// - TMA needs 16-byte row strides: H % 8 == 0 and ldt % 8 == 0. The wrapper
+//   pads H with zero columns and gives the logits a padded row stride
+//   where needed.
 //
 // Plain C interface (nvcc into a shared library, loaded with ctypes);
 // head_ce_fwd returns cudaGetLastError() after its launches, on the
@@ -41,239 +54,243 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;  // 8 warps: 4 along the vocab x 2 along tokens
-constexpr int kBV = 128;       // vocab rows of a tile
-constexpr int kBT = 128;       // tokens of a tile
-constexpr int kKC = 32;        // hidden chunk staged in shared memory
-constexpr float kNeg = -1e30f; // -inf stand-in (no inf - inf)
-static_assert(kThreads == 2 * kBT, "two threads a token in the statistics");
+// N = 256 vocab rows and 3 stages: N = 128 with 4 stages measured 1.17x
+// slower, and keeping one chunk's products in flight (wait_group 1) no
+// faster (scripts/torch_kernel_variants.py).
+constexpr int kBT = 128;              // tokens of a tile: two warpgroups of 64
+constexpr int kBV = 256;              // vocab rows of a tile (the wgmma N)
+constexpr int kBH = 64;               // hidden columns a ring stage
+constexpr int kStages = 3;
+constexpr int kConsumers = 256;       // two consumer warpgroups
+constexpr int kThreads = kConsumers + 128;  // + a producer warpgroup
+constexpr float kNeg = -1e30f;        // -inf stand-in (no inf - inf)
+constexpr float kLog2e = 1.4426950408889634f;
 
-template <typename T>
-__device__ __forceinline__ T zero();
-template <>
-__device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
-  return __float2bfloat16(0.f);
-}
-template <>
-__device__ __forceinline__ __half zero<__half>() {
-  return __float2half(0.f);
-}
+// Shared memory (tiles 1024-byte aligned): the ring of stages (the x chunk
+// [128][64], then the E chunk [kBV][64]), each warpgroup's staging buffer of
+// a transposed logits tile ([kBV][64 tokens], 128-byte swizzled rows), and
+// the mbarriers full[kStages], empty[kStages].
+constexpr int kXBytes = kBT * kBH * 2;
+constexpr int kEBytes = kBV * kBH * 2;
+constexpr int kStageBytes = kXBytes + kEBytes;
+constexpr int kOutOffset = kStages * kStageBytes;
+constexpr int kOutBytes = kBV * 64 * 2;
+constexpr int kBarOffset = kOutOffset + 2 * kOutBytes;
+constexpr int kSmemBytes = kBarOffset + 8 * 2 * kStages + 1024;
 
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-template <>
-__device__ __forceinline__ __half from_f32<__half>(float x) {
-  return __float2half(x);
-}
-
-// Stage rows [r0, r0 + kRows) x cols [k0, k0 + kKC) of a row-major
-// [n_rows, H] matrix into dst[kRows][kKC], zero past either edge, one
-// element at a time: the path for H % (16 / sizeof(T)) != 0, where rows
-// do not start 16-byte aligned.
-template <typename T, int kRows>
-__device__ __forceinline__ void stage(T* dst, const T* src, int r0, int n_rows,
-                                      int k0, int H) {
-  for (int e = threadIdx.x; e < kRows * kKC; e += blockDim.x) {
-    const int r = e / kKC;
-    const int c = e - r * kKC;
-    dst[e] = (r0 + r < n_rows && k0 + c < H)
-                 ? src[static_cast<size_t>(r0 + r) * H + k0 + c]
-                 : zero<T>();
-  }
-}
-
-// The register half of a software pipeline over hidden chunks: fetch
-// (16-byte loads into registers) the chunk the block will multiply next
-// while the tensor cores work on the current one, then put it in shared
-// memory after the next barrier. Needs H % (16 / sizeof(T)) == 0.
-template <typename T, int kRows>
-struct ChunkRegs {
-  static constexpr int kVec = 16 / sizeof(T);
-  static constexpr int kPer = kRows * (kKC / kVec) / kThreads;
-  uint4 r[kPer];
-
-  __device__ __forceinline__ void fetch(const T* src, int r0, int n_rows,
-                                        int k0, int H) {
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int e = threadIdx.x + i * kThreads;
-      const int row = e / (kKC / kVec);
-      const int c = (e - row * (kKC / kVec)) * kVec;
-      r[i] = make_uint4(0u, 0u, 0u, 0u);
-      if (r0 + row < n_rows && k0 + c < H)
-        r[i] = *reinterpret_cast<const uint4*>(
-            src + static_cast<size_t>(r0 + row) * H + k0 + c);
-    }
-  }
-
-  __device__ __forceinline__ void put(T* dst) const {
-#pragma unroll
-    for (int i = 0; i < kPer; ++i)
-      *reinterpret_cast<uint4*>(dst + (threadIdx.x + i * kThreads) * kVec) =
-          r[i];
-  }
+struct Params {
+  CUtensorMap x;     // x [T, H]: boxes {64, 128}
+  CUtensorMap e;     // emb [V, H]: boxes {64, kBV}
+  CUtensorMap out;   // logits_t [V, T], row stride ldt: boxes {64, kBV}
+  const int* labels; // [T]
+  float* m_part;     // [n_splits, T]
+  float* s_part;     // [n_splits, T]
+  float* ll_part;    // [n_splits, T]
+  int n_tok, H, V, tiles_per_split, n_units;
 };
 
+// 2^x by the SFU (ex2.approx: ~2 ulp; 2^-huge = 0).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Unit u of the persistent walk: token tile u % nt, vocab split u / nt.
 template <typename T>
-__global__ void __launch_bounds__(kThreads) head_ce_tile_kernel(
-    const T* __restrict__ x,         // [T, H]
-    const T* __restrict__ emb,       // [V, H]
-    const int* __restrict__ labels,  // [T]
-    T* __restrict__ logits_t,        // [V, T]
-    float* __restrict__ m_part,      // [n_splits, T]
-    float* __restrict__ s_part,      // [n_splits, T]
-    float* __restrict__ ll_part,     // [n_splits, T]
-    int n_tok, int H, int V, int tiles_per_split) {
-  using namespace nvcuda;
-  const int t0 = blockIdx.x * kBT;
-  const int split = blockIdx.y;
+__global__ void __launch_bounds__(kThreads, 1)
+    head_ce_tma_kernel(const __grid_constant__ Params p) {
+  using namespace hopper;
+  const int n_tok = p.n_tok, V = p.V;
+  const int nt = (n_tok + kBT - 1) / kBT;
   const int nv = (V + kBV - 1) / kBV;
-  const int vt_begin = split * tiles_per_split;
-  const int vt_end = min(nv, vt_begin + tiles_per_split);
+  const int nkc = (p.H + kBH - 1) / kBH;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
-  const int wv = warp & 3;   // vocab rows wv*32 .. +32
-  const int wt = warp >> 2;  // tokens wt*64 .. +64
-  const bool vec = (H % (16 / sizeof(T))) == 0;
+  const int lane = tid & 31;
 
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  T* e_s = reinterpret_cast<T*>(smem_raw);               // [kBV, kKC]
-  T* x_s = e_s + kBV * kKC;                              // [kBT, kKC]
-  float* c_s = reinterpret_cast<float*>(x_s + kBT * kKC);  // [kBV, kBT]
-  float* red_s = c_s + kBV * kBT;                        // [3, kBT]
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t ring = smem_u32(base);
+  const uint32_t bars = smem_u32(base + kBarOffset);
+  auto full = [&](int st) { return bars + 8 * st; };
+  auto empty = [&](int st) { return bars + 8 * (kStages + st); };
+  auto x_stage = [&](int st) { return ring + st * kStageBytes; };
+  auto e_stage = [&](int st) { return x_stage(st) + kXBytes; };
 
-  // Running statistics of token t0 + tid (threads < kBT).
-  const int tok = t0 + tid;
-  const bool own = tid < kBT && tok < n_tok;
-  // The label of this thread's token (both threads of a token read it).
-  const int label =
-      t0 + tid % kBT < n_tok ? labels[t0 + tid % kBT] : -1;
-  float run_m = kNeg, run_s = 0.f, run_ll = 0.f;
-
-  // One flat loop over this split's (vocab tile, hidden chunk) pairs, so
-  // the fetch of the next pair's chunk (into registers, vec only) overlaps
-  // the current pair's products.
-  const int nkc = (H + kKC - 1) / kKC;
-  const int total = (vt_end - vt_begin) * nkc;
-  ChunkRegs<T, kBV> e_next;
-  ChunkRegs<T, kBT> x_next;
-  if (vec && total > 0) {
-    e_next.fetch(emb, vt_begin * kBV, V, 0, H);
-    x_next.fetch(x, t0, n_tok, 0, H);
+  if (tid == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), kConsumers / 32);
+    }
+    fence_barrier_init();
   }
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
-  for (int it = 0; it < total; ++it) {
-    const int v0 = (vt_begin + it / nkc) * kBV;
-    const int k0 = (it % nkc) * kKC;
-    if (k0 == 0) {
-#pragma unroll
-      for (int a = 0; a < 2; ++a)
-#pragma unroll
-        for (int b = 0; b < 4; ++b) wmma::fill_fragment(acc[a][b], 0.f);
-    }
-    __syncthreads();  // the previous chunk's readers are done
-    if (vec) {
-      e_next.put(e_s);
-      x_next.put(x_s);
-    } else {
-      stage<T, kBV>(e_s, emb, v0, V, k0, H);
-      stage<T, kBT>(x_s, x, t0, n_tok, k0, H);
-    }
-    __syncthreads();
-    if (vec && it + 1 < total) {
-      const int nv0 = (vt_begin + (it + 1) / nkc) * kBV;
-      const int nk0 = ((it + 1) % nkc) * kKC;
-      e_next.fetch(emb, nv0, V, nk0, H);
-      x_next.fetch(x, t0, n_tok, nk0, H);
-    }
-#pragma unroll
-    for (int kk = 0; kk < kKC; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::col_major> fb[4];
-#pragma unroll
-      for (int a = 0; a < 2; ++a)
-        wmma::load_matrix_sync(fa[a], e_s + (wv * 32 + a * 16) * kKC + kk,
-                               kKC);
-#pragma unroll
-      for (int b = 0; b < 4; ++b)
-        wmma::load_matrix_sync(fb[b], x_s + (wt * 64 + b * 16) * kKC + kk,
-                               kKC);
-#pragma unroll
-      for (int a = 0; a < 2; ++a)
-#pragma unroll
-        for (int b = 0; b < 4; ++b)
-          wmma::mma_sync(acc[a][b], fa[a], fb[b], acc[a][b]);
-    }
-    if (k0 + kKC < H) continue;
+  __syncthreads();
 
-    // The tile's last chunk: logits and statistics.
-#pragma unroll
-    for (int a = 0; a < 2; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b)
-        wmma::store_matrix_sync(
-            c_s + (wv * 32 + a * 16) * kBT + wt * 64 + b * 16, acc[a][b], kBT,
-            wmma::mem_row_major);
-    __syncthreads();
-
-    // Vocab-major logits in the compute type (coalesced along tokens).
-    for (int e = tid; e < kBV * kBT; e += blockDim.x) {
-      const int r = e / kBT;
-      const int c = e - r * kBT;
-      if (v0 + r < V && t0 + c < n_tok)
-        logits_t[static_cast<size_t>(v0 + r) * n_tok + t0 + c] =
-            from_f32<T>(c_s[e]);
+  if (warp >= kConsumers / 32) {
+    regs_dealloc<24>();
+    if (warp == kConsumers / 32 && lane == 0) {
+      // Producer: every (vocab tile, hidden chunk) of every unit in order.
+      int n = 0;
+      for (int u = blockIdx.x; u < p.n_units; u += gridDim.x) {
+        const int t0 = (u % nt) * kBT;
+        const int vt0 = (u / nt) * p.tiles_per_split;
+        const int vt1 = min(nv, vt0 + p.tiles_per_split);
+        for (int vt = vt0; vt < vt1; ++vt)
+          for (int c = 0; c < nkc; ++c, ++n) {
+            const int st = n % kStages;
+            mbar_wait(empty(st), ((n / kStages) & 1) ^ 1);
+            mbar_expect_tx(full(st), kStageBytes);
+            tma_load_2d(x_stage(st), &p.x, full(st), c * kBH, t0);
+            tma_load_2d(e_stage(st), &p.e, full(st), c * kBH, vt * kBV);
+          }
+      }
     }
-    // Online statistics: two threads a token, each over half the tile's
-    // rows (rows past V count as -1e30); the upper half hands its partial
-    // (max, exp-sum, label logit) to the lower through shared memory.
-    {
-      const int col = tid % kBT;
-      const int r0 = (tid / kBT) * (kBV / 2);
-      float mx = kNeg, hit = 0.f;
-      for (int r = r0; r < r0 + kBV / 2; ++r) {
-        const float lg = v0 + r < V ? c_s[r * kBT + col] : kNeg;
-        mx = fmaxf(mx, lg);
-        if (v0 + r == label) hit += lg;
+    return;
+  }
+
+  regs_alloc<240>();
+  // Consumers: warpgroup wg owns tokens [t0 + 64 wg, t0 + 64 wg + 64); this
+  // thread holds tile rows r_a and r_a + 8, and of each n8 block j the
+  // columns 8 j + 2 t4 + 0..1 (hopper.cuh's accumulator layout).
+  const int wg = warp >> 2;
+  const int t4 = lane & 3;
+  const int r_a = 64 * wg + 16 * (warp & 3) + (lane >> 2);
+  const uint32_t out_s = smem_u32(base + kOutOffset + wg * kOutBytes);
+  const bool leader = (tid & 127) == 0;  // issues the warpgroup's stores
+  const Elem<T> et{};
+  // stmatrix addresses: lane 8 m + i gives row i of matrix m, i.e. vocab
+  // row 8 (m >> 1) + i of a 16-column pair and tokens 8 (m & 1) + 0..7 of
+  // the warp's 16, as a 16-byte chunk of the 128-byte swizzled row.
+  const int st_row = 8 * ((lane >> 3) >> 1) + (lane & 7);
+  const int st_chunk = (2 * (warp & 3) + ((lane >> 3) & 1)) ^ (lane & 7);
+
+  float acc[kBV / 2];
+  int n = 0;
+  for (int u = blockIdx.x; u < p.n_units; u += gridDim.x) {
+    const int t0 = (u % nt) * kBT;
+    const int split = u / nt;
+    const int vt0 = split * p.tiles_per_split;
+    const int vt1 = min(nv, vt0 + p.tiles_per_split);
+    const int tok_a = t0 + r_a, tok_b = tok_a + 8;
+    const int lab_a = tok_a < n_tok ? __ldg(p.labels + tok_a) : -1;
+    const int lab_b = tok_b < n_tok ? __ldg(p.labels + tok_b) : -1;
+    float m_a = kNeg, m_b = kNeg, s_a = 0.f, s_b = 0.f;
+    float ll_a = 0.f, ll_b = 0.f;
+    for (int vt = vt0; vt < vt1; ++vt) {
+      const int v0 = vt * kBV;
+      // Mainloop: acc = x_tile E_tile^T over the hidden chunks.
+      for (int c = 0; c < nkc; ++c, ++n) {
+        const int st = n % kStages;
+        mbar_wait(full(st), (n / kStages) & 1);
+        fence_regs(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBH / 16; ++kk)
+          wgmma_ss<0>(Shape<kBV>{}, et, acc,
+                      desc_sw128(x_stage(st) + wg * 64 * 128 + kk * 32, 16,
+                                 1024),
+                      desc_sw128(e_stage(st) + kk * 32, 16, 1024),
+                      (c > 0 || kk > 0) ? 1 : 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty(st));
       }
-      float sum = 0.f;
-      for (int r = r0; r < r0 + kBV / 2; ++r) {
-        const float lg = v0 + r < V ? c_s[r * kBT + col] : kNeg;
-        sum += expf(lg - mx);
+
+      // Epilogue: mask the vocab edge, catch the label, fold the tile into
+      // the running statistics (max over the quad; per-lane exp-sums).
+      const bool ragged = v0 + kBV > V;
+      const int la = lab_a - v0, lb = lab_b - v0;
+      float mx_a = kNeg, mx_b = kNeg;
+#pragma unroll
+      for (int j = 0; j < kBV / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * j + 2 * t4 + (e & 1);
+          float x = acc[4 * j + e];
+          if (ragged && v0 + col >= V) x = acc[4 * j + e] = kNeg;
+          if (e < 2) {
+            if (col == la) ll_a += x;
+            mx_a = fmaxf(mx_a, x);
+          } else {
+            if (col == lb) ll_b += x;
+            mx_b = fmaxf(mx_b, x);
+          }
+        }
+#pragma unroll
+      for (int o = 1; o <= 2; o <<= 1) {
+        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, o));
+        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, o));
       }
-      if (tid >= kBT) {
-        red_s[col] = mx;
-        red_s[kBT + col] = sum;
-        red_s[2 * kBT + col] = hit;
+      const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+      const float ms_a = mn_a * kLog2e, ms_b = mn_b * kLog2e;
+      float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+      for (int j = 0; j < kBV / 8; ++j) {
+        sum_a += fast_exp2(fmaf(acc[4 * j], kLog2e, -ms_a)) +
+                 fast_exp2(fmaf(acc[4 * j + 1], kLog2e, -ms_a));
+        sum_b += fast_exp2(fmaf(acc[4 * j + 2], kLog2e, -ms_b)) +
+                 fast_exp2(fmaf(acc[4 * j + 3], kLog2e, -ms_b));
       }
-      __syncthreads();
-      if (tid < kBT) {
-        const float m1 = red_s[col];
-        const float m_tile = fmaxf(mx, m1);
-        const float s_tile =
-            sum * expf(mx - m_tile) + red_s[kBT + col] * expf(m1 - m_tile);
-        const float m_new = fmaxf(run_m, m_tile);
-        run_s = run_s * expf(run_m - m_new) + s_tile * expf(m_tile - m_new);
-        run_m = m_new;
-        run_ll += hit + red_s[2 * kBT + col];
+      s_a = s_a * fast_exp2((m_a - mn_a) * kLog2e) + sum_a;
+      s_b = s_b * fast_exp2((m_b - mn_b) * kLog2e) + sum_b;
+      m_a = mn_a;
+      m_b = mn_b;
+
+      // The tile in T, transposed into the staging buffer once the previous
+      // tile's store has read it, then one TMA store.
+      if (leader) bulk_wait_read();
+      named_barrier(1 + wg, 128);
+#pragma unroll
+      for (int jp = 0; jp < kBV / 16; ++jp)
+        stmatrix_x4_trans(
+            out_s + (16 * jp + st_row) * 128 + st_chunk * 16,
+            pack2(et, acc[8 * jp], acc[8 * jp + 1]),
+            pack2(et, acc[8 * jp + 2], acc[8 * jp + 3]),
+            pack2(et, acc[8 * jp + 4], acc[8 * jp + 5]),
+            pack2(et, acc[8 * jp + 6], acc[8 * jp + 7]));
+      fence_proxy_async();
+      named_barrier(1 + wg, 128);
+      if (leader && t0 + 64 * wg < n_tok) {
+        tma_store_2d(&p.out, out_s, t0 + 64 * wg, v0);
+        bulk_commit();
+      }
+    }
+    // The unit's partials: the quad's exp-sums (and the one label logit
+    // caught among them) summed in a fixed order.
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      s_a += __shfl_xor_sync(0xffffffffu, s_a, o);
+      s_b += __shfl_xor_sync(0xffffffffu, s_b, o);
+      ll_a += __shfl_xor_sync(0xffffffffu, ll_a, o);
+      ll_b += __shfl_xor_sync(0xffffffffu, ll_b, o);
+    }
+    if (t4 == 0) {
+      const size_t o = static_cast<size_t>(split) * n_tok;
+      if (tok_a < n_tok) {
+        p.m_part[o + tok_a] = m_a;
+        p.s_part[o + tok_a] = s_a;
+        p.ll_part[o + tok_a] = ll_a;
+      }
+      if (tok_b < n_tok) {
+        p.m_part[o + tok_b] = m_b;
+        p.s_part[o + tok_b] = s_b;
+        p.ll_part[o + tok_b] = ll_b;
       }
     }
   }
-  if (own) {
-    const size_t o = static_cast<size_t>(split) * n_tok + tok;
-    m_part[o] = run_m;
-    s_part[o] = run_s;
-    ll_part[o] = run_ll;
-  }
+  if (leader) bulk_wait();  // the staging buffer outlives the last store
 }
 
 __global__ void head_ce_merge_kernel(const float* __restrict__ m_part,
@@ -301,20 +318,46 @@ template <typename T>
 cudaError_t launch(const void* x, const void* emb, const int* labels,
                    void* logits_t, float* m_part, float* s_part,
                    float* ll_part, float* lse, float* ll, int n_tok, int H,
-                   int V, int n_splits, cudaStream_t stream) {
-  const size_t smem = sizeof(T) * (kBV + kBT) * kKC +
-                      sizeof(float) * (kBV * kBT + 3 * kBT);
-  auto kernel = head_ce_tile_kernel<T>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+                   int V, int ldt, int n_splits, cudaStream_t stream) {
+  Params p;
+  const bool fp16 = std::is_same<T, __half>::value;
+  const cuuint64_t dx[2] = {static_cast<cuuint64_t>(H),
+                            static_cast<cuuint64_t>(n_tok)};
+  const cuuint64_t de[2] = {static_cast<cuuint64_t>(H),
+                            static_cast<cuuint64_t>(V)};
+  const cuuint64_t dout[2] = {static_cast<cuuint64_t>(n_tok),
+                              static_cast<cuuint64_t>(V)};
+  const cuuint64_t sh[1] = {static_cast<cuuint64_t>(H) * sizeof(T)};
+  const cuuint64_t sout[1] = {static_cast<cuuint64_t>(ldt) * sizeof(T)};
+  const cuuint32_t box_x[2] = {kBH, kBT};
+  const cuuint32_t box_e[2] = {kBH, kBV};
+  const cuuint32_t box_out[2] = {64, kBV};
+  cudaError_t err = hopper_host::make_map(&p.x, fp16, 2, x, dx, sh, box_x);
+  if (err == cudaSuccess)
+    err = hopper_host::make_map(&p.e, fp16, 2, emb, de, sh, box_e);
+  if (err == cudaSuccess)
+    err = hopper_host::make_map(&p.out, fp16, 2, logits_t, dout, sout,
+                                box_out);
   if (err != cudaSuccess) return err;
+  const int nt = (n_tok + kBT - 1) / kBT;
   const int nv = (V + kBV - 1) / kBV;
-  const int tps = (nv + n_splits - 1) / n_splits;
-  dim3 grid((n_tok + kBT - 1) / kBT, n_splits);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(emb), labels,
-      static_cast<T*>(logits_t), m_part, s_part, ll_part, n_tok, H, V, tps);
+  p.labels = labels;
+  p.m_part = m_part;
+  p.s_part = s_part;
+  p.ll_part = ll_part;
+  p.n_tok = n_tok;
+  p.H = H;
+  p.V = V;
+  p.tiles_per_split = (nv + n_splits - 1) / n_splits;
+  p.n_units = nt * n_splits;
+  auto kernel = head_ce_tma_kernel<T>;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmemBytes);
+  if (err != cudaSuccess) return err;
+  const int sms = hopper_host::sm_count();
+  const int grid = sms < p.n_units ? sms : p.n_units;
+  kernel<<<grid, kThreads, kSmemBytes, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   head_ce_merge_kernel<<<(n_tok + 255) / 256, 256, 0, stream>>>(
@@ -324,15 +367,20 @@ cudaError_t launch(const void* x, const void* emb, const int* labels,
 
 }  // namespace
 
-// dtype: 1 = bfloat16, 2 = float16 (x, emb, logits_t). labels int32 [T];
-// m/s/ll_part f32 [n_splits, T] scratch; lse, ll f32 [T]. Returns a
-// cudaError_t code (0 = launched).
+// dtype: 1 = bfloat16, 2 = float16 (x, emb, logits_t). x [T, H] and emb
+// [V, H] with H % 8 == 0, 16-byte aligned; labels int32 [T]; logits_t [V,
+// ldt] with ldt >= T, ldt % 8 == 0 (columns past T untouched); m/s/ll_part
+// f32 [n_splits, T] scratch, every split non-empty; lse, ll f32 [T].
+// Returns a cudaError_t code (0 = launched).
 extern "C" int head_ce_fwd(const void* x, const void* emb, const void* labels,
                            void* logits_t, void* m_part, void* s_part,
                            void* ll_part, void* lse, void* ll, int n_tok,
-                           int H, int V, int n_splits, int dtype,
+                           int H, int V, int ldt, int n_splits, int dtype,
                            void* stream) {
-  if (n_tok <= 0 || H <= 0 || V <= 0 || n_splits <= 0)
+  const int nv = (V + kBV - 1) / kBV;
+  if (n_tok <= 0 || H <= 0 || V <= 0 || n_splits <= 0 || n_splits > nv ||
+      H % 8 != 0 || ldt < n_tok || ldt % 8 != 0 ||
+      (n_splits - 1) * ((nv + n_splits - 1) / n_splits) >= nv)
     return static_cast<int>(cudaErrorInvalidValue);
   const int* lb = static_cast<const int*>(labels);
   float* mp = static_cast<float*>(m_part);
@@ -345,11 +393,11 @@ extern "C" int head_ce_fwd(const void* x, const void* emb, const void* labels,
   switch (dtype) {
     case 1:
       err = launch<__nv_bfloat16>(x, emb, lb, logits_t, mp, sp, lp, ls, l,
-                                  n_tok, H, V, n_splits, st);
+                                  n_tok, H, V, ldt, n_splits, st);
       break;
     case 2:
       err = launch<__half>(x, emb, lb, logits_t, mp, sp, lp, ls, l, n_tok, H,
-                           V, n_splits, st);
+                           V, ldt, n_splits, st);
       break;
     default:
       err = cudaErrorInvalidValue;

@@ -1,11 +1,13 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA/wgmma kernels
 // (the bf16/fp16 flash forward and backwards in flash_attn.cu, the bf16/fp16
-// gmm and tgmm in grouped_matmul.cu): mbarriers, TMA tile loads, 1-D bulk
-// copies and bulk f32 reductions, the fixed-order accumulation across
-// blocks (Turn, the fused backward's dq), warpgroup register reallocation,
-// wgmma shared-memory descriptors, the wgmma instructions in inline PTX, and
-// the host-side encoding of a TMA tensor map through the function pointer
-// that the CUDA runtime hands out for it (so the libraries need no -lcuda).
+// gmm and tgmm in grouped_matmul.cu, the head + CE forward in head_ce.cu):
+// mbarriers, TMA tile loads and stores, 1-D bulk copies and bulk f32
+// reductions, the fixed-order accumulation across blocks (Turn, the fused
+// backward's dq), warpgroup register reallocation, transposed 8x8 matrix
+// stores (stmatrix), wgmma shared-memory descriptors, the wgmma
+// instructions in inline PTX, and the host-side encoding of a TMA tensor
+// map through the function pointer that the CUDA runtime hands out for it
+// (so the libraries need no -lcuda).
 //
 // Shared-memory operands use the 128-byte swizzle throughout: a TMA box
 // whose inner extent is 64 16-bit elements (128 bytes) lands as rows of
@@ -119,6 +121,20 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map,
       : "memory");
 }
 
+// -- TMA store (clipped at the tensor's edges) -------------------------------
+
+// The box at {c0, c1} of a 2-D tensor map from shared memory at `src`
+// (laid out as the map's swizzle says); tracked by the issuing thread's bulk
+// groups (bulk_commit, then bulk_wait_read before `src` is written again).
+__device__ __forceinline__ void tma_store_2d(const void* map, uint32_t src,
+                                             int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], "
+      "[%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 // -- 1-D bulk copies and reductions ------------------------------------------
 
 // `bytes` (a multiple of 16, both addresses 16-byte aligned) from global to
@@ -226,6 +242,21 @@ __device__ __forceinline__ void regs_alloc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
+// Four 8x8 matrices of 16-bit values stored transposed: register i of each
+// thread holds its pair of matrix i in the mma fragment layout (row lane /
+// 4, columns 2 (lane % 4) + 0..1, low half first), and lane 8 i + r gives
+// the address of row r of matrix i as stored, i.e. of the 16 bytes that
+// receive the matrix's column r.
+__device__ __forceinline__ void stmatrix_x4_trans(uint32_t addr, uint32_t r0,
+                                                  uint32_t r1, uint32_t r2,
+                                                  uint32_t r3) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, "
+      "%4};\n" ::"r"(addr),
+      "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+      : "memory");
+}
+
 // -- wgmma -------------------------------------------------------------------
 
 // Shared-memory matrix descriptor, 128-byte swizzle (layout type 1).
@@ -293,6 +324,8 @@ __device__ __forceinline__ uint32_t pack2(Elem<__half>, float a, float b) {
   HOPPER_D4(i), HOPPER_D4(i + 4), HOPPER_D4(i + 8), HOPPER_D4(i + 12)
 #define HOPPER_D32 HOPPER_D16(0), HOPPER_D16(16)
 #define HOPPER_D64 HOPPER_D32, HOPPER_D16(32), HOPPER_D16(48)
+#define HOPPER_D128 \
+  HOPPER_D64, HOPPER_D16(64), HOPPER_D16(80), HOPPER_D16(96), HOPPER_D16(112)
 #define HOPPER_R32                                                            \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "                  \
   "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, "              \
@@ -305,8 +338,20 @@ __device__ __forceinline__ uint32_t pack2(Elem<__half>, float a, float b) {
   "%49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, "              \
   "%61, %62, %63}"
 
-// m64n64k16 and m64n128k16, A and B from shared memory (operands after the
-// accumulators: da, db, scale_d, TRANS_A, TRANS_B).
+#define HOPPER_R128                                                           \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "   \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "    \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "    \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "    \
+  "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "    \
+  "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "    \
+  "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "    \
+  "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "  \
+  "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, "  \
+  "%124, %125, %126, %127}"
+
+// m64n64k16, m64n128k16 and m64n256k16, A and B from shared memory
+// (operands after the accumulators: da, db, scale_d, TRANS_A, TRANS_B).
 #define HOPPER_WGMMA_SS_N64(PTX, CT)                                         \
   template <int TRANS_B, int TRANS_A = 0>                                    \
   __device__ __forceinline__ void wgmma_ss(Shape<64>, Elem<CT>,              \
@@ -331,6 +376,20 @@ __device__ __forceinline__ uint32_t pack2(Elem<__half>, float a, float b) {
                  "wgmma.mma_async.sync.aligned.m64n128k16.f32." PTX "." PTX  \
                  " " HOPPER_R64 ", %64, %65, p, 1, 1, %67, %68;\n}\n"        \
                  : HOPPER_D64                                                \
+                 : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_A),            \
+                   "n"(TRANS_B));                                            \
+  }
+
+#define HOPPER_WGMMA_SS_N256(PTX, CT)                                        \
+  template <int TRANS_B, int TRANS_A = 0>                                    \
+  __device__ __forceinline__ void wgmma_ss(Shape<256>, Elem<CT>,             \
+                                           float (&d)[128], uint64_t da,     \
+                                           uint64_t db, int scale_d) {       \
+    asm volatile("{\n.reg .pred p;\n"                                        \
+                 "setp.ne.b32 p, %130, 0;\n"                                 \
+                 "wgmma.mma_async.sync.aligned.m64n256k16.f32." PTX "." PTX  \
+                 " " HOPPER_R128 ", %128, %129, p, 1, 1, %131, %132;\n}\n"   \
+                 : HOPPER_D128                                               \
                  : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_A),            \
                    "n"(TRANS_B));                                            \
   }
@@ -373,6 +432,8 @@ HOPPER_WGMMA_SS_N64("bf16", __nv_bfloat16)
 HOPPER_WGMMA_SS_N64("f16", __half)
 HOPPER_WGMMA_SS_N128("bf16", __nv_bfloat16)
 HOPPER_WGMMA_SS_N128("f16", __half)
+HOPPER_WGMMA_SS_N256("bf16", __nv_bfloat16)
+HOPPER_WGMMA_SS_N256("f16", __half)
 HOPPER_WGMMA_RS_N64("bf16", __nv_bfloat16)
 HOPPER_WGMMA_RS_N64("f16", __half)
 HOPPER_WGMMA_RS_N128("bf16", __nv_bfloat16)
@@ -380,10 +441,13 @@ HOPPER_WGMMA_RS_N128("f16", __half)
 
 #undef HOPPER_WGMMA_RS_N128
 #undef HOPPER_WGMMA_RS_N64
+#undef HOPPER_WGMMA_SS_N256
 #undef HOPPER_WGMMA_SS_N128
 #undef HOPPER_WGMMA_SS_N64
+#undef HOPPER_R128
 #undef HOPPER_R64
 #undef HOPPER_R32
+#undef HOPPER_D128
 #undef HOPPER_D64
 #undef HOPPER_D32
 #undef HOPPER_D16

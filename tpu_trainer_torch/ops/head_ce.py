@@ -14,7 +14,11 @@ the kernel (the name of the JAX function it ports). Its backward is
 products, as in the JAX package (``head_ce.py:267-320``).
 
 The kernel is bound by operations: ``2 T V H`` flops on the tensor cores
-(989 TFLOP/s dense bf16 on an H100 SXM, NVIDIA data sheet).
+(989 TFLOP/s dense bf16 on an H100 SXM, NVIDIA data sheet). It is a
+persistent TMA/wgmma GEMM whose units are (token tile, vocab split) pairs;
+``work_split`` derives the split count from T, V and the SM count, and the
+wrapper pads what TMA cannot take (H and the logits' row stride to a
+multiple of 8, 16-byte rows).
 """
 
 from __future__ import annotations
@@ -28,7 +32,8 @@ from tpu_trainer_torch.ops import _build
 
 _DTYPE_CODES = {torch.bfloat16: 1, torch.float16: 2}
 _BLOCK_T = 128   # csrc/head_ce.cu kBT
-_BLOCK_V = 128   # csrc/head_ce.cu kBV
+_BLOCK_V = 256   # csrc/head_ce.cu kBV
+_ROW_ALIGN = 8   # 16-bit elements of a 16-byte TMA row stride
 
 
 def head_ce_reference(x2: torch.Tensor, emb: torch.Tensor,
@@ -60,7 +65,8 @@ def head_ce_forward(x2: torch.Tensor, emb: torch.Tensor, labels: torch.Tensor
 
     ``x2 [T, H]`` and ``emb [V, H]`` in the compute dtype, ``labels [T]``
     integer ids. Returns ``(logitsT [V, T] compute dtype, lse [T] f32,
-    ll [T] f32)``; the per-token loss is ``lse - ll``.
+    ll [T] f32)``; the per-token loss is ``lse - ll``. The kernel's logits
+    have rows a multiple of 8 elements apart (contiguous when T is one).
     ``head_ce_forward.launches`` counts kernel launches.
     """
     _check(x2, emb, labels)
@@ -74,6 +80,44 @@ def head_ce_forward(x2: torch.Tensor, emb: torch.Tensor, labels: torch.Tensor
 head_ce_forward.launches = 0
 
 
+def work_split(T: int, V: int, sms: int) -> int:
+    """Vocab splits of the kernel's persistent walk. Unit ``u`` is (token
+    tile ``u % nt``, split ``u // nt``), a split holds ``ceil(nv / splits)``
+    vocab tiles (the last one the rest), and block ``b`` of ``grid =
+    min(sms, units)`` takes units ``b, b + grid, ...``. The count gives
+    the busiest block the fewest vocab tiles, the fewest splits among
+    equals, and leaves no split empty."""
+    nt, nv = -(-T // _BLOCK_T), -(-V // _BLOCK_V)
+    best = None
+    for n in range(1, nv + 1):
+        tps = -(-nv // n)
+        if (n - 1) * tps >= nv:
+            continue
+        load = -(-nt * n // sms) * tps
+        if best is None or load < best[0]:
+            best = (load, n)
+    return best[1]
+
+
+def _pad_hidden(x2, emb):
+    """``x2`` and ``emb`` with zero columns appended up to a multiple of 8
+    (TMA's 16-byte row stride); themselves when H already is one. Zeros
+    leave every logit as it is."""
+    pad = -x2.shape[1] % _ROW_ALIGN
+    if not pad:
+        return x2, emb
+    return (torch.nn.functional.pad(x2, (0, pad)),
+            torch.nn.functional.pad(emb, (0, pad)))
+
+
+def _logits_buffer(V: int, T: int, like: torch.Tensor) -> torch.Tensor:
+    """``[V, T]`` in ``like``'s dtype and device, rows ``ldt`` apart with
+    ``ldt`` = T rounded up to a multiple of 8 (TMA's 16-byte row stride);
+    contiguous when T already is one."""
+    ldt = -(-T // _ROW_ALIGN) * _ROW_ALIGN
+    return torch.empty((V, ldt), dtype=like.dtype, device=like.device)[:, :T]
+
+
 def _launch(x2, emb, labels):
     if x2.dtype not in _DTYPE_CODES:
         raise ValueError(f"head_ce kernel takes bfloat16 or float16; got "
@@ -84,17 +128,15 @@ def _launch(x2, emb, labels):
         raise ValueError("head_ce_forward operands must be contiguous")
     if x2.data_ptr() % 16 or emb.data_ptr() % 16:
         raise ValueError("head_ce_forward operands must start 16-byte "
-                         "aligned (the kernel loads 16 bytes at a time)")
-    T, H = x2.shape
+                         "aligned (the kernel's TMA loads)")
+    T = x2.shape[0]
     V = emb.shape[0]
-    nv = -(-V // _BLOCK_V)
-    # Vocab splits for about two blocks an SM (T/128 token tiles times the
-    # splits).
+    x2, emb = _pad_hidden(x2, emb)
     sms = torch.cuda.get_device_properties(x2.device).multi_processor_count
-    n_splits = max(1, min(nv, -(-2 * sms // -(-T // _BLOCK_T))))
+    n_splits = work_split(T, V, sms)
     lab = labels.to(torch.int32).contiguous()
     f32 = dict(dtype=torch.float32, device=x2.device)
-    logits_t = torch.empty((V, T), dtype=x2.dtype, device=x2.device)
+    logits_t = _logits_buffer(V, T, x2)
     parts = torch.empty((3, n_splits, T), **f32)
     lse = torch.empty((T,), **f32)
     ll = torch.empty((T,), **f32)
@@ -104,8 +146,9 @@ def _launch(x2, emb, labels):
         stream = torch.cuda.current_stream(x2.device).cuda_stream
         err = lib.head_ce_fwd(
             ptr(x2), ptr(emb), ptr(lab), ptr(logits_t), ptr(parts[0]),
-            ptr(parts[1]), ptr(parts[2]), ptr(lse), ptr(ll), T, H, V,
-            n_splits, _DTYPE_CODES[x2.dtype], ctypes.c_void_p(stream))
+            ptr(parts[1]), ptr(parts[2]), ptr(lse), ptr(ll), T, x2.shape[1],
+            V, logits_t.stride(0), n_splits, _DTYPE_CODES[x2.dtype],
+            ctypes.c_void_p(stream))
     if err != 0:
         msg = lib.head_ce_error_string(err).decode()
         raise RuntimeError(f"head_ce kernel launch failed: {msg} ({err})")
@@ -116,7 +159,7 @@ def _launch(x2, emb, labels):
 def _library() -> ctypes.CDLL:
     lib = _build.load("head_ce")
     if lib.head_ce_fwd.argtypes is None:
-        lib.head_ce_fwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [
+        lib.head_ce_fwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
             ctypes.c_void_p]
         lib.head_ce_fwd.restype = ctypes.c_int
         lib.head_ce_error_string.argtypes = [ctypes.c_int]
