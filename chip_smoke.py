@@ -125,7 +125,30 @@ JAX package. Phases, each fatal on failure:
               forward == fused backward == 12 x steps; per-layer group
               sizes of one step; MFU on the active parameters.
 
-The earlier phases run at full depth; the whole run takes about three
+16. cli     -- the training CLI as a user runs it: a seeded 4 MB corpus
+              (one story a line) in a temporary directory;
+              ``train_ddp.main`` on ``configs/small_model.yaml`` (GPT-2
+              small, bf16 over f32 masters, dropout 0.1, accumulation 4)
+              with ``--tokenizer byte``, 8 steps, saves and evals every
+              4; step 8's checkpoint set aside and deleted, and the same
+              argv again in a fresh process (``_cli_child``), which
+              resumes from step 4: step 8's params, Adam moments and
+              dropout generator and the losses of steps 5-8 must be
+              bitwise equal, and that run's launches exactly 4 steps x 4
+              micro-batches plus its eval batches. Prints tok/s and MFU
+              from the run's JSONL, the checkpoint's save (sync, async)
+              and restore seconds, and the device busy share of steady
+              CLI steps under ``torch.profiler``; then 3 ``--pack_sequences``
+              steps (split dk/dv and dq launches) and 3 steps of
+              ``configs/moe_small.yaml --moe_impl dropless`` (gmm, tgmm).
+17. infer   -- ``eval.infer.main`` on that checkpoint, greedy, 4 ragged
+              prompts of 64 new tokens: the KV path and ``--serve`` (the
+              flash-decode kernel; launches exactly 63 x 12) on the
+              checkpoint root, then both on the consolidated
+              ``params.npz`` in f32 compute, whose greedy tokens must be
+              equal (a differing token only at a top-2 tie).
+
+The earlier phases run at full depth; the whole run takes about six
 minutes on an H100, builds included.
 
 Then the ``kernels`` JSON line, the nvidia-smi line, and as the last line
@@ -139,9 +162,12 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -2148,6 +2174,465 @@ def profile_engine(results: dict, engine) -> None:
                        f"{k['name']}")
 
 
+# -- phases 16 and 17: the user surface -------------------------------------
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def _write_corpus(path: str, n_bytes: int = 4 << 20, seed: int = 0) -> int:
+    """A seeded synthetic corpus, one story a line (ASCII words from a
+    4096-word vocabulary, 20-160 words a line) of about ``n_bytes``;
+    returns the line count."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    words = ["".join(rng.choice(letters, rng.integers(2, 10)))
+             for _ in range(4096)]
+    size, lines = 0, []
+    while size < n_bytes:
+        idx = rng.integers(0, len(words), rng.integers(20, 160))
+        line = " ".join(words[i] for i in idx).capitalize() + "."
+        lines.append(line)
+        size += len(line) + 1
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return len(lines)
+
+
+def _cli_child(argv: list, out: str) -> None:
+    """The resumed run of the cli phase, in a fresh process: every launch
+    count zeroed, ``train_ddp.main(argv)``, the counts written to ``out``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from tpu_trainer_torch.training import train_ddp
+
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    rc = train_ddp.main(argv)
+    torch.cuda.synchronize()
+    with open(out, "w") as f:
+        json.dump({"rc": rc, "launches": {k: c.launches
+                                          for k, c in counters.items()}}, f)
+
+
+def _jsonl(path: str, kind: str) -> list:
+    with open(path) as f:
+        return [r for r in map(json.loads, f) if r.get("kind") == kind]
+
+
+def _cli_in_process(phase: str, argv: list) -> dict:
+    """``train_ddp.main(argv)`` here with every launch count zeroed just
+    before and read just after."""
+    from tpu_trainer_torch.training import train_ddp
+
+    counters = _counters()
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    rc = train_ddp.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"{phase}: train_ddp exited {rc}")
+    return {"launches": {k: c.launches for k, c in counters.items()},
+            "seconds": secs}
+
+
+def _micro_launches(cfg, train_micro: int, eval_micro: int, *,
+                    segmented: bool) -> dict:
+    """Launches of ``train_micro`` training and ``eval_micro`` eval
+    micro-batches: a forward a layer each, the backward of the training
+    ones, one head + CE each; with MoE 3 gmm a layer forward, 3 more and
+    3 tgmm a layer backward."""
+    from tpu_trainer_torch.ops import flash
+
+    L = cfg.num_layers
+    fused = flash.backward_impl(cfg.max_seq_len, segmented) == "fused"
+    moe_on = cfg.num_experts > 0
+    return {"flash_forward": L * (train_micro + eval_micro),
+            "flash_backward": L * train_micro if fused else 0,
+            "flash_backward_dkv": 0 if fused else L * train_micro,
+            "flash_backward_dq": 0 if fused else L * train_micro,
+            "head_ce": train_micro + eval_micro,
+            "gmm": 3 * L * (2 * train_micro + eval_micro) if moe_on else 0,
+            "tgmm": 3 * L * train_micro if moe_on else 0}
+
+
+def _busy_share(argv: list) -> dict:
+    """Device busy share of the CLI's steady steps: ``train_ddp.main`` over
+    six steps under ``torch.profiler``, each ``Trainer.train_step`` marked
+    by a ``record_function``; the union of device kernel intervals between
+    the start of step 2 and the start of step 5, over that window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from tpu_trainer_torch.training import train_ddp
+    from tpu_trainer_torch.training.trainer import Trainer
+
+    original = Trainer.train_step
+
+    def marked(self, state, batch):
+        with record_function("cli_train_step"):
+            return original(self, state, batch)
+
+    Trainer.train_step = marked
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            rc = train_ddp.main(argv)
+            torch.cuda.synchronize()
+    finally:
+        Trainer.train_step = original
+    if rc != 0:
+        raise AssertionError(f"cli: profiled run exited {rc}")
+    events = prof.events()
+    starts = sorted(e.time_range.start for e in events
+                    if e.name == "cli_train_step"
+                    and e.device_type == DeviceType.CPU)
+    if len(starts) != 6:
+        raise AssertionError(f"cli: {len(starts)} marked steps, want 6")
+    lo, hi = starts[2], starts[5]
+    # Device activity (kernels, copies, memsets), not the marks' own
+    # annotation spans on the GPU timeline.
+    spans = sorted((max(e.time_range.start, lo), min(e.time_range.end, hi))
+                   for e in events if e.device_type == DeviceType.CUDA
+                   and e.name != "cli_train_step"
+                   and e.time_range.end > lo and e.time_range.start < hi)
+    busy, cur_s, cur_e = 0.0, None, None
+    for a, b in spans:
+        if cur_e is None or a > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    if busy <= 0:
+        raise AssertionError("cli: the profiler saw no device time")
+    return {"window_ms": (hi - lo) / 1e3, "steps": 3,
+            "device_events": len(spans), "device_busy_ms": busy / 1e3,
+            "device_busy_share": busy / (hi - lo)}
+
+
+def phase_cli(results: dict, tmp: str) -> dict:
+    """The training CLI as a user runs it: ``configs/small_model.yaml`` on
+    a seeded corpus, 8 steps with saves and evals every 4 (run 1, here);
+    step 8's checkpoint set aside and deleted, and the same command again
+    in a fresh process, which resumes from step 4 (run 2). Step 8's state
+    (params, Adam moments, dropout generator) and the losses of steps 5-8
+    must be bitwise equal across the two; run 2's launches exact. Then 3
+    packed steps (split dk/dv and dq launches), 3 dropless-MoE steps of
+    ``configs/moe_small.yaml`` (gmm and tgmm), the checkpoint save and
+    restore times, steps 6-8 again with a sync save and without the eval,
+    and the device busy share of six profiled steps."""
+    import numpy as np
+
+    from tpu_trainer_torch.training import cli
+    from tpu_trainer_torch.training.trainer import Trainer
+    from tpu_trainer_torch.utils import checkpoint as ckpt_lib
+
+    card = nvidia_smi_line()
+    corpus = os.path.join(tmp, "stories.txt")
+    n_lines = _write_corpus(corpus)
+    small = os.path.join(ROOT, "configs", "small_model.yaml")
+    base = ["--config", small, "--dataset", "tinystories", "--data_path",
+            corpus, "--tokenizer", "byte", "--log_interval", "1"]
+    argv = base + ["--max_steps", "8", "--save_interval", "4",
+                   "--eval_interval", "4", "--keep_last_n", "0",
+                   "--checkpoint_dir", os.path.join(tmp, "a"),
+                   "--metrics_jsonl", os.path.join(tmp, "a.jsonl")]
+    log("cli", f"corpus: {n_lines} lines, {os.path.getsize(corpus)} bytes "
+               f"(seed 0); run 1: {' '.join(argv[2:])}")
+    run1 = _cli_in_process("cli", argv)
+    step8 = os.path.join(tmp, "a", "step_00000008")
+    aside = os.path.join(tmp, "step8_run1")
+    shutil.copytree(step8, aside)
+    shutil.rmtree(step8)
+    out = os.path.join(tmp, "child.json")
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, "-c",
+         f"import chip_smoke; chip_smoke._cli_child({argv!r}, {out!r})"],
+        cwd=ROOT, capture_output=True, text=True, timeout=900)
+    run2_s = time.perf_counter() - t0
+    for ln in child.stdout.splitlines():
+        log("cli", f"  run 2 | {ln}")
+    if child.returncode != 0:
+        raise AssertionError(f"cli: run 2 exited {child.returncode}: "
+                             f"{child.stderr[-3000:]}")
+    with open(out) as f:
+        run2 = json.load(f)
+    if "resumed from" not in child.stdout or "step_00000004" not in \
+            child.stdout:
+        raise AssertionError("cli: run 2 did not resume from step 4")
+
+    with np.load(os.path.join(step8, "state.npz")) as a, np.load(
+            os.path.join(aside, "state.npz")) as b:
+        if a.files != b.files:
+            raise AssertionError("cli: state arrays differ in name")
+        differ = [k for k in a.files if not np.array_equal(a[k], b[k])]
+        n_arrays = len(a.files)
+    if differ:
+        raise AssertionError(f"cli: resumed step-8 state not bitwise: "
+                             f"{len(differ)} of {n_arrays} arrays differ, "
+                             f"e.g. {differ[:5]}")
+    if ckpt_lib.load_meta(step8) != ckpt_lib.load_meta(aside):
+        raise AssertionError("cli: resumed step-8 meta.json differs")
+    train = _jsonl(os.path.join(tmp, "a.jsonl"), "train")
+    evals = _jsonl(os.path.join(tmp, "a.jsonl"), "eval")
+    steps = [r["step"] for r in train]
+    if steps != list(range(8)) + [4, 5, 6, 7]:
+        raise AssertionError(f"cli: train records at steps {steps}")
+    first, again = [r["loss"] for r in train[4:8]], [r["loss"] for r in
+                                                     train[8:]]
+    if first != again:
+        raise AssertionError(f"cli: losses of steps 5-8 {first} vs "
+                             f"resumed {again}")
+    if [r["step"] for r in evals] != [4, 8, 8]:
+        raise AssertionError(f"cli: eval records {evals}")
+    n_eval = evals[-1]["eval_batches"]
+    model_config, tc, _ = cli.resolve_configs(
+        cli.build_parser().parse_args(argv))
+    accum = tc.gradient_accumulation_steps
+    want = _micro_launches(model_config, 4 * accum, n_eval * accum,
+                           segmented=False)
+    if run2["launches"] != want or n_eval < 1:
+        raise AssertionError(f"cli: run 2 launches {run2['launches']}, "
+                             f"want {want} (4 steps x {accum} micro-batches"
+                             f" + {n_eval} eval batches x {accum})")
+    steady = [r for r in train[:8] if r["step"] not in (0, 4)]
+    tok_s = statistics.median(r["tokens_per_sec"] for r in steady)
+    util = statistics.median(r["mfu"] for r in steady)
+    rec = {"corpus_bytes": os.path.getsize(corpus), "corpus_lines": n_lines,
+           "run1_s": run1["seconds"], "run2_s": run2_s,
+           "losses": [r["loss"] for r in train[:8]],
+           "eval_losses": [r["eval_loss"] for r in evals],
+           "eval_batches": n_eval, "state_arrays_bitwise": n_arrays,
+           "run2_launches": {k: v for k, v in run2["launches"].items() if v},
+           "tokens_per_sec_median": tok_s, "mfu_median": util,
+           "tokens_per_sec": [r["tokens_per_sec"] for r in train[:8]],
+           "peak_mem_gb": max(r["peak_mem_gb"] for r in train[:8]),
+           "nvidia_smi": card}
+    log("cli", f"resume bitwise: {n_arrays} state arrays (params, moments, "
+               f"generator) of step 8 and the losses of steps 5-8 equal "
+               f"after a restart at step 4; run 2 launches "
+               f"{rec['run2_launches']} (4 steps x {accum} + {n_eval} eval "
+               f"batches x {accum})")
+    log("cli", f"GPT-2 small, batch {accum} x {tc.batch_size} x "
+               f"{tc.max_seq_len}, bf16, dropout 0.1: losses "
+               + " ".join(f"{x:.4f}" for x in rec["losses"])
+               + f"; eval {rec['eval_losses']}")
+    log("cli", f"tok/s median of steps 2-4, 6-8 from the run's JSONL: "
+               f"{tok_s:.0f}, MFU {util:.4f}, peak {rec['peak_mem_gb']} GiB "
+               f"on {card}")
+
+    # Checkpoint save and restore times at this model (f32 params + Adam).
+    trainer = Trainer(model_config, tc, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = ckpt_lib.restore_checkpoint(step8, trainer)
+    torch.cuda.synchronize()
+    rec["restore_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ckpt_lib.save_checkpoint(os.path.join(tmp, "timed"), state,
+                             model_config=model_config, training_config=tc)
+    rec["save_s"] = time.perf_counter() - t0
+    saver = ckpt_lib.AsyncSaver()
+    t0 = time.perf_counter()
+    saver.save(os.path.join(tmp, "timed_async"), state,
+               model_config=model_config, training_config=tc)
+    rec["async_save_blocking_s"] = time.perf_counter() - t0
+    saver.wait()
+    rec["async_save_total_s"] = time.perf_counter() - t0
+    rec["checkpoint_bytes"] = os.path.getsize(os.path.join(step8,
+                                                           "state.npz"))
+    del state, trainer
+    for d in ("timed", "timed_async"):
+        shutil.rmtree(os.path.join(tmp, d))
+    log("cli", f"checkpoint {rec['checkpoint_bytes'] / 2**30:.2f} GiB: "
+               f"restore {rec['restore_s']:.2f} s, sync save "
+               f"{rec['save_s']:.2f} s, async save blocks "
+               f"{rec['async_save_blocking_s']:.2f} s of "
+               f"{rec['async_save_total_s']:.2f} s on {card}")
+
+    # Steps 6-8 ran slower than steps 2-4 in run 1, after the step-4 eval
+    # and the async save. Two more straight runs separate the two: one
+    # saves on the loop's thread (the writer is done before step 5), one
+    # skips the eval (the writer runs under steps 5-8).
+    after = {"run1": [r["tokens_per_sec"] for r in train[5:8]]}
+    for name, extra in (("sync_save", ["--no_async_checkpointing"]),
+                        ("no_eval", ["--eval_interval", "0"])):
+        torch.cuda.empty_cache()
+        jsonl = os.path.join(tmp, f"{name}.jsonl")
+        _cli_in_process("cli", argv[:-4] + extra + [
+            "--checkpoint_dir", os.path.join(tmp, name),
+            "--metrics_jsonl", jsonl])
+        shutil.rmtree(os.path.join(tmp, name))
+        after[name] = [r["tokens_per_sec"]
+                       for r in _jsonl(jsonl, "train")[5:8]]
+    rec["after_save_tokens_per_sec"] = after
+    log("cli", "tok/s of steps 6-8 (straight runs, save and eval at step "
+               "4): " + "; ".join(f"{k} " + " ".join(f"{x:.0f}" for x in v)
+                                  for k, v in after.items())
+               + f" on {card}")
+
+    torch.cuda.empty_cache()
+    prof_argv = base + ["--max_steps", "6", "--save_interval", "0",
+                        "--eval_interval", "0", "--eval_batches", "1",
+                        "--no_auto_resume",
+                        "--checkpoint_dir", os.path.join(tmp, "prof")]
+    rec["profile"] = _busy_share(prof_argv)
+    shutil.rmtree(os.path.join(tmp, "prof"), ignore_errors=True)
+    prof = rec["profile"]
+    log("profile", f"cli: {prof['device_events']} device activities busy "
+                   f"{prof['device_busy_ms']:.1f} of {prof['window_ms']:.1f}"
+                   f" ms over steps 3-5 (profiled) = "
+                   f"{prof['device_busy_share']:.3f} on {card}")
+
+    torch.cuda.empty_cache()
+    packed = _cli_in_process("cli", base + [
+        "--pack_sequences", "--max_steps", "3", "--save_interval", "0",
+        "--eval_interval", "0", "--no_auto_resume",
+        "--checkpoint_dir", os.path.join(tmp, "p")])
+    shutil.rmtree(os.path.join(tmp, "p"))
+    want = _micro_launches(model_config, 3 * accum, 0, segmented=True)
+    if packed["launches"] != want:
+        raise AssertionError(f"cli: packed launches {packed['launches']}, "
+                             f"want {want}")
+    rec["packed_launches"] = {k: v for k, v in packed["launches"].items()
+                              if v}
+    log("cli", f"--pack_sequences, 3 steps in {packed['seconds']:.1f} s: "
+               f"launches {rec['packed_launches']}")
+
+    torch.cuda.empty_cache()
+    moe_argv = ["--config", os.path.join(ROOT, "configs", "moe_small.yaml"),
+                "--moe_impl", "dropless", "--max_steps", "3",
+                "--log_interval", "1", "--eval_batches", "1",
+                "--no_auto_resume", "--checkpoint_dir",
+                os.path.join(tmp, "m")]
+    moe = _cli_in_process("cli", moe_argv)
+    shutil.rmtree(os.path.join(tmp, "m"))
+    moe_cfg = cli.resolve_configs(cli.build_parser().parse_args(moe_argv))[0]
+    want = _micro_launches(moe_cfg, 3 * accum, accum, segmented=False)
+    if moe["launches"] != want:
+        raise AssertionError(f"cli: MoE launches {moe['launches']}, want "
+                             f"{want}")
+    rec["moe_launches"] = {k: v for k, v in moe["launches"].items() if v}
+    log("cli", f"moe_small.yaml --moe_impl dropless, 3 steps + 1 eval batch "
+               f"in {moe['seconds']:.1f} s: launches {rec['moe_launches']}")
+    results["cli"] = rec
+    return rec
+
+
+def _top2_gap(ckpt_path, row, upto):
+    """(top-1 minus top-2 logit, max |logit|) of the next-token logits after
+    ``row[:upto]``, from the checkpoint's model."""
+    import dataclasses
+
+    from tpu_trainer_torch.models.weights import build_model
+    from tpu_trainer_torch.utils.checkpoint import restore_params
+
+    params, config = restore_params(ckpt_path)
+    config = dataclasses.replace(config, dropout=0.0, attention_dropout=0.0)
+    model = build_model(config, params, "cuda")
+    with torch.no_grad():
+        logits, _ = model(torch.tensor([row[:upto]], device="cuda"))
+    last = logits[0, -1]
+    top = torch.topk(last, 2).values
+    return float(top[0] - top[1]), float(last.abs().max())
+
+
+def phase_infer(results: dict, tmp: str, new: int = 64) -> dict:
+    """``eval.infer.main`` on the cli phase's checkpoints, greedy: the KV
+    path and ``--serve`` on the checkpoint root (its compute dtype, bf16),
+    then both on the consolidated export beside a ``meta.json`` whose
+    model computes in f32; their greedy tokens must be equal (a differing
+    token passes only at a tie: a top-2 logit gap below 1e-5 x the logits'
+    absolute maximum). ``--serve``'s flash-decode launches must be exact:
+    (new tokens - 1) x layers."""
+    from tpu_trainer_torch.eval import infer
+    from tpu_trainer_torch.ops import flash
+    from tpu_trainer_torch.utils import checkpoint as ckpt_lib
+
+    card = nvidia_smi_line()
+    root = os.path.join(tmp, "a")
+    step8 = ckpt_lib.latest_checkpoint(root)
+    meta = ckpt_lib.load_meta(step8)
+    layers = meta["model_config"]["num_layers"]
+    params, _ = ckpt_lib.restore_params(step8)
+    f32_dir = os.path.join(tmp, "f32")
+    os.makedirs(f32_dir)
+    export = ckpt_lib.export_consolidated(f32_dir, params)
+    del params
+    meta["model_config"]["dtype"] = "float32"
+    with open(os.path.join(f32_dir, "meta.json"), "w") as f:
+        json.dump(meta, f)
+    with open(os.path.join(tmp, "stories.txt")) as f:
+        stories = [next(f) for _ in range(4)]
+    prompts = os.path.join(tmp, "prompts.txt")
+    with open(prompts, "w") as f:
+        for i, s in enumerate(stories):
+            f.write(" ".join(s.split()[:4 + 3 * i]) + "\n")
+    rec = {"nvidia_smi": card, "max_new_tokens": new}
+    for where, path, dtype in (("root", root, None),
+                               ("consolidated", export, "float32")):
+        outs = {}
+        for mode in ("kv", "serve"):
+            argv = ["--checkpoint", path, "--prompt_file", prompts,
+                    "--tokenizer", "byte", "--temperature", "0",
+                    "--max_new_tokens", str(new)]
+            argv += ["--serve"] if mode == "serve" else []
+            res = {}
+            torch.cuda.synchronize()
+            flash.flash_decode.launches = 0
+            t0 = time.perf_counter()
+            rc = infer.main(argv, result=res)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launched = flash.flash_decode.launches
+            if rc != 0:
+                raise AssertionError(f"infer: {where} {mode} exited {rc}")
+            want = (new - 1) * layers if mode == "serve" else 0
+            if launched != want or (mode == "serve" and
+                                    res["stats"]["decode_iters"] != new - 1):
+                raise AssertionError(
+                    f"infer: {where} {mode}: flash_decode launches "
+                    f"{launched}, want {want}")
+            lens = [len(t) for t in res["tokens"]]
+            outs[mode] = res["tokens"]
+            rec[f"{where}_{mode}"] = {"s": secs, "launches": launched,
+                                      "lengths": lens}
+            log("infer", f"{where} ({dtype or 'checkpoint dtype'}) {mode}: "
+                         f"{len(lens)} prompts, {new} new tokens each in "
+                         f"{secs:.2f} s, flash_decode launches {launched}")
+        if dtype == "float32":
+            ties = []
+            for r, (a, b) in enumerate(zip(outs["kv"], outs["serve"])):
+                if a == b:
+                    continue
+                pos = next(i for i, (x, y) in enumerate(zip(a, b))
+                           if x != y)
+                gap, scale = _top2_gap(export, a, pos)
+                log("infer", f"row {r} differs at position {pos}: top-2 "
+                             f"gap {gap:.3e}, |logits| max {scale:.3e}")
+                if not gap < 1e-5 * scale:
+                    raise AssertionError(
+                        f"infer: f32 greedy tokens of the KV path and "
+                        f"--serve differ at row {r} position {pos} with a "
+                        f"top-2 gap {gap:.3e} (not a tie)")
+                ties.append({"row": r, "pos": pos, "gap": gap})
+            rec["f32_ties"] = ties
+            log("infer", f"f32 greedy tokens of the KV path and --serve: "
+                         f"{'equal' if not ties else f'{len(ties)} ties'} "
+                         f"on {card}")
+    results["infer"] = rec
+    return rec
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out", help="also write every measured number here")
@@ -2183,6 +2668,14 @@ def main(argv=None) -> int:
     phase_train_grads(results, moe=True)
     torch.cuda.empty_cache()
     moe_launches = phase_train_moe(results)
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        phase_cli(results, tmp)
+        torch.cuda.empty_cache()
+        phase_infer(results, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     max_err = max(results["kernel_max_abs_err"],
                   results["engine"]["live_step_max_abs_err"],

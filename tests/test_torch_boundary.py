@@ -49,7 +49,14 @@ def test_import_leaves_jax_out_of_sys_modules():
                 "tpu_trainer_torch.ops.grouped_matmul",
                 "tpu_trainer_torch.models.moe",
                 "tpu_trainer_torch.data.dummy",
-                "tpu_trainer_torch.data.packing"):
+                "tpu_trainer_torch.data.packing",
+                "tpu_trainer_torch.data.text",
+                "tpu_trainer_torch.data.device_prefetch",
+                "tpu_trainer_torch.native",
+                "tpu_trainer_torch.training.cli",
+                "tpu_trainer_torch.training.train_ddp",
+                "tpu_trainer_torch.utils.checkpoint",
+                "tpu_trainer_torch.eval.infer"):
         assert mod in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 

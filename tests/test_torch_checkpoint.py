@@ -1,0 +1,265 @@
+"""The port's checkpoints (``tpu_trainer_torch/utils/checkpoint.py``),
+mirroring ``tests/test_checkpoint.py``: bitwise roundtrip, identical
+resumed training (dropout on), latest selection, torn-meta skip, GC,
+quarantine and fall-back, incompatible models, the data cursor, the async
+saver; and the consolidated export read by the JAX package.
+
+Tiny f32 geometry on the CPU.
+"""
+
+import dataclasses
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from tpu_trainer_torch.data.dummy import DummyDataLoader
+from tpu_trainer_torch.models.config import GPTConfig
+from tpu_trainer_torch.training.config import TrainingConfig
+from tpu_trainer_torch.training.trainer import Trainer
+from tpu_trainer_torch.utils import checkpoint as ckpt
+
+MODEL = GPTConfig(vocab_size=128, hidden_size=32, num_layers=2, num_heads=4,
+                  max_seq_len=16, dropout=0.1, attention_dropout=0.1,
+                  use_flash_attention=True, dtype="float32")
+TRAIN = TrainingConfig(batch_size=2, max_seq_len=16,
+                       gradient_accumulation_steps=2, max_steps=100,
+                       warmup_steps=5, learning_rate=3e-3,
+                       mixed_precision="fp32", seed=0)
+
+
+def make_trainer(model=MODEL, train=TRAIN):
+    return Trainer(model, train, device="cpu")
+
+
+def batches(n, seed=3):
+    return list(DummyDataLoader(4, 16, 128, num_batches=n, seed=seed))
+
+
+def assert_state_equal(a, b):
+    sa, sb = a.state_dict(), b.state_dict()
+    assert set(sa) == set(sb)
+    for k in sa:
+        np.testing.assert_array_equal(np.asarray(sa[k]), np.asarray(sb[k]),
+                                      err_msg=k)
+
+
+def _save_steps(tmp_path, trainer, steps, **kw):
+    state = trainer.init_state()
+    paths = []
+    for s in steps:
+        state.step = s
+        paths.append(ckpt.save_checkpoint(
+            str(tmp_path), state, model_config=MODEL, training_config=TRAIN,
+            **kw))
+    return state, paths
+
+
+def test_roundtrip_bitwise_with_generator(tmp_path):
+    trainer = make_trainer()
+    state = trainer.init_state()
+    for b in batches(3):
+        state, _ = trainer.train_step(state, b)
+    path = ckpt.save_checkpoint(str(tmp_path), state, model_config=MODEL,
+                                training_config=TRAIN, tokens_seen=123)
+    assert sorted(os.listdir(path)) == ["meta.json", "state.npz"]
+    restored, meta = ckpt.restore_checkpoint(path, make_trainer())
+    assert meta["step"] == 3 and meta["tokens_seen"] == 123
+    assert_state_equal(state, restored)
+    assert restored.step == 3 and restored.opt_state.count == 3
+    assert torch.equal(state.generator.get_state(),
+                       restored.generator.get_state())
+    with np.load(os.path.join(path, "state.npz")) as z:
+        assert z["params/layers/attention/q_proj/kernel"].dtype == np.float32
+        assert "opt_state/mu/embed_tokens/embedding" in z.files
+        assert z["generator"].dtype == np.uint8
+
+
+def test_resume_identical_training_with_dropout(tmp_path):
+    """6 straight steps == 3 steps + save + restore in a new trainer + 3
+    steps, bit for bit (the dropout seeds come from the restored
+    generator)."""
+    data = batches(6)
+    t1 = make_trainer()
+    s1 = t1.init_state()
+    straight = []
+    for b in data:
+        s1, m = t1.train_step(s1, b)
+        straight.append(m["loss"])
+    t2 = make_trainer()
+    s2 = t2.init_state()
+    for b in data[:3]:
+        s2, _ = t2.train_step(s2, b)
+    path = ckpt.save_checkpoint(str(tmp_path), s2, model_config=MODEL,
+                                training_config=TRAIN)
+    t3 = make_trainer()
+    s3, _ = ckpt.restore_checkpoint(path, t3)
+    resumed = []
+    for b in data[3:]:
+        s3, m = t3.train_step(s3, b)
+        resumed.append(m["loss"])
+    assert straight[3:] == resumed
+    assert_state_equal(s1, s3)
+
+
+def test_latest_checkpoint_selection(tmp_path):
+    trainer = make_trainer()
+    assert ckpt.latest_checkpoint(str(tmp_path)) is None
+    _, (p1, p2) = _save_steps(tmp_path, trainer, [0, 7])
+    assert ckpt.latest_checkpoint(str(tmp_path)) == p2 != p1
+    assert [s for s, _ in ckpt.list_checkpoints(str(tmp_path))] == [0, 7]
+
+
+def test_truncated_meta_is_skipped(tmp_path):
+    trainer = make_trainer()
+    _, (p1, p2) = _save_steps(tmp_path, trainer, [1, 2])
+    open(f"{p2}/meta.json", "w").close()          # a torn write
+    assert ckpt.latest_checkpoint(str(tmp_path)) == p1
+    with open(f"{p1}/meta.json", "w") as f:
+        f.write('{"step": 1, "tok')
+    assert ckpt.latest_checkpoint(str(tmp_path)) is None
+
+
+def test_gc_keeps_newest_n_never_the_incomplete(tmp_path):
+    trainer = make_trainer()
+    inflight = tmp_path / "step_00000099"
+    inflight.mkdir()
+    (inflight / "state.npz").write_bytes(b"partial")
+    _save_steps(tmp_path, trainer, [1, 2, 3], keep_last_n=2)
+    names = sorted(d for d in os.listdir(tmp_path) if d.startswith("step_"))
+    assert names == ["step_00000002", "step_00000003", "step_00000099"]
+
+
+def test_restore_latest_quarantines_and_falls_back(tmp_path):
+    trainer = make_trainer()
+    _, (p1, p2) = _save_steps(tmp_path, trainer, [1, 2])
+    with open(os.path.join(p2, "state.npz"), "r+b") as f:
+        f.seek(200)
+        byte = f.read(1)
+        f.seek(200)
+        f.write(bytes([byte[0] ^ 0xFF]))
+    got_state, meta, path = ckpt.restore_latest(str(tmp_path), trainer)
+    assert path == p1 and meta["step"] == 1 and got_state.step == 1
+    names = os.listdir(tmp_path)
+    assert "step_00000002" not in names
+    assert any(n.startswith("step_00000002.corrupt") for n in names)
+    assert ckpt.restore_latest(str(tmp_path / "nope"), trainer) is None
+
+
+def test_incompatible_model_raises_naming_fields(tmp_path):
+    trainer = make_trainer()
+    _save_steps(tmp_path, trainer, [1])
+    bigger = dataclasses.replace(MODEL, hidden_size=64, num_heads=8)
+    with pytest.raises(ckpt.CheckpointIncompatibleError,
+                       match="hidden_size.*num_heads"):
+        ckpt.restore_latest(str(tmp_path), make_trainer(bigger))
+    assert os.path.isdir(tmp_path / "step_00000001")      # untouched
+    # Shape-free differences (dropout, dtype) restore.
+    other = dataclasses.replace(MODEL, dropout=0.0, dtype="bfloat16")
+    state, _, _ = ckpt.restore_latest(
+        str(tmp_path), make_trainer(other, dataclasses.replace(
+            TRAIN, mixed_precision="bf16")))
+    assert state.step == 1
+
+
+def test_data_state_and_configs_roundtrip_through_meta(tmp_path):
+    trainer = make_trainer()
+    sd = {"kind": "map", "epoch": 1, "batch_index": 5, "seed": 7}
+    path = ckpt.save_checkpoint(str(tmp_path), trainer.init_state(),
+                                model_config=MODEL, training_config=TRAIN,
+                                data_state=sd)
+    _, meta = ckpt.restore_checkpoint(path, trainer)
+    assert meta["data_state"] == sd
+    assert GPTConfig(**meta["model_config"]) == MODEL
+    assert TrainingConfig(**meta["training_config"]) == TRAIN
+    assert meta["loss_scale"] == 1.0 and meta["good_steps"] == 0
+
+
+def test_async_saver_equals_sync_save(tmp_path):
+    """The async saver's files equal the sync save's, and a later in-place
+    step cannot reach the snapshot it writes."""
+    trainer = make_trainer()
+    state = trainer.init_state()
+    data = batches(3)
+    for b in data[:2]:
+        state, _ = trainer.train_step(state, b)
+    want = state.state_dict()
+    saver = ckpt.AsyncSaver()
+    path = saver.save(str(tmp_path / "a"), state, model_config=MODEL,
+                      training_config=TRAIN, tokens_seen=7,
+                      data_state={"kind": "map", "epoch": 0,
+                                  "batch_index": 2, "seed": 0})
+    state, _ = trainer.train_step(state, data[2])      # mutates in place
+    assert saver.wait() == path and not saver.in_flight
+    sync = make_trainer().init_state()
+    sync.load_state_dict(want)
+    spath = ckpt.save_checkpoint(str(tmp_path / "s"), sync,
+                                 model_config=MODEL, training_config=TRAIN,
+                                 tokens_seen=7,
+                                 data_state={"kind": "map", "epoch": 0,
+                                             "batch_index": 2, "seed": 0})
+    with np.load(f"{path}/state.npz") as a, np.load(
+            f"{spath}/state.npz") as s:
+        assert a.files == s.files
+        for k in a.files:
+            np.testing.assert_array_equal(a[k], s[k], err_msg=k)
+    assert json.load(open(f"{path}/meta.json")) == json.load(
+        open(f"{spath}/meta.json"))
+
+
+def test_async_saver_surfaces_writer_error(tmp_path):
+    trainer = make_trainer()
+    blocker = tmp_path / "file"
+    blocker.write_text("not a directory")
+    saver = ckpt.AsyncSaver()
+    saver.save(str(blocker), trainer.init_state(), model_config=MODEL,
+               training_config=TRAIN)
+    with pytest.raises(OSError):
+        saver.wait()
+
+
+def test_restore_params_step_dir_and_consolidated(tmp_path):
+    trainer = make_trainer()
+    state = trainer.init_state()
+    path = ckpt.save_checkpoint(str(tmp_path), state, model_config=MODEL,
+                                training_config=TRAIN)
+    params, config = ckpt.restore_params(path)
+    assert config == MODEL
+    out = ckpt.export_consolidated(path, state.params)
+    assert out == os.path.join(path, "params.npz")
+    cparams, cconfig = ckpt.restore_params(out)
+    assert cconfig == MODEL                      # from meta.json beside it
+    loose = ckpt.export_consolidated(path, state.params,
+                                     str(tmp_path / "loose.npz"))
+    assert ckpt.restore_params(loose)[1] is None
+    for n, p in state.params.items():
+        np.testing.assert_array_equal(params[n], p.detach().numpy())
+        np.testing.assert_array_equal(cparams[n], p.detach().numpy())
+
+
+def test_consolidated_export_loads_in_jax(tmp_path):
+    """The port's export, read by the JAX package's ``load_params_npz``,
+    gives JAX logits within atol = rtol = 2e-5 of the port's."""
+    pytest.importorskip("jax", reason="the JAX reference is not installed")
+    import jax.numpy as jnp
+
+    from tpu_trainer.models.config import GPTConfig as JConfig
+    from tpu_trainer.models.gpt import GPT as JGPT
+    from tpu_trainer.serving.remote import load_params_npz
+
+    cfg = dataclasses.replace(MODEL, dropout=0.0, attention_dropout=0.0,
+                              initializer_range=0.2)
+    trainer = make_trainer(cfg)
+    state = trainer.init_state()
+    for b in batches(2):
+        state, _ = trainer.train_step(state, b)
+    out = ckpt.export_consolidated(str(tmp_path), state.params)
+    ids = np.random.default_rng(1).integers(0, 128, (2, 16)).astype(np.int32)
+    want, _ = JGPT(JConfig(**dataclasses.asdict(cfg))).apply(
+        {"params": load_params_npz(out)}, jnp.asarray(ids))
+    with torch.no_grad():
+        got, _ = trainer.model(torch.from_numpy(ids).long())
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
+                               rtol=2e-5)

@@ -1,0 +1,344 @@
+"""The port's training CLI (``tpu_trainer_torch/training/cli.py``).
+
+- ``resolve_configs`` gives the JAX CLI's values on ``TINY_YAML`` and on
+  every ``configs/*.yaml``; the YAML reader equals ``yaml.safe_load``.
+- End to end against the JAX CLI: the same tiny yaml (``TINY_YAML``'s
+  widths, vocab 50257 for the byte tokenizer), the same temporary corpus,
+  the same initial weights (the port resumes from a step-0 checkpoint of
+  the JAX trainer's ``init_state()`` params). Train loss, grad norm and lr
+  agree at rtol = 1e-4, eval loss too (the bounds of
+  ``tests/test_torch_train.py``). The JAX run is 8-way data parallel over
+  the test harness's 8 CPU devices, so the port's micro-batch is 8x the
+  yaml's: the same rows per step.
+- Resume through the CLI is bitwise (dropout on); a NaN loss rolls back
+  once; SIGTERM saves and exits 143; options of later ROADMAP items raise.
+"""
+
+import dataclasses
+import glob
+import json
+import os
+import shutil
+import signal
+
+import numpy as np
+import pytest
+
+from tpu_trainer_torch.training import cli
+from tpu_trainer_torch.training.trainer import Trainer
+from tpu_trainer_torch.utils import checkpoint as ckpt
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# tests/test_cli.py's TINY_YAML.
+TINY_YAML = """
+model:
+  name: "gpt2-small"
+  vocab_size: 128
+  hidden_size: 32
+  num_layers: 1
+  num_heads: 2
+  intermediate_size: 64
+  max_seq_len: 32
+  dropout: 0.0
+  attention_dropout: 0.0
+  use_flash_attention: false
+training:
+  batch_size: 2
+  gradient_accumulation_steps: 2
+  learning_rate: 1e-3
+  max_steps: 3
+  warmup_steps: 1
+  log_interval: 10
+  eval_interval: 100
+  save_interval: 100
+distributed:
+  mixed_precision: "fp32"
+data:
+  dataset: "dummy"
+"""
+
+TEXT_YAML = TINY_YAML.replace("vocab_size: 128", "vocab_size: 50257")
+# Dropout on and the flash dispatch, for the resume and rollback runs.
+DROP_YAML = (TEXT_YAML.replace("dropout: 0.0", "dropout: 0.1")
+             .replace("use_flash_attention: false",
+                      "use_flash_attention: true"))
+
+
+def _corpus(path, n=220, seed=11):
+    rng = np.random.default_rng(seed)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz "))
+    with open(path, "w") as f:
+        for _ in range(n):
+            f.write("".join(rng.choice(letters, rng.integers(10, 60)))
+                    + "\n")
+    return str(path)
+
+
+def _records(path, kind):
+    with open(path) as f:
+        return [r for r in map(json.loads, f) if r.get("kind") == kind]
+
+
+@pytest.fixture
+def yaml_file(tmp_path):
+    def make(text, name="t.yaml"):
+        p = tmp_path / name
+        p.write_text(text)
+        return str(p)
+    return make
+
+
+# -- configs ---------------------------------------------------------------
+
+CONFIGS = sorted(glob.glob(os.path.join(ROOT, "configs", "*.yaml")))
+
+
+@pytest.mark.parametrize("path", CONFIGS + ["TINY_YAML"],
+                         ids=lambda p: os.path.basename(p))
+def test_yaml_reader_equals_safe_load(path):
+    yaml = pytest.importorskip("yaml")
+    text = TINY_YAML if path == "TINY_YAML" else open(path).read()
+    assert cli.parse_yaml(text) == yaml.safe_load(text)
+
+
+@pytest.mark.parametrize("text", [
+    "a:\n  - 1\n", "a: [1, 2]\n", "a: {b: 1}\n", "a: &x 1\n", "a: *x\n",
+    "a: !!str 1\n", "a: |\n  x\n", "a: 0x10\n", "a: 017\n", "a: .inf\n",
+    "a:\n\tb: 1\n", "a: 1\na: 2\n", "  a: 1\n", "---\na: 1\n",
+])
+def test_yaml_reader_raises_outside_its_subset(text):
+    with pytest.raises(ValueError):
+        cli.parse_yaml(text)
+
+
+@pytest.mark.parametrize("path", CONFIGS + ["TINY_YAML"],
+                         ids=lambda p: os.path.basename(p))
+def test_resolve_configs_matches_jax(path, yaml_file):
+    pytest.importorskip("jax", reason="the JAX reference is not installed")
+    from tpu_trainer.training import cli as jcli
+
+    if path == "TINY_YAML":
+        path = yaml_file(TINY_YAML)
+    argv = ["--config", path, "--max_steps", "7", "--tokenizer", "byte"]
+    jm, jt, _, jd = jcli.resolve_configs(
+        jcli.build_parser("ddp").parse_args(argv), "ddp")
+    tm, tt, td = cli.resolve_configs(cli.build_parser().parse_args(argv))
+    assert dataclasses.asdict(tm) == dataclasses.asdict(jm)
+    jtd = dataclasses.asdict(jt)
+    assert dataclasses.asdict(tt) == {k: jtd[k] for k in
+                                      dataclasses.asdict(tt)}
+    assert td == jd
+
+
+# -- end to end against the JAX CLI ------------------------------------------
+
+def test_cli_matches_jax_cli(tmp_path, yaml_file):
+    pytest.importorskip("jax", reason="the JAX reference is not installed")
+    import jax
+
+    from tpu_trainer.training import cli as jcli
+    from tpu_trainer.training.trainer import Trainer as JTrainer
+    from tpu_trainer_torch.models.weights import from_jax_params
+
+    yaml = yaml_file(TEXT_YAML)
+    corpus = _corpus(tmp_path / "stories.txt")
+    common = ["--config", yaml, "--dataset", "tinystories", "--data_path",
+              corpus, "--tokenizer", "byte", "--max_steps", "4",
+              "--eval_interval", "2", "--log_interval", "1",
+              "--save_interval", "0", "--eval_split", "0.25"]
+    jargv = common + ["--checkpoint_dir", str(tmp_path / "j"),
+                      "--metrics_jsonl", str(tmp_path / "j.jsonl")]
+    assert jcli.run_training(jargv, mode="ddp") == 0
+
+    # The JAX trainer's initial params, as a port step-0 checkpoint.
+    jm, jt, jp, _ = jcli.resolve_configs(
+        jcli.build_parser("ddp").parse_args(jargv), "ddp")
+    jparams = jax.tree.map(np.asarray, JTrainer(jm, jt, jp).init_state()
+                           .params)
+    dp = jax.device_count()
+    targv = common + ["--batch_size", str(2 * dp), "--device", "cpu",
+                      "--checkpoint_dir", str(tmp_path / "t"),
+                      "--metrics_jsonl", str(tmp_path / "t.jsonl")]
+    tm, tt, _ = cli.resolve_configs(cli.build_parser().parse_args(targv))
+    trainer = Trainer(tm, tt, device="cpu")
+    state = trainer.init_state(params=from_jax_params(jparams,
+                                                      trainer.model_config,
+                                                      device="cpu"))
+    ckpt.save_checkpoint(tt.checkpoint_dir, state, model_config=tm,
+                         training_config=tt)
+    assert cli.run_training(targv) == 0
+
+    for kind, keys in (("train", ("loss", "grad_norm", "lr")),
+                       ("eval", ("eval_loss",))):
+        want = _records(tmp_path / "j.jsonl", kind)
+        got = _records(tmp_path / "t.jsonl", kind)
+        assert [r["step"] for r in got] == [r["step"] for r in want]
+        assert len(got) == (4 if kind == "train" else 2)
+        for key in keys:
+            np.testing.assert_allclose([r[key] for r in got],
+                                       [r[key] for r in want], rtol=1e-4,
+                                       err_msg=f"{kind} {key}")
+        if kind == "eval":
+            assert [r["eval_batches"] for r in got] == [
+                r["eval_batches"] for r in want]
+
+
+# -- resume, rollback, SIGTERM -------------------------------------------------
+
+def _drop_argv(tmp_path, yaml_file, tag, *extra):
+    return ["--config", yaml_file(DROP_YAML, "drop.yaml"), "--dataset",
+            "tinystories", "--data_path",
+            _corpus(tmp_path / "stories.txt", n=300), "--tokenizer", "byte",
+            "--log_interval", "1", "--eval_interval", "4", "--device", "cpu",
+            "--checkpoint_dir", str(tmp_path / tag),
+            "--metrics_jsonl", str(tmp_path / f"{tag}.jsonl"), *extra]
+
+
+def test_cli_resume_is_bitwise(tmp_path, yaml_file):
+    """8 steps == 4 steps, a new run resuming from step 4, 4 steps: the
+    step-8 state (params, moments, generator) and the losses of steps 5-8
+    bitwise, with dropout on and both prefetchers running ahead."""
+    argv = _drop_argv(tmp_path, yaml_file, "a", "--max_steps", "8",
+                      "--save_interval", "4", "--keep_last_n", "0")
+    assert cli.run_training(argv) == 0
+    step8 = str(tmp_path / "a" / "step_00000008")
+    shutil.copytree(step8, tmp_path / "copy")
+    shutil.rmtree(step8)
+    assert cli.run_training(argv) == 0
+    with np.load(f"{step8}/state.npz") as a, np.load(
+            tmp_path / "copy" / "state.npz") as b:
+        assert a.files == b.files
+        for k in a.files:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    meta, want = ckpt.load_meta(step8), ckpt.load_meta(tmp_path / "copy")
+    assert meta == want and meta["data_state"]["batch_index"] == 8
+    train = _records(tmp_path / "a.jsonl", "train")
+    assert [r["step"] for r in train] == list(range(8)) + [4, 5, 6, 7]
+    assert [r["loss"] for r in train[4:8]] == [r["loss"] for r in train[8:]]
+    assert train[0]["loss"] != train[1]["loss"]
+
+
+def _patch_step(monkeypatch, action):
+    """Wrap ``Trainer.train_step``: ``action(step_before, metrics)`` may
+    change the metrics; returns the batches the steps consumed."""
+    original = Trainer.train_step
+    seen = []
+
+    def step(self, state, batch):
+        before = state.step
+        seen.append(np.asarray(batch).copy())
+        state, metrics = original(self, state, batch)
+        return state, action(before, metrics) or metrics
+
+    monkeypatch.setattr(Trainer, "train_step", step)
+    return seen
+
+
+def test_nan_loss_rolls_back_once(tmp_path, yaml_file, monkeypatch):
+    """A NaN at step 5 restores step 4, skips the diverging batch, halves
+    the LR (a new Trainer) and logs one rollback record."""
+    fired = []
+
+    def nan_at_5(step, metrics):
+        if step == 5 and not fired:
+            fired.append(step)
+            return dict(metrics, loss=float("nan"))
+
+    seen = _patch_step(monkeypatch, nan_at_5)
+    argv = _drop_argv(tmp_path, yaml_file, "r", "--max_steps", "8",
+                      "--save_interval", "2", "--guard_interval", "1",
+                      "--prefetch", "0", "--device_prefetch_depth", "0")
+    assert cli.run_training(argv) == 0
+    recs = _records(tmp_path / "r.jsonl", "rollback")
+    assert len(recs) == 1
+    assert recs[0]["restored_step"] == 4 and recs[0]["step"] == 5
+    assert recs[0]["lr_backoff"] == 0.5 and recs[0]["cause"] == \
+        "FloatingPointError"
+    # Steps 0-5 on batches 0-5, then steps 4-7 on batches 6-9: the
+    # diverging batch 5 is not replayed.
+    from tpu_trainer_torch.data.text import create_tinystories_dataloader
+    data = list(create_tinystories_dataloader(
+        str(tmp_path / "stories.txt"), 4, 32, tokenizer_name="byte",
+        eval_split=0.02, prefetch=0))
+    assert len(seen) == 10
+    for got, want in zip(seen, data):
+        np.testing.assert_array_equal(got.reshape(want.shape), want)
+    train = _records(tmp_path / "r.jsonl", "train")
+    lr = {r["step"]: r["lr"] for r in train}
+    tc = dataclasses.replace(cli.resolve_configs(
+        cli.build_parser().parse_args(argv))[1], learning_rate=5e-4)
+    for s in (4, 5, 6, 7):
+        assert lr[s] == pytest.approx(tc.lr_at(s), rel=1e-6)
+    assert ckpt.latest_checkpoint(str(tmp_path / "r")).endswith("00000008")
+
+
+def test_persistent_nan_gives_up(tmp_path, yaml_file, monkeypatch):
+    _patch_step(monkeypatch, lambda step, m: dict(m, loss=float("nan"))
+                if step >= 3 else None)
+    argv = _drop_argv(tmp_path, yaml_file, "g", "--max_steps", "8",
+                      "--save_interval", "2", "--guard_interval", "1",
+                      "--max_rollbacks", "1")
+    with pytest.raises(FloatingPointError):
+        cli.run_training(argv)
+    assert len(_records(tmp_path / "g.jsonl", "rollback")) == 1
+
+
+def test_sigterm_saves_and_exits_143(tmp_path, yaml_file, monkeypatch):
+    def term_at_2(step, metrics):
+        if step == 2:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    _patch_step(monkeypatch, term_at_2)
+    argv = _drop_argv(tmp_path, yaml_file, "s", "--max_steps", "8",
+                      "--save_interval", "0")
+    handler = signal.getsignal(signal.SIGTERM)
+    assert cli.run_training(argv) == 143
+    assert signal.getsignal(signal.SIGTERM) == handler
+    path = ckpt.latest_checkpoint(str(tmp_path / "s"))
+    assert path.endswith("step_00000003")
+    assert ckpt.load_meta(path)["data_state"]["batch_index"] == 3
+
+
+# -- options of later ROADMAP items ----------------------------------------------
+
+@pytest.mark.parametrize("extra,item", [
+    (["--mesh", "auto"], "item 5"),
+    (["--mesh_tensor", "2"], "item 5"),
+    (["--mesh_data", "4"], "item 5"),
+    (["--multihost"], "item 5"),
+    (["--hbm_gb", "40"], "item 5"),
+    (["--pipeline_microbatches", "2"], "item 5"),
+    (["--gradient_checkpointing"], "item 2"),
+    (["--optimizer_state_dtype", "int8"], "item 2"),
+    (["--config", os.path.join(ROOT, "configs", "medium_model.yaml")],
+     "item 2"),
+    (["--config", os.path.join(ROOT, "configs", "large_1b_single_chip.yaml")],
+     "item 2"),
+    (["--num_experts", "4"], "item 8"),
+    (["--data_mixture", "dummy:1"], "item 4"),
+    (["--inject_fault", "nan_loss@2"], "item 4"),
+    (["--telemetry_interval", "5"], "item 4"),
+    (["--spike_sigma", "3"], "item 4"),
+    (["--flight_recorder_steps", "8"], "item 4"),
+    (["--nan_scan"], "item 4"),
+    (["--profile_dir", "prof"], "item 4"),
+    (["--metrics_port", "0"], "item 4"),
+    (["--preempt_notice", "file:notice"], "item 4"),
+    (["--preemption_grace_s", "5"], "item 4"),
+])
+def test_later_item_options_raise(extra, item):
+    with pytest.raises(NotImplementedError, match=f"Queue 1 {item}"):
+        cli.run_training(["--device", "cpu", "--max_steps", "1"] + extra)
+
+
+def test_train_fsdp_mode_and_missing_cuda_raise():
+    import torch
+
+    with pytest.raises(NotImplementedError, match="item 5"):
+        cli.run_training(["--device", "cpu"], mode="fsdp")
+    if not torch.cuda.is_available():
+        from tpu_trainer_torch.training.train_ddp import main
+
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main(["--max_steps", "1", "--model_size", "small"])

@@ -1,0 +1,199 @@
+"""Inference CLI (port of ``tpu_trainer/eval/infer.py``): checkpoint ->
+generation -> text. Run::
+
+    python -m tpu_trainer_torch.eval.infer --checkpoint checkpoints/gpt2-small \\
+        --prompt "Once upon a time" --max_new_tokens 100 --tokenizer byte
+
+``--checkpoint`` is a step dir, a checkpoint root (its latest step), or a
+consolidated ``params.npz`` (``utils/checkpoint.export_consolidated``; its
+config from a ``meta.json`` beside it, else ``--model_size``). Decoding
+goes through the contiguous KV cache (``models/gpt.generate_kv``), the
+windowed full forward with ``--no_kv_cache`` (``generate``), or
+the paged serving engine with ``--serve`` (one request a prompt, seed
+``--seed`` + row, decode attention through the flash-decode kernel on the
+card). ``--prompt_file`` decodes one ragged batch, a prompt a line.
+
+Runs on CUDA unless ``--device cpu``; without a GPU and without that flag
+it raises. ``--spec`` (ROADMAP Queue 1 item 6) and ``--mesh_data`` /
+``--mesh_tensor`` above 1 (items 5 and 7) raise.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import sys
+from typing import Optional
+
+import torch
+
+from tpu_trainer_torch.models.config import GPTConfig
+from tpu_trainer_torch.models.gpt import generate, generate_kv
+from tpu_trainer_torch.models.weights import build_model
+from tpu_trainer_torch.utils.checkpoint import (latest_checkpoint,
+                                                restore_params)
+from tpu_trainer_torch.utils.device import resolve_device
+from tpu_trainer_torch.utils.tokenizer import get_tokenizer
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="Generate text from a checkpoint")
+    a = p.add_argument
+    a("--checkpoint", required=True,
+      help="step dir, checkpoint root (picks the latest), or params.npz")
+    a("--model_size", default=None, choices=["small", "medium", "large", "xl"],
+      help="config of a consolidated file without a meta.json beside it")
+    a("--prompt", default="Once upon a time")
+    a("--max_new_tokens", type=int, default=100)
+    a("--temperature", type=float, default=0.8)
+    a("--top_k", type=int, default=50)
+    a("--seed", type=int, default=0)
+    a("--tokenizer", default="gpt2")
+    a("--device", default=None, choices=["cuda", "cpu"],
+      help="cuda (default) or cpu; without a GPU, cuda raises")
+    a("--no_kv_cache", action="store_true",
+      help="the windowed full-forward sampler instead of the KV cache")
+    a("--prompt_file", default=None,
+      help="one prompt a line, decoded as one ragged batch (KV path)")
+    a("--serve", action="store_true",
+      help="decode through the paged serving engine, a request a prompt")
+    a("--serve_batch", type=int, default=8)
+    a("--serve_block_size", type=int, default=16)
+    a("--spec", default="off", choices=["off", "ngram", "draft"])
+    a("--spec_k", type=int, default=4)
+    a("--spec_draft_layers", type=int, default=1)
+    a("--record_trace", default=None, metavar="OUT.JSONL",
+      help="append each served prompt/response as a replayable trace "
+           "record (with --serve)")
+    a("--mesh_data", type=int, default=1)
+    a("--mesh_tensor", type=int, default=1)
+    return p
+
+
+def main(argv=None, *, result: Optional[dict] = None) -> int:
+    """Decode and print one text a prompt. ``result`` (a dict), when
+    given, receives ``tokens`` (each row's prompt + generated ids) and,
+    with ``--serve``, the engine's ``stats``."""
+    p = build_parser()
+    args = p.parse_args(argv)
+    if args.spec != "off":
+        raise NotImplementedError(
+            "--spec (speculative decoding) is not ported yet -> ROADMAP "
+            "Queue 1 item 6")
+    if args.mesh_data > 1 or args.mesh_tensor > 1:
+        raise NotImplementedError(
+            "--mesh_data / --mesh_tensor > 1 are not ported yet -> ROADMAP "
+            "Queue 1 item 5 (data) and item 7 (tensor-parallel decode)")
+    device = resolve_device(args.device)
+
+    path = latest_checkpoint(args.checkpoint) or args.checkpoint
+    if not os.path.exists(path):
+        p.error(f"checkpoint not found: {path}")
+    if os.path.isdir(path) and not os.path.exists(
+            os.path.join(path, "meta.json")):
+        p.error(f"no checkpoint (meta.json) at {path}; pass a step dir, a "
+                f"checkpoint root holding step_* dirs, or a params.npz")
+    params, config = restore_params(path)
+    if args.model_size is not None:
+        config = GPTConfig.preset(args.model_size)
+    if config is None:
+        p.error("--model_size is required for a consolidated file without "
+                "a meta.json beside it")
+    # Decoding is evaluation: no dropout.
+    config = dataclasses.replace(config, dropout=0.0, attention_dropout=0.0)
+
+    tokenizer = get_tokenizer(args.tokenizer)
+    if args.prompt_file:
+        with open(args.prompt_file) as f:
+            prompts = [ln.rstrip("\n") for ln in f if ln.strip()]
+        if not prompts:
+            p.error(f"no prompts in {args.prompt_file}")
+    else:
+        prompts = [args.prompt]
+    eos = min(tokenizer.eos_token_id, config.vocab_size - 1)
+    rows = [tokenizer.encode(pr) or [eos] for pr in prompts]
+    top = max(max(r) for r in rows)
+    if top >= config.vocab_size:
+        p.error(f"prompt tokenizes to id {top} but the checkpoint's model "
+                f"has vocab_size {config.vocab_size}: tokenizer/model "
+                f"mismatch (tokenizer: {tokenizer.name})")
+    lens = [len(r) for r in rows]
+    width = max(lens)
+    fits = width + args.max_new_tokens <= config.max_seq_len
+    use_kv = fits and not args.no_kv_cache
+    if len(set(lens)) > 1 and not use_kv and not args.serve:
+        p.error("ragged multi-prompt decode needs the KV path: shorten "
+                "--max_new_tokens to fit max_seq_len, or drop --no_kv_cache")
+    if args.record_trace and not args.serve:
+        p.error("--record_trace records served requests; add --serve")
+
+    if args.serve:
+        if args.no_kv_cache:
+            p.error("--serve is the paged KV path; drop --no_kv_cache")
+        if not fits:
+            p.error("prompt + --max_new_tokens exceeds max_seq_len")
+        from tpu_trainer_torch.serving.engine import ServingEngine
+        from tpu_trainer_torch.serving.scheduler import (Request,
+                                                         SamplingParams)
+
+        engine = ServingEngine(
+            {n: torch.from_numpy(v) for n, v in params.items()}, config,
+            max_batch=min(len(rows), args.serve_batch),
+            block_size=args.serve_block_size, device=device)
+        reqs = [Request(rid=i, prompt=list(r),
+                        max_new_tokens=args.max_new_tokens,
+                        sampling=SamplingParams(temperature=args.temperature,
+                                                top_k=args.top_k,
+                                                seed=args.seed + i))
+                for i, r in enumerate(rows)]
+        finished = sorted(engine.run(reqs, time_mode="steps"),
+                          key=lambda r: r.rid)
+        out = [list(r.prompt) + list(r.generated) for r in finished]
+        for row in out:
+            print(tokenizer.decode(row))
+        if args.record_trace:
+            with open(args.record_trace, "a") as fh:
+                for i, r in enumerate(finished):
+                    fh.write(json.dumps({
+                        "prompt_len": len(r.prompt),
+                        "max_new": r.max_new_tokens,
+                        "arrival_time": r.arrival_time,
+                        "temperature": r.sampling.temperature,
+                        "top_k": r.sampling.top_k,
+                        "top_p": r.sampling.top_p,
+                        "seed": r.sampling.seed,
+                        "prompt_tokens": [int(t) for t in r.prompt],
+                        "tokenizer": tokenizer.name,
+                        "prompt_text": prompts[i],
+                        "response_text": tokenizer.decode(r.generated),
+                    }) + "\n")
+        if result is not None:
+            result.update(tokens=out, stats=dict(engine.stats))
+        return 0
+
+    model = build_model(config, params, device)
+    input_ids = torch.tensor([r + [0] * (width - len(r)) for r in rows],
+                             dtype=torch.long, device=device)
+    kw = dict(max_new_tokens=args.max_new_tokens,
+              temperature=args.temperature, top_k=args.top_k, seed=args.seed)
+    if use_kv:
+        prompt_lens = (torch.tensor(lens, device=device)
+                       if len(set(lens)) > 1 else None)
+        buf = generate_kv(model, input_ids, prompt_lens=prompt_lens, **kw)
+    else:
+        buf = generate(model, input_ids, **kw)
+    buf = buf.cpu().tolist()
+    out = []
+    for i, n in enumerate(lens):
+        n_real = n + args.max_new_tokens if use_kv else len(buf[i])
+        out.append(buf[i][:n_real])
+        print(tokenizer.decode(out[-1]))
+    if result is not None:
+        result.update(tokens=out)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,6 +1,8 @@
-"""GPT (port of ``tpu_trainer/models/gpt.py``): training and paged decode.
+"""GPT (port of ``tpu_trainer/models/gpt.py``): training, paged decode,
+and KV-cached generation over a contiguous cache.
 
-Two branches of ``GPT.forward``, chosen by ``config.decode_paged``:
+Two branches of ``GPT.forward``, chosen by ``config.decode_paged``, and
+``GPT.decode``:
 
 - **Training / evaluation** (``GPT.__call__`` without ``decode``):
   ``forward(input_ids, labels=None, *, train=False, segment_ids=None,
@@ -21,6 +23,18 @@ Two branches of ``GPT.forward``, chosen by ``config.decode_paged``:
   paged KV cache (``_paged_decode_attention``), decode attention through
   ``ops.flash.flash_decode``. MoE decode is not ported: a paged MoE
   config raises.
+- **Contiguous KV cache** (``GPT.decode(input_ids, cache)``, the JAX
+  ``_decode_attention``): ``init_cache``'s ``[L, b, len, kvh, d]`` buffers
+  and running length; a call appends its tokens and attends every cached
+  position up to its own, with ragged left padding. The JAX package
+  computes this attention with ``jnp.einsum`` outside any Pallas kernel,
+  and so does the port (plain PyTorch ops). ``generate_kv`` (prefill +
+  one token a step), ``generate`` (the windowed full forward, at the exact
+  shapes: the JAX package's ``generate_bucketed`` pads to power-of-two
+  widths only to bound XLA recompiles, which eager PyTorch does not
+  have) drive it; temperature 0 is the exact argmax, and
+  a sampled token draws from a ``torch.Generator`` seeded by (seed + row,
+  token index), as the serving engine's requests do.
 
 Parameter names and layouts are the Flax ones with ``/`` written ``.``
 (``embed_tokens.embedding``, ``layers.attention.q_proj.kernel`` ...):
@@ -45,6 +59,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -426,19 +441,26 @@ class GPT(nn.Module):
         return [{n: v[i] for (n, _), v in zip(named, views)}
                 for i in range(self.config.num_layers)]
 
+    def _qkv(self, x, p):
+        """q ``[b, s, heads, d]``, k and v ``[b, s, kv_heads, d]`` of one
+        layer: the input norm and the projections in the compute dtype."""
+        cfg = self.config
+        b, s, _ = x.shape
+        h = _rms_norm(x, p["input_layernorm.weight"],
+                      self.layers.input_layernorm.eps, cfg.compute_dtype)
+        q, k, v = _matmuls(h, [p["attention.q_proj.kernel"],
+                               p["attention.k_proj.kernel"],
+                               p["attention.v_proj.kernel"]],
+                           cfg.compute_dtype, cfg.fused_projections)
+        return (q.reshape(b, s, cfg.num_heads, cfg.head_dim),
+                k.reshape(b, s, cfg.kv_heads, cfg.head_dim),
+                v.reshape(b, s, cfg.kv_heads, cfg.head_dim))
+
     def _train_block(self, x, p, step: "_TrainStep"):
         cfg = self.config
         cd = cfg.compute_dtype
         b, s, _ = x.shape
-        eps = self.layers.input_layernorm.eps
-        h = _rms_norm(x, p["input_layernorm.weight"], eps, cd)
-        q, k, v = _matmuls(h, [p["attention.q_proj.kernel"],
-                               p["attention.k_proj.kernel"],
-                               p["attention.v_proj.kernel"]], cd,
-                           cfg.fused_projections)
-        q = q.reshape(b, s, cfg.num_heads, cfg.head_dim)
-        k = k.reshape(b, s, cfg.kv_heads, cfg.head_dim)
-        v = v.reshape(b, s, cfg.kv_heads, cfg.head_dim)
+        q, k, v = self._qkv(x, p)
         attn_drop = step.train and cfg.attention_dropout > 0.0
         if cfg.use_flash_attention:
             out = flash_lib.flash_attention(
@@ -455,7 +477,13 @@ class GPT(nn.Module):
         out = _matmuls(out.reshape(b, s, cfg.hidden_size),
                        [p["attention.o_proj.kernel"]], cd, False)[0]
         x = x + self._residual_dropout(out, step)
+        return self._ffn_block(x, p, step)
 
+    def _ffn_block(self, x, p, step: "_TrainStep"):
+        """``x + dropout(FFN(norm(x)))`` of one layer (dense or MoE)."""
+        cfg = self.config
+        cd = cfg.compute_dtype
+        eps = self.layers.input_layernorm.eps
         h = _rms_norm(x, p["post_attention_layernorm.weight"], eps, cd)
         if cfg.num_experts > 0:
             out, aux = dropless_moe(
@@ -484,6 +512,72 @@ class GPT(nn.Module):
         keep = (torch.rand(x.shape, generator=gen, device=gen.device)
                 >= rate).to(x.device)
         return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+    # -- contiguous KV cache ------------------------------------------------
+
+    @torch.no_grad()
+    def decode(self, input_ids: torch.Tensor,
+               cache: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """One KV-cached pass over ``input_ids [b, s]`` (prefill: the
+        prompt; decode: ``s == 1``): appends the tokens' k/v at
+        ``cache["idx"]`` (in place), advances it, and returns f32 logits
+        ``[b, s, vocab]``. Each query attends the cached positions up to
+        its own; with ``cache["pad"]`` (ragged batches, left padding) a
+        row's positions below its pad are excluded and its RoPE positions
+        start at its first real token."""
+        cfg = self.config
+        b, s = input_ids.shape
+        idx = int(cache["idx"])
+        max_len = cache["k"].shape[2]
+        if idx + s > max_len:
+            raise ValueError(f"cache holds {max_len} positions; {idx} used "
+                             f"+ {s} new")
+        dev = input_ids.device
+        cos, sin = rope_tables(max_len, cfg.head_dim, cfg.rope_theta,
+                               device=dev)
+        q_pos = idx + torch.arange(s, device=dev)[:, None]
+        k_pos = torch.arange(max_len, device=dev)[None, :]
+        pad = cache.get("pad")
+        if pad is None:
+            rope = (cos[idx:idx + s], sin[idx:idx + s])
+            allowed = (k_pos <= q_pos)[None, None]
+        else:
+            pad = pad.long()
+            lpos = torch.clamp(q_pos.T - pad[:, None], min=0)   # [b, s]
+            rope = (cos[lpos], sin[lpos])
+            # Pad-region queries keep their own position, so their
+            # (never read) softmax rows stay finite.
+            allowed = ((k_pos <= q_pos)[None]
+                       & ((k_pos[None] >= pad[:, None, None])
+                          | (k_pos == q_pos)[None]))[:, None]
+        step = _TrainStep(train=False, generator=None, rope=rope,
+                          segment_ids=None)
+        x = self.embed_tokens(input_ids)
+        for layer, p in enumerate(self._unstacked_layers()):
+            x = self._kv_block(x, p, layer, cache, step, allowed, idx)
+        cache["idx"] = idx + s
+        return self.embed_tokens.attend(self.norm(x)).float()
+
+    def _kv_block(self, x, p, layer: int, cache, step: "_TrainStep",
+                  allowed: torch.Tensor, idx: int):
+        cfg = self.config
+        b, s, _ = x.shape
+        q, k, v = self._qkv(x, p)
+        q, k = apply_rotary_pos_emb(q, k, *step.rope)
+        ck, cv = cache["k"][layer], cache["v"][layer]
+        ck[:, idx:idx + s] = k.to(ck.dtype)
+        cv[:, idx:idx + s] = v.to(cv.dtype)
+        k_all, v_all = repeat_kv(ck.to(q.dtype), cv.to(q.dtype),
+                                 cfg.num_heads)
+        scores = torch.einsum("bqhd,bkhd->bhqk", q, k_all) * (
+            1.0 / cfg.head_dim ** 0.5)
+        scores = scores.masked_fill(~allowed, torch.finfo(scores.dtype).min)
+        weights = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+        out = torch.einsum("bhqk,bkhd->bqhd", weights, v_all)
+        out = _matmuls(out.reshape(b, s, cfg.hidden_size),
+                       [p["attention.o_proj.kernel"]], cfg.compute_dtype,
+                       False)[0]
+        return self._ffn_block(x + out, p, step)
 
     # -- paged decode ---------------------------------------------------------
 
@@ -635,4 +729,124 @@ def init_paged_cache(config: GPTConfig, batch_size: int, *,
         cache["scale_v"] = torch.zeros(sshape, dtype=torch.float32,
                                        device=device)
     return cache
+
+
+# -- generation ----------------------------------------------------------------
+
+def init_cache(config: GPTConfig, batch_size: int, *, device,
+               max_len: Optional[int] = None) -> Dict[str, object]:
+    """A zeroed contiguous KV cache for ``GPT.decode``: ``k`` / ``v``
+    ``[num_layers, batch, max_len, kv_heads, head_dim]`` in the compute
+    dtype (``max_len`` defaults to ``config.max_seq_len``), ``idx`` 0."""
+    n = config.max_seq_len if max_len is None else int(max_len)
+    shape = (config.num_layers, batch_size, n, config.kv_heads,
+             config.head_dim)
+    return {"k": torch.zeros(shape, dtype=config.compute_dtype,
+                             device=device),
+            "v": torch.zeros(shape, dtype=config.compute_dtype,
+                             device=device),
+            "idx": 0}
+
+
+def _sample(logits: torch.Tensor, temperature: float, top_k: int,
+            seed: int, step: int) -> torch.Tensor:
+    """Next token per row of ``logits [b, vocab]``: the exact argmax at
+    temperature 0; else a top-k filtered, temperature-scaled draw from a
+    generator seeded by (``seed`` + row, ``step``), the serving engine's
+    rule for a request of that seed (``serving/sampling.py``)."""
+    if temperature == 0:
+        return torch.argmax(logits, dim=-1)
+    from tpu_trainer_torch.serving.sampling import request_key, sample_tokens
+
+    b = logits.shape[0]
+    return sample_tokens(
+        logits, np.full(b, temperature, np.float32),
+        np.full(b, max(int(top_k), 0)), np.ones(b, np.float32),
+        [request_key(seed + r) for r in range(b)], [step] * b,
+        k_cap=max(int(top_k), 1))
+
+
+def _check_model(model: "GPT") -> None:
+    if model.config.decode_paged:
+        raise ValueError("generation takes a GPT without decode_paged")
+
+
+@torch.no_grad()
+def generate_kv(model: "GPT", input_ids: torch.Tensor, *,
+                max_new_tokens: int = 100, temperature: float = 1.0,
+                top_k: int = 50, seed: int = 0,
+                prompt_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """KV-cached sampling: one prefill pass over the prompt, then one
+    single-token pass a generated token. Returns ``[b, prompt +
+    max_new_tokens]`` ids. The cache holds ``prompt + max_new_tokens``
+    rounded up to 128 (at most ``max_seq_len``, which must fit).
+
+    Ragged batches: ``prompt_lens [b]`` are the true lengths of
+    right-padded rows. Rows are re-packed left-padded so every row shares
+    one cache frontier; output rows come back right-padded (row r holds
+    ``prompt_lens[r] + max_new_tokens`` real tokens, zeros beyond)."""
+    _check_model(model)
+    cfg = model.config
+    b, width = input_ids.shape
+    total = width + max_new_tokens
+    if total > cfg.max_seq_len:
+        raise ValueError(
+            f"prompt ({width}) + max_new_tokens ({max_new_tokens}) exceeds "
+            f"the cache size (max_seq_len={cfg.max_seq_len}); use generate()")
+    if max_new_tokens == 0:
+        return input_ids
+    dev = input_ids.device
+    cache = init_cache(cfg, b, device=dev,
+                       max_len=min(-(-total // 128) * 128, cfg.max_seq_len))
+    pad = None
+    if prompt_lens is not None:
+        lens = torch.as_tensor(prompt_lens, device=dev).long()
+        if (lens.shape != (b,) or bool((lens <= 0).any())
+                or bool((lens > width).any())):
+            raise ValueError(f"prompt_lens must be [batch]={b} values in "
+                             f"[1, {width}]; got {lens.tolist()}")
+        pad = width - lens
+        cols = torch.arange(width, device=dev)[None]
+        src = torch.clamp(cols - pad[:, None], 0, width - 1)
+        input_ids = torch.where(cols >= pad[:, None],
+                                torch.gather(input_ids, 1, src),
+                                torch.zeros_like(input_ids))
+        cache["pad"] = pad
+    buf = torch.zeros((b, total), dtype=input_ids.dtype, device=dev)
+    buf[:, :width] = input_ids
+    logits = model.decode(input_ids, cache)
+    buf[:, width] = _sample(logits[:, -1], temperature, top_k, seed, 0)
+    for i in range(width + 1, total):
+        logits = model.decode(buf[:, i - 1:i], cache)
+        buf[:, i] = _sample(logits[:, -1], temperature, top_k, seed,
+                            i - width)
+    if pad is not None:
+        cols = torch.arange(total, device=dev)[None]
+        src = torch.clamp(cols + pad[:, None], 0, total - 1)
+        buf = torch.where(cols < (total - pad)[:, None],
+                          torch.gather(buf, 1, src), torch.zeros_like(buf))
+    return buf
+
+
+@torch.no_grad()
+def generate(model: "GPT", input_ids: torch.Tensor, *,
+             max_new_tokens: int = 100, temperature: float = 1.0,
+             top_k: int = 50, seed: int = 0) -> torch.Tensor:
+    """Windowed full-forward sampling without a cache (the reference
+    semantics): each step re-runs the forward over the last
+    ``min(total, max_seq_len)`` positions."""
+    _check_model(model)
+    cfg = model.config
+    b, width = input_ids.shape
+    total = width + max_new_tokens
+    window = min(total, cfg.max_seq_len)
+    buf = torch.zeros((b, total), dtype=input_ids.dtype,
+                      device=input_ids.device)
+    buf[:, :width] = input_ids
+    for i in range(width, total):
+        start = min(max(i - window, 0), total - window)
+        logits, _ = model(buf[:, start:start + window])
+        buf[:, i] = _sample(logits[:, i - 1 - start], temperature, top_k,
+                            seed, i - width)
+    return buf
 

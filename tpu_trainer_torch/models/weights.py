@@ -14,6 +14,7 @@ means no decay) reads the same in both packages.
 - ``init_params`` draws a fresh state dict the way Flax initializes the
   model: normal(std=initializer_range) kernels and embedding, ones for
   the norm weights.
+- ``build_model`` puts a state dict into an inference ``GPT``.
 """
 
 from __future__ import annotations
@@ -94,6 +95,22 @@ def to_jax_params(state: Dict[str, torch.Tensor]) -> dict:
             cur = cur.setdefault(key, {})
         cur[leaf] = t.detach().float().cpu().numpy()
     return tree
+
+
+def build_model(config: GPTConfig, params, device) -> GPT:
+    """``GPT(config)`` for inference on ``device`` holding ``params`` (a
+    state dict of tensors or arrays, moved and cast to each parameter's
+    device and dtype; a missing or extra name raises)."""
+    model = GPT(config, device="meta")
+    specs = dict(model.named_parameters())
+    state = {}
+    for name, value in params.items():
+        if name not in specs:
+            raise ValueError(f"unexpected parameter {name!r}")
+        state[name] = torch.as_tensor(value).to(device=device,
+                                                dtype=specs[name].dtype)
+    model.load_state_dict(state, strict=True, assign=True)
+    return model.requires_grad_(False).eval()
 
 
 def init_params(config: GPTConfig, seed: int = 0, device=None

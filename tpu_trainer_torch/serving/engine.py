@@ -35,6 +35,7 @@ import torch
 
 from tpu_trainer_torch.models.config import GPTConfig
 from tpu_trainer_torch.models.gpt import GPT, init_paged_cache
+from tpu_trainer_torch.models.weights import build_model
 from tpu_trainer_torch.serving.paged_cache import PagedKVCache
 from tpu_trainer_torch.serving.sampling import sample_tokens
 from tpu_trainer_torch.serving.scheduler import Request, SamplingParams, Scheduler
@@ -99,7 +100,7 @@ class ServingEngine:
             paged_kv_int8=kv_int8,
             paged_attention=attention,
         )
-        self.model = _build_model(self.config, params, self.device)
+        self.model = build_model(self.config, params, self.device)
         self.max_batch = max_batch
         self.eos_id = eos_id
         self.clock = clock
@@ -414,21 +415,6 @@ class ServingEngine:
             s["wall_s"] = self.wall_elapsed
             s["tokens_per_s"] = s["generated_tokens"] / self.wall_elapsed
         return s
-
-
-def _build_model(config: GPTConfig, params: Dict[str, torch.Tensor],
-                 device: torch.device) -> GPT:
-    """``GPT(config)`` on ``device`` holding ``params`` (moved/cast to each
-    parameter's device and dtype; a missing or extra name raises)."""
-    model = GPT(config, device="meta")
-    specs = dict(model.named_parameters())
-    state = {}
-    for name, value in params.items():
-        if name not in specs:
-            raise ValueError(f"unexpected parameter {name!r}")
-        state[name] = value.to(device=device, dtype=specs[name].dtype)
-    model.load_state_dict(state, strict=True, assign=True)
-    return model.requires_grad_(False).eval()
 
 
 @torch.inference_mode()

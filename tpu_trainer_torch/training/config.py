@@ -1,18 +1,18 @@
 """Training configuration and LR schedule (port of
 ``tpu_trainer/training/config.py``).
 
-The fields this slice reads, with the JAX ``TrainingConfig``'s names and
+The fields the port reads, with the JAX ``TrainingConfig``'s names and
 defaults; ``lr_at`` is the same linear-warmup -> cosine-to-10%-of-peak
 schedule, clamped past ``max_steps``, in plain Python floats (the step
-counter is a host int). The JAX config's logging, evaluation, prefetch
-and checkpoint fields come with the slice that reads them (ROADMAP
-Queue 1).
+counter is a host int). ``carry_cast_params`` (a JAX step-layout knob) has
+no counterpart here.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,6 +33,9 @@ class TrainingConfig:
     # Schedule
     max_steps: int = 10000
     warmup_steps: int = 1000
+    log_interval: int = 1
+    eval_interval: int = 500
+    save_interval: int = 1000
 
     # Mixed precision: "fp32" | "bf16" | "fp16"
     mixed_precision: str = "bf16"
@@ -42,6 +45,19 @@ class TrainingConfig:
     optimizer_state_dtype: str = "float32"
 
     gradient_accumulation_steps: int = 4
+
+    # Step overlap: host batches assembled ahead on the Prefetcher thread
+    # (0 = synchronous); batches copied to the device ahead on a side
+    # stream (0 = placed inside the step); interval checkpoints copied to
+    # host memory and written on a background thread.
+    prefetch_depth: int = 2
+    device_prefetch_depth: int = 2
+    async_checkpointing: bool = True
+
+    # Checkpointing: the training CLI restores ``resume_from`` when set,
+    # else the latest checkpoint under ``checkpoint_dir``.
+    checkpoint_dir: str = "checkpoints"
+    resume_from: Optional[str] = None
 
     # RNG: parameter init and the dropout-seed generator.
     seed: int = 0

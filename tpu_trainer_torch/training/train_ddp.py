@@ -1,0 +1,22 @@
+"""Single-GPU training entry point (port of
+``tpu_trainer/training/train_ddp.py``). Run::
+
+    python -m tpu_trainer_torch.training.train_ddp --config configs/small_model.yaml \
+        --dataset tinystories --data_path stories.txt --tokenizer byte
+
+It runs on CUDA unless ``--device cpu`` is passed; without a GPU and
+without that flag it raises. ``train_fsdp`` is not ported: on one GPU its
+strategies are this step (ROADMAP Queue 1 item 5).
+"""
+
+import sys
+
+from tpu_trainer_torch.training.cli import run_training
+
+
+def main(argv=None) -> int:
+    return run_training(argv, mode="ddp")
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -20,10 +20,12 @@ micro-batches, as the JAX trainer's ``_train_step`` does:
 Every dropout seed comes from the state's ``torch.Generator``, seeded from
 ``TrainingConfig.seed``. The state's tensors are updated in place (one
 copy of parameters and moments on the device); ``train_step`` returns the
-same state object.
+same state object. ``eval_step`` is the forward-only mean loss;
+``TrainState.state_dict`` / ``load_state_dict`` are what a checkpoint
+holds (``utils/checkpoint.py``).
 
 Not ported yet (ROADMAP Queue 1): meshes and sharding, pipeline schedules,
-CPU offload, narrow optimizer states, telemetry steps, checkpoints.
+CPU offload, narrow optimizer states, telemetry steps.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from torch import nn
 from tpu_trainer_torch.models.config import GPTConfig
 from tpu_trainer_torch.models.gpt import GPT, check_trainable
 from tpu_trainer_torch.models.weights import init_params
+from tpu_trainer_torch.ops.loss import segment_target_mask
 from tpu_trainer_torch.training.config import TrainingConfig
 from tpu_trainer_torch.training.optimizer import (
     AdamWState,
@@ -70,6 +73,60 @@ class TrainState:
     generator: torch.Generator        # draws every dropout seed
     loss_scale: float                 # fp16 dynamic scaling; 1.0 else
     good_steps: int                   # consecutive finite steps (fp16)
+
+    def state_dict(self) -> dict:
+        """A host copy of everything that evolves: f32 arrays
+        ``params/<flax path>``, ``opt_state/mu/<path>`` and
+        ``opt_state/nu/<path>`` (paths ``a/b/c``, as the JAX package's
+        trees flatten), the generator's state as a ``uint8`` array
+        ``generator``, and the scalars ``step``, ``opt_count``,
+        ``loss_scale``, ``good_steps``. Copies of device tensors are taken
+        after a synchronize, so later in-place steps cannot reach them."""
+        if any(t.is_cuda for t in self.params.values()):
+            torch.cuda.synchronize()
+        out = {}
+        for prefix, tree in (("params", self.params),
+                             ("opt_state/mu", self.opt_state.mu),
+                             ("opt_state/nu", self.opt_state.nu)):
+            for name, t in tree.items():
+                key = f"{prefix}/{name.replace('.', '/')}"
+                out[key] = t.detach().to("cpu", torch.float32,
+                                         copy=True).numpy()
+        out["generator"] = self.generator.get_state().numpy().copy()
+        out.update(step=int(self.step), opt_count=int(self.opt_state.count),
+                   loss_scale=float(self.loss_scale),
+                   good_steps=int(self.good_steps))
+        return out
+
+    def load_state_dict(self, sd: dict) -> None:
+        """Copy ``state_dict()``'s values into this state's tensors in
+        place (they stay bound to the trainer's model). Raises on a
+        missing, extra or misshaped array."""
+        want = {}
+        for prefix, tree in (("params", self.params),
+                             ("opt_state/mu", self.opt_state.mu),
+                             ("opt_state/nu", self.opt_state.nu)):
+            for name, t in tree.items():
+                want[f"{prefix}/{name.replace('.', '/')}"] = t
+        have = {k for k in sd if "/" in k}
+        if have != set(want):
+            raise ValueError(
+                f"state arrays do not match: missing "
+                f"{sorted(set(want) - have)}, extra "
+                f"{sorted(have - set(want))}")
+        with torch.no_grad():
+            for key, t in want.items():
+                arr = np.asarray(sd[key])
+                if tuple(arr.shape) != tuple(t.shape):
+                    raise ValueError(f"{key}: shape {arr.shape}, want "
+                                     f"{tuple(t.shape)}")
+                t.copy_(torch.from_numpy(arr))
+        self.generator.set_state(torch.from_numpy(
+            np.asarray(sd["generator"], np.uint8).copy()))
+        self.step = int(sd["step"])
+        self.opt_state.count = int(sd["opt_count"])
+        self.loss_scale = float(sd["loss_scale"])
+        self.good_steps = int(sd["good_steps"])
 
 
 class Trainer:
@@ -107,9 +164,12 @@ class Trainer:
             loss_scale=_INIT_LOSS_SCALE if self.use_loss_scaling else 1.0,
             good_steps=0)
 
-    def put_batch(self, local_batch: np.ndarray) -> torch.Tensor:
+    def put_batch(self, local_batch: np.ndarray, *,
+                  non_blocking: bool = False) -> torch.Tensor:
         """Host ``[accum * bs, seq]`` (packed: ``[accum * bs, seq, 2]``) ->
-        device int64 ``[accum, bs, seq(, 2)]``. Out-of-vocab ids raise."""
+        device int64 ``[accum, bs, seq(, 2)]``. Out-of-vocab ids raise.
+        ``non_blocking`` copies to a CUDA device from pinned memory,
+        asynchronously on the current stream."""
         accum = self.training_config.gradient_accumulation_steps
         batch = np.asarray(local_batch)
         packed = batch.ndim == 3
@@ -124,7 +184,10 @@ class Trainer:
                 f"batch contains token id {int(tokens.max())} outside "
                 f"[0, {vocab}) — tokenizer/vocab_size mismatch")
         local = batch.reshape(accum, n // accum, *batch.shape[1:])
-        return torch.from_numpy(local.astype(np.int64)).to(self.device)
+        host = torch.from_numpy(local.astype(np.int64))
+        if non_blocking and self.device.type == "cuda":
+            return host.pin_memory().to(self.device, non_blocking=True)
+        return host.to(self.device)
 
     def _bind(self, state: TrainState) -> None:
         """Make the model compute with ``state``'s parameters."""
@@ -132,6 +195,32 @@ class Trainer:
                 state.params.values())):
             self.model.load_state_dict(state.params, strict=True,
                                        assign=True)
+
+    @torch.no_grad()
+    def eval_step(self, state: TrainState, batch) -> torch.Tensor:
+        """Forward-only mean loss over one ``[rows, seq]`` (packed: ``[rows,
+        seq, 2]``) batch, without dropout: a device scalar (no host sync).
+        The rows run as the step's ``accum`` micro-batches, each through
+        the training forward and fused loss (the flash forward and head +
+        CE kernels on the card), and the micro-batch means are weighted by
+        their counted targets, so the result is the mean over the whole
+        batch, as the JAX ``eval_step`` takes it."""
+        if not torch.is_tensor(batch):
+            batch = self.put_batch(batch)
+        self._bind(state)
+        total = torch.zeros((), dtype=torch.float32, device=self.device)
+        count = torch.zeros((), dtype=torch.float32, device=self.device)
+        for micro in batch:
+            tokens, segs = _split_packed(micro)
+            _, loss = self.model(tokens, tokens, train=False,
+                                 segment_ids=segs)
+            if segs is None:
+                n = float(tokens.shape[0] * (tokens.shape[1] - 1))
+            else:
+                n = segment_target_mask(segs)[:, :-1].sum()
+            total += loss.float() * n
+            count += n
+        return total / torch.clamp(count, min=1.0)
 
     def train_step(self, state: TrainState, batch
                    ) -> Tuple[TrainState, dict]:
