@@ -147,9 +147,36 @@ JAX package. Phases, each fatal on failure:
               checkpoint root, then both on the consolidated
               ``params.npz`` in f32 compute, whose greedy tokens must be
               equal (a differing token only at a top-2 tie).
+18. remat   -- ``train_ddp --config configs/large_1b_single_chip.yaml``
+              (1.008 B parameters: 36 layers, hidden 1280, batch 4 x 1024,
+              full remat, bf16 Adam moments) on the cli phase's corpus, 6
+              steps with a save at step 3; the same command in a fresh
+              process resumes from step 3, and step 6's state (params, the
+              bf16 moments' bits, the generator) and the losses of steps
+              4-6 must be bitwise equal; launches exact (the flash forward
+              twice a layer a micro-batch). tok/s, MFU and peak memory
+              from the run's JSONL. Then one step's gradients at that
+              width without remat, with full remat and with "dots": loss,
+              every gradient and the generator after the step bitwise the
+              plain step's; a planted fault (a recompute that draws fresh
+              dropout seeds) must move them. Peak memory and step time of
+              each, and the device busy share and top kernels of two
+              profiled trainer steps.
+19. offload -- ``train_fsdp --config configs/medium_model.yaml`` (454 M
+              parameters, FULL_SHARD at one process, remat on, batch 8 x
+              4 x 1024, dummy data), 3 steps on the card and with the Adam
+              moments in pinned host memory as float32, bfloat16, int8 and
+              int8 with 0.5 GB kept on the card: f32 offload's step-3
+              state bitwise the on-card run's, the narrow ones' losses
+              within rtol 0.05, the partial offload's startup line equal to
+              ``select_resident_moments``; bytes each way a step, H2D and
+              D2H ms (CUDA events), GB/s, step time and peak memory of each.
+20. moe-remat -- ``configs/moe_small.yaml --moe_impl dropless
+              --gradient_checkpointing``, 2 steps: gmm 9 a layer a
+              micro-batch (3 forward, 3 recompute, 3 dgrad), tgmm 3.
 
-The earlier phases run at full depth; the whole run takes about six
-minutes on an H100, builds included.
+Every phase runs at full depth; the whole run takes about nine minutes on
+an H100, builds included.
 
 Then the ``kernels`` JSON line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. Without CUDA it exits 2 and prints no
@@ -1629,16 +1656,19 @@ def _counters():
 def _want_launches(cfg, steps: int, *, segmented: bool, seq: int = 1024):
     """The launches ``steps`` training steps of ``cfg`` must make: one
     forward a layer and the backward ``backward_impl`` picks, one head + CE
-    a step, and with MoE 6 gmm (3 forward, 3 dgrad) and 3 tgmm a layer."""
+    a step, and with MoE 6 gmm (3 forward, 3 dgrad) and 3 tgmm a layer;
+    under remat the forward and its 3 gmm run again in the backward."""
     from tpu_trainer_torch.ops import flash
 
     n = cfg.num_layers * steps
+    fwd = 2 if cfg.gradient_checkpointing else 1
     fused = flash.backward_impl(seq, segmented) == "fused"
     moe_on = cfg.num_experts > 0
-    return {"flash_forward": n, "flash_backward": n if fused else 0,
+    return {"flash_forward": fwd * n, "flash_backward": n if fused else 0,
             "flash_backward_dkv": 0 if fused else n,
             "flash_backward_dq": 0 if fused else n, "head_ce": steps,
-            "gmm": 6 * n if moe_on else 0, "tgmm": 3 * n if moe_on else 0}
+            "gmm": 3 * (fwd + 1) * n if moe_on else 0,
+            "tgmm": 3 * n if moe_on else 0}
 
 
 def phase_train_grads(results: dict, *, moe: bool = False) -> dict:
@@ -2222,17 +2252,18 @@ def _jsonl(path: str, kind: str) -> list:
         return [r for r in map(json.loads, f) if r.get("kind") == kind]
 
 
-def _cli_in_process(phase: str, argv: list) -> dict:
-    """``train_ddp.main(argv)`` here with every launch count zeroed just
-    before and read just after."""
+def _cli_in_process(phase: str, argv: list, entry=None) -> dict:
+    """``entry(argv)`` (default ``train_ddp.main``) here with every launch
+    count zeroed just before and read just after."""
     from tpu_trainer_torch.training import train_ddp
 
     counters = _counters()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()   # the run's own peak in its JSONL
     for c in counters.values():
         c.launches = 0
     t0 = time.perf_counter()
-    rc = train_ddp.main(argv)
+    rc = (entry or train_ddp.main)(argv)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     if rc != 0:
@@ -2244,20 +2275,23 @@ def _cli_in_process(phase: str, argv: list) -> dict:
 def _micro_launches(cfg, train_micro: int, eval_micro: int, *,
                     segmented: bool) -> dict:
     """Launches of ``train_micro`` training and ``eval_micro`` eval
-    micro-batches: a forward a layer each, the backward of the training
-    ones, one head + CE each; with MoE 3 gmm a layer forward, 3 more and
-    3 tgmm a layer backward."""
+    micro-batches: a forward a layer each (twice a training one under
+    remat: the backward reruns it), the backward of the training ones,
+    one head + CE each; with MoE 3 gmm a layer a forward, 3 more and 3
+    tgmm a layer backward."""
     from tpu_trainer_torch.ops import flash
 
     L = cfg.num_layers
+    fwd = 2 if cfg.gradient_checkpointing else 1
     fused = flash.backward_impl(cfg.max_seq_len, segmented) == "fused"
     moe_on = cfg.num_experts > 0
-    return {"flash_forward": L * (train_micro + eval_micro),
+    return {"flash_forward": L * (fwd * train_micro + eval_micro),
             "flash_backward": L * train_micro if fused else 0,
             "flash_backward_dkv": 0 if fused else L * train_micro,
             "flash_backward_dq": 0 if fused else L * train_micro,
             "head_ce": train_micro + eval_micro,
-            "gmm": 3 * L * (2 * train_micro + eval_micro) if moe_on else 0,
+            "gmm": (3 * L * ((fwd + 1) * train_micro + eval_micro)
+                    if moe_on else 0),
             "tgmm": 3 * L * train_micro if moe_on else 0}
 
 
@@ -2329,8 +2363,6 @@ def phase_cli(results: dict, tmp: str) -> dict:
     ``configs/moe_small.yaml`` (gmm and tgmm), the checkpoint save and
     restore times, steps 6-8 again with a sync save and without the eval,
     and the device busy share of six profiled steps."""
-    import numpy as np
-
     from tpu_trainer_torch.training import cli
     from tpu_trainer_torch.training.trainer import Trainer
     from tpu_trainer_torch.utils import checkpoint as ckpt_lib
@@ -2347,55 +2379,14 @@ def phase_cli(results: dict, tmp: str) -> dict:
                    "--metrics_jsonl", os.path.join(tmp, "a.jsonl")]
     log("cli", f"corpus: {n_lines} lines, {os.path.getsize(corpus)} bytes "
                f"(seed 0); run 1: {' '.join(argv[2:])}")
-    run1 = _cli_in_process("cli", argv)
+    res = _resume_check("cli", argv, tmp, 8, 4)
+    run1, run2, run2_s = res["run1"], res["run2"], res["run2_s"]
+    train, evals, n_arrays = res["train"], res["evals"], res["state_arrays"]
     step8 = os.path.join(tmp, "a", "step_00000008")
-    aside = os.path.join(tmp, "step8_run1")
-    shutil.copytree(step8, aside)
-    shutil.rmtree(step8)
-    out = os.path.join(tmp, "child.json")
-    t0 = time.perf_counter()
-    child = subprocess.run(
-        [sys.executable, "-c",
-         f"import chip_smoke; chip_smoke._cli_child({argv!r}, {out!r})"],
-        cwd=ROOT, capture_output=True, text=True, timeout=900)
-    run2_s = time.perf_counter() - t0
-    for ln in child.stdout.splitlines():
-        log("cli", f"  run 2 | {ln}")
-    if child.returncode != 0:
-        raise AssertionError(f"cli: run 2 exited {child.returncode}: "
-                             f"{child.stderr[-3000:]}")
-    with open(out) as f:
-        run2 = json.load(f)
-    if "resumed from" not in child.stdout or "step_00000004" not in \
-            child.stdout:
-        raise AssertionError("cli: run 2 did not resume from step 4")
-
-    with np.load(os.path.join(step8, "state.npz")) as a, np.load(
-            os.path.join(aside, "state.npz")) as b:
-        if a.files != b.files:
-            raise AssertionError("cli: state arrays differ in name")
-        differ = [k for k in a.files if not np.array_equal(a[k], b[k])]
-        n_arrays = len(a.files)
-    if differ:
-        raise AssertionError(f"cli: resumed step-8 state not bitwise: "
-                             f"{len(differ)} of {n_arrays} arrays differ, "
-                             f"e.g. {differ[:5]}")
-    if ckpt_lib.load_meta(step8) != ckpt_lib.load_meta(aside):
-        raise AssertionError("cli: resumed step-8 meta.json differs")
-    train = _jsonl(os.path.join(tmp, "a.jsonl"), "train")
-    evals = _jsonl(os.path.join(tmp, "a.jsonl"), "eval")
-    steps = [r["step"] for r in train]
-    if steps != list(range(8)) + [4, 5, 6, 7]:
-        raise AssertionError(f"cli: train records at steps {steps}")
-    first, again = [r["loss"] for r in train[4:8]], [r["loss"] for r in
-                                                     train[8:]]
-    if first != again:
-        raise AssertionError(f"cli: losses of steps 5-8 {first} vs "
-                             f"resumed {again}")
     if [r["step"] for r in evals] != [4, 8, 8]:
         raise AssertionError(f"cli: eval records {evals}")
     n_eval = evals[-1]["eval_batches"]
-    model_config, tc, _ = cli.resolve_configs(
+    model_config, tc, _, _ = cli.resolve_configs(
         cli.build_parser().parse_args(argv))
     accum = tc.gradient_accumulation_steps
     want = _micro_launches(model_config, 4 * accum, n_eval * accum,
@@ -2633,6 +2624,482 @@ def phase_infer(results: dict, tmp: str, new: int = 64) -> dict:
     return rec
 
 
+# -- phases 18-20: remat, host offload, MoE under remat ------------------------
+
+def _resume_check(phase: str, argv: list, tmp: str, last: int,
+                  resume_at: int, entry: str = "train_ddp") -> dict:
+    """Run ``argv`` here to step ``last`` (a save at ``resume_at``), move
+    step ``last``'s checkpoint aside, rerun ``argv`` in a fresh process
+    (``_cli_child``) and require that it resumed from ``resume_at`` and
+    that step ``last``'s ``state.npz`` and ``meta.json`` and the losses
+    of the steps after ``resume_at`` are bitwise equal. Returns run 1's
+    and run 2's launches, run 1's JSONL train records and the seconds."""
+    import numpy as np
+
+    from tpu_trainer_torch.utils import checkpoint as ckpt_lib
+
+    ckdir = argv[argv.index("--checkpoint_dir") + 1]
+    jsonl = argv[argv.index("--metrics_jsonl") + 1]
+    run1 = _cli_in_process(phase, argv)
+    final = os.path.join(ckdir, f"step_{last:08d}")
+    aside = os.path.join(tmp, f"{phase}_aside")
+    os.replace(final, aside)
+    out = os.path.join(tmp, f"{phase}_child.json")
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, "-c",
+         f"import chip_smoke; chip_smoke._cli_child({argv!r}, {out!r})"],
+        cwd=ROOT, capture_output=True, text=True, timeout=900)
+    run2_s = time.perf_counter() - t0
+    for ln in child.stdout.splitlines():
+        log(phase, f"  run 2 | {ln}")
+    if child.returncode != 0:
+        raise AssertionError(f"{phase}: run 2 exited {child.returncode}: "
+                             f"{child.stderr[-3000:]}")
+    with open(out) as f:
+        run2 = json.load(f)
+    if f"step_{resume_at:08d}" not in child.stdout:
+        raise AssertionError(f"{phase}: run 2 did not resume from step "
+                             f"{resume_at}")
+    with np.load(os.path.join(final, "state.npz")) as a, np.load(
+            os.path.join(aside, "state.npz")) as b:
+        if a.files != b.files:
+            raise AssertionError(f"{phase}: state arrays differ in name")
+        differ = [k for k in a.files if not np.array_equal(a[k], b[k])]
+        n_arrays = len(a.files)
+        dtypes = sorted({str(a[k].dtype) for k in a.files})
+    if differ:
+        raise AssertionError(f"{phase}: resumed step-{last} state not "
+                             f"bitwise: {len(differ)} of {n_arrays} arrays "
+                             f"differ, e.g. {differ[:5]}")
+    if ckpt_lib.load_meta(final) != ckpt_lib.load_meta(aside):
+        raise AssertionError(f"{phase}: resumed step-{last} meta differs")
+    train = _jsonl(jsonl, "train")
+    steps = [r["step"] for r in train]
+    want = list(range(last)) + list(range(resume_at, last))
+    if steps != want:
+        raise AssertionError(f"{phase}: train records at steps {steps}")
+    first = [r["loss"] for r in train[resume_at:last]]
+    again = [r["loss"] for r in train[last:]]
+    if first != again:
+        raise AssertionError(f"{phase}: losses after step {resume_at} "
+                             f"{first} vs resumed {again}")
+    shutil.rmtree(aside)
+    return {"run1": run1, "run2": run2, "run2_s": run2_s, "train": train,
+            "evals": _jsonl(jsonl, "eval"), "state_arrays": n_arrays,
+            "state_dtypes": dtypes}
+
+
+def _remat_step(cfg, params, tokens):
+    """One forward/backward of ``GPT`` at ``cfg`` on ``params``: (loss,
+    f32-master gradients, the dropout generator's state after the step,
+    ms on the host clock up to a synchronize, peak device memory above
+    what was allocated before, launches)."""
+    from torch import nn
+
+    from tpu_trainer_torch.models.gpt import GPT
+
+    model = GPT(cfg, device="meta")
+    model.load_state_dict({n: nn.Parameter(t) for n, t in params.items()},
+                          strict=True, assign=True)
+    names, leaves = zip(*model.named_parameters())
+    counters = _counters()
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    gen = torch.Generator().manual_seed(1)
+    t0 = time.perf_counter()
+    _, loss = model(tokens, tokens, train=True, generator=gen)
+    grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    return (loss.detach(), dict(zip(names, grads)), gen.get_state(), ms,
+            peak, {k: c.launches for k, c in counters.items()})
+
+
+def _naive_remat(self, x, p, step):
+    """The planted fault: a checkpoint around the block whose recompute
+    draws fresh dropout seeds from the step's generator."""
+    from torch.utils.checkpoint import checkpoint
+
+    return checkpoint(lambda x_in: self._train_block(x_in, p, step), x,
+                      use_reentrant=False)
+
+
+def phase_remat(results: dict, tmp: str) -> dict:
+    """The 1B-on-one-card recipe: ``train_ddp --config
+    configs/large_1b_single_chip.yaml`` unchanged in its model and
+    training sections (36 layers, hidden 1280, 20 heads of 64, vocab
+    50257, batch 4 x 1024, full remat, bf16 Adam moments, dropout 0.1) on
+    the cli phase's corpus: 6 steps with a save at step 3, then the same
+    command in a fresh process resumes from step 3, and step 6's state and
+    the losses of steps 4-6 must be bitwise equal; launches exact (the
+    flash forward twice a layer a micro-batch). Then at the same width one
+    step's gradients without remat, with full remat and with "dots": the
+    remat ones bitwise equal to the plain one (loss, every gradient, the
+    generator after the step), the planted fault (fresh seeds in the
+    recompute) rejected; peak memory and step time of each; and the
+    device busy share of two profiled trainer steps."""
+    import dataclasses
+
+    from tpu_trainer_torch.data.dummy import DummyDataLoader
+    from tpu_trainer_torch.models.gpt import GPT
+    from tpu_trainer_torch.models.weights import init_params
+    from tpu_trainer_torch.training import cli
+    from tpu_trainer_torch.training.trainer import Trainer
+
+    card = nvidia_smi_line()
+    corpus = os.path.join(tmp, "stories.txt")
+    large = os.path.join(ROOT, "configs", "large_1b_single_chip.yaml")
+    argv = ["--config", large, "--dataset", "tinystories", "--data_path",
+            corpus, "--tokenizer", "byte", "--log_interval", "1",
+            "--eval_batches", "1", "--eval_interval", "0",
+            "--max_steps", "6", "--save_interval", "3", "--keep_last_n", "0",
+            "--checkpoint_dir", os.path.join(tmp, "r"),
+            "--metrics_jsonl", os.path.join(tmp, "r.jsonl")]
+    cfg, tc, _, _ = cli.resolve_configs(cli.build_parser().parse_args(argv))
+    if not (cfg.gradient_checkpointing and cfg.remat_policy == "full"
+            and tc.optimizer_state_dtype == "bfloat16"
+            and cfg.num_layers == 36 and cfg.hidden_size == 1280):
+        raise AssertionError(f"remat: {large} resolved to {cfg}, {tc}")
+    log("remat", f"{os.path.basename(large)}: {cfg.num_parameters():,} "
+                 f"params, batch {tc.gradient_accumulation_steps} x "
+                 f"{tc.batch_size} x {tc.max_seq_len}, remat "
+                 f"{cfg.remat_policy}, moments {tc.optimizer_state_dtype}")
+    res = _resume_check("remat", argv, tmp, 6, 3)
+    shutil.rmtree(os.path.join(tmp, "r"))
+    n_eval = res["evals"][-1]["eval_batches"]
+    want1 = _micro_launches(cfg, 6, n_eval, segmented=False)
+    want2 = _micro_launches(cfg, 3, n_eval, segmented=False)
+    if (res["run1"]["launches"] != want1
+            or res["run2"]["launches"] != want2):
+        raise AssertionError(f"remat: launches {res['run1']['launches']} "
+                             f"/ {res['run2']['launches']}, want {want1} / "
+                             f"{want2}")
+    train = res["train"][:6]
+    steady = [r for r in train if r["step"] in (1, 2, 4, 5)]
+    tok_s = statistics.median(r["tokens_per_sec"] for r in steady)
+    util = statistics.median(r["mfu"] for r in steady)
+    rec = {"nvidia_smi": card, "losses": [r["loss"] for r in train],
+           "tokens_per_sec": [r["tokens_per_sec"] for r in train],
+           "tokens_per_sec_median": tok_s, "mfu_median": util,
+           "peak_mem_gib": max(r["peak_mem_gb"] for r in train),
+           "state_arrays_bitwise": res["state_arrays"],
+           "state_dtypes": res["state_dtypes"],
+           "run1_s": res["run1"]["seconds"], "run2_s": res["run2_s"],
+           "launches_run1": {k: v for k, v in
+                             res["run1"]["launches"].items() if v}}
+    log("remat", f"resume bitwise: {res['state_arrays']} state arrays "
+                 f"({', '.join(res['state_dtypes'])}: bf16 moments as their "
+                 f"bits) of step 6 and the losses of steps 4-6 equal after a "
+                 f"restart at step 3; launches {rec['launches_run1']} (6 "
+                 f"steps + {n_eval} eval batch) and run 2's exact")
+    log("remat", "losses " + " ".join(f"{x:.4f}" for x in rec["losses"])
+                 + f"; tok/s median of steps 2, 3, 5, 6 {tok_s:.0f}, MFU "
+                   f"{util:.4f}, max_memory_allocated "
+                   f"{rec['peak_mem_gib']:.2f} GiB on {card} (run 1 "
+                   f"{rec['run1_s']:.1f} s, run 2 {rec['run2_s']:.1f} s "
+                   f"with its process start and restore)")
+
+    # One step at the same width without remat, with full and with dots.
+    torch.cuda.empty_cache()
+    params = init_params(cfg, seed=0, device="cuda")
+    batch = next(iter(DummyDataLoader(tc.batch_size, tc.max_seq_len,
+                                      cfg.vocab_size, 1)))
+    tokens = torch.as_tensor(batch, dtype=torch.long, device="cuda")
+    variants = (("none", dataclasses.replace(cfg,
+                                             gradient_checkpointing=False)),
+                ("full", cfg),
+                ("dots", dataclasses.replace(cfg, remat_policy="dots")))
+    ref, steps = None, {}
+    for name, c in variants:
+        first = _remat_step(c, params, tokens)
+        want = _want_launches(c, 1, segmented=False)
+        timed = []
+        for _ in range(3):                          # warm: timed
+            again = _remat_step(c, params, tokens)
+            timed.append(again[3:])
+            del again
+        if first[5] != want or any(t[2] != want for t in timed):
+            raise AssertionError(f"remat: {name} step launches {first[5]}, "
+                                 f"want {want}")
+        steps[name] = {"ms": statistics.median(t[0] for t in timed),
+                       "ms_all": [first[3]] + [t[0] for t in timed],
+                       "peak_gb": max(t[1] for t in timed),
+                       "loss": float(first[0])}
+        if ref is None:
+            ref = first
+            continue
+        differ = [n for n in ref[1] if not torch.equal(ref[1][n], first[1][n])]
+        if (differ or not torch.equal(ref[0], first[0])
+                or not torch.equal(ref[2], first[2])):
+            raise AssertionError(
+                f"remat: {name} step not bitwise the plain step: loss "
+                f"{float(first[0])} vs {float(ref[0])}, {len(differ)} "
+                f"gradients differ, e.g. {differ[:5]}")
+        del first
+    original = GPT._remat_block
+    GPT._remat_block = _naive_remat
+    try:
+        fault = _remat_step(cfg, params, tokens)
+    finally:
+        GPT._remat_block = original
+    caught = [n for n in ref[1] if not torch.equal(ref[1][n], fault[1][n])]
+    if not caught:
+        raise AssertionError("remat: the planted fault (fresh seeds in the "
+                             "recompute) gave the plain step's gradients")
+    rec["one_step"] = steps
+    rec["planted_fault_gradients_differ"] = len(caught)
+    for name, v in steps.items():
+        log("remat", f"one step, {name:4s}: {v['ms']:.1f} ms (median of 3 "
+                     f"warm; all: " + " ".join(f"{x:.0f}" for x in
+                                               v["ms_all"])
+                     + f"), peak {v['peak_gb']:.2f} GB above "
+                     f"the f32 params, loss {v['loss']:.6f} on {card}")
+    log("remat", f"full and dots: loss, all {len(ref[1])} gradients and the "
+                 f"generator bitwise the plain step's; the planted fault "
+                 f"moved {len(caught)} gradients")
+    del ref, fault, params, tokens
+    torch.cuda.empty_cache()
+
+    # Trainer steps: the median of 5 after a warm-up (one host stall can
+    # take seconds), then two profiled steps: device busy share, launches
+    # and the top kernels.
+    trainer = Trainer(cfg, tc, device="cuda")
+    state = trainer.init_state(0)
+    batches = [trainer.put_batch(b) for b in DummyDataLoader(
+        tc.batch_size, tc.max_seq_len, cfg.vocab_size, 8)]
+    times = []
+    for b in batches[:6]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = trainer.train_step(state, b)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    step_ms = statistics.median(times[1:])
+    rec["trainer_step_ms"] = times
+    rec["profile"] = prof = _profile_steps(trainer, state, batches[6:8],
+                                           step_ms)
+    log("profile", f"remat: trainer step {step_ms:.1f} ms (median of steps "
+                   f"2-6; all: " + " ".join(f"{x:.0f}" for x in times)
+                   + f"); 2 profiled steps: device busy "
+                     f"{prof['device_busy_ms_per_step']:.1f} ms a step = "
+                     f"{prof['device_busy_frac_of_step']:.3f} of the step, "
+                     f"{prof['kernel_launches_per_step']:.0f} launches a "
+                     f"step on {card}")
+    for g, ms_g in prof["groups_ms_per_step"].items():
+        log("profile", f"  group  {ms_g:8.3f} ms/step  {g}")
+    for k in prof["kernels"][:8]:
+        log("profile", f"  device {k['ms_per_step']:8.3f} ms/step "
+                       f"x{k['count']:<5} {k['name']}")
+    del trainer, state, batches
+    torch.cuda.empty_cache()
+    results["remat"] = rec
+    return rec
+
+
+OFFLOAD_VARIANTS = (
+    ("device", []),
+    ("float32", ["--cpu_offload", "--offload_dtype", "float32"]),
+    ("bfloat16", ["--cpu_offload", "--offload_dtype", "bfloat16"]),
+    ("int8", ["--cpu_offload", "--offload_dtype", "int8"]),
+    ("int8_budget", ["--cpu_offload", "--offload_dtype", "int8",
+                     "--offload_budget_gb", "0.5"]),
+)
+# tests/test_offload.py's bound on a narrow-storage loss trajectory.
+OFFLOAD_RTOL = 0.05
+
+
+def _fsdp_run(phase: str, argv: list) -> dict:
+    """``train_fsdp.main(argv)`` with the launches zeroed before and read
+    after, its stdout kept, and each ``Trainer.train_step`` timed up to a
+    synchronize with the step's host-link bytes and copy times."""
+    import contextlib
+    import io
+
+    from tpu_trainer_torch.training import train_fsdp
+    from tpu_trainer_torch.training.trainer import Trainer
+
+    original = Trainer.train_step
+    seen = {"steps": []}
+
+    def timed(self, state, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = original(self, state, batch)
+        torch.cuda.synchronize()
+        seen["trainer"] = self
+        seen["steps"].append({"ms": 1e3 * (time.perf_counter() - t0),
+                              "link": self.last_link_ms(),
+                              "bytes": self.offload_stream_bytes})
+        return state, m
+
+    class Tee(io.StringIO):
+        def write(self, text):
+            sys.__stdout__.write(text)
+            return super().write(text)
+
+    out = Tee()
+    Trainer.train_step = timed
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with contextlib.redirect_stdout(out):
+            run = _cli_in_process(phase, argv, entry=train_fsdp.main)
+    finally:
+        Trainer.train_step = original
+    run.update(seen, stdout=out.getvalue(),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return run
+
+
+def phase_offload(results: dict, tmp: str) -> dict:
+    """``train_fsdp --config configs/medium_model.yaml`` at its full width
+    (24 layers, hidden 1024, 16 heads, batch 8 x 4 x 1024, FULL_SHARD at
+    one process, remat on by default, its dummy data), 3 steps on the
+    card and with the Adam moments offloaded to pinned host memory in
+    float32, bfloat16, int8 and int8 with 0.5 GB kept on the device:
+    f32 offload's step-3 params and moments bitwise the on-device run's;
+    bf16 and int8 losses within OFFLOAD_RTOL of it; the partial offload's
+    startup line equal to ``select_resident_moments``; launches exact.
+    Prints the bytes streamed each way a step, the copy times (CUDA
+    events), the implied GB/s, the step time and the peak memory of each
+    variant."""
+    import numpy as np
+
+    from tpu_trainer_torch.training import cli
+    from tpu_trainer_torch.training.trainer import select_resident_moments
+
+    card = nvidia_smi_line()
+    medium = os.path.join(ROOT, "configs", "medium_model.yaml")
+    base = ["--config", medium, "--max_steps", "3", "--log_interval", "1",
+            "--eval_interval", "0", "--eval_batches", "1", "--num_batches",
+            "4", "--no_auto_resume"]
+    runs = {}
+    for name, extra in OFFLOAD_VARIANTS:
+        argv = base + extra + ["--checkpoint_dir",
+                               os.path.join(tmp, f"o_{name}"),
+                               "--metrics_jsonl",
+                               os.path.join(tmp, f"o_{name}.jsonl")]
+        cfg, tc, par, _ = cli.resolve_configs(
+            cli.build_parser("fsdp").parse_args(argv), "fsdp")
+        run = _fsdp_run("offload", argv)
+        accum = tc.gradient_accumulation_steps
+        want = _micro_launches(cfg, 3 * accum, accum, segmented=False)
+        if run["launches"] != want:
+            raise AssertionError(f"offload: {name} launches "
+                                 f"{run['launches']}, want {want}")
+        if not (cfg.gradient_checkpointing and cfg.num_layers == 24
+                and par.sharding_strategy == "FULL_SHARD"):
+            raise AssertionError(f"offload: {medium} resolved to {cfg}, "
+                                 f"{par}")
+        run["losses"] = [r["loss"] for r in _jsonl(argv[-1], "train")]
+        if name != "int8_budget":
+            del run["trainer"]              # its parameters' memory
+        runs[name] = run
+        if name not in ("device", "float32"):
+            shutil.rmtree(os.path.join(tmp, f"o_{name}"))
+
+    # f32 offload: the on-device run's step-3 state, bitwise.
+    paths = [os.path.join(tmp, f"o_{n}", "step_00000003", "state.npz")
+             for n in ("device", "float32")]
+    with np.load(paths[0]) as a, np.load(paths[1]) as b:
+        differ = [k for k in a.files if a.files != b.files
+                  or not np.array_equal(a[k], b[k])]
+        n_arrays = len(a.files)
+    if differ:
+        raise AssertionError(f"offload: f32 offload's step-3 state differs "
+                             f"from the on-device run's in {differ[:5]}")
+    for n in ("device", "float32"):
+        shutil.rmtree(os.path.join(tmp, f"o_{n}"))
+    if runs["float32"]["losses"] != runs["device"]["losses"]:
+        raise AssertionError("offload: f32 offload losses differ")
+    exact = np.array(runs["device"]["losses"])
+    for name in ("bfloat16", "int8", "int8_budget"):
+        got = np.array(runs[name]["losses"])
+        if not np.allclose(got, exact, rtol=OFFLOAD_RTOL, atol=0):
+            raise AssertionError(f"offload: {name} losses {got} vs "
+                                 f"{exact} (rtol {OFFLOAD_RTOL})")
+    trainer = runs["int8_budget"]["trainer"]
+    _, kept = select_resident_moments(trainer._moment_shapes(),
+                                      int(0.5 * 2**30))
+    line = f"partial offload: {kept / 2**30:.2f} GB of optimizer moments"
+    if (trainer.offload_resident_bytes != kept or kept == 0
+            or line not in runs["int8_budget"]["stdout"]):
+        raise AssertionError(f"offload: resident bytes "
+                             f"{trainer.offload_resident_bytes} vs "
+                             f"select_resident_moments {kept}")
+
+    rec = {"nvidia_smi": card, "state_arrays_bitwise": n_arrays,
+           "resident_bytes": kept, "variants": {}}
+    for name, run in runs.items():
+        later = run["steps"][1:]
+        link = [s["link"] for s in later if s["link"]]
+        v = {"losses": run["losses"], "peak_gb": run["peak_gb"],
+             "step_ms": [s["ms"] for s in run["steps"]],
+             "step_ms_median_2_3": statistics.median(s["ms"] for s in later),
+             "launches": {k: x for k, x in run["launches"].items() if x}}
+        if link:
+            nbytes = run["steps"][-1]["bytes"]
+            h2d = statistics.median(x["h2d_ms"] for x in link)
+            d2h = statistics.median(x["d2h_ms"] for x in link)
+            v.update(bytes_each_way=nbytes, h2d_ms=h2d, d2h_ms=d2h,
+                     h2d_gb_s=nbytes / h2d / 1e6, d2h_gb_s=nbytes / d2h / 1e6)
+        rec["variants"][name] = v
+        log("offload", f"{name:11s}: step {v['step_ms_median_2_3']:.1f} ms "
+                       f"(median of steps 2-3), peak {v['peak_gb']:.2f} GB, "
+                       f"losses " + " ".join(f"{x:.5f}" for x in v["losses"])
+                       + (f"; {v['bytes_each_way'] / 1e9:.3f} GB each way a "
+                          f"step, H2D {v['h2d_ms']:.1f} ms "
+                          f"({v['h2d_gb_s']:.1f} GB/s), D2H "
+                          f"{v['d2h_ms']:.1f} ms ({v['d2h_gb_s']:.1f} GB/s)"
+                          if link else "") + f" on {card}")
+    log("offload", f"f32 offload bitwise the on-device run ({n_arrays} "
+                   f"state arrays at step 3); bf16 and int8 losses within "
+                   f"rtol {OFFLOAD_RTOL}; partial offload keeps "
+                   f"{kept / 2**30:.2f} GiB as select_resident_moments "
+                   f"picks; launches {rec['variants']['device']['launches']}")
+    results["offload"] = rec
+    return rec
+
+
+def phase_moe_remat(results: dict, tmp: str) -> dict:
+    """``configs/moe_small.yaml --moe_impl dropless
+    --gradient_checkpointing`` at full depth, 2 steps: gmm 9 a layer a
+    micro-batch (3 forward, 3 recompute, 3 dgrad), tgmm 3, the flash
+    forward twice."""
+    from tpu_trainer_torch.training import cli
+
+    argv = ["--config", os.path.join(ROOT, "configs", "moe_small.yaml"),
+            "--moe_impl", "dropless", "--gradient_checkpointing",
+            "--max_steps", "2", "--log_interval", "1", "--eval_batches", "1",
+            "--no_auto_resume", "--checkpoint_dir",
+            os.path.join(tmp, "mr"), "--metrics_jsonl",
+            os.path.join(tmp, "mr.jsonl")]
+    cfg, tc, _, _ = cli.resolve_configs(cli.build_parser().parse_args(argv))
+    torch.cuda.empty_cache()
+    run = _cli_in_process("moe-remat", argv)
+    shutil.rmtree(os.path.join(tmp, "mr"))
+    accum = tc.gradient_accumulation_steps
+    want = _micro_launches(cfg, 2 * accum, accum, segmented=False)
+    if run["launches"] != want or not cfg.gradient_checkpointing:
+        raise AssertionError(f"moe-remat: launches {run['launches']}, want "
+                             f"{want}")
+    losses = [r["loss"] for r in _jsonl(argv[-1], "train")]
+    rec = {"launches": {k: v for k, v in run["launches"].items() if v},
+           "losses": losses, "seconds": run["seconds"]}
+    log("moe-remat", f"moe_small.yaml dropless under full remat, 2 steps + 1 "
+                     f"eval batch in {run['seconds']:.1f} s: losses "
+                     + " ".join(f"{x:.4f}" for x in losses)
+                     + f"; launches {rec['launches']} as the path must make "
+                       f"them")
+    results["moe_remat"] = rec
+    return rec
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out", help="also write every measured number here")
@@ -2674,6 +3141,10 @@ def main(argv=None) -> int:
         phase_cli(results, tmp)
         torch.cuda.empty_cache()
         phase_infer(results, tmp)
+        torch.cuda.empty_cache()
+        phase_remat(results, tmp)
+        phase_offload(results, tmp)
+        phase_moe_remat(results, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -263,3 +263,120 @@ def test_consolidated_export_loads_in_jax(tmp_path):
         got, _ = trainer.model(torch.from_numpy(ids).long())
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
                                rtol=2e-5)
+
+
+# -- narrow and host-offloaded Adam moments ------------------------------------
+
+# The embedding (512 x 128) and MLP kernels ([2, 128, 256]) reach the
+# 64k-element minimum of the on-device narrow state.
+NARROW = dataclasses.replace(MODEL, vocab_size=512, hidden_size=128,
+                             intermediate_size=256)
+
+
+def _storage_trainer(state_dtype="float32", offload=None, budget=0):
+    from tpu_trainer_torch.training.trainer import ParallelConfig
+
+    par = ParallelConfig(cpu_offload=offload is not None,
+                         offload_dtype=offload or "float32",
+                         offload_budget_gb=budget / 2**30)
+    return Trainer(NARROW, dataclasses.replace(
+        TRAIN, optimizer_state_dtype=state_dtype), par, device="cpu")
+
+
+def _narrow_batches(n):
+    return list(DummyDataLoader(4, 16, 512, num_batches=n, seed=5))
+
+
+STORAGE = {
+    "bf16": dict(state_dtype="bfloat16"),
+    "int8": dict(state_dtype="int8"),
+    "offload_f32": dict(offload="float32"),
+    "offload_bf16": dict(offload="bfloat16"),
+    "offload_int8_budget": dict(offload="int8", budget=600_000),
+}
+
+
+@pytest.mark.parametrize("case", sorted(STORAGE))
+def test_narrow_and_offloaded_states_roundtrip_bitwise(case, tmp_path):
+    """Save after two steps, restore into a fresh trainer: every array
+    (moments in their storage form) equal, and the next step too."""
+    kw = STORAGE[case]
+    trainer = _storage_trainer(**kw)
+    state = trainer.init_state()
+    data = _narrow_batches(3)
+    for b in data[:2]:
+        state, _ = trainer.train_step(state, b)
+    tc = trainer.training_config
+    path = ckpt.save_checkpoint(str(tmp_path), state, model_config=NARROW,
+                                training_config=tc)
+    with np.load(os.path.join(path, "state.npz")) as z:
+        files = set(z.files)
+        dtypes = {z[k].dtype for k in z.files if k.startswith("opt_state/")}
+    narrow_form = kw.get("state_dtype") or kw["offload"]
+    if narrow_form == "int8":
+        assert "opt_state/nu/embed_tokens/embedding/q" in files
+        assert {np.dtype(np.int8), np.dtype(np.float32)} <= dtypes
+    elif narrow_form == "bfloat16":
+        assert np.dtype(np.uint16) in dtypes
+    else:
+        assert dtypes == {np.dtype(np.float32)}
+    other = _storage_trainer(**kw)
+    restored, _ = ckpt.restore_checkpoint(path, other)
+    assert_state_equal(state, restored)
+    state, m1 = trainer.train_step(state, data[2])
+    restored, m2 = other.train_step(restored, data[2])
+    assert m1 == m2
+    assert_state_equal(state, restored)
+
+
+def test_resume_under_other_optimizer_state_dtype_raises(tmp_path):
+    trainer = _storage_trainer("bfloat16")
+    path = ckpt.save_checkpoint(str(tmp_path), trainer.init_state(),
+                                model_config=NARROW,
+                                training_config=trainer.training_config)
+    with pytest.raises(ckpt.CheckpointIncompatibleError,
+                       match="optimizer_state_dtype"):
+        ckpt.restore_checkpoint(path, _storage_trainer("int8"))
+    assert os.path.isdir(path)
+
+
+def test_resume_under_other_offload_storage_raises(tmp_path):
+    trainer = _storage_trainer(offload="bfloat16")
+    path = ckpt.save_checkpoint(str(tmp_path / "a"), trainer.init_state(),
+                                model_config=NARROW,
+                                training_config=trainer.training_config)
+    for kw in (dict(offload="int8"), dict(offload="float32"), {}):
+        with pytest.raises(ckpt.CheckpointIncompatibleError,
+                           match="offload_dtype"):
+            ckpt.restore_checkpoint(path, _storage_trainer(**kw))
+    # f32 offload stores what the on-device state does: they interchange.
+    off = _storage_trainer(offload="float32")
+    state = off.init_state()
+    state, _ = off.train_step(state, _narrow_batches(1)[0])
+    path = ckpt.save_checkpoint(str(tmp_path / "b"), state,
+                                model_config=NARROW,
+                                training_config=off.training_config)
+    restored, _ = ckpt.restore_checkpoint(path, _storage_trainer())
+    assert_state_equal(state, restored)
+
+
+def test_async_saver_copies_host_resident_moments(tmp_path):
+    """The writer works from copies: the step after ``save()`` overwrites
+    the host-resident moments in place, and the checkpoint still holds the
+    saved step's."""
+    trainer = _storage_trainer(offload="bfloat16")
+    state = trainer.init_state()
+    data = _narrow_batches(2)
+    state, _ = trainer.train_step(state, data[0])
+    want = state.state_dict()
+    saver = ckpt.AsyncSaver()
+    path = saver.save(str(tmp_path), state, model_config=NARROW,
+                      training_config=trainer.training_config)
+    state, _ = trainer.train_step(state, data[1])
+    saver.wait()
+    with np.load(os.path.join(path, "state.npz")) as z:
+        for k in z.files:
+            np.testing.assert_array_equal(z[k], want[k], err_msg=k)
+    assert not np.array_equal(
+        state.state_dict()["opt_state/mu/embed_tokens/embedding"],
+        want["opt_state/mu/embed_tokens/embedding"])

@@ -12,6 +12,13 @@
   yaml's: the same rows per step.
 - Resume through the CLI is bitwise (dropout on); a NaN loss rolls back
   once; SIGTERM saves and exits 143; options of later ROADMAP items raise.
+- ``mode="fsdp"`` (``train_fsdp``), as ``tests/test_cli.py`` pins the JAX
+  one: the reference sharding spellings, activation checkpointing on by
+  default, the offload flags from the command line and from YAML, an
+  unknown YAML dtype rejected, every shipped config resolving to the JAX
+  CLI's values; three tiny ``train_fsdp`` steps (remat on) whose losses
+  are within rtol 1e-4 of the JAX ``train_fsdp``'s (8-way FSDP there, the
+  same rows per step here), and a host-offloaded f32 run equal to it.
 """
 
 import dataclasses
@@ -123,7 +130,7 @@ def test_resolve_configs_matches_jax(path, yaml_file):
     argv = ["--config", path, "--max_steps", "7", "--tokenizer", "byte"]
     jm, jt, _, jd = jcli.resolve_configs(
         jcli.build_parser("ddp").parse_args(argv), "ddp")
-    tm, tt, td = cli.resolve_configs(cli.build_parser().parse_args(argv))
+    tm, tt, _, td = cli.resolve_configs(cli.build_parser().parse_args(argv))
     assert dataclasses.asdict(tm) == dataclasses.asdict(jm)
     jtd = dataclasses.asdict(jt)
     assert dataclasses.asdict(tt) == {k: jtd[k] for k in
@@ -160,7 +167,8 @@ def test_cli_matches_jax_cli(tmp_path, yaml_file):
     targv = common + ["--batch_size", str(2 * dp), "--device", "cpu",
                       "--checkpoint_dir", str(tmp_path / "t"),
                       "--metrics_jsonl", str(tmp_path / "t.jsonl")]
-    tm, tt, _ = cli.resolve_configs(cli.build_parser().parse_args(targv))
+    tm, tt, _, _ = cli.resolve_configs(
+        cli.build_parser().parse_args(targv))
     trainer = Trainer(tm, tt, device="cpu")
     state = trainer.init_state(params=from_jax_params(jparams,
                                                       trainer.model_config,
@@ -309,12 +317,10 @@ def test_sigterm_saves_and_exits_143(tmp_path, yaml_file, monkeypatch):
     (["--multihost"], "item 5"),
     (["--hbm_gb", "40"], "item 5"),
     (["--pipeline_microbatches", "2"], "item 5"),
-    (["--gradient_checkpointing"], "item 2"),
-    (["--optimizer_state_dtype", "int8"], "item 2"),
-    (["--config", os.path.join(ROOT, "configs", "medium_model.yaml")],
-     "item 2"),
-    (["--config", os.path.join(ROOT, "configs", "large_1b_single_chip.yaml")],
-     "item 2"),
+    (["--mesh_fsdp", "2"], "item 5"),
+    (["--mesh_sequence", "2"], "item 5"),
+    (["--mesh_expert", "2"], "item 5"),
+    (["--mesh_stage", "2"], "item 5"),
     (["--num_experts", "4"], "item 8"),
     (["--data_mixture", "dummy:1"], "item 4"),
     (["--inject_fault", "nan_loss@2"], "item 4"),
@@ -335,10 +341,158 @@ def test_later_item_options_raise(extra, item):
 def test_train_fsdp_mode_and_missing_cuda_raise():
     import torch
 
-    with pytest.raises(NotImplementedError, match="item 5"):
-        cli.run_training(["--device", "cpu"], mode="fsdp")
+    for extra in (["--sharding", "HYBRID_SHARD"], ["--mesh_fsdp", "2"]):
+        with pytest.raises(NotImplementedError, match="item 5"):
+            cli.run_training(["--device", "cpu"] + extra, mode="fsdp")
     if not torch.cuda.is_available():
         from tpu_trainer_torch.training.train_ddp import main
+        from tpu_trainer_torch.training.train_fsdp import main as fsdp_main
 
-        with pytest.raises(RuntimeError, match="CUDA is not available"):
-            main(["--max_steps", "1", "--model_size", "small"])
+        for entry in (main, fsdp_main):
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                entry(["--max_steps", "1", "--model_size", "small"])
+
+
+# -- train_fsdp ------------------------------------------------------------------
+
+def _fsdp(argv):
+    return cli.resolve_configs(cli.build_parser("fsdp").parse_args(argv),
+                               "fsdp")
+
+
+@pytest.mark.parametrize("spelling", ["FULL_SHARD", "SHARD_GRAD_OP",
+                                      "NO_SHARD", "zero3", "ddp"])
+def test_fsdp_mode_reference_spellings(spelling, yaml_file):
+    _, _, par, _ = _fsdp(["--config", yaml_file(TINY_YAML), "--sharding",
+                          spelling])
+    assert par.sharding_strategy == spelling
+    _, _, par, _ = _fsdp(["--config", yaml_file(TINY_YAML)])
+    assert par.sharding_strategy == "FULL_SHARD"
+    _, _, par, _ = cli.resolve_configs(cli.build_parser().parse_args([]))
+    assert par.sharding_strategy == "replicated"
+
+
+def test_fsdp_activation_checkpointing_default_on(yaml_file):
+    path = yaml_file(TINY_YAML)
+    assert _fsdp(["--config", path])[0].gradient_checkpointing
+    assert not _fsdp(["--config", path, "--no_activation_checkpointing"])[
+        0].gradient_checkpointing
+    assert not cli.resolve_configs(cli.build_parser().parse_args(
+        ["--config", path]))[0].gradient_checkpointing
+    # The yaml's own setting stands.
+    off = yaml_file(TINY_YAML.replace(
+        "  use_flash_attention: false",
+        "  use_flash_attention: false\n  gradient_checkpointing: false"),
+        "off.yaml")
+    assert not _fsdp(["--config", off])[0].gradient_checkpointing
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_offload_flags_reach_parallel_config(dtype, yaml_file):
+    _, _, par, _ = _fsdp(["--config", yaml_file(TINY_YAML), "--cpu_offload",
+                          "--offload_dtype", dtype, "--offload_budget_gb",
+                          "0.25"])
+    assert par.cpu_offload and par.offload_dtype == dtype
+    assert par.offload_budget_gb == 0.25
+    with pytest.raises(SystemExit):          # fsdp-only flags
+        cli.build_parser().parse_args(["--cpu_offload"])
+
+
+def test_offload_options_from_yaml(yaml_file):
+    path = yaml_file(TINY_YAML + "fsdp:\n  cpu_offload: true\n"
+                     "  offload_dtype: \"int8\"\n  offload_budget_gb: 0.5\n"
+                     "  sharding_strategy: \"SHARD_GRAD_OP\"\n")
+    _, _, par, _ = _fsdp(["--config", path])
+    assert (par.cpu_offload, par.offload_dtype, par.offload_budget_gb,
+            par.sharding_strategy) == (True, "int8", 0.5, "SHARD_GRAD_OP")
+    _, _, par, _ = _fsdp(["--config", path, "--offload_dtype", "bfloat16"])
+    assert par.offload_dtype == "bfloat16"
+
+
+@pytest.mark.parametrize("key,value", [("offload_dtype", "int16"),
+                                       ("sharding_strategy", "ZERO4")])
+def test_fsdp_yaml_rejects_unknown(key, value, yaml_file):
+    path = yaml_file(TINY_YAML + f"fsdp:\n  cpu_offload: true\n"
+                     f"  {key}: \"{value}\"\n")
+    with pytest.raises(SystemExit):
+        _fsdp(["--config", path])
+
+
+@pytest.mark.parametrize("path", CONFIGS, ids=os.path.basename)
+def test_fsdp_resolve_configs_matches_jax(path):
+    pytest.importorskip("jax", reason="the JAX reference is not installed")
+    from tpu_trainer.training import cli as jcli
+
+    argv = ["--config", path, "--cpu_offload", "--offload_dtype", "int8"]
+    jm, jt, jp, _ = jcli.resolve_configs(
+        jcli.build_parser("fsdp").parse_args(argv), "fsdp")
+    tm, tt, tp, _ = _fsdp(argv)
+    assert dataclasses.asdict(tm) == dataclasses.asdict(jm)
+    jtd = dataclasses.asdict(jt)
+    assert dataclasses.asdict(tt) == {k: jtd[k]
+                                      for k in dataclasses.asdict(tt)}
+    for f in ("sharding_strategy", "cpu_offload", "offload_dtype",
+              "offload_budget_gb"):
+        assert getattr(tp, f) == getattr(jp, f), f
+
+
+@pytest.mark.parametrize("name,mode", [
+    ("medium_model.yaml", "fsdp"), ("large_1b_single_chip.yaml", "ddp")])
+def test_remat_and_narrow_state_configs_are_supported(name, mode):
+    """The two configs of remat and narrow moments pass the support check
+    and build a trainer (meta parameters: nothing allocated)."""
+    argv = ["--config", os.path.join(ROOT, "configs", name)]
+    args = cli.build_parser(mode).parse_args(argv)
+    model, train, par, data = cli.resolve_configs(args, mode)
+    cli.check_supported(args, model, par, data)
+    assert model.gradient_checkpointing
+    trainer = Trainer(model, train, par, device="cpu")
+    assert trainer.optimizer.state_dtype == train.optimizer_state_dtype
+
+
+def test_train_fsdp_matches_jax_cli(tmp_path, yaml_file):
+    pytest.importorskip("jax", reason="the JAX reference is not installed")
+    import jax
+
+    from tpu_trainer.training import cli as jcli
+    from tpu_trainer.training.trainer import Trainer as JTrainer
+    from tpu_trainer_torch.models.weights import from_jax_params
+    from tpu_trainer_torch.training import train_fsdp
+
+    yaml = yaml_file(TEXT_YAML)
+    corpus = _corpus(tmp_path / "stories.txt")
+    common = ["--config", yaml, "--dataset", "tinystories", "--data_path",
+              corpus, "--tokenizer", "byte", "--max_steps", "3",
+              "--eval_interval", "0", "--log_interval", "1",
+              "--save_interval", "0", "--eval_split", "0.25",
+              "--sharding", "FULL_SHARD"]
+    jargv = common + ["--checkpoint_dir", str(tmp_path / "j"),
+                      "--metrics_jsonl", str(tmp_path / "j.jsonl")]
+    assert jcli.run_training(jargv, mode="fsdp") == 0
+    jm, jt, jp, _ = jcli.resolve_configs(
+        jcli.build_parser("fsdp").parse_args(jargv), "fsdp")
+    assert jm.gradient_checkpointing
+    jparams = jax.tree.map(np.asarray, JTrainer(jm, jt, jp).init_state()
+                           .params)
+    dp = jax.device_count()
+    runs = {}
+    for tag, extra in (("t", []), ("o", ["--cpu_offload"])):
+        targv = common + extra + [
+            "--batch_size", str(2 * dp), "--device", "cpu",
+            "--checkpoint_dir", str(tmp_path / tag),
+            "--metrics_jsonl", str(tmp_path / f"{tag}.jsonl")]
+        tm, tt, tp, _ = _fsdp(targv)
+        trainer = Trainer(tm, tt, tp, device="cpu")
+        state = trainer.init_state(params=from_jax_params(
+            jparams, trainer.model_config, device="cpu"))
+        ckpt.save_checkpoint(tt.checkpoint_dir, state, model_config=tm,
+                             training_config=tt)
+        assert train_fsdp.main(targv) == 0
+        runs[tag] = _records(tmp_path / f"{tag}.jsonl", "train")
+    want = _records(tmp_path / "j.jsonl", "train")
+    for key in ("loss", "grad_norm", "lr"):
+        np.testing.assert_allclose([r[key] for r in runs["t"]],
+                                   [r[key] for r in want], rtol=1e-4,
+                                   err_msg=key)
+        assert [r[key] for r in runs["o"]] == [r[key] for r in runs["t"]]
+    assert [r["step"] for r in runs["t"]] == [0, 1, 2]

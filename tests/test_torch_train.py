@@ -322,13 +322,23 @@ def test_packed_batch_step_uses_segment_ids():
 
 
 @pytest.mark.parametrize("kw,err", [
-    ({"gradient_checkpointing": True}, NotImplementedError),
-    ({"fused_loss": False, "remat_lm_head": True}, NotImplementedError),
+    ({"optimizer_state_dtype": "int16"}, ValueError),
+    ({"cpu_offload": True, "optimizer_state_dtype": "int8"}, ValueError),
     ({"num_experts": 2}, NotImplementedError),
 ])
 def test_unported_options_raise(kw, err):
+    """Options the trainer refuses: an unknown moment storage, host
+    offload over narrow moments, the capacity MoE router (remat and
+    narrow moments themselves train: tests/test_torch_remat.py,
+    test_torch_optimizer_q.py)."""
+    from tpu_trainer_torch.training.trainer import ParallelConfig
+
+    model = {k: v for k, v in kw.items() if k == "num_experts"}
+    train = {k: v for k, v in kw.items() if k == "optimizer_state_dtype"}
+    par = {k: v for k, v in kw.items() if k == "cpu_offload"}
     with pytest.raises(err):
-        TTrainer(TConfig(**{**BASE, **kw}), TTrain(), device="cpu")
+        TTrainer(TConfig(**{**BASE, **model}), TTrain(**train),
+                 ParallelConfig(**par), device="cpu")
 
 
 def test_dropless_moe_trains():
@@ -347,8 +357,12 @@ def test_dropless_moe_trains():
 
 
 def test_unported_optimizer_state_dtype_raises():
-    with pytest.raises(NotImplementedError, match="float32"):
-        make_optimizer(TTrain(optimizer_state_dtype="bfloat16"))
+    """Only an unknown moment storage raises now, with the JAX message
+    naming the three choices (bf16 and int8 build)."""
+    with pytest.raises(ValueError, match="float32, bfloat16, or int8"):
+        make_optimizer(TTrain(optimizer_state_dtype="float16"))
+    assert make_optimizer(TTrain(optimizer_state_dtype="bfloat16")
+                          ).state_dtype == "bfloat16"
 
 
 def test_guards_and_rates():

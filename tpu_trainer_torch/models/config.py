@@ -4,10 +4,9 @@ Same fields, defaults, validation and presets as the JAX package, so one
 set of keyword arguments builds both configs in the parity tests. Dtypes
 stay strings; ``compute_dtype`` / ``params_dtype`` map them to torch
 dtypes. The training forward reads the dropout, flash-attention, fused
-loss, fused-projection and MoE fields; ``gradient_checkpointing``,
-``remat_lm_head`` (without ``fused_loss``) and ``num_experts > 0`` with
-``moe_impl="capacity"`` raise ``NotImplementedError`` until their slices
-land, and the pipeline fields are carried for parity only (one device).
+loss, fused-projection, remat and MoE fields; ``num_experts > 0`` with
+``moe_impl="capacity"`` raises ``NotImplementedError`` until its slice
+lands, and the pipeline fields are carried for parity only (one device).
 """
 
 from __future__ import annotations
@@ -67,8 +66,8 @@ class GPTConfig:
     moe_aux_weight: float = 0.01
     router_z_weight: float = 0.0
 
-    # Training-path switches. Read by GPT's training forward, except remat
-    # (raises until ported) and the pipeline fields (parity only).
+    # Training-path switches. Read by GPT's training forward, except the
+    # pipeline fields (parity only).
     use_flash_attention: bool = False
     gradient_checkpointing: bool = False
     remat_policy: str = "full"

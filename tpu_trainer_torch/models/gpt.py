@@ -18,6 +18,12 @@ Two branches of ``GPT.forward``, chosen by ``config.decode_paged``, and
   shifted CE (``ops.loss``) when ``fused_loss``. With ``num_experts > 0``
   (``moe_impl="dropless"``) each layer's FFN is the dropless MoE of
   ``models/moe.py`` and the loss adds the layers' mean router auxiliary.
+  ``gradient_checkpointing`` recomputes each block in the backward
+  (``_remat_block``): ``remat_policy="full"`` keeps only the block input,
+  ``"dots"`` also keeps every matmul output (JAX ``dots_saveable``); the
+  flash and grouped-matmul kernels are recomputed under both. Without
+  ``fused_loss``, ``remat_lm_head`` recomputes the head matmul and the
+  cross entropy in the backward. Decode and no-grad passes never remat.
 - **Paged decode** (``decode=True`` with ``decode_paged``):
   ``forward(input_ids, cache, *, hist_blocks=0, logits_at=None)`` over the
   paged KV cache (``_paged_decode_attention``), decode attention through
@@ -63,6 +69,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from tpu_trainer_torch.models.config import GPTConfig
 from tpu_trainer_torch.models.moe import check_moe, dropless_moe
@@ -399,7 +411,6 @@ class GPT(nn.Module):
         compute them).
         """
         cfg = self.config
-        check_trainable(cfg)
         dropout_on = train and (cfg.dropout > 0.0
                                 or cfg.attention_dropout > 0.0)
         if dropout_on and generator is None:
@@ -409,12 +420,20 @@ class GPT(nn.Module):
         rope = rope_tables(s, cfg.head_dim, cfg.rope_theta, device=x.device)
         step = _TrainStep(train=train, generator=generator, rope=rope,
                           segment_ids=segment_ids)
+        remat = torch.is_grad_enabled()
+        block = (self._remat_block if cfg.gradient_checkpointing and remat
+                 else self._train_block)
+        moe_aux = 0.0
         for p in self._unstacked_layers():
-            x = self._train_block(x, p, step)
+            x, aux = block(x, p, step)
+            if aux is not None:
+                moe_aux = moe_aux + aux
         x = self.norm(x)
 
+        remat_head = (labels is not None and not cfg.fused_loss
+                      and cfg.remat_lm_head)
         logits = None
-        if labels is None or not cfg.fused_loss:
+        if labels is None or not (cfg.fused_loss or remat_head):
             logits = self.embed_tokens.attend(x).float()
         loss = None
         if labels is not None:
@@ -424,13 +443,24 @@ class GPT(nn.Module):
                     chunk_size=cfg.loss_chunk_size,
                     allow_pallas=cfg.fused_loss_pallas,
                     segment_ids=segment_ids)
+            elif remat_head:
+                # Nothing of the [b, s, vocab] softmax survives the
+                # forward; the backward recomputes the head matmul.
+                def head_loss(xf):
+                    lg = self.embed_tokens.attend(xf).float()
+                    return _masked_shifted_mean(
+                        softmax_cross_entropy(lg[:, :-1], labels[:, 1:]),
+                        segment_ids)
+
+                loss = (checkpoint(head_loss, x, use_reentrant=False)
+                        if remat else head_loss(x))
             else:
                 loss = _masked_shifted_mean(
                     softmax_cross_entropy(logits[:, :-1], labels[:, 1:]),
                     segment_ids)
             if cfg.num_experts > 0:
                 # The layers' pre-weighted router auxiliaries, meaned.
-                loss = loss + step.moe_aux / cfg.num_layers
+                loss = loss + moe_aux / cfg.num_layers
         return logits, loss
 
     def _unstacked_layers(self) -> List[Dict[str, torch.Tensor]]:
@@ -479,17 +509,48 @@ class GPT(nn.Module):
         x = x + self._residual_dropout(out, step)
         return self._ffn_block(x, p, step)
 
+    def _remat_block(self, x, p, step: "_TrainStep"):
+        """``_train_block`` under ``torch.utils.checkpoint``: the backward
+        reruns the block. Every dropout draw of the block comes from a
+        generator restored to the state the block started from, so the
+        rerun draws the forward's seeds and masks; the step's generator
+        then continues from where the forward's draws left it, exactly as
+        without remat."""
+        gen = step.generator
+        end = {}
+
+        def run(x_in):
+            inner = step
+            if gen is not None:
+                g = torch.Generator(device=gen.device)
+                g.set_state(start)
+                inner = dataclasses.replace(step, generator=g)
+            out = self._train_block(x_in, p, inner)
+            if gen is not None:
+                end["state"] = inner.generator.get_state()
+            return out
+
+        start = None if gen is None else gen.get_state()
+        ctx = (_dots_saveable_contexts if self.config.remat_policy == "dots"
+               else noop_context_fn)
+        out = checkpoint(run, x, use_reentrant=False, context_fn=ctx,
+                         preserve_rng_state=False)
+        if gen is not None:
+            gen.set_state(end["state"])
+        return out
+
     def _ffn_block(self, x, p, step: "_TrainStep"):
-        """``x + dropout(FFN(norm(x)))`` of one layer (dense or MoE)."""
+        """``(x + dropout(FFN(norm(x))), router aux or None)`` of one
+        layer (dense or MoE)."""
         cfg = self.config
         cd = cfg.compute_dtype
         eps = self.layers.input_layernorm.eps
         h = _rms_norm(x, p["post_attention_layernorm.weight"], eps, cd)
+        aux = None
         if cfg.num_experts > 0:
             out, aux = dropless_moe(
                 h, p["moe_mlp.router.kernel"], p["moe_mlp.experts_gate"],
                 p["moe_mlp.experts_up"], p["moe_mlp.experts_down"], cfg)
-            step.moe_aux = step.moe_aux + aux
         else:
             gate, up = _matmuls(h, [p["mlp.gate_proj.kernel"],
                                     p["mlp.up_proj.kernel"]], cd,
@@ -498,7 +559,7 @@ class GPT(nn.Module):
                    else F.gelu(gate, approximate="tanh"))
             out = _matmuls(act * up, [p["mlp.down_proj.kernel"]], cd,
                            False)[0]
-        return x + self._residual_dropout(out, step)
+        return x + self._residual_dropout(out, step), aux
 
     def _residual_dropout(self, x, step: "_TrainStep"):
         """Residual-stream dropout: the counter-based hash mask with
@@ -554,7 +615,7 @@ class GPT(nn.Module):
                           segment_ids=None)
         x = self.embed_tokens(input_ids)
         for layer, p in enumerate(self._unstacked_layers()):
-            x = self._kv_block(x, p, layer, cache, step, allowed, idx)
+            x, _ = self._kv_block(x, p, layer, cache, step, allowed, idx)
         cache["idx"] = idx + s
         return self.embed_tokens.attend(self.norm(x)).float()
 
@@ -616,7 +677,6 @@ class _TrainStep:
     generator: Optional[torch.Generator]
     rope: tuple                       # (cos, sin) f32 [s, head_dim]
     segment_ids: Optional[torch.Tensor]
-    moe_aux: object = 0.0             # sum of the layers' router aux
 
     def seed(self) -> int:
         """A fresh uint32 dropout seed from the generator."""
@@ -635,15 +695,22 @@ def _matmuls(x: torch.Tensor, kernels: List[torch.Tensor], dtype,
     return [x @ w.to(dtype) for w in kernels]
 
 
-def check_trainable(cfg: GPTConfig) -> None:
-    """Raise on training options that later slices port."""
-    if cfg.gradient_checkpointing:
-        raise NotImplementedError(
-            "gradient_checkpointing (remat) is not ported yet (ROADMAP "
-            "Queue 1, the training slice's follow-up)")
-    if not cfg.fused_loss and cfg.remat_lm_head:
-        raise NotImplementedError(
-            "remat_lm_head is not ported yet (ROADMAP Queue 1, with remat)")
+_SAVED_DOTS = frozenset((torch.ops.aten.mm.default,
+                         torch.ops.aten.bmm.default,
+                         torch.ops.aten.addmm.default,
+                         torch.ops.aten.baddbmm.default))
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """JAX ``dots_saveable``: keep every matmul output, recompute the
+    rest. The CUDA kernels launch through ``ctypes``, outside the
+    dispatcher, so they are recomputed."""
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_saveable_contexts():
+    return create_selective_checkpoint_contexts(_dots_policy)
 
 
 def softmax_cross_entropy(logits: torch.Tensor,

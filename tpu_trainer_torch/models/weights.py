@@ -11,6 +11,9 @@ means no decay) reads the same in both packages.
   ``save_params_npz`` writes (``tpu_trainer/serving/remote.py``).
 - ``from_jax_params`` maps a nested-dict Flax tree of numpy arrays onto
   a state dict for ``GPT``; ``to_jax_params`` is its inverse.
+- ``from_jax_opt_state`` maps the JAX optimizer state (numpy leaves) onto
+  the port's ``AdamWState``: f32 and bf16 moments and int8 ``QuantPack``s
+  keep their storage form.
 - ``init_params`` draws a fresh state dict the way Flax initializes the
   model: normal(std=initializer_range) kernels and embedding, ones for
   the norm weights.
@@ -26,7 +29,9 @@ import torch
 
 from tpu_trainer_torch.models.config import GPTConfig
 from tpu_trainer_torch.models.gpt import GPT
+from tpu_trainer_torch.training.optimizer import AdamWState
 from tpu_trainer_torch.utils.device import resolve_device
+from tpu_trainer_torch.utils.quant import QuantPack
 
 
 def load_params_npz(path: str) -> dict:
@@ -82,6 +87,55 @@ def from_jax_params(tree, config: GPTConfig, device=None
             device=dev, dtype=dtype)
         for n, (_, dtype) in want.items()
     }
+
+
+def _tensor(arr, device) -> torch.Tensor:
+    """numpy (bf16 as ``ml_dtypes.bfloat16``) -> a tensor of that dtype."""
+    arr = np.array(arr)              # a writable copy
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(arr).to(device)
+
+
+def _adam_state(node):
+    """The ``(count, mu, nu)`` record inside an optax chain's state."""
+    if all(hasattr(node, f) for f in ("count", "mu", "nu")):
+        return node
+    if isinstance(node, (tuple, list)):
+        for child in node:
+            found = _adam_state(child)
+            if found is not None:
+                return found
+    return None
+
+
+def from_jax_opt_state(opt_state, config: GPTConfig,
+                       device=None) -> AdamWState:
+    """The port's ``AdamWState`` from a JAX optimizer state whose leaves
+    are numpy arrays (``jax.tree.map(np.asarray, state.opt_state)``, the
+    on-device narrow state or the offload storage form alike). Each
+    moment keeps its form: an array (f32, bf16) or, where a parameter's
+    path holds a ``q`` / ``scale`` mapping, an int8 ``QuantPack`` (found
+    by position, so a parameter named ``q`` is never taken for a pack)."""
+    dev = resolve_device(device)
+    adam = _adam_state(opt_state)
+    if adam is None:
+        raise ValueError("no Adam (count, mu, nu) state in opt_state")
+    names = param_specs(config)
+
+    def leaf(tree, name):
+        node = tree
+        for key in name.split("."):
+            node = node[key]
+        if hasattr(node, "keys"):
+            return QuantPack(q=_tensor(node["q"], dev),
+                             scale=_tensor(node["scale"], dev))
+        return _tensor(node, dev)
+
+    return AdamWState(int(np.asarray(adam.count)),
+                      {n: leaf(adam.mu, n) for n in names},
+                      {n: leaf(adam.nu, n) for n in names})
 
 
 def to_jax_params(state: Dict[str, torch.Tensor]) -> dict:

@@ -1,9 +1,15 @@
 """Training CLI (port of ``tpu_trainer/training/cli.py``): the
-single-process loop behind ``python -m tpu_trainer_torch.training.train_ddp``.
+single-process loop behind ``python -m tpu_trainer_torch.training.train_ddp``
+and ``python -m tpu_trainer_torch.training.train_fsdp``.
 
 The same flag names and YAML schema as the JAX CLI (``configs/*.yaml``
 load unchanged; CLI flags over YAML over the dataclass defaults), on one
-device:
+device. ``mode="fsdp"`` adds the JAX fsdp flags (``--sharding`` in the
+reference spellings, ``--cpu_offload``, ``--offload_dtype``,
+``--offload_budget_gb``, ``--no_activation_checkpointing``; activation
+checkpointing on by default) and the YAML ``fsdp:`` section; at one
+process every sharding strategy is the ddp step, and the strategy only
+shows in the startup line.
 
 - data: dummy, packed dummy, or a local text corpus (``.txt`` / ``.gz``,
   map-style or streaming, optionally packed) through the host prefetch
@@ -40,13 +46,18 @@ import numpy as np
 from tpu_trainer_torch.data.device_prefetch import DevicePrefetcher
 from tpu_trainer_torch.models.config import GPTConfig
 from tpu_trainer_torch.training.config import TrainingConfig
-from tpu_trainer_torch.training.trainer import Trainer
+from tpu_trainer_torch.training.optimizer import STATE_DTYPES
+from tpu_trainer_torch.training.trainer import ParallelConfig, Trainer
 from tpu_trainer_torch.utils import checkpoint as ckpt_lib
 from tpu_trainer_torch.utils.device import resolve_device
 from tpu_trainer_torch.utils.guards import check_finite
 from tpu_trainer_torch.utils.logging import MetricLogger
 
-_OPT_STATE_DTYPES = ["float32", "bfloat16", "int8"]
+_OPT_STATE_DTYPES = list(STATE_DTYPES)
+_SHARDING_CHOICES = [
+    "FULL_SHARD", "SHARD_GRAD_OP", "NO_SHARD", "HYBRID_SHARD",
+    "zero3", "zero2", "replicated", "ddp",
+]
 
 
 def _require_choice(value, choices, name):
@@ -56,9 +67,9 @@ def _require_choice(value, choices, name):
     return value
 
 
-def build_parser() -> argparse.ArgumentParser:
-    """The JAX CLI's flags (``None`` defaults, so CLI > YAML > defaults),
-    with ``--device {cuda,cpu}``."""
+def build_parser(mode: str = "ddp") -> argparse.ArgumentParser:
+    """The JAX CLI's flags of ``mode`` ("ddp" or "fsdp"; ``None``
+    defaults, so CLI > YAML > defaults), with ``--device {cuda,cpu}``."""
     p = argparse.ArgumentParser(description="GPT training on one CUDA device")
     a = p.add_argument
     a("--config", type=str, default=None,
@@ -153,6 +164,19 @@ def build_parser() -> argparse.ArgumentParser:
     a("--multihost", action="store_true", default=None)
     a("--device", type=str, default=None, choices=["cuda", "cpu"],
       help="cuda (default) or cpu; without a GPU, cuda raises")
+    if mode == "fsdp":
+        a("--sharding", type=str, default=None, choices=_SHARDING_CHOICES)
+        a("--cpu_offload", action="store_true", default=None,
+          help="Adam moments in pinned host memory, streamed through "
+               "each update")
+        a("--offload_dtype", default=None, choices=_OPT_STATE_DTYPES,
+          help="host storage of offloaded moments; bfloat16 halves the "
+               "stream, int8 (blockwise absmax) quarters it")
+        a("--offload_budget_gb", type=float, default=None,
+          help="partial offload: GB of the largest moment leaves kept on "
+               "the device (exact f32)")
+        a("--no_activation_checkpointing", action="store_true",
+          default=None)
     return p
 
 
@@ -302,10 +326,12 @@ def _preset_from_name(name: Optional[str]) -> Optional[str]:
     return None
 
 
-def resolve_configs(args):
+def resolve_configs(args, mode: str = "ddp"):
     """CLI flags over YAML over defaults -> ``(model_config,
-    training_config, data_opts)``, with the JAX CLI's values."""
+    training_config, parallel_config, data_opts)``, with the JAX CLI's
+    values."""
     y = load_yaml(args.config)
+    y_fsdp = y.get("fsdp", {}) or {}
     y_model = y.get("model", {}) or {}
     y_train = y.get("training", {}) or {}
     y_dist = y.get("distributed", {}) or {}
@@ -338,6 +364,13 @@ def resolve_configs(args):
         overrides["num_kv_heads"] = args.num_kv_heads
     if args.gradient_checkpointing:
         overrides["gradient_checkpointing"] = True
+    if mode == "fsdp":
+        # Activation checkpointing on unless disabled (the reference
+        # fsdp trainer's default).
+        if getattr(args, "no_activation_checkpointing", None):
+            overrides["gradient_checkpointing"] = False
+        elif "gradient_checkpointing" not in overrides:
+            overrides["gradient_checkpointing"] = True
     if args.no_flash_attention:
         overrides["use_flash_attention"] = False
     elif "use_flash_attention" not in overrides:
@@ -392,6 +425,23 @@ def resolve_configs(args):
             False if args.no_async_checkpointing else None,
             y_ckpt.get("async"), d.async_checkpointing)),
     )
+
+    parallel_config = ParallelConfig()
+    if mode == "fsdp":
+        parallel_config = ParallelConfig(
+            sharding_strategy=_require_choice(
+                _pick(getattr(args, "sharding", None),
+                      y_fsdp.get("sharding_strategy"), "FULL_SHARD"),
+                _SHARDING_CHOICES, "sharding_strategy"),
+            cpu_offload=bool(_pick(getattr(args, "cpu_offload", None),
+                                   y_fsdp.get("cpu_offload"), False)),
+            offload_dtype=_require_choice(
+                _pick(getattr(args, "offload_dtype", None),
+                      y_fsdp.get("offload_dtype"), "float32"),
+                _OPT_STATE_DTYPES, "offload_dtype"),
+            offload_budget_gb=_pickf(getattr(args, "offload_budget_gb",
+                                             None),
+                                     y_fsdp.get("offload_budget_gb"), 0.0))
 
     data_opts = {
         "dataset": _pick(args.dataset, y_data.get("dataset"), "dummy"),
@@ -457,12 +507,10 @@ def resolve_configs(args):
         "mesh_auto": args.mesh == "auto",
         "hbm_gb": args.hbm_gb,
     }
-    return model_config, training_config, data_opts
+    return model_config, training_config, parallel_config, data_opts
 
 
 # ROADMAP Queue 1 items that own the options this port does not run yet.
-_ITEM_REMAT = "ROADMAP Queue 1 item 2 (remat, narrow optimizer states, " \
-              "offload)"
 _ITEM_RUN = "ROADMAP Queue 1 item 4 (fault injection, elastic training, " \
             "telemetry, profiling, mixtures)"
 _ITEM_MESH = "ROADMAP Queue 1 item 5 (multi-GPU parallelism)"
@@ -470,7 +518,7 @@ _ITEM_MOE = "ROADMAP Queue 1 item 8 (the rest of MoE)"
 
 
 def check_supported(args, model_config: GPTConfig,
-                    training_config: TrainingConfig, data_opts: dict
+                    parallel_config: ParallelConfig, data_opts: dict
                     ) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP item for every
     requested option that a later port slice brings."""
@@ -487,14 +535,10 @@ def check_supported(args, model_config: GPTConfig,
                      ("--no_comms_model", bool(args.no_comms_model))):
         if on:
             mesh_flags.append(flag)
+    if parallel_config.sharding_strategy == "HYBRID_SHARD":
+        mesh_flags.append("HYBRID_SHARD (data replicas x fsdp shards)")
     if mesh_flags:
         later.append((", ".join(mesh_flags), _ITEM_MESH))
-    if model_config.gradient_checkpointing:
-        later.append(("gradient_checkpointing (remat)", _ITEM_REMAT))
-    if training_config.optimizer_state_dtype != "float32":
-        later.append((f"optimizer_state_dtype="
-                      f"{training_config.optimizer_state_dtype}",
-                      _ITEM_REMAT))
     if model_config.num_experts > 0 and model_config.moe_impl == "capacity":
         later.append(('moe_impl="capacity" (use --moe_impl dropless)',
                       _ITEM_MOE))
@@ -621,25 +665,36 @@ def _due(step: int, interval: int) -> bool:
 
 
 def run_training(argv=None, mode: str = "ddp") -> int:
-    """Train as the flags and YAML say; returns the exit code (0, or 143
-    after a SIGTERM save)."""
-    if mode != "ddp":
-        raise NotImplementedError(
-            f"mode {mode!r} (train_fsdp) -> {_ITEM_MESH}; on one GPU its "
-            f"strategies are the ddp step")
-    args = build_parser().parse_args(argv)
-    model_config, training_config, data_opts = resolve_configs(args)
-    check_supported(args, model_config, training_config, data_opts)
+    """Train as the flags and YAML say (``mode`` "ddp" or "fsdp");
+    returns the exit code (0, or 143 after a SIGTERM save)."""
+    if mode not in ("ddp", "fsdp"):
+        raise ValueError(f"mode {mode!r}; choose ddp or fsdp")
+    args = build_parser(mode).parse_args(argv)
+    model_config, training_config, parallel_config, data_opts = (
+        resolve_configs(args, mode))
+    check_supported(args, model_config, parallel_config, data_opts)
     device = resolve_device(args.device)
-    trainer = Trainer(model_config, training_config, device=device)
+    trainer = Trainer(model_config, training_config, parallel_config,
+                      device=device)
     tokens_per_step = (training_config.gradient_accumulation_steps
                        * training_config.batch_size
                        * training_config.max_seq_len)
-    print(f"mode={mode} device={device} | model: "
+    remat = (f"remat {model_config.remat_policy}"
+             if model_config.gradient_checkpointing else "no remat")
+    print(f"mode={mode} strategy={parallel_config.sharding_strategy} "
+          f"device={device} | model: "
           f"{model_config.num_parameters():,} params | batch "
           f"{training_config.gradient_accumulation_steps} x "
           f"{training_config.batch_size} seqs x "
-          f"{training_config.max_seq_len} tokens", flush=True)
+          f"{training_config.max_seq_len} tokens | {remat}, adam moments "
+          f"{training_config.optimizer_state_dtype}"
+          + (f", offloaded as {parallel_config.offload_dtype}"
+             if trainer.cpu_offload else ""), flush=True)
+    if trainer.cpu_offload and trainer.offload_resident_bytes:
+        print(f"partial offload: "
+              f"{trainer.offload_resident_bytes / 2**30:.2f} GB of "
+              f"optimizer moments device-resident (exact f32), overflow "
+              f"streams to host", flush=True)
 
     state = None
     tokens_seen = 0
@@ -813,7 +868,7 @@ def run_training(argv=None, mode: str = "ddp") -> int:
                     training_config = dataclasses.replace(
                         training_config, learning_rate=base_lr * backoff)
                     trainer = Trainer(model_config, training_config,
-                                      device=device)
+                                      parallel_config, device=device)
                 drain_save()
                 restored = ckpt_lib.restore_latest(ckpt_dir, trainer,
                                                    verify=True)

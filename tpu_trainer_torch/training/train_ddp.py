@@ -5,8 +5,9 @@
         --dataset tinystories --data_path stories.txt --tokenizer byte
 
 It runs on CUDA unless ``--device cpu`` is passed; without a GPU and
-without that flag it raises. ``train_fsdp`` is not ported: on one GPU its
-strategies are this step (ROADMAP Queue 1 item 5).
+without that flag it raises. ``train_fsdp`` takes the fsdp flags (host
+offload of the optimizer state among them); on one GPU its strategies are
+this step.
 """
 
 import sys

@@ -24,8 +24,22 @@ same state object. ``eval_step`` is the forward-only mean loss;
 ``TrainState.state_dict`` / ``load_state_dict`` are what a checkpoint
 holds (``utils/checkpoint.py``).
 
-Not ported yet (ROADMAP Queue 1): meshes and sharding, pipeline schedules,
-CPU offload, narrow optimizer states, telemetry steps.
+Optimizer-state host offload (``ParallelConfig.cpu_offload``, the JAX
+trainer's ``_offload_store`` / ``_offload_load``): Adam's moments live in
+pinned host memory in the storage form of ``offload_dtype`` ("float32";
+"bfloat16" casts every float leaf with ``ndim >= 1``; "int8" packs every
+float leaf with ``ndim >= 2`` into a ``QuantPack``, ``nu`` in sqrt-space).
+Each step streams them to the device after the backward, loads them to
+f32, runs the update, stores them narrow again and streams them back:
+both copies are asynchronous on the current stream, so the next step's
+copies, ``state_dict`` (a device synchronize) and ``load_state_dict``
+come after them. With ``offload_budget_gb`` the largest moment leaves
+that fit the budget stay on the device in exact f32
+(``select_resident_moments``). At one process every ``sharding_strategy``
+is this step.
+
+Not ported yet (ROADMAP Queue 1): meshes and sharding across processes,
+pipeline schedules, telemetry steps.
 """
 
 from __future__ import annotations
@@ -38,21 +52,105 @@ import torch
 from torch import nn
 
 from tpu_trainer_torch.models.config import GPTConfig
-from tpu_trainer_torch.models.gpt import GPT, check_trainable
+from tpu_trainer_torch.models.gpt import GPT
 from tpu_trainer_torch.models.weights import init_params
 from tpu_trainer_torch.ops.loss import segment_target_mask
 from tpu_trainer_torch.training.config import TrainingConfig
 from tpu_trainer_torch.training.optimizer import (
+    STATE_DTYPES,
     AdamWState,
+    Moment,
+    decay_mask,
     global_norm,
+    load_moment,
     make_optimizer,
+    store_moment,
 )
 from tpu_trainer_torch.utils.device import resolve_device
+from tpu_trainer_torch.utils.quant import QuantPack
 
 _MP_TO_DTYPE = {"fp32": "float32", "bf16": "bfloat16", "fp16": "float16"}
 _SCALE_GROWTH_INTERVAL = 2000  # finite steps before the scale doubles
 _MAX_LOSS_SCALE = 2.0**16
 _INIT_LOSS_SCALE = 2.0**15
+
+
+def moment_key(moment: str, name: str) -> tuple:
+    """``("mu" | "nu", *flax path)``: the JAX moment leaf's path keys
+    after the optax chain's own prefix."""
+    return (moment,) + tuple(name.split("."))
+
+
+def select_resident_moments(moments: Dict[tuple, torch.Tensor],
+                            budget_bytes: int):
+    """Partial offload: which moment leaves stay on the device under a
+    byte budget (the JAX ``select_resident_moments`` at one process).
+
+    Greedy, largest first over the float leaves with ``ndim >= 1``, ties
+    in path order; ``moments`` maps path keys (``moment_key``) to tensors
+    of the moments' shapes and dtypes (meta tensors do). Returns
+    ``(frozenset of keys, bytes kept)``."""
+    cands = sorted(((k, t.numel() * t.element_size())
+                    for k, t in moments.items()
+                    if t.dim() >= 1 and t.is_floating_point()),
+                   key=lambda kv: (-kv[1], kv[0]))
+    keep, used = set(), 0
+    for key, size in cands:
+        if used + size <= budget_bytes:
+            keep.add(key)
+            used += size
+    return frozenset(keep), used
+
+
+@dataclasses.dataclass(frozen=True)
+class ParallelConfig:
+    """The JAX ``ParallelConfig``'s single-process fields.
+
+    ``sharding_strategy`` is the fsdp CLI's choice (reference spellings
+    allowed); at one process every strategy is the same step.
+    ``cpu_offload`` keeps Adam's moments in pinned host memory and streams
+    them through each update; ``offload_dtype`` is their host storage
+    ("float32" keeps the step bitwise the on-device one, "bfloat16" halves
+    the stream, "int8" quarters it); ``offload_budget_gb`` keeps the
+    largest moment leaves that fit on the device in exact f32."""
+
+    sharding_strategy: str = "replicated"
+    cpu_offload: bool = False
+    offload_dtype: str = "float32"
+    offload_budget_gb: float = 0.0
+
+
+def _moment_arrays(key: str, m: Moment) -> Dict[str, np.ndarray]:
+    """Host copies of one stored moment under its checkpoint keys: f32 as
+    f32, bf16 as its ``uint16`` bits, a pack as ``key/q`` and
+    ``key/scale``."""
+    if isinstance(m, QuantPack):
+        return {f"{key}/q": m.q.detach().to("cpu", copy=True).numpy(),
+                f"{key}/scale": m.scale.detach().to("cpu",
+                                                    copy=True).numpy()}
+    t = m.detach().to("cpu", copy=True)
+    if t.dtype == torch.bfloat16:
+        return {key: t.view(torch.int16).numpy().view(np.uint16)}
+    return {key: t.float().numpy()}
+
+
+def _moment_targets(key: str, m: Moment) -> Dict[str, torch.Tensor]:
+    if isinstance(m, QuantPack):
+        return {f"{key}/q": m.q, f"{key}/scale": m.scale}
+    return {key: m}
+
+
+def _array_dtype(t: torch.Tensor):
+    """The numpy dtype ``_moment_arrays`` stores ``t``'s storage as."""
+    return {torch.bfloat16: np.dtype(np.uint16), torch.int8:
+            np.dtype(np.int8)}.get(t.dtype, np.dtype(np.float32))
+
+
+def _from_array(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    if like.dtype == torch.bfloat16:
+        return torch.from_numpy(np.ascontiguousarray(arr).view(
+            np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(np.ascontiguousarray(arr))
 
 
 def _split_packed(batch: torch.Tensor):
@@ -74,24 +172,47 @@ class TrainState:
     loss_scale: float                 # fp16 dynamic scaling; 1.0 else
     good_steps: int                   # consecutive finite steps (fp16)
 
-    def state_dict(self) -> dict:
-        """A host copy of everything that evolves: f32 arrays
-        ``params/<flax path>``, ``opt_state/mu/<path>`` and
-        ``opt_state/nu/<path>`` (paths ``a/b/c``, as the JAX package's
-        trees flatten), the generator's state as a ``uint8`` array
-        ``generator``, and the scalars ``step``, ``opt_count``,
-        ``loss_scale``, ``good_steps``. Copies of device tensors are taken
-        after a synchronize, so later in-place steps cannot reach them."""
+    def _trees(self):
+        return (("params", self.params), ("opt_state/mu", self.opt_state.mu),
+                ("opt_state/nu", self.opt_state.nu))
+
+    def _targets(self) -> Dict[str, torch.Tensor]:
+        """Checkpoint key -> the tensor holding it."""
+        want = {}
+        for prefix, tree in self._trees():
+            for name, m in tree.items():
+                want.update(_moment_targets(
+                    f"{prefix}/{name.replace('.', '/')}", m))
+        return want
+
+    def layout(self) -> Dict[str, tuple]:
+        """Checkpoint key -> ``(shape, numpy dtype)`` of every array
+        ``state_dict`` writes (the moments' storage form included)."""
+        return {k: (tuple(t.shape), _array_dtype(t))
+                for k, t in self._targets().items()}
+
+    def _sync(self) -> None:
+        """Wait for the device, host-link copies included."""
         if any(t.is_cuda for t in self.params.values()):
             torch.cuda.synchronize()
+
+    def state_dict(self) -> dict:
+        """A host copy of everything that evolves: f32 arrays
+        ``params/<flax path>``, the moments under ``opt_state/mu/<path>``
+        and ``opt_state/nu/<path>`` in their storage form (f32; bf16 as
+        ``uint16`` bits; an int8 pack as ``<path>/q`` and
+        ``<path>/scale``), with paths ``a/b/c`` as the JAX package's
+        trees flatten, the generator's state as a ``uint8`` array
+        ``generator``, and the scalars ``step``, ``opt_count``,
+        ``loss_scale``, ``good_steps``. Every array is a copy taken after a
+        device synchronize (host-resident moments too), so later in-place
+        steps cannot reach it."""
+        self._sync()
         out = {}
-        for prefix, tree in (("params", self.params),
-                             ("opt_state/mu", self.opt_state.mu),
-                             ("opt_state/nu", self.opt_state.nu)):
-            for name, t in tree.items():
-                key = f"{prefix}/{name.replace('.', '/')}"
-                out[key] = t.detach().to("cpu", torch.float32,
-                                         copy=True).numpy()
+        for prefix, tree in self._trees():
+            for name, m in tree.items():
+                out.update(_moment_arrays(
+                    f"{prefix}/{name.replace('.', '/')}", m))
         out["generator"] = self.generator.get_state().numpy().copy()
         out.update(step=int(self.step), opt_count=int(self.opt_state.count),
                    loss_scale=float(self.loss_scale),
@@ -102,25 +223,21 @@ class TrainState:
         """Copy ``state_dict()``'s values into this state's tensors in
         place (they stay bound to the trainer's model). Raises on a
         missing, extra or misshaped array."""
-        want = {}
-        for prefix, tree in (("params", self.params),
-                             ("opt_state/mu", self.opt_state.mu),
-                             ("opt_state/nu", self.opt_state.nu)):
-            for name, t in tree.items():
-                want[f"{prefix}/{name.replace('.', '/')}"] = t
+        want = self._targets()
         have = {k for k in sd if "/" in k}
         if have != set(want):
             raise ValueError(
                 f"state arrays do not match: missing "
                 f"{sorted(set(want) - have)}, extra "
                 f"{sorted(have - set(want))}")
+        self._sync()
         with torch.no_grad():
             for key, t in want.items():
                 arr = np.asarray(sd[key])
                 if tuple(arr.shape) != tuple(t.shape):
                     raise ValueError(f"{key}: shape {arr.shape}, want "
                                      f"{tuple(t.shape)}")
-                t.copy_(torch.from_numpy(arr))
+                t.copy_(_from_array(arr, t))
         self.generator.set_state(torch.from_numpy(
             np.asarray(sd["generator"], np.uint8).copy()))
         self.step = int(sd["step"])
@@ -133,16 +250,170 @@ class Trainer:
     """One device: ``init_state``, ``put_batch``, ``train_step``."""
 
     def __init__(self, model_config: GPTConfig,
-                 training_config: TrainingConfig = TrainingConfig(), *,
+                 training_config: TrainingConfig = TrainingConfig(),
+                 parallel_config: ParallelConfig = ParallelConfig(), *,
                  device=None):
         dtype = _MP_TO_DTYPE[training_config.mixed_precision]
         self.model_config = dataclasses.replace(model_config, dtype=dtype)
-        check_trainable(self.model_config)
         self.training_config = training_config
+        self.parallel_config = parallel_config
         self.device = resolve_device(device)
         self.use_loss_scaling = training_config.mixed_precision == "fp16"
         self.model = GPT(self.model_config, device="meta")
         self.optimizer = make_optimizer(training_config)
+
+        self.cpu_offload = parallel_config.cpu_offload
+        if (self.cpu_offload
+                and training_config.optimizer_state_dtype != "float32"):
+            raise ValueError(
+                "cpu_offload streams the optimizer state from host storage "
+                "(--offload_dtype controls its width there); combine it "
+                "with optimizer_state_dtype=float32 — the on-device "
+                "quantized state targets HBM traffic, which offloaded "
+                "state does not generate")
+        if parallel_config.offload_dtype not in STATE_DTYPES:
+            raise ValueError(
+                f"offload_dtype {parallel_config.offload_dtype!r} not "
+                f"supported; choose float32, bfloat16, or int8")
+        self._offload_dtype = parallel_config.offload_dtype
+        self._offload_keep = frozenset()
+        self.offload_resident_bytes = 0   # the CLI's startup line
+        if self.cpu_offload and parallel_config.offload_budget_gb > 0:
+            self._offload_keep, self.offload_resident_bytes = (
+                select_resident_moments(
+                    self._moment_shapes(),
+                    int(parallel_config.offload_budget_gb * 2**30)))
+        # The last step's host-link copies (CUDA events), and bytes a way.
+        self._link_events = None
+        self.offload_stream_bytes = 0
+
+    def _moment_shapes(self) -> Dict[tuple, torch.Tensor]:
+        """Meta f32 tensors of every moment leaf, under ``moment_key``."""
+        return {moment_key(m, n): torch.empty(p.shape, dtype=torch.float32,
+                                              device="meta")
+                for n, p in self.model.named_parameters()
+                for m in ("mu", "nu")}
+
+    # -- optimizer-state offload --------------------------------------------
+
+    def _offload_store_leaf(self, key: tuple, x: torch.Tensor) -> Moment:
+        """int8 packs leaves with ndim >= 2, bf16 casts those with ndim
+        >= 1 (the JAX rules, not the on-device narrow state's)."""
+        dt = self._offload_dtype
+        if (key in self._offload_keep or not x.is_floating_point()
+                or x.dim() < (2 if dt == "int8" else 1)):
+            return x
+        return store_moment(x, dt, nonneg=key[0] == "nu")
+
+    def _offload_store(self, opt_state: AdamWState) -> AdamWState:
+        """f32 moments -> their host storage form (the JAX
+        ``Trainer._offload_store``): no-op for "float32" and for the
+        device-resident leaves of a partial offload."""
+        return AdamWState(opt_state.count, *(
+            {n: self._offload_store_leaf(moment_key(m, n), x)
+             for n, x in tree.items()}
+            for m, tree in (("mu", opt_state.mu), ("nu", opt_state.nu))))
+
+    def _offload_load(self, opt_state: AdamWState) -> AdamWState:
+        """Host storage form -> f32 (the JAX ``Trainer._offload_load``)."""
+        return AdamWState(opt_state.count, *(
+            {n: load_moment(x, nonneg=m == "nu") for n, x in tree.items()}
+            for m, tree in (("mu", opt_state.mu), ("nu", opt_state.nu))))
+
+    def _to(self, m: Moment, device, *, pin: bool = False) -> Moment:
+        def move(t):
+            t = t.to(device, non_blocking=True)
+            return t.pin_memory() if pin else t
+        if isinstance(m, QuantPack):
+            return QuantPack(q=move(m.q), scale=move(m.scale))
+        return move(m)
+
+    def _init_offloaded(self, params: Dict[str, torch.Tensor]
+                        ) -> AdamWState:
+        """Zero moments in their storage form: the streamed leaves made
+        in host memory (pinned for a CUDA device), the kept ones on the
+        device."""
+        pin = self.device.type == "cuda"
+        out = []
+        for m in ("mu", "nu"):
+            leaves = {}
+            for n, p in params.items():
+                key = moment_key(m, n)
+                if key in self._offload_keep:
+                    leaves[n] = torch.zeros(p.shape, dtype=torch.float32,
+                                            device=self.device)
+                else:
+                    leaves[n] = self._to(self._offload_store_leaf(
+                        key, torch.zeros(p.shape, dtype=torch.float32)),
+                        "cpu", pin=pin)
+            out.append(leaves)
+        return AdamWState(0, *out)
+
+    def _stream(self, state: TrainState, grads, lr: float) -> None:
+        """The offloaded update, a leaf at a time: the leaf's moments host
+        -> device, f32 load, the AdamW leaf update (applied to the
+        parameter at once), store, device -> host into the same host
+        buffers. Both copies are asynchronous on the current stream; only
+        one leaf's moments are on the device at a time (kept leaves
+        aside). Each copy runs between two CUDA events
+        (``last_link_ms``)."""
+        host = state.opt_state
+        cuda = self.device.type == "cuda"
+        ctx = self.optimizer.begin(grads, host.count)
+        mask = decay_mask(state.params)
+        events = {"h2d": [], "d2h": []}
+        moved = 0
+
+        def timed(way, copy):
+            if not cuda:
+                return copy()
+            pair = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            pair[0].record()
+            out = copy()
+            pair[1].record()
+            events[way].append(pair)
+            return out
+
+        with torch.no_grad():
+            for n, p in state.params.items():
+                keys = {m: moment_key(m, n) for m in ("mu", "nu")}
+                stored = {m: getattr(host, m)[n] for m in keys}
+                work = {}
+                for m, key in keys.items():
+                    if key in self._offload_keep:
+                        work[m] = stored[m]
+                        continue
+                    dev = timed("h2d", lambda: self._to(stored[m],
+                                                        self.device))
+                    work[m] = load_moment(dev, nonneg=m == "nu")
+                u = self.optimizer.leaf(ctx, grads[n], work["mu"],
+                                        work["nu"], p, mask[n])
+                p.add_((u * lr).to(p.dtype))
+                for m, key in keys.items():
+                    if key in self._offload_keep:
+                        continue
+                    new = self._offload_store_leaf(key, work[m])
+                    pairs = (zip(new.tensors(), stored[m].tensors())
+                             if isinstance(new, QuantPack)
+                             else ((new, stored[m]),))
+                    for src, dst in pairs:
+                        timed("d2h", lambda: dst.copy_(src,
+                                                        non_blocking=True))
+                        moved += src.numel() * src.element_size()
+        self._link_events = events if cuda else None
+        self.offload_stream_bytes = moved
+        state.opt_state = AdamWState(ctx["count"], host.mu, host.nu)
+
+    def last_link_ms(self) -> Optional[Dict[str, float]]:
+        """The last offloaded step's host -> device and device -> host
+        copy times (ms, the sums over its copies' CUDA events; waits for
+        them), else None."""
+        ev = self._link_events
+        if ev is None:
+            return None
+        torch.cuda.synchronize()
+        return {f"{way}_ms": sum(a.elapsed_time(b) for a, b in pairs)
+                for way, pairs in ev.items()}
 
     def init_state(self, seed: Optional[int] = None,
                    params: Optional[Dict[str, torch.Tensor]] = None
@@ -158,8 +429,10 @@ class Trainer:
                    for n, t in params.items()}
         self.model.load_state_dict(masters, strict=True, assign=True)
         masters = dict(self.model.named_parameters())
+        opt_state = (self._init_offloaded(masters) if self.cpu_offload
+                     else self.optimizer.init(masters))
         return TrainState(
-            step=0, params=masters, opt_state=self.optimizer.init(masters),
+            step=0, params=masters, opt_state=opt_state,
             generator=torch.Generator().manual_seed(seed),
             loss_scale=_INIT_LOSS_SCALE if self.use_loss_scaling else 1.0,
             good_steps=0)
@@ -261,12 +534,11 @@ class Trainer:
                    "loss_scale": state.loss_scale}
 
         finite = np.isfinite(metrics["grad_norm"])
-        if finite or not self.use_loss_scaling:
-            updates, state.opt_state = self.optimizer.update(
-                grads, state.opt_state, state.params)
-            with torch.no_grad():
-                for n, p in state.params.items():
-                    p.add_((updates[n] * lr).to(p.dtype))
+        if self.cpu_offload and (finite or not self.use_loss_scaling):
+            self._stream(state, grads, lr)
+        elif finite or not self.use_loss_scaling:
+            state.opt_state = self.optimizer.apply(
+                grads, state.opt_state, state.params, lr)
         if self.use_loss_scaling:
             if finite:
                 grew = state.good_steps + 1 >= _SCALE_GROWTH_INTERVAL

@@ -8,10 +8,17 @@ Layout::
 
 ``state.npz`` holds ``TrainState.state_dict()``'s arrays under the Flax
 ``a/b/c`` paths (``params/...``, ``opt_state/mu/...``,
-``opt_state/nu/...``) and the dropout generator's state as a ``uint8``
-array ``generator``. ``meta.json`` holds the JAX package's ``_meta_dict``
-keys plus the state's scalars (``opt_count``, ``loss_scale``,
-``good_steps``).
+``opt_state/nu/...``; narrow moments in their storage form: bf16 as
+``uint16`` bits, an int8 pack as ``.../q`` and ``.../scale``) and the
+dropout generator's state as a ``uint8`` array ``generator``.
+``meta.json`` holds the JAX package's ``_meta_dict`` keys plus the state's
+scalars (``opt_count``, ``loss_scale``, ``good_steps``). A checkpoint
+restores only into the moment storage it was saved with: another
+``optimizer_state_dtype`` raises ``CheckpointIncompatibleError`` naming
+it, as the JAX package does, and so does another host-offload storage
+(``offload_dtype``, ``offload_budget_gb``); an offload in "float32" stores
+exactly what the on-device state does, so those two restore into each
+other.
 
 Crash-safety contract (the training CLI's resume and rollback build on
 it):
@@ -241,7 +248,8 @@ class AsyncSaver:
     ``save()`` blocks only for the host copy of the state
     (``TrainState.state_dict()``: a device synchronize, then copies), made
     on the caller's thread before the writer thread starts, so the thread
-    never reads a device tensor that the next step updates in place. The
+    never reads a tensor that the next step updates in place (device
+    tensors and host-resident moments alike: both are copied). The
     writer runs ``save_checkpoint``'s sequence (state, meta, GC). At most
     one write is in flight: ``save()`` and ``wait()`` drain it, and
     ``wait()`` re-raises a writer failure on the caller's thread. The
@@ -361,6 +369,18 @@ def restore_checkpoint(path: str, trainer) -> Tuple[Any, dict]:
     params = {k[len("params/"):].replace("/", "."): torch.from_numpy(v)
               for k, v in sd.items() if k.startswith("params/")}
     state = trainer.init_state(params=params)
+    want = {k: v for k, v in state.layout().items()
+            if k.startswith("opt_state/")}
+    have = {k: (tuple(v.shape), v.dtype) for k, v in sd.items()
+            if k.startswith("opt_state/")}
+    if have != want:
+        differ = sorted(k for k in set(want) | set(have)
+                        if want.get(k) != have.get(k))
+        raise CheckpointIncompatibleError(
+            f"checkpoint {path} stores the Adam moments in another form "
+            f"than this run (offload_dtype / offload_budget_gb differ; "
+            f"e.g. {differ[:3]}); resume it with the options it was "
+            f"saved with")
     state.load_state_dict(sd)
     return state, meta
 
