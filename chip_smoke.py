@@ -174,9 +174,27 @@ JAX package. Phases, each fatal on failure:
 20. moe-remat -- ``configs/moe_small.yaml --moe_impl dropless
               --gradient_checkpointing``, 2 steps: gmm 9 a layer a
               micro-batch (3 forward, 3 recompute, 3 dgrad), tgmm 3.
+21. ft      -- fault tolerance and the run's telemetry on ``small_model.yaml``
+              (8 steps, the cli phase's corpus), held to the cli phase's
+              straight run: a chain of restarted processes under
+              ``kill_in_save@4``, ``kill@5`` and ``truncate_meta@6``
+              resuming at the last complete checkpoint, ending with every
+              loss and the step-8 state bitwise (each restart's time to
+              its first step split into imports, CUDA init, kernel
+              loading, restore and the first step); a ``nan_loss``
+              rollback with its crash report; a preemption notice drained
+              at exit 143 and resumed bitwise; telemetry steps (per-layer
+              grad norms recombining to the global norm within 1e-5, the
+              state bitwise) with a profiling window whose Chrome trace
+              must hold the flash forward's device events, a live
+              ``/metrics`` scrape and the analyzer on the run's JSONL;
+              the same activation stats under remat; MoE router
+              telemetry; ``--nan_scan`` on a checkpoint with a planted inf.
+              Launches exact on every path; the ``kernels`` line counts
+              them beside the main paths'.
 
-Every phase runs at full depth; the whole run takes about nine minutes on
-an H100, builds included.
+Every phase runs at full depth; the whole run takes about twelve minutes
+on an H100 (700 W), builds included.
 
 Then the ``kernels`` JSON line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. Without CUDA it exits 2 and prints no
@@ -2252,9 +2270,11 @@ def _jsonl(path: str, kind: str) -> list:
         return [r for r in map(json.loads, f) if r.get("kind") == kind]
 
 
-def _cli_in_process(phase: str, argv: list, entry=None) -> dict:
+def _cli_in_process(phase: str, argv: list, entry=None, rc_want: int = 0
+                    ) -> dict:
     """``entry(argv)`` (default ``train_ddp.main``) here with every launch
-    count zeroed just before and read just after."""
+    count zeroed just before and read just after; its exit code must be
+    ``rc_want``."""
     from tpu_trainer_torch.training import train_ddp
 
     counters = _counters()
@@ -2266,8 +2286,9 @@ def _cli_in_process(phase: str, argv: list, entry=None) -> dict:
     rc = (entry or train_ddp.main)(argv)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    if rc != 0:
-        raise AssertionError(f"{phase}: train_ddp exited {rc}")
+    if rc != rc_want:
+        raise AssertionError(f"{phase}: train_ddp exited {rc}, want "
+                             f"{rc_want}")
     return {"launches": {k: c.launches for k, c in counters.items()},
             "seconds": secs}
 
@@ -2308,9 +2329,9 @@ def _busy_share(argv: list) -> dict:
 
     original = Trainer.train_step
 
-    def marked(self, state, batch):
+    def marked(self, state, batch, *args, **kwargs):
         with record_function("cli_train_step"):
-            return original(self, state, batch)
+            return original(self, state, batch, *args, **kwargs)
 
     Trainer.train_step = marked
     try:
@@ -2926,10 +2947,10 @@ def _fsdp_run(phase: str, argv: list) -> dict:
     original = Trainer.train_step
     seen = {"steps": []}
 
-    def timed(self, state, batch):
+    def timed(self, state, batch, *args, **kwargs):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, m = original(self, state, batch)
+        state, m = original(self, state, batch, *args, **kwargs)
         torch.cuda.synchronize()
         seen["trainer"] = self
         seen["steps"].append({"ms": 1e3 * (time.perf_counter() - t0),
@@ -3100,6 +3121,640 @@ def phase_moe_remat(results: dict, tmp: str) -> dict:
     return rec
 
 
+# -- phase 21: fault tolerance and the run's telemetry ---------------------------
+
+def _ft_child(argv: list, out: str, t0: float) -> None:
+    """One restarted run of the ft phase in a fresh process (``t0``: the
+    wall clock as the interpreter began): times its imports, CUDA init and
+    kernel loading, then ``train_ddp.main(argv)`` with the launch counts
+    zeroed. The times up to the first step's end are written to ``out``
+    as soon as that step ends (an injected kill may end the process
+    later); the exit code and the launches, when ``main`` returns."""
+    t_chip = time.time()
+    from tpu_trainer_torch.ops import _build
+    from tpu_trainer_torch.training import train_ddp
+    from tpu_trainer_torch.training.trainer import Trainer
+
+    t_imports = time.time()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.init()
+    torch.empty(1, device="cuda")
+    torch.cuda.synchronize()
+    t_cuda = time.time()
+    for name in _build.SOURCES:
+        _build.load(name)
+    t_kernels = time.time()
+    times = {"t0": t0, "imports_s": t_imports - t0,
+             "chip_smoke_import_s": t_chip - t0,
+             "cuda_init_s": t_cuda - t_imports,
+             "kernel_load_s": t_kernels - t_cuda}
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    original = Trainer.train_step
+
+    def first_step(self, state, batch, *args, **kwargs):
+        result = original(self, state, batch, *args, **kwargs)
+        if "first_step_end" not in times:
+            torch.cuda.synchronize()
+            times["first_step_end"] = time.time()
+            with open(out, "w") as f:
+                json.dump(times, f)
+        return result
+
+    Trainer.train_step = first_step
+    rc = train_ddp.main(argv)
+    torch.cuda.synchronize()
+    times.update(rc=rc, launches={k: c.launches
+                                  for k, c in counters.items()})
+    with open(out, "w") as f:
+        json.dump(times, f)
+
+
+def _ft_spawn(tag: str, argv: list, tmp: str, rc_want: int) -> dict:
+    """``_ft_child(argv)`` in a fresh process; its exit code must be
+    ``rc_want`` (an injected kill: ``faults.KILL_EXIT_CODE``)."""
+    out = os.path.join(tmp, f"ft_{tag}.json")
+    code = ("import time; t0 = time.time(); import chip_smoke; "
+            f"chip_smoke._ft_child({argv!r}, {out!r}, t0)")
+    t_spawn = time.time()
+    child = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                           capture_output=True, text=True, timeout=600)
+    for ln in child.stdout.splitlines():
+        log("ft", f"  {tag} | {ln}")
+    if child.returncode != rc_want:
+        raise AssertionError(f"ft: {tag} exited {child.returncode}, want "
+                             f"{rc_want}: {child.stderr[-3000:]}")
+    rec = {"stdout": child.stdout, "rc": child.returncode}
+    if os.path.exists(out):
+        with open(out) as f:
+            rec.update(json.load(f))
+        rec["interpreter_s"] = rec["t0"] - t_spawn
+        if "first_step_end" in rec:
+            rec["to_first_step_s"] = rec["first_step_end"] - t_spawn
+    return rec
+
+
+def _restart_split(child: dict, jsonl: str) -> dict:
+    """A restarted process's spawn-to-first-step time, split: the
+    interpreter, imports, CUDA init, kernel loading, the restore and the
+    first step (both from the run's own goodput ledger), the rest (the
+    trainer, the data loader, the logger)."""
+    gp = _jsonl(jsonl, "goodput")[0]
+    split = {"interpreter_s": child["interpreter_s"],
+             "torch_import_s": child["chip_smoke_import_s"],
+             "port_import_s": (child["imports_s"]
+                               - child["chip_smoke_import_s"]),
+             "cuda_init_s": child["cuda_init_s"],
+             "kernel_load_s": child["kernel_load_s"],
+             "restore_s": gp.get("checkpoint_restore_seconds", 0.0),
+             "first_step_s": gp.get("compile_seconds", 0.0)}
+    split["other_s"] = child["to_first_step_s"] - sum(split.values())
+    split["total_s"] = child["to_first_step_s"]
+    return split
+
+
+def _state_equal(phase: str, path: str, want: str) -> int:
+    import numpy as np
+
+    with np.load(os.path.join(path, "state.npz")) as a, np.load(
+            os.path.join(want, "state.npz")) as b:
+        if a.files != b.files:
+            raise AssertionError(f"{phase}: state arrays differ in name")
+        differ = [k for k in a.files if not np.array_equal(a[k], b[k])]
+        if differ:
+            raise AssertionError(f"{phase}: {path} not bitwise the straight "
+                                 f"run's: {len(differ)} of {len(a.files)} "
+                                 f"arrays differ, e.g. {differ[:4]}")
+        return len(a.files)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _add_launches(total: dict, launches: dict) -> None:
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def phase_ft(results: dict, tmp: str) -> dict:
+    """Fault tolerance and telemetry of the training CLI at GPT-2-small
+    width (``configs/small_model.yaml`` on the cli phase's corpus, 8
+    steps), held to the cli phase's straight run (its step-8 state and the
+    losses of steps 1-8):
+
+    - a chain of fresh processes, each a restart of the last:
+      ``kill_in_save@4`` (exit 137, step 4 left without ``meta.json``),
+      ``kill@5`` (resumes at step 2: the torn step is invisible; exit
+      137), ``truncate_meta@6,kill@6`` with sync saves (resumes at step 4;
+      exit 137), and a clean run that skips the truncated step 6, resumes
+      at step 4 and ends with every loss and the step-8 state bitwise;
+      each restart's time to its first step, split;
+    - ``nan_loss@6``: one rollback record, exit 0, ``crash_report.json``
+      holding the ring of records;
+    - a preemption notice file present at launch: a drain after step 1,
+      exit 143 with a complete checkpoint; the resumed run ends bitwise;
+    - 8 steps with ``--telemetry_interval 2``, a 2-step profiling window
+      and ``--metrics_port``: every second record carries
+      ``telemetry/*`` scalars whose per-layer grad norms recombine to the
+      record's ``grad_norm`` within 1e-5, the final state is bitwise, the
+      launches exact, the Chrome trace holds the flash forward kernel's
+      device events, one scrape finds the tokens/s gauge; then the
+      analyzer on that JSONL (exit 0, the goodput table; ``--compare``
+      against itself: PASS);
+    - 2 steps under ``--gradient_checkpointing``: step 1's activation
+      scalars bitwise the telemetry run's, once a layer;
+    - ``moe_small.yaml --moe_impl dropless`` 2 telemetry steps: each
+      layer's load fractions sum to 1 within 1e-6, drop_frac 0, gmm/tgmm
+      launches exact;
+    - ``--nan_scan`` on step 8's checkpoint with one inf planted in layer
+      5's attention output projection names layer 5, site attn (the
+      unplanted checkpoint: none), launching one forward a layer."""
+    import numpy as np
+
+    from tpu_trainer_torch.training import cli
+    from tpu_trainer_torch.training.trainer import Trainer
+    from tpu_trainer_torch.utils import faults
+
+    card = nvidia_smi_line()
+    corpus = os.path.join(tmp, "stories.txt")
+    small = os.path.join(ROOT, "configs", "small_model.yaml")
+    straight = os.path.join(tmp, "a", "step_00000008")
+    ref = {r["step"]: r["loss"]
+           for r in _jsonl(os.path.join(tmp, "a.jsonl"), "train")[:8]}
+    base = ["--config", small, "--dataset", "tinystories", "--data_path",
+            corpus, "--tokenizer", "byte", "--log_interval", "1",
+            "--max_steps", "8", "--eval_interval", "0", "--eval_batches",
+            "1", "--keep_last_n", "0"]
+    cfg, tc, _, _ = cli.resolve_configs(cli.build_parser().parse_args(base))
+    accum = tc.gradient_accumulation_steps
+    rec = {"nvidia_smi": card, "section_s": {}}
+    ft_launches: dict = {}
+    last = [time.perf_counter()]
+
+    def lap(name) -> str:
+        now = time.perf_counter()
+        rec["section_s"][name] = now - last[0]
+        last[0] = now
+        return f" [{rec['section_s'][name]:.1f} s]"
+
+    def ft_dir(name):
+        return ["--checkpoint_dir", os.path.join(tmp, f"ft_{name}"),
+                "--metrics_jsonl", os.path.join(tmp, f"ft_{name}.jsonl")]
+
+    def losses(*names):
+        got = {}
+        for n in names:
+            got.update({r["step"]: r["loss"] for r in
+                        _jsonl(os.path.join(tmp, f"ft_{n}.jsonl"), "train")})
+        return got
+
+    # -- kills, a torn save, a truncated meta: a chain of restarts --------
+    ck = os.path.join(tmp, "ft_k")
+    chain = [("p1", ["--inject_fault", "kill_in_save@4"], None),
+             ("p2", ["--inject_fault", "kill@5",
+                     "--no_async_checkpointing"], 2),
+             ("p3", ["--inject_fault", "truncate_meta@6,kill@6",
+                     "--no_async_checkpointing"], 4),
+             ("p4", [], 4)]
+    children = {}
+    for tag, extra, resumes in chain:
+        argv = base + ["--save_interval", "2", "--checkpoint_dir", ck,
+                       "--metrics_jsonl", os.path.join(tmp, f"ft_{tag}.jsonl"),
+                       *extra]
+        rc_want = 0 if tag == "p4" else faults.KILL_EXIT_CODE
+        child = children[tag] = _ft_spawn(tag, argv, tmp, rc_want)
+        said = (f"resumed from {os.path.join(ck, f'step_{resumes:08d}')}"
+                if resumes is not None else None)
+        if (said is None) != ("resumed from" not in child["stdout"]) or (
+                said is not None and said not in child["stdout"]):
+            raise AssertionError(f"ft: {tag} resumed wrongly (want step "
+                                 f"{resumes}): {child['stdout'][-2000:]}")
+        if tag == "p1" and (
+                not os.path.exists(os.path.join(ck, "step_00000004",
+                                                "state.npz"))
+                or os.path.exists(os.path.join(ck, "step_00000004",
+                                               "meta.json"))):
+            raise AssertionError("ft: kill_in_save@4 left no torn step 4")
+        if tag == "p3" and os.path.getsize(
+                os.path.join(ck, "step_00000006", "meta.json")) != 0:
+            raise AssertionError("ft: truncate_meta@6 left meta.json whole")
+    got = losses("p1", "p2", "p3", "p4")
+    if got != ref:
+        raise AssertionError(f"ft: restarted losses {got} vs the straight "
+                             f"run's {ref}")
+    n_arrays = _state_equal("ft", os.path.join(ck, "step_00000008"),
+                            straight)
+    p4 = children["p4"]
+    n_eval = _jsonl(os.path.join(tmp, "ft_p4.jsonl"), "eval")[-1][
+        "eval_batches"]
+    want = _micro_launches(cfg, 4 * accum, n_eval * accum, segmented=False)
+    if p4["launches"] != want:
+        raise AssertionError(f"ft: resumed run launches {p4['launches']}, "
+                             f"want {want}")
+    _add_launches(ft_launches, p4["launches"])
+    rec["restart"] = {tag: _restart_split(children[tag], os.path.join(
+        tmp, f"ft_{tag}.jsonl")) for tag in ("p2", "p3", "p4")}
+    shutil.rmtree(ck)
+    log("ft", f"kill_in_save@4 -> 137, kill@5 -> 137 (resumed at 2), "
+              f"truncate_meta@6 -> skipped (resumed at 4 twice): the losses "
+              f"of steps 1-8 and {n_arrays} step-8 state arrays bitwise the "
+              f"straight run's; the last run's launches "
+              f"{ {k: v for k, v in want.items() if v} }" + lap("kills"))
+    for tag, sp in rec["restart"].items():
+        log("ft", f"restart {tag}: spawn to first step {sp['total_s']:.2f} s"
+                  f" = interpreter {sp['interpreter_s']:.2f} + imports "
+                  f"(torch {sp['torch_import_s']:.2f}, the port "
+                  f"{sp['port_import_s']:.2f}) + CUDA init "
+                  f"{sp['cuda_init_s']:.2f}"
+                  f" + kernel load {sp['kernel_load_s']:.3f} + restore "
+                  f"{sp['restore_s']:.2f} + first step "
+                  f"{sp['first_step_s']:.2f} + other {sp['other_s']:.2f} on "
+                  f"{card}")
+
+    # -- a NaN rolls back ------------------------------------------------
+    calls = {"n": 0}
+    original = Trainer.train_step
+
+    def counted(self, state, batch, *args, **kwargs):
+        calls["n"] += 1
+        return original(self, state, batch, *args, **kwargs)
+
+    Trainer.train_step = counted
+    try:
+        run = _cli_in_process("ft", base + [
+            "--save_interval", "2", "--guard_interval", "1",
+            "--inject_fault", "nan_loss@6", "--flight_recorder_steps", "64",
+            *ft_dir("nan")])
+    finally:
+        Trainer.train_step = original
+    rollbacks = _jsonl(os.path.join(tmp, "ft_nan.jsonl"), "rollback")
+    report = json.load(open(os.path.join(tmp, "ft_nan", "crash_report.json")))
+    n_eval = _jsonl(os.path.join(tmp, "ft_nan.jsonl"), "eval")[-1][
+        "eval_batches"]
+    want = _micro_launches(cfg, calls["n"] * accum, n_eval * accum,
+                           segmented=False)
+    if (len(rollbacks) != 1 or rollbacks[0]["restored_step"] != 6
+            or report["reason"] != "rollback:FloatingPointError"
+            or not report["records"]
+            or report["records"][-1]["kind"] != "rollback"
+            or run["launches"] != want or not os.path.exists(os.path.join(
+                tmp, "ft_nan", "step_00000008", "meta.json"))):
+        raise AssertionError(f"ft: nan rollback {rollbacks}, crash report "
+                             f"{report['reason']} with "
+                             f"{len(report['records'])} records, launches "
+                             f"{run['launches']} want {want}")
+    _add_launches(ft_launches, run["launches"])
+    shutil.rmtree(os.path.join(tmp, "ft_nan"))
+    rec["nan_rollback"] = {"steps_run": calls["n"],
+                           "ring_records": len(report["records"])}
+    log("ft", f"nan_loss@6: one rollback to step 6, {calls['n']} steps run, "
+              f"exit 0; crash_report.json holds {len(report['records'])} "
+              f"records ending in the rollback" + lap("nan_rollback"))
+
+    # -- a preemption notice ---------------------------------------------
+    from tpu_trainer_torch.utils import checkpoint as ckpt_lib
+
+    notice = os.path.join(tmp, "ft_notice")
+    with open(notice, "w") as f:
+        json.dump({"deadline_s": 60.0}, f)
+    run = _cli_in_process("ft", base + [
+        "--save_interval", "2", "--preempt_notice", f"file:{notice}",
+        "--preempt_vote_interval", "1", "--preemption_grace_s", "60",
+        *ft_dir("pre")], rc_want=143)
+    want = _micro_launches(cfg, accum, 0, segmented=False)
+    if run["launches"] != want:
+        raise AssertionError(f"ft: drained run launches {run['launches']}, "
+                             f"want {want}")
+    _add_launches(ft_launches, run["launches"])
+    pre = os.path.join(tmp, "ft_pre")
+    meta = ckpt_lib.load_meta(ckpt_lib.latest_checkpoint(pre))
+    if meta["step"] != 1 or meta["data_state"]["batch_index"] != 1:
+        raise AssertionError(f"ft: the notice drain saved {meta['step']}")
+    run = _cli_in_process("ft", base + ["--save_interval", "2",
+                                        *ft_dir("pre")])
+    n_eval = _jsonl(os.path.join(tmp, "ft_pre.jsonl"), "eval")[-1][
+        "eval_batches"]
+    want = _micro_launches(cfg, 7 * accum, n_eval * accum, segmented=False)
+    if run["launches"] != want:
+        raise AssertionError(f"ft: resumed run launches {run['launches']}, "
+                             f"want {want}")
+    _add_launches(ft_launches, run["launches"])
+    _state_equal("ft", os.path.join(pre, "step_00000008"), straight)
+    if losses("pre") != ref:
+        raise AssertionError(f"ft: drained + resumed losses {losses('pre')}")
+    shutil.rmtree(pre)
+    log("ft", "preemption notice at launch: drained after step 1, exit 143 "
+              "with a complete step-1 checkpoint; resumed to step 8 bitwise"
+        + lap("notice"))
+
+    # -- telemetry, a profiling window, live metrics ---------------------
+    import threading
+    import urllib.request
+
+    import tpu_trainer_torch.obs.http as http_mod
+    from tpu_trainer_torch.utils.logging import MetricLogger
+
+    servers, scraped, steps = [], {}, []
+    real_server, real_log = http_mod.MetricsServer, MetricLogger.log
+
+    class Spy(real_server):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            servers.append(self)
+
+    def scrape_once(self, step, metrics, *args, **kwargs):
+        out = real_log(self, step, metrics, *args, **kwargs)
+        if out is not None and "body" not in scraped:
+            def get():
+                with urllib.request.urlopen(servers[0].url + "/metrics",
+                                            timeout=10) as r:
+                    scraped["body"] = r.read().decode()
+            t = threading.Thread(target=get)
+            t.start()
+            t.join(15)
+        return out
+
+    def timed(self, state, batch, *args, **kwargs):
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        out = original(self, state, batch, *args, **kwargs)
+        ev[1].record()
+        torch.cuda.synchronize()
+        steps.append({"telemetry": bool(kwargs.get("telemetry")),
+                      "wall_ms": 1e3 * (time.perf_counter() - t0),
+                      "device_ms": ev[0].elapsed_time(ev[1])})
+        return out
+
+    from tpu_trainer_torch.utils import profiling
+
+    real_stop, export = profiling._stop_trace, {}
+
+    def timed_stop(*args):
+        t0 = time.perf_counter()
+        path = real_stop(*args)
+        export["s"] = time.perf_counter() - t0
+        return path
+
+    port = _free_port()
+    prof_dir = os.path.join(tmp, "ft_prof")
+    http_mod.MetricsServer, MetricLogger.log = Spy, scrape_once
+    Trainer.train_step, profiling._stop_trace = timed, timed_stop
+    try:
+        run = _cli_in_process("ft", base + [
+            "--save_interval", "8", "--telemetry_interval", "2",
+            "--profile_dir", prof_dir, "--profile_start", "4",
+            "--profile_steps", "2", "--metrics_port", str(port),
+            *ft_dir("tel")])
+    finally:
+        http_mod.MetricsServer, MetricLogger.log = real_server, real_log
+        Trainer.train_step, profiling._stop_trace = original, real_stop
+    tel_jsonl = os.path.join(tmp, "ft_tel.jsonl")
+    train = _jsonl(tel_jsonl, "train")
+    n_eval = _jsonl(tel_jsonl, "eval")[-1]["eval_batches"]
+    want = _micro_launches(cfg, 8 * accum, n_eval * accum, segmented=False)
+    if run["launches"] != want:
+        raise AssertionError(f"ft: telemetry run launches {run['launches']},"
+                             f" want {want}")
+    _add_launches(ft_launches, run["launches"])
+    _state_equal("ft", os.path.join(tmp, "ft_tel", "step_00000008"),
+                 straight)
+    if {r["step"]: r["loss"] for r in train} != ref:
+        raise AssertionError("ft: the telemetry run's losses moved")
+    worst = 0.0
+    for r in train:
+        keys = [k for k in r if k.startswith("telemetry/")]
+        if bool(keys) != (r["step"] % 2 == 1):
+            raise AssertionError(f"ft: step {r['step']} telemetry keys "
+                                 f"{len(keys)}")
+        if not keys:
+            continue
+        per = [k for k in keys if k.startswith("telemetry/grad_norm/")]
+        layers = [k for k in per if "/per_layer/" in k]
+        if len(layers) != cfg.num_layers:
+            raise AssertionError(f"ft: {len(layers)} per-layer grad norms")
+        norm = math.sqrt(sum(r[k] ** 2 for k in per))
+        worst = max(worst, abs(norm - r["grad_norm"]) / r["grad_norm"])
+    if worst > 1e-5:
+        raise AssertionError(f"ft: per-layer grad norms recombine to "
+                             f"{worst:.2e} relative of grad_norm")
+    host_dir = os.path.join(prof_dir, "host_0")
+    (trace_name,) = os.listdir(host_dir)
+    with open(os.path.join(host_dir, trace_name)) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    flash_ev = [e for e in kernels if "flash_fwd_tma_kernel" in e["name"]]
+    marks = {e["name"] for e in events
+             if str(e.get("name", "")).startswith("train_step_")}
+    # The profiler may drop an event at the window's edge (one H100 run's
+    # trace held 95 of the window's 96 forward launches), so the trace
+    # must hold the forward's device events, not all of them.
+    if not kernels or len(flash_ev) < cfg.num_layers or (
+            marks != {"train_step_4", "train_step_5"}):
+        raise AssertionError(f"ft: trace has {len(kernels)} kernel events, "
+                             f"{len(flash_ev)} flash forward events, marks "
+                             f"{sorted(marks)}")
+    if "train_tokens_per_sec" not in scraped.get("body", ""):
+        raise AssertionError("ft: the /metrics scrape found no tokens/s "
+                             "gauge")
+    # Device busy ms of the two traced steps (plain 4, telemetry 5): the
+    # union of device activity inside each step's mark (each step ends in
+    # a synchronize inside its mark).
+    busy = {}
+    for name in ("train_step_4", "train_step_5"):
+        (mark,) = [e for e in events if e.get("name") == name
+                   and e.get("cat") == "user_annotation"]
+        lo, hi = mark["ts"], mark["ts"] + mark["dur"]
+        spans = sorted((max(e["ts"], lo), min(e["ts"] + e["dur"], hi))
+                       for e in events
+                       if e.get("cat") in ("kernel", "gpu_memcpy",
+                                           "gpu_memset")
+                       and e["ts"] < hi and e["ts"] + e["dur"] > lo)
+        total, cur = 0.0, None
+        for a, b in spans:
+            if cur is None or a > cur[1]:
+                total += 0 if cur is None else cur[1] - cur[0]
+                cur = [a, b]
+            else:
+                cur[1] = max(cur[1], b)
+        busy[name] = (total + (cur[1] - cur[0] if cur else 0.0)) / 1e3
+    wall = [x["wall_ms"] for x in steps]
+    inside, outside = wall[4] + wall[5], (wall[2] + wall[3] + wall[6]
+                                          + wall[7]) / 2
+    # Outside the window (steps 0 and 1 warm the two kinds up).
+    pm, tm = (wall[2] + wall[6]) / 2, (wall[3] + wall[7]) / 2
+    rec["telemetry"] = {
+        "recombine_rel_err": worst, "trace_kernel_events": len(kernels),
+        "trace_flash_fwd_events": len(flash_ev),
+        "window_flash_fwd_launches": 2 * accum * cfg.num_layers,
+        "steps": steps,
+        "plain_wall_ms": pm, "telemetry_wall_ms": tm,
+        "plain_busy_ms": busy["train_step_4"],
+        "telemetry_busy_ms": busy["train_step_5"],
+        # Steps 4 (plain) and 5 (telemetry) ran under the profiler; 2, 3,
+        # 6 and 7 are the same kinds outside it.
+        "profile_overhead": inside / outside - 1.0,
+        "profile_export_s": export["s"]}
+    t = rec["telemetry"]
+    log("ft", f"--telemetry_interval 2: 4 telemetry records, per-layer grad "
+              f"norms recombine within {worst:.1e}; state and losses bitwise;"
+              f" trace {len(kernels)} kernel events ({len(flash_ev)} "
+              f"flash_fwd_tma_kernel), /metrics scraped on port {port}")
+    log("ft", f"step wall (each to a synchronize; mean of steps 2 and 6, "
+              f"3 and 7): plain {pm:.1f} ms, telemetry {tm:.1f} ms; device "
+              f"busy under the "
+              f"profiler: plain {t['plain_busy_ms']:.1f} ms, telemetry "
+              f"{t['telemetry_busy_ms']:.1f} ms; the profiling window "
+              f"{100 * t['profile_overhead']:+.1f}% on its 2 steps, its "
+              f"trace written in {export['s']:.2f} s, on {card}")
+    gp = [g for g in _jsonl(tel_jsonl, "goodput") if g.get("final")][0]
+    rec["telemetry"]["goodput"] = gp
+
+    # The report and the verdicts against itself, in one call.
+    rep = subprocess.run([sys.executable, "-m",
+                          "tpu_trainer_torch.tools.analyze", tel_jsonl,
+                          "--compare", tel_jsonl], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    if (rep.returncode != 0 or "goodput" not in rep.stdout
+            or "PASS" not in rep.stdout or "FAIL" in rep.stdout):
+        raise AssertionError(f"ft: analyze exited {rep.returncode}: "
+                             f"{rep.stdout[-2000:]} {rep.stderr[-2000:]}")
+    for ln in rep.stdout.splitlines():
+        if not ln.startswith("SKIP "):
+            log("ft", f"  analyze | {ln}")
+    log("ft", "telemetry, profiling, metrics, analyzer" + lap("telemetry"))
+    shutil.rmtree(os.path.join(tmp, "ft_tel"))
+    shutil.rmtree(prof_dir)
+
+    # -- telemetry under remat -------------------------------------------
+    run = _cli_in_process("ft", base + [
+        "--max_steps", "2", "--save_interval", "0", "--telemetry_interval",
+        "2", "--gradient_checkpointing", *ft_dir("remat")])
+    rcfg = cli.resolve_configs(cli.build_parser().parse_args(
+        base + ["--gradient_checkpointing"]))[0]
+    n_eval = _jsonl(os.path.join(tmp, "ft_remat.jsonl"), "eval")[-1][
+        "eval_batches"]
+    want = _micro_launches(rcfg, 2 * accum, n_eval * accum, segmented=False)
+    if run["launches"] != want:
+        raise AssertionError(f"ft: remat launches {run['launches']}, want "
+                             f"{want}")
+    _add_launches(ft_launches, run["launches"])
+    r1 = _jsonl(os.path.join(tmp, "ft_remat.jsonl"), "train")[1]
+    t1 = train[1]
+    act = sorted(k for k in t1 if k.startswith("telemetry/act/"))
+    per_site = [k for k in act if k.startswith("telemetry/act/attn_rms/")]
+    if (sorted(k for k in r1 if k.startswith("telemetry/act/")) != act
+            or any(r1[k] != t1[k] for k in act)
+            or len(per_site) != cfg.num_layers):
+        raise AssertionError("ft: remat activation scalars differ from the "
+                             "plain run's")
+    shutil.rmtree(os.path.join(tmp, "ft_remat"), ignore_errors=True)
+    log("ft", f"--gradient_checkpointing: step 1's {len(act)} activation "
+              f"scalars bitwise the plain run's, one a layer a site"
+        + lap("remat"))
+
+    # -- MoE router telemetry ---------------------------------------------
+    router = []
+
+    def keep_router(self, state, batch, *args, **kwargs):
+        state, m = original(self, state, batch, *args, **kwargs)
+        if "telemetry" in m:
+            router.append({k: v.detach().float().cpu()
+                           for k, v in m["telemetry"]["router"].items()})
+        return state, m
+
+    moe_argv = ["--config", os.path.join(ROOT, "configs", "moe_small.yaml"),
+                "--moe_impl", "dropless", "--max_steps", "2",
+                "--telemetry_interval", "1", "--log_interval", "1",
+                "--eval_batches", "1", "--no_auto_resume", *ft_dir("moe")]
+    Trainer.train_step = keep_router
+    try:
+        run = _cli_in_process("ft", moe_argv)
+    finally:
+        Trainer.train_step = original
+    moe_cfg = cli.resolve_configs(cli.build_parser().parse_args(moe_argv))[0]
+    want = _micro_launches(moe_cfg, 2 * accum, accum, segmented=False)
+    sums = torch.stack([r["load"].sum(dim=-1) for r in router])
+    if (run["launches"] != want or len(router) != 2
+            or (sums - 1.0).abs().max() > 1e-6
+            or any(r["drop_frac"].abs().max() != 0 for r in router)
+            or any((r["dropless"] != 1).any() for r in router)
+            or router[0]["load"].shape != (moe_cfg.num_layers,
+                                           moe_cfg.num_experts)):
+        raise AssertionError(f"ft: MoE telemetry launches {run['launches']} "
+                             f"want {want}, load sums {sums}")
+    _add_launches(ft_launches, run["launches"])
+    shutil.rmtree(os.path.join(tmp, "ft_moe"), ignore_errors=True)
+    rec["moe"] = {"load_sum_max_err": float((sums - 1.0).abs().max()),
+                  "max_group_frac": [float(r["max_group_frac"].max())
+                                     for r in router]}
+    log("ft", f"MoE telemetry, 2 steps: load fractions sum to 1 within "
+              f"{rec['moe']['load_sum_max_err']:.1e} on every layer, "
+              f"drop_frac 0; launches {want['gmm']} gmm, {want['tgmm']} tgmm"
+        + lap("moe"))
+
+    # -- nan_scan on a planted checkpoint ---------------------------------
+    planted = os.path.join(tmp, "ft_planted", "step_00000008")
+    os.makedirs(planted)
+    with np.load(os.path.join(straight, "state.npz")) as z:
+        arrays = {k: z[k] for k in z.files}
+    arrays["params/layers/attention/o_proj/kernel"][5, 0, 0] = np.inf
+    np.savez(os.path.join(planted, "state.npz"), **arrays)
+    del arrays
+    shutil.copy(os.path.join(straight, "meta.json"), planted)
+    timer = {}
+    real_scan = Trainer.nan_scan
+
+    def timed_scan(self, state, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_scan(self, state, batch)
+        timer.setdefault("s", []).append(time.perf_counter() - t0)
+        return out
+
+    Trainer.nan_scan = timed_scan
+    scans = {}
+    try:
+        for tag, path in (("planted", planted), ("clean", straight)):
+            run = _cli_in_process("ft", base + [
+                "--nan_scan", "--resume_from", path, *ft_dir(f"scan_{tag}")])
+            scans[tag] = _jsonl(os.path.join(tmp, f"ft_scan_{tag}.jsonl"),
+                                "nan_scan")[0]["first_nan"]
+            want = _micro_launches(cfg, 0, 1, segmented=False)
+            if run["launches"] != want:
+                raise AssertionError(f"ft: nan_scan launches "
+                                     f"{run['launches']}, want {want}")
+            _add_launches(ft_launches, run["launches"])
+    finally:
+        Trainer.nan_scan = real_scan
+    shutil.rmtree(os.path.join(tmp, "ft_planted"))
+    if scans != {"planted": {"site": "attn", "layer": 5}, "clean": None}:
+        raise AssertionError(f"ft: nan_scan found {scans}")
+    rec["nan_scan_s"] = timer["s"]
+    log("ft", f"--nan_scan: the planted inf found at layer 5, site attn; the "
+              f"clean checkpoint has none; one forward a layer; "
+              f"{timer['s'][0]:.3f} / {timer['s'][1]:.3f} s on {card}"
+        + lap("nan_scan"))
+
+    gp = [g for g in _jsonl(os.path.join(tmp, "a.jsonl"), "goodput")
+          if g.get("final")][0]
+    rec["cli_goodput"] = gp
+    log("ft", "the cli phase's straight run, goodput: " + ", ".join(
+        f"{k[:-5]} {gp[k]:.3f}" for k in sorted(gp) if k.endswith("_frac"))
+        + f" of {gp['total_seconds']:.2f} s on {card}")
+    rec["launches"] = ft_launches
+    results["ft"] = rec
+    return rec
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out", help="also write every measured number here")
@@ -3145,6 +3800,8 @@ def main(argv=None) -> int:
         phase_remat(results, tmp)
         phase_offload(results, tmp)
         phase_moe_remat(results, tmp)
+        torch.cuda.empty_cache()
+        ft = phase_ft(results, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3164,6 +3821,13 @@ def main(argv=None) -> int:
                 "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
                 "library_ms": library_ms}
 
+    # The ft phase's paths launch the training kernels too: each row counts
+    # its main path's launches plus the ft phase's.
+    ftl = ft["launches"]
+    train_launches = {k: v + ftl.get(k, 0) for k, v in train_launches.items()}
+    packed_launches = {k: v + ftl.get(k, 0)
+                       for k, v in packed_launches.items()}
+    moe_launches = {k: v + ftl.get(k, 0) for k, v in moe_launches.items()}
     kernels = {"kernels": [
         row("flash_decode", "flash_decode.cu",
             "tpu_trainer/ops/flash.py:1574", launches, max_err,

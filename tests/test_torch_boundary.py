@@ -57,7 +57,19 @@ def test_import_leaves_jax_out_of_sys_modules():
                 "tpu_trainer_torch.training.train_ddp",
                 "tpu_trainer_torch.training.train_fsdp",
                 "tpu_trainer_torch.utils.checkpoint",
-                "tpu_trainer_torch.eval.infer"):
+                "tpu_trainer_torch.eval.infer",
+                "tpu_trainer_torch.utils.faults",
+                "tpu_trainer_torch.utils.flight_recorder",
+                "tpu_trainer_torch.utils.preemption",
+                "tpu_trainer_torch.utils.telemetry",
+                "tpu_trainer_torch.utils.profiling",
+                "tpu_trainer_torch.utils.guards",
+                "tpu_trainer_torch.data.mixture",
+                "tpu_trainer_torch.obs",
+                "tpu_trainer_torch.obs.metrics",
+                "tpu_trainer_torch.obs.http",
+                "tpu_trainer_torch.tools",
+                "tpu_trainer_torch.tools.analyze"):
         assert mod in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 

@@ -233,10 +233,10 @@ def _patch_step(monkeypatch, action):
     original = Trainer.train_step
     seen = []
 
-    def step(self, state, batch):
+    def step(self, state, batch, *args, **kwargs):
         before = state.step
         seen.append(np.asarray(batch).copy())
-        state, metrics = original(self, state, batch)
+        state, metrics = original(self, state, batch, *args, **kwargs)
         return state, action(before, metrics) or metrics
 
     monkeypatch.setattr(Trainer, "train_step", step)
@@ -322,20 +322,47 @@ def test_sigterm_saves_and_exits_143(tmp_path, yaml_file, monkeypatch):
     (["--mesh_expert", "2"], "item 5"),
     (["--mesh_stage", "2"], "item 5"),
     (["--num_experts", "4"], "item 8"),
-    (["--data_mixture", "dummy:1"], "item 4"),
-    (["--inject_fault", "nan_loss@2"], "item 4"),
-    (["--telemetry_interval", "5"], "item 4"),
-    (["--spike_sigma", "3"], "item 4"),
-    (["--flight_recorder_steps", "8"], "item 4"),
-    (["--nan_scan"], "item 4"),
-    (["--profile_dir", "prof"], "item 4"),
-    (["--metrics_port", "0"], "item 4"),
-    (["--preempt_notice", "file:notice"], "item 4"),
-    (["--preemption_grace_s", "5"], "item 4"),
+    (["--no_comms_model"], "item 5"),
 ])
 def test_later_item_options_raise(extra, item):
     with pytest.raises(NotImplementedError, match=f"Queue 1 {item}"):
         cli.run_training(["--device", "cpu", "--max_steps", "1"] + extra)
+
+
+def test_standby_file_raises_naming_item_5(monkeypatch, tmp_path):
+    monkeypatch.setenv("TPU_TRAINER_STANDBY_FILE", str(tmp_path / "standby"))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        cli.run_training(["--device", "cpu", "--max_steps", "1"])
+
+
+@pytest.mark.parametrize("extra", [
+    ["--data_mixture", "dummy:1"],
+    ["--inject_fault", "nan_loss@2"],
+    ["--telemetry_interval", "5"],
+    ["--spike_sigma", "3"],
+    ["--flight_recorder_steps", "8"],
+    ["--nan_scan"],
+    ["--profile_dir", "prof"],
+    ["--profile_start", "2", "--profile_steps", "1"],
+    ["--metrics_port", "0"],
+    ["--preempt_notice", "file:notice"],
+    ["--preempt_notice_poll_s", "0.5", "--preempt_vote_interval", "1"],
+    ["--preemption_grace_s", "5"],
+])
+def test_fault_tolerance_and_telemetry_options_are_supported(extra):
+    """The options ROADMAP Queue 1 item 4 brought pass ``check_supported``
+    (runs of them are in ``test_torch_faults.py`` and its neighbours)."""
+    args = cli.build_parser().parse_args(["--device", "cpu"] + extra)
+    mc, _, pc, opts = cli.resolve_configs(args)
+    cli.check_supported(args, mc, pc, opts)
+
+
+def test_heartbeat_and_notice_env_are_supported(monkeypatch, tmp_path):
+    monkeypatch.setenv("TPU_TRAINER_HEARTBEAT_DIR", str(tmp_path / "hb"))
+    monkeypatch.setenv("TPU_TRAINER_PREEMPT_NOTICE", "file:notice")
+    args = cli.build_parser().parse_args(["--device", "cpu"])
+    mc, _, pc, opts = cli.resolve_configs(args)
+    cli.check_supported(args, mc, pc, opts)
 
 
 def test_train_fsdp_mode_and_missing_cuda_raise():

@@ -86,6 +86,7 @@ from tpu_trainer_torch.ops.loss import (
     segment_target_mask,
 )
 from tpu_trainer_torch.ops.rope import apply_rotary_pos_emb, rope_tables
+from tpu_trainer_torch.utils import telemetry
 from tpu_trainer_torch.utils.quant import (
     dequantize_kv_int8,
     quant_block_len,
@@ -417,9 +418,13 @@ class GPT(nn.Module):
             raise ValueError("train=True with dropout needs a generator")
         b, s = input_ids.shape
         x = self.embed_tokens(input_ids)
+        capturing = telemetry.capturing()
+        if capturing:
+            telemetry.record("embed_out", telemetry.site_stats(x))
         rope = rope_tables(s, cfg.head_dim, cfg.rope_theta, device=x.device)
         step = _TrainStep(train=train, generator=generator, rope=rope,
-                          segment_ids=segment_ids)
+                          segment_ids=segment_ids,
+                          telem=[] if capturing else None)
         remat = torch.is_grad_enabled()
         block = (self._remat_block if cfg.gradient_checkpointing and remat
                  else self._train_block)
@@ -428,7 +433,18 @@ class GPT(nn.Module):
             x, aux = block(x, p, step)
             if aux is not None:
                 moe_aux = moe_aux + aux
+        if step.telem:
+            telemetry.record("layers", telemetry.stack_layers(step.telem))
         x = self.norm(x)
+        if capturing:
+            telemetry.record("final_norm", telemetry.site_stats(x))
+        if telemetry.capturing(deep=True):
+            # The full f32 logits, nan-scan only: without this site a NaN
+            # entering in the head product is indistinguishable from one
+            # entering in the loss (the fused loss never forms them).
+            with torch.no_grad():
+                telemetry.record("logits", telemetry.site_stats(
+                    self.embed_tokens.attend(x).float()))
 
         remat_head = (labels is not None and not cfg.fused_loss
                       and cfg.remat_lm_head)
@@ -506,8 +522,8 @@ class GPT(nn.Module):
                 segment_ids=step.segment_ids)
         out = _matmuls(out.reshape(b, s, cfg.hidden_size),
                        [p["attention.o_proj.kernel"]], cd, False)[0]
-        x = x + self._residual_dropout(out, step)
-        return self._ffn_block(x, p, step)
+        attn_out = self._residual_dropout(out, step)
+        return self._ffn_block(x + attn_out, p, step, attn_out=attn_out)
 
     def _remat_block(self, x, p, step: "_TrainStep"):
         """``_train_block`` under ``torch.utils.checkpoint``: the backward
@@ -515,16 +531,19 @@ class GPT(nn.Module):
         generator restored to the state the block started from, so the
         rerun draws the forward's seeds and masks; the step's generator
         then continues from where the forward's draws left it, exactly as
-        without remat."""
+        without remat. Telemetry stats are recorded by the first run only:
+        the rerun gets no stats list."""
         gen = step.generator
         end = {}
+        runs = []
 
         def run(x_in):
-            inner = step
+            inner = dataclasses.replace(step, telem=None) if runs else step
+            runs.append(1)
             if gen is not None:
                 g = torch.Generator(device=gen.device)
                 g.set_state(start)
-                inner = dataclasses.replace(step, generator=g)
+                inner = dataclasses.replace(inner, generator=g)
             out = self._train_block(x_in, p, inner)
             if gen is not None:
                 end["state"] = inner.generator.get_state()
@@ -539,18 +558,22 @@ class GPT(nn.Module):
             gen.set_state(end["state"])
         return out
 
-    def _ffn_block(self, x, p, step: "_TrainStep"):
+    def _ffn_block(self, x, p, step: "_TrainStep", attn_out=None):
         """``(x + dropout(FFN(norm(x))), router aux or None)`` of one
-        layer (dense or MoE)."""
+        layer (dense or MoE). With a telemetry list on ``step``, appends
+        the layer's attention (``attn_out``), FFN and block output stats
+        and, for MoE, its router stats."""
         cfg = self.config
         cd = cfg.compute_dtype
         eps = self.layers.input_layernorm.eps
         h = _rms_norm(x, p["post_attention_layernorm.weight"], eps, cd)
         aux = None
+        router = {} if step.telem is not None else None
         if cfg.num_experts > 0:
             out, aux = dropless_moe(
                 h, p["moe_mlp.router.kernel"], p["moe_mlp.experts_gate"],
-                p["moe_mlp.experts_up"], p["moe_mlp.experts_down"], cfg)
+                p["moe_mlp.experts_up"], p["moe_mlp.experts_down"], cfg,
+                router_stats=router)
         else:
             gate, up = _matmuls(h, [p["mlp.gate_proj.kernel"],
                                     p["mlp.up_proj.kernel"]], cd,
@@ -559,7 +582,17 @@ class GPT(nn.Module):
                    else F.gelu(gate, approximate="tanh"))
             out = _matmuls(act * up, [p["mlp.down_proj.kernel"]], cd,
                            False)[0]
-        return x + self._residual_dropout(out, step), aux
+        ffn_out = self._residual_dropout(out, step)
+        x = x + ffn_out
+        if step.telem is not None:
+            stats = {}
+            for site, t in (("attn", attn_out), ("ffn", ffn_out),
+                            ("block", x)):
+                stats[f"{site}_rms"] = telemetry.rms(t)
+                stats[f"{site}_absmax"] = telemetry.absmax(t)
+            stats.update({f"router_{k}": v for k, v in router.items()})
+            step.telem.append(stats)
+        return x, aux
 
     def _residual_dropout(self, x, step: "_TrainStep"):
         """Residual-stream dropout: the counter-based hash mask with
@@ -677,6 +710,8 @@ class _TrainStep:
     generator: Optional[torch.Generator]
     rope: tuple                       # (cos, sin) f32 [s, head_dim]
     segment_ids: Optional[torch.Tensor]
+    # Per-layer telemetry stats of a captured forward, else None.
+    telem: Optional[list] = None
 
     def seed(self) -> int:
         """A fresh uint32 dropout seed from the generator."""

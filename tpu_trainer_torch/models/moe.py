@@ -17,14 +17,18 @@ arXiv:2211.15841):
   kernels on a CUDA tensor, no host synchronisation), the inverse
   permutation and the gated combine. No token is dropped.
 
-The capacity router (``moe_impl="capacity"``, the JAX default) and router
-telemetry are not ported (``ROADMAP.md`` Queue 1); ``check_moe`` raises
-for them.
+With ``router_stats`` (a telemetry step) the layer also reports its
+router health: the true per-expert load fractions, the entropy of the mean
+routing distribution, ``drop_frac`` (0: nothing is dropped),
+``max_group_frac`` and ``dropless`` = 1.
+
+The capacity router (``moe_impl="capacity"``, the JAX default) is not
+ported (``ROADMAP.md`` Queue 1 item 8); ``check_moe`` raises for it.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -42,9 +46,10 @@ def check_moe(cfg: GPTConfig) -> None:
             f"1")
 
 
-def route(xt: torch.Tensor, router_kernel: torch.Tensor, cfg: GPTConfig):
+def route(xt: torch.Tensor, router_kernel: torch.Tensor, cfg: GPTConfig,
+          stats: Optional[dict] = None):
     """Router of ``xt [T, H]``: ``(gates [T, k] f32, gate_idx [T, k] int64,
-    aux scalar f32)``."""
+    aux scalar f32)``; ``stats`` (a dict) receives the routing entropy."""
     E, k = cfg.num_experts, cfg.moe_top_k
     logits = xt.float() @ router_kernel.float()                  # [T, E]
     probs = torch.softmax(logits, dim=-1)
@@ -55,7 +60,12 @@ def route(xt: torch.Tensor, router_kernel: torch.Tensor, cfg: GPTConfig):
     gates = gate_vals if k == 1 else (
         gate_vals / gate_vals.sum(dim=-1, keepdim=True))
     frac = F.one_hot(gate_idx[:, 0], E).float().mean(dim=0)
-    aux = cfg.moe_aux_weight * E * torch.sum(frac * probs.mean(dim=0))
+    mean_prob = probs.mean(dim=0)
+    aux = cfg.moe_aux_weight * E * torch.sum(frac * mean_prob)
+    if stats is not None:
+        with torch.no_grad():
+            mp = mean_prob.detach()
+            stats["entropy"] = -torch.sum(mp * torch.log(mp + 1e-9))
     if cfg.router_z_weight > 0.0:
         z = torch.logsumexp(logits, dim=-1)
         aux = aux + cfg.router_z_weight * torch.mean(z * z)
@@ -78,18 +88,30 @@ def dispatch(gate_idx: torch.Tensor, num_experts: int):
 
 def dropless_moe(x: torch.Tensor, router_kernel: torch.Tensor,
                  w_gate: torch.Tensor, w_up: torch.Tensor,
-                 w_down: torch.Tensor, cfg: GPTConfig
+                 w_down: torch.Tensor, cfg: GPTConfig,
+                 router_stats: Optional[dict] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The dropless MoE FFN of one layer on ``x [b, s, H]`` (compute
     dtype): ``(out [b, s, H], aux)``, before the residual dropout.
     ``w_gate``/``w_up`` ``[E, H, I]`` and ``w_down`` ``[E, I, H]`` are cast
-    to the compute dtype; the router kernel ``[H, E]`` stays f32."""
+    to the compute dtype; the router kernel ``[H, E]`` stays f32.
+    ``router_stats`` (a dict) receives the layer's router telemetry, the
+    JAX ``_dropless_ffn``'s ``router`` record."""
     b, s, H = x.shape
     k = cfg.moe_top_k
     dtype = cfg.compute_dtype
     xt = x.reshape(b * s, H)
-    gates, gate_idx, aux = route(xt, router_kernel, cfg)
+    gates, gate_idx, aux = route(xt, router_kernel, cfg, stats=router_stats)
     counts, perm, inv_perm = dispatch(gate_idx, cfg.num_experts)
+    if router_stats is not None:
+        with torch.no_grad():
+            # The true post-routing load (what each expert computed);
+            # nothing is dropped.
+            load = counts.float() / float(k * b * s)
+            router_stats.update(
+                load=load, drop_frac=torch.zeros((), device=load.device),
+                max_group_frac=torch.max(load),
+                dropless=torch.ones((), device=load.device))
     grouped_in = xt.to(dtype)[perm // k]                          # [T*k, H]
     gate = gmm(grouped_in, w_gate.to(dtype), counts)
     act = (F.silu(gate) if cfg.activation == "silu"

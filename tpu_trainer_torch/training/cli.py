@@ -22,14 +22,28 @@ shows in the startup line.
 - resume: ``--resume_from``, else the latest loadable checkpoint under
   ``--checkpoint_dir`` (a corrupt one is quarantined), with the data
   cursor, so a resumed run continues bitwise;
-- SIGTERM: checkpoint at the next step boundary and exit 143;
+- SIGTERM, or a polled preemption notice (``--preempt_notice``): checkpoint
+  at the next step boundary and exit 143, within ``--preemption_grace_s``
+  (or the notice's deadline) when one is set;
 - divergence rollback: a non-finite loss (checked every
-  ``guard_interval`` steps) rewinds to the last checkpoint, skips past the
-  diverging batch and backs the LR off (a new ``Trainer``), at most
-  ``max_rollbacks`` times.
+  ``guard_interval`` steps) or a loss spike (``--spike_sigma``) rewinds to
+  the last checkpoint, skips past the diverging batch and backs the LR off
+  (a new ``Trainer``), at most ``max_rollbacks`` times;
+- the run's telemetry, under the JAX CLI's JSONL schema: per-layer
+  telemetry steps (``--telemetry_interval``), the goodput ledger (a
+  ``goodput`` record at every log interval, telemetry step and the end),
+  the crash flight recorder (``crash_report.json`` on preemption,
+  rollback, divergence and crash), heartbeats when
+  ``TPU_TRAINER_HEARTBEAT_DIR`` is set, a profiling window
+  (``--profile_dir``), live metrics (``--metrics_port``) and the
+  ``--nan_scan`` debug mode;
+- weighted data mixtures (``--data_mixture``), fault injection
+  (``--inject_fault``).
 
-Every option of a later ROADMAP item raises ``NotImplementedError``
-naming the item (``check_supported``); none is silently ignored.
+Each step's loss and grad norm stay on the device and are read two steps
+later (``utils/telemetry.DeferredFetcher``). Every option of a later
+ROADMAP item raises ``NotImplementedError`` naming the item
+(``check_supported``); none is silently ignored.
 """
 
 from __future__ import annotations
@@ -39,9 +53,11 @@ import dataclasses
 import os
 import re
 import signal
+import time
 from typing import Optional
 
 import numpy as np
+import torch
 
 from tpu_trainer_torch.data.device_prefetch import DevicePrefetcher
 from tpu_trainer_torch.models.config import GPTConfig
@@ -49,8 +65,11 @@ from tpu_trainer_torch.training.config import TrainingConfig
 from tpu_trainer_torch.training.optimizer import STATE_DTYPES
 from tpu_trainer_torch.training.trainer import ParallelConfig, Trainer
 from tpu_trainer_torch.utils import checkpoint as ckpt_lib
+from tpu_trainer_torch.utils import faults, guards, profiling
+from tpu_trainer_torch.utils import flight_recorder as flight_lib
+from tpu_trainer_torch.utils import preemption as preemption_lib
+from tpu_trainer_torch.utils import telemetry as telemetry_lib
 from tpu_trainer_torch.utils.device import resolve_device
-from tpu_trainer_torch.utils.guards import check_finite
 from tpu_trainer_torch.utils.logging import MetricLogger
 
 _OPT_STATE_DTYPES = list(STATE_DTYPES)
@@ -511,8 +530,6 @@ def resolve_configs(args, mode: str = "ddp"):
 
 
 # ROADMAP Queue 1 items that own the options this port does not run yet.
-_ITEM_RUN = "ROADMAP Queue 1 item 4 (fault injection, elastic training, " \
-            "telemetry, profiling, mixtures)"
 _ITEM_MESH = "ROADMAP Queue 1 item 5 (multi-GPU parallelism)"
 _ITEM_MOE = "ROADMAP Queue 1 item 8 (the rest of MoE)"
 
@@ -532,7 +549,9 @@ def check_supported(args, model_config: GPTConfig,
                      ("--multihost", bool(args.multihost)),
                      ("--pipeline_microbatches",
                       model_config.pipeline_microbatches > 0),
-                     ("--no_comms_model", bool(args.no_comms_model))):
+                     ("--no_comms_model", bool(args.no_comms_model)),
+                     ("TPU_TRAINER_STANDBY_FILE (elastic standby)",
+                      bool(os.environ.get("TPU_TRAINER_STANDBY_FILE")))):
         if on:
             mesh_flags.append(flag)
     if parallel_config.sharding_strategy == "HYBRID_SHARD":
@@ -542,30 +561,6 @@ def check_supported(args, model_config: GPTConfig,
     if model_config.num_experts > 0 and model_config.moe_impl == "capacity":
         later.append(('moe_impl="capacity" (use --moe_impl dropless)',
                       _ITEM_MOE))
-    run_flags = [flag for flag, on in (
-        ("--data_mixture", data_opts["data_mixture"] is not None),
-        ("--inject_fault", data_opts["inject_fault"] is not None),
-        ("--telemetry_interval", args.telemetry_interval is not None),
-        ("--spike_sigma", args.spike_sigma is not None),
-        ("--flight_recorder_steps", args.flight_recorder_steps is not None),
-        ("--nan_scan", data_opts["nan_scan"]),
-        ("--profile_dir", data_opts["profile_dir"] is not None),
-        ("--profile_start", args.profile_start is not None),
-        ("--profile_steps", args.profile_steps is not None),
-        ("--metrics_port", data_opts["metrics_port"] is not None),
-        ("--preempt_notice", data_opts["preempt_notice"] is not None),
-        ("--preempt_notice_poll_s", args.preempt_notice_poll_s is not None),
-        ("--preempt_vote_interval", args.preempt_vote_interval is not None),
-        ("--preemption_grace_s", data_opts["preemption_grace_s"] > 0),
-        ("TPU_TRAINER_HEARTBEAT_DIR (heartbeats)",
-         bool(os.environ.get("TPU_TRAINER_HEARTBEAT_DIR"))),
-        ("TPU_TRAINER_STANDBY_FILE (elastic standby)",
-         bool(os.environ.get("TPU_TRAINER_STANDBY_FILE"))),
-        ("TPU_TRAINER_PREEMPT_NOTICE",
-         bool(os.environ.get("TPU_TRAINER_PREEMPT_NOTICE"))),
-    ) if on]
-    if run_flags:
-        later.append((", ".join(run_flags), _ITEM_RUN))
     if later:
         raise NotImplementedError(
             "not ported yet: " + "; ".join(f"{what} -> {item}"
@@ -573,6 +568,97 @@ def check_supported(args, model_config: GPTConfig,
 
 
 # -- data --------------------------------------------------------------------
+
+def parse_mixture_spec(spec: str) -> dict:
+    """``'name:weight[:path],...'`` -> ``{name: (weight, path)}``. Names must
+    be distinct dataset kinds from {dummy, tinystories, openwebtext} (the
+    mixture cursor keys per-source state by name)."""
+    out = {}
+    for part in spec.split(","):
+        fields = part.strip().split(":", 2)
+        if len(fields) < 2:
+            raise SystemExit(f"bad --data_mixture entry {part.strip()!r}: "
+                             f"expected name:weight[:path]")
+        name = fields[0].strip()
+        if name not in ("dummy", "tinystories", "openwebtext"):
+            raise SystemExit(f"unknown mixture source {name!r}")
+        if name in out:
+            raise SystemExit(f"duplicate mixture source {name!r}")
+        try:
+            weight = float(fields[1])
+        except ValueError:
+            raise SystemExit(f"bad mixture weight {fields[1]!r} for source "
+                             f"{name!r}") from None
+        path = fields[2].strip() if len(fields) > 2 else None
+        out[name] = (weight, path)
+    return out
+
+
+def _build_mixture(data_opts, model_config: GPTConfig, rows: int,
+                   c: TrainingConfig):
+    """Weighted multi-source mixture (``--data_mixture``, the JAX
+    ``_build_mixture``). Every source yields the same batch shape: plain
+    ``[rows, seq]``, or ``[rows, seq, 2]`` when ``--pack_sequences`` puts
+    all sources (dummy included, through the synthetic ragged corpus) on
+    the packed format. No held-out eval across a mixture."""
+    from tpu_trainer_torch.data.mixture import MixtureDataLoader
+
+    spec = parse_mixture_spec(data_opts["data_mixture"])
+    pack = data_opts.get("pack_sequences")
+    mask = data_opts.get("mask_doc_boundaries")
+    if mask and not pack and "dummy" in spec:
+        raise SystemExit(
+            "--data_mixture with --mask_doc_boundaries cannot include the "
+            "'dummy' source (its batches carry no segment channel, so the "
+            "shapes would disagree); add --pack_sequences or drop dummy")
+    strategy = data_opts.get("pack_strategy", "first_fit")
+    sources, weights = {}, {}
+    for idx, nm in enumerate(sorted(spec)):
+        weight, path = spec[nm]
+        weights[nm] = weight
+        sub_seed = c.seed + 1000 * (idx + 1)   # disjoint per-source streams
+        if nm == "dummy":
+            if pack:
+                from tpu_trainer_torch.data.packing import (
+                    packed_synthetic_loader)
+
+                sources[nm] = packed_synthetic_loader(
+                    rows, c.max_seq_len, model_config.vocab_size,
+                    data_opts["num_batches"], sub_seed,
+                    max_open_bins=data_opts["max_open_bins"],
+                    strategy=strategy)
+            else:
+                from tpu_trainer_torch.data.dummy import (
+                    create_dummy_dataloader)
+
+                sources[nm] = create_dummy_dataloader(
+                    batch_size=rows, seq_len=c.max_seq_len,
+                    vocab_size=model_config.vocab_size,
+                    num_batches=data_opts["num_batches"], seed=sub_seed)
+            continue
+        if not path:
+            raise SystemExit(f"mixture source {nm!r} needs a path "
+                             f"('{nm}:<weight>:<path>')")
+        if pack:
+            opts = dict(data_opts, data_path=path, streaming=True,
+                        eval_holdout_every=0)
+            sources[nm], _ = _packed_text_loader(opts, rows, c.max_seq_len,
+                                                 sub_seed)
+        else:
+            from tpu_trainer_torch.data.text import create_text_dataloader
+
+            # Sub-loaders draw on demand (no prefetch thread racing the
+            # mixture's draw order); the mixture sits behind the feed.
+            sources[nm] = create_text_dataloader(
+                path, batch_size=rows, seq_len=c.max_seq_len,
+                tokenizer_name=data_opts["tokenizer"],
+                max_tokens=data_opts["max_tokens"], streaming=True,
+                cache_max_tokens=data_opts["cache_max_tokens"],
+                seed=sub_seed, num_workers=data_opts["num_workers"],
+                prefetch=0, tokenizer_on_fallback="error",
+                mask_doc_boundaries=bool(mask))
+    return MixtureDataLoader(sources, weights, seed=c.seed), None
+
 
 def _packed_text_loader(data_opts, rows, seq_len, seed):
     """Packed loader binning a text file's documents (lines) into full
@@ -611,6 +697,8 @@ def build_dataloaders(data_opts, trainer: Trainer, model_config: GPTConfig):
     micro-batch."""
     c = trainer.training_config
     rows = c.gradient_accumulation_steps * c.batch_size
+    if data_opts.get("data_mixture"):
+        return _build_mixture(data_opts, model_config, rows, c)
     name = data_opts["dataset"]
     pack = data_opts.get("pack_sequences")
     if pack and name != "dummy":
@@ -659,14 +747,56 @@ def build_dataloaders(data_opts, trainer: Trainer, model_config: GPTConfig):
 
 # -- the run -----------------------------------------------------------------
 
+# Steps a step's metrics stay in flight before the host reads them
+# (``utils/telemetry.DeferredFetcher``): by then the device has long
+# finished that step. The spike detector and the NaN guard see values this
+# many steps late, which recovery (bounded by the checkpoint cadence)
+# absorbs.
+_DEFERRED_SYNC_WINDOW = 2
+
+
 def _due(step: int, interval: int) -> bool:
     """Does a cadence of ``interval`` steps fire after ``step``?"""
     return interval > 0 and (step + 1) % interval == 0
 
 
+def _nan_loss_transform(metrics: dict) -> dict:
+    """Injected ``nan_loss``: applied to the fetched host copy at
+    maturity."""
+    return dict(metrics, loss=float("nan"))
+
+
+def _loss_spike_transform(metrics: dict) -> dict:
+    # Large but finite: the early-warning path must engage before anything
+    # trips the NaN guard.
+    return dict(metrics, loss=float(metrics["loss"]) * 8.0 + 5.0)
+
+
+def _print_nan_scan(report: dict) -> None:
+    first = report["first_nan"]
+    print("nan_scan | " + (
+        "no non-finite activations in the forward" if first is None
+        else f"first non-finite value at layer {first['layer']}, site "
+             f"'{first['site']}'"), flush=True)
+    stats = report["stats"]
+    layers = sorted({k.rsplit("/L", 1)[1] for k in stats if "/L" in k})
+    for li in layers:
+        row = " ".join(
+            f"{site}={stats.get(f'nan_scan/act/{site}_absmax/L{li}', float('nan')):.3e}"
+            for site in ("attn", "ffn", "block"))
+        print(f"nan_scan | layer {li} absmax: {row}", flush=True)
+    head = " ".join(
+        f"{site}={stats[f'nan_scan/act/{site}_absmax']:.3e}"
+        for site in ("embed_out", "final_norm", "logits")
+        if f"nan_scan/act/{site}_absmax" in stats)
+    print(f"nan_scan | head absmax: {head}", flush=True)
+    print(f"nan_scan | loss: {stats['nan_scan/loss']:.6g}", flush=True)
+
+
 def run_training(argv=None, mode: str = "ddp") -> int:
     """Train as the flags and YAML say (``mode`` "ddp" or "fsdp");
-    returns the exit code (0, or 143 after a SIGTERM save)."""
+    returns the exit code (0, or 143 after a SIGTERM or preemption-notice
+    save)."""
     if mode not in ("ddp", "fsdp"):
         raise ValueError(f"mode {mode!r}; choose ddp or fsdp")
     args = build_parser(mode).parse_args(argv)
@@ -674,6 +804,7 @@ def run_training(argv=None, mode: str = "ddp") -> int:
         resolve_configs(args, mode))
     check_supported(args, model_config, parallel_config, data_opts)
     device = resolve_device(args.device)
+    cuda = device.type == "cuda"
     trainer = Trainer(model_config, training_config, parallel_config,
                       device=device)
     tokens_per_step = (training_config.gradient_accumulation_steps
@@ -696,19 +827,27 @@ def run_training(argv=None, mode: str = "ddp") -> int:
               f"optimizer moments device-resident (exact f32), overflow "
               f"streams to host", flush=True)
 
+    installed_plan = (faults.install(data_opts["inject_fault"],
+                                     process_count=1)
+                      if data_opts["inject_fault"] else None)
+    # Goodput: every second of the run attributed to a category.
+    ledger = telemetry_lib.GoodputLedger()
+
     state = None
     tokens_seen = 0
     data_state = None
     ckpt_dir = training_config.checkpoint_dir
     if training_config.resume_from:
-        state, meta = ckpt_lib.restore_checkpoint(
-            training_config.resume_from, trainer)
+        with ledger.track("checkpoint_restore"):
+            state, meta = ckpt_lib.restore_checkpoint(
+                training_config.resume_from, trainer)
         tokens_seen = meta.get("tokens_seen", 0)
         data_state = meta.get("data_state")
         print(f"resumed from {training_config.resume_from} at step "
               f"{state.step}", flush=True)
     elif data_opts["auto_resume"]:
-        restored = ckpt_lib.restore_latest(ckpt_dir, trainer, verify=True)
+        with ledger.track("checkpoint_restore"):
+            restored = ckpt_lib.restore_latest(ckpt_dir, trainer, verify=True)
         if restored is not None:
             state, meta, path = restored
             tokens_seen = meta.get("tokens_seen", 0)
@@ -726,6 +865,53 @@ def run_training(argv=None, mode: str = "ddp") -> int:
             print(f"data state not restored ({e}); reading the dataset "
                   f"from the start", flush=True)
 
+    # Crash flight recorder: a ring of the emitted records.
+    recorder = None
+    if data_opts["flight_recorder_steps"] > 0:
+        recorder = flight_lib.FlightRecorder(
+            capacity=data_opts["flight_recorder_steps"],
+            snapshot=flight_lib.env_snapshot(
+                trainer=trainer, model_config=model_config,
+                training_config=training_config, argv=argv))
+
+    # Liveness beats, only when a supervisor asks for them.
+    heartbeat = None
+    hb_dir = os.environ.get("TPU_TRAINER_HEARTBEAT_DIR")
+    if hb_dir:
+        heartbeat = flight_lib.HeartbeatWriter(
+            hb_dir, host=0,
+            min_interval_s=float(
+                os.environ.get("TPU_TRAINER_HEARTBEAT_INTERVAL_S", "0")),
+            recorder=recorder, start_step=int(state.step))
+
+    def dump_flight(reason: str, exc: Optional[BaseException] = None):
+        """Best-effort ``crash_report.json``: never masks the failure."""
+        if recorder is None:
+            return
+        try:
+            path = recorder.dump(
+                ckpt_dir, reason=reason, exc=exc,
+                step=int(state.step) if state is not None else None)
+            print(f"flight recorder: wrote {path} ({reason})", flush=True)
+        except Exception as dump_err:
+            print(f"flight recorder dump failed: {dump_err}", flush=True)
+
+    # Live metrics: the bridge rides the logger's observer hook; with
+    # --metrics_port unset none of it exists.
+    metrics_server = None
+    metrics_bridge = None
+    if data_opts["metrics_port"] is not None:
+        from tpu_trainer_torch.obs.http import MetricsServer
+        from tpu_trainer_torch.obs.metrics import MetricsRegistry
+
+        metrics_bridge = telemetry_lib.MetricsBridge(MetricsRegistry())
+        metrics_server = MetricsServer(
+            metrics_bridge.registry, port=data_opts["metrics_port"],
+            statusz_fn=metrics_bridge.statusz)
+        metrics_server.health.add_probe(
+            "first_record", lambda: metrics_bridge.n_records > 0)
+        print(f"metrics: serving {metrics_server.url}/metrics", flush=True)
+
     logger = MetricLogger(
         model_config, tokens_per_step=tokens_per_step,
         log_interval=training_config.log_interval,
@@ -734,37 +920,107 @@ def run_training(argv=None, mode: str = "ddp") -> int:
         tensorboard_dir=data_opts["tensorboard_dir"],
         run_config={"model": dataclasses.asdict(model_config),
                     "training": dataclasses.asdict(training_config)},
-        seq_len=training_config.max_seq_len, device=device)
+        seq_len=training_config.max_seq_len, device=device,
+        recorder=recorder, observer=metrics_bridge)
     logger.tokens_seen = tokens_seen
 
-    preempted = {"hit": False}
+    if data_opts["nan_scan"]:
+        # Debug mode: bisect the first non-finite site of one forward, exit.
+        try:
+            report = trainer.nan_scan(state, next(iter(train_loader)))
+            _print_nan_scan(report)
+            logger.log_record({
+                "kind": "nan_scan", "step": int(state.step),
+                "first_nan": report["first_nan"], "sites": report["sites"],
+                **report["stats"]})
+            return 0
+        finally:
+            logger.close()
+            if metrics_server is not None:
+                metrics_server.close()
+            if installed_plan is not None:
+                faults.clear()
+
+    # SIGTERM: "at" anchors the --preemption_grace_s deadline at receipt.
+    preempted = {"hit": False, "at": None}
 
     def _on_sigterm(signum, frame):
         preempted["hit"] = True
+        if preempted["at"] is None:
+            preempted["at"] = time.monotonic()
 
     old_handler = signal.signal(signal.SIGTERM, _on_sigterm)
+
+    # The polled preemption notice arrives before the kill deadline runs;
+    # a noticed run drains at the next step boundary.
+    notice_source = preemption_lib.build_notice_source(
+        data_opts["preempt_notice"]
+        or os.environ.get("TPU_TRAINER_PREEMPT_NOTICE"),
+        poll_interval_s=data_opts["preempt_notice_poll_s"])
+    notice = {"rec": None}
+
+    def check_notice() -> bool:
+        """Poll the notice source (sticky); logs on first receipt."""
+        if notice["rec"] is not None:
+            return True
+        if notice_source is not None:
+            notice["rec"] = notice_source.poll()
+        if notice["rec"] is not None:
+            remaining = notice["rec"].remaining_s()
+            print(f"preemption notice received ({notice['rec'].source})"
+                  + (f": {remaining:.1f}s to the kill deadline"
+                     if remaining is not None else "")
+                  + "; draining at the next step boundary", flush=True)
+            return True
+        return False
+
     saver = (ckpt_lib.AsyncSaver() if training_config.async_checkpointing
              else None)
     saved_step = {"step": None}
+    # Set when a grace deadline left a commit running: exit without it.
+    abandoned = {"commit": False}
 
-    def drain_save() -> None:
+    def drain_save(timeout: Optional[float] = None) -> bool:
+        """Drain the in-flight async write; False when ``timeout`` expired
+        with it still running (the daemon writer dies with the process,
+        leaving the usual meta-less directory)."""
+        if saver is not None and saver.in_flight:
+            with ledger.track("checkpoint_commit_wait"):
+                saver.wait(timeout)
+            return not saver.in_flight
         if saver is not None:
-            saver.wait()
+            saver.wait()          # surface a finished writer's failure
+        return True
 
-    def save(tag: str = "", wait: bool = False) -> None:
-        drain_save()
-        # The feed's cursor: the loader runs ahead of what the trainer
-        # consumed by the prefetch depth.
-        save_fn = (saver.save if saver is not None
-                   else ckpt_lib.save_checkpoint)
-        path = save_fn(ckpt_dir, state, model_config=model_config,
-                       training_config=training_config,
-                       tokens_seen=logger.tokens_seen,
-                       data_state=feed.state_dict(),
-                       keep_last_n=data_opts["keep_last_n"])
+    def drain_by(deadline: Optional[float], what: str) -> bool:
+        """``drain_save`` within a preemption deadline; past it, leave the
+        commit running (and the process exits without it)."""
+        if drain_save(None if deadline is None
+                      else max(0.0, deadline - time.monotonic())):
+            return True
+        abandoned["commit"] = True
+        print(f"preemption grace expired {what}; exiting with the commit "
+              f"in flight", flush=True)
+        return False
+
+    def save(tag: str = "", wait: bool = False,
+             deadline: Optional[float] = None) -> None:
+        if not drain_by(deadline, "draining the previous commit, before "
+                                  "the final checkpoint"):
+            return
+        with ledger.track("checkpoint_save"):
+            # The feed's cursor: the loader runs ahead of what the trainer
+            # consumed by the prefetch depth.
+            save_fn = (saver.save if saver is not None
+                       else ckpt_lib.save_checkpoint)
+            path = save_fn(ckpt_dir, state, model_config=model_config,
+                           training_config=training_config,
+                           tokens_seen=logger.tokens_seen,
+                           data_state=feed.state_dict(),
+                           keep_last_n=data_opts["keep_last_n"])
         saved_step["step"] = state.step
-        if wait:
-            drain_save()
+        if wait and not drain_by(deadline, "before the final commit landed"):
+            return
         print(f"saved checkpoint{' (' + tag + ')' if tag else ''}: {path}",
               flush=True)
 
@@ -774,11 +1030,12 @@ def run_training(argv=None, mode: str = "ddp") -> int:
         if eval_loader is None:
             return
         losses = []
-        for i, batch in enumerate(eval_loader):
-            if i >= data_opts["eval_batches"]:
-                break
-            losses.append(trainer.eval_step(state, batch))
-        losses = [float(x) for x in losses]
+        with ledger.track("eval"):
+            for i, batch in enumerate(eval_loader):
+                if i >= data_opts["eval_batches"]:
+                    break
+                losses.append(trainer.eval_step(state, batch))
+            losses = [float(x) for x in losses]
         if losses:
             logger.log_eval(state.step, float(np.mean(losses)), len(losses))
         elif not eval_warned["hit"]:
@@ -788,15 +1045,19 @@ def run_training(argv=None, mode: str = "ddp") -> int:
                   flush=True)
 
     data_iter = iter(train_loader)
+    # Mixture sources, recorded at pull time: the feed pulls ahead, but in
+    # consume order, so one entry a consumed batch re-aligns them.
+    source_fifo = []
+    source_by_step = {}
 
     def next_batch():
         nonlocal data_iter
         try:
-            return next(data_iter)
+            b = next(data_iter)
         except StopIteration:
             data_iter = iter(train_loader)   # a new epoch
             try:
-                return next(data_iter)
+                b = next(data_iter)
             except StopIteration:
                 raise SystemExit(
                     "the dataset yields zero batches for this "
@@ -804,8 +1065,14 @@ def run_training(argv=None, mode: str = "ddp") -> int:
                     f"{training_config.gradient_accumulation_steps * training_config.batch_size}"
                     f" sequences of {training_config.max_seq_len} tokens"
                 ) from None
+        src = getattr(train_loader, "last_source", None)
+        if src is not None:
+            source_fifo.append(src)
+        return b
 
     def make_feed() -> DevicePrefetcher:
+        # Batches buffered in a discarded feed were never consumed.
+        source_fifo.clear()
         # ``place`` binds late, so a rollback's rebuilt trainer is used.
         return DevicePrefetcher(
             next_batch,
@@ -815,37 +1082,148 @@ def run_training(argv=None, mode: str = "ddp") -> int:
             depth=data_opts["device_prefetch"], device=device)
 
     feed = make_feed()
+    profiler = profiling.WindowedTrace(
+        data_opts["profile_dir"],
+        start=int(state.step) + data_opts["profile_start"],
+        num_steps=data_opts["profile_steps"])
     guard_interval = data_opts["guard_interval"]
     max_rollbacks = data_opts["max_rollbacks"]
     rollbacks = 0
     steps_this_run = 0
     base_lr = training_config.learning_rate
+    telemetry_interval = data_opts["telemetry_interval"]
+    spike = (telemetry_lib.SpikeDetector(sigma=data_opts["spike_sigma"])
+             if data_opts["spike_sigma"] > 0 else None)
+    deferred = telemetry_lib.DeferredFetcher(window=_DEFERRED_SYNC_WINDOW)
+
+    def consume(entries, check: bool = True) -> None:
+        """Log, spike-check and guard each matured metric entry;
+        ``check=False`` (exit paths) logs without raising."""
+        for mstep, mmetrics, mend in entries:
+            src = source_by_step.pop(mstep, None)
+            rec = logger.log(mstep, mmetrics, extra=None if src is None
+                             else {"data_source": src}, now=mend)
+            if not check:
+                continue
+            if spike is not None and rec is not None:
+                is_spike, z = spike.update(rec["loss"])
+                if is_spike:
+                    print(f"loss spike at step {mstep}: loss "
+                          f"{rec['loss']:.4f} is z={z:.1f} above the "
+                          f"rolling median (sigma="
+                          f"{data_opts['spike_sigma']:g}); rolling back "
+                          f"before divergence", flush=True)
+                    raise guards.LossSpikeError(
+                        f"loss spike (z={z:.1f}) at step {mstep}")
+            if guard_interval and (mstep + 1) % guard_interval == 0:
+                loss = float((rec or mmetrics)["loss"])
+                guards.check_finite(mstep, loss)
+                guards.check_hosts_in_sync(mstep, loss)
+
+    # Goodput: the first step of each variant (plain, telemetry) pays the
+    # one-time costs (kernel build and load, first launches, allocator
+    # growth) and goes to "compile"; re-covered ground after a rollback to
+    # "rollback_replay". Eager PyTorch never recompiles the step and has no
+    # compiler cost model, so the JAX CLI's recompile watchdog and
+    # cost-analysis record have nothing to report here
+    # (``trainer.RecompileWatchdog``, ``Trainer.step_cost_analysis``).
+    warm = {"step": False, "telemetry": False}
+    replay_until = -1
     try:
         while True:
             try:
-                step = state.step
-                for step in range(state.step, training_config.max_steps):
-                    batch = feed.next()
-                    state, metrics = trainer.train_step(state, batch)
-                    steps_this_run += 1
-                    npf = getattr(train_loader, "non_pad_frac", None)
-                    if npf is not None:
-                        logger.non_pad_frac = float(npf)
-                    rec = logger.log(step, metrics)
-                    if guard_interval and (step + 1) % guard_interval == 0:
-                        check_finite(step, (rec or metrics)["loss"])
-                    if _due(step, training_config.eval_interval):
+                start_step = int(state.step)
+                step = start_step
+                if heartbeat is not None:
+                    heartbeat.beat(start_step)
+                for step in range(start_step, training_config.max_steps):
+                    if faults.fire("kill", step):
+                        faults.kill()
+                    if faults.fire("sigterm", step):
+                        os.kill(os.getpid(), signal.SIGTERM)
+                    # kill_host, hang_host, preempt_notice and return_host
+                    # act only across processes (ROADMAP Queue 1 item 5).
+                    has_notice = check_notice()
+                    with profiler.step(step):
+                        with ledger.track("data_wait"):
+                            batch = feed.next()
+                        if source_fifo:
+                            source_by_step[step] = source_fifo.pop(0)
+                        tel_step = _due(step, telemetry_interval)
+                        variant = "telemetry" if tel_step else "step"
+                        category = ("compile" if not warm[variant]
+                                    else "rollback_replay"
+                                    if step <= replay_until else "step")
+                        with ledger.track(category):
+                            state, metrics = trainer.train_step(
+                                state, batch, telemetry=tel_step,
+                                sync=False)
+                            if not warm[variant]:
+                                if cuda:
+                                    torch.cuda.synchronize(device)
+                                warm[variant] = True
+                            steps_this_run += 1
+                            transform = None
+                            if faults.fire("nan_loss", step):
+                                transform = _nan_loss_transform
+                            if faults.fire("loss_spike", step):
+                                transform = _loss_spike_transform
+                            npf = getattr(train_loader, "non_pad_frac",
+                                          None)
+                            if npf is not None:
+                                logger.non_pad_frac = float(npf)
+                            ledger.add_tokens(
+                                tokens_per_step, None if npf is None
+                                else int(round(tokens_per_step * float(npf))))
+                            # The matured fetches are where the host meets
+                            # the device, so they stay in the tracked block.
+                            consume(deferred.push(step, metrics, transform))
+                    if heartbeat is not None:
+                        heartbeat.beat(step + 1)
+                    if tel_step or _due(step, training_config.log_interval):
+                        logger.log_record(ledger.record(step=step))
+                    eval_now = _due(step, training_config.eval_interval)
+                    save_now = _due(step, training_config.save_interval)
+                    if eval_now or save_now:
+                        # Records in step order before eval's, and an exact
+                        # tokens_seen in the checkpoint.
+                        consume(deferred.drain())
+                    if eval_now:
                         run_eval()
-                    if _due(step, training_config.save_interval):
+                    if save_now:
                         save()
-                    if preempted["hit"]:
-                        print("SIGTERM received: checkpointing and exiting",
+                    if preempted["hit"] or has_notice:
+                        proactive = not preempted["hit"]
+                        print("proactive drain: checkpointing and exiting "
+                              "before the kill lands" if proactive else
+                              "SIGTERM received: checkpointing and exiting",
                               flush=True)
+                        consume(deferred.drain(), check=False)
+                        grace = data_opts["preemption_grace_s"]
+                        deadline = None
+                        rec = notice["rec"]
+                        if rec is not None and rec.deadline_unix is not None:
+                            # The notice named the kill time.
+                            deadline = (time.monotonic()
+                                        + (rec.deadline_unix - time.time()))
+                        elif grace and grace > 0:
+                            deadline = (preempted["at"] or time.monotonic()
+                                        ) + grace
                         if saved_step["step"] == state.step:
-                            drain_save()
+                            drain_by(deadline, "before the step's commit "
+                                               "landed")
                         else:
-                            save("preempt", wait=True)
+                            save("preempt", wait=True, deadline=deadline)
+                        if rec is not None and hb_dir:
+                            # Deregister: a planned departure, not a crash.
+                            flight_lib.write_drain(
+                                hb_dir, 0, step=int(state.step),
+                                cause=rec.source,
+                                deadline_unix=rec.deadline_unix)
+                        dump_flight("preempt_notice" if proactive
+                                    else "sigterm")
                         return 143
+                consume(deferred.drain())
                 if saved_step["step"] == state.step:
                     drain_save()
                 else:
@@ -855,11 +1233,13 @@ def run_training(argv=None, mode: str = "ddp") -> int:
                         and _due(step, training_config.eval_interval)):
                     run_eval()
                 break
-            except FloatingPointError as err:
+            except (FloatingPointError, guards.DivergenceError) as err:
                 if rollbacks >= max_rollbacks:
                     print(f"divergence persisted after {rollbacks} "
                           f"rollback(s); giving up", flush=True)
                     raise
+                # Past the last consumed batch (with the deferred window,
+                # up to that many batches past the one that diverged).
                 failure_cursor = feed.state_dict()
                 rollbacks += 1
                 backoff = data_opts["rollback_lr_backoff"] ** rollbacks
@@ -869,9 +1249,16 @@ def run_training(argv=None, mode: str = "ddp") -> int:
                         training_config, learning_rate=base_lr * backoff)
                     trainer = Trainer(model_config, training_config,
                                       parallel_config, device=device)
+                if spike is not None:
+                    spike.reset()
+                # Unread metrics predate the rollback: drop them.
+                deferred = telemetry_lib.DeferredFetcher(
+                    window=_DEFERRED_SYNC_WINDOW)
+                replay_until = step
                 drain_save()
-                restored = ckpt_lib.restore_latest(ckpt_dir, trainer,
-                                                   verify=True)
+                with ledger.track("checkpoint_restore"):
+                    restored = ckpt_lib.restore_latest(ckpt_dir, trainer,
+                                                       verify=True)
                 if restored is None:
                     print("rollback impossible: no valid checkpoint to "
                           "rewind to", flush=True)
@@ -899,15 +1286,20 @@ def run_training(argv=None, mode: str = "ddp") -> int:
                     "restored_step": int(state.step),
                     "lr_backoff": backoff,
                 })
+                dump_flight(f"rollback:{type(err).__name__}", exc=err)
                 print(f"rollback {rollbacks}/{max_rollbacks}: "
                       f"{type(err).__name__} at step {step}; rewound to "
                       f"{ckpt_path} (step {state.step}), lr x {backoff:g}, "
                       f"skipping {skip} batch(es)", flush=True)
-    except FloatingPointError:
+        logger.log_record(ledger.record(step=int(state.step), final=True),
+                          stdout_lines=ledger.summary_lines())
+    except (FloatingPointError, guards.DivergenceError) as err:
+        dump_flight("divergence", exc=err)
         raise                 # poisoned state: never crash-save it
     except (KeyboardInterrupt, SystemExit):
         raise
-    except Exception:
+    except Exception as err:
+        dump_flight("crash", exc=err)
         # Crash checkpoint, only after progress in this run.
         if steps_this_run >= 1 and state is not None:
             try:
@@ -916,14 +1308,19 @@ def run_training(argv=None, mode: str = "ddp") -> int:
                 print(f"crash checkpoint failed: {save_err}", flush=True)
         raise
     finally:
-        if saver is not None and saver.in_flight:
+        if saver is not None and saver.in_flight and not abandoned["commit"]:
             try:
                 drain_save()
             except Exception as commit_err:
                 print(f"async checkpoint write failed: {commit_err}",
                       flush=True)
         signal.signal(signal.SIGTERM, old_handler)
+        profiler.close()
         logger.close()
+        if metrics_server is not None:
+            metrics_server.close()
+        if installed_plan is not None:
+            faults.clear()
     print(f"done: {steps_this_run} steps this run, "
           f"{logger.tokens_seen:,} tokens total", flush=True)
     return 0

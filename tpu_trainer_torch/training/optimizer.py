@@ -154,18 +154,31 @@ class AdamW:
 
     @torch.no_grad()
     def apply(self, grads: Dict[str, torch.Tensor], state: AdamWState,
-              params: Dict[str, torch.Tensor], lr: float) -> AdamWState:
+              params: Dict[str, torch.Tensor], lr: float,
+              on_update=None) -> AdamWState:
         """One step: each leaf's update (the descent direction at unit LR)
         scaled by ``lr`` and added to its parameter in place, one leaf's
         update alive at a time; the moments are updated in place (their
-        storage kept). Returns the state with the new count."""
+        storage kept). ``on_update(name, new - old)`` sees each leaf's
+        applied change (telemetry steps). Returns the state with the new
+        count."""
         ctx = self.begin(grads, state.count)
         mask = decay_mask(params)
         for n, g in grads.items():
             p = params[n]
             u = self.leaf(ctx, g, state.mu[n], state.nu[n], p, mask[n])
-            p.add_((u * lr).to(p.dtype))
+            apply_leaf(p, u * lr, n, on_update)
         return AdamWState(ctx["count"], state.mu, state.nu)
+
+
+def apply_leaf(p: torch.Tensor, delta: torch.Tensor, name: str,
+               on_update=None) -> None:
+    """``p += delta`` in place; with ``on_update``, it is called with the
+    change the add made (``new - old`` in the parameter's dtype)."""
+    old = p.clone() if on_update is not None else None
+    p.add_(delta.to(p.dtype))
+    if on_update is not None:
+        on_update(name, p - old)
 
 
 def make_optimizer(config: TrainingConfig) -> AdamW:

@@ -38,12 +38,25 @@ that fit the budget stay on the device in exact f32
 (``select_resident_moments``). At one process every ``sharding_strategy``
 is this step.
 
+Telemetry steps (``train_step(..., telemetry=True)``, the JAX
+``_step_tel_jit``) compute the same update and add a ``"telemetry"``
+subtree: per-layer gradient, parameter and update-to-parameter norms
+(``utils/telemetry.group_norms``; the update norms are taken leaf by leaf
+as the optimizer applies them, inside the host stream under offload),
+activation RMS/absmax at every site the model records and, for MoE, the
+router's stats. ``nan_scan`` runs one forward with the deep capture and
+names the first non-finite site. Eager PyTorch has no executable cache
+and no compiler cost model: ``RecompileWatchdog`` stays disarmed and
+``step_cost_analysis`` returns None, as the JAX ones do on a backend that
+hides those hooks.
+
 Not ported yet (ROADMAP Queue 1): meshes and sharding across processes,
-pipeline schedules, telemetry steps.
+pipeline schedules.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, Optional, Tuple
 
@@ -60,12 +73,14 @@ from tpu_trainer_torch.training.optimizer import (
     STATE_DTYPES,
     AdamWState,
     Moment,
+    apply_leaf,
     decay_mask,
     global_norm,
     load_moment,
     make_optimizer,
     store_moment,
 )
+from tpu_trainer_torch.utils import telemetry as telemetry_lib
 from tpu_trainer_torch.utils.device import resolve_device
 from tpu_trainer_torch.utils.quant import QuantPack
 
@@ -349,7 +364,8 @@ class Trainer:
             out.append(leaves)
         return AdamWState(0, *out)
 
-    def _stream(self, state: TrainState, grads, lr: float) -> None:
+    def _stream(self, state: TrainState, grads, lr: float,
+                on_update=None) -> None:
         """The offloaded update, a leaf at a time: the leaf's moments host
         -> device, f32 load, the AdamW leaf update (applied to the
         parameter at once), store, device -> host into the same host
@@ -388,7 +404,7 @@ class Trainer:
                     work[m] = load_moment(dev, nonneg=m == "nu")
                 u = self.optimizer.leaf(ctx, grads[n], work["mu"],
                                         work["nu"], p, mask[n])
-                p.add_((u * lr).to(p.dtype))
+                apply_leaf(p, u * lr, n, on_update)
                 for m, key in keys.items():
                     if key in self._offload_keep:
                         continue
@@ -495,12 +511,18 @@ class Trainer:
             count += n
         return total / torch.clamp(count, min=1.0)
 
-    def train_step(self, state: TrainState, batch
-                   ) -> Tuple[TrainState, dict]:
+    def train_step(self, state: TrainState, batch, telemetry: bool = False,
+                   *, sync: bool = True) -> Tuple[TrainState, dict]:
         """One optimizer step over ``accum`` micro-batches. ``batch`` is
         ``put_batch``'s device tensor or a host array (placed here).
         Metrics: ``loss`` (mean over micro-batches), ``lr``, ``grad_norm``
-        (before clipping), ``loss_scale`` (the scale this step used)."""
+        (before clipping), ``loss_scale`` (the scale this step used).
+        ``sync=False`` leaves ``loss`` and ``grad_norm`` as device scalars,
+        so the host does not wait for the step (fp16 still reads the norm:
+        its skip decision needs it); the CLI reads them later through
+        ``utils/telemetry.DeferredFetcher``. ``telemetry=True`` adds the
+        ``"telemetry"`` subtree of device tensors (module docstring); the
+        update, the loss and the generator are the plain step's."""
         if not torch.is_tensor(batch):
             batch = self.put_batch(batch)
         cfg = self.training_config
@@ -513,11 +535,18 @@ class Trainer:
         leaves = [state.params[n] for n in names]
         grads = None
         loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
+        fwd_stats = []
         for micro in batch:
             tokens, segs = _split_packed(micro)
-            _, loss = self.model(tokens, tokens, train=True,
-                                 segment_ids=segs,
-                                 generator=state.generator)
+            # The capture covers the forward only: the backward (and a
+            # remat block's rerun inside it) records nothing.
+            with (telemetry_lib.capture() if telemetry
+                  else contextlib.nullcontext()) as cap:
+                _, loss = self.model(tokens, tokens, train=True,
+                                     segment_ids=segs,
+                                     generator=state.generator)
+            if telemetry:
+                fwd_stats.append(telemetry_lib.assemble(cap.stats))
             g = torch.autograd.grad(loss * state.loss_scale, leaves)
             if grads is None:
                 grads = [x.float() for x in g]
@@ -529,16 +558,25 @@ class Trainer:
         grads = {n: g / denom for n, g in zip(names, grads)}
         grad_norm = global_norm(grads.values())
         lr = cfg.lr_at(state.step)
-        metrics = {"loss": float(loss_sum / accum), "lr": lr,
-                   "grad_norm": float(grad_norm),
-                   "loss_scale": state.loss_scale}
+        metrics = {"loss": loss_sum / accum, "lr": lr,
+                   "grad_norm": grad_norm, "loss_scale": state.loss_scale}
 
-        finite = np.isfinite(metrics["grad_norm"])
-        if self.cpu_offload and (finite or not self.use_loss_scaling):
-            self._stream(state, grads, lr)
-        elif finite or not self.use_loss_scaling:
+        telem = None
+        update_norms = None
+        if telemetry:
+            telem = dict(fwd_stats[0] if accum == 1
+                         else telemetry_lib.reduce_micro(fwd_stats))
+            telem["grad_norm"] = telemetry_lib.group_norms(grads)
+            telem["param_norm"] = telemetry_lib.group_norms(state.params)
+            update_norms = telemetry_lib.GroupNorms()
+        on_update = update_norms.add if update_norms is not None else None
+        finite = (not self.use_loss_scaling
+                  or bool(torch.isfinite(grad_norm)))
+        if self.cpu_offload and finite:
+            self._stream(state, grads, lr, on_update)
+        elif finite:
             state.opt_state = self.optimizer.apply(
-                grads, state.opt_state, state.params, lr)
+                grads, state.opt_state, state.params, lr, on_update)
         if self.use_loss_scaling:
             if finite:
                 grew = state.good_steps + 1 >= _SCALE_GROWTH_INTERVAL
@@ -549,5 +587,70 @@ class Trainer:
             else:
                 state.loss_scale = max(state.loss_scale * 0.5, 1.0)
                 state.good_steps = 0
+        if telem is not None:
+            # A skipped fp16 step changes nothing: zero update norms.
+            upd = (update_norms.norms() if finite else
+                   {k: torch.zeros_like(v)
+                    for k, v in telem["param_norm"].items()})
+            telem["update_ratio"] = {
+                k: upd[k] / (telem["param_norm"][k] + 1e-20) for k in upd}
+            metrics["telemetry"] = telem
         state.step += 1
+        if sync:
+            metrics["loss"] = float(metrics["loss"])
+            metrics["grad_norm"] = float(metrics["grad_norm"])
         return state, metrics
+
+    @torch.no_grad()
+    def nan_scan(self, state: TrainState, batch) -> dict:
+        """Forward-only activation scan: where does the first NaN/Inf
+        appear?
+
+        Runs one deterministic forward of micro-batch 0 under the deep
+        capture (every layer's attention/FFN/block stats, the embedding,
+        the final norm and the full f32 logits) and bisects them on the
+        host. Returns ``{"first_nan": {"layer", "site"} | None, "sites":
+        [...], "stats": {flattened scalars}}`` — see
+        ``utils/telemetry.nan_report``."""
+        if not torch.is_tensor(batch):
+            batch = self.put_batch(batch)
+        self._bind(state)
+        tokens, segs = _split_packed(batch[0])
+        with telemetry_lib.capture(deep=True) as cap:
+            _, loss = self.model(tokens, tokens, train=False,
+                                 segment_ids=segs)
+        stats = telemetry_lib.assemble(cap.stats)
+        stats["loss"] = loss
+        report = telemetry_lib.nan_report(stats)
+        report["stats"] = telemetry_lib.flatten_scalars(
+            {k: v for k, v in stats.items() if isinstance(v, dict)},
+            prefix="nan_scan")
+        report["stats"]["nan_scan/loss"] = float(loss)
+        return report
+
+    def step_cost_analysis(self, state: TrainState, batch) -> Optional[dict]:
+        """The compiler's cost model of one step: eager PyTorch has none,
+        so None (the JAX method's answer on a backend that hides it)."""
+        return None
+
+    def executable_cache_size(self) -> Optional[int]:
+        """Compiled step executables: eager PyTorch compiles none, so None
+        (``RecompileWatchdog`` then stays disarmed)."""
+        return None
+
+
+class RecompileWatchdog:
+    """The JAX watchdog of steady-state recompiles of the jitted step.
+    Eager PyTorch never recompiles the step (``executable_cache_size`` is
+    None), so the watchdog is disarmed: ``observe`` returns None and no
+    ``recompile`` record is written."""
+
+    def __init__(self, trainer: Trainer, warn_after: int = 3):
+        self.trainer = trainer
+        self.warn_after = warn_after
+        self.events: list = []
+        self._armed = trainer.executable_cache_size() is not None
+
+    def observe(self, step: int, batch=None,
+                expected: bool = False) -> Optional[dict]:
+        return None

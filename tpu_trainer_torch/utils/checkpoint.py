@@ -60,6 +60,7 @@ import torch
 from tpu_trainer_torch.models.config import GPTConfig
 from tpu_trainer_torch.models.weights import load_params_npz, param_specs
 from tpu_trainer_torch.training.config import TrainingConfig
+from tpu_trainer_torch.utils import faults
 
 _STEP_DIR_RE = re.compile(r"^step_(\d{8})$")
 STATE_FILE = "state.npz"
@@ -211,18 +212,28 @@ def _commit(checkpoint_dir: str, snapshot: dict, *,
             keep_last_n: int) -> str:
     """The durable half of a save, from a host snapshot
     (``TrainState.state_dict()``): ``state.npz``, then ``meta.json``, then
-    GC."""
+    GC; the fault plan's ``kill_in_save``, ``truncate_meta`` and
+    ``corrupt_shard`` fire here (``utils/faults.py``)."""
     step = int(snapshot["step"])
     path = step_dir(checkpoint_dir, step)
     os.makedirs(path, exist_ok=True)
     arrays = {k: v for k, v in snapshot.items() if k not in _STATE_SCALARS}
     _atomic_write(os.path.join(path, STATE_FILE),
                   lambda f: np.savez(f, **arrays), "wb")
+    if faults.fire("kill_in_save", step):
+        # Injected crash between the state write and the meta write: the
+        # partial checkpoint a mid-save preemption leaves. ``os._exit``
+        # ends the whole process from the writer thread too.
+        faults.kill()
     meta = _meta_dict(step=step, model_config=model_config,
                       training_config=training_config,
                       tokens_seen=tokens_seen, data_state=data_state)
     meta.update({k: snapshot[k] for k in _STATE_SCALARS if k != "step"})
     _write_meta(path, meta)
+    if faults.fire("truncate_meta", step):
+        faults.truncate_file(os.path.join(path, "meta.json"))
+    if faults.fire("corrupt_shard", step):
+        faults.corrupt_file(os.path.join(path, STATE_FILE))
     if keep_last_n > 0:
         gc_checkpoints(checkpoint_dir, keep_last_n)
     return path

@@ -4,10 +4,11 @@
 
 ``MetricLogger``'s JSONL records keep the JAX package's field names and
 ``kind`` values (``train``, ``eval``, and pre-built records such as
-``rollback``), so the JAX package's run analyzer reads a port run. The
-W&B and TensorBoard sinks are import-guarded: a missing package is a
-warning. The flight recorder and live-metrics observer hooks are not
-ported (ROADMAP Queue 1 item 4).
+``rollback``), so the run analyzer (``tools/analyze.py``, either
+package's) reads a port run. The W&B and TensorBoard sinks are
+import-guarded: a missing package is a warning. ``recorder=`` (the crash
+flight recorder) and ``observer=`` (the live-metrics bridge) see every
+record the sinks see.
 """
 
 from __future__ import annotations
@@ -22,8 +23,8 @@ from typing import IO, Callable, Optional
 import torch
 
 from tpu_trainer_torch.models.config import GPTConfig
-
-SCHEMA_VERSION = 1
+from tpu_trainer_torch.utils import telemetry as telemetry_lib
+from tpu_trainer_torch.utils.schema import SCHEMA_VERSION
 
 # Peak dense bf16 tensor-core FLOP/s by CUDA device name (substring,
 # case-insensitive), from NVIDIA's H100 data sheet (dense, no sparsity):
@@ -67,9 +68,13 @@ class MetricLogger:
     ``log(step, metrics)`` counts a step's tokens and emits a ``train``
     record every ``log_interval`` steps: loss, lr, grad norm, tokens seen,
     tokens/s over the window since the last record, MFU against the
-    card's peak (CUDA only), and the peak device memory. On a CUDA device
-    the window's edges wait for the device (one synchronize a record), so
-    the rate counts finished work.
+    card's peak (CUDA only), and the peak device memory. The window's
+    edges are the steps' ends: given as ``now`` (the training CLI's
+    deferred fetch), else read after a synchronize, so the rate counts
+    finished work. A ``metrics["telemetry"]`` subtree
+    forces a record whatever the interval and is flattened into
+    ``telemetry/*`` scalars. ``recorder`` and ``observer`` (anything with
+    ``observe(record)``) see every record written.
     """
 
     def __init__(self, model_config: Optional[GPTConfig] = None, *,
@@ -78,7 +83,10 @@ class MetricLogger:
                  wandb_project: Optional[str] = None,
                  tensorboard_dir: Optional[str] = None,
                  run_config: Optional[dict] = None,
-                 seq_len: Optional[int] = None, device=None):
+                 seq_len: Optional[int] = None, device=None,
+                 recorder=None, observer=None):
+        self._recorder = recorder
+        self._observer = observer
         self.model_config = model_config
         self.tokens_per_step = tokens_per_step
         self.seq_len = seq_len
@@ -122,16 +130,20 @@ class MetricLogger:
         self._window_t = self._t0
         self._window_tokens = 0
 
-    def log(self, step: int, metrics: dict,
-            extra: Optional[dict] = None) -> Optional[dict]:
+    def log(self, step: int, metrics: dict, extra: Optional[dict] = None,
+            now: Optional[float] = None) -> Optional[dict]:
         """Record one step; emit (and return) a record every
-        ``log_interval`` steps."""
+        ``log_interval`` steps. ``now`` is when the step finished on the
+        ``time.perf_counter`` clock (a deferred fetch knows it: see
+        ``utils/telemetry.DeferredFetcher``); without it the record waits
+        for the device and reads the clock."""
         self.tokens_seen += self.tokens_per_step
         self._window_tokens += self.tokens_per_step
-        if (step + 1) % self.log_interval != 0:
+        if (step + 1) % self.log_interval != 0 and "telemetry" not in metrics:
             return None
-        self._sync()
-        now = time.perf_counter()
+        if now is None:
+            self._sync()
+            now = time.perf_counter()
         window_s = max(now - self._window_t, 1e-9)
         tok_per_sec = self._window_tokens / window_s
         record = {
@@ -157,6 +169,8 @@ class MetricLogger:
         if self._cuda:
             record["peak_mem_gb"] = round(
                 torch.cuda.max_memory_allocated() / 2**30, 3)
+        if "telemetry" in metrics:
+            record.update(telemetry_lib.flatten_scalars(metrics["telemetry"]))
         if extra:
             record.update(extra)
         self._window_t = now
@@ -222,6 +236,10 @@ class MetricLogger:
     def _write(self, record: dict) -> None:
         if self._jsonl:
             self._jsonl.write(json.dumps(record) + "\n")
+        if self._recorder is not None:
+            self._recorder.observe(record)
+        if self._observer is not None:
+            self._observer.observe(record)
 
     def _emit_scalars(self, step: int, scalars: dict, prefix: str) -> None:
         if self._wandb is not None:
