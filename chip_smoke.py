@@ -192,8 +192,32 @@ JAX package. Phases, each fatal on failure:
               telemetry; ``--nan_scan`` on a checkpoint with a planted inf.
               Launches exact on every path; the ``kernels`` line counts
               them beside the main paths'.
+22. dist    -- the two trainers across processes, each rank a fresh
+              process that joins its group as a launcher would (a file
+              rendezvous, two ranks sharing ``cuda:0`` over gloo, every
+              collective bounded by ``COORDINATOR_TIMEOUT_S``) and then
+              calls the CLI: ``small_model.yaml`` through ``train_ddp`` at
+              world 1 in an NCCL process group, bitwise the run without
+              one; DDP at world 2 (dropout 0, a rank batch 4) bitwise one
+              process at accumulation 2 (losses, grad norms, final masters
+              and moments), launches exact on each rank, and a planted
+              fault (rank 1's gradients scaled) rejected;
+              ``medium_model.yaml`` through ``train_fsdp --sharding
+              FULL_SHARD`` and ``SHARD_GRAD_OP`` at world 2 (3 steps):
+              losses bitwise one process's, grad norms within
+              ``DIST_NORM_RTOL`` and every final master and moment within
+              ``DIST_STATE_RTOL`` (a control with one moment's rank halves
+              swapped rejected), bitwise between the two strategies, a
+              rank's masters + moments at rest at most 0.55 of one
+              process's (its moments under SHARD_GRAD_OP); a two-phase
+              checkpoint of a FULL_SHARD run without remat (the backward
+              regathers the saved weights) at step 2 resumed at world 2
+              bitwise the straight run's step 4, and restored at world 1
+              bitwise the stitched shards. Runs that do not depend on each
+              other share the card. Per-rank step ms and peaks (ranks
+              time-slicing one card: no multi-GPU speed).
 
-Every phase runs at full depth; the whole run takes about twelve minutes
+Every phase runs at full depth; the whole run takes about fifteen minutes
 on an H100 (700 W), builds included.
 
 Then the ``kernels`` JSON line, the nvidia-smi line, and as the last line
@@ -205,6 +229,7 @@ result. Run from the repository root: ``python3 chip_smoke.py``
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -213,6 +238,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import torch
@@ -3755,6 +3781,550 @@ def phase_ft(results: dict, tmp: str) -> dict:
     return rec
 
 
+def _dist_child(mode: str, argv: list, out: str, fault_rank=None,
+                group=None) -> None:
+    """One rank (or the one process) of the dist phase, in a fresh process:
+    ``group`` (``(backend, file store, rank, world)``, else none) joined
+    first, as a launcher would (the CLI keeps a group that exists), launch
+    counts zeroed, ``train_<mode>.main(argv)``; each
+    ``Trainer.init_state`` / restore is measured at rest (the bytes of the
+    masters and moments, ``torch.cuda.memory_allocated()``), each
+    ``Trainer.train_step`` timed up to a synchronize. ``fault_rank``
+    plants a fault: that rank's gradient shard scaled by 1.5 before the
+    update of step 1. Written to ``out`` (a rank's own file)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import importlib
+
+    from tpu_trainer_torch.parallel import mesh as mesh_lib
+    from tpu_trainer_torch.training.trainer import Trainer
+    from tpu_trainer_torch.utils import checkpoint as ckpt_lib
+
+    entry = importlib.import_module(f"tpu_trainer_torch.training.train_{mode}")
+    if group is not None:
+        backend, store, rank, world = group
+        mesh_lib.initialize_distributed(
+            num_processes=world, process_id=rank, backend=backend,
+            init_method=f"file://{store}", device="cuda")
+    seen = {"step_ms": [], "rest": []}
+
+    def at_rest(state):
+        torch.cuda.synchronize()
+        trees = {"params": state.params.values(),
+                 "moments": list(state.opt_state.mu.values())
+                 + list(state.opt_state.nu.values())}
+        seen["rest"].append({k: sum(t.numel() * t.element_size() for t in v)
+                             for k, v in trees.items()})
+        seen["rest"][-1]["allocated"] = torch.cuda.memory_allocated()
+        return state
+
+    init, restore = Trainer.init_state, ckpt_lib.restore_checkpoint
+    step = Trainer.train_step
+
+    def timed(self, state, batch, *args, **kwargs):
+        if fault_rank == self.process_index and state.step == 1:
+            apply = self.optimizer.apply
+
+            def scaled(grads, *a, **k):
+                return apply({n: g * 1.5 for n, g in grads.items()}, *a, **k)
+            self.optimizer.apply = scaled
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = step(self, state, batch, *args, **kwargs)
+        torch.cuda.synchronize()
+        seen["step_ms"].append(1e3 * (time.perf_counter() - t0))
+        return result
+
+    Trainer.init_state = lambda self, *a, **k: at_rest(init(self, *a, **k))
+    ckpt_lib.restore_checkpoint = lambda *a, **k: (
+        lambda sm: (at_rest(sm[0]), sm[1]))(restore(*a, **k))
+    Trainer.train_step = timed
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    rc = entry.main(argv)
+    torch.cuda.synchronize()
+    import torch.distributed as dist
+
+    from tpu_trainer_torch.parallel import collectives
+
+    seen.update(rc=rc, rank=mesh_lib.process_index(),
+                collectives=dict(collectives.calls),
+                backend=dist.get_backend() if dist.is_initialized() else None,
+                peak_bytes=torch.cuda.max_memory_allocated(),
+                launches={k: c.launches for k, c in counters.items()})
+    with open(out, "w") as f:
+        json.dump(seen, f)
+
+
+def _dist_spawn(tmp: str, tag: str, mode: str, argv: list, world: int, *,
+                backend: str = "gloo", fault_rank=None) -> list:
+    """``world`` ranks of ``_dist_child`` (one process without a group
+    when ``world`` is 0), started together; each rank's record, in rank
+    order. Ranks rendezvous through a file store in ``tmp`` and share
+    ``cuda:0`` (over gloo unless ``backend`` says otherwise); every
+    collective is bounded (``COORDINATOR_TIMEOUT_S``)."""
+    procs = []
+    store = os.path.join(tmp, f"store_{tag}")
+    for r in range(max(world, 1)):
+        out = os.path.join(tmp, f"dist_{tag}_{r}.json")
+        e = dict(os.environ, COORDINATOR_TIMEOUT_S="120", LOCAL_RANK="0")
+        group = (backend, store, r, world) if world else None
+        code = ("import chip_smoke; chip_smoke._dist_child("
+                f"{mode!r}, {argv!r}, {out!r}, {fault_rank!r}, {group!r})")
+        # Output to files, not pipes: a rank blocked on a full pipe would
+        # stall its peers' collectives while another run is joined.
+        with open(out + ".stdout", "w") as so, \
+                open(out + ".stderr", "w") as se:
+            procs.append((out, subprocess.Popen(
+                [sys.executable, "-c", code], cwd=ROOT, env=e, stdout=so,
+                stderr=se)))
+    return procs
+
+
+def _dist_join_all(spawned: list, timeout: int = 300) -> dict:
+    """``{tag: each rank's record}`` of every ``(tag, procs)`` spawned
+    together; a run that fails or outlives ``timeout`` fails the phase,
+    and every process still running is killed."""
+    recs = {}
+    deadline = time.monotonic() + timeout
+    try:
+        for tag, procs in spawned:
+            recs[tag] = []
+            for out, p in procs:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+                with open(out + ".stdout") as f:
+                    for ln in f.read().splitlines():
+                        log("dist", f"  {tag} | {ln}")
+                if p.returncode != 0:
+                    with open(out + ".stderr") as f:
+                        err = f.read()
+                    raise AssertionError(f"dist: {tag} exited "
+                                         f"{p.returncode}: {err[-3000:]}")
+                with open(out) as f:
+                    recs[tag].append(json.load(f))
+    finally:
+        for _, procs in spawned:
+            for _, p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    return recs
+
+
+def _background(fn):
+    """``fn()`` started on a thread; the returned function waits for it
+    and gives its result or raises its exception."""
+    box = {}
+
+    def run():
+        try:
+            box["value"] = fn()
+        except BaseException as e:  # re-raised by the join below
+            box["error"] = e
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+
+    def join():
+        t.join()
+        if "error" in box:
+            raise box["error"]
+        return box["value"]
+    return join
+
+
+def _dist_state(path: str) -> dict:
+    """A step dir's global arrays (``state.npz`` or stitched shards)."""
+    from tpu_trainer_torch.utils import checkpoint as ckpt_lib
+
+    return ckpt_lib._state_arrays(path, ckpt_lib.load_meta(path))
+
+
+def _dist_equal(what: str, got: dict, want: dict, keys=None) -> int:
+    import numpy as np
+
+    keys = sorted(keys or want)
+    differ = [k for k in keys if not np.array_equal(got[k], want[k])]
+    if differ:
+        raise AssertionError(f"dist: {what}: {len(differ)} of {len(keys)} "
+                             f"arrays differ, e.g. {differ[:4]}")
+    return len(keys)
+
+
+def _dist_close(what: str, got: dict, want: dict, keys, rtol: float
+                ) -> float:
+    """The worst of ``max |got - want| / max |want|`` over ``keys``; it
+    must be at most ``rtol``."""
+    import numpy as np
+
+    worst, at = -1.0, None
+    for k in keys:
+        w = np.asarray(want[k])
+        err = float(np.max(np.abs(np.asarray(got[k]) - w)))
+        rel = err / max(float(np.max(np.abs(w))), 1e-30)
+        if rel > worst:
+            worst, at = rel, k
+    if worst > rtol:
+        raise AssertionError(f"dist: {what}: worst relative difference "
+                             f"{worst:.3e} (at {at}) above {rtol:.0e}")
+    return worst
+
+
+def _dist_zero_yaml(tmp: str, name: str) -> str:
+    """``configs/<name>`` with its dropout rates set to 0 (the runs that
+    are held bitwise or near it to one process: attention dropout folds
+    the rank into its seed)."""
+    import re
+
+    with open(os.path.join(ROOT, "configs", name)) as f:
+        text = f.read()
+    text = re.sub(r"(?m)^(\s*(?:attention_)?dropout:)\s*[0-9.]+",
+                  r"\1 0.0", text)
+    path = os.path.join(tmp, f"nodrop_{name}")
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+# ZeRO at world 2 against one process at accumulation 2. The gradient
+# sums are the world-1 accumulation (two operands), but the global norm
+# adds the shards' squares in another order: on the H100 it comes out an
+# ulp off at steps 0 and 1, which moves the clip coefficient and every
+# moment by an ulp, and by step 2 the bf16 run has drifted (this phase,
+# medium_model.yaml, 3 steps: losses bitwise, the step-2 grad norm
+# 7.835e-05 off, the final moments up to ~2e-02 of their largest value).
+# The bounds sit above those; a moment whose two rank halves are swapped
+# is off by its own size and must fail (the control in ``phase_dist``).
+DIST_NORM_RTOL = 2e-4
+DIST_STATE_RTOL = 5e-2
+
+
+def phase_dist(results: dict, tmp: str) -> dict:
+    """The reference's two trainers across processes on the one card. Each
+    rank is a fresh process that joins its group (``RANK`` / ``WORLD_SIZE``
+    given, a file rendezvous) and then calls the CLI; two ranks share
+    ``cuda:0`` over gloo, every CUDA tensor staged through pinned host
+    memory (NCCL refuses two ranks on one GPU). Runs that do not depend on
+    each other are started together:
+
+    - world 1 over NCCL: ``small_model.yaml`` through ``train_ddp`` (4
+      steps, batch 8) in an NCCL process group at rank 0 of 1: losses and
+      the final state bitwise the run without a process group;
+    - DDP at world 2: ``small_model.yaml`` with dropout 0, a rank batch 4,
+      accumulation 1, 4 steps, against one process with batch 4 and
+      accumulation 2 (the same rows a micro-batch): losses, grad norms
+      and the final masters and moments bitwise; launches exact on each
+      rank; a planted fault (rank 1's gradients scaled at step 1) must be
+      rejected by the same loss check;
+    - ZeRO-3 and ZeRO-2 at world 2: ``medium_model.yaml`` (454 M, dropout
+      0) through ``train_fsdp --sharding FULL_SHARD`` and
+      ``SHARD_GRAD_OP``, a rank batch 4, accumulation 1, 3 steps, against
+      one process at batch 4 x 2: losses bitwise, grad norms within
+      ``DIST_NORM_RTOL`` and every final master and moment within
+      ``DIST_STATE_RTOL`` (the global norm sums the shards in another
+      order; a control with one moment's rank halves swapped must fail
+      it), and the two strategies' final states bitwise each other's; at
+      rest a rank's
+      masters + moments (``memory_allocated``) at most 0.55 x one
+      process's under FULL_SHARD, its moments' bytes at most 0.55 x under
+      SHARD_GRAD_OP; each rank's step ms and peak;
+    - the checkpoint across world sizes: ``small_model.yaml`` (dropout
+      0.1, no remat: the backward regathers the saved weights) through
+      ``train_fsdp --sharding FULL_SHARD`` at world 2, 4 steps with a
+      two-phase save at step 2 (``shard_world: 2``); the step-2 directory
+      alone resumed at world 2 to step 4 must equal the straight run's
+      step 4 bitwise (params, moments, generator), and restored at world
+      1 here its state must be the stitched shards bitwise.
+
+    Two ranks time-slicing one card measure no multi-GPU speed."""
+    import numpy as np
+
+    from tpu_trainer_torch.parallel.sharding import fsdp_dim
+    from tpu_trainer_torch.training import cli
+    from tpu_trainer_torch.training.trainer import Trainer
+    from tpu_trainer_torch.utils import checkpoint as ckpt_lib
+
+    t_phase = time.perf_counter()
+    card = nvidia_smi_line()
+    small = os.path.join(ROOT, "configs", "small_model.yaml")
+    small0 = _dist_zero_yaml(tmp, "small_model.yaml")
+    medium0 = _dist_zero_yaml(tmp, "medium_model.yaml")
+    common = ["--log_interval", "1", "--eval_interval", "0",
+              "--eval_batches", "1", "--keep_last_n", "0",
+              "--no_auto_resume"]
+
+    def argv(tag, config, steps, bs, accum, *extra):
+        return (["--config", config, "--max_steps", str(steps),
+                 "--batch_size", str(bs), "--grad_accum", str(accum),
+                 "--save_interval", "0",
+                 "--checkpoint_dir", os.path.join(tmp, f"ck_{tag}"),
+                 "--metrics_jsonl", os.path.join(tmp, f"{tag}.jsonl")]
+                + common + list(extra))
+
+    def train(tag):
+        return _jsonl(os.path.join(tmp, f"{tag}.jsonl"), "train")
+
+    def want(mode, a, micro, eval_micro):
+        """The launches of ``micro`` training and ``eval_micro`` eval
+        micro-batches of ``a`` (ZeRO-3's backward regathers the weights
+        and runs no block's forward again unless the config asks for
+        remat)."""
+        cfg = cli.resolve_configs(cli.build_parser(mode).parse_args(a),
+                                  mode)[0]
+        return _micro_launches(cfg, micro, eval_micro, segmented=False)
+
+    def check_launches(tag, recs, expect):
+        for r in recs:
+            if r["launches"] != expect:
+                raise AssertionError(f"dist: {tag} rank {r['rank']} "
+                                     f"launches {r['launches']}, want "
+                                     f"{expect}")
+
+    launches = {}
+    out = {"card": card}
+
+    # Two groups of runs share the card; only the resume needs an earlier
+    # run (the straight checkpoint run's step 2). Group 1: world 1 over
+    # NCCL, the same run without a process group, the DDP and ZeRO
+    # one-process baselines and the checkpoint's straight FULL_SHARD run
+    # (small_model.yaml, world 2). Group 2: DDP at world 2, the planted
+    # fault, ZeRO-3 and ZeRO-2 at world 2 and the resume.
+    a_nccl = argv("nccl", small, 4, 8, 1)
+    a_plain = argv("plain", small, 4, 8, 1)
+    a_base = argv("ddp1", small0, 4, 4, 2)
+    a_m1 = argv("m1", medium0, 3, 4, 2)
+    a_ck = argv("ck", small, 4, 4, 1, "--sharding", "FULL_SHARD")
+    a_ck[a_ck.index("--save_interval") + 1] = "2"
+    t0 = time.perf_counter()
+    spawned = [("nccl", _dist_spawn(tmp, "nccl", "ddp", a_nccl, 1,
+                                    backend="nccl")),
+               ("plain", _dist_spawn(tmp, "plain", "ddp", a_plain, 0)),
+               ("ddp1", _dist_spawn(tmp, "ddp1", "ddp", a_base, 0)),
+               ("m1", _dist_spawn(tmp, "m1", "fsdp", a_m1, 0)),
+               ("ck", _dist_spawn(tmp, "ck", "fsdp", a_ck, 2))]
+    recs = _dist_join_all(spawned)
+    group1_s = time.perf_counter() - t0
+    if [recs[t][0]["backend"] for t in ("nccl", "plain")] != ["nccl", None]:
+        raise AssertionError(f"dist: process groups "
+                             f"{[recs[t][0]['backend'] for t in recs]}")
+    for tag, a in (("nccl", a_nccl), ("plain", a_plain)):
+        check_launches(tag, recs[tag], want("ddp", a, 4, 1))
+    check_launches("ddp1", recs["ddp1"], want("ddp", a_base, 8, 2))
+    m1 = recs["m1"][0]
+    check_launches("m1", [m1], want("fsdp", a_m1, 6, 2))
+    straight = recs["ck"]
+    check_launches("ck", straight, want("fsdp", a_ck, 4, 1))
+    for r in straight:
+        _add_launches(launches, r["launches"])
+    if [r["loss"] for r in train("nccl")] != [r["loss"] for r in
+                                              train("plain")]:
+        raise AssertionError("dist: world 1 over NCCL: losses differ from "
+                             "the run without a process group")
+
+    ck_dir = os.path.join(tmp, "ck_ck")
+    step2 = os.path.join(ck_dir, "step_00000002")
+    meta = ckpt_lib.load_meta(step2)
+    if (meta.get("format"), meta.get("shard_world")) != ("host_shards", 2):
+        raise AssertionError(f"dist: step 2's meta {meta.get('format')} / "
+                             f"{meta.get('shard_world')}")
+    resumed_dir = os.path.join(tmp, "ck_resumed")
+    os.makedirs(resumed_dir)
+    shutil.copytree(step2, os.path.join(resumed_dir, "step_00000002"))
+    a_res = list(a_ck)
+    a_res[a_res.index("--checkpoint_dir") + 1] = resumed_dir
+    a_res[a_res.index("--metrics_jsonl") + 1] = os.path.join(tmp,
+                                                             "res.jsonl")
+    a_res.remove("--no_auto_resume")
+    a_ddp = argv("ddp2", small0, 4, 4, 1)
+    a_fault = argv("fault", small0, 3, 4, 1)
+    a_zero = {strategy: argv(f"m2_{strategy}", medium0, 3, 4, 1,
+                             "--sharding", strategy)
+              for strategy in ("FULL_SHARD", "SHARD_GRAD_OP")}
+    # Group 1's final states load while group 2 runs.
+    load_group1 = _background(lambda: {
+        tag: _dist_state(os.path.join(tmp, f"ck_{tag}", f"step_{step:08d}"))
+        for tag, step in (("nccl", 4), ("plain", 4), ("ddp1", 4),
+                          ("m1", 3))})
+    t0 = time.perf_counter()
+    spawned = [("ddp2", _dist_spawn(tmp, "ddp2", "ddp", a_ddp, 2)),
+               ("fault", _dist_spawn(tmp, "fault", "ddp", a_fault, 2,
+                                     fault_rank=1)),
+               ("resumed", _dist_spawn(tmp, "resumed", "fsdp", a_res, 2))]
+    spawned += [(f"m2_{k}", _dist_spawn(tmp, f"m2_{k}", "fsdp", a, 2))
+                for k, a in a_zero.items()]
+    recs = _dist_join_all(spawned)
+    group2_s = time.perf_counter() - t0
+    loaded = load_group1()
+    n = _dist_equal("world 1 over NCCL", loaded.pop("nccl"),
+                    loaded.pop("plain"))
+    log("dist", f"world 1 over NCCL: 4 losses and {n} state arrays bitwise "
+                f"the run without a process group (group 1, five runs "
+                f"sharing the card: {group1_s:.1f} s)")
+    out["nccl"] = {"state_arrays": n}
+
+    # -- DDP at world 2 and the planted fault.
+    ddp = recs["ddp2"]
+    if [r["backend"] for r in ddp] != ["gloo", "gloo"]:
+        raise AssertionError(f"dist: ddp2 backends {ddp}")
+    check_launches("ddp2", ddp, want("ddp", a_ddp, 4, 1))
+    for r in ddp:
+        _add_launches(launches, r["launches"])
+
+    def same_curve(tag, base, norm_rtol=0.0):
+        """Losses (bitwise) and grad norms (within ``norm_rtol``) of run
+        ``tag`` against ``base``'s; the worst relative difference of
+        each."""
+        got, ref = train(tag), train(base)
+        worst = {}
+        for key, rtol in (("loss", 0.0), ("grad_norm", norm_rtol)):
+            g = [r[key] for r in got]
+            w = [r[key] for r in ref][:len(g)]
+            worst[key] = max(abs(a - b) / abs(b) for a, b in zip(g, w))
+            if len(g) != len(w) or worst[key] > rtol:
+                raise AssertionError(
+                    f"dist: {tag}: {key} {g} vs world 1's {w} (worst rtol "
+                    f"{worst[key]:.3e}, bound {rtol:.0e})")
+        return worst
+
+    same_curve("ddp2", "ddp1")
+    want_state = loaded.pop("ddp1")
+    got_state = _dist_state(os.path.join(tmp, "ck_ddp2", "step_00000004"))
+    n = _dist_equal("DDP world 2 vs world 1 accum 2", got_state, want_state,
+                    [k for k in want_state if "/" in k])
+    del want_state, got_state
+    wire = ddp[0]["collectives"]
+    log("dist", f"DDP world 2: rank 0 put "
+                f"{wire.get('reduce_scatter_bytes', 0) / 1e9:.2f} GB on the "
+                f"wire in {wire.get('reduce_scatter', 0)} reduce-scatters "
+                f"and {wire.get('all_gather_bytes', 0) / 1e9:.2f} GB in "
+                f"{wire.get('all_gather', 0)} all-gathers over 4 steps")
+    log("dist", f"DDP world 2: losses, grad norms and {n} final arrays "
+                f"bitwise world 1 at accumulation 2; a rank's step ms "
+                f"{[round(x, 1) for x in ddp[0]['step_ms']]}, peak "
+                f"{ddp[0]['peak_bytes'] / 1e9:.2f} GB ({card}; group 2, "
+                f"five runs sharing the card: {group2_s:.1f} s)")
+    _must_reject("dist: rank 1's gradients scaled",
+                 lambda: same_curve("fault", "ddp1"))
+    out["ddp"] = {"state_arrays": n, "step_ms": [r["step_ms"] for r in ddp],
+                  "peak_gb": [r["peak_bytes"] / 1e9 for r in ddp]}
+
+    # -- ZeRO-3 and ZeRO-2 at world 2 on medium_model.yaml.
+    t0 = time.perf_counter()
+    readers = {k: _background(lambda k=k: _dist_state(
+        os.path.join(tmp, f"ck_m2_{k}", "step_00000003"))) for k in a_zero}
+    zero_states = {k: join() for k, join in readers.items()}
+    m1_state = loaded["m1"]
+    state_keys = [k for k in m1_state if "/" in k]
+    zero = {}
+    for strategy, a in a_zero.items():
+        tag = f"m2_{strategy}"
+        ranks = recs[tag]
+        check_launches(tag, ranks, want("fsdp", a, 3, 1))
+        for r in ranks:
+            _add_launches(launches, r["launches"])
+        worst = same_curve(tag, "m1", DIST_NORM_RTOL)
+        rest1 = m1["rest"][0]
+        ratios = {}
+        for r in ranks:
+            rest = r["rest"][0]
+            ratios[r["rank"]] = {
+                "allocated": rest["allocated"] / rest1["allocated"],
+                "moments": rest["moments"] / rest1["moments"],
+                "params": rest["params"] / rest1["params"]}
+        key = "allocated" if strategy == "FULL_SHARD" else "moments"
+        if any(v[key] > 0.55 for v in ratios.values()):
+            raise AssertionError(f"dist: {tag}: at-rest {key} ratio "
+                                 f"{ratios} above 0.55 of one process")
+        zero[strategy] = {
+            "losses": [r["loss"] for r in train(tag)],
+            "world1_losses": [r["loss"] for r in train("m1")],
+            "worst_rtol": worst, "rest_ratio": ratios,
+            "rest_bytes": [r["rest"][0] for r in ranks],
+            "world1_rest_bytes": rest1,
+            "step_ms": [r["step_ms"] for r in ranks],
+            "peak_gb": [r["peak_bytes"] / 1e9 for r in ranks],
+            "world1_peak_gb": m1["peak_bytes"] / 1e9,
+            "collectives": [r["collectives"] for r in ranks]}
+        wire = ranks[0]["collectives"]
+        log("dist", f"{strategy} world 2 (medium_model.yaml, 454 M): losses "
+                    f"within rtol {worst['loss']:.2e} and grad norms "
+                    f"{worst['grad_norm']:.3e} of world 1; at rest a rank "
+                    f"holds {ratios[0]['allocated']:.3f} of one process's "
+                    f"allocation ({ratios[0]['moments']:.3f} of its "
+                    f"moments); step ms rank 0 "
+                    f"{[round(x, 1) for x in ranks[0]['step_ms']]}, peak "
+                    f"{[round(r['peak_bytes'] / 1e9, 2) for r in ranks]} GB "
+                    f"(world 1 {m1['peak_bytes'] / 1e9:.2f} GB); "
+                    f"rank 0 put {wire.get('all_gather_bytes', 0) / 1e9:.2f} "
+                    f"GB on the wire in {wire.get('all_gather', 0)} "
+                    f"all-gathers and "
+                    f"{wire.get('reduce_scatter_bytes', 0) / 1e9:.2f} GB in "
+                    f"{wire.get('reduce_scatter', 0)} reduce-scatters over "
+                    f"the run (3 steps and the eval) ({card})")
+    # The final masters and moments: ZeRO-3 (gathers, the reduce-scatter
+    # in the backward) against ZeRO-2 (whole masters) bitwise, the same
+    # sums in the same order; ZeRO-3 against one process within
+    # DIST_STATE_RTOL, and a control, one moment with its two rank halves
+    # swapped, must fail that bound.
+    full = zero_states["FULL_SHARD"]
+    n = _dist_equal("FULL_SHARD vs SHARD_GRAD_OP final state", full,
+                    zero_states["SHARD_GRAD_OP"], state_keys)
+    state_rtol = _dist_close("FULL_SHARD final state vs world 1's", full,
+                             m1_state, state_keys, DIST_STATE_RTOL)
+    key = max((k for k in state_keys if "/mu/" in k),
+              key=lambda k: m1_state[k].size)
+    d = fsdp_dim(m1_state[key].shape, 2)
+    swapped = {key: np.concatenate(np.split(full[key], 2, axis=d)[::-1],
+                                   axis=d)}
+    _must_reject(f"dist: {key}'s halves swapped", lambda: _dist_close(
+        "control", swapped, m1_state, [key], DIST_STATE_RTOL))
+    del zero_states, full, swapped, m1_state, loaded
+    for v in zero.values():
+        v["state_worst_rtol"] = state_rtol
+    log("dist", f"ZeRO final state: FULL_SHARD's {n} masters and moments "
+                f"bitwise SHARD_GRAD_OP's, within {state_rtol:.3e} of their "
+                f"largest value of one process's (bound "
+                f"{DIST_STATE_RTOL:.0e}; swapped halves rejected); states "
+                f"read and held in {time.perf_counter() - t0:.1f} s")
+    out["zero"] = zero
+
+    # -- the checkpoint across world sizes.
+    resumed = recs["resumed"]
+    check_launches("resumed", resumed, want("fsdp", a_res, 2, 1))
+    for r in resumed:
+        _add_launches(launches, r["launches"])
+    n = _dist_equal("world-2 resume from step 2", _dist_state(
+        os.path.join(resumed_dir, "step_00000004")),
+        _dist_state(os.path.join(ck_dir, "step_00000004")))
+    cfg, tc, par, _ = cli.resolve_configs(
+        cli.build_parser("fsdp").parse_args(a_ck), "fsdp")
+    trainer = Trainer(cfg, tc, par, device="cuda")
+    restored, _ = ckpt_lib.restore_checkpoint(step2, trainer)
+    m = _dist_equal("world-1 restore of the world-2 directory",
+                    restored.state_dict(), _dist_state(step2))
+    del restored, trainer
+    torch.cuda.empty_cache()
+    ck_zero3 = straight[0]["collectives"]
+    log("dist", f"checkpoint: step 2 saved at world 2 (two-phase, "
+                f"shard_world 2), resumed at world 2 to step 4 with {n} "
+                f"arrays bitwise the straight run, restored at world 1 "
+                f"with {m} arrays bitwise the stitched shards; the "
+                f"straight ZeRO-3 run without remat kept "
+                f"{ck_zero3.get('regather_saved', 0)} saved weights as "
+                f"regather recipes, rank peak "
+                f"{[round(r['peak_bytes'] / 1e9, 2) for r in straight]} GB")
+    out["checkpoint"] = {"arrays": n, "regather_saved":
+                         ck_zero3.get("regather_saved", 0),
+                         "peak_gb": [r["peak_bytes"] / 1e9
+                                     for r in straight]}
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    log("dist", f"phase {out['seconds']:.1f} s")
+    results["dist"] = out
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out", help="also write every measured number here")
@@ -3802,6 +4372,8 @@ def main(argv=None) -> int:
         phase_moe_remat(results, tmp)
         torch.cuda.empty_cache()
         ft = phase_ft(results, tmp)
+        torch.cuda.empty_cache()
+        dist = phase_dist(results, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3821,9 +4393,10 @@ def main(argv=None) -> int:
                 "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
                 "library_ms": library_ms}
 
-    # The ft phase's paths launch the training kernels too: each row counts
-    # its main path's launches plus the ft phase's.
-    ftl = ft["launches"]
+    # The ft and dist phases' paths launch the training kernels too: each
+    # row counts its main path's launches plus theirs.
+    ftl = dict(ft["launches"])
+    _add_launches(ftl, dist["launches"])
     train_launches = {k: v + ftl.get(k, 0) for k, v in train_launches.items()}
     packed_launches = {k: v + ftl.get(k, 0)
                        for k, v in packed_launches.items()}

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Mutation checks of the port's hand-written CUDA kernels, on the card.
+"""Mutation checks of the port's hand-written CUDA kernels and its
+collectives, on the card.
 
-For each named mutation: copy the port (``tpu_trainer_torch/`` and
-``chip_smoke.py``) into a temporary directory, plant one fault into a
-kernel source there, and run the ``chip_smoke.py`` phase that must catch it.
+For each named mutation: copy the port (``tpu_trainer_torch/``,
+``configs/`` and ``chip_smoke.py``) into a temporary directory, plant one
+fault into a source there, and run the ``chip_smoke.py`` phase that must
+catch it.
 The check passes when that phase fails. The faults keep every kernel's walk
 over its tiles or pages as it is (a producer and its consumers that fall
 out of step hang instead of failing):
@@ -25,6 +27,9 @@ out of step hang instead of failing):
 - ``head_ce_no_vocab_mask``: the head + CE kernel leaves the columns past
   V of its last vocab tile (E's zero-filled rows, logit 0) in the
   statistics; phase ``train_kernel`` must fail.
+- ``sum_skips_last_rank``: the collectives' rank-order sum
+  (``parallel/collectives.py::_ordered_sum``) leaves out the last rank's
+  part; phase ``dist`` must fail.
 
 Needs one CUDA GPU and nvcc; writes nothing into the checkout. Run from the
 repository root: ``python3 scripts/torch_kernel_mutations.py [name ...]``.
@@ -73,6 +78,11 @@ MUTATIONS = {
         "if (ragged && v0 + col >= V) x = acc[4 * j + e] = kNeg;",
         "if (ragged && v0 + col < 0) x = acc[4 * j + e] = kNeg;",
         "train_kernel"),
+    "sum_skips_last_rank": (
+        "tpu_trainer_torch/parallel/collectives.py",
+        "for i in range(1, parts.shape[0]):",
+        "for i in range(1, parts.shape[0] - 1):",
+        "dist"),
 }
 
 
@@ -84,6 +94,7 @@ def run(name: str, timeout: float = 600.0) -> bool:
         shutil.copytree(ROOT / "tpu_trainer_torch",
                         Path(tmp) / "tpu_trainer_torch",
                         ignore=shutil.ignore_patterns("_build", "__pycache__"))
+        shutil.copytree(ROOT / "configs", Path(tmp) / "configs")
         shutil.copy2(ROOT / "chip_smoke.py", tmp)
         path = Path(tmp) / src
         code = path.read_text()
@@ -91,10 +102,14 @@ def run(name: str, timeout: float = 600.0) -> bool:
             raise RuntimeError(f"{name}: the text to mutate occurs "
                                f"{code.count(text)} times in {src}")
         path.write_text(code.replace(text, mutated))
-        program = ("import torch, chip_smoke as cs\n"
+        # A phase that takes a working directory gets a fresh one.
+        program = ("import inspect, tempfile, torch, chip_smoke as cs\n"
                    "torch.backends.cuda.matmul.allow_tf32 = False\n"
                    "r = {}\ncs.phase_card(r)\n"
-                   f"cs.phase_{phase}(r)\n")
+                   f"fn = cs.phase_{phase}\n"
+                   "n = sum(p.kind == p.POSITIONAL_OR_KEYWORD for p in "
+                   "inspect.signature(fn).parameters.values())\n"
+                   "fn(r, *([tempfile.mkdtemp()] if n > 1 else []))\n")
         proc = subprocess.run([sys.executable, "-c", program], cwd=tmp,
                               capture_output=True, text=True,
                               timeout=timeout)

@@ -380,3 +380,245 @@ def test_async_saver_copies_host_resident_moments(tmp_path):
     assert not np.array_equal(
         state.state_dict()["opt_state/mu/embed_tokens/embedding"],
         want["opt_state/mu/embed_tokens/embedding"])
+
+
+# -- several processes: the two-phase commit ------------------------------------
+
+def _trained(n=2):
+    trainer = make_trainer()
+    state = trainer.init_state()
+    for b in batches(n):
+        state, _ = trainer.train_step(state, b)
+    return trainer, state
+
+
+def _simulated_save(tmp_path, state, world, hosts=None, **kw):
+    """A ``world``-rank two-phase save from one process, rank 0 last."""
+    path = None
+    for host in hosts if hosts is not None else range(world - 1, -1, -1):
+        path = ckpt.save_checkpoint(
+            str(tmp_path), state, model_config=MODEL, training_config=TRAIN,
+            process_index=host, process_count=world, **kw)
+    return path
+
+
+def test_simulated_two_phase_commit_restores_bitwise(tmp_path):
+    _, state = _trained()
+    data = {"kind": "dummy", "epoch": 0, "batch_index": 2, "seed": 3,
+            "global_batch_size": 4, "feed_world": 2}
+    path = _simulated_save(tmp_path, state, 2, data_state=data)
+    meta = ckpt.load_meta(path)
+    assert meta["format"] == ckpt.HOST_SHARDS_FORMAT
+    assert meta["shard_world"] == 2 and meta["data_state"] == data
+    assert meta["opt_count"] == 2 and meta["step"] == 2
+    assert sorted(os.listdir(path)) == ["commit", "meta.json", "shards"]
+    assert sorted(os.listdir(os.path.join(path, "commit"))) == [
+        "host00000.done", "host00001.done"]
+    restored, _ = ckpt.restore_checkpoint(path, make_trainer())
+    assert_state_equal(state, restored)
+    # Each element is written once: a leaf the rule splits lies half in
+    # each rank's file, a whole leaf (and the generator) in rank 0's.
+    with open(os.path.join(path, "shards", "host00001.json")) as f:
+        leaves = {e["key"]: e for e in json.load(f)["leaves"]}
+    q = leaves["params/layers/attention/q_proj/kernel"]
+    assert q["shards"][0]["start"] == [0, 0, 16]
+    assert leaves["generator"]["shards"] == []
+
+
+def test_kill_in_save_between_marker_and_meta_is_invisible(tmp_path,
+                                                           monkeypatch):
+    from tpu_trainer_torch.utils import faults
+
+    trainer, state = _trained()
+    good = _simulated_save(tmp_path, state, 2)
+    state, _ = trainer.train_step(state, batches(1, seed=9)[0])
+
+    class Killed(Exception):
+        pass
+
+    def die():
+        raise Killed()
+
+    monkeypatch.setattr(faults, "kill", die)
+    faults.install("kill_in_save@3")
+    try:
+        with pytest.raises(Killed):
+            _simulated_save(tmp_path, state, 2, hosts=[1])
+    finally:
+        faults.clear()
+    torn = str(tmp_path / "step_00000003")
+    assert os.path.exists(os.path.join(torn, "shards", "host00001.npz"))
+    assert os.path.exists(os.path.join(torn, "commit", "host00001.done"))
+    assert not os.path.exists(os.path.join(torn, "meta.json"))
+    # Rank 0 never ran phase 2 either (a host that died before its turn):
+    # still no meta, and no scan reports the step.
+    assert ckpt.latest_checkpoint(str(tmp_path)) == good
+    assert [s for s, _ in ckpt.list_checkpoints(str(tmp_path))] == [2]
+    restored, meta = ckpt.restore_latest(str(tmp_path), make_trainer())[:2]
+    assert meta["step"] == 2
+
+
+def test_two_phase_barrier_times_out_without_a_peer(tmp_path, monkeypatch):
+    monkeypatch.setenv("TPU_TRAINER_CKPT_BARRIER_TIMEOUT_S", "0.2")
+    _, state = _trained()
+    snap = ckpt.host_shard_snapshot(state, host=0, world=2)
+    with pytest.raises(TimeoutError, match="2 host DONE markers"):
+        ckpt._commit_two_phase(str(tmp_path), snap, model_config=MODEL,
+                               training_config=TRAIN, tokens_seen=0,
+                               data_state=None, keep_last_n=0, host=0,
+                               world=2)
+    assert ckpt.list_checkpoints(str(tmp_path)) == []
+
+
+def _slice(arr, key, world, rank):
+    from tpu_trainer_torch.parallel.sharding import fsdp_dim
+
+    d = fsdp_dim(arr.shape, world)
+    if d is None or key == "generator":
+        return arr
+    k = arr.shape[d] // world
+    return arr[(slice(None),) * d + (slice(rank * k, (rank + 1) * k),)]
+
+
+def test_real_world2_commit_restores_at_worlds_1_2_4(tmp_path):
+    """A ZeRO-3 run at world 2 saves through the two-phase commit; the
+    directory restores bitwise at world 2 (each rank its own slices), at
+    world 1 (the stitched global arrays) and at world 4 (every rank its
+    quarter); a world-1 ``state.npz`` restores at world 2."""
+    from tests.torch_dist_worker import assemble, run_world
+
+    _, state1 = _trained()
+    w1 = ckpt.save_checkpoint(str(tmp_path / "w1"), state1,
+                              model_config=MODEL, training_config=TRAIN)
+    model = {f.name: getattr(MODEL, f.name)
+             for f in dataclasses.fields(MODEL)}
+    train = dataclasses.asdict(TRAIN)
+
+    def job(name, world, steps, restore, **extra):
+        return {"name": name, "kind": "train", "strategy": "FULL_SHARD",
+                "mesh": {"data": 1, "fsdp": world}, "model": model,
+                "train": train, "steps": steps, "data_seed": 3,
+                "restore": restore, **extra}
+
+    w2 = str(tmp_path / "w2")
+    step2 = os.path.join(w2, "step_00000002")
+    out = run_world(tmp_path, 2, [
+        job("save", 2, 2, w1, save_at=2, save_dir=w2),
+        job("again", 2, 0, step2)])
+    meta = ckpt.load_meta(step2)
+    assert meta["format"] == ckpt.HOST_SHARDS_FORMAT
+    assert meta["shard_world"] == 2
+    assert meta["data_state"]["feed_world"] == 2
+    saved = assemble([r["records"] for r in out["save"]])
+    sd1 = state1.state_dict()
+    for rank in range(2):
+        # 1 -> 2: the world-1 arrays' slices.
+        for key, arr in out["save"][rank]["restored"].items():
+            assert np.array_equal(arr, _slice(sd1[key], key, 2, rank)), key
+        # 2 -> 2: this rank's own slices and the generator.
+        again = out["again"][rank]
+        for key, arr in out["save"][rank]["final"].items():
+            assert np.array_equal(again["restored"][key], arr), key
+        assert again["restored_scalars"] == out["save"][rank]["scalars"]
+        assert np.array_equal(again["restored_generator"],
+                              saved["generator"])
+    # 2 -> 1: the stitched arrays, bitwise.
+    restored, _ = ckpt.restore_checkpoint(step2, make_trainer())
+    sd = restored.state_dict()
+    for key, arr in saved.items():
+        assert np.array_equal(sd[key], arr), key
+    assert restored.step == 2 and restored.opt_state.count == 2
+    # 2 -> 4.
+    four = run_world(tmp_path, 4, [job("four", 4, 0, step2)])["four"]
+    for rank, res in enumerate(four):
+        for key, arr in res["restored"].items():
+            assert np.array_equal(arr, _slice(saved[key], key, 4, rank)), key
+
+
+def test_corrupt_checkpoint_is_quarantined_once_at_world2(tmp_path):
+    """A ZeRO-3 run at world 2 saves steps 1 and 2 and ``corrupt_shard``
+    damages step 2's shards. Both ranks restarted with auto-resume agree:
+    step 2 is quarantined once (rank 0 renames, the peers wait) and both
+    restore step 1, each rank its own slices of it."""
+    from tests.torch_dist_worker import run_world
+
+    model = {f.name: getattr(MODEL, f.name)
+             for f in dataclasses.fields(MODEL)}
+    d = str(tmp_path / "ck")
+    common = {"kind": "train", "strategy": "FULL_SHARD",
+              "mesh": {"data": 1, "fsdp": 2}, "model": model,
+              "train": dataclasses.asdict(TRAIN), "data_seed": 3}
+    out = run_world(tmp_path, 2, [
+        {**common, "name": "save", "steps": 2, "save_at": [1, 2],
+         "save_dir": d, "faults": "corrupt_shard@2"},
+        {**common, "name": "resume", "steps": 0, "restore_latest": d}])
+    step1 = os.path.join(d, "step_00000001")
+    assert sorted(os.listdir(d)) == ["step_00000001",
+                                     "step_00000002.corrupt"]
+    assert [r["latest"] for r in out["resume"]] == [
+        {"path": step1, "step": 1}] * 2
+    want, _ = ckpt.restore_checkpoint(step1, make_trainer())
+    sd = want.state_dict()
+    for rank, res in enumerate(out["resume"]):
+        for key, arr in res["restored"].items():
+            assert np.array_equal(arr, _slice(sd[key], key, 2, rank)), key
+
+
+def test_export_param_shards_crosses_to_jax_and_back(tmp_path):
+    from tpu_trainer.utils import checkpoint as jckpt
+
+    from tpu_trainer_torch.models.weights import to_jax_params
+
+    _, state = _trained(1)
+    tree = to_jax_params(state.params)
+    port_dir = ckpt.export_param_shards(tree, str(tmp_path / "p"),
+                                        world=3)
+    jax_dir = jckpt.export_param_shards(tree, str(tmp_path / "j"), world=3)
+
+    def flat(t, prefix=""):
+        out = {}
+        for k, v in t.items():
+            name = f"{prefix}/{k}" if prefix else k
+            out.update(flat(v, name) if isinstance(v, dict)
+                       else {name: np.asarray(v)})
+        return out
+
+    for loader, path in ((jckpt.load_param_shards, port_dir),
+                         (ckpt.load_param_shards, jax_dir)):
+        got, want = flat(loader(path)), flat(tree)
+        assert set(got) == set(want)
+        for k in want:
+            assert got[k].dtype == want[k].dtype
+            assert np.array_equal(got[k], want[k]), k
+    # The same files: manifests, markers and meta equal, npz members too.
+    for sub in ("shards", "commit"):
+        names = sorted(os.listdir(os.path.join(port_dir, sub)))
+        assert names == sorted(os.listdir(os.path.join(jax_dir, sub)))
+        for name in names:
+            a, b = (os.path.join(d, sub, name) for d in (port_dir, jax_dir))
+            if name.endswith(".npz"):
+                with np.load(a) as za, np.load(b) as zb:
+                    assert za.files == zb.files
+                    for f in za.files:
+                        assert np.array_equal(za[f], zb[f])
+            else:
+                assert open(a).read() == open(b).read(), name
+    assert ckpt.load_meta(port_dir) == jckpt.load_meta(jax_dir)
+
+
+@pytest.mark.parametrize("state,gbs,world", [
+    (None, 8, 2),
+    ({"kind": "dummy", "epoch": 0, "batch_index": 3, "seed": 3}, 8, 2),
+    ({"kind": "map", "epoch": 1, "batch_index": 3, "seed": 0,
+      "global_batch_size": 8, "feed_world": 2}, 8, 1),
+    ({"kind": "dummy", "epoch": 0, "batch_index": 3, "seed": 3,
+      "global_batch_size": 16, "feed_world": 4}, 6, 1),
+    ({"kind": "streaming", "epoch": 0, "batch_index": 5, "seed": 0,
+      "global_batch_size": 4, "feed_world": 2}, 3, None),
+])
+def test_remap_data_state_matches_jax(state, gbs, world):
+    from tpu_trainer.utils.checkpoint import remap_data_state as jremap
+
+    assert ckpt.remap_data_state(
+        state, new_global_batch_size=gbs, new_feed_world=world) == jremap(
+        state, new_global_batch_size=gbs, new_feed_world=world)

@@ -310,28 +310,40 @@ def test_sigterm_saves_and_exits_143(tmp_path, yaml_file, monkeypatch):
 
 # -- options of later ROADMAP items ----------------------------------------------
 
+_PLANNER = (NotImplementedError, "Queue 1: the planner")
+_PIPELINE = (NotImplementedError, "Queue 1: pipeline and expert parallelism")
+
+
 @pytest.mark.parametrize("extra,item", [
-    (["--mesh", "auto"], "item 5"),
-    (["--mesh_tensor", "2"], "item 5"),
-    (["--mesh_data", "4"], "item 5"),
-    (["--multihost"], "item 5"),
-    (["--hbm_gb", "40"], "item 5"),
-    (["--pipeline_microbatches", "2"], "item 5"),
-    (["--mesh_fsdp", "2"], "item 5"),
-    (["--mesh_sequence", "2"], "item 5"),
-    (["--mesh_expert", "2"], "item 5"),
-    (["--mesh_stage", "2"], "item 5"),
-    (["--num_experts", "4"], "item 8"),
-    (["--no_comms_model"], "item 5"),
+    (["--mesh", "auto"], _PLANNER),
+    (["--mesh_tensor", "2"],
+     (NotImplementedError, "Queue 1: tensor parallelism and hybrid meshes")),
+    # Data parallelism runs; at one process a 4-way mesh is the JAX
+    # world-size error.
+    (["--mesh_data", "4"], (SystemExit, "wants 4 devices but 1 are")),
+    (["--multihost"], (RuntimeError, "--multihost needs a rendezvous")),
+    (["--hbm_gb", "40"], _PLANNER),
+    (["--pipeline_microbatches", "2"], _PIPELINE),
+    (["--mesh_fsdp", "2"],
+     (SystemExit, "1 devices not divisible by fixed axes product 2")),
+    (["--mesh_sequence", "2"],
+     (NotImplementedError, "Queue 1: the sequence ring")),
+    (["--mesh_expert", "2"], _PIPELINE),
+    (["--mesh_stage", "2"], _PIPELINE),
+    (["--num_experts", "4"],
+     (NotImplementedError, "Queue 1: the capacity router, on one device")),
+    (["--no_comms_model"], _PLANNER),
 ])
 def test_later_item_options_raise(extra, item):
-    with pytest.raises(NotImplementedError, match=f"Queue 1 {item}"):
+    exc, match = item
+    with pytest.raises(exc, match=match):
         cli.run_training(["--device", "cpu", "--max_steps", "1"] + extra)
 
 
 def test_standby_file_raises_naming_item_5(monkeypatch, tmp_path):
     monkeypatch.setenv("TPU_TRAINER_STANDBY_FILE", str(tmp_path / "standby"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(NotImplementedError,
+                       match="Queue 1: elastic training at world > 1"):
         cli.run_training(["--device", "cpu", "--max_steps", "1"])
 
 
@@ -368,8 +380,10 @@ def test_heartbeat_and_notice_env_are_supported(monkeypatch, tmp_path):
 def test_train_fsdp_mode_and_missing_cuda_raise():
     import torch
 
-    for extra in (["--sharding", "HYBRID_SHARD"], ["--mesh_fsdp", "2"]):
-        with pytest.raises(NotImplementedError, match="item 5"):
+    for extra, match in (
+            (["--sharding", "HYBRID_SHARD"], "needs an explicit mesh split"),
+            (["--mesh_fsdp", "2"], "wants 2 devices but 1 are")):
+        with pytest.raises(SystemExit, match=match):
             cli.run_training(["--device", "cpu"] + extra, mode="fsdp")
     if not torch.cuda.is_available():
         from tpu_trainer_torch.training.train_ddp import main

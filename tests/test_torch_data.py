@@ -269,3 +269,71 @@ def test_loader_without_cuda_stream_places_inline():
     assert feed.next().tolist() == [1, 2, 3, 4]
     with pytest.raises(StopIteration):
         feed.next()
+
+
+# -- per-process sharding (several ranks) ---------------------------------------
+
+def _rows(batches):
+    return [r.tobytes() for b in batches for r in b]
+
+
+@pytest.mark.parametrize("world", [2, 3])
+def test_map_style_rank_rows_match_jax_disjoint_covering(jx, corpus, world):
+    """Rank r's map-style batches (a stride of the epoch's permutation,
+    ragged tail dropped) are the JAX loader's bitwise, the ranks' rows are
+    disjoint and together cover every row of the whole-epoch stride."""
+    kw = dict(tokenizer_name="byte", seed=5, eval_split=0.1, prefetch=0)
+    per_rank = []
+    for r in range(world):
+        ours = create_tinystories_dataloader(corpus.txt, 2, SEQ,
+                                             process_index=r,
+                                             process_count=world, **kw)
+        theirs = jx.ts(corpus.txt, 2, SEQ, process_index=r,
+                       process_count=world, **kw)
+        got = _drain(ours)
+        _assert_batches_equal(got, _drain(theirs))
+        assert len(ours) == len(theirs) == len(got)
+        _assert_batches_equal(_drain(ours.eval_loader),
+                              _drain(theirs.eval_loader))
+        per_rank.append(_rows(got))
+    assert len({len(rows) for rows in per_rank}) == 1
+    everything = [row for rows in per_rank for row in rows]
+    assert len(set(everything)) == len(everything)          # disjoint
+    # Covering: one process with the ranks' joint batch reads the same
+    # rows, the permutation's first world * batches * 2 entries.
+    whole = create_tinystories_dataloader(corpus.txt, 2 * world, SEQ, **kw)
+    assert set(_rows(_drain(whole))) == set(everything)
+
+
+@pytest.mark.parametrize("world", [2, 3])
+def test_streaming_rank_rows_match_jax_disjoint_covering(jx, corpus, world):
+    """Rank r streams the lines ``i % world == r``: its batches and held-out
+    batches are the JAX loader's bitwise, and the ranks' documents are
+    disjoint and cover the file's (the packed document stream shows it
+    per line)."""
+    kw = dict(tokenizer_name="byte", streaming=True, seed=1,
+              eval_holdout_every=3, prefetch=0)
+    docs = []
+    for r in range(world):
+        ours = create_openwebtext_dataloader(corpus.gz, 2, SEQ,
+                                             process_index=r,
+                                             process_count=world, **kw)
+        theirs = jx.owt(corpus.gz, 2, SEQ, process_index=r,
+                        process_count=world, **kw)
+        _assert_batches_equal(_drain(ours), _drain(theirs))
+        assert ours.state_dict() == theirs.state_dict()
+        _assert_batches_equal(_drain(ours.eval_loader),
+                              _drain(theirs.eval_loader))
+        for role in ("train", "eval"):
+            ds = ttext.StreamingTextDataset(
+                corpus.gz, SEQ, tokenizer_name="byte", shard_id=r,
+                num_shards=world, holdout=(role, 3))
+            jds = jx.text.StreamingTextDataset(
+                corpus.gz, SEQ, tokenizer_name="byte", shard_id=r,
+                num_shards=world, holdout=(role, 3))
+            mine = [tuple(d) for d in ds.iter_documents()]
+            assert mine == [tuple(d) for d in jds.iter_documents()]
+            docs.extend(mine)
+    whole = ttext.StreamingTextDataset(corpus.gz, SEQ,
+                                       tokenizer_name="byte")
+    assert sorted(docs) == sorted(tuple(d) for d in whole.iter_documents())

@@ -239,12 +239,17 @@ def test_cli_sampled_serve_equals_kv_path(saved, capsys):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--spec", "ngram", "--serve"], "item 6"),
-    (["--mesh_data", "2"], "item 5"),
-    (["--mesh_tensor", "2"], "item 7"),
+    (["--spec", "ngram", "--serve"],
+     (NotImplementedError, "Queue 1: serving on one device")),
+    # Data-parallel decode runs; at one process a 2-way mesh is the
+    # world-size error.
+    (["--mesh_data", "2"], (SystemExit, "wants 2 devices but 1 are")),
+    (["--mesh_tensor", "2"],
+     (NotImplementedError, "Queue 1: serving across devices")),
 ])
 def test_cli_later_item_flags_raise(saved, extra, match):
-    with pytest.raises(NotImplementedError, match=match):
+    exc, text = match
+    with pytest.raises(exc, match=text):
         infer.main(["--checkpoint", saved[0], "--device", "cpu"] + extra)
 
 
@@ -253,3 +258,35 @@ def test_cli_without_cuda_raises(saved):
         pytest.skip("this machine has CUDA: the default device is valid")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         infer.main(["--checkpoint", saved[0]])
+
+
+@pytest.mark.parametrize("temperature", ["0", "0.9"])
+def test_cli_mesh_data_two_ranks_equals_one_process(saved, tmp_path, capsys,
+                                                    temperature):
+    """``--mesh_data 2`` on two gloo CPU ranks under ``torchrun
+    --standalone``: each rank decodes half the ragged prompts, rank 0
+    alone prints every row, and the text is the one-process run's, greedy
+    and sampled (each row keeps its global seed)."""
+    import subprocess
+    import sys
+
+    prompts = tmp_path / "prompts.txt"
+    prompts.write_text("Once upon a time\nhi\nthe cat sat\nab\n")
+    args = ["--checkpoint", saved[0], "--prompt_file", str(prompts),
+            "--max_new_tokens", "5", "--temperature", temperature,
+            "--top_k", "20", "--seed", "3"]
+    one, _ = _run(args, capsys)
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "2", "-m", "tpu_trainer_torch.eval.infer",
+         "--device", "cpu", "--tokenizer", "byte", "--mesh_data", "2"]
+        + args,
+        env=dict(os.environ, OMP_NUM_THREADS="1",
+                 COORDINATOR_TIMEOUT_S="120"),
+        capture_output=True, text=True, timeout=180)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    # Both ranks write to torchrun's stdout: rank 1 adds nothing.
+    assert proc.stdout == one
+    with pytest.raises(SystemExit):
+        infer.main(["--checkpoint", saved[0], "--device", "cpu",
+                    "--mesh_data", "3"])

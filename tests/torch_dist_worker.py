@@ -1,0 +1,243 @@
+"""One rank of a multi-process port test, run as a script:
+
+    python tests/torch_dist_worker.py <spec.json> <rank>
+
+``spec.json`` names the world size, a ``file://`` rendezvous store (no
+TCP port, so parallel test workers never collide) and a list of jobs;
+each job writes ``<out>/<name>_r<rank>.pt`` (``torch.save`` of a dict of
+numpy arrays and scalars) for the test to compare. Jobs:
+
+- ``train``: a ``Trainer`` at the job's strategy and mesh takes ``steps``
+  steps of ``DummyDataLoader`` batches (this rank's rows); writes the
+  losses, grad norms, this rank's local arrays at init and at the end,
+  its ``shard_records()``, the collectives it ran (``collectives.calls``),
+  and optionally arms a fault plan
+  (``faults``), saves a checkpoint at each step of ``save_at``, restores
+  a checkpoint (``restore``) into a fresh state and restores the newest
+  loadable checkpoint of a directory (``restore_latest``; every rank
+  lists the directory before any rank goes on, so a rank that renames
+  cannot hide a step from a slower peer's scan);
+- ``dropout``: this rank's residual keep mask and attention seed, drawn
+  the way the training forward draws them;
+- ``guards``: ``check_hosts_in_sync`` on agreeing and disagreeing
+  ``(step, loss)`` pairs, and the mesh's ``global_any`` and
+  ``broadcast_from_host0``.
+
+The CPU only, gloo, f32.
+"""
+
+import json
+import os
+import sys
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+from tpu_trainer_torch.data.dummy import DummyDataLoader  # noqa: E402
+from tpu_trainer_torch.models.config import GPTConfig  # noqa: E402
+from tpu_trainer_torch.models.gpt import _TrainStep  # noqa: E402
+from tpu_trainer_torch.models.weights import (  # noqa: E402
+    from_jax_params,
+    load_params_npz,
+)
+from tpu_trainer_torch.parallel import collectives  # noqa: E402
+from tpu_trainer_torch.parallel import mesh as mesh_lib  # noqa: E402
+from tpu_trainer_torch.parallel.mesh import (  # noqa: E402
+    MeshConfig,
+    initialize_distributed,
+)
+from tpu_trainer_torch.training.config import TrainingConfig  # noqa: E402
+from tpu_trainer_torch.training.trainer import (  # noqa: E402
+    ParallelConfig,
+    Trainer,
+    _moment_arrays,
+)
+from tpu_trainer_torch.utils import checkpoint as ckpt  # noqa: E402
+from tpu_trainer_torch.utils import faults  # noqa: E402
+
+
+def local_arrays(state) -> dict:
+    """This rank's slice of every checkpoint array, by key."""
+    out = {}
+    for prefix, tree in state._trees():
+        for name, m in tree.items():
+            out.update(_moment_arrays(f"{prefix}/{name.replace('.', '/')}",
+                                      m))
+    return out
+
+
+def make_trainer(job) -> Trainer:
+    mesh = MeshConfig(**job.get("mesh", {}))
+    return Trainer(GPTConfig(**job["model"]), TrainingConfig(**job["train"]),
+                   ParallelConfig(mesh=mesh,
+                                  sharding_strategy=job["strategy"]),
+                   device="cpu")
+
+
+def train(job) -> dict:
+    if job.get("faults"):
+        faults.install(job["faults"])
+    collectives.calls.clear()
+    tr = make_trainer(job)
+    params = None
+    if job.get("params_npz"):
+        params = from_jax_params(load_params_npz(job["params_npz"]),
+                                 tr.model_config, device="cpu")
+    state = tr.init_state(params=params)
+    out = {"init": local_arrays(state), "losses": [], "grad_norms": [],
+           "feed": (tr.data_feed_rank, tr.data_feed_world)}
+    loader = DummyDataLoader(tr.global_batch_size, job["train"]["max_seq_len"],
+                             job["model"]["vocab_size"],
+                             num_batches=job["steps"],
+                             seed=job.get("data_seed", 11),
+                             process_index=tr.data_feed_rank,
+                             process_count=tr.data_feed_world)
+    for batch in loader:
+        if job.get("scale_grad_rank") == tr.process_index and state.step == 1:
+            # A planted fault: this rank's gradient shard scaled before
+            # the update (the test requires the run to be caught).
+            orig = tr.optimizer.apply
+
+            def scaled(grads, *a, **k):
+                return orig({n: g * 1.5 for n, g in grads.items()}, *a, **k)
+            tr.optimizer.apply = scaled
+        state, m = tr.train_step(state, batch)
+        out["losses"].append(m["loss"])
+        out["grad_norms"].append(m["grad_norm"])
+        save_at = job.get("save_at")
+        if state.step in (save_at if isinstance(save_at, list)
+                          else [save_at]):
+            ckpt.save_checkpoint(job["save_dir"], state,
+                                 model_config=tr.model_config,
+                                 training_config=tr.training_config,
+                                 data_state={"kind": "dummy", "epoch": 0,
+                                             "batch_index": state.step,
+                                             "seed": 11,
+                                             **tr.feed_signature})
+    out["final"] = local_arrays(state)
+    out["records"] = state.shard_records()
+    out["scalars"] = state.scalars()
+    out["collectives"] = dict(collectives.calls)
+    if job.get("restore"):
+        restored, meta = ckpt.restore_checkpoint(job["restore"],
+                                                 make_trainer(job))
+        out["restored"] = local_arrays(restored)
+        out["restored_scalars"] = restored.scalars()
+        out["restored_generator"] = restored.generator.get_state().numpy()
+    if job.get("restore_latest"):
+        scan = ckpt.list_checkpoints
+
+        def scan_together(d):
+            found = scan(d)
+            mesh_lib.barrier()
+            return found
+        ckpt.list_checkpoints = scan_together
+        try:
+            restored, meta, path = ckpt.restore_latest(
+                job["restore_latest"], make_trainer(job))
+        finally:
+            ckpt.list_checkpoints = scan
+        out["latest"] = {"path": path, "step": meta["step"]}
+        out["restored"] = local_arrays(restored)
+    faults.clear()
+    return out
+
+
+def dropout(job) -> dict:
+    tr = make_trainer(job)
+    cfg = tr.model_config
+    b, s, h = job["rows"], job["train"]["max_seq_len"], cfg.hidden_size
+    gen = torch.Generator().manual_seed(job["seed"])
+    step = _TrainStep(train=True, generator=gen, rope=None,
+                      segment_ids=None, shard=tr.model.data_shard)
+    kept = tr.model._residual_dropout(torch.ones(b, s, h), step) != 0
+    return {"residual_keep": kept.numpy(),
+            "attention_seed": step.attention_seed(),
+            "shard": tr.model.data_shard}
+
+
+def guards(job) -> dict:
+    from tpu_trainer_torch.utils.guards import (DivergenceError,
+                                                check_hosts_in_sync)
+
+    rank = mesh_lib.process_index()
+    check_hosts_in_sync(7, 2.5)
+    try:
+        check_hosts_in_sync(7, 2.5 + rank)
+        caught = None
+    except DivergenceError as e:
+        caught = str(e)
+    mesh_lib.barrier()
+    return {"caught": caught,
+            "any": mesh_lib.global_any(rank == 1),
+            "none": mesh_lib.global_any(False),
+            "from0": mesh_lib.broadcast_from_host0({"rank": rank})}
+
+
+def run_world(tmp_path, world: int, jobs, timeout: float = 240.0) -> dict:
+    """Run ``jobs`` on ``world`` rank processes (this script); returns
+    ``{job name: [rank 0's result, rank 1's, ...]}``. A rank that fails
+    or outlives ``timeout`` fails the caller with every rank's output."""
+    import subprocess
+    import uuid
+
+    tag = uuid.uuid4().hex[:8]
+    spec = {"world": world, "store": str(tmp_path / f"store_{tag}"),
+            "out": str(tmp_path), "jobs": jobs}
+    spec_path = tmp_path / f"spec_{tag}.json"
+    spec_path.write_text(json.dumps(spec))
+    env = dict(os.environ, OMP_NUM_THREADS="1", COORDINATOR_TIMEOUT_S="120")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), str(spec_path), str(r)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    assert not bad, "\n".join(f"--- rank {r} (rc {procs[r].returncode})\n"
+                               f"{outs[r][-4000:] if r < len(outs) else ''}"
+                               for r in bad)
+    return {job["name"]: [torch.load(tmp_path / f"{job['name']}_r{r}.pt",
+                                     weights_only=False)
+                          for r in range(world)] for job in jobs}
+
+
+def assemble(records_by_rank) -> dict:
+    """Global arrays from every rank's ``shard_records()``."""
+    out = {}
+    for records in records_by_rank:
+        for rec in records:
+            buf = out.get(rec["key"])
+            if buf is None:
+                buf = out[rec["key"]] = np.zeros(rec["global_shape"],
+                                                 dtype=rec["dtype"])
+            for starts, arr in rec["shards"]:
+                buf[tuple(slice(s, s + n) for s, n in
+                          zip(starts, arr.shape))] = arr
+    return out
+
+
+def main(spec_path: str, rank: int) -> None:
+    with open(spec_path) as f:
+        spec = json.load(f)
+    initialize_distributed(num_processes=spec["world"], process_id=rank,
+                           init_method=f"file://{spec['store']}")
+    for job in spec["jobs"]:
+        result = {"train": train, "dropout": dropout,
+                  "guards": guards}[job["kind"]](job)
+        torch.save(result, os.path.join(spec["out"],
+                                        f"{job['name']}_r{rank}.pt"))
+
+
+if __name__ == "__main__":
+    main(sys.argv[1], int(sys.argv[2]))

@@ -5,12 +5,15 @@ streaming tokenized datasets, the batching loader and its cursor.
   total-token budget (``cache_max_tokens``), evicting from the front.
 - **Map-style dataset**: tokenize the whole file up front (optionally
   capped by ``max_tokens``), concatenate, split into ``seq_len`` chunks.
-- **Streaming dataset**: a rolling token buffer over the file's lines
-  emitting ``seq_len`` chunks, a ``max_tokens`` budget, optional per-document segment ids
-  (``mask_doc_boundaries``) and an every-N-th-line holdout for eval.
+- **Streaming dataset**: line-modulo sharding across processes
+  (``line_idx % num_shards == shard_id``), a rolling token buffer over the
+  shard's lines emitting ``seq_len`` chunks, a ``max_tokens`` budget,
+  optional per-document segment ids (``mask_doc_boundaries``) and an
+  every-N-th-line holdout for eval.
 - **gzip transparency** and the ``.gz``/plain path fallback.
-- **Sampling** (map-style): ``drop_last`` batches, reshuffled every epoch
-  by an epoch-seeded permutation.
+- **Sampling** (map-style): disjoint per-process strides of one
+  epoch-seeded permutation (``process_index`` / ``process_count``),
+  ``drop_last`` batches, reshuffled every epoch.
 - **Cursor**: ``TextDataLoader.state_dict`` / ``load_state_dict`` give the
   exact consumed-batch position a checkpoint resumes from.
 
@@ -225,12 +228,16 @@ class StreamingTextDataset:
         tokenizer_on_fallback: str = "warn",
         holdout=None,
         mask_doc_boundaries: bool = False,
+        shard_id: int = 0,
+        num_shards: int = 1,
     ):
-        """``holdout=(role, N)`` carves an eval split out of the stream:
-        every N-th line (``line_idx % N == N - 1``) belongs to eval.
-        ``role="train"`` skips those lines; ``role="eval"`` yields only
-        them. The port reads on one process; per-host line sharding waits
-        for multi-host loading (ROADMAP Queue 1 item 5)."""
+        """Process ``shard_id`` of ``num_shards`` reads the lines with
+        ``line_idx % num_shards == shard_id``. ``holdout=(role, N)`` carves
+        an eval split out of the stream: every N-th line *of each shard*
+        (``(line_idx // num_shards) % N == N - 1``) belongs to eval, so a
+        shared factor of N and the shard count never leaves a shard an
+        empty stream. ``role="train"`` skips those lines; ``role="eval"``
+        yields only them."""
         self.path = resolve_path(path)
         self.seq_len = seq_len
         self.tokenizer = get_tokenizer(
@@ -238,6 +245,8 @@ class StreamingTextDataset:
         )
         self.max_tokens = max_tokens
         self.num_workers = num_workers
+        self.shard_id = shard_id
+        self.num_shards = num_shards
         if holdout is not None:
             role, every = holdout
             if role not in ("train", "eval") or every < 2:
@@ -261,9 +270,12 @@ class StreamingTextDataset:
         role, every = self.holdout if self.holdout else (None, 0)
         for line_idx, line in enumerate(f):
             if role is not None:
-                is_eval_line = line_idx % every == every - 1
+                is_eval_line = (
+                    (line_idx // self.num_shards) % every == every - 1)
                 if is_eval_line == (role == "train"):
                     continue
+            if line_idx % self.num_shards != self.shard_id:
+                continue
             line = line.strip()
             if line:
                 yield line_idx, line
@@ -391,10 +403,13 @@ class StreamingTextDataset:
 class TextDataLoader:
     """Batches chunks into ``[batch_size, seq_len]`` int32 arrays.
 
-    ``batch_size`` is the row count of one optimizer step (= micro_batch x
-    grad_accum, torch's per-rank DataLoader semantics,
+    ``batch_size`` is this process's row count of one optimizer step (=
+    micro_batch x grad_accum, torch's per-rank DataLoader semantics,
     ``ddp_trainer.py:538``). Map-style epochs reshuffle with an
-    epoch-seeded permutation; streaming reads the lines in file order.
+    epoch-seeded permutation, of which process ``process_index`` of
+    ``process_count`` takes every ``process_count``-th row (disjoint
+    strides, the same number of full batches on every process); streaming
+    reads the dataset's own line shard in file order.
 
     ``prefetch > 0`` assembles batches on a background thread, ``prefetch``
     batches ahead (``data/prefetch.py``) — the torch-DataLoader overlap the
@@ -409,9 +424,13 @@ class TextDataLoader:
         seed: int = 0,
         drop_last: bool = True,
         prefetch: int = 2,
+        process_index: int = 0,
+        process_count: int = 1,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.process_index = process_index
+        self.process_count = process_count
         self.seed = seed
         self.drop_last = drop_last
         self.prefetch = prefetch
@@ -504,16 +523,20 @@ class TextDataLoader:
             n = len(self.dataset)
             rng = np.random.default_rng((self.seed, epoch))
             order = rng.permutation(n)
-            # Drop the ragged tail (drop_last=True, reference
-            # tinystories.py:158).
-            for b in range(start, n // self.batch_size):
-                idx = order[b * self.batch_size : (b + 1) * self.batch_size]
+            # Disjoint per-process strides; drop the ragged tail so every
+            # process sees the same number of full batches (drop_last=True,
+            # reference tinystories.py:158).
+            stride = self.process_count * self.batch_size
+            order = order[: (n // stride) * stride]
+            local = order[self.process_index :: self.process_count]
+            for b in range(start, len(local) // self.batch_size):
+                idx = local[b * self.batch_size : (b + 1) * self.batch_size]
                 yield np.stack([self.dataset[i] for i in idx])
 
     def __len__(self) -> int:
         if self.streaming:
             raise TypeError("streaming loader has no length")
-        return len(self.dataset) // self.batch_size
+        return len(self.dataset) // (self.process_count * self.batch_size)
 
 
 def create_text_dataloader(
@@ -532,6 +555,8 @@ def create_text_dataloader(
     eval_split: float = 0.0,
     eval_holdout_every: int = 0,
     mask_doc_boundaries: bool = False,
+    process_index: int = 0,
+    process_count: int = 1,
 ) -> TextDataLoader:
     """Factory shared by the dataset-specific wrappers (reference factory
     signatures: ``tinystories.py:122-134``, ``openwebtext.py:133-145``).
@@ -546,8 +571,10 @@ def create_text_dataloader(
     (streaming) reserves every N-th line. Either attaches an ``eval_loader``
     (batching over the held-out rows only, prefetch off) to the returned
     train loader; train and eval rows are disjoint by construction. The
-    attribute is None when no split is requested.
+    attribute is None when no split is requested. ``process_index`` /
+    ``process_count`` shard both: streaming by line, map-style by row.
     """
+    ranks = dict(process_index=process_index, process_count=process_count)
     eval_loader = None
     if streaming:
         holdout = ("train", eval_holdout_every) if eval_holdout_every else None
@@ -559,14 +586,16 @@ def create_text_dataloader(
         )
         dataset = StreamingTextDataset(
             path, seq_len, num_workers=num_workers, holdout=holdout,
-            mask_doc_boundaries=mask_doc_boundaries, **common
+            mask_doc_boundaries=mask_doc_boundaries, shard_id=process_index,
+            num_shards=process_count, **common
         )
         if eval_holdout_every:
             eval_ds = StreamingTextDataset(
-                path, seq_len, holdout=("eval", eval_holdout_every), **common
+                path, seq_len, holdout=("eval", eval_holdout_every),
+                shard_id=process_index, num_shards=process_count, **common
             )
             eval_loader = TextDataLoader(eval_ds, batch_size, seed=seed,
-                                         prefetch=0)
+                                         prefetch=0, **ranks)
     else:
         full = TextDataset(
             path, seq_len, tokenizer_name=tokenizer_name,
@@ -592,9 +621,10 @@ def create_text_dataloader(
                 dataset = ChunkSubset(full, 0, n - n_eval)
                 eval_loader = TextDataLoader(
                     ChunkSubset(full, n - n_eval, n), batch_size, seed=seed,
-                    prefetch=0,
+                    prefetch=0, **ranks,
                 )
-    loader = TextDataLoader(dataset, batch_size, seed=seed, prefetch=prefetch)
+    loader = TextDataLoader(dataset, batch_size, seed=seed, prefetch=prefetch,
+                            **ranks)
     loader.eval_loader = eval_loader
     return loader
 

@@ -13,9 +13,17 @@ the paged serving engine with ``--serve`` (one request a prompt, seed
 ``--seed`` + row, decode attention through the flash-decode kernel on the
 card). ``--prompt_file`` decodes one ragged batch, a prompt a line.
 
+``--mesh_data N`` decodes on N processes (launched as the training CLI
+is, e.g. ``torchrun --nproc_per_node N``): the prompt rows split over the
+ranks in order (their count must divide), each rank decodes its rows on
+the KV path with the global width and row seeds, and rank 0 gathers and
+prints every row, the tokens the one-process run gives.
+
 Runs on CUDA unless ``--device cpu``; without a GPU and without that flag
-it raises. ``--spec`` (ROADMAP Queue 1 item 6) and ``--mesh_data`` /
-``--mesh_tensor`` above 1 (items 5 and 7) raise.
+it raises. ``--spec`` (ROADMAP Queue 1: "serving on one device:
+speculative decoding and the KV store") and ``--mesh_tensor`` above 1
+(ROADMAP Queue 1: "serving across devices: TP decode and the fleet")
+raise.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ import torch
 from tpu_trainer_torch.models.config import GPTConfig
 from tpu_trainer_torch.models.gpt import generate, generate_kv
 from tpu_trainer_torch.models.weights import build_model
+from tpu_trainer_torch.parallel import mesh as mesh_lib
 from tpu_trainer_torch.utils.checkpoint import (latest_checkpoint,
                                                 restore_params)
 from tpu_trainer_torch.utils.device import resolve_device
@@ -81,12 +90,25 @@ def main(argv=None, *, result: Optional[dict] = None) -> int:
     if args.spec != "off":
         raise NotImplementedError(
             "--spec (speculative decoding) is not ported yet -> ROADMAP "
-            "Queue 1 item 6")
-    if args.mesh_data > 1 or args.mesh_tensor > 1:
+            "Queue 1: serving on one device: speculative decoding and the "
+            "KV store")
+    if args.mesh_tensor > 1:
         raise NotImplementedError(
-            "--mesh_data / --mesh_tensor > 1 are not ported yet -> ROADMAP "
-            "Queue 1 item 5 (data) and item 7 (tensor-parallel decode)")
+            "--mesh_tensor > 1 (tensor-parallel decode) is not ported yet "
+            "-> ROADMAP Queue 1: serving across devices: TP decode and the "
+            "fleet")
     device = resolve_device(args.device)
+    shards = args.mesh_data
+    if shards > 1:
+        if device.type == "cuda":
+            device = mesh_lib.local_device(device)
+        mesh_lib.initialize_distributed(device=device)
+        try:
+            mesh_lib.MeshConfig(data=shards).resolve(
+                mesh_lib.process_count())
+        except ValueError as mesh_err:
+            raise SystemExit(f"mesh: {mesh_err}") from mesh_err
+    rank = mesh_lib.process_index() if shards > 1 else 0
 
     path = latest_checkpoint(args.checkpoint) or args.checkpoint
     if not os.path.exists(path):
@@ -128,6 +150,13 @@ def main(argv=None, *, result: Optional[dict] = None) -> int:
                 "--max_new_tokens to fit max_seq_len, or drop --no_kv_cache")
     if args.record_trace and not args.serve:
         p.error("--record_trace records served requests; add --serve")
+    if shards > 1:
+        if args.serve or not use_kv:
+            p.error("--mesh_data decodes on the KV path: drop --serve / "
+                    "--no_kv_cache and fit --max_new_tokens in max_seq_len")
+        if len(rows) % shards:
+            p.error(f"{len(rows)} prompts not divisible by --mesh_data "
+                    f"{shards}")
 
     if args.serve:
         if args.no_kv_cache:
@@ -174,22 +203,34 @@ def main(argv=None, *, result: Optional[dict] = None) -> int:
         return 0
 
     model = build_model(config, params, device)
-    input_ids = torch.tensor([r + [0] * (width - len(r)) for r in rows],
-                             dtype=torch.long, device=device)
+    # This rank's rows (all of them at one process), at the global width
+    # and with their global row seeds.
+    per = len(rows) // shards
+    lo = rank * per
+    mine = range(lo, lo + per)
+    input_ids = torch.tensor([rows[i] + [0] * (width - lens[i])
+                              for i in mine], dtype=torch.long, device=device)
     kw = dict(max_new_tokens=args.max_new_tokens,
-              temperature=args.temperature, top_k=args.top_k, seed=args.seed)
+              temperature=args.temperature, top_k=args.top_k,
+              seed=args.seed + lo)
     if use_kv:
-        prompt_lens = (torch.tensor(lens, device=device)
+        prompt_lens = (torch.tensor([lens[i] for i in mine], device=device)
                        if len(set(lens)) > 1 else None)
         buf = generate_kv(model, input_ids, prompt_lens=prompt_lens, **kw)
     else:
         buf = generate(model, input_ids, **kw)
     buf = buf.cpu().tolist()
     out = []
-    for i, n in enumerate(lens):
-        n_real = n + args.max_new_tokens if use_kv else len(buf[i])
-        out.append(buf[i][:n_real])
-        print(tokenizer.decode(out[-1]))
+    for j, i in enumerate(mine):
+        n_real = lens[i] + args.max_new_tokens if use_kv else len(buf[j])
+        out.append(buf[j][:n_real])
+    if shards > 1:
+        parts = [None] * mesh_lib.process_count()
+        torch.distributed.all_gather_object(parts, out)
+        out = [row for part in parts for row in part]
+    if rank == 0:
+        for row in out:
+            print(tokenizer.decode(row))
     if result is not None:
         result.update(tokens=out)
     return 0

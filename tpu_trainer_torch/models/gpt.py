@@ -58,6 +58,19 @@ compute dtype, logits returned as f32.
 
 The block pools are updated in place (the JAX module returns new pools);
 that keeps one copy of the cache on the device.
+
+At world > 1 a trainer sets two attributes (``training/trainer.py``):
+``zero3`` (ZeRO-3: the parameters are this rank's shards, gathered by a
+``parallel.collectives.ZeroGather``; the embedding and final norm once a
+forward, a block's inside the block. The training forward runs inside
+``collectives.regather_saved``: autograd keeps no gathered weight, nor
+its cast to the compute dtype (``_matmuls`` makes it through
+``collectives.derive``), and the backward gathers it again; under the
+remat checkpoint the block's rerun gathers again instead) and
+``data_shard`` (this rank's data shard and their count: residual dropout
+hashes the global batch's linear index, so a shard's mask is the
+one-process mask's rows, and the attention-dropout seed folds in the
+shard, ``ops.attention.fold_seed``).
 """
 
 from __future__ import annotations
@@ -79,13 +92,18 @@ from torch.utils.checkpoint import (
 from tpu_trainer_torch.models.config import GPTConfig
 from tpu_trainer_torch.models.moe import check_moe, dropless_moe
 from tpu_trainer_torch.ops import flash as flash_lib
-from tpu_trainer_torch.ops.attention import reference_attention, repeat_kv
+from tpu_trainer_torch.ops.attention import (
+    fold_seed,
+    reference_attention,
+    repeat_kv,
+)
 from tpu_trainer_torch.ops.dropout import hash_dropout
 from tpu_trainer_torch.ops.loss import (
     fused_shifted_cross_entropy,
     segment_target_mask,
 )
 from tpu_trainer_torch.ops.rope import apply_rotary_pos_emb, rope_tables
+from tpu_trainer_torch.parallel import collectives as coll_lib
 from tpu_trainer_torch.utils import telemetry
 from tpu_trainer_torch.utils.quant import (
     dequantize_kv_int8,
@@ -374,7 +392,7 @@ class GPT(nn.Module):
         if config.num_experts > 0 and config.decode_paged:
             raise NotImplementedError(
                 "MoE decode is not ported: the paged engine serves dense "
-                "models only (ROADMAP Queue 1)")
+                "models only (ROADMAP Queue 1: MoE in the paged engine)")
         self.config = cfg = config
         self.embed_tokens = Embed(cfg.vocab_size, cfg.hidden_size,
                                   dtype=cfg.compute_dtype,
@@ -382,6 +400,9 @@ class GPT(nn.Module):
         self.layers = TransformerBlock(cfg, device=device)
         self.norm = RMSNorm(cfg.hidden_size, dtype=cfg.compute_dtype,
                             device=device)
+        # Set by a trainer at world > 1 (module docstring).
+        self.zero3 = None
+        self.data_shard = (0, 1)
 
     def forward(self, input_ids: torch.Tensor, *args, **kwargs):
         """``config.decode_paged``: ``_paged_forward(input_ids, cache, *,
@@ -390,6 +411,9 @@ class GPT(nn.Module):
         segment_ids=None, generator=None) -> (logits, loss)``."""
         if self.config.decode_paged:
             return self._paged_forward(input_ids, *args, **kwargs)
+        if self.zero3 is not None and torch.is_grad_enabled():
+            with coll_lib.regather_saved():
+                return self._train_forward(input_ids, *args, **kwargs)
         return self._train_forward(input_ids, *args, **kwargs)
 
     # -- training / evaluation ---------------------------------------------
@@ -417,14 +441,17 @@ class GPT(nn.Module):
         if dropout_on and generator is None:
             raise ValueError("train=True with dropout needs a generator")
         b, s = input_ids.shape
-        x = self.embed_tokens(input_ids)
+        cd = cfg.compute_dtype
+        emb = self._leaf("embed_tokens.embedding")
+        x = emb[input_ids].to(cd)
         capturing = telemetry.capturing()
         if capturing:
             telemetry.record("embed_out", telemetry.site_stats(x))
         rope = rope_tables(s, cfg.head_dim, cfg.rope_theta, device=x.device)
         step = _TrainStep(train=train, generator=generator, rope=rope,
                           segment_ids=segment_ids,
-                          telem=[] if capturing else None)
+                          telem=[] if capturing else None,
+                          shard=self.data_shard)
         remat = torch.is_grad_enabled()
         block = (self._remat_block if cfg.gradient_checkpointing and remat
                  else self._train_block)
@@ -435,27 +462,32 @@ class GPT(nn.Module):
                 moe_aux = moe_aux + aux
         if step.telem:
             telemetry.record("layers", telemetry.stack_layers(step.telem))
-        x = self.norm(x)
+        x = _rms_norm(x, self._leaf("norm.weight"), self.norm.eps,
+                      self.norm.dtype)
         if capturing:
             telemetry.record("final_norm", telemetry.site_stats(x))
+
+        def attend(h):
+            return h.to(cd) @ coll_lib.derive(lambda e: e.to(cd), [emb]).T
+
         if telemetry.capturing(deep=True):
             # The full f32 logits, nan-scan only: without this site a NaN
             # entering in the head product is indistinguishable from one
             # entering in the loss (the fused loss never forms them).
             with torch.no_grad():
-                telemetry.record("logits", telemetry.site_stats(
-                    self.embed_tokens.attend(x).float()))
+                telemetry.record("logits",
+                                 telemetry.site_stats(attend(x).float()))
 
         remat_head = (labels is not None and not cfg.fused_loss
                       and cfg.remat_lm_head)
         logits = None
         if labels is None or not (cfg.fused_loss or remat_head):
-            logits = self.embed_tokens.attend(x).float()
+            logits = attend(x).float()
         loss = None
         if labels is not None:
             if cfg.fused_loss:
                 loss = fused_shifted_cross_entropy(
-                    self.embed_tokens.embedding, x, labels,
+                    emb, x, labels,
                     chunk_size=cfg.loss_chunk_size,
                     allow_pallas=cfg.fused_loss_pallas,
                     segment_ids=segment_ids)
@@ -463,7 +495,7 @@ class GPT(nn.Module):
                 # Nothing of the [b, s, vocab] softmax survives the
                 # forward; the backward recomputes the head matmul.
                 def head_loss(xf):
-                    lg = self.embed_tokens.attend(xf).float()
+                    lg = attend(xf).float()
                     return _masked_shifted_mean(
                         softmax_cross_entropy(lg[:, :-1], labels[:, 1:]),
                         segment_ids)
@@ -479,13 +511,36 @@ class GPT(nn.Module):
                 loss = loss + moe_aux / cfg.num_layers
         return logits, loss
 
+    def _leaf(self, name: str) -> torch.Tensor:
+        """A parameter outside the layer stack, gathered under ZeRO-3."""
+        module, attr = name.rsplit(".", 1)
+        t = getattr(self.get_submodule(module), attr)
+        return t if self.zero3 is None else self.zero3.leaf(name, t)
+
     def _unstacked_layers(self) -> List[Dict[str, torch.Tensor]]:
         """Per-layer views of the stacked ``layers.*`` parameters, one
-        ``unbind`` per parameter (its backward is a single stack)."""
+        ``unbind`` per parameter (its backward is a single stack). Under
+        ZeRO-3 the views are of this rank's shards (``_gather_layer``
+        gathers a layer's inside its block); a leaf sharded along the
+        layer dim (only where the layer count is its largest divisible
+        dim) is gathered whole here instead."""
         named = list(self.layers.named_parameters())
+        z = self.zero3
+        if z is not None:
+            named = [(n, p if z.per_layer(f"layers.{n}")
+                      else z.leaf(f"layers.{n}", p)) for n, p in named]
         views = [p.unbind(0) for _, p in named]
         return [{n: v[i] for (n, _), v in zip(named, views)}
                 for i in range(self.config.num_layers)]
+
+    def _gather_layer(self, p: Dict[str, torch.Tensor]
+                      ) -> Dict[str, torch.Tensor]:
+        """One layer's full parameters from its shard views (ZeRO-3; the
+        views themselves otherwise)."""
+        z = self.zero3
+        if z is None:
+            return p
+        return {n: z.layer(f"layers.{n}", t) for n, t in p.items()}
 
     def _qkv(self, x, p):
         """q ``[b, s, heads, d]``, k and v ``[b, s, kv_heads, d]`` of one
@@ -506,19 +561,27 @@ class GPT(nn.Module):
         cfg = self.config
         cd = cfg.compute_dtype
         b, s, _ = x.shape
+        p = self._gather_layer(p)
         q, k, v = self._qkv(x, p)
         attn_drop = step.train and cfg.attention_dropout > 0.0
+        coord, shards = step.shard
         if cfg.use_flash_attention:
             out = flash_lib.flash_attention(
                 q.contiguous(), k.contiguous(), v.contiguous(),
                 dropout_rate=cfg.attention_dropout if attn_drop else 0.0,
-                seed=step.seed() if attn_drop else None, rope=step.rope,
-                segment_ids=step.segment_ids)
+                seed=step.attention_seed() if attn_drop else None,
+                rope=step.rope, segment_ids=step.segment_ids)
         else:
             q, k = apply_rotary_pos_emb(q, k, *step.rope)
+            gen = step.generator
+            if attn_drop and shards > 1:
+                # Masks differ across data shards (the flash path's seed
+                # fold): a generator seeded from the folded seed.
+                gen = torch.Generator(device=gen.device).manual_seed(
+                    step.attention_seed())
             out = reference_attention(
                 q, k, v, dropout_rate=cfg.attention_dropout,
-                deterministic=not step.train, generator=step.generator,
+                deterministic=not step.train, generator=gen,
                 segment_ids=step.segment_ids)
         out = _matmuls(out.reshape(b, s, cfg.hidden_size),
                        [p["attention.o_proj.kernel"]], cd, False)[0]
@@ -600,11 +663,18 @@ class GPT(nn.Module):
         rate = self.config.dropout
         if not step.train or rate <= 0.0:
             return x
+        coord, shards = step.shard
         if self.config.fast_dropout:
-            return hash_dropout(x, rate, step.seed())
+            # The hash runs over the global batch's linear index: data
+            # shard r's rows are the world-1 mask's rows [r*b, (r+1)*b).
+            return hash_dropout(x, rate, step.seed(),
+                                offset=coord * x.numel(),
+                                total=shards * x.numel())
         gen = step.generator
-        keep = (torch.rand(x.shape, generator=gen, device=gen.device)
-                >= rate).to(x.device)
+        rows = x.shape[0]
+        keep = (torch.rand((shards * rows,) + tuple(x.shape[1:]),
+                           generator=gen, device=gen.device)
+                >= rate)[coord * rows:(coord + 1) * rows].to(x.device)
         return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
     # -- contiguous KV cache ------------------------------------------------
@@ -712,11 +782,22 @@ class _TrainStep:
     segment_ids: Optional[torch.Tensor]
     # Per-layer telemetry stats of a captured forward, else None.
     telem: Optional[list] = None
+    # This rank's data shard (coordinate, count); (0, 1) at one process.
+    shard: tuple = (0, 1)
 
     def seed(self) -> int:
         """A fresh uint32 dropout seed from the generator."""
         return int(torch.randint(0, 2**32, (1,), generator=self.generator,
                                  dtype=torch.int64).item())
+
+    def attention_seed(self) -> int:
+        """A fresh attention-dropout seed, folded with the data-shard
+        coordinate when there are several shards (the JAX
+        ``attention_shard_coord`` fold): masks decorrelate across data
+        shards, and one process draws the plain seed."""
+        coord, shards = self.shard
+        seed = self.seed()
+        return fold_seed(seed, coord) if shards > 1 else seed
 
 
 def _matmuls(x: torch.Tensor, kernels: List[torch.Tensor], dtype,
@@ -725,9 +806,10 @@ def _matmuls(x: torch.Tensor, kernels: List[torch.Tensor], dtype,
     them as one matmul over the concatenated kernels."""
     x = x.to(dtype)
     if fused and len(kernels) > 1:
-        out = x @ torch.cat(kernels, dim=1).to(dtype)
+        out = x @ coll_lib.derive(
+            lambda *ws: torch.cat(ws, dim=1).to(dtype), kernels)
         return list(torch.split(out, [w.shape[-1] for w in kernels], dim=-1))
-    return [x @ w.to(dtype) for w in kernels]
+    return [x @ coll_lib.derive(lambda w: w.to(dtype), [w]) for w in kernels]
 
 
 _SAVED_DOTS = frozenset((torch.ops.aten.mm.default,
@@ -831,6 +913,15 @@ def init_paged_cache(config: GPTConfig, batch_size: int, *,
         cache["scale_v"] = torch.zeros(sshape, dtype=torch.float32,
                                        device=device)
     return cache
+
+
+def count_parameters(params) -> int:
+    """Total parameter count (the JAX ``count_parameters``): the elements
+    of every tensor or array of a name -> tensor mapping (a state dict,
+    ``TrainState.params``) or of a module's parameters."""
+    if isinstance(params, nn.Module):
+        params = dict(params.named_parameters())
+    return sum(int(np.prod(tuple(v.shape))) for v in params.values())
 
 
 # -- generation ----------------------------------------------------------------

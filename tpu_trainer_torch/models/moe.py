@@ -23,7 +23,8 @@ routing distribution, ``drop_frac`` (0: nothing is dropped),
 ``max_group_frac`` and ``dropless`` = 1.
 
 The capacity router (``moe_impl="capacity"``, the JAX default) is not
-ported (``ROADMAP.md`` Queue 1 item 8); ``check_moe`` raises for it.
+ported (``ROADMAP.md`` Queue 1: "the capacity router, on one device");
+``check_moe`` raises for it.
 """
 
 from __future__ import annotations
@@ -43,7 +44,7 @@ def check_moe(cfg: GPTConfig) -> None:
         raise NotImplementedError(
             f"moe_impl={cfg.moe_impl!r}: only the dropless MoE is ported; "
             f"the capacity router (gather/einsum dispatch) is ROADMAP Queue "
-            f"1")
+            f"1: the capacity router, on one device")
 
 
 def route(xt: torch.Tensor, router_kernel: torch.Tensor, cfg: GPTConfig,

@@ -4,6 +4,11 @@
 segment) mask -> f32 softmax -> dropout -> @V. The fused training path
 is ``ops.flash.flash_attention``.
 
+``fold_seed`` is the JAX ``attention_shard_coord`` fold: at world > 1 the
+attention-dropout seed folds in the data-shard coordinate, so masks
+decorrelate across data shards and only across them (the kernels take the
+folded seed unchanged).
+
 All functions take ``q, k, v`` as ``[batch, seq, heads, head_dim]``.
 """
 
@@ -13,6 +18,21 @@ import math
 from typing import Optional
 
 import torch
+
+from tpu_trainer_torch.ops.dropout import murmur_mix
+
+_GOLDEN = 0x9E3779B9
+
+
+def fold_seed(seed: int, coord: int) -> int:
+    """A uint32 seed for shard ``coord`` of a sharded attention call:
+    ``fmix32(seed ^ fmix32(golden * (coord + 1)))``. Distinct shards get
+    unrelated seeds; one process never folds."""
+    c = torch.tensor([(_GOLDEN * (int(coord) + 1)) & 0xFFFFFFFF],
+                     dtype=torch.int64)
+    key = int(murmur_mix(c).item())
+    return int(murmur_mix(torch.tensor([(int(seed) ^ key) & 0xFFFFFFFF],
+                                       dtype=torch.int64)).item())
 
 
 def causal_mask(seq_len: int, device=None) -> torch.Tensor:

@@ -4,6 +4,11 @@ The keep mask is murmur3's fmix32 of each element's flat index XOR a
 uint32 seed, compared with ``rate * 2**32``: bitwise the JAX package's mask
 for the same seed. Plain PyTorch (the JAX package has no kernel here).
 
+At world > 1 the JAX package traces the hash on the global array, so a
+data shard's mask is the global mask's slice: ``offset`` starts the
+index at the shard's first element (``total`` is the global size, which
+the uint32 counter must cover).
+
 Torch has no full uint32 arithmetic, so the hash runs on int64 tensors
 holding uint32 values: every product is formed from 16-bit halves
 (``mul32``), so no partial product leaves int64's range, and each step is
@@ -40,25 +45,30 @@ def murmur_mix(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
-def hash_keep(shape, rate: float, seed: int, device=None) -> torch.Tensor:
-    """Boolean keep mask of ``hash_dropout`` for a tensor of ``shape``."""
+def hash_keep(shape, rate: float, seed: int, device=None, *,
+              offset: int = 0, total=None) -> torch.Tensor:
+    """Boolean keep mask of ``hash_dropout`` for a tensor of ``shape``
+    whose elements have the linear indices ``offset ..`` of an array of
+    ``total`` elements (default: the tensor itself)."""
     n = 1
     for d in shape:
         n *= int(d)
-    if n >= 2**32:
+    if (n if total is None else total) >= 2**32:
         raise ValueError("hash_dropout counters are uint32: tensor too large")
-    idx = torch.arange(n, dtype=torch.int64, device=device)
+    idx = torch.arange(offset, offset + n, dtype=torch.int64, device=device)
     h = murmur_mix(idx ^ (int(seed) & _U32))
     return (h >= threshold_u32(rate)).reshape(shape)
 
 
-def hash_dropout(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
+def hash_dropout(x: torch.Tensor, rate: float, seed: int, *,
+                 offset: int = 0, total=None) -> torch.Tensor:
     """Inverted dropout with the counter-based keep mask of ``seed`` (a
     uint32): zero with probability ``rate``, survivors divided by ``1 -
     rate`` rounded to ``x``'s dtype (as JAX divides by a weakly typed
-    scalar)."""
+    scalar). ``offset`` / ``total``: ``hash_keep``."""
     if rate <= 0.0:
         return x
-    keep = hash_keep(x.shape, rate, seed, device=x.device)
+    keep = hash_keep(x.shape, rate, seed, device=x.device, offset=offset,
+                     total=total)
     keep_prob = torch.tensor(1.0 - rate, dtype=x.dtype, device=x.device)
     return torch.where(keep, x / keep_prob, torch.zeros_like(x))

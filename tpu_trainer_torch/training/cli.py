@@ -1,15 +1,23 @@
-"""Training CLI (port of ``tpu_trainer/training/cli.py``): the
-single-process loop behind ``python -m tpu_trainer_torch.training.train_ddp``
-and ``python -m tpu_trainer_torch.training.train_fsdp``.
+"""Training CLI (port of ``tpu_trainer/training/cli.py``): the loop
+behind ``python -m tpu_trainer_torch.training.train_ddp`` and
+``python -m tpu_trainer_torch.training.train_fsdp``, one process a device.
 
 The same flag names and YAML schema as the JAX CLI (``configs/*.yaml``
-load unchanged; CLI flags over YAML over the dataclass defaults), on one
-device. ``mode="fsdp"`` adds the JAX fsdp flags (``--sharding`` in the
-reference spellings, ``--cpu_offload``, ``--offload_dtype``,
-``--offload_budget_gb``, ``--no_activation_checkpointing``; activation
-checkpointing on by default) and the YAML ``fsdp:`` section; at one
-process every sharding strategy is the ddp step, and the strategy only
-shows in the startup line.
+load unchanged; CLI flags over YAML over the dataclass defaults).
+``mode="fsdp"`` adds the JAX fsdp flags (``--sharding`` in the reference
+spellings, ``--cpu_offload``, ``--offload_dtype``, ``--offload_budget_gb``,
+``--no_activation_checkpointing``; activation checkpointing on by default)
+and the YAML ``fsdp:`` section.
+
+Several processes: launch under ``torchrun --nproc_per_node N`` (or set
+``COORDINATOR_ADDRESS`` / ``NUM_PROCESSES`` / ``PROCESS_ID``; ``--multihost``
+requires one of them); ``parallel/mesh.initialize_distributed`` joins the
+group (NCCL on CUDA, gloo on the CPU; a process group that already
+exists is kept). The mesh is ``--mesh_data`` x ``--mesh_fsdp`` (ddp: every
+process on data; fsdp: every process on fsdp; ``HYBRID_SHARD`` needs both
+flags), each process loads its own rows (``Trainer.data_feed_rank``),
+rank 0 alone prints and writes the logs, checkpoints take the two-phase
+commit, and ``check_hosts_in_sync`` runs with the finite-loss guard.
 
 - data: dummy, packed dummy, or a local text corpus (``.txt`` / ``.gz``,
   map-style or streaming, optionally packed) through the host prefetch
@@ -42,7 +50,7 @@ shows in the startup line.
 
 Each step's loss and grad norm stay on the device and are read two steps
 later (``utils/telemetry.DeferredFetcher``). Every option of a later
-ROADMAP item raises ``NotImplementedError`` naming the item
+ROADMAP entry raises ``NotImplementedError`` naming the entry by its title
 (``check_supported``); none is silently ignored.
 """
 
@@ -61,6 +69,7 @@ import torch
 
 from tpu_trainer_torch.data.device_prefetch import DevicePrefetcher
 from tpu_trainer_torch.models.config import GPTConfig
+from tpu_trainer_torch.parallel import mesh as mesh_lib
 from tpu_trainer_torch.training.config import TrainingConfig
 from tpu_trainer_torch.training.optimizer import STATE_DTYPES
 from tpu_trainer_torch.training.trainer import ParallelConfig, Trainer
@@ -445,13 +454,31 @@ def resolve_configs(args, mode: str = "ddp"):
             y_ckpt.get("async"), d.async_checkpointing)),
     )
 
-    parallel_config = ParallelConfig()
+    strategy = "replicated"
+    default_mesh = mesh_lib.MeshConfig(data=-1, fsdp=1)
+    if mode == "fsdp":
+        strategy = _require_choice(
+            _pick(getattr(args, "sharding", None),
+                  y_fsdp.get("sharding_strategy"), "FULL_SHARD"),
+            _SHARDING_CHOICES, "sharding_strategy")
+        default_mesh = mesh_lib.MeshConfig(data=1, fsdp=-1)
+        if (strategy == "HYBRID_SHARD" and args.mesh_data is None
+                and args.mesh_fsdp is None):
+            raise SystemExit(
+                "HYBRID_SHARD needs an explicit mesh split: pass --mesh_data "
+                "and --mesh_fsdp (data replicas x fsdp shards). (In the "
+                "reference this mode is documented but unselectable.)")
+    mesh_config = mesh_lib.MeshConfig(
+        data=_pick(args.mesh_data, default_mesh.data),
+        fsdp=_pick(args.mesh_fsdp, default_mesh.fsdp),
+        sequence=_pick(args.mesh_sequence, 1),
+        tensor=_pick(args.mesh_tensor, 1),
+        expert=_pick(args.mesh_expert, 1),
+        stage=_pick(args.mesh_stage, 1))
+    parallel_config = ParallelConfig(mesh=mesh_config)
     if mode == "fsdp":
         parallel_config = ParallelConfig(
-            sharding_strategy=_require_choice(
-                _pick(getattr(args, "sharding", None),
-                      y_fsdp.get("sharding_strategy"), "FULL_SHARD"),
-                _SHARDING_CHOICES, "sharding_strategy"),
+            mesh=mesh_config, sharding_strategy=strategy,
             cpu_offload=bool(_pick(getattr(args, "cpu_offload", None),
                                    y_fsdp.get("cpu_offload"), False)),
             offload_dtype=_require_choice(
@@ -529,38 +556,37 @@ def resolve_configs(args, mode: str = "ddp"):
     return model_config, training_config, parallel_config, data_opts
 
 
-# ROADMAP Queue 1 items that own the options this port does not run yet.
-_ITEM_MESH = "ROADMAP Queue 1 item 5 (multi-GPU parallelism)"
-_ITEM_MOE = "ROADMAP Queue 1 item 8 (the rest of MoE)"
+# The ROADMAP Queue 1 entries (by title: re-anchors renumber the queue)
+# that own the options this port does not run yet.
+_ITEM_PLANNER = "ROADMAP Queue 1: the planner"
+_ITEM_PIPELINE = "ROADMAP Queue 1: pipeline and expert parallelism"
+_ITEM_ELASTIC = "ROADMAP Queue 1: elastic training at world > 1"
+_ITEM_CAPACITY = "ROADMAP Queue 1: the capacity router, on one device"
+_ITEM_WORLD = "ROADMAP Queue 1: the rest of world > 1 training"
 
 
 def check_supported(args, model_config: GPTConfig,
                     parallel_config: ParallelConfig, data_opts: dict
                     ) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP item for every
+    """Raise ``NotImplementedError`` naming the ROADMAP entry for every
     requested option that a later port slice brings."""
-    later = []
-    mesh_flags = [f"--mesh_{a}" for a in ("data", "fsdp", "sequence",
-                                          "tensor", "expert", "stage")
-                  if getattr(args, f"mesh_{a}") not in (None, 1)]
-    if args.mesh is not None:
-        mesh_flags.append("--mesh")
-    for flag, on in (("--hbm_gb", args.hbm_gb is not None),
-                     ("--multihost", bool(args.multihost)),
-                     ("--pipeline_microbatches",
-                      model_config.pipeline_microbatches > 0),
-                     ("--no_comms_model", bool(args.no_comms_model)),
-                     ("TPU_TRAINER_STANDBY_FILE (elastic standby)",
-                      bool(os.environ.get("TPU_TRAINER_STANDBY_FILE")))):
+    later = [(f"--mesh_{ax} {getattr(args, f'mesh_{ax}')}", item)
+             for ax, item in mesh_lib.UNPORTED_AXES.items()
+             if getattr(args, f"mesh_{ax}") not in (None, 1)]
+    for flag, on, item in (
+            ("--mesh auto", args.mesh is not None, _ITEM_PLANNER),
+            ("--hbm_gb", args.hbm_gb is not None, _ITEM_PLANNER),
+            ("--no_comms_model", bool(args.no_comms_model), _ITEM_PLANNER),
+            ("--pipeline_microbatches",
+             model_config.pipeline_microbatches > 0, _ITEM_PIPELINE),
+            ("TPU_TRAINER_STANDBY_FILE (elastic standby)",
+             bool(os.environ.get("TPU_TRAINER_STANDBY_FILE")),
+             _ITEM_ELASTIC)):
         if on:
-            mesh_flags.append(flag)
-    if parallel_config.sharding_strategy == "HYBRID_SHARD":
-        mesh_flags.append("HYBRID_SHARD (data replicas x fsdp shards)")
-    if mesh_flags:
-        later.append((", ".join(mesh_flags), _ITEM_MESH))
+            later.append((flag, item))
     if model_config.num_experts > 0 and model_config.moe_impl == "capacity":
         later.append(('moe_impl="capacity" (use --moe_impl dropless)',
-                      _ITEM_MOE))
+                      _ITEM_CAPACITY))
     if later:
         raise NotImplementedError(
             "not ported yet: " + "; ".join(f"{what} -> {item}"
@@ -595,12 +621,14 @@ def parse_mixture_spec(spec: str) -> dict:
 
 
 def _build_mixture(data_opts, model_config: GPTConfig, rows: int,
-                   c: TrainingConfig):
+                   c: TrainingConfig, feed_rank: int = 0,
+                   feed_world: int = 1):
     """Weighted multi-source mixture (``--data_mixture``, the JAX
     ``_build_mixture``). Every source yields the same batch shape: plain
     ``[rows, seq]``, or ``[rows, seq, 2]`` when ``--pack_sequences`` puts
     all sources (dummy included, through the synthetic ragged corpus) on
-    the packed format. No held-out eval across a mixture."""
+    the packed format; each source reads this process's feed shard. No
+    held-out eval across a mixture."""
     from tpu_trainer_torch.data.mixture import MixtureDataLoader
 
     spec = parse_mixture_spec(data_opts["data_mixture"])
@@ -624,17 +652,18 @@ def _build_mixture(data_opts, model_config: GPTConfig, rows: int,
 
                 sources[nm] = packed_synthetic_loader(
                     rows, c.max_seq_len, model_config.vocab_size,
-                    data_opts["num_batches"], sub_seed,
-                    max_open_bins=data_opts["max_open_bins"],
+                    data_opts["num_batches"], sub_seed, feed_rank,
+                    feed_world, max_open_bins=data_opts["max_open_bins"],
                     strategy=strategy)
             else:
                 from tpu_trainer_torch.data.dummy import (
                     create_dummy_dataloader)
 
                 sources[nm] = create_dummy_dataloader(
-                    batch_size=rows, seq_len=c.max_seq_len,
+                    batch_size=rows * feed_world, seq_len=c.max_seq_len,
                     vocab_size=model_config.vocab_size,
-                    num_batches=data_opts["num_batches"], seed=sub_seed)
+                    num_batches=data_opts["num_batches"], seed=sub_seed,
+                    process_index=feed_rank, process_count=feed_world)
             continue
         if not path:
             raise SystemExit(f"mixture source {nm!r} needs a path "
@@ -643,7 +672,8 @@ def _build_mixture(data_opts, model_config: GPTConfig, rows: int,
             opts = dict(data_opts, data_path=path, streaming=True,
                         eval_holdout_every=0)
             sources[nm], _ = _packed_text_loader(opts, rows, c.max_seq_len,
-                                                 sub_seed)
+                                                 sub_seed, feed_rank,
+                                                 feed_world)
         else:
             from tpu_trainer_torch.data.text import create_text_dataloader
 
@@ -656,13 +686,16 @@ def _build_mixture(data_opts, model_config: GPTConfig, rows: int,
                 cache_max_tokens=data_opts["cache_max_tokens"],
                 seed=sub_seed, num_workers=data_opts["num_workers"],
                 prefetch=0, tokenizer_on_fallback="error",
-                mask_doc_boundaries=bool(mask))
+                mask_doc_boundaries=bool(mask), process_index=feed_rank,
+                process_count=feed_world)
     return MixtureDataLoader(sources, weights, seed=c.seed), None
 
 
-def _packed_text_loader(data_opts, rows, seq_len, seed):
-    """Packed loader binning a text file's documents (lines) into full
-    rows; held-out eval (streaming holdout) stays on the plain stream."""
+def _packed_text_loader(data_opts, rows, seq_len, seed, feed_rank=0,
+                        feed_world=1):
+    """Packed loader binning a text file's documents (this process's line
+    shard) into full rows; held-out eval (streaming holdout) stays on the
+    plain stream."""
     from tpu_trainer_torch.data.packing import PackedDataLoader
     from tpu_trainer_torch.data.text import (StreamingTextDataset,
                                              TextDataLoader)
@@ -672,6 +705,7 @@ def _packed_text_loader(data_opts, rows, seq_len, seed):
     common = dict(tokenizer_name=data_opts["tokenizer"],
                   max_tokens=data_opts["max_tokens"],
                   cache_max_tokens=data_opts["cache_max_tokens"],
+                  shard_id=feed_rank, num_shards=feed_world,
                   tokenizer_on_fallback="error")
     ds = StreamingTextDataset(
         data_opts["data_path"], seq_len,
@@ -687,24 +721,31 @@ def _packed_text_loader(data_opts, rows, seq_len, seed):
         eval_ds = StreamingTextDataset(data_opts["data_path"], seq_len,
                                        holdout=("eval", holdout_every),
                                        **common)
-        eval_loader = TextDataLoader(eval_ds, rows, seed=seed, prefetch=0)
+        eval_loader = TextDataLoader(eval_ds, rows, seed=seed, prefetch=0,
+                                     process_index=feed_rank,
+                                     process_count=feed_world)
     return train, eval_loader
 
 
 def build_dataloaders(data_opts, trainer: Trainer, model_config: GPTConfig):
-    """Train and (optional) eval loaders of ``[rows, seq]`` (``[rows, seq,
-    2]`` when packing or masking document boundaries), rows = accum x
-    micro-batch."""
+    """Train and (optional) eval loaders of this process's ``[rows, seq]``
+    (``[rows, seq, 2]`` when packing or masking document boundaries), rows
+    = accum x micro-batch x its data shards; every source reads the
+    trainer's feed shard (``data_feed_rank`` of ``data_feed_world``)."""
     c = trainer.training_config
-    rows = c.gradient_accumulation_steps * c.batch_size
+    feed_rank, feed_world = trainer.data_feed_rank, trainer.data_feed_world
+    rows = (c.gradient_accumulation_steps * c.batch_size * trainer.dp_size
+            ) // feed_world
     if data_opts.get("data_mixture"):
-        return _build_mixture(data_opts, model_config, rows, c)
+        return _build_mixture(data_opts, model_config, rows, c, feed_rank,
+                              feed_world)
     name = data_opts["dataset"]
     pack = data_opts.get("pack_sequences")
     if pack and name != "dummy":
         if not data_opts["data_path"]:
             raise SystemExit(f"--data_path is required for dataset {name!r}")
-        return _packed_text_loader(data_opts, rows, c.max_seq_len, c.seed)
+        return _packed_text_loader(data_opts, rows, c.max_seq_len, c.seed,
+                                   feed_rank, feed_world)
     if name == "dummy":
         if pack:
             from tpu_trainer_torch.data.packing import packed_synthetic_loader
@@ -712,14 +753,16 @@ def build_dataloaders(data_opts, trainer: Trainer, model_config: GPTConfig):
             strategy = data_opts.get("pack_strategy", "first_fit")
             return tuple(packed_synthetic_loader(
                 rows, c.max_seq_len, model_config.vocab_size, n, seed,
+                feed_rank, feed_world,
                 max_open_bins=data_opts["max_open_bins"], strategy=strategy)
                 for n, seed in ((data_opts["num_batches"], c.seed + 1234),
                                 (data_opts["eval_batches"], c.seed + 4321)))
         from tpu_trainer_torch.data.dummy import create_dummy_dataloader
 
         return tuple(create_dummy_dataloader(
-            batch_size=rows, seq_len=c.max_seq_len,
-            vocab_size=model_config.vocab_size, num_batches=n, seed=seed)
+            batch_size=rows * feed_world, seq_len=c.max_seq_len,
+            vocab_size=model_config.vocab_size, num_batches=n, seed=seed,
+            process_index=feed_rank, process_count=feed_world)
             for n, seed in ((data_opts["num_batches"], c.seed + 1234),
                             (data_opts["eval_batches"], c.seed + 4321)))
     if name not in ("tinystories", "openwebtext"):
@@ -741,7 +784,8 @@ def build_dataloaders(data_opts, trainer: Trainer, model_config: GPTConfig):
         eval_holdout_every=(data_opts["eval_holdout_every"] if streaming
                             else 0),
         mask_doc_boundaries=(data_opts["mask_doc_boundaries"] if streaming
-                             else False))
+                             else False),
+        process_index=feed_rank, process_count=feed_world)
     return train, train.eval_loader
 
 
@@ -804,32 +848,63 @@ def run_training(argv=None, mode: str = "ddp") -> int:
         resolve_configs(args, mode))
     check_supported(args, model_config, parallel_config, data_opts)
     device = resolve_device(args.device)
+    if device.type == "cuda":
+        device = mesh_lib.local_device(device)
+    mesh_lib.initialize_distributed(auto=args.multihost, device=device)
+    try:
+        parallel_config.mesh.resolve(mesh_lib.process_count())
+    except ValueError as mesh_err:
+        raise SystemExit(f"mesh: {mesh_err}") from mesh_err
     cuda = device.type == "cuda"
     trainer = Trainer(model_config, training_config, parallel_config,
                       device=device)
-    tokens_per_step = (training_config.gradient_accumulation_steps
-                       * training_config.batch_size
-                       * training_config.max_seq_len)
+    main = trainer.is_main_process
+    world = trainer.process_count
+    tokens_per_step = trainer.tokens_per_step
     remat = (f"remat {model_config.remat_policy}"
              if model_config.gradient_checkpointing else "no remat")
-    print(f"mode={mode} strategy={parallel_config.sharding_strategy} "
-          f"device={device} | model: "
-          f"{model_config.num_parameters():,} params | batch "
-          f"{training_config.gradient_accumulation_steps} x "
-          f"{training_config.batch_size} seqs x "
-          f"{training_config.max_seq_len} tokens | {remat}, adam moments "
-          f"{training_config.optimizer_state_dtype}"
-          + (f", offloaded as {parallel_config.offload_dtype}"
-             if trainer.cpu_offload else ""), flush=True)
+    if main:
+        print(f"mode={mode} strategy={parallel_config.sharding_strategy} "
+              f"device={device} processes={world} mesh data x fsdp = "
+              f"{trainer.mesh_sizes[0]} x {trainer.mesh_sizes[1]} | model: "
+              f"{model_config.num_parameters():,} params | batch "
+              f"{training_config.gradient_accumulation_steps} x "
+              f"{training_config.batch_size} seqs x "
+              f"{training_config.max_seq_len} tokens a data shard | "
+              f"{remat}, adam moments "
+              f"{training_config.optimizer_state_dtype}"
+              + (f", offloaded as {parallel_config.offload_dtype}"
+                 if trainer.cpu_offload else ""), flush=True)
     if trainer.cpu_offload and trainer.offload_resident_bytes:
         print(f"partial offload: "
               f"{trainer.offload_resident_bytes / 2**30:.2f} GB of "
               f"optimizer moments device-resident (exact f32), overflow "
               f"streams to host", flush=True)
 
+    if world > 1:
+        later = [(what, item) for what, on, item in (
+            ("a preemption notice (the cross-rank preemption vote)",
+             data_opts["preempt_notice"]
+             or os.environ.get("TPU_TRAINER_PREEMPT_NOTICE"), _ITEM_ELASTIC),
+            ("--telemetry_interval", data_opts["telemetry_interval"] > 0,
+             _ITEM_WORLD),
+            ("--nan_scan", data_opts["nan_scan"], _ITEM_WORLD)) if on]
+        if later:
+            raise NotImplementedError(
+                "not ported at world > 1: " + "; ".join(
+                    f"{what} -> {item}" for what, item in later))
     installed_plan = (faults.install(data_opts["inject_fault"],
-                                     process_count=1)
+                                     process_count=world)
                       if data_opts["inject_fault"] else None)
+    if world > 1 and installed_plan is not None:
+        host_kinds = sorted({kind for kind, _ in installed_plan.pending()
+                             if kind in faults.HOST_TARGETED_KINDS
+                             | {"return_host"}})
+        if host_kinds:
+            faults.clear()
+            raise NotImplementedError(
+                f"host-targeted faults {host_kinds} at world > 1 -> "
+                f"{_ITEM_ELASTIC}")
     # Goodput: every second of the run attributed to a category.
     ledger = telemetry_lib.GoodputLedger()
 
@@ -843,8 +918,9 @@ def run_training(argv=None, mode: str = "ddp") -> int:
                 training_config.resume_from, trainer)
         tokens_seen = meta.get("tokens_seen", 0)
         data_state = meta.get("data_state")
-        print(f"resumed from {training_config.resume_from} at step "
-              f"{state.step}", flush=True)
+        if main:
+            print(f"resumed from {training_config.resume_from} at step "
+                  f"{state.step}", flush=True)
     elif data_opts["auto_resume"]:
         with ledger.track("checkpoint_restore"):
             restored = ckpt_lib.restore_latest(ckpt_dir, trainer, verify=True)
@@ -852,18 +928,29 @@ def run_training(argv=None, mode: str = "ddp") -> int:
             state, meta, path = restored
             tokens_seen = meta.get("tokens_seen", 0)
             data_state = meta.get("data_state")
-            print(f"resumed from {path} at step {state.step}", flush=True)
+            if main:
+                print(f"resumed from {path} at step {state.step}",
+                      flush=True)
     if state is None:
         state = trainer.init_state()
 
     train_loader, eval_loader = build_dataloaders(data_opts, trainer,
                                                   model_config)
     if data_state is not None and hasattr(train_loader, "load_state_dict"):
+        # A checkpoint of another global batch or feed world: the cursor
+        # moves onto this run's batch granularity (at least once).
+        data_state, replayed = ckpt_lib.remap_data_state(
+            data_state, new_global_batch_size=trainer.global_batch_size,
+            new_feed_world=trainer.data_feed_world)
+        if replayed and main:
+            print(f"data cursor remapped for the resized mesh: replaying "
+                  f"{replayed} already-seen sequences", flush=True)
         try:
             train_loader.load_state_dict(data_state)
         except ValueError as e:
-            print(f"data state not restored ({e}); reading the dataset "
-                  f"from the start", flush=True)
+            if main:
+                print(f"data state not restored ({e}); reading the dataset "
+                      f"from the start", flush=True)
 
     # Crash flight recorder: a ring of the emitted records.
     recorder = None
@@ -879,7 +966,7 @@ def run_training(argv=None, mode: str = "ddp") -> int:
     hb_dir = os.environ.get("TPU_TRAINER_HEARTBEAT_DIR")
     if hb_dir:
         heartbeat = flight_lib.HeartbeatWriter(
-            hb_dir, host=0,
+            hb_dir, host=trainer.process_index,
             min_interval_s=float(
                 os.environ.get("TPU_TRAINER_HEARTBEAT_INTERVAL_S", "0")),
             recorder=recorder, start_step=int(state.step))
@@ -915,7 +1002,7 @@ def run_training(argv=None, mode: str = "ddp") -> int:
     logger = MetricLogger(
         model_config, tokens_per_step=tokens_per_step,
         log_interval=training_config.log_interval,
-        jsonl_path=data_opts["metrics_jsonl"],
+        jsonl_path=data_opts["metrics_jsonl"], is_main_process=main,
         wandb_project=data_opts["wandb_project"],
         tensorboard_dir=data_opts["tensorboard_dir"],
         run_config={"model": dataclasses.asdict(model_config),
@@ -1013,16 +1100,21 @@ def run_training(argv=None, mode: str = "ddp") -> int:
             # consumed by the prefetch depth.
             save_fn = (saver.save if saver is not None
                        else ckpt_lib.save_checkpoint)
+            data_sd = feed.state_dict()
+            if data_sd is not None and world > 1:
+                # Lets a restart on another mesh remap the cursor.
+                data_sd = dict(data_sd, **trainer.feed_signature)
             path = save_fn(ckpt_dir, state, model_config=model_config,
                            training_config=training_config,
                            tokens_seen=logger.tokens_seen,
-                           data_state=feed.state_dict(),
+                           data_state=data_sd,
                            keep_last_n=data_opts["keep_last_n"])
         saved_step["step"] = state.step
         if wait and not drain_by(deadline, "before the final commit landed"):
             return
-        print(f"saved checkpoint{' (' + tag + ')' if tag else ''}: {path}",
-              flush=True)
+        if main:
+            print(f"saved checkpoint{' (' + tag + ')' if tag else ''}: "
+                  f"{path}", flush=True)
 
     eval_warned = {"hit": False}
 
@@ -1142,7 +1234,8 @@ def run_training(argv=None, mode: str = "ddp") -> int:
                     if faults.fire("sigterm", step):
                         os.kill(os.getpid(), signal.SIGTERM)
                     # kill_host, hang_host, preempt_notice and return_host
-                    # act only across processes (ROADMAP Queue 1 item 5).
+                    # raise at world > 1 (above) and are inert at one
+                    # process.
                     has_notice = check_notice()
                     with profiler.step(step):
                         with ledger.track("data_wait"):
@@ -1192,6 +1285,14 @@ def run_training(argv=None, mode: str = "ddp") -> int:
                         run_eval()
                     if save_now:
                         save()
+                    if preempted["hit"] and world > 1:
+                        # Every rank must enter the save together: that is
+                        # the preemption vote, not ported yet.
+                        print(f"SIGTERM at world > 1: exiting without a "
+                              f"checkpoint (the cross-rank preemption vote "
+                              f"-> {_ITEM_ELASTIC})", flush=True)
+                        dump_flight("sigterm")
+                        return 143
                     if preempted["hit"] or has_notice:
                         proactive = not preempted["hit"]
                         print("proactive drain: checkpointing and exiting "
@@ -1321,6 +1422,7 @@ def run_training(argv=None, mode: str = "ddp") -> int:
             metrics_server.close()
         if installed_plan is not None:
             faults.clear()
-    print(f"done: {steps_this_run} steps this run, "
-          f"{logger.tokens_seen:,} tokens total", flush=True)
+    if main:
+        print(f"done: {steps_this_run} steps this run, "
+              f"{logger.tokens_seen:,} tokens total", flush=True)
     return 0

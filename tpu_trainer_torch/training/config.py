@@ -40,8 +40,8 @@ class TrainingConfig:
     # Mixed precision: "fp32" | "bf16" | "fp16"
     mixed_precision: str = "bf16"
 
-    # Adam moment storage. Only "float32" is ported; "bfloat16" / "int8"
-    # raise (ROADMAP Queue 1).
+    # Adam moment storage of the large leaves: "float32", "bfloat16" or
+    # "int8" (``training/optimizer.py``).
     optimizer_state_dtype: str = "float32"
 
     gradient_accumulation_steps: int = 4

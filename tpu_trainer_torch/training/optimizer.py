@@ -14,13 +14,19 @@ elements) are stored narrow, as a bf16 cast or a blockwise-int8
 ``QuantPack`` (``nu`` in sqrt-space); smaller leaves stay exact f32. The
 update is the f32 recipe on the loaded moments: the only difference from
 f32 Adam is the store and load rounding.
+
+On a shard (ZeRO-2/3 at world > 1) the update is the same elementwise
+recipe on each rank's slice of a leaf: the caller passes the global norm
+(``begin(..., g_norm=)``: the all-reduced sum of the shards' squares) and
+the full leaf shapes, which decide a leaf's moment storage as they do at
+one process (``init(..., full_shapes=)``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Union
+from typing import Dict, Optional, Union
 
 import torch
 
@@ -109,19 +115,29 @@ class AdamW:
         """The storage of one leaf's moments."""
         return self.state_dtype if q_eligible(shape) else "float32"
 
-    def init(self, params: Dict[str, torch.Tensor]) -> AdamWState:
-        def zeros(p, nonneg):
+    def init(self, params: Dict[str, torch.Tensor],
+             full_shapes: Optional[Dict[str, tuple]] = None) -> AdamWState:
+        """Zero moments shaped as ``params`` (a rank's shards at world >
+        1), stored as the leaf's full shape (``full_shapes``, default the
+        tensor's) decides."""
+        full_shapes = full_shapes or {}
+
+        def zeros(n, p, nonneg):
             z = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-            return store_moment(z, self.leaf_dtype(p.shape), nonneg=nonneg)
+            return store_moment(z, self.leaf_dtype(full_shapes.get(
+                n, tuple(p.shape))), nonneg=nonneg)
 
-        return AdamWState(0, {n: zeros(p, False) for n, p in params.items()},
-                          {n: zeros(p, True) for n, p in params.items()})
+        return AdamWState(0,
+                          {n: zeros(n, p, False) for n, p in params.items()},
+                          {n: zeros(n, p, True) for n, p in params.items()})
 
-    def begin(self, grads: Dict[str, torch.Tensor], count: int) -> dict:
+    def begin(self, grads: Dict[str, torch.Tensor], count: int,
+              g_norm: Optional[torch.Tensor] = None) -> dict:
         """What every leaf's update shares: the clip test and factor, the
         new count and the bias corrections (in f32, as optax computes
-        them)."""
-        g_norm = global_norm(grads.values())
+        them). ``g_norm`` defaults to the global norm of ``grads``."""
+        if g_norm is None:
+            g_norm = global_norm(grads.values())
         count += 1
         t = torch.tensor(float(count), dtype=torch.float32)
         return {"g_norm": g_norm, "clip": g_norm >= self.clip,
@@ -144,7 +160,7 @@ class AdamW:
                 1.0 - self.b1) * g
             nu = self.b2 * load_moment(nu_s, nonneg=True) + (
                 1.0 - self.b2) * g.square()
-            dt = self.leaf_dtype(g.shape)
+            dt = "int8" if isinstance(mu_s, QuantPack) else "bfloat16"
             assign_moment(mu_s, store_moment(mu, dt, nonneg=False))
             assign_moment(nu_s, store_moment(nu, dt, nonneg=True))
         u = (mu / ctx["c1"]) / (torch.sqrt(nu / ctx["c2"]) + self.eps)
@@ -155,14 +171,15 @@ class AdamW:
     @torch.no_grad()
     def apply(self, grads: Dict[str, torch.Tensor], state: AdamWState,
               params: Dict[str, torch.Tensor], lr: float,
-              on_update=None) -> AdamWState:
+              on_update=None,
+              g_norm: Optional[torch.Tensor] = None) -> AdamWState:
         """One step: each leaf's update (the descent direction at unit LR)
         scaled by ``lr`` and added to its parameter in place, one leaf's
         update alive at a time; the moments are updated in place (their
         storage kept). ``on_update(name, new - old)`` sees each leaf's
-        applied change (telemetry steps). Returns the state with the new
-        count."""
-        ctx = self.begin(grads, state.count)
+        applied change (telemetry steps); ``g_norm``: ``begin``. Returns
+        the state with the new count."""
+        ctx = self.begin(grads, state.count, g_norm)
         mask = decay_mask(params)
         for n, g in grads.items():
             p = params[n]

@@ -50,8 +50,38 @@ and no compiler cost model: ``RecompileWatchdog`` stays disarmed and
 ``step_cost_analysis`` returns None, as the JAX ones do on a backend that
 hides those hooks.
 
-Not ported yet (ROADMAP Queue 1): meshes and sharding across processes,
-pipeline schedules.
+Across processes (``ParallelConfig.mesh`` over ``data x fsdp``, one
+process a device, ``torch.distributed`` joined by
+``parallel/mesh.initialize_distributed``) each rank runs its own rows of
+the global batch and the strategy's collectives run between the
+micro-batch loop and the update (``parallel/collectives.py``, every sum
+in rank order):
+
+- ``replicated`` (DDP, ``NO_SHARD``): the f32 gradient sums are
+  all-reduced over every rank, then each rank clips and updates its whole
+  replica. With one micro-batch a rank it is bitwise the world-1 step
+  with one micro-batch a rank of this one;
+- ``zero2`` (``SHARD_GRAD_OP``): gradients are reduce-scattered onto each
+  leaf's fsdp shard (``parallel/sharding.py``), the clip takes the norm
+  from the all-reduced sum of the shards' squares, each rank updates its
+  slice of the masters and its moments, and the masters are all-gathered;
+- ``zero3`` (``FULL_SHARD``): masters and moments stay sharded at rest;
+  the model gathers a block's parameters in its forward, frees them after
+  it and gathers them again in the backward where the block's backward
+  needs them (saved-tensor hooks; the rerun of the block under remat)
+  (``models/gpt.py``), whose gradients are reduce-scattered as they
+  leave the block;
+- ``HYBRID_SHARD``: zero3 within each fsdp group, the shard gradients then
+  all-reduced across the data groups (``data > 1 and fsdp > 1``).
+
+The loss metric is the all-reduced mean, the same on every rank, and
+``eval_step`` sums over every rank's rows. Rank ``r`` is data shard ``r``
+(``data_feed_rank``): its residual-dropout mask is the world-1 mask's rows
+of that shard and its attention-dropout seed folds in ``r``. At one
+process there is no process group and the step is the single-device step
+above, bit for bit. Not ported at world > 1: int8 Adam moments,
+``cpu_offload``, MoE, telemetry steps and ``nan_scan`` (ROADMAP Queue 1:
+"the rest of world > 1 training"); they raise.
 """
 
 from __future__ import annotations
@@ -68,6 +98,14 @@ from tpu_trainer_torch.models.config import GPTConfig
 from tpu_trainer_torch.models.gpt import GPT
 from tpu_trainer_torch.models.weights import init_params
 from tpu_trainer_torch.ops.loss import segment_target_mask
+from tpu_trainer_torch.parallel import collectives as coll_lib
+from tpu_trainer_torch.parallel import mesh as mesh_lib
+from tpu_trainer_torch.parallel.mesh import MeshConfig
+from tpu_trainer_torch.parallel.sharding import (
+    LeafSpec,
+    canonical_strategy,
+    leaf_specs,
+)
 from tpu_trainer_torch.training.config import TrainingConfig
 from tpu_trainer_torch.training.optimizer import (
     STATE_DTYPES,
@@ -88,6 +126,8 @@ _MP_TO_DTYPE = {"fp32": "float32", "bf16": "bfloat16", "fp16": "float16"}
 _SCALE_GROWTH_INTERVAL = 2000  # finite steps before the scale doubles
 _MAX_LOSS_SCALE = 2.0**16
 _INIT_LOSS_SCALE = 2.0**15
+# What world > 1 does not run yet.
+_ITEM_WORLD = "ROADMAP Queue 1: the rest of world > 1 training"
 
 
 def moment_key(moment: str, name: str) -> tuple:
@@ -119,16 +159,19 @@ def select_resident_moments(moments: Dict[tuple, torch.Tensor],
 
 @dataclasses.dataclass(frozen=True)
 class ParallelConfig:
-    """The JAX ``ParallelConfig``'s single-process fields.
+    """The JAX ``ParallelConfig``: the process mesh and the strategy.
 
-    ``sharding_strategy`` is the fsdp CLI's choice (reference spellings
-    allowed); at one process every strategy is the same step.
+    ``mesh`` carves the processes into ``data x fsdp`` (``-1`` = the rest;
+    the other axes raise above 1). ``sharding_strategy`` is the fsdp CLI's
+    choice (reference spellings allowed); at one process every strategy is
+    the same step.
     ``cpu_offload`` keeps Adam's moments in pinned host memory and streams
     them through each update; ``offload_dtype`` is their host storage
     ("float32" keeps the step bitwise the on-device one, "bfloat16" halves
     the stream, "int8" quarters it); ``offload_budget_gb`` keeps the
     largest moment leaves that fit on the device in exact f32."""
 
+    mesh: MeshConfig = MeshConfig()
     sharding_strategy: str = "replicated"
     cpu_offload: bool = False
     offload_dtype: str = "float32"
@@ -176,9 +219,42 @@ def _split_packed(batch: torch.Tensor):
     return batch, None
 
 
+def _shard_of(arr: np.ndarray, dim: Optional[int], index: int,
+              world: int) -> np.ndarray:
+    """Slice ``index`` of ``world`` equal slices of ``arr`` along ``dim``."""
+    if dim is None:
+        return arr
+    k = arr.shape[dim] // world
+    return arr[(slice(None),) * dim + (slice(index * k, (index + 1) * k),)]
+
+
+@dataclasses.dataclass(frozen=True)
+class StateSharding:
+    """Which slice of each leaf a rank holds at world > 1: ``specs``
+    (``parallel/sharding.leaf_specs``), the rank's fsdp coordinate, and
+    whether it writes checkpoint shards (the ranks of data coordinate 0
+    hold every element once; of them fsdp rank 0 writes the whole
+    leaves)."""
+
+    specs: Dict[str, LeafSpec]
+    fsdp_rank: int
+    data_coord: int
+    world: int                        # the fsdp size
+
+    def dim(self, key: str) -> Optional[int]:
+        """The sharded dim of checkpoint key ``key``."""
+        prefix, _, path = key.partition("/")
+        if prefix == "params":
+            return self.specs[path.replace("/", ".")].param_dim
+        path = path.partition("/")[2]          # after "mu" / "nu"
+        return self.specs[path.replace("/", ".")].state_dim
+
+
 @dataclasses.dataclass
 class TrainState:
-    """Everything that evolves across steps."""
+    """Everything that evolves across steps. At world > 1 ``params`` and
+    the moments hold this rank's slices (``sharding``); checkpoint arrays
+    stay global (``layout``, ``load_state_dict``, ``shard_records``)."""
 
     step: int
     params: Dict[str, nn.Parameter]   # f32 masters, bound to the model
@@ -186,6 +262,7 @@ class TrainState:
     generator: torch.Generator        # draws every dropout seed
     loss_scale: float                 # fp16 dynamic scaling; 1.0 else
     good_steps: int                   # consecutive finite steps (fp16)
+    sharding: Optional[StateSharding] = None
 
     def _trees(self):
         return (("params", self.params), ("opt_state/mu", self.opt_state.mu),
@@ -200,11 +277,24 @@ class TrainState:
                     f"{prefix}/{name.replace('.', '/')}", m))
         return want
 
+    def _dim(self, key: str) -> Optional[int]:
+        return None if self.sharding is None else self.sharding.dim(key)
+
+    def _world(self, key: str) -> int:
+        return 1 if self._dim(key) is None else self.sharding.world
+
     def layout(self) -> Dict[str, tuple]:
-        """Checkpoint key -> ``(shape, numpy dtype)`` of every array
-        ``state_dict`` writes (the moments' storage form included)."""
-        return {k: (tuple(t.shape), _array_dtype(t))
-                for k, t in self._targets().items()}
+        """Checkpoint key -> ``(global shape, numpy dtype)`` of every
+        array ``state_dict`` writes (the moments' storage form
+        included)."""
+        out = {}
+        for k, t in self._targets().items():
+            shape = list(t.shape)
+            d = self._dim(k)
+            if d is not None:
+                shape[d] *= self._world(k)
+            out[k] = (tuple(shape), _array_dtype(t))
+        return out
 
     def _sync(self) -> None:
         """Wait for the device, host-link copies included."""
@@ -221,7 +311,11 @@ class TrainState:
         ``generator``, and the scalars ``step``, ``opt_count``,
         ``loss_scale``, ``good_steps``. Every array is a copy taken after a
         device synchronize (host-resident moments too), so later in-place
-        steps cannot reach it."""
+        steps cannot reach it. One process only: at world > 1 a rank
+        holds slices (``shard_records``)."""
+        if self.sharding is not None:
+            raise ValueError("state_dict() holds whole arrays: at world > 1 "
+                             "take shard_records()")
         self._sync()
         out = {}
         for prefix, tree in self._trees():
@@ -234,10 +328,49 @@ class TrainState:
                    good_steps=int(self.good_steps))
         return out
 
+    def shard_records(self) -> list:
+        """This rank's slices of every array, for the multi-process
+        checkpoint (the JAX ``host_shard_snapshot``): ``[{key,
+        global_shape, dtype, shards: [(starts, ndarray)]}]`` with the keys
+        and storage forms of ``state_dict``. Each element is written by one
+        rank (``StateSharding``); the scalars ride in ``meta.json``. Host
+        copies taken after a device synchronize."""
+        self._sync()
+        sh = self.sharding
+        write_sharded = sh is None or sh.data_coord == 0
+        write_whole = sh is None or (sh.data_coord == 0 and sh.fsdp_rank == 0)
+        layout = self.layout()
+        out = []
+        for prefix, tree in self._trees():
+            for name, m in tree.items():
+                key = f"{prefix}/{name.replace('.', '/')}"
+                for k, arr in _moment_arrays(key, m).items():
+                    d = self._dim(k)
+                    starts = [0] * arr.ndim
+                    if d is not None:
+                        starts[d] = sh.fsdp_rank * arr.shape[d]
+                    mine = write_whole if d is None else write_sharded
+                    out.append({"key": k, "global_shape": layout[k][0],
+                                "dtype": str(arr.dtype),
+                                "shards": [(tuple(starts), arr)] if mine
+                                else []})
+        gen = self.generator.get_state().numpy().copy()
+        out.append({"key": "generator", "global_shape": gen.shape,
+                    "dtype": str(gen.dtype),
+                    "shards": [((0,), gen)] if write_whole else []})
+        return out
+
+    def scalars(self) -> dict:
+        return {"step": int(self.step), "opt_count": int(self.opt_state.count),
+                "loss_scale": float(self.loss_scale),
+                "good_steps": int(self.good_steps)}
+
     def load_state_dict(self, sd: dict) -> None:
         """Copy ``state_dict()``'s values into this state's tensors in
-        place (they stay bound to the trainer's model). Raises on a
-        missing, extra or misshaped array."""
+        place (they stay bound to the trainer's model). At world > 1 the
+        arrays are the global ones (of any world's checkpoint) and this
+        rank takes its slices. Raises on a missing, extra or misshaped
+        array."""
         want = self._targets()
         have = {k for k in sd if "/" in k}
         if have != set(want):
@@ -247,8 +380,16 @@ class TrainState:
                 f"{sorted(have - set(want))}")
         self._sync()
         with torch.no_grad():
+            layout = self.layout()
             for key, t in want.items():
                 arr = np.asarray(sd[key])
+                if tuple(arr.shape) != layout[key][0]:
+                    raise ValueError(f"{key}: shape {arr.shape}, want "
+                                     f"{layout[key][0]}")
+                if self.sharding is not None:
+                    arr = _shard_of(arr, self._dim(key),
+                                    self.sharding.fsdp_rank,
+                                    self._world(key))
                 if tuple(arr.shape) != tuple(t.shape):
                     raise ValueError(f"{key}: shape {arr.shape}, want "
                                      f"{tuple(t.shape)}")
@@ -261,8 +402,18 @@ class TrainState:
         self.good_steps = int(sd["good_steps"])
 
 
+def _assign_params(model: nn.Module, params: Dict[str, nn.Parameter]
+                   ) -> None:
+    """Bind ``params`` (shard-shaped at world > 1) to ``model`` by name,
+    in place of its parameters."""
+    for name, p in params.items():
+        module, attr = name.rsplit(".", 1)
+        model.get_submodule(module)._parameters[attr] = p
+
+
 class Trainer:
-    """One device: ``init_state``, ``put_batch``, ``train_step``."""
+    """One device a process: ``init_state``, ``put_batch``,
+    ``train_step``."""
 
     def __init__(self, model_config: GPTConfig,
                  training_config: TrainingConfig = TrainingConfig(),
@@ -276,6 +427,7 @@ class Trainer:
         self.use_loss_scaling = training_config.mixed_precision == "fp16"
         self.model = GPT(self.model_config, device="meta")
         self.optimizer = make_optimizer(training_config)
+        self._init_mesh(parallel_config)
 
         self.cpu_offload = parallel_config.cpu_offload
         if (self.cpu_offload
@@ -301,6 +453,85 @@ class Trainer:
         # The last step's host-link copies (CUDA events), and bytes a way.
         self._link_events = None
         self.offload_stream_bytes = 0
+
+    def _init_mesh(self, parallel_config: ParallelConfig) -> None:
+        """The rank surface and, at world > 1, the groups, the per-leaf
+        split and the model's ZeRO-3 gather and data shard."""
+        self.process_index = mesh_lib.process_index()
+        self.process_count = mesh_lib.process_count()
+        self.mesh_sizes = parallel_config.mesh.resolve(self.process_count)
+        mesh_lib.check_ported(self.mesh_sizes)
+        self.strategy = canonical_strategy(parallel_config.sharding_strategy)
+        data, fsdp = self.mesh_sizes[:2]
+        shapes = {n: tuple(p.shape) for n, p in self.model.named_parameters()}
+        self.specs = leaf_specs(shapes, self.strategy, fsdp)
+        self.topology = None
+        if self.process_count == 1:
+            return
+        later = [what for what, on in (
+            ("cpu_offload", parallel_config.cpu_offload),
+            ("int8 Adam moments",
+             self.training_config.optimizer_state_dtype == "int8"),
+            ("MoE", self.model_config.num_experts > 0)) if on]
+        if later:
+            raise NotImplementedError(
+                f"not ported at world > 1: {', '.join(later)} -> "
+                f"{_ITEM_WORLD}")
+        self.topology = coll_lib.topology(data, fsdp)
+        if self.strategy == "zero3":
+            self.model.zero3 = coll_lib.ZeroGather(
+                self.topology.fsdp,
+                {n: s.param_dim for n, s in self.specs.items()
+                 if s.param_dim is not None})
+        self.model.data_shard = (self.topology.dp_rank, self.dp_size)
+
+    # -- the rank surface (the reference's rank / world_size) ---------------
+
+    @property
+    def is_main_process(self) -> bool:
+        return self.process_index == 0
+
+    @property
+    def dp_size(self) -> int:
+        """Distinct data shards: data x fsdp."""
+        return mesh_lib.dp_size(self.mesh_sizes)
+
+    @property
+    def _feed_info(self):
+        c = self.training_config
+        return mesh_lib.host_feed_info(
+            self.mesh_sizes, c.batch_size * self.dp_size,
+            process_index=self.process_index)
+
+    @property
+    def data_feed_rank(self) -> int:
+        """The block of the global batch rows this process loads."""
+        return self._feed_info[0]
+
+    @property
+    def data_feed_world(self) -> int:
+        return self._feed_info[1]
+
+    @property
+    def global_batch_size(self) -> int:
+        """Sequences consumed per optimizer step, across all processes."""
+        c = self.training_config
+        return c.batch_size * c.gradient_accumulation_steps * self.dp_size
+
+    @property
+    def feed_signature(self) -> dict:
+        """What a persisted loader cursor's units depend on
+        (``utils/checkpoint.remap_data_state``)."""
+        return {"global_batch_size": self.global_batch_size,
+                "feed_world": self.data_feed_world}
+
+    @property
+    def tokens_per_step(self) -> int:
+        return self.global_batch_size * self.training_config.max_seq_len
+
+    def _sharded(self) -> bool:
+        return self.topology is not None and any(
+            s.state_dim is not None for s in self.specs.values())
 
     def _moment_shapes(self) -> Dict[tuple, torch.Tensor]:
         """Meta f32 tensors of every moment leaf, under ``moment_key``."""
@@ -441,17 +672,40 @@ class Trainer:
         seed = self.training_config.seed if seed is None else int(seed)
         if params is None:
             params = init_params(self.model_config, seed, device=self.device)
-        masters = {n: nn.Parameter(t.detach().to(self.device).clone())
-                   for n, t in params.items()}
-        self.model.load_state_dict(masters, strict=True, assign=True)
-        masters = dict(self.model.named_parameters())
-        opt_state = (self._init_offloaded(masters) if self.cpu_offload
-                     else self.optimizer.init(masters))
+        if self.topology is None:
+            masters = {n: nn.Parameter(t.detach().to(self.device).clone())
+                       for n, t in params.items()}
+            self.model.load_state_dict(masters, strict=True, assign=True)
+            masters = dict(self.model.named_parameters())
+            opt_state = (self._init_offloaded(masters) if self.cpu_offload
+                         else self.optimizer.init(masters))
+            sharding = None
+        else:
+            # Every rank draws the same full parameters, then keeps its
+            # slices: masters under zero3, moments under zero2 and zero3.
+            fr = self.topology.fsdp.rank
+            world = self.topology.fsdp.world
+            masters = {}
+            for n in self.specs:           # the model's parameter order
+                t = torch.as_tensor(params[n]).detach()
+                d = self.specs[n].param_dim
+                if d is not None:
+                    t = t.narrow(d, fr * (t.shape[d] // world),
+                                 t.shape[d] // world)
+                masters[n] = nn.Parameter(t.to(self.device).clone())
+            _assign_params(self.model, masters)
+            opt_state = self.optimizer.init(
+                {n: torch.empty(sp.shard_shape(sp.state_dim),
+                                device=self.device)
+                 for n, sp in self.specs.items()},
+                full_shapes={n: sp.shape for n, sp in self.specs.items()})
+            sharding = StateSharding(self.specs, fr,
+                                     self.topology.data_coord, world)
         return TrainState(
             step=0, params=masters, opt_state=opt_state,
             generator=torch.Generator().manual_seed(seed),
             loss_scale=_INIT_LOSS_SCALE if self.use_loss_scaling else 1.0,
-            good_steps=0)
+            good_steps=0, sharding=sharding)
 
     def put_batch(self, local_batch: np.ndarray, *,
                   non_blocking: bool = False) -> torch.Tensor:
@@ -478,12 +732,28 @@ class Trainer:
             return host.pin_memory().to(self.device, non_blocking=True)
         return host.to(self.device)
 
+    def place_batch(self, batch, *, non_blocking: bool = False
+                    ) -> torch.Tensor:
+        """Host ``[accum * bs, seq]`` or ``[accum, bs, seq]`` (packed: a
+        trailing 2) -> ``put_batch``'s device tensor; device tensors pass
+        through. Each process places its own rows."""
+        if torch.is_tensor(batch):
+            return batch
+        batch = np.asarray(batch)
+        flat_ndim = 3 if batch.shape[-1] == 2 else 2
+        if batch.ndim == flat_ndim + 1:
+            batch = batch.reshape(-1, *batch.shape[2:])
+        return self.put_batch(batch, non_blocking=non_blocking)
+
     def _bind(self, state: TrainState) -> None:
         """Make the model compute with ``state``'s parameters."""
         if next(self.model.parameters()) is not next(iter(
                 state.params.values())):
-            self.model.load_state_dict(state.params, strict=True,
-                                       assign=True)
+            if self.topology is None:
+                self.model.load_state_dict(state.params, strict=True,
+                                           assign=True)
+            else:
+                _assign_params(self.model, state.params)
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch) -> torch.Tensor:
@@ -509,6 +779,9 @@ class Trainer:
                 n = segment_target_mask(segs)[:, :-1].sum()
             total += loss.float() * n
             count += n
+        if self.topology is not None:
+            total, count = self.topology.dp.all_reduce_sum(
+                torch.stack([total, count]))
         return total / torch.clamp(count, min=1.0)
 
     def train_step(self, state: TrainState, batch, telemetry: bool = False,
@@ -523,6 +796,9 @@ class Trainer:
         ``utils/telemetry.DeferredFetcher``. ``telemetry=True`` adds the
         ``"telemetry"`` subtree of device tensors (module docstring); the
         update, the loss and the generator are the plain step's."""
+        if self.topology is not None and telemetry:
+            raise NotImplementedError(
+                f"telemetry steps at world > 1 -> {_ITEM_WORLD}")
         if not torch.is_tensor(batch):
             batch = self.put_batch(batch)
         cfg = self.training_config
@@ -554,11 +830,14 @@ class Trainer:
                 for acc, x in zip(grads, g):
                     acc.add_(x.float())
             loss_sum += loss.detach().float()
-        denom = accum * state.loss_scale
-        grads = {n: g / denom for n, g in zip(names, grads)}
-        grad_norm = global_norm(grads.values())
+        grads = dict(zip(names, grads))
+        if self.topology is not None:
+            grads, loss_sum = self._reduce(grads, loss_sum)
+        denom = accum * self.dp_size * state.loss_scale
+        grads = {n: g / denom for n, g in grads.items()}
+        grad_norm = self._global_norm(grads)
         lr = cfg.lr_at(state.step)
-        metrics = {"loss": loss_sum / accum, "lr": lr,
+        metrics = {"loss": loss_sum / (accum * self.dp_size), "lr": lr,
                    "grad_norm": grad_norm, "loss_scale": state.loss_scale}
 
         telem = None
@@ -574,6 +853,8 @@ class Trainer:
                   or bool(torch.isfinite(grad_norm)))
         if self.cpu_offload and finite:
             self._stream(state, grads, lr, on_update)
+        elif finite and self.topology is not None:
+            self._sharded_update(state, grads, lr, grad_norm)
         elif finite:
             state.opt_state = self.optimizer.apply(
                 grads, state.opt_state, state.params, lr, on_update)
@@ -601,6 +882,65 @@ class Trainer:
             metrics["grad_norm"] = float(metrics["grad_norm"])
         return state, metrics
 
+    # -- world > 1 ------------------------------------------------------------
+
+    @torch.no_grad()
+    def _reduce(self, grads: Dict[str, torch.Tensor],
+                loss_sum: torch.Tensor):
+        """The strategy's gradient collectives (module docstring): each
+        leaf's f32 sum over every rank's rows, whole where its state is
+        whole and this rank's slice where it is sharded; and the loss sum
+        over every rank."""
+        topo = self.topology
+        out = {}
+        for n, g in grads.items():
+            spec = self.specs[n]
+            if spec.state_dim is None:
+                g = topo.dp.all_reduce_sum(g)
+            else:
+                if spec.param_dim is None:      # zero2: a whole gradient
+                    g = topo.fsdp.reduce_scatter_leaf(g, spec.state_dim)
+                # zero3's gather already summed it over the fsdp group.
+                g = topo.data.all_reduce_sum(g)
+            out[n] = g
+        return out, topo.dp.all_reduce_sum(loss_sum)
+
+    def _global_norm(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The norm over the whole gradient: with sharded leaves, the
+        shards' sum of squares all-reduced over the fsdp group, plus the
+        whole leaves'."""
+        if not self._sharded():
+            return global_norm(grads.values())
+        shard_sq = sum(g.float().square().sum() for n, g in grads.items()
+                       if self.specs[n].state_dim is not None)
+        whole_sq = sum((g.float().square().sum() for n, g in grads.items()
+                        if self.specs[n].state_dim is None),
+                       torch.zeros((), device=self.device))
+        return torch.sqrt(self.topology.fsdp.all_reduce_sum(shard_sq)
+                          + whole_sq)
+
+    @torch.no_grad()
+    def _sharded_update(self, state: TrainState, grads, lr: float,
+                        grad_norm: torch.Tensor) -> None:
+        """AdamW on this rank's slice of every leaf; zero2 then all-gathers
+        the updated master slices into the whole masters."""
+        fsdp = self.topology.fsdp
+        views = {}
+        for n, p in state.params.items():
+            spec = self.specs[n]
+            d = spec.state_dim
+            if d is not None and spec.param_dim is None:
+                k = p.shape[d] // fsdp.world
+                views[n] = p.narrow(d, fsdp.rank * k, k)
+            else:
+                views[n] = p
+        state.opt_state = self.optimizer.apply(
+            grads, state.opt_state, views, lr, g_norm=grad_norm)
+        for n, p in state.params.items():
+            spec = self.specs[n]
+            if spec.state_dim is not None and spec.param_dim is None:
+                p.copy_(fsdp.all_gather_leaf(views[n], spec.state_dim))
+
     @torch.no_grad()
     def nan_scan(self, state: TrainState, batch) -> dict:
         """Forward-only activation scan: where does the first NaN/Inf
@@ -612,6 +952,9 @@ class Trainer:
         host. Returns ``{"first_nan": {"layer", "site"} | None, "sites":
         [...], "stats": {flattened scalars}}`` — see
         ``utils/telemetry.nan_report``."""
+        if self.topology is not None:
+            raise NotImplementedError(f"nan_scan at world > 1 -> "
+                                      f"{_ITEM_WORLD}")
         if not torch.is_tensor(batch):
             batch = self.put_batch(batch)
         self._bind(state)

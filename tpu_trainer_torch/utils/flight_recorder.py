@@ -10,7 +10,7 @@ snapshot, and dumps both as ``crash_report.json`` (atomic write) from the
 SIGTERM/preemption/rollback/crash paths in ``run_training``. Postmortem =
 one file. ``HeartbeatWriter`` writes one liveness beat a step when
 ``TPU_TRAINER_HEARTBEAT_DIR`` is set (the elastic supervisor that reads
-them is multi-process work, ROADMAP Queue 1 item 5).
+them is ROADMAP Queue 1: "elastic training at world > 1").
 """
 
 from __future__ import annotations
@@ -101,7 +101,9 @@ class FlightRecorder:
         a torn report. Non-zero hosts write ``crash_report_host{k}.json``.
         The last dump of a run wins — later events overwrite earlier ones,
         which is the postmortem-relevant ordering."""
-        host = 0      # one process; multi-process runs are item 5
+        from tpu_trainer_torch.parallel.mesh import process_index
+
+        host = process_index()
         name = ("crash_report.json" if host == 0
                 else f"crash_report_host{host}.json")
         os.makedirs(directory, exist_ok=True)

@@ -23,6 +23,7 @@ from typing import IO, Callable, Optional
 import torch
 
 from tpu_trainer_torch.models.config import GPTConfig
+from tpu_trainer_torch.parallel import mesh as mesh_lib
 from tpu_trainer_torch.utils import telemetry as telemetry_lib
 from tpu_trainer_torch.utils.schema import SCHEMA_VERSION
 
@@ -80,6 +81,7 @@ class MetricLogger:
     def __init__(self, model_config: Optional[GPTConfig] = None, *,
                  tokens_per_step: int = 0, log_interval: int = 1,
                  jsonl_path: Optional[str] = None, stdout: bool = True,
+                 is_main_process: Optional[bool] = None,
                  wandb_project: Optional[str] = None,
                  tensorboard_dir: Optional[str] = None,
                  run_config: Optional[dict] = None,
@@ -91,7 +93,12 @@ class MetricLogger:
         self.tokens_per_step = tokens_per_step
         self.seq_len = seq_len
         self.log_interval = max(1, log_interval)
-        self.stdout = stdout
+        self._chips = mesh_lib.process_count()
+        # Rank 0 alone prints and writes every sink (default: this
+        # process's rank).
+        self.is_main = (is_main_process if is_main_process is not None
+                        else mesh_lib.process_index() == 0)
+        self.stdout = stdout and self.is_main
         dev = torch.device(device) if device is not None else None
         self._cuda = dev is not None and dev.type == "cuda"
         self._sync: Callable[[], None] = (
@@ -100,12 +107,12 @@ class MetricLogger:
         self._peak = (peak_flops_for_name(torch.cuda.get_device_name(dev))
                       if self._cuda else None)
         self._jsonl: Optional[IO[str]] = None
-        if jsonl_path:
+        if jsonl_path and self.is_main:
             os.makedirs(os.path.dirname(os.path.abspath(jsonl_path)),
                         exist_ok=True)
             self._jsonl = open(jsonl_path, "a", buffering=1)
         self._wandb = None
-        if wandb_project:
+        if wandb_project and self.is_main:
             try:
                 import wandb
 
@@ -114,7 +121,7 @@ class MetricLogger:
             except Exception as e:
                 warnings.warn(f"wandb sink disabled: {type(e).__name__}: {e}")
         self._tb = None
-        if tensorboard_dir:
+        if tensorboard_dir and self.is_main:
             try:
                 from tensorboardX import SummaryWriter
 
@@ -155,7 +162,7 @@ class MetricLogger:
             "grad_norm": float(metrics.get("grad_norm", 0.0)),
             "tokens_seen": int(self.tokens_seen),
             "tokens_per_sec": round(tok_per_sec, 1),
-            "tokens_per_sec_per_chip": round(tok_per_sec, 1),
+            "tokens_per_sec_per_chip": round(tok_per_sec / self._chips, 1),
             "elapsed_s": round(now - self._t0, 3),
         }
         if self.non_pad_frac is not None:
@@ -163,7 +170,8 @@ class MetricLogger:
             record["effective_tokens_per_sec"] = round(
                 tok_per_sec * float(self.non_pad_frac), 1)
         if self.model_config is not None and self._peak is not None:
-            record["mfu"] = round(mfu(tok_per_sec, self.model_config,
+            record["mfu"] = round(mfu(tok_per_sec / self._chips,
+                                      self.model_config,
                                       peak_flops=self._peak,
                                       seq_len=self.seq_len), 4)
         if self._cuda:

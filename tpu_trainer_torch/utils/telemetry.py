@@ -322,7 +322,8 @@ class GoodputLedger:
         "checkpoint_restore",
         "rollback_replay",
         # Elastic recovery and grow-back: tracked by the multi-process run
-        # supervisor (ROADMAP Queue 1 item 5), never by one trainer.
+        # supervisor (ROADMAP Queue 1: "elastic training at world > 1"),
+        # never by one trainer.
         "recovery",
         "grow",
     )
