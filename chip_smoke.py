@@ -140,7 +140,8 @@ JAX package. Phases, each fatal on failure:
               and restore seconds, and the device busy share of steady
               CLI steps under ``torch.profiler``; then 3 ``--pack_sequences``
               steps (split dk/dv and dq launches) and 3 steps of
-              ``configs/moe_small.yaml --moe_impl dropless`` (gmm, tgmm).
+              ``configs/moe_small.yaml --moe_impl dropless`` cut to 2
+              layers (gmm, tgmm).
 17. infer   -- ``eval.infer.main`` on that checkpoint, greedy, 4 ragged
               prompts of 64 new tokens: the KV path and ``--serve`` (the
               flash-decode kernel; launches exactly 63 x 12) on the
@@ -148,8 +149,8 @@ JAX package. Phases, each fatal on failure:
               ``params.npz`` in f32 compute, whose greedy tokens must be
               equal (a differing token only at a top-2 tie).
 18. remat   -- ``train_ddp --config configs/large_1b_single_chip.yaml``
-              (1.008 B parameters: 36 layers, hidden 1280, batch 4 x 1024,
-              full remat, bf16 Adam moments) on the cli phase's corpus, 6
+              at 18 of its 36 layers (hidden 1280, batch 4 x 1024, full
+              remat, bf16 Adam moments) on the cli phase's corpus, 6
               steps with a save at step 3; the same command in a fresh
               process resumes from step 3, and step 6's state (params, the
               bf16 moments' bits, the generator) and the losses of steps
@@ -162,8 +163,9 @@ JAX package. Phases, each fatal on failure:
               dropout seeds) must move them. Peak memory and step time of
               each, and the device busy share and top kernels of two
               profiled trainer steps.
-19. offload -- ``train_fsdp --config configs/medium_model.yaml`` (454 M
-              parameters, FULL_SHARD at one process, remat on, batch 8 x
+19. offload -- ``train_fsdp --config configs/medium_model.yaml`` cut to
+              12 of its 24 layers (FULL_SHARD at one process, remat on,
+              batch 8 x
               4 x 1024, dummy data), 3 steps on the card and with the Adam
               moments in pinned host memory as float32, bfloat16, int8 and
               int8 with 0.5 GB kept on the card: f32 offload's step-3
@@ -172,9 +174,23 @@ JAX package. Phases, each fatal on failure:
               ``select_resident_moments``; bytes each way a step, H2D and
               D2H ms (CUDA events), GB/s, step time and peak memory of each.
 20. moe-remat -- ``configs/moe_small.yaml --moe_impl dropless
-              --gradient_checkpointing``, 2 steps: gmm 9 a layer a
-              micro-batch (3 forward, 3 recompute, 3 dgrad), tgmm 3.
-21. ft      -- fault tolerance and the run's telemetry on ``small_model.yaml``
+              --gradient_checkpointing`` cut to 2 layers, 2 steps: gmm 9
+              a layer a micro-batch (3 forward, 3 recompute, 3 dgrad),
+              tgmm 3.
+21. moe-capacity -- the capacity router, the JAX default
+              (``phase_moe_capacity``): ``configs/moe_small.yaml``
+              unchanged through ``train_ddp`` (3 steps, a restart at step
+              2 in a fresh process, bitwise; a telemetry step's per-layer
+              drop_frac; tok/s and MFU on the active parameters);
+              ``infer.py`` on its checkpoint twice, bitwise; bench.py
+              --moe's capacity lane (top-2, einsum) and the same model
+              with gather dispatch, 10 steps each plus a profile, losses
+              within ``MOE_DISPATCH_LOSS_RTOL``, queue positions bitwise a
+              plain loop's; one layer in bf16 against the f32 layer, the
+              gather backward twice bitwise; the paged engine over a
+              moe_small-width model; planted faults (an inclusive cumsum,
+              a combine backward without the gate scale) rejected.
+22. ft      -- fault tolerance and the run's telemetry on ``small_model.yaml``
               (8 steps, the cli phase's corpus), held to the cli phase's
               straight run: a chain of restarted processes under
               ``kill_in_save@4``, ``kill@5`` and ``truncate_meta@6``
@@ -192,7 +208,7 @@ JAX package. Phases, each fatal on failure:
               telemetry; ``--nan_scan`` on a checkpoint with a planted inf.
               Launches exact on every path; the ``kernels`` line counts
               them beside the main paths'.
-22. dist    -- the two trainers across processes, each rank a fresh
+23. dist    -- the two trainers across processes, each rank a fresh
               process that joins its group as a launcher would (a file
               rendezvous, two ranks sharing ``cuda:0`` over gloo, every
               collective bounded by ``COORDINATOR_TIMEOUT_S``) and then
@@ -202,7 +218,8 @@ JAX package. Phases, each fatal on failure:
               process at accumulation 2 (losses, grad norms, final masters
               and moments), launches exact on each rank, and a planted
               fault (rank 1's gradients scaled) rejected;
-              ``medium_model.yaml`` through ``train_fsdp --sharding
+              ``medium_model.yaml`` (12 layers) through ``train_fsdp
+              --sharding
               FULL_SHARD`` and ``SHARD_GRAD_OP`` at world 2 (3 steps):
               losses bitwise one process's, grad norms within
               ``DIST_NORM_RTOL`` and every final master and moment within
@@ -215,10 +232,22 @@ JAX package. Phases, each fatal on failure:
               bitwise the straight run's step 4, and restored at world 1
               bitwise the stitched shards. Runs that do not depend on each
               other share the card. Per-rank step ms and peaks (ranks
-              time-slicing one card: no multi-GPU speed).
+              time-slicing one card: no multi-GPU speed). Then MoE,
+              both routers (``_dist_moe``: moe_small's width cut to 2
+              layers, capacity factor 0.5): world 1 over NCCL bitwise one
+              process; DDP and FULL_SHARD at world 2 within
+              ``DIST_LOSS_RTOL`` / ``DIST_MOE_STATE_L2`` of one process at
+              the same global micro-batch, the capacity layer-0 keep mask
+              bitwise; a planted fault (rank 1's queue offsets 0)
+              rejected.
 
-Every phase runs at full depth; the whole run takes about fifteen minutes
-on an H100 (700 W), builds included.
+Every phase runs at full depth except these, cut so that the whole run
+stays well inside its time and its machine's 45 GiB of disk writes: the
+cli phase's dropless-MoE run, moe-remat, the ft phase's MoE telemetry run
+and the dist phase's MoE group (moe_small.yaml at 2 layers), the offload
+phase and the dist phase's ZeRO runs (medium_model.yaml at 12 layers)
+and the remat phase (large_1b_single_chip.yaml at 18 layers). The whole
+run takes about sixteen minutes on an H100 (700 W), builds included.
 
 Then the ``kernels`` JSON line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. Without CUDA it exits 2 and prints no
@@ -1700,14 +1729,15 @@ def _counters():
 def _want_launches(cfg, steps: int, *, segmented: bool, seq: int = 1024):
     """The launches ``steps`` training steps of ``cfg`` must make: one
     forward a layer and the backward ``backward_impl`` picks, one head + CE
-    a step, and with MoE 6 gmm (3 forward, 3 dgrad) and 3 tgmm a layer;
-    under remat the forward and its 3 gmm run again in the backward."""
+    a step, and with the dropless MoE 6 gmm (3 forward, 3 dgrad) and 3 tgmm
+    a layer (the capacity router launches none); under remat the forward
+    and its 3 gmm run again in the backward."""
     from tpu_trainer_torch.ops import flash
 
     n = cfg.num_layers * steps
     fwd = 2 if cfg.gradient_checkpointing else 1
     fused = flash.backward_impl(seq, segmented) == "fused"
-    moe_on = cfg.num_experts > 0
+    moe_on = cfg.num_experts > 0 and cfg.moe_impl == "dropless"
     return {"flash_forward": fwd * n, "flash_backward": n if fused else 0,
             "flash_backward_dkv": 0 if fused else n,
             "flash_backward_dq": 0 if fused else n, "head_ce": steps,
@@ -2291,6 +2321,27 @@ def _cli_child(argv: list, out: str) -> None:
                                           for k, c in counters.items()}}, f)
 
 
+def _cut_yaml(tmp: str, name: str, tag: str, **fields) -> str:
+    """``configs/<name>`` with model fields set, written to
+    ``tmp/<tag>_<name>``: a field the yaml has is replaced in place, any
+    other joins its ``model:`` section. For the runs that take a shipped
+    config without dropout, at a smaller depth or with another router."""
+    import re
+
+    with open(os.path.join(ROOT, "configs", name)) as f:
+        text = f.read()
+    for key, value in fields.items():
+        v = f'"{value}"' if isinstance(value, str) else str(value)
+        text, n = re.subn(rf"(?m)^(\s*{key}:).*$", rf"\g<1> {v}", text)
+        if not n:
+            text = re.sub(r"(?m)^model:$", f"model:\n  {key}: {v}", text,
+                          count=1)
+    path = os.path.join(tmp, f"{tag}_{name}")
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
 def _jsonl(path: str, kind: str) -> list:
     with open(path) as f:
         return [r for r in map(json.loads, f) if r.get("kind") == kind]
@@ -2324,14 +2375,15 @@ def _micro_launches(cfg, train_micro: int, eval_micro: int, *,
     """Launches of ``train_micro`` training and ``eval_micro`` eval
     micro-batches: a forward a layer each (twice a training one under
     remat: the backward reruns it), the backward of the training ones,
-    one head + CE each; with MoE 3 gmm a layer a forward, 3 more and 3
-    tgmm a layer backward."""
+    one head + CE each; with the dropless MoE 3 gmm a layer a forward, 3
+    more and 3 tgmm a layer backward (the capacity router launches
+    none)."""
     from tpu_trainer_torch.ops import flash
 
     L = cfg.num_layers
     fwd = 2 if cfg.gradient_checkpointing else 1
     fused = flash.backward_impl(cfg.max_seq_len, segmented) == "fused"
-    moe_on = cfg.num_experts > 0
+    moe_on = cfg.num_experts > 0 and cfg.moe_impl == "dropless"
     return {"flash_forward": L * (fwd * train_micro + eval_micro),
             "flash_backward": L * train_micro if fused else 0,
             "flash_backward_dkv": 0 if fused else L * train_micro,
@@ -2547,7 +2599,8 @@ def phase_cli(results: dict, tmp: str) -> dict:
                f"launches {rec['packed_launches']}")
 
     torch.cuda.empty_cache()
-    moe_argv = ["--config", os.path.join(ROOT, "configs", "moe_small.yaml"),
+    moe_argv = ["--config", _cut_yaml(tmp, "moe_small.yaml", "l2",
+                                      num_layers=2),
                 "--moe_impl", "dropless", "--max_steps", "3",
                 "--log_interval", "1", "--eval_batches", "1",
                 "--no_auto_resume", "--checkpoint_dir",
@@ -2560,7 +2613,8 @@ def phase_cli(results: dict, tmp: str) -> dict:
         raise AssertionError(f"cli: MoE launches {moe['launches']}, want "
                              f"{want}")
     rec["moe_launches"] = {k: v for k, v in moe["launches"].items() if v}
-    log("cli", f"moe_small.yaml --moe_impl dropless, 3 steps + 1 eval batch "
+    log("cli", f"moe_small.yaml at 2 layers --moe_impl dropless, 3 steps + "
+               f"1 eval batch "
                f"in {moe['seconds']:.1f} s: launches {rec['moe_launches']}")
     results["cli"] = rec
     return rec
@@ -2712,7 +2766,13 @@ def _resume_check(phase: str, argv: list, tmp: str, last: int,
             os.path.join(aside, "state.npz")) as b:
         if a.files != b.files:
             raise AssertionError(f"{phase}: state arrays differ in name")
-        differ = [k for k in a.files if not np.array_equal(a[k], b[k])]
+        differ = []
+        for k in a.files:
+            # Each file's member read on its own thread (the read and its
+            # CRC leave the interpreter lock).
+            theirs = _background(lambda k=k: b[k])
+            if not np.array_equal(a[k], theirs()):
+                differ.append(k)
         n_arrays = len(a.files)
         dtypes = sorted({str(a[k].dtype) for k in a.files})
     if differ:
@@ -2778,9 +2838,10 @@ def _naive_remat(self, x, p, step):
 
 def phase_remat(results: dict, tmp: str) -> dict:
     """The 1B-on-one-card recipe: ``train_ddp --config
-    configs/large_1b_single_chip.yaml`` unchanged in its model and
-    training sections (36 layers, hidden 1280, 20 heads of 64, vocab
-    50257, batch 4 x 1024, full remat, bf16 Adam moments, dropout 0.1) on
+    configs/large_1b_single_chip.yaml`` at its full width and 18 of its 36
+    layers, the rest of its model and training sections unchanged (hidden
+    1280, 20 heads of 64, vocab 50257, batch 4 x 1024, full remat, bf16
+    Adam moments, dropout 0.1) on
     the cli phase's corpus: 6 steps with a save at step 3, then the same
     command in a fresh process resumes from step 3, and step 6's state and
     the losses of steps 4-6 must be bitwise equal; launches exact (the
@@ -2800,7 +2861,7 @@ def phase_remat(results: dict, tmp: str) -> dict:
 
     card = nvidia_smi_line()
     corpus = os.path.join(tmp, "stories.txt")
-    large = os.path.join(ROOT, "configs", "large_1b_single_chip.yaml")
+    large = _cut_yaml(tmp, "large_1b_single_chip.yaml", "l18", num_layers=18)
     argv = ["--config", large, "--dataset", "tinystories", "--data_path",
             corpus, "--tokenizer", "byte", "--log_interval", "1",
             "--eval_batches", "1", "--eval_interval", "0",
@@ -2810,7 +2871,7 @@ def phase_remat(results: dict, tmp: str) -> dict:
     cfg, tc, _, _ = cli.resolve_configs(cli.build_parser().parse_args(argv))
     if not (cfg.gradient_checkpointing and cfg.remat_policy == "full"
             and tc.optimizer_state_dtype == "bfloat16"
-            and cfg.num_layers == 36 and cfg.hidden_size == 1280):
+            and cfg.num_layers == 18 and cfg.hidden_size == 1280):
         raise AssertionError(f"remat: {large} resolved to {cfg}, {tc}")
     log("remat", f"{os.path.basename(large)}: {cfg.num_parameters():,} "
                  f"params, batch {tc.gradient_accumulation_steps} x "
@@ -3005,7 +3066,8 @@ def _fsdp_run(phase: str, argv: list) -> dict:
 
 def phase_offload(results: dict, tmp: str) -> dict:
     """``train_fsdp --config configs/medium_model.yaml`` at its full width
-    (24 layers, hidden 1024, 16 heads, batch 8 x 4 x 1024, FULL_SHARD at
+    and 12 of its 24 layers (hidden 1024, 16 heads, batch 8 x 4 x 1024,
+    FULL_SHARD at
     one process, remat on by default, its dummy data), 3 steps on the
     card and with the Adam moments offloaded to pinned host memory in
     float32, bfloat16, int8 and int8 with 0.5 GB kept on the device:
@@ -3021,7 +3083,7 @@ def phase_offload(results: dict, tmp: str) -> dict:
     from tpu_trainer_torch.training.trainer import select_resident_moments
 
     card = nvidia_smi_line()
-    medium = os.path.join(ROOT, "configs", "medium_model.yaml")
+    medium = _cut_yaml(tmp, "medium_model.yaml", "l12", num_layers=12)
     base = ["--config", medium, "--max_steps", "3", "--log_interval", "1",
             "--eval_interval", "0", "--eval_batches", "1", "--num_batches",
             "4", "--no_auto_resume"]
@@ -3039,7 +3101,7 @@ def phase_offload(results: dict, tmp: str) -> dict:
         if run["launches"] != want:
             raise AssertionError(f"offload: {name} launches "
                                  f"{run['launches']}, want {want}")
-        if not (cfg.gradient_checkpointing and cfg.num_layers == 24
+        if not (cfg.gradient_checkpointing and cfg.num_layers == 12
                 and par.sharding_strategy == "FULL_SHARD"):
             raise AssertionError(f"offload: {medium} resolved to {cfg}, "
                                  f"{par}")
@@ -3115,12 +3177,12 @@ def phase_offload(results: dict, tmp: str) -> dict:
 
 def phase_moe_remat(results: dict, tmp: str) -> dict:
     """``configs/moe_small.yaml --moe_impl dropless
-    --gradient_checkpointing`` at full depth, 2 steps: gmm 9 a layer a
-    micro-batch (3 forward, 3 recompute, 3 dgrad), tgmm 3, the flash
-    forward twice."""
+    --gradient_checkpointing`` at 2 of its 12 layers, 2 steps: gmm 9 a
+    layer a micro-batch (3 forward, 3 recompute, 3 dgrad), tgmm 3, the
+    flash forward twice."""
     from tpu_trainer_torch.training import cli
 
-    argv = ["--config", os.path.join(ROOT, "configs", "moe_small.yaml"),
+    argv = ["--config", _cut_yaml(tmp, "moe_small.yaml", "l2", num_layers=2),
             "--moe_impl", "dropless", "--gradient_checkpointing",
             "--max_steps", "2", "--log_interval", "1", "--eval_batches", "1",
             "--no_auto_resume", "--checkpoint_dir",
@@ -3138,7 +3200,8 @@ def phase_moe_remat(results: dict, tmp: str) -> dict:
     losses = [r["loss"] for r in _jsonl(argv[-1], "train")]
     rec = {"launches": {k: v for k, v in run["launches"].items() if v},
            "losses": losses, "seconds": run["seconds"]}
-    log("moe-remat", f"moe_small.yaml dropless under full remat, 2 steps + 1 "
+    log("moe-remat", f"moe_small.yaml at 2 layers, dropless under full "
+                     f"remat, 2 steps + 1 "
                      f"eval batch in {run['seconds']:.1f} s: losses "
                      + " ".join(f"{x:.4f}" for x in losses)
                      + f"; launches {rec['launches']} as the path must make "
@@ -3147,7 +3210,502 @@ def phase_moe_remat(results: dict, tmp: str) -> dict:
     return rec
 
 
-# -- phase 21: fault tolerance and the run's telemetry ---------------------------
+# -- phase 21: the capacity router ------------------------------------------
+
+# The two dispatches of one capacity trainer (bench.py --moe's capacity
+# lane, top-2) on the same weights and batches: expert inputs and expert
+# outputs are bitwise the same, but the top-2 combine rounds each gated
+# row to bf16 before adding on the gather path and adds in f32 inside one
+# product on the einsum path. So step 0's losses agree to bf16's unit
+# roundoff, and the trajectories drift from there (skewed stream, lr
+# warm-up): steps 1-9 within 2^-5 relative.
+MOE_DISPATCH_LOSS_RTOL = (2.0**-8, 2.0**-5)
+
+
+def _capacity_plain(gate_idx, capacity: int):
+    """Queue positions and keep mask of ``gate_idx [T, k]`` (host ints) by
+    a plain loop: each expert's queue filled in choice-major order (every
+    token's first choice, then every second choice), a place kept below
+    ``capacity``."""
+    import numpy as np
+
+    T, k = gate_idx.shape
+    pos = np.zeros((T, k), np.int64)
+    fill = {}
+    for j in range(k):
+        for t in range(T):
+            e = int(gate_idx[t, j])
+            pos[t, j] = fill.get(e, 0)
+            fill[e] = pos[t, j] + 1
+    return pos, pos < capacity
+
+
+def _record_positions(out: list, limit: int):
+    """Wrap ``models/moe.capacity_positions`` to keep the routing
+    (``gate_idx``), positions and keep mask of its first ``limit`` calls
+    in ``out``; returns the function that restores it."""
+    from tpu_trainer_torch.models import moe
+
+    original = moe.capacity_positions
+
+    def recording(gate_idx, counts, rank, slots):
+        pos, keep = original(gate_idx, counts, rank, slots)
+        if len(out) < limit:
+            out.append({"gate_idx": gate_idx.cpu().numpy(),
+                        "pos": pos.cpu().numpy(), "keep": keep.cpu().numpy(),
+                        "capacity": slots})
+        return pos, keep
+
+    moe.capacity_positions = recording
+
+    def restore():
+        moe.capacity_positions = original
+    return restore
+
+
+def _check_positions(what: str, calls: list) -> int:
+    """Every recorded call's positions and keep mask bitwise the plain
+    loop's on its own routing; returns the token-choices compared."""
+    import numpy as np
+
+    n = 0
+    for i, c in enumerate(calls):
+        pos, keep = _capacity_plain(c["gate_idx"], c["capacity"])
+        if not (np.array_equal(pos, c["pos"])
+                and np.array_equal(keep, c["keep"])):
+            raise AssertionError(
+                f"{what}: call {i}: queue positions differ from the plain "
+                f"loop's in {int((pos != c['pos']).sum())} of {pos.size} "
+                f"token-choices")
+        n += pos.size
+    return n
+
+
+def _capacity_layer(cfg, x, weights, dout, dispatch: str, dtype: str):
+    """One capacity layer forward and backward: ``(out, dx, d_router,
+    d_gate, d_up, d_down)`` at ``dispatch`` computing in ``dtype`` (the
+    weights stay f32 masters, cast inside as the model casts them)."""
+    import dataclasses
+
+    from tpu_trainer_torch.models import moe
+
+    c = dataclasses.replace(cfg, moe_dispatch=dispatch, dtype=dtype)
+    xx = x.detach().to(c.compute_dtype, copy=True).requires_grad_(True)
+    ws = [w.clone().requires_grad_(True) for w in weights]
+    out, aux = moe.capacity_moe(xx, *ws, c)
+    torch.autograd.backward([out, aux], [dout.to(out.dtype),
+                                         torch.ones_like(aux)])
+    return (out.detach(), xx.grad) + tuple(w.grad for w in ws)
+
+
+def _capacity_layer_checks(failures: list, k: int) -> dict:
+    """One capacity layer at moe_small's width (T = 8 x 1024, H = 768, I =
+    3072, E = 8; ``k`` 1 at capacity factor 1.25 as the yaml, 2 as bench
+    --moe's lane) on inputs that pile onto a few experts: gather and
+    einsum in f32 agree (F32_TOL); the bf16 gather layer's output and
+    every gradient against the f32 einsum layer (the truth) next to the
+    bf16 einsum layer's (``_near_truth``); the bf16 gather backward twice
+    bitwise; the queue positions bitwise the plain loop's. Times the bf16
+    forward + backward of each dispatch (CUDA events)."""
+    from tpu_trainer_torch.models.config import GPTConfig
+
+    cfg = GPTConfig.gpt2_small(num_experts=8, moe_top_k=k,
+                               expert_capacity_factor=1.25,
+                               router_z_weight=1e-3 if k == 2 else 0.0,
+                               dropout=0.0, attention_dropout=0.0)
+    gen = torch.Generator(device="cuda").manual_seed(40 + k)
+    H, I, E = 768, 3072, 8
+    lean = torch.randn(H, generator=gen, device="cuda")
+    x = (torch.randn(8, 1024, H, generator=gen, device="cuda")
+         + 0.7 * lean).to(torch.bfloat16).float()
+    weights = [torch.randn(H, E, generator=gen, device="cuda") * 0.05,
+               torch.randn(E, H, I, generator=gen, device="cuda") * 0.02,
+               torch.randn(E, H, I, generator=gen, device="cuda") * 0.02,
+               torch.randn(E, I, H, generator=gen, device="cuda") * 0.02]
+    dout = torch.randn(8, 1024, H, generator=gen, device="cuda")
+    names = ("out", "dx", "d_router", "d_gate", "d_up", "d_down")
+    calls = []
+    restore = _record_positions(calls, 1)
+    try:
+        truth = _capacity_layer(cfg, x, weights, dout, "einsum", "float32")
+    finally:
+        restore()
+    f32 = _capacity_layer(cfg, x, weights, dout, "gather", "float32")
+    plain = _capacity_layer(cfg, x, weights, dout, "einsum", "bfloat16")
+    got = _capacity_layer(cfg, x, weights, dout, "gather", "bfloat16")
+    rec = {"k": k, "capacity": calls[0]["capacity"],
+           "drop_frac": float(1.0 - calls[0]["keep"].mean()),
+           "f32_gather_vs_einsum": {}, "near": {}}
+    for n, a, b in zip(names, f32, truth):
+        rec["f32_gather_vs_einsum"][n] = _close(
+            f"moe-capacity k={k}: f32 gather vs einsum {n}", a, b)
+    for n, g, p, t in zip(names, got, plain, truth):
+        try:
+            rec["near"][n] = _near_truth(
+                f"moe-capacity k={k}: bf16 gather {n}", g, p, t)
+        except AssertionError as e:
+            failures.append(str(e))
+    rec["bitwise_elements"] = _bitwise_twice(
+        f"moe-capacity k={k}: bf16 gather backward",
+        lambda: _capacity_layer(cfg, x, weights, dout, "gather", "bfloat16"))
+    rec["positions_compared"] = _check_positions(
+        f"moe-capacity k={k}", calls)
+    for dispatch in ("gather", "einsum"):
+        rec[f"{dispatch}_ms"] = event_ms(
+            lambda i: _capacity_layer(cfg, x, weights, dout, dispatch,
+                                      "bfloat16"), 3)
+    rec["checks"] = (cfg, x, weights, dout, truth, plain, calls)
+    return rec
+
+
+def _plant_inclusive_cumsum():
+    """A planted fault: every queue position one higher (an inclusive
+    cumsum where the exclusive one belongs)."""
+    from tpu_trainer_torch.models import moe
+
+    original = moe.capacity_positions
+
+    def inclusive(gate_idx, counts, rank, slots):
+        pos, _ = original(gate_idx, counts, rank, slots)
+        return pos + 1, pos + 1 < slots
+
+    moe.capacity_positions = inclusive
+    return lambda: setattr(moe, "capacity_positions", original)
+
+
+def _plant_unscaled_combine():
+    """A planted fault: the gather combine's backward without the gate
+    scale."""
+    from tpu_trainer_torch.models import moe
+
+    original = moe._CombineRows.backward
+
+    def unscaled(ctx, dout):
+        eo, gates, flat_ids, slot_tc = ctx.saved_tensors
+        k, H = flat_ids.shape[1], eo.shape[1]
+        d_eo = torch.cat([dout] * k + [dout.new_zeros(1, H)])[slot_tc]
+        eo_pad = torch.cat([eo, eo.new_zeros(1, H)])
+        d_gates = torch.stack(
+            [(eo_pad[flat_ids[:, j]] * dout).float().sum(dim=-1)
+             for j in range(k)], dim=1).to(gates.dtype)
+        return d_eo, d_gates, None, None
+
+    moe._CombineRows.backward = staticmethod(unscaled)
+    return lambda: setattr(moe._CombineRows, "backward",
+                           staticmethod(original))
+
+
+def phase_moe_capacity(results: dict, tmp: str) -> dict:
+    """The capacity router (``moe_impl="capacity"``, the JAX default), in
+    the cli phase's temporary directory (its corpus):
+
+    (a) ``configs/moe_small.yaml`` unchanged (8 experts, top-1, capacity
+        factor 1.25, gather dispatch) through ``train_ddp`` with the byte
+        tokenizer, 3 steps with a save at step 2 and a telemetry step at
+        step 3; step 3's checkpoint set aside and the same argv again in
+        a fresh process, which resumes from step 2 and must end bitwise;
+        launches exact (no grouped matmul); windowed tok/s, MFU on the
+        active parameters, and the telemetry step's per-layer drop_frac;
+    (b) bench.py --moe's capacity lane (GPT-2 small, 8 experts, top-2,
+        z-loss 1e-3, einsum dispatch; batch 8 x 1024, dropout 0.1) and
+        the same model with gather dispatch, each 10 steps on bench's
+        skewed stream and two profiled steps: step ms, busy share,
+        launches, top device kernels; losses within
+        ``MOE_DISPATCH_LOSS_RTOL``; step 0's layer-0 keep masks bitwise
+        each other's and every recorded call's positions bitwise the
+        plain loop's (``_capacity_plain``);
+    (c) one capacity layer in bf16 against the f32 layer
+        (``_capacity_layer_checks``, top-1 and top-2);
+    (d) a ``ServingEngine`` over a moe_small-width model (``init_params``
+        seed 0, bf16, max batch 8, block 16) on the engine phase's trace:
+        flash_decode launches == decode iterations x 12, logits finite,
+        the live decode step's kernel against plain attention; tok/s,
+        TTFT and TPOT;
+    (e) ``infer.main`` greedy on (a)'s checkpoint twice: tokens bitwise;
+    (f) planted faults, each of which the checks must reject: positions
+        from an inclusive cumsum, a combine backward without the gate
+        scale."""
+    import dataclasses
+
+    import numpy as np
+
+    from tpu_trainer_torch.eval import infer
+    from tpu_trainer_torch.models import moe
+    from tpu_trainer_torch.models.weights import init_params
+    from tpu_trainer_torch.ops import flash
+    from tpu_trainer_torch.serving.engine import ServingEngine
+    from tpu_trainer_torch.training import cli
+
+    t_phase = time.perf_counter()
+    card = nvidia_smi_line()
+    rec = {"nvidia_smi": card}
+    secs = {}
+
+    # (a) moe_small.yaml through the CLI, unchanged.
+    t0 = time.perf_counter()
+    ckdir = os.path.join(tmp, "mc")
+    jsonl = os.path.join(tmp, "mc.jsonl")
+    argv = ["--config", os.path.join(ROOT, "configs", "moe_small.yaml"),
+            "--dataset", "tinystories", "--data_path",
+            os.path.join(tmp, "stories.txt"), "--tokenizer", "byte",
+            "--max_steps", "3", "--save_interval", "2",
+            "--telemetry_interval", "3", "--eval_batches", "1",
+            "--keep_last_n", "0", "--log_interval", "1",
+            "--checkpoint_dir", ckdir, "--metrics_jsonl", jsonl]
+    cfg, tc, _, _ = cli.resolve_configs(cli.build_parser().parse_args(argv))
+    if (cfg.moe_impl, moe.dispatch_mode(cfg), cfg.num_experts,
+            cfg.moe_top_k) != ("capacity", "gather", 8, 1):
+        raise AssertionError(f"moe-capacity: moe_small.yaml resolves to "
+                             f"{moe.describe(cfg)}")
+    res = _resume_check("moe-capacity", argv, tmp, 3, 2)
+    accum = tc.gradient_accumulation_steps
+    n_eval = res["evals"][-1]["eval_batches"]
+    want = _micro_launches(cfg, accum, n_eval * accum, segmented=False)
+    if res["run2"]["launches"] != want:
+        raise AssertionError(f"moe-capacity: run 2 launches "
+                             f"{res['run2']['launches']}, want {want}")
+    train = res["train"][:3]
+    tel = train[2]
+    drops = [tel[f"telemetry/router/drop_frac/L{i:02d}"]
+             for i in range(cfg.num_layers)]
+    loads = [tel[f"telemetry/router/load/L{i:02d}/max"]
+             for i in range(cfg.num_layers)]
+    tokens = tc.batch_size * tc.max_seq_len
+    slots = moe.capacity(cfg, tokens)
+    cli_rec = {
+        "losses": [r["loss"] for r in train],
+        "tokens_per_sec": [r["tokens_per_sec"] for r in train],
+        "mfu": [r["mfu"] for r in train],
+        # The second step is the steady one: the first warms the
+        # allocator and cuBLAS, the third runs under the second's
+        # checkpoint commit.
+        "tokens_per_sec_step2": train[1]["tokens_per_sec"],
+        "mfu_step2": train[1]["mfu"],
+        "drop_frac_step3": drops, "load_max_step3": loads,
+        "capacity": slots, "state_arrays_bitwise": res["state_arrays"],
+        "run1_s": res["run1"]["seconds"], "run2_s": res["run2_s"],
+        "run2_launches": {k: v for k, v in res["run2"]["launches"].items()
+                          if v}}
+    rec["cli"] = cli_rec
+    log("moe-capacity", f"moe_small.yaml unchanged ({moe.describe(cfg)}), "
+                        f"batch {accum} x {tc.batch_size} x "
+                        f"{tc.max_seq_len}: losses "
+        + " ".join(f"{x:.4f}" for x in cli_rec["losses"])
+        + f"; resumed at step 2 in a fresh process, {res['state_arrays']} "
+          f"state arrays of step 3 and its loss bitwise; run 2 launches "
+          f"{cli_rec['run2_launches']}")
+    log("moe-capacity", f"tok/s of step 2 (the JSONL window; step 3 runs "
+                        f"under step 2's checkpoint commit) "
+                        f"{cli_rec['tokens_per_sec_step2']:.0f}, MFU on "
+                        f"active parameters {cli_rec['mfu_step2']:.4f}; "
+                        f"steps 1-3 "
+                        + " ".join(f"{x:.0f}"
+                                   for x in cli_rec["tokens_per_sec"])
+                        + f" tok/s on {card}")
+    log("moe-capacity", "telemetry step 3, drop_frac by layer: "
+        + " ".join(f"{d:.4f}" for d in drops))
+    if max(drops) <= 0.0:
+        log("moe-capacity", f"no drop at step 3: the busiest expert took "
+                            f"{max(loads):.4f} of a micro-batch's "
+                            f"{tokens} first choices, under the capacity "
+                            f"{slots} = {slots / tokens:.4f} of them")
+    secs["cli"] = time.perf_counter() - t0
+
+    # (e) infer.py on (a)'s checkpoint, greedy, twice.
+    t0 = time.perf_counter()
+    prompts = os.path.join(tmp, "mc_prompts.txt")
+    with open(os.path.join(tmp, "stories.txt")) as f:
+        stories = [next(f) for _ in range(4)]
+    with open(prompts, "w") as f:
+        for i, s in enumerate(stories):
+            f.write(" ".join(s.split()[:3 + 4 * i]) + "\n")
+    runs = []
+    for _ in range(2):
+        out = {}
+        if infer.main(["--checkpoint", ckdir, "--prompt_file", prompts,
+                       "--tokenizer", "byte", "--temperature", "0",
+                       "--max_new_tokens", "32"], result=out) != 0:
+            raise AssertionError("moe-capacity: infer exited non-zero")
+        runs.append(out["tokens"])
+    if runs[0] != runs[1] or any(len(r) < 33 for r in runs[0]):
+        raise AssertionError("moe-capacity: infer's greedy tokens differ "
+                             "between two runs")
+    shutil.rmtree(ckdir)
+    rec["infer"] = {"rows": len(runs[0]),
+                    "lengths": [len(r) for r in runs[0]]}
+    secs["infer"] = time.perf_counter() - t0
+    log("moe-capacity", f"infer.py on step 3's checkpoint, 4 ragged prompts "
+                        f"x 32 greedy tokens, twice: bitwise "
+                        f"({secs['infer']:.1f} s)")
+    torch.cuda.empty_cache()
+
+    # (b) bench.py --moe's capacity lane, einsum and gather.
+    t0 = time.perf_counter()
+    steps = 10
+    lane = _small_config(num_experts=8, moe_top_k=2, moe_impl="capacity",
+                         moe_dispatch="einsum", router_z_weight=1e-3)
+    rng = np.random.default_rng(23)
+    host = [rng.integers(0, 4, (8, 1024), dtype=np.int32)
+            for _ in range(steps + 2)]
+    lanes, step0 = {}, {}
+    for dispatch in ("einsum", "gather"):
+        trainer, state = _trainer(dataclasses.replace(
+            lane, moe_dispatch=dispatch))
+        batches = [trainer.put_batch(b) for b in host]
+        calls = []
+        restore = _record_positions(calls, lane.num_layers)
+        try:
+            lanes[dispatch] = _train_steps(
+                f"moe-capacity/{dispatch}", trainer, state, batches, steps,
+                segmented=False)
+        finally:
+            restore()
+        step0[dispatch] = calls
+        lanes[dispatch]["drop_frac_step1"] = [
+            float(1.0 - c["keep"].mean()) for c in calls]
+        lanes[dispatch]["positions_compared"] = _check_positions(
+            f"moe-capacity/{dispatch}", calls)
+        log(f"moe-capacity/{dispatch}", "step 1 drop_frac by layer: "
+            + " ".join(f"{d:.4f}" for d in lanes[dispatch]["drop_frac_step1"])
+            + f"; {lanes[dispatch]['positions_compared']} token-choices' "
+              f"positions bitwise the plain loop's")
+        del trainer, state, batches
+        torch.cuda.empty_cache()
+    if not np.array_equal(step0["einsum"][0]["keep"],
+                          step0["gather"][0]["keep"]):
+        raise AssertionError("moe-capacity: step 1's layer-0 keep masks "
+                             "differ between the dispatches")
+    worst = [0.0, 0.0]
+    for i, (a, b) in enumerate(zip(lanes["einsum"]["losses"],
+                                   lanes["gather"]["losses"])):
+        rel = abs(a - b) / abs(a)
+        worst[i > 0] = max(worst[i > 0], rel)
+        if rel > MOE_DISPATCH_LOSS_RTOL[i > 0]:
+            raise AssertionError(
+                f"moe-capacity: step {i + 1} loss einsum {a} vs gather {b} "
+                f"(rel {rel:.2e} > {MOE_DISPATCH_LOSS_RTOL[i > 0]:.1e})")
+    rec["bench"] = {k: {kk: vv for kk, vv in v.items()}
+                    for k, v in lanes.items()}
+    rec["bench"]["loss_worst_rel"] = worst
+    secs["bench"] = time.perf_counter() - t0
+    log("moe-capacity", f"einsum vs gather losses: step 1 within "
+                        f"{worst[0]:.2e}, steps 2-10 within {worst[1]:.2e} "
+                        f"(bounds {MOE_DISPATCH_LOSS_RTOL[0]:.1e} / "
+                        f"{MOE_DISPATCH_LOSS_RTOL[1]:.1e}); step 1's layer-0 "
+                        f"keep masks bitwise; step ms einsum "
+                        f"{lanes['einsum']['step_ms_median_3_to_10']:.2f}, "
+                        f"gather "
+                        f"{lanes['gather']['step_ms_median_3_to_10']:.2f} "
+                        f"on {card}")
+
+    # (c) and (f): one layer against the f32 layer, and planted faults.
+    t0 = time.perf_counter()
+    failures = []
+    layer = {}
+    for k in (1, 2):
+        layer[k] = _capacity_layer_checks(failures, k)
+    if failures:
+        raise AssertionError("moe-capacity: " + "; ".join(failures))
+    cfg2, x2, w2, dout2, truth2, plain2, _ = layer[2].pop("checks")
+    layer[1].pop("checks")
+
+    def planted_positions():
+        calls = []
+        restore = _record_positions(calls, 1)
+        try:
+            _capacity_layer(cfg2, x2, w2, dout2, "gather", "bfloat16")
+        finally:
+            restore()
+        _check_positions("planted", calls)
+
+    def planted_combine():
+        got = _capacity_layer(cfg2, x2, w2, dout2, "gather", "bfloat16")
+        for n, g, p, t in zip(("out", "dx", "d_router", "d_gate", "d_up",
+                               "d_down"), got, plain2, truth2):
+            _near_truth(f"planted {n}", g, p, t)
+
+    for what, plant, check in (
+            ("positions from an inclusive cumsum", _plant_inclusive_cumsum,
+             planted_positions),
+            ("a combine backward without the gate scale",
+             _plant_unscaled_combine, planted_combine)):
+        undo = plant()
+        try:
+            _must_reject(f"moe-capacity: {what}", check)
+        finally:
+            undo()
+    for k, r in layer.items():
+        worst_n = max(r["near"], key=lambda n: r["near"][n]["l2"]["kernel"]
+                      / max(r["near"][n]["l2"]["limit"], 1e-30))
+        log("moe-capacity", f"layer k={k} (C {r['capacity']}, drop_frac "
+                            f"{r['drop_frac']:.4f}): f32 gather vs einsum "
+                            f"max |err| "
+                            f"{max(r['f32_gather_vs_einsum'].values()):.2e}; "
+                            f"bf16 gather vs f32 next to bf16 einsum: worst "
+                            f"{worst_n} l2 "
+                            f"{r['near'][worst_n]['l2']['kernel']:.3e} (limit "
+                            f"{r['near'][worst_n]['l2']['limit']:.3e}); "
+                            f"backward bitwise twice ({r['bitwise_elements']} "
+                            f"elements); fwd+bwd ms gather "
+                            f"{r['gather_ms']:.3f}, einsum "
+                            f"{r['einsum_ms']:.3f}")
+    log("moe-capacity", "planted faults rejected: an inclusive cumsum's "
+                        "positions, a combine backward without the gate "
+                        "scale")
+    rec["layer"] = layer
+    secs["layer"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    # (d) the paged engine over a moe_small-width model.
+    t0 = time.perf_counter()
+    ecfg = dataclasses.replace(cfg, dropout=0.0, attention_dropout=0.0,
+                               dtype="bfloat16", param_dtype="float32")
+    engine = ServingEngine(init_params(ecfg, seed=0, device="cuda"), ecfg,
+                           max_batch=8, block_size=16, device="cuda")
+    vocab = ecfg.vocab_size
+    engine.run(_trace(3, seed=99, prompt_len_range=(64, 128),
+                      max_new_range=(4, 8), vocab=vocab), time_mode="wall")
+    engine.reset_stats()
+    reqs = _trace(24, seed=1, prompt_len_range=(64, 512),
+                  max_new_range=(16, 64), vocab=vocab)
+    done, summ, launches, err, live_len = _serve(
+        "moe-capacity/engine", engine, reqs,
+        capture_call=7 * ecfg.num_layers + 1)
+    lat = _latency(done, summ)
+    rec["engine"] = {"launches": launches,
+                     "decode_iters": summ["decode_iters"],
+                     "prefill_iters": summ["prefill_iters"],
+                     "generated_tokens": summ["generated_tokens"],
+                     "live_step_max_abs_err": err, **lat}
+    del engine
+    torch.cuda.empty_cache()
+    secs["engine"] = time.perf_counter() - t0
+    log("moe-capacity/engine", f"{len(done)}/{len(reqs)} requests, "
+                               f"{summ['decode_iters']} decode + "
+                               f"{summ['prefill_iters']} prefill iters; "
+                               f"flash_decode launches {launches} == "
+                               f"decode_iters x {ecfg.num_layers}; logits "
+                               f"finite; live decode step kernel vs plain "
+                               f"max|err| {err:.2e}")
+    log("moe-capacity/engine", f"{lat['tokens_per_s']:.1f} tok/s; TTFT p50 "
+                               f"{lat['ttft_p50_ms']:.2f} ms p99 "
+                               f"{lat['ttft_p99_ms']:.2f} ms; TPOT p50 "
+                               f"{lat['tpot_p50_ms']:.2f} ms p99 "
+                               f"{lat['tpot_p99_ms']:.2f} ms on {card}")
+
+    rec["launches"] = {
+        k: res["run2"]["launches"].get(k, 0) + res["run1"]["launches"].get(
+            k, 0) + sum(v["launches"].get(k, 0) for v in lanes.values())
+        for k in _counters()}
+    rec["phase_seconds"] = secs
+    rec["seconds"] = time.perf_counter() - t_phase
+    log("moe-capacity", f"phase {rec['seconds']:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()) + ")")
+    results["moe_capacity"] = rec
+    return rec
+
+
+# -- phase 22: fault tolerance and the run's telemetry -----------------------
 
 def _ft_child(argv: list, out: str, t0: float) -> None:
     """One restarted run of the ft phase in a fresh process (``t0``: the
@@ -3296,7 +3854,8 @@ def phase_ft(results: dict, tmp: str) -> dict:
       against itself: PASS);
     - 2 steps under ``--gradient_checkpointing``: step 1's activation
       scalars bitwise the telemetry run's, once a layer;
-    - ``moe_small.yaml --moe_impl dropless`` 2 telemetry steps: each
+    - ``moe_small.yaml --moe_impl dropless`` (2 layers) 2 telemetry
+      steps: each
       layer's load fractions sum to 1 within 1e-6, drop_frac 0, gmm/tgmm
       launches exact;
     - ``--nan_scan`` on step 8's checkpoint with one inf planted in layer
@@ -3697,7 +4256,8 @@ def phase_ft(results: dict, tmp: str) -> dict:
                            for k, v in m["telemetry"]["router"].items()})
         return state, m
 
-    moe_argv = ["--config", os.path.join(ROOT, "configs", "moe_small.yaml"),
+    moe_argv = ["--config", _cut_yaml(tmp, "moe_small.yaml", "l2",
+                                      num_layers=2),
                 "--moe_impl", "dropless", "--max_steps", "2",
                 "--telemetry_interval", "1", "--log_interval", "1",
                 "--eval_batches", "1", "--no_auto_resume", *ft_dir("moe")]
@@ -3782,7 +4342,7 @@ def phase_ft(results: dict, tmp: str) -> dict:
 
 
 def _dist_child(mode: str, argv: list, out: str, fault_rank=None,
-                group=None) -> None:
+                group=None, offsets_fault_rank=None) -> None:
     """One rank (or the one process) of the dist phase, in a fresh process:
     ``group`` (``(backend, file store, rank, world)``, else none) joined
     first, as a launcher would (the CLI keeps a group that exists), launch
@@ -3791,7 +4351,11 @@ def _dist_child(mode: str, argv: list, out: str, fault_rank=None,
     masters and moments, ``torch.cuda.memory_allocated()``), each
     ``Trainer.train_step`` timed up to a synchronize. ``fault_rank``
     plants a fault: that rank's gradient shard scaled by 1.5 before the
-    update of step 1. Written to ``out`` (a rank's own file)."""
+    update of step 1. The first capacity-MoE layer call's routing, queue
+    positions and keep mask (layer 0 of step 1) are kept;
+    ``offsets_fault_rank`` plants a fault: that rank's queue positions
+    ignore the earlier ranks' tokens. Written to ``out`` (a rank's own
+    file)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     import importlib
@@ -3839,6 +4403,14 @@ def _dist_child(mode: str, argv: list, out: str, fault_rank=None,
     ckpt_lib.restore_checkpoint = lambda *a, **k: (
         lambda sm: (at_rest(sm[0]), sm[1]))(restore(*a, **k))
     Trainer.train_step = timed
+    from tpu_trainer_torch.models import moe
+
+    first = []
+    _record_positions(first, 1)
+    offsets = moe.rank_offsets
+    moe.rank_offsets = lambda counts, rank: (
+        counts[0] * 0 if rank == offsets_fault_rank
+        else offsets(counts, rank))
     counters = _counters()
     for c in counters.values():
         c.launches = 0
@@ -3853,13 +4425,16 @@ def _dist_child(mode: str, argv: list, out: str, fault_rank=None,
                 collectives=dict(collectives.calls),
                 backend=dist.get_backend() if dist.is_initialized() else None,
                 peak_bytes=torch.cuda.max_memory_allocated(),
-                launches={k: c.launches for k, c in counters.items()})
+                launches={k: c.launches for k, c in counters.items()},
+                moe_first={k: v.tolist() if hasattr(v, "tolist") else v
+                           for k, v in first[0].items()} if first else None)
     with open(out, "w") as f:
         json.dump(seen, f)
 
 
 def _dist_spawn(tmp: str, tag: str, mode: str, argv: list, world: int, *,
-                backend: str = "gloo", fault_rank=None) -> list:
+                backend: str = "gloo", fault_rank=None,
+                offsets_fault_rank=None) -> list:
     """``world`` ranks of ``_dist_child`` (one process without a group
     when ``world`` is 0), started together; each rank's record, in rank
     order. Ranks rendezvous through a file store in ``tmp`` and share
@@ -3872,7 +4447,8 @@ def _dist_spawn(tmp: str, tag: str, mode: str, argv: list, world: int, *,
         e = dict(os.environ, COORDINATOR_TIMEOUT_S="120", LOCAL_RANK="0")
         group = (backend, store, r, world) if world else None
         code = ("import chip_smoke; chip_smoke._dist_child("
-                f"{mode!r}, {argv!r}, {out!r}, {fault_rank!r}, {group!r})")
+                f"{mode!r}, {argv!r}, {out!r}, {fault_rank!r}, {group!r}, "
+                f"{offsets_fault_rank!r})")
         # Output to files, not pipes: a rank blocked on a full pipe would
         # stall its peers' collectives while another run is joined.
         with open(out + ".stdout", "w") as so, \
@@ -3941,6 +4517,15 @@ def _dist_state(path: str) -> dict:
     return ckpt_lib._state_arrays(path, ckpt_lib.load_meta(path))
 
 
+def _dist_params(path: str) -> dict:
+    """A one-process step dir's ``params/*`` arrays alone (the npz members
+    that are read; the moments stay on disk)."""
+    import numpy as np
+
+    with np.load(os.path.join(path, "state.npz")) as z:
+        return {k: z[k] for k in z.files if k.startswith("params/")}
+
+
 def _dist_equal(what: str, got: dict, want: dict, keys=None) -> int:
     import numpy as np
 
@@ -3971,33 +4556,247 @@ def _dist_close(what: str, got: dict, want: dict, keys, rtol: float
     return worst
 
 
-def _dist_zero_yaml(tmp: str, name: str) -> str:
-    """``configs/<name>`` with its dropout rates set to 0 (the runs that
-    are held bitwise or near it to one process: attention dropout folds
-    the rank into its seed)."""
-    import re
-
-    with open(os.path.join(ROOT, "configs", name)) as f:
-        text = f.read()
-    text = re.sub(r"(?m)^(\s*(?:attention_)?dropout:)\s*[0-9.]+",
-                  r"\1 0.0", text)
-    path = os.path.join(tmp, f"nodrop_{name}")
-    with open(path, "w") as f:
-        f.write(text)
-    return path
-
-
 # ZeRO at world 2 against one process at accumulation 2. The gradient
 # sums are the world-1 accumulation (two operands), but the global norm
 # adds the shards' squares in another order: on the H100 it comes out an
 # ulp off at steps 0 and 1, which moves the clip coefficient and every
-# moment by an ulp, and by step 2 the bf16 run has drifted (this phase,
-# medium_model.yaml, 3 steps: losses bitwise, the step-2 grad norm
-# 7.835e-05 off, the final moments up to ~2e-02 of their largest value).
+# moment by an ulp, and by step 2 the bf16 run has drifted (this phase
+# on medium_model.yaml's 24 layers, 3 steps: losses bitwise, the step-2
+# grad norm 7.835e-05 off, the final moments up to ~2e-02 of their
+# largest value).
 # The bounds sit above those; a moment whose two rank halves are swapped
 # is off by its own size and must fail (the control in ``phase_dist``).
 DIST_NORM_RTOL = 2e-4
 DIST_STATE_RTOL = 5e-2
+# MoE at world 2 against one process at the same global micro-batch: a
+# rank computes half the rows (other GEMM shapes, another reduction order
+# of the loss and the aux means), so the losses agree to f32 and bf16
+# rounding, not bitwise. The state does not stay within DIST_STATE_RTOL:
+# a GEMM of another shape rounds a router logit another way, a token at a
+# near tie goes to another expert, and its whole contribution moves (to
+# an expert's weights, to its embedding row). On the H100 (moe_small's
+# width at 2 layers, 3 steps; step 1's layer-0 routing bitwise, the
+# capacity losses within 4.3e-07): the worst element 0.160 (capacity) and
+# 0.164 (dropless) of its leaf's largest value, the worst leaf's relative
+# L2 7.40e-02 and 4.52e-02. So the MoE state is held on each leaf's
+# relative L2, DIST_MOE_STATE_L2; one moment's halves swapped is off by
+# more than its own norm and must fail it.
+DIST_LOSS_RTOL = 1e-3
+DIST_MOE_STATE_L2 = 0.15
+
+
+def _dist_moe(tmp, argv, want, check_launches, launches, card) -> dict:
+    """Group 3 of the dist phase: MoE across processes, both routers, on
+    moe_small's width cut to 2 layers and capacity factor 0.5, 3 steps of
+    a global micro-batch of 4 x 1024 (accumulation 1): one process and
+    world 1 over NCCL (losses and final params bitwise), DDP and
+    FULL_SHARD (no remat, as the yaml says: the backward regathers the
+    expert weights) at world 2, a rank batch 2. Each world-2 run against
+    one process: losses within ``DIST_LOSS_RTOL``, every final master
+    and moment within ``DIST_MOE_STATE_L2`` relative L2 (a control with
+    one moment's halves swapped must fail it), launches exact, one
+    ``moe_counts`` all-gather a layer a forward. Capacity: layer 0's keep
+    mask of step 1 (the ranks' concatenated) bitwise the plain loop's on
+    the concatenated routing and, where that routing equals one
+    process's, bitwise one process's;
+    a planted fault (rank 1's queue offsets 0) must fail that check."""
+    import numpy as np
+
+    from tpu_trainer_torch.parallel.sharding import fsdp_dim
+    from tpu_trainer_torch.training import cli
+
+    t0 = time.perf_counter()
+    runs, spawned = {}, []
+    # moe_small cut to 2 layers, dropout 0 and capacity factor 0.5: the
+    # capacity router drops at every layer, so the queue offsets across
+    # ranks decide which tokens.
+    yamls = {impl: _cut_yaml(tmp, "moe_small.yaml", f"moe2_{impl}",
+                             dropout=0.0, attention_dropout=0.0,
+                             num_layers=2, expert_capacity_factor=0.5,
+                             moe_impl=impl)
+             for impl in ("capacity", "dropless")}
+    for impl, yaml in yamls.items():
+        a1 = argv(f"{impl}1", yaml, 3, 4, 1)
+        runs[f"{impl}1"] = ("ddp", a1)
+        runs[f"{impl}_nccl"] = ("ddp", argv(f"{impl}_nccl", yaml, 3, 4, 1))
+        runs[f"{impl}_ddp"] = ("ddp", argv(f"{impl}_ddp", yaml, 3, 2, 1))
+        runs[f"{impl}_z3"] = ("fsdp", argv(f"{impl}_z3", yaml, 3, 2, 1,
+                                            "--sharding", "FULL_SHARD"))
+        spawned += [(f"{impl}1", _dist_spawn(tmp, f"{impl}1", "ddp", a1, 0)),
+                    (f"{impl}_nccl", _dist_spawn(
+                        tmp, f"{impl}_nccl", "ddp", runs[f"{impl}_nccl"][1],
+                        1, backend="nccl"))]
+        spawned += [(t, _dist_spawn(tmp, t, runs[t][0], runs[t][1], 2))
+                    for t in (f"{impl}_ddp", f"{impl}_z3")]
+    runs["moe_fault"] = ("ddp", argv("moe_fault", yamls["capacity"], 1, 2,
+                                     1))
+    spawned.append(("moe_fault", _dist_spawn(tmp, "moe_fault", "ddp",
+                                             runs["moe_fault"][1], 2,
+                                             offsets_fault_rank=1)))
+    recs = _dist_join_all(spawned)
+    group_s = time.perf_counter() - t0
+
+    def train(tag):
+        return _jsonl(os.path.join(tmp, f"{tag}.jsonl"), "train")
+
+    # Every final state is read at once, on threads.
+    reading = {tag: _background(lambda tag=tag: _dist_state(os.path.join(
+        tmp, f"ck_{tag}", "step_00000003"))) for tag in runs
+        if tag != "moe_fault" and not tag.endswith("_nccl")}
+
+    def state(tag):
+        return reading[tag]()
+
+    out = {"group_s": group_s}
+    for tag, (mode, a) in runs.items():
+        cfg = cli.resolve_configs(cli.build_parser(mode).parse_args(a),
+                                  mode)[0]
+        steps = 1 if tag == "moe_fault" else 3
+        check_launches(tag, recs[tag], want(mode, a, steps, 1))
+        remat = 2 if cfg.gradient_checkpointing else 1
+        calls = cfg.num_layers * (remat * steps + 1)
+        for r in recs[tag]:
+            _add_launches(launches, r["launches"])
+            got = r["collectives"].get("moe_counts", 0)
+            if got != (calls if len(recs[tag]) > 1 else 0):
+                raise AssertionError(f"dist: {tag} rank {r['rank']}: "
+                                     f"{got} moe_counts all-gathers, want "
+                                     f"{calls}")
+
+    def keep_check(tag):
+        """The ranks' concatenated layer-0 keep mask against the plain
+        loop on their concatenated routing; returns (routing, keep)."""
+        first = [r["moe_first"] for r in recs[tag]]
+        gate = np.concatenate([np.asarray(f["gate_idx"]) for f in first])
+        keep = np.concatenate([np.asarray(f["keep"]) for f in first])
+        pos = np.concatenate([np.asarray(f["pos"]) for f in first])
+        want_pos, want_keep = _capacity_plain(gate, first[0]["capacity"])
+        if not (np.array_equal(pos, want_pos)
+                and np.array_equal(keep, want_keep)):
+            raise AssertionError(
+                f"dist: {tag}: layer-0 keep mask differs from the plain "
+                f"loop's in {int((keep != want_keep).sum())} of "
+                f"{keep.size} token-choices")
+        return gate, keep
+
+    def state_rel(got, want, keys):
+        """Per leaf: max |got - want| / max |want| and the relative L2
+        (f32 arithmetic: the bounds sit at 1e-2 and above)."""
+        out = {}
+        for k in keys:
+            w = np.asarray(want[k], dtype=np.float32).reshape(-1)
+            d = np.asarray(got[k], dtype=np.float32).reshape(-1) - w
+            out[k] = (float(np.abs(d).max() / max(np.abs(w).max(), 1e-30)),
+                      float(np.linalg.norm(d) / max(np.linalg.norm(w),
+                                                    1e-30)))
+        return out
+
+    failures = []
+    for impl in ("capacity", "dropless"):
+        one = train(f"{impl}1")
+        if [r["loss"] for r in train(f"{impl}_nccl")] != [
+                r["loss"] for r in one]:
+            raise AssertionError(f"dist: {impl} world 1 over NCCL: losses "
+                                 f"differ from one process")
+        ref = state(f"{impl}1")
+        nccl = _dist_params(os.path.join(tmp, f"ck_{impl}_nccl",
+                                         "step_00000003"))
+        n = _dist_equal(f"{impl} world 1 over NCCL", nccl, ref, list(nccl))
+        keys = [k for k in ref if "/" in k]
+        res = {"nccl_param_arrays": n}
+        for strategy in ("ddp", "z3"):
+            tag = f"{impl}_{strategy}"
+            got = [r["loss"] for r in train(tag)]
+            w = [r["loss"] for r in one]
+            rel = max(abs(a - b) / abs(b) for a, b in zip(got, w))
+            final = state(tag)
+            leaves = state_rel(final, ref, keys)
+            worst = max(leaves, key=lambda k: leaves[k][0])
+            worst_l2 = max(leaves, key=lambda k: leaves[k][1])
+            r0 = recs[tag][0]
+            res[strategy] = {
+                "losses": got, "world1_losses": w, "loss_worst_rtol": rel,
+                "state_worst": [worst, leaves[worst][0]],
+                "state_worst_l2": [worst_l2, leaves[worst_l2][1]],
+                "step_ms": [r["step_ms"] for r in recs[tag]],
+                "peak_gb": [r["peak_bytes"] / 1e9 for r in recs[tag]],
+                "moe_counts": r0["collectives"].get("moe_counts", 0)}
+            if len(got) != len(w) or rel > DIST_LOSS_RTOL:
+                failures.append(f"{tag}: losses {got} vs one process's {w} "
+                                f"(worst rtol {rel:.3e}, bound "
+                                f"{DIST_LOSS_RTOL:.0e})")
+            if leaves[worst_l2][1] > DIST_MOE_STATE_L2:
+                failures.append(f"{tag}: final state's worst relative L2 "
+                                f"{leaves[worst_l2][1]:.3e} at {worst_l2} "
+                                f"above {DIST_MOE_STATE_L2}")
+            if strategy == "ddp":
+                ddp_final = final
+            else:
+                between = state_rel(final, ddp_final, keys)
+                res[strategy]["vs_ddp_worst"] = max(
+                    v[0] for v in between.values())
+            if impl == "capacity":
+                keep_check(f"{impl}1")
+                gate, keep = keep_check(tag)
+                first1 = recs[f"{impl}1"][0]["moe_first"]
+                same_routing = np.array_equal(
+                    gate, np.asarray(first1["gate_idx"]))
+                if same_routing and not np.array_equal(
+                        keep, np.asarray(first1["keep"])):
+                    failures.append(f"{tag}: layer-0 keep mask of step 1 "
+                                    f"differs from one process's")
+                res[strategy].update(
+                    drop_frac_layer0=float(1.0 - keep.mean()),
+                    routing_equal_one_process=bool(same_routing),
+                    routing_differs=int((gate != np.asarray(
+                        first1["gate_idx"])).sum()))
+            if strategy == "ddp" and impl == "capacity":
+                key = max((k for k in keys if "/mu/" in k),
+                          key=lambda k: ref[k].size)
+                d = fsdp_dim(ref[key].shape, 2)
+                swapped = {key: np.concatenate(
+                    np.split(final[key], 2, axis=d)[::-1], axis=d)}
+                ctrl = state_rel(swapped, ref, [key])[key][1]
+                if ctrl <= DIST_MOE_STATE_L2:
+                    raise AssertionError(f"dist: the check passed a planted "
+                                         f"fault: {key}'s halves swapped "
+                                         f"(relative L2 {ctrl:.3e})")
+            log("dist", f"MoE {impl} {strategy} world 2 (moe_small width, 2 "
+                        f"layers, capacity factor 0.5): losses "
+                        + " ".join(f"{x:.6f}" for x in got)
+                        + " vs one process "
+                        + " ".join(f"{x:.6f}" for x in w)
+                        + f" (worst rtol {rel:.2e}); final state worst "
+                        f"{leaves[worst][0]:.2e} of its leaf's largest "
+                        f"value ({worst}), worst relative L2 "
+                        f"{leaves[worst_l2][1]:.2e} ({worst_l2}; bound "
+                        f"{DIST_MOE_STATE_L2})"
+                        + (f", {res[strategy]['vs_ddp_worst']:.2e} off DDP's"
+                           if strategy == "z3" else "") + "; "
+                        f"{res[strategy]['moe_counts']} moe_counts "
+                        f"all-gathers a rank"
+                        + (f"; layer-0 keep mask of step 1 bitwise the plain"
+                           f" loop's (drop_frac "
+                           f"{res[strategy]['drop_frac_layer0']:.4f}), "
+                           f"routing {res[strategy]['routing_differs']} "
+                           f"choices off one process's"
+                           if impl == "capacity" else "")
+                        + f"; step ms rank 0 "
+                        f"{[round(x, 1) for x in res[strategy]['step_ms'][0]]}"
+                        f" ({card})")
+        out[impl] = res
+    if failures:
+        raise AssertionError("dist: MoE: " + "; ".join(failures))
+    _must_reject("dist: rank 1's queue offsets 0",
+                 lambda: keep_check("moe_fault"))
+    for tag, (_, a) in runs.items():
+        shutil.rmtree(a[a.index("--checkpoint_dir") + 1], ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    log("dist", f"MoE group: 9 runs sharing the card in {group_s:.1f} s; "
+                f"world 1 over NCCL: losses and final params bitwise one "
+                f"process (both routers); "
+                f"rank 1's zeroed queue offsets rejected")
+    return out
 
 
 def phase_dist(results: dict, tmp: str) -> dict:
@@ -4017,8 +4816,8 @@ def phase_dist(results: dict, tmp: str) -> dict:
       and the final masters and moments bitwise; launches exact on each
       rank; a planted fault (rank 1's gradients scaled at step 1) must be
       rejected by the same loss check;
-    - ZeRO-3 and ZeRO-2 at world 2: ``medium_model.yaml`` (454 M, dropout
-      0) through ``train_fsdp --sharding FULL_SHARD`` and
+    - ZeRO-3 and ZeRO-2 at world 2: ``medium_model.yaml`` (12 of its 24
+      layers, dropout 0) through ``train_fsdp --sharding FULL_SHARD`` and
       ``SHARD_GRAD_OP``, a rank batch 4, accumulation 1, 3 steps, against
       one process at batch 4 x 2: losses bitwise, grad norms within
       ``DIST_NORM_RTOL`` and every final master and moment within
@@ -4035,7 +4834,8 @@ def phase_dist(results: dict, tmp: str) -> dict:
       two-phase save at step 2 (``shard_world: 2``); the step-2 directory
       alone resumed at world 2 to step 4 must equal the straight run's
       step 4 bitwise (params, moments, generator), and restored at world
-      1 here its state must be the stitched shards bitwise.
+      1 here its state must be the stitched shards bitwise;
+    - MoE, both routers, after the two groups above (``_dist_moe``).
 
     Two ranks time-slicing one card measure no multi-GPU speed."""
     import numpy as np
@@ -4048,8 +4848,10 @@ def phase_dist(results: dict, tmp: str) -> dict:
     t_phase = time.perf_counter()
     card = nvidia_smi_line()
     small = os.path.join(ROOT, "configs", "small_model.yaml")
-    small0 = _dist_zero_yaml(tmp, "small_model.yaml")
-    medium0 = _dist_zero_yaml(tmp, "medium_model.yaml")
+    small0 = _cut_yaml(tmp, "small_model.yaml", "nodrop", dropout=0.0,
+                       attention_dropout=0.0)
+    medium0 = _cut_yaml(tmp, "medium_model.yaml", "nodrop", dropout=0.0,
+                        attention_dropout=0.0, num_layers=12)
     common = ["--log_interval", "1", "--eval_interval", "0",
               "--eval_batches", "1", "--keep_last_n", "0",
               "--no_auto_resume"]
@@ -4247,7 +5049,8 @@ def phase_dist(results: dict, tmp: str) -> dict:
             "world1_peak_gb": m1["peak_bytes"] / 1e9,
             "collectives": [r["collectives"] for r in ranks]}
         wire = ranks[0]["collectives"]
-        log("dist", f"{strategy} world 2 (medium_model.yaml, 454 M): losses "
+        log("dist", f"{strategy} world 2 (medium_model.yaml at 12 layers): "
+                    f"losses "
                     f"within rtol {worst['loss']:.2e} and grad norms "
                     f"{worst['grad_norm']:.3e} of world 1; at rest a rank "
                     f"holds {ratios[0]['allocated']:.3f} of one process's "
@@ -4318,6 +5121,11 @@ def phase_dist(results: dict, tmp: str) -> dict:
                          ck_zero3.get("regather_saved", 0),
                          "peak_gb": [r["peak_bytes"] / 1e9
                                      for r in straight]}
+    # Groups 1 and 2's checkpoints are read: free the disk for group 3.
+    for name in os.listdir(tmp):
+        if name.startswith("ck_"):
+            shutil.rmtree(os.path.join(tmp, name))
+    out["moe"] = _dist_moe(tmp, argv, want, check_launches, launches, card)
     out["launches"] = launches
     out["seconds"] = time.perf_counter() - t_phase
     log("dist", f"phase {out['seconds']:.1f} s")
@@ -4337,45 +5145,47 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     results: dict = {}
-    phase_card(results)
-    main_row = phase_kernel(results)
-    phase_reference(results)
-    launches, engine = phase_engine(results, kv_int8=False)
-    profile_engine(results, engine)
+    secs = results["phase_seconds"] = {}
+
+    def run(name, fn, *a, **k):
+        """``fn(results, *a, **k)``, its seconds kept under ``name``."""
+        t = time.perf_counter()
+        out = fn(results, *a, **k)
+        secs[name] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+        return out
+
+    run("card", phase_card)
+    main_row = run("kernel", phase_kernel)
+    run("reference", phase_reference)
+    launches, engine = run("engine", phase_engine, kv_int8=False)
+    run("profile", profile_engine, engine)
     del engine
-    phase_engine(results, kv_int8=True)
-    torch.cuda.empty_cache()
-    train_k = phase_train_kernel(results)
-    mask = phase_mask(results)
-    split = phase_train_split(results)
-    grouped = phase_gmm(results)
-    torch.cuda.empty_cache()
-    phase_train_reference(results)
-    phase_train_grads(results)
-    torch.cuda.empty_cache()
-    train_launches = phase_train(results)
-    torch.cuda.empty_cache()
-    packed_launches = phase_train_packed(results)
-    torch.cuda.empty_cache()
-    phase_train_grads(results, moe=True)
-    torch.cuda.empty_cache()
-    moe_launches = phase_train_moe(results)
-    torch.cuda.empty_cache()
+    run("int8", phase_engine, kv_int8=True)
+    train_k = run("train-kernel", phase_train_kernel)
+    mask = run("mask", phase_mask)
+    split = run("train-split", phase_train_split)
+    grouped = run("gmm", phase_gmm)
+    run("train-reference", phase_train_reference)
+    run("train-grads", phase_train_grads)
+    train_launches = run("train", phase_train)
+    packed_launches = run("train-packed", phase_train_packed)
+    run("moe-grads", phase_train_grads, moe=True)
+    moe_launches = run("train-moe", phase_train_moe)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
     try:
-        phase_cli(results, tmp)
-        torch.cuda.empty_cache()
-        phase_infer(results, tmp)
-        torch.cuda.empty_cache()
-        phase_remat(results, tmp)
-        phase_offload(results, tmp)
-        phase_moe_remat(results, tmp)
-        torch.cuda.empty_cache()
-        ft = phase_ft(results, tmp)
-        torch.cuda.empty_cache()
-        dist = phase_dist(results, tmp)
+        run("cli", phase_cli, tmp)
+        run("infer", phase_infer, tmp)
+        run("remat", phase_remat, tmp)
+        run("offload", phase_offload, tmp)
+        run("moe-remat", phase_moe_remat, tmp)
+        mc = run("moe-capacity", phase_moe_capacity, tmp)
+        ft = run("ft", phase_ft, tmp)
+        dist = run("dist", phase_dist, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    log("done", "phase seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in secs.items()))
 
     max_err = max(results["kernel_max_abs_err"],
                   results["engine"]["live_step_max_abs_err"],
@@ -4393,10 +5203,13 @@ def main(argv=None) -> int:
                 "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
                 "library_ms": library_ms}
 
-    # The ft and dist phases' paths launch the training kernels too: each
-    # row counts its main path's launches plus theirs.
+    # The moe-capacity, ft and dist phases' paths launch the training
+    # kernels too: each row counts its main path's launches plus theirs
+    # (and flash_decode's the moe-capacity engine's).
     ftl = dict(ft["launches"])
     _add_launches(ftl, dist["launches"])
+    _add_launches(ftl, mc["launches"])
+    launches += mc["engine"]["launches"]
     train_launches = {k: v + ftl.get(k, 0) for k, v in train_launches.items()}
     packed_launches = {k: v + ftl.get(k, 0)
                        for k, v in packed_launches.items()}

@@ -330,14 +330,26 @@ _PIPELINE = (NotImplementedError, "Queue 1: pipeline and expert parallelism")
      (NotImplementedError, "Queue 1: the sequence ring")),
     (["--mesh_expert", "2"], _PIPELINE),
     (["--mesh_stage", "2"], _PIPELINE),
-    (["--num_experts", "4"],
-     (NotImplementedError, "Queue 1: the capacity router, on one device")),
     (["--no_comms_model"], _PLANNER),
 ])
 def test_later_item_options_raise(extra, item):
     exc, match = item
     with pytest.raises(exc, match=match):
         cli.run_training(["--device", "cpu", "--max_steps", "1"] + extra)
+
+
+def test_num_experts_trains_a_step(tmp_path, yaml_file, capsys):
+    """``--num_experts 4`` on the tiny yaml: the capacity router (the
+    default ``moe_impl``) takes one step, and the startup line names it."""
+    assert cli.run_training(
+        ["--device", "cpu", "--config", yaml_file(TINY_YAML),
+         "--num_experts", "4", "--max_steps", "1",
+         "--checkpoint_dir", str(tmp_path / "ck")]) == 0
+    out = capsys.readouterr().out
+    assert ("MoE: 4 experts, top-1, capacity router, gather dispatch, "
+            "capacity factor 1.25") in out
+    assert ckpt.latest_checkpoint(str(tmp_path / "ck")).endswith(
+        "step_00000001")
 
 
 def test_standby_file_raises_naming_item_5(monkeypatch, tmp_path):

@@ -17,6 +17,14 @@ Tolerances, and why:
   init bitwise (the same shard rule on the same values); after three
   steps loss and grad_norm rtol 1e-4 and params atol 1e-4
   (``test_torch_train.py``'s trajectory bounds).
+- MoE (both routers under DDP, ZeRO-2 and ZeRO-3 at world 2, the
+  capacity router under HYBRID_SHARD at world 4; accumulation 1: the
+  global micro-batch is the ranks' rows in rank order) against one
+  process at the same global batch: every capacity layer call's queue
+  positions and keep mask, the ranks' concatenated, bitwise; losses and
+  the ranks' mean router aux within 1e-5; the state at the
+  equal-global-batch bounds above. A planted fault (rank 1's positions
+  ignoring rank 0's tokens) must move the keep masks.
 """
 
 import numpy as np
@@ -205,11 +213,20 @@ def test_dropout_masks_follow_the_data_shard(world2):
     assert not np.array_equal(k0, k1)
 
 
-def test_hybrid_shard_world4_equals_world1(tmp_path):
-    out = run_world(tmp_path, 4, [
+@pytest.fixture(scope="module")
+def world4(tmp_path_factory):
+    return run_world(tmp_path_factory.mktemp("world4"), 4, [
         _job("hybrid", "HYBRID_SHARD", {"data": 2, "fsdp": 2}, batch_size=1),
         _job("hybrid_z2", "zero2", {"data": 2, "fsdp": 2}, batch_size=1),
+        {**_job("hybrid_moe", "HYBRID_SHARD", {"data": 2, "fsdp": 2},
+                model={**MOE, "moe_impl": "capacity"}, steps=MOE_STEPS,
+                batch_size=1, gradient_accumulation_steps=1),
+         "record_moe": True},
     ])
+
+
+def test_hybrid_shard_world4_equals_world1(world4):
+    out = world4
     ref = _world1(batch_size=4)
     for name in ("hybrid", "hybrid_z2"):
         _check_equal_global_batch(out[name], ref)
@@ -341,3 +358,108 @@ def test_torchrun_cli_matches_one_process(tmp_path, mode, extra):
     assert len(two) == 2
     np.testing.assert_allclose(two, one, rtol=2e-5, atol=1e-5)
     assert os.path.exists(tmp_path / "ck_two" / "step_00000002" / "shards")
+
+
+# -- MoE at world 2 ----------------------------------------------------------
+
+MOE = {**MODEL, "num_experts": 4, "moe_top_k": 2, "router_z_weight": 1e-3,
+       "expert_capacity_factor": 0.5}
+MOE_STEPS = 3
+
+
+def _moe_world1(model):
+    """One process at the world-2 runs' global batch (batch 4, accumulation
+    1), recording every MoE layer call as the ranks do."""
+    from tests.torch_dist_worker import record_moe
+
+    rec = {}
+    restore = record_moe(rec)
+    try:
+        out = _world1(model=model, steps=MOE_STEPS, batch_size=4,
+                      gradient_accumulation_steps=1)
+    finally:
+        restore()
+    return out, rec
+
+
+@pytest.fixture(scope="module")
+def moe_world2(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("moe_world2")
+    jobs = []
+    for impl in ("capacity", "dropless"):
+        model = {**MOE, "moe_impl": impl}
+        for name, strategy, mesh in (("ddp", "replicated", None),
+                                     ("zero2", "SHARD_GRAD_OP",
+                                      {"data": 1, "fsdp": 2}),
+                                     ("zero3", "FULL_SHARD",
+                                      {"data": 1, "fsdp": 2})):
+            jobs.append({**_job(f"{impl}_{name}", strategy, mesh, model=model,
+                                steps=MOE_STEPS,
+                                gradient_accumulation_steps=1),
+                         "record_moe": True})
+    jobs.append({**_job("offsets_fault", "replicated",
+                        model={**MOE, "moe_impl": "capacity"}, steps=1,
+                        gradient_accumulation_steps=1),
+                 "record_moe": True, "zero_offsets_rank": 1})
+    return run_world(tmp, 2, jobs)
+
+
+def _check_moe_equals_world1(out, name, ref, rec):
+    """Every rank of a MoE run against one process at the same global
+    batch (``ref``, ``rec``: ``_moe_world1``): the state at the
+    equal-global-batch bounds, losses and the ranks' mean aux within 1e-5,
+    one all-gather of the ``[k, E]`` counts a layer a forward, and every
+    capacity layer call's positions and keep mask (the ranks'
+    concatenated) bitwise."""
+    losses, norms, sd = ref
+    calls = MOE_STEPS * MOE["num_layers"]
+    _check_equal_global_batch(out, ref)
+    for rank in out:
+        np.testing.assert_allclose(rank["losses"], losses, rtol=1e-5,
+                                   atol=1e-5)
+        assert rank["collectives"]["moe_counts"] == calls
+    np.testing.assert_allclose(np.mean([r["moe_aux"] for r in out], axis=0),
+                               rec["moe_aux"], rtol=1e-5, atol=1e-5)
+    for key in ("moe_keep", "moe_pos"):
+        assert len(out[0][key]) == len(rec[key])
+        for i, want in enumerate(rec[key]):
+            got = np.concatenate([r[key][i] for r in out])
+            assert np.array_equal(got, want), (name, key, i)
+
+
+@pytest.mark.parametrize("impl", ["capacity", "dropless"])
+def test_moe_world2_equals_world1(moe_world2, impl):
+    ref, rec = _moe_world1({**MOE, "moe_impl": impl})
+    calls = MOE_STEPS * MOE["num_layers"]
+    assert len(rec["moe_aux"]) == calls
+    assert len(rec["moe_keep"]) == (calls if impl == "capacity" else 0)
+    if impl == "capacity":
+        assert not all(k.all() for k in rec["moe_keep"])   # drops
+    for name in ("ddp", "zero2", "zero3"):
+        out = moe_world2[f"{impl}_{name}"]
+        _check_moe_equals_world1(out, name, ref, rec)
+        if name == "zero3":
+            # ZeRO-3 keeps no gathered weight the backward needs: a layer's
+            # two norms, q/k/v, o, the router and the three expert
+            # weights, and the embedding and final norm, are regathered.
+            for rank in out:
+                assert rank["collectives"]["regather_saved"] == (
+                    8 * calls + 2 * MOE_STEPS)
+
+
+def test_moe_rank_offset_fault_moves_the_keep_masks(moe_world2):
+    _, rec = _moe_world1({**MOE, "moe_impl": "capacity"})
+    bad = moe_world2["offsets_fault"]
+    got = np.concatenate([r["moe_keep"][0] for r in bad])
+    assert np.array_equal(bad[0]["moe_keep"][0],
+                          rec["moe_keep"][0][:len(bad[0]["moe_keep"][0])])
+    assert not np.array_equal(got, rec["moe_keep"][0])
+
+
+def test_moe_hybrid_shard_world4_equals_world1(world4):
+    """The capacity router under HYBRID_SHARD (data 2 x fsdp 2): the four
+    ranks route their rows together, as one process routes the batch."""
+    ref, rec = _moe_world1({**MOE, "moe_impl": "capacity"})
+    out = world4["hybrid_moe"]
+    _check_moe_equals_world1(out, "hybrid", ref, rec)
+    assert not all(k.all() for k in rec["moe_keep"])          # drops

@@ -13,7 +13,8 @@
   trajectory against the JAX ``Trainer`` at accumulation 1 and 2 (loss,
   grad norm, lr rtol 1e-4; final parameters atol 1e-4).
 - MFU's flops count the active parameters only, the decay mask names the
-  MoE leaves as the JAX one does, the capacity router and MoE decode raise.
+  MoE leaves as the JAX one does, a capacity GPT builds and the paged
+  engine serves a MoE model (their parity: ``test_torch_moe_capacity.py``).
 """
 
 import types
@@ -88,10 +89,13 @@ def test_routing_bitwise(jx, E, k, ties):
     gates = gate_vals if k == 1 else gate_vals / jnp.sum(
         gate_vals, axis=-1, keepdims=True)
 
-    tg, tidx, _ = tmoe.route(torch.from_numpy(xt), torch.from_numpy(w), cfg)
+    tg, tidx, _, tc = tmoe.route(torch.from_numpy(xt), torch.from_numpy(w),
+                                 cfg)
     tcounts, tperm, tinv = tmoe.dispatch(tidx, E)
     np.testing.assert_array_equal(tidx.numpy(), np.asarray(gate_idx))
     np.testing.assert_array_equal(tcounts.numpy(), np.asarray(counts))
+    np.testing.assert_array_equal(tc.sum(dim=(0, 1)).numpy(),
+                                  np.asarray(counts))
     np.testing.assert_array_equal(tperm.numpy(), np.asarray(perm))
     np.testing.assert_array_equal(tinv.numpy(), np.asarray(inv))
     np.testing.assert_allclose(tg.numpy(), np.asarray(gates), **TOL)
@@ -249,15 +253,26 @@ def test_decay_mask_and_init_of_moe_leaves(jx):
     assert 0.1 < float(init["layers.moe_mlp.experts_gate"].std()) < 0.3
 
 
-def test_capacity_router_and_moe_decode_raise():
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        TGPT(TConfig(**{**BASE, "moe_impl": "capacity"}), device="meta")
+def test_capacity_gpt_builds_and_moe_engine_serves():
+    """A capacity GPT builds and trains a forward; the paged engine serves
+    a MoE model of either router (every request finishes)."""
     from tpu_trainer_torch.serving.engine import ServingEngine
+    from tpu_trainer_torch.serving.scheduler import Request, SamplingParams
 
-    cfg = TConfig(**BASE)
-    with pytest.raises(NotImplementedError, match="MoE decode"):
-        ServingEngine(init_params(cfg, device="cpu"), cfg, max_batch=2,
-                      block_size=4, num_blocks=9, device="cpu")
+    cap = TConfig(**{**BASE, "moe_impl": "capacity"})
+    model = TGPT(cap, device="meta")
+    model.load_state_dict(init_params(cap, device="cpu"), assign=True)
+    ids = torch.zeros(2, 16, dtype=torch.long)
+    assert torch.isfinite(model(ids, ids)[1])
+    for cfg in (cap, TConfig(**BASE)):
+        engine = ServingEngine(init_params(cfg, device="cpu"), cfg,
+                               max_batch=2, block_size=4, num_blocks=9,
+                               device="cpu")
+        done = engine.run([Request(rid=i, prompt=[1, 2, 3, 4 + i],
+                                   max_new_tokens=3,
+                                   sampling=SamplingParams(temperature=0.0))
+                           for i in range(3)], time_mode="steps")
+        assert sorted(len(r.generated) for r in done) == [3, 3, 3]
 
 
 # -- on the card -------------------------------------------------------------

@@ -324,26 +324,38 @@ def test_packed_batch_step_uses_segment_ids():
 @pytest.mark.parametrize("kw,err", [
     ({"optimizer_state_dtype": "int16"}, ValueError),
     ({"cpu_offload": True, "optimizer_state_dtype": "int8"}, ValueError),
-    ({"num_experts": 2}, NotImplementedError),
 ])
 def test_unported_options_raise(kw, err):
     """Options the trainer refuses: an unknown moment storage, host
-    offload over narrow moments, the capacity MoE router (remat and
-    narrow moments themselves train: tests/test_torch_remat.py,
-    test_torch_optimizer_q.py)."""
+    offload over narrow moments (remat and narrow moments themselves
+    train: tests/test_torch_remat.py, test_torch_optimizer_q.py)."""
     from tpu_trainer_torch.training.trainer import ParallelConfig
 
-    model = {k: v for k, v in kw.items() if k == "num_experts"}
     train = {k: v for k, v in kw.items() if k == "optimizer_state_dtype"}
     par = {k: v for k, v in kw.items() if k == "cpu_offload"}
     with pytest.raises(err):
-        TTrainer(TConfig(**{**BASE, **model}), TTrain(**train),
-                 ParallelConfig(**par), device="cpu")
+        TTrainer(TConfig(**BASE), TTrain(**train), ParallelConfig(**par),
+                 device="cpu")
+
+
+def test_capacity_moe_trains():
+    """The capacity router (the default ``moe_impl``): a Trainer builds
+    and takes a step (its parity: tests/test_torch_moe_capacity.py)."""
+    tr = TTrainer(TConfig(**{**BASE, "num_experts": 2}),
+                  TTrain(batch_size=2, max_seq_len=16,
+                         gradient_accumulation_steps=1,
+                         mixed_precision="fp32", warmup_steps=1),
+                  device="cpu")
+    assert tr.model_config.moe_impl == "capacity"
+    state = tr.init_state(0)
+    state, m = tr.train_step(state, next(iter(DummyDataLoader(2, 16, 128,
+                                                              1))))
+    assert np.isfinite(m["loss"]) and state.step == 1
 
 
 def test_dropless_moe_trains():
-    """The dropless counterpart of the num_experts case above: a Trainer
-    builds, holds the stacked MoE leaves and takes steps on the CPU."""
+    """The dropless router: a Trainer builds, holds the stacked MoE leaves
+    and takes steps on the CPU."""
     kw = {**BASE, "num_experts": 2, "moe_impl": "dropless", "moe_top_k": 1}
     tr = TTrainer(TConfig(**kw), TTrain(batch_size=2, max_seq_len=16,
                                         gradient_accumulation_steps=1,

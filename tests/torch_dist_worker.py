@@ -11,7 +11,10 @@ numpy arrays and scalars) for the test to compare. Jobs:
   steps of ``DummyDataLoader`` batches (this rank's rows); writes the
   losses, grad norms, this rank's local arrays at init and at the end,
   its ``shard_records()``, the collectives it ran (``collectives.calls``),
-  and optionally arms a fault plan
+  with ``record_moe`` every MoE layer call's router aux and, for the
+  capacity router, its queue positions and keep mask (``record_moe``
+  below; ``zero_offsets_rank`` plants a fault there), and optionally arms
+  a fault plan
   (``faults``), saves a checkpoint at each step of ``save_at``, restores
   a checkpoint (``restore``) into a fresh state and restores the newest
   loadable checkpoint of a directory (``restore_latest``; every rank
@@ -69,6 +72,44 @@ def local_arrays(state) -> dict:
     return out
 
 
+def record_moe(out: dict, zero_offsets_rank=None):
+    """Wrap ``models/moe.py``'s ``route`` and ``capacity_positions`` to
+    append each call's aux (``moe_aux``), positions (``moe_pos``) and keep
+    mask (``moe_keep``) to ``out``; ``zero_offsets_rank`` plants a fault:
+    that rank's queue positions ignore the earlier ranks' tokens. Returns
+    the function that restores the originals."""
+    from tpu_trainer_torch.models import moe
+
+    route, positions, offsets = (moe.route, moe.capacity_positions,
+                                 moe.rank_offsets)
+    for key in ("moe_aux", "moe_pos", "moe_keep"):
+        out[key] = []
+
+    def rec_route(*a, **k):
+        res = route(*a, **k)
+        out["moe_aux"].append(float(res[2].detach()))
+        return res
+
+    def rec_positions(*a, **k):
+        pos, keep = positions(*a, **k)
+        out["moe_pos"].append(pos.numpy())
+        out["moe_keep"].append(keep.numpy())
+        return pos, keep
+
+    def zero_offsets(counts, rank):
+        if rank == zero_offsets_rank:
+            return counts[0] * 0
+        return offsets(counts, rank)
+
+    moe.route, moe.capacity_positions = rec_route, rec_positions
+    moe.rank_offsets = zero_offsets
+
+    def restore():
+        moe.route, moe.capacity_positions, moe.rank_offsets = (
+            route, positions, offsets)
+    return restore
+
+
 def make_trainer(job) -> Trainer:
     mesh = MeshConfig(**job.get("mesh", {}))
     return Trainer(GPTConfig(**job["model"]), TrainingConfig(**job["train"]),
@@ -81,6 +122,9 @@ def train(job) -> dict:
     if job.get("faults"):
         faults.install(job["faults"])
     collectives.calls.clear()
+    moe_out = {}
+    restore_moe = (record_moe(moe_out, job.get("zero_offsets_rank"))
+                   if job.get("record_moe") else None)
     tr = make_trainer(job)
     params = None
     if job.get("params_npz"):
@@ -121,6 +165,9 @@ def train(job) -> dict:
     out["records"] = state.shard_records()
     out["scalars"] = state.scalars()
     out["collectives"] = dict(collectives.calls)
+    if restore_moe is not None:
+        restore_moe()
+        out.update(moe_out)
     if job.get("restore"):
         restored, meta = ckpt.restore_checkpoint(job["restore"],
                                                  make_trainer(job))

@@ -16,8 +16,9 @@ card). ``--prompt_file`` decodes one ragged batch, a prompt a line.
 ``--mesh_data N`` decodes on N processes (launched as the training CLI
 is, e.g. ``torchrun --nproc_per_node N``): the prompt rows split over the
 ranks in order (their count must divide), each rank decodes its rows on
-the KV path with the global width and row seeds, and rank 0 gathers and
-prints every row, the tokens the one-process run gives.
+the KV path with the global width and row seeds (a MoE model routes every
+rank's rows together, as one process routes the whole batch), and rank 0
+gathers and prints every row, the tokens the one-process run gives.
 
 Runs on CUDA unless ``--device cpu``; without a GPU and without that flag
 it raises. ``--spec`` (ROADMAP Queue 1: "serving on one device:
@@ -40,6 +41,7 @@ import torch
 from tpu_trainer_torch.models.config import GPTConfig
 from tpu_trainer_torch.models.gpt import generate, generate_kv
 from tpu_trainer_torch.models.weights import build_model
+from tpu_trainer_torch.parallel import collectives as coll_lib
 from tpu_trainer_torch.parallel import mesh as mesh_lib
 from tpu_trainer_torch.utils.checkpoint import (latest_checkpoint,
                                                 restore_params)
@@ -203,6 +205,10 @@ def main(argv=None, *, result: Optional[dict] = None) -> int:
         return 0
 
     model = build_model(config, params, device)
+    if shards > 1 and config.num_experts > 0:
+        model.moe_group = coll_lib.Collectives(
+            torch.distributed.group.WORLD,
+            list(range(mesh_lib.process_count())))
     # This rank's rows (all of them at one process), at the global width
     # and with their global row seeds.
     per = len(rows) // shards

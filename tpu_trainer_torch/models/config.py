@@ -4,9 +4,8 @@ Same fields, defaults, validation and presets as the JAX package, so one
 set of keyword arguments builds both configs in the parity tests. Dtypes
 stay strings; ``compute_dtype`` / ``params_dtype`` map them to torch
 dtypes. The training forward reads the dropout, flash-attention, fused
-loss, fused-projection, remat and MoE fields; ``num_experts > 0`` with
-``moe_impl="capacity"`` raises ``NotImplementedError`` until its slice
-lands, and the pipeline fields are carried for parity only (one device).
+loss, fused-projection, remat and MoE fields (both routers); the
+pipeline fields are carried for parity only (one device).
 """
 
 from __future__ import annotations
@@ -56,8 +55,8 @@ class GPTConfig:
     activation: str = "silu"
     rope_theta: float = 10000.0
 
-    # Mixture-of-Experts (0 = dense). Only moe_impl="dropless" is ported
-    # (models/moe.py); moe_dispatch belongs to the capacity router.
+    # Mixture-of-Experts (0 = dense; models/moe.py). moe_dispatch is the
+    # capacity router's: "auto" is "gather" (no expert axis is ported).
     num_experts: int = 0
     moe_top_k: int = 1
     expert_capacity_factor: float = 1.25

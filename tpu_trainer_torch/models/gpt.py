@@ -16,8 +16,9 @@ Two branches of ``GPT.forward``, chosen by ``config.decode_paged``, and
   dropout is ``ops.dropout.hash_dropout`` (``fast_dropout``). Every
   dropout seed is drawn from ``generator``. The loss is the fused head +
   shifted CE (``ops.loss``) when ``fused_loss``. With ``num_experts > 0``
-  (``moe_impl="dropless"``) each layer's FFN is the dropless MoE of
-  ``models/moe.py`` and the loss adds the layers' mean router auxiliary.
+  each layer's FFN is the MoE of ``models/moe.py`` (the capacity or the
+  dropless router, by ``moe_impl``) and the loss adds the layers' mean
+  router auxiliary.
   ``gradient_checkpointing`` recomputes each block in the backward
   (``_remat_block``): ``remat_policy="full"`` keeps only the block input,
   ``"dots"`` also keeps every matmul output (JAX ``dots_saveable``); the
@@ -27,8 +28,9 @@ Two branches of ``GPT.forward``, chosen by ``config.decode_paged``, and
 - **Paged decode** (``decode=True`` with ``decode_paged``):
   ``forward(input_ids, cache, *, hist_blocks=0, logits_at=None)`` over the
   paged KV cache (``_paged_decode_attention``), decode attention through
-  ``ops.flash.flash_decode``. MoE decode is not ported: a paged MoE
-  config raises.
+  ``ops.flash.flash_decode``. A MoE layer routes all ``max_batch x
+  width`` rows of the pass, idle slots' zero ids included, as the JAX
+  engine's does (its auxiliary is dropped).
 - **Contiguous KV cache** (``GPT.decode(input_ids, cache)``, the JAX
   ``_decode_attention``): ``init_cache``'s ``[L, b, len, kvh, d]`` buffers
   and running length; a call appends its tokens and attends every cached
@@ -59,7 +61,7 @@ compute dtype, logits returned as f32.
 The block pools are updated in place (the JAX module returns new pools);
 that keeps one copy of the cache on the device.
 
-At world > 1 a trainer sets two attributes (``training/trainer.py``):
+At world > 1 a trainer sets three attributes (``training/trainer.py``):
 ``zero3`` (ZeRO-3: the parameters are this rank's shards, gathered by a
 ``parallel.collectives.ZeroGather``; the embedding and final norm once a
 forward, a block's inside the block. The training forward runs inside
@@ -70,7 +72,9 @@ remat checkpoint the block's rerun gathers again instead) and
 ``data_shard`` (this rank's data shard and their count: residual dropout
 hashes the global batch's linear index, so a shard's mask is the
 one-process mask's rows, and the attention-dropout seed folds in the
-shard, ``ops.attention.fold_seed``).
+shard, ``ops.attention.fold_seed``) and, for MoE, ``moe_group`` (the
+data-parallel ``Collectives``: each MoE layer routes the global
+micro-batch, ``models/moe.py``; ``eval/infer.py`` sets it too).
 """
 
 from __future__ import annotations
@@ -90,7 +94,7 @@ from torch.utils.checkpoint import (
 )
 
 from tpu_trainer_torch.models.config import GPTConfig
-from tpu_trainer_torch.models.moe import check_moe, dropless_moe
+from tpu_trainer_torch.models.moe import moe_ffn
 from tpu_trainer_torch.ops import flash as flash_lib
 from tpu_trainer_torch.ops.attention import (
     fold_seed,
@@ -325,14 +329,14 @@ class MLP(nn.Module):
 
 
 class MoEMLP(nn.Module):
-    """The dropless MoE FFN's stacked parameters under their Flax names:
-    ``router.kernel [L, H, E]`` (f32), ``experts_gate`` / ``experts_up``
-    ``[L, E, H, I]`` and ``experts_down [L, E, I, H]``; the computation is
-    ``models.moe.dropless_moe``."""
+    """The MoE FFN's stacked parameters under their Flax names (both
+    routers share them): ``router.kernel [L, H, E]`` (f32),
+    ``experts_gate`` / ``experts_up`` ``[L, E, H, I]`` and ``experts_down
+    [L, E, I, H]``; the computation is ``models.moe.moe_ffn``."""
 
     def __init__(self, config: GPTConfig, device=None):
         super().__init__()
-        cfg = config
+        cfg = self.config = config
         L, E = cfg.num_layers, cfg.num_experts
         H, I = cfg.hidden_size, cfg.intermediate_size
         self.router = Dense(H, E, stack=L, dtype=torch.float32,
@@ -340,6 +344,13 @@ class MoEMLP(nn.Module):
         self.experts_gate = _param((L, E, H, I), cfg.params_dtype, device)
         self.experts_up = _param((L, E, H, I), cfg.params_dtype, device)
         self.experts_down = _param((L, E, I, H), cfg.params_dtype, device)
+
+    def forward(self, x: torch.Tensor, layer: int) -> torch.Tensor:
+        """Layer ``layer``'s FFN of ``x [b, s, H]`` (the paged path: the
+        auxiliary is dropped, as in the JAX decode)."""
+        return moe_ffn(x, self.router.kernel[layer], self.experts_gate[layer],
+                       self.experts_up[layer], self.experts_down[layer],
+                       self.config)[0]
 
 
 class TransformerBlock(nn.Module):
@@ -353,7 +364,8 @@ class TransformerBlock(nn.Module):
         self.input_layernorm = RMSNorm(cfg.hidden_size, **norm)
         self.attention = CausalSelfAttention(cfg, device=device)
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size, **norm)
-        if cfg.num_experts > 0:
+        self.moe = cfg.num_experts > 0
+        if self.moe:
             self.moe_mlp = MoEMLP(cfg, device=device)
         else:
             self.mlp = MLP(cfg, device=device)
@@ -361,7 +373,8 @@ class TransformerBlock(nn.Module):
     def forward(self, x, layer: int, cache, step: PagedStep):
         x = x + self.attention(self.input_layernorm(x, layer), layer, cache,
                                step)
-        return x + self.mlp(self.post_attention_layernorm(x, layer), layer)
+        ffn = self.moe_mlp if self.moe else self.mlp
+        return x + ffn(self.post_attention_layernorm(x, layer), layer)
 
 
 class Embed(nn.Module):
@@ -388,11 +401,6 @@ class GPT(nn.Module):
 
     def __init__(self, config: GPTConfig, *, device=None):
         super().__init__()
-        check_moe(config)
-        if config.num_experts > 0 and config.decode_paged:
-            raise NotImplementedError(
-                "MoE decode is not ported: the paged engine serves dense "
-                "models only (ROADMAP Queue 1: MoE in the paged engine)")
         self.config = cfg = config
         self.embed_tokens = Embed(cfg.vocab_size, cfg.hidden_size,
                                   dtype=cfg.compute_dtype,
@@ -403,6 +411,7 @@ class GPT(nn.Module):
         # Set by a trainer at world > 1 (module docstring).
         self.zero3 = None
         self.data_shard = (0, 1)
+        self.moe_group = None
 
     def forward(self, input_ids: torch.Tensor, *args, **kwargs):
         """``config.decode_paged``: ``_paged_forward(input_ids, cache, *,
@@ -633,10 +642,10 @@ class GPT(nn.Module):
         aux = None
         router = {} if step.telem is not None else None
         if cfg.num_experts > 0:
-            out, aux = dropless_moe(
+            out, aux = moe_ffn(
                 h, p["moe_mlp.router.kernel"], p["moe_mlp.experts_gate"],
                 p["moe_mlp.experts_up"], p["moe_mlp.experts_down"], cfg,
-                router_stats=router)
+                router_stats=router, group=self.moe_group)
         else:
             gate, up = _matmuls(h, [p["mlp.gate_proj.kernel"],
                                     p["mlp.up_proj.kernel"]], cd,

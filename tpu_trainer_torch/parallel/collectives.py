@@ -45,8 +45,10 @@ it (``_Regather``), so no block runs its forward twice unless the config
 asks for remat.
 
 ``calls`` counts each kind of collective this process ran and the bytes
-it put on the wire (the card's ``dist`` phase reports them a step), and
-``regather_saved``, the saved tensors that autograd kept as a recipe.
+it put on the wire (the card's ``dist`` phase reports them a step; the
+MoE layers' all-gathers of their routing counts, ``models/moe.py``,
+count as ``moe_counts``), and ``regather_saved``, the saved tensors that
+autograd kept as a recipe.
 """
 
 from __future__ import annotations
@@ -143,16 +145,17 @@ class Collectives:
             self.world, n // self.world, *x.shape[1:])
         return _ordered_sum(parts).movedim(0, dim).contiguous()
 
-    def all_gather_leaf(self, shard: torch.Tensor, dim: int) -> torch.Tensor:
+    def all_gather_leaf(self, shard: torch.Tensor, dim: int,
+                        kind: str = "all_gather") -> torch.Tensor:
         """The shards of every rank concatenated along ``dim`` in rank
-        order."""
+        order; counted in ``calls`` under ``kind``."""
         if self.world == 1:
             return shard
         x = shard.movedim(dim, 0)
         wire = self._to_wire(x)
         out = self._empty((self.world * x.shape[0],) + tuple(x.shape[1:]),
                           shard)
-        self._count("all_gather", wire)
+        self._count(kind, wire)
         dist.all_gather_into_tensor(out, wire, group=self.group)
         return self._from_wire(out, shard).movedim(0, dim).contiguous()
 

@@ -68,6 +68,7 @@ import numpy as np
 import torch
 
 from tpu_trainer_torch.data.device_prefetch import DevicePrefetcher
+from tpu_trainer_torch.models import moe as moe_lib
 from tpu_trainer_torch.models.config import GPTConfig
 from tpu_trainer_torch.parallel import mesh as mesh_lib
 from tpu_trainer_torch.training.config import TrainingConfig
@@ -561,7 +562,6 @@ def resolve_configs(args, mode: str = "ddp"):
 _ITEM_PLANNER = "ROADMAP Queue 1: the planner"
 _ITEM_PIPELINE = "ROADMAP Queue 1: pipeline and expert parallelism"
 _ITEM_ELASTIC = "ROADMAP Queue 1: elastic training at world > 1"
-_ITEM_CAPACITY = "ROADMAP Queue 1: the capacity router, on one device"
 _ITEM_WORLD = "ROADMAP Queue 1: the rest of world > 1 training"
 
 
@@ -584,9 +584,6 @@ def check_supported(args, model_config: GPTConfig,
              _ITEM_ELASTIC)):
         if on:
             later.append((flag, item))
-    if model_config.num_experts > 0 and model_config.moe_impl == "capacity":
-        later.append(('moe_impl="capacity" (use --moe_impl dropless)',
-                      _ITEM_CAPACITY))
     if later:
         raise NotImplementedError(
             "not ported yet: " + "; ".join(f"{what} -> {item}"
@@ -874,7 +871,9 @@ def run_training(argv=None, mode: str = "ddp") -> int:
               f"{remat}, adam moments "
               f"{training_config.optimizer_state_dtype}"
               + (f", offloaded as {parallel_config.offload_dtype}"
-                 if trainer.cpu_offload else ""), flush=True)
+                 if trainer.cpu_offload else "")
+              + (f" | MoE: {moe_lib.describe(model_config)}"
+                 if model_config.num_experts > 0 else ""), flush=True)
     if trainer.cpu_offload and trainer.offload_resident_bytes:
         print(f"partial offload: "
               f"{trainer.offload_resident_bytes / 2**30:.2f} GB of "

@@ -79,9 +79,12 @@ The loss metric is the all-reduced mean, the same on every rank, and
 (``data_feed_rank``): its residual-dropout mask is the world-1 mask's rows
 of that shard and its attention-dropout seed folds in ``r``. At one
 process there is no process group and the step is the single-device step
-above, bit for bit. Not ported at world > 1: int8 Adam moments,
-``cpu_offload``, MoE, telemetry steps and ``nan_scan`` (ROADMAP Queue 1:
-"the rest of world > 1 training"); they raise.
+above, bit for bit. A MoE layer routes the global micro-batch (every
+rank's rows in rank order) through the ``dp`` group (``models/moe.py``):
+capacity, queue positions and the load fraction are the one-process
+ones. Not ported at world > 1: int8 Adam moments, ``cpu_offload``,
+telemetry steps and ``nan_scan`` (ROADMAP Queue 1: "the rest of world >
+1 training"); they raise.
 """
 
 from __future__ import annotations
@@ -471,8 +474,7 @@ class Trainer:
         later = [what for what, on in (
             ("cpu_offload", parallel_config.cpu_offload),
             ("int8 Adam moments",
-             self.training_config.optimizer_state_dtype == "int8"),
-            ("MoE", self.model_config.num_experts > 0)) if on]
+             self.training_config.optimizer_state_dtype == "int8")) if on]
         if later:
             raise NotImplementedError(
                 f"not ported at world > 1: {', '.join(later)} -> "
@@ -484,6 +486,8 @@ class Trainer:
                 {n: s.param_dim for n, s in self.specs.items()
                  if s.param_dim is not None})
         self.model.data_shard = (self.topology.dp_rank, self.dp_size)
+        if self.model_config.num_experts > 0:
+            self.model.moe_group = self.topology.dp
 
     # -- the rank surface (the reference's rank / world_size) ---------------
 

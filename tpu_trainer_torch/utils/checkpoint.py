@@ -845,9 +845,13 @@ def restore_params(path: str) -> Tuple[Dict[str, np.ndarray],
                   if side and side.get("model_config") else None)
         return flat, config
     meta = load_meta(path)
+    if meta.get("format") == HOST_SHARDS_FORMAT:
+        arrays = _assemble_host_shards(path, meta)
+    else:
+        with np.load(os.path.join(path, STATE_FILE)) as z:
+            arrays = {k: z[k] for k in z.files if k.startswith("params/")}
     flat = {k[len("params/"):].replace("/", "."): v
-            for k, v in _state_arrays(path, meta).items()
-            if k.startswith("params/")}
+            for k, v in arrays.items() if k.startswith("params/")}
     return flat, _config_from_meta(meta["model_config"])
 
 
