@@ -149,7 +149,7 @@ JAX package. Phases, each fatal on failure:
               ``params.npz`` in f32 compute, whose greedy tokens must be
               equal (a differing token only at a top-2 tie).
 18. remat   -- ``train_ddp --config configs/large_1b_single_chip.yaml``
-              at 18 of its 36 layers (hidden 1280, batch 4 x 1024, full
+              at 8 of its 36 layers (hidden 1280, batch 4 x 1024, full
               remat, bf16 Adam moments) on the cli phase's corpus, 6
               steps with a save at step 3; the same command in a fresh
               process resumes from step 3, and step 6's state (params, the
@@ -164,7 +164,7 @@ JAX package. Phases, each fatal on failure:
               each, and the device busy share and top kernels of two
               profiled trainer steps.
 19. offload -- ``train_fsdp --config configs/medium_model.yaml`` cut to
-              12 of its 24 layers (FULL_SHARD at one process, remat on,
+              8 of its 24 layers (FULL_SHARD at one process, remat on,
               batch 8 x
               4 x 1024, dummy data), 3 steps on the card and with the Adam
               moments in pinned host memory as float32, bfloat16, int8 and
@@ -178,9 +178,10 @@ JAX package. Phases, each fatal on failure:
               a layer a micro-batch (3 forward, 3 recompute, 3 dgrad),
               tgmm 3.
 21. moe-capacity -- the capacity router, the JAX default
-              (``phase_moe_capacity``): ``configs/moe_small.yaml``
-              unchanged through ``train_ddp`` (3 steps, a restart at step
-              2 in a fresh process, bitwise; a telemetry step's per-layer
+              (``phase_moe_capacity``): ``configs/moe_small.yaml`` at 4
+              of its 12 layers through ``train_ddp`` (3 steps, a restart
+              at step 2 in a fresh process, bitwise; a telemetry step's
+              per-layer
               drop_frac; tok/s and MFU on the active parameters);
               ``infer.py`` on its checkpoint twice, bitwise; bench.py
               --moe's capacity lane (top-2, einsum) and the same model
@@ -212,7 +213,8 @@ JAX package. Phases, each fatal on failure:
               process that joins its group as a launcher would (a file
               rendezvous, two ranks sharing ``cuda:0`` over gloo, every
               collective bounded by ``COORDINATOR_TIMEOUT_S``) and then
-              calls the CLI: ``small_model.yaml`` through ``train_ddp`` at
+              calls the CLI: ``small_model.yaml`` (4 of its 12
+              layers) through ``train_ddp`` at
               world 1 in an NCCL process group, bitwise the run without
               one; DDP at world 2 (dropout 0, a rank batch 4) bitwise one
               process at accumulation 2 (losses, grad norms, final masters
@@ -239,15 +241,51 @@ JAX package. Phases, each fatal on failure:
               ``DIST_LOSS_RTOL`` / ``DIST_MOE_STATE_L2`` of one process at
               the same global micro-batch, the capacity layer-0 keep mask
               bitwise; a planted fault (rank 1's queue offsets 0)
-              rejected.
+              rejected. Beside the ZeRO runs, ``train_fsdp --sharding
+              FULL_SHARD --cpu_offload`` at world 2 (medium_model.yaml,
+              12 layers): losses bitwise one process's, grad norms within
+              ``DIST_NORM_RTOL``, its final state (digested, not
+              written) bitwise the on-card FULL_SHARD run's; a rank's
+              device and host bytes at rest.
+24. world-rest -- the rest of world > 1 (``phase_world_rest``,
+              small_model.yaml at 4 layers, ranks sharing the card over
+              gloo): int8
+              moments under SHARD_GRAD_OP at world 2 bitwise one process
+              (clip off; a flipped code rejected), that checkpoint
+              restored at world 1 bitwise; a SIGTERM to rank 1 alone
+              makes both ranks save and exit 143, and the resumed run
+              ends bitwise the straight one; a telemetry step at world 2
+              within ``WORLD_REST_TEL_RTOL`` of one process; ``--nan_scan``
+              with a NaN in rank 1's rows naming one process's site.
+25. elastic -- ``python -m tpu_trainer_torch.training.elastic`` at
+              small_model.yaml's width (2 layers), two ranks sharing the
+              card: ``kill_host`` shrinks to world 1, which resumes from
+              the committed checkpoint, ``return_host`` grows back to 2;
+              ``supervisor.jsonl``'s deaths, recovery and grow seconds;
+              the final state bitwise a replay of the same segments;
+              ``hang_host`` caught by the heartbeat timeout; a planted
+              supervisor that blames every stale host rejected.
 
 Every phase runs at full depth except these, cut so that the whole run
 stays well inside its time and its machine's 45 GiB of disk writes: the
 cli phase's dropless-MoE run, moe-remat, the ft phase's MoE telemetry run
-and the dist phase's MoE group (moe_small.yaml at 2 layers), the offload
-phase and the dist phase's ZeRO runs (medium_model.yaml at 12 layers)
-and the remat phase (large_1b_single_chip.yaml at 18 layers). The whole
-run takes about sixteen minutes on an H100 (700 W), builds included.
+and the dist phase's MoE group (moe_small.yaml at 2 layers), the
+moe-capacity phase's CLI run (moe_small.yaml at 4 layers, since PR 13),
+the offload phase (medium_model.yaml at 8 layers since PR 13), the dist
+phase's ZeRO and offload runs (medium_model.yaml at 12 layers), the remat
+phase (large_1b_single_chip.yaml at 8 layers), the dist phase's
+small_model.yaml runs and the world-rest phase (4 layers) and the
+elastic phase (small_model.yaml at 2 layers).
+
+The phases run one after another in the order above, except that the
+world-rest and elastic phases run one after the other in a process of
+their own (``_beside``) while the ft phase runs, before the dist phase,
+which runs last; and the ft phase runs its chain of restarted processes
+on a thread beside its own sections that time nothing. Those processes
+share the host's cores and the card, so the restart times the ft phase
+prints and the elastic phase's recovery and grow seconds are taken
+beside that work. The whole run takes about fourteen minutes on an H100
+(700 W), builds included.
 
 Then the ``kernels`` JSON line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. Without CUDA it exits 2 and prints no
@@ -262,6 +300,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -2838,7 +2877,7 @@ def _naive_remat(self, x, p, step):
 
 def phase_remat(results: dict, tmp: str) -> dict:
     """The 1B-on-one-card recipe: ``train_ddp --config
-    configs/large_1b_single_chip.yaml`` at its full width and 18 of its 36
+    configs/large_1b_single_chip.yaml`` at its full width and 8 of its 36
     layers, the rest of its model and training sections unchanged (hidden
     1280, 20 heads of 64, vocab 50257, batch 4 x 1024, full remat, bf16
     Adam moments, dropout 0.1) on
@@ -2861,7 +2900,7 @@ def phase_remat(results: dict, tmp: str) -> dict:
 
     card = nvidia_smi_line()
     corpus = os.path.join(tmp, "stories.txt")
-    large = _cut_yaml(tmp, "large_1b_single_chip.yaml", "l18", num_layers=18)
+    large = _cut_yaml(tmp, "large_1b_single_chip.yaml", "l8", num_layers=8)
     argv = ["--config", large, "--dataset", "tinystories", "--data_path",
             corpus, "--tokenizer", "byte", "--log_interval", "1",
             "--eval_batches", "1", "--eval_interval", "0",
@@ -2871,7 +2910,7 @@ def phase_remat(results: dict, tmp: str) -> dict:
     cfg, tc, _, _ = cli.resolve_configs(cli.build_parser().parse_args(argv))
     if not (cfg.gradient_checkpointing and cfg.remat_policy == "full"
             and tc.optimizer_state_dtype == "bfloat16"
-            and cfg.num_layers == 18 and cfg.hidden_size == 1280):
+            and cfg.num_layers == 8 and cfg.hidden_size == 1280):
         raise AssertionError(f"remat: {large} resolved to {cfg}, {tc}")
     log("remat", f"{os.path.basename(large)}: {cfg.num_parameters():,} "
                  f"params, batch {tc.gradient_accumulation_steps} x "
@@ -3066,7 +3105,7 @@ def _fsdp_run(phase: str, argv: list) -> dict:
 
 def phase_offload(results: dict, tmp: str) -> dict:
     """``train_fsdp --config configs/medium_model.yaml`` at its full width
-    and 12 of its 24 layers (hidden 1024, 16 heads, batch 8 x 4 x 1024,
+    and 8 of its 24 layers (hidden 1024, 16 heads, batch 8 x 4 x 1024,
     FULL_SHARD at
     one process, remat on by default, its dummy data), 3 steps on the
     card and with the Adam moments offloaded to pinned host memory in
@@ -3083,7 +3122,7 @@ def phase_offload(results: dict, tmp: str) -> dict:
     from tpu_trainer_torch.training.trainer import select_resident_moments
 
     card = nvidia_smi_line()
-    medium = _cut_yaml(tmp, "medium_model.yaml", "l12", num_layers=12)
+    medium = _cut_yaml(tmp, "medium_model.yaml", "l8", num_layers=8)
     base = ["--config", medium, "--max_steps", "3", "--log_interval", "1",
             "--eval_interval", "0", "--eval_batches", "1", "--num_batches",
             "4", "--no_auto_resume"]
@@ -3101,7 +3140,7 @@ def phase_offload(results: dict, tmp: str) -> dict:
         if run["launches"] != want:
             raise AssertionError(f"offload: {name} launches "
                                  f"{run['launches']}, want {want}")
-        if not (cfg.gradient_checkpointing and cfg.num_layers == 12
+        if not (cfg.gradient_checkpointing and cfg.num_layers == 8
                 and par.sharding_strategy == "FULL_SHARD"):
             raise AssertionError(f"offload: {medium} resolved to {cfg}, "
                                  f"{par}")
@@ -3399,8 +3438,9 @@ def phase_moe_capacity(results: dict, tmp: str) -> dict:
     """The capacity router (``moe_impl="capacity"``, the JAX default), in
     the cli phase's temporary directory (its corpus):
 
-    (a) ``configs/moe_small.yaml`` unchanged (8 experts, top-1, capacity
-        factor 1.25, gather dispatch) through ``train_ddp`` with the byte
+    (a) ``configs/moe_small.yaml`` (8 experts, top-1, capacity factor
+        1.25, gather dispatch; cut to 4 of its 12 layers since PR 13, to
+        halve its checkpoints' writes) through ``train_ddp`` with the byte
         tokenizer, 3 steps with a save at step 2 and a telemetry step at
         step 3; step 3's checkpoint set aside and the same argv again in
         a fresh process, which resumes from step 2 and must end bitwise;
@@ -3441,11 +3481,11 @@ def phase_moe_capacity(results: dict, tmp: str) -> dict:
     rec = {"nvidia_smi": card}
     secs = {}
 
-    # (a) moe_small.yaml through the CLI, unchanged.
+    # (a) moe_small.yaml through the CLI, at 4 of its 12 layers.
     t0 = time.perf_counter()
     ckdir = os.path.join(tmp, "mc")
     jsonl = os.path.join(tmp, "mc.jsonl")
-    argv = ["--config", os.path.join(ROOT, "configs", "moe_small.yaml"),
+    argv = ["--config", _cut_yaml(tmp, "moe_small.yaml", "l4", num_layers=4),
             "--dataset", "tinystories", "--data_path",
             os.path.join(tmp, "stories.txt"), "--tokenizer", "byte",
             "--max_steps", "3", "--save_interval", "2",
@@ -3487,7 +3527,8 @@ def phase_moe_capacity(results: dict, tmp: str) -> dict:
         "run2_launches": {k: v for k, v in res["run2"]["launches"].items()
                           if v}}
     rec["cli"] = cli_rec
-    log("moe-capacity", f"moe_small.yaml unchanged ({moe.describe(cfg)}), "
+    log("moe-capacity", f"moe_small.yaml at 4 layers "
+                        f"({moe.describe(cfg)}), "
                         f"batch {accum} x {tc.batch_size} x "
                         f"{tc.max_seq_len}: losses "
         + " ".join(f"{x:.4f}" for x in cli_rec["losses"])
@@ -3839,7 +3880,8 @@ def phase_ft(results: dict, tmp: str) -> dict:
       137), ``truncate_meta@6,kill@6`` with sync saves (resumes at step 4;
       exit 137), and a clean run that skips the truncated step 6, resumes
       at step 4 and ends with every loss and the step-8 state bitwise;
-      each restart's time to its first step, split;
+      each restart's time to its first step, split (the chain runs on a
+      thread beside the rollback, notice, MoE and nan_scan sections);
     - ``nan_loss@6``: one rollback record, exit 0, ``crash_report.json``
       holding the ring of records;
     - a preemption notice file present at launch: a drain after step 1,
@@ -3901,57 +3943,251 @@ def phase_ft(results: dict, tmp: str) -> dict:
         return got
 
     # -- kills, a torn save, a truncated meta: a chain of restarts --------
+    # The chain's processes run one after another on a thread while this
+    # process runs the sections that time nothing (the rollback, the
+    # notice, the MoE telemetry, nan_scan); the telemetry and remat
+    # sections, which time steps, run after the chain has ended.
     ck = os.path.join(tmp, "ft_k")
-    chain = [("p1", ["--inject_fault", "kill_in_save@4"], None),
-             ("p2", ["--inject_fault", "kill@5",
-                     "--no_async_checkpointing"], 2),
-             ("p3", ["--inject_fault", "truncate_meta@6,kill@6",
-                     "--no_async_checkpointing"], 4),
-             ("p4", [], 4)]
-    children = {}
-    for tag, extra, resumes in chain:
-        argv = base + ["--save_interval", "2", "--checkpoint_dir", ck,
-                       "--metrics_jsonl", os.path.join(tmp, f"ft_{tag}.jsonl"),
-                       *extra]
-        rc_want = 0 if tag == "p4" else faults.KILL_EXIT_CODE
-        child = children[tag] = _ft_spawn(tag, argv, tmp, rc_want)
-        said = (f"resumed from {os.path.join(ck, f'step_{resumes:08d}')}"
-                if resumes is not None else None)
-        if (said is None) != ("resumed from" not in child["stdout"]) or (
-                said is not None and said not in child["stdout"]):
-            raise AssertionError(f"ft: {tag} resumed wrongly (want step "
-                                 f"{resumes}): {child['stdout'][-2000:]}")
-        if tag == "p1" and (
-                not os.path.exists(os.path.join(ck, "step_00000004",
-                                                "state.npz"))
-                or os.path.exists(os.path.join(ck, "step_00000004",
-                                               "meta.json"))):
-            raise AssertionError("ft: kill_in_save@4 left no torn step 4")
-        if tag == "p3" and os.path.getsize(
-                os.path.join(ck, "step_00000006", "meta.json")) != 0:
-            raise AssertionError("ft: truncate_meta@6 left meta.json whole")
-    got = losses("p1", "p2", "p3", "p4")
-    if got != ref:
-        raise AssertionError(f"ft: restarted losses {got} vs the straight "
-                             f"run's {ref}")
-    n_arrays = _state_equal("ft", os.path.join(ck, "step_00000008"),
-                            straight)
-    p4 = children["p4"]
-    n_eval = _jsonl(os.path.join(tmp, "ft_p4.jsonl"), "eval")[-1][
-        "eval_batches"]
-    want = _micro_launches(cfg, 4 * accum, n_eval * accum, segmented=False)
-    if p4["launches"] != want:
-        raise AssertionError(f"ft: resumed run launches {p4['launches']}, "
-                             f"want {want}")
-    _add_launches(ft_launches, p4["launches"])
+
+    def kill_chain() -> dict:
+        t0 = time.perf_counter()
+        chain = [("p1", ["--inject_fault", "kill_in_save@4"], None),
+                 ("p2", ["--inject_fault", "kill@5",
+                         "--no_async_checkpointing"], 2),
+                 ("p3", ["--inject_fault", "truncate_meta@6,kill@6",
+                         "--no_async_checkpointing"], 4),
+                 ("p4", [], 4)]
+        children = {}
+        for tag, extra, resumes in chain:
+            argv = base + ["--save_interval", "2", "--checkpoint_dir", ck,
+                           "--metrics_jsonl",
+                           os.path.join(tmp, f"ft_{tag}.jsonl"),
+                           *extra]
+            rc_want = 0 if tag == "p4" else faults.KILL_EXIT_CODE
+            child = children[tag] = _ft_spawn(tag, argv, tmp, rc_want)
+            said = (f"resumed from {os.path.join(ck, f'step_{resumes:08d}')}"
+                    if resumes is not None else None)
+            if (said is None) != ("resumed from" not in child["stdout"]) or (
+                    said is not None and said not in child["stdout"]):
+                raise AssertionError(f"ft: {tag} resumed wrongly (want step "
+                                     f"{resumes}): {child['stdout'][-2000:]}")
+            if tag == "p1" and (
+                    not os.path.exists(os.path.join(ck, "step_00000004",
+                                                    "state.npz"))
+                    or os.path.exists(os.path.join(ck, "step_00000004",
+                                                   "meta.json"))):
+                raise AssertionError("ft: kill_in_save@4 left no torn step 4")
+            if tag == "p3" and os.path.getsize(
+                    os.path.join(ck, "step_00000006", "meta.json")) != 0:
+                raise AssertionError("ft: truncate_meta@6 left meta.json "
+                                     "whole")
+        got = losses("p1", "p2", "p3", "p4")
+        if got != ref:
+            raise AssertionError(f"ft: restarted losses {got} vs the straight "
+                                 f"run's {ref}")
+        n_arrays = _state_equal("ft", os.path.join(ck, "step_00000008"),
+                                straight)
+        p4 = children["p4"]
+        n_eval = _jsonl(os.path.join(tmp, "ft_p4.jsonl"), "eval")[-1][
+            "eval_batches"]
+        want = _micro_launches(cfg, 4 * accum, n_eval * accum, segmented=False)
+        if p4["launches"] != want:
+            raise AssertionError(f"ft: resumed run launches {p4['launches']}, "
+                                 f"want {want}")
+        shutil.rmtree(ck)
+        return {"children": children, "arrays": n_arrays, "want": want,
+                "seconds": time.perf_counter() - t0}
+
+    join_chain = _background(kill_chain)
+    last[0] = time.perf_counter()
+
+    try:
+        # -- a NaN rolls back ------------------------------------------------
+        calls = {"n": 0}
+        original = Trainer.train_step
+
+        def counted(self, state, batch, *args, **kwargs):
+            calls["n"] += 1
+            return original(self, state, batch, *args, **kwargs)
+
+        Trainer.train_step = counted
+        try:
+            run = _cli_in_process("ft", base + [
+                "--save_interval", "2", "--guard_interval", "1",
+                "--inject_fault", "nan_loss@6",
+                "--flight_recorder_steps", "64",
+                *ft_dir("nan")])
+        finally:
+            Trainer.train_step = original
+        rollbacks = _jsonl(os.path.join(tmp, "ft_nan.jsonl"), "rollback")
+        report = json.load(open(os.path.join(tmp, "ft_nan",
+                                             "crash_report.json")))
+        n_eval = _jsonl(os.path.join(tmp, "ft_nan.jsonl"), "eval")[-1][
+            "eval_batches"]
+        want = _micro_launches(cfg, calls["n"] * accum, n_eval * accum,
+                               segmented=False)
+        if (len(rollbacks) != 1 or rollbacks[0]["restored_step"] != 6
+                or report["reason"] != "rollback:FloatingPointError"
+                or not report["records"]
+                or report["records"][-1]["kind"] != "rollback"
+                or run["launches"] != want or not os.path.exists(os.path.join(
+                    tmp, "ft_nan", "step_00000008", "meta.json"))):
+            raise AssertionError(f"ft: nan rollback {rollbacks}, crash report "
+                                 f"{report['reason']} with "
+                                 f"{len(report['records'])} records, launches "
+                                 f"{run['launches']} want {want}")
+        _add_launches(ft_launches, run["launches"])
+        shutil.rmtree(os.path.join(tmp, "ft_nan"))
+        rec["nan_rollback"] = {"steps_run": calls["n"],
+                               "ring_records": len(report["records"])}
+        log("ft", f"nan_loss@6: one rollback to step 6, {calls['n']} steps "
+                  f"run, exit 0; crash_report.json holds "
+                  f"{len(report['records'])} records ending in the rollback" + lap("nan_rollback"))
+
+        # -- a preemption notice ---------------------------------------------
+        from tpu_trainer_torch.utils import checkpoint as ckpt_lib
+
+        notice = os.path.join(tmp, "ft_notice")
+        with open(notice, "w") as f:
+            json.dump({"deadline_s": 60.0}, f)
+        run = _cli_in_process("ft", base + [
+            "--save_interval", "2", "--preempt_notice", f"file:{notice}",
+            "--preempt_vote_interval", "1", "--preemption_grace_s", "60",
+            *ft_dir("pre")], rc_want=143)
+        want = _micro_launches(cfg, accum, 0, segmented=False)
+        if run["launches"] != want:
+            raise AssertionError(f"ft: drained run launches "
+                                 f"{run['launches']}, want {want}")
+        _add_launches(ft_launches, run["launches"])
+        pre = os.path.join(tmp, "ft_pre")
+        meta = ckpt_lib.load_meta(ckpt_lib.latest_checkpoint(pre))
+        if meta["step"] != 1 or meta["data_state"]["batch_index"] != 1:
+            raise AssertionError(f"ft: the notice drain saved {meta['step']}")
+        run = _cli_in_process("ft", base + ["--save_interval", "2",
+                                            *ft_dir("pre")])
+        n_eval = _jsonl(os.path.join(tmp, "ft_pre.jsonl"), "eval")[-1][
+            "eval_batches"]
+        want = _micro_launches(cfg, 7 * accum, n_eval * accum, segmented=False)
+        if run["launches"] != want:
+            raise AssertionError(f"ft: resumed run launches "
+                                 f"{run['launches']}, want {want}")
+        _add_launches(ft_launches, run["launches"])
+        _state_equal("ft", os.path.join(pre, "step_00000008"), straight)
+        if losses("pre") != ref:
+            raise AssertionError(f"ft: drained + resumed losses "
+                                 f"{losses('pre')}")
+        shutil.rmtree(pre)
+        log("ft", "preemption notice at launch: drained after step 1, exit "
+                  "143 with a complete step-1 checkpoint; resumed to step 8 "
+                  "bitwise" + lap("notice"))
+
+        # -- MoE router telemetry ---------------------------------------------
+        router = []
+
+        def keep_router(self, state, batch, *args, **kwargs):
+            state, m = original(self, state, batch, *args, **kwargs)
+            if "telemetry" in m:
+                router.append({k: v.detach().float().cpu()
+                               for k, v in m["telemetry"]["router"].items()})
+            return state, m
+
+        moe_argv = ["--config", _cut_yaml(tmp, "moe_small.yaml", "l2",
+                                          num_layers=2),
+                    "--moe_impl", "dropless", "--max_steps", "2",
+                    "--telemetry_interval", "1", "--log_interval", "1",
+                    "--eval_batches", "1", "--no_auto_resume", *ft_dir("moe")]
+        Trainer.train_step = keep_router
+        try:
+            run = _cli_in_process("ft", moe_argv)
+        finally:
+            Trainer.train_step = original
+        moe_cfg = cli.resolve_configs(
+            cli.build_parser().parse_args(moe_argv))[0]
+        want = _micro_launches(moe_cfg, 2 * accum, accum, segmented=False)
+        sums = torch.stack([r["load"].sum(dim=-1) for r in router])
+        if (run["launches"] != want or len(router) != 2
+                or (sums - 1.0).abs().max() > 1e-6
+                or any(r["drop_frac"].abs().max() != 0 for r in router)
+                or any((r["dropless"] != 1).any() for r in router)
+                or router[0]["load"].shape != (moe_cfg.num_layers,
+                                               moe_cfg.num_experts)):
+            raise AssertionError(f"ft: MoE telemetry launches "
+                                 f"{run['launches']} want {want}, load sums "
+                                 f"{sums}")
+        _add_launches(ft_launches, run["launches"])
+        shutil.rmtree(os.path.join(tmp, "ft_moe"), ignore_errors=True)
+        rec["moe"] = {"load_sum_max_err": float((sums - 1.0).abs().max()),
+                      "max_group_frac": [float(r["max_group_frac"].max())
+                                         for r in router]}
+        log("ft", f"MoE telemetry, 2 steps: load fractions sum to 1 within "
+                  f"{rec['moe']['load_sum_max_err']:.1e} on every layer, "
+                  f"drop_frac 0; launches {want['gmm']} gmm, "
+                  f"{want['tgmm']} tgmm" + lap("moe"))
+
+        # -- nan_scan on a planted checkpoint ---------------------------------
+        planted = os.path.join(tmp, "ft_planted", "step_00000008")
+        os.makedirs(planted)
+        with np.load(os.path.join(straight, "state.npz")) as z:
+            arrays = {k: z[k] for k in z.files}
+        arrays["params/layers/attention/o_proj/kernel"][5, 0, 0] = np.inf
+        np.savez(os.path.join(planted, "state.npz"), **arrays)
+        del arrays
+        shutil.copy(os.path.join(straight, "meta.json"), planted)
+        timer = {}
+        real_scan = Trainer.nan_scan
+
+        def timed_scan(self, state, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real_scan(self, state, batch)
+            timer.setdefault("s", []).append(time.perf_counter() - t0)
+            return out
+
+        Trainer.nan_scan = timed_scan
+        scans = {}
+        try:
+            for tag, path in (("planted", planted), ("clean", straight)):
+                run = _cli_in_process("ft", base + [
+                    "--nan_scan", "--resume_from", path,
+                    *ft_dir(f"scan_{tag}")])
+                scans[tag] = _jsonl(os.path.join(tmp, f"ft_scan_{tag}.jsonl"),
+                                    "nan_scan")[0]["first_nan"]
+                want = _micro_launches(cfg, 0, 1, segmented=False)
+                if run["launches"] != want:
+                    raise AssertionError(f"ft: nan_scan launches "
+                                         f"{run['launches']}, want {want}")
+                _add_launches(ft_launches, run["launches"])
+        finally:
+            Trainer.nan_scan = real_scan
+        shutil.rmtree(os.path.join(tmp, "ft_planted"))
+        if scans != {"planted": {"site": "attn", "layer": 5}, "clean": None}:
+            raise AssertionError(f"ft: nan_scan found {scans}")
+        rec["nan_scan_s"] = timer["s"]
+        log("ft", f"--nan_scan: the planted inf found at layer 5, site attn; "
+                  f"the clean checkpoint has none; one forward a layer; "
+                  f"{timer['s'][0]:.3f} / {timer['s'][1]:.3f} s on {card}"
+            + lap("nan_scan"))
+    except BaseException:
+        # The chain's process ends before this phase fails.
+        try:
+            join_chain()
+        except BaseException:
+            pass
+        raise
+
+    # -- the chain's end -------------------------------------------------
+    chain = join_chain()
+    children = chain["children"]
+    _add_launches(ft_launches, children["p4"]["launches"])
+    rec["section_s"]["kills"] = chain["seconds"]
     rec["restart"] = {tag: _restart_split(children[tag], os.path.join(
         tmp, f"ft_{tag}.jsonl")) for tag in ("p2", "p3", "p4")}
-    shutil.rmtree(ck)
     log("ft", f"kill_in_save@4 -> 137, kill@5 -> 137 (resumed at 2), "
               f"truncate_meta@6 -> skipped (resumed at 4 twice): the losses "
-              f"of steps 1-8 and {n_arrays} step-8 state arrays bitwise the "
-              f"straight run's; the last run's launches "
-              f"{ {k: v for k, v in want.items() if v} }" + lap("kills"))
+              f"of steps 1-8 and {chain['arrays']} step-8 state arrays "
+              f"bitwise the straight run's; the last run's launches "
+              f"{ {k: v for k, v in chain['want'].items() if v} } "
+              f"[{chain['seconds']:.1f} s, beside the sections above]")
     for tag, sp in rec["restart"].items():
         log("ft", f"restart {tag}: spawn to first step {sp['total_s']:.2f} s"
                   f" = interpreter {sp['interpreter_s']:.2f} + imports "
@@ -3961,83 +4197,8 @@ def phase_ft(results: dict, tmp: str) -> dict:
                   f" + kernel load {sp['kernel_load_s']:.3f} + restore "
                   f"{sp['restore_s']:.2f} + first step "
                   f"{sp['first_step_s']:.2f} + other {sp['other_s']:.2f} on "
-                  f"{card}")
-
-    # -- a NaN rolls back ------------------------------------------------
-    calls = {"n": 0}
-    original = Trainer.train_step
-
-    def counted(self, state, batch, *args, **kwargs):
-        calls["n"] += 1
-        return original(self, state, batch, *args, **kwargs)
-
-    Trainer.train_step = counted
-    try:
-        run = _cli_in_process("ft", base + [
-            "--save_interval", "2", "--guard_interval", "1",
-            "--inject_fault", "nan_loss@6", "--flight_recorder_steps", "64",
-            *ft_dir("nan")])
-    finally:
-        Trainer.train_step = original
-    rollbacks = _jsonl(os.path.join(tmp, "ft_nan.jsonl"), "rollback")
-    report = json.load(open(os.path.join(tmp, "ft_nan", "crash_report.json")))
-    n_eval = _jsonl(os.path.join(tmp, "ft_nan.jsonl"), "eval")[-1][
-        "eval_batches"]
-    want = _micro_launches(cfg, calls["n"] * accum, n_eval * accum,
-                           segmented=False)
-    if (len(rollbacks) != 1 or rollbacks[0]["restored_step"] != 6
-            or report["reason"] != "rollback:FloatingPointError"
-            or not report["records"]
-            or report["records"][-1]["kind"] != "rollback"
-            or run["launches"] != want or not os.path.exists(os.path.join(
-                tmp, "ft_nan", "step_00000008", "meta.json"))):
-        raise AssertionError(f"ft: nan rollback {rollbacks}, crash report "
-                             f"{report['reason']} with "
-                             f"{len(report['records'])} records, launches "
-                             f"{run['launches']} want {want}")
-    _add_launches(ft_launches, run["launches"])
-    shutil.rmtree(os.path.join(tmp, "ft_nan"))
-    rec["nan_rollback"] = {"steps_run": calls["n"],
-                           "ring_records": len(report["records"])}
-    log("ft", f"nan_loss@6: one rollback to step 6, {calls['n']} steps run, "
-              f"exit 0; crash_report.json holds {len(report['records'])} "
-              f"records ending in the rollback" + lap("nan_rollback"))
-
-    # -- a preemption notice ---------------------------------------------
-    from tpu_trainer_torch.utils import checkpoint as ckpt_lib
-
-    notice = os.path.join(tmp, "ft_notice")
-    with open(notice, "w") as f:
-        json.dump({"deadline_s": 60.0}, f)
-    run = _cli_in_process("ft", base + [
-        "--save_interval", "2", "--preempt_notice", f"file:{notice}",
-        "--preempt_vote_interval", "1", "--preemption_grace_s", "60",
-        *ft_dir("pre")], rc_want=143)
-    want = _micro_launches(cfg, accum, 0, segmented=False)
-    if run["launches"] != want:
-        raise AssertionError(f"ft: drained run launches {run['launches']}, "
-                             f"want {want}")
-    _add_launches(ft_launches, run["launches"])
-    pre = os.path.join(tmp, "ft_pre")
-    meta = ckpt_lib.load_meta(ckpt_lib.latest_checkpoint(pre))
-    if meta["step"] != 1 or meta["data_state"]["batch_index"] != 1:
-        raise AssertionError(f"ft: the notice drain saved {meta['step']}")
-    run = _cli_in_process("ft", base + ["--save_interval", "2",
-                                        *ft_dir("pre")])
-    n_eval = _jsonl(os.path.join(tmp, "ft_pre.jsonl"), "eval")[-1][
-        "eval_batches"]
-    want = _micro_launches(cfg, 7 * accum, n_eval * accum, segmented=False)
-    if run["launches"] != want:
-        raise AssertionError(f"ft: resumed run launches {run['launches']}, "
-                             f"want {want}")
-    _add_launches(ft_launches, run["launches"])
-    _state_equal("ft", os.path.join(pre, "step_00000008"), straight)
-    if losses("pre") != ref:
-        raise AssertionError(f"ft: drained + resumed losses {losses('pre')}")
-    shutil.rmtree(pre)
-    log("ft", "preemption notice at launch: drained after step 1, exit 143 "
-              "with a complete step-1 checkpoint; resumed to step 8 bitwise"
-        + lap("notice"))
+                  f"{card} (beside this process's runs)")
+    last[0] = time.perf_counter()
 
     # -- telemetry, a profiling window, live metrics ---------------------
     import threading
@@ -4246,90 +4407,6 @@ def phase_ft(results: dict, tmp: str) -> dict:
               f"scalars bitwise the plain run's, one a layer a site"
         + lap("remat"))
 
-    # -- MoE router telemetry ---------------------------------------------
-    router = []
-
-    def keep_router(self, state, batch, *args, **kwargs):
-        state, m = original(self, state, batch, *args, **kwargs)
-        if "telemetry" in m:
-            router.append({k: v.detach().float().cpu()
-                           for k, v in m["telemetry"]["router"].items()})
-        return state, m
-
-    moe_argv = ["--config", _cut_yaml(tmp, "moe_small.yaml", "l2",
-                                      num_layers=2),
-                "--moe_impl", "dropless", "--max_steps", "2",
-                "--telemetry_interval", "1", "--log_interval", "1",
-                "--eval_batches", "1", "--no_auto_resume", *ft_dir("moe")]
-    Trainer.train_step = keep_router
-    try:
-        run = _cli_in_process("ft", moe_argv)
-    finally:
-        Trainer.train_step = original
-    moe_cfg = cli.resolve_configs(cli.build_parser().parse_args(moe_argv))[0]
-    want = _micro_launches(moe_cfg, 2 * accum, accum, segmented=False)
-    sums = torch.stack([r["load"].sum(dim=-1) for r in router])
-    if (run["launches"] != want or len(router) != 2
-            or (sums - 1.0).abs().max() > 1e-6
-            or any(r["drop_frac"].abs().max() != 0 for r in router)
-            or any((r["dropless"] != 1).any() for r in router)
-            or router[0]["load"].shape != (moe_cfg.num_layers,
-                                           moe_cfg.num_experts)):
-        raise AssertionError(f"ft: MoE telemetry launches {run['launches']} "
-                             f"want {want}, load sums {sums}")
-    _add_launches(ft_launches, run["launches"])
-    shutil.rmtree(os.path.join(tmp, "ft_moe"), ignore_errors=True)
-    rec["moe"] = {"load_sum_max_err": float((sums - 1.0).abs().max()),
-                  "max_group_frac": [float(r["max_group_frac"].max())
-                                     for r in router]}
-    log("ft", f"MoE telemetry, 2 steps: load fractions sum to 1 within "
-              f"{rec['moe']['load_sum_max_err']:.1e} on every layer, "
-              f"drop_frac 0; launches {want['gmm']} gmm, {want['tgmm']} tgmm"
-        + lap("moe"))
-
-    # -- nan_scan on a planted checkpoint ---------------------------------
-    planted = os.path.join(tmp, "ft_planted", "step_00000008")
-    os.makedirs(planted)
-    with np.load(os.path.join(straight, "state.npz")) as z:
-        arrays = {k: z[k] for k in z.files}
-    arrays["params/layers/attention/o_proj/kernel"][5, 0, 0] = np.inf
-    np.savez(os.path.join(planted, "state.npz"), **arrays)
-    del arrays
-    shutil.copy(os.path.join(straight, "meta.json"), planted)
-    timer = {}
-    real_scan = Trainer.nan_scan
-
-    def timed_scan(self, state, batch):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = real_scan(self, state, batch)
-        timer.setdefault("s", []).append(time.perf_counter() - t0)
-        return out
-
-    Trainer.nan_scan = timed_scan
-    scans = {}
-    try:
-        for tag, path in (("planted", planted), ("clean", straight)):
-            run = _cli_in_process("ft", base + [
-                "--nan_scan", "--resume_from", path, *ft_dir(f"scan_{tag}")])
-            scans[tag] = _jsonl(os.path.join(tmp, f"ft_scan_{tag}.jsonl"),
-                                "nan_scan")[0]["first_nan"]
-            want = _micro_launches(cfg, 0, 1, segmented=False)
-            if run["launches"] != want:
-                raise AssertionError(f"ft: nan_scan launches "
-                                     f"{run['launches']}, want {want}")
-            _add_launches(ft_launches, run["launches"])
-    finally:
-        Trainer.nan_scan = real_scan
-    shutil.rmtree(os.path.join(tmp, "ft_planted"))
-    if scans != {"planted": {"site": "attn", "layer": 5}, "clean": None}:
-        raise AssertionError(f"ft: nan_scan found {scans}")
-    rec["nan_scan_s"] = timer["s"]
-    log("ft", f"--nan_scan: the planted inf found at layer 5, site attn; the "
-              f"clean checkpoint has none; one forward a layer; "
-              f"{timer['s'][0]:.3f} / {timer['s'][1]:.3f} s on {card}"
-        + lap("nan_scan"))
-
     gp = [g for g in _jsonl(os.path.join(tmp, "a.jsonl"), "goodput")
           if g.get("final")][0]
     rec["cli_goodput"] = gp
@@ -4341,8 +4418,42 @@ def phase_ft(results: dict, tmp: str) -> dict:
     return rec
 
 
+def _plant_nan(layer: int, row: int) -> None:
+    """Make every training forward of this process put a NaN into row
+    ``row`` of layer ``layer``'s input (a non-finite activation in those
+    rows only)."""
+    from tpu_trainer_torch.models.gpt import GPT
+
+    block = GPT._train_block
+
+    def planted(self, x, p, step):
+        n = getattr(self, "_planted_calls", 0)
+        self._planted_calls = n + 1
+        if n % self.config.num_layers == layer:
+            x = x.clone()
+            x[row, 0, 0] = float("nan")
+        return block(self, x, p, step)
+    GPT._train_block = planted
+
+
+def _state_digests(state) -> dict:
+    """This rank's slices of every checkpoint array, by key: ``[(starts,
+    shape, dtype, sha256)]`` (what a two-phase save would write)."""
+    import hashlib
+
+    import numpy as np
+
+    out = {}
+    for rec in state.shard_records():
+        out[rec["key"]] = [
+            (list(starts), list(arr.shape), str(arr.dtype),
+             hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest())
+            for starts, arr in rec["shards"]]
+    return out
+
+
 def _dist_child(mode: str, argv: list, out: str, fault_rank=None,
-                group=None, offsets_fault_rank=None) -> None:
+                group=None, offsets_fault_rank=None, extra=None) -> None:
     """One rank (or the one process) of the dist phase, in a fresh process:
     ``group`` (``(backend, file store, rank, world)``, else none) joined
     first, as a launcher would (the CLI keeps a group that exists), launch
@@ -4354,8 +4465,16 @@ def _dist_child(mode: str, argv: list, out: str, fault_rank=None,
     update of step 1. The first capacity-MoE layer call's routing, queue
     positions and keep mask (layer 0 of step 1) are kept;
     ``offsets_fault_rank`` plants a fault: that rank's queue positions
-    ignore the earlier ranks' tokens. Written to ``out`` (a rank's own
-    file)."""
+    ignore the earlier ranks' tokens. ``extra`` (world-rest and elastic
+    phases): ``argv`` appended to this rank's flags, ``plant`` (``[layer,
+    row]``: ``_plant_nan``), ``digests`` (the saves write nothing: each
+    records the state's ``_state_digests``); every telemetry record and
+    ``nan_scan`` report of this rank is kept. Written to ``out`` (a rank's
+    own file)."""
+    extra = extra or {}
+    argv = list(argv) + list(extra.get("argv", []))
+    if extra.get("plant"):
+        _plant_nan(*extra["plant"])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     import importlib
@@ -4370,15 +4489,19 @@ def _dist_child(mode: str, argv: list, out: str, fault_rank=None,
         mesh_lib.initialize_distributed(
             num_processes=world, process_id=rank, backend=backend,
             init_method=f"file://{store}", device="cuda")
-    seen = {"step_ms": [], "rest": []}
+    seen = {"step_ms": [], "rest": [], "telemetry": [], "nan": [],
+            "digests": []}
 
     def at_rest(state):
         torch.cuda.synchronize()
-        trees = {"params": state.params.values(),
-                 "moments": list(state.opt_state.mu.values())
-                 + list(state.opt_state.nu.values())}
+        moments = [t for m in list(state.opt_state.mu.values())
+                   + list(state.opt_state.nu.values())
+                   for t in (m.tensors() if hasattr(m, "tensors") else (m,))]
+        trees = {"params": state.params.values(), "moments": moments}
         seen["rest"].append({k: sum(t.numel() * t.element_size() for t in v)
                              for k, v in trees.items()})
+        seen["rest"][-1]["host"] = sum(t.numel() * t.element_size()
+                                       for t in moments if not t.is_cuda)
         seen["rest"][-1]["allocated"] = torch.cuda.memory_allocated()
         return state
 
@@ -4397,8 +4520,28 @@ def _dist_child(mode: str, argv: list, out: str, fault_rank=None,
         result = step(self, state, batch, *args, **kwargs)
         torch.cuda.synchronize()
         seen["step_ms"].append(1e3 * (time.perf_counter() - t0))
+        if "telemetry" in result[1]:
+            from tpu_trainer_torch.utils import telemetry
+
+            seen["telemetry"].append(telemetry.flatten_scalars(
+                result[1]["telemetry"]))
         return result
 
+    scan = Trainer.nan_scan
+
+    def scanned(self, state, batch):
+        report = scan(self, state, batch)
+        seen["nan"].append(report)
+        return report
+
+    Trainer.nan_scan = scanned
+    if extra.get("digests"):
+        def digest(checkpoint_dir, state, **kwargs):
+            seen["digests"].append({"step": int(state.step),
+                                    "arrays": _state_digests(state)})
+            return "(digests only)"
+        ckpt_lib.save_checkpoint = digest
+        ckpt_lib.AsyncSaver.save = lambda self, *a, **k: digest(*a, **k)
     Trainer.init_state = lambda self, *a, **k: at_rest(init(self, *a, **k))
     ckpt_lib.restore_checkpoint = lambda *a, **k: (
         lambda sm: (at_rest(sm[0]), sm[1]))(restore(*a, **k))
@@ -4434,21 +4577,24 @@ def _dist_child(mode: str, argv: list, out: str, fault_rank=None,
 
 def _dist_spawn(tmp: str, tag: str, mode: str, argv: list, world: int, *,
                 backend: str = "gloo", fault_rank=None,
-                offsets_fault_rank=None) -> list:
+                offsets_fault_rank=None, extra=None) -> list:
     """``world`` ranks of ``_dist_child`` (one process without a group
     when ``world`` is 0), started together; each rank's record, in rank
     order. Ranks rendezvous through a file store in ``tmp`` and share
     ``cuda:0`` (over gloo unless ``backend`` says otherwise); every
-    collective is bounded (``COORDINATOR_TIMEOUT_S``)."""
+    collective is bounded (``COORDINATOR_TIMEOUT_S``). ``extra`` maps a
+    rank to its ``_dist_child`` extras (key None: every rank)."""
     procs = []
     store = os.path.join(tmp, f"store_{tag}")
+    extra = extra or {}
     for r in range(max(world, 1)):
         out = os.path.join(tmp, f"dist_{tag}_{r}.json")
         e = dict(os.environ, COORDINATOR_TIMEOUT_S="120", LOCAL_RANK="0")
         group = (backend, store, r, world) if world else None
+        mine = {**extra.get(None, {}), **extra.get(r, {})}
         code = ("import chip_smoke; chip_smoke._dist_child("
                 f"{mode!r}, {argv!r}, {out!r}, {fault_rank!r}, {group!r}, "
-                f"{offsets_fault_rank!r})")
+                f"{offsets_fault_rank!r}, {mine!r})")
         # Output to files, not pipes: a rank blocked on a full pipe would
         # stall its peers' collectives while another run is joined.
         with open(out + ".stdout", "w") as so, \
@@ -4799,13 +4945,70 @@ def _dist_moe(tmp, argv, want, check_launches, launches, card) -> dict:
     return out
 
 
+def _dist_offload(ranks, a_off, full, m1, same_curve, check_launches,
+                  want, launches, card) -> dict:
+    """``train_fsdp --sharding FULL_SHARD --cpu_offload`` at world 2 on
+    medium_model.yaml (12 layers): losses bitwise one process's and grad
+    norms within ``DIST_NORM_RTOL`` (``same_curve`` against m1); each
+    rank's final masters and moments (digests of its slices) bitwise the
+    on-card FULL_SHARD run's, which is held to one process within
+    ``DIST_STATE_RTOL`` with the swapped-halves control; launches exact;
+    at rest a rank's moments all in host memory. Prints a rank's device
+    and host bytes at rest."""
+    import hashlib
+
+    import numpy as np
+
+    check_launches("m2_off", ranks, want("fsdp", a_off, 3, 1))
+    for r in ranks:
+        _add_launches(launches, r["launches"])
+    worst = same_curve("m2_off", "m1", DIST_NORM_RTOL)
+    n = 0
+    for r in ranks:
+        digests = r["digests"][-1]
+        if digests["step"] != 3:
+            raise AssertionError(f"dist: m2_off digested step "
+                                 f"{digests['step']}")
+        for key, shards in digests["arrays"].items():
+            if "/" not in key:
+                continue
+            for starts, shape, dtype, sha in shards:
+                sl = tuple(slice(a, a + b) for a, b in zip(starts, shape))
+                mine = np.ascontiguousarray(full[key][sl]).astype(dtype)
+                if hashlib.sha256(mine.tobytes()).hexdigest() != sha:
+                    raise AssertionError(f"dist: m2_off rank {r['rank']}: "
+                                         f"{key}{starts} differs from the "
+                                         f"on-card FULL_SHARD run's")
+                n += 1
+    rest = [r["rest"][0] for r in ranks]
+    if any(x["host"] != x["moments"] for x in rest):
+        raise AssertionError(f"dist: m2_off: moments not all in host "
+                             f"memory at rest: {rest}")
+    log("dist", f"FULL_SHARD --cpu_offload world 2 (medium_model.yaml at 12 "
+                f"layers): losses within rtol {worst['loss']:.2e} and grad "
+                f"norms {worst['grad_norm']:.3e} of world 1, {n} final "
+                f"slices bitwise the on-card FULL_SHARD run's; at rest "
+                f"rank 0 holds {rest[0]['allocated'] / 1e9:.3f} GB on the "
+                f"card and {rest[0]['host'] / 1e9:.3f} GB of moments in "
+                f"pinned host memory (rank 1 "
+                f"{rest[1]['allocated'] / 1e9:.3f} / "
+                f"{rest[1]['host'] / 1e9:.3f} GB); step ms rank 0 "
+                f"{[round(x, 1) for x in ranks[0]['step_ms']]}, peak "
+                f"{[round(r['peak_bytes'] / 1e9, 2) for r in ranks]} GB "
+                f"({card})")
+    return {"worst_rtol": worst, "slices_bitwise": n, "rest_bytes": rest,
+            "step_ms": [r["step_ms"] for r in ranks],
+            "peak_gb": [r["peak_bytes"] / 1e9 for r in ranks]}
+
+
 def phase_dist(results: dict, tmp: str) -> dict:
     """The reference's two trainers across processes on the one card. Each
     rank is a fresh process that joins its group (``RANK`` / ``WORLD_SIZE``
     given, a file rendezvous) and then calls the CLI; two ranks share
     ``cuda:0`` over gloo, every CUDA tensor staged through pinned host
     memory (NCCL refuses two ranks on one GPU). Runs that do not depend on
-    each other are started together:
+    each other are started together. ``small_model.yaml`` runs at 4 of its
+    12 layers (the whole run's time limit):
 
     - world 1 over NCCL: ``small_model.yaml`` through ``train_ddp`` (4
       steps, batch 8) in an NCCL process group at rank 0 of 1: losses and
@@ -4847,9 +5050,11 @@ def phase_dist(results: dict, tmp: str) -> dict:
 
     t_phase = time.perf_counter()
     card = nvidia_smi_line()
-    small = os.path.join(ROOT, "configs", "small_model.yaml")
+    # small_model.yaml at 4 of its 12 layers (the whole run's time limit),
+    # its width whole.
+    small = _cut_yaml(tmp, "small_model.yaml", "l4", num_layers=4)
     small0 = _cut_yaml(tmp, "small_model.yaml", "nodrop", dropout=0.0,
-                       attention_dropout=0.0)
+                       attention_dropout=0.0, num_layers=4)
     medium0 = _cut_yaml(tmp, "medium_model.yaml", "nodrop", dropout=0.0,
                         attention_dropout=0.0, num_layers=12)
     common = ["--log_interval", "1", "--eval_interval", "0",
@@ -4955,6 +5160,12 @@ def phase_dist(results: dict, tmp: str) -> dict:
                ("resumed", _dist_spawn(tmp, "resumed", "fsdp", a_res, 2))]
     spawned += [(f"m2_{k}", _dist_spawn(tmp, f"m2_{k}", "fsdp", a, 2))
                 for k, a in a_zero.items()]
+    # ZeRO-3 with the moments in pinned host memory (--cpu_offload): the
+    # same run as m2_FULL_SHARD, its final state digested, not written.
+    a_off = argv("m2_off", medium0, 3, 4, 1, "--sharding", "FULL_SHARD",
+                 "--cpu_offload")
+    spawned.append(("m2_off", _dist_spawn(tmp, "m2_off", "fsdp", a_off, 2,
+                                          extra={None: {"digests": True}})))
     recs = _dist_join_all(spawned)
     group2_s = time.perf_counter() - t0
     loaded = load_group1()
@@ -5071,6 +5282,9 @@ def phase_dist(results: dict, tmp: str) -> dict:
     # DIST_STATE_RTOL, and a control, one moment with its two rank halves
     # swapped, must fail that bound.
     full = zero_states["FULL_SHARD"]
+    zero["offload"] = _dist_offload(recs["m2_off"], a_off, full, m1,
+                                    same_curve, check_launches, want,
+                                    launches, card)
     n = _dist_equal("FULL_SHARD vs SHARD_GRAD_OP final state", full,
                     zero_states["SHARD_GRAD_OP"], state_keys)
     state_rtol = _dist_close("FULL_SHARD final state vs world 1's", full,
@@ -5133,6 +5347,540 @@ def phase_dist(results: dict, tmp: str) -> dict:
     return out
 
 
+# World-rest phase: the telemetry record at world 2 against one process
+# at the same global batch, in f32 with TF32 off. The ranks' sums of
+# squares, maxima and mean router probabilities add in another order than
+# one process's reductions, and a rank's GEMMs run half the rows (the CPU
+# tests hold the same at 1e-5 on the tiny model).
+WORLD_REST_TEL_RTOL = 1e-4
+
+
+def phase_world_rest(results: dict, tmp: str) -> dict:
+    """The rest of world > 1 training on the card, ranks sharing
+    ``cuda:0`` over gloo as in the dist phase (``_dist_spawn``), on
+    ``small_model.yaml`` (4 of its 12 layers, dropout 0, the clip off):
+
+    - int8 Adam moments under ``SHARD_GRAD_OP`` at world 2 (a rank batch
+      4, 3 steps) against one process at accumulation 2: the final packs,
+      masters and f32 moments bitwise (the embedding's and q/k/v/o's
+      slices cut a 256-block: the straddling block's scale is the
+      group's); a control with one int8 code flipped must fail; the
+      world-2 checkpoint restored at world 1 here, bitwise the stitched
+      shards;
+    - the preemption vote: the same run with a SIGTERM to rank 1 alone at
+      step 1 (``--preempt_vote_interval 1``): both ranks save
+      ``"preempt"`` at step 2 and exit 143; resumed at world 2, step 3
+      bitwise the straight run's;
+    - one telemetry step (``FULL_SHARD``, f32, 2 steps) at world 2
+      against one process at the same global batch: the same keys on
+      both ranks, every value within ``WORLD_REST_TEL_RTOL``; the
+      telemetry collectives a step;
+    - ``--nan_scan`` with a NaN planted in rank 1's first row at layer
+      1's input (one process: the same row of the global batch): both
+      ranks name layer 1's attention, as one process does.
+
+    Every run is launched as a user would (the CLI) and reads its launch
+    counts, which the ``kernels`` line adds; the runs that hold no
+    checkpoint check digest their final state instead of writing it."""
+    from tpu_trainer_torch.training import cli
+    from tpu_trainer_torch.training.trainer import Trainer
+    from tpu_trainer_torch.utils import checkpoint as ckpt_lib
+
+    t_phase = time.perf_counter()
+    card = nvidia_smi_line()
+    small0 = _cut_yaml(tmp, "small_model.yaml", "wr", dropout=0.0,
+                       attention_dropout=0.0, grad_clip=1e9, num_layers=4)
+    common = ["--log_interval", "1", "--eval_interval", "0",
+              "--eval_batches", "1", "--keep_last_n", "0",
+              "--no_auto_resume"]
+
+    def argv(tag, steps, bs, accum, *extra):
+        return (["--config", small0, "--max_steps", str(steps),
+                 "--batch_size", str(bs), "--grad_accum", str(accum),
+                 "--save_interval", "0",
+                 "--checkpoint_dir", os.path.join(tmp, f"ck_{tag}"),
+                 "--metrics_jsonl", os.path.join(tmp, f"{tag}.jsonl")]
+                + common + list(extra))
+
+    def want(a, micro, eval_micro):
+        cfg = cli.resolve_configs(cli.build_parser("fsdp").parse_args(a),
+                                  "fsdp")[0]
+        w = _micro_launches(cfg, micro, eval_micro, segmented=False)
+        if "fp32" in a:
+            # The head + CE kernel takes bf16 only; f32 runs the chunked
+            # loss (ops/loss.py).
+            w["head_ce"] = 0
+        return w
+
+    launches = {}
+
+    def check_launches(tag, recs, expect):
+        for r in recs:
+            if r["launches"] != expect:
+                raise AssertionError(f"world-rest: {tag} rank {r['rank']} "
+                                     f"launches {r['launches']}, want "
+                                     f"{expect}")
+            _add_launches(launches, r["launches"])
+
+    q = ["--sharding", "SHARD_GRAD_OP", "--optimizer_state_dtype", "int8",
+         "--preempt_vote_interval", "1"]
+    f32 = ["--sharding", "FULL_SHARD", "--mixed_precision", "fp32"]
+    a = {"q1": argv("q1", 3, 4, 2, *q), "q2": argv("q2", 3, 4, 1, *q),
+         "qcut": argv("qcut", 3, 4, 1, *q),
+         "t1": argv("t1", 2, 4, 1, *f32, "--telemetry_interval", "2"),
+         "t2": argv("t2", 2, 2, 1, *f32, "--telemetry_interval", "2"),
+         "n1": argv("n1", 1, 4, 1, *f32, "--nan_scan"),
+         "n2": argv("n2", 1, 2, 1, *f32, "--nan_scan")}
+    digest = {None: {"digests": True}}
+    t0 = time.perf_counter()
+    spawned = [
+        ("q1", _dist_spawn(tmp, "q1", "fsdp", a["q1"], 0)),
+        ("q2", _dist_spawn(tmp, "q2", "fsdp", a["q2"], 2)),
+        ("qcut", _dist_spawn(tmp, "qcut", "fsdp", a["qcut"], 2, extra={
+            1: {"argv": ["--inject_fault", "sigterm@1"]}})),
+        ("t1", _dist_spawn(tmp, "t1", "fsdp", a["t1"], 0, extra=digest)),
+        ("t2", _dist_spawn(tmp, "t2", "fsdp", a["t2"], 2, extra=digest)),
+        ("n1", _dist_spawn(tmp, "n1", "fsdp", a["n1"], 0,
+                           extra={None: {"plant": [1, 2]}})),
+        ("n2", _dist_spawn(tmp, "n2", "fsdp", a["n2"], 2,
+                           extra={1: {"plant": [1, 0]}}))]
+    recs = _dist_join_all(spawned)
+    group1_s = time.perf_counter() - t0
+    for tag in ("q1", "q2", "t1", "t2", "n1", "n2"):
+        if any(r["rc"] != 0 for r in recs[tag]):
+            raise AssertionError(f"world-rest: {tag} exit codes "
+                                 f"{[r['rc'] for r in recs[tag]]}")
+    if [r["backend"] for r in recs["q2"]] != ["gloo", "gloo"]:
+        raise AssertionError(f"world-rest: q2 backends "
+                             f"{[r['backend'] for r in recs['q2']]}")
+    # Eval runs a batch as the step's micro-batches: 2 for q1.
+    check_launches("q1", recs["q1"], want(a["q1"], 6, 2))
+    check_launches("q2", recs["q2"], want(a["q2"], 3, 1))
+    check_launches("t1", recs["t1"], want(a["t1"], 2, 1))
+    check_launches("t2", recs["t2"], want(a["t2"], 2, 1))
+    check_launches("n1", recs["n1"], want(a["n1"], 0, 1))
+    check_launches("n2", recs["n2"], want(a["n2"], 0, 1))
+    out = {"card": card, "group_seconds": group1_s}
+
+    # -- the preemption vote: resume the cut run at world 2.
+    cut = recs["qcut"]
+    if [r["rc"] for r in cut] != [143, 143]:
+        raise AssertionError(f"world-rest: SIGTERM to rank 1: exit codes "
+                             f"{[r['rc'] for r in cut]}, want 143 on both")
+    cut_dir = os.path.join(tmp, "ck_qcut")
+    saved = [st for st, _ in ckpt_lib.list_checkpoints(cut_dir)]
+    meta = ckpt_lib.load_meta(os.path.join(cut_dir, "step_00000002"))
+    if saved != [2] or meta.get("shard_world") != 2:
+        raise AssertionError(f"world-rest: SIGTERM to rank 1 saved {saved} "
+                             f"(shard_world {meta.get('shard_world')})")
+    for r in cut:
+        _add_launches(launches, r["launches"])
+    a_res = list(a["qcut"])
+    a_res.remove("--no_auto_resume")
+    a_res[a_res.index("--metrics_jsonl") + 1] = os.path.join(tmp,
+                                                             "qres.jsonl")
+    t0 = time.perf_counter()
+    res = _dist_join_all([("qres", _dist_spawn(tmp, "qres", "fsdp", a_res,
+                                               2))])["qres"]
+    resume_s = time.perf_counter() - t0
+    check_launches("qres", res, want(a_res, 1, 1))
+    q2_state = _dist_state(os.path.join(tmp, "ck_q2", "step_00000003"))
+    n_res = _dist_equal("SIGTERM to rank 1, resumed at world 2, vs the "
+                        "straight run", _dist_state(
+                            os.path.join(cut_dir, "step_00000003")),
+                        q2_state)
+    log("world-rest", f"SIGTERM to rank 1 at step 1: both ranks saved "
+                      f"'preempt' at step 2 and exited 143; resumed at "
+                      f"world 2, step 3's {n_res} arrays bitwise the "
+                      f"straight run's (resume {resume_s:.1f} s)")
+    out["vote"] = {"arrays": n_res, "resume_seconds": resume_s}
+
+    # -- int8 moments on shards against one process.
+    q1_state = _dist_state(os.path.join(tmp, "ck_q1", "step_00000003"))
+    keys = [k for k in q1_state if "/" in k]
+    packs = [k[:-len("/q")] for k in keys if k.endswith("/q")]
+    n = _dist_equal("int8 SHARD_GRAD_OP world 2 vs world 1", q2_state,
+                    q1_state, keys)
+    emb = "opt_state/nu/embed_tokens/embedding"
+    flipped = dict(q2_state)
+    flipped[f"{emb}/q"] = q2_state[f"{emb}/q"].copy()
+    flipped[f"{emb}/q"].flat[383] ^= 1     # the block 256..512 both hold
+    _must_reject("world-rest: one int8 code flipped", lambda: _dist_equal(
+        "control", flipped, q1_state, [f"{emb}/q"]))
+    del flipped
+    cfg, tc, par, _ = cli.resolve_configs(
+        cli.build_parser("fsdp").parse_args(a["q1"]), "fsdp")
+    trainer = Trainer(cfg, tc, par, device="cuda")
+    restored, _ = ckpt_lib.restore_checkpoint(
+        os.path.join(tmp, "ck_q2", "step_00000003"), trainer)
+    m = _dist_equal("world-1 restore of the int8 world-2 checkpoint",
+                    restored.state_dict(), q2_state, keys)
+    del restored, trainer, q1_state, q2_state
+    torch.cuda.empty_cache()
+    wire = recs["q2"][0]["collectives"]
+    log("world-rest", f"int8 moments, SHARD_GRAD_OP world 2: {n} arrays "
+                      f"({len(packs)} int8 packs) bitwise one process at "
+                      f"accumulation 2 (a flipped code rejected); the "
+                      f"world-2 checkpoint restored at world 1 with {m} "
+                      f"arrays bitwise; rank 0 ran "
+                      f"{wire.get('quant_absmax', 0)} block-max "
+                      f"all-gathers ({wire.get('quant_absmax_bytes', 0) / 1e6:.2f}"
+                      f" MB) over 3 steps; step ms rank 0 "
+                      f"{[round(x, 1) for x in recs['q2'][0]['step_ms']]}, "
+                      f"one process "
+                      f"{[round(x, 1) for x in recs['q1'][0]['step_ms']]} "
+                      f"({card}; {group1_s:.1f} s for the group's 11 "
+                      f"processes sharing the card)")
+    out["int8"] = {"arrays": n, "packs": len(packs), "restored": m,
+                   "quant_absmax": wire.get("quant_absmax", 0),
+                   "step_ms": [r["step_ms"] for r in recs["q2"]],
+                   "world1_step_ms": recs["q1"][0]["step_ms"]}
+
+    # -- one telemetry step against one process.
+    want_tel, = recs["t1"][0]["telemetry"]
+    worst, at = 0.0, None
+    for r in recs["t2"]:
+        got, = r["telemetry"]
+        if sorted(got) != sorted(want_tel):
+            raise AssertionError(f"world-rest: rank {r['rank']}'s telemetry "
+                                 f"keys differ: "
+                                 f"{sorted(set(got) ^ set(want_tel))[:6]}")
+        for k, v in want_tel.items():
+            rel = abs(got[k] - v) / max(abs(v), 1e-6)
+            if rel > worst:
+                worst, at = rel, k
+    if worst > WORLD_REST_TEL_RTOL:
+        raise AssertionError(f"world-rest: telemetry {at}: relative "
+                             f"difference {worst:.3e} above "
+                             f"{WORLD_REST_TEL_RTOL:.0e}")
+    if recs["t2"][0]["telemetry"] != recs["t2"][1]["telemetry"]:
+        raise AssertionError("world-rest: the ranks' telemetry records "
+                             "differ")
+    tel_wire = recs["t2"][0]["collectives"]
+    log("world-rest", f"telemetry step, FULL_SHARD world 2 (f32): "
+                      f"{len(want_tel)} scalars on both ranks within "
+                      f"{worst:.3e} of one process's (bound "
+                      f"{WORLD_REST_TEL_RTOL:.0e}, at {at}); "
+                      f"{tel_wire.get('telemetry', 0)} stat all-gather"
+                      f"(s) of {tel_wire.get('telemetry_bytes', 0)} bytes "
+                      f"a rank; step ms rank 0 "
+                      f"{[round(x, 1) for x in recs['t2'][0]['step_ms']]} "
+                      f"(the second the telemetry step)")
+    out["telemetry"] = {"scalars": len(want_tel), "worst_rtol": worst,
+                        "collectives": tel_wire,
+                        "step_ms": [r["step_ms"] for r in recs["t2"]]}
+
+    # -- nan_scan with a NaN in rank 1's rows.
+    want_nan = recs["n1"][0]["nan"][0]
+    if want_nan["first_nan"] != {"site": "attn", "layer": 1}:
+        raise AssertionError(f"world-rest: one process's nan_scan names "
+                             f"{want_nan['first_nan']}")
+    for r in recs["n2"]:
+        got = r["nan"][0]
+        if (got["first_nan"], got["sites"]) != (want_nan["first_nan"],
+                                                want_nan["sites"]):
+            raise AssertionError(f"world-rest: rank {r['rank']}'s nan_scan "
+                                 f"names {got['first_nan']} "
+                                 f"({got['sites']}), one process "
+                                 f"{want_nan['first_nan']}")
+    log("world-rest", f"nan_scan, NaN in rank 1's rows at layer 1: both "
+                      f"ranks name {want_nan['first_nan']} and the same "
+                      f"{len(want_nan['sites'])} non-finite sites as one "
+                      f"process")
+    out["nan_scan"] = {"first_nan": want_nan["first_nan"],
+                       "sites": len(want_nan["sites"])}
+    for name in os.listdir(tmp):
+        if name.startswith("ck_"):
+            shutil.rmtree(os.path.join(tmp, name))
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    log("world-rest", f"phase {out['seconds']:.1f} s")
+    results["world-rest"] = out
+    return out
+
+
+def _blame_every_stale(sup, children, started):
+    """A planted fault: a supervisor that blames every stale host, not
+    only the earliest flatline."""
+    from tpu_trainer_torch.utils import flight_recorder as flight_lib
+
+    now, deaths = time.time(), []
+    for c in children:
+        beat = flight_lib.read_heartbeat(sup._hb_dir(), c.host)
+        if beat is not None and now - beat["unix"] > sup.heartbeat_timeout_s:
+            deaths.append({"host": c.host, "cause": "heartbeat_timeout"})
+    return deaths
+
+
+def _flatline_blame(check) -> list:
+    """The deaths ``check(supervisor, children, started)`` finds in a
+    heartbeat dir where host 1 went silent first and host 0's beats went
+    stale after it (it waits in a collective with host 1): must be host 1
+    alone."""
+    from tpu_trainer_torch.training import elastic
+
+    d = tempfile.mkdtemp(prefix="chip_smoke_blame_")
+    try:
+        sup = elastic.Supervisor([], num_processes=2, run_dir=d, env={},
+                                 heartbeat_timeout_s=5.0)
+        hb = sup._hb_dir()
+        os.makedirs(hb)
+        now = time.time()
+        for host, age in ((0, 20.0), (1, 30.0)):
+            with open(os.path.join(hb, f"heartbeat_host{host:05d}.jsonl"),
+                      "w") as f:
+                f.write(json.dumps({"kind": "heartbeat", "host": host,
+                                    "step": 9 - host, "unix": now - age})
+                        + "\n")
+
+        class Child:
+            def __init__(self, host):
+                self.host = host
+
+            def poll(self):
+                return None
+        deaths = check(sup, [Child(0), Child(1)], now - 60)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    if [x["host"] for x in deaths] != [1]:
+        raise AssertionError(f"elastic: blamed {deaths}, want host 1 alone")
+    return deaths
+
+
+def _resumed_step(log_path: str) -> int:
+    with open(log_path) as f:
+        m = re.search(r"resumed from \S+ at step (\d+)", f.read())
+    if m is None:
+        raise AssertionError(f"elastic: {log_path} did not resume")
+    return int(m.group(1))
+
+
+def phase_elastic(results: dict, tmp: str) -> dict:
+    """The elastic supervisor as a user launches it: ``python -m
+    tpu_trainer_torch.training.elastic --num_processes 2 --allow_grow``
+    over ``train_ddp`` on ``small_model.yaml``'s width (768) at 2 of its
+    12 layers, a rank batch 4, 12 steps, synchronous saves every 4; its
+    two ranks share ``cuda:0`` over gloo (more ranks than cards:
+    ``parallel/mesh.shares_card``), the shrunk world-1 attempt runs over
+    NCCL. The chain: ``kill_host@5`` (rank 1 dies) shrinks the run to
+    world 1, which resumes from the committed step-4 checkpoint;
+    ``return_host@6`` grants a host back and the supervisor drains the
+    world-1 attempt (its SIGTERM checkpoint) and grows to world 2, which
+    finishes. Checked in ``supervisor.jsonl``: the death (host 1,
+    ``exit:137``), the recovery (2 -> 1, ``recovery_seconds``), the grow
+    (1 -> 2, ``grow_seconds``, nothing rolled back), the summary (1
+    restart, 1 grow, world 2, exit 0); every step's loss logged and
+    finite; the final step-12 state bitwise a replay of the same segments
+    without the supervisor (world 1 from the step-4 checkpoint to the
+    drain step, in this process, then world 2 to step 12), each segment
+    at the global batch of its world. Then a second run for
+    ``hang_host@3`` with ``--max_restarts 0``: exactly one death, host 1,
+    ``heartbeat_timeout``, its last beat at step 3. A planted fault, a
+    supervisor that blames every stale host instead of the earliest
+    flatline, must be rejected. Prints the recovery and grow times with
+    the card's name and power limit."""
+    from tpu_trainer_torch.utils import checkpoint as ckpt_lib
+
+    t_phase = time.perf_counter()
+    card = nvidia_smi_line()
+    yaml = _cut_yaml(tmp, "small_model.yaml", "el", num_layers=2)
+    _flatline_blame(lambda sup, ch, t: sup._check_deaths(ch, t))
+    _must_reject("elastic: a supervisor that blames every stale host",
+                 lambda: _flatline_blame(_blame_every_stale))
+
+    def supervise(tag, sup_args, trainer_args):
+        run_dir = os.path.join(tmp, f"el_{tag}")
+        cmd = ([sys.executable, "-m", "tpu_trainer_torch.training.elastic",
+                "--num_processes", "2", "--run_dir", run_dir,
+                "--startup_grace_s", "300", "--coordinator_timeout_s", "120",
+                "--term_grace_s", "2", "--death_settle_s", "0.5"]
+               + sup_args + ["--", "--config", yaml, "--batch_size", "4",
+                             "--grad_accum", "1", "--eval_interval", "0",
+                             "--keep_last_n", "0",
+                             "--checkpoint_dir",
+                             os.path.join(run_dir, "ckpt")] + trainer_args)
+        so = open(os.path.join(tmp, f"el_{tag}.out"), "w")
+        return run_dir, so, subprocess.Popen(cmd, cwd=ROOT, stdout=so,
+                                             stderr=subprocess.STDOUT)
+
+    def finish(tag, so, proc, rc_want, timeout):
+        try:
+            rc = proc.wait(timeout=timeout)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            so.close()
+        with open(os.path.join(tmp, f"el_{tag}.out")) as f:
+            text = f.read()
+        for ln in text.splitlines():
+            if ln.startswith("elastic |"):
+                log("elastic", f"  {tag} | {ln}")
+        if rc != rc_want:
+            raise AssertionError(f"elastic: {tag} supervisor exited {rc}, "
+                                 f"want {rc_want}: {text[-3000:]}")
+
+    t0 = time.perf_counter()
+    run_dir, so, proc = supervise(
+        "chain", ["--allow_grow", "--grow_probe_interval_s", "0.2",
+                  "--heartbeat_timeout_s", "60", "--max_restarts", "2"],
+        ["--max_steps", "12", "--save_interval", "4", "--log_interval", "1",
+         "--no_async_checkpointing",
+         "--inject_fault", "kill_host@5,return_host@6"])
+    finish("chain", so, proc, 0, 400)
+    chain_s = time.perf_counter() - t0
+    ledger = os.path.join(run_dir, "supervisor.jsonl")
+    deaths = _jsonl(ledger, "host_death")
+    recs = _jsonl(ledger, "recovery")
+    grows = _jsonl(ledger, "world_grow")
+    summary = _jsonl(ledger, "elastic_summary")
+    if [(d["host"], d["cause"]) for d in deaths] != [(1, "exit:137")]:
+        raise AssertionError(f"elastic: deaths {deaths}")
+    if len(recs) != 1 or (recs[0]["world_before"],
+                          recs[0]["world_after"]) != (2, 1):
+        raise AssertionError(f"elastic: recoveries {recs}")
+    if len(grows) != 1 or (grows[0]["world_before"],
+                           grows[0]["world_after"],
+                           grows[0]["rolled_back_steps"]) != (1, 2, 0):
+        raise AssertionError(f"elastic: grows {grows}")
+    if not summary or (summary[-1]["restarts"], summary[-1]["grows"],
+                       summary[-1]["final_world"],
+                       summary[-1]["exit_code"]) != (1, 1, 2, 0):
+        raise AssertionError(f"elastic: summary {summary}")
+    losses = {}
+    for path in sorted(os.path.join(run_dir, n) for n in os.listdir(run_dir)
+                       if n.startswith("host") and n.endswith(".log")):
+        with open(path) as f:
+            for m in re.finditer(r"step\s+(\d+) \| loss ([0-9.eE+-]+|nan)",
+                                 f.read()):
+                losses[int(m.group(1))] = float(m.group(2))
+    if set(range(12)) - set(losses) or not all(
+            math.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"elastic: logged losses {losses}")
+    s1 = _resumed_step(os.path.join(run_dir, "host0_attempt1.log"))
+    s2 = _resumed_step(os.path.join(run_dir, "host0_attempt2.log"))
+    if s1 != 4 or not 6 < s2 < 12:
+        raise AssertionError(f"elastic: resumed at steps {s1} and {s2}")
+    final = os.path.join(run_dir, "ckpt", "step_00000012")
+    if ckpt_lib.load_meta(final).get("shard_world") != 2:
+        raise AssertionError("elastic: step 12 not saved at world 2")
+
+    # The replay: world 1 from the step-4 checkpoint to s2 here, then
+    # world 2 to step 12; meanwhile the hang run.
+    rep = os.path.join(tmp, "el_replay")
+    os.makedirs(rep)
+    shutil.copytree(os.path.join(run_dir, "ckpt", "step_00000004"),
+                    os.path.join(rep, "step_00000004"))
+    a_rep = ["--config", yaml, "--batch_size", "4", "--grad_accum", "1",
+             "--eval_interval", "0", "--keep_last_n", "0",
+             "--log_interval", "1", "--checkpoint_dir", rep,
+             "--save_interval", "4", "--no_async_checkpointing",
+             "--max_steps", "12"]
+    hang_dir, hso, hproc = supervise(
+        "hang", ["--heartbeat_timeout_s", "10", "--max_restarts", "0"],
+        ["--max_steps", "100000", "--save_interval", "100000",
+         "--log_interval", "1000", "--inject_fault", "hang_host@3"])
+    launches = {}
+    # The world-1 segment stops as the drained attempt did (a SIGTERM at
+    # the top of step s2 - 1, its checkpoint at s2), so its schedule is
+    # the 12-step run's.
+    one = _cli_in_process("elastic", a_rep + [
+        "--inject_fault", f"sigterm@{s2 - 1}"], rc_want=143)
+    _add_launches(launches, one["launches"])
+    two = _dist_join_all([("replay", _dist_spawn(
+        tmp, "replay", "ddp", a_rep, 2))])["replay"]
+    for r in two:
+        if r["rc"] != 0:
+            raise AssertionError(f"elastic: replay rank {r['rank']} exited "
+                                 f"{r['rc']}")
+        _add_launches(launches, r["launches"])
+    n = _dist_equal("the elastic chain's step 12 vs the replay",
+                    _dist_state(final),
+                    _dist_state(os.path.join(rep, "step_00000012")))
+    finish("hang", hso, hproc, 1, 300)
+    hdeaths = _jsonl(os.path.join(hang_dir, "supervisor.jsonl"),
+                     "host_death")
+    if [(d["host"], d["cause"], d.get("step_last_beat"))
+            for d in hdeaths] != [(1, "heartbeat_timeout", 3)]:
+        raise AssertionError(f"elastic: hang run deaths {hdeaths}")
+    rec_s, grow_s = recs[0]["recovery_seconds"], grows[0]["grow_seconds"]
+    log("elastic", f"kill_host@5 -> world 1 resumed at step {s1} "
+                   f"(recovery {rec_s:.2f} s, {recs[0]['rolled_back_steps']} "
+                   f"step(s) rolled back), return_host@6 -> world 2 resumed "
+                   f"at step {s2} (grow {grow_s:.2f} s, 0 rolled back); "
+                   f"every step's loss finite; step 12's {n} arrays bitwise "
+                   f"the replay of the same segments; chain "
+                   f"{chain_s:.1f} s; hang_host@3 caught by the heartbeat "
+                   f"timeout (host 1, last beat step 3); a supervisor "
+                   f"blaming every stale host rejected ({card})")
+    for name in os.listdir(tmp):
+        if name.startswith("el_"):
+            shutil.rmtree(os.path.join(tmp, name), ignore_errors=True)
+    out = {"card": card, "recovery_seconds": rec_s, "grow_seconds": grow_s,
+           "resumed_at": [s1, s2], "chain_seconds": chain_s,
+           "arrays_bitwise": n, "launches": launches,
+           "losses": [losses[k] for k in sorted(losses)],
+           "seconds": time.perf_counter() - t_phase}
+    log("elastic", f"phase {out['seconds']:.1f} s")
+    results["elastic"] = out
+    return out
+
+
+def _beside_child(tmp: str, out: str) -> None:
+    """The world-rest and elastic phases in this fresh process (the kernels
+    come from the card phase's build directory), in directory ``tmp``;
+    their records and seconds are written to ``out``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    results: dict = {"phase_seconds": {}}
+    for name, fn in (("world-rest", phase_world_rest),
+                     ("elastic", phase_elastic)):
+        t = time.perf_counter()
+        fn(results, tmp)
+        results["phase_seconds"][name] = time.perf_counter() - t
+    with open(out, "w") as f:
+        json.dump(results, f)
+
+
+def _beside(tmp: str):
+    """``_beside_child`` started in a process of its own (a session of its
+    own, so that the ranks and supervisors it starts stop with it), to run
+    beside the ft phase, which keeps one or two processes on the card and
+    the host. Returns ``join(kill=False)``, which waits for it (or kills
+    it), prints its log and returns its results."""
+    import signal
+
+    d = os.path.join(tmp, "beside")
+    os.makedirs(d)
+    out, log_path = os.path.join(d, "results.json"), os.path.join(d, "log")
+    code = f"import chip_smoke; chip_smoke._beside_child({d!r}, {out!r})"
+    with open(log_path, "w") as so:
+        proc = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
+                                stdout=so, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+
+    def join(kill: bool = False):
+        try:
+            rc = None if kill else proc.wait(timeout=900)
+        finally:
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            proc.wait()
+            with open(log_path) as f:
+                sys.stdout.write(f.read())
+            sys.stdout.flush()
+        if kill:
+            return None
+        if rc != 0:
+            raise AssertionError(f"world-rest / elastic: their process "
+                                 f"exited {rc}")
+        with open(out) as f:
+            return json.load(f)
+    return join
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out", help="also write every measured number here")
@@ -5180,12 +5928,24 @@ def main(argv=None) -> int:
         run("offload", phase_offload, tmp)
         run("moe-remat", phase_moe_remat, tmp)
         mc = run("moe-capacity", phase_moe_capacity, tmp)
-        ft = run("ft", phase_ft, tmp)
+        # The world-rest and elastic phases run in a process of their own
+        # beside ft (the whole run's time limit); dist after them.
+        join_beside = _beside(tmp)
+        try:
+            ft = run("ft", phase_ft, tmp)
+        except BaseException:
+            join_beside(kill=True)
+            raise
+        beside = join_beside()
+        rest = results["world-rest"] = beside["world-rest"]
+        el = results["elastic"] = beside["elastic"]
+        secs.update(beside["phase_seconds"])
         dist = run("dist", phase_dist, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log("done", "phase seconds: " + ", ".join(
-        f"{k} {v:.1f}" for k, v in secs.items()))
+        f"{k} {v:.1f}" for k, v in secs.items())
+        + " (world-rest and elastic beside ft)")
 
     max_err = max(results["kernel_max_abs_err"],
                   results["engine"]["live_step_max_abs_err"],
@@ -5208,6 +5968,8 @@ def main(argv=None) -> int:
     # (and flash_decode's the moe-capacity engine's).
     ftl = dict(ft["launches"])
     _add_launches(ftl, dist["launches"])
+    _add_launches(ftl, rest["launches"])
+    _add_launches(ftl, el["launches"])
     _add_launches(ftl, mc["launches"])
     launches += mc["engine"]["launches"]
     train_launches = {k: v + ftl.get(k, 0) for k, v in train_launches.items()}

@@ -56,6 +56,7 @@ def test_import_leaves_jax_out_of_sys_modules():
                 "tpu_trainer_torch.training.cli",
                 "tpu_trainer_torch.training.train_ddp",
                 "tpu_trainer_torch.training.train_fsdp",
+                "tpu_trainer_torch.training.elastic",
                 "tpu_trainer_torch.utils.checkpoint",
                 "tpu_trainer_torch.eval.infer",
                 "tpu_trainer_torch.utils.faults",

@@ -352,11 +352,27 @@ def test_num_experts_trains_a_step(tmp_path, yaml_file, capsys):
         "step_00000001")
 
 
-def test_standby_file_raises_naming_item_5(monkeypatch, tmp_path):
-    monkeypatch.setenv("TPU_TRAINER_STANDBY_FILE", str(tmp_path / "standby"))
-    with pytest.raises(NotImplementedError,
-                       match="Queue 1: elastic training at world > 1"):
-        cli.run_training(["--device", "cpu", "--max_steps", "1"])
+def test_standby_file_raises_naming_item_5(monkeypatch, tmp_path, yaml_file,
+                                          capsys):
+    """A standby (``TPU_TRAINER_STANDBY_FILE``, the elastic supervisor's
+    warm spare) parks before the rendezvous until its activation file
+    names its rank, then trains; before the elastic slice it raised."""
+    path = tmp_path / "standby"
+    path.write_text(json.dumps({"env": {"PROCESS_ID": "0",
+                                        "NUM_PROCESSES": "1"}}))
+    monkeypatch.setenv("TPU_TRAINER_STANDBY_FILE", str(path))
+    # The promotion writes these into the environment: set them first so
+    # that the monkeypatch removes them again (a later test's JAX CLI
+    # would read them as a rendezvous).
+    for key in ("PROCESS_ID", "NUM_PROCESSES"):
+        monkeypatch.setenv(key, "")
+        monkeypatch.delenv(key)
+    assert cli.run_training(["--config", yaml_file(TINY_YAML), "--device",
+                             "cpu", "--max_steps", "1", "--checkpoint_dir",
+                             str(tmp_path / "ck")]) == 0
+    out = capsys.readouterr().out
+    assert "standby: parked before rendezvous" in out
+    assert "standby: promoted to rank 0 (world 1)" in out
 
 
 @pytest.mark.parametrize("extra", [

@@ -7,10 +7,13 @@ TCP port, so parallel test workers never collide) and a list of jobs;
 each job writes ``<out>/<name>_r<rank>.pt`` (``torch.save`` of a dict of
 numpy arrays and scalars) for the test to compare. Jobs:
 
-- ``train``: a ``Trainer`` at the job's strategy and mesh takes ``steps``
-  steps of ``DummyDataLoader`` batches (this rank's rows); writes the
-  losses, grad norms, this rank's local arrays at init and at the end,
-  its ``shard_records()``, the collectives it ran (``collectives.calls``),
+- ``train``: a ``Trainer`` at the job's strategy, mesh and ``parallel``
+  options (offload) takes ``steps`` steps of ``DummyDataLoader`` batches
+  (this rank's rows), a telemetry step at each index of ``telemetry_at``;
+  writes the losses, grad norms, the flattened telemetry records, the
+  offload's kept leaves and bytes, this rank's local arrays at init and
+  at the end, its ``shard_records()``, the collectives it ran
+  (``collectives.calls``),
   with ``record_moe`` every MoE layer call's router aux and, for the
   capacity router, its queue positions and keep mask (``record_moe``
   below; ``zero_offsets_rank`` plants a fault there), and optionally arms
@@ -24,7 +27,10 @@ numpy arrays and scalars) for the test to compare. Jobs:
   the way the training forward draws them;
 - ``guards``: ``check_hosts_in_sync`` on agreeing and disagreeing
   ``(step, loss)`` pairs, and the mesh's ``global_any`` and
-  ``broadcast_from_host0``.
+  ``broadcast_from_host0``;
+- ``nan_scan``: ``Trainer.nan_scan`` of the first batch, with a NaN
+  planted (``plant``: ``{"rank", "layer", "row"}``) in one rank's rows at
+  the input of one layer (``plant_block``).
 
 The CPU only, gloo, f32.
 """
@@ -60,6 +66,7 @@ from tpu_trainer_torch.training.trainer import (  # noqa: E402
 )
 from tpu_trainer_torch.utils import checkpoint as ckpt  # noqa: E402
 from tpu_trainer_torch.utils import faults  # noqa: E402
+from tpu_trainer_torch.utils import telemetry  # noqa: E402
 
 
 def local_arrays(state) -> dict:
@@ -114,8 +121,31 @@ def make_trainer(job) -> Trainer:
     mesh = MeshConfig(**job.get("mesh", {}))
     return Trainer(GPTConfig(**job["model"]), TrainingConfig(**job["train"]),
                    ParallelConfig(mesh=mesh,
-                                  sharding_strategy=job["strategy"]),
+                                  sharding_strategy=job["strategy"],
+                                  **job.get("parallel", {})),
                    device="cpu")
+
+
+def plant_block(trainer: Trainer, layer: int, row: int) -> None:
+    """Make ``trainer``'s forward put a NaN into row ``row`` of layer
+    ``layer``'s input (a non-finite activation in those rows only)."""
+    block = trainer.model._train_block
+    calls = {"n": 0}
+
+    def planted(x, p, step):
+        if calls["n"] % trainer.model_config.num_layers == layer:
+            x = x.clone()
+            x[row, 0, 0] = float("nan")
+        calls["n"] += 1
+        return block(x, p, step)
+    trainer.model._train_block = planted
+
+
+def load_params(job, tr):
+    if not job.get("params_npz"):
+        return None
+    return from_jax_params(load_params_npz(job["params_npz"]),
+                           tr.model_config, device="cpu")
 
 
 def train(job) -> dict:
@@ -126,13 +156,12 @@ def train(job) -> dict:
     restore_moe = (record_moe(moe_out, job.get("zero_offsets_rank"))
                    if job.get("record_moe") else None)
     tr = make_trainer(job)
-    params = None
-    if job.get("params_npz"):
-        params = from_jax_params(load_params_npz(job["params_npz"]),
-                                 tr.model_config, device="cpu")
-    state = tr.init_state(params=params)
+    state = tr.init_state(params=load_params(job, tr))
     out = {"init": local_arrays(state), "losses": [], "grad_norms": [],
-           "feed": (tr.data_feed_rank, tr.data_feed_world)}
+           "feed": (tr.data_feed_rank, tr.data_feed_world),
+           "telemetry": [],
+           "offload": {"keep": sorted(tr._offload_keep),
+                       "resident": tr.offload_resident_bytes}}
     loader = DummyDataLoader(tr.global_batch_size, job["train"]["max_seq_len"],
                              job["model"]["vocab_size"],
                              num_batches=job["steps"],
@@ -148,7 +177,12 @@ def train(job) -> dict:
             def scaled(grads, *a, **k):
                 return orig({n: g * 1.5 for n, g in grads.items()}, *a, **k)
             tr.optimizer.apply = scaled
-        state, m = tr.train_step(state, batch)
+        state, m = tr.train_step(
+            state, batch,
+            telemetry=state.step in job.get("telemetry_at", []))
+        if "telemetry" in m:
+            out["telemetry"].append(telemetry.flatten_scalars(
+                m["telemetry"]))
         out["losses"].append(m["loss"])
         out["grad_norms"].append(m["grad_norm"])
         save_at = job.get("save_at")
@@ -172,6 +206,7 @@ def train(job) -> dict:
         restored, meta = ckpt.restore_checkpoint(job["restore"],
                                                  make_trainer(job))
         out["restored"] = local_arrays(restored)
+        out["restored_records"] = restored.shard_records()
         out["restored_scalars"] = restored.scalars()
         out["restored_generator"] = restored.generator.get_state().numpy()
     if job.get("restore_latest"):
@@ -222,6 +257,20 @@ def guards(job) -> dict:
             "any": mesh_lib.global_any(rank == 1),
             "none": mesh_lib.global_any(False),
             "from0": mesh_lib.broadcast_from_host0({"rank": rank})}
+
+
+def nan_scan(job) -> dict:
+    tr = make_trainer(job)
+    state = tr.init_state(params=load_params(job, tr))
+    plant = job.get("plant")
+    if plant and plant["rank"] == mesh_lib.process_index():
+        plant_block(tr, plant["layer"], plant["row"])
+    batch = next(iter(DummyDataLoader(
+        tr.global_batch_size, job["train"]["max_seq_len"],
+        job["model"]["vocab_size"], num_batches=1,
+        seed=job.get("data_seed", 11), process_index=tr.data_feed_rank,
+        process_count=tr.data_feed_world)))
+    return tr.nan_scan(state, batch)
 
 
 def run_world(tmp_path, world: int, jobs, timeout: float = 240.0) -> dict:
@@ -280,8 +329,8 @@ def main(spec_path: str, rank: int) -> None:
     initialize_distributed(num_processes=spec["world"], process_id=rank,
                            init_method=f"file://{spec['store']}")
     for job in spec["jobs"]:
-        result = {"train": train, "dropout": dropout,
-                  "guards": guards}[job["kind"]](job)
+        result = {"train": train, "dropout": dropout, "guards": guards,
+                  "nan_scan": nan_scan}[job["kind"]](job)
         torch.save(result, os.path.join(spec["out"],
                                         f"{job['name']}_r{rank}.pt"))
 

@@ -43,7 +43,11 @@ backward instead of keeping them.
 
 With ``router_stats`` (a telemetry step) a layer reports its router
 health under the JAX names: ``load``, ``entropy``, ``drop_frac``,
-``max_group_frac`` and ``dropless`` (1 for the dropless router).
+``max_group_frac`` and ``dropless`` (1 for the dropless router). At world
+> 1 they are the global micro-batch's: the load, drop and group fractions
+from the all-gathered counts (no second collective), the entropy from the
+ranks' mean probability, which the trainer averages with the step's other
+stats (``mean_prob``, ``utils/telemetry.combine_ranks``).
 """
 
 from __future__ import annotations
@@ -87,6 +91,11 @@ def route(xt: torch.Tensor, router_kernel: torch.Tensor, cfg: GPTConfig,
             mp = mean_prob.detach()
             stats["load"] = frac
             stats["entropy"] = -torch.sum(mp * torch.log(mp + 1e-9))
+            if counts.shape[0] > 1:
+                # The global entropy needs the global mean probability:
+                # the trainer's one telemetry collective averages this
+                # (utils/telemetry.combine_ranks).
+                stats["mean_prob"] = mp
     if cfg.router_z_weight > 0.0:
         z = torch.logsumexp(logits, dim=-1)
         aux = aux + cfg.router_z_weight * torch.mean(z * z)
@@ -162,14 +171,18 @@ def dropless_moe(x: torch.Tensor, router_kernel: torch.Tensor,
     k = cfg.moe_top_k
     dtype = cfg.compute_dtype
     xt = x.reshape(b * s, H)
-    gates, gate_idx, aux, _ = route(xt, router_kernel, cfg,
-                                    stats=router_stats, group=group)
+    gates, gate_idx, aux, every = route(xt, router_kernel, cfg,
+                                        stats=router_stats, group=group)
     counts, perm, inv_perm = dispatch(gate_idx, cfg.num_experts)
     if router_stats is not None:
         with torch.no_grad():
             # The true post-routing load (what each expert computed);
-            # nothing is dropped.
-            load = counts.float() / float(k * b * s)
+            # nothing is dropped. At world > 1 the global micro-batch's,
+            # from every rank's choice counts.
+            load = (counts.float() / float(k * b * s)
+                    if every.shape[0] == 1 else
+                    every.sum(dim=(0, 1)).float()
+                    / float(k * b * s * every.shape[0]))
             router_stats.update(
                 load=load, drop_frac=torch.zeros((), device=load.device),
                 max_group_frac=torch.max(load),
@@ -298,10 +311,17 @@ def capacity_moe(x: torch.Tensor, router_kernel: torch.Tensor,
     pos, keep = capacity_positions(gate_idx, counts, rank, C)
     if router_stats is not None:
         with torch.no_grad():
-            kept = (F.one_hot(gate_idx, E) * keep[..., None]).sum(
-                dim=(0, 1)).float()
+            if world == 1:
+                kept = (F.one_hot(gate_idx, E) * keep[..., None]).sum(
+                    dim=(0, 1)).float()
+                drop = 1.0 - keep.float().mean()
+            else:
+                # The global kept counts: expert e's choices hold queue
+                # positions 0 .. total_e - 1, so it keeps min(total_e, C).
+                kept = torch.clamp(counts.sum(dim=(0, 1)), max=C).float()
+                drop = 1.0 - kept.sum() / float(world * T * k)
             router_stats.update(
-                drop_frac=1.0 - keep.float().mean(),
+                drop_frac=drop,
                 max_group_frac=kept.max() / torch.clamp(kept.sum(), min=1.0),
                 dropless=torch.zeros((), device=kept.device))
 

@@ -18,8 +18,11 @@ collectives itself (``parallel/collectives.py``). What carries over:
   ``MASTER_PORT`` or the JAX names ``COORDINATOR_ADDRESS`` /
   ``NUM_PROCESSES`` / ``PROCESS_ID``; ``COORDINATOR_TIMEOUT_S`` bounds the
   rendezvous and every collective. The backend is ``nccl`` for a CUDA
-  device and ``gloo`` on the CPU unless ``backend=`` names one (two ranks
-  sharing one card need gloo: NCCL refuses two ranks on one GPU).
+  device and ``gloo`` on the CPU unless ``backend=`` names one. Ranks of
+  one host that outnumber its cards share them (``local_device``: card
+  ``local rank % cards``), and NCCL refuses two ranks on one GPU, so
+  then the backend is ``gloo`` (``shares_card``): the elastic
+  supervisor's children on a one-card machine run so, with no flag.
 - ``barrier``, ``global_any``, ``broadcast_from_host0`` and
   ``shutdown_distributed`` over the default process group; each is the
   identity at one process.
@@ -120,12 +123,44 @@ def collective_timeout() -> datetime.timedelta:
         seconds=_int_env("COORDINATOR_TIMEOUT_S") or _DEFAULT_TIMEOUT_S)
 
 
+def _local_rendezvous(address: Optional[str]) -> bool:
+    """Is a rendezvous address (``host:port``, ``tcp://...``,
+    ``file://...``) on this host?"""
+    if not address:
+        return False
+    if address.startswith("file://"):
+        return True
+    host = address.split("://", 1)[-1].rsplit(":", 1)[0].strip("[]")
+    return host in ("localhost", "::1") or host.startswith("127.")
+
+
+def local_ranks() -> tuple:
+    """``(local rank, ranks on this host)``: torchrun's ``LOCAL_RANK`` /
+    ``LOCAL_WORLD_SIZE``; else, when ``COORDINATOR_ADDRESS`` is on this
+    host (the elastic supervisor's children), ``PROCESS_ID`` of
+    ``NUM_PROCESSES``; else ``(0, 1)``."""
+    if _int_env("LOCAL_RANK") is not None:
+        return (_int_env("LOCAL_RANK"),
+                _int_env("LOCAL_WORLD_SIZE") or _int_env("WORLD_SIZE") or 1)
+    if (_local_rendezvous(os.environ.get("COORDINATOR_ADDRESS"))
+            and _int_env("PROCESS_ID") is not None):
+        return _int_env("PROCESS_ID"), _int_env("NUM_PROCESSES") or 1
+    return 0, 1
+
+
+def shares_card() -> bool:
+    """Do this host's ranks outnumber its cards (so two share one)?"""
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    return cards > 0 and local_ranks()[1] > cards
+
+
 def local_device(device) -> torch.device:
     """``device`` with a CUDA index filled in: ``cuda`` alone is card
-    ``LOCAL_RANK`` (torchrun sets it; default 0)."""
+    ``local rank % cards`` (``local_ranks``; torchrun's ``LOCAL_RANK``)."""
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", _int_env("LOCAL_RANK") or 0)
+        cards = max(1, torch.cuda.device_count())
+        dev = torch.device("cuda", local_ranks()[0] % cards)
     return dev
 
 
@@ -150,7 +185,8 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
     is missing. An existing process group is kept, so a harness may join
     its own group (another ``backend``, a file rendezvous) before it calls
     the CLI. ``backend``: else ``nccl`` when ``device`` is CUDA and
-    ``gloo`` otherwise."""
+    ``gloo`` otherwise, and ``gloo`` when ranks share a card
+    (``shares_card``)."""
     if dist.is_available() and dist.is_initialized():
         return dist.get_world_size() > 1
     coordinator_address = (coordinator_address
@@ -174,7 +210,8 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
         return False
     dev = local_device(device) if device is not None else None
     if backend is None:
-        backend = "nccl" if dev is not None and dev.type == "cuda" else "gloo"
+        backend = ("nccl" if dev is not None and dev.type == "cuda"
+                   and not shares_card() else "gloo")
     kwargs = {}
     if backend == "nccl" and dev is not None and dev.type == "cuda":
         torch.cuda.set_device(dev)

@@ -32,7 +32,14 @@ commit, and ``check_hosts_in_sync`` runs with the finite-loss guard.
   cursor, so a resumed run continues bitwise;
 - SIGTERM, or a polled preemption notice (``--preempt_notice``): checkpoint
   at the next step boundary and exit 143, within ``--preemption_grace_s``
-  (or the notice's deadline) when one is set;
+  (or the notice's deadline) when one is set. At world > 1 the ranks vote
+  (``mesh.global_any``) every ``--preempt_vote_interval`` steps, so one
+  rank's SIGTERM makes every rank save; a noticed rank leaves a drain
+  marker for the elastic supervisor (``training/elastic.py``);
+- the elastic supervisor's hooks: standby parking before the rendezvous
+  (``TPU_TRAINER_STANDBY_FILE``), heartbeats, and the chaos faults
+  ``kill_host``, ``hang_host``, ``preempt_notice`` (on the targeted
+  ranks) and ``return_host`` (rank 0 grants capacity);
 - divergence rollback: a non-finite loss (checked every
   ``guard_interval`` steps) or a loss spike (``--spike_sigma``) rewinds to
   the last checkpoint, skips past the diverging batch and backs the LR off
@@ -561,8 +568,6 @@ def resolve_configs(args, mode: str = "ddp"):
 # that own the options this port does not run yet.
 _ITEM_PLANNER = "ROADMAP Queue 1: the planner"
 _ITEM_PIPELINE = "ROADMAP Queue 1: pipeline and expert parallelism"
-_ITEM_ELASTIC = "ROADMAP Queue 1: elastic training at world > 1"
-_ITEM_WORLD = "ROADMAP Queue 1: the rest of world > 1 training"
 
 
 def check_supported(args, model_config: GPTConfig,
@@ -578,10 +583,7 @@ def check_supported(args, model_config: GPTConfig,
             ("--hbm_gb", args.hbm_gb is not None, _ITEM_PLANNER),
             ("--no_comms_model", bool(args.no_comms_model), _ITEM_PLANNER),
             ("--pipeline_microbatches",
-             model_config.pipeline_microbatches > 0, _ITEM_PIPELINE),
-            ("TPU_TRAINER_STANDBY_FILE (elastic standby)",
-             bool(os.environ.get("TPU_TRAINER_STANDBY_FILE")),
-             _ITEM_ELASTIC)):
+             model_config.pipeline_microbatches > 0, _ITEM_PIPELINE)):
         if on:
             later.append((flag, item))
     if later:
@@ -844,6 +846,24 @@ def run_training(argv=None, mode: str = "ddp") -> int:
     model_config, training_config, parallel_config, data_opts = (
         resolve_configs(args, mode))
     check_supported(args, model_config, parallel_config, data_opts)
+    # A warm spare of the elastic supervisor has paid the interpreter,
+    # the imports and the parse, and parks here, before the rendezvous
+    # binds its rank; promotion hands it the env a fresh child gets.
+    standby_file = os.environ.get("TPU_TRAINER_STANDBY_FILE")
+    if standby_file:
+        from tpu_trainer_torch.training import elastic as elastic_lib
+
+        print(f"standby: parked before rendezvous ({standby_file})",
+              flush=True)
+        activation = elastic_lib.hold_standby(standby_file)
+        if activation is None:
+            print("standby: supervisor gone; retiring unpromoted",
+                  flush=True)
+            return 0
+        os.environ.update(activation)
+        os.environ.pop("TPU_TRAINER_STANDBY_FILE", None)
+        print(f"standby: promoted to rank {activation.get('PROCESS_ID')} "
+              f"(world {activation.get('NUM_PROCESSES')})", flush=True)
     device = resolve_device(args.device)
     if device.type == "cuda":
         device = mesh_lib.local_device(device)
@@ -874,36 +894,15 @@ def run_training(argv=None, mode: str = "ddp") -> int:
                  if trainer.cpu_offload else "")
               + (f" | MoE: {moe_lib.describe(model_config)}"
                  if model_config.num_experts > 0 else ""), flush=True)
-    if trainer.cpu_offload and trainer.offload_resident_bytes:
+    if main and trainer.cpu_offload and trainer.offload_resident_bytes:
         print(f"partial offload: "
               f"{trainer.offload_resident_bytes / 2**30:.2f} GB of "
               f"optimizer moments device-resident (exact f32), overflow "
               f"streams to host", flush=True)
 
-    if world > 1:
-        later = [(what, item) for what, on, item in (
-            ("a preemption notice (the cross-rank preemption vote)",
-             data_opts["preempt_notice"]
-             or os.environ.get("TPU_TRAINER_PREEMPT_NOTICE"), _ITEM_ELASTIC),
-            ("--telemetry_interval", data_opts["telemetry_interval"] > 0,
-             _ITEM_WORLD),
-            ("--nan_scan", data_opts["nan_scan"], _ITEM_WORLD)) if on]
-        if later:
-            raise NotImplementedError(
-                "not ported at world > 1: " + "; ".join(
-                    f"{what} -> {item}" for what, item in later))
     installed_plan = (faults.install(data_opts["inject_fault"],
                                      process_count=world)
                       if data_opts["inject_fault"] else None)
-    if world > 1 and installed_plan is not None:
-        host_kinds = sorted({kind for kind, _ in installed_plan.pending()
-                             if kind in faults.HOST_TARGETED_KINDS
-                             | {"return_host"}})
-        if host_kinds:
-            faults.clear()
-            raise NotImplementedError(
-                f"host-targeted faults {host_kinds} at world > 1 -> "
-                f"{_ITEM_ELASTIC}")
     # Goodput: every second of the run attributed to a category.
     ledger = telemetry_lib.GoodputLedger()
 
@@ -1011,10 +1010,12 @@ def run_training(argv=None, mode: str = "ddp") -> int:
     logger.tokens_seen = tokens_seen
 
     if data_opts["nan_scan"]:
-        # Debug mode: bisect the first non-finite site of one forward, exit.
+        # Debug mode: bisect the first non-finite site of one forward, exit
+        # (every rank scans its rows; every rank gets the global report).
         try:
             report = trainer.nan_scan(state, next(iter(train_loader)))
-            _print_nan_scan(report)
+            if main:
+                _print_nan_scan(report)
             logger.log_record({
                 "kind": "nan_scan", "step": int(state.step),
                 "first_nan": report["first_nan"], "sites": report["sites"],
@@ -1045,11 +1046,18 @@ def run_training(argv=None, mode: str = "ddp") -> int:
         poll_interval_s=data_opts["preempt_notice_poll_s"])
     notice = {"rec": None}
 
-    def check_notice() -> bool:
-        """Poll the notice source (sticky); logs on first receipt."""
+    def check_notice(step: int) -> bool:
+        """Poll the notice source and the ``preempt_notice`` fault once a
+        step (sticky); logs on first receipt."""
         if notice["rec"] is not None:
             return True
-        if notice_source is not None:
+        if faults.fire("preempt_notice", step) and faults.targets_host(
+                trainer.process_index, trainer.process_count):
+            grace = data_opts["preemption_grace_s"]
+            notice["rec"] = preemption_lib.PreemptionNotice(
+                source="fault:preempt_notice", received_unix=time.time(),
+                deadline_unix=(time.time() + grace) if grace else None)
+        elif notice_source is not None:
             notice["rec"] = notice_source.poll()
         if notice["rec"] is not None:
             remaining = notice["rec"].remaining_s()
@@ -1100,8 +1108,9 @@ def run_training(argv=None, mode: str = "ddp") -> int:
             save_fn = (saver.save if saver is not None
                        else ckpt_lib.save_checkpoint)
             data_sd = feed.state_dict()
-            if data_sd is not None and world > 1:
-                # Lets a restart on another mesh remap the cursor.
+            if data_sd is not None:
+                # Lets a restart on another mesh (an elastic reform of
+                # this one) remap the cursor.
                 data_sd = dict(data_sd, **trainer.feed_signature)
             path = save_fn(ckpt_dir, state, model_config=model_config,
                            training_config=training_config,
@@ -1232,10 +1241,30 @@ def run_training(argv=None, mode: str = "ddp") -> int:
                         faults.kill()
                     if faults.fire("sigterm", step):
                         os.kill(os.getpid(), signal.SIGTERM)
-                    # kill_host, hang_host, preempt_notice and return_host
-                    # raise at world > 1 (above) and are inert at one
-                    # process.
-                    has_notice = check_notice()
+                    if faults.fire("kill_host", step) and faults.targets_host(
+                            trainer.process_index, world):
+                        # This rank dies hard; the others run on until the
+                        # supervisor reforms the world.
+                        faults.kill()
+                    if faults.fire("hang_host", step) and faults.targets_host(
+                            trainer.process_index, world):
+                        # Look dead without dying: only the supervisor's
+                        # heartbeat timeout catches it.
+                        if heartbeat is not None:
+                            heartbeat.stop()
+                    if (faults.fire("return_host", step) and main
+                            and int(os.environ.get("TPU_TRAINER_ATTEMPT",
+                                                   "0")) > 0):
+                        # The cluster re-grants a host: rank 0 plays the
+                        # granting agent (live at world 1, where a shrunk
+                        # run needs to grow back), after a death only.
+                        cap_file = os.environ.get("TPU_TRAINER_CAPACITY_FILE")
+                        if cap_file:
+                            total = preemption_lib.grant_capacity(cap_file, 1)
+                            print(f"fault return_host@{step}: capacity grant "
+                                  f"written ({total} host(s) available)",
+                                  flush=True)
+                    has_notice = check_notice(step)
                     with profiler.step(step):
                         with ledger.track("data_wait"):
                             batch = feed.next()
@@ -1284,20 +1313,20 @@ def run_training(argv=None, mode: str = "ddp") -> int:
                         run_eval()
                     if save_now:
                         save()
-                    if preempted["hit"] and world > 1:
-                        # Every rank must enter the save together: that is
-                        # the preemption vote, not ported yet.
-                        print(f"SIGTERM at world > 1: exiting without a "
-                              f"checkpoint (the cross-rank preemption vote "
-                              f"-> {_ITEM_ELASTIC})", flush=True)
-                        dump_flight("sigterm")
-                        return 143
-                    if preempted["hit"] or has_notice:
+                    # The save is collective: one rank's SIGTERM or notice
+                    # must pull every rank in, so the ranks vote, at a
+                    # cadence every rank reaches at the same step.
+                    vote_now = (world == 1 or (step + 1) % max(
+                        1, data_opts["preempt_vote_interval"]) == 0)
+                    if vote_now and mesh_lib.global_any(
+                            preempted["hit"] or has_notice):
                         proactive = not preempted["hit"]
-                        print("proactive drain: checkpointing and exiting "
-                              "before the kill lands" if proactive else
-                              "SIGTERM received: checkpointing and exiting",
-                              flush=True)
+                        if main:
+                            print("proactive drain: checkpointing and "
+                                  "exiting before the kill lands"
+                                  if proactive else
+                                  "SIGTERM received: checkpointing and "
+                                  "exiting", flush=True)
                         consume(deferred.drain(), check=False)
                         grace = data_opts["preemption_grace_s"]
                         deadline = None
@@ -1317,8 +1346,8 @@ def run_training(argv=None, mode: str = "ddp") -> int:
                         if rec is not None and hb_dir:
                             # Deregister: a planned departure, not a crash.
                             flight_lib.write_drain(
-                                hb_dir, 0, step=int(state.step),
-                                cause=rec.source,
+                                hb_dir, trainer.process_index,
+                                step=int(state.step), cause=rec.source,
                                 deadline_unix=rec.deadline_unix)
                         dump_flight("preempt_notice" if proactive
                                     else "sigterm")

@@ -19,7 +19,11 @@ On a shard (ZeRO-2/3 at world > 1) the update is the same elementwise
 recipe on each rank's slice of a leaf: the caller passes the global norm
 (``begin(..., g_norm=)``: the all-reduced sum of the shards' squares) and
 the full leaf shapes, which decide a leaf's moment storage as they do at
-one process (``init(..., full_shapes=)``).
+one process (``init(..., full_shapes=)``: the 65,536-element threshold is
+the whole leaf's, so no leaf changes storage with the world size). A
+slice of a leaf's last dim packs in the whole leaf's blocks
+(``init(..., cuts=)``, ``utils/quant.BlockCut``), so a rank's int8 pack
+is its slice of the one-process pack.
 """
 
 from __future__ import annotations
@@ -32,8 +36,10 @@ import torch
 
 from tpu_trainer_torch.training.config import TrainingConfig
 from tpu_trainer_torch.utils.quant import (
+    BlockCut,
     QuantPack,
     dequantize_blockwise_int8,
+    pack_shape,
     quantize_blockwise_int8,
 )
 
@@ -65,21 +71,21 @@ def q_eligible(shape) -> bool:
 
 
 def store_moment(x: torch.Tensor, state_dtype: str, *,
-                 nonneg: bool) -> Moment:
-    """f32 ``x`` -> its stored form: f32 as is, a bf16 cast, or a pack."""
+                 nonneg: bool, cut: Optional[BlockCut] = None) -> Moment:
+    """f32 ``x`` -> its stored form: f32 as is, a bf16 cast, or a pack
+    (``cut``: ``x`` is a rank's slice of the leaf's last dim)."""
     if state_dtype == "int8":
-        return quantize_blockwise_int8(x, nonneg=nonneg)
+        return quantize_blockwise_int8(x, nonneg=nonneg, cut=cut)
     if state_dtype == "bfloat16":
         return x.to(torch.bfloat16)
     return x
 
 
 def load_moment(m: Moment, *, nonneg: bool) -> torch.Tensor:
-    """A stored moment -> f32 (a pack's blocks run along the last dim, so
-    its leaf's shape is ``q``'s with the last two dims merged)."""
+    """A stored moment -> f32 (a pack's blocks run along the last dim:
+    ``quant.pack_shape``)."""
     if isinstance(m, QuantPack):
-        shape = m.q.shape[:-2] + (m.q.shape[-2] * m.q.shape[-1],)
-        return dequantize_blockwise_int8(m, shape, torch.float32,
+        return dequantize_blockwise_int8(m, pack_shape(m), torch.float32,
                                          nonneg=nonneg)
     return m.float()
 
@@ -116,16 +122,19 @@ class AdamW:
         return self.state_dtype if q_eligible(shape) else "float32"
 
     def init(self, params: Dict[str, torch.Tensor],
-             full_shapes: Optional[Dict[str, tuple]] = None) -> AdamWState:
+             full_shapes: Optional[Dict[str, tuple]] = None,
+             cuts: Optional[Dict[str, BlockCut]] = None) -> AdamWState:
         """Zero moments shaped as ``params`` (a rank's shards at world >
         1), stored as the leaf's full shape (``full_shapes``, default the
-        tensor's) decides."""
+        tensor's) decides; a leaf in ``cuts`` is a slice of its last dim
+        and packs in the whole dim's blocks."""
         full_shapes = full_shapes or {}
+        cuts = cuts or {}
 
         def zeros(n, p, nonneg):
             z = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
             return store_moment(z, self.leaf_dtype(full_shapes.get(
-                n, tuple(p.shape))), nonneg=nonneg)
+                n, tuple(p.shape))), nonneg=nonneg, cut=cuts.get(n))
 
         return AdamWState(0,
                           {n: zeros(n, p, False) for n, p in params.items()},
@@ -160,9 +169,10 @@ class AdamW:
                 1.0 - self.b1) * g
             nu = self.b2 * load_moment(nu_s, nonneg=True) + (
                 1.0 - self.b2) * g.square()
-            dt = "int8" if isinstance(mu_s, QuantPack) else "bfloat16"
-            assign_moment(mu_s, store_moment(mu, dt, nonneg=False))
-            assign_moment(nu_s, store_moment(nu, dt, nonneg=True))
+            dt, cut = (("int8", mu_s.cut) if isinstance(mu_s, QuantPack)
+                       else ("bfloat16", None))
+            assign_moment(mu_s, store_moment(mu, dt, nonneg=False, cut=cut))
+            assign_moment(nu_s, store_moment(nu, dt, nonneg=True, cut=cut))
         u = (mu / ctx["c1"]) / (torch.sqrt(nu / ctx["c2"]) + self.eps)
         if decay and self.weight_decay:
             u = u + self.weight_decay * param.float()

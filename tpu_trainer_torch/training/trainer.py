@@ -82,9 +82,20 @@ process there is no process group and the step is the single-device step
 above, bit for bit. A MoE layer routes the global micro-batch (every
 rank's rows in rank order) through the ``dp`` group (``models/moe.py``):
 capacity, queue positions and the load fraction are the one-process
-ones. Not ported at world > 1: int8 Adam moments, ``cpu_offload``,
-telemetry steps and ``nan_scan`` (ROADMAP Queue 1: "the rest of world >
-1 training"); they raise.
+ones.
+
+The moments' narrow forms and the offload hold on a shard too: a rank's
+moments are its slice, int8 packs of a slice of a leaf's last dim keep
+the whole leaf's blocks (``utils/quant.BlockCut``: a rank's pack is its
+slice of the one-process pack, and the checkpoint holds the one-process
+pack, so it restores at any world size), ``offload_budget_gb`` is per
+device (a kept leaf costs its shard's bytes), and the offloaded update
+streams the rank's slices. A telemetry step's numbers are the global
+batch's and the global leaves' (``utils/telemetry.combine_ranks``: one
+all-gather of the activation and router stats over every rank and one of
+the norms' shard sums over the fsdp group a step), and ``nan_scan`` scans
+micro-batch 0 of the global batch, every rank reporting the earliest site
+that is non-finite on any rank.
 """
 
 from __future__ import annotations
@@ -107,6 +118,7 @@ from tpu_trainer_torch.parallel.mesh import MeshConfig
 from tpu_trainer_torch.parallel.sharding import (
     LeafSpec,
     canonical_strategy,
+    fsdp_dim,
     leaf_specs,
 )
 from tpu_trainer_torch.training.config import TrainingConfig
@@ -123,14 +135,18 @@ from tpu_trainer_torch.training.optimizer import (
 )
 from tpu_trainer_torch.utils import telemetry as telemetry_lib
 from tpu_trainer_torch.utils.device import resolve_device
-from tpu_trainer_torch.utils.quant import QuantPack
+from tpu_trainer_torch.utils.quant import (
+    BlockCut,
+    QuantPack,
+    cut_boxes,
+    cut_from_global,
+    cut_global_shapes,
+)
 
 _MP_TO_DTYPE = {"fp32": "float32", "bf16": "bfloat16", "fp16": "float16"}
 _SCALE_GROWTH_INTERVAL = 2000  # finite steps before the scale doubles
 _MAX_LOSS_SCALE = 2.0**16
 _INIT_LOSS_SCALE = 2.0**15
-# What world > 1 does not run yet.
-_ITEM_WORLD = "ROADMAP Queue 1: the rest of world > 1 training"
 
 
 def moment_key(moment: str, name: str) -> tuple:
@@ -140,16 +156,25 @@ def moment_key(moment: str, name: str) -> tuple:
 
 
 def select_resident_moments(moments: Dict[tuple, torch.Tensor],
-                            budget_bytes: int):
+                            budget_bytes: int, shard_count: int = 1):
     """Partial offload: which moment leaves stay on the device under a
-    byte budget (the JAX ``select_resident_moments`` at one process).
+    byte budget (the JAX ``select_resident_moments``).
 
     Greedy, largest first over the float leaves with ``ndim >= 1``, ties
     in path order; ``moments`` maps path keys (``moment_key``) to tensors
-    of the moments' shapes and dtypes (meta tensors do). Returns
+    of the moments' shapes and dtypes (meta tensors do). ``shard_count``
+    is the fsdp size under zero2 and zero3: a leaf the FSDP rule shards
+    costs its shard's bytes of the device (the budget is per device), a
+    leaf with no fsdp-divisible dim its full bytes. Returns
     ``(frozenset of keys, bytes kept)``."""
-    cands = sorted(((k, t.numel() * t.element_size())
-                    for k, t in moments.items()
+    def cost(t):
+        size = t.numel() * t.element_size()
+        if shard_count > 1 and fsdp_dim(tuple(t.shape),
+                                         shard_count) is not None:
+            size = -(-size // shard_count)
+        return size
+
+    cands = sorted(((k, cost(t)) for k, t in moments.items()
                     if t.dim() >= 1 and t.is_floating_point()),
                    key=lambda kv: (-kv[1], kv[0]))
     keep, used = set(), 0
@@ -250,6 +275,9 @@ class StateSharding:
         if prefix == "params":
             return self.specs[path.replace("/", ".")].param_dim
         path = path.partition("/")[2]          # after "mu" / "nu"
+        head, _, tail = path.rpartition("/")
+        if tail in ("q", "scale") and head.replace("/", ".") in self.specs:
+            path = head                        # a pack: the leaf's dim
         return self.specs[path.replace("/", ".")].state_dim
 
 
@@ -280,6 +308,14 @@ class TrainState:
                     f"{prefix}/{name.replace('.', '/')}", m))
         return want
 
+    def _cut_packs(self) -> Dict[str, QuantPack]:
+        """Checkpoint key prefix -> the packs of a slice of a leaf's last
+        dim (``BlockCut``): their arrays are not one box of the global
+        pack, so they take ``cut_boxes`` / ``cut_from_global``."""
+        return {f"{prefix}/{name.replace('.', '/')}": m
+                for prefix, tree in self._trees() for name, m in tree.items()
+                if isinstance(m, QuantPack) and m.cut is not None}
+
     def _dim(self, key: str) -> Optional[int]:
         return None if self.sharding is None else self.sharding.dim(key)
 
@@ -297,6 +333,10 @@ class TrainState:
             if d is not None:
                 shape[d] *= self._world(k)
             out[k] = (tuple(shape), _array_dtype(t))
+        for k, m in self._cut_packs().items():
+            qs, ss = cut_global_shapes(m)
+            out[f"{k}/q"] = (qs, out[f"{k}/q"][1])
+            out[f"{k}/scale"] = (ss, out[f"{k}/scale"][1])
         return out
 
     def _sync(self) -> None:
@@ -347,6 +387,17 @@ class TrainState:
         for prefix, tree in self._trees():
             for name, m in tree.items():
                 key = f"{prefix}/{name.replace('.', '/')}"
+                if isinstance(m, QuantPack) and m.cut is not None:
+                    arrs = _moment_arrays(key, m)
+                    boxes = cut_boxes(arrs[f"{key}/q"], arrs[f"{key}/scale"],
+                                      m.cut)
+                    for k, b in zip(("q", "scale"), boxes):
+                        k = f"{key}/{k}"
+                        out.append({"key": k, "global_shape": layout[k][0],
+                                    "dtype": str(arrs[k].dtype),
+                                    "shards": [(s, a.copy()) for s, a in b]
+                                    if write_sharded else []})
+                    continue
                 for k, arr in _moment_arrays(key, m).items():
                     d = self._dim(k)
                     starts = [0] * arr.ndim
@@ -382,6 +433,11 @@ class TrainState:
                 f"{sorted(set(want) - have)}, extra "
                 f"{sorted(have - set(want))}")
         self._sync()
+        cuts = {}
+        for k, m in self._cut_packs().items():
+            q, sc = cut_from_global(np.asarray(sd[f"{k}/q"]),
+                                    np.asarray(sd[f"{k}/scale"]), m.cut)
+            cuts.update({f"{k}/q": q, f"{k}/scale": sc})
         with torch.no_grad():
             layout = self.layout()
             for key, t in want.items():
@@ -389,7 +445,9 @@ class TrainState:
                 if tuple(arr.shape) != layout[key][0]:
                     raise ValueError(f"{key}: shape {arr.shape}, want "
                                      f"{layout[key][0]}")
-                if self.sharding is not None:
+                if key in cuts:
+                    arr = cuts[key]
+                elif self.sharding is not None:
                     arr = _shard_of(arr, self._dim(key),
                                     self.sharding.fsdp_rank,
                                     self._world(key))
@@ -452,7 +510,9 @@ class Trainer:
             self._offload_keep, self.offload_resident_bytes = (
                 select_resident_moments(
                     self._moment_shapes(),
-                    int(parallel_config.offload_budget_gb * 2**30)))
+                    int(parallel_config.offload_budget_gb * 2**30),
+                    shard_count=(self.mesh_sizes[1] if self.strategy
+                                 in ("zero2", "zero3") else 1)))
         # The last step's host-link copies (CUDA events), and bytes a way.
         self._link_events = None
         self.offload_stream_bytes = 0
@@ -469,17 +529,17 @@ class Trainer:
         shapes = {n: tuple(p.shape) for n, p in self.model.named_parameters()}
         self.specs = leaf_specs(shapes, self.strategy, fsdp)
         self.topology = None
+        self._cuts: Dict[str, BlockCut] = {}
         if self.process_count == 1:
             return
-        later = [what for what, on in (
-            ("cpu_offload", parallel_config.cpu_offload),
-            ("int8 Adam moments",
-             self.training_config.optimizer_state_dtype == "int8")) if on]
-        if later:
-            raise NotImplementedError(
-                f"not ported at world > 1: {', '.join(later)} -> "
-                f"{_ITEM_WORLD}")
         self.topology = coll_lib.topology(data, fsdp)
+        for n, sp in self.specs.items():
+            d = sp.state_dim
+            if d is not None and d == len(sp.shape) - 1:
+                k = sp.shape[d] // fsdp
+                r = self.topology.fsdp.rank
+                self._cuts[n] = BlockCut(r * k, (r + 1) * k, sp.shape[d],
+                                         group=self.topology.fsdp)
         if self.strategy == "zero3":
             self.model.zero3 = coll_lib.ZeroGather(
                 self.topology.fsdp,
@@ -537,12 +597,17 @@ class Trainer:
         return self.topology is not None and any(
             s.state_dim is not None for s in self.specs.values())
 
+    def _state_shapes(self) -> Dict[str, tuple]:
+        """This rank's shape of every moment leaf (its slice under zero2
+        and zero3), in parameter order."""
+        return {n: sp.shard_shape(sp.state_dim)
+                for n, sp in self.specs.items()}
+
     def _moment_shapes(self) -> Dict[tuple, torch.Tensor]:
         """Meta f32 tensors of every moment leaf, under ``moment_key``."""
-        return {moment_key(m, n): torch.empty(p.shape, dtype=torch.float32,
+        return {moment_key(m, n): torch.empty(sp.shape, dtype=torch.float32,
                                               device="meta")
-                for n, p in self.model.named_parameters()
-                for m in ("mu", "nu")}
+                for n, sp in self.specs.items() for m in ("mu", "nu")}
 
     # -- optimizer-state offload --------------------------------------------
 
@@ -553,7 +618,8 @@ class Trainer:
         if (key in self._offload_keep or not x.is_floating_point()
                 or x.dim() < (2 if dt == "int8" else 1)):
             return x
-        return store_moment(x, dt, nonneg=key[0] == "nu")
+        return store_moment(x, dt, nonneg=key[0] == "nu",
+                            cut=self._cuts.get(".".join(key[1:])))
 
     def _offload_store(self, opt_state: AdamWState) -> AdamWState:
         """f32 moments -> their host storage form (the JAX
@@ -575,43 +641,45 @@ class Trainer:
             t = t.to(device, non_blocking=True)
             return t.pin_memory() if pin else t
         if isinstance(m, QuantPack):
-            return QuantPack(q=move(m.q), scale=move(m.scale))
+            return QuantPack(q=move(m.q), scale=move(m.scale), cut=m.cut)
         return move(m)
 
-    def _init_offloaded(self, params: Dict[str, torch.Tensor]
-                        ) -> AdamWState:
-        """Zero moments in their storage form: the streamed leaves made
-        in host memory (pinned for a CUDA device), the kept ones on the
-        device."""
+    def _init_offloaded(self) -> AdamWState:
+        """Zero moments (this rank's slices) in their storage form: the
+        streamed leaves made in host memory (pinned for a CUDA device),
+        the kept ones on the device."""
         pin = self.device.type == "cuda"
         out = []
         for m in ("mu", "nu"):
             leaves = {}
-            for n, p in params.items():
+            for n, shape in self._state_shapes().items():
                 key = moment_key(m, n)
                 if key in self._offload_keep:
-                    leaves[n] = torch.zeros(p.shape, dtype=torch.float32,
+                    leaves[n] = torch.zeros(shape, dtype=torch.float32,
                                             device=self.device)
                 else:
                     leaves[n] = self._to(self._offload_store_leaf(
-                        key, torch.zeros(p.shape, dtype=torch.float32)),
+                        key, torch.zeros(shape, dtype=torch.float32)),
                         "cpu", pin=pin)
             out.append(leaves)
         return AdamWState(0, *out)
 
     def _stream(self, state: TrainState, grads, lr: float,
-                on_update=None) -> None:
+                on_update=None, g_norm: Optional[torch.Tensor] = None,
+                views: Optional[Dict[str, torch.Tensor]] = None) -> None:
         """The offloaded update, a leaf at a time: the leaf's moments host
         -> device, f32 load, the AdamW leaf update (applied to the
         parameter at once), store, device -> host into the same host
         buffers. Both copies are asynchronous on the current stream; only
         one leaf's moments are on the device at a time (kept leaves
         aside). Each copy runs between two CUDA events
-        (``last_link_ms``)."""
+        (``last_link_ms``). At world > 1 ``g_norm`` is the global norm and
+        ``views`` the slices of the masters this rank updates."""
         host = state.opt_state
         cuda = self.device.type == "cuda"
-        ctx = self.optimizer.begin(grads, host.count)
-        mask = decay_mask(state.params)
+        ctx = self.optimizer.begin(grads, host.count, g_norm)
+        params = state.params if views is None else views
+        mask = decay_mask(params)
         events = {"h2d": [], "d2h": []}
         moved = 0
 
@@ -626,7 +694,7 @@ class Trainer:
             return out
 
         with torch.no_grad():
-            for n, p in state.params.items():
+            for n, p in params.items():
                 keys = {m: moment_key(m, n) for m in ("mu", "nu")}
                 stored = {m: getattr(host, m)[n] for m in keys}
                 work = {}
@@ -681,7 +749,7 @@ class Trainer:
                        for n, t in params.items()}
             self.model.load_state_dict(masters, strict=True, assign=True)
             masters = dict(self.model.named_parameters())
-            opt_state = (self._init_offloaded(masters) if self.cpu_offload
+            opt_state = (self._init_offloaded() if self.cpu_offload
                          else self.optimizer.init(masters))
             sharding = None
         else:
@@ -698,11 +766,13 @@ class Trainer:
                                  t.shape[d] // world)
                 masters[n] = nn.Parameter(t.to(self.device).clone())
             _assign_params(self.model, masters)
-            opt_state = self.optimizer.init(
-                {n: torch.empty(sp.shard_shape(sp.state_dim),
-                                device=self.device)
-                 for n, sp in self.specs.items()},
-                full_shapes={n: sp.shape for n, sp in self.specs.items()})
+            opt_state = (self._init_offloaded() if self.cpu_offload
+                         else self.optimizer.init(
+                             {n: torch.empty(shape, device=self.device)
+                              for n, shape in self._state_shapes().items()},
+                             full_shapes={n: sp.shape
+                                          for n, sp in self.specs.items()},
+                             cuts=self._cuts))
             sharding = StateSharding(self.specs, fr,
                                      self.topology.data_coord, world)
         return TrainState(
@@ -800,9 +870,6 @@ class Trainer:
         ``utils/telemetry.DeferredFetcher``. ``telemetry=True`` adds the
         ``"telemetry"`` subtree of device tensors (module docstring); the
         update, the loss and the generator are the plain step's."""
-        if self.topology is not None and telemetry:
-            raise NotImplementedError(
-                f"telemetry steps at world > 1 -> {_ITEM_WORLD}")
         if not torch.is_tensor(batch):
             batch = self.put_batch(batch)
         cfg = self.training_config
@@ -847,18 +914,26 @@ class Trainer:
         telem = None
         update_norms = None
         if telemetry:
+            if self.topology is not None:
+                fwd_stats = telemetry_lib.combine_ranks(fwd_stats,
+                                                        self.topology.dp)
             telem = dict(fwd_stats[0] if accum == 1
                          else telemetry_lib.reduce_micro(fwd_stats))
-            telem["grad_norm"] = telemetry_lib.group_norms(grads)
-            telem["param_norm"] = telemetry_lib.group_norms(state.params)
-            update_norms = telemetry_lib.GroupNorms()
+            norms = [telemetry_lib.GroupNorms(sharded=self._state_sharded),
+                     telemetry_lib.GroupNorms(sharded=self._param_sharded)]
+            for n, g in grads.items():
+                norms[0].add(n, g)
+            for n, p in state.params.items():
+                norms[1].add(n, p)
+            update_norms = telemetry_lib.GroupNorms(
+                sharded=self._state_sharded)
         on_update = update_norms.add if update_norms is not None else None
         finite = (not self.use_loss_scaling
                   or bool(torch.isfinite(grad_norm)))
-        if self.cpu_offload and finite:
+        if finite and self.topology is not None:
+            self._sharded_update(state, grads, lr, grad_norm, on_update)
+        elif self.cpu_offload and finite:
             self._stream(state, grads, lr, on_update)
-        elif finite and self.topology is not None:
-            self._sharded_update(state, grads, lr, grad_norm)
         elif finite:
             state.opt_state = self.optimizer.apply(
                 grads, state.opt_state, state.params, lr, on_update)
@@ -873,10 +948,14 @@ class Trainer:
                 state.loss_scale = max(state.loss_scale * 0.5, 1.0)
                 state.good_steps = 0
         if telem is not None:
+            # The shards' sums of all three over the fsdp group at once.
+            grad_n, param_n, upd = telemetry_lib.combine_norms(
+                norms + [update_norms],
+                None if self.topology is None else self.topology.fsdp)
+            telem["grad_norm"], telem["param_norm"] = grad_n, param_n
             # A skipped fp16 step changes nothing: zero update norms.
-            upd = (update_norms.norms() if finite else
-                   {k: torch.zeros_like(v)
-                    for k, v in telem["param_norm"].items()})
+            if not finite:
+                upd = {k: torch.zeros_like(v) for k, v in param_n.items()}
             telem["update_ratio"] = {
                 k: upd[k] / (telem["param_norm"][k] + 1e-20) for k in upd}
             metrics["telemetry"] = telem
@@ -909,6 +988,17 @@ class Trainer:
             out[n] = g
         return out, topo.dp.all_reduce_sum(loss_sum)
 
+    def _state_sharded(self, name: str) -> bool:
+        """Does this rank hold a slice of ``name``'s gradient, update and
+        moments?"""
+        return self.topology is not None and (
+            self.specs[name].state_dim is not None)
+
+    def _param_sharded(self, name: str) -> bool:
+        """Does this rank hold a slice of ``name``'s master (zero3)?"""
+        return self.topology is not None and (
+            self.specs[name].param_dim is not None)
+
     def _global_norm(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
         """The norm over the whole gradient: with sharded leaves, the
         shards' sum of squares all-reduced over the fsdp group, plus the
@@ -925,9 +1015,10 @@ class Trainer:
 
     @torch.no_grad()
     def _sharded_update(self, state: TrainState, grads, lr: float,
-                        grad_norm: torch.Tensor) -> None:
-        """AdamW on this rank's slice of every leaf; zero2 then all-gathers
-        the updated master slices into the whole masters."""
+                        grad_norm: torch.Tensor, on_update=None) -> None:
+        """AdamW on this rank's slice of every leaf (streamed through the
+        host under offload); zero2 then all-gathers the updated master
+        slices into the whole masters."""
         fsdp = self.topology.fsdp
         views = {}
         for n, p in state.params.items():
@@ -938,8 +1029,12 @@ class Trainer:
                 views[n] = p.narrow(d, fsdp.rank * k, k)
             else:
                 views[n] = p
-        state.opt_state = self.optimizer.apply(
-            grads, state.opt_state, views, lr, g_norm=grad_norm)
+        if self.cpu_offload:
+            self._stream(state, grads, lr, on_update, grad_norm, views)
+        else:
+            state.opt_state = self.optimizer.apply(
+                grads, state.opt_state, views, lr, on_update,
+                g_norm=grad_norm)
         for n, p in state.params.items():
             spec = self.specs[n]
             if spec.state_dim is not None and spec.param_dim is None:
@@ -955,10 +1050,11 @@ class Trainer:
         the final norm and the full f32 logits) and bisects them on the
         host. Returns ``{"first_nan": {"layer", "site"} | None, "sites":
         [...], "stats": {flattened scalars}}`` — see
-        ``utils/telemetry.nan_report``."""
-        if self.topology is not None:
-            raise NotImplementedError(f"nan_scan at world > 1 -> "
-                                      f"{_ITEM_WORLD}")
+        ``utils/telemetry.nan_report``. At world > 1 micro-batch 0 is the
+        global one: each rank scans its rows and the stats are combined
+        across ranks (``telemetry.combine_ranks``) before the bisection,
+        so the first site is the earliest one, in forward order, that is
+        non-finite on any rank, and every rank returns the same report."""
         if not torch.is_tensor(batch):
             batch = self.put_batch(batch)
         self._bind(state)
@@ -967,12 +1063,14 @@ class Trainer:
             _, loss = self.model(tokens, tokens, train=False,
                                  segment_ids=segs)
         stats = telemetry_lib.assemble(cap.stats)
-        stats["loss"] = loss
+        stats["loss"] = loss.float()
+        if self.topology is not None:
+            stats, = telemetry_lib.combine_ranks([stats], self.topology.dp)
         report = telemetry_lib.nan_report(stats)
         report["stats"] = telemetry_lib.flatten_scalars(
             {k: v for k, v in stats.items() if isinstance(v, dict)},
             prefix="nan_scan")
-        report["stats"]["nan_scan/loss"] = float(loss)
+        report["stats"]["nan_scan/loss"] = float(stats["loss"])
         return report
 
     def step_cost_analysis(self, state: TrainState, batch) -> Optional[dict]:

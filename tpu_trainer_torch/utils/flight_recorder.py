@@ -9,8 +9,8 @@ ring of every record the MetricLogger emits plus a one-time environment
 snapshot, and dumps both as ``crash_report.json`` (atomic write) from the
 SIGTERM/preemption/rollback/crash paths in ``run_training``. Postmortem =
 one file. ``HeartbeatWriter`` writes one liveness beat a step when
-``TPU_TRAINER_HEARTBEAT_DIR`` is set (the elastic supervisor that reads
-them is ROADMAP Queue 1: "elastic training at world > 1").
+``TPU_TRAINER_HEARTBEAT_DIR`` is set (``training/elastic.py``, the
+supervisor, reads them).
 """
 
 from __future__ import annotations

@@ -118,11 +118,17 @@ class GroupNorms:
     group into a scalar; ``norms()`` takes the square roots. Sums run in
     f32 in the order the leaves come. The trainer feeds it the update of
     each leaf as its optimizer applies it, so the update norms need no
-    copy of the whole parameter tree."""
+    copy of the whole parameter tree.
 
-    def __init__(self, stacked_key: str = "layers"):
+    ``sharded`` names a leaf of which this rank holds a slice (ZeRO at
+    world > 1): its sums are kept apart, and ``combine_norms`` adds every
+    rank's before the roots."""
+
+    def __init__(self, stacked_key: str = "layers", sharded=None):
         self.stacked_key = stacked_key
+        self.sharded = sharded or (lambda name: False)
         self._acc: Dict[str, torch.Tensor] = {}
+        self._shard_acc: Dict[str, torch.Tensor] = {}
 
     @torch.no_grad()
     def add(self, name: str, leaf: torch.Tensor) -> None:
@@ -134,12 +140,103 @@ class GroupNorms:
                           dim=tuple(range(1, leaf.dim())))
         else:
             s = torch.sum(torch.square(leaf))
-        prev = self._acc.get(group)
-        self._acc[group] = s if prev is None else prev + s
+        acc = self._shard_acc if self.sharded(name) else self._acc
+        prev = acc.get(group)
+        acc[group] = s if prev is None else prev + s
 
     @torch.no_grad()
     def norms(self) -> Dict[str, torch.Tensor]:
         return {k: torch.sqrt(v) for k, v in self._acc.items()}
+
+
+@torch.no_grad()
+def combine_norms(norms: List[GroupNorms], coll) -> List[Dict[str,
+                                                           torch.Tensor]]:
+    """The norms of the whole leaves, from ``GroupNorms`` fed this rank's
+    slices: every accumulator's shard sums added over ``coll`` (the fsdp
+    group's ``Collectives``) in one collective, then the whole leaves'
+    sums, then the roots. Without shard sums no collective runs."""
+    keys = [(i, k) for i, g in enumerate(norms) for k in g._shard_acc]
+    summed = {}
+    if keys and coll is not None and coll.world > 1:
+        parts = [norms[i]._shard_acc[k].reshape(-1) for i, k in keys]
+        flat = coll.all_reduce_sum(torch.cat(parts))
+        at = 0
+        for (i, k), p in zip(keys, parts):
+            summed[(i, k)] = flat[at:at + p.numel()].reshape(
+                norms[i]._shard_acc[k].shape)
+            at += p.numel()
+    else:
+        summed = {(i, k): norms[i]._shard_acc[k] for i, k in keys}
+    out = []
+    for i, g in enumerate(norms):
+        acc = dict(g._acc)
+        for k in g._shard_acc:
+            acc[k] = summed[(i, k)] + acc[k] if k in acc else summed[(i, k)]
+        out.append({k: torch.sqrt(v) for k, v in acc.items()})
+    return out
+
+
+@torch.no_grad()
+def combine_ranks(per_micro: List[dict], coll) -> List[dict]:
+    """Every rank's forward stats of each micro-batch (``assemble``
+    dicts, a rank's own rows; rewritten in place) -> the stats of the
+    global micro-batch, the same on every rank, in one all-gather over
+    ``coll`` (every rank's ``Collectives``): an ``*_rms`` as the root of
+    the ranks' mean square
+    (equal row counts: a sum of squares over a count), an ``*_absmax`` as
+    the ranks' max (a NaN on any rank stays NaN), a ``loss`` as the ranks'
+    mean, and the router's ``entropy`` from the ranks' mean router
+    probability (``mean_prob``, recorded at world > 1 only and dropped
+    here). The router's load, drop and group fractions come from the
+    global choice counts already (``models/moe.py``)."""
+    if coll is None or coll.world == 1:
+        return per_micro
+    means, maxes = [], []
+
+    def collect(d, path):
+        for k in sorted(d):
+            v = d[k]
+            if isinstance(v, dict):
+                collect(v, path + (k,))
+            elif k.endswith("_rms"):
+                means.append((path + (k,), v.float().square()))
+            elif k.endswith("_absmax"):
+                maxes.append((path + (k,), v.float()))
+            elif k in ("mean_prob", "loss"):
+                means.append((path + (k,), v.float()))
+
+    for i, d in enumerate(per_micro):
+        collect(d, (i,))
+    items = means + maxes
+    if not items:
+        return per_micro
+    flat = torch.cat([t.reshape(-1) for _, t in items])
+    every = coll.all_gather_leaf(flat[None], 0, kind="telemetry")
+    total = every[0].clone()
+    for r in range(1, every.shape[0]):
+        total += every[r]
+    mean = total / float(every.shape[0])
+    mx = every.amax(dim=0)
+    out = per_micro
+    at = 0
+    for n, (path, t) in enumerate(items):
+        src = mean if n < len(means) else mx
+        v = src[at:at + t.numel()].reshape(t.shape)
+        at += t.numel()
+        if path[-1].endswith("_rms"):
+            v = torch.sqrt(v)
+        node = out[path[0]]
+        for k in path[1:-1]:
+            node = node[k]
+        node[path[-1]] = v
+    for d in out:
+        router = d.get("router")
+        if router is not None and "mean_prob" in router:
+            mp = router.pop("mean_prob")
+            router["entropy"] = -torch.sum(mp * torch.log(mp + 1e-9),
+                                           dim=-1)
+    return out
 
 
 def group_norms(tree: Dict[str, torch.Tensor],
@@ -322,8 +419,7 @@ class GoodputLedger:
         "checkpoint_restore",
         "rollback_replay",
         # Elastic recovery and grow-back: tracked by the multi-process run
-        # supervisor (ROADMAP Queue 1: "elastic training at world > 1"),
-        # never by one trainer.
+        # supervisor (``training/elastic.py``), never by one trainer.
         "recovery",
         "grow",
     )
