@@ -35,6 +35,31 @@ JAX package. Phases, each fatal on failure:
               time goes: device busy share and the top kernels and host
               ops of a short trace under ``torch.profiler``.
 5. int8    -- a short ``kv_int8=True`` run of the same engine, same checks.
+5a. spec   -- speculative decoding at that width (random weights, max
+              batch 8, block 16, K = 4) on 24 requests whose prompts
+              repeat a motif. Parity lane in f32: n-gram, draft (2 of 12
+              layers) and an oracle proposer (the spec-off stream, one
+              draft a window wrong) against spec off, greedy: streams
+              equal (a differing token only at a tie, printed), drafts
+              accepted, flash-decode launches == the target's plain
+              decodes x 12 + the draft's decode dispatches x 2, a live
+              draft decode call against the plain version; a verifier
+              accepting one draft past the first mismatch must fail.
+              Speed lane in bf16 on the wall clock, spec off, n-gram and
+              draft: tok/s, TTFT, TPOT, acceptance, the accepted-per-step
+              histogram and the ledger fractions; a sampled n-gram run
+              (temperature 0.9, top-k 20) replayed identically.
+5b. kv-store -- the KV block store at that width, bf16 and int8 pools, on
+              a shared-prefix trace (16 requests, a 2-block prefix): a
+              warm engine publishes, a cold engine sharing only the store
+              fills from it (every filled block bitwise the store entry,
+              the streams those of an engine that kept its blocks, ties
+              at ``TIE_BF16``, launches exact); a fill writing a leaf's
+              layers reversed must fail; ``read_block`` / ``write_block``
+              GB/s; TTFT of a store-filled prefix against a recomputed
+              one (2 and 31 blocks); prefill-role -> decode-role
+              migration of 8 requests with chunked prefill and n-gram
+              spec against one engine, the bytes migrated.
 6. train-kernel -- the flash forward and fused backward kernels against
               ``flash_attention_reference`` (o, lse, the rotated q/k, and
               dq/dk/dv through autograd of the plain version) at the
@@ -284,7 +309,7 @@ which runs last; and the ft phase runs its chain of restarted processes
 on a thread beside its own sections that time nothing. Those processes
 share the host's cores and the card, so the restart times the ft phase
 prints and the elastic phase's recovery and grow seconds are taken
-beside that work. The whole run takes about fourteen minutes on an H100
+beside that work. The whole run takes about fifteen minutes on an H100
 (700 W), builds included.
 
 Then the ``kernels`` JSON line, the nvidia-smi line, and as the last line
@@ -2315,6 +2340,623 @@ def profile_engine(results: dict, engine) -> None:
     for k in rec["host_ops"]:
         log("profile", f"  host   {k['ms']:9.3f} ms  x{k['count']:<6} "
                        f"{k['name']}")
+
+
+# -- phases 5a and 5b: speculative decoding and the KV store ------------------
+
+# The infer phase's tie rule: a differing greedy token passes only where
+# the f32 model's top-2 logit gap is below TIE_F32 x the logits' absolute
+# maximum. Two bf16 (or int8-pool) computations of the same step round
+# differently by about 2^-9 of that scale; their rule is TIE_BF16.
+TIE_F32 = 1e-5
+TIE_BF16 = 2.0**-6
+
+
+def _spec_trace(n, *, seed, vocab, temperature=0.0, top_k=0, rid0=0):
+    """Seeded Poisson trace (20 a second) whose prompts repeat a motif of
+    4-8 tokens, as ``tests/test_spec.py``'s repetitive requests: 64-256
+    prompt tokens, 24-48 new tokens; rids from ``rid0`` (an engine's
+    draft proposer keys its slots by rid, so a warm-up takes others)."""
+    import numpy as np
+
+    from tpu_trainer_torch.serving.scheduler import Request, SamplingParams
+
+    rs = np.random.RandomState(seed)
+    arrivals = rs.exponential(1.0 / 20.0, size=n).cumsum()
+    out = []
+    for i in range(n):
+        motif = rs.randint(1, vocab, size=int(rs.randint(4, 9))).tolist()
+        plen = int(rs.randint(64, 257))
+        out.append(Request(
+            rid=rid0 + i, prompt=(motif * plen)[:plen],
+            max_new_tokens=int(rs.randint(24, 49)),
+            sampling=SamplingParams(temperature=temperature, top_k=top_k,
+                                    seed=int(rs.randint(0, 2**31 - 1))),
+            arrival_time=float(arrivals[i])))
+    return out
+
+
+def _prefix_trace(n, *, seed, vocab, prefix_blocks=2, block=16,
+                  max_new=16):
+    """``tests/test_kv_store.py``'s shared-prefix trace at block 16: a
+    ``prefix_blocks``-block prefix and tails of 4, 9 or 14 tokens,
+    greedy, all arriving at once."""
+    import numpy as np
+
+    from tpu_trainer_torch.serving.scheduler import Request, SamplingParams
+
+    rs = np.random.RandomState(seed)
+    prefix = rs.randint(1, vocab, size=prefix_blocks * block).tolist()
+    return [Request(rid=i, prompt=prefix + rs.randint(
+                        1, vocab, size=4 + (i % 3) * 5).tolist(),
+                    max_new_tokens=max_new,
+                    sampling=SamplingParams(temperature=0.0, seed=100 + i))
+            for i in range(n)]
+
+
+class _TieJudge:
+    """Top-2 gaps of the f32 model (the target's weights, plain
+    attention) at a stream's first differing token."""
+
+    def __init__(self, params, cfg):
+        from tpu_trainer_torch.models.weights import build_model
+
+        self.device = next(iter(params.values())).device
+        self.model = build_model(dataclasses.replace(
+            cfg, dtype="float32", decode_paged=False), params, self.device)
+
+    def gap(self, row, upto):
+        with torch.no_grad():
+            logits, _ = self.model(torch.tensor([row[:upto]],
+                                                device=self.device))
+        last = logits[0, -1].float()
+        top = torch.topk(last, 2).values
+        return float(top[0] - top[1]), float(last.abs().max())
+
+    def check(self, phase, what, got, want, reqs, rel) -> list:
+        """``got`` equal to ``want`` (rid -> tokens), a row differing only
+        from a tie on (rel x the logits' absolute maximum); the ties."""
+        ties = []
+        prompts = {r.rid: r.prompt for r in reqs}
+        if sorted(got) != sorted(want):
+            raise AssertionError(f"{phase}: {what}: finished rids "
+                                 f"{sorted(got)} != {sorted(want)}")
+        for rid in sorted(want):
+            a, b = want[rid], got[rid]
+            if a == b:
+                continue
+            pos = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                       min(len(a), len(b)))
+            row = prompts[rid] + a
+            gap, scale = self.gap(row, len(prompts[rid]) + pos)
+            log(phase, f"{what}: rid {rid} differs at token {pos}: top-2 "
+                       f"gap {gap:.3e}, |logits| max {scale:.3e}")
+            if len(a) != len(b) or not gap < rel * scale:
+                raise AssertionError(
+                    f"{phase}: {what}: rid {rid} differs at token {pos} "
+                    f"with a top-2 gap {gap:.3e} (not a tie at "
+                    f"{rel:.1e} x {scale:.3e})")
+            ties.append({"rid": rid, "pos": pos, "gap": gap})
+        return ties
+
+
+class _DecodeCount:
+    """Zero the decode launch count and count the launches the serving
+    path must make: each of ``engines``' plain decode forwards launches
+    the kernel once a layer, and so does each decode dispatch of a draft
+    proposer. ``captured`` keeps the operands and output of kernel launch
+    number ``capture_call``. ``launches`` and ``want`` after the block."""
+
+    def __init__(self, *engines, capture_call=0):
+        self.engines = engines
+        self.capture_call = capture_call
+        self.plain = self.draft = self.calls = 0
+        self.captured = {}
+
+    def _drafts(self):
+        return [e.spec_decoder.proposer for e in self.engines
+                if e.spec_decoder is not None and hasattr(
+                    e.spec_decoder.proposer, "decode_dispatches")]
+
+    def __enter__(self):
+        from tpu_trainer_torch.ops import flash
+
+        self._launch = launch = flash._launch
+
+        def capture(q, pool_k, pool_v, tables, lengths, k_scale, v_scale,
+                    n_splits):
+            out = launch(q, pool_k, pool_v, tables, lengths, k_scale,
+                         v_scale, n_splits)
+            self.calls += 1
+            if self.calls == self.capture_call:
+                self.captured.update(
+                    args=[t.clone() for t in (q, pool_k, pool_v, tables,
+                                              lengths)],
+                    kw={"k_scale": None if k_scale is None
+                        else k_scale.clone(),
+                        "v_scale": None if v_scale is None
+                        else v_scale.clone()},
+                    out=out.clone())
+            return out
+
+        for e in self.engines:
+            def counted(reqs, *, prefill, _fwd=e._forward):
+                self.plain += not prefill
+                return _fwd(reqs, prefill=prefill)
+            e._forward = counted
+        self._draft0 = [p.decode_dispatches for p in self._drafts()]
+        flash._launch = capture
+        flash.flash_decode.launches = 0
+        return self
+
+    def __exit__(self, *exc):
+        from tpu_trainer_torch.ops import flash
+
+        torch.cuda.synchronize()
+        flash._launch = self._launch
+        self.launches = flash.flash_decode.launches
+        for e in self.engines:
+            del e._forward
+        self.want = self.plain * self.engines[0].config.num_layers
+        for p, n0 in zip(self._drafts(), self._draft0):
+            self.draft += p.decode_dispatches - n0
+            self.want += (p.decode_dispatches - n0) * p.config.num_layers
+        return False
+
+
+def _spec_run(engine, reqs, *, time_mode, capture_call=0):
+    """Run ``reqs`` under ``_DecodeCount``; the finished requests and
+    streams, the summary and the counts."""
+    with _DecodeCount(engine, capture_call=capture_call) as cnt:
+        done = engine.run(reqs, time_mode=time_mode)
+    return {"done": done, "streams": {r.rid: list(r.generated) for r in done},
+            "summary": engine.summary(), "launches": cnt.launches,
+            "want": cnt.want, "plain_decodes": cnt.plain,
+            "draft_decodes": cnt.draft, "captured": cnt.captured}
+
+
+def _live_err(phase, captured) -> float:
+    from tpu_trainer_torch.ops import flash
+
+    if not captured:
+        raise AssertionError(f"{phase}: the captured decode call never ran")
+    plain = flash.paged_attention_reference(*captured["args"],
+                                            **captured["kw"])
+    err = float((captured["out"] - plain).abs().max())
+    if err > KERNEL_ATOL:
+        raise AssertionError(f"{phase}: live decode call kernel vs plain "
+                             f"max |err| {err:.3e} > {KERNEL_ATOL:.0e}")
+    return err
+
+
+class _OracleProposer:
+    """Drafts the spec-off stream's next tokens with the one at draft
+    index (rid + tokens generated) mod K replaced: every window accepts a
+    known prefix and then rejects, whatever the weights make of the
+    trace's own repetition."""
+
+    name = "oracle"
+
+    def __init__(self, streams, vocab):
+        self.streams, self.vocab = streams, vocab
+
+    def propose(self, reqs, k_of):
+        out = {}
+        for r in reqs:
+            n = len(r.generated)
+            d = list(self.streams[r.rid][n:n + k_of[r.rid]])
+            if d:
+                i = (r.rid + n) % len(d)
+                d[i] = (d[i] + 1) % self.vocab
+            out[r.rid] = d
+        return out
+
+    def rewind(self, req, accepted):
+        pass
+
+
+def _plant_over_accept():
+    """The planted fault: accept one draft past the first mismatch."""
+    import numpy as np
+
+    from tpu_trainer_torch.serving import spec as spec_lib
+
+    real = spec_lib.accept_emit
+
+    def over_accept(logits, ids, draft_lens, *a, **k):
+        emitted, n_acc = real(logits, ids, draft_lens, *a, **k)
+        dl = torch.as_tensor(np.asarray(draft_lens), device=n_acc.device)
+        n2 = torch.minimum(n_acc + 1, dl)
+        w = ids.shape[1]
+        drafts_at = torch.cat([ids[:, 1:], torch.zeros_like(ids[:, :1])], 1)
+        iw = torch.arange(w, device=ids.device)[None, :]
+        return torch.where(iw < n2[:, None], drafts_at, emitted), n2
+
+    spec_lib.accept_emit = over_accept
+    return lambda: setattr(spec_lib, "accept_emit", real)
+
+
+def phase_spec(results: dict) -> dict:
+    """Speculative decoding at GPT-2 small's width (random weights, max
+    batch 8, block 16) on a repetitive trace. Parity lane (f32): n-gram,
+    draft (2 of 12 layers) and an oracle proposer (the spec-off stream
+    with one draft a window wrong) greedy streams equal spec off (ties
+    allowed, printed), drafts accepted, decode launches exact (the
+    target's plain decodes x 12 + the draft's decode dispatches x 2), a
+    live draft decode call against the plain version, and a verifier
+    accepting one draft past the first mismatch rejected (on the oracle's
+    windows, which always hold a mismatch). Speed lane (bf16): the same trace
+    with spec off, n-gram and draft; tok/s, TTFT, TPOT, acceptance, the
+    accepted-per-step histogram and the ledger fractions; a sampled
+    n-gram run (temperature 0.9, top-k 20) replayed identically."""
+    from tpu_trainer_torch.models.config import GPTConfig
+    from tpu_trainer_torch.models.weights import init_params
+    from tpu_trainer_torch.serving.engine import ServingEngine
+    from tpu_trainer_torch.serving.spec import draft_from_target
+
+    phase = "spec"
+    card = nvidia_smi_line()
+    rec = {"nvidia_smi": card, "lanes": {}}
+    total_launches = 0
+    errs = []
+    for lane, dtype in (("parity", "float32"), ("speed", "bfloat16")):
+        cfg = GPTConfig.gpt2_small(dropout=0.0, attention_dropout=0.0,
+                                   dtype=dtype, param_dtype="float32")
+        params = init_params(cfg, seed=0, device="cuda")
+        dparams, dcfg = draft_from_target(params, cfg, 2)
+        judge = _TieJudge(params, cfg) if lane == "parity" else None
+        time_mode = "steps" if lane == "parity" else "wall"
+        kinds = ["off", "ngram", "draft"] + (
+            ["oracle"] if lane == "parity" else [])
+        out = rec["lanes"][lane] = {}
+        streams = {}
+        for kind in kinds:
+            kw = {"ngram": {"spec": "ngram"},
+                  "draft": {"spec": "draft", "draft_params": dparams,
+                            "draft_config": dcfg},
+                  "oracle": {"spec": "ngram", "spec_proposer":
+                             _OracleProposer(streams.get("off"),
+                                             cfg.vocab_size)}}.get(kind, {})
+            engine = ServingEngine(params, cfg, max_batch=8, block_size=16,
+                                   spec_k=4, device="cuda", **kw)
+            if kind != "oracle":
+                engine.run(_spec_trace(2, seed=98, vocab=cfg.vocab_size,
+                                       rid0=1000),
+                           time_mode=time_mode)        # warm-up
+                engine.reset_stats()
+            reqs = _spec_trace(24, seed=7, vocab=cfg.vocab_size)
+            res = _spec_run(engine, reqs, time_mode=time_mode,
+                            capture_call=5 if kind == "draft" else 0)
+            got, summ, launches = (res["streams"], res["summary"],
+                                   res["launches"])
+            total_launches += launches
+            if launches != res["want"]:
+                raise AssertionError(
+                    f"{phase}: {lane} {kind}: flash_decode launches "
+                    f"{launches}, want {res['want']} (plain decodes "
+                    f"{res['plain_decodes']} x 12 + draft decodes "
+                    f"{res['draft_decodes']} x 2)")
+            if len(got) != len(reqs) or any(
+                    len(got[r.rid]) != r.max_new_tokens for r in reqs):
+                raise AssertionError(f"{phase}: {lane} {kind}: a request "
+                                     f"did not finish its tokens")
+            if kind == "draft":
+                errs.append(_live_err(phase, res["captured"]))
+            streams[kind] = got
+            row = {"launches": launches,
+                   "plain_decodes": res["plain_decodes"],
+                   "draft_decodes": res["draft_decodes"],
+                   "decode_iters": summ["decode_iters"],
+                   "generated_tokens": summ["generated_tokens"]}
+            if kind != "off":
+                row.update(
+                    {k: summ[k] for k in ("spec_steps", "spec_drafted",
+                                          "spec_accepted", "spec_accept_mean",
+                                          "spec_accept_rate",
+                                          "spec_accept_hist")})
+                if summ["spec_accepted"] <= 0:
+                    raise AssertionError(f"{phase}: {lane} {kind}: no draft "
+                                         f"accepted")
+                if kind == "oracle" and not (
+                        summ["spec_accepted"] < summ["spec_drafted"]):
+                    raise AssertionError(f"{phase}: oracle: no draft "
+                                         f"rejected")
+            if lane == "speed":
+                ledger = engine.serve_ts[-1]
+                row.update(_latency(res["done"], summ))
+                # A window's tokens share one time stamp, so the gaps'
+                # median can be 0: also each request's mean time a token.
+                per = sorted((r.finished_at - r.first_token_at)
+                             / (len(r.generated) - 1) for r in res["done"])
+                row["tpot_req_p50_ms"] = 1e3 * statistics.median(per)
+                row["tpot_req_p99_ms"] = 1e3 * per[
+                    max(0, math.ceil(0.99 * len(per)) - 1)]
+                row.update({f"{c}_frac": ledger.get(f"{c}_frac", 0.0)
+                            for c in ("dispatch", "host_sched", "idle")})
+            if lane == "parity" and kind != "off":
+                row["ties"] = judge.check(phase, f"parity {kind}", got,
+                                          streams["off"], reqs, TIE_F32)
+            out[kind] = row
+            log(phase, f"{lane} ({dtype}) {kind}: " + ", ".join(
+                f"{k} {v:.4g}" if isinstance(v, float) else f"{k} {v}"
+                for k, v in row.items() if k != "ties"))
+            if kind == "oracle":
+                engine.reset_stats()
+                restore = _plant_over_accept()
+                try:
+                    few = _spec_trace(24, seed=7, vocab=cfg.vocab_size)[:6]
+                    bad = _spec_run(engine, few, time_mode="steps")["streams"]
+                finally:
+                    restore()
+                _must_reject("a verifier accepting one draft past the "
+                             "first mismatch", lambda: judge.check(
+                                 phase, "planted", bad,
+                                 {r: streams["off"][r] for r in bad}, few,
+                                 TIE_F32))
+                log(phase, "planted over-accepting verifier rejected")
+            del engine
+        if lane == "speed":
+            sampled = []
+            for _ in range(2):
+                engine = ServingEngine(params, cfg, max_batch=8,
+                                       block_size=16, spec="ngram",
+                                       spec_k=4, device="cuda")
+                reqs = _spec_trace(8, seed=11, vocab=cfg.vocab_size,
+                                   temperature=0.9, top_k=20)
+                res = _spec_run(engine, reqs, time_mode="steps")
+                summ = res["summary"]
+                total_launches += res["launches"]
+                if res["launches"] != res["want"]:
+                    raise AssertionError(f"{phase}: sampled: launches "
+                                         f"{res['launches']}, want "
+                                         f"{res['want']}")
+                sampled.append(res["streams"])
+                del engine
+            if sampled[0] != sampled[1]:
+                raise AssertionError(f"{phase}: a sampled n-gram replay "
+                                     f"differs")
+            out["sampled_replay_equal"] = True
+            log(phase, f"sampled n-gram (temperature 0.9, top-k 20): 8 "
+                       f"streams replayed identically, accepted "
+                       f"{summ['spec_accepted']} of {summ['spec_drafted']}")
+        del judge, params, dparams
+        torch.cuda.empty_cache()
+    sp = rec["lanes"]["speed"]
+    for kind in ("ngram", "draft"):
+        log(phase, f"speed {kind} vs off: tok/s x"
+                   f"{sp[kind]['tokens_per_s'] / sp['off']['tokens_per_s']:.3f}"
+                   f", a request's TPOT p50 {sp[kind]['tpot_req_p50_ms']:.2f}"
+                   f" vs {sp['off']['tpot_req_p50_ms']:.2f} ms on {card}")
+    rec["launches"] = total_launches
+    rec["max_abs_err"] = max(errs)
+    results[phase] = rec
+    return rec
+
+
+def _filled_bitwise(phase, engine, store) -> int:
+    """Every prefix-index block whose digest the store holds carries the
+    store entry's bytes; returns how many."""
+    n = 0
+    for dig, bid in engine.cache_state._prefix.items():
+        got = store.get(dig)
+        if got is None:
+            continue
+        for i, (a, b) in enumerate(zip(engine.read_block(bid), got[1])):
+            if a.tobytes() != b.tobytes():
+                raise AssertionError(f"{phase}: block {bid} leaf {i} is not "
+                                     f"bitwise the store entry")
+        n += 1
+    return n
+
+
+def _ttft_ms(params, cfg, store, prompt, kw) -> float:
+    from tpu_trainer_torch.serving.engine import ServingEngine
+    from tpu_trainer_torch.serving.scheduler import Request, SamplingParams
+
+    engine = ServingEngine(params, cfg, kv_store=store, **kw)
+    req = Request(rid=0, prompt=prompt, max_new_tokens=1,
+                  sampling=SamplingParams(temperature=0.0))
+    engine.run([req], time_mode="wall")
+    return 1e3 * (req.first_token_at - req.arrival_time)
+
+
+def phase_kv_store(results: dict) -> dict:
+    """The KV block store at GPT-2 small's width, bf16 and int8 pools, on
+    a shared-prefix trace (16 requests, a 2-block prefix, greedy): a warm
+    engine publishes to the store; a cold engine sharing only the store
+    fills from it, every filled block bitwise the store entry, its
+    streams those of an engine that kept its blocks (ties allowed,
+    ``TIE_BF16``), decode launches exact; a fill that writes a leaf's
+    layers reversed rejected. Prefill-role -> decode-role migration of 8
+    requests with chunked prefill (16 tokens) and n-gram spec against one
+    such engine. TTFT of a store-filled prefix against a recomputed one
+    (2 and 31 blocks), ``read_block`` / ``write_block`` GB/s, the bytes
+    migrated."""
+    from tpu_trainer_torch.models.config import GPTConfig
+    from tpu_trainer_torch.models.weights import init_params
+    from tpu_trainer_torch.serving.engine import ServingEngine
+    from tpu_trainer_torch.serving.kv_store import KVBlockStore, leaves_nbytes
+
+    phase = "kv-store"
+    card = nvidia_smi_line()
+    rec = {"nvidia_smi": card, "lanes": {}}
+    total = 0
+    cfg = GPTConfig.gpt2_small(dropout=0.0, attention_dropout=0.0,
+                               dtype="bfloat16", param_dtype="float32")
+    params = init_params(cfg, seed=0, device="cuda")
+    judge = _TieJudge(params, cfg)
+    vocab = cfg.vocab_size
+    for lane, int8 in (("bf16", False), ("int8", True)):
+        kw = dict(max_batch=8, block_size=16, prefix_cache=True,
+                  kv_int8=int8, device="cuda")
+        out = rec["lanes"][lane] = {}
+
+        def trace():
+            return _prefix_trace(16, seed=5, vocab=vocab)
+
+        # An engine that keeps its blocks on the card: its second pass.
+        ref = ServingEngine(params, cfg, **kw)
+        ref.run(trace(), time_mode="steps")
+        reqs = trace()
+        with _DecodeCount(ref) as cnt:
+            want = {r.rid: list(r.generated)
+                    for r in ref.run(reqs, time_mode="steps")}
+        total += cnt.launches
+        store = KVBlockStore(host_bytes=1 << 30)
+        warm = ServingEngine(params, cfg, kv_store=store, **kw)
+        with _DecodeCount(warm) as cnt_w:
+            warm.run(trace(), time_mode="steps")
+        total += cnt_w.launches
+        if store.counters["puts"] <= 0:
+            raise AssertionError(f"{phase}: {lane}: nothing published")
+        cold = ServingEngine(params, cfg, kv_store=store, **kw)
+        reqs = trace()
+        with _DecodeCount(cold) as cnt_c:
+            got = {r.rid: list(r.generated)
+                   for r in cold.run(reqs, time_mode="steps")}
+        total += cnt_c.launches
+        for c in (cnt, cnt_w, cnt_c):
+            if c.launches != c.want:
+                raise AssertionError(f"{phase}: {lane}: flash_decode "
+                                     f"launches {c.launches}, want {c.want}")
+        summ = cold.summary()
+        if summ["store_hit_tokens"] <= 0:
+            raise AssertionError(f"{phase}: {lane}: no store fill")
+        ties = judge.check(phase, f"{lane} cold engine", got, want, reqs,
+                           TIE_BF16)
+        filled = _filled_bitwise(phase, cold, store)
+        out.update(store_puts=store.counters["puts"],
+                   store_hit_tokens=summ["store_hit_tokens"],
+                   filled_blocks_bitwise=filled, ties=ties,
+                   launches=cnt_c.launches)
+        log(phase, f"{lane}: {store.counters['puts']} blocks published, "
+                   f"cold engine filled {summ['store_hit_tokens']} prompt "
+                   f"tokens from the store, {filled} filled blocks bitwise "
+                   f"the entries, 16 streams "
+                   f"{'equal' if not ties else f'equal but {len(ties)} ties'}"
+                   f"; flash_decode launches {cnt_c.launches} exact")
+
+        # The planted fault: a fill writing the K leaf's layers reversed.
+        bad = ServingEngine(params, cfg, kv_store=store, **kw)
+
+        def reversed_fill(digest, bid, _eng=bad):
+            got_ = store.get(digest)
+            if got_ is None:
+                return None
+            leaves = [got_[1][0][::-1].copy()] + list(got_[1][1:])
+            return got_[0] if _eng.write_block(bid, leaves) else None
+
+        bad.cache_state.fill_fn = reversed_fill
+        bad.run(trace()[:4], time_mode="steps")
+        _must_reject("a store fill writing a leaf's layers reversed",
+                     lambda: _filled_bitwise(phase, bad, store))
+        log(phase, f"{lane}: planted reversed-layer fill rejected")
+        del bad
+
+        # Block I/O rates on the cold engine's pools (a free block).
+        bid = next(iter(cold.cache_state._prefix.values()))
+        free = cold.cache_state.pool._free[-1]
+        nbytes = leaves_nbytes(cold.read_block(bid))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(50):
+            payload = cold.read_block(bid)
+        read_s = (time.perf_counter() - t) / 50
+        t = time.perf_counter()
+        for _ in range(50):
+            cold.write_block(free, payload)
+        torch.cuda.synchronize()
+        write_s = (time.perf_counter() - t) / 50
+        out.update(block_bytes=nbytes, read_block_ms=1e3 * read_s,
+                   write_block_ms=1e3 * write_s,
+                   read_block_gb_s=nbytes / read_s / 1e9,
+                   write_block_gb_s=nbytes / write_s / 1e9)
+        log(phase, f"{lane}: one block {nbytes} B: read_block "
+                   f"{1e3 * read_s:.3f} ms ({out['read_block_gb_s']:.3f} "
+                   f"GB/s), write_block {1e3 * write_s:.3f} ms "
+                   f"({out['write_block_gb_s']:.3f} GB/s)")
+        del ref, warm, cold
+
+        # TTFT: a store-filled prefix against a recomputed one.
+        for blocks in (2, 31):
+            prompt = _prefix_trace(1, seed=9, vocab=vocab,
+                                   prefix_blocks=blocks)[0].prompt
+            filled_store = KVBlockStore(host_bytes=1 << 30)
+            _ttft_ms(params, cfg, filled_store, prompt, kw)   # publishes
+            rec_ms = [_ttft_ms(params, cfg, None, prompt, kw)
+                      for _ in range(3)]
+            fill_ms = [_ttft_ms(params, cfg, filled_store, prompt, kw)
+                       for _ in range(3)]
+            out[f"ttft_{blocks}_blocks"] = {
+                "recompute_ms": rec_ms, "store_fill_ms": fill_ms,
+                "prompt_tokens": len(prompt)}
+            log(phase, f"{lane}: TTFT of a {len(prompt)}-token prompt "
+                       f"({blocks}-block prefix): recomputed "
+                       f"{statistics.median(rec_ms):.2f} ms, store-filled "
+                       f"{statistics.median(fill_ms):.2f} ms (median of 3)")
+
+        # Prefill-role -> decode-role migration against one engine.
+        extra = dict(prefill_chunk_tokens=16, spec="ngram", spec_k=4)
+        mreqs = _prefix_trace(8, seed=6, vocab=vocab, max_new=24)
+        single = ServingEngine(params, cfg, **kw, **extra)
+        with _DecodeCount(single) as cnt_s:
+            want_m = {r.rid: list(r.generated)
+                      for r in single.run(mreqs, time_mode="steps")}
+        mstore = KVBlockStore(host_bytes=1 << 30)
+        pre = ServingEngine(params, cfg, kv_store=mstore, role="prefill",
+                            **kw, **extra)
+        dec = ServingEngine(params, cfg, kv_store=mstore, role="decode",
+                            **kw, **extra)
+        mreqs = _prefix_trace(8, seed=6, vocab=vocab, max_new=24)
+        for r in mreqs:
+            pre.scheduler.add(r)
+        done, moved, migrated = {}, 0, 0
+        with _DecodeCount(pre, dec) as cnt_m:
+            for _ in range(10_000):
+                if not (pre.scheduler.has_work()
+                        or dec.scheduler.has_work()):
+                    break
+                if pre.step():
+                    raise AssertionError(f"{phase}: a prefill-role engine "
+                                         f"finished a request")
+                for rid in pre.migratable_rids():
+                    req, payload = pre.extract_request(rid)
+                    if payload["leaves"] is not None:
+                        migrated += leaves_nbytes(payload["leaves"])
+                    migrated += sum(int(mstore.entry_nbytes(d) or 0)
+                                    for d in req._prompt_digests)
+                    req._kv_migration = payload
+                    dec.scheduler.add(req)
+                    moved += 1
+                for r in dec.step():
+                    done[r.rid] = list(r.generated)
+        total += cnt_s.launches + cnt_m.launches
+        for c in (cnt_s, cnt_m):
+            if c.launches != c.want:
+                raise AssertionError(f"{phase}: {lane} migration: launches "
+                                     f"{c.launches}, want {c.want}")
+        ties_m = judge.check(phase, f"{lane} migrated", done, want_m, mreqs,
+                             TIE_BF16)
+        dsum = dec.summary()
+        if moved != 8 or dsum["migrated_tail_fills"] != 8:
+            raise AssertionError(f"{phase}: {lane}: {moved} migrated, "
+                                 f"{dsum['migrated_tail_fills']} tails "
+                                 f"filled, want 8")
+        out.update(migrated_requests=moved, migrated_bytes=migrated,
+                   migration_ties=ties_m,
+                   migration_spec_accepted=dsum["spec_accepted"],
+                   migration_spec_drafted=dsum["spec_drafted"])
+        log(phase, f"{lane}: 8 requests migrated prefill -> decode "
+                   f"({migrated} bytes: full blocks through the store, the "
+                   f"tails raw), streams of one engine "
+                   f"{'equal' if not ties_m else f'but {len(ties_m)} ties'} "
+                   f"with chunked prefill and n-gram spec (accepted "
+                   f"{dsum['spec_accepted']} of {dsum['spec_drafted']})")
+        del single, pre, dec
+        torch.cuda.empty_cache()
+    rec["launches"] = total
+    results[phase] = rec
+    return rec
 
 
 # -- phases 16 and 17: the user surface -------------------------------------
@@ -5910,6 +6552,8 @@ def main(argv=None) -> int:
     run("profile", profile_engine, engine)
     del engine
     run("int8", phase_engine, kv_int8=True)
+    spec = run("spec", phase_spec)
+    kvs = run("kv-store", phase_kv_store)
     train_k = run("train-kernel", phase_train_kernel)
     mask = run("mask", phase_mask)
     split = run("train-split", phase_train_split)
@@ -5949,7 +6593,8 @@ def main(argv=None) -> int:
 
     max_err = max(results["kernel_max_abs_err"],
                   results["engine"]["live_step_max_abs_err"],
-                  results["int8"]["live_step_max_abs_err"])
+                  results["int8"]["live_step_max_abs_err"],
+                  spec["max_abs_err"])
     t, bounds, head = train_k["times"], train_k["bounds"], train_k["head"]
     st, sb = split["times"], split["bounds"]
     gt = grouped["times"]["balanced 768->3072"]
@@ -5965,13 +6610,14 @@ def main(argv=None) -> int:
 
     # The moe-capacity, ft and dist phases' paths launch the training
     # kernels too: each row counts its main path's launches plus theirs
-    # (and flash_decode's the moe-capacity engine's).
+    # (and flash_decode's the moe-capacity engine's and the spec and
+    # kv-store phases' engines and draft models').
     ftl = dict(ft["launches"])
     _add_launches(ftl, dist["launches"])
     _add_launches(ftl, rest["launches"])
     _add_launches(ftl, el["launches"])
     _add_launches(ftl, mc["launches"])
-    launches += mc["engine"]["launches"]
+    launches += mc["engine"]["launches"] + spec["launches"] + kvs["launches"]
     train_launches = {k: v + ftl.get(k, 0) for k, v in train_launches.items()}
     packed_launches = {k: v + ftl.get(k, 0)
                        for k, v in packed_launches.items()}

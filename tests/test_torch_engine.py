@@ -228,8 +228,13 @@ def test_cli_serves_on_cpu(extra, capsys):
     assert summary["generated_tokens"] > 0 and "ttft_p50" in summary
 
 
-def test_cli_spec_not_ported():
+def test_cli_spec_not_ported(capsys):
+    """``--spec`` was refused until speculative decoding was ported; now
+    it serves, and an unknown proposer is an argparse error."""
     from tpu_trainer_torch.serving.engine import _main
 
-    with pytest.raises(NotImplementedError, match="speculative"):
-        _main(CLI_TINY + ["--spec", "ngram"])
+    assert _main(CLI_TINY + ["--spec", "ngram"]) == 0
+    summary = json.loads(capsys.readouterr().out)
+    assert summary["finished"] == 4 and summary["spec_steps"] > 0
+    with pytest.raises(SystemExit):
+        _main(CLI_TINY + ["--spec", "banana"])

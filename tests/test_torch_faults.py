@@ -157,14 +157,26 @@ def test_file_faults(tmp_path):
 
 # -- kills ---------------------------------------------------------------------
 
+def _kill_case(spec, sync, resumes_at):
+    """A case whose id names the latest checkpoint it may resume from;
+    ``resumes_at`` is that step dir, None, or a tuple of the allowed
+    ones (the first in the id)."""
+    first = resumes_at[0] if isinstance(resumes_at, tuple) else resumes_at
+    return pytest.param(spec, sync, resumes_at, id=f"{spec}-{sync}-{first}")
+
+
 @pytest.mark.parametrize("spec,sync,resumes_at", [
-    ("kill@3", False, "step_00000002"),
-    ("kill@5", False, "step_00000004"),
-    ("kill_in_save@2", False, None),
-    ("kill_in_save@4", False, "step_00000002"),
-    ("truncate_meta@2,kill@3", True, None),
-    ("corrupt_shard@2,kill@3", True, None),
-    ("corrupt_shard@4,kill@5", True, "step_00000002"),
+    # With the async saver the kill races the writer thread: the commit
+    # of the step before the kill may land before it or not
+    # (tests/test_faults.py, "the kill races the writer thread").
+    _kill_case("kill@3", False, ("step_00000002", None)),
+    _kill_case("kill@5", False, ("step_00000004", "step_00000002")),
+    _kill_case("kill@5", True, "step_00000004"),
+    _kill_case("kill_in_save@2", False, None),
+    _kill_case("kill_in_save@4", False, "step_00000002"),
+    _kill_case("truncate_meta@2,kill@3", True, None),
+    _kill_case("corrupt_shard@2,kill@3", True, None),
+    _kill_case("corrupt_shard@4,kill@5", True, "step_00000002"),
 ])
 def test_killed_run_resumes_bitwise(tiny_yaml, tmp_path, straight, spec,
                                     sync, resumes_at):
@@ -186,10 +198,12 @@ def test_killed_run_resumes_bitwise(tiny_yaml, tmp_path, straight, spec,
     resumed = run_trainer(tiny_yaml, ck,
                           "--metrics_jsonl", str(tmp_path / "m2.jsonl"))
     assert resumed.returncode == 0, resumed.stderr
-    if resumes_at is None:
-        assert "resumed from" not in resumed.stdout
+    allowed = resumes_at if isinstance(resumes_at, tuple) else (resumes_at,)
+    if "resumed from" not in resumed.stdout:
+        assert None in allowed, resumed.stdout
     else:
-        assert f"resumed from {ck / resumes_at}" in resumed.stdout
+        assert any(f"resumed from {ck / step}" in resumed.stdout
+                   for step in allowed if step is not None), resumed.stdout
     if kind == "corrupt_shard":
         assert "quarantined" in resumed.stderr
         assert any(n.startswith(f"step_{int(step):08d}.corrupt")

@@ -239,8 +239,8 @@ def test_cli_sampled_serve_equals_kv_path(saved, capsys):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--spec", "ngram", "--serve"],
-     (NotImplementedError, "Queue 1: serving on one device")),
+    # --spec is a serving-engine feature (the JAX CLI's usage error).
+    (["--spec", "ngram"], (SystemExit, "2")),
     # Data-parallel decode runs; at one process a 2-way mesh is the
     # world-size error.
     (["--mesh_data", "2"], (SystemExit, "wants 2 devices but 1 are")),
@@ -290,3 +290,16 @@ def test_cli_mesh_data_two_ranks_equals_one_process(saved, tmp_path, capsys,
     with pytest.raises(SystemExit):
         infer.main(["--checkpoint", saved[0], "--device", "cpu",
                     "--mesh_data", "3"])
+
+
+@pytest.mark.parametrize("spec", ["ngram", "draft"])
+def test_cli_serve_spec_equals_plain_serve(saved, spec, capsys):
+    """``--serve --spec`` decodes speculatively; greedy text is the plain
+    ``--serve`` text, and drafts were verified."""
+    args = ["--checkpoint", saved[0], "--prompt", "abcabcabc",
+            "--max_new_tokens", "12", "--temperature", "0", "--serve"]
+    plain, _ = _run(args, capsys)
+    out, res = _run(args + ["--spec", spec, "--spec_k", "3",
+                            "--spec_draft_layers", "1"], capsys)
+    assert out == plain
+    assert res["stats"]["spec_steps"] > 0

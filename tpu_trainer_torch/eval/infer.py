@@ -12,6 +12,9 @@ windowed full forward with ``--no_kv_cache`` (``generate``), or
 the paged serving engine with ``--serve`` (one request a prompt, seed
 ``--seed`` + row, decode attention through the flash-decode kernel on the
 card). ``--prompt_file`` decodes one ragged batch, a prompt a line.
+``--serve --spec {ngram,draft}`` decodes speculatively (``--spec_k``
+drafts a step; ``--spec_draft_layers`` of the checkpoint's layers make
+the draft model); greedy output is the plain ``--serve`` output.
 
 ``--mesh_data N`` decodes on N processes (launched as the training CLI
 is, e.g. ``torchrun --nproc_per_node N``): the prompt rows split over the
@@ -21,10 +24,8 @@ rank's rows together, as one process routes the whole batch), and rank 0
 gathers and prints every row, the tokens the one-process run gives.
 
 Runs on CUDA unless ``--device cpu``; without a GPU and without that flag
-it raises. ``--spec`` (ROADMAP Queue 1: "serving on one device:
-speculative decoding and the KV store") and ``--mesh_tensor`` above 1
-(ROADMAP Queue 1: "serving across devices: TP decode and the fleet")
-raise.
+it raises. ``--mesh_tensor`` above 1 (ROADMAP Queue 1: "serving across
+devices: TP decode and the fleet") raises.
 """
 
 from __future__ import annotations
@@ -72,9 +73,13 @@ def build_parser() -> argparse.ArgumentParser:
       help="decode through the paged serving engine, a request a prompt")
     a("--serve_batch", type=int, default=8)
     a("--serve_block_size", type=int, default=16)
-    a("--spec", default="off", choices=["off", "ngram", "draft"])
-    a("--spec_k", type=int, default=4)
-    a("--spec_draft_layers", type=int, default=1)
+    a("--spec", default="off", choices=["off", "ngram", "draft"],
+      help="speculative decoding proposer (with --serve); greedy output "
+           "is the same either way")
+    a("--spec_k", type=int, default=4,
+      help="max draft tokens per verify step (with --spec)")
+    a("--spec_draft_layers", type=int, default=1,
+      help="checkpoint layers sliced into the draft model (--spec draft)")
     a("--record_trace", default=None, metavar="OUT.JSONL",
       help="append each served prompt/response as a replayable trace "
            "record (with --serve)")
@@ -89,11 +94,6 @@ def main(argv=None, *, result: Optional[dict] = None) -> int:
     with ``--serve``, the engine's ``stats``."""
     p = build_parser()
     args = p.parse_args(argv)
-    if args.spec != "off":
-        raise NotImplementedError(
-            "--spec (speculative decoding) is not ported yet -> ROADMAP "
-            "Queue 1: serving on one device: speculative decoding and the "
-            "KV store")
     if args.mesh_tensor > 1:
         raise NotImplementedError(
             "--mesh_tensor > 1 (tensor-parallel decode) is not ported yet "
@@ -152,6 +152,8 @@ def main(argv=None, *, result: Optional[dict] = None) -> int:
                 "--max_new_tokens to fit max_seq_len, or drop --no_kv_cache")
     if args.record_trace and not args.serve:
         p.error("--record_trace records served requests; add --serve")
+    if args.spec != "off" and not args.serve:
+        p.error("--spec is a serving-engine feature; add --serve")
     if shards > 1:
         if args.serve or not use_kv:
             p.error("--mesh_data decodes on the KV path: drop --serve / "
@@ -168,11 +170,22 @@ def main(argv=None, *, result: Optional[dict] = None) -> int:
         from tpu_trainer_torch.serving.engine import ServingEngine
         from tpu_trainer_torch.serving.scheduler import (Request,
                                                          SamplingParams)
+        from tpu_trainer_torch.serving.spec import draft_from_target
 
+        state = {n: torch.from_numpy(v) for n, v in params.items()}
+        draft_params = draft_config = None
+        if args.spec == "draft":
+            if args.spec_draft_layers >= config.num_layers:
+                p.error(f"--spec_draft_layers {args.spec_draft_layers} must "
+                        f"be < the checkpoint's {config.num_layers} layers")
+            draft_params, draft_config = draft_from_target(
+                state, config, args.spec_draft_layers)
         engine = ServingEngine(
-            {n: torch.from_numpy(v) for n, v in params.items()}, config,
+            state, config,
             max_batch=min(len(rows), args.serve_batch),
-            block_size=args.serve_block_size, device=device)
+            block_size=args.serve_block_size, spec=args.spec,
+            spec_k=args.spec_k, draft_params=draft_params,
+            draft_config=draft_config, device=device)
         reqs = [Request(rid=i, prompt=list(r),
                         max_new_tokens=args.max_new_tokens,
                         sampling=SamplingParams(temperature=args.temperature,

@@ -11,13 +11,25 @@ the scheduler picks ONE of:
   recompute-preemption exact.
 - **decode** — every running request that finished prefill advances one
   token in a single ``[slots, 1]`` forward, whose attention is the CUDA
-  flash-decode kernel on the card.
+  flash-decode kernel on the card. With ``spec`` set, a decode iteration
+  is a speculative one instead (``serving/spec.py``): proposer drafts,
+  one verify forward of the ``[slots, W]`` window through the
+  chunked-prefill branch, the accepted prefix plus one target token.
 
 Each step copies the scheduler's host tables / lengths / offsets into the
 device cache, runs the model under ``torch.inference_mode()``, samples
 (``serving/sampling.py``), and reads the tokens back — the one host sync
 of the step. Idle and non-stepped rows carry table 0 and length 0: their
 writes land in the null block and their sampled tokens are ignored.
+
+``kv_store`` (or ``kv_store_bytes`` / ``kv_store_dir``) puts a
+``serving/kv_store.py`` block store behind the prefix index: published
+prompt blocks are written through to it, evicted ones spill into it, and
+a cold engine sharing it fills device blocks from it instead of
+prefilling. ``read_block`` / ``write_block`` are the block I/O, in the
+JAX engine's leaf order. ``role="prefill"`` stops requests after their
+first token; ``extract_request`` hands one to another engine sharing the
+store (full blocks by digest, the tail raw in ``_kv_migration``).
 
 ``python -m tpu_trainer_torch.serving.engine`` replays a seeded open-loop
 Poisson trace against a synthetic checkpoint and prints the summary. It
@@ -36,9 +48,13 @@ import torch
 from tpu_trainer_torch.models.config import GPTConfig
 from tpu_trainer_torch.models.gpt import GPT, init_paged_cache
 from tpu_trainer_torch.models.weights import build_model
+from tpu_trainer_torch.serving.kv_store import KVBlockStore, MigrationPricer
 from tpu_trainer_torch.serving.paged_cache import PagedKVCache
 from tpu_trainer_torch.serving.sampling import sample_tokens
 from tpu_trainer_torch.serving.scheduler import Request, SamplingParams, Scheduler
+from tpu_trainer_torch.serving.spec import (DraftModelProposer, NGramProposer,
+                                            SpecDecoder, _verify_step,
+                                            draft_from_target)
 from tpu_trainer_torch.serving.tracing import ServingLedger, SpanTracer
 from tpu_trainer_torch.utils.device import resolve_device
 
@@ -48,6 +64,13 @@ def _bucket_pow2(n: int, lo: int = 8) -> int:
     while w < n:
         w *= 2
     return w
+
+
+# The device cache's block payload, in the JAX cache pytree's flatten
+# order (int8 pools add the scale planes).
+_POOL_LEAF_KEYS = ("pool_k", "pool_v", "scale_k", "scale_v")
+# A bf16 pool leaf on the host: its raw 2-byte words (numpy has no bf16).
+_BF16_HOST = np.dtype("V2")
 
 
 class ServingEngine:
@@ -73,11 +96,25 @@ class ServingEngine:
         watermark_blocks: int = 0,
         prefill_chunk_tokens: Optional[int] = None,
         prefix_cache: bool = False,
+        spec: str = "off",
+        spec_k: int = 4,
+        spec_adaptive: bool = True,
+        spec_ngram_max: int = 3,
+        draft_params=None,
+        draft_config: Optional[GPTConfig] = None,
+        spec_proposer=None,
         clock=time.perf_counter,
         trace: bool = True,
         ts_interval: int = 32,
+        kv_store: Optional[KVBlockStore] = None,
+        kv_store_bytes: Optional[int] = None,
+        kv_store_dir: Optional[str] = None,
+        kv_link_gbps: float = 16.0,
+        role: Optional[str] = None,
         device=None,
     ):
+        if spec not in ("off", "ngram", "draft"):
+            raise ValueError(f"spec={spec!r} (off | ngram | draft)")
         self.device = resolve_device(device)
         if attention == "reference" and self.device.type == "cuda":
             raise ValueError(
@@ -105,11 +142,52 @@ class ServingEngine:
         self.eos_id = eos_id
         self.clock = clock
         self.prefix_cache = prefix_cache
+        # Engines in one process share ONE store object through
+        # ``kv_store``; the scalar kwargs build a private one.
+        self._owns_store = kv_store is None
+        if kv_store is None and (kv_store_bytes or kv_store_dir):
+            kv_store = KVBlockStore(
+                host_bytes=int(kv_store_bytes) if kv_store_bytes
+                else 64 << 20,
+                disk_dir=kv_store_dir)
+        self.kv_store = kv_store
         self.cache_state = PagedKVCache(
-            self.config, max_batch, prefix_cache=prefix_cache)
+            self.config, max_batch, prefix_cache=prefix_cache,
+            kv_store=kv_store)
+        if kv_store is not None:
+            self.cache_state.spill_fn = self._store_put_block
+            self.cache_state.fill_fn = self._store_fill_block
+            self.cache_state.raw_fill_fn = self.write_block
+            self.cache_state.pricer = self._build_pricer(kv_link_gbps)
+        # Speculative decoding: the proposer before the scheduler, so
+        # admission budgets the draft window.
+        proposer = spec_proposer
+        if proposer is None and spec == "ngram":
+            proposer = NGramProposer(max_ngram=spec_ngram_max)
+        elif proposer is None and spec == "draft":
+            if draft_params is None or draft_config is None:
+                raise ValueError(
+                    "spec='draft' needs draft_params and draft_config "
+                    "(see spec.draft_from_target)")
+            if draft_config.vocab_size != config.vocab_size:
+                raise ValueError("draft/target vocab mismatch")
+            if draft_config.max_seq_len < config.max_seq_len:
+                raise ValueError("draft max_seq_len < target max_seq_len")
+            proposer = DraftModelProposer(
+                draft_params, draft_config, slots=max_batch,
+                block_size=block_size, attention=attention,
+                device=self.device)
+        self.spec_decoder = (
+            SpecDecoder(proposer, k=spec_k, adaptive=spec_adaptive)
+            if proposer is not None else None)
         self.scheduler = Scheduler(
             self.cache_state, watermark_blocks=watermark_blocks,
-            prefill_chunk_tokens=prefill_chunk_tokens)
+            prefill_chunk_tokens=prefill_chunk_tokens,
+            spec_reserve_tokens=(
+                spec_k + 1 if self.spec_decoder is not None else 0))
+        self.role: Optional[str] = None
+        if role is not None:
+            self.set_role(role)
         # Host-side observability; never touches the device path.
         self.tracer = SpanTracer(enabled=trace)
         self.scheduler.tracer = self.tracer
@@ -130,6 +208,7 @@ class ServingEngine:
             "generated_tokens": 0,
             "occupancy_sum": 0.0, "occupancy_samples": 0,
             "occupancy_max": 0.0,
+            "spec_steps": 0, "spec_drafted": 0, "spec_accepted": 0,
             "finished": 0, "cancelled": 0, "deadline_exceeded": 0,
             "failed": 0,
         }
@@ -147,6 +226,15 @@ class ServingEngine:
         for k in sch.terminal_counts:
             sch.terminal_counts[k] = 0
         self.cache_state.n_prefix_evictions = 0
+        cs = self.cache_state
+        cs.n_store_spills = cs.n_store_declined = 0
+        cs.store_hit_tokens_host = cs.store_hit_tokens_disk = 0
+        sch.n_migrated_tail_fills = sch.n_migration_declined = 0
+        if self.kv_store is not None and self._owns_store:
+            # A shared store keeps its counters; a private one resets.
+            self.kv_store.reset_stats()
+        if self.spec_decoder is not None:
+            self.spec_decoder.reset_stats()
         self.wall_elapsed = 0.0
         self._deadline_margins = []
         self.tracer.reset()
@@ -171,6 +259,9 @@ class ServingEngine:
         if kind == "prefill":
             terminal += self._forward(reqs, prefill=True)
             self.stats["prefill_iters"] += 1
+        elif self.spec_decoder is not None:
+            terminal += self._spec_decode()
+            self.stats["decode_iters"] += 1
         else:
             reqs = self.scheduler.ensure_decode_blocks()
             if not reqs:          # everything preempted itself back out
@@ -192,6 +283,8 @@ class ServingEngine:
         expired = s.expire(now)
         for r in expired:
             r.finished_at = now
+            if self.spec_decoder is not None:
+                self.spec_decoder.forget(r)
             self.stats["deadline_exceeded"] += 1
             self._observe_deadline(r, now)
         return expired
@@ -207,6 +300,8 @@ class ServingEngine:
         if req is None:
             return False
         req.finished_at = self._now()
+        if self.spec_decoder is not None:
+            self.spec_decoder.forget(req)
         self.stats["cancelled"] += 1
         return True
 
@@ -298,9 +393,121 @@ class ServingEngine:
                 finished.append(r)
         return finished
 
+    def _spec_decode(self) -> List[Request]:
+        """One speculative decode iteration: propose per-request drafts,
+        grow blocks for each window, verify all positions in ONE target
+        forward (the chunked-prefill branch at each row's cached offset),
+        then emit the accepted prefix plus the target's correction or
+        bonus token and rewind: host lengths roll back to the accept
+        point and trailing blocks return to the pool the same iteration.
+        Greedy rows emit the target's argmax chain, so their streams are
+        the plain decode's."""
+        sd = self.spec_decoder
+        cs = self.cache_state
+        reqs = [r for r in self.scheduler.running
+                if r.status == "running" and not r.prefilling()]
+        if not reqs:
+            return []
+        drafts = sd.propose(reqs)
+        window = {r.rid: len(drafts.get(r.rid, [])) + 1 for r in reqs}
+        if all(n == 1 for n in window.values()):
+            # Nothing drafted anywhere: a plain single-token decode.
+            reqs = self.scheduler.ensure_decode_blocks()
+            if not reqs:
+                return []
+            return self._forward(reqs, prefill=False)
+        reqs = self.scheduler.ensure_spec_blocks(reqs, window)
+        if not reqs:              # everything preempted itself back out
+            return []
+        max_m = max(window[r.rid] - 1 for r in reqs)
+        if max_m == 0:            # the drafted rows were all preempted
+            return self._forward(reqs, prefill=False)
+
+        slots = self.max_batch
+        width = min(_bucket_pow2(max_m + 1, lo=2), cs.capacity_tokens())
+        tables = np.zeros_like(cs.tables)
+        lengths = np.zeros((slots,), np.int32)
+        offsets = np.zeros((slots,), np.int32)
+        ids = np.zeros((slots, width), np.int64)
+        dlens = np.zeros((slots,), np.int64)
+        temps = np.zeros((slots,), np.float32)
+        topks = np.zeros((slots,), np.int64)
+        topps = np.ones((slots,), np.float32)
+        keys = [0] * slots
+        steps = [0] * slots
+        max_off = 0
+        for r in reqs:
+            d = drafts.get(r.rid, [])
+            cached = r.cached_tokens()
+            ids[r.slot, 0] = (r.prompt + r.generated)[-1]
+            ids[r.slot, 1:1 + len(d)] = d
+            tables[r.slot] = cs.tables[r.slot]
+            offsets[r.slot] = cached
+            lengths[r.slot] = cached + len(d) + 1
+            dlens[r.slot] = len(d)
+            temps[r.slot] = r.sampling.temperature
+            topks[r.slot] = r.sampling.top_k
+            topps[r.slot] = r.sampling.top_p
+            keys[r.slot] = r.key()
+            steps[r.slot] = len(r.generated)
+            max_off = max(max_off, cached)
+            if r.sampling.top_k > self._k_cap:
+                self._k_cap = r.sampling.top_k
+        # The window rides the chunked-prefill branch: the cached context
+        # is the pooled history (cached >= 1 always in decode).
+        hist_blocks = min(
+            _bucket_pow2(cs.blocks_for(max_off), lo=1), cs.max_blocks)
+
+        with self.ledger.track("dispatch"):
+            emitted, n_acc = _verify_step(
+                self.model, self.device_cache, tables, lengths, offsets, ids,
+                dlens, temps, topks, topps, keys, steps, k_cap=self._k_cap,
+                hist_blocks=hist_blocks)
+            emitted = emitted.cpu().numpy()   # host read = dispatch sync
+            n_acc = n_acc.cpu().numpy()
+
+        now = self._now()
+        finished: List[Request] = []
+        for r in reqs:
+            m = int(dlens[r.slot])
+            j = int(n_acc[r.slot])
+            sd.observe(r, m, j)
+            if m > 0:
+                self.tracer.emit(r.rid, "spec_window", now, k=m, accepted=j)
+            self.stats["spec_steps"] += 1
+            self.stats["spec_drafted"] += m
+            self.stats["spec_accepted"] += j
+            done = False
+            for tok in emitted[r.slot, :j + 1]:
+                tok = int(tok)
+                r.generated.append(tok)
+                r.token_times.append(now)
+                self.stats["generated_tokens"] += 1
+                if r.first_token_at is None:
+                    r.first_token_at = now
+                    self.tracer.emit(r.rid, "first_token", now)
+                if (r.eos_id is not None and tok == r.eos_id) or (
+                        len(r.generated) >= r.max_new_tokens):
+                    done = True
+                    break     # tokens past EOS are never emitted
+            # Host rewind: the cache holds everything up to the accept
+            # point (writes past it are masked garbage the shrink frees).
+            cs.lengths[r.slot] = r.context_len() - 1
+            if done:
+                r.finished_at = now
+                sd.forget(r)
+                self.scheduler.retire(r)
+                self.stats["finished"] += 1
+                self._observe_deadline(r, now)
+                finished.append(r)
+            else:
+                self.scheduler.shrink_spec_blocks(r)
+        return finished
+
     def _register_prefix_blocks(self, r: Request) -> None:
         """Publish the request's newly completed full PROMPT blocks in the
-        prefix index (a no-op on an existing digest)."""
+        prefix index (a no-op on an existing digest), and write them
+        through to the store."""
         cs = self.cache_state
         done = min(r.prefill_cursor, len(r.prompt)) // cs.block_size
         if done <= r._blocks_registered:
@@ -310,7 +517,134 @@ class ServingEngine:
         blocks = cs.slot_blocks(r.slot)
         for i in range(r._blocks_registered, done):
             cs.prefix_register(r._prompt_digests[i], blocks[i])
+            if self.kv_store is not None:
+                self._store_put_block(r._prompt_digests[i], blocks[i])
         r._blocks_registered = done
+
+    # -- the KV store: device block I/O and migration ----------------------
+
+    def _build_pricer(self, link_gbps: float) -> MigrationPricer:
+        from tpu_trainer_torch.utils.logging import (flops_per_token,
+                                                     peak_flops_for_name)
+
+        peak = 1e12
+        if self.device.type == "cuda":
+            try:
+                peak = peak_flops_for_name(
+                    torch.cuda.get_device_name(self.device))
+            except ValueError:
+                pass
+        # flops_per_token counts fwd + bwd; a recompute is one forward.
+        return MigrationPricer(
+            flops_per_token=flops_per_token(self.config) / 3.0,
+            device_flops=peak, link_bytes_per_s=float(link_gbps) * 1e9)
+
+    def _pool_leaves(self) -> List[torch.Tensor]:
+        return [self.device_cache[k] for k in _POOL_LEAF_KEYS
+                if k in self.device_cache]
+
+    def read_block(self, block_id: int) -> List[np.ndarray]:
+        """One block's K/V payload as host arrays, one per pool leaf in
+        the JAX engine's order (``pool_k, pool_v[, scale_k, scale_v]``),
+        each ``[L, bsz, kvh, d | nbq]`` — the store and wire entry. A
+        bf16 leaf comes back as its raw 2-byte words (void ``V2``)."""
+        out = []
+        for leaf in self._pool_leaves():
+            blk = leaf[:, block_id]
+            if blk.dtype == torch.bfloat16:
+                out.append(blk.view(torch.int16).cpu().numpy()
+                           .view(_BF16_HOST))
+            else:
+                out.append(blk.cpu().numpy())
+        return out
+
+    def write_block(self, block_id: int, payload: List[np.ndarray]) -> bool:
+        """Write a store or migration entry into device block
+        ``block_id``. False, the device untouched, on any layout
+        mismatch: a store shared by differently configured engines falls
+        back to recompute instead of corrupting a pool."""
+        leaves = self._pool_leaves()
+        if len(payload) != len(leaves):
+            return False
+        for leaf, arr in zip(leaves, payload):
+            want = (_BF16_HOST if leaf.dtype == torch.bfloat16 else
+                    np.dtype(str(leaf.dtype).replace("torch.", "")))
+            if (tuple(arr.shape) != (leaf.shape[0],) + tuple(leaf.shape[2:])
+                    or np.dtype(arr.dtype) != want):
+                return False
+        for leaf, arr in zip(leaves, payload):
+            arr = np.ascontiguousarray(arr)
+            if leaf.dtype == torch.bfloat16:
+                src = torch.from_numpy(arr.view(np.int16)).view(
+                    torch.bfloat16)
+            else:
+                src = torch.from_numpy(arr)
+            leaf[:, block_id].copy_(src)
+        return True
+
+    def _store_put_block(self, digest: bytes, block_id: int) -> bool:
+        """Publish one device block into the store (idempotent per
+        digest). Doubles as the cache's eviction spill hook."""
+        if self.kv_store is None or self.kv_store.has(digest):
+            return False
+        return self.kv_store.put(digest, self.read_block(block_id))
+
+    def _store_fill_block(self, digest: bytes, block_id: int):
+        """The cache's store fall-through hook: fetch ``digest`` into
+        device block ``block_id``. The serving tier ("host" / "disk"),
+        or None on a miss or a layout mismatch."""
+        got = self.kv_store.get(digest)
+        if got is None:
+            return None
+        tier, payload = got
+        return tier if self.write_block(block_id, payload) else None
+
+    def set_role(self, role: Optional[str]) -> None:
+        """``"prefill"`` disables decode scheduling: requests run to the
+        end of prefill (sampling their first token) and then wait to be
+        extracted. ``"decode"`` or None is a full engine."""
+        if role not in (None, "prefill", "decode"):
+            raise ValueError(f"role={role!r} (prefill | decode | None)")
+        self.role = role
+        self.scheduler.decode_enabled = role != "prefill"
+
+    def migratable_rids(self) -> List[int]:
+        """Requests carried as far as a prefill engine carries them:
+        prefill complete and the first token sampled."""
+        return [r.rid for r in self.scheduler.running
+                if r.status == "running" and not r.prefilling()
+                and r.generated]
+
+    def extract_request(self, rid: int):
+        """Migration harvest and handoff: publish the request's full
+        prompt blocks to the store (digest-addressed), read its sub-block
+        tail raw, then take it out of the scheduler in fresh-waiting
+        state. Returns ``(request, payload)`` with payload ``{"tail_ntok",
+        "leaves"}``, or None if ``rid`` is not migratable. Set
+        ``request._kv_migration = payload`` and add it to an engine that
+        shares the store: it matches the full blocks through the store,
+        writes the tail raw and resumes sampling at the same (seed, token
+        index) — the stream of never moving."""
+        req = next((r for r in self.scheduler.running if r.rid == rid), None)
+        if req is None or req.prefilling() or not req.generated:
+            return None
+        cs = self.cache_state
+        payload = {"tail_ntok": 0, "leaves": None}
+        if self.kv_store is not None:
+            if req._prompt_digests is None:
+                req._prompt_digests = cs.block_digests(req.prompt)
+            blocks = cs.slot_blocks(req.slot)
+            full = len(req.prompt) // cs.block_size
+            for i in range(min(full, len(blocks))):
+                self._store_put_block(req._prompt_digests[i], blocks[i])
+            tail = len(req.prompt) - full * cs.block_size
+            if tail and full < len(blocks):
+                payload = {"tail_ntok": tail,
+                           "leaves": self.read_block(blocks[full])}
+        if self.spec_decoder is not None:
+            self.spec_decoder.forget(req)
+        self.scheduler.extract(req)
+        return req, payload
 
     def _now(self) -> float:
         if self._t0 is None:
@@ -384,6 +718,9 @@ class ServingEngine:
                 self.scheduler.prefix_hit_tokens
                 / max(1, self.scheduler.prompt_tokens), 4),
         }
+        if self.spec_decoder is not None:
+            gauges["spec_accept_rate"] = round(
+                s["spec_accepted"] / max(1, int(s["spec_drafted"])), 4)
         rec = self.ledger.record(gauges, final=final)
         self.serve_ts.append(rec)
         return rec
@@ -399,6 +736,18 @@ class ServingEngine:
         s["prefix_hit_rate"] = (self.scheduler.prefix_hit_tokens
                                 / max(1, self.scheduler.prompt_tokens))
         s["prefix_evictions"] = self.cache_state.n_prefix_evictions
+        if self.kv_store is not None:
+            cs = self.cache_state
+            s["store_hit_tokens_host"] = cs.store_hit_tokens_host
+            s["store_hit_tokens_disk"] = cs.store_hit_tokens_disk
+            s["store_hit_tokens"] = (
+                cs.store_hit_tokens_host + cs.store_hit_tokens_disk)
+            s["store_spills"] = cs.n_store_spills
+            s["store_declined"] = cs.n_store_declined
+            s["migrated_tail_fills"] = self.scheduler.n_migrated_tail_fills
+            s["migration_declined"] = self.scheduler.n_migration_declined
+            for k, v in self.kv_store.stats().items():
+                s[f"kv_store_{k}"] = v
         s.update(self.cache_state.fragmentation())
         s.update(self.scheduler.pool_shard_stats())
         s["queue_depth"] = self.queue_depth
@@ -411,6 +760,15 @@ class ServingEngine:
             s["deadline_miss_rate"] = float(np.mean(margins > 0))
             s["deadline_miss_slack_p50"] = float(np.percentile(slack, 50))
             s["deadline_miss_slack_p99"] = float(np.percentile(slack, 99))
+        if self.spec_decoder is not None:
+            s["spec_accept_mean"] = (
+                s["spec_accepted"] / max(1, int(s["spec_steps"])))
+            s["spec_accept_rate"] = (
+                s["spec_accepted"] / max(1, int(s["spec_drafted"])))
+            s["spec_accept_hist"] = list(self.spec_decoder.accept_hist)
+        else:
+            for k in ("spec_steps", "spec_drafted", "spec_accepted"):
+                s.pop(k)
         if self.wall_elapsed:
             s["wall_s"] = self.wall_elapsed
             s["tokens_per_s"] = s["generated_tokens"] / self.wall_elapsed
@@ -525,9 +883,12 @@ def _main(argv=None) -> int:
     p.add_argument("--top-p", type=float, default=1.0,
                    help="nucleus sampling mass (1.0 = off)")
     p.add_argument("--spec", default="off", choices=("off", "ngram", "draft"),
-                   help="speculative decoding proposer (only off is ported)")
-    p.add_argument("--spec-k", type=int, default=4)
-    p.add_argument("--spec-draft-layers", type=int, default=1)
+                   help="speculative decoding proposer")
+    p.add_argument("--spec-k", type=int, default=4,
+                   help="max draft tokens per verify step")
+    p.add_argument("--spec-draft-layers", type=int, default=1,
+                   help="target layers sliced into the draft model "
+                        "(--spec draft)")
     p.add_argument("--time-mode", default="wall", choices=("wall", "steps"))
     p.add_argument("--vocab", type=int, default=512)
     p.add_argument("--hidden", type=int, default=128)
@@ -536,9 +897,6 @@ def _main(argv=None) -> int:
     p.add_argument("--max-seq-len", type=int, default=256)
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = p.parse_args(argv)
-    if args.spec != "off":
-        raise NotImplementedError(
-            f"--spec {args.spec}: speculative decoding is not ported yet")
 
     config = GPTConfig(
         vocab_size=args.vocab, hidden_size=args.hidden,
@@ -547,12 +905,18 @@ def _main(argv=None) -> int:
         dtype="float32", param_dtype="float32",
     )
     params = init_params(config, args.seed, device=args.device)
+    draft_params = draft_config = None
+    if args.spec == "draft":
+        draft_params, draft_config = draft_from_target(
+            params, config, args.spec_draft_layers)
     engine = ServingEngine(
         params, config, max_batch=args.max_batch,
         block_size=args.block_size, num_blocks=args.num_blocks or None,
         kv_int8=args.kv_int8, attention=args.attention,
         prefill_chunk_tokens=args.prefill_chunk or None,
-        prefix_cache=args.prefix_cache, device=args.device,
+        prefix_cache=args.prefix_cache, spec=args.spec, spec_k=args.spec_k,
+        draft_params=draft_params, draft_config=draft_config,
+        device=args.device,
     )
     trace = poisson_trace(
         args.requests, vocab_size=args.vocab, rate=args.rate,

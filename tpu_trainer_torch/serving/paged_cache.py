@@ -24,8 +24,11 @@ in blocks it allocated privately (copy-on-write by construction). The
 index holds one reference per entry; entries referenced by the index
 alone form the LRU eviction pool that backstops allocation.
 
-The fleet KV-store tier of the JAX package (spill / fill hooks) is not
-ported yet.
+**The KV store** (``kv_store=``, ``serving/kv_store.py``): an evicted
+prefix block is spilled into the store instead of forgotten, a
+device-index miss falls through to the store and fills a fresh device
+block, and a migrated request's raw tail block is written through
+``fill_raw``. Device I/O is the owning engine's: it installs the hooks.
 """
 
 from __future__ import annotations
@@ -114,7 +117,8 @@ class PagedKVCache:
     """Host mirrors (tables, lengths, pool, prefix index) for one engine's
     slot batch."""
 
-    def __init__(self, config, slots: int, *, prefix_cache: bool = False):
+    def __init__(self, config, slots: int, *, prefix_cache: bool = False,
+                 kv_store=None):
         if not config.decode_paged:
             raise ValueError("PagedKVCache needs config.decode_paged=True")
         self.config = config
@@ -130,6 +134,20 @@ class PagedKVCache:
         self.prefix_cache = prefix_cache
         self._prefix: "OrderedDict[bytes, int]" = OrderedDict()
         self.n_prefix_evictions = 0
+        # The store tier behind the device pool. The engine installs
+        # ``spill_fn(digest, bid) -> bool`` (device block into the store),
+        # ``fill_fn(digest, bid) -> tier | None`` (store bytes into a
+        # device block), ``raw_fill_fn(bid, leaves) -> bool`` (a migrated
+        # raw tail) and ``pricer`` (``kv_store.MigrationPricer``).
+        self.store = kv_store
+        self.spill_fn = None
+        self.fill_fn = None
+        self.raw_fill_fn = None
+        self.pricer = None
+        self.n_store_spills = 0
+        self.n_store_declined = 0      # store hits priced out of transfer
+        self.store_hit_tokens_host = 0
+        self.store_hit_tokens_disk = 0
 
     def blocks_for(self, n_tokens: int) -> int:
         """Blocks needed to hold ``n_tokens``."""
@@ -168,6 +186,24 @@ class PagedKVCache:
         self.lengths[slot] = 0
         self._n_blocks[slot] = 0
 
+    def shrink(self, slot: int, keep_blocks: int) -> int:
+        """Drop the slot's trailing blocks past ``keep_blocks`` — the
+        speculative-decode rewind: blocks grown for a draft window the
+        verifier rejected go back to the pool the same iteration. The
+        tail past a request's cached tokens is always private (shared
+        blocks are full prompt blocks at the front). Returns blocks
+        freed."""
+        n0 = int(self._n_blocks[slot])
+        if keep_blocks >= n0:
+            return 0
+        if keep_blocks < 1:
+            raise ValueError(f"shrink(slot={slot}, keep={keep_blocks})")
+        tail = [int(b) for b in self.tables[slot, keep_blocks:n0]]
+        self.pool.free(tail)
+        self.tables[slot, keep_blocks:n0] = 0
+        self._n_blocks[slot] = keep_blocks
+        return len(tail)
+
     # -- prefix index ------------------------------------------------------
 
     def block_digests(self, tokens: List[int]) -> List[bytes]:
@@ -175,28 +211,76 @@ class PagedKVCache:
 
     def prefix_lookup(self, prompt: List[int], *,
                       digests: Optional[List[bytes]] = None,
+                      context_len: Optional[int] = None,
                       ) -> Tuple[List[int], int]:
         """Longest indexed prefix of ``prompt`` as ``(block_ids,
         matched_tokens)``, capped at the last full block strictly inside
-        the prompt (at least one token is always fed). Hits touch the LRU
+        the context (at least one token is always fed). Hits touch the LRU
         order. The returned blocks carry ONE caller-owned reference each:
         the caller installs them in a slot table (``release`` drops it) or
         ``pool.free``s them when admission is abandoned. ``([], 0)`` when
-        the index is off."""
+        the index is off.
+
+        ``context_len`` widens the cap for a request resuming with
+        generated tokens (KV migration): every full prompt block is then
+        matchable. A device-index miss falls through to the store: a
+        stored digest fills a freshly allocated device block, adopted
+        into the index. Each match is retained inside the walk, so a
+        later digest's fill allocation cannot evict it."""
         if not self.prefix_cache:
             return [], 0
-        k_max = max(0, (len(prompt) - 1) // self.block_size)
+        ctx = len(prompt) if context_len is None else context_len
+        k_max = max(0, min(len(prompt), ctx - 1) // self.block_size)
         if digests is None:
             digests = self.block_digests(prompt[:k_max * self.block_size])
         shared: List[int] = []
         for dig in digests[:k_max]:
             bid = self._prefix.get(dig)
             if bid is None:
+                bid = self._store_fill(dig)
+            if bid is None:
                 break
             self.pool.retain([bid])
             self._prefix.move_to_end(dig)
             shared.append(bid)
         return shared, len(shared) * self.block_size
+
+    def _store_fill(self, dig: bytes) -> Optional[int]:
+        """Store fall-through for one missed digest: allocate a device
+        block, fill it from the store, adopt it into the prefix index
+        (the allocation's reference becomes the index's). None on a store
+        miss, a pricer veto, or a dry pool."""
+        if self.store is None or self.fill_fn is None:
+            return None
+        if not self.store.has(dig):
+            return None
+        if self.pricer is not None:
+            nbytes = self.store.entry_nbytes(dig) or 0
+            if not self.pricer.prefers_transfer(self.block_size, nbytes):
+                self.n_store_declined += 1
+                return None
+        got = self.alloc_blocks(1)
+        if got is None:
+            return None
+        bid = got[0]
+        tier = self.fill_fn(dig, bid)
+        if tier is None:
+            self.pool.free([bid])
+            return None
+        self._prefix[dig] = bid
+        if tier == "disk":
+            self.store_hit_tokens_disk += self.block_size
+        else:
+            self.store_hit_tokens_host += self.block_size
+        return bid
+
+    def fill_raw(self, block_id: int, leaves) -> bool:
+        """Write a migrated raw (tail) block's leaves into a private
+        device block through the engine's hook. False without a hook or
+        when the payload does not match the pool layout."""
+        if self.raw_fill_fn is None:
+            return False
+        return bool(self.raw_fill_fn(block_id, leaves))
 
     def prefix_register(self, digest: bytes, block_id: int) -> bool:
         """Publish a freshly filled full block under its digest; the index
@@ -242,7 +326,8 @@ class PagedKVCache:
     def alloc_blocks(self, n: int) -> Optional[List[int]]:
         """``pool.alloc`` with LRU prefix eviction as the backstop: pop
         index entries (oldest first) that only the index holds until the
-        free list covers ``n``."""
+        free list covers ``n``. With a store attached, a victim's device
+        bytes are spilled into it before the block is freed."""
         while self.pool.free_blocks < n:
             victim = None
             for dig, bid in self._prefix.items():
@@ -252,6 +337,9 @@ class PagedKVCache:
             if victim is None:
                 return None
             bid = self._prefix.pop(victim)
+            if self.store is not None and self.spill_fn is not None:
+                if self.spill_fn(victim, bid):
+                    self.n_store_spills += 1
             self.pool.free([bid])
             self.n_prefix_evictions += 1
         return self.pool.alloc(n)

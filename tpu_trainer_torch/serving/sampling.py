@@ -10,7 +10,14 @@ only on its seed and position, never on which other requests share the
 batch or how scheduling interleaved them — what makes
 recompute-preemption resume exactly. ``temperature == 0`` rows take the
 exact argmax. JAX's threefry draws cannot be reproduced here, so sampled
-streams differ from the JAX package's; greedy ones agree.
+streams differ from the JAX package's (they agree in distribution);
+greedy ones agree.
+
+Speculative decoding (``serving/spec.py``) makes up to three draws at one
+token index: the accept uniform and the residual draw take their own
+salted seeds (``draw_seed(key, step, salt)``, salts 1 and 2, where JAX
+folds the same salts into the step's key), and the bonus draw is the
+unsalted one, exactly the draw ``sample_tokens`` makes there.
 """
 
 from __future__ import annotations
@@ -36,9 +43,33 @@ def request_key(seed: int) -> int:
     return _mix64(int(seed) & _MASK64) >> 1
 
 
-def draw_seed(key: int, step: int) -> int:
-    """Generator seed of the draw at token index ``step`` of a request."""
-    return _mix64(int(key) ^ _mix64(int(step) & _MASK64)) >> 1
+def draw_seed(key: int, step: int, salt: int = 0) -> int:
+    """Generator seed of the draw at token index ``step`` of a request;
+    a nonzero ``salt`` names another draw at the same index."""
+    seed = _mix64(int(key) ^ _mix64(int(step) & _MASK64)) >> 1
+    if salt:
+        seed = _mix64(seed ^ _mix64(int(salt) & _MASK64)) >> 1
+    return seed
+
+
+def _generator(key: int, step: int, salt: int, device) -> torch.Generator:
+    return torch.Generator(device=device).manual_seed(
+        draw_seed(key, step, salt))
+
+
+def gumbel_noise(key: int, step: int, vocab: int, device, *,
+                 salt: int = 0) -> torch.Tensor:
+    """``[vocab]`` Gumbel noise of one draw: ``argmax(logits + noise)``
+    is a categorical draw from ``softmax(logits)``."""
+    u = torch.rand(vocab, generator=_generator(key, step, salt, device),
+                   device=device)
+    return -torch.log(-torch.log(u))
+
+
+def uniform(key: int, step: int, device, *, salt: int) -> torch.Tensor:
+    """One U[0, 1) draw (a ``[1]`` tensor) of a salted seed."""
+    return torch.rand(1, generator=_generator(key, step, salt, device),
+                      device=device)
 
 
 def filter_logits(
@@ -105,9 +136,6 @@ def sample_tokens(
         k_cap=k_cap)
     vocab = logits.shape[1]
     for r in rows:
-        gen = torch.Generator(device=dev).manual_seed(
-            draw_seed(keys[r], steps[r]))
-        u = torch.rand(vocab, generator=gen, device=dev)
-        gumbel = -torch.log(-torch.log(u))
-        tokens[r] = torch.argmax(scaled[r] + gumbel)
+        tokens[r] = torch.argmax(
+            scaled[r] + gumbel_noise(keys[r], steps[r], vocab, dev))
     return tokens

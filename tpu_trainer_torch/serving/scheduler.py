@@ -21,9 +21,15 @@ package's:
   (seed, token index), so the resumed stream is token-identical.
 - **Retirement / cancellation / deadlines**: blocks return the same
   iteration; the engine sweeps deadlines at the top of each step.
+- **Speculative decode**: admission budgets a worst-case draft window
+  (``spec_reserve_tokens``); ``ensure_spec_blocks`` grows a request's
+  blocks for its verify window before the step and ``shrink_spec_blocks``
+  hands back what the rejected drafts used.
+- **KV migration**: ``extract`` hands a running request off (prefill
+  role); a request arriving with ``_kv_migration`` matches its full prompt
+  blocks through the store and gets its raw tail written in place.
 
-Speculative-decode block growth, KV migration and fleet export are not
-ported yet.
+Fleet export (``export_requests``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ import dataclasses
 from collections import deque
 from typing import Deque, List, Optional, Tuple
 
+from tpu_trainer_torch.serving.kv_store import leaves_nbytes
 from tpu_trainer_torch.serving.paged_cache import PagedKVCache
 
 TERMINAL_STATES = frozenset(
@@ -91,8 +98,17 @@ class Request:
     prefill_target: int = 0
     prefill_chunk: int = 0             # tokens to feed THIS iteration
     prefix_hit_tokens: int = 0         # prompt tokens skipped at admission
+    # Speculative-decode telemetry: drafts proposed / accepted over this
+    # request's verify steps.
+    spec_drafted: int = 0
+    spec_accepted: int = 0
+    spec_steps: int = 0
     _blocks_registered: int = 0        # prompt blocks published to the index
     _prompt_digests = None             # chained digests, hashed once
+    # Migrated raw-tail payload ({"tail_ntok", "leaves"}) attached between
+    # ``extract`` on a prefill engine and admission on a decode engine;
+    # consumed (and cleared) by the first admission.
+    _kv_migration = None
     _key = None                        # lazily built sampling key
 
     def context_len(self) -> int:
@@ -121,21 +137,30 @@ class Scheduler:
 
     def __init__(self, cache: PagedKVCache, *, watermark_blocks: int = 0,
                  max_prefill_rows: Optional[int] = None,
-                 prefill_chunk_tokens: Optional[int] = None):
+                 prefill_chunk_tokens: Optional[int] = None,
+                 spec_reserve_tokens: int = 0):
         if prefill_chunk_tokens is not None and prefill_chunk_tokens < 1:
             raise ValueError(f"prefill_chunk_tokens={prefill_chunk_tokens}")
         self.cache = cache
         self.watermark = watermark_blocks
         self.max_prefill_rows = max_prefill_rows or cache.slots
         self.prefill_chunk_tokens = prefill_chunk_tokens
+        # Admission budgets the context plus a worst-case draft window
+        # (K + 1 tokens); growth itself stays just in time.
+        self.spec_reserve_tokens = spec_reserve_tokens
         self.waiting: Deque[Request] = deque()
         self.running: List[Request] = []   # admission order
         self._free_slots = list(range(cache.slots))
         self._last_was_prefill = False
+        # False on a prefill-role engine: requests stop after prefill and
+        # their first token, until they are extracted for migration.
+        self.decode_enabled = True
         self.n_preemptions = 0
         self.n_admissions = 0
         self.prefix_hit_tokens = 0
         self.prompt_tokens = 0
+        self.n_migrated_tail_fills = 0  # migrated raw tails admitted
+        self.n_migration_declined = 0   # tails priced out (recompute won)
         self.terminal_counts = {s: 0 for s in sorted(TERMINAL_STATES)}
         # Span hooks wired by the engine: a SpanTracer and its clock.
         self.tracer = None
@@ -195,6 +220,20 @@ class Scheduler:
             total += r.max_new_tokens - len(r.generated)
         return total
 
+    def extract(self, req: Request) -> None:
+        """Migration handoff: strip one running request out (blocks
+        released, cursors reset, status waiting) for admission on another
+        engine. Its K/V survives in the prefix index / store (the caller
+        harvests before calling), and the (seed, token index) sampling
+        keeps the resumed stream token-identical wherever it lands."""
+        self._vacate(req)
+        req.status = "waiting"
+        req.prefill_cursor = 0
+        req.prefill_target = 0
+        req.prefill_chunk = 0
+        self._emit(req, "exported", generated=len(req.generated),
+                   migrated=True)
+
     # -- the per-iteration decision ---------------------------------------
 
     def _admit(self) -> List[Request]:
@@ -207,20 +246,32 @@ class Scheduler:
             ctx = req.context_len()
             if req._prompt_digests is None and self.cache.prefix_cache:
                 req._prompt_digests = self.cache.block_digests(req.prompt)
-            # prefix_lookup hands back blocks already retained for us.
+            mig = req._kv_migration
+            # prefix_lookup hands back blocks already retained for us. A
+            # migrating request arrives with generated tokens, so every
+            # full prompt block is matchable.
             shared, matched = self.cache.prefix_lookup(
-                req.prompt, digests=req._prompt_digests)
-            need = self.cache.blocks_for(ctx) - len(shared)
+                req.prompt, digests=req._prompt_digests,
+                context_len=ctx if mig is not None else None)
+            budget_blocks = min(
+                self.cache.blocks_for(ctx + self.spec_reserve_tokens),
+                self.cache.max_blocks)
+            need = budget_blocks - len(shared)
             if need + self.watermark > self.cache.available_blocks:
                 if shared:
                     self.cache.pool.free(shared)
                 break
+            # Only the context's blocks are allocated now.
+            need = self.cache.blocks_for(ctx) - len(shared)
             self.waiting.popleft()
             fresh = self.cache.alloc_blocks(need)
             if fresh is None:   # guarded by the budget check above
                 raise RuntimeError("admission allocation failed")
             slot = self._free_slots.pop(0)
             self.cache.assign(slot, shared + fresh)
+            if mig is not None:
+                matched = self._ingest_migrated_tail(req, mig, matched, fresh)
+                req._kv_migration = None
             self.cache.lengths[slot] = matched
             req.slot = slot
             req.status = "running"
@@ -243,6 +294,31 @@ class Scheduler:
                            resumed=True)
         return admitted
 
+    def _ingest_migrated_tail(self, req: Request, mig: dict,
+                              matched: int, fresh: List[int]) -> int:
+        """Admission half of KV migration: the full prompt blocks came
+        through the store (``matched`` covers them) and the sub-block tail
+        rides raw in ``mig``. When every full block matched, the tail is
+        written into the request's first private block, where prefill
+        would have put it, and the cursor starts past it. Any shortfall
+        (partial match, no hook, the pricer preferring recompute) falls
+        back to prefilling the rest, which is always correct."""
+        ntok = int(mig.get("tail_ntok") or 0)
+        leaves = mig.get("leaves")
+        bsz = self.cache.block_size
+        full = (len(req.prompt) // bsz) * bsz
+        if ntok <= 0 or leaves is None or matched != full or not fresh:
+            return matched
+        pricer = self.cache.pricer
+        if pricer is not None and not pricer.prefers_transfer(
+                ntok, leaves_nbytes(leaves)):
+            self.n_migration_declined += 1
+            return matched
+        if not self.cache.fill_raw(fresh[0], leaves):
+            return matched
+        self.n_migrated_tail_fills += 1
+        return matched + ntok
+
     def schedule(self) -> Tuple[str, List[Request]]:
         """Decide this iteration: ``("prefill", batch)`` (each with
         ``prefill_chunk`` set), ``("decode", running)`` or ``("idle",
@@ -250,7 +326,8 @@ class Scheduler:
         decode alternate whenever both kinds of work exist."""
         self._admit()
         prefilling = [r for r in self.running if r.prefilling()]
-        decodable = [r for r in self.running if not r.prefilling()]
+        decodable = ([r for r in self.running if not r.prefilling()]
+                     if self.decode_enabled else [])
         if prefilling and decodable and self.prefill_chunk_tokens:
             do_prefill = not self._last_was_prefill
         else:
@@ -292,6 +369,37 @@ class Scheduler:
                 self.cache.extend(req.slot, got)
             stepped.append(req)
         return stepped
+
+    def ensure_spec_blocks(self, reqs: List[Request],
+                           window_tokens) -> List[Request]:
+        """Speculative-decode growth: each request about to verify a
+        window gets blocks for ``cached_tokens() + window_tokens[rid]``
+        before the step, so the window's K/V writes land inside its
+        table. Same preemption backstop and return contract as
+        ``ensure_decode_blocks``."""
+        want = {r.rid for r in reqs}
+        stepped: List[Request] = []
+        for req in list(self.running):
+            if req.status != "running" or req.rid not in want:
+                continue  # preempted as an earlier request's victim
+            if req.prefilling():
+                continue
+            need_tokens = req.cached_tokens() + window_tokens[req.rid]
+            need = (self.cache.blocks_for(need_tokens)
+                    - len(self.cache.slot_blocks(req.slot)))
+            if need > 0:
+                got = self._alloc_with_preemption(need, req)
+                if got is None:
+                    continue  # req itself was the last-resort victim
+                self.cache.extend(req.slot, got)
+            stepped.append(req)
+        return stepped
+
+    def shrink_spec_blocks(self, req: Request) -> int:
+        """Post-verify rewind: keep exactly the blocks the accepted cache
+        contents occupy; the next step grows just in time again."""
+        keep = self.cache.blocks_for(max(1, req.cached_tokens()))
+        return self.cache.shrink(req.slot, keep)
 
     def _alloc_with_preemption(self, n: int, requester: Request):
         while True:

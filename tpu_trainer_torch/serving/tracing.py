@@ -3,8 +3,9 @@
 change a sampled token.
 
 - ``SpanTracer``: per-rid lifecycle timelines in the engine clock domain
-  (admitted -> prefill_chunk x N -> first_token -> preempted ... ->
-  finished | cancelled | deadline_exceeded | failed), with the
+  (admitted -> prefill_chunk x N -> first_token -> spec_window x M ->
+  preempted ... -> finished | cancelled | deadline_exceeded | failed, or
+  exported to another engine), with the
   conservation check that every opened rid closes exactly once.
 - ``ServingLedger``: wall-clock attribution of a serve loop into
   non-overlapping ``track()`` categories (dispatch, host_sched, rpc_wait,
@@ -23,6 +24,9 @@ SCHEMA_VERSION = 1
 
 TERMINAL_EVENTS = frozenset(
     {"finished", "cancelled", "deadline_exceeded", "failed"})
+# A rid handed to another engine (``Scheduler.extract``): its obligation
+# moved to the timeline that admits it next.
+HANDOFF_EVENTS = frozenset({"exported"})
 
 
 class SpanTracer:
@@ -50,7 +54,8 @@ class SpanTracer:
         self._events.clear()
 
     def conservation(self) -> dict:
-        """Every opened rid closed with exactly one terminal event."""
+        """Every opened rid closed with exactly one terminal event, or
+        handed off."""
         open_rids, multi = [], []
         for rid, evs in self._events.items():
             kinds = [e.get("event") for e in evs]
@@ -59,7 +64,8 @@ class SpanTracer:
             n_term = sum(1 for k in kinds if k in TERMINAL_EVENTS)
             if n_term > 1:
                 multi.append(rid)
-            elif n_term == 0:
+            elif n_term == 0 and not any(k in HANDOFF_EVENTS
+                                         for k in kinds):
                 open_rids.append(rid)
         return {
             "ok": not open_rids and not multi,
