@@ -105,6 +105,21 @@ JAX package. Phases, each fatal on failure:
               Times at the packed shape next to SDPA with the equivalent
               boolean mask, and the fused/split table (unsegmented, b*s =
               8192, s = 1024..8192) behind ``_FUSED_BWD_MAX_SEQ``.
+8a. mesh   -- the flash kernels' ``return_lse`` and ``dlse`` and the ring
+              attention in one process at small_model.yaml's width (b=8,
+              s=1024, 12 heads of 64, bf16; ``phase_mesh``): ``(o, lse)``
+              and the q/k/v gradients for cotangents of both, through the
+              fused and the split backward, against the f32 twin within 2x
+              the bf16 twin's own error; a backward without ``dlse`` (a
+              pre-pass that ignores it) must be rejected; the ring on the
+              loopback permute at sp 2 and 4, contiguous and zigzag,
+              forward and gradients against the f32 twin, L2 within 2x
+              one flash pass's error and the worst element within
+              ``RING_MAX_FACTOR`` (3x: a K/V gradient element sums up to
+              sp chunks' bf16-rounded partials), its launches (counted
+              from zero around it) the ring's schedule; times of the
+              forward, the backwards with and without ``dlse`` and each
+              ring beside one flash pass.
 9. gmm     -- the grouped-matmul kernels (gmm, its dgrad against rhs^T,
               tgmm) against ``gmm_reference`` / ``tgmm_reference`` at the
               MoE path's shapes (G=16384, E=8, 768 -> 3072 and 3072 -> 768;
@@ -245,7 +260,7 @@ JAX package. Phases, each fatal on failure:
               process at accumulation 2 (losses, grad norms, final masters
               and moments), launches exact on each rank, and a planted
               fault (rank 1's gradients scaled) rejected;
-              ``medium_model.yaml`` (12 layers) through ``train_fsdp
+              ``medium_model.yaml`` (8 layers) through ``train_fsdp
               --sharding
               FULL_SHARD`` and ``SHARD_GRAD_OP`` at world 2 (3 steps):
               losses bitwise one process's, grad norms within
@@ -268,7 +283,7 @@ JAX package. Phases, each fatal on failure:
               bitwise; a planted fault (rank 1's queue offsets 0)
               rejected. Beside the ZeRO runs, ``train_fsdp --sharding
               FULL_SHARD --cpu_offload`` at world 2 (medium_model.yaml,
-              12 layers): losses bitwise one process's, grad norms within
+              8 layers): losses bitwise one process's, grad norms within
               ``DIST_NORM_RTOL``, its final state (digested, not
               written) bitwise the on-card FULL_SHARD run's; a rank's
               device and host bytes at rest.
@@ -282,6 +297,16 @@ JAX package. Phases, each fatal on failure:
               ends bitwise the straight one; a telemetry step at world 2
               within ``WORLD_REST_TEL_RTOL`` of one process; ``--nan_scan``
               with a NaN in rank 1's rows naming one process's site.
+24a. mesh-ranks -- tensor and sequence parallelism across processes
+              (``phase_mesh_ranks``): ``train_ddp`` on small_model.yaml at
+              2 of its 12 layers (dropout 0, batch 8 x 1024, 3 steps) at
+              one process, ``--mesh_tensor 2``, ``--mesh_sequence 2`` and
+              both (4 ranks), the ranks sharing the card over gloo, all
+              started together: each against the one process within
+              ``MESH_LOSS_RTOL`` / ``MESH_STATE_L2`` (a swapped-halves
+              control rejected), launches exact (the ring's schedule a
+              layer under sequence, no head + CE under tensor); a rank's
+              step ms, collectives a step and parameter bytes at rest.
 25. elastic -- ``python -m tpu_trainer_torch.training.elastic`` at
               small_model.yaml's width (2 layers), two ranks sharing the
               card: ``kill_host`` shrinks to world 1, which resumes from
@@ -297,20 +322,21 @@ cli phase's dropless-MoE run, moe-remat, the ft phase's MoE telemetry run
 and the dist phase's MoE group (moe_small.yaml at 2 layers), the
 moe-capacity phase's CLI run (moe_small.yaml at 4 layers, since PR 13),
 the offload phase (medium_model.yaml at 8 layers since PR 13), the dist
-phase's ZeRO and offload runs (medium_model.yaml at 12 layers), the remat
+phase's ZeRO and offload runs (medium_model.yaml at 8 layers), the remat
 phase (large_1b_single_chip.yaml at 8 layers), the dist phase's
-small_model.yaml runs and the world-rest phase (4 layers) and the
-elastic phase (small_model.yaml at 2 layers).
+small_model.yaml runs and the world-rest phase (4 layers), the elastic
+phase and the mesh-ranks phase (small_model.yaml at 2 layers).
 
 The phases run one after another in the order above, except that the
-world-rest and elastic phases run one after the other in a process of
-their own (``_beside``) while the ft phase runs, before the dist phase,
-which runs last; and the ft phase runs its chain of restarted processes
-on a thread beside its own sections that time nothing. Those processes
-share the host's cores and the card, so the restart times the ft phase
-prints and the elastic phase's recovery and grow seconds are taken
-beside that work. The whole run takes about fifteen minutes on an H100
-(700 W), builds included.
+world-rest, elastic and mesh-ranks phases run one after the other in a
+process of their own (``_beside``) while the ft phase runs, before the
+dist phase, which runs last; and the ft phase runs its chain of
+restarted processes on a thread beside its own sections that time
+nothing. Those processes share the host's cores and the card, so the
+restart times the ft phase prints, the world-rest and mesh-ranks phases'
+step times and the elastic phase's recovery and grow seconds are taken
+beside that work. The whole run takes about seventeen minutes on an
+H100 (700 W), builds included.
 
 Then the ``kernels`` JSON line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. Without CUDA it exits 2 and prints no
@@ -702,10 +728,11 @@ def _close(what, got, want) -> float:
     return err
 
 
-def _near_truth(what, got, plain, truth) -> dict:
+def _near_truth(what, got, plain, truth, max_factor=NEAR_FACTOR) -> dict:
     """A bf16 kernel result against the f32 truth, next to its bf16 plain
-    version's error (NEAR_FACTOR, NEAR_FLOOR). Returns the errors; raises
-    when the kernel's worst element or L2 error is past its limit."""
+    version's error (NEAR_FACTOR, NEAR_FLOOR; ``max_factor`` for the worst
+    element). Returns the errors; raises when the kernel's worst element
+    or L2 error is past its limit."""
     floor = NEAR_FLOOR[got.dtype]
     got, plain, truth = (t.detach().float() for t in (got, plain, truth))
     if not torch.isfinite(got).all():
@@ -718,12 +745,13 @@ def _near_truth(what, got, plain, truth) -> dict:
                            t, dtype=torch.float64)))):
         k, p = norm(got - truth), norm(plain - truth)
         n = 1.0 if name == "max" else math.sqrt(truth.numel())
-        lim = NEAR_FACTOR * p + floor * rms * n
+        factor = max_factor if name == "max" else NEAR_FACTOR
+        lim = factor * p + floor * rms * n
         out[name] = {"kernel": k, "plain": p, "limit": lim}
         if not k <= lim:
             raise AssertionError(
                 f"{what}: kernel {name} error vs the f32 truth {k:.3e} > "
-                f"{lim:.3e} ({NEAR_FACTOR:g} x the bf16 plain version's "
+                f"{lim:.3e} ({factor:g} x the bf16 plain version's "
                 f"{p:.3e} + {floor:.1e} x rms {rms:.3e} x {n:.0f})")
     return out
 
@@ -1440,6 +1468,341 @@ def phase_train_split(results: dict) -> dict:
            "dkv_err": dkv_err, "dq_err": dq_err, "non_pad_frac": nonpad}
     results["train_split"] = rec
     return rec
+
+
+# The mesh phase's shape: small_model.yaml's width.
+MESH_SHAPE = dict(b=8, s=1024, h=12, kvh=12, d=64)
+# The ring against the f32 twin, next to one flash pass over the whole
+# sequence: L2 within NEAR_FACTOR of one pass's error, as every bf16
+# kernel result; the worst element within RING_MAX_FACTOR. A K/V
+# gradient element of the ring is the sum of up to sp chunks' partials,
+# each rounded to bf16 where the kernel writes it, where one pass rounds
+# its f32 sum once. Carrying the K/V (and so their gradients) through the
+# permutes in f32 leaves the worst elements as they are
+# (scripts/ring_rounding.py, on the CPU twin), so the excess is the
+# chunks' own rounding. On an H100 80GB HBM3 at 700 W the worst dv
+# element measured 1.59x one pass's at sp 2 contiguous, 2.02x at sp 2
+# zigzag (3.477e-02 against 1.718e-02), 1.76x at sp 4 contiguous and
+# 1.33x at sp 4 zigzag; L2 at most 1.45x.
+RING_MAX_FACTOR = 3.0
+
+
+def phase_mesh(results: dict) -> dict:
+    """The flash kernels' ``return_lse`` / ``dlse`` and the ring attention
+    (``ops/ring.py``) in one process, at ``small_model.yaml``'s width (b=8,
+    s=1024, 12 heads of 64, bf16):
+
+    - ``flash_attention(return_lse=True)``: ``o`` and ``lse``, and the q/k/v
+      gradients for random cotangents of both (the ``dlse`` the pre-pass
+      takes off delta) through the fused and the split backward, against
+      the f32 twin within 2x the bf16 twin's own error; a planted fault,
+      the backward without ``dlse`` (a pre-pass that ignores it), must be
+      rejected by the same check;
+    - the ring on the loopback permute (every rank in this process) at sp
+      2 and 4, contiguous and zigzag: the output and the q/k/v gradients
+      against the f32 twin over the whole sequence, L2 within 2x one
+      flash pass's error and the worst element within
+      ``RING_MAX_FACTOR``; the launches of each ring (counted from zero around
+      it) equal to its schedule, ``ops.ring.forward_launches`` a rank, as
+      many backward launches;
+    - times (CUDA events): the forward, the fused backward without and
+      with ``dlse`` and the split pair with it, and each ring's forward +
+      backward next to one flash pass's over the whole sequence.
+
+    These launches compare a kernel with its plain version; the mesh
+    path's own launches are the ``mesh-ranks`` phase's."""
+    from tpu_trainer_torch.ops import flash
+    from tpu_trainer_torch.ops.ring import (forward_launches,
+                                            ring_attention_loopback,
+                                            use_zigzag)
+
+    phase = "mesh"
+    b, s, h, kvh, d = (MESH_SHAPE[k] for k in ("b", "s", "h", "kvh", "d"))
+    q, k, v, do = _attn_set(b, s, h, kvh, d, "bfloat16", seed=151)
+    gen = torch.Generator(device="cuda").manual_seed(152)
+    dlse = torch.randn((b, h, s), generator=gen, device="cuda")
+    out = {"card": nvidia_smi_line(), "shape": MESH_SHAPE}
+
+    def grads(fn, inputs, cots):
+        xs = [x.detach().clone().requires_grad_(True) for x in inputs]
+        res = fn(*xs)
+        res = res if isinstance(res, tuple) else (res,)
+        g = torch.autograd.grad(res, xs, cots[:len(res)])
+        torch.cuda.synchronize()
+        return [r.detach() for r in res] + [t.detach() for t in g]
+
+    def lse_fn(impl):
+        return lambda *x: flash.flash_attention(*x, return_lse=True,
+                                                backward=impl)
+
+    def twin(*x):
+        return flash.flash_attention_reference(*x, return_lse=True)
+
+    names = ("o", "lse", "dq", "dk", "dv")
+    f32 = [t.float() for t in (q, k, v)]
+    truth = grads(twin, f32, (do.float(), dlse))
+    plain = grads(twin, (q, k, v), (do, dlse))
+    worst = 0.0
+    for impl in ("fused", "split"):
+        got = grads(lse_fn(impl), (q, k, v), (do, dlse))
+        errs = {n: _near_truth(f"{phase}: {impl} return_lse {n}", a, p, t)
+                for n, a, p, t in zip(names, got, plain, truth)}
+        worst = max([worst] + [e["vs_plain"] for e in errs.values()])
+        out[f"lse_{impl}"] = errs
+        log(phase, f"return_lse + dlse, {impl} backward: "
+                   + ", ".join(f"{n} {e['max']['kernel']:.2e} (twin "
+                               f"{e['max']['plain']:.2e})"
+                               for n, e in errs.items())
+                   + " worst |err| vs the f32 twin")
+        ignored = grads(lse_fn(impl), (q, k, v),
+                        (do, torch.zeros_like(dlse)))
+
+        def fault(ignored=ignored):
+            for n, a, p, t in list(zip(names, ignored, plain, truth))[2:]:
+                _near_truth(f"{phase}: {impl} without dlse {n}", a, p, t)
+        _must_reject(f"{impl} backward that ignores dlse", fault)
+    log(phase, "planted fault rejected: the backward without dlse (a "
+               "pre-pass that ignores it), fused and split")
+
+    # Times: the forward and the backwards with and without dlse.
+    o, lse, qs, ks = flash.flash_forward(q, k, v)
+    times = {
+        "fwd_ms": event_ms(lambda i: flash.flash_forward(q, k, v), 5),
+        "bwd_ms": event_ms(lambda i: flash.flash_backward(
+            qs, ks, v, o, lse, do), 5),
+        "bwd_dlse_ms": event_ms(lambda i: flash.flash_backward(
+            qs, ks, v, o, lse, do, dlse=dlse), 5),
+        "split_dlse_ms": event_ms(lambda i: flash.flash_backward_split(
+            qs, ks, v, o, lse, do, dlse=dlse), 5),
+    }
+    out["times"] = times
+    log(phase, "fwd {fwd_ms:.3f} ms, fused bwd {bwd_ms:.3f} ms, with dlse "
+               "{bwd_dlse_ms:.3f} ms, split pair with dlse {split_dlse_ms:.3f}"
+               " ms ({card})".format(card=out["card"], **times))
+
+    # The ring on the loopback permute against one flash pass.
+    one_pass = grads(lambda *x: flash.flash_attention(*x), (q, k, v), (do,))
+    whole = grads(flash.flash_attention_reference, f32, (do.float(),))
+    pass_ms = event_ms(lambda i: grads(lambda *x: flash.flash_attention(*x),
+                                       (q, k, v), (do,)), 3)
+    counters = _counters()
+    out["ring"] = {}
+    for sp in (2, 4):
+        for zz in (False, True):
+            tag = f"sp{sp} {'zigzag' if zz else 'contiguous'}"
+            assert use_zigzag(s // sp, sp) or not zz
+
+            def ring(*x, sp=sp, zz=zz):
+                return ring_attention_loopback(*x, sp, zigzag=zz)
+            torch.cuda.synchronize()
+            for c in counters.values():
+                c.launches = 0
+            got = grads(ring, (q, k, v), (do,))
+            launched = {n: c.launches for n, c in counters.items()
+                        if c.launches}
+            per = forward_launches(sp, zz)
+            want = {"flash_forward": sp * per, "flash_backward": sp * per}
+            if launched != want:
+                raise AssertionError(f"{phase}: ring {tag} launches "
+                                     f"{launched}, want {want}")
+            errs = {n: _near_truth(f"{phase}: ring {tag} {n}", a, p, t,
+                                   max_factor=RING_MAX_FACTOR)
+                    for n, a, p, t in zip(("o", "dq", "dk", "dv"), got,
+                                          one_pass, whole)}
+            ms = event_ms(lambda i, ring=ring: grads(ring, (q, k, v), (do,)),
+                          3)
+            out["ring"][tag] = {"launches": launched, "errors": errs,
+                                "ms": ms, "one_pass_ms": pass_ms}
+            log(phase, f"ring {tag}: launches {launched} (schedule {per} a "
+                       f"rank); worst |err| / L2 err vs the f32 twin, one "
+                       f"pass's in brackets: "
+                       + ", ".join(f"{n} {e['max']['kernel']:.2e} "
+                                   f"[{e['max']['plain']:.2e}] / "
+                                   f"{e['l2']['kernel']:.3g} "
+                                   f"[{e['l2']['plain']:.3g}]"
+                                   for n, e in errs.items())
+                       + f"; fwd+bwd {ms:.3f} ms vs one pass {pass_ms:.3f}"
+                       f" ms ({ms / pass_ms:.2f}x)")
+    out["max_abs_err"] = worst
+    results["mesh"] = out
+    return out
+
+
+def _mesh_launches(cfg, rows: int, train_micro: int, eval_micro: int,
+                   sp: int, tp: int) -> dict:
+    """A rank's launches under a sequence size ``sp`` and tensor size
+    ``tp`` (``rows`` a micro-batch): the ring's ``forward_launches`` a
+    layer a micro-batch (one flash call without the axis) and as many
+    fused backwards; the head + CE kernel when no tensor axis takes the
+    vocab-sharded head and the rank's tokens fit the kernel
+    (``ops/loss._pallas_head_ok``)."""
+    from tpu_trainer_torch.ops.ring import forward_launches, use_zigzag
+
+    L = cfg.num_layers
+    sl = cfg.max_seq_len // sp
+    per = forward_launches(sp, use_zigzag(sl, sp)) if sp > 1 else 1
+    head = tp == 1 and 2048 <= rows * sl <= 16384
+    return {"flash_forward": L * per * (train_micro + eval_micro),
+            "flash_backward": L * per * train_micro,
+            "flash_backward_dkv": 0, "flash_backward_dq": 0,
+            "head_ce": train_micro + eval_micro if head else 0,
+            "gmm": 0, "tgmm": 0}
+
+
+# The mesh-ranks phase against one process, bf16, 3 steps, dropout off.
+# Under tensor the row-parallel partial products are summed over the
+# group in bf16 and the head's statistics in f32 slices; under sequence
+# the ring combines bf16 chunk outputs: the losses agree to bf16
+# rounding, not bitwise, and the state drifts as in the dist phase's MoE
+# group. Held like that group: losses within MESH_LOSS_RTOL, every final
+# master and moment on its relative L2 within MESH_STATE_L2, and a
+# control (one moment's halves swapped) must fail that bound. On an H100
+# 80GB HBM3 at 700 W the sound runs read losses within 8.8e-06 and state
+# L2 1.08e-02-1.35e-02; the backward without dlse
+# (scripts/torch_kernel_mutations.py bwd_prep_ignores_dlse_ring) moved the
+# sequence runs' state to 5.67e-02-5.71e-02 and their losses by under
+# 1e-4. MESH_STATE_L2 sits between the two, near their geometric mean.
+MESH_LOSS_RTOL = 1e-4
+MESH_STATE_L2 = 0.03
+
+
+def phase_mesh_ranks(results: dict, tmp: str) -> dict:
+    """Tensor and sequence parallelism across processes on the one card
+    (ranks sharing ``cuda:0`` over gloo, each a fresh process that joins
+    its group and calls ``train_ddp``, as the dist phase's): one process,
+    ``--mesh_tensor 2``, ``--mesh_sequence 2`` and ``--mesh_tensor 2
+    --mesh_sequence 2`` (4 ranks), all started together, each
+    ``small_model.yaml`` at 2 of its 12 layers (dropout 0, batch 8 x 1024,
+    accumulation 1, 3 steps and one eval micro-batch). Each run against
+    the one-process run: losses within ``MESH_LOSS_RTOL``, each final
+    master and moment within ``MESH_STATE_L2`` relative L2 (a control with
+    one moment's halves swapped must fail), a rank's launches exact
+    (``_mesh_launches``: the ring's schedule under sequence, no head + CE
+    under tensor); a rank's step ms, its collectives' calls and bytes a
+    step, and its parameter bytes at rest (under tensor the sharded leaves
+    at half). Ranks time-slicing one card measure no multi-GPU speed."""
+    import numpy as np
+
+    from tpu_trainer_torch.models.gpt import GPT
+    from tpu_trainer_torch.parallel.sharding import leaf_specs
+    from tpu_trainer_torch.training import cli
+
+    phase = "mesh-ranks"
+    t0 = time.perf_counter()
+    yaml = _cut_yaml(tmp, "small_model.yaml", "mesh", num_layers=2,
+                     dropout=0.0, attention_dropout=0.0)
+    steps, rows = 3, 8
+    common = ["--log_interval", "1", "--eval_interval", "0",
+              "--eval_batches", "1", "--keep_last_n", "0",
+              "--no_auto_resume"]
+
+    def argv(tag, *extra):
+        return (["--config", yaml, "--max_steps", str(steps),
+                 "--batch_size", str(rows), "--grad_accum", "1",
+                 "--save_interval", "0",
+                 "--checkpoint_dir", os.path.join(tmp, f"ck_{tag}"),
+                 "--metrics_jsonl", os.path.join(tmp, f"{tag}.jsonl")]
+                + common + list(extra))
+
+    runs = {"one": (0, 1, 1), "tp2": (2, 1, 2), "sp2": (2, 2, 1),
+            "tp2sp2": (4, 2, 2)}
+    args = {tag: argv(tag, *(["--mesh_tensor", str(tp)] if tp > 1 else [])
+                      + (["--mesh_sequence", str(sp)] if sp > 1 else []))
+            for tag, (_, sp, tp) in runs.items()}
+    spawned = [(tag, _dist_spawn(tmp, f"mesh_{tag}", "ddp", args[tag], w))
+               for tag, (w, _, _) in runs.items()]
+    recs = _dist_join_all(spawned)
+    group_s = time.perf_counter() - t0
+    cfg = cli.resolve_configs(cli.build_parser("ddp").parse_args(
+        args["one"]), "ddp")[0]
+    reading = {tag: _background(lambda tag=tag: _dist_state(os.path.join(
+        tmp, f"ck_{tag}", f"step_{steps:08d}"))) for tag in runs}
+    ref = reading["one"]()
+    keys = sorted(k for k in ref if k.startswith(("params/", "opt_state/")))
+    one = [r["loss"] for r in _jsonl(os.path.join(tmp, "one.jsonl"),
+                                     "train")]
+
+    def state_rel(got, want, ks):
+        out = {}
+        for k in ks:
+            w = np.asarray(want[k], dtype=np.float32).reshape(-1)
+            dd = np.asarray(got[k], dtype=np.float32).reshape(-1) - w
+            out[k] = float(np.linalg.norm(dd) / max(np.linalg.norm(w),
+                                                    1e-30))
+        return out
+
+    shapes = {n: tuple(p.shape)
+              for n, p in GPT(cfg, device="meta").named_parameters()}
+    full_bytes = 4 * sum(math.prod(sh) for sh in shapes.values())
+    tp_specs = leaf_specs(shapes, "replicated", 1, 2)
+    tp_bytes = 4 * sum(math.prod(sp.tp_shape) for sp in tp_specs.values())
+    launches, out = {}, {"group_s": group_s, "card": nvidia_smi_line()}
+    faults = []
+    for tag, (world, sp, tp) in runs.items():
+        want = _mesh_launches(cfg, rows, steps, 1, sp, tp)
+        for r in recs[tag]:
+            if r["launches"] != want:
+                raise AssertionError(f"{phase}: {tag} rank {r['rank']} "
+                                     f"launches {r['launches']}, want "
+                                     f"{want}")
+            _add_launches(launches, r["launches"])
+        r0 = recs[tag][0]
+        res = {"step_ms": [r["step_ms"] for r in recs[tag]],
+               "params_bytes_at_rest": r0["rest"][0]["params"],
+               "collectives_per_step": {
+                   k: v / steps for k, v in sorted(r0["collectives"].items())},
+               "launches": r0["launches"]}
+        want_bytes = tp_bytes if tp > 1 else full_bytes
+        if r0["rest"][0]["params"] != want_bytes:
+            raise AssertionError(f"{phase}: {tag}: a rank's parameters at "
+                                 f"rest {r0['rest'][0]['params']} bytes, "
+                                 f"want {want_bytes}")
+        if tag != "one":
+            got = [r["loss"] for r in _jsonl(
+                os.path.join(tmp, f"{tag}.jsonl"), "train")]
+            rel = max(abs(a - b) / abs(b) for a, b in zip(got, one))
+            final = reading[tag]()
+            leaves = state_rel(final, ref, keys)
+            worst = max(leaves, key=leaves.get)
+            res.update(losses=got, loss_worst_rtol=rel,
+                       state_worst_l2=[worst, leaves[worst]])
+            # Every run's readings are printed before any is refused.
+            if len(got) != len(one) or rel > MESH_LOSS_RTOL:
+                faults.append(f"{tag} losses' worst rtol {rel:.3e} > "
+                              f"{MESH_LOSS_RTOL:.0e}")
+            if leaves[worst] > MESH_STATE_L2:
+                faults.append(f"{tag} state's worst relative L2 "
+                              f"{leaves[worst]:.3e} > {MESH_STATE_L2}")
+            key = max((k for k in keys if "/mu/" in k),
+                      key=lambda k: ref[k].size)
+            shape = ref[key].shape
+            dim = max((i for i, n in enumerate(shape) if n % 2 == 0),
+                      key=lambda i: shape[i])
+            swapped = {key: np.concatenate(
+                np.split(final[key], 2, axis=dim)[::-1], axis=dim)}
+            ctrl = state_rel(swapped, ref, [key])[key]
+            if ctrl <= MESH_STATE_L2:
+                raise AssertionError(f"{phase}: the check passed a planted "
+                                     f"fault: {key}'s halves swapped "
+                                     f"(relative L2 {ctrl:.3e})")
+            res["control_l2"] = ctrl
+        out[tag] = res
+        log(phase, f"{tag} ({max(world, 1)} rank(s), sequence {sp} x tensor "
+                   f"{tp}): step ms {[round(x, 1) for x in res['step_ms'][0]]}"
+                   f" (rank 0), params at rest {res['params_bytes_at_rest'] / 1e6:.1f} MB "
+                   f"of {full_bytes / 1e6:.1f} MB, collectives a step "
+                   + ", ".join(f"{k} {v:g}" for k, v in
+                               res["collectives_per_step"].items())
+                   + (f"; losses worst rtol {res['loss_worst_rtol']:.2e}, "
+                      f"state worst relative L2 {res['state_worst_l2'][1]:.2e}"
+                      f" ({res['state_worst_l2'][0]}), control "
+                      f"{res['control_l2']:.2e}" if tag != "one" else ""))
+    log(phase, f"four runs sharing the card in {group_s:.1f} s ({out['card']})")
+    if faults:
+        raise AssertionError(f"{phase}: " + "; ".join(faults))
+    out["launches"] = launches
+    results[phase] = out
+    return out
 
 
 def _group_sizes(kind: str, G: int, E: int = 8) -> torch.Tensor:
@@ -5590,7 +5953,7 @@ def _dist_moe(tmp, argv, want, check_launches, launches, card) -> dict:
 def _dist_offload(ranks, a_off, full, m1, same_curve, check_launches,
                   want, launches, card) -> dict:
     """``train_fsdp --sharding FULL_SHARD --cpu_offload`` at world 2 on
-    medium_model.yaml (12 layers): losses bitwise one process's and grad
+    medium_model.yaml (8 layers): losses bitwise one process's and grad
     norms within ``DIST_NORM_RTOL`` (``same_curve`` against m1); each
     rank's final masters and moments (digests of its slices) bitwise the
     on-card FULL_SHARD run's, which is held to one process within
@@ -5626,7 +5989,7 @@ def _dist_offload(ranks, a_off, full, m1, same_curve, check_launches,
     if any(x["host"] != x["moments"] for x in rest):
         raise AssertionError(f"dist: m2_off: moments not all in host "
                              f"memory at rest: {rest}")
-    log("dist", f"FULL_SHARD --cpu_offload world 2 (medium_model.yaml at 12 "
+    log("dist", f"FULL_SHARD --cpu_offload world 2 (medium_model.yaml at 8 "
                 f"layers): losses within rtol {worst['loss']:.2e} and grad "
                 f"norms {worst['grad_norm']:.3e} of world 1, {n} final "
                 f"slices bitwise the on-card FULL_SHARD run's; at rest "
@@ -5661,7 +6024,7 @@ def phase_dist(results: dict, tmp: str) -> dict:
       and the final masters and moments bitwise; launches exact on each
       rank; a planted fault (rank 1's gradients scaled at step 1) must be
       rejected by the same loss check;
-    - ZeRO-3 and ZeRO-2 at world 2: ``medium_model.yaml`` (12 of its 24
+    - ZeRO-3 and ZeRO-2 at world 2: ``medium_model.yaml`` (8 of its 24
       layers, dropout 0) through ``train_fsdp --sharding FULL_SHARD`` and
       ``SHARD_GRAD_OP``, a rank batch 4, accumulation 1, 3 steps, against
       one process at batch 4 x 2: losses bitwise, grad norms within
@@ -5698,7 +6061,7 @@ def phase_dist(results: dict, tmp: str) -> dict:
     small0 = _cut_yaml(tmp, "small_model.yaml", "nodrop", dropout=0.0,
                        attention_dropout=0.0, num_layers=4)
     medium0 = _cut_yaml(tmp, "medium_model.yaml", "nodrop", dropout=0.0,
-                        attention_dropout=0.0, num_layers=12)
+                        attention_dropout=0.0, num_layers=8)
     common = ["--log_interval", "1", "--eval_interval", "0",
               "--eval_batches", "1", "--keep_last_n", "0",
               "--no_auto_resume"]
@@ -5902,7 +6265,7 @@ def phase_dist(results: dict, tmp: str) -> dict:
             "world1_peak_gb": m1["peak_bytes"] / 1e9,
             "collectives": [r["collectives"] for r in ranks]}
         wire = ranks[0]["collectives"]
-        log("dist", f"{strategy} world 2 (medium_model.yaml at 12 layers): "
+        log("dist", f"{strategy} world 2 (medium_model.yaml at 8 layers): "
                     f"losses "
                     f"within rtol {worst['loss']:.2e} and grad norms "
                     f"{worst['grad_norm']:.3e} of world 1; at rest a rank "
@@ -6469,14 +6832,20 @@ def phase_elastic(results: dict, tmp: str) -> dict:
 
 
 def _beside_child(tmp: str, out: str) -> None:
-    """The world-rest and elastic phases in this fresh process (the kernels
-    come from the card phase's build directory), in directory ``tmp``;
-    their records and seconds are written to ``out``."""
+    """The world-rest, elastic and mesh-ranks phases, one after the other,
+    in this fresh process (the kernels come from the card phase's build
+    directory), in directory ``tmp``; their records and seconds are
+    written to ``out``. They share the host's cores with ft and are
+    bound by them, so running two of them at once saves little (on an
+    H100 80GB HBM3 at 700 W, elastic beside mesh-ranks ran 149.5 s, 119.4
+    s alone), and world-rest's ranks and mesh-ranks' together beside ft
+    ran that card out of memory."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     results: dict = {"phase_seconds": {}}
     for name, fn in (("world-rest", phase_world_rest),
-                     ("elastic", phase_elastic)):
+                     ("elastic", phase_elastic),
+                     ("mesh-ranks", phase_mesh_ranks)):
         t = time.perf_counter()
         fn(results, tmp)
         results["phase_seconds"][name] = time.perf_counter() - t
@@ -6516,8 +6885,8 @@ def _beside(tmp: str):
         if kill:
             return None
         if rc != 0:
-            raise AssertionError(f"world-rest / elastic: their process "
-                                 f"exited {rc}")
+            raise AssertionError(f"world-rest / elastic / mesh-ranks: their "
+                                 f"process exited {rc}")
         with open(out) as f:
             return json.load(f)
     return join
@@ -6557,6 +6926,7 @@ def main(argv=None) -> int:
     train_k = run("train-kernel", phase_train_kernel)
     mask = run("mask", phase_mask)
     split = run("train-split", phase_train_split)
+    run("mesh", phase_mesh)
     grouped = run("gmm", phase_gmm)
     run("train-reference", phase_train_reference)
     run("train-grads", phase_train_grads)
@@ -6572,8 +6942,9 @@ def main(argv=None) -> int:
         run("offload", phase_offload, tmp)
         run("moe-remat", phase_moe_remat, tmp)
         mc = run("moe-capacity", phase_moe_capacity, tmp)
-        # The world-rest and elastic phases run in a process of their own
-        # beside ft (the whole run's time limit); dist after them.
+        # The world-rest, elastic and mesh-ranks phases run in a process
+        # of their own beside ft (the whole run's time limit); dist after
+        # them.
         join_beside = _beside(tmp)
         try:
             ft = run("ft", phase_ft, tmp)
@@ -6583,13 +6954,14 @@ def main(argv=None) -> int:
         beside = join_beside()
         rest = results["world-rest"] = beside["world-rest"]
         el = results["elastic"] = beside["elastic"]
+        mr = results["mesh-ranks"] = beside["mesh-ranks"]
         secs.update(beside["phase_seconds"])
         dist = run("dist", phase_dist, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log("done", "phase seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in secs.items())
-        + " (world-rest and elastic beside ft)")
+        + " (world-rest, elastic and mesh-ranks beside ft)")
 
     max_err = max(results["kernel_max_abs_err"],
                   results["engine"]["live_step_max_abs_err"],
@@ -6608,14 +6980,17 @@ def main(argv=None) -> int:
                 "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
                 "library_ms": library_ms}
 
-    # The moe-capacity, ft and dist phases' paths launch the training
-    # kernels too: each row counts its main path's launches plus theirs
+    # The moe-capacity, ft, dist, world-rest, elastic and mesh-ranks
+    # phases' paths launch the training kernels too (mesh-ranks: the ring's
+    # chunks under sequence, a rank's head slice of attention under
+    # tensor): each row counts its main path's launches plus theirs
     # (and flash_decode's the moe-capacity engine's and the spec and
     # kv-store phases' engines and draft models').
     ftl = dict(ft["launches"])
     _add_launches(ftl, dist["launches"])
     _add_launches(ftl, rest["launches"])
     _add_launches(ftl, el["launches"])
+    _add_launches(ftl, mr["launches"])
     _add_launches(ftl, mc["launches"])
     launches += mc["engine"]["launches"] + spec["launches"] + kvs["launches"]
     train_launches = {k: v + ftl.get(k, 0) for k, v in train_launches.items()}

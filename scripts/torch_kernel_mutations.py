@@ -27,6 +27,11 @@ out of step hang instead of failing):
 - ``head_ce_no_vocab_mask``: the head + CE kernel leaves the columns past
   V of its last vocab tile (E's zero-filled rows, logit 0) in the
   statistics; phase ``train_kernel`` must fail.
+- ``bwd_prep_ignores_dlse``: the backwards' pre-pass (``bwd_prep_kernel``)
+  leaves the lse cotangent out of delta; phase ``mesh`` must fail.
+- ``bwd_prep_ignores_dlse_ring``: the same fault, which the training runs
+  under a ``sequence`` axis meet through the ring's recombination; phase
+  ``mesh_ranks`` must fail on their losses or final state.
 - ``sum_skips_last_rank``: the collectives' rank-order sum
   (``parallel/collectives.py::_ordered_sum``) leaves out the last rank's
   part; phase ``dist`` must fail.
@@ -78,6 +83,16 @@ MUTATIONS = {
         "if (ragged && v0 + col >= V) x = acc[4 * j + e] = kNeg;",
         "if (ragged && v0 + col < 0) x = acc[4 * j + e] = kNeg;",
         "train_kernel"),
+    "bwd_prep_ignores_dlse": (
+        "tpu_trainer_torch/csrc/flash_attn.cu",
+        "if (dlse != nullptr && sp < s) acc -= dlse[bh * s + sp];",
+        "if (dlse != nullptr && sp < 0) acc -= dlse[bh * s + sp];",
+        "mesh"),
+    "bwd_prep_ignores_dlse_ring": (
+        "tpu_trainer_torch/csrc/flash_attn.cu",
+        "if (dlse != nullptr && sp < s) acc -= dlse[bh * s + sp];",
+        "if (dlse != nullptr && sp < 0) acc -= dlse[bh * s + sp];",
+        "mesh_ranks"),
     "sum_skips_last_rank": (
         "tpu_trainer_torch/parallel/collectives.py",
         "for i in range(1, parts.shape[0]):",

@@ -316,8 +316,10 @@ _PIPELINE = (NotImplementedError, "Queue 1: pipeline and expert parallelism")
 
 @pytest.mark.parametrize("extra,item", [
     (["--mesh", "auto"], _PLANNER),
+    # Tensor and sequence parallelism run; at one process a 2-way axis
+    # beside the default data=-1 is the JAX world-size error.
     (["--mesh_tensor", "2"],
-     (NotImplementedError, "Queue 1: tensor parallelism and hybrid meshes")),
+     (SystemExit, "1 devices not divisible by fixed axes product 2")),
     # Data parallelism runs; at one process a 4-way mesh is the JAX
     # world-size error.
     (["--mesh_data", "4"], (SystemExit, "wants 4 devices but 1 are")),
@@ -327,7 +329,7 @@ _PIPELINE = (NotImplementedError, "Queue 1: pipeline and expert parallelism")
     (["--mesh_fsdp", "2"],
      (SystemExit, "1 devices not divisible by fixed axes product 2")),
     (["--mesh_sequence", "2"],
-     (NotImplementedError, "Queue 1: the sequence ring")),
+     (SystemExit, "1 devices not divisible by fixed axes product 2")),
     (["--mesh_expert", "2"], _PIPELINE),
     (["--mesh_stage", "2"], _PIPELINE),
     (["--no_comms_model"], _PLANNER),

@@ -318,6 +318,66 @@ def test_dkv_outputs_direct_only_at_group_one(dtype, kvh, direct):
 
 # -- on the card -------------------------------------------------------------
 
+LSE_CASES = {
+    # name: (h, kvh, rope, dropout_rate, causal)
+    "mha_rope": (4, 4, True, 0.0, True),
+    "gqa_dropout": (4, 2, False, 0.3, True),
+    "gqa_noncausal": (4, 2, False, 0.0, False),
+    "mha_dropout_noncausal": (2, 2, True, 0.2, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LSE_CASES))
+def test_return_lse_matches_jax_interpret_kernel(jx, case):
+    """``return_lse=True`` on the CPU twin: ``(o, lse)`` and the q/k/v
+    gradients for random cotangents of both (the ``dlse`` path) against
+    the JAX kernel's ``return_lse`` variant in interpret mode (s = 128, the
+    variant's tiling rule; 64-blocks)."""
+    jax, jnp = jx.jax, jx.jnp
+    h, kvh, rope, rate, causal = LSE_CASES[case]
+    q, k, v, do, _ = _inputs(h, kvh, b=1, s=128, seed=3)
+    dlse = np.random.RandomState(4).standard_normal(
+        (1, h, 128)).astype(np.float32)
+    cos, sin = rope_tables(128, 16)
+    rng = jax.random.PRNGKey(6) if rate else None
+    seed = int(jax.random.bits(rng, dtype=jnp.uint32)) if rate else None
+
+    def jfn(q_, k_, v_):
+        return jx.flash.flash_attention(
+            q_, k_, v_, block_q=64, block_k=64, interpret=True,
+            causal=causal, dropout_rate=rate, dropout_rng=rng,
+            rope=(jnp.asarray(cos.numpy()), jnp.asarray(sin.numpy()))
+            if rope else None, return_lse=True)
+
+    (wo, wlse), vjp = jax.vjp(jfn, jnp.asarray(q), jnp.asarray(k),
+                              jnp.asarray(v))
+    want_grads = vjp((jnp.asarray(do), jnp.asarray(dlse)))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
+    o, lse = tflash.flash_attention(
+        tq, tk, tv, causal=causal, dropout_rate=rate, seed=seed,
+        rope=(cos, sin) if rope else None, return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (1, h, 128)
+    got_grads = torch.autograd.grad((o, lse), (tq, tk, tv),
+                                    (torch.from_numpy(do),
+                                     torch.from_numpy(dlse)))
+    np.testing.assert_allclose(o.detach().numpy(), np.asarray(wo), **TOL)
+    np.testing.assert_allclose(lse.detach().numpy(), np.asarray(wlse),
+                               **TOL)
+    for name, g, w in zip("qkv", got_grads, want_grads):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=name,
+                                   **TOL)
+    # Without return_lse the same call is o alone, and the reference
+    # entry point gives the same pair.
+    o2 = tflash.flash_attention(tq, tk, tv, causal=causal,
+                                dropout_rate=rate, seed=seed,
+                                rope=(cos, sin) if rope else None)
+    assert torch.equal(o2, o)
+    o3, lse3 = tflash.flash_attention_reference(
+        tq, tk, tv, causal=causal, dropout_rate=rate, seed=seed,
+        rope=(cos, sin) if rope else None, return_lse=True)
+    assert torch.equal(o3, o) and torch.equal(lse3, lse)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -659,3 +719,48 @@ def test_split_dq_bitwise_twice_on_card(cuda_device, b, s, h, kvh, d, dtype,
     torch.cuda.synchronize()
     assert first.dtype == dt
     assert torch.equal(first, second)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backward", ["fused", "split"])
+@pytest.mark.parametrize("dtype,rate,causal", [
+    ("float32", 0.0, True), ("bfloat16", 0.1, True),
+    ("bfloat16", 0.0, False),
+])
+def test_return_lse_and_dlse_on_card(cuda_device, backward, dtype, rate,
+                                     causal):
+    """``return_lse`` and the ``dlse`` backward on the card: the kernels'
+    ``(o, lse)`` and q/k/v gradients for cotangents of both against the
+    plain version (f32) or, for bf16, against the f32 plain version within
+    the plain bf16 version's own error (``_assert_near_truth``)."""
+    dev = cuda_device
+    dt = getattr(torch, dtype)
+    b, s, h, kvh, d = 1, 384, 4, 2, 64
+    q, k, v, do, _ = _inputs(h, kvh, b=b, s=s, d=d, seed=8)
+    dlse = torch.from_numpy(np.random.RandomState(9).standard_normal(
+        (b, h, s)).astype(np.float32)).to(dev)
+    xs = [torch.from_numpy(x).to(dev, dt).requires_grad_(True)
+          for x in (q, k, v)]
+    tdo = torch.from_numpy(do).to(dev, dt)
+    kw = dict(dropout_rate=rate, seed=77 if rate else None, causal=causal)
+
+    def run(inputs, cot, plain):
+        inputs = [x.detach().clone().requires_grad_(True) for x in inputs]
+        fn = (tflash.flash_attention_reference if plain
+              else lambda *a, **k: tflash.flash_attention(
+                  *a, backward=backward, **k))
+        o, lse = fn(*inputs, return_lse=True, **kw)
+        grads = torch.autograd.grad((o, lse), inputs, (cot, dlse))
+        return [o, lse, *grads]
+
+    got = run(xs, tdo, False)
+    plain = run(xs, tdo, True)
+    names = ("o", "lse", "dq", "dk", "dv")
+    if dt == torch.float32:
+        for n, a, r in zip(names, got, plain):
+            torch.testing.assert_close(a, r, atol=F32_TOL, rtol=F32_TOL,
+                                       msg=n)
+        return
+    truth = run([x.float() for x in xs], tdo.float(), True)
+    for n, a, r, t in zip(names, got, plain, truth):
+        _assert_near_truth(n, a, r, t)

@@ -241,11 +241,10 @@ def test_cli_sampled_serve_equals_kv_path(saved, capsys):
 @pytest.mark.parametrize("extra,match", [
     # --spec is a serving-engine feature (the JAX CLI's usage error).
     (["--spec", "ngram"], (SystemExit, "2")),
-    # Data-parallel decode runs; at one process a 2-way mesh is the
-    # world-size error.
+    # Data-parallel and tensor-parallel decode run; at one process a
+    # 2-way mesh is the world-size error.
     (["--mesh_data", "2"], (SystemExit, "wants 2 devices but 1 are")),
-    (["--mesh_tensor", "2"],
-     (NotImplementedError, "Queue 1: serving across devices")),
+    (["--mesh_tensor", "2"], (SystemExit, "wants 2 devices but 1 are")),
 ])
 def test_cli_later_item_flags_raise(saved, extra, match):
     exc, text = match

@@ -30,7 +30,24 @@ numpy arrays and scalars) for the test to compare. Jobs:
   ``broadcast_from_host0``;
 - ``nan_scan``: ``Trainer.nan_scan`` of the first batch, with a NaN
   planted (``plant``: ``{"rank", "layer", "row"}``) in one rank's rows at
-  the input of one layer (``plant_block``).
+  the input of one layer (``plant_block``);
+- ``tp_loss``: ``ops.loss._tp_loss`` over a tensor group of every rank,
+  on the inputs of an npz (``inputs``: ``emb``, ``x``, ``labels``,
+  ``mask``), this rank holding its hidden slice of ``emb``: the loss and
+  the gradients of the slice and of ``x``;
+- ``ring``: ``ops.ring.ring_attention_local`` over a sequence group of
+  every rank (``collectives.SequencePermute``), on this rank's chunk of
+  the npz's ``q``, ``k``, ``v``: the output chunk and its gradients for
+  the npz's cotangent ``g``;
+- ``mesh_dropout``: the residual keep mask of a ``[rows, seq, hidden]``
+  activation (this rank's slice under sequence) and two attention seeds,
+  drawn as the training forward draws them under the job's mesh;
+- ``errors``: the messages of trainers and forwards that must refuse
+  (``cases``: ``{name: {"model", "mesh", "train", "parallel", "forward"}}``);
+- ``cli``: ``training.cli.run_training(argv)`` in this process (the group
+  is the worker's) for each argv of ``runs``, optionally removing a step
+  directory first (``remove``), and ``eval.infer.main`` for each of
+  ``infer``; returns the infer results.
 
 The CPU only, gloo, f32.
 """
@@ -273,6 +290,109 @@ def nan_scan(job) -> dict:
     return tr.nan_scan(state, batch)
 
 
+def tp_loss(job) -> dict:
+    from tpu_trainer_torch.ops.loss import _tp_loss
+
+    d = np.load(job["inputs"])
+    coll = collectives.topology(1, 1, 1, mesh_lib.process_count()).tensor
+    emb = torch.from_numpy(d["emb"])
+    hc = emb.shape[1] // coll.world
+    e_l = emb[:, coll.rank * hc:(coll.rank + 1) * hc].clone()
+    e_l.requires_grad_(True)
+    x = torch.from_numpy(d["x"]).requires_grad_(True)
+    collectives.calls.clear()
+    loss = _tp_loss(e_l, x, torch.from_numpy(d["labels"]),
+                    torch.from_numpy(d["mask"]), coll, 0)
+    de, dx = torch.autograd.grad(loss, (e_l, x))
+    return {"loss": loss.detach().numpy(), "de": de.numpy(),
+            "dx": dx.numpy(), "calls": dict(collectives.calls)}
+
+
+def ring(job) -> dict:
+    from tpu_trainer_torch.ops.ring import ring_attention_local
+
+    d = np.load(job["inputs"])
+    sp = mesh_lib.process_count()
+    seq = collectives.topology(1, 1, sp, 1).sequence
+    j = seq.rank
+    parts = [torch.from_numpy(d[n]).chunk(sp, dim=1)[j].clone()
+             .requires_grad_(True) for n in ("q", "k", "v")]
+    collectives.calls.clear()
+    out = ring_attention_local(
+        [parts[0]], [parts[1]], [parts[2]], [j], sp,
+        collectives.SequencePermute(seq), zigzag=job.get("zigzag"))[0]
+    g = torch.from_numpy(d["g"]).chunk(sp, dim=1)[j]
+    grads = torch.autograd.grad(out, parts, g)
+    return {"out": out.detach().numpy(),
+            "grads": [x.numpy() for x in grads],
+            "calls": dict(collectives.calls)}
+
+
+def mesh_dropout(job) -> dict:
+    from tpu_trainer_torch.models.gpt import _attention_coord
+    from tpu_trainer_torch.parallel import context as ctx_lib
+
+    tr = make_trainer(job)
+    cfg = tr.model_config
+    ctx = tr.mesh_context
+    b, s, h = job["rows"], job["train"]["max_seq_len"], cfg.hidden_size
+    seq = None
+    if ctx.sp > 1:
+        s //= ctx.sp
+        seq = (ctx.sp_rank, ctx.sp, None)
+    gen = torch.Generator().manual_seed(job["seed"])
+    step = _TrainStep(train=True, generator=gen, rope=None,
+                      segment_ids=None, shard=tr.model.data_shard, seq=seq,
+                      attn_coord=_attention_coord(ctx, tr.model.data_shard,
+                                                  cfg))
+    with ctx_lib.use_mesh(ctx):
+        kept = tr.model._residual_dropout(torch.ones(b, s, h), step) != 0
+    return {"residual_keep": kept.numpy(),
+            "attention_seeds": [step.attention_seed() for _ in range(2)],
+            "coords": ctx.coords}
+
+
+def errors(job) -> dict:
+    from tpu_trainer_torch.parallel import context as ctx_lib
+
+    out = {}
+    for name, case in job["cases"].items():
+        try:
+            tr = make_trainer(case)
+            if case.get("forward"):
+                ids = torch.zeros((1, tr.training_config.max_seq_len),
+                                  dtype=torch.long)
+                tr.init_state()
+                with ctx_lib.use_mesh(tr.mesh_context):
+                    tr.model(ids[:, :ids.shape[1] // tr.mesh_sizes[2]],
+                             segment_ids=torch.ones_like(ids))
+            out[name] = ("ok", tr.model_config.fused_projections)
+        except Exception as e:  # noqa: BLE001 - the message is the result
+            out[name] = (type(e).__name__, str(e))
+    return out
+
+
+def cli(job) -> dict:
+    import shutil
+
+    from tpu_trainer_torch.eval import infer
+    from tpu_trainer_torch.training import cli as cli_lib
+
+    for run in job["runs"]:
+        mesh_lib.barrier()
+        if run.get("remove") and mesh_lib.process_index() == 0:
+            shutil.rmtree(run["remove"])
+        mesh_lib.barrier()
+        rc = cli_lib.run_training(run["argv"], mode=run.get("mode", "ddp"))
+        assert rc == 0, rc
+    results = []
+    for argv in job.get("infer", []):
+        res = {}
+        assert infer.main(argv, result=res) == 0
+        results.append(res["tokens"])
+    return {"infer": results}
+
+
 def run_world(tmp_path, world: int, jobs, timeout: float = 240.0) -> dict:
     """Run ``jobs`` on ``world`` rank processes (this script); returns
     ``{job name: [rank 0's result, rank 1's, ...]}``. A rank that fails
@@ -330,7 +450,9 @@ def main(spec_path: str, rank: int) -> None:
                            init_method=f"file://{spec['store']}")
     for job in spec["jobs"]:
         result = {"train": train, "dropout": dropout, "guards": guards,
-                  "nan_scan": nan_scan}[job["kind"]](job)
+                  "nan_scan": nan_scan, "tp_loss": tp_loss, "ring": ring,
+                  "mesh_dropout": mesh_dropout, "errors": errors,
+                  "cli": cli}[job["kind"]](job)
         torch.save(result, os.path.join(spec["out"],
                                         f"{job['name']}_r{rank}.pt"))
 

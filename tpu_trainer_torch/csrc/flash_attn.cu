@@ -104,8 +104,10 @@
 //   other, each waited complete, and passes the turn (release). dq is then
 //   bitwise the same from run to run (hopper.cuh Turn; the deadlock
 //   argument is beside the reducer).
-// - Around the kernel: one pre-pass computes delta = rowsum(dO * O) with
-//   16-byte loads, pads lse (+inf past s, so rows past s get p = 0) and
+// - Around the kernel: one pre-pass computes delta = rowsum(dO * O) -
+//   dlse with 16-byte loads (dlse, the cotangent of a returned lse, is
+//   optional: the ring attention's chunks differentiate through their
+//   lse, the JAX kernel's `delta -= dlse`), pads lse (+inf past s, so rows past s get p = 0) and
 //   zeroes dq_acc and the turns; a finalize pass un-rotates and casts dq.
 //
 // The bf16/fp16 split dk/dv kernel (flash_bwd_tma_kernel<..., DQ = false>,
@@ -925,9 +927,11 @@ __host__ __device__ constexpr int pad_rows(int s) {
   return (s + kRowPad - 1) / kRowPad * kRowPad;
 }
 
-// delta[b, h, s_pad] = rowsum(dO * O) in f32: one warp per (b, s, h) row.
+// delta[b, h, s_pad] = rowsum(dO * O) - dlse in f32: one warp per (b, s, h)
+// row. dlse [b, h, s] (the cotangent of the forward's lse) or null.
 template <typename T, int D>
 __global__ void delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                             const float* __restrict__ dlse,
                              float* __restrict__ delta, int b, int s, int h) {
   const int warps = blockDim.x >> 5;
   const size_t rowi = static_cast<size_t>(blockIdx.x) * warps + (threadIdx.x >> 5);
@@ -942,7 +946,9 @@ __global__ void delta_kernel(const T* __restrict__ o, const T* __restrict__ dout
     const size_t bs = rowi / h;
     const int row = static_cast<int>(bs % s);
     const int ib = static_cast<int>(bs / s);
-    delta[(static_cast<size_t>(ib) * h + ih) * pad_rows(s) + row] = acc;
+    const size_t hrow = static_cast<size_t>(ib) * h + ih;
+    if (dlse != nullptr) acc -= dlse[hrow * s + row];
+    delta[hrow * pad_rows(s) + row] = acc;
   }
 }
 
@@ -971,6 +977,7 @@ struct BwdParams {
   int b, s, h, kvh, causal, dropout;
   float scale, keep_prob;
   uint32_t seed, threshold;
+  const float* dlse;  // [b, h, s]: the cotangent of lse, or null (zero)
 };
 
 // One (q tile, k tile) pair's score gradients from S = Q K^T and dP = dO
@@ -1300,8 +1307,9 @@ constexpr int kBwdBK = 128;            // keys a block: two warpgroups of 64
 constexpr int kBwdConsumers = 256;     // two consumer warpgroups
 constexpr int kBwdTmaThreads = kBwdConsumers + 128;  // + a producer warpgroup
 
-// The TMA backwards' pre-pass, one call: delta = rowsum(dO * O) in f32 into
-// delta_pad [b, h, s_pad] (0 past s), lse * log2(e) into lse_pad [b, h,
+// The TMA backwards' pre-pass, one call: delta = rowsum(dO * O) - dlse in
+// f32 into delta_pad [b, h, s_pad] (0 past s; dlse [b, h, s] is the
+// cotangent of the forward's lse, a ring chunk's, or null for none), lse * log2(e) into lse_pad [b, h,
 // s_pad] (+inf past s, so rows past s get p = 0); for the split dk/dv
 // kernel with segments, the ids into seg_pad [b, s_pad] (-1 past s); for
 // the fused backward, dq_acc [b, h, s_pad, D] and the dq turns [b, h,
@@ -1311,6 +1319,7 @@ template <typename T, int D>
 __global__ void bwd_prep_kernel(const T* __restrict__ o,
                                 const T* __restrict__ dout,
                                 const float* __restrict__ lse,
+                                const float* __restrict__ dlse,
                                 const int* __restrict__ seg,
                                 float* __restrict__ lse_pad,
                                 float* __restrict__ delta_pad,
@@ -1346,6 +1355,7 @@ __global__ void bwd_prep_kernel(const T* __restrict__ o,
     z[1] = z[0];
   }
   if (c != 0) return;
+  if (dlse != nullptr && sp < s) acc -= dlse[bh * s + sp];
   delta_pad[row] = acc;
   lse_pad[row] = sp < s ? lse[bh * s + sp] * kLog2e : INFINITY;
   if (turns != nullptr && sp % kBwdBQ == 0) turns[row / kBwdBQ] = 0;
@@ -2281,8 +2291,8 @@ cudaError_t launch_delta(const BwdParams& p, const void* o, float* delta,
                          cudaStream_t stream) {
   const size_t rows = static_cast<size_t>(p.b) * p.s * p.h;
   delta_kernel<T, D><<<static_cast<unsigned>((rows + 7) / 8), 256, 0, stream>>>(
-      static_cast<const T*>(o), static_cast<const T*>(p.dout), delta, p.b,
-      p.s, p.h);
+      static_cast<const T*>(o), static_cast<const T*>(p.dout), p.dlse, delta,
+      p.b, p.s, p.h);
   return cudaGetLastError();
 }
 
@@ -2351,8 +2361,8 @@ cudaError_t launch_bwd_tma(const BwdParams& p, const void* o, float* scratch,
   const size_t threads = rows * (D / 8);
   bwd_prep_kernel<T, D><<<static_cast<unsigned>((threads + 255) / 256), 256,
                           0, stream>>>(
-      static_cast<const T*>(o), static_cast<const T*>(p.dout), p.lse, p.seg,
-      lse_pad, delta_pad, seg_pad, DQ ? p.dq_acc : nullptr,
+      static_cast<const T*>(o), static_cast<const T*>(p.dout), p.lse, p.dlse,
+      p.seg, lse_pad, delta_pad, seg_pad, DQ ? p.dq_acc : nullptr,
       DQ ? p.turns : nullptr, rows, p.s, p.h, s_pad);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -2513,6 +2523,7 @@ extern "C" long long flash_attn_bwd_turns(int b, int s, int h, int dtype) {
 }
 
 // The fused backward. qs / ks / v / o / dout in `dtype`; lse [b, h, s] f32;
+// dlse [b, h, s] f32 (the cotangent of lse) or null;
 // dq [b, s, h, d] in dtype. Scratch, with s_pad = s rounded up to 64:
 // delta 2 * b * h * s_pad f32, dq_acc b * h * s_pad * d f32, turns of
 // flash_attn_bwd_turns int32. dk / dv: f32 [b, s, h, d] per-query-head partials,
@@ -2520,7 +2531,7 @@ extern "C" long long flash_attn_bwd_turns(int b, int s, int h, int dtype) {
 // s, kvh, d] in dtype. dq, dk and dv are bitwise the same from run to run.
 extern "C" int flash_attn_bwd(const void* qs, const void* ks, const void* v,
                               const void* o, const void* dout, const void* lse,
-                              const void* cos, const void* sin, void* delta,
+                              const void* dlse, const void* cos, const void* sin, void* delta,
                               void* dq_acc, void* turns, void* dq, void* dk,
                               void* dv, int b,
                               int s, int h, int kvh, int d, int dtype,
@@ -2534,7 +2545,7 @@ extern "C" int flash_attn_bwd(const void* qs, const void* ks, const void* v,
               nullptr, static_cast<float*>(dq_acc), dq,
               static_cast<float*>(dk), static_cast<float*>(dv),
               static_cast<int*>(turns), b, s, h, kvh, causal, dropout, scale,
-              keep_prob, seed, threshold};
+              keep_prob, seed, threshold, static_cast<const float*>(dlse)};
   float* dl = static_cast<float*>(delta);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(dispatch(dtype, d, [&](auto t, auto dd) {
@@ -2549,14 +2560,15 @@ extern "C" int flash_attn_bwd(const void* qs, const void* ks, const void* v,
 }
 
 // The split backward's first half: delta and the dk/dv kernel. seg: int32
-// [b, s] or null. `delta`: scratch of 2 * b * h * s_pad + b * s_pad floats
+// [b, s] or null; dlse as flash_attn_bwd's. `delta`: scratch of 2 * b * h * s_pad + b * s_pad floats
 // (s_pad = s rounded up to 64), whose first b * h * s_pad hold delta [b, h,
 // s_pad] for the dq half. dk / dv: as flash_attn_bwd's.
 extern "C" int flash_attn_bwd_dkv(const void* qs, const void* ks,
                                   const void* v, const void* o,
                                   const void* dout, const void* lse,
-                                  const void* cos, const void* sin,
-                                  const void* seg, void* delta, void* dk,
+                                  const void* dlse, const void* cos,
+                                  const void* sin, const void* seg,
+                                  void* delta, void* dk,
                                   void* dv, int b, int s, int h, int kvh,
                                   int d, int dtype, int causal, float scale,
                                   uint32_t seed, uint32_t threshold,
@@ -2568,7 +2580,8 @@ extern "C" int flash_attn_bwd_dkv(const void* qs, const void* ks,
               static_cast<const float*>(cos), static_cast<const float*>(sin),
               static_cast<const int*>(seg), nullptr, nullptr,
               static_cast<float*>(dk), static_cast<float*>(dv), nullptr, b, s,
-              h, kvh, causal, dropout, scale, keep_prob, seed, threshold};
+              h, kvh, causal, dropout, scale, keep_prob, seed, threshold,
+              static_cast<const float*>(dlse)};
   float* dl = static_cast<float*>(delta);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(dispatch(dtype, d, [&](auto t, auto dd) {

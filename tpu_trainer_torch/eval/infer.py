@@ -23,9 +23,19 @@ the KV path with the global width and row seeds (a MoE model routes every
 rank's rows together, as one process routes the whole batch), and rank 0
 gathers and prints every row, the tokens the one-process run gives.
 
+``--mesh_tensor T`` (the JAX ``infer.py`` sharded decode) adds Megatron
+tensor parallelism on the same KV path: ``--mesh_data`` x ``--mesh_tensor``
+processes, rank ``d * T + t``; each rank loads its tensor slice of the
+parameters (``models/weights.build_model(tensor=)``), its KV cache holds
+its ``kv_heads / T`` heads, the row-parallel products and the head's
+logits are summed over the tensor group (``models/gpt.py``), so every
+tensor rank samples the same tokens. ``fused_projections`` is turned off
+(the JAX gate). ``--serve`` with a mesh stays refused, as in JAX: the
+paged TP decode is ROADMAP Queue 1 "serving across devices: TP decode
+and the fleet".
+
 Runs on CUDA unless ``--device cpu``; without a GPU and without that flag
-it raises. ``--mesh_tensor`` above 1 (ROADMAP Queue 1: "serving across
-devices: TP decode and the fleet") raises.
+it raises.
 """
 
 from __future__ import annotations
@@ -43,6 +53,7 @@ from tpu_trainer_torch.models.config import GPTConfig
 from tpu_trainer_torch.models.gpt import generate, generate_kv
 from tpu_trainer_torch.models.weights import build_model
 from tpu_trainer_torch.parallel import collectives as coll_lib
+from tpu_trainer_torch.parallel import context as ctx_lib
 from tpu_trainer_torch.parallel import mesh as mesh_lib
 from tpu_trainer_torch.utils.checkpoint import (latest_checkpoint,
                                                 restore_params)
@@ -94,23 +105,20 @@ def main(argv=None, *, result: Optional[dict] = None) -> int:
     with ``--serve``, the engine's ``stats``."""
     p = build_parser()
     args = p.parse_args(argv)
-    if args.mesh_tensor > 1:
-        raise NotImplementedError(
-            "--mesh_tensor > 1 (tensor-parallel decode) is not ported yet "
-            "-> ROADMAP Queue 1: serving across devices: TP decode and the "
-            "fleet")
     device = resolve_device(args.device)
-    shards = args.mesh_data
-    if shards > 1:
+    shards, tp = args.mesh_data, args.mesh_tensor
+    sizes = None
+    if shards * tp > 1:
         if device.type == "cuda":
             device = mesh_lib.local_device(device)
         mesh_lib.initialize_distributed(device=device)
         try:
-            mesh_lib.MeshConfig(data=shards).resolve(
+            sizes = mesh_lib.MeshConfig(data=shards, tensor=tp).resolve(
                 mesh_lib.process_count())
         except ValueError as mesh_err:
             raise SystemExit(f"mesh: {mesh_err}") from mesh_err
-    rank = mesh_lib.process_index() if shards > 1 else 0
+    rank = mesh_lib.process_index() if sizes is not None else 0
+    data_rank, tensor_rank = divmod(rank, tp)
 
     path = latest_checkpoint(args.checkpoint) or args.checkpoint
     if not os.path.exists(path):
@@ -127,6 +135,18 @@ def main(argv=None, *, result: Optional[dict] = None) -> int:
                 "a meta.json beside it")
     # Decoding is evaluation: no dropout.
     config = dataclasses.replace(config, dropout=0.0, attention_dropout=0.0)
+    if tp > 1:
+        for what, n in (("num_heads", config.num_heads),
+                        ("num_kv_heads", config.kv_heads)):
+            if n % tp:
+                p.error(f"{what} {n} not divisible by --mesh_tensor {tp}")
+        if config.num_experts > 0:
+            raise NotImplementedError(
+                "not ported yet: MoE under a tensor axis -> ROADMAP Queue "
+                "1: pipeline and expert parallelism")
+        # TP shards the q/k/v kernels along the axis the fusion
+        # concatenates (the Trainer's gate).
+        config = dataclasses.replace(config, fused_projections=False)
 
     tokenizer = get_tokenizer(args.tokenizer)
     if args.prompt_file:
@@ -154,10 +174,11 @@ def main(argv=None, *, result: Optional[dict] = None) -> int:
         p.error("--record_trace records served requests; add --serve")
     if args.spec != "off" and not args.serve:
         p.error("--spec is a serving-engine feature; add --serve")
-    if shards > 1:
+    if sizes is not None:
         if args.serve or not use_kv:
-            p.error("--mesh_data decodes on the KV path: drop --serve / "
-                    "--no_kv_cache and fit --max_new_tokens in max_seq_len")
+            p.error("--mesh_data / --mesh_tensor decode on the KV path: "
+                    "drop --serve / --no_kv_cache and fit --max_new_tokens "
+                    "in max_seq_len")
         if len(rows) % shards:
             p.error(f"{len(rows)} prompts not divisible by --mesh_data "
                     f"{shards}")
@@ -217,36 +238,47 @@ def main(argv=None, *, result: Optional[dict] = None) -> int:
             result.update(tokens=out, stats=dict(engine.stats))
         return 0
 
-    model = build_model(config, params, device)
+    model = build_model(config, params, device, tensor=(tensor_rank, tp))
     if shards > 1 and config.num_experts > 0:
         model.moe_group = coll_lib.Collectives(
             torch.distributed.group.WORLD,
             list(range(mesh_lib.process_count())))
+    mesh = None
+    if tp > 1:
+        topo = coll_lib.topology(shards, 1, 1, tp)
+        mesh = ctx_lib.MeshContext(sizes=sizes,
+                                   coords=mesh_lib.mesh_coords(sizes, rank),
+                                   tensor=topo.tensor)
     # This rank's rows (all of them at one process), at the global width
     # and with their global row seeds.
     per = len(rows) // shards
-    lo = rank * per
+    lo = data_rank * per
     mine = range(lo, lo + per)
     input_ids = torch.tensor([rows[i] + [0] * (width - lens[i])
                               for i in mine], dtype=torch.long, device=device)
     kw = dict(max_new_tokens=args.max_new_tokens,
               temperature=args.temperature, top_k=args.top_k,
               seed=args.seed + lo)
-    if use_kv:
-        prompt_lens = (torch.tensor([lens[i] for i in mine], device=device)
-                       if len(set(lens)) > 1 else None)
-        buf = generate_kv(model, input_ids, prompt_lens=prompt_lens, **kw)
-    else:
-        buf = generate(model, input_ids, **kw)
+    with ctx_lib.use_mesh(mesh):
+        if use_kv:
+            prompt_lens = (torch.tensor([lens[i] for i in mine],
+                                        device=device)
+                           if len(set(lens)) > 1 else None)
+            buf = generate_kv(model, input_ids, prompt_lens=prompt_lens,
+                              **kw)
+        else:
+            buf = generate(model, input_ids, **kw)
     buf = buf.cpu().tolist()
     out = []
     for j, i in enumerate(mine):
         n_real = lens[i] + args.max_new_tokens if use_kv else len(buf[j])
         out.append(buf[j][:n_real])
-    if shards > 1:
+    if sizes is not None:
         parts = [None] * mesh_lib.process_count()
         torch.distributed.all_gather_object(parts, out)
-        out = [row for part in parts for row in part]
+        # Every tensor rank of a data shard decoded its rows: take one.
+        out = [row for r, part in enumerate(parts) if r % tp == 0
+               for row in part]
     if rank == 0:
         for row in out:
             print(tokenizer.decode(row))

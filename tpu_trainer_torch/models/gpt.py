@@ -75,6 +75,31 @@ one-process mask's rows, and the attention-dropout seed folds in the
 shard, ``ops.attention.fold_seed``) and, for MoE, ``moe_group`` (the
 data-parallel ``Collectives``: each MoE layer routes the global
 micro-batch, ``models/moe.py``; ``eval/infer.py`` sets it too).
+
+**Tensor and sequence parallelism** (``parallel/context.current_mesh``,
+which the trainer and ``eval/infer.py`` enter around a pass). Under a
+``tensor`` axis the parameters are the rank's Megatron slices
+(``parallel/sharding.py``): the embedding's ``[V, H/ts]`` hidden slice is
+looked up and gathered (``collectives.gather_from_tensor``); each block's
+normed input enters the column-parallel q/k/v and gate/up matmuls through
+``copy_to_tensor``; attention runs the flash kernel on the rank's
+``num_heads / ts`` heads (``kv_heads / ts`` K/V heads); the row-parallel
+o/down products are summed by ``reduce_from_tensor``; the loss is the
+vocab-sharded head (``ops/loss._tp_loss``), the logits the row-parallel
+head summed. ``fused_projections`` is not used there (the JAX rule: the
+fusion would concatenate the sharded axis). Residual activations are
+replicated over ``tensor``, so every tensor rank draws the same residual
+dropout; the attention-dropout seed folds the JAX
+``attention_shard_coord`` (data shard, then tensor rank).
+
+Under a ``sequence`` axis the rank runs its ``[b, s/sp]`` slice of the
+sequence: RoPE at global positions (its chunk offset), attention through
+the ring (``ops/ring.py``, each chunk through the flash kernel with
+``return_lse``), residual dropout hashing the global positions of its
+slice (so its masks are the one-process masks' columns), and the loss
+over its tokens with the labels shifted globally (``labels`` then carries
+one more column, the next rank's first token; the last global position
+is masked) as its share of the global mean. ``segment_ids`` raise there.
 """
 
 from __future__ import annotations
@@ -101,13 +126,17 @@ from tpu_trainer_torch.ops.attention import (
     reference_attention,
     repeat_kv,
 )
+from tpu_trainer_torch.ops import ring as ring_lib
 from tpu_trainer_torch.ops.dropout import hash_dropout
 from tpu_trainer_torch.ops.loss import (
     fused_shifted_cross_entropy,
     segment_target_mask,
+    shard_shift,
 )
 from tpu_trainer_torch.ops.rope import apply_rotary_pos_emb, rope_tables
 from tpu_trainer_torch.parallel import collectives as coll_lib
+from tpu_trainer_torch.parallel import context as ctx_lib
+from tpu_trainer_torch.parallel import mesh as mesh_lib
 from tpu_trainer_torch.utils import telemetry
 from tpu_trainer_torch.utils.quant import (
     dequantize_kv_int8,
@@ -451,16 +480,35 @@ class GPT(nn.Module):
             raise ValueError("train=True with dropout needs a generator")
         b, s = input_ids.shape
         cd = cfg.compute_dtype
+        mesh = ctx_lib.current_mesh()
+        tp = _tensor_group(mesh)
+        seq = None
+        if mesh is not None and mesh.sp > 1:
+            if segment_ids is not None:
+                raise NotImplementedError(
+                    "segment_ids are not supported under sequence "
+                    "parallelism")
+            seq = (mesh.sp_rank, mesh.sp, mesh.permute)
         emb = self._leaf("embed_tokens.embedding")
-        x = emb[input_ids].to(cd)
+        x = coll_lib.gather_from_tensor(emb[input_ids].to(cd), tp)
         capturing = telemetry.capturing()
         if capturing:
             telemetry.record("embed_out", telemetry.site_stats(x))
-        rope = rope_tables(s, cfg.head_dim, cfg.rope_theta, device=x.device)
+        if seq is None:
+            rope = rope_tables(s, cfg.head_dim, cfg.rope_theta,
+                               device=x.device)
+        else:
+            # Global positions: this rank's chunk of the sequence.
+            cos, sin = rope_tables(s * seq[1], cfg.head_dim, cfg.rope_theta,
+                                   device=x.device)
+            rope = (cos[seq[0] * s:(seq[0] + 1) * s],
+                    sin[seq[0] * s:(seq[0] + 1) * s])
         step = _TrainStep(train=train, generator=generator, rope=rope,
                           segment_ids=segment_ids,
                           telem=[] if capturing else None,
-                          shard=self.data_shard)
+                          shard=self.data_shard, tensor=tp, seq=seq,
+                          attn_coord=_attention_coord(mesh, self.data_shard,
+                                                      cfg))
         remat = torch.is_grad_enabled()
         block = (self._remat_block if cfg.gradient_checkpointing and remat
                  else self._train_block)
@@ -477,7 +525,10 @@ class GPT(nn.Module):
             telemetry.record("final_norm", telemetry.site_stats(x))
 
         def attend(h):
-            return h.to(cd) @ coll_lib.derive(lambda e: e.to(cd), [emb]).T
+            # Under tensor: the row-parallel head, summed over the group.
+            h = coll_lib.slice_to_tensor(h, tp)
+            return coll_lib.reduce_from_tensor(
+                h.to(cd) @ coll_lib.derive(lambda e: e.to(cd), [emb]).T, tp)
 
         if telemetry.capturing(deep=True):
             # The full f32 logits, nan-scan only: without this site a NaN
@@ -493,28 +544,25 @@ class GPT(nn.Module):
         if labels is None or not (cfg.fused_loss or remat_head):
             logits = attend(x).float()
         loss = None
+        seq_shard = None if seq is None else (seq[0] * s, s * seq[1])
         if labels is not None:
             if cfg.fused_loss:
                 loss = fused_shifted_cross_entropy(
                     emb, x, labels,
                     chunk_size=cfg.loss_chunk_size,
                     allow_pallas=cfg.fused_loss_pallas,
-                    segment_ids=segment_ids)
+                    segment_ids=segment_ids, tensor=tp, seq_shard=seq_shard)
             elif remat_head:
                 # Nothing of the [b, s, vocab] softmax survives the
                 # forward; the backward recomputes the head matmul.
                 def head_loss(xf):
-                    lg = attend(xf).float()
-                    return _masked_shifted_mean(
-                        softmax_cross_entropy(lg[:, :-1], labels[:, 1:]),
-                        segment_ids)
+                    return _shifted_loss(attend(xf).float(), labels,
+                                         segment_ids, seq_shard)
 
                 loss = (checkpoint(head_loss, x, use_reentrant=False)
                         if remat else head_loss(x))
             else:
-                loss = _masked_shifted_mean(
-                    softmax_cross_entropy(logits[:, :-1], labels[:, 1:]),
-                    segment_ids)
+                loss = _shifted_loss(logits, labels, segment_ids, seq_shard)
             if cfg.num_experts > 0:
                 # The layers' pre-weighted router auxiliaries, meaned.
                 loss = loss + moe_aux / cfg.num_layers
@@ -551,40 +599,53 @@ class GPT(nn.Module):
             return p
         return {n: z.layer(f"layers.{n}", t) for n, t in p.items()}
 
-    def _qkv(self, x, p):
+    def _qkv(self, x, p, tp=None):
         """q ``[b, s, heads, d]``, k and v ``[b, s, kv_heads, d]`` of one
-        layer: the input norm and the projections in the compute dtype."""
+        layer: the input norm and the projections in the compute dtype
+        (under the tensor group ``tp``, this rank's heads: the
+        column-parallel slices)."""
         cfg = self.config
         b, s, _ = x.shape
+        ts = 1 if tp is None else tp.world
         h = _rms_norm(x, p["input_layernorm.weight"],
                       self.layers.input_layernorm.eps, cfg.compute_dtype)
+        h = coll_lib.copy_to_tensor(h, tp)
         q, k, v = _matmuls(h, [p["attention.q_proj.kernel"],
                                p["attention.k_proj.kernel"],
                                p["attention.v_proj.kernel"]],
-                           cfg.compute_dtype, cfg.fused_projections)
-        return (q.reshape(b, s, cfg.num_heads, cfg.head_dim),
-                k.reshape(b, s, cfg.kv_heads, cfg.head_dim),
-                v.reshape(b, s, cfg.kv_heads, cfg.head_dim))
+                           cfg.compute_dtype,
+                           cfg.fused_projections and ts == 1)
+        return (q.reshape(b, s, cfg.num_heads // ts, cfg.head_dim),
+                k.reshape(b, s, cfg.kv_heads // ts, cfg.head_dim),
+                v.reshape(b, s, cfg.kv_heads // ts, cfg.head_dim))
 
     def _train_block(self, x, p, step: "_TrainStep"):
         cfg = self.config
         cd = cfg.compute_dtype
         b, s, _ = x.shape
         p = self._gather_layer(p)
-        q, k, v = self._qkv(x, p)
+        q, k, v = self._qkv(x, p, step.tensor)
         attn_drop = step.train and cfg.attention_dropout > 0.0
-        coord, shards = step.shard
-        if cfg.use_flash_attention:
+        rate = cfg.attention_dropout if attn_drop else 0.0
+        if step.seq is not None:
+            # The ring over the sequence group: RoPE at the slice's global
+            # positions first, then every chunk through the flash kernel.
+            idx, sp, permute = step.seq
+            q, k = apply_rotary_pos_emb(q, k, *step.rope)
+            out = ring_lib.ring_attention_local(
+                [q], [k], [v], [idx], sp, permute, dropout_rate=rate,
+                seed=step.attention_seed() if attn_drop else None)[0]
+        elif cfg.use_flash_attention:
             out = flash_lib.flash_attention(
                 q.contiguous(), k.contiguous(), v.contiguous(),
-                dropout_rate=cfg.attention_dropout if attn_drop else 0.0,
+                dropout_rate=rate,
                 seed=step.attention_seed() if attn_drop else None,
                 rope=step.rope, segment_ids=step.segment_ids)
         else:
             q, k = apply_rotary_pos_emb(q, k, *step.rope)
             gen = step.generator
-            if attn_drop and shards > 1:
-                # Masks differ across data shards (the flash path's seed
+            if attn_drop and step.attn_coord is not None:
+                # Masks differ across shards (the flash path's seed
                 # fold): a generator seeded from the folded seed.
                 gen = torch.Generator(device=gen.device).manual_seed(
                     step.attention_seed())
@@ -592,8 +653,9 @@ class GPT(nn.Module):
                 q, k, v, dropout_rate=cfg.attention_dropout,
                 deterministic=not step.train, generator=gen,
                 segment_ids=step.segment_ids)
-        out = _matmuls(out.reshape(b, s, cfg.hidden_size),
+        out = _matmuls(out.reshape(b, s, out.shape[2] * out.shape[3]),
                        [p["attention.o_proj.kernel"]], cd, False)[0]
+        out = coll_lib.reduce_from_tensor(out, step.tensor)
         attn_out = self._residual_dropout(out, step)
         return self._ffn_block(x + attn_out, p, step, attn_out=attn_out)
 
@@ -647,13 +709,16 @@ class GPT(nn.Module):
                 p["moe_mlp.experts_up"], p["moe_mlp.experts_down"], cfg,
                 router_stats=router, group=self.moe_group)
         else:
-            gate, up = _matmuls(h, [p["mlp.gate_proj.kernel"],
-                                    p["mlp.up_proj.kernel"]], cd,
-                                cfg.fused_projections)
+            tp = step.tensor
+            gate, up = _matmuls(coll_lib.copy_to_tensor(h, tp),
+                                [p["mlp.gate_proj.kernel"],
+                                 p["mlp.up_proj.kernel"]], cd,
+                                cfg.fused_projections and tp is None)
             act = (F.silu(gate) if cfg.activation == "silu"
                    else F.gelu(gate, approximate="tanh"))
-            out = _matmuls(act * up, [p["mlp.down_proj.kernel"]], cd,
-                           False)[0]
+            out = coll_lib.reduce_from_tensor(
+                _matmuls(act * up, [p["mlp.down_proj.kernel"]], cd,
+                         False)[0], tp)
         ffn_out = self._residual_dropout(out, step)
         x = x + ffn_out
         if step.telem is not None:
@@ -673,17 +738,24 @@ class GPT(nn.Module):
         if not step.train or rate <= 0.0:
             return x
         coord, shards = step.shard
+        # Under sequence: this rank's columns of the global [b, S, H].
+        j, sp = (0, 1) if step.seq is None else step.seq[:2]
+        sl = x.shape[1]
         if self.config.fast_dropout:
             # The hash runs over the global batch's linear index: data
-            # shard r's rows are the world-1 mask's rows [r*b, (r+1)*b).
+            # shard r's rows are the world-1 mask's rows [r*b, (r+1)*b)
+            # (and a sequence rank's columns [j*sl, (j+1)*sl) of them).
             return hash_dropout(x, rate, step.seed(),
-                                offset=coord * x.numel(),
-                                total=shards * x.numel())
+                                offset=coord * x.numel() * sp,
+                                total=shards * x.numel() * sp,
+                                seq_slice=(j * sl, sl * sp) if sp > 1
+                                else None)
         gen = step.generator
         rows = x.shape[0]
-        keep = (torch.rand((shards * rows,) + tuple(x.shape[1:]),
+        keep = (torch.rand((shards * rows, sl * sp) + tuple(x.shape[2:]),
                            generator=gen, device=gen.device)
-                >= rate)[coord * rows:(coord + 1) * rows].to(x.device)
+                >= rate)[coord * rows:(coord + 1) * rows,
+                         j * sl:(j + 1) * sl].to(x.device)
         return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
     # -- contiguous KV cache ------------------------------------------------
@@ -723,33 +795,40 @@ class GPT(nn.Module):
             allowed = ((k_pos <= q_pos)[None]
                        & ((k_pos[None] >= pad[:, None, None])
                           | (k_pos == q_pos)[None]))[:, None]
+        tp = _tensor_group(ctx_lib.current_mesh())
         step = _TrainStep(train=False, generator=None, rope=rope,
-                          segment_ids=None)
-        x = self.embed_tokens(input_ids)
+                          segment_ids=None, tensor=tp)
+        emb = self.embed_tokens.embedding
+        x = coll_lib.gather_from_tensor(
+            emb[input_ids].to(cfg.compute_dtype), tp)
         for layer, p in enumerate(self._unstacked_layers()):
             x, _ = self._kv_block(x, p, layer, cache, step, allowed, idx)
         cache["idx"] = idx + s
-        return self.embed_tokens.attend(self.norm(x)).float()
+        h = coll_lib.slice_to_tensor(self.norm(x), tp)
+        return coll_lib.reduce_from_tensor(
+            h.to(cfg.compute_dtype) @ emb.to(cfg.compute_dtype).T,
+            tp).float()
 
     def _kv_block(self, x, p, layer: int, cache, step: "_TrainStep",
                   allowed: torch.Tensor, idx: int):
         cfg = self.config
         b, s, _ = x.shape
-        q, k, v = self._qkv(x, p)
+        q, k, v = self._qkv(x, p, step.tensor)
         q, k = apply_rotary_pos_emb(q, k, *step.rope)
         ck, cv = cache["k"][layer], cache["v"][layer]
         ck[:, idx:idx + s] = k.to(ck.dtype)
         cv[:, idx:idx + s] = v.to(cv.dtype)
         k_all, v_all = repeat_kv(ck.to(q.dtype), cv.to(q.dtype),
-                                 cfg.num_heads)
+                                 q.shape[2])
         scores = torch.einsum("bqhd,bkhd->bhqk", q, k_all) * (
             1.0 / cfg.head_dim ** 0.5)
         scores = scores.masked_fill(~allowed, torch.finfo(scores.dtype).min)
         weights = torch.softmax(scores.float(), dim=-1).to(q.dtype)
         out = torch.einsum("bhqk,bkhd->bqhd", weights, v_all)
-        out = _matmuls(out.reshape(b, s, cfg.hidden_size),
+        out = _matmuls(out.reshape(b, s, q.shape[2] * q.shape[3]),
                        [p["attention.o_proj.kernel"]], cfg.compute_dtype,
                        False)[0]
+        out = coll_lib.reduce_from_tensor(out, step.tensor)
         return self._ffn_block(x + out, p, step)
 
     # -- paged decode ---------------------------------------------------------
@@ -793,6 +872,17 @@ class _TrainStep:
     telem: Optional[list] = None
     # This rank's data shard (coordinate, count); (0, 1) at one process.
     shard: tuple = (0, 1)
+    # The tensor group's Collectives, None without a tensor axis.
+    tensor: Optional[object] = None
+    # (sequence rank, sequence size, ring permute), None without the axis.
+    seq: Optional[tuple] = None
+    # The JAX attention_shard_coord when some axis shards the attention
+    # operands, else None (no fold).
+    attn_coord: Optional[int] = None
+
+    def __post_init__(self):
+        if self.attn_coord is None and self.shard[1] > 1:
+            self.attn_coord = self.shard[0]
 
     def seed(self) -> int:
         """A fresh uint32 dropout seed from the generator."""
@@ -800,13 +890,37 @@ class _TrainStep:
                                  dtype=torch.int64).item())
 
     def attention_seed(self) -> int:
-        """A fresh attention-dropout seed, folded with the data-shard
-        coordinate when there are several shards (the JAX
-        ``attention_shard_coord`` fold): masks decorrelate across data
-        shards, and one process draws the plain seed."""
-        coord, shards = self.shard
+        """A fresh attention-dropout seed, folded with the attention shard
+        coordinate when some axis shards the operands (the JAX
+        ``attention_shard_coord`` fold: data shard, then tensor rank):
+        masks decorrelate across shards, and one process draws the plain
+        seed."""
         seed = self.seed()
-        return fold_seed(seed, coord) if shards > 1 else seed
+        return (seed if self.attn_coord is None
+                else fold_seed(seed, self.attn_coord))
+
+
+def _tensor_group(mesh):
+    """The active mesh's tensor ``Collectives``, None at tensor size 1."""
+    if mesh is None or mesh.tp <= 1:
+        return None
+    return mesh.tensor
+
+
+def _attention_coord(mesh, data_shard: tuple, cfg: GPTConfig):
+    """The JAX ``attention_shard_coord`` of this rank (None when no axis
+    shards the attention operands): the data shard when there are several
+    (the port's batch always divides: a rank holds its rows), then the
+    tensor rank when the heads shard."""
+    coord, shards = data_shard
+    if mesh is None:
+        return coord if shards > 1 else None
+    b_spec, h_spec = mesh_lib.attention_shard_spec(
+        mesh.sizes, shards, cfg.num_heads, cfg.kv_heads)
+    if b_spec is None and h_spec is None:
+        return None
+    return mesh_lib.attention_shard_coord(mesh.sizes, mesh.coords, b_spec,
+                                          h_spec)
 
 
 def _matmuls(x: torch.Tensor, kernels: List[torch.Tensor], dtype,
@@ -855,6 +969,21 @@ def _masked_shifted_mean(ce: torch.Tensor, segment_ids) -> torch.Tensor:
         return ce.mean()
     m = segment_target_mask(segment_ids)[:, :-1]
     return (ce * m).sum() / torch.clamp(m.sum(), min=1.0)
+
+
+def _shifted_loss(logits: torch.Tensor, labels: torch.Tensor, segment_ids,
+                  seq_shard) -> torch.Tensor:
+    """The next-token CE mean of f32 ``logits [b, s, V]``; with
+    ``seq_shard=(offset, global_len)`` (a sequence slice: ``labels [b, s +
+    1]``) this slice's share of the global mean, the last global position
+    masked."""
+    if seq_shard is None:
+        return _masked_shifted_mean(
+            softmax_cross_entropy(logits[:, :-1], labels[:, 1:]),
+            segment_ids)
+    shifted, mask, denom = shard_shift(labels, logits.shape[1], seq_shard,
+                                        logits.device)
+    return (softmax_cross_entropy(logits, shifted) * mask).sum() / denom
 
 
 def paged_step(cfg: GPTConfig, cache, s: int, hist_blocks: int) -> PagedStep:
@@ -939,10 +1068,12 @@ def init_cache(config: GPTConfig, batch_size: int, *, device,
                max_len: Optional[int] = None) -> Dict[str, object]:
     """A zeroed contiguous KV cache for ``GPT.decode``: ``k`` / ``v``
     ``[num_layers, batch, max_len, kv_heads, head_dim]`` in the compute
-    dtype (``max_len`` defaults to ``config.max_seq_len``), ``idx`` 0."""
+    dtype (``max_len`` defaults to ``config.max_seq_len``; under a tensor
+    axis ``kv_heads / ts``, the rank's heads), ``idx`` 0."""
     n = config.max_seq_len if max_len is None else int(max_len)
-    shape = (config.num_layers, batch_size, n, config.kv_heads,
-             config.head_dim)
+    # Under a tensor axis a rank caches its own K/V heads.
+    kvh = config.kv_heads // ctx_lib.tensor_size()
+    shape = (config.num_layers, batch_size, n, kvh, config.head_dim)
     return {"k": torch.zeros(shape, dtype=config.compute_dtype,
                              device=device),
             "v": torch.zeros(shape, dtype=config.compute_dtype,

@@ -151,20 +151,33 @@ def to_jax_params(state: Dict[str, torch.Tensor]) -> dict:
     return tree
 
 
-def build_model(config: GPTConfig, params, device) -> GPT:
+def build_model(config: GPTConfig, params, device, *,
+                tensor: tuple = (0, 1)) -> GPT:
     """``GPT(config)`` for inference on ``device`` holding ``params`` (a
     state dict of tensors or arrays, moved and cast to each parameter's
-    device and dtype; a missing or extra name raises)."""
+    device and dtype; a missing or extra name raises). ``tensor=(rank,
+    size)``: the model holds tensor rank ``rank``'s Megatron slices
+    (``parallel/sharding.leaf_specs``) and runs under a mesh context whose
+    tensor group has ``size`` ranks."""
+    from tpu_trainer_torch.parallel.sharding import leaf_specs, tensor_slice
+
     model = GPT(config, device="meta")
     specs = dict(model.named_parameters())
-    state = {}
+    missing = set(specs) - set(params)
+    if missing:
+        raise ValueError(f"missing parameters {sorted(missing)}")
+    rank, size = tensor
+    split = leaf_specs({n: tuple(p.shape) for n, p in specs.items()},
+                       "replicated", 1, size)
     for name, value in params.items():
         if name not in specs:
             raise ValueError(f"unexpected parameter {name!r}")
-        state[name] = torch.as_tensor(value).to(device=device,
-                                                dtype=specs[name].dtype)
-    model.load_state_dict(state, strict=True, assign=True)
-    return model.requires_grad_(False).eval()
+        t = tensor_slice(torch.as_tensor(value), split[name], rank)
+        t = t.to(device=device, dtype=specs[name].dtype).contiguous()
+        module, attr = name.rsplit(".", 1)
+        model.get_submodule(module)._parameters[attr] = torch.nn.Parameter(
+            t, requires_grad=False)
+    return model.eval()
 
 
 def init_params(config: GPTConfig, seed: int = 0, device=None

@@ -5,9 +5,12 @@ segment) mask -> f32 softmax -> dropout -> @V. The fused training path
 is ``ops.flash.flash_attention``.
 
 ``fold_seed`` is the JAX ``attention_shard_coord`` fold: at world > 1 the
-attention-dropout seed folds in the data-shard coordinate, so masks
-decorrelate across data shards and only across them (the kernels take the
-folded seed unchanged).
+attention-dropout seed folds in the coordinate of the shard along the
+axes that shard the attention operands (the data shard, then the tensor
+rank when the heads shard: ``parallel/mesh.attention_shard_coord``), so
+masks decorrelate across those shards and only across them (the kernels
+take the folded seed unchanged). The ring (``ops/ring.py``) folds each
+chunk's tag on top.
 
 All functions take ``q, k, v`` as ``[batch, seq, heads, head_dim]``.
 """

@@ -7,7 +7,9 @@ for the same seed. Plain PyTorch (the JAX package has no kernel here).
 At world > 1 the JAX package traces the hash on the global array, so a
 data shard's mask is the global mask's slice: ``offset`` starts the
 index at the shard's first element (``total`` is the global size, which
-the uint32 counter must cover).
+the uint32 counter must cover). A sequence rank's ``[b, sl, ...]`` slice
+is strided in that index: ``seq_slice=(start, global_len)`` says that
+dim 1 holds columns ``[start, start + sl)`` of ``global_len``.
 
 Torch has no full uint32 arithmetic, so the hash runs on int64 tensors
 holding uint32 values: every product is formed from 16-bit halves
@@ -46,29 +48,41 @@ def murmur_mix(x: torch.Tensor) -> torch.Tensor:
 
 
 def hash_keep(shape, rate: float, seed: int, device=None, *,
-              offset: int = 0, total=None) -> torch.Tensor:
+              offset: int = 0, total=None, seq_slice=None) -> torch.Tensor:
     """Boolean keep mask of ``hash_dropout`` for a tensor of ``shape``
     whose elements have the linear indices ``offset ..`` of an array of
-    ``total`` elements (default: the tensor itself)."""
+    ``total`` elements (default: the tensor itself); with ``seq_slice``
+    (module docstring) dim 1 is a slice of a longer one."""
     n = 1
     for d in shape:
         n *= int(d)
     if (n if total is None else total) >= 2**32:
         raise ValueError("hash_dropout counters are uint32: tensor too large")
-    idx = torch.arange(offset, offset + n, dtype=torch.int64, device=device)
+    if seq_slice is None:
+        idx = torch.arange(offset, offset + n, dtype=torch.int64,
+                           device=device)
+    else:
+        start, glen = seq_slice
+        rows, cols = int(shape[0]), int(shape[1])
+        inner = n // max(rows * cols, 1)
+        ar = lambda k: torch.arange(k, dtype=torch.int64,  # noqa: E731
+                                    device=device)
+        idx = (offset + ((ar(rows)[:, None, None] * glen
+                          + (start + ar(cols))[None, :, None]) * inner
+                         + ar(inner)[None, None, :])).reshape(-1)
     h = murmur_mix(idx ^ (int(seed) & _U32))
     return (h >= threshold_u32(rate)).reshape(shape)
 
 
 def hash_dropout(x: torch.Tensor, rate: float, seed: int, *,
-                 offset: int = 0, total=None) -> torch.Tensor:
+                 offset: int = 0, total=None, seq_slice=None) -> torch.Tensor:
     """Inverted dropout with the counter-based keep mask of ``seed`` (a
     uint32): zero with probability ``rate``, survivors divided by ``1 -
     rate`` rounded to ``x``'s dtype (as JAX divides by a weakly typed
-    scalar). ``offset`` / ``total``: ``hash_keep``."""
+    scalar). ``offset`` / ``total`` / ``seq_slice``: ``hash_keep``."""
     if rate <= 0.0:
         return x
     keep = hash_keep(x.shape, rate, seed, device=x.device, offset=offset,
-                     total=total)
+                     total=total, seq_slice=seq_slice)
     keep_prob = torch.tensor(1.0 - rate, dtype=x.dtype, device=x.device)
     return torch.where(keep, x / keep_prob, torch.zeros_like(x))

@@ -366,15 +366,19 @@ def flash_attention_reference(
     seed: Optional[int] = None,
     rope: Optional[tuple] = None,
     segment_ids: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """Plain ``flash_attention``: dense scores from the same q/k fold
     (RoPE in f32, ``1/sqrt(d)`` folded into q, cast to the input dtype),
     f32 softmax normalised over the undropped weights, the same keep mask,
     ``p`` cast to v's dtype for the PV product, ``o = acc / (l * (1 -
-    rate))``. Differentiable by autograd."""
+    rate))``. ``return_lse`` also returns the undropped row logsumexp
+    ``[b, h, s]`` f32. Differentiable by autograd (through lse too)."""
     _check_train(q, k, v, dropout_rate, seed, segment_ids)
-    return _reference_parts(q, k, v, causal=causal, dropout_rate=dropout_rate,
-                            seed=seed, rope=rope, segment_ids=segment_ids)[0]
+    o, lse, _, _ = _reference_parts(
+        q, k, v, causal=causal, dropout_rate=dropout_rate, seed=seed,
+        rope=rope, segment_ids=segment_ids)
+    return (o, lse) if return_lse else o
 
 
 def _check_train(q, k, v, dropout_rate, seed, segment_ids):
@@ -424,8 +428,8 @@ def _train_lib() -> ctypes.CDLL:
         P, I, F, U = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                       ctypes.c_uint32)
         tail = [I] * 7 + [F, U, U, F, I, P]
-        for fn, n_ptrs in (("flash_attn_fwd", 10), ("flash_attn_bwd", 14),
-                           ("flash_attn_bwd_dkv", 12),
+        for fn, n_ptrs in (("flash_attn_fwd", 10), ("flash_attn_bwd", 15),
+                           ("flash_attn_bwd_dkv", 13),
                            ("flash_attn_bwd_dq", 10)):
             getattr(lib, fn).argtypes = [P] * n_ptrs + tail
             getattr(lib, fn).restype = I
@@ -468,9 +472,10 @@ def _segments(segment_ids, q) -> Optional[torch.Tensor]:
     return segment_ids.to(torch.int32).contiguous()
 
 
-def _backward_operands(qs, ks, v, o, lse, do, rope, what):
+def _backward_operands(qs, ks, v, o, lse, do, rope, what, dlse=None):
     """Checks shared by the backward wrappers; returns ``do`` contiguous
-    and 16-byte aligned."""
+    and 16-byte aligned. ``dlse`` (the cotangent of lse), when given, must
+    be lse's shape and dtype, contiguous."""
     if qs.device.type != "cuda":
         raise ValueError(f"{what} runs on CUDA tensors; got {qs.device}")
     _train_operands(qs, ks, v, rope)
@@ -480,6 +485,11 @@ def _backward_operands(qs, ks, v, o, lse, do, rope, what):
         raise ValueError("o / do must match q's shape and dtype")
     if lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, s):
         raise ValueError(f"lse must be f32 [b, h, s] = {(b, h, s)}")
+    if dlse is not None and (
+            dlse.dtype != torch.float32 or tuple(dlse.shape) != (b, h, s)
+            or not dlse.is_contiguous() or dlse.device != qs.device):
+        raise ValueError(f"dlse must be contiguous f32 [b, h, s] = "
+                         f"{(b, h, s)} on {qs.device}")
     do = do.contiguous()
     if do.data_ptr() % 16:
         do = do.clone()
@@ -553,9 +563,13 @@ def _dkv_outputs(qs, ks, v):
 
 def flash_backward(qs, ks, v, o, lse, do, *, causal: bool = True,
                    dropout_rate: float = 0.0, seed: Optional[int] = None,
-                   rope: Optional[tuple] = None):
+                   rope: Optional[tuple] = None,
+                   dlse: Optional[torch.Tensor] = None):
     """The fused backward kernel on CUDA tensors: ``(dq, dk, dv)`` from the
-    forward's residuals (``qs``, ``ks``, ``o``, ``lse``) and ``do``.
+    forward's residuals (``qs``, ``ks``, ``o``, ``lse``) and ``do``, and
+    ``dlse`` (f32 ``[b, h, s]``, the cotangent of a returned lse; None is
+    zero), which the pre-pass takes off delta (``delta = rowsum(do * o) -
+    dlse``).
 
     dq is summed in f32 across the kernel's blocks, each q tile's parts in
     ascending key-tile order whatever the timing (the JAX kernel's one
@@ -564,7 +578,8 @@ def flash_backward(qs, ks, v, o, lse, do, *, causal: bool = True,
     without GQA: the kernel writes dk/dv in the compute type; otherwise
     f32 per-query-head partials are group-summed here and rounded once
     (bitwise the same for a group of one)."""
-    do = _backward_operands(qs, ks, v, o, lse, do, rope, "flash_backward")
+    do = _backward_operands(qs, ks, v, o, lse, do, rope, "flash_backward",
+                            dlse)
     b, s, h, d = qs.shape
     f32 = dict(dtype=torch.float32, device=qs.device)
     s_pad = _padded(s)
@@ -580,7 +595,8 @@ def flash_backward(qs, ks, v, o, lse, do, *, causal: bool = True,
     with torch.cuda.device(qs.device):
         err = lib.flash_attn_bwd(
             _ptr(qs), _ptr(ks), _ptr(v), _ptr(o), _ptr(do), _ptr(lse),
-            _ptr(cos), _ptr(sin), _ptr(delta), _ptr(dq_acc), _ptr(turns),
+            _ptr(dlse), _ptr(cos), _ptr(sin), _ptr(delta), _ptr(dq_acc),
+            _ptr(turns),
             _ptr(dq), _ptr(dk), _ptr(dv),
             *_common_args(qs, ks, causal, dropout_rate, seed),
             _stream(qs.device))
@@ -597,16 +613,18 @@ flash_backward.launches = 0
 def flash_backward_dkv(qs, ks, v, o, lse, do, *, causal: bool = True,
                        dropout_rate: float = 0.0, seed: Optional[int] = None,
                        rope: Optional[tuple] = None,
-                       segment_ids: Optional[torch.Tensor] = None):
+                       segment_ids: Optional[torch.Tensor] = None,
+                       dlse: Optional[torch.Tensor] = None):
     """The split backward's dk/dv kernel on CUDA tensors: ``(dk, dv,
-    delta)``, ``delta [b, h, s_pad] = rowsum(do * o)`` f32 (``s_pad`` = s
-    rounded up to 64, rows past s unused) for ``flash_backward_dq``. dk/dv
+    delta)``, ``delta [b, h, s_pad] = rowsum(do * o) - dlse`` f32
+    (``s_pad`` = s rounded up to 64, rows past s unused; ``dlse`` as
+    ``flash_backward``'s) for ``flash_backward_dq``. dk/dv
     are owned by one block each (bitwise the same from run to run);
     bf16/fp16 without GQA: written by the kernel in the compute type;
     otherwise group-summed here from f32 per-query-head partials and
     rounded once."""
     do = _backward_operands(qs, ks, v, o, lse, do, rope,
-                            "flash_backward_dkv")
+                            "flash_backward_dkv", dlse)
     seg = _segments(segment_ids, qs)
     b, s, h, _ = qs.shape
     f32 = dict(dtype=torch.float32, device=qs.device)
@@ -619,7 +637,8 @@ def flash_backward_dkv(qs, ks, v, o, lse, do, *, causal: bool = True,
     with torch.cuda.device(qs.device):
         err = lib.flash_attn_bwd_dkv(
             _ptr(qs), _ptr(ks), _ptr(v), _ptr(o), _ptr(do), _ptr(lse),
-            _ptr(cos), _ptr(sin), _ptr(seg), _ptr(scratch), _ptr(dk),
+            _ptr(dlse), _ptr(cos), _ptr(sin), _ptr(seg), _ptr(scratch),
+            _ptr(dk),
             _ptr(dv), *_common_args(qs, ks, causal, dropout_rate, seed),
             _stream(qs.device))
     _raise_on(lib, err, "flash_backward_dkv")
@@ -666,16 +685,20 @@ def flash_backward_dq(qs, ks, v, do, lse, delta, *, causal: bool = True,
 flash_backward_dq.launches = 0
 
 
-def flash_backward_split(qs, ks, v, o, lse, do, **kw):
-    """``(dq, dk, dv)`` through the split pair: ``flash_backward_dkv``,
-    then ``flash_backward_dq`` on its delta. Keywords as theirs."""
-    dk, dv, delta = flash_backward_dkv(qs, ks, v, o, lse, do, **kw)
+def flash_backward_split(qs, ks, v, o, lse, do, *, dlse=None, **kw):
+    """``(dq, dk, dv)`` through the split pair: ``flash_backward_dkv``
+    (with ``dlse``), then ``flash_backward_dq`` on its delta. Keywords as
+    theirs."""
+    dk, dv, delta = flash_backward_dkv(qs, ks, v, o, lse, do, dlse=dlse,
+                                       **kw)
     return flash_backward_dq(qs, ks, v, do, lse, delta, **kw), dk, dv
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Kernel forward (saving o, lse and the rotated q/k), kernel
-    backward: fused, or the split pair."""
+    """Kernel forward (saving o, lse and the rotated q/k) returning ``(o,
+    lse)``; kernel backward, fused or the split pair, from ``do`` and the
+    cotangent of lse (None when lse was not used: the kernels then run
+    as without it)."""
 
     @staticmethod
     def forward(ctx, q, k, v, cos, sin, seg, causal, dropout_rate, seed,
@@ -686,14 +709,19 @@ class _FlashAttention(torch.autograd.Function):
                                        rope=rope, segment_ids=seg)
         ctx.save_for_backward(qs, ks, v, o, lse, cos, sin, seg)
         ctx.opts = (causal, dropout_rate, seed, impl)
-        return o
+        ctx.set_materialize_grads(False)
+        return o, lse
 
     @staticmethod
-    def backward(ctx, do):
+    def backward(ctx, do, dlse):
         qs, ks, v, o, lse, cos, sin, seg = ctx.saved_tensors
         causal, dropout_rate, seed, impl = ctx.opts
+        if do is None:
+            do = torch.zeros_like(o)
+        if dlse is not None:
+            dlse = dlse.float().contiguous()
         kw = dict(causal=causal, dropout_rate=dropout_rate, seed=seed,
-                  rope=(cos, sin) if cos is not None else None)
+                  rope=(cos, sin) if cos is not None else None, dlse=dlse)
         if impl == "fused":
             dq, dk, dv = flash_backward(qs, ks, v, o, lse, do, **kw)
         else:
@@ -713,7 +741,8 @@ def flash_attention(
     rope: Optional[tuple] = None,
     segment_ids: Optional[torch.Tensor] = None,
     backward: Optional[str] = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """Causal flash attention for training; BSHD in, BSHD out.
 
     - ``q [b, s, h, d]``, ``k``/``v`` ``[b, s, kvh, d]`` (GQA: query head
@@ -725,6 +754,13 @@ def flash_attention(
       position i attends j only within one segment id.
     - ``backward``: ``"fused"``, ``"split"`` or None (``backward_impl``);
       ``"fused"`` with segment ids raises.
+    - ``return_lse``: return ``(o, lse)``, ``lse [b, h, s]`` f32 the
+      undropped row logsumexp of the scaled scores (the forward kernel
+      writes it anyway), differentiable: its cotangent enters the
+      backward's delta (``dlse``). The ring attention's chunks
+      (``ops/ring.py``) combine through it. Any ``s >= 1`` works (the
+      kernels pad their tiles); the JAX kernel's ``s % 128`` rule is its
+      own tiling.
 
     CPU tensors run ``flash_attention_reference``; CUDA tensors the
     kernels (head_dim 64 or 128, f32 / bf16 / fp16), or raise.
@@ -732,15 +768,17 @@ def flash_attention(
     _check_train(q, k, v, dropout_rate, seed, segment_ids)
     impl = backward_impl(q.shape[1], segment_ids is not None, backward)
     if q.device.type == "cpu":
-        return _reference_parts(q, k, v, causal=causal,
-                                dropout_rate=dropout_rate, seed=seed,
-                                rope=rope, segment_ids=segment_ids)[0]
+        o, lse, _, _ = _reference_parts(q, k, v, causal=causal,
+                                        dropout_rate=dropout_rate, seed=seed,
+                                        rope=rope, segment_ids=segment_ids)
+        return (o, lse) if return_lse else o
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     cos, sin = rope if rope is not None else (None, None)
-    return _FlashAttention.apply(q, k, v, cos, sin,
-                                 _segments(segment_ids, q), causal,
-                                 dropout_rate, seed, impl)
+    o, lse = _FlashAttention.apply(q, k, v, cos, sin,
+                                   _segments(segment_ids, q), causal,
+                                   dropout_rate, seed, impl)
+    return (o, lse) if return_lse else o
 
 
 def keep_mask_cuda(seed: int, salt: int, seq: int, rate: float, *,

@@ -44,10 +44,26 @@ the recipe, and the backward gathers the parameter again when it needs
 it (``_Regather``), so no block runs its forward twice unless the config
 asks for remat.
 
+**Tensor and sequence parallelism.** ``Topology`` also holds the
+``tensor`` group (the ranks that differ only in their tensor coordinate)
+and the ``sequence`` group, and the Megatron pair as autograd functions
+over the tensor group: ``copy_to_tensor`` (identity forward, gradient
+summed over the group: before a column-parallel matmul) and
+``reduce_from_tensor`` (summed forward, identity backward: after a
+row-parallel matmul); ``gather_from_tensor`` / ``slice_to_tensor`` (a
+hidden-sharded activation gathered, its gradient sliced; and the
+reverse); ``tensor_all_to_all`` (the tiled all-to-all that turns the
+embedding's ``[V, H/ts]`` hidden slice into a ``[V/ts, H]`` vocab slice,
+``ops/loss.py``); and ``SequencePermute``, the ring's neighbour permute
+over the sequence group (its backward the reverse permute,
+``ops/ring.py``). Sums keep the fixed rank order above.
+
 ``calls`` counts each kind of collective this process ran and the bytes
 it put on the wire (the card's ``dist`` phase reports them a step; the
 MoE layers' all-gathers of their routing counts, ``models/moe.py``,
-count as ``moe_counts``), and ``regather_saved``, the saved tensors that
+count as ``moe_counts``; the tensor-parallel ones as ``tp_allreduce``,
+``tp_gather``, ``tp_alltoall`` and ``tp_max``, the ring's as
+``ring_permute``), and ``regather_saved``, the saved tensors that
 autograd kept as a recipe.
 """
 
@@ -127,9 +143,12 @@ class Collectives:
 
     # -- collectives -----------------------------------------------------------
 
-    def reduce_scatter_leaf(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+    def reduce_scatter_leaf(self, t: torch.Tensor, dim: int,
+                            kind: Optional[str] = "reduce_scatter"
+                            ) -> torch.Tensor:
         """Every rank's ``t`` summed in rank order; this rank's slice of
-        ``dim`` (which the world divides)."""
+        ``dim`` (which the world divides). Counted under ``kind`` (None:
+        not counted)."""
         if self.world == 1:
             return t
         x = t.movedim(dim, 0)
@@ -139,71 +158,166 @@ class Collectives:
                              f"by {self.world} ranks")
         wire = self._to_wire(x)
         out = self._empty(wire.shape, t)
-        self._count("reduce_scatter", wire)
+        if kind is not None:
+            self._count(kind, wire)
         dist.all_to_all_single(out, wire, group=self.group)
         parts = self._from_wire(out, t).reshape(
             self.world, n // self.world, *x.shape[1:])
         return _ordered_sum(parts).movedim(0, dim).contiguous()
 
     def all_gather_leaf(self, shard: torch.Tensor, dim: int,
-                        kind: str = "all_gather") -> torch.Tensor:
+                        kind: Optional[str] = "all_gather") -> torch.Tensor:
         """The shards of every rank concatenated along ``dim`` in rank
-        order; counted in ``calls`` under ``kind``."""
+        order; counted in ``calls`` under ``kind`` (None: not counted)."""
         if self.world == 1:
             return shard
         x = shard.movedim(dim, 0)
         wire = self._to_wire(x)
         out = self._empty((self.world * x.shape[0],) + tuple(x.shape[1:]),
                           shard)
-        self._count(kind, wire)
+        if kind is not None:
+            self._count(kind, wire)
         dist.all_gather_into_tensor(out, wire, group=self.group)
         return self._from_wire(out, shard).movedim(0, dim).contiguous()
 
-    def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
+    def all_reduce_sum(self, t: torch.Tensor,
+                       kind: Optional[str] = None) -> torch.Tensor:
         """Every rank's ``t`` summed in rank order, on every rank (bitwise
-        the same result everywhere)."""
+        the same result everywhere). With ``kind`` it counts once under
+        that name; else as its reduce-scatter and all-gather."""
         if self.world == 1:
             return t
         flat = t.reshape(-1)
         pad = (-flat.numel()) % self.world
         if pad:
             flat = torch.cat([flat, flat.new_zeros(pad)])
-        part = self.reduce_scatter_leaf(flat, 0)
-        full = self.all_gather_leaf(part, 0)
+        if kind is not None:
+            self._count(kind, flat)
+            part = self.reduce_scatter_leaf(flat, 0, kind=None)
+            full = self.all_gather_leaf(part, 0, kind=None)
+        else:
+            part = self.reduce_scatter_leaf(flat, 0)
+            full = self.all_gather_leaf(part, 0)
         return full[:t.numel()].reshape(t.shape)
+
+    def all_reduce_max(self, t: torch.Tensor,
+                       kind: str = "tp_max") -> torch.Tensor:
+        """The elementwise maximum of every rank's ``t``, on every rank."""
+        if self.world == 1:
+            return t
+        return self.all_gather_leaf(t[None], 0, kind=kind).amax(dim=0)
+
+    def all_to_all_tiled(self, x: torch.Tensor,
+                         kind: str = "tp_alltoall") -> torch.Tensor:
+        """``[world * n, c]`` -> ``[n, world * c]``: row block ``j`` of
+        every rank goes to rank ``j``, which concatenates what it receives
+        along the columns in rank order (the JAX ``all_to_all(split_axis=0,
+        concat_axis=1, tiled=True)``)."""
+        if self.world == 1:
+            return x
+        n = x.shape[0] // self.world
+        wire = self._to_wire(x)
+        out = self._empty(wire.shape, x)
+        self._count(kind, wire)
+        dist.all_to_all_single(out, wire, group=self.group)
+        got = self._from_wire(out, x).reshape(self.world, n, *x.shape[1:])
+        return got.transpose(0, 1).reshape(n, -1).contiguous()
+
+    def all_to_all_untiled(self, y: torch.Tensor,
+                           kind: str = "tp_alltoall") -> torch.Tensor:
+        """The inverse of ``all_to_all_tiled``: ``[n, world * c]`` ->
+        ``[world * n, c]``."""
+        if self.world == 1:
+            return y
+        n = y.shape[0]
+        x = y.reshape(n, self.world, -1).transpose(0, 1).contiguous()
+        wire = self._to_wire(x)
+        out = self._empty(wire.shape, y)
+        self._count(kind, wire)
+        dist.all_to_all_single(out, wire, group=self.group)
+        return self._from_wire(out, y).reshape(self.world * n, -1).clone()
+
+    def permute(self, t: torch.Tensor, send_to: int, recv_from: int,
+                kind: str = "ring_permute") -> torch.Tensor:
+        """Send ``t`` to group rank ``send_to`` and return what group rank
+        ``recv_from`` sends here (same shape and dtype on every rank)."""
+        if send_to == self.rank:
+            if recv_from != self.rank:
+                raise ValueError("a rank that keeps its tensor receives none")
+            return t.clone()
+        wire = self._to_wire(t)
+        out = self._empty(wire.shape, t)
+        self._count(kind, wire)
+        reqs = [dist.isend(wire, self.ranks[send_to], group=self.group),
+                dist.irecv(out, self.ranks[recv_from], group=self.group)]
+        for r in reqs:
+            r.wait()
+        return self._from_wire(out, t).clone()
 
 
 class Topology:
-    """Rank ``r``'s place on a ``(data, fsdp)`` mesh and its groups:
-    ``fsdp`` (the ranks sharing its data coordinate, which ZeRO shards
-    over), ``data`` (the ranks sharing its fsdp coordinate, the replicas
-    HYBRID_SHARD all-reduces over) and ``dp`` (every rank: the batch's
-    data shards). Every rank creates every group, in one order."""
+    """Rank ``r``'s place on a ``(data, fsdp, sequence, tensor)`` mesh
+    (row-major over ``mesh.MESH_AXES``, tensor innermost) and its groups,
+    each the ranks that share every coordinate but the named ones:
 
-    def __init__(self, data: int, fsdp: int):
-        world = data * fsdp
+    - ``fsdp`` (varying fsdp: ZeRO shards over it), ``data`` (varying
+      data: the replicas HYBRID_SHARD all-reduces over), ``dp`` (varying
+      data and fsdp: the batch's data shards);
+    - ``tensor`` (Megatron's group) and ``sequence`` (the ring);
+    - ``rep`` (varying data, fsdp and sequence: the ranks whose gradient
+      of a parameter they replicate is summed) and ``rep_data`` (varying
+      data and sequence: the same after the fsdp reduce-scatter).
+
+    At sequence = tensor = 1, ``rep`` is ``dp`` and ``rep_data`` is
+    ``data``. Every rank creates every group, in one order."""
+
+    def __init__(self, data: int, fsdp: int, sequence: int = 1,
+                 tensor: int = 1):
+        sizes = (data, fsdp, sequence, tensor)
+        world = math.prod(sizes)
         rank = mesh_lib.process_index()
+        self.sizes = sizes
         self.data_size, self.fsdp_size = data, fsdp
-        self.data_coord, self.fsdp_coord = divmod(rank, fsdp)
+        self.sequence_size, self.tensor_size = sequence, tensor
+        (self.data_coord, self.fsdp_coord, self.sequence_coord,
+         self.tensor_coord) = mesh_lib.mesh_coords(sizes, rank)
         timeout = mesh_lib.collective_timeout()
+        made: Dict[tuple, object] = {}
 
         def group(ranks: List[int]):
-            if len(ranks) == 1:
-                return None
-            if len(ranks) == world:
-                return dist.group.WORLD
-            return dist.new_group(ranks, timeout=timeout)
+            key = tuple(ranks)
+            if key not in made:
+                if len(ranks) == 1:
+                    made[key] = None
+                elif len(ranks) == world:
+                    made[key] = dist.group.WORLD
+                else:
+                    made[key] = dist.new_group(ranks, timeout=timeout)
+            return made[key]
 
-        fsdp_groups = [list(range(d * fsdp, (d + 1) * fsdp))
-                       for d in range(data)]
-        data_groups = [list(range(f, world, fsdp)) for f in range(fsdp)]
-        made_f = [group(r) for r in fsdp_groups]
-        made_d = [group(r) for r in data_groups]
-        self.fsdp = Collectives(made_f[self.data_coord],
-                                fsdp_groups[self.data_coord])
-        self.data = Collectives(made_d[self.fsdp_coord],
-                                data_groups[self.fsdp_coord])
-        self.dp = Collectives(group(list(range(world))), list(range(world)))
+        def coll(varying: Sequence[int]) -> Collectives:
+            """The group of this rank along the axes ``varying`` (indices
+            into ``sizes``); every group of that kind is made."""
+            mine = None
+            for r in range(world):
+                c = mesh_lib.mesh_coords(sizes, r)
+                if any(c[i] for i in varying):
+                    continue        # not the first rank of its group
+                members = [q for q in range(world)
+                           if all(mesh_lib.mesh_coords(sizes, q)[i] == c[i]
+                                  for i in range(4) if i not in varying)]
+                g = group(members)
+                if rank in members:
+                    mine = Collectives(g, members)
+            return mine
+
+        self.fsdp = coll((1,))
+        self.data = coll((0,))
+        self.dp = coll((0, 1))
+        self.tensor = coll((3,))
+        self.sequence = coll((2,))
+        self.rep = coll((0, 1, 2))
+        self.rep_data = coll((0, 2))
 
     @property
     def dp_rank(self) -> int:
@@ -214,14 +328,153 @@ class Topology:
 _TOPOLOGIES: Dict[tuple, Topology] = {}
 
 
-def topology(data: int, fsdp: int) -> Topology:
-    """The ``Topology`` of this process group for ``(data, fsdp)``, made
-    once (a trainer rebuilt after a rollback reuses its groups; every rank
+def topology(data: int, fsdp: int, sequence: int = 1,
+             tensor: int = 1) -> Topology:
+    """The ``Topology`` of this process group for the mesh, made once (a
+    trainer rebuilt after a rollback reuses its groups; every rank
     rebuilds in step)."""
-    key = (data, fsdp, mesh_lib.process_count())
+    key = (data, fsdp, sequence, tensor, mesh_lib.process_count())
     if key not in _TOPOLOGIES:
-        _TOPOLOGIES[key] = Topology(data, fsdp)
+        _TOPOLOGIES[key] = Topology(data, fsdp, sequence, tensor)
     return _TOPOLOGIES[key]
+
+
+# -- tensor and sequence parallelism ------------------------------------------
+
+class _CopyToTensor(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, coll: Collectives):
+        ctx.coll = coll
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.coll.all_reduce_sum(g.contiguous(),
+                                       kind="tp_allreduce"), None
+
+
+class _ReduceFromTensor(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, coll: Collectives):
+        return coll.all_reduce_sum(x.contiguous(), kind="tp_allreduce")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _own_slice(t: torch.Tensor, coll: Collectives, dim: int) -> torch.Tensor:
+    n = t.shape[dim] // coll.world
+    return t.narrow(dim, coll.rank * n, n).contiguous()
+
+
+class _GatherFromTensor(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, coll: Collectives, dim: int):
+        ctx.coll, ctx.dim = coll, dim
+        return coll.all_gather_leaf(x.contiguous(), dim, kind="tp_gather")
+
+    @staticmethod
+    def backward(ctx, g):
+        return _own_slice(g, ctx.coll, ctx.dim), None, None
+
+
+class _SliceToTensor(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, coll: Collectives, dim: int):
+        ctx.coll, ctx.dim = coll, dim
+        return _own_slice(x, coll, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.coll.all_gather_leaf(g.contiguous(), ctx.dim,
+                                        kind="tp_gather"), None, None
+
+
+class _AllToAllTiled(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, coll: Collectives):
+        ctx.coll = coll
+        return coll.all_to_all_tiled(x.contiguous())
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.coll.all_to_all_untiled(g.contiguous()), None
+
+
+def copy_to_tensor(x: torch.Tensor, coll: Optional[Collectives]
+                   ) -> torch.Tensor:
+    """Megatron's ``f``: ``x`` unchanged; its gradient summed over the
+    tensor group (the input of a column-parallel matmul)."""
+    if coll is None or coll.world == 1:
+        return x
+    return _CopyToTensor.apply(x, coll)
+
+
+def reduce_from_tensor(x: torch.Tensor, coll: Optional[Collectives]
+                       ) -> torch.Tensor:
+    """Megatron's ``g``: ``x`` summed over the tensor group in rank order;
+    the gradient unchanged (the output of a row-parallel matmul)."""
+    if coll is None or coll.world == 1:
+        return x
+    return _ReduceFromTensor.apply(x, coll)
+
+
+def gather_from_tensor(x: torch.Tensor, coll: Optional[Collectives],
+                       dim: int = -1) -> torch.Tensor:
+    """The ranks' slices of ``dim`` concatenated; the gradient sliced back
+    (the gradient is the same on every rank)."""
+    if coll is None or coll.world == 1:
+        return x
+    return _GatherFromTensor.apply(x, coll, dim % x.dim())
+
+
+def slice_to_tensor(x: torch.Tensor, coll: Optional[Collectives],
+                    dim: int = -1) -> torch.Tensor:
+    """This rank's slice of ``dim`` of a replicated ``x``; the gradient
+    gathered (each rank computed its slice's)."""
+    if coll is None or coll.world == 1:
+        return x
+    return _SliceToTensor.apply(x, coll, dim % x.dim())
+
+
+def tensor_all_to_all(x: torch.Tensor, coll: Optional[Collectives]
+                      ) -> torch.Tensor:
+    """``Collectives.all_to_all_tiled``, differentiable (the backward is
+    the inverse all-to-all)."""
+    if coll is None or coll.world == 1:
+        return x
+    return _AllToAllTiled.apply(x, coll)
+
+
+class _Permute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, coll: Collectives, send_to: int, recv_from: int):
+        ctx.coll, ctx.route = coll, (send_to, recv_from)
+        return coll.permute(x.contiguous(), send_to, recv_from)
+
+    @staticmethod
+    def backward(ctx, g):
+        send_to, recv_from = ctx.route
+        return (ctx.coll.permute(g.contiguous(), recv_from, send_to),
+                None, None, None)
+
+
+class SequencePermute:
+    """The ring's permute (``ops/ring.py``) over the sequence group
+    ``coll``, one rank a process: ``self([x], dest)`` sends ``x`` to group
+    rank ``dest[me]`` and returns ``[what group rank dest^-1(me) sent]``;
+    differentiable (the backward sends the gradient back along the reverse
+    route)."""
+
+    def __init__(self, coll: Collectives):
+        self.coll = coll
+
+    def __call__(self, xs: List[torch.Tensor], dest: Sequence[int]
+                 ) -> List[torch.Tensor]:
+        me = self.coll.rank
+        return [_Permute.apply(xs[0], self.coll, dest[me],
+                               list(dest).index(me))]
 
 
 def _storage_key(t: torch.Tensor):

@@ -1,0 +1,81 @@
+"""The active mesh of a training or decoding pass (the port's counterpart
+of ``tpu_trainer/parallel/context.py``).
+
+The JAX package publishes its mesh while it traces a step, so the model's
+ops can ask what the ``tensor`` and ``sequence`` axes are. Eager PyTorch
+traces nothing: ``use_mesh(ctx)`` is a plain module-level scope around a
+forward (and the backward that runs inside it), and ``current_mesh()``
+returns its ``MeshContext`` or None. The scope holds the rank's
+coordinate and the two intra-layer groups; the data-parallel groups stay
+the trainer's.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from typing import Optional
+
+from tpu_trainer_torch.parallel.mesh import (
+    MESH_AXES,
+    SEQUENCE_AXIS,
+    TENSOR_AXIS,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshContext:
+    """``sizes`` / ``coords``: the mesh and this rank's place on it (over
+    ``MESH_AXES``). ``tensor``: the ``Collectives`` of the ranks that
+    share every coordinate but the tensor one (Megatron's group), None at
+    size 1. ``sequence``: likewise along ``sequence``, and ``permute`` the
+    ring's permute over it (``collectives.SequencePermute``)."""
+
+    sizes: tuple
+    coords: tuple
+    tensor: Optional[object] = None
+    sequence: Optional[object] = None
+    permute: Optional[object] = None
+
+    def _axis(self, name: str) -> int:
+        return MESH_AXES.index(name)
+
+    @property
+    def tp(self) -> int:
+        return self.sizes[self._axis(TENSOR_AXIS)]
+
+    @property
+    def tp_rank(self) -> int:
+        return self.coords[self._axis(TENSOR_AXIS)]
+
+    @property
+    def sp(self) -> int:
+        return self.sizes[self._axis(SEQUENCE_AXIS)]
+
+    @property
+    def sp_rank(self) -> int:
+        return self.coords[self._axis(SEQUENCE_AXIS)]
+
+
+_ACTIVE: Optional[MeshContext] = None
+
+
+@contextlib.contextmanager
+def use_mesh(ctx: Optional[MeshContext]):
+    """Make ``ctx`` the active mesh for the duration (None: none)."""
+    global _ACTIVE
+    prev, _ACTIVE = _ACTIVE, ctx
+    try:
+        yield ctx
+    finally:
+        _ACTIVE = prev
+
+
+def current_mesh() -> Optional[MeshContext]:
+    """The active ``MeshContext``, else None (one process, no mesh)."""
+    return _ACTIVE
+
+
+def tensor_size() -> int:
+    """The active mesh's tensor size (1 without one)."""
+    return 1 if _ACTIVE is None else _ACTIVE.tp

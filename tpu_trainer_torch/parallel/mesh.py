@@ -5,14 +5,21 @@ the collectives; the port runs one process a device and does the
 collectives itself (``parallel/collectives.py``). What carries over:
 
 - ``MeshConfig`` and ``resolve``: the six axes, ``-1`` = the rest, the
-  same errors. Only ``data`` and ``fsdp`` run here; ``sequence``,
-  ``tensor``, ``expert`` and ``stage`` above 1 raise
-  ``NotImplementedError`` naming their ROADMAP Queue 1 entry
-  (``check_ported``).
-- Rank ``r`` sits at mesh coordinate ``(r // fsdp, r % fsdp)`` of
-  ``(data, fsdp)`` (row-major, fsdp innermost, as ``make_mesh`` lays out
-  one device a process), and the batch rows shard over ``data x fsdp``
-  jointly, so rank ``r`` holds row block ``r`` (``host_feed_info``).
+  same errors. ``data``, ``fsdp``, ``sequence`` and ``tensor`` run here;
+  ``expert`` and ``stage`` above 1 raise ``NotImplementedError`` naming
+  their ROADMAP Queue 1 entry (``check_ported``).
+- Rank ``r`` sits at the row-major coordinate of ``MESH_AXES``
+  (``mesh_coords``: tensor innermost, then sequence, fsdp, data, as
+  ``make_mesh`` lays out one device a process). The batch rows shard over
+  ``data x fsdp`` jointly, so the ranks of data shard ``d * fsdp + f``
+  load row block ``d * fsdp + f``; the ranks along ``sequence`` and
+  ``tensor`` load the same rows (``host_feed_info``) and a sequence rank
+  keeps its slice of the columns (``training/trainer.py``).
+- ``attention_shard_spec`` / ``attention_shard_coord``: which of the
+  attention operands' dims shard (batch over ``data x fsdp`` when it
+  divides, heads over ``tensor`` when both head counts divide) and the
+  shard's linear coordinate, which an attention-dropout seed folds in
+  (``ops/attention.fold_seed``).
 - ``initialize_distributed``: ``torch.distributed.init_process_group``
   from torchrun's ``RANK`` / ``WORLD_SIZE`` / ``MASTER_ADDR`` /
   ``MASTER_PORT`` or the JAX names ``COORDINATOR_ADDRESS`` /
@@ -52,8 +59,6 @@ MESH_AXES = (
 # The ROADMAP Queue 1 entries (by title: re-anchors renumber the queue)
 # that own the axes this port does not run yet.
 UNPORTED_AXES = {
-    SEQUENCE_AXIS: "ROADMAP Queue 1: the sequence ring",
-    TENSOR_AXIS: "ROADMAP Queue 1: tensor parallelism and hybrid meshes",
     EXPERT_AXIS: "ROADMAP Queue 1: pipeline and expert parallelism",
     STAGE_AXIS: "ROADMAP Queue 1: pipeline and expert parallelism",
 }
@@ -108,6 +113,50 @@ def check_ported(sizes: tuple) -> None:
 def dp_size(sizes: tuple) -> int:
     """Number of distinct data shards (data x fsdp axes)."""
     return sizes[0] * sizes[1]
+
+
+def mesh_coords(sizes: tuple, rank: int) -> tuple:
+    """Rank ``rank``'s coordinate on each of ``MESH_AXES`` (row-major,
+    the last axis innermost)."""
+    out = []
+    for n in reversed(sizes):
+        rank, c = divmod(rank, n)
+        out.append(c)
+    return tuple(reversed(out))
+
+
+def attention_shard_spec(sizes: tuple, batch: int, heads: int,
+                         kv_heads: Optional[int] = None):
+    """The JAX ``attention_shard_spec`` for ``[b, s, h, d]`` attention
+    operands of global batch ``batch``: ``(b_spec, h_spec)``, batch over
+    ``(data, fsdp)`` when their product exceeds 1 and divides it, heads
+    over ``tensor`` when its size exceeds 1 and divides both ``heads``
+    and ``kv_heads``; None where the dim is replicated."""
+    dp = dp_size(sizes)
+    b_spec = (DATA_AXIS, FSDP_AXIS) if dp > 1 and batch % dp == 0 else None
+    tp = sizes[MESH_AXES.index(TENSOR_AXIS)]
+    kv_heads = heads if kv_heads is None else kv_heads
+    h_spec = (TENSOR_AXIS if tp > 1 and heads % tp == 0
+              and kv_heads % tp == 0 else None)
+    return b_spec, h_spec
+
+
+def attention_shard_coord(sizes: tuple, coords: tuple, b_spec,
+                          h_spec) -> int:
+    """The JAX ``attention_shard_coord``: the linear coordinate of this
+    shard along the axes that shard the attention operands (0 when none
+    does): ``(data, fsdp)`` when the batch shards, then ``tensor`` when
+    the heads do. Folding it into a dropout seed decorrelates masks across
+    shards, and only across sharded axes."""
+    coord = 0
+    if b_spec is not None:
+        for ax in (DATA_AXIS, FSDP_AXIS):
+            i = MESH_AXES.index(ax)
+            coord = coord * sizes[i] + coords[i]
+    if h_spec is not None:
+        i = MESH_AXES.index(TENSOR_AXIS)
+        coord = coord * sizes[i] + coords[i]
+    return coord
 
 
 def _int_env(name: str) -> Optional[int]:
@@ -246,7 +295,8 @@ def host_feed_info(sizes: tuple, rows: int, *, process_of_device=None,
 
     The mesh's devices ``0 .. prod(sizes) - 1`` lie row-major over
     ``MESH_AXES``; a device's rows are block ``data_coord * fsdp +
-    fsdp_coord`` of ``rows`` (every other axis replicates them). Processes
+    fsdp_coord`` of ``rows`` (every other axis replicates them: the ranks
+    along ``sequence`` and ``tensor`` load identical rows). Processes
     whose devices cover the same rows form one feed group and load the
     same rows; groups are ranked by their first row.
     ``process_of_device`` maps a device id to its process (default: one

@@ -1,4 +1,4 @@
-"""The ZeRO placement rule (port of the data and fsdp part of
+"""The placement rules (port of the data, fsdp and tensor part of
 ``tpu_trainer/parallel/sharding.py``).
 
 The reference's strategies map onto which state a rank holds whole and
@@ -17,16 +17,44 @@ replicates when none does. It applies to the leaf as the checkpoint names
 it, the stacked ``[num_layers, ...]`` ``layers.*`` leaf, so rank ``r``'s
 slice is the JAX device ``r``'s addressable shard. Slices are contiguous
 and equal: rank ``r`` holds ``[r * n / W, (r + 1) * n / W)`` of the
-sharded dim. The tensor, expert and stage branches of the JAX rule belong
-to axes this port does not run yet (``parallel/mesh.check_ported``).
+sharded dim.
+
+**Tensor parallelism** (Megatron): by parameter-name suffix
+(``_TENSOR_RULES``), the q/k/v and gate/up kernels shard their output dim
+(column-parallel), o/down their input dim (row-parallel), the tied
+embedding its hidden dim; in every strategy, when the tensor size divides
+that dim. The fsdp dim is then the largest divisible dim that is not the
+tensor dim (the JAX ``_leaf_spec`` order). Rank ``t`` of the tensor axis
+holds slice ``t`` of the tensor dim, and its fsdp slice is of that.
+The expert rules sit in the table as in the JAX package; MoE under a
+tensor axis is refused by the trainer (``ROADMAP Queue 1: pipeline and
+expert parallelism``). The stage branch belongs to an axis this port does
+not run yet (``parallel/mesh.check_ported``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
-from tpu_trainer_torch.parallel.mesh import FSDP_AXIS
+from tpu_trainer_torch.parallel.mesh import FSDP_AXIS, TENSOR_AXIS
+
+# Megatron-style tensor-parallel placement by parameter-name suffix (the
+# JAX table): column-parallel shards the output dim (last), row-parallel
+# the input dim (second to last); the tied embedding its hidden dim.
+_TENSOR_RULES: List[Tuple[Tuple[str, ...], int]] = [
+    (("attention", "q_proj", "kernel"), -1),
+    (("attention", "k_proj", "kernel"), -1),
+    (("attention", "v_proj", "kernel"), -1),
+    (("attention", "o_proj", "kernel"), -2),
+    (("mlp", "gate_proj", "kernel"), -1),
+    (("mlp", "up_proj", "kernel"), -1),
+    (("mlp", "down_proj", "kernel"), -2),
+    (("embed_tokens", "embedding"), -1),
+    (("experts_gate",), -1),
+    (("experts_up",), -1),
+    (("experts_down",), -2),
+]
 
 # Ours (zero3/zero2/replicated) with the reference's FSDP spellings.
 STRATEGY_ALIASES = {
@@ -49,13 +77,28 @@ def canonical_strategy(name: str) -> str:
     return STRATEGY_ALIASES[name]
 
 
-def fsdp_dim(shape, fsdp_size: int) -> Optional[int]:
-    """The dim the FSDP rule shards, or None (replicated)."""
+def tensor_dim(name: str, shape, tensor_size: int) -> Optional[int]:
+    """The dim of parameter ``name`` (``a.b.c``) that the tensor axis
+    shards, or None (the JAX ``_tensor_dim``)."""
+    if tensor_size <= 1 or not shape:
+        return None
+    keys = tuple(name.split("."))
+    for suffix, dim in _TENSOR_RULES:
+        if keys[-len(suffix):] == suffix:
+            d = dim % len(shape)
+            return d if shape[d] % tensor_size == 0 else None
+    return None
+
+
+def fsdp_dim(shape, fsdp_size: int,
+             exclude: Optional[int] = None) -> Optional[int]:
+    """The dim the FSDP rule shards, or None (replicated); ``exclude`` is
+    a dim already taken by the tensor axis."""
     if fsdp_size <= 1:
         return None
     best = None
     for i, d in enumerate(shape):
-        if d % fsdp_size == 0 and d >= fsdp_size:
+        if i != exclude and d % fsdp_size == 0 and d >= fsdp_size:
             if best is None or d >= shape[best]:
                 best = i
     return best
@@ -73,33 +116,68 @@ def fsdp_spec(shape, fsdp_size: int) -> Tuple[Optional[str], ...]:
 
 @dataclasses.dataclass(frozen=True)
 class LeafSpec:
-    """Where one leaf is split: ``param_dim`` for the master parameter
-    (ZeRO-3), ``state_dim`` for its gradient and Adam moments (ZeRO-2 and
-    ZeRO-3); None is whole. ``world`` is the fsdp size."""
+    """Where one leaf is split: ``tensor_dim`` over the tensor axis (size
+    ``tensor``; params, grads and moments alike, every strategy),
+    ``param_dim`` over fsdp for the master parameter (ZeRO-3),
+    ``state_dim`` over fsdp for its gradient and Adam moments (ZeRO-2 and
+    ZeRO-3); None is whole. ``shape`` is the global shape; ``world`` is
+    the fsdp size."""
 
     shape: tuple
     param_dim: Optional[int]
     state_dim: Optional[int]
     world: int
+    tensor_dim: Optional[int] = None
+    tensor: int = 1
+
+    @property
+    def tp_shape(self) -> tuple:
+        """A tensor rank's shape of the leaf (before any fsdp split)."""
+        return tuple(n // self.tensor if i == self.tensor_dim else n
+                     for i, n in enumerate(self.shape))
 
     def shard_shape(self, dim: Optional[int]) -> tuple:
-        if dim is None:
-            return self.shape
+        """A rank's shape of the leaf split on fsdp dim ``dim`` (None:
+        only the tensor split)."""
         return tuple(n // self.world if i == dim else n
-                     for i, n in enumerate(self.shape))
+                     for i, n in enumerate(self.tp_shape))
+
+    def partition(self, dim: Optional[int]) -> Tuple[Optional[str], ...]:
+        """The JAX ``PartitionSpec`` of the leaf with fsdp dim ``dim``, as
+        ``tuple(P(...))`` gives it (``()`` when replicated)."""
+        axes = [None] * len(self.shape)
+        if self.tensor_dim is not None:
+            axes[self.tensor_dim] = TENSOR_AXIS
+        if dim is not None:
+            axes[dim] = FSDP_AXIS
+        return () if all(a is None for a in axes) else tuple(axes)
 
 
 def leaf_specs(shapes: Dict[str, tuple], strategy: str,
-               fsdp_size: int) -> Dict[str, LeafSpec]:
+               fsdp_size: int, tensor_size: int = 1
+               ) -> Dict[str, LeafSpec]:
     """The per-leaf split of params, grads and moments under ``strategy``
-    (reference or canonical spelling) on an fsdp axis of ``fsdp_size``:
-    params shard under zero3 only, grads and moments under zero2 and
-    zero3, every one by ``fsdp_dim``."""
+    (reference or canonical spelling) on an fsdp axis of ``fsdp_size`` and
+    a tensor axis of ``tensor_size``: the tensor dim by ``tensor_dim`` in
+    every strategy; then params shard over fsdp under zero3 only, grads
+    and moments under zero2 and zero3, every one by ``fsdp_dim`` over the
+    dims the tensor axis left."""
     strategy = canonical_strategy(strategy)
     out = {}
     for name, shape in shapes.items():
-        d = (fsdp_dim(shape, fsdp_size) if strategy in ("zero2", "zero3")
-             else None)
+        t = tensor_dim(name, shape, tensor_size)
+        d = (fsdp_dim(shape, fsdp_size, exclude=t)
+             if strategy in ("zero2", "zero3") else None)
         out[name] = LeafSpec(tuple(shape), d if strategy == "zero3" else None,
-                             d, fsdp_size)
+                             d, fsdp_size, t, tensor_size)
     return out
+
+
+def tensor_slice(arr, spec: LeafSpec, rank: int):
+    """Tensor rank ``rank``'s slice of a global leaf ``arr`` (numpy or
+    torch); the leaf itself when the tensor axis does not shard it."""
+    d = spec.tensor_dim
+    if d is None:
+        return arr
+    k = arr.shape[d] // spec.tensor
+    return arr[(slice(None),) * d + (slice(rank * k, (rank + 1) * k),)]

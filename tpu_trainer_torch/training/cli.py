@@ -13,9 +13,13 @@ Several processes: launch under ``torchrun --nproc_per_node N`` (or set
 ``COORDINATOR_ADDRESS`` / ``NUM_PROCESSES`` / ``PROCESS_ID``; ``--multihost``
 requires one of them); ``parallel/mesh.initialize_distributed`` joins the
 group (NCCL on CUDA, gloo on the CPU; a process group that already
-exists is kept). The mesh is ``--mesh_data`` x ``--mesh_fsdp`` (ddp: every
-process on data; fsdp: every process on fsdp; ``HYBRID_SHARD`` needs both
-flags), each process loads its own rows (``Trainer.data_feed_rank``),
+exists is kept; a group this process joined is left when the run returns).
+The mesh is ``--mesh_data`` x ``--mesh_fsdp`` (ddp: every process on data;
+fsdp: every process on fsdp; ``HYBRID_SHARD`` needs both flags) x
+``--mesh_sequence`` (the ring: each rank runs a slice of every sequence) x
+``--mesh_tensor`` (Megatron tensor parallelism); each process loads its
+own rows (``Trainer.data_feed_rank``; the ranks along sequence and tensor
+load the same rows),
 rank 0 alone prints and writes the logs, checkpoints take the two-phase
 commit, and ``check_hosts_in_sync`` runs with the finite-loss guard.
 
@@ -839,7 +843,18 @@ def _print_nan_scan(report: dict) -> None:
 def run_training(argv=None, mode: str = "ddp") -> int:
     """Train as the flags and YAML say (``mode`` "ddp" or "fsdp");
     returns the exit code (0, or 143 after a SIGTERM or preemption-notice
-    save)."""
+    save). A process that joined the process group here leaves it when
+    it returns (``mesh.shutdown_distributed``, the JAX drain path's
+    ``jax.distributed.shutdown``); a group its caller made is kept."""
+    owned = {"group": False}
+    try:
+        return _run_training(argv, mode, owned)
+    finally:
+        if owned["group"]:
+            mesh_lib.shutdown_distributed()
+
+
+def _run_training(argv, mode: str, owned: dict) -> int:
     if mode not in ("ddp", "fsdp"):
         raise ValueError(f"mode {mode!r}; choose ddp or fsdp")
     args = build_parser(mode).parse_args(argv)
@@ -867,7 +882,9 @@ def run_training(argv=None, mode: str = "ddp") -> int:
     device = resolve_device(args.device)
     if device.type == "cuda":
         device = mesh_lib.local_device(device)
+    joined = mesh_lib.process_count() > 1
     mesh_lib.initialize_distributed(auto=args.multihost, device=device)
+    owned["group"] = not joined and mesh_lib.process_count() > 1
     try:
         parallel_config.mesh.resolve(mesh_lib.process_count())
     except ValueError as mesh_err:
@@ -883,7 +900,11 @@ def run_training(argv=None, mode: str = "ddp") -> int:
     if main:
         print(f"mode={mode} strategy={parallel_config.sharding_strategy} "
               f"device={device} processes={world} mesh data x fsdp = "
-              f"{trainer.mesh_sizes[0]} x {trainer.mesh_sizes[1]} | model: "
+              f"{trainer.mesh_sizes[0]} x {trainer.mesh_sizes[1]}"
+              + (f", sequence x tensor = {trainer.mesh_sizes[2]} x "
+                 f"{trainer.mesh_sizes[3]}"
+                 if trainer.mesh_sizes[2] * trainer.mesh_sizes[3] > 1
+                 else "") + " | model: "
               f"{model_config.num_parameters():,} params | batch "
               f"{training_config.gradient_accumulation_steps} x "
               f"{training_config.batch_size} seqs x "
@@ -939,7 +960,8 @@ def run_training(argv=None, mode: str = "ddp") -> int:
         # moves onto this run's batch granularity (at least once).
         data_state, replayed = ckpt_lib.remap_data_state(
             data_state, new_global_batch_size=trainer.global_batch_size,
-            new_feed_world=trainer.data_feed_world)
+            new_feed_world=trainer.data_feed_world,
+            new_seq_shards=trainer.mesh_sizes[2])
         if replayed and main:
             print(f"data cursor remapped for the resized mesh: replaying "
                   f"{replayed} already-seen sequences", flush=True)

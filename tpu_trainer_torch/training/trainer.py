@@ -84,6 +84,30 @@ rank's rows in rank order) through the ``dp`` group (``models/moe.py``):
 capacity, queue positions and the load fraction are the one-process
 ones.
 
+**Tensor and sequence axes** (``mesh.tensor`` / ``mesh.sequence``; rank
+layout ``parallel/mesh.mesh_coords``). Under ``tensor`` every rank holds
+its Megatron slice of the sharded leaves (``parallel/sharding.py``; the
+fsdp split, under ZeRO, is then of that slice) and the model runs the
+column/row-parallel forward (``models/gpt.py``): the gradient of a
+tensor-sharded leaf stays the rank's, a replicated leaf's (norms) is the
+same on every tensor rank and is not summed over ``tensor``; the
+data/fsdp reduction runs within the tensor coordinate. Under
+``sequence`` every rank holds the parameters whole (or its fsdp slice)
+and runs its slice of the sequence (``put_batch`` cuts the columns and
+the next one, for the global shift); gradients and the loss are summed
+over the sequence ranks with the data shards, in rank order
+(``collectives.Topology.rep`` / ``rep_data``). The global norm adds each
+sharded leaf's sums of squares over the groups that shard it, once, and
+the replicated leaves' once. The mesh is entered as
+``parallel/context.use_mesh`` around every forward and backward.
+``fused_projections`` is turned off under ``tensor`` (the JAX trainer's
+rule); ``num_heads`` and ``kv_heads`` must divide by the tensor size and
+``max_seq_len`` by the sequence size. Knobs that do not compose yet
+raise naming their ROADMAP entry: MoE under ``tensor`` or ``sequence``,
+int8 moments (on the device or offloaded) and telemetry steps under
+``tensor``. bf16 moments, f32/bf16 offload and remat take a tensor shard
+as they take a ZeRO shard.
+
 The moments' narrow forms and the offload hold on a shard too: a rank's
 moments are its slice, int8 packs of a slice of a leaf's last dim keep
 the whole leaf's blocks (``utils/quant.BlockCut``: a rank's pack is its
@@ -113,6 +137,7 @@ from tpu_trainer_torch.models.gpt import GPT
 from tpu_trainer_torch.models.weights import init_params
 from tpu_trainer_torch.ops.loss import segment_target_mask
 from tpu_trainer_torch.parallel import collectives as coll_lib
+from tpu_trainer_torch.parallel import context as ctx_lib
 from tpu_trainer_torch.parallel import mesh as mesh_lib
 from tpu_trainer_torch.parallel.mesh import MeshConfig
 from tpu_trainer_torch.parallel.sharding import (
@@ -120,6 +145,7 @@ from tpu_trainer_torch.parallel.sharding import (
     canonical_strategy,
     fsdp_dim,
     leaf_specs,
+    tensor_slice,
 )
 from tpu_trainer_torch.training.config import TrainingConfig
 from tpu_trainer_torch.training.optimizer import (
@@ -259,26 +285,38 @@ def _shard_of(arr: np.ndarray, dim: Optional[int], index: int,
 @dataclasses.dataclass(frozen=True)
 class StateSharding:
     """Which slice of each leaf a rank holds at world > 1: ``specs``
-    (``parallel/sharding.leaf_specs``), the rank's fsdp coordinate, and
-    whether it writes checkpoint shards (the ranks of data coordinate 0
-    hold every element once; of them fsdp rank 0 writes the whole
-    leaves)."""
+    (``parallel/sharding.leaf_specs``), the rank's fsdp, tensor and
+    sequence coordinates, and whether it writes checkpoint shards (the
+    ranks of data and sequence coordinate 0 hold every element once; of
+    them fsdp rank 0 writes what fsdp does not split and tensor rank 0
+    what tensor does not split)."""
 
     specs: Dict[str, LeafSpec]
     fsdp_rank: int
     data_coord: int
     world: int                        # the fsdp size
+    tensor_rank: int = 0
+    tensor: int = 1                   # the tensor size
+    seq_coord: int = 0
 
-    def dim(self, key: str) -> Optional[int]:
-        """The sharded dim of checkpoint key ``key``."""
+    def _spec(self, key: str) -> Tuple[LeafSpec, bool]:
         prefix, _, path = key.partition("/")
         if prefix == "params":
-            return self.specs[path.replace("/", ".")].param_dim
+            return self.specs[path.replace("/", ".")], True
         path = path.partition("/")[2]          # after "mu" / "nu"
         head, _, tail = path.rpartition("/")
         if tail in ("q", "scale") and head.replace("/", ".") in self.specs:
             path = head                        # a pack: the leaf's dim
-        return self.specs[path.replace("/", ".")].state_dim
+        return self.specs[path.replace("/", ".")], False
+
+    def dim(self, key: str) -> Optional[int]:
+        """The fsdp-sharded dim of checkpoint key ``key``."""
+        spec, param = self._spec(key)
+        return spec.param_dim if param else spec.state_dim
+
+    def tensor_dim(self, key: str) -> Optional[int]:
+        """The tensor-sharded dim of checkpoint key ``key``."""
+        return self._spec(key)[0].tensor_dim
 
 
 @dataclasses.dataclass
@@ -319,6 +357,10 @@ class TrainState:
     def _dim(self, key: str) -> Optional[int]:
         return None if self.sharding is None else self.sharding.dim(key)
 
+    def _tdim(self, key: str) -> Optional[int]:
+        return (None if self.sharding is None
+                else self.sharding.tensor_dim(key))
+
     def _world(self, key: str) -> int:
         return 1 if self._dim(key) is None else self.sharding.world
 
@@ -332,6 +374,9 @@ class TrainState:
             d = self._dim(k)
             if d is not None:
                 shape[d] *= self._world(k)
+            td = self._tdim(k)
+            if td is not None:
+                shape[td] *= self.sharding.tensor
             out[k] = (tuple(shape), _array_dtype(t))
         for k, m in self._cut_packs().items():
             qs, ss = cut_global_shapes(m)
@@ -380,8 +425,10 @@ class TrainState:
         copies taken after a device synchronize."""
         self._sync()
         sh = self.sharding
-        write_sharded = sh is None or sh.data_coord == 0
-        write_whole = sh is None or (sh.data_coord == 0 and sh.fsdp_rank == 0)
+        write_sharded = sh is None or (sh.data_coord == 0
+                                       and sh.seq_coord == 0)
+        write_whole = sh is None or (write_sharded and sh.fsdp_rank == 0
+                                     and sh.tensor_rank == 0)
         layout = self.layout()
         out = []
         for prefix, tree in self._trees():
@@ -399,11 +446,17 @@ class TrainState:
                                     if write_sharded else []})
                     continue
                 for k, arr in _moment_arrays(key, m).items():
-                    d = self._dim(k)
+                    d, td = self._dim(k), self._tdim(k)
                     starts = [0] * arr.ndim
+                    mine = write_sharded
                     if d is not None:
                         starts[d] = sh.fsdp_rank * arr.shape[d]
-                    mine = write_whole if d is None else write_sharded
+                    elif sh is not None:
+                        mine = mine and sh.fsdp_rank == 0
+                    if td is not None:
+                        starts[td] = sh.tensor_rank * arr.shape[td]
+                    elif sh is not None:
+                        mine = mine and sh.tensor_rank == 0
                     out.append({"key": k, "global_shape": layout[k][0],
                                 "dtype": str(arr.dtype),
                                 "shards": [(tuple(starts), arr)] if mine
@@ -448,6 +501,9 @@ class TrainState:
                 if key in cuts:
                     arr = cuts[key]
                 elif self.sharding is not None:
+                    arr = _shard_of(arr, self._tdim(key),
+                                    self.sharding.tensor_rank,
+                                    self.sharding.tensor)
                     arr = _shard_of(arr, self._dim(key),
                                     self.sharding.fsdp_rank,
                                     self._world(key))
@@ -486,6 +542,11 @@ class Trainer:
         self.parallel_config = parallel_config
         self.device = resolve_device(device)
         self.use_loss_scaling = training_config.mixed_precision == "fp16"
+        self.process_index = mesh_lib.process_index()
+        self.process_count = mesh_lib.process_count()
+        self.mesh_sizes = parallel_config.mesh.resolve(self.process_count)
+        mesh_lib.check_ported(self.mesh_sizes)
+        self._check_intra_layer(parallel_config)
         self.model = GPT(self.model_config, device="meta")
         self.optimizer = make_optimizer(training_config)
         self._init_mesh(parallel_config)
@@ -517,29 +578,70 @@ class Trainer:
         self._link_events = None
         self.offload_stream_bytes = 0
 
+    def _check_intra_layer(self, parallel_config: ParallelConfig) -> None:
+        """The tensor and sequence axes' rules (the JAX trainer's errors;
+        ``fused_projections`` turned off under tensor) and the knobs that
+        do not compose with them yet."""
+        cfg = self.model_config
+        tc = self.training_config
+        seq, tensor = self.mesh_sizes[2:4]
+        if seq > 1 and tc.max_seq_len % seq != 0:
+            raise ValueError(f"max_seq_len {tc.max_seq_len} not divisible "
+                             f"by sequence axis size {seq}")
+        if tensor > 1:
+            if cfg.num_heads % tensor != 0:
+                raise ValueError(f"num_heads {cfg.num_heads} not divisible "
+                                 f"by tensor axis size {tensor}")
+            if cfg.kv_heads % tensor != 0:
+                raise ValueError(
+                    f"num_kv_heads {cfg.kv_heads} not divisible by tensor "
+                    f"axis size {tensor} (each tensor shard must own whole "
+                    f"K/V-head groups)")
+            if cfg.fused_projections:
+                self.model_config = dataclasses.replace(
+                    cfg, fused_projections=False)
+        later = []
+        if cfg.num_experts > 0 and (tensor > 1 or seq > 1):
+            later.append("MoE under a tensor or sequence axis -> ROADMAP "
+                         "Queue 1: pipeline and expert parallelism")
+        if tensor > 1 and (tc.optimizer_state_dtype == "int8" or (
+                parallel_config.cpu_offload
+                and parallel_config.offload_dtype == "int8")):
+            later.append("int8 Adam moments under a tensor axis -> ROADMAP "
+                         "Queue 1: tensor-parallel leftovers (int8 moments "
+                         "on a tensor shard)")
+        if later:
+            raise NotImplementedError("not ported yet: " + "; ".join(later))
+
     def _init_mesh(self, parallel_config: ParallelConfig) -> None:
         """The rank surface and, at world > 1, the groups, the per-leaf
-        split and the model's ZeRO-3 gather and data shard."""
-        self.process_index = mesh_lib.process_index()
-        self.process_count = mesh_lib.process_count()
-        self.mesh_sizes = parallel_config.mesh.resolve(self.process_count)
-        mesh_lib.check_ported(self.mesh_sizes)
+        split, the model's ZeRO-3 gather and data shard, and the mesh
+        context of the tensor and sequence axes."""
         self.strategy = canonical_strategy(parallel_config.sharding_strategy)
-        data, fsdp = self.mesh_sizes[:2]
+        data, fsdp, seq, tensor = self.mesh_sizes[:4]
         shapes = {n: tuple(p.shape) for n, p in self.model.named_parameters()}
-        self.specs = leaf_specs(shapes, self.strategy, fsdp)
+        self.specs = leaf_specs(shapes, self.strategy, fsdp, tensor)
         self.topology = None
+        self.mesh_context = None
         self._cuts: Dict[str, BlockCut] = {}
         if self.process_count == 1:
             return
-        self.topology = coll_lib.topology(data, fsdp)
+        self.topology = topo = coll_lib.topology(data, fsdp, seq, tensor)
+        self.mesh_context = ctx_lib.MeshContext(
+            sizes=self.mesh_sizes,
+            coords=mesh_lib.mesh_coords(self.mesh_sizes, self.process_index),
+            tensor=topo.tensor if tensor > 1 else None,
+            sequence=topo.sequence if seq > 1 else None,
+            permute=(coll_lib.SequencePermute(topo.sequence) if seq > 1
+                     else None))
         for n, sp in self.specs.items():
             d = sp.state_dim
             if d is not None and d == len(sp.shape) - 1:
-                k = sp.shape[d] // fsdp
-                r = self.topology.fsdp.rank
-                self._cuts[n] = BlockCut(r * k, (r + 1) * k, sp.shape[d],
-                                         group=self.topology.fsdp)
+                full = sp.tp_shape[d]
+                k = full // fsdp
+                r = topo.fsdp.rank
+                self._cuts[n] = BlockCut(r * k, (r + 1) * k, full,
+                                         group=topo.fsdp)
         if self.strategy == "zero3":
             self.model.zero3 = coll_lib.ZeroGather(
                 self.topology.fsdp,
@@ -585,9 +687,14 @@ class Trainer:
     @property
     def feed_signature(self) -> dict:
         """What a persisted loader cursor's units depend on
-        (``utils/checkpoint.remap_data_state``)."""
-        return {"global_batch_size": self.global_batch_size,
-                "feed_world": self.data_feed_world}
+        (``utils/checkpoint.remap_data_state``); under a sequence axis
+        also ``seq_shards``, its size, which says how a row's columns were
+        split (the rows themselves do not depend on it)."""
+        sig = {"global_batch_size": self.global_batch_size,
+               "feed_world": self.data_feed_world}
+        if self.mesh_sizes[2] > 1:
+            sig["seq_shards"] = self.mesh_sizes[2]
+        return sig
 
     @property
     def tokens_per_step(self) -> int:
@@ -595,7 +702,8 @@ class Trainer:
 
     def _sharded(self) -> bool:
         return self.topology is not None and any(
-            s.state_dim is not None for s in self.specs.values())
+            s.state_dim is not None or s.tensor_dim is not None
+            for s in self.specs.values())
 
     def _state_shapes(self) -> Dict[str, tuple]:
         """This rank's shape of every moment leaf (its slice under zero2
@@ -604,8 +712,10 @@ class Trainer:
                 for n, sp in self.specs.items()}
 
     def _moment_shapes(self) -> Dict[tuple, torch.Tensor]:
-        """Meta f32 tensors of every moment leaf, under ``moment_key``."""
-        return {moment_key(m, n): torch.empty(sp.shape, dtype=torch.float32,
+        """Meta f32 tensors of every moment leaf (a tensor rank's slice),
+        under ``moment_key``."""
+        return {moment_key(m, n): torch.empty(sp.tp_shape,
+                                              dtype=torch.float32,
                                               device="meta")
                 for n, sp in self.specs.items() for m in ("mu", "nu")}
 
@@ -754,12 +864,14 @@ class Trainer:
             sharding = None
         else:
             # Every rank draws the same full parameters, then keeps its
-            # slices: masters under zero3, moments under zero2 and zero3.
+            # slices: its tensor slice, and of that its fsdp slice of the
+            # masters under zero3 and of the moments under zero2 and zero3.
             fr = self.topology.fsdp.rank
             world = self.topology.fsdp.world
             masters = {}
             for n in self.specs:           # the model's parameter order
-                t = torch.as_tensor(params[n]).detach()
+                t = tensor_slice(torch.as_tensor(params[n]).detach(),
+                                 self.specs[n], self.topology.tensor_coord)
                 d = self.specs[n].param_dim
                 if d is not None:
                     t = t.narrow(d, fr * (t.shape[d] // world),
@@ -773,8 +885,10 @@ class Trainer:
                              full_shapes={n: sp.shape
                                           for n, sp in self.specs.items()},
                              cuts=self._cuts))
-            sharding = StateSharding(self.specs, fr,
-                                     self.topology.data_coord, world)
+            sharding = StateSharding(
+                self.specs, fr, self.topology.data_coord, world,
+                self.topology.tensor_coord, self.topology.tensor_size,
+                self.topology.sequence_coord)
         return TrainState(
             step=0, params=masters, opt_state=opt_state,
             generator=torch.Generator().manual_seed(seed),
@@ -800,11 +914,43 @@ class Trainer:
             raise ValueError(
                 f"batch contains token id {int(tokens.max())} outside "
                 f"[0, {vocab}) — tokenizer/vocab_size mismatch")
+        sp = self.mesh_sizes[2]
+        if sp > 1:
+            if packed:
+                raise NotImplementedError(
+                    "packed batches (segment ids) are not supported under "
+                    "sequence parallelism")
+            batch = self._sequence_columns(batch)
         local = batch.reshape(accum, n // accum, *batch.shape[1:])
         host = torch.from_numpy(local.astype(np.int64))
         if non_blocking and self.device.type == "cuda":
             return host.pin_memory().to(self.device, non_blocking=True)
         return host.to(self.device)
+
+    def _sequence_columns(self, batch: np.ndarray) -> np.ndarray:
+        """This sequence rank's columns of ``[rows, seq]`` rows: its slice
+        and the next column (the next rank's first token, the target of
+        its last position; zeros past the end, where the target is
+        masked)."""
+        sp = self.mesh_sizes[2]
+        seq = batch.shape[1]
+        if seq % sp != 0:
+            raise ValueError(f"seq {seq} not divisible by sequence axis "
+                             f"size {sp}")
+        sl = seq // sp
+        j = self.topology.sequence_coord
+        pad = np.zeros((batch.shape[0], 1), batch.dtype)
+        return np.concatenate([batch, pad], axis=1)[:, j * sl:(j + 1) * sl
+                                                     + 1]
+
+    def _inputs(self, micro: torch.Tensor):
+        """``(input ids, label ids, segment ids or None)`` of one placed
+        micro-batch (under sequence: the slice and its ``sl + 1`` label
+        columns)."""
+        tokens, segs = _split_packed(micro)
+        if self.mesh_sizes[2] > 1:
+            return tokens[:, :-1], tokens, segs
+        return tokens, tokens, segs
 
     def place_batch(self, batch, *, non_blocking: bool = False
                     ) -> torch.Tensor:
@@ -843,18 +989,23 @@ class Trainer:
         self._bind(state)
         total = torch.zeros((), dtype=torch.float32, device=self.device)
         count = torch.zeros((), dtype=torch.float32, device=self.device)
-        for micro in batch:
-            tokens, segs = _split_packed(micro)
-            _, loss = self.model(tokens, tokens, train=False,
-                                 segment_ids=segs)
-            if segs is None:
-                n = float(tokens.shape[0] * (tokens.shape[1] - 1))
-            else:
-                n = segment_target_mask(segs)[:, :-1].sum()
-            total += loss.float() * n
-            count += n
+        sp = self.mesh_sizes[2]
+        with ctx_lib.use_mesh(self.mesh_context):
+            for micro in batch:
+                tokens, labels, segs = self._inputs(micro)
+                _, loss = self.model(tokens, labels, train=False,
+                                     segment_ids=segs)
+                if segs is None:
+                    n = float(tokens.shape[0] * (tokens.shape[1] * sp - 1))
+                else:
+                    n = segment_target_mask(segs)[:, :-1].sum()
+                # Under sequence a rank's loss is its share of the mean:
+                # its sum is loss * n, and one rank counts the targets.
+                total += loss.float() * n
+                if self.topology is None or self.topology.sequence_coord == 0:
+                    count += n
         if self.topology is not None:
-            total, count = self.topology.dp.all_reduce_sum(
+            total, count = self.topology.rep.all_reduce_sum(
                 torch.stack([total, count]))
         return total / torch.clamp(count, min=1.0)
 
@@ -870,6 +1021,16 @@ class Trainer:
         ``utils/telemetry.DeferredFetcher``. ``telemetry=True`` adds the
         ``"telemetry"`` subtree of device tensors (module docstring); the
         update, the loss and the generator are the plain step's."""
+        if telemetry and self.mesh_sizes[3] > 1:
+            raise NotImplementedError(
+                "not ported yet: telemetry steps under a tensor axis -> "
+                "ROADMAP Queue 1: tensor-parallel leftovers (telemetry "
+                "norms on a tensor shard)")
+        with ctx_lib.use_mesh(self.mesh_context):
+            return self._train_step(state, batch, telemetry, sync)
+
+    def _train_step(self, state: TrainState, batch, telemetry: bool,
+                    sync: bool) -> Tuple[TrainState, dict]:
         if not torch.is_tensor(batch):
             batch = self.put_batch(batch)
         cfg = self.training_config
@@ -884,12 +1045,12 @@ class Trainer:
         loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
         fwd_stats = []
         for micro in batch:
-            tokens, segs = _split_packed(micro)
+            tokens, labels, segs = self._inputs(micro)
             # The capture covers the forward only: the backward (and a
             # remat block's rerun inside it) records nothing.
             with (telemetry_lib.capture() if telemetry
                   else contextlib.nullcontext()) as cap:
-                _, loss = self.model(tokens, tokens, train=True,
+                _, loss = self.model(tokens, labels, train=True,
                                      segment_ids=segs,
                                      generator=state.generator)
             if telemetry:
@@ -916,7 +1077,7 @@ class Trainer:
         if telemetry:
             if self.topology is not None:
                 fwd_stats = telemetry_lib.combine_ranks(fwd_stats,
-                                                        self.topology.dp)
+                                                        self.topology.rep)
             telem = dict(fwd_stats[0] if accum == 1
                          else telemetry_lib.reduce_micro(fwd_stats))
             norms = [telemetry_lib.GroupNorms(sharded=self._state_sharded),
@@ -979,14 +1140,14 @@ class Trainer:
         for n, g in grads.items():
             spec = self.specs[n]
             if spec.state_dim is None:
-                g = topo.dp.all_reduce_sum(g)
+                g = topo.rep.all_reduce_sum(g)
             else:
                 if spec.param_dim is None:      # zero2: a whole gradient
                     g = topo.fsdp.reduce_scatter_leaf(g, spec.state_dim)
                 # zero3's gather already summed it over the fsdp group.
-                g = topo.data.all_reduce_sum(g)
+                g = topo.rep_data.all_reduce_sum(g)
             out[n] = g
-        return out, topo.dp.all_reduce_sum(loss_sum)
+        return out, topo.rep.all_reduce_sum(loss_sum)
 
     def _state_sharded(self, name: str) -> bool:
         """Does this rank hold a slice of ``name``'s gradient, update and
@@ -1001,17 +1162,22 @@ class Trainer:
 
     def _global_norm(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
         """The norm over the whole gradient: with sharded leaves, the
-        shards' sum of squares all-reduced over the fsdp group, plus the
-        whole leaves'."""
+        shards' sums of squares all-reduced over the groups that shard
+        them (fsdp, then tensor), plus the whole leaves' once."""
         if not self._sharded():
             return global_norm(grads.values())
-        shard_sq = sum(g.float().square().sum() for n, g in grads.items()
-                       if self.specs[n].state_dim is not None)
-        whole_sq = sum((g.float().square().sum() for n, g in grads.items()
-                        if self.specs[n].state_dim is None),
-                       torch.zeros((), device=self.device))
-        return torch.sqrt(self.topology.fsdp.all_reduce_sum(shard_sq)
-                          + whole_sq)
+        zero = torch.zeros((), device=self.device)
+
+        def sq(fsdp: bool, tensor: bool):
+            return sum((g.float().square().sum() for n, g in grads.items()
+                        if (self.specs[n].state_dim is not None) == fsdp
+                        and (self.specs[n].tensor_dim is not None)
+                        == tensor), zero)
+        both, fsdp_only = self.topology.fsdp.all_reduce_sum(
+            torch.stack([sq(True, True), sq(True, False)]))
+        tensor_sq = self.topology.tensor.all_reduce_sum(both
+                                                        + sq(False, True))
+        return torch.sqrt(tensor_sq + fsdp_only + sq(False, False))
 
     @torch.no_grad()
     def _sharded_update(self, state: TrainState, grads, lr: float,
@@ -1058,14 +1224,17 @@ class Trainer:
         if not torch.is_tensor(batch):
             batch = self.put_batch(batch)
         self._bind(state)
-        tokens, segs = _split_packed(batch[0])
-        with telemetry_lib.capture(deep=True) as cap:
-            _, loss = self.model(tokens, tokens, train=False,
+        tokens, labels, segs = self._inputs(batch[0])
+        with telemetry_lib.capture(deep=True) as cap, \
+                ctx_lib.use_mesh(self.mesh_context):
+            _, loss = self.model(tokens, labels, train=False,
                                  segment_ids=segs)
         stats = telemetry_lib.assemble(cap.stats)
-        stats["loss"] = loss.float()
+        # A sequence rank's loss is its share: the ranks' mean of sp
+        # shares is the mean over the data shards.
+        stats["loss"] = loss.float() * self.mesh_sizes[2]
         if self.topology is not None:
-            stats, = telemetry_lib.combine_ranks([stats], self.topology.dp)
+            stats, = telemetry_lib.combine_ranks([stats], self.topology.rep)
         report = telemetry_lib.nan_report(stats)
         report["stats"] = telemetry_lib.flatten_scalars(
             {k: v for k, v in stats.items() if isinstance(v, dict)},

@@ -612,7 +612,8 @@ def load_param_shards(path: str) -> dict:
 
 def remap_data_state(data_state: Optional[dict], *,
                      new_global_batch_size: int,
-                     new_feed_world: Optional[int] = None
+                     new_feed_world: Optional[int] = None,
+                     new_seq_shards: Optional[int] = None
                      ) -> Tuple[Optional[dict], int]:
     """A persisted loader cursor on a resized run: ``(new_state,
     replayed_sequences)``. The stream position is ``batch_index *
@@ -620,12 +621,18 @@ def remap_data_state(data_state: Optional[dict], *,
     onto the new granularity, so up to one new-sized batch replays (at
     least once, never skipped). Exact for the dummy and map-style text
     loaders, best effort for streaming (its line shards change with the
-    feed world)."""
+    feed world). ``new_seq_shards``: the run's sequence size (every
+    sequence rank reads the same rows, so the cursor's units do not
+    change; the key is dropped at size 1)."""
     if data_state is None:
         return None, 0
     st = dict(data_state)
     if new_feed_world is not None:
         st["feed_world"] = int(new_feed_world)
+    if new_seq_shards is not None:
+        st.pop("seq_shards", None)
+        if new_seq_shards > 1:
+            st["seq_shards"] = int(new_seq_shards)
     old_gbs = st.get("global_batch_size")
     st["global_batch_size"] = int(new_global_batch_size)
     if not old_gbs or int(old_gbs) == int(new_global_batch_size):
