@@ -189,7 +189,7 @@ JAX package. Phases, each fatal on failure:
               ``params.npz`` in f32 compute, whose greedy tokens must be
               equal (a differing token only at a top-2 tie).
 18. remat   -- ``train_ddp --config configs/large_1b_single_chip.yaml``
-              at 8 of its 36 layers (hidden 1280, batch 4 x 1024, full
+              at 4 of its 36 layers (hidden 1280, batch 4 x 1024, full
               remat, bf16 Adam moments) on the cli phase's corpus, 6
               steps with a save at step 3; the same command in a fresh
               process resumes from step 3, and step 6's state (params, the
@@ -204,7 +204,7 @@ JAX package. Phases, each fatal on failure:
               each, and the device busy share and top kernels of two
               profiled trainer steps.
 19. offload -- ``train_fsdp --config configs/medium_model.yaml`` cut to
-              8 of its 24 layers (FULL_SHARD at one process, remat on,
+              4 of its 24 layers (FULL_SHARD at one process, remat on,
               batch 8 x
               4 x 1024, dummy data), 3 steps on the card and with the Adam
               moments in pinned host memory as float32, bfloat16, int8 and
@@ -260,7 +260,7 @@ JAX package. Phases, each fatal on failure:
               process at accumulation 2 (losses, grad norms, final masters
               and moments), launches exact on each rank, and a planted
               fault (rank 1's gradients scaled) rejected;
-              ``medium_model.yaml`` (8 layers) through ``train_fsdp
+              ``medium_model.yaml`` (4 layers) through ``train_fsdp
               --sharding
               FULL_SHARD`` and ``SHARD_GRAD_OP`` at world 2 (3 steps):
               losses bitwise one process's, grad norms within
@@ -283,12 +283,27 @@ JAX package. Phases, each fatal on failure:
               bitwise; a planted fault (rank 1's queue offsets 0)
               rejected. Beside the ZeRO runs, ``train_fsdp --sharding
               FULL_SHARD --cpu_offload`` at world 2 (medium_model.yaml,
-              8 layers): losses bitwise one process's, grad norms within
+              4 layers): losses bitwise one process's, grad norms within
               ``DIST_NORM_RTOL``, its final state (digested, not
               written) bitwise the on-card FULL_SHARD run's; a rank's
               device and host bytes at rest.
+23a. expert -- expert parallelism (``_dist_expert``, inside dist: its
+              runs start as the MoE group's runs end, against that group's
+              one-process runs; ``phase_expert`` runs it alone):
+              ``configs/moe_small.yaml``'s documented ``--mesh_data 2
+              --mesh_expert 4`` (8 ranks, capacity, einsum) and the
+              dropless router at expert 2 x tensor 2 x sequence 2 (8
+              ranks: the ring, gmm and tgmm on a rank's experts), both at
+              2 layers, 3 steps: losses within ``DIST_LOSS_RTOL``, every
+              final leaf within ``DIST_MOE_STATE_L2`` relative L2 (a
+              swapped-halves control rejected), launches exact; the
+              capacity router under sequence 2, its layer-0 keep mask of
+              the global micro-batch bitwise the plain loop's, and a
+              planted fault (rank 1's per-row queue offsets 0) rejected.
+              Routing equality, drop_frac by layer, a rank's expert bytes
+              against one process's, collectives a step and peaks.
 24. world-rest -- the rest of world > 1 (``phase_world_rest``,
-              small_model.yaml at 4 layers, ranks sharing the card over
+              small_model.yaml at 2 layers, ranks sharing the card over
               gloo): int8
               moments under SHARD_GRAD_OP at world 2 bitwise one process
               (clip off; a flipped code rejected), that checkpoint
@@ -318,13 +333,12 @@ JAX package. Phases, each fatal on failure:
 
 Every phase runs at full depth except these, cut so that the whole run
 stays well inside its time and its machine's 45 GiB of disk writes: the
-cli phase's dropless-MoE run, moe-remat, the ft phase's MoE telemetry run
-and the dist phase's MoE group (moe_small.yaml at 2 layers), the
-moe-capacity phase's CLI run (moe_small.yaml at 4 layers, since PR 13),
-the offload phase (medium_model.yaml at 8 layers since PR 13), the dist
-phase's ZeRO and offload runs (medium_model.yaml at 8 layers), the remat
-phase (large_1b_single_chip.yaml at 8 layers), the dist phase's
-small_model.yaml runs and the world-rest phase (4 layers), the elastic
+cli phase's dropless-MoE run, moe-remat, the ft phase's MoE telemetry run,
+the dist phase's MoE group and the expert runs and the moe-capacity
+phase's CLI run (moe_small.yaml at 2 layers), the offload phase and the
+dist phase's ZeRO and offload runs (medium_model.yaml at 4 layers), the
+remat phase (large_1b_single_chip.yaml at 4 layers), the dist phase's
+small_model.yaml runs (4 layers), the world-rest phase, the elastic
 phase and the mesh-ranks phase (small_model.yaml at 2 layers).
 
 The phases run one after another in the order above, except that the
@@ -1861,15 +1875,81 @@ def _gmm_library(lhs, rhs, sizes):
     return loop, "per-expert torch.matmul loop"
 
 
+def _poisoned(shape, dtype) -> None:
+    """Leave a NaN-filled block of ``shape`` as the caching allocator's
+    only free block (the pool emptied first), where the next allocation
+    of that size on this stream lands: a kernel's unwritten output shows
+    as NaN."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.full(shape, float("nan"), dtype=dtype, device="cuda")
+
+
+def _gmm_local_experts(gm, G: int, E: int) -> dict:
+    """An expert rank's grouped matmuls (``models/moe.py``'s dropless
+    layer): its experts' groups cover the first rows and the rows past
+    them, the other ranks' experts' token-choices, must come out zero.
+    gmm and its dgrad at the path's shapes (bf16) on memory the allocator
+    hands back NaN-filled (a control shows it does); the groups' rows
+    against the plain version, the rest exactly zero; a planted fault (a
+    NaN row past the groups) must be rejected."""
+    sizes = _group_sizes("balanced", G)[:E // 2]        # 4 of 8 experts
+    used = int(sizes.sum())
+    offs = gm.group_offsets(sizes)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    lhs = torch.randn((G, 768), generator=gen, device="cuda").bfloat16()
+    rhs = (torch.randn((E // 2, 768, 3072), generator=gen, device="cuda")
+           * 0.05).bfloat16()
+    dout = torch.randn((G, 3072), generator=gen, device="cuda").bfloat16()
+    _poisoned((G, 3072), torch.bfloat16)
+    control = torch.empty((G, 3072), dtype=torch.bfloat16, device="cuda")
+    if not bool(control.isnan().all()):
+        raise AssertionError("gmm local experts: the allocator did not hand "
+                             "back the NaN-filled block; the check cannot "
+                             "see unwritten rows")
+    del control
+
+    def tail_zero(what, out):
+        tail = out[used:]
+        if not torch.equal(tail, torch.zeros_like(tail)):
+            raise AssertionError(f"gmm local experts: {what}: "
+                                 f"{int((tail != 0).any(dim=1).sum())} of "
+                                 f"{tail.shape[0]} rows past the groups "
+                                 f"not zero")
+
+    out = {}
+    for what, a, t, n in (("gmm", lhs, False, 3072),
+                          ("dgrad", dout, True, 768)):
+        _poisoned((G, n), torch.bfloat16)
+        out[what] = gm.gmm_cuda(a, rhs, offs, transpose_rhs=t)
+        torch.cuda.synchronize()
+        tail_zero(what, out[what])
+        plain = gm.gmm_reference(a[:used], rhs, sizes, transpose_rhs=t)
+        truth = gm.gmm_reference(a[:used].float(), rhs.float(), sizes,
+                                 transpose_rhs=t)
+        _near_truth(f"gmm local experts {what}", out[what][:used], plain,
+                    truth)
+    planted = out["gmm"].clone()
+    planted[used + 3] = float("nan")
+    _must_reject("gmm local experts: a NaN row past the groups",
+                 lambda: tail_zero("planted", planted))
+    log("gmm", f"local experts (4 of 8 groups, {used} of {G} rows, bf16): "
+               f"gmm and dgrad on NaN-filled memory wrote the {G - used} "
+               f"rows past the groups as zeros and the groups' rows within "
+               f"the f32-truth limits; a NaN row there rejected")
+    return {"case": "local experts", "G": G, "rows": used}
+
+
 def phase_gmm(results: dict) -> dict:
     """gmm (forward and the dgrad against rhs^T) and tgmm against
     ``gmm_reference`` / ``tgmm_reference`` at the MoE path's shapes (G =
     16384 routed rows, E = 8, H = 768 -> N = 3072 and 3072 -> 768; f32
     against the f32 plain version, bf16 against the plain version run in
     f32 next to the bf16 plain version) for balanced, skewed, empty-group
-    and G % 128 != 0 group sizes; tgmm's output pre-filled with NaN. Planted
-    faults (a boundary tile's second group left out of a gmm, an all-zero
-    tgmm) must fail the check. Then times of each kernel, its plain version
+    and G % 128 != 0 group sizes; tgmm's output pre-filled with NaN; an
+    expert rank's groups (``_gmm_local_experts``: rows past them zero).
+    Planted faults (a boundary tile's second group left out of a gmm, an
+    all-zero tgmm, a NaN row past the groups) must fail the check. Then times of each kernel, its plain version
     and one PyTorch call at the path's shapes."""
     from tpu_trainer_torch.ops import grouped_matmul as gm
 
@@ -1955,6 +2035,11 @@ def phase_gmm(results: dict) -> dict:
         except AssertionError as e:
             failures.append(str(e))
             log("gmm", f"{what}: FAILED: {e}")
+    try:
+        checks.append(_gmm_local_experts(gm, G, E))
+    except AssertionError as e:
+        failures.append(str(e))
+        log("gmm", f"local experts: FAILED: {e}")
     if failures:
         results["gmm"] = {"checks": checks, "failures": failures}
         raise AssertionError(f"gmm: {len(failures)} failed: "
@@ -2419,8 +2504,8 @@ def phase_train_moe(results: dict) -> dict:
                            profile=name == "dummy")
         sizes, dispatch = [], moe.dispatch
 
-        def record(gate_idx, num_experts):
-            counts, perm, inv = dispatch(gate_idx, num_experts)
+        def record(gate_idx, num_experts, *first):
+            counts, perm, inv = dispatch(gate_idx, num_experts, *first)
             sizes.append(counts.tolist())
             return counts, perm, inv
 
@@ -3882,7 +3967,7 @@ def _naive_remat(self, x, p, step):
 
 def phase_remat(results: dict, tmp: str) -> dict:
     """The 1B-on-one-card recipe: ``train_ddp --config
-    configs/large_1b_single_chip.yaml`` at its full width and 8 of its 36
+    configs/large_1b_single_chip.yaml`` at its full width and 4 of its 36
     layers, the rest of its model and training sections unchanged (hidden
     1280, 20 heads of 64, vocab 50257, batch 4 x 1024, full remat, bf16
     Adam moments, dropout 0.1) on
@@ -3905,7 +3990,7 @@ def phase_remat(results: dict, tmp: str) -> dict:
 
     card = nvidia_smi_line()
     corpus = os.path.join(tmp, "stories.txt")
-    large = _cut_yaml(tmp, "large_1b_single_chip.yaml", "l8", num_layers=8)
+    large = _cut_yaml(tmp, "large_1b_single_chip.yaml", "l4", num_layers=4)
     argv = ["--config", large, "--dataset", "tinystories", "--data_path",
             corpus, "--tokenizer", "byte", "--log_interval", "1",
             "--eval_batches", "1", "--eval_interval", "0",
@@ -3915,7 +4000,7 @@ def phase_remat(results: dict, tmp: str) -> dict:
     cfg, tc, _, _ = cli.resolve_configs(cli.build_parser().parse_args(argv))
     if not (cfg.gradient_checkpointing and cfg.remat_policy == "full"
             and tc.optimizer_state_dtype == "bfloat16"
-            and cfg.num_layers == 8 and cfg.hidden_size == 1280):
+            and cfg.num_layers == 4 and cfg.hidden_size == 1280):
         raise AssertionError(f"remat: {large} resolved to {cfg}, {tc}")
     log("remat", f"{os.path.basename(large)}: {cfg.num_parameters():,} "
                  f"params, batch {tc.gradient_accumulation_steps} x "
@@ -4110,7 +4195,7 @@ def _fsdp_run(phase: str, argv: list) -> dict:
 
 def phase_offload(results: dict, tmp: str) -> dict:
     """``train_fsdp --config configs/medium_model.yaml`` at its full width
-    and 8 of its 24 layers (hidden 1024, 16 heads, batch 8 x 4 x 1024,
+    and 4 of its 24 layers (hidden 1024, 16 heads, batch 8 x 4 x 1024,
     FULL_SHARD at
     one process, remat on by default, its dummy data), 3 steps on the
     card and with the Adam moments offloaded to pinned host memory in
@@ -4127,7 +4212,7 @@ def phase_offload(results: dict, tmp: str) -> dict:
     from tpu_trainer_torch.training.trainer import select_resident_moments
 
     card = nvidia_smi_line()
-    medium = _cut_yaml(tmp, "medium_model.yaml", "l8", num_layers=8)
+    medium = _cut_yaml(tmp, "medium_model.yaml", "l4", num_layers=4)
     base = ["--config", medium, "--max_steps", "3", "--log_interval", "1",
             "--eval_interval", "0", "--eval_batches", "1", "--num_batches",
             "4", "--no_auto_resume"]
@@ -4145,7 +4230,7 @@ def phase_offload(results: dict, tmp: str) -> dict:
         if run["launches"] != want:
             raise AssertionError(f"offload: {name} launches "
                                  f"{run['launches']}, want {want}")
-        if not (cfg.gradient_checkpointing and cfg.num_layers == 8
+        if not (cfg.gradient_checkpointing and cfg.num_layers == 4
                 and par.sharding_strategy == "FULL_SHARD"):
             raise AssertionError(f"offload: {medium} resolved to {cfg}, "
                                  f"{par}")
@@ -4292,8 +4377,8 @@ def _record_positions(out: list, limit: int):
 
     original = moe.capacity_positions
 
-    def recording(gate_idx, counts, rank, slots):
-        pos, keep = original(gate_idx, counts, rank, slots)
+    def recording(gate_idx, counts, rank, slots, *layout):
+        pos, keep = original(gate_idx, counts, rank, slots, *layout)
         if len(out) < limit:
             out.append({"gate_idx": gate_idx.cpu().numpy(),
                         "pos": pos.cpu().numpy(), "keep": keep.cpu().numpy(),
@@ -4409,8 +4494,8 @@ def _plant_inclusive_cumsum():
 
     original = moe.capacity_positions
 
-    def inclusive(gate_idx, counts, rank, slots):
-        pos, _ = original(gate_idx, counts, rank, slots)
+    def inclusive(gate_idx, counts, rank, slots, *layout):
+        pos, _ = original(gate_idx, counts, rank, slots, *layout)
         return pos + 1, pos + 1 < slots
 
     moe.capacity_positions = inclusive
@@ -4444,10 +4529,11 @@ def phase_moe_capacity(results: dict, tmp: str) -> dict:
     the cli phase's temporary directory (its corpus):
 
     (a) ``configs/moe_small.yaml`` (8 experts, top-1, capacity factor
-        1.25, gather dispatch; cut to 4 of its 12 layers since PR 13, to
-        halve its checkpoints' writes) through ``train_ddp`` with the byte
-        tokenizer, 3 steps with a save at step 2 and a telemetry step at
-        step 3; step 3's checkpoint set aside and the same argv again in
+        1.25, gather dispatch; cut to 2 of its 12 layers, for its
+        checkpoints' writes and the run's time)
+        through ``train_ddp`` with the byte tokenizer, 3 steps with a save
+        at step 2 and a telemetry step at step 3; step 3's checkpoint set
+        aside and the same argv again in
         a fresh process, which resumes from step 2 and must end bitwise;
         launches exact (no grouped matmul); windowed tok/s, MFU on the
         active parameters, and the telemetry step's per-layer drop_frac;
@@ -4486,11 +4572,11 @@ def phase_moe_capacity(results: dict, tmp: str) -> dict:
     rec = {"nvidia_smi": card}
     secs = {}
 
-    # (a) moe_small.yaml through the CLI, at 4 of its 12 layers.
+    # (a) moe_small.yaml through the CLI, at 2 of its 12 layers.
     t0 = time.perf_counter()
     ckdir = os.path.join(tmp, "mc")
     jsonl = os.path.join(tmp, "mc.jsonl")
-    argv = ["--config", _cut_yaml(tmp, "moe_small.yaml", "l4", num_layers=4),
+    argv = ["--config", _cut_yaml(tmp, "moe_small.yaml", "l2", num_layers=2),
             "--dataset", "tinystories", "--data_path",
             os.path.join(tmp, "stories.txt"), "--tokenizer", "byte",
             "--max_steps", "3", "--save_interval", "2",
@@ -4532,7 +4618,7 @@ def phase_moe_capacity(results: dict, tmp: str) -> dict:
         "run2_launches": {k: v for k, v in res["run2"]["launches"].items()
                           if v}}
     rec["cli"] = cli_rec
-    log("moe-capacity", f"moe_small.yaml at 4 layers "
+    log("moe-capacity", f"moe_small.yaml at {cfg.num_layers} layers "
                         f"({moe.describe(cfg)}), "
                         f"batch {accum} x {tc.batch_size} x "
                         f"{tc.max_seq_len}: losses "
@@ -5470,12 +5556,14 @@ def _dist_child(mode: str, argv: list, out: str, fault_rank=None,
     update of step 1. The first capacity-MoE layer call's routing, queue
     positions and keep mask (layer 0 of step 1) are kept;
     ``offsets_fault_rank`` plants a fault: that rank's queue positions
-    ignore the earlier ranks' tokens. ``extra`` (world-rest and elastic
-    phases): ``argv`` appended to this rank's flags, ``plant`` (``[layer,
-    row]``: ``_plant_nan``), ``digests`` (the saves write nothing: each
-    records the state's ``_state_digests``); every telemetry record and
-    ``nan_scan`` report of this rank is kept. Written to ``out`` (a rank's
-    own file)."""
+    ignore the earlier ranks' tokens. ``extra`` (world-rest, elastic and
+    expert phases): ``argv`` appended to this rank's flags, ``plant``
+    (``[layer, row]``: ``_plant_nan``), ``digests`` (the saves write
+    nothing: each records the state's ``_state_digests``), ``moe_calls``
+    (the capacity layer calls whose drop fraction is kept, the first
+    step's layers; default 1); every telemetry record and ``nan_scan``
+    report of this rank is kept, and each step's ``collectives.calls``.
+    Written to ``out`` (a rank's own file)."""
     extra = extra or {}
     argv = list(argv) + list(extra.get("argv", []))
     if extra.get("plant"):
@@ -5495,14 +5583,16 @@ def _dist_child(mode: str, argv: list, out: str, fault_rank=None,
             num_processes=world, process_id=rank, backend=backend,
             init_method=f"file://{store}", device="cuda")
     seen = {"step_ms": [], "rest": [], "telemetry": [], "nan": [],
-            "digests": []}
+            "digests": [], "step_calls": []}
 
     def at_rest(state):
         torch.cuda.synchronize()
         moments = [t for m in list(state.opt_state.mu.values())
                    + list(state.opt_state.nu.values())
                    for t in (m.tensors() if hasattr(m, "tensors") else (m,))]
-        trees = {"params": state.params.values(), "moments": moments}
+        trees = {"params": state.params.values(), "moments": moments,
+                 "experts": [t for n, t in state.params.items()
+                             if "experts_" in n]}
         seen["rest"].append({k: sum(t.numel() * t.element_size() for t in v)
                              for k, v in trees.items()})
         seen["rest"][-1]["host"] = sum(t.numel() * t.element_size()
@@ -5520,11 +5610,17 @@ def _dist_child(mode: str, argv: list, out: str, fault_rank=None,
             def scaled(grads, *a, **k):
                 return apply({n: g * 1.5 for n, g in grads.items()}, *a, **k)
             self.optimizer.apply = scaled
+        from tpu_trainer_torch.parallel import collectives
+
+        before = dict(collectives.calls)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         result = step(self, state, batch, *args, **kwargs)
         torch.cuda.synchronize()
         seen["step_ms"].append(1e3 * (time.perf_counter() - t0))
+        seen["step_calls"].append({
+            k: v - before.get(k, 0) for k, v in collectives.calls.items()
+            if v != before.get(k, 0)})
         if "telemetry" in result[1]:
             from tpu_trainer_torch.utils import telemetry
 
@@ -5554,11 +5650,11 @@ def _dist_child(mode: str, argv: list, out: str, fault_rank=None,
     from tpu_trainer_torch.models import moe
 
     first = []
-    _record_positions(first, 1)
+    _record_positions(first, extra.get("moe_calls", 1))
     offsets = moe.rank_offsets
-    moe.rank_offsets = lambda counts, rank: (
+    moe.rank_offsets = lambda counts, rank, *layout: (
         counts[0] * 0 if rank == offsets_fault_rank
-        else offsets(counts, rank))
+        else offsets(counts, rank, *layout))
     counters = _counters()
     for c in counters.values():
         c.launches = 0
@@ -5575,7 +5671,8 @@ def _dist_child(mode: str, argv: list, out: str, fault_rank=None,
                 peak_bytes=torch.cuda.max_memory_allocated(),
                 launches={k: c.launches for k, c in counters.items()},
                 moe_first={k: v.tolist() if hasattr(v, "tolist") else v
-                           for k, v in first[0].items()} if first else None)
+                           for k, v in first[0].items()} if first else None,
+                moe_drop=[float(1.0 - c["keep"].mean()) for c in first])
     with open(out, "w") as f:
         json.dump(seen, f)
 
@@ -5736,6 +5833,50 @@ DIST_LOSS_RTOL = 1e-3
 DIST_MOE_STATE_L2 = 0.15
 
 
+def _state_rel(got, want, keys):
+    """Per leaf: max |got - want| / max |want| and the relative L2 (f32
+    arithmetic: the bounds sit at 1e-2 and above)."""
+    import numpy as np
+
+    out = {}
+    for k in keys:
+        w = np.asarray(want[k], dtype=np.float32).reshape(-1)
+        d = np.asarray(got[k], dtype=np.float32).reshape(-1) - w
+        out[k] = (float(np.abs(d).max() / max(np.abs(w).max(), 1e-30)),
+                  float(np.linalg.norm(d) / max(np.linalg.norm(w), 1e-30)))
+    return out
+
+
+def _moe2_yamls(tmp: str) -> dict:
+    """moe_small cut to 2 layers, dropout 0 and capacity factor 0.5, for
+    each router: the capacity router drops at every layer, so the queue
+    offsets across ranks decide which tokens."""
+    return {impl: _cut_yaml(tmp, "moe_small.yaml", f"moe2_{impl}",
+                            dropout=0.0, attention_dropout=0.0, num_layers=2,
+                            expert_capacity_factor=0.5, moe_impl=impl)
+            for impl in ("capacity", "dropless")}
+
+
+def phase_expert(results: dict, tmp: str) -> dict:
+    """The expert phase alone (``_dist_expert``), with its own one-process
+    runs of both routers (in the whole script it runs inside the dist
+    phase, against that phase's MoE group's): for iterating on it and
+    for ``scripts/torch_kernel_mutations.py``."""
+    argv, want, check_launches = _dist_tools(tmp)
+    yamls = _moe2_yamls(tmp)
+    spawned = [(f"{impl}1", _dist_spawn(tmp, f"{impl}1", "ddp",
+                                        argv(f"{impl}1", yaml, 3, 4, 1), 0))
+               for impl, yaml in yamls.items()]
+    recs = _dist_join_all(spawned)
+    states = {impl: _dist_state(os.path.join(tmp, f"ck_{impl}1",
+                                             "step_00000003"))
+              for impl in yamls}
+    out = results["expert"] = _dist_expert(
+        tmp, argv, yamls, states, recs, want, check_launches, {},
+        nvidia_smi_line())
+    return out
+
+
 def _dist_moe(tmp, argv, want, check_launches, launches, card) -> dict:
     """Group 3 of the dist phase: MoE across processes, both routers, on
     moe_small's width cut to 2 layers and capacity factor 0.5, 3 steps of
@@ -5750,22 +5891,12 @@ def _dist_moe(tmp, argv, want, check_launches, launches, card) -> dict:
     mask of step 1 (the ranks' concatenated) bitwise the plain loop's on
     the concatenated routing and, where that routing equals one
     process's, bitwise one process's;
-    a planted fault (rank 1's queue offsets 0) must fail that check."""
-    import numpy as np
-
-    from tpu_trainer_torch.parallel.sharding import fsdp_dim
-    from tpu_trainer_torch.training import cli
-
-    t0 = time.perf_counter()
+    a planted fault (rank 1's queue offsets 0) must fail that check. The
+    expert phase (``_dist_expert``) starts as soon as these runs end, on
+    their one-process runs."""
+    t_moe = t0 = time.perf_counter()
     runs, spawned = {}, []
-    # moe_small cut to 2 layers, dropout 0 and capacity factor 0.5: the
-    # capacity router drops at every layer, so the queue offsets across
-    # ranks decide which tokens.
-    yamls = {impl: _cut_yaml(tmp, "moe_small.yaml", f"moe2_{impl}",
-                             dropout=0.0, attention_dropout=0.0,
-                             num_layers=2, expert_capacity_factor=0.5,
-                             moe_impl=impl)
-             for impl in ("capacity", "dropless")}
+    yamls = _moe2_yamls(tmp)
     for impl, yaml in yamls.items():
         a1 = argv(f"{impl}1", yaml, 3, 4, 1)
         runs[f"{impl}1"] = ("ddp", a1)
@@ -5786,6 +5917,35 @@ def _dist_moe(tmp, argv, want, check_launches, launches, card) -> dict:
                                              offsets_fault_rank=1)))
     recs = _dist_join_all(spawned)
     group_s = time.perf_counter() - t0
+    # The expert phase's runs take the card while this group is held.
+    expert = _expert_spawn(tmp, argv, yamls)
+    try:
+        out = _dist_moe_checks(tmp, runs, recs, yamls, want, check_launches,
+                               launches, card, group_s)
+        out["expert"] = _dist_expert(
+            tmp, argv, yamls, out.pop("one_states"), recs, want,
+            check_launches, launches, card, started=expert)
+    except BaseException:
+        _kill_spawned(expert[3])
+        raise
+    for tag, (_, a) in runs.items():
+        shutil.rmtree(a[a.index("--checkpoint_dir") + 1], ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_moe
+    log("dist", f"MoE group: 9 runs sharing the card in {group_s:.1f} s; "
+                f"world 1 over NCCL: losses and final params bitwise one "
+                f"process (both routers); "
+                f"rank 1's zeroed queue offsets rejected")
+    return out
+
+
+def _dist_moe_checks(tmp, runs, recs, yamls, want, check_launches, launches,
+                     card, group_s) -> dict:
+    """``_dist_moe``'s checks of its runs; returns its record, with the
+    one-process final states under ``one_states``."""
+    import numpy as np
+
+    from tpu_trainer_torch.parallel.sharding import fsdp_dim
+    from tpu_trainer_torch.training import cli
 
     def train(tag):
         return _jsonl(os.path.join(tmp, f"{tag}.jsonl"), "train")
@@ -5830,17 +5990,7 @@ def _dist_moe(tmp, argv, want, check_launches, launches, card) -> dict:
                 f"{keep.size} token-choices")
         return gate, keep
 
-    def state_rel(got, want, keys):
-        """Per leaf: max |got - want| / max |want| and the relative L2
-        (f32 arithmetic: the bounds sit at 1e-2 and above)."""
-        out = {}
-        for k in keys:
-            w = np.asarray(want[k], dtype=np.float32).reshape(-1)
-            d = np.asarray(got[k], dtype=np.float32).reshape(-1) - w
-            out[k] = (float(np.abs(d).max() / max(np.abs(w).max(), 1e-30)),
-                      float(np.linalg.norm(d) / max(np.linalg.norm(w),
-                                                    1e-30)))
-        return out
+    state_rel = _state_rel
 
     failures = []
     for impl in ("capacity", "dropless"):
@@ -5940,20 +6090,252 @@ def _dist_moe(tmp, argv, want, check_launches, launches, card) -> dict:
         raise AssertionError("dist: MoE: " + "; ".join(failures))
     _must_reject("dist: rank 1's queue offsets 0",
                  lambda: keep_check("moe_fault"))
-    for tag, (_, a) in runs.items():
-        shutil.rmtree(a[a.index("--checkpoint_dir") + 1], ignore_errors=True)
+    out["one_states"] = {impl: state(f"{impl}1") for impl in yamls}
+    return out
+
+
+def _expert_launches(cfg, rows: int, train_micro: int, eval_micro: int,
+                     sp: int, tp: int) -> dict:
+    """A rank's launches under the sequence and tensor axes
+    (``_mesh_launches``) with the dropless MoE's grouped matmuls on its
+    local experts: 3 gmm a layer a forward, 3 more and 3 tgmm a layer
+    backward (an expert axis changes no count)."""
+    out = _mesh_launches(cfg, rows, train_micro, eval_micro, sp, tp)
+    if cfg.num_experts > 0 and cfg.moe_impl == "dropless":
+        L = cfg.num_layers
+        out.update(gmm=3 * L * (2 * train_micro + eval_micro),
+                   tgmm=3 * L * train_micro)
+    return out
+
+
+# The expert phase's runs: (yaml, steps, rows a data shard, mesh flags,
+# ranks, the rank whose per-row queue offsets are zeroed or None).
+def _expert_runs(yamls) -> dict:
+    return {
+        "ep_a": (yamls["capacity"], 3, 2, ["--mesh_data", "2",
+                                           "--mesh_expert", "4"], 8, None),
+        "ep_b": (yamls["dropless"], 3, 4, ["--mesh_expert", "2",
+                                           "--mesh_tensor", "2",
+                                           "--mesh_sequence", "2"], 8, None),
+        "ep_seq": (yamls["capacity"], 1, 4, ["--mesh_sequence", "2"], 2,
+                   None),
+        "ep_seq_fault": (yamls["capacity"], 1, 4, ["--mesh_sequence", "2"],
+                         2, 1),
+    }
+
+
+def _expert_spawn(tmp, argv, yamls):
+    """Start the expert phase's runs (``_dist_expert``) together; returns
+    ``(t0, runs, argvs, spawned)``. The sequence runs' saves write
+    nothing (``digests``): only their first step's routing is read."""
+    runs = _expert_runs(yamls)
+    args = {tag: argv(tag, yaml, steps, rows, 1, *extra)
+            for tag, (yaml, steps, rows, extra, _, _) in runs.items()}
+    t0 = time.perf_counter()
+    spawned = [(tag, _dist_spawn(
+        tmp, tag, "ddp", args[tag], w, offsets_fault_rank=fault,
+        extra={None: {"moe_calls": 2, "digests": tag.startswith("ep_seq")}}))
+        for tag, (_, _, _, _, w, fault) in runs.items()]
+    return t0, runs, args, spawned
+
+
+def _kill_spawned(spawned) -> None:
+    for _, procs in spawned:
+        for _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def _dist_expert(tmp, argv, yamls, one_states, one_recs, want,
+                 check_launches, launches, card, started=None) -> dict:
+    """The expert phase, after the dist phase's MoE group, whose
+    one-process runs (moe_small's width at 2 layers, capacity factor 0.5,
+    dropout 0, a global micro-batch of 4 x 1024, 3 steps) it is held
+    against; every rank a process of its own sharing the card over gloo
+    (``_dist_spawn``):
+
+    - run A, the mesh ``configs/moe_small.yaml`` documents: ``train_ddp
+      --mesh_data 2 --mesh_expert 4``, 8 ranks, the capacity router
+      (``auto``: einsum), a data shard 2 rows;
+    - run B, the composed axes: the dropless router at expert 2 x tensor
+      2 x sequence 2, 8 ranks (the ring through the flash kernels, gmm and
+      tgmm on each rank's two experts);
+    - the capacity router under sequence 2 (2 ranks, 1 step), and the same
+      with rank 1's per-row queue offsets zeroed (a planted fault).
+
+    Each run against one process: launches exact on every rank; losses
+    within ``DIST_LOSS_RTOL``; every final master and moment within
+    ``DIST_MOE_STATE_L2`` relative L2 (one moment's halves swapped must
+    fail it). Capacity runs: the first step's layer-0 keep mask of the
+    global micro-batch (the ranks' tokens put back in global order)
+    bitwise the plain loop's on that routing, and where the routing equals
+    one process's, one process's; the planted fault must fail that check.
+    Printed: routing equality, drop_frac by layer, a rank's expert
+    parameter bytes against one process's, its collectives' calls and
+    bytes a step, its step ms and peak. ``started``: the runs'
+    ``_expert_spawn``, when the caller started them earlier (the dist
+    phase starts them as soon as its MoE group's runs end, and holds that
+    group meanwhile)."""
+    import numpy as np
+
+    from tpu_trainer_torch.parallel.sharding import fsdp_dim
+    from tpu_trainer_torch.training import cli
+
+    t0, runs, args, spawned = started or _expert_spawn(tmp, argv, yamls)
+    L = 2
+    recs = _dist_join_all(spawned)
+    group_s = time.perf_counter() - t0
+    reading = {tag: _background(lambda tag=tag: _dist_state(os.path.join(
+        tmp, f"ck_{tag}", "step_00000003"))) for tag in ("ep_a", "ep_b")}
+
+    def train(tag):
+        return _jsonl(os.path.join(tmp, f"{tag}.jsonl"), "train")
+
+    for tag, (_, steps, rows, extra, w, _) in runs.items():
+        cfg = cli.resolve_configs(cli.build_parser("ddp").parse_args(
+            args[tag]), "ddp")[0]
+        sp = 2 if "--mesh_sequence" in extra else 1
+        tp = 2 if "--mesh_tensor" in extra else 1
+        expect = (want("ddp", args[tag], steps, 1) if sp * tp == 1
+                  else _expert_launches(cfg, rows, steps, 1, sp, tp))
+        check_launches(tag, recs[tag], expect)
+        if not tag.endswith("fault"):
+            for r in recs[tag]:
+                _add_launches(launches, r["launches"])
+
+    def global_first(tag, sp, dp):
+        """The first capacity call's routing, positions and keep mask of
+        the global micro-batch, from one rank a (data shard, sequence
+        rank): the ranks' tokens put back in ``row * S + col`` order."""
+        ranks = recs[tag]
+        per = len(ranks) // (dp * sp)      # tensor x expert replicas
+        parts = {}
+        for key in ("gate_idx", "pos", "keep"):
+            shards = []
+            for d in range(dp):
+                cols = [np.asarray(ranks[(d * sp + j) * per]["moe_first"][
+                    key]) for j in range(sp)]
+                k = cols[0].shape[-1]
+                rows = 4 // dp
+                shards.append(np.concatenate(
+                    [c.reshape(rows, -1, k) for c in cols], axis=1))
+            parts[key] = np.concatenate(shards).reshape(-1, k)
+        return parts, ranks[0]["moe_first"]["capacity"]
+
+    def keep_check(tag, sp, dp):
+        got, cap = global_first(tag, sp, dp)
+        want_pos, want_keep = _capacity_plain(got["gate_idx"], cap)
+        if not (np.array_equal(got["pos"], want_pos)
+                and np.array_equal(got["keep"], want_keep)):
+            raise AssertionError(
+                f"expert: {tag}: layer-0 keep mask differs from the plain "
+                f"loop's in {int((got['keep'] != want_keep).sum())} of "
+                f"{want_keep.size} token-choices")
+        return got
+
+    one_first = one_recs["capacity1"][0]["moe_first"]
+    one_train = {impl: [r["loss"] for r in train(f"{impl}1")]
+                 for impl in yamls}
+    out, failures = {"group_s": group_s}, []
+    for tag, impl, sp, dp in (("ep_a", "capacity", 1, 2),
+                              ("ep_b", "dropless", 2, 1),
+                              ("ep_seq", "capacity", 2, 1)):
+        ranks = recs[tag]
+        got = [r["loss"] for r in train(tag)]
+        w = one_train[impl][:len(got)]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got, w))
+        if rel > DIST_LOSS_RTOL:
+            failures.append(f"{tag}: losses {got} vs one process's {w} "
+                            f"(worst rtol {rel:.3e})")
+        res = {"losses": got, "world1_losses": w, "loss_worst_rtol": rel,
+               "step_ms": [r["step_ms"] for r in ranks],
+               "peak_gb": [r["peak_bytes"] / 1e9 for r in ranks],
+               "step_calls": ranks[0]["step_calls"]}
+        if tag != "ep_seq":
+            final, ref = reading[tag](), one_states[impl]
+            keys = [k for k in ref if "/" in k]
+            leaves = _state_rel(final, ref, keys)
+            worst = max(leaves, key=lambda k: leaves[k][1])
+            res["state_worst_l2"] = [worst, leaves[worst][1]]
+            if leaves[worst][1] > DIST_MOE_STATE_L2:
+                failures.append(f"{tag}: final state's worst relative L2 "
+                                f"{leaves[worst][1]:.3e} at {worst}")
+            key = max((k for k in keys if "/mu/" in k),
+                      key=lambda k: ref[k].size)
+            d = fsdp_dim(ref[key].shape, 2)
+            swapped = {key: np.concatenate(
+                np.split(final[key], 2, axis=d)[::-1], axis=d)}
+            ctrl = _state_rel(swapped, ref, [key])[key][1]
+            if ctrl <= DIST_MOE_STATE_L2:
+                raise AssertionError(f"expert: the check passed a planted "
+                                     f"fault: {key}'s halves swapped "
+                                     f"(relative L2 {ctrl:.3e})")
+            one_rest = one_recs[f"{impl}1"][0]["rest"][0]
+            res["expert_bytes_ratio"] = [
+                r["rest"][0]["experts"] / one_rest["experts"] for r in ranks]
+            del final
+        if impl == "capacity":
+            g = keep_check(tag, sp, dp)
+            same = np.array_equal(g["gate_idx"],
+                                  np.asarray(one_first["gate_idx"]))
+            if same and not np.array_equal(g["keep"],
+                                           np.asarray(one_first["keep"])):
+                failures.append(f"{tag}: layer-0 keep mask differs from "
+                                f"one process's")
+            per = len(ranks) // (dp * sp)
+            distinct = ranks[::per]
+            res.update(routing_equal_one_process=bool(same),
+                       routing_differs=int((g["gate_idx"] != np.asarray(
+                           one_first["gate_idx"])).sum()),
+                       drop_frac_by_layer=[
+                           float(np.mean([r["moe_drop"][i]
+                                          for r in distinct]))
+                           for i in range(L)])
+        out[tag] = res
+        calls = res["step_calls"][-1]
+        wire = sum(v for k, v in calls.items() if k.endswith("_bytes"))
+        log("dist", f"expert {tag} ({impl}, {len(ranks)} ranks, args "
+                    f"{' '.join(runs[tag][3])}): losses "
+                    + " ".join(f"{x:.6f}" for x in got) + " vs one process "
+                    + " ".join(f"{x:.6f}" for x in w)
+                    + f" (worst rtol {rel:.2e})"
+                    + (f"; final state worst relative L2 "
+                       f"{res['state_worst_l2'][1]:.2e} "
+                       f"({res['state_worst_l2'][0]}; bound "
+                       f"{DIST_MOE_STATE_L2}); a rank's expert parameters "
+                       f"{res['expert_bytes_ratio'][0]:.3f} of one "
+                       f"process's" if "state_worst_l2" in res else "")
+                    + (f"; layer-0 keep mask bitwise the plain loop's, "
+                       f"routing {res['routing_differs']} choices off one "
+                       f"process's, drop_frac by layer "
+                       + " ".join(f"{x:.4f}"
+                                  for x in res["drop_frac_by_layer"])
+                       if impl == "capacity" else "")
+                    + f"; rank 0's last step: "
+                    + ", ".join(f"{k} {v}" for k, v in sorted(calls.items())
+                                if not k.endswith("_bytes"))
+                    + f" calls, {wire / 1e6:.1f} MB"
+                    + f"; step ms rank 0 "
+                    f"{[round(x, 1) for x in res['step_ms'][0]]}, peak "
+                    f"{max(res['peak_gb']):.2f} GB a rank ({card})")
+    if failures:
+        raise AssertionError("expert: " + "; ".join(failures))
+    _must_reject("expert: rank 1's per-row queue offsets 0 under sequence",
+                 lambda: keep_check("ep_seq_fault", 2, 1))
+    for tag in runs:
+        shutil.rmtree(os.path.join(tmp, f"ck_{tag}"), ignore_errors=True)
     out["seconds"] = time.perf_counter() - t0
-    log("dist", f"MoE group: 9 runs sharing the card in {group_s:.1f} s; "
-                f"world 1 over NCCL: losses and final params bitwise one "
-                f"process (both routers); "
-                f"rank 1's zeroed queue offsets rejected")
+    log("dist", f"expert phase: 4 runs (20 ranks) sharing the card in "
+                f"{group_s:.1f} s, checks {out['seconds'] - group_s:.1f} s; "
+                f"rank 1's zeroed per-row offsets under sequence rejected")
     return out
 
 
 def _dist_offload(ranks, a_off, full, m1, same_curve, check_launches,
                   want, launches, card) -> dict:
     """``train_fsdp --sharding FULL_SHARD --cpu_offload`` at world 2 on
-    medium_model.yaml (8 layers): losses bitwise one process's and grad
+    medium_model.yaml (4 layers): losses bitwise one process's and grad
     norms within ``DIST_NORM_RTOL`` (``same_curve`` against m1); each
     rank's final masters and moments (digests of its slices) bitwise the
     on-card FULL_SHARD run's, which is held to one process within
@@ -5989,7 +6371,7 @@ def _dist_offload(ranks, a_off, full, m1, same_curve, check_launches,
     if any(x["host"] != x["moments"] for x in rest):
         raise AssertionError(f"dist: m2_off: moments not all in host "
                              f"memory at rest: {rest}")
-    log("dist", f"FULL_SHARD --cpu_offload world 2 (medium_model.yaml at 8 "
+    log("dist", f"FULL_SHARD --cpu_offload world 2 (medium_model.yaml at 4 "
                 f"layers): losses within rtol {worst['loss']:.2e} and grad "
                 f"norms {worst['grad_norm']:.3e} of world 1, {n} final "
                 f"slices bitwise the on-card FULL_SHARD run's; at rest "
@@ -6004,6 +6386,42 @@ def _dist_offload(ranks, a_off, full, m1, same_curve, check_launches,
     return {"worst_rtol": worst, "slices_bitwise": n, "rest_bytes": rest,
             "step_ms": [r["step_ms"] for r in ranks],
             "peak_gb": [r["peak_bytes"] / 1e9 for r in ranks]}
+
+
+def _dist_tools(tmp: str):
+    """``(argv, want, check_launches)`` of the dist and expert phases:
+    ``argv(tag, config, steps, bs, accum, *extra)`` a CLI run writing its
+    checkpoints and JSONL in ``tmp``; ``want(mode, a, micro, eval_micro)``
+    the launches of ``micro`` training and ``eval_micro`` eval
+    micro-batches of ``a`` (ZeRO-3's backward regathers the weights and
+    runs no block's forward again unless the config asks for remat);
+    ``check_launches(tag, recs, expect)`` every rank's launches equal."""
+    from tpu_trainer_torch.training import cli
+
+    common = ["--log_interval", "1", "--eval_interval", "0",
+              "--eval_batches", "1", "--keep_last_n", "0",
+              "--no_auto_resume"]
+
+    def argv(tag, config, steps, bs, accum, *extra):
+        return (["--config", config, "--max_steps", str(steps),
+                 "--batch_size", str(bs), "--grad_accum", str(accum),
+                 "--save_interval", "0",
+                 "--checkpoint_dir", os.path.join(tmp, f"ck_{tag}"),
+                 "--metrics_jsonl", os.path.join(tmp, f"{tag}.jsonl")]
+                + common + list(extra))
+
+    def want(mode, a, micro, eval_micro):
+        cfg = cli.resolve_configs(cli.build_parser(mode).parse_args(a),
+                                  mode)[0]
+        return _micro_launches(cfg, micro, eval_micro, segmented=False)
+
+    def check_launches(tag, recs, expect):
+        for r in recs:
+            if r["launches"] != expect:
+                raise AssertionError(f"dist: {tag} rank {r['rank']} "
+                                     f"launches {r['launches']}, want "
+                                     f"{expect}")
+    return argv, want, check_launches
 
 
 def phase_dist(results: dict, tmp: str) -> dict:
@@ -6024,7 +6442,7 @@ def phase_dist(results: dict, tmp: str) -> dict:
       and the final masters and moments bitwise; launches exact on each
       rank; a planted fault (rank 1's gradients scaled at step 1) must be
       rejected by the same loss check;
-    - ZeRO-3 and ZeRO-2 at world 2: ``medium_model.yaml`` (8 of its 24
+    - ZeRO-3 and ZeRO-2 at world 2: ``medium_model.yaml`` (4 of its 24
       layers, dropout 0) through ``train_fsdp --sharding FULL_SHARD`` and
       ``SHARD_GRAD_OP``, a rank batch 4, accumulation 1, 3 steps, against
       one process at batch 4 x 2: losses bitwise, grad norms within
@@ -6061,37 +6479,11 @@ def phase_dist(results: dict, tmp: str) -> dict:
     small0 = _cut_yaml(tmp, "small_model.yaml", "nodrop", dropout=0.0,
                        attention_dropout=0.0, num_layers=4)
     medium0 = _cut_yaml(tmp, "medium_model.yaml", "nodrop", dropout=0.0,
-                        attention_dropout=0.0, num_layers=8)
-    common = ["--log_interval", "1", "--eval_interval", "0",
-              "--eval_batches", "1", "--keep_last_n", "0",
-              "--no_auto_resume"]
-
-    def argv(tag, config, steps, bs, accum, *extra):
-        return (["--config", config, "--max_steps", str(steps),
-                 "--batch_size", str(bs), "--grad_accum", str(accum),
-                 "--save_interval", "0",
-                 "--checkpoint_dir", os.path.join(tmp, f"ck_{tag}"),
-                 "--metrics_jsonl", os.path.join(tmp, f"{tag}.jsonl")]
-                + common + list(extra))
+                        attention_dropout=0.0, num_layers=4)
+    argv, want, check_launches = _dist_tools(tmp)
 
     def train(tag):
         return _jsonl(os.path.join(tmp, f"{tag}.jsonl"), "train")
-
-    def want(mode, a, micro, eval_micro):
-        """The launches of ``micro`` training and ``eval_micro`` eval
-        micro-batches of ``a`` (ZeRO-3's backward regathers the weights
-        and runs no block's forward again unless the config asks for
-        remat)."""
-        cfg = cli.resolve_configs(cli.build_parser(mode).parse_args(a),
-                                  mode)[0]
-        return _micro_launches(cfg, micro, eval_micro, segmented=False)
-
-    def check_launches(tag, recs, expect):
-        for r in recs:
-            if r["launches"] != expect:
-                raise AssertionError(f"dist: {tag} rank {r['rank']} "
-                                     f"launches {r['launches']}, want "
-                                     f"{expect}")
 
     launches = {}
     out = {"card": card}
@@ -6265,7 +6657,7 @@ def phase_dist(results: dict, tmp: str) -> dict:
             "world1_peak_gb": m1["peak_bytes"] / 1e9,
             "collectives": [r["collectives"] for r in ranks]}
         wire = ranks[0]["collectives"]
-        log("dist", f"{strategy} world 2 (medium_model.yaml at 8 layers): "
+        log("dist", f"{strategy} world 2 (medium_model.yaml at 4 layers): "
                     f"losses "
                     f"within rtol {worst['loss']:.2e} and grad norms "
                     f"{worst['grad_norm']:.3e} of world 1; at rest a rank "
@@ -6363,7 +6755,7 @@ WORLD_REST_TEL_RTOL = 1e-4
 def phase_world_rest(results: dict, tmp: str) -> dict:
     """The rest of world > 1 training on the card, ranks sharing
     ``cuda:0`` over gloo as in the dist phase (``_dist_spawn``), on
-    ``small_model.yaml`` (4 of its 12 layers, dropout 0, the clip off):
+    ``small_model.yaml`` (2 of its 12 layers, dropout 0, the clip off):
 
     - int8 Adam moments under ``SHARD_GRAD_OP`` at world 2 (a rank batch
       4, 3 steps) against one process at accumulation 2: the final packs,
@@ -6394,7 +6786,7 @@ def phase_world_rest(results: dict, tmp: str) -> dict:
     t_phase = time.perf_counter()
     card = nvidia_smi_line()
     small0 = _cut_yaml(tmp, "small_model.yaml", "wr", dropout=0.0,
-                       attention_dropout=0.0, grad_clip=1e9, num_layers=4)
+                       attention_dropout=0.0, grad_clip=1e9, num_layers=2)
     common = ["--log_interval", "1", "--eval_interval", "0",
               "--eval_batches", "1", "--keep_last_n", "0",
               "--no_auto_resume"]
@@ -6959,9 +7351,11 @@ def main(argv=None) -> int:
         dist = run("dist", phase_dist, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    results["expert"] = dist["moe"]["expert"]
     log("done", "phase seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in secs.items())
-        + " (world-rest, elastic and mesh-ranks beside ft)")
+        + " (world-rest, elastic and mesh-ranks beside ft); of dist, "
+        f"expert {results['expert']['seconds']:.1f}")
 
     max_err = max(results["kernel_max_abs_err"],
                   results["engine"]["live_step_max_abs_err"],
@@ -6980,10 +7374,11 @@ def main(argv=None) -> int:
                 "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
                 "library_ms": library_ms}
 
-    # The moe-capacity, ft, dist, world-rest, elastic and mesh-ranks
-    # phases' paths launch the training kernels too (mesh-ranks: the ring's
-    # chunks under sequence, a rank's head slice of attention under
-    # tensor): each row counts its main path's launches plus theirs
+    # The moe-capacity, ft, dist (expert included), world-rest, elastic
+    # and mesh-ranks phases' paths launch the training kernels too
+    # (mesh-ranks and expert: the ring's chunks under sequence, a rank's
+    # head slice of attention under tensor; expert: gmm and tgmm on a
+    # rank's experts): each row counts its main path's launches plus theirs
     # (and flash_decode's the moe-capacity engine's and the spec and
     # kv-store phases' engines and draft models').
     ftl = dict(ft["launches"])

@@ -32,6 +32,12 @@ out of step hang instead of failing):
 - ``bwd_prep_ignores_dlse_ring``: the same fault, which the training runs
   under a ``sequence`` axis meet through the ring's recombination; phase
   ``mesh_ranks`` must fail on their losses or final state.
+- ``gmm_tail_rows_unwritten``: gmm leaves the rows past its last group
+  (``offsets[E]``) unwritten instead of zero; only an expert rank's
+  dropless layer has such rows (the other ranks' experts' token-choices
+  sort after its own); phase ``gmm`` must fail (its local-experts case,
+  on NaN-filled memory: the expert phase's end-to-end run did not catch
+  it, its buffers holding zeros there).
 - ``sum_skips_last_rank``: the collectives' rank-order sum
   (``parallel/collectives.py::_ordered_sum``) leaves out the last rank's
   part; phase ``dist`` must fail.
@@ -93,6 +99,11 @@ MUTATIONS = {
         "if (dlse != nullptr && sp < s) acc -= dlse[bh * s + sp];",
         "if (dlse != nullptr && sp < 0) acc -= dlse[bh * s + sp];",
         "mesh_ranks"),
+    "gmm_tail_rows_unwritten": (
+        "tpu_trainer_torch/csrc/grouped_matmul.cu",
+        "if (m_end > used) {",
+        "if (m_end < 0) {",
+        "gmm"),
     "sum_skips_last_rank": (
         "tpu_trainer_torch/parallel/collectives.py",
         "for i in range(1, parts.shape[0]):",

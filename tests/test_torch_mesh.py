@@ -33,13 +33,14 @@ def test_mesh_resolve_matches_jax(axes, n):
 
 def test_unported_axes_raise_naming_their_entry():
     tmesh.check_ported((2, 2, 1, 1, 1, 1))
-    # The sequence ring and tensor parallelism run.
+    # The sequence ring, tensor and expert parallelism run.
     tmesh.check_ported((1, 2, 2, 2, 1, 1))
-    for axis, title in (("expert", "pipeline and expert"),
-                        ("stage", "pipeline and expert")):
-        sizes = tuple(2 if ax == axis else 1 for ax in tmesh.MESH_AXES)
-        with pytest.raises(NotImplementedError, match=title):
-            tmesh.check_ported(sizes)
+    tmesh.check_ported((1, 1, 1, 1, 2, 1))
+    tmesh.check_ported((2, 1, 1, 1, 4, 1))
+    # The pipeline's stage axis still names its entry.
+    sizes = tuple(2 if ax == "stage" else 1 for ax in tmesh.MESH_AXES)
+    with pytest.raises(NotImplementedError, match="pipeline and expert"):
+        tmesh.check_ported(sizes)
 
 
 def _feed(axes, n_proc, pidx, rows=16):

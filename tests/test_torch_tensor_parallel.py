@@ -22,9 +22,9 @@ every tensor rank) and the attention seeds (distinct across head shards);
 a tensor 2 x fsdp 2 checkpoint restored at world 1 with bitwise masters
 and a consolidated export of the world-1 layout; ``train_ddp
 --mesh_tensor 2`` resuming bitwise; ``infer --mesh_tensor 2`` greedy
-tokens equal to one process's; and the refusals (indivisible heads, MoE
-and int8 moments under tensor, segments under sequence, an indivisible
-sequence; ``fused_projections`` turned off).
+tokens equal to one process's; and the refusals (indivisible heads,
+segments under sequence, an indivisible sequence; ``fused_projections``
+turned off, and MoE and int8 moments under tensor built).
 
 Ranks run in two gloo spawns of ``tests/torch_dist_worker.py`` (world 2
 and world 4), every job of a world in one spawn.
@@ -416,8 +416,14 @@ def test_tensor_residual_dropout_and_attention_seeds(world2):
     ("heads", "ValueError", "num_heads 3 not divisible by tensor axis"),
     ("kv_heads", "ValueError", "num_kv_heads 1 not divisible"),
     ("fused", "ok", False),
-    ("moe", "NotImplementedError", "pipeline and expert parallelism"),
-    ("int8", "NotImplementedError", "int8 moments on a tensor shard"),
+    # MoE and int8 moments under tensor run now (fused_projections off);
+    # the case ids are kept from when they refused.
+    pytest.param("moe", "ok", False,
+                 id="moe-NotImplementedError-pipeline and expert "
+                    "parallelism"),
+    pytest.param("int8", "ok", False,
+                 id="int8-NotImplementedError-int8 moments on a tensor "
+                    "shard"),
     ("segments", "NotImplementedError", "sequence parallelism"),
     ("seq_len", "ValueError", "max_seq_len 15 not divisible by sequence"),
 ])

@@ -42,8 +42,18 @@ numpy arrays and scalars) for the test to compare. Jobs:
 - ``mesh_dropout``: the residual keep mask of a ``[rows, seq, hidden]``
   activation (this rank's slice under sequence) and two attention seeds,
   drawn as the training forward draws them under the job's mesh;
-- ``errors``: the messages of trainers and forwards that must refuse
-  (``cases``: ``{name: {"model", "mesh", "train", "parallel", "forward"}}``);
+- ``moe_layer``: ``models.moe.moe_ffn`` of each config of ``cases`` on
+  the npz's inputs (``inputs``: ``x``, ``router``, ``gate``, ``up``,
+  ``down``, ``dout``) over an expert group of every rank, this rank
+  holding its experts' slices: the output, aux, queue positions and keep
+  mask, and the gradients of ``x``, the router and its expert slices for
+  the cotangent ``dout`` (aux's 1);
+- ``quant_cut``: the int8 pack of this rank's tensor slice of the npz's
+  ``leaf`` (a ``BlockCut`` over a tensor group of every rank), as
+  ``cut_boxes`` places it in the one-process pack;
+- ``errors``: the messages of trainers, forwards and CLI runs that must
+  refuse (``cases``: ``{name: {"model", "mesh", "train", "parallel",
+  "forward"}}``, or ``{name: {"argv"}}`` for ``run_training``);
 - ``cli``: ``training.cli.run_training(argv)`` in this process (the group
   is the worker's) for each argv of ``runs``, optionally removing a step
   directory first (``remove``), and ``eval.infer.main`` for each of
@@ -120,10 +130,10 @@ def record_moe(out: dict, zero_offsets_rank=None):
         out["moe_keep"].append(keep.numpy())
         return pos, keep
 
-    def zero_offsets(counts, rank):
+    def zero_offsets(counts, rank, *layout):
         if rank == zero_offsets_rank:
             return counts[0] * 0
-        return offsets(counts, rank)
+        return offsets(counts, rank, *layout)
 
     moe.route, moe.capacity_positions = rec_route, rec_positions
     moe.rank_offsets = zero_offsets
@@ -352,12 +362,74 @@ def mesh_dropout(job) -> dict:
             "coords": ctx.coords}
 
 
+def moe_layer(job) -> dict:
+    from tpu_trainer_torch.models import moe
+    from tpu_trainer_torch.parallel import context as ctx_lib
+
+    d = np.load(job["inputs"])
+    ep = mesh_lib.process_count()
+    topo = collectives.topology(1, 1, 1, 1, ep)
+    sizes = (1, 1, 1, 1, ep, 1)
+    ctx = ctx_lib.MeshContext(sizes=sizes, coords=mesh_lib.mesh_coords(
+        sizes, mesh_lib.process_index()), expert=topo.expert,
+        expert_tensor=topo.expert_tensor)
+    x0 = topo.expert_coord
+    out = {}
+    for name, case in job["cases"].items():
+        cfg = GPTConfig(**case)
+        n = cfg.num_experts // ep
+        x = torch.from_numpy(d["x"]).requires_grad_(True)
+        router = torch.from_numpy(d["router"]).requires_grad_(True)
+        ws = [torch.from_numpy(d[k][x0 * n:(x0 + 1) * n].copy())
+              .requires_grad_(True) for k in ("gate", "up", "down")]
+        rec = {}
+        restore = record_moe(rec)
+        try:
+            with ctx_lib.use_mesh(ctx):
+                y, aux = moe.moe_ffn(x, router, *ws, cfg, group=topo.rep)
+                grads = torch.autograd.grad(
+                    [y, aux], [x, router] + ws,
+                    [torch.from_numpy(d["dout"]), torch.tensor(1.0)])
+        finally:
+            restore()
+        r = {"out": y.detach().numpy(), "aux": float(aux.detach()),
+             "grads": [g.numpy() for g in grads]}
+        if rec["moe_pos"]:
+            r.update(pos=rec["moe_pos"][0], keep=rec["moe_keep"][0])
+        out[name] = r
+    return out
+
+
+def quant_cut(job) -> dict:
+    from tpu_trainer_torch.utils.quant import (BlockCut, cut_boxes,
+                                               quantize_blockwise_int8)
+
+    leaf = torch.from_numpy(np.load(job["inputs"])["leaf"])
+    tp = mesh_lib.process_count()
+    coll = collectives.topology(1, 1, 1, tp).tensor
+    k = leaf.shape[-1] // tp
+    cut = BlockCut(coll.rank * k, (coll.rank + 1) * k, leaf.shape[-1],
+                   group=coll)
+    out = {}
+    for nonneg in (False, True):
+        pack = quantize_blockwise_int8(
+            leaf[..., cut.lo:cut.hi].contiguous(), nonneg=nonneg, cut=cut)
+        out[nonneg] = cut_boxes(pack.q.numpy(), pack.scale.numpy(), cut)
+    return out
+
+
 def errors(job) -> dict:
     from tpu_trainer_torch.parallel import context as ctx_lib
+
+    from tpu_trainer_torch.training import cli as cli_lib
 
     out = {}
     for name, case in job["cases"].items():
         try:
+            if case.get("argv"):
+                cli_lib.run_training(case["argv"])
+                out[name] = ("ok", None)
+                continue
             tr = make_trainer(case)
             if case.get("forward"):
                 ids = torch.zeros((1, tr.training_config.max_seq_len),
@@ -452,7 +524,8 @@ def main(spec_path: str, rank: int) -> None:
         result = {"train": train, "dropout": dropout, "guards": guards,
                   "nan_scan": nan_scan, "tp_loss": tp_loss, "ring": ring,
                   "mesh_dropout": mesh_dropout, "errors": errors,
-                  "cli": cli}[job["kind"]](job)
+                  "cli": cli, "moe_layer": moe_layer,
+                  "quant_cut": quant_cut}[job["kind"]](job)
         torch.save(result, os.path.join(spec["out"],
                                         f"{job['name']}_r{rank}.pt"))
 

@@ -29,10 +29,12 @@ processes, rank ``d * T + t``; each rank loads its tensor slice of the
 parameters (``models/weights.build_model(tensor=)``), its KV cache holds
 its ``kv_heads / T`` heads, the row-parallel products and the head's
 logits are summed over the tensor group (``models/gpt.py``), so every
-tensor rank samples the same tokens. ``fused_projections`` is turned off
-(the JAX gate). ``--serve`` with a mesh stays refused, as in JAX: the
-paged TP decode is ROADMAP Queue 1 "serving across devices: TP decode
-and the fleet".
+tensor rank samples the same tokens; a MoE layer runs its tensor slice of
+every expert's FFN and sums the layer's output over the tensor group
+(``models/moe.py``). ``fused_projections`` is turned off (the JAX
+gate). ``--serve`` with a mesh stays refused, as in JAX: the paged TP
+decode is ROADMAP Queue 1 "serving across devices: TP decode and the
+fleet".
 
 Runs on CUDA unless ``--device cpu``; without a GPU and without that flag
 it raises.
@@ -102,7 +104,19 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None, *, result: Optional[dict] = None) -> int:
     """Decode and print one text a prompt. ``result`` (a dict), when
     given, receives ``tokens`` (each row's prompt + generated ids) and,
-    with ``--serve``, the engine's ``stats``."""
+    with ``--serve``, the engine's ``stats``. A process that joined the
+    process group here leaves it when it returns
+    (``mesh.shutdown_distributed``, as ``training/cli.run_training``
+    does); a group its caller made is kept."""
+    joined = mesh_lib.process_count() > 1
+    try:
+        return _main(argv, result)
+    finally:
+        if not joined and mesh_lib.process_count() > 1:
+            mesh_lib.shutdown_distributed()
+
+
+def _main(argv, result: Optional[dict]) -> int:
     p = build_parser()
     args = p.parse_args(argv)
     device = resolve_device(args.device)
@@ -140,10 +154,6 @@ def main(argv=None, *, result: Optional[dict] = None) -> int:
                         ("num_kv_heads", config.kv_heads)):
             if n % tp:
                 p.error(f"{what} {n} not divisible by --mesh_tensor {tp}")
-        if config.num_experts > 0:
-            raise NotImplementedError(
-                "not ported yet: MoE under a tensor axis -> ROADMAP Queue "
-                "1: pipeline and expert parallelism")
         # TP shards the q/k/v kernels along the axis the fusion
         # concatenates (the Trainer's gate).
         config = dataclasses.replace(config, fused_projections=False)
@@ -239,16 +249,17 @@ def main(argv=None, *, result: Optional[dict] = None) -> int:
         return 0
 
     model = build_model(config, params, device, tensor=(tensor_rank, tp))
-    if shards > 1 and config.num_experts > 0:
-        model.moe_group = coll_lib.Collectives(
-            torch.distributed.group.WORLD,
-            list(range(mesh_lib.process_count())))
     mesh = None
-    if tp > 1:
+    if tp > 1 or (shards > 1 and config.num_experts > 0):
         topo = coll_lib.topology(shards, 1, 1, tp)
-        mesh = ctx_lib.MeshContext(sizes=sizes,
-                                   coords=mesh_lib.mesh_coords(sizes, rank),
-                                   tensor=topo.tensor)
+        if shards > 1 and config.num_experts > 0:
+            # The data shards route their rows together (the tensor ranks
+            # of a shard hold the same rows).
+            model.moe_group = topo.rep
+        if tp > 1:
+            mesh = ctx_lib.MeshContext(
+                sizes=sizes, coords=mesh_lib.mesh_coords(sizes, rank),
+                tensor=topo.tensor, expert_tensor=topo.expert_tensor)
     # This rank's rows (all of them at one process), at the global width
     # and with their global row seeds.
     per = len(rows) // shards

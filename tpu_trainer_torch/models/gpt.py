@@ -73,8 +73,9 @@ remat checkpoint the block's rerun gathers again instead) and
 hashes the global batch's linear index, so a shard's mask is the
 one-process mask's rows, and the attention-dropout seed folds in the
 shard, ``ops.attention.fold_seed``) and, for MoE, ``moe_group`` (the
-data-parallel ``Collectives``: each MoE layer routes the global
-micro-batch, ``models/moe.py``; ``eval/infer.py`` sets it too).
+routing ``Collectives``, the ranks that hold distinct tokens: each MoE
+layer routes the global micro-batch, ``models/moe.py``; ``eval/infer.py``
+sets it too).
 
 **Tensor and sequence parallelism** (``parallel/context.current_mesh``,
 which the trainer and ``eval/infer.py`` enter around a pass). Under a
@@ -100,6 +101,12 @@ slice (so its masks are the one-process masks' columns), and the loss
 over its tokens with the labels shifted globally (``labels`` then carries
 one more column, the next rank's first token; the last global position
 is masked) as its share of the global mean. ``segment_ids`` raise there.
+
+Under an ``expert`` axis (and for MoE under ``tensor``) the MoE block's
+stacked expert leaves are the rank's ``[L, E / ep, H, I / tp]`` slices
+and ``models/moe.py`` runs the rank's local experts, summing the layer's
+output over the expert and tensor ranks; everything else of the forward
+is replicated over ``expert``.
 """
 
 from __future__ import annotations
@@ -564,8 +571,11 @@ class GPT(nn.Module):
             else:
                 loss = _shifted_loss(logits, labels, segment_ids, seq_shard)
             if cfg.num_experts > 0:
-                # The layers' pre-weighted router auxiliaries, meaned.
-                loss = loss + moe_aux / cfg.num_layers
+                # The layers' pre-weighted router auxiliaries, meaned
+                # (under sequence each rank's is its 1 / sp share, as its
+                # loss is).
+                sp = 1 if seq is None else seq[1]
+                loss = loss + moe_aux / (cfg.num_layers * sp)
         return logits, loss
 
     def _leaf(self, name: str) -> torch.Tensor:

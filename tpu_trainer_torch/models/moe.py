@@ -16,8 +16,8 @@ arXiv:2101.03961): every expert takes at most ``C = ceil(k * T / E *
 expert_capacity_factor)`` token-choices (``C = T`` when ``T <= 2 E``, the
 decode regime), queued in choice-major order (every first choice before
 any second choice, so second choices drop first); the rest are dropped
-and contribute zero. ``moe_dispatch`` moves the rows: ``"gather"`` (and
-``"auto"``: no expert axis is ported) through two autograd functions whose
+and contribute zero. ``moe_dispatch`` moves the rows: ``"gather"``
+through two autograd functions whose
 backwards are gathers through the inverse slot map, as the JAX custom
 VJPs are (a fixed order of every sum, so the backward is deterministic;
 no scatter-add), ``"einsum"`` through the one-hot ``[T, k, E, C]`` slot
@@ -30,16 +30,37 @@ group sizes from a count of the routing, the three SwiGLU projections as
 grouped matmuls (``ops/grouped_matmul.gmm``: the CUDA kernels on a CUDA
 tensor), the inverse permutation and the gated combine. No token drops.
 
-**Across ranks** (``group``, the trainer's data-parallel ``Collectives``):
-the JAX layer routes the global micro-batch, whose rows are the ranks'
-rows in rank order. Each layer all-gathers every rank's ``[k, E]`` choice
-counts (one small collective); the capacity comes from the global ``T``,
-a rank's queue positions start after the earlier choices of every rank
-and the earlier ranks' same choice, and ``f`` is the global first-choice
-fraction (``p`` stays the rank's own mean, so the ranks' mean aux is the
-global aux). The expert weights are cast through
-``parallel.collectives.derive``, so ZeRO-3 regathers them in the
-backward instead of keeping them.
+**Across ranks** (``group``, the routing group: the trainer's ranks that
+hold distinct tokens, varying data, fsdp and sequence): the JAX layer
+routes the global micro-batch, whose tokens run in the order ``t = row *
+S + col`` over the global rows. Each layer all-gathers every rank's
+choice counts (one small collective): ``[k, E]`` a rank, or ``[b, k, E]``
+(a count per local row) under a sequence axis, whose ranks hold
+interleaved pieces of each row. The capacity comes from the global ``T``;
+a token-choice's queue position starts after the earlier choices of
+every rank and, in its own choice, the tokens before it in global order
+(``rank_offsets``); ``f`` is the global first-choice fraction (``p``
+stays the rank's own mean, so the ranks' mean aux is the global aux; a
+sequence rank's aux counts ``1 / sp`` of it, as its loss does, in
+``models/gpt.py``). The expert weights are cast through
+``parallel.collectives.derive``, so ZeRO-3 regathers them in the backward
+instead of keeping them.
+
+**Expert and tensor axes** (``parallel/context.current_mesh``): a rank
+holds the weights of its local experts ``[x E / ep, (x + 1) E / ep)`` and
+of them its tensor slice of the FFN dim (``parallel/sharding.py``). The
+router, the gates, the positions and the aux are computed on every such
+rank alike; the rank computes its local experts' slots (capacity) or rows
+(dropless: ``gmm`` / ``tgmm`` over the local experts' groups, the other
+rows left zero) and its share of their output, and ``expert_sum`` adds
+the shares over the expert and tensor ranks (``expert_tensor``). The
+tokens and the gates enter the local experts through ``copy_to_tensor``
+(identity forward, the gradient summed over the same ranks), and the
+aux does not, so the router and every replicated leaf get the
+one-process gradient on every expert and tensor rank. Without those axes
+both collectives are the identity and the layer is the one-process layer.
+``moe_dispatch="auto"`` is ``"einsum"`` when the expert axis is above 1
+and ``"gather"`` otherwise, the JAX rule; both give the same result.
 
 With ``router_stats`` (a telemetry step) a layer reports its router
 health under the JAX names: ``load``, ``entropy``, ``drop_frac``,
@@ -61,17 +82,21 @@ import torch.nn.functional as F
 from tpu_trainer_torch.models.config import GPTConfig
 from tpu_trainer_torch.ops.grouped_matmul import gmm
 from tpu_trainer_torch.parallel import collectives as coll_lib
+from tpu_trainer_torch.parallel import context as ctx_lib
 
 
 def route(xt: torch.Tensor, router_kernel: torch.Tensor, cfg: GPTConfig,
-          stats: Optional[dict] = None, group=None):
+          stats: Optional[dict] = None, group=None, chunks: int = 1):
     """Router of ``xt [T, H]``: ``(gates [T, k] f32, gate_idx [T, k]
-    int64, aux scalar f32, counts [W, k, E] int64)``, ``counts`` every
-    rank's token count of each (choice, expert) in rank order (``W = 1``
-    without ``group``). ``stats`` (a dict) receives the first-choice
+    int64, aux scalar f32, counts [W * chunks, k, E] int64)``, ``counts``
+    the token count of each (choice, expert) of every chunk of every rank
+    of ``group`` (``W`` ranks, 1 without it) in rank order; a rank's
+    tokens are ``chunks`` equal chunks in order (its rows under a sequence
+    axis, else one). ``stats`` (a dict) receives the first-choice
     ``load`` and the routing ``entropy``."""
     E, k = cfg.num_experts, cfg.moe_top_k
     T = xt.shape[0]
+    world = 1 if group is None else group.world
     logits = xt.float() @ router_kernel.float()                  # [T, E]
     probs = torch.softmax(logits, dim=-1)
     # top_k as jax.lax.top_k: of equal probabilities the lower expert id
@@ -80,10 +105,11 @@ def route(xt: torch.Tensor, router_kernel: torch.Tensor, cfg: GPTConfig,
         probs, dim=-1, descending=True, stable=True))
     gates = gate_vals if k == 1 else (
         gate_vals / gate_vals.sum(dim=-1, keepdim=True))
-    counts = F.one_hot(gate_idx, E).sum(dim=0)[None]             # [1, k, E]
+    counts = F.one_hot(gate_idx, E).reshape(chunks, T // chunks, k, E).sum(
+        dim=1)                                                   # [c, k, E]
     if group is not None:
         counts = group.all_gather_leaf(counts, 0, kind="moe_counts")
-    frac = counts[:, 0].sum(dim=0).float() / float(counts.shape[0] * T)
+    frac = counts[:, 0].sum(dim=0).float() / float(world * T)
     mean_prob = probs.mean(dim=0)
     aux = cfg.moe_aux_weight * E * torch.sum(frac * mean_prob)
     if stats is not None:
@@ -91,7 +117,7 @@ def route(xt: torch.Tensor, router_kernel: torch.Tensor, cfg: GPTConfig,
             mp = mean_prob.detach()
             stats["load"] = frac
             stats["entropy"] = -torch.sum(mp * torch.log(mp + 1e-9))
-            if counts.shape[0] > 1:
+            if world > 1:
                 # The global entropy needs the global mean probability:
                 # the trainer's one telemetry collective averages this
                 # (utils/telemetry.combine_ranks).
@@ -113,20 +139,58 @@ def _cast(w: torch.Tensor, dtype) -> torch.Tensor:
     return coll_lib.derive(lambda t: t.to(dtype), [w])
 
 
-def dispatch_mode(cfg: GPTConfig) -> str:
-    """The capacity router's row movement: ``"einsum"`` only when asked
-    for; ``"auto"`` is ``"gather"`` (the JAX rule without an expert
-    axis)."""
-    return "einsum" if cfg.moe_dispatch == "einsum" else "gather"
+def dispatch_mode(cfg: GPTConfig, expert_size: Optional[int] = None
+                  ) -> str:
+    """The capacity router's row movement: ``"gather"`` or ``"einsum"``
+    as asked; ``"auto"`` is ``"einsum"`` when the expert axis (the active
+    mesh's, or ``expert_size``) is above 1 and ``"gather"`` otherwise (the
+    JAX rule)."""
+    if cfg.moe_dispatch != "auto":
+        return cfg.moe_dispatch
+    if expert_size is None:
+        mesh = ctx_lib.current_mesh()
+        expert_size = 1 if mesh is None else mesh.ep
+    return "einsum" if expert_size > 1 else "gather"
 
 
-def describe(cfg: GPTConfig) -> str:
-    """The router of a MoE config in words (the CLI's startup line)."""
+def describe(cfg: GPTConfig, expert_size: int = 1) -> str:
+    """The router of a MoE config in words (the CLI's startup line), at
+    expert axis size ``expert_size``."""
     head = f"{cfg.num_experts} experts, top-{cfg.moe_top_k}, "
+    if expert_size > 1:
+        head += (f"{cfg.num_experts // expert_size} a rank over "
+                 f"{expert_size} expert ranks, ")
     if cfg.moe_impl == "dropless":
         return head + "dropless router (grouped matmuls)"
-    return head + (f"capacity router, {dispatch_mode(cfg)} dispatch, "
-                   f"capacity factor {cfg.expert_capacity_factor}")
+    return head + (f"capacity router, {dispatch_mode(cfg, expert_size)} "
+                   f"dispatch, capacity factor {cfg.expert_capacity_factor}")
+
+
+def _expert_layout(w_gate: torch.Tensor, cfg: GPTConfig):
+    """``(first local expert, the group that sums the layer's output or
+    None, sequence size)`` under the active mesh (``(0, None, 1)`` without
+    one). The group is the expert x tensor ranks when the tensor axis
+    split the FFN dim, else the expert ranks (the experts replicate over
+    tensor when its size does not divide the dim)."""
+    mesh = ctx_lib.current_mesh()
+    if mesh is None:
+        return 0, None, 1
+    split = w_gate.shape[-1] < cfg.intermediate_size
+    return (mesh.ep_rank * w_gate.shape[0],
+            mesh.expert_tensor if split else mesh.expert, mesh.sp)
+
+
+def expert_sum(out: torch.Tensor, group) -> torch.Tensor:
+    """A layer's output: every expert and tensor rank's share of it
+    (their local experts', their FFN slice's) summed over ``group`` in
+    rank order; the gradient passes unchanged."""
+    return coll_lib.reduce_from_tensor(out, group, kind="moe_allreduce")
+
+
+def _to_experts(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` unchanged into the local experts; its gradient summed over
+    the expert and tensor ranks (each computed its experts' part)."""
+    return coll_lib.copy_to_tensor(t, group, kind="moe_allreduce")
 
 
 def moe_ffn(x: torch.Tensor, router_kernel: torch.Tensor,
@@ -142,15 +206,18 @@ def moe_ffn(x: torch.Tensor, router_kernel: torch.Tensor,
 
 # -- the dropless router ------------------------------------------------------
 
-def dispatch(gate_idx: torch.Tensor, num_experts: int):
+def dispatch(gate_idx: torch.Tensor, num_experts: int, first: int = 0):
     """``(counts [E] int32, perm [T*k], inv_perm [T*k])`` of the flat
     expert ids: a stable argsort puts the token-choice rows in expert order
-    (a pure function of the routing), ``counts`` are the group sizes and
-    ``inv_perm`` puts them back. Device ops only."""
+    (a pure function of the routing), starting at expert ``first`` (then
+    ``first + 1``, ... modulo E: a rank's local experts first), ``counts``
+    are the group sizes by expert id and ``inv_perm`` puts the rows back.
+    Device ops only."""
     flat = gate_idx.reshape(-1)
     counts = torch.zeros(num_experts, dtype=torch.int32, device=flat.device)
     counts.scatter_add_(0, flat, torch.ones_like(flat, dtype=torch.int32))
-    perm = torch.argsort(flat, stable=True)
+    order = flat if first == 0 else (flat - first) % num_experts
+    perm = torch.argsort(order, stable=True)
     inv_perm = torch.empty_like(perm)
     inv_perm[perm] = torch.arange(perm.numel(), device=perm.device)
     return counts, perm, inv_perm
@@ -170,30 +237,37 @@ def dropless_moe(x: torch.Tensor, router_kernel: torch.Tensor,
     b, s, H = x.shape
     k = cfg.moe_top_k
     dtype = cfg.compute_dtype
+    world = 1 if group is None else group.world
     xt = x.reshape(b * s, H)
     gates, gate_idx, aux, every = route(xt, router_kernel, cfg,
                                         stats=router_stats, group=group)
-    counts, perm, inv_perm = dispatch(gate_idx, cfg.num_experts)
+    first, ranks, _ = _expert_layout(w_gate, cfg)
+    local = w_gate.shape[0]
+    counts, perm, inv_perm = dispatch(gate_idx, cfg.num_experts, first)
     if router_stats is not None:
         with torch.no_grad():
             # The true post-routing load (what each expert computed);
             # nothing is dropped. At world > 1 the global micro-batch's,
             # from every rank's choice counts.
             load = (counts.float() / float(k * b * s)
-                    if every.shape[0] == 1 else
+                    if world == 1 else
                     every.sum(dim=(0, 1)).float()
-                    / float(k * b * s * every.shape[0]))
+                    / float(k * b * s * world))
             router_stats.update(
                 load=load, drop_frac=torch.zeros((), device=load.device),
                 max_group_frac=torch.max(load),
                 dropless=torch.ones((), device=load.device))
-    grouped_in = xt.to(dtype)[perm // k]                          # [T*k, H]
-    mid = (_activation(cfg, gmm(grouped_in, _cast(w_gate, dtype), counts))
-           * gmm(grouped_in, _cast(w_up, dtype), counts))
-    grouped_out = gmm(mid, _cast(w_down, dtype), counts)          # [T*k, H]
+    # The local experts' rows come first; gmm leaves the rows past their
+    # groups zero, so the other experts' choices add nothing here.
+    mine = counts[first:first + local]
+    grouped_in = _to_experts(xt.to(dtype), ranks)[perm // k]      # [T*k, H]
+    mid = (_activation(cfg, gmm(grouped_in, _cast(w_gate, dtype), mine))
+           * gmm(grouped_in, _cast(w_up, dtype), mine))
+    grouped_out = gmm(mid, _cast(w_down, dtype), mine)            # [T*k, H]
     rows = grouped_out[inv_perm].reshape(b * s, k, H)
-    out = torch.sum(rows * gates[..., None].to(dtype), dim=1)
-    return out.reshape(b, s, H), aux
+    out = torch.sum(rows * _to_experts(gates, ranks)[..., None].to(dtype),
+                    dim=1)
+    return expert_sum(out, ranks).reshape(b, s, H), aux
 
 
 # -- the capacity router ------------------------------------------------------
@@ -210,26 +284,45 @@ def capacity(cfg: GPTConfig, tokens: int) -> int:
                             * cfg.expert_capacity_factor))
 
 
-def rank_offsets(counts: torch.Tensor, rank: int) -> torch.Tensor:
-    """``[k, E]``: the token-choices of the ranks before ``rank``, each
-    choice and expert (zeros on rank 0 and at one process)."""
-    return counts[:rank].sum(dim=0)
+def rank_offsets(counts: torch.Tensor, rank: int, rows: int = 1,
+                 sp: int = 1) -> torch.Tensor:
+    """``[rows, k, E]``: for each of rank ``rank``'s chunks, the
+    token-choices of every chunk before it in global token order, each
+    choice and expert (zeros on rank 0's first chunk and at one process).
+    ``counts [W * rows, k, E]`` are every rank's chunk counts (``route``);
+    the ``W`` ranks are ``W / sp`` data shards times ``sp`` sequence
+    ranks, and a chunk is a row of a rank under sequence (``rows`` a
+    rank), so global order runs over data shard, then row, then sequence
+    rank."""
+    k, E = counts.shape[1:]
+    dp = counts.shape[0] // (rows * sp)
+    chunks = counts.reshape(dp, sp, rows, k, E).transpose(1, 2).reshape(
+        -1, k, E)
+    before = torch.cumsum(chunks, dim=0) - chunks
+    d, j = divmod(rank, sp)
+    at = (d * rows + torch.arange(rows, device=counts.device)) * sp + j
+    return before[at]
 
 
 def capacity_positions(gate_idx: torch.Tensor, counts: torch.Tensor,
-                       rank: int, slots: int):
+                       rank: int, slots: int, rows: int = 1, sp: int = 1):
     """``(pos [T, k] int64, keep [T, k] bool)``: each token-choice's place
     in its expert's queue over the global micro-batch, in choice-major
     order (the JAX exclusive cumsum over the ``[k*T, E]`` one-hot), and
-    whether it is below the capacity ``slots``. ``counts [W, k, E]`` are
-    every rank's choice counts (``route``); this rank's rows follow the
-    earlier ranks'. Integer sums, so exact at any ``T``."""
+    whether it is below the capacity ``slots``. ``counts [W * rows, k,
+    E]`` are every rank's chunk counts (``route``); this rank's ``rows``
+    chunks follow the chunks before them in global order
+    (``rank_offsets``). Integer sums, so exact at any ``T``."""
+    T, k = gate_idx.shape
     E = counts.shape[-1]
     onehot = F.one_hot(gate_idx, E)                              # [T, k, E]
-    before = torch.cumsum(onehot, dim=0) - onehot   # earlier tokens, same j
+    per_chunk = onehot.reshape(rows, T // rows, k, E)
+    # Earlier tokens of the same chunk, same choice.
+    before = (torch.cumsum(per_chunk, dim=1) - per_chunk).reshape(T, k, E)
     total = counts.sum(dim=0)                                    # [k, E]
-    offset = (torch.cumsum(total, dim=0) - total   # earlier choices, all ranks
-              + rank_offsets(counts, rank))
+    chunk_off = rank_offsets(counts, rank, rows, sp).expand(rows, k, E)
+    offset = ((torch.cumsum(total, dim=0) - total)[None]  # earlier choices
+              + chunk_off).repeat_interleave(T // rows, dim=0)
     pos = ((before + offset) * onehot).sum(dim=-1)
     return pos, pos < slots
 
@@ -297,18 +390,24 @@ def capacity_moe(x: torch.Tensor, router_kernel: torch.Tensor,
     """The capacity MoE FFN of one layer on ``x [b, s, H]`` (compute
     dtype): ``(out [b, s, H], aux)``, before the residual dropout (the
     JAX ``MoEMLP.__call__`` with ``moe_impl="capacity"``). ``group`` (a
-    ``Collectives`` over the data-parallel ranks) routes the global
-    micro-batch; ``router_stats`` receives the JAX ``router`` record."""
+    ``Collectives`` over the routing ranks) routes the global
+    micro-batch; ``router_stats`` receives the JAX ``router`` record.
+    Under the expert and tensor axes the weights are the rank's local
+    experts' slices (module docstring)."""
     b, s, H = x.shape
     E, k = cfg.num_experts, cfg.moe_top_k
     T = b * s
     dtype = cfg.compute_dtype
+    world, rank = (1, 0) if group is None else (group.world, group.rank)
+    first, ranks, sp = _expert_layout(w_gate, cfg)
+    local = w_gate.shape[0]
+    rows = b if sp > 1 else 1
     xt = x.reshape(T, H)
     gates, gate_idx, aux, counts = route(xt, router_kernel, cfg,
-                                         stats=router_stats, group=group)
-    world, rank = counts.shape[0], (0 if group is None else group.rank)
+                                         stats=router_stats, group=group,
+                                         chunks=rows)
     C = capacity(cfg, world * T)
-    pos, keep = capacity_positions(gate_idx, counts, rank, C)
+    pos, keep = capacity_positions(gate_idx, counts, rank, C, rows, sp)
     if router_stats is not None:
         with torch.no_grad():
             if world == 1:
@@ -325,35 +424,41 @@ def capacity_moe(x: torch.Tensor, router_kernel: torch.Tensor,
                 max_group_frac=kept.max() / torch.clamp(kept.sum(), min=1.0),
                 dropless=torch.zeros((), device=kept.device))
 
+    xin = _to_experts(xt.to(dtype), ranks)
+    gin = _to_experts(gates, ranks)
     einsum = dispatch_mode(cfg) == "einsum"
     if einsum:
         # slot[t, j, e, c] = 1 where choice j of token t holds slot c of
-        # expert e.
+        # local expert e.
         keep_e = F.one_hot(gate_idx, E).float() * keep[..., None]
         slot = (keep_e[..., None] * F.one_hot(
             torch.where(keep, pos, 0), C).float()[:, :, None, :])
+        if local < E:
+            slot = slot[:, :, first:first + local]
         expert_in = torch.einsum("tec,th->ech", slot.sum(dim=1).to(dtype),
-                                 xt.to(dtype))
+                                 xin)
     else:
-        flat_ids = torch.where(keep, gate_idx * C + pos, E * C)  # [T, k]
+        mine = keep & (gate_idx >= first) & (gate_idx < first + local)
+        flat_ids = torch.where(mine, (gate_idx - first) * C + pos,
+                               local * C)                        # [T, k]
         tc = (torch.arange(T, device=x.device)[:, None]
               + T * torch.arange(k, device=x.device)[None, :])
-        slot_tc = torch.full((E * C + 1,), k * T, dtype=torch.int64,
+        slot_tc = torch.full((local * C + 1,), k * T, dtype=torch.int64,
                              device=x.device)
         slot_tc[flat_ids.reshape(-1)] = tc.reshape(-1)
-        slot_tc = slot_tc[:E * C]
+        slot_tc = slot_tc[:local * C]
         slot_token = torch.where(slot_tc == k * T, T, slot_tc % T)
-        expert_in = _DispatchRows.apply(xt.to(dtype), slot_token,
-                                        flat_ids).reshape(E, C, H)
+        expert_in = _DispatchRows.apply(xin, slot_token,
+                                        flat_ids).reshape(local, C, H)
 
     mid = (_activation(cfg, torch.bmm(expert_in, _cast(w_gate, dtype)))
            * torch.bmm(expert_in, _cast(w_up, dtype)))
-    expert_out = torch.bmm(mid, _cast(w_down, dtype))             # [E, C, H]
+    expert_out = torch.bmm(mid, _cast(w_down, dtype))         # [local, C, H]
 
     if einsum:
-        combine = (slot * gates[:, :, None, None]).sum(dim=1)     # [T, E, C]
+        combine = (slot * gin[:, :, None, None]).sum(dim=1)   # [T, local, C]
         out = torch.einsum("tec,ech->th", combine.to(dtype), expert_out)
     else:
-        out = _CombineRows.apply(expert_out.reshape(E * C, H), gates,
+        out = _CombineRows.apply(expert_out.reshape(local * C, H), gin,
                                  flat_ids, slot_tc)
-    return out.reshape(b, s, H), aux
+    return expert_sum(out, ranks).reshape(b, s, H), aux

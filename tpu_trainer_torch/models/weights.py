@@ -65,11 +65,26 @@ def param_specs(config: GPTConfig) -> Dict[str, tuple]:
     return {n: (tuple(p.shape), p.dtype) for n, p in model.named_parameters()}
 
 
-def from_jax_params(tree, config: GPTConfig, device=None
+def _rank_slices(config: GPTConfig, tensor: tuple, expert: tuple):
+    """``name -> fn(global leaf) -> this rank's slice`` for tensor rank
+    ``tensor[0]`` of ``tensor[1]`` and expert rank ``expert[0]`` of
+    ``expert[1]`` (``parallel/sharding.leaf_specs``)."""
+    from tpu_trainer_torch.parallel.sharding import leaf_specs, local_slice
+
+    specs = leaf_specs({n: s for n, (s, _) in param_specs(config).items()},
+                       "replicated", 1, tensor[1], expert[1])
+    return {n: (lambda a, sp=sp: local_slice(a, sp, tensor[0], expert[0]))
+            for n, sp in specs.items()}
+
+
+def from_jax_params(tree, config: GPTConfig, device=None, *,
+                    tensor: tuple = (0, 1), expert: tuple = (0, 1)
                     ) -> Dict[str, torch.Tensor]:
     """State dict for ``GPT(config)`` from a Flax param tree (nested
     dicts of numpy arrays, e.g. ``jax.tree.map(np.asarray, params)`` or
-    ``load_params_npz``). Raises on a missing, extra or misshaped leaf."""
+    ``load_params_npz``). Raises on a missing, extra or misshaped leaf.
+    ``tensor=(rank, size)`` / ``expert=(rank, size)``: a rank's slices of
+    the leaves those axes split (its Megatron slice, its experts)."""
     dev = resolve_device(device)
     flat = _flatten(tree)
     want = param_specs(config)
@@ -82,9 +97,10 @@ def from_jax_params(tree, config: GPTConfig, device=None
             f"param tree does not match GPT({config.hidden_size=}, "
             f"{config.num_layers=}): missing {missing}, extra {extra}, "
             f"misshaped {[(n, flat[n].shape, want[n][0]) for n in bad]}")
+    cut = _rank_slices(config, tensor, expert)
     return {
-        n: torch.from_numpy(np.asarray(flat[n], np.float32)).to(
-            device=dev, dtype=dtype)
+        n: torch.from_numpy(np.array(cut[n](np.asarray(flat[n])),
+                                     np.float32)).to(device=dev, dtype=dtype)
         for n, (_, dtype) in want.items()
     }
 
@@ -157,22 +173,18 @@ def build_model(config: GPTConfig, params, device, *,
     state dict of tensors or arrays, moved and cast to each parameter's
     device and dtype; a missing or extra name raises). ``tensor=(rank,
     size)``: the model holds tensor rank ``rank``'s Megatron slices
-    (``parallel/sharding.leaf_specs``) and runs under a mesh context whose
-    tensor group has ``size`` ranks."""
-    from tpu_trainer_torch.parallel.sharding import leaf_specs, tensor_slice
-
+    (``parallel/sharding.leaf_specs``; a MoE layer's experts too) and runs
+    under a mesh context whose tensor group has ``size`` ranks."""
     model = GPT(config, device="meta")
     specs = dict(model.named_parameters())
     missing = set(specs) - set(params)
     if missing:
         raise ValueError(f"missing parameters {sorted(missing)}")
-    rank, size = tensor
-    split = leaf_specs({n: tuple(p.shape) for n, p in specs.items()},
-                       "replicated", 1, size)
+    cut = _rank_slices(config, tensor, (0, 1))
     for name, value in params.items():
         if name not in specs:
             raise ValueError(f"unexpected parameter {name!r}")
-        t = tensor_slice(torch.as_tensor(value), split[name], rank)
+        t = cut[name](torch.as_tensor(value))
         t = t.to(device=device, dtype=specs[name].dtype).contiguous()
         module, attr = name.rsplit(".", 1)
         model.get_submodule(module)._parameters[attr] = torch.nn.Parameter(

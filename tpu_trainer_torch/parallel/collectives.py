@@ -44,13 +44,14 @@ the recipe, and the backward gathers the parameter again when it needs
 it (``_Regather``), so no block runs its forward twice unless the config
 asks for remat.
 
-**Tensor and sequence parallelism.** ``Topology`` also holds the
-``tensor`` group (the ranks that differ only in their tensor coordinate)
-and the ``sequence`` group, and the Megatron pair as autograd functions
-over the tensor group: ``copy_to_tensor`` (identity forward, gradient
-summed over the group: before a column-parallel matmul) and
-``reduce_from_tensor`` (summed forward, identity backward: after a
-row-parallel matmul); ``gather_from_tensor`` / ``slice_to_tensor`` (a
+**Tensor, sequence and expert parallelism.** ``Topology`` also holds the
+``tensor`` group (the ranks that differ only in their tensor coordinate),
+the ``sequence`` group and the ``expert`` groups, and the Megatron pair
+as autograd functions over any of them: ``copy_to_tensor`` (identity
+forward, gradient summed over the group: before a column-parallel matmul,
+and before a MoE layer's local experts) and ``reduce_from_tensor``
+(summed forward, identity backward: after a row-parallel matmul, and
+after a MoE layer's combine); ``gather_from_tensor`` / ``slice_to_tensor`` (a
 hidden-sharded activation gathered, its gradient sliced; and the
 reverse); ``tensor_all_to_all`` (the tiled all-to-all that turns the
 embedding's ``[V, H/ts]`` hidden slice into a ``[V/ts, H]`` vocab slice,
@@ -61,7 +62,8 @@ over the sequence group (its backward the reverse permute,
 ``calls`` counts each kind of collective this process ran and the bytes
 it put on the wire (the card's ``dist`` phase reports them a step; the
 MoE layers' all-gathers of their routing counts, ``models/moe.py``,
-count as ``moe_counts``; the tensor-parallel ones as ``tp_allreduce``,
+count as ``moe_counts``, their sums over the expert and tensor ranks as
+``moe_allreduce``; the tensor-parallel ones as ``tp_allreduce``,
 ``tp_gather``, ``tp_alltoall`` and ``tp_max``, the ring's as
 ``ring_permute``), and ``regather_saved``, the saved tensors that
 autograd kept as a recipe.
@@ -256,31 +258,39 @@ class Collectives:
 
 
 class Topology:
-    """Rank ``r``'s place on a ``(data, fsdp, sequence, tensor)`` mesh
-    (row-major over ``mesh.MESH_AXES``, tensor innermost) and its groups,
-    each the ranks that share every coordinate but the named ones:
+    """Rank ``r``'s place on a ``(data, fsdp, sequence, tensor, expert)``
+    mesh (row-major over ``mesh.MESH_AXES``, expert innermost) and its
+    groups, each the ranks that share every coordinate but the named ones:
 
     - ``fsdp`` (varying fsdp: ZeRO shards over it), ``data`` (varying
       data: the replicas HYBRID_SHARD all-reduces over), ``dp`` (varying
       data and fsdp: the batch's data shards);
-    - ``tensor`` (Megatron's group) and ``sequence`` (the ring);
+    - ``tensor`` (Megatron's group), ``sequence`` (the ring) and
+      ``expert`` (the ranks that split a MoE layer's experts);
+      ``expert_tensor`` (varying tensor and expert: the ranks that share a
+      MoE layer's tokens and sum its output);
     - ``rep`` (varying data, fsdp and sequence: the ranks whose gradient
-      of a parameter they replicate is summed) and ``rep_data`` (varying
-      data and sequence: the same after the fsdp reduce-scatter).
+      of a parameter they replicate is summed; also the MoE routing group,
+      the ranks that hold distinct tokens) and ``rep_data`` (varying data
+      and sequence: the same after the fsdp reduce-scatter). Neither
+      varies tensor or expert: a leaf replicated there has the same
+      gradient on every such rank.
 
-    At sequence = tensor = 1, ``rep`` is ``dp`` and ``rep_data`` is
-    ``data``. Every rank creates every group, in one order."""
+    At sequence = tensor = expert = 1, ``rep`` is ``dp`` and ``rep_data``
+    is ``data``. Every rank creates every group, in one order."""
 
     def __init__(self, data: int, fsdp: int, sequence: int = 1,
-                 tensor: int = 1):
-        sizes = (data, fsdp, sequence, tensor)
+                 tensor: int = 1, expert: int = 1):
+        sizes = (data, fsdp, sequence, tensor, expert)
         world = math.prod(sizes)
         rank = mesh_lib.process_index()
         self.sizes = sizes
         self.data_size, self.fsdp_size = data, fsdp
         self.sequence_size, self.tensor_size = sequence, tensor
+        self.expert_size = expert
         (self.data_coord, self.fsdp_coord, self.sequence_coord,
-         self.tensor_coord) = mesh_lib.mesh_coords(sizes, rank)
+         self.tensor_coord, self.expert_coord) = mesh_lib.mesh_coords(
+            sizes, rank)
         timeout = mesh_lib.collective_timeout()
         made: Dict[tuple, object] = {}
 
@@ -305,7 +315,8 @@ class Topology:
                     continue        # not the first rank of its group
                 members = [q for q in range(world)
                            if all(mesh_lib.mesh_coords(sizes, q)[i] == c[i]
-                                  for i in range(4) if i not in varying)]
+                                  for i in range(len(sizes))
+                                  if i not in varying)]
                 g = group(members)
                 if rank in members:
                     mine = Collectives(g, members)
@@ -316,6 +327,8 @@ class Topology:
         self.dp = coll((0, 1))
         self.tensor = coll((3,))
         self.sequence = coll((2,))
+        self.expert = coll((4,))
+        self.expert_tensor = coll((3, 4))
         self.rep = coll((0, 1, 2))
         self.rep_data = coll((0, 2))
 
@@ -328,14 +341,14 @@ class Topology:
 _TOPOLOGIES: Dict[tuple, Topology] = {}
 
 
-def topology(data: int, fsdp: int, sequence: int = 1,
-             tensor: int = 1) -> Topology:
+def topology(data: int, fsdp: int, sequence: int = 1, tensor: int = 1,
+             expert: int = 1) -> Topology:
     """The ``Topology`` of this process group for the mesh, made once (a
     trainer rebuilt after a rollback reuses its groups; every rank
     rebuilds in step)."""
-    key = (data, fsdp, sequence, tensor, mesh_lib.process_count())
+    key = (data, fsdp, sequence, tensor, expert, mesh_lib.process_count())
     if key not in _TOPOLOGIES:
-        _TOPOLOGIES[key] = Topology(data, fsdp, sequence, tensor)
+        _TOPOLOGIES[key] = Topology(data, fsdp, sequence, tensor, expert)
     return _TOPOLOGIES[key]
 
 
@@ -343,24 +356,24 @@ def topology(data: int, fsdp: int, sequence: int = 1,
 
 class _CopyToTensor(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, coll: Collectives):
-        ctx.coll = coll
+    def forward(ctx, x, coll: Collectives, kind: str):
+        ctx.coll, ctx.kind = coll, kind
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
         return ctx.coll.all_reduce_sum(g.contiguous(),
-                                       kind="tp_allreduce"), None
+                                       kind=ctx.kind), None, None
 
 
 class _ReduceFromTensor(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, coll: Collectives):
-        return coll.all_reduce_sum(x.contiguous(), kind="tp_allreduce")
+    def forward(ctx, x, coll: Collectives, kind: str):
+        return coll.all_reduce_sum(x.contiguous(), kind=kind)
 
     @staticmethod
     def backward(ctx, g):
-        return g, None
+        return g, None, None
 
 
 def _own_slice(t: torch.Tensor, coll: Collectives, dim: int) -> torch.Tensor:
@@ -402,22 +415,24 @@ class _AllToAllTiled(torch.autograd.Function):
         return ctx.coll.all_to_all_untiled(g.contiguous()), None
 
 
-def copy_to_tensor(x: torch.Tensor, coll: Optional[Collectives]
-                   ) -> torch.Tensor:
+def copy_to_tensor(x: torch.Tensor, coll: Optional[Collectives],
+                   kind: str = "tp_allreduce") -> torch.Tensor:
     """Megatron's ``f``: ``x`` unchanged; its gradient summed over the
-    tensor group (the input of a column-parallel matmul)."""
+    group ``coll`` (the input of a column-parallel matmul; of a MoE
+    layer's local experts over the expert and tensor ranks)."""
     if coll is None or coll.world == 1:
         return x
-    return _CopyToTensor.apply(x, coll)
+    return _CopyToTensor.apply(x, coll, kind)
 
 
-def reduce_from_tensor(x: torch.Tensor, coll: Optional[Collectives]
-                       ) -> torch.Tensor:
-    """Megatron's ``g``: ``x`` summed over the tensor group in rank order;
-    the gradient unchanged (the output of a row-parallel matmul)."""
+def reduce_from_tensor(x: torch.Tensor, coll: Optional[Collectives],
+                       kind: str = "tp_allreduce") -> torch.Tensor:
+    """Megatron's ``g``: ``x`` summed over the group ``coll`` in rank
+    order; the gradient unchanged (the output of a row-parallel matmul; a
+    MoE layer's combine over the expert and tensor ranks)."""
     if coll is None or coll.world == 1:
         return x
-    return _ReduceFromTensor.apply(x, coll)
+    return _ReduceFromTensor.apply(x, coll, kind)
 
 
 def gather_from_tensor(x: torch.Tensor, coll: Optional[Collectives],

@@ -2,12 +2,13 @@
 of ``tpu_trainer/parallel/context.py``).
 
 The JAX package publishes its mesh while it traces a step, so the model's
-ops can ask what the ``tensor`` and ``sequence`` axes are. Eager PyTorch
-traces nothing: ``use_mesh(ctx)`` is a plain module-level scope around a
-forward (and the backward that runs inside it), and ``current_mesh()``
-returns its ``MeshContext`` or None. The scope holds the rank's
-coordinate and the two intra-layer groups; the data-parallel groups stay
-the trainer's.
+ops can ask what the ``tensor``, ``sequence`` and ``expert`` axes are.
+Eager PyTorch traces nothing: ``use_mesh(ctx)`` is a plain module-level
+scope around a forward (and the backward that runs inside it), and
+``current_mesh()`` returns its ``MeshContext`` or None. The scope holds
+the rank's coordinate and the intra-layer groups; the data-parallel
+groups stay the trainer's (and the MoE routing group the model's
+``moe_group``).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import dataclasses
 from typing import Optional
 
 from tpu_trainer_torch.parallel.mesh import (
+    EXPERT_AXIS,
     MESH_AXES,
     SEQUENCE_AXIS,
     TENSOR_AXIS,
@@ -29,13 +31,18 @@ class MeshContext:
     ``MESH_AXES``). ``tensor``: the ``Collectives`` of the ranks that
     share every coordinate but the tensor one (Megatron's group), None at
     size 1. ``sequence``: likewise along ``sequence``, and ``permute`` the
-    ring's permute over it (``collectives.SequencePermute``)."""
+    ring's permute over it (``collectives.SequencePermute``). ``expert``:
+    likewise along ``expert``; ``expert_tensor`` the ranks that vary in
+    their tensor and expert coordinates (a MoE layer's local experts sum
+    their output over it), None when both sizes are 1."""
 
     sizes: tuple
     coords: tuple
     tensor: Optional[object] = None
     sequence: Optional[object] = None
     permute: Optional[object] = None
+    expert: Optional[object] = None
+    expert_tensor: Optional[object] = None
 
     def _axis(self, name: str) -> int:
         return MESH_AXES.index(name)
@@ -55,6 +62,14 @@ class MeshContext:
     @property
     def sp_rank(self) -> int:
         return self.coords[self._axis(SEQUENCE_AXIS)]
+
+    @property
+    def ep(self) -> int:
+        return self.sizes[self._axis(EXPERT_AXIS)]
+
+    @property
+    def ep_rank(self) -> int:
+        return self.coords[self._axis(EXPERT_AXIS)]
 
 
 _ACTIVE: Optional[MeshContext] = None

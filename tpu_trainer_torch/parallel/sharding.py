@@ -1,4 +1,4 @@
-"""The placement rules (port of the data, fsdp and tensor part of
+"""The placement rules (port of the data, fsdp, tensor and expert part of
 ``tpu_trainer/parallel/sharding.py``).
 
 The reference's strategies map onto which state a rank holds whole and
@@ -26,10 +26,16 @@ embedding its hidden dim; in every strategy, when the tensor size divides
 that dim. The fsdp dim is then the largest divisible dim that is not the
 tensor dim (the JAX ``_leaf_spec`` order). Rank ``t`` of the tensor axis
 holds slice ``t`` of the tensor dim, and its fsdp slice is of that.
-The expert rules sit in the table as in the JAX package; MoE under a
-tensor axis is refused by the trainer (``ROADMAP Queue 1: pipeline and
-expert parallelism``). The stage branch belongs to an axis this port does
-not run yet (``parallel/mesh.check_ported``).
+
+**Expert parallelism**: the stacked expert leaves (``experts_gate`` /
+``experts_up`` ``[L, E, H, I]``, ``experts_down`` ``[L, E, I, H]``) shard
+their expert dim (``ndim - 3``) over the ``expert`` axis when its size
+divides ``E`` (``expert_dim``, the JAX ``_expert_dim``), and their FFN dim
+over ``tensor`` by the table; the router stays replicated. The order is
+the JAX ``_leaf_spec``'s: expert, tensor, then fsdp over the dims left.
+Rank ``x`` of the expert axis holds experts ``[x E / ep, (x + 1) E /
+ep)``. The stage branch belongs to an axis this port does not run yet
+(``parallel/mesh.check_ported``).
 """
 
 from __future__ import annotations
@@ -37,7 +43,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List, Optional, Tuple
 
-from tpu_trainer_torch.parallel.mesh import FSDP_AXIS, TENSOR_AXIS
+from tpu_trainer_torch.parallel.mesh import EXPERT_AXIS, FSDP_AXIS, TENSOR_AXIS
 
 # Megatron-style tensor-parallel placement by parameter-name suffix (the
 # JAX table): column-parallel shards the output dim (last), row-parallel
@@ -90,15 +96,27 @@ def tensor_dim(name: str, shape, tensor_size: int) -> Optional[int]:
     return None
 
 
-def fsdp_dim(shape, fsdp_size: int,
-             exclude: Optional[int] = None) -> Optional[int]:
+def expert_dim(name: str, shape, expert_size: int) -> Optional[int]:
+    """The dim of parameter ``name`` that the expert axis shards, or None
+    (the JAX ``_expert_dim``): an ``experts_*`` leaf's ``ndim - 3`` when
+    ``expert_size`` divides it."""
+    if (expert_size <= 1 or len(shape) < 3
+            or not name.split(".")[-1].startswith("experts_")):
+        return None
+    d = len(shape) - 3
+    return d if shape[d] % expert_size == 0 else None
+
+
+def fsdp_dim(shape, fsdp_size: int, exclude=None) -> Optional[int]:
     """The dim the FSDP rule shards, or None (replicated); ``exclude`` is
-    a dim already taken by the tensor axis."""
+    a dim (or a collection of dims) the expert and tensor axes took."""
     if fsdp_size <= 1:
         return None
+    taken = (set() if exclude is None else {exclude}
+             if isinstance(exclude, int) else set(exclude))
     best = None
     for i, d in enumerate(shape):
-        if i != exclude and d % fsdp_size == 0 and d >= fsdp_size:
+        if i not in taken and d % fsdp_size == 0 and d >= fsdp_size:
             if best is None or d >= shape[best]:
                 best = i
     return best
@@ -117,11 +135,11 @@ def fsdp_spec(shape, fsdp_size: int) -> Tuple[Optional[str], ...]:
 @dataclasses.dataclass(frozen=True)
 class LeafSpec:
     """Where one leaf is split: ``tensor_dim`` over the tensor axis (size
-    ``tensor``; params, grads and moments alike, every strategy),
-    ``param_dim`` over fsdp for the master parameter (ZeRO-3),
-    ``state_dim`` over fsdp for its gradient and Adam moments (ZeRO-2 and
-    ZeRO-3); None is whole. ``shape`` is the global shape; ``world`` is
-    the fsdp size."""
+    ``tensor``) and ``expert_dim`` over the expert axis (size ``expert``;
+    params, grads and moments alike, every strategy), ``param_dim`` over
+    fsdp for the master parameter (ZeRO-3), ``state_dim`` over fsdp for
+    its gradient and Adam moments (ZeRO-2 and ZeRO-3); None is whole.
+    ``shape`` is the global shape; ``world`` is the fsdp size."""
 
     shape: tuple
     param_dim: Optional[int]
@@ -129,11 +147,15 @@ class LeafSpec:
     world: int
     tensor_dim: Optional[int] = None
     tensor: int = 1
+    expert_dim: Optional[int] = None
+    expert: int = 1
 
     @property
     def tp_shape(self) -> tuple:
-        """A tensor rank's shape of the leaf (before any fsdp split)."""
-        return tuple(n // self.tensor if i == self.tensor_dim else n
+        """A rank's shape of the leaf before any fsdp split: its tensor
+        and expert slices."""
+        return tuple(n // self.tensor if i == self.tensor_dim
+                     else n // self.expert if i == self.expert_dim else n
                      for i, n in enumerate(self.shape))
 
     def shard_shape(self, dim: Optional[int]) -> tuple:
@@ -146,6 +168,8 @@ class LeafSpec:
         """The JAX ``PartitionSpec`` of the leaf with fsdp dim ``dim``, as
         ``tuple(P(...))`` gives it (``()`` when replicated)."""
         axes = [None] * len(self.shape)
+        if self.expert_dim is not None:
+            axes[self.expert_dim] = EXPERT_AXIS
         if self.tensor_dim is not None:
             axes[self.tensor_dim] = TENSOR_AXIS
         if dim is not None:
@@ -154,30 +178,51 @@ class LeafSpec:
 
 
 def leaf_specs(shapes: Dict[str, tuple], strategy: str,
-               fsdp_size: int, tensor_size: int = 1
+               fsdp_size: int, tensor_size: int = 1, expert_size: int = 1
                ) -> Dict[str, LeafSpec]:
     """The per-leaf split of params, grads and moments under ``strategy``
-    (reference or canonical spelling) on an fsdp axis of ``fsdp_size`` and
-    a tensor axis of ``tensor_size``: the tensor dim by ``tensor_dim`` in
-    every strategy; then params shard over fsdp under zero3 only, grads
+    (reference or canonical spelling) on an fsdp axis of ``fsdp_size``, a
+    tensor axis of ``tensor_size`` and an expert axis of ``expert_size``:
+    the expert dim by ``expert_dim`` and the tensor dim by ``tensor_dim``
+    in every strategy; then params shard over fsdp under zero3 only, grads
     and moments under zero2 and zero3, every one by ``fsdp_dim`` over the
-    dims the tensor axis left."""
+    dims the expert and tensor axes left."""
     strategy = canonical_strategy(strategy)
     out = {}
     for name, shape in shapes.items():
+        e = expert_dim(name, shape, expert_size)
         t = tensor_dim(name, shape, tensor_size)
-        d = (fsdp_dim(shape, fsdp_size, exclude=t)
+        if t == e:
+            t = None
+        d = (fsdp_dim(shape, fsdp_size, exclude={e, t} - {None})
              if strategy in ("zero2", "zero3") else None)
         out[name] = LeafSpec(tuple(shape), d if strategy == "zero3" else None,
-                             d, fsdp_size, t, tensor_size)
+                             d, fsdp_size, t, tensor_size, e, expert_size)
     return out
+
+
+def _slice(arr, dim: Optional[int], size: int, rank: int):
+    if dim is None:
+        return arr
+    k = arr.shape[dim] // size
+    return arr[(slice(None),) * dim + (slice(rank * k, (rank + 1) * k),)]
 
 
 def tensor_slice(arr, spec: LeafSpec, rank: int):
     """Tensor rank ``rank``'s slice of a global leaf ``arr`` (numpy or
     torch); the leaf itself when the tensor axis does not shard it."""
-    d = spec.tensor_dim
-    if d is None:
-        return arr
-    k = arr.shape[d] // spec.tensor
-    return arr[(slice(None),) * d + (slice(rank * k, (rank + 1) * k),)]
+    return _slice(arr, spec.tensor_dim, spec.tensor, rank)
+
+
+def expert_slice(arr, spec: LeafSpec, rank: int):
+    """Expert rank ``rank``'s slice of a leaf ``arr`` (its experts); the
+    leaf itself when the expert axis does not shard it."""
+    return _slice(arr, spec.expert_dim, spec.expert, rank)
+
+
+def local_slice(arr, spec: LeafSpec, tensor_rank: int = 0,
+                expert_rank: int = 0):
+    """A rank's slice of a global leaf before any fsdp split: its experts,
+    and of them its tensor slice."""
+    return tensor_slice(expert_slice(arr, spec, expert_rank), spec,
+                        tensor_rank)

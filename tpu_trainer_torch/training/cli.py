@@ -17,8 +17,10 @@ exists is kept; a group this process joined is left when the run returns).
 The mesh is ``--mesh_data`` x ``--mesh_fsdp`` (ddp: every process on data;
 fsdp: every process on fsdp; ``HYBRID_SHARD`` needs both flags) x
 ``--mesh_sequence`` (the ring: each rank runs a slice of every sequence) x
-``--mesh_tensor`` (Megatron tensor parallelism); each process loads its
-own rows (``Trainer.data_feed_rank``; the ranks along sequence and tensor
+``--mesh_tensor`` (Megatron tensor parallelism) x ``--mesh_expert`` (a MoE
+model's experts split over the ranks, as ``configs/moe_small.yaml``'s
+``--mesh_data 2 --mesh_expert 4``); each process loads its own rows
+(``Trainer.data_feed_rank``; the ranks along sequence, tensor and expert
 load the same rows),
 rank 0 alone prints and writes the logs, checkpoints take the two-phase
 commit, and ``check_hosts_in_sync`` runs with the finite-loss guard.
@@ -904,7 +906,9 @@ def _run_training(argv, mode: str, owned: dict) -> int:
               + (f", sequence x tensor = {trainer.mesh_sizes[2]} x "
                  f"{trainer.mesh_sizes[3]}"
                  if trainer.mesh_sizes[2] * trainer.mesh_sizes[3] > 1
-                 else "") + " | model: "
+                 else "")
+              + (f", expert = {trainer.mesh_sizes[4]}"
+                 if trainer.mesh_sizes[4] > 1 else "") + " | model: "
               f"{model_config.num_parameters():,} params | batch "
               f"{training_config.gradient_accumulation_steps} x "
               f"{training_config.batch_size} seqs x "
@@ -913,7 +917,8 @@ def _run_training(argv, mode: str, owned: dict) -> int:
               f"{training_config.optimizer_state_dtype}"
               + (f", offloaded as {parallel_config.offload_dtype}"
                  if trainer.cpu_offload else "")
-              + (f" | MoE: {moe_lib.describe(model_config)}"
+              + (f" | MoE: {moe_lib.describe(model_config,
+                                             trainer.mesh_sizes[4])}"
                  if model_config.num_experts > 0 else ""), flush=True)
     if main and trainer.cpu_offload and trainer.offload_resident_bytes:
         print(f"partial offload: "

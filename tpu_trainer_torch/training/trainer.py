@@ -102,11 +102,19 @@ the replicated leaves' once. The mesh is entered as
 ``parallel/context.use_mesh`` around every forward and backward.
 ``fused_projections`` is turned off under ``tensor`` (the JAX trainer's
 rule); ``num_heads`` and ``kv_heads`` must divide by the tensor size and
-``max_seq_len`` by the sequence size. Knobs that do not compose yet
-raise naming their ROADMAP entry: MoE under ``tensor`` or ``sequence``,
-int8 moments (on the device or offloaded) and telemetry steps under
-``tensor``. bf16 moments, f32/bf16 offload and remat take a tensor shard
-as they take a ZeRO shard.
+``max_seq_len`` by the sequence size. Narrow and offloaded moments, remat
+and telemetry steps take a tensor shard as they take a ZeRO shard.
+
+**Expert axis** (``mesh.expert``, innermost). A MoE model's expert leaves
+shard their expert dim over it (``parallel/sharding.py``); everything
+else is replicated there, and the ranks along it read the same rows.
+Each MoE layer routes the global micro-batch over ``Topology.rep`` (the
+ranks that hold distinct tokens: data, fsdp and sequence), runs the
+rank's local experts and sums the output over the expert and tensor
+ranks (``models/moe.py``), so a replicated leaf's gradient is the same
+on every expert rank and is summed over ``rep`` alone, as under tensor;
+an expert leaf's is the rank's slice. The checks are the JAX trainer's:
+an expert axis above 1 needs ``num_experts > 0`` dividing by it.
 
 The moments' narrow forms and the offload hold on a shard too: a rank's
 moments are its slice, int8 packs of a slice of a leaf's last dim keep
@@ -116,10 +124,11 @@ pack, so it restores at any world size), ``offload_budget_gb`` is per
 device (a kept leaf costs its shard's bytes), and the offloaded update
 streams the rank's slices. A telemetry step's numbers are the global
 batch's and the global leaves' (``utils/telemetry.combine_ranks``: one
-all-gather of the activation and router stats over every rank and one of
-the norms' shard sums over the fsdp group a step), and ``nan_scan`` scans
-micro-batch 0 of the global batch, every rank reporting the earliest site
-that is non-finite on any rank.
+all-gather of the activation and router stats over the ranks that hold
+distinct tokens, and one all-reduce of the norms' shard sums over each
+of the fsdp, tensor and expert groups that split a leaf), and
+``nan_scan`` scans micro-batch 0 of the global batch, every rank
+reporting the earliest site that is non-finite on any rank.
 """
 
 from __future__ import annotations
@@ -145,7 +154,7 @@ from tpu_trainer_torch.parallel.sharding import (
     canonical_strategy,
     fsdp_dim,
     leaf_specs,
-    tensor_slice,
+    local_slice,
 )
 from tpu_trainer_torch.training.config import TrainingConfig
 from tpu_trainer_torch.training.optimizer import (
@@ -215,10 +224,10 @@ def select_resident_moments(moments: Dict[tuple, torch.Tensor],
 class ParallelConfig:
     """The JAX ``ParallelConfig``: the process mesh and the strategy.
 
-    ``mesh`` carves the processes into ``data x fsdp`` (``-1`` = the rest;
-    the other axes raise above 1). ``sharding_strategy`` is the fsdp CLI's
-    choice (reference spellings allowed); at one process every strategy is
-    the same step.
+    ``mesh`` carves the processes into ``data x fsdp x sequence x tensor
+    x expert`` (``-1`` = the rest; the stage axis raises above 1).
+    ``sharding_strategy`` is the fsdp CLI's choice (reference spellings
+    allowed); at one process every strategy is the same step.
     ``cpu_offload`` keeps Adam's moments in pinned host memory and streams
     them through each update; ``offload_dtype`` is their host storage
     ("float32" keeps the step bitwise the on-device one, "bfloat16" halves
@@ -285,11 +294,11 @@ def _shard_of(arr: np.ndarray, dim: Optional[int], index: int,
 @dataclasses.dataclass(frozen=True)
 class StateSharding:
     """Which slice of each leaf a rank holds at world > 1: ``specs``
-    (``parallel/sharding.leaf_specs``), the rank's fsdp, tensor and
-    sequence coordinates, and whether it writes checkpoint shards (the
+    (``parallel/sharding.leaf_specs``), the rank's fsdp, tensor, expert
+    and sequence coordinates, and whether it writes checkpoint shards (the
     ranks of data and sequence coordinate 0 hold every element once; of
-    them fsdp rank 0 writes what fsdp does not split and tensor rank 0
-    what tensor does not split)."""
+    them, for each of the fsdp, tensor and expert axes that does not split
+    a leaf, its rank 0 writes)."""
 
     specs: Dict[str, LeafSpec]
     fsdp_rank: int
@@ -298,6 +307,8 @@ class StateSharding:
     tensor_rank: int = 0
     tensor: int = 1                   # the tensor size
     seq_coord: int = 0
+    expert_rank: int = 0
+    expert: int = 1                   # the expert size
 
     def _spec(self, key: str) -> Tuple[LeafSpec, bool]:
         prefix, _, path = key.partition("/")
@@ -314,9 +325,14 @@ class StateSharding:
         spec, param = self._spec(key)
         return spec.param_dim if param else spec.state_dim
 
-    def tensor_dim(self, key: str) -> Optional[int]:
-        """The tensor-sharded dim of checkpoint key ``key``."""
-        return self._spec(key)[0].tensor_dim
+    def axes(self, key: str) -> list:
+        """``(dim, rank, size)`` of the fsdp, tensor and expert axes for
+        checkpoint key ``key``: the dim each splits (None: it does not)
+        and this rank's coordinate and the size along it."""
+        spec = self._spec(key)[0]
+        return [(self.dim(key), self.fsdp_rank, self.world),
+                (spec.tensor_dim, self.tensor_rank, self.tensor),
+                (spec.expert_dim, self.expert_rank, self.expert)]
 
 
 @dataclasses.dataclass
@@ -354,15 +370,15 @@ class TrainState:
                 for prefix, tree in self._trees() for name, m in tree.items()
                 if isinstance(m, QuantPack) and m.cut is not None}
 
-    def _dim(self, key: str) -> Optional[int]:
-        return None if self.sharding is None else self.sharding.dim(key)
+    def _axes(self, key: str) -> list:
+        """``StateSharding.axes`` of ``key`` (none at one process)."""
+        return [] if self.sharding is None else self.sharding.axes(key)
 
-    def _tdim(self, key: str) -> Optional[int]:
-        return (None if self.sharding is None
-                else self.sharding.tensor_dim(key))
-
-    def _world(self, key: str) -> int:
-        return 1 if self._dim(key) is None else self.sharding.world
+    def _lead(self, key: str, ndim: int) -> list:
+        """The axes of ``key`` that split one of its first ``ndim`` dims
+        (a cut pack's leading dims)."""
+        return [(d, r, n) for d, r, n in self._axes(key)
+                if d is not None and d < ndim]
 
     def layout(self) -> Dict[str, tuple]:
         """Checkpoint key -> ``(global shape, numpy dtype)`` of every
@@ -371,15 +387,12 @@ class TrainState:
         out = {}
         for k, t in self._targets().items():
             shape = list(t.shape)
-            d = self._dim(k)
-            if d is not None:
-                shape[d] *= self._world(k)
-            td = self._tdim(k)
-            if td is not None:
-                shape[td] *= self.sharding.tensor
+            for d, _, n in self._axes(k):
+                if d is not None:
+                    shape[d] *= n
             out[k] = (tuple(shape), _array_dtype(t))
         for k, m in self._cut_packs().items():
-            qs, ss = cut_global_shapes(m)
+            qs, ss = cut_global_shapes(m, out[f"{k}/q"][0][:-2])
             out[f"{k}/q"] = (qs, out[f"{k}/q"][1])
             out[f"{k}/scale"] = (ss, out[f"{k}/scale"][1])
         return out
@@ -428,35 +441,39 @@ class TrainState:
         write_sharded = sh is None or (sh.data_coord == 0
                                        and sh.seq_coord == 0)
         write_whole = sh is None or (write_sharded and sh.fsdp_rank == 0
-                                     and sh.tensor_rank == 0)
+                                     and sh.tensor_rank == 0
+                                     and sh.expert_rank == 0)
         layout = self.layout()
+
+        def place(key, arr):
+            """This rank's ``arr``'s starts in the global array, and
+            whether it writes them (one rank of its replicas)."""
+            starts, mine = [0] * arr.ndim, write_sharded
+            for d, r, n in self._axes(key):
+                if d is not None:
+                    starts[d] = r * arr.shape[d]
+                else:
+                    mine = mine and r == 0
+            return starts, mine
+
         out = []
         for prefix, tree in self._trees():
             for name, m in tree.items():
                 key = f"{prefix}/{name.replace('.', '/')}"
                 if isinstance(m, QuantPack) and m.cut is not None:
                     arrs = _moment_arrays(key, m)
+                    starts, mine = place(f"{key}/q", arrs[f"{key}/q"])
                     boxes = cut_boxes(arrs[f"{key}/q"], arrs[f"{key}/scale"],
-                                      m.cut)
+                                      m.cut, starts[:-2])
                     for k, b in zip(("q", "scale"), boxes):
                         k = f"{key}/{k}"
                         out.append({"key": k, "global_shape": layout[k][0],
                                     "dtype": str(arrs[k].dtype),
                                     "shards": [(s, a.copy()) for s, a in b]
-                                    if write_sharded else []})
+                                    if mine else []})
                     continue
                 for k, arr in _moment_arrays(key, m).items():
-                    d, td = self._dim(k), self._tdim(k)
-                    starts = [0] * arr.ndim
-                    mine = write_sharded
-                    if d is not None:
-                        starts[d] = sh.fsdp_rank * arr.shape[d]
-                    elif sh is not None:
-                        mine = mine and sh.fsdp_rank == 0
-                    if td is not None:
-                        starts[td] = sh.tensor_rank * arr.shape[td]
-                    elif sh is not None:
-                        mine = mine and sh.tensor_rank == 0
+                    starts, mine = place(k, arr)
                     out.append({"key": k, "global_shape": layout[k][0],
                                 "dtype": str(arr.dtype),
                                 "shards": [(tuple(starts), arr)] if mine
@@ -488,8 +505,12 @@ class TrainState:
         self._sync()
         cuts = {}
         for k, m in self._cut_packs().items():
-            q, sc = cut_from_global(np.asarray(sd[f"{k}/q"]),
-                                    np.asarray(sd[f"{k}/scale"]), m.cut)
+            q_all, s_all = (np.asarray(sd[f"{k}/q"]),
+                            np.asarray(sd[f"{k}/scale"]))
+            for d, r, n in self._lead(f"{k}/q", q_all.ndim - 2):
+                q_all = _shard_of(q_all, d, r, n)
+                s_all = _shard_of(s_all, d, r, n)
+            q, sc = cut_from_global(q_all, s_all, m.cut)
             cuts.update({f"{k}/q": q, f"{k}/scale": sc})
         with torch.no_grad():
             layout = self.layout()
@@ -500,13 +521,9 @@ class TrainState:
                                      f"{layout[key][0]}")
                 if key in cuts:
                     arr = cuts[key]
-                elif self.sharding is not None:
-                    arr = _shard_of(arr, self._tdim(key),
-                                    self.sharding.tensor_rank,
-                                    self.sharding.tensor)
-                    arr = _shard_of(arr, self._dim(key),
-                                    self.sharding.fsdp_rank,
-                                    self._world(key))
+                else:
+                    for d, r, n in self._axes(key):
+                        arr = _shard_of(arr, d, r, n)
                 if tuple(arr.shape) != tuple(t.shape):
                     raise ValueError(f"{key}: shape {arr.shape}, want "
                                      f"{tuple(t.shape)}")
@@ -579,15 +596,21 @@ class Trainer:
         self.offload_stream_bytes = 0
 
     def _check_intra_layer(self, parallel_config: ParallelConfig) -> None:
-        """The tensor and sequence axes' rules (the JAX trainer's errors;
-        ``fused_projections`` turned off under tensor) and the knobs that
-        do not compose with them yet."""
+        """The sequence, expert and tensor axes' rules (the JAX trainer's
+        errors; ``fused_projections`` turned off under tensor)."""
         cfg = self.model_config
         tc = self.training_config
-        seq, tensor = self.mesh_sizes[2:4]
+        seq, tensor, expert = self.mesh_sizes[2:5]
         if seq > 1 and tc.max_seq_len % seq != 0:
             raise ValueError(f"max_seq_len {tc.max_seq_len} not divisible "
                              f"by sequence axis size {seq}")
+        if expert > 1:
+            if cfg.num_experts <= 0:
+                raise ValueError("expert mesh axis > 1 requires a MoE model "
+                                 "(GPTConfig.num_experts > 0)")
+            if cfg.num_experts % expert != 0:
+                raise ValueError(f"num_experts {cfg.num_experts} not "
+                                 f"divisible by expert axis size {expert}")
         if tensor > 1:
             if cfg.num_heads % tensor != 0:
                 raise ValueError(f"num_heads {cfg.num_heads} not divisible "
@@ -600,48 +623,46 @@ class Trainer:
             if cfg.fused_projections:
                 self.model_config = dataclasses.replace(
                     cfg, fused_projections=False)
-        later = []
-        if cfg.num_experts > 0 and (tensor > 1 or seq > 1):
-            later.append("MoE under a tensor or sequence axis -> ROADMAP "
-                         "Queue 1: pipeline and expert parallelism")
-        if tensor > 1 and (tc.optimizer_state_dtype == "int8" or (
-                parallel_config.cpu_offload
-                and parallel_config.offload_dtype == "int8")):
-            later.append("int8 Adam moments under a tensor axis -> ROADMAP "
-                         "Queue 1: tensor-parallel leftovers (int8 moments "
-                         "on a tensor shard)")
-        if later:
-            raise NotImplementedError("not ported yet: " + "; ".join(later))
 
     def _init_mesh(self, parallel_config: ParallelConfig) -> None:
         """The rank surface and, at world > 1, the groups, the per-leaf
-        split, the model's ZeRO-3 gather and data shard, and the mesh
-        context of the tensor and sequence axes."""
+        split, the model's ZeRO-3 gather, data shard and MoE routing
+        group, and the mesh context of the sequence, tensor and expert
+        axes."""
         self.strategy = canonical_strategy(parallel_config.sharding_strategy)
-        data, fsdp, seq, tensor = self.mesh_sizes[:4]
+        data, fsdp, seq, tensor, expert = self.mesh_sizes[:5]
         shapes = {n: tuple(p.shape) for n, p in self.model.named_parameters()}
-        self.specs = leaf_specs(shapes, self.strategy, fsdp, tensor)
+        self.specs = leaf_specs(shapes, self.strategy, fsdp, tensor, expert)
         self.topology = None
         self.mesh_context = None
         self._cuts: Dict[str, BlockCut] = {}
         if self.process_count == 1:
             return
-        self.topology = topo = coll_lib.topology(data, fsdp, seq, tensor)
+        self.topology = topo = coll_lib.topology(data, fsdp, seq, tensor,
+                                                 expert)
         self.mesh_context = ctx_lib.MeshContext(
             sizes=self.mesh_sizes,
             coords=mesh_lib.mesh_coords(self.mesh_sizes, self.process_index),
             tensor=topo.tensor if tensor > 1 else None,
             sequence=topo.sequence if seq > 1 else None,
             permute=(coll_lib.SequencePermute(topo.sequence) if seq > 1
-                     else None))
+                     else None),
+            expert=topo.expert if expert > 1 else None,
+            expert_tensor=(topo.expert_tensor if tensor * expert > 1
+                           else None))
         for n, sp in self.specs.items():
-            d = sp.state_dim
-            if d is not None and d == len(sp.shape) - 1:
-                full = sp.tp_shape[d]
-                k = full // fsdp
-                r = topo.fsdp.rank
-                self._cuts[n] = BlockCut(r * k, (r + 1) * k, full,
-                                         group=topo.fsdp)
+            # A slice of a leaf's last dim (int8 blocks run along it): the
+            # fsdp shard's, else the tensor slice's.
+            last = len(sp.shape) - 1
+            if sp.state_dim is not None and sp.state_dim == last:
+                group, size, r = topo.fsdp, fsdp, topo.fsdp.rank
+            elif sp.tensor_dim is not None and sp.tensor_dim == last:
+                group, size, r = topo.tensor, tensor, topo.tensor_coord
+            else:
+                continue
+            full = sp.shape[last]
+            k = full // size
+            self._cuts[n] = BlockCut(r * k, (r + 1) * k, full, group=group)
         if self.strategy == "zero3":
             self.model.zero3 = coll_lib.ZeroGather(
                 self.topology.fsdp,
@@ -649,7 +670,7 @@ class Trainer:
                  if s.param_dim is not None})
         self.model.data_shard = (self.topology.dp_rank, self.dp_size)
         if self.model_config.num_experts > 0:
-            self.model.moe_group = self.topology.dp
+            self.model.moe_group = self.topology.rep
 
     # -- the rank surface (the reference's rank / world_size) ---------------
 
@@ -702,8 +723,20 @@ class Trainer:
 
     def _sharded(self) -> bool:
         return self.topology is not None and any(
-            s.state_dim is not None or s.tensor_dim is not None
-            for s in self.specs.values())
+            self._shard_axes(n) for n in self.specs)
+
+    def _shard_axes(self, name: str, param: bool = False) -> tuple:
+        """The axes of which this rank holds a slice of ``name``'s
+        gradient, update and moments (``param``: its master), among
+        ``fsdp``, ``tensor`` and ``expert`` (empty at one process)."""
+        if self.topology is None:
+            return ()
+        sp = self.specs[name]
+        d = sp.param_dim if param else sp.state_dim
+        return tuple(ax for ax, on in (("fsdp", d is not None),
+                                       ("tensor", sp.tensor_dim is not None),
+                                       ("expert", sp.expert_dim is not None))
+                     if on)
 
     def _state_shapes(self) -> Dict[str, tuple]:
         """This rank's shape of every moment leaf (its slice under zero2
@@ -870,8 +903,9 @@ class Trainer:
             world = self.topology.fsdp.world
             masters = {}
             for n in self.specs:           # the model's parameter order
-                t = tensor_slice(torch.as_tensor(params[n]).detach(),
-                                 self.specs[n], self.topology.tensor_coord)
+                t = local_slice(torch.as_tensor(params[n]).detach(),
+                                self.specs[n], self.topology.tensor_coord,
+                                self.topology.expert_coord)
                 d = self.specs[n].param_dim
                 if d is not None:
                     t = t.narrow(d, fr * (t.shape[d] // world),
@@ -888,7 +922,8 @@ class Trainer:
             sharding = StateSharding(
                 self.specs, fr, self.topology.data_coord, world,
                 self.topology.tensor_coord, self.topology.tensor_size,
-                self.topology.sequence_coord)
+                self.topology.sequence_coord, self.topology.expert_coord,
+                self.topology.expert_size)
         return TrainState(
             step=0, params=masters, opt_state=opt_state,
             generator=torch.Generator().manual_seed(seed),
@@ -1021,11 +1056,6 @@ class Trainer:
         ``utils/telemetry.DeferredFetcher``. ``telemetry=True`` adds the
         ``"telemetry"`` subtree of device tensors (module docstring); the
         update, the loss and the generator are the plain step's."""
-        if telemetry and self.mesh_sizes[3] > 1:
-            raise NotImplementedError(
-                "not ported yet: telemetry steps under a tensor axis -> "
-                "ROADMAP Queue 1: tensor-parallel leftovers (telemetry "
-                "norms on a tensor shard)")
         with ctx_lib.use_mesh(self.mesh_context):
             return self._train_step(state, batch, telemetry, sync)
 
@@ -1080,14 +1110,15 @@ class Trainer:
                                                         self.topology.rep)
             telem = dict(fwd_stats[0] if accum == 1
                          else telemetry_lib.reduce_micro(fwd_stats))
-            norms = [telemetry_lib.GroupNorms(sharded=self._state_sharded),
-                     telemetry_lib.GroupNorms(sharded=self._param_sharded)]
+            norms = [telemetry_lib.GroupNorms(sharded=self._shard_axes),
+                     telemetry_lib.GroupNorms(sharded=lambda n: (
+                         self._shard_axes(n, param=True)))]
             for n, g in grads.items():
                 norms[0].add(n, g)
             for n, p in state.params.items():
                 norms[1].add(n, p)
             update_norms = telemetry_lib.GroupNorms(
-                sharded=self._state_sharded)
+                sharded=self._shard_axes)
         on_update = update_norms.add if update_norms is not None else None
         finite = (not self.use_loss_scaling
                   or bool(torch.isfinite(grad_norm)))
@@ -1109,10 +1140,14 @@ class Trainer:
                 state.loss_scale = max(state.loss_scale * 0.5, 1.0)
                 state.good_steps = 0
         if telem is not None:
-            # The shards' sums of all three over the fsdp group at once.
+            # The shards' sums of all three over the groups that split
+            # them, a collective a group.
+            topo = self.topology
             grad_n, param_n, upd = telemetry_lib.combine_norms(
                 norms + [update_norms],
-                None if self.topology is None else self.topology.fsdp)
+                None if topo is None else {"fsdp": topo.fsdp,
+                                           "tensor": topo.tensor,
+                                           "expert": topo.expert})
             telem["grad_norm"], telem["param_norm"] = grad_n, param_n
             # A skipped fp16 step changes nothing: zero update norms.
             if not finite:
@@ -1149,35 +1184,30 @@ class Trainer:
             out[n] = g
         return out, topo.rep.all_reduce_sum(loss_sum)
 
-    def _state_sharded(self, name: str) -> bool:
-        """Does this rank hold a slice of ``name``'s gradient, update and
-        moments?"""
-        return self.topology is not None and (
-            self.specs[name].state_dim is not None)
-
-    def _param_sharded(self, name: str) -> bool:
-        """Does this rank hold a slice of ``name``'s master (zero3)?"""
-        return self.topology is not None and (
-            self.specs[name].param_dim is not None)
-
     def _global_norm(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
         """The norm over the whole gradient: with sharded leaves, the
         shards' sums of squares all-reduced over the groups that shard
-        them (fsdp, then tensor), plus the whole leaves' once."""
+        them (fsdp, then tensor, then expert), plus the whole leaves'
+        once."""
         if not self._sharded():
             return global_norm(grads.values())
         zero = torch.zeros((), device=self.device)
+        sums: Dict[tuple, torch.Tensor] = {}
+        for n, g in grads.items():
+            key = self._shard_axes(n)
+            sq = g.float().square().sum()
+            sums[key] = sums[key] + sq if key in sums else sq
 
-        def sq(fsdp: bool, tensor: bool):
-            return sum((g.float().square().sum() for n, g in grads.items()
-                        if (self.specs[n].state_dim is not None) == fsdp
-                        and (self.specs[n].tensor_dim is not None)
-                        == tensor), zero)
-        both, fsdp_only = self.topology.fsdp.all_reduce_sum(
-            torch.stack([sq(True, True), sq(True, False)]))
-        tensor_sq = self.topology.tensor.all_reduce_sum(both
-                                                        + sq(False, True))
-        return torch.sqrt(tensor_sq + fsdp_only + sq(False, False))
+        def sq(*axes):
+            return sums.get(axes, zero)
+        topo = self.topology
+        fte, ft, fe, f = topo.fsdp.all_reduce_sum(torch.stack([
+            sq("fsdp", "tensor", "expert"), sq("fsdp", "tensor"),
+            sq("fsdp", "expert"), sq("fsdp")]))
+        te, t = topo.tensor.all_reduce_sum(torch.stack([
+            fte + sq("tensor", "expert"), ft + sq("tensor")]))
+        e = topo.expert.all_reduce_sum(te + fe + sq("expert"))
+        return torch.sqrt(e + t + f + sq())
 
     @torch.no_grad()
     def _sharded_update(self, state: TrainState, grads, lr: float,

@@ -16,7 +16,9 @@ Two consumers with the same numerics:
 and the scales match the JAX package bit for bit.
 
 **A rank's slice of a leaf** (ZeRO-2/3 at world > 1, whose shard may cut a
-leaf's last dim): the blocks stay the whole leaf's (``BlockCut``). Rank
+leaf's last dim, or a tensor axis, whose Megatron slice of a
+column-parallel kernel is of its last dim): the blocks stay the whole
+leaf's (``BlockCut``, over the group that cuts that dim). Rank
 ``r`` holds elements ``[lo, hi)`` of the last dim ``d``; its pack holds
 every block of ``quant_block_len(d)`` those elements touch, the elements
 outside ``[lo, hi)`` padded with zeros (which move no absmax). A block that
@@ -171,24 +173,28 @@ def dequantize_blockwise_int8(pack: QuantPack, shape, dtype, *,
     return y.reshape(shape).to(dtype)
 
 
-def cut_global_shapes(pack: QuantPack) -> tuple:
+def cut_global_shapes(pack: QuantPack, lead_shape=None) -> tuple:
     """``(q shape, scale shape)`` of the one-process pack a cut pack is a
-    slice of."""
+    slice of; ``lead_shape`` is the whole leaf's leading dims (default:
+    the pack's own, when no other axis slices them)."""
     cut = pack.cut
     nb = cut.d // cut.block
-    lead = tuple(pack.q.shape[:-2])
+    lead = tuple(pack.q.shape[:-2] if lead_shape is None else lead_shape)
     return lead + (nb, cut.block), lead + (nb,)
 
 
-def cut_boxes(q, scale, cut: BlockCut):
+def cut_boxes(q, scale, cut: BlockCut, lead=None):
     """Where a rank's cut pack (host arrays ``q [..., n, B]``, ``scale
     [..., n]``) lies in the one-process pack: ``(q boxes, scale boxes)``,
     each a list of ``(starts, array)`` whose boxes of all ranks tile the
     global arrays once. ``q``: the elements the rank holds (a partial
     block at either end, the whole blocks between); ``scale``: the blocks
     that start inside ``[lo, hi)`` (a shared block's scale, the same on
-    every rank, is written by the rank that holds its start)."""
-    B, lead = cut.block, (0,) * (q.ndim - 2)
+    every rank, is written by the rank that holds its start). ``lead``:
+    the starts of the rank's slice of the leading dims (default zeros:
+    they are whole)."""
+    B = cut.block
+    lead = tuple(lead) if lead is not None else (0,) * (q.ndim - 2)
     boxes = []
     i, n = 0, q.shape[-2]
     while i < n:

@@ -120,13 +120,14 @@ class GroupNorms:
     each leaf as its optimizer applies it, so the update norms need no
     copy of the whole parameter tree.
 
-    ``sharded`` names a leaf of which this rank holds a slice (ZeRO at
-    world > 1): its sums are kept apart, and ``combine_norms`` adds every
-    rank's before the roots."""
+    ``sharded(name)`` names the axes of which this rank holds a slice of
+    a leaf (at world > 1: a tuple among ``"fsdp"``, ``"tensor"`` and
+    ``"expert"``; empty: whole): its sums are kept apart by those axes,
+    and ``combine_norms`` adds every rank's over them before the roots."""
 
     def __init__(self, stacked_key: str = "layers", sharded=None):
         self.stacked_key = stacked_key
-        self.sharded = sharded or (lambda name: False)
+        self.sharded = sharded or (lambda name: ())
         self._acc: Dict[str, torch.Tensor] = {}
         self._shard_acc: Dict[str, torch.Tensor] = {}
 
@@ -140,7 +141,11 @@ class GroupNorms:
                           dim=tuple(range(1, leaf.dim())))
         else:
             s = torch.sum(torch.square(leaf))
-        acc = self._shard_acc if self.sharded(name) else self._acc
+        axes = self.sharded(name)
+        if axes:
+            acc, group = self._shard_acc, (axes, group)
+        else:
+            acc = self._acc
         prev = acc.get(group)
         acc[group] = s if prev is None else prev + s
 
@@ -149,30 +154,38 @@ class GroupNorms:
         return {k: torch.sqrt(v) for k, v in self._acc.items()}
 
 
+_SHARD_AXES = ("fsdp", "tensor", "expert")
+
+
 @torch.no_grad()
-def combine_norms(norms: List[GroupNorms], coll) -> List[Dict[str,
-                                                           torch.Tensor]]:
+def combine_norms(norms: List[GroupNorms], colls) -> List[Dict[str,
+                                                            torch.Tensor]]:
     """The norms of the whole leaves, from ``GroupNorms`` fed this rank's
-    slices: every accumulator's shard sums added over ``coll`` (the fsdp
-    group's ``Collectives``) in one collective, then the whole leaves'
-    sums, then the roots. Without shard sums no collective runs."""
-    keys = [(i, k) for i, g in enumerate(norms) for k in g._shard_acc]
-    summed = {}
-    if keys and coll is not None and coll.world > 1:
-        parts = [norms[i]._shard_acc[k].reshape(-1) for i, k in keys]
+    slices: every accumulator's shard sums added over the groups that
+    split them, then the whole leaves' sums, then the roots. ``colls``
+    (None at one process) maps ``fsdp``, ``tensor`` and ``expert`` to
+    their ``Collectives``; the sums are added over them in that order,
+    one collective an axis. Without shard sums no collective runs."""
+    summed = {(i, k): v for i, g in enumerate(norms)
+              for k, v in g._shard_acc.items()}
+    for ax in _SHARD_AXES if colls is not None else ():
+        coll = colls[ax]
+        # (i, (axes, group)): the entries split along ``ax``.
+        keys = [key for key in summed if ax in key[1][0]]
+        if not keys or coll is None or coll.world == 1:
+            continue
+        parts = [summed[key].reshape(-1) for key in keys]
         flat = coll.all_reduce_sum(torch.cat(parts))
         at = 0
-        for (i, k), p in zip(keys, parts):
-            summed[(i, k)] = flat[at:at + p.numel()].reshape(
-                norms[i]._shard_acc[k].shape)
+        for key, p in zip(keys, parts):
+            summed[key] = flat[at:at + p.numel()].reshape(summed[key].shape)
             at += p.numel()
-    else:
-        summed = {(i, k): norms[i]._shard_acc[k] for i, k in keys}
     out = []
     for i, g in enumerate(norms):
         acc = dict(g._acc)
-        for k in g._shard_acc:
-            acc[k] = summed[(i, k)] + acc[k] if k in acc else summed[(i, k)]
+        for key in g._shard_acc:
+            v, k = summed[(i, key)], key[1]
+            acc[k] = v + acc[k] if k in acc else v
         out.append({k: torch.sqrt(v) for k, v in acc.items()})
     return out
 
