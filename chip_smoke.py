@@ -35,21 +35,23 @@ JAX package. Phases, each fatal on failure:
               time goes: device busy share and the top kernels and host
               ops of a short trace under ``torch.profiler``.
 5. int8    -- a short ``kv_int8=True`` run of the same engine, same checks.
-5a. spec   -- speculative decoding at that width (random weights, max
-              batch 8, block 16, K = 4) on 24 requests whose prompts
-              repeat a motif. Parity lane in f32: n-gram, draft (2 of 12
-              layers) and an oracle proposer (the spec-off stream, one
-              draft a window wrong) against spec off, greedy: streams
-              equal (a differing token only at a tie, printed), drafts
-              accepted, flash-decode launches == the target's plain
-              decodes x 12 + the draft's decode dispatches x 2, a live
+5a. spec   -- speculative decoding at that width, 4 of its 12 layers
+              (random weights, max batch 8, block 16, K = 4) on 24
+              requests whose prompts repeat a motif. Parity lane in f32:
+              n-gram, draft (2 of the 4 layers) and an oracle proposer
+              (the spec-off stream, one draft a window wrong) against
+              spec off, greedy: streams equal (a differing token only at
+              a tie, printed), drafts accepted, flash-decode launches ==
+              the target's plain decodes x 4 + the draft's decode
+              dispatches x 2, a live
               draft decode call against the plain version; a verifier
               accepting one draft past the first mismatch must fail.
               Speed lane in bf16 on the wall clock, spec off, n-gram and
               draft: tok/s, TTFT, TPOT, acceptance, the accepted-per-step
               histogram and the ledger fractions; a sampled n-gram run
               (temperature 0.9, top-k 20) replayed identically.
-5b. kv-store -- the KV block store at that width, bf16 and int8 pools, on
+5b. kv-store -- the KV block store at that width (4 layers), bf16 and
+              int8 pools, on
               a shared-prefix trace (16 requests, a 2-block prefix): a
               warm engine publishes, a cold engine sharing only the store
               fills from it (every filled block bitwise the store entry,
@@ -189,7 +191,7 @@ JAX package. Phases, each fatal on failure:
               ``params.npz`` in f32 compute, whose greedy tokens must be
               equal (a differing token only at a top-2 tie).
 18. remat   -- ``train_ddp --config configs/large_1b_single_chip.yaml``
-              at 4 of its 36 layers (hidden 1280, batch 4 x 1024, full
+              at 2 of its 36 layers (hidden 1280, batch 4 x 1024, full
               remat, bf16 Adam moments) on the cli phase's corpus, 6
               steps with a save at step 3; the same command in a fresh
               process resumes from step 3, and step 6's state (params, the
@@ -204,7 +206,7 @@ JAX package. Phases, each fatal on failure:
               each, and the device busy share and top kernels of two
               profiled trainer steps.
 19. offload -- ``train_fsdp --config configs/medium_model.yaml`` cut to
-              4 of its 24 layers (FULL_SHARD at one process, remat on,
+              2 of its 24 layers (FULL_SHARD at one process, remat on,
               batch 8 x
               4 x 1024, dummy data), 3 steps on the card and with the Adam
               moments in pinned host memory as float32, bfloat16, int8 and
@@ -218,13 +220,14 @@ JAX package. Phases, each fatal on failure:
               a layer a micro-batch (3 forward, 3 recompute, 3 dgrad),
               tgmm 3.
 21. moe-capacity -- the capacity router, the JAX default
-              (``phase_moe_capacity``): ``configs/moe_small.yaml`` at 4
+              (``phase_moe_capacity``): ``configs/moe_small.yaml`` at 2
               of its 12 layers through ``train_ddp`` (3 steps, a restart
               at step 2 in a fresh process, bitwise; a telemetry step's
               per-layer
               drop_frac; tok/s and MFU on the active parameters);
               ``infer.py`` on its checkpoint twice, bitwise; bench.py
-              --moe's capacity lane (top-2, einsum) and the same model
+              --moe's capacity lane (top-2, einsum; 6 of its 12 layers)
+              and the same model
               with gather dispatch, 10 steps each plus a profile, losses
               within ``MOE_DISPATCH_LOSS_RTOL``, queue positions bitwise a
               plain loop's; one layer in bf16 against the f32 layer, the
@@ -253,14 +256,14 @@ JAX package. Phases, each fatal on failure:
               process that joins its group as a launcher would (a file
               rendezvous, two ranks sharing ``cuda:0`` over gloo, every
               collective bounded by ``COORDINATOR_TIMEOUT_S``) and then
-              calls the CLI: ``small_model.yaml`` (4 of its 12
+              calls the CLI: ``small_model.yaml`` (2 of its 12
               layers) through ``train_ddp`` at
               world 1 in an NCCL process group, bitwise the run without
               one; DDP at world 2 (dropout 0, a rank batch 4) bitwise one
               process at accumulation 2 (losses, grad norms, final masters
               and moments), launches exact on each rank, and a planted
               fault (rank 1's gradients scaled) rejected;
-              ``medium_model.yaml`` (4 layers) through ``train_fsdp
+              ``medium_model.yaml`` (2 layers) through ``train_fsdp
               --sharding
               FULL_SHARD`` and ``SHARD_GRAD_OP`` at world 2 (3 steps):
               losses bitwise one process's, grad norms within
@@ -330,26 +333,45 @@ JAX package. Phases, each fatal on failure:
               the final state bitwise a replay of the same segments;
               ``hang_host`` caught by the heartbeat timeout; a planted
               supervisor that blames every stale host rejected.
+26. pipeline -- pipeline parallelism (``phase_pipeline``, ranks sharing
+              the card over gloo): ``train_ddp`` on small_model.yaml at
+              all 12 layers (dropout 0, batch 8 x 1024) with
+              ``--mesh_stage 4 --pipeline_microbatches 8`` under 1F1B, 3
+              steps, against one process on the same batch (losses within
+              ``DIST_LOSS_RTOL``, every final master and moment within
+              ``PIPE_STATE_L2`` relative L2, a swapped-halves control
+              rejected); GPipe, 1F1B and interleaved at stage 2 (4 layers,
+              M 8, dropout 0.1, the same masks) against each other, within
+              2x run A's readings; the
+              1F1B window planted one below the JAX simulation's, which
+              every rank must refuse; every rank's launches the
+              schedule's; a rank's step ms, ``pp_send`` bytes and receive
+              wait a step, the most microbatches in flight and its peak.
 
 Every phase runs at full depth except these, cut so that the whole run
 stays well inside its time and its machine's 45 GiB of disk writes: the
 cli phase's dropless-MoE run, moe-remat, the ft phase's MoE telemetry run,
 the dist phase's MoE group and the expert runs and the moe-capacity
 phase's CLI run (moe_small.yaml at 2 layers), the offload phase and the
-dist phase's ZeRO and offload runs (medium_model.yaml at 4 layers), the
-remat phase (large_1b_single_chip.yaml at 4 layers), the dist phase's
-small_model.yaml runs (4 layers), the world-rest phase, the elastic
-phase and the mesh-ranks phase (small_model.yaml at 2 layers).
+dist phase's ZeRO and offload runs (medium_model.yaml at 2 layers), the
+remat phase (large_1b_single_chip.yaml at 2 layers), the dist phase's
+small_model.yaml runs (2 layers), the world-rest phase, the elastic
+phase and the mesh-ranks phase (small_model.yaml at 2 layers), the
+spec and kv-store phases and the pipeline phase's three schedules (4
+layers) and the moe-capacity phase's dispatch bench (6 layers).
 
 The phases run one after another in the order above, except that the
-world-rest, elastic and mesh-ranks phases run one after the other in a
-process of their own (``_beside``) while the ft phase runs, before the
-dist phase, which runs last; and the ft phase runs its chain of
-restarted processes on a thread beside its own sections that time
-nothing. Those processes share the host's cores and the card, so the
-restart times the ft phase prints, the world-rest and mesh-ranks phases'
-step times and the elastic phase's recovery and grow seconds are taken
-beside that work. The whole run takes about seventeen minutes on an
+world-rest and elastic phases run one after the other in a process of
+their own (``_beside``) while the ft phase runs, before the dist phase;
+the ft phase runs its chain of restarted processes on a thread beside
+its own sections that time nothing; and the pipeline phase's runs start
+as the dist phase's expert runs end and the mesh-ranks phase's as the
+pipeline's end, each beside the earlier runs' checks (which read states
+on the host); the mesh-ranks phase runs last. Those processes share
+the host's cores and the card, so the restart times the ft phase
+prints, the world-rest, mesh-ranks and pipeline phases' step times and
+the elastic phase's recovery and grow seconds are taken beside that
+work. The whole run takes about seventeen minutes on an
 H100 (700 W), builds included.
 
 Then the ``kernels`` JSON line, the nvidia-smi line, and as the last line
@@ -362,6 +384,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -1680,29 +1703,8 @@ MESH_LOSS_RTOL = 1e-4
 MESH_STATE_L2 = 0.03
 
 
-def phase_mesh_ranks(results: dict, tmp: str) -> dict:
-    """Tensor and sequence parallelism across processes on the one card
-    (ranks sharing ``cuda:0`` over gloo, each a fresh process that joins
-    its group and calls ``train_ddp``, as the dist phase's): one process,
-    ``--mesh_tensor 2``, ``--mesh_sequence 2`` and ``--mesh_tensor 2
-    --mesh_sequence 2`` (4 ranks), all started together, each
-    ``small_model.yaml`` at 2 of its 12 layers (dropout 0, batch 8 x 1024,
-    accumulation 1, 3 steps and one eval micro-batch). Each run against
-    the one-process run: losses within ``MESH_LOSS_RTOL``, each final
-    master and moment within ``MESH_STATE_L2`` relative L2 (a control with
-    one moment's halves swapped must fail), a rank's launches exact
-    (``_mesh_launches``: the ring's schedule under sequence, no head + CE
-    under tensor); a rank's step ms, its collectives' calls and bytes a
-    step, and its parameter bytes at rest (under tensor the sharded leaves
-    at half). Ranks time-slicing one card measure no multi-GPU speed."""
-    import numpy as np
-
-    from tpu_trainer_torch.models.gpt import GPT
-    from tpu_trainer_torch.parallel.sharding import leaf_specs
-    from tpu_trainer_torch.training import cli
-
-    phase = "mesh-ranks"
-    t0 = time.perf_counter()
+def _mesh_ranks_spawn(tmp: str) -> dict:
+    """Start the mesh-ranks phase's runs together (``phase_mesh_ranks``)."""
     yaml = _cut_yaml(tmp, "small_model.yaml", "mesh", num_layers=2,
                      dropout=0.0, attention_dropout=0.0)
     steps, rows = 3, 8
@@ -1723,9 +1725,42 @@ def phase_mesh_ranks(results: dict, tmp: str) -> dict:
     args = {tag: argv(tag, *(["--mesh_tensor", str(tp)] if tp > 1 else [])
                       + (["--mesh_sequence", str(sp)] if sp > 1 else []))
             for tag, (_, sp, tp) in runs.items()}
+    t0 = time.perf_counter()
     spawned = [(tag, _dist_spawn(tmp, f"mesh_{tag}", "ddp", args[tag], w))
                for tag, (w, _, _) in runs.items()]
-    recs = _dist_join_all(spawned)
+    return {"t0": t0, "steps": steps, "rows": rows, "runs": runs,
+            "args": args, "spawned": spawned}
+
+
+def phase_mesh_ranks(results: dict, tmp: str, started=None) -> dict:
+    """Tensor and sequence parallelism across processes on the one card
+    (ranks sharing ``cuda:0`` over gloo, each a fresh process that joins
+    its group and calls ``train_ddp``, as the dist phase's): one process,
+    ``--mesh_tensor 2``, ``--mesh_sequence 2`` and ``--mesh_tensor 2
+    --mesh_sequence 2`` (4 ranks), all started together, each
+    ``small_model.yaml`` at 2 of its 12 layers (dropout 0, batch 8 x 1024,
+    accumulation 1, 3 steps and one eval micro-batch). Each run against
+    the one-process run: losses within ``MESH_LOSS_RTOL``, each final
+    master and moment within ``MESH_STATE_L2`` relative L2 (a control with
+    one moment's halves swapped must fail), a rank's launches exact
+    (``_mesh_launches``: the ring's schedule under sequence, no head + CE
+    under tensor); a rank's step ms, its collectives' calls and bytes a
+    step, and its parameter bytes at rest (under tensor the sharded leaves
+    at half). Ranks time-slicing one card measure no multi-GPU speed.
+    ``started``: the runs' ``_mesh_ranks_spawn``, when the caller started
+    them earlier (the whole script starts them as the pipeline phase's
+    runs end, beside that phase's checks)."""
+    import numpy as np
+
+    from tpu_trainer_torch.models.gpt import GPT
+    from tpu_trainer_torch.parallel.sharding import leaf_specs
+    from tpu_trainer_torch.training import cli
+
+    phase = "mesh-ranks"
+    st = started or _mesh_ranks_spawn(tmp)
+    t0, steps, rows, runs, args = (st["t0"], st["steps"], st["rows"],
+                                   st["runs"], st["args"])
+    recs = _dist_join_all(st["spawned"])
     group_s = time.perf_counter() - t0
     cfg = cli.resolve_configs(cli.build_parser("ddp").parse_args(
         args["one"]), "ddp")[0]
@@ -3025,12 +3060,13 @@ def _plant_over_accept():
 
 
 def phase_spec(results: dict) -> dict:
-    """Speculative decoding at GPT-2 small's width (random weights, max
-    batch 8, block 16) on a repetitive trace. Parity lane (f32): n-gram,
-    draft (2 of 12 layers) and an oracle proposer (the spec-off stream
-    with one draft a window wrong) greedy streams equal spec off (ties
-    allowed, printed), drafts accepted, decode launches exact (the
-    target's plain decodes x 12 + the draft's decode dispatches x 2), a
+    """Speculative decoding at GPT-2 small's width, 4 of its 12 layers
+    (random weights, max batch 8, block 16) on a repetitive trace. Parity
+    lane (f32): n-gram, draft (2 of the 4 layers) and an oracle proposer
+    (the spec-off stream with one draft a window wrong) greedy streams
+    equal spec off (ties allowed, printed), drafts accepted, decode
+    launches exact (the target's plain decodes x 4 + the draft's decode
+    dispatches x 2), a
     live draft decode call against the plain version, and a verifier
     accepting one draft past the first mismatch rejected (on the oracle's
     windows, which always hold a mismatch). Speed lane (bf16): the same trace
@@ -3048,8 +3084,9 @@ def phase_spec(results: dict) -> dict:
     total_launches = 0
     errs = []
     for lane, dtype in (("parity", "float32"), ("speed", "bfloat16")):
-        cfg = GPTConfig.gpt2_small(dropout=0.0, attention_dropout=0.0,
-                                   dtype=dtype, param_dtype="float32")
+        cfg = dataclasses.replace(GPTConfig.gpt2_small(
+            dropout=0.0, attention_dropout=0.0, dtype=dtype,
+            param_dtype="float32"), num_layers=4)
         params = init_params(cfg, seed=0, device="cuda")
         dparams, dcfg = draft_from_target(params, cfg, 2)
         judge = _TieJudge(params, cfg) if lane == "parity" else None
@@ -3082,8 +3119,8 @@ def phase_spec(results: dict) -> dict:
                 raise AssertionError(
                     f"{phase}: {lane} {kind}: flash_decode launches "
                     f"{launches}, want {res['want']} (plain decodes "
-                    f"{res['plain_decodes']} x 12 + draft decodes "
-                    f"{res['draft_decodes']} x 2)")
+                    f"{res['plain_decodes']} x {cfg.num_layers} + draft "
+                    f"decodes {res['draft_decodes']} x 2)")
             if len(got) != len(reqs) or any(
                     len(got[r.rid]) != r.max_new_tokens for r in reqs):
                 raise AssertionError(f"{phase}: {lane} {kind}: a request "
@@ -3209,7 +3246,8 @@ def _ttft_ms(params, cfg, store, prompt, kw) -> float:
 
 
 def phase_kv_store(results: dict) -> dict:
-    """The KV block store at GPT-2 small's width, bf16 and int8 pools, on
+    """The KV block store at GPT-2 small's width (4 of its 12 layers),
+    bf16 and int8 pools, on
     a shared-prefix trace (16 requests, a 2-block prefix, greedy): a warm
     engine publishes to the store; a cold engine sharing only the store
     fills from it, every filled block bitwise the store entry, its
@@ -3229,8 +3267,9 @@ def phase_kv_store(results: dict) -> dict:
     card = nvidia_smi_line()
     rec = {"nvidia_smi": card, "lanes": {}}
     total = 0
-    cfg = GPTConfig.gpt2_small(dropout=0.0, attention_dropout=0.0,
-                               dtype="bfloat16", param_dtype="float32")
+    cfg = dataclasses.replace(GPTConfig.gpt2_small(
+        dropout=0.0, attention_dropout=0.0, dtype="bfloat16",
+        param_dtype="float32"), num_layers=4)
     params = init_params(cfg, seed=0, device="cuda")
     judge = _TieJudge(params, cfg)
     vocab = cfg.vocab_size
@@ -3967,7 +4006,7 @@ def _naive_remat(self, x, p, step):
 
 def phase_remat(results: dict, tmp: str) -> dict:
     """The 1B-on-one-card recipe: ``train_ddp --config
-    configs/large_1b_single_chip.yaml`` at its full width and 4 of its 36
+    configs/large_1b_single_chip.yaml`` at its full width and 2 of its 36
     layers, the rest of its model and training sections unchanged (hidden
     1280, 20 heads of 64, vocab 50257, batch 4 x 1024, full remat, bf16
     Adam moments, dropout 0.1) on
@@ -3990,7 +4029,7 @@ def phase_remat(results: dict, tmp: str) -> dict:
 
     card = nvidia_smi_line()
     corpus = os.path.join(tmp, "stories.txt")
-    large = _cut_yaml(tmp, "large_1b_single_chip.yaml", "l4", num_layers=4)
+    large = _cut_yaml(tmp, "large_1b_single_chip.yaml", "l2", num_layers=2)
     argv = ["--config", large, "--dataset", "tinystories", "--data_path",
             corpus, "--tokenizer", "byte", "--log_interval", "1",
             "--eval_batches", "1", "--eval_interval", "0",
@@ -4000,7 +4039,7 @@ def phase_remat(results: dict, tmp: str) -> dict:
     cfg, tc, _, _ = cli.resolve_configs(cli.build_parser().parse_args(argv))
     if not (cfg.gradient_checkpointing and cfg.remat_policy == "full"
             and tc.optimizer_state_dtype == "bfloat16"
-            and cfg.num_layers == 4 and cfg.hidden_size == 1280):
+            and cfg.num_layers == 2 and cfg.hidden_size == 1280):
         raise AssertionError(f"remat: {large} resolved to {cfg}, {tc}")
     log("remat", f"{os.path.basename(large)}: {cfg.num_parameters():,} "
                  f"params, batch {tc.gradient_accumulation_steps} x "
@@ -4195,7 +4234,7 @@ def _fsdp_run(phase: str, argv: list) -> dict:
 
 def phase_offload(results: dict, tmp: str) -> dict:
     """``train_fsdp --config configs/medium_model.yaml`` at its full width
-    and 4 of its 24 layers (hidden 1024, 16 heads, batch 8 x 4 x 1024,
+    and 2 of its 24 layers (hidden 1024, 16 heads, batch 8 x 4 x 1024,
     FULL_SHARD at
     one process, remat on by default, its dummy data), 3 steps on the
     card and with the Adam moments offloaded to pinned host memory in
@@ -4212,7 +4251,7 @@ def phase_offload(results: dict, tmp: str) -> dict:
     from tpu_trainer_torch.training.trainer import select_resident_moments
 
     card = nvidia_smi_line()
-    medium = _cut_yaml(tmp, "medium_model.yaml", "l4", num_layers=4)
+    medium = _cut_yaml(tmp, "medium_model.yaml", "l2", num_layers=2)
     base = ["--config", medium, "--max_steps", "3", "--log_interval", "1",
             "--eval_interval", "0", "--eval_batches", "1", "--num_batches",
             "4", "--no_auto_resume"]
@@ -4230,7 +4269,7 @@ def phase_offload(results: dict, tmp: str) -> dict:
         if run["launches"] != want:
             raise AssertionError(f"offload: {name} launches "
                                  f"{run['launches']}, want {want}")
-        if not (cfg.gradient_checkpointing and cfg.num_layers == 4
+        if not (cfg.gradient_checkpointing and cfg.num_layers == 2
                 and par.sharding_strategy == "FULL_SHARD"):
             raise AssertionError(f"offload: {medium} resolved to {cfg}, "
                                  f"{par}")
@@ -4537,8 +4576,9 @@ def phase_moe_capacity(results: dict, tmp: str) -> dict:
         a fresh process, which resumes from step 2 and must end bitwise;
         launches exact (no grouped matmul); windowed tok/s, MFU on the
         active parameters, and the telemetry step's per-layer drop_frac;
-    (b) bench.py --moe's capacity lane (GPT-2 small, 8 experts, top-2,
-        z-loss 1e-3, einsum dispatch; batch 8 x 1024, dropout 0.1) and
+    (b) bench.py --moe's capacity lane (GPT-2 small's width at 6 of its
+        12 layers, 8 experts, top-2, z-loss 1e-3, einsum dispatch; batch
+        8 x 1024, dropout 0.1) and
         the same model with gather dispatch, each 10 steps on bench's
         skewed stream and two profiled steps: step ms, busy share,
         launches, top device kernels; losses within
@@ -4674,8 +4714,9 @@ def phase_moe_capacity(results: dict, tmp: str) -> dict:
     # (b) bench.py --moe's capacity lane, einsum and gather.
     t0 = time.perf_counter()
     steps = 10
-    lane = _small_config(num_experts=8, moe_top_k=2, moe_impl="capacity",
-                         moe_dispatch="einsum", router_z_weight=1e-3)
+    lane = dataclasses.replace(_small_config(
+        num_experts=8, moe_top_k=2, moe_impl="capacity",
+        moe_dispatch="einsum", router_z_weight=1e-3), num_layers=6)
     rng = np.random.default_rng(23)
     host = [rng.integers(0, 4, (8, 1024), dtype=np.int32)
             for _ in range(steps + 2)]
@@ -5562,12 +5603,22 @@ def _dist_child(mode: str, argv: list, out: str, fault_rank=None,
     nothing: each records the state's ``_state_digests``), ``moe_calls``
     (the capacity layer calls whose drop fraction is kept, the first
     step's layers; default 1); every telemetry record and ``nan_scan``
-    report of this rank is kept, and each step's ``collectives.calls``.
-    Written to ``out`` (a rank's own file)."""
+    report of this rank is kept, and each step's ``collectives.calls``
+    (and under a stage axis its ``Trainer.pipeline_stats``: bytes sent, the
+    seconds waited on receives, the most microbatches in flight);
+    ``window_delta`` plants a fault: the pipeline's simulated window
+    changed by that much. Written to ``out`` (a rank's own file)."""
     extra = extra or {}
     argv = list(argv) + list(extra.get("argv", []))
     if extra.get("plant"):
         _plant_nan(*extra["plant"])
+    from tpu_trainer_torch.parallel import pipeline as pipeline_lib
+
+    if extra.get("window_delta"):
+        # A planted fault: the 1F1B window off the JAX simulation's.
+        sim = pipeline_lib.window
+        pipeline_lib.window = (lambda *a, d=extra["window_delta"]:
+                               sim(*a) + d)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     import importlib
@@ -5583,7 +5634,7 @@ def _dist_child(mode: str, argv: list, out: str, fault_rank=None,
             num_processes=world, process_id=rank, backend=backend,
             init_method=f"file://{store}", device="cuda")
     seen = {"step_ms": [], "rest": [], "telemetry": [], "nan": [],
-            "digests": [], "step_calls": []}
+            "digests": [], "step_calls": [], "pipeline": []}
 
     def at_rest(state):
         torch.cuda.synchronize()
@@ -5621,6 +5672,9 @@ def _dist_child(mode: str, argv: list, out: str, fault_rank=None,
         seen["step_calls"].append({
             k: v - before.get(k, 0) for k, v in collectives.calls.items()
             if v != before.get(k, 0)})
+        if self.schedule is not None:
+            seen["pipeline"].append(dataclasses.asdict(
+                self.pipeline_stats))
         if "telemetry" in result[1]:
             from tpu_trainer_torch.utils import telemetry
 
@@ -5689,22 +5743,81 @@ def _dist_spawn(tmp: str, tag: str, mode: str, argv: list, world: int, *,
     procs = []
     store = os.path.join(tmp, f"store_{tag}")
     extra = extra or {}
+    ctx = _rank_context()
+    import chip_smoke      # the target by this module's name, not __main__'s
+
     for r in range(max(world, 1)):
         out = os.path.join(tmp, f"dist_{tag}_{r}.json")
-        e = dict(os.environ, COORDINATOR_TIMEOUT_S="120", LOCAL_RANK="0")
+        env = dict(os.environ, COORDINATOR_TIMEOUT_S="120", LOCAL_RANK="0")
         group = (backend, store, r, world) if world else None
         mine = {**extra.get(None, {}), **extra.get(r, {})}
-        code = ("import chip_smoke; chip_smoke._dist_child("
-                f"{mode!r}, {argv!r}, {out!r}, {fault_rank!r}, {group!r}, "
-                f"{offsets_fault_rank!r}, {mine!r})")
-        # Output to files, not pipes: a rank blocked on a full pipe would
-        # stall its peers' collectives while another run is joined.
-        with open(out + ".stdout", "w") as so, \
-                open(out + ".stderr", "w") as se:
-            procs.append((out, subprocess.Popen(
-                [sys.executable, "-c", code], cwd=ROOT, env=e, stdout=so,
-                stderr=se)))
+        proc = ctx.Process(target=chip_smoke._rank_main, args=(
+            env, out, (mode, argv, out, fault_rank, group,
+                       offsets_fault_rank, mine)))
+        proc.start()
+        procs.append((out, _Rank(proc)))
     return procs
+
+
+@functools.lru_cache(maxsize=None)
+def _rank_context():
+    """The ``forkserver`` context that starts the ranks of ``_dist_spawn``:
+    its server imports torch and the port once (it touches no CUDA), and
+    every rank forks from it, a fresh process that skips the imports (up
+    to ~15 s each when a group's ranks start together on the host's 8
+    cores; the ft phase's restarts, whose cost it measures, stay whole
+    interpreters). A script that runs phases with ranks must keep its own
+    top level under ``if __name__ == "__main__"``: each rank imports the
+    main script."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("forkserver")
+    ctx.set_forkserver_preload([
+        "chip_smoke", "torch.distributed",
+        "tpu_trainer_torch.training.train_ddp",
+        "tpu_trainer_torch.training.train_fsdp"])
+    return ctx
+
+
+def _rank_main(env: dict, out: str, args: tuple) -> None:
+    """A rank of ``_dist_spawn`` in its forked process: the caller's
+    environment, its output to ``out``'s ``.stdout`` / ``.stderr`` files (files, not
+    pipes: a rank blocked on a full pipe would stall its peers'
+    collectives while another run is joined), then ``_dist_child``."""
+    os.environ.update(env)
+    for fd, suffix in ((1, ".stdout"), (2, ".stderr")):
+        f = os.open(out + suffix, os.O_WRONLY | os.O_CREAT | os.O_TRUNC,
+                    0o644)
+        os.dup2(f, fd)
+        os.close(f)
+    sys.stdout = open(1, "w", buffering=1, closefd=False)
+    sys.stderr = open(2, "w", buffering=1, closefd=False)
+    _dist_child(*args)
+
+
+class _Rank:
+    """A ``multiprocessing.Process`` with the part of ``subprocess.Popen``
+    that the phases use: ``wait``, ``poll``, ``kill``, ``returncode``."""
+
+    def __init__(self, proc):
+        self.proc = proc
+
+    @property
+    def returncode(self):
+        return self.proc.exitcode
+
+    def poll(self):
+        return self.proc.exitcode
+
+    def wait(self, timeout=None):
+        self.proc.join(timeout)
+        if self.proc.exitcode is None:
+            raise subprocess.TimeoutExpired(f"rank {self.proc.pid}",
+                                            timeout)
+        return self.proc.exitcode
+
+    def kill(self):
+        self.proc.kill()
 
 
 def _dist_join_all(spawned: list, timeout: int = 300) -> dict:
@@ -5877,7 +5990,8 @@ def phase_expert(results: dict, tmp: str) -> dict:
     return out
 
 
-def _dist_moe(tmp, argv, want, check_launches, launches, card) -> dict:
+def _dist_moe(tmp, argv, want, check_launches, launches, card,
+              then=None) -> dict:
     """Group 3 of the dist phase: MoE across processes, both routers, on
     moe_small's width cut to 2 layers and capacity factor 0.5, 3 steps of
     a global micro-batch of 4 x 1024 (accumulation 1): one process and
@@ -5924,7 +6038,7 @@ def _dist_moe(tmp, argv, want, check_launches, launches, card) -> dict:
                                launches, card, group_s)
         out["expert"] = _dist_expert(
             tmp, argv, yamls, out.pop("one_states"), recs, want,
-            check_launches, launches, card, started=expert)
+            check_launches, launches, card, started=expert, then=then)
     except BaseException:
         _kill_spawned(expert[3])
         raise
@@ -6148,7 +6262,8 @@ def _kill_spawned(spawned) -> None:
 
 
 def _dist_expert(tmp, argv, yamls, one_states, one_recs, want,
-                 check_launches, launches, card, started=None) -> dict:
+                 check_launches, launches, card, started=None,
+                 then=None) -> dict:
     """The expert phase, after the dist phase's MoE group, whose
     one-process runs (moe_small's width at 2 layers, capacity factor 0.5,
     dropout 0, a global micro-batch of 4 x 1024, 3 steps) it is held
@@ -6176,7 +6291,9 @@ def _dist_expert(tmp, argv, yamls, one_states, one_recs, want,
     bytes a step, its step ms and peak. ``started``: the runs'
     ``_expert_spawn``, when the caller started them earlier (the dist
     phase starts them as soon as its MoE group's runs end, and holds that
-    group meanwhile)."""
+    group meanwhile); ``then``: called as the runs end, before their
+    checks (the whole script starts the pipeline and mesh-ranks runs
+    there)."""
     import numpy as np
 
     from tpu_trainer_torch.parallel.sharding import fsdp_dim
@@ -6186,6 +6303,8 @@ def _dist_expert(tmp, argv, yamls, one_states, one_recs, want,
     L = 2
     recs = _dist_join_all(spawned)
     group_s = time.perf_counter() - t0
+    if then is not None:
+        then()
     reading = {tag: _background(lambda tag=tag: _dist_state(os.path.join(
         tmp, f"ck_{tag}", "step_00000003"))) for tag in ("ep_a", "ep_b")}
 
@@ -6335,7 +6454,7 @@ def _dist_expert(tmp, argv, yamls, one_states, one_recs, want,
 def _dist_offload(ranks, a_off, full, m1, same_curve, check_launches,
                   want, launches, card) -> dict:
     """``train_fsdp --sharding FULL_SHARD --cpu_offload`` at world 2 on
-    medium_model.yaml (4 layers): losses bitwise one process's and grad
+    medium_model.yaml (2 layers): losses bitwise one process's and grad
     norms within ``DIST_NORM_RTOL`` (``same_curve`` against m1); each
     rank's final masters and moments (digests of its slices) bitwise the
     on-card FULL_SHARD run's, which is held to one process within
@@ -6371,7 +6490,7 @@ def _dist_offload(ranks, a_off, full, m1, same_curve, check_launches,
     if any(x["host"] != x["moments"] for x in rest):
         raise AssertionError(f"dist: m2_off: moments not all in host "
                              f"memory at rest: {rest}")
-    log("dist", f"FULL_SHARD --cpu_offload world 2 (medium_model.yaml at 4 "
+    log("dist", f"FULL_SHARD --cpu_offload world 2 (medium_model.yaml at 2 "
                 f"layers): losses within rtol {worst['loss']:.2e} and grad "
                 f"norms {worst['grad_norm']:.3e} of world 1, {n} final "
                 f"slices bitwise the on-card FULL_SHARD run's; at rest "
@@ -6424,14 +6543,275 @@ def _dist_tools(tmp: str):
     return argv, want, check_launches
 
 
-def phase_dist(results: dict, tmp: str) -> dict:
+# Pipeline runs against one process (run A, 1F1B at stage 4, dropout 0)
+# and against each other (run B, three schedules at stage 2, dropout 0.1,
+# the same masks): bf16, so not bitwise (another summation order of every
+# gradient over the microbatches; 1F1B's head is the vocabulary-sharded
+# plain product where one process runs the fused head + CE kernel).
+# Run A: losses within DIST_LOSS_RTOL, every final master and moment
+# within PIPE_STATE_L2 relative L2 of one process's (a moment with its
+# two halves swapped is off by more than its own norm and must fail it).
+# Run B: within 2x run A's readings (the bf16 error of one pipelined pass
+# against one process), since the schedules draw the same masks.
+PIPE_STATE_L2 = 0.15
+
+
+def _pipe_launches(cfg, stages: int, stage: int, steps: int,
+                   eval_micro: int = 1) -> dict:
+    """A stage rank's launches over ``steps`` pipelined steps and
+    ``eval_micro`` eval batches: a forward of each of its layers a
+    microbatch (twice under remat) and one over each eval batch (the
+    GPipe forward at one microbatch), the fused backward a layer a
+    microbatch; the head + CE kernel on the last stage: GPipe's head a
+    step (1F1B's vocabulary slices are plain products) and the eval's."""
+    from tpu_trainer_torch.ops import flash
+    from tpu_trainer_torch.parallel import pipeline as pp
+
+    M = pp.num_microbatches(cfg, stages)
+    Ls = cfg.num_layers // stages
+    fwd = 2 if cfg.gradient_checkpointing else 1
+    fused = flash.backward_impl(cfg.max_seq_len, False) == "fused"
+    last = stage == stages - 1
+    gpipe = cfg.pipeline_schedule == "gpipe"
+    return {"flash_forward": Ls * (fwd * M * steps + eval_micro),
+            "flash_backward": Ls * M * steps if fused else 0,
+            "flash_backward_dkv": 0 if fused else Ls * M * steps,
+            "flash_backward_dq": 0 if fused else Ls * M * steps,
+            "head_ce": ((steps if gpipe else 0) + eval_micro) if last else 0,
+            "gmm": 0, "tgmm": 0}
+
+
+def _pipe_spawn(tmp: str, argv) -> dict:
+    """Start the pipeline phase's runs together; ``{tag: (argv, world,
+    procs)}`` and ``"t0"``, when they started."""
+    from tpu_trainer_torch.parallel import pipeline as pp
+
+    a12 = _cut_yaml(tmp, "small_model.yaml", "pp12", dropout=0.0,
+                    attention_dropout=0.0, pipeline_schedule="1f1b")
+    b4 = {k: _cut_yaml(tmp, "small_model.yaml", f"pp4{k}", num_layers=4,
+                       pipeline_schedule=k) for k in pp.SCHEDULES}
+    micro = ["--pipeline_microbatches", "8"]
+    runs = {"pp_one": (argv("pp_one", a12, 3, 8, 1), 0, None),
+            "pp_a": (argv("pp_a", a12, 3, 8, 1, "--mesh_stage", "4",
+                          *micro), 4, None),
+            "pp_w": (argv("pp_w", b4["1f1b"], 3, 8, 1, "--mesh_stage", "2",
+                          *micro), 2, {None: {"window_delta": -1}})}
+    for k, yaml in b4.items():
+        runs[f"pp_b_{k}"] = (argv(f"pp_b_{k}", yaml, 3, 8, 1, "--mesh_stage",
+                                  "2", *micro), 2, None)
+    t0 = time.perf_counter()
+    out = {tag: (a, w, _dist_spawn(tmp, tag, "ddp", a, w, extra=e))
+           for tag, (a, w, e) in runs.items()}
+    out["t0"] = t0
+    return out
+
+
+def phase_pipeline(results: dict, tmp: str, started=None, then=None
+                   ) -> dict:
+    """Pipeline parallelism on the card (``train_ddp --mesh_stage``), every
+    rank a process of its own sharing ``cuda:0`` over gloo
+    (``_dist_spawn``), all runs started together:
+
+    - run A, the full model: ``small_model.yaml`` at all 12 layers,
+      dropout 0, batch 8 x 1024, ``--mesh_stage 4 --pipeline_microbatches
+      8``, 1F1B, 3 steps, against one process on the same batch: losses
+      within ``DIST_LOSS_RTOL``, every final master and moment within
+      ``PIPE_STATE_L2`` relative L2 (one moment's halves swapped must
+      fail it), every rank's launches the schedule's
+      (``_pipe_launches``);
+    - run B, the schedules: GPipe, 1F1B and interleaved (v 2) at stage 2,
+      4 layers, M 8, batch 8 x 1024, dropout 0.1 (the same masks per
+      global layer and microbatch in all three), 3 steps: losses and
+      final states of 1F1B and interleaved against GPipe's within 2x run
+      A's readings against one process (its worst loss rtol and leaf
+      L2); each rank's peak memory under GPipe and 1F1B;
+    - a planted fault: the 1F1B window one below the simulation's (W 2
+      where it gives 3 at S 2, M 8): the run must be refused.
+
+    Printed: a rank's step ms, ``pp_send`` bytes a step, the seconds it
+    waited on receives a step, the most microbatches it held in flight
+    and its peak. Ranks time-slicing one card measure no multi-GPU
+    speed. ``started``: the runs' ``_pipe_spawn``, when the caller
+    started them earlier (the whole script starts them as the dist
+    phase's expert runs end, beside those runs' checks, which read
+    states on the host); ``then``: called as the runs end, before the
+    checks (the whole script starts the mesh-ranks phase's runs
+    there)."""
+    import numpy as np
+
+    from tpu_trainer_torch.parallel import pipeline as pp
+    from tpu_trainer_torch.parallel.sharding import fsdp_dim
+    from tpu_trainer_torch.training import cli
+
+    t_phase = time.perf_counter()
+    card = nvidia_smi_line()
+    argv, _, _ = _dist_tools(tmp)
+    spawned = dict(started or _pipe_spawn(tmp, argv))
+    t_runs = spawned.pop("t0")
+    try:
+        planted = _pipe_planted(tmp, spawned.pop("pp_w"))
+    except BaseException:
+        _kill_spawned([(tag, procs) for tag, (_, _, procs)
+                       in spawned.items()])
+        raise
+    recs = _dist_join_all([(tag, procs) for tag, (_, _, procs)
+                           in spawned.items()])
+    runs_s = time.perf_counter() - t_runs
+    if then is not None:
+        then()
+    t_checks = time.perf_counter()
+    # Every final state read at once, each once.
+    reading = {tag: _background(lambda tag=tag: _dist_state(os.path.join(
+        tmp, f"ck_{tag}", "step_00000003"))) for tag in spawned}
+    states = {}
+    launches: dict = {}
+    out = {"card": card, "runs_seconds": runs_s, "planted": planted}
+
+    def train(tag):
+        return [r["loss"] for r in _jsonl(os.path.join(tmp, f"{tag}.jsonl"),
+                                          "train")]
+
+    def state(tag):
+        if tag not in states:
+            states[tag] = reading.pop(tag)()
+        return states[tag]
+
+    for tag, (a, world, _) in spawned.items():
+        cfg = cli.resolve_configs(cli.build_parser("ddp").parse_args(a),
+                                  "ddp")[0]
+        for r in recs[tag]:
+            if world:
+                want = _pipe_launches(cfg, world, r["rank"], 3)
+            else:
+                want = _micro_launches(cfg, 3, 1, segmented=False)
+            if r["launches"] != want:
+                raise AssertionError(f"pipeline: {tag} rank {r['rank']} "
+                                     f"launches {r['launches']}, want "
+                                     f"{want}")
+            _add_launches(launches, r["launches"])
+
+    def held(what, got_tag, want_tag, loss_bound, l2_bound):
+        """Losses and the final state of ``got_tag`` against
+        ``want_tag``'s, within ``loss_bound`` (relative) and ``l2_bound``
+        (each leaf's relative L2); returns the worst of each."""
+        got, ref = train(got_tag), train(want_tag)
+        worst_loss = max(abs(a - b) / abs(b) for a, b in zip(got, ref))
+        if len(got) != len(ref) or worst_loss > loss_bound:
+            raise AssertionError(f"pipeline: {what}: losses {got} vs "
+                                 f"{ref} (bound {loss_bound:.3e})")
+        g, w = state(got_tag), state(want_tag)
+        keys = [k for k in w if "/" in k]
+        rel = _state_rel(g, w, keys)
+        at = max(keys, key=lambda k: rel[k][1])
+        if rel[at][1] > l2_bound:
+            raise AssertionError(f"pipeline: {what}: {at}'s relative L2 "
+                                 f"{rel[at][1]:.3e} above {l2_bound:.3e}")
+        # The control: one moment with its halves swapped must fail.
+        key = max((k for k in keys if "/mu/" in k), key=lambda k: w[k].size)
+        d = fsdp_dim(w[key].shape, 2)
+        swapped = {key: np.concatenate(np.split(g[key], 2, axis=d)[::-1],
+                                       axis=d)}
+        ctl = _state_rel(swapped, w, [key])[key][1]
+        if ctl <= l2_bound:
+            raise AssertionError(f"pipeline: {what}: the swapped-halves "
+                                 f"control passed ({ctl:.3e})")
+        return {"loss_rtol": worst_loss, "worst_l2": rel[at][1],
+                "worst_leaf": at, "control_l2": ctl}
+
+    def rank_line(r):
+        steps = r["pipeline"]
+        sent = [c.get("pp_send_bytes", 0) for c in r["step_calls"]]
+        return {"rank": r["rank"], "step_ms": r["step_ms"],
+                "pp_send_bytes": sent,
+                "wait_s": [x["wait_s"] for x in steps],
+                "in_flight": max((x["in_flight"] for x in steps), default=0),
+                "peak_gb": r["peak_bytes"] / 1e9,
+                "collectives": r["step_calls"][-1] if r["step_calls"]
+                else {}}
+
+    a = held("run A (12 layers, stage 4, 1F1B) vs one process", "pp_a",
+             "pp_one", DIST_LOSS_RTOL, PIPE_STATE_L2)
+    a["ranks"] = [rank_line(r) for r in recs["pp_a"]]
+    a["one_process_step_ms"] = recs["pp_one"][0]["step_ms"]
+    a["one_process_peak_gb"] = recs["pp_one"][0]["peak_bytes"] / 1e9
+    out["run_a"] = a
+    for r in a["ranks"]:
+        log("pipeline", f"run A rank {r['rank']}: step ms "
+                        f"{[round(x, 1) for x in r['step_ms']]}, pp_send "
+                        f"{[round(x / 1e6, 2) for x in r['pp_send_bytes']]}"
+                        f" MB a step, receive wait "
+                        f"{[round(x, 3) for x in r['wait_s']]} s, in flight "
+                        f"{r['in_flight']} (W {pp.window(4, 8)}), peak "
+                        f"{r['peak_gb']:.2f} GB ({card})")
+    log("pipeline", f"run A vs one process (step ms "
+                    f"{[round(x, 1) for x in a['one_process_step_ms']]}, "
+                    f"peak {a['one_process_peak_gb']:.2f} GB): losses "
+                    f"within rtol {a['loss_rtol']:.3e} (bound "
+                    f"{DIST_LOSS_RTOL:.0e}), worst leaf L2 "
+                    f"{a['worst_l2']:.3e} at {a['worst_leaf']} (bound "
+                    f"{PIPE_STATE_L2}; swapped halves {a['control_l2']:.3e}"
+                    f" rejected)")
+    b = {}
+    bounds = (2 * a["loss_rtol"], 2 * a["worst_l2"])
+    for k in ("1f1b", "interleaved"):
+        b[k] = held(f"run B {k} vs GPipe", f"pp_b_{k}", "pp_b_gpipe",
+                    *bounds)
+        log("pipeline", f"run B {k} vs GPipe (stage 2, 4 layers, M 8, "
+                        f"dropout 0.1): losses within rtol "
+                        f"{b[k]['loss_rtol']:.3e}, worst leaf L2 "
+                        f"{b[k]['worst_l2']:.3e} at {b[k]['worst_leaf']} "
+                        f"(bounds 2x run A's: {bounds[0]:.3e}, "
+                        f"{bounds[1]:.3e}; swapped halves "
+                        f"{b[k]['control_l2']:.3e} rejected)")
+    for k in pp.SCHEDULES:
+        b.setdefault(k, {})["ranks"] = [rank_line(r)
+                                        for r in recs[f"pp_b_{k}"]]
+        peaks = [round(r["peak_gb"], 2) for r in b[k]["ranks"]]
+        flight = [r["in_flight"] for r in b[k]["ranks"]]
+        log("pipeline", f"run B {k}: rank peaks {peaks} GB, most in "
+                        f"flight {flight}, step ms rank 0 "
+                        f"{[round(x, 1) for x in b[k]['ranks'][0]['step_ms']]}"
+                        f" ({card})")
+    out["run_b"] = b
+    log("pipeline", f"planted window W 2 (simulation 3 at S 2, M 8): "
+                    f"refused ({planted['message']})")
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    out["checks_seconds"] = time.perf_counter() - t_checks
+    log("pipeline", f"runs {runs_s:.1f} s (from their start), checks "
+                    f"{out['checks_seconds']:.1f} s, phase "
+                    f"{out['seconds']:.1f} s")
+    results["pipeline"] = out
+    return out
+
+
+def _pipe_planted(tmp: str, spawned) -> dict:
+    """Join the planted run: every rank must exit non-zero, refusing the
+    table (``pipeline.check_schedule``: a window below the in-flight
+    count)."""
+    _, _, procs = spawned
+    msgs = []
+    for out, p in procs:
+        p.wait(timeout=300)
+        with open(out + ".stderr") as f:
+            err = f.read()
+        if p.returncode == 0 or "in flight" not in err:
+            raise AssertionError(f"pipeline: the planted window was not "
+                                 f"refused (rc {p.returncode}): "
+                                 f"{err[-2000:]}")
+        msgs.append([ln for ln in err.splitlines() if "in flight" in ln][-1])
+    return {"message": msgs[0].strip()[-160:]}
+
+
+def phase_dist(results: dict, tmp: str, then=None) -> dict:
     """The reference's two trainers across processes on the one card. Each
     rank is a fresh process that joins its group (``RANK`` / ``WORLD_SIZE``
     given, a file rendezvous) and then calls the CLI; two ranks share
     ``cuda:0`` over gloo, every CUDA tensor staged through pinned host
     memory (NCCL refuses two ranks on one GPU). Runs that do not depend on
-    each other are started together. ``small_model.yaml`` runs at 4 of its
-    12 layers (the whole run's time limit):
+    each other are started together. ``small_model.yaml`` runs at 2 of its
+    12 layers and ``medium_model.yaml`` at 2 of its 24 (the whole run's
+    time limit):
 
     - world 1 over NCCL: ``small_model.yaml`` through ``train_ddp`` (4
       steps, batch 8) in an NCCL process group at rank 0 of 1: losses and
@@ -6442,7 +6822,7 @@ def phase_dist(results: dict, tmp: str) -> dict:
       and the final masters and moments bitwise; launches exact on each
       rank; a planted fault (rank 1's gradients scaled at step 1) must be
       rejected by the same loss check;
-    - ZeRO-3 and ZeRO-2 at world 2: ``medium_model.yaml`` (4 of its 24
+    - ZeRO-3 and ZeRO-2 at world 2: ``medium_model.yaml`` (2 of its 24
       layers, dropout 0) through ``train_fsdp --sharding FULL_SHARD`` and
       ``SHARD_GRAD_OP``, a rank batch 4, accumulation 1, 3 steps, against
       one process at batch 4 x 2: losses bitwise, grad norms within
@@ -6463,7 +6843,8 @@ def phase_dist(results: dict, tmp: str) -> dict:
       1 here its state must be the stitched shards bitwise;
     - MoE, both routers, after the two groups above (``_dist_moe``).
 
-    Two ranks time-slicing one card measure no multi-GPU speed."""
+    Two ranks time-slicing one card measure no multi-GPU speed. ``then``:
+    called as the expert runs end (``_dist_expert``)."""
     import numpy as np
 
     from tpu_trainer_torch.parallel.sharding import fsdp_dim
@@ -6473,13 +6854,13 @@ def phase_dist(results: dict, tmp: str) -> dict:
 
     t_phase = time.perf_counter()
     card = nvidia_smi_line()
-    # small_model.yaml at 4 of its 12 layers (the whole run's time limit),
-    # its width whole.
-    small = _cut_yaml(tmp, "small_model.yaml", "l4", num_layers=4)
+    # small_model.yaml at 2 of its 12 layers and medium_model.yaml at 2 of
+    # its 24 (the whole run's time limit), their widths whole.
+    small = _cut_yaml(tmp, "small_model.yaml", "l2", num_layers=2)
     small0 = _cut_yaml(tmp, "small_model.yaml", "nodrop", dropout=0.0,
-                       attention_dropout=0.0, num_layers=4)
+                       attention_dropout=0.0, num_layers=2)
     medium0 = _cut_yaml(tmp, "medium_model.yaml", "nodrop", dropout=0.0,
-                        attention_dropout=0.0, num_layers=4)
+                        attention_dropout=0.0, num_layers=2)
     argv, want, check_launches = _dist_tools(tmp)
 
     def train(tag):
@@ -6657,7 +7038,7 @@ def phase_dist(results: dict, tmp: str) -> dict:
             "world1_peak_gb": m1["peak_bytes"] / 1e9,
             "collectives": [r["collectives"] for r in ranks]}
         wire = ranks[0]["collectives"]
-        log("dist", f"{strategy} world 2 (medium_model.yaml at 4 layers): "
+        log("dist", f"{strategy} world 2 (medium_model.yaml at 2 layers): "
                     f"losses "
                     f"within rtol {worst['loss']:.2e} and grad norms "
                     f"{worst['grad_norm']:.3e} of world 1; at rest a rank "
@@ -6736,7 +7117,8 @@ def phase_dist(results: dict, tmp: str) -> dict:
     for name in os.listdir(tmp):
         if name.startswith("ck_"):
             shutil.rmtree(os.path.join(tmp, name))
-    out["moe"] = _dist_moe(tmp, argv, want, check_launches, launches, card)
+    out["moe"] = _dist_moe(tmp, argv, want, check_launches, launches, card,
+                           then)
     out["launches"] = launches
     out["seconds"] = time.perf_counter() - t_phase
     log("dist", f"phase {out['seconds']:.1f} s")
@@ -7224,20 +7606,20 @@ def phase_elastic(results: dict, tmp: str) -> dict:
 
 
 def _beside_child(tmp: str, out: str) -> None:
-    """The world-rest, elastic and mesh-ranks phases, one after the other,
-    in this fresh process (the kernels come from the card phase's build
+    """The world-rest and elastic phases, one after the other, in this
+    fresh process (the kernels come from the card phase's build
     directory), in directory ``tmp``; their records and seconds are
     written to ``out``. They share the host's cores with ft and are
     bound by them, so running two of them at once saves little (on an
     H100 80GB HBM3 at 700 W, elastic beside mesh-ranks ran 149.5 s, 119.4
     s alone), and world-rest's ranks and mesh-ranks' together beside ft
-    ran that card out of memory."""
+    ran that card out of memory; mesh-ranks runs last, its ranks beside
+    the pipeline phase's checks."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     results: dict = {"phase_seconds": {}}
     for name, fn in (("world-rest", phase_world_rest),
-                     ("elastic", phase_elastic),
-                     ("mesh-ranks", phase_mesh_ranks)):
+                     ("elastic", phase_elastic)):
         t = time.perf_counter()
         fn(results, tmp)
         results["phase_seconds"][name] = time.perf_counter() - t
@@ -7277,8 +7659,8 @@ def _beside(tmp: str):
         if kill:
             return None
         if rc != 0:
-            raise AssertionError(f"world-rest / elastic / mesh-ranks: their "
-                                 f"process exited {rc}")
+            raise AssertionError(f"world-rest / elastic: their process "
+                                 f"exited {rc}")
         with open(out) as f:
             return json.load(f)
     return join
@@ -7334,9 +7716,8 @@ def main(argv=None) -> int:
         run("offload", phase_offload, tmp)
         run("moe-remat", phase_moe_remat, tmp)
         mc = run("moe-capacity", phase_moe_capacity, tmp)
-        # The world-rest, elastic and mesh-ranks phases run in a process
-        # of their own beside ft (the whole run's time limit); dist after
-        # them.
+        # The world-rest and elastic phases run in a process of their own
+        # beside ft (the whole run's time limit); dist after them.
         join_beside = _beside(tmp)
         try:
             ft = run("ft", phase_ft, tmp)
@@ -7346,15 +7727,36 @@ def main(argv=None) -> int:
         beside = join_beside()
         rest = results["world-rest"] = beside["world-rest"]
         el = results["elastic"] = beside["elastic"]
-        mr = results["mesh-ranks"] = beside["mesh-ranks"]
         secs.update(beside["phase_seconds"])
-        dist = run("dist", phase_dist, tmp)
+        # The pipeline phase's runs start as dist's expert runs end, the
+        # mesh-ranks phase's as the pipeline's end (each beside the
+        # earlier runs' checks, which read states on the host).
+        later = {}
+        try:
+            dist = run("dist", phase_dist, tmp, then=lambda: later.update(
+                pipeline=_pipe_spawn(tmp, _dist_tools(tmp)[0])))
+        except BaseException:
+            _kill_spawned([(t, v[2]) for t, v in
+                           later.get("pipeline", {}).items() if t != "t0"])
+            raise
+        try:
+            pipe = run("pipeline", phase_pipeline, tmp,
+                       started=later.get("pipeline"),
+                       then=lambda: later.update(
+                           mesh=_mesh_ranks_spawn(tmp)))
+        except BaseException:
+            _kill_spawned(later.get("mesh", {}).get("spawned", []))
+            raise
+        mr = run("mesh-ranks", phase_mesh_ranks, tmp,
+                 started=later.get("mesh"))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     results["expert"] = dist["moe"]["expert"]
     log("done", "phase seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in secs.items())
-        + " (world-rest, elastic and mesh-ranks beside ft); of dist, "
+        + " (world-rest and elastic beside ft; the pipeline runs beside "
+        "dist's expert checks, the mesh-ranks runs beside the pipeline's "
+        "checks); of dist, "
         f"expert {results['expert']['seconds']:.1f}")
 
     max_err = max(results["kernel_max_abs_err"],
@@ -7383,6 +7785,7 @@ def main(argv=None) -> int:
     # kv-store phases' engines and draft models').
     ftl = dict(ft["launches"])
     _add_launches(ftl, dist["launches"])
+    _add_launches(ftl, pipe["launches"])
     _add_launches(ftl, rest["launches"])
     _add_launches(ftl, el["launches"])
     _add_launches(ftl, mr["launches"])

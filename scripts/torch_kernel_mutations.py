@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Mutation checks of the port's hand-written CUDA kernels and its
-collectives, on the card.
+"""Mutation checks of the port's hand-written CUDA kernels, its
+collectives and its pipeline, on the card.
 
 For each named mutation: copy the port (``tpu_trainer_torch/``,
 ``configs/`` and ``chip_smoke.py``) into a temporary directory, plant one
@@ -41,6 +41,14 @@ out of step hang instead of failing):
 - ``sum_skips_last_rank``: the collectives' rank-order sum
   (``parallel/collectives.py::_ordered_sum``) leaves out the last rank's
   part; phase ``dist`` must fail.
+- ``pp_stage_sum_skipped``: under a stage axis the trainer leaves the
+  replicated leaves' partial gradients (the tied embedding's lookup on
+  stage 0, its head on the last stage or on every rank's vocabulary
+  slice, the final norm) unsummed over the stage group; phase
+  ``pipeline`` must fail.
+- ``pp_head_partial_cotangent``: the 1F1B head hands the last stage its
+  own vocabulary slice's cotangent instead of the sum over the stage
+  group; phase ``pipeline`` must fail.
 
 Needs one CUDA GPU and nvcc; writes nothing into the checkout. Run from the
 repository root: ``python3 scripts/torch_kernel_mutations.py [name ...]``.
@@ -109,6 +117,16 @@ MUTATIONS = {
         "for i in range(1, parts.shape[0]):",
         "for i in range(1, parts.shape[0] - 1):",
         "dist"),
+    "pp_stage_sum_skipped": (
+        "tpu_trainer_torch/training/trainer.py",
+        "if topo.stage_size > 1 and spec.stage_dim is None:",
+        "if False and spec.stage_dim is None:",
+        "pipeline"),
+    "pp_head_partial_cotangent": (
+        "tpu_trainer_torch/models/gpt.py",
+        "dxn = self.mesh.stage.all_reduce_sum(gs[0].contiguous(),",
+        "dxn = (lambda t, kind: t)(gs[0].contiguous(),",
+        "pipeline"),
 }
 
 

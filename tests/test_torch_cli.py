@@ -311,7 +311,9 @@ def test_sigterm_saves_and_exits_143(tmp_path, yaml_file, monkeypatch):
 # -- options of later ROADMAP items ----------------------------------------------
 
 _PLANNER = (NotImplementedError, "Queue 1: the planner")
-_PIPELINE = (NotImplementedError, "Queue 1: pipeline and expert parallelism")
+# The pipeline runs: at one process a 2-way stage axis beside the
+# default data=-1 is the JAX world-size error.
+_STAGE = (SystemExit, "1 devices not divisible by fixed axes product 2")
 
 
 @pytest.mark.parametrize("extra,item", [
@@ -325,7 +327,7 @@ _PIPELINE = (NotImplementedError, "Queue 1: pipeline and expert parallelism")
     (["--mesh_data", "4"], (SystemExit, "wants 4 devices but 1 are")),
     (["--multihost"], (RuntimeError, "--multihost needs a rendezvous")),
     (["--hbm_gb", "40"], _PLANNER),
-    (["--pipeline_microbatches", "2"], _PIPELINE),
+    (["--mesh_stage", "2", "--pipeline_microbatches", "2"], _STAGE),
     (["--mesh_fsdp", "2"],
      (SystemExit, "1 devices not divisible by fixed axes product 2")),
     (["--mesh_sequence", "2"],
@@ -336,13 +338,31 @@ _PIPELINE = (NotImplementedError, "Queue 1: pipeline and expert parallelism")
     # tests/test_torch_expert_parallel.py).
     (["--mesh_expert", "2"],
      (SystemExit, "1 devices not divisible by fixed axes product 2")),
-    (["--mesh_stage", "2"], _PIPELINE),
+    (["--mesh_stage", "2"], _STAGE),
     (["--no_comms_model"], _PLANNER),
 ])
 def test_later_item_options_raise(extra, item):
     exc, match = item
     with pytest.raises(exc, match=match):
         cli.run_training(["--device", "cpu", "--max_steps", "1"] + extra)
+
+
+def test_pipeline_microbatches_at_one_process(tmp_path, yaml_file):
+    """At stage 1 the JAX trainer ignores ``pipeline_microbatches`` (it
+    checks it only under a stage axis): the option is accepted and the
+    run equals a run without it."""
+    losses = []
+    for tag, extra in (("plain", []), ("micro", ["--pipeline_microbatches",
+                                                 "2"])):
+        jsonl = tmp_path / f"{tag}.jsonl"
+        assert cli.run_training(
+            ["--device", "cpu", "--config", yaml_file(TINY_YAML),
+             "--max_steps", "2", "--log_interval", "1",
+             "--checkpoint_dir", str(tmp_path / tag),
+             "--metrics_jsonl", str(jsonl)] + extra) == 0
+        losses.append([r["loss"] for r in map(json.loads, open(jsonl))
+                       if r.get("kind") == "train"])
+    assert len(losses[0]) == 2 and losses[0] == losses[1]
 
 
 def test_num_experts_trains_a_step(tmp_path, yaml_file, capsys):

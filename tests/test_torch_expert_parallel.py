@@ -35,7 +35,8 @@ bitwise masters, its consolidated export read by the JAX
 ``infer --mesh_tensor 2`` on a MoE checkpoint giving one process's greedy
 tokens; and the refusals (an expert axis on a dense model, in the
 trainer and through ``train_ddp``, experts that the axis does not divide,
-the pipeline's stage axis).
+a stage axis that does not divide the layers); a planted fault (the MoE
+layer's sum over the expert ranks dropped) fails the world-1 check.
 
 Ranks run in two gloo spawns of ``tests/torch_dist_worker.py`` (world 2
 and world 4), every job of a world in one spawn.
@@ -235,7 +236,8 @@ _ERRORS = {
               "mesh": {"data": 1, "expert": 2}},
     "indivisible": {"model": {**MODEL, "num_experts": 3},
                     "mesh": {"data": 1, "expert": 2}},
-    "stage": {"model": MODEL, "mesh": {"data": 1, "stage": 2}},
+    "stage": {"model": {**MODEL, "num_layers": 3},
+              "mesh": {"data": 1, "stage": 2}},
 }
 
 
@@ -333,6 +335,10 @@ def world4(tmp_path_factory, jax_ep):
              batch_size=2),
         _job("sp2_d2", "replicated", {"data": 2, "sequence": 2},
              model=DROPS, batch_size=2, record_moe=True),
+        # A planted fault: the MoE layer's sum over the expert ranks
+        # dropped (each rank keeps its local experts' part).
+        _job("ep2_d2_no_combine", "replicated", {"data": 2, "expert": 2},
+             batch_size=2, params_npz=jax_ep[0], plant_moe="no_combine"),
     ]
     out = run_world(tmp, 4, jobs)
     out["tmp"] = tmp
@@ -507,6 +513,15 @@ def test_composed_meshes_match_world1(world4, name, model):
     _check_world1(world4[name], _world1(model=model))
 
 
+def test_planted_combine_dropped_fails_world1(world4, jax_ep):
+    """The check that holds ``data 2 x expert 2`` to world 1 catches a MoE
+    layer whose combine skips its sum over the expert ranks."""
+    ref = _world1(params_npz=jax_ep[0])
+    _check_world1(world4["ep2_d2"], ref)
+    with pytest.raises(AssertionError):
+        _check_world1(world4["ep2_d2_no_combine"], ref)
+
+
 def test_sequence_positions_and_keep_bitwise(world4):
     """Under data 2 x sequence 2 a rank holds columns [8 j, 8 j + 8) of
     its two rows: every layer call's queue positions and keep mask are
@@ -672,8 +687,8 @@ def test_infer_tensor2_moe_equals_one_process(world2):
     ("dense", "ValueError", "expert mesh axis > 1 requires a MoE model"),
     ("indivisible", "ValueError",
      "num_experts 3 not divisible by expert axis size 2"),
-    ("stage", "NotImplementedError",
-     "ROADMAP Queue 1: pipeline and expert parallelism"),
+    ("stage", "ValueError",
+     "num_layers 3 not divisible by stage axis size 2"),
     ("cli_dense", "ValueError", "expert mesh axis > 1 requires a MoE model"),
 ])
 def test_refusals(world2, case, exc, match):

@@ -37,10 +37,11 @@ def test_unported_axes_raise_naming_their_entry():
     tmesh.check_ported((1, 2, 2, 2, 1, 1))
     tmesh.check_ported((1, 1, 1, 1, 2, 1))
     tmesh.check_ported((2, 1, 1, 1, 4, 1))
-    # The pipeline's stage axis still names its entry.
+    # And the pipeline's stage axis: no axis is left unported.
     sizes = tuple(2 if ax == "stage" else 1 for ax in tmesh.MESH_AXES)
-    with pytest.raises(NotImplementedError, match="pipeline and expert"):
-        tmesh.check_ported(sizes)
+    tmesh.check_ported(sizes)
+    tmesh.check_ported((2, 2, 2, 1, 2, 4))
+    assert tmesh.UNPORTED_AXES == {}
 
 
 def _feed(axes, n_proc, pidx, rows=16):

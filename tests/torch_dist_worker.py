@@ -13,7 +13,13 @@ numpy arrays and scalars) for the test to compare. Jobs:
   writes the losses, grad norms, the flattened telemetry records, the
   offload's kept leaves and bytes, this rank's local arrays at init and
   at the end, its ``shard_records()``, the collectives it ran
-  (``collectives.calls``),
+  (``collectives.calls``), with ``eval`` the ``eval_step`` of the first
+  batch after the last step, with ``record_dropout`` every residual
+  dropout call's seed, offsets and kept mask (``record_dropout`` below),
+  with ``plant_local_fold`` the pipeline's dropout fold keyed by the
+  rank's local layer index instead of the global one (a planted fault),
+  with ``plant_moe: "no_combine"`` a MoE layer's sum over the expert and
+  tensor ranks dropped (a planted fault),
   with ``record_moe`` every MoE layer call's router aux and, for the
   capacity router, its queue positions and keep mask (``record_moe``
   below; ``zero_offsets_rank`` plants a fault there), and optionally arms
@@ -51,9 +57,12 @@ numpy arrays and scalars) for the test to compare. Jobs:
 - ``quant_cut``: the int8 pack of this rank's tensor slice of the npz's
   ``leaf`` (a ``BlockCut`` over a tensor group of every rank), as
   ``cut_boxes`` places it in the one-process pack;
-- ``errors``: the messages of trainers, forwards and CLI runs that must
-  refuse (``cases``: ``{name: {"model", "mesh", "train", "parallel",
-  "forward"}}``, or ``{name: {"argv"}}`` for ``run_training``);
+- ``errors``: the messages of trainers, forwards, train steps and CLI
+  runs that must refuse (``cases``: ``{name: {"model", "mesh", "train",
+  "parallel", "forward", "step", "window_delta"}}``, ``step``: one train
+  step of a dummy batch, ``window_delta``: the pipeline's simulated
+  window changed by that much, a planted fault; or ``{name: {"argv"}}``
+  for ``run_training``);
 - ``cli``: ``training.cli.run_training(argv)`` in this process (the group
   is the worker's) for each argv of ``runs``, optionally removing a step
   directory first (``remove``), and ``eval.infer.main`` for each of
@@ -62,6 +71,7 @@ numpy arrays and scalars) for the test to compare. Jobs:
 The CPU only, gloo, f32.
 """
 
+import dataclasses
 import json
 import os
 import sys
@@ -144,6 +154,27 @@ def record_moe(out: dict, zero_offsets_rank=None):
     return restore
 
 
+def record_dropout(out: list):
+    """Wrap ``models/gpt.py``'s ``hash_dropout`` to append each call's
+    ``(seed, offset, total, seq_slice, kept mask)`` to ``out``; returns the
+    function that restores it."""
+    from tpu_trainer_torch.models import gpt
+
+    orig = gpt.hash_dropout
+
+    def rec(x, rate, seed, **kw):
+        y = orig(x, rate, seed, **kw)
+        out.append((int(seed), int(kw.get("offset", 0)),
+                    int(kw.get("total", 0)), kw.get("seq_slice"),
+                    (y != 0).numpy()))
+        return y
+    gpt.hash_dropout = rec
+
+    def restore():
+        gpt.hash_dropout = orig
+    return restore
+
+
 def make_trainer(job) -> Trainer:
     mesh = MeshConfig(**job.get("mesh", {}))
     return Trainer(GPTConfig(**job["model"]), TrainingConfig(**job["train"]),
@@ -182,7 +213,17 @@ def train(job) -> dict:
     moe_out = {}
     restore_moe = (record_moe(moe_out, job.get("zero_offsets_rank"))
                    if job.get("record_moe") else None)
+    drops = []
+    restore_drop = (record_dropout(drops) if job.get("record_dropout")
+                    else None)
+    from tpu_trainer_torch.models import moe
+
+    expert_sum = moe.expert_sum
+    if job.get("plant_moe") == "no_combine":
+        moe.expert_sum = lambda out, group: out
     tr = make_trainer(job)
+    if job.get("plant_local_fold"):
+        tr.model.stage_layers = list(range(len(tr.model.stage_layers)))
     state = tr.init_state(params=load_params(job, tr))
     out = {"init": local_arrays(state), "losses": [], "grad_norms": [],
            "feed": (tr.data_feed_rank, tr.data_feed_world),
@@ -222,10 +263,22 @@ def train(job) -> dict:
                                              "batch_index": state.step,
                                              "seed": 11,
                                              **tr.feed_signature})
+    moe.expert_sum = expert_sum
+    if job.get("eval"):
+        first = next(iter(DummyDataLoader(
+            tr.global_batch_size, job["train"]["max_seq_len"],
+            job["model"]["vocab_size"], num_batches=1,
+            seed=job.get("data_seed", 11), process_index=tr.data_feed_rank,
+            process_count=tr.data_feed_world)))
+        out["eval"] = float(tr.eval_step(state, first))
+    if restore_drop is not None:
+        restore_drop()
+        out["dropout"] = drops
     out["final"] = local_arrays(state)
     out["records"] = state.shard_records()
     out["scalars"] = state.scalars()
     out["collectives"] = dict(collectives.calls)
+    out["pipeline"] = dataclasses.asdict(tr.pipeline_stats)
     if restore_moe is not None:
         restore_moe()
         out.update(moe_out)
@@ -430,12 +483,35 @@ def errors(job) -> dict:
                 cli_lib.run_training(case["argv"])
                 out[name] = ("ok", None)
                 continue
-            tr = make_trainer(case)
+            if case.get("window_delta"):
+                from tpu_trainer_torch.parallel import pipeline
+
+                sim = pipeline.window
+                pipeline.window = (lambda *a, d=case["window_delta"]:
+                                   sim(*a) + d)
+                try:
+                    tr = make_trainer(case)
+                finally:
+                    pipeline.window = sim
+            else:
+                tr = make_trainer(case)
+            if case.get("step"):
+                state = tr.init_state()
+                batch = next(iter(DummyDataLoader(
+                    tr.global_batch_size, tr.training_config.max_seq_len,
+                    tr.model_config.vocab_size, num_batches=1,
+                    process_index=tr.data_feed_rank,
+                    process_count=tr.data_feed_world)))
+                tr.train_step(state, batch)
             if case.get("forward"):
                 ids = torch.zeros((1, tr.training_config.max_seq_len),
                                   dtype=torch.long)
                 tr.init_state()
                 with ctx_lib.use_mesh(tr.mesh_context):
+                    if tr.schedule is not None:
+                        tr.model.pipeline_step(
+                            ids, ids, [], train=False, backward=False,
+                            segment_ids=torch.ones_like(ids))
                     tr.model(ids[:, :ids.shape[1] // tr.mesh_sizes[2]],
                              segment_ids=torch.ones_like(ids))
             out[name] = ("ok", tr.model_config.fused_projections)

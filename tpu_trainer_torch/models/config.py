@@ -5,7 +5,8 @@ set of keyword arguments builds both configs in the parity tests. Dtypes
 stay strings; ``compute_dtype`` / ``params_dtype`` map them to torch
 dtypes. The training forward reads the dropout, flash-attention, fused
 loss, fused-projection, remat and MoE fields (both routers); the
-pipeline fields are carried for parity only (one device).
+trainer reads the pipeline fields under a stage axis
+(``parallel/pipeline.py``).
 """
 
 from __future__ import annotations
@@ -65,8 +66,9 @@ class GPTConfig:
     moe_aux_weight: float = 0.01
     router_z_weight: float = 0.0
 
-    # Training-path switches. Read by GPT's training forward, except the
-    # pipeline fields (parity only).
+    # Training-path switches. Read by GPT's training forward; the pipeline
+    # fields by the trainer and GPT.pipeline_step under a stage axis
+    # (parallel/pipeline.py).
     use_flash_attention: bool = False
     gradient_checkpointing: bool = False
     remat_policy: str = "full"

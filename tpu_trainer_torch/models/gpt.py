@@ -111,6 +111,7 @@ is replicated over ``expert``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, List, Optional
 
@@ -448,6 +449,8 @@ class GPT(nn.Module):
         self.zero3 = None
         self.data_shard = (0, 1)
         self.moe_group = None
+        # The global indices of the layers this rank holds (a stage's).
+        self.stage_layers = list(range(cfg.num_layers))
 
     def forward(self, input_ids: torch.Tensor, *args, **kwargs):
         """``config.decode_paged``: ``_paged_forward(input_ids, cache, *,
@@ -481,44 +484,27 @@ class GPT(nn.Module):
         compute them).
         """
         cfg = self.config
-        dropout_on = train and (cfg.dropout > 0.0
-                                or cfg.attention_dropout > 0.0)
-        if dropout_on and generator is None:
-            raise ValueError("train=True with dropout needs a generator")
         b, s = input_ids.shape
         cd = cfg.compute_dtype
         mesh = ctx_lib.current_mesh()
-        tp = _tensor_group(mesh)
-        seq = None
-        if mesh is not None and mesh.sp > 1:
+        if mesh is not None and mesh.pp > 1:
             if segment_ids is not None:
                 raise NotImplementedError(
-                    "segment_ids are not supported under sequence "
+                    "segment_ids are not supported under pipeline "
                     "parallelism")
-            seq = (mesh.sp_rank, mesh.sp, mesh.permute)
+            raise ValueError("under a stage axis a rank holds its stage's "
+                             "layers: run GPT.pipeline_step (the trainer "
+                             "does)")
+        step = self._train_step_of(s, train, generator, segment_ids,
+                                   input_ids.device)
+        tp, seq = step.tensor, step.seq
         emb = self._leaf("embed_tokens.embedding")
         x = coll_lib.gather_from_tensor(emb[input_ids].to(cd), tp)
         capturing = telemetry.capturing()
         if capturing:
             telemetry.record("embed_out", telemetry.site_stats(x))
-        if seq is None:
-            rope = rope_tables(s, cfg.head_dim, cfg.rope_theta,
-                               device=x.device)
-        else:
-            # Global positions: this rank's chunk of the sequence.
-            cos, sin = rope_tables(s * seq[1], cfg.head_dim, cfg.rope_theta,
-                                   device=x.device)
-            rope = (cos[seq[0] * s:(seq[0] + 1) * s],
-                    sin[seq[0] * s:(seq[0] + 1) * s])
-        step = _TrainStep(train=train, generator=generator, rope=rope,
-                          segment_ids=segment_ids,
-                          telem=[] if capturing else None,
-                          shard=self.data_shard, tensor=tp, seq=seq,
-                          attn_coord=_attention_coord(mesh, self.data_shard,
-                                                      cfg))
-        remat = torch.is_grad_enabled()
-        block = (self._remat_block if cfg.gradient_checkpointing and remat
-                 else self._train_block)
+            step.telem = []
+        block = self._block_fn()
         moe_aux = 0.0
         for p in self._unstacked_layers():
             x, aux = block(x, p, step)
@@ -567,7 +553,7 @@ class GPT(nn.Module):
                                          segment_ids, seq_shard)
 
                 loss = (checkpoint(head_loss, x, use_reentrant=False)
-                        if remat else head_loss(x))
+                        if torch.is_grad_enabled() else head_loss(x))
             else:
                 loss = _shifted_loss(logits, labels, segment_ids, seq_shard)
             if cfg.num_experts > 0:
@@ -577,6 +563,90 @@ class GPT(nn.Module):
                 sp = 1 if seq is None else seq[1]
                 loss = loss + moe_aux / (cfg.num_layers * sp)
         return logits, loss
+
+    def _train_step_of(self, s: int, train: bool, generator, segment_ids,
+                       device) -> "_TrainStep":
+        """What every layer of a training forward over ``s`` local
+        positions shares: the active mesh's tensor group and sequence
+        ring, the RoPE rows (global positions under sequence), the data
+        shard and the attention-shard fold."""
+        cfg = self.config
+        dropout_on = train and (cfg.dropout > 0.0
+                                or cfg.attention_dropout > 0.0)
+        if dropout_on and generator is None:
+            raise ValueError("train=True with dropout needs a generator")
+        mesh = ctx_lib.current_mesh()
+        tp = _tensor_group(mesh)
+        seq = None
+        if mesh is not None and mesh.sp > 1:
+            if segment_ids is not None:
+                raise NotImplementedError(
+                    "segment_ids are not supported under sequence "
+                    "parallelism")
+            seq = (mesh.sp_rank, mesh.sp, mesh.permute)
+        if seq is None:
+            rope = rope_tables(s, cfg.head_dim, cfg.rope_theta,
+                               device=device)
+        else:
+            # Global positions: this rank's chunk of the sequence.
+            cos, sin = rope_tables(s * seq[1], cfg.head_dim, cfg.rope_theta,
+                                   device=device)
+            rope = (cos[seq[0] * s:(seq[0] + 1) * s],
+                    sin[seq[0] * s:(seq[0] + 1) * s])
+        return _TrainStep(train=train, generator=generator, rope=rope,
+                          segment_ids=segment_ids, shard=self.data_shard,
+                          tensor=tp, seq=seq,
+                          attn_coord=_attention_coord(mesh, self.data_shard,
+                                                      cfg))
+
+    def _block_fn(self):
+        """One layer of the training forward: under remat (and grad) the
+        checkpointed block, else the plain one."""
+        remat = torch.is_grad_enabled()
+        return (self._remat_block
+                if self.config.gradient_checkpointing and remat
+                else self._train_block)
+
+    # -- the pipeline (parallel/pipeline.py) --------------------------------
+
+    def pipeline_step(self, input_ids: torch.Tensor, labels: torch.Tensor,
+                      leaves, *, train: bool, generator=None,
+                      loss_scale: float = 1.0, backward: bool = True,
+                      micro: Optional[int] = None, segment_ids=None):
+        """This stage rank's part of one pipelined step over its rows
+        ``input_ids [b, s]`` (``labels``: the same, or under sequence the
+        ``s + 1`` label columns), on the active mesh's stage group and
+        schedule. Returns ``(loss, grads, stats)``: the step's loss, the
+        same on every stage rank, the f32 gradients of ``leaves`` summed
+        over the microbatches (seeded with ``loss_scale``; None entries
+        where a leaf got none), or None without ``backward`` (a GPipe
+        forward of ``micro`` microbatches, default the schedule's, under
+        no_grad: evaluation and the nan scan), and the executor's
+        ``parallel/pipeline.Stats``."""
+        from tpu_trainer_torch.parallel import pipeline as pp
+
+        if segment_ids is not None:
+            raise NotImplementedError(
+                "segment_ids are not supported under pipeline parallelism")
+        mesh = ctx_lib.current_mesh()
+        sched = mesh.schedule
+        if not backward:
+            sched = pp.make_schedule("gpipe", sched.stages,
+                                     micro or sched.micro)
+        hooks = _StageHooks(self, mesh, sched, input_ids, labels, leaves,
+                            train=train, generator=generator,
+                            loss_scale=loss_scale)
+        head, aux, grads, stats = pp.execute(sched, mesh.stage, mesh.pp_rank,
+                                             hooks, backward=backward)
+        last = mesh.pp_rank == sched.stages - 1
+        dev = input_ids.device
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        parts = torch.stack([
+            head.float() if last and head is not None else zero,
+            aux.float() if aux is not None else zero])
+        h, a = mesh.stage.all_reduce_sum(parts, kind="pp_allreduce")
+        loss = h + a * hooks.aux_weight if hooks.aux_weight else h
+        return loss, grads, stats
 
     def _leaf(self, name: str) -> torch.Tensor:
         """A parameter outside the layer stack, gathered under ZeRO-3."""
@@ -598,7 +668,7 @@ class GPT(nn.Module):
                       else z.leaf(f"layers.{n}", p)) for n, p in named]
         views = [p.unbind(0) for _, p in named]
         return [{n: v[i] for (n, _), v in zip(named, views)}
-                for i in range(self.config.num_layers)]
+                for i in range(len(views[0]))]
 
     def _gather_layer(self, p: Dict[str, torch.Tensor]
                       ) -> Dict[str, torch.Tensor]:
@@ -717,7 +787,8 @@ class GPT(nn.Module):
             out, aux = moe_ffn(
                 h, p["moe_mlp.router.kernel"], p["moe_mlp.experts_gate"],
                 p["moe_mlp.experts_up"], p["moe_mlp.experts_down"], cfg,
-                router_stats=router, group=self.moe_group)
+                router_stats=router, group=self.moe_group,
+                tokens=step.moe_tokens)
         else:
             tp = step.tensor
             gate, up = _matmuls(coll_lib.copy_to_tensor(h, tp),
@@ -747,24 +818,35 @@ class GPT(nn.Module):
         rate = self.config.dropout
         if not step.train or rate <= 0.0:
             return x
-        coord, shards = step.shard
+        rows = x.shape[0]
+        # This rank's rows of the global batch (a pipeline's microbatch:
+        # its share of the global microbatch): [row0, row0 + rows) of
+        # ``total``.
+        if step.rows is not None:
+            row0, total_rows = step.rows
+        else:
+            coord, shards = step.shard
+            row0, total_rows = coord * rows, shards * rows
         # Under sequence: this rank's columns of the global [b, S, H].
         j, sp = (0, 1) if step.seq is None else step.seq[:2]
         sl = x.shape[1]
         if self.config.fast_dropout:
+            seed = step.seed()
+            if rows == 0:
+                return x
+            per_row = x.numel() // rows
             # The hash runs over the global batch's linear index: data
             # shard r's rows are the world-1 mask's rows [r*b, (r+1)*b)
             # (and a sequence rank's columns [j*sl, (j+1)*sl) of them).
-            return hash_dropout(x, rate, step.seed(),
-                                offset=coord * x.numel() * sp,
-                                total=shards * x.numel() * sp,
+            return hash_dropout(x, rate, seed,
+                                offset=row0 * per_row * sp,
+                                total=total_rows * per_row * sp,
                                 seq_slice=(j * sl, sl * sp) if sp > 1
                                 else None)
         gen = step.generator
-        rows = x.shape[0]
-        keep = (torch.rand((shards * rows, sl * sp) + tuple(x.shape[2:]),
+        keep = (torch.rand((total_rows, sl * sp) + tuple(x.shape[2:]),
                            generator=gen, device=gen.device)
-                >= rate)[coord * rows:(coord + 1) * rows,
+                >= rate)[row0:row0 + rows,
                          j * sl:(j + 1) * sl].to(x.device)
         return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
@@ -889,6 +971,13 @@ class _TrainStep:
     # The JAX attention_shard_coord when some axis shards the attention
     # operands, else None (no fold).
     attn_coord: Optional[int] = None
+    # A pipeline microbatch: this rank's rows [row0, row0 + rows) of the
+    # global microbatch's ``total`` (residual dropout), else None (the
+    # data shard's block).
+    rows: Optional[tuple] = None
+    # The routing group's token count of a microbatch whose ranks' shares
+    # differ in size (models/moe.route), else None.
+    moe_tokens: Optional[int] = None
 
     def __post_init__(self):
         if self.attn_coord is None and self.shard[1] > 1:
@@ -908,6 +997,187 @@ class _TrainStep:
         seed = self.seed()
         return (seed if self.attn_coord is None
                 else fold_seed(seed, self.attn_coord))
+
+
+class _StageHooks:
+    """The model's side of ``parallel/pipeline.execute`` for one stage rank
+    (``GPT.pipeline_step``): the strided microbatches of the rank's rows,
+    the embedding on global stage 0, each chunk's layers with their global
+    indices, and the head (GPipe: the fused loss on the reassembled batch,
+    last stage; 1F1B: this rank's vocabulary slice of a microbatch's head
+    over the stage group).
+
+    Dropout: one seed a step is drawn from ``generator``, and each block's
+    generator is seeded by ``fold_seed(fold_seed(seed, global layer),
+    microbatch)``, so every schedule draws the same masks for a (layer,
+    microbatch); a block's rows are its share of the global microbatch
+    (``_TrainStep.rows``)."""
+
+    def __init__(self, model: "GPT", mesh, sched, input_ids, labels, leaves,
+                 *, train: bool, generator, loss_scale: float):
+        from tpu_trainer_torch.parallel import pipeline as pp
+
+        cfg = model.config
+        self.model, self.mesh, self.sched = model, mesh, sched
+        self.leaves = list(leaves)
+        self.loss_scale = loss_scale
+        self.device = input_ids.device
+        b, s = input_ids.shape
+        self.s = s
+        M = sched.micro
+        coord, shards = model.data_shard
+        if (b * shards) % M:
+            raise ValueError(f"global batch {b * shards} rows not divisible "
+                             f"by pipeline_microbatches {M}")
+        self.rows = pp.micro_rows(b, coord * b, M)
+        # Each microbatch's share before this data shard, and the global
+        # microbatch's rows.
+        self.row0 = [sum(len(pp.micro_rows(b, d * b, M)[m])
+                         for d in range(coord)) for m in range(M)]
+        self.total_rows = b * shards // M
+        uneven = b % M != 0
+        self.idx = [torch.tensor(r, dtype=torch.long, device=self.device)
+                    for r in self.rows]
+        self.ids = [input_ids[i] for i in self.idx]
+        self.labels = [labels[i] for i in self.idx]
+        self.step = model._train_step_of(s, train, generator, None,
+                                         self.device)
+        sp = 1 if self.step.seq is None else self.step.seq[1]
+        self.moe_tokens = ([self.total_rows * s * sp] * M if uneven
+                           else [None] * M)
+        self.layers = model.stage_layers
+        self.chunk = len(self.layers) // sched.virtual
+        self.aux_weight = (1.0 / (M * cfg.num_layers * sp)
+                           if cfg.num_experts > 0 else None)
+        dropout_on = train and (cfg.dropout > 0.0
+                                or cfg.attention_dropout > 0.0)
+        self.seed = self.step.seed() if dropout_on else None
+        self.block = model._block_fn()
+        # The targets of the rank's whole batch (its rows' global shift):
+        # a microbatch's 1F1B head loss is its share of the batch mean.
+        self.denom = float(b * (s * sp - 1))
+
+    def act(self, m: int):
+        return ((len(self.rows[m]), self.s, self.model.config.hidden_size),
+                self.model.config.compute_dtype)
+
+    def _scope(self):
+        model = self.model
+        if model.zero3 is not None and torch.is_grad_enabled():
+            return coll_lib.regather_saved()
+        return contextlib.nullcontext()
+
+    def forward(self, c: int, m: int, x):
+        model = self.model
+        cfg = model.config
+        with self._scope():
+            if x is None:
+                emb = model._leaf("embed_tokens.embedding")
+                x = emb[self.ids[m]].to(cfg.compute_dtype)
+                if telemetry.capturing():
+                    telemetry.record("embed_out", telemetry.site_stats(x))
+            views = model._unstacked_layers()
+            aux = None
+            lo = c * self.chunk
+            for li in range(lo, lo + self.chunk):
+                gl = self.layers[li]
+                gen = None
+                if self.seed is not None:
+                    gen = torch.Generator().manual_seed(
+                        fold_seed(fold_seed(self.seed, gl), m))
+                step = dataclasses.replace(
+                    self.step, generator=gen,
+                    rows=(self.row0[m], self.total_rows),
+                    moe_tokens=self.moe_tokens[m],
+                    telem=[] if telemetry.capturing() else None)
+                x, a = self.block(x, views[li], step)
+                if step.telem:
+                    telemetry.record(f"layer_{gl}", step.telem[0])
+                if a is not None:
+                    aux = a if aux is None else aux + a
+        return x, aux
+
+    def head_batch(self, ys):
+        """The step's loss (CE) on the last stage: the microbatches' outputs
+        put back in row order, the final norm and the fused loss."""
+        model = self.model
+        cfg = model.config
+        x = torch.cat(ys, dim=0)
+        order = torch.cat(self.idx)
+        inv = torch.empty_like(order)
+        inv[order] = torch.arange(order.numel(), device=order.device)
+        x = x[inv]
+        labels = torch.cat(self.labels, dim=0)[inv]
+        with self._scope():
+            emb = model._leaf("embed_tokens.embedding")
+            x = _rms_norm(x, model._leaf("norm.weight"), model.norm.eps,
+                          model.norm.dtype)
+            if telemetry.capturing():
+                telemetry.record("final_norm", telemetry.site_stats(x))
+                if telemetry.capturing(deep=True):
+                    with torch.no_grad():
+                        cd = cfg.compute_dtype
+                        telemetry.record("logits", telemetry.site_stats(
+                            (x.to(cd) @ emb.to(cd).T).float()))
+            seq = self.step.seq
+            seq_shard = (None if seq is None
+                         else (seq[0] * self.s, self.s * seq[1]))
+            if cfg.fused_loss:
+                return fused_shifted_cross_entropy(
+                    emb, x, labels, chunk_size=cfg.loss_chunk_size,
+                    allow_pallas=cfg.fused_loss_pallas, seq_shard=seq_shard)
+            cd = cfg.compute_dtype
+            logits = (x.to(cd) @ emb.to(cd).T).float()
+            return _shifted_loss(logits, labels, None, seq_shard)
+
+    def head_micro(self, y, m: int, last: bool):
+        """This rank's vocabulary slice of microbatch ``m``'s head (the JAX
+        ``head_vjp``) on the broadcast last-stage output ``y``: rows ``[r
+        vs, (r + 1) vs)`` of the tied embedding, the loss the microbatch's
+        share of the batch mean. The slice's cotangent of the normed input
+        stays f32 until its sum over the stage group, then rounds once to
+        the compute dtype, as one process's head rounds it; the last stage
+        (``last``) takes it through the final norm. Returns ``(loss, dy
+        on the last stage else None, gradients of the leaves)``."""
+        from tpu_trainer_torch.ops.loss import (
+            _shift, vocab_sharded_shifted_cross_entropy)
+
+        model = self.model
+        cfg = model.config
+        S, r = self.sched.stages, self.mesh.pp_rank
+        y = y.detach().requires_grad_(last)
+        with self._scope():
+            emb = model._leaf("embed_tokens.embedding")
+            V = emb.shape[0]
+            vs = -(-V // S)
+            e_slice = F.pad(emb, (0, 0, 0, vs * S - V))[r * vs:(r + 1) * vs]
+            xn = _rms_norm(y, model._leaf("norm.weight"), model.norm.eps,
+                           model.norm.dtype)
+            x32 = xn.detach().float().requires_grad_(True)
+            seq = self.step.seq
+            if seq is None:
+                shifted, mask = _shift(self.labels[m], self.s, y.device)
+            else:
+                shifted, mask, _ = shard_shift(
+                    self.labels[m], self.s, (seq[0] * self.s,
+                                             self.s * seq[1]), y.device)
+            loss = vocab_sharded_shifted_cross_entropy(
+                e_slice, x32, shifted, vocab=V, coll=self.mesh.stage,
+                chunk_size=cfg.loss_chunk_size, mask=mask,
+                denom=self.denom, prefix="pp",
+                compute_dtype=cfg.compute_dtype)
+        gs = torch.autograd.grad(loss * self.loss_scale,
+                                 [x32] + self.leaves, allow_unused=True)
+        dxn = self.mesh.stage.all_reduce_sum(gs[0].contiguous(),
+                                             kind="pp_allreduce")
+        grads, dy = list(gs[1:]), None
+        if last:
+            g2 = torch.autograd.grad(xn, [y] + self.leaves,
+                                     dxn.to(xn.dtype), allow_unused=True)
+            dy = g2[0]
+            grads = [b if a is None else a if b is None else a + b
+                     for a, b in zip(grads, g2[1:])]
+        return loss.detach(), dy, grads
 
 
 def _tensor_group(mesh):

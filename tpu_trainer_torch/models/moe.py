@@ -42,7 +42,12 @@ every rank and, in its own choice, the tokens before it in global order
 (``rank_offsets``); ``f`` is the global first-choice fraction (``p``
 stays the rank's own mean, so the ranks' mean aux is the global aux; a
 sequence rank's aux counts ``1 / sp`` of it, as its loss does, in
-``models/gpt.py``). The expert weights are cast through
+``models/gpt.py``). Under a pipeline the ranks' shares of a microbatch
+may differ in size (``parallel/pipeline.micro_rows``): the caller then
+passes ``tokens``, the global micro-batch's count, which the fraction and
+the capacity take in place of ``W T``, and ``p`` (and the z-loss mean)
+become the rank's sums times ``W / tokens``, so the ranks' mean is still
+the global one. The expert weights are cast through
 ``parallel.collectives.derive``, so ZeRO-3 regathers them in the backward
 instead of keeping them.
 
@@ -86,14 +91,16 @@ from tpu_trainer_torch.parallel import context as ctx_lib
 
 
 def route(xt: torch.Tensor, router_kernel: torch.Tensor, cfg: GPTConfig,
-          stats: Optional[dict] = None, group=None, chunks: int = 1):
+          stats: Optional[dict] = None, group=None, chunks: int = 1,
+          tokens: Optional[int] = None):
     """Router of ``xt [T, H]``: ``(gates [T, k] f32, gate_idx [T, k]
     int64, aux scalar f32, counts [W * chunks, k, E] int64)``, ``counts``
     the token count of each (choice, expert) of every chunk of every rank
     of ``group`` (``W`` ranks, 1 without it) in rank order; a rank's
     tokens are ``chunks`` equal chunks in order (its rows under a sequence
     axis, else one). ``stats`` (a dict) receives the first-choice
-    ``load`` and the routing ``entropy``."""
+    ``load`` and the routing ``entropy``. ``tokens``: the routing group's
+    token count when the ranks' counts differ (module docstring)."""
     E, k = cfg.num_experts, cfg.moe_top_k
     T = xt.shape[0]
     world = 1 if group is None else group.world
@@ -109,8 +116,12 @@ def route(xt: torch.Tensor, router_kernel: torch.Tensor, cfg: GPTConfig,
         dim=1)                                                   # [c, k, E]
     if group is not None:
         counts = group.all_gather_leaf(counts, 0, kind="moe_counts")
-    frac = counts[:, 0].sum(dim=0).float() / float(world * T)
-    mean_prob = probs.mean(dim=0)
+    if tokens is None:
+        frac = counts[:, 0].sum(dim=0).float() / float(world * T)
+        mean_prob = probs.mean(dim=0)
+    else:
+        frac = counts[:, 0].sum(dim=0).float() / float(tokens)
+        mean_prob = probs.sum(dim=0) * (world / float(tokens))
     aux = cfg.moe_aux_weight * E * torch.sum(frac * mean_prob)
     if stats is not None:
         with torch.no_grad():
@@ -124,7 +135,9 @@ def route(xt: torch.Tensor, router_kernel: torch.Tensor, cfg: GPTConfig,
                 stats["mean_prob"] = mp
     if cfg.router_z_weight > 0.0:
         z = torch.logsumexp(logits, dim=-1)
-        aux = aux + cfg.router_z_weight * torch.mean(z * z)
+        zz = (torch.mean(z * z) if tokens is None
+              else torch.sum(z * z) * (world / float(tokens)))
+        aux = aux + cfg.router_z_weight * zz
     return gates, gate_idx, aux, counts
 
 
@@ -195,13 +208,15 @@ def _to_experts(t: torch.Tensor, group) -> torch.Tensor:
 
 def moe_ffn(x: torch.Tensor, router_kernel: torch.Tensor,
             w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
-            cfg: GPTConfig, router_stats: Optional[dict] = None, group=None
+            cfg: GPTConfig, router_stats: Optional[dict] = None, group=None,
+            tokens: Optional[int] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One layer's MoE FFN by ``cfg.moe_impl``: ``capacity_moe`` or
-    ``dropless_moe``."""
+    ``dropless_moe`` (``tokens``: ``route``'s)."""
     fn = dropless_moe if cfg.moe_impl == "dropless" else capacity_moe
+    kw = {} if tokens is None else {"tokens": tokens}
     return fn(x, router_kernel, w_gate, w_up, w_down, cfg,
-              router_stats=router_stats, group=group)
+              router_stats=router_stats, group=group, **kw)
 
 
 # -- the dropless router ------------------------------------------------------
@@ -226,7 +241,8 @@ def dispatch(gate_idx: torch.Tensor, num_experts: int, first: int = 0):
 def dropless_moe(x: torch.Tensor, router_kernel: torch.Tensor,
                  w_gate: torch.Tensor, w_up: torch.Tensor,
                  w_down: torch.Tensor, cfg: GPTConfig,
-                 router_stats: Optional[dict] = None, group=None
+                 router_stats: Optional[dict] = None, group=None,
+                 tokens: Optional[int] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The dropless MoE FFN of one layer on ``x [b, s, H]`` (compute
     dtype): ``(out [b, s, H], aux)``, before the residual dropout.
@@ -240,7 +256,8 @@ def dropless_moe(x: torch.Tensor, router_kernel: torch.Tensor,
     world = 1 if group is None else group.world
     xt = x.reshape(b * s, H)
     gates, gate_idx, aux, every = route(xt, router_kernel, cfg,
-                                        stats=router_stats, group=group)
+                                        stats=router_stats, group=group,
+                                        tokens=tokens)
     first, ranks, _ = _expert_layout(w_gate, cfg)
     local = w_gate.shape[0]
     counts, perm, inv_perm = dispatch(gate_idx, cfg.num_experts, first)
@@ -385,7 +402,8 @@ class _CombineRows(torch.autograd.Function):
 def capacity_moe(x: torch.Tensor, router_kernel: torch.Tensor,
                  w_gate: torch.Tensor, w_up: torch.Tensor,
                  w_down: torch.Tensor, cfg: GPTConfig,
-                 router_stats: Optional[dict] = None, group=None
+                 router_stats: Optional[dict] = None, group=None,
+                 tokens: Optional[int] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The capacity MoE FFN of one layer on ``x [b, s, H]`` (compute
     dtype): ``(out [b, s, H], aux)``, before the residual dropout (the
@@ -405,8 +423,8 @@ def capacity_moe(x: torch.Tensor, router_kernel: torch.Tensor,
     xt = x.reshape(T, H)
     gates, gate_idx, aux, counts = route(xt, router_kernel, cfg,
                                          stats=router_stats, group=group,
-                                         chunks=rows)
-    C = capacity(cfg, world * T)
+                                         chunks=rows, tokens=tokens)
+    C = capacity(cfg, world * T if tokens is None else tokens)
     pos, keep = capacity_positions(gate_idx, counts, rank, C, rows, sp)
     if router_stats is not None:
         with torch.no_grad():
@@ -447,7 +465,7 @@ def capacity_moe(x: torch.Tensor, router_kernel: torch.Tensor,
                              device=x.device)
         slot_tc[flat_ids.reshape(-1)] = tc.reshape(-1)
         slot_tc = slot_tc[:local * C]
-        slot_token = torch.where(slot_tc == k * T, T, slot_tc % T)
+        slot_token = torch.where(slot_tc == k * T, T, slot_tc % max(T, 1))
         expert_in = _DispatchRows.apply(xin, slot_token,
                                         flat_ids).reshape(local, C, H)
 

@@ -65,26 +65,33 @@ def param_specs(config: GPTConfig) -> Dict[str, tuple]:
     return {n: (tuple(p.shape), p.dtype) for n, p in model.named_parameters()}
 
 
-def _rank_slices(config: GPTConfig, tensor: tuple, expert: tuple):
+def _rank_slices(config: GPTConfig, tensor: tuple, expert: tuple,
+                 stage: tuple = (0, 1)):
     """``name -> fn(global leaf) -> this rank's slice`` for tensor rank
-    ``tensor[0]`` of ``tensor[1]`` and expert rank ``expert[0]`` of
-    ``expert[1]`` (``parallel/sharding.leaf_specs``)."""
+    ``tensor[0]`` of ``tensor[1]``, expert rank ``expert[0]`` of
+    ``expert[1]`` and stage rank ``stage[0]`` of ``stage[1]`` (its layers
+    under ``config``'s schedule; ``parallel/sharding.leaf_specs``)."""
+    from tpu_trainer_torch.parallel.pipeline import virtual_stages
     from tpu_trainer_torch.parallel.sharding import leaf_specs, local_slice
 
     specs = leaf_specs({n: s for n, (s, _) in param_specs(config).items()},
-                       "replicated", 1, tensor[1], expert[1])
-    return {n: (lambda a, sp=sp: local_slice(a, sp, tensor[0], expert[0]))
+                       "replicated", 1, tensor[1], expert[1], stage[1],
+                       virtual_stages(config))
+    return {n: (lambda a, sp=sp: local_slice(a, sp, tensor[0], expert[0],
+                                             stage[0]))
             for n, sp in specs.items()}
 
 
 def from_jax_params(tree, config: GPTConfig, device=None, *,
-                    tensor: tuple = (0, 1), expert: tuple = (0, 1)
-                    ) -> Dict[str, torch.Tensor]:
+                    tensor: tuple = (0, 1), expert: tuple = (0, 1),
+                    stage: tuple = (0, 1)) -> Dict[str, torch.Tensor]:
     """State dict for ``GPT(config)`` from a Flax param tree (nested
     dicts of numpy arrays, e.g. ``jax.tree.map(np.asarray, params)`` or
     ``load_params_npz``). Raises on a missing, extra or misshaped leaf.
-    ``tensor=(rank, size)`` / ``expert=(rank, size)``: a rank's slices of
-    the leaves those axes split (its Megatron slice, its experts)."""
+    ``tensor=(rank, size)`` / ``expert=(rank, size)`` / ``stage=(rank,
+    size)``: a rank's slices of the leaves those axes split (its Megatron
+    slice, its experts, its stage's layers by global index: a block, or
+    its chunks under the interleaved schedule)."""
     dev = resolve_device(device)
     flat = _flatten(tree)
     want = param_specs(config)
@@ -97,7 +104,7 @@ def from_jax_params(tree, config: GPTConfig, device=None, *,
             f"param tree does not match GPT({config.hidden_size=}, "
             f"{config.num_layers=}): missing {missing}, extra {extra}, "
             f"misshaped {[(n, flat[n].shape, want[n][0]) for n in bad]}")
-    cut = _rank_slices(config, tensor, expert)
+    cut = _rank_slices(config, tensor, expert, stage)
     return {
         n: torch.from_numpy(np.array(cut[n](np.asarray(flat[n])),
                                      np.float32)).to(device=dev, dtype=dtype)

@@ -158,38 +158,39 @@ class _ChunkedCEVShard(torch.autograd.Function):
     ``copy_to_tensor``)."""
 
     @staticmethod
-    def forward(ctx, e_slice, x, labels, mask, chunk, coll, vocab, denom):
+    def forward(ctx, e_slice, x, labels, mask, chunk, coll, vocab, denom,
+                prefix, cdtype):
         b, s, _ = x.shape
         vs = e_slice.shape[0]
-        e32 = e_slice.to(x.dtype).float()
+        e32 = e_slice.to(cdtype).float()
         off, col_ok = _vshard_cols(vs, vocab, coll.rank, x.device)
         total = torch.zeros((), dtype=torch.float32, device=x.device)
         lses = []
         for c0 in range(0, s, chunk):
             xc = x[:, c0:c0 + chunk].float()
             lg = torch.where(col_ok, xc @ e32.T, _NEG)        # [b, c, vs]
-            m = coll.all_reduce_max(lg.amax(dim=-1))
+            m = coll.all_reduce_max(lg.amax(dim=-1), kind=f"{prefix}_max")
             se = torch.exp(lg - m[..., None]).sum(dim=-1)
             lcol = labels[:, c0:c0 + chunk].long() - off
             inside = (lcol >= 0) & (lcol < vs)
             ll = torch.where(inside, lg.gather(
                 -1, lcol.clamp(0, vs - 1)[..., None])[..., 0], 0.0)
             se, ll = coll.all_reduce_sum(torch.stack([se, ll]),
-                                         kind="tp_allreduce")
+                                         kind=f"{prefix}_allreduce")
             lse = m + torch.log(se)
             total = total + ((lse - ll) * mask[:, c0:c0 + chunk]).sum()
             lses.append(lse)
         ctx.save_for_backward(e_slice, x, labels, mask, torch.cat(lses, 1))
-        ctx.opts = (chunk, coll.rank, vocab, denom)
+        ctx.opts = (chunk, coll.rank, vocab, denom, cdtype)
         return total / denom
 
     @staticmethod
     def backward(ctx, g):
         e_slice, x, labels, mask, lse = ctx.saved_tensors
-        chunk, rank, vocab, denom = ctx.opts
+        chunk, rank, vocab, denom, cdtype = ctx.opts
         b, s, h = x.shape
         vs = e_slice.shape[0]
-        e32 = e_slice.to(x.dtype).float()
+        e32 = e_slice.to(cdtype).float()
         off, col_ok = _vshard_cols(vs, vocab, rank, x.device)
         scale = g / denom
         de = torch.zeros((vs, h), dtype=torch.float32, device=x.device)
@@ -203,26 +204,33 @@ class _ChunkedCEVShard(torch.autograd.Function):
             inside = (lcol >= 0) & (lcol < vs)
             p.scatter_add_(-1, lcol.clamp(0, vs - 1)[..., None],
                            -inside[..., None].float())
-            dlg = (p * (mask[:, sl] * scale)[..., None]).to(x.dtype).float()
+            dlg = (p * (mask[:, sl] * scale)[..., None]).to(cdtype).float()
             dx[:, sl] = (dlg @ e32).to(x.dtype)
             de += torch.einsum("bcv,bch->vh", dlg, xc)
         return (de.to(e_slice.dtype), dx, None, None, None, None, None,
-                None)
+                None, None, None)
 
 
 def vocab_sharded_shifted_cross_entropy(
         e_slice: torch.Tensor, x: torch.Tensor, labels: torch.Tensor, *,
         vocab: int, coll, chunk_size: int = 0,
         mask: Optional[torch.Tensor] = None,
-        denom=None) -> torch.Tensor:
+        denom=None, prefix: str = "tp",
+        compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """``fused_shifted_cross_entropy`` with the head sharded over the
-    tensor group ``coll``: this rank holds rows ``[r * vs, (r + 1) * vs)``
-    of the embedding (``vs = e_slice.shape[0]``, zero rows past
-    ``vocab``). ``labels [b, s]`` unshifted (``mask`` given: already
-    shifted, with ``mask`` the targets kept); the loss comes back the same
-    on every rank of the group, ``x``'s gradient is this rank's part
-    (``_tp_loss`` sums it). ``denom``: the mean's count (default the kept
-    targets, at least 1)."""
+    group ``coll`` (the tensor group, or the stage group of the 1F1B
+    head): this rank holds rows ``[r * vs, (r + 1) * vs)`` of the
+    embedding (``vs = e_slice.shape[0]``, zero rows past ``vocab``).
+    ``labels [b, s]`` unshifted (``mask`` given: already shifted, with
+    ``mask`` the targets kept); the loss comes back the same on every rank
+    of the group, ``x``'s gradient is this rank's part (``_tp_loss`` sums
+    it). ``denom``: the mean's count (default the kept targets, at least
+    1). The collectives count as ``<prefix>_max`` and
+    ``<prefix>_allreduce`` (``tp``, or ``pp`` over the stage group).
+    ``compute_dtype`` (default ``x``'s): the dtype the embedding slice and
+    the logits' cotangent round to; an f32 ``x`` holding compute-dtype
+    values then gives an f32 partial ``dx``, rounded once after the
+    ranks' sum (the 1F1B head)."""
     b, s, _ = x.shape
     if mask is None:
         labels, mask = _shift(labels, s, x.device)
@@ -230,7 +238,7 @@ def vocab_sharded_shifted_cross_entropy(
         denom = torch.clamp(mask.sum(), min=1.0)
     return _ChunkedCEVShard.apply(e_slice, x, labels, mask.contiguous(),
                                   _chunk_len(b, s, chunk_size), coll, vocab,
-                                  denom)
+                                  denom, prefix, compute_dtype or x.dtype)
 
 
 def _tp_loss(emb: torch.Tensor, x: torch.Tensor, shifted: torch.Tensor,

@@ -65,8 +65,10 @@ MoE layers' all-gathers of their routing counts, ``models/moe.py``,
 count as ``moe_counts``, their sums over the expert and tensor ranks as
 ``moe_allreduce``; the tensor-parallel ones as ``tp_allreduce``,
 ``tp_gather``, ``tp_alltoall`` and ``tp_max``, the ring's as
-``ring_permute``), and ``regather_saved``, the saved tensors that
-autograd kept as a recipe.
+``ring_permute``, the pipeline's point-to-point sends as ``pp_send``, its
+head's broadcast and sums over the stage group as ``pp_bcast``,
+``pp_allreduce`` and ``pp_max``), and ``regather_saved``, the saved
+tensors that autograd kept as a recipe.
 """
 
 from __future__ import annotations
@@ -256,11 +258,65 @@ class Collectives:
             r.wait()
         return self._from_wire(out, t).clone()
 
+    # -- point to point (the pipeline) ----------------------------------------
+
+    def send(self, t: torch.Tensor, to: int, tag: int = 0,
+             kind: str = "pp_send"):
+        """Post ``t`` to group rank ``to``; returns a function that waits
+        for the send. On gloo a CUDA tensor is copied to a host buffer of
+        its own (several sends may be in flight)."""
+        wire = t.detach().contiguous()
+        if self._stage(wire):
+            wire = wire.to("cpu")
+        self._count(kind, wire)
+        if wire.numel() == 0:
+            return lambda: None
+        req = dist.isend(wire, self.ranks[to], group=self.group, tag=tag)
+
+        def wait():
+            req.wait()
+            wire.numel()        # the buffer lives until the send is done
+        return wait
+
+    def recv(self, shape, dtype, device, frm: int, tag: int = 0):
+        """Post a receive of a ``shape`` / ``dtype`` tensor from group rank
+        ``frm``; returns a function that waits and gives it on
+        ``device``."""
+        dev = torch.device(device)
+        host = self.backend == "gloo" and dev.type == "cuda"
+        buf = torch.empty(shape, dtype=dtype, device="cpu" if host else dev)
+        if buf.numel() == 0:
+            return lambda: buf.to(dev)
+        req = dist.irecv(buf, self.ranks[frm], group=self.group, tag=tag)
+
+        def wait():
+            req.wait()
+            return buf.to(dev)
+        return wait
+
+    def broadcast(self, t: torch.Tensor, src: int,
+                  kind: str = "pp_bcast") -> torch.Tensor:
+        """Group rank ``src``'s ``t`` on every rank (``t`` elsewhere only
+        gives the shape and dtype)."""
+        if self.world == 1:
+            return t
+        wire = t.detach().contiguous()
+        if self._stage(wire):
+            wire = wire.to("cpu")
+        elif self.rank == src:
+            wire = wire.clone()
+        if self.rank == src:
+            self._count(kind, wire)
+        if wire.numel():
+            dist.broadcast(wire, self.ranks[src], group=self.group)
+        return wire.to(t.device)
+
 
 class Topology:
-    """Rank ``r``'s place on a ``(data, fsdp, sequence, tensor, expert)``
-    mesh (row-major over ``mesh.MESH_AXES``, expert innermost) and its
-    groups, each the ranks that share every coordinate but the named ones:
+    """Rank ``r``'s place on a ``(data, fsdp, sequence, tensor, expert,
+    stage)`` mesh (row-major over ``mesh.MESH_AXES``, stage innermost) and
+    its groups, each the ranks that share every coordinate but the named
+    ones:
 
     - ``fsdp`` (varying fsdp: ZeRO shards over it), ``data`` (varying
       data: the replicas HYBRID_SHARD all-reduces over), ``dp`` (varying
@@ -274,23 +330,27 @@ class Topology:
       the ranks that hold distinct tokens) and ``rep_data`` (varying data
       and sequence: the same after the fsdp reduce-scatter). Neither
       varies tensor or expert: a leaf replicated there has the same
-      gradient on every such rank.
+      gradient on every such rank;
+    - ``stage`` (varying stage: the pipeline's ranks, which hold a data
+      shard's layers between them; ``rep`` and ``rep_data`` never vary
+      it, and a leaf outside the layer stack sums its partial gradients
+      over it once).
 
     At sequence = tensor = expert = 1, ``rep`` is ``dp`` and ``rep_data``
     is ``data``. Every rank creates every group, in one order."""
 
     def __init__(self, data: int, fsdp: int, sequence: int = 1,
-                 tensor: int = 1, expert: int = 1):
-        sizes = (data, fsdp, sequence, tensor, expert)
+                 tensor: int = 1, expert: int = 1, stage: int = 1):
+        sizes = (data, fsdp, sequence, tensor, expert, stage)
         world = math.prod(sizes)
         rank = mesh_lib.process_index()
         self.sizes = sizes
         self.data_size, self.fsdp_size = data, fsdp
         self.sequence_size, self.tensor_size = sequence, tensor
-        self.expert_size = expert
+        self.expert_size, self.stage_size = expert, stage
         (self.data_coord, self.fsdp_coord, self.sequence_coord,
-         self.tensor_coord, self.expert_coord) = mesh_lib.mesh_coords(
-            sizes, rank)
+         self.tensor_coord, self.expert_coord,
+         self.stage_coord) = mesh_lib.mesh_coords(sizes, rank)
         timeout = mesh_lib.collective_timeout()
         made: Dict[tuple, object] = {}
 
@@ -331,6 +391,7 @@ class Topology:
         self.expert_tensor = coll((3, 4))
         self.rep = coll((0, 1, 2))
         self.rep_data = coll((0, 2))
+        self.stage = coll((5,))
 
     @property
     def dp_rank(self) -> int:
@@ -342,13 +403,15 @@ _TOPOLOGIES: Dict[tuple, Topology] = {}
 
 
 def topology(data: int, fsdp: int, sequence: int = 1, tensor: int = 1,
-             expert: int = 1) -> Topology:
+             expert: int = 1, stage: int = 1) -> Topology:
     """The ``Topology`` of this process group for the mesh, made once (a
     trainer rebuilt after a rollback reuses its groups; every rank
     rebuilds in step)."""
-    key = (data, fsdp, sequence, tensor, expert, mesh_lib.process_count())
+    key = (data, fsdp, sequence, tensor, expert, stage,
+           mesh_lib.process_count())
     if key not in _TOPOLOGIES:
-        _TOPOLOGIES[key] = Topology(data, fsdp, sequence, tensor, expert)
+        _TOPOLOGIES[key] = Topology(data, fsdp, sequence, tensor, expert,
+                                    stage)
     return _TOPOLOGIES[key]
 
 

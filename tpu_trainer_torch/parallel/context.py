@@ -2,7 +2,8 @@
 of ``tpu_trainer/parallel/context.py``).
 
 The JAX package publishes its mesh while it traces a step, so the model's
-ops can ask what the ``tensor``, ``sequence`` and ``expert`` axes are.
+ops can ask what the ``tensor``, ``sequence``, ``expert`` and ``stage``
+axes are.
 Eager PyTorch traces nothing: ``use_mesh(ctx)`` is a plain module-level
 scope around a forward (and the backward that runs inside it), and
 ``current_mesh()`` returns its ``MeshContext`` or None. The scope holds
@@ -21,6 +22,7 @@ from tpu_trainer_torch.parallel.mesh import (
     EXPERT_AXIS,
     MESH_AXES,
     SEQUENCE_AXIS,
+    STAGE_AXIS,
     TENSOR_AXIS,
 )
 
@@ -34,7 +36,10 @@ class MeshContext:
     ring's permute over it (``collectives.SequencePermute``). ``expert``:
     likewise along ``expert``; ``expert_tensor`` the ranks that vary in
     their tensor and expert coordinates (a MoE layer's local experts sum
-    their output over it), None when both sizes are 1."""
+    their output over it), None when both sizes are 1. ``stage``: likewise
+    along ``stage`` (the pipeline's ranks; their point-to-point sends and
+    the 1F1B head's vocabulary slices run over it), ``schedule`` its
+    ``parallel/pipeline.Schedule`` (None at stage size 1)."""
 
     sizes: tuple
     coords: tuple
@@ -43,6 +48,8 @@ class MeshContext:
     permute: Optional[object] = None
     expert: Optional[object] = None
     expert_tensor: Optional[object] = None
+    stage: Optional[object] = None
+    schedule: Optional[object] = None
 
     def _axis(self, name: str) -> int:
         return MESH_AXES.index(name)
@@ -70,6 +77,14 @@ class MeshContext:
     @property
     def ep_rank(self) -> int:
         return self.coords[self._axis(EXPERT_AXIS)]
+
+    @property
+    def pp(self) -> int:
+        return self.sizes[self._axis(STAGE_AXIS)]
+
+    @property
+    def pp_rank(self) -> int:
+        return self.coords[self._axis(STAGE_AXIS)]
 
 
 _ACTIVE: Optional[MeshContext] = None

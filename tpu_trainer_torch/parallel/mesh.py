@@ -5,18 +5,17 @@ the collectives; the port runs one process a device and does the
 collectives itself (``parallel/collectives.py``). What carries over:
 
 - ``MeshConfig`` and ``resolve``: the six axes, ``-1`` = the rest, the
-  same errors. ``data``, ``fsdp``, ``sequence``, ``tensor`` and
-  ``expert`` run here; ``stage`` above 1 raises ``NotImplementedError``
-  naming its ROADMAP Queue 1 entry (``check_ported``).
+  same errors. All six run here (``UNPORTED_AXES`` is empty, and
+  ``check_ported`` refuses nothing).
 - Rank ``r`` sits at the row-major coordinate of ``MESH_AXES``
-  (``mesh_coords``: expert innermost, then tensor, sequence, fsdp, data,
-  as ``make_mesh`` lays out one device a process). The batch rows shard
-  over ``data x fsdp`` jointly, so the ranks of data shard ``d * fsdp +
-  f`` load row block ``d * fsdp + f``; the ranks along ``sequence``,
-  ``tensor`` and ``expert`` load the same rows (``host_feed_info``) and a
-  sequence rank keeps its slice of the columns
-  (``training/trainer.py``). The expert axis shards no attention
-  operand, so it adds nothing to ``attention_shard_coord``.
+  (``mesh_coords``: stage innermost, then expert, tensor, sequence, fsdp,
+  data, as ``make_mesh`` lays out one device a process). The batch rows
+  shard over ``data x fsdp`` jointly, so the ranks of data shard ``d *
+  fsdp + f`` load row block ``d * fsdp + f``; the ranks along
+  ``sequence``, ``tensor``, ``expert`` and ``stage`` load the same rows
+  (``host_feed_info``) and a sequence rank keeps its slice of the
+  columns (``training/trainer.py``). The expert and stage axes shard no
+  attention operand, so they add nothing to ``attention_shard_coord``.
 - ``attention_shard_spec`` / ``attention_shard_coord``: which of the
   attention operands' dims shard (batch over ``data x fsdp`` when it
   divides, heads over ``tensor`` when both head counts divide) and the
@@ -59,10 +58,8 @@ MESH_AXES = (
 )
 
 # The ROADMAP Queue 1 entries (by title: re-anchors renumber the queue)
-# that own the axes this port does not run yet.
-UNPORTED_AXES = {
-    STAGE_AXIS: "ROADMAP Queue 1: pipeline and expert parallelism",
-}
+# that own the axes this port does not run yet: none is left.
+UNPORTED_AXES: dict = {}
 
 _DEFAULT_TIMEOUT_S = 600
 
@@ -297,7 +294,8 @@ def host_feed_info(sizes: tuple, rows: int, *, process_of_device=None,
     The mesh's devices ``0 .. prod(sizes) - 1`` lie row-major over
     ``MESH_AXES``; a device's rows are block ``data_coord * fsdp +
     fsdp_coord`` of ``rows`` (every other axis replicates them: the ranks
-    along ``sequence``, ``tensor`` and ``expert`` load identical rows).
+    along ``sequence``, ``tensor``, ``expert`` and ``stage`` load
+    identical rows).
     Processes whose devices cover the same rows form one feed group and
     load the same rows; groups are ranked by their first row.
     ``process_of_device`` maps a device id to its process (default: one

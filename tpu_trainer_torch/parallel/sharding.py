@@ -34,8 +34,17 @@ divides ``E`` (``expert_dim``, the JAX ``_expert_dim``), and their FFN dim
 over ``tensor`` by the table; the router stays replicated. The order is
 the JAX ``_leaf_spec``'s: expert, tensor, then fsdp over the dims left.
 Rank ``x`` of the expert axis holds experts ``[x E / ep, (x + 1) E /
-ep)``. The stage branch belongs to an axis this port does not run yet
-(``parallel/mesh.check_ported``).
+ep)``.
+
+**Pipeline parallelism**: a stacked ``layers.*`` leaf ``[L, ...]`` shards
+its leading dim over ``stage`` when the stage size divides ``L`` (the JAX
+``_leaf_spec``'s first rule); everything outside the stack (the tied
+embedding, the final norm) is replicated there, and the router, a layer
+leaf, goes with its stage. The order is stage, then expert, tensor and
+fsdp over the dims left. Stage rank ``s`` holds the layers
+``parallel/pipeline.stage_layers`` names: a contiguous block of ``L / S``,
+or under the interleaved schedule its ``v`` chunks (``virtual``), in
+chunk order (``stage_slice``).
 """
 
 from __future__ import annotations
@@ -43,7 +52,12 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List, Optional, Tuple
 
-from tpu_trainer_torch.parallel.mesh import EXPERT_AXIS, FSDP_AXIS, TENSOR_AXIS
+from tpu_trainer_torch.parallel.mesh import (
+    EXPERT_AXIS,
+    FSDP_AXIS,
+    STAGE_AXIS,
+    TENSOR_AXIS,
+)
 
 # Megatron-style tensor-parallel placement by parameter-name suffix (the
 # JAX table): column-parallel shards the output dim (last), row-parallel
@@ -134,12 +148,14 @@ def fsdp_spec(shape, fsdp_size: int) -> Tuple[Optional[str], ...]:
 
 @dataclasses.dataclass(frozen=True)
 class LeafSpec:
-    """Where one leaf is split: ``tensor_dim`` over the tensor axis (size
-    ``tensor``) and ``expert_dim`` over the expert axis (size ``expert``;
-    params, grads and moments alike, every strategy), ``param_dim`` over
-    fsdp for the master parameter (ZeRO-3), ``state_dim`` over fsdp for
-    its gradient and Adam moments (ZeRO-2 and ZeRO-3); None is whole.
-    ``shape`` is the global shape; ``world`` is the fsdp size."""
+    """Where one leaf is split: ``stage_dim`` over the stage axis (size
+    ``stage``, ``virtual`` chunks a rank), ``tensor_dim`` over the tensor
+    axis (size ``tensor``) and ``expert_dim`` over the expert axis (size
+    ``expert``; params, grads and moments alike, every strategy),
+    ``param_dim`` over fsdp for the master parameter (ZeRO-3),
+    ``state_dim`` over fsdp for its gradient and Adam moments (ZeRO-2 and
+    ZeRO-3); None is whole. ``shape`` is the global shape; ``world`` is
+    the fsdp size."""
 
     shape: tuple
     param_dim: Optional[int]
@@ -149,14 +165,27 @@ class LeafSpec:
     tensor: int = 1
     expert_dim: Optional[int] = None
     expert: int = 1
+    stage_dim: Optional[int] = None
+    stage: int = 1
+    virtual: int = 1
 
     @property
     def tp_shape(self) -> tuple:
-        """A rank's shape of the leaf before any fsdp split: its tensor
-        and expert slices."""
+        """A rank's shape of the leaf before any fsdp split: its stage,
+        tensor and expert slices."""
         return tuple(n // self.tensor if i == self.tensor_dim
-                     else n // self.expert if i == self.expert_dim else n
+                     else n // self.expert if i == self.expert_dim
+                     else n // self.stage if i == self.stage_dim else n
                      for i, n in enumerate(self.shape))
+
+    def stage_layers(self, rank: int) -> List[int]:
+        """The global layers stage rank ``rank`` holds, in local order
+        (all of them when the stage axis does not split the leaf)."""
+        from tpu_trainer_torch.parallel.pipeline import stage_layers
+
+        if self.stage_dim is None:
+            return list(range(self.shape[0]))
+        return stage_layers(self.shape[0], self.stage, self.virtual, rank)
 
     def shard_shape(self, dim: Optional[int]) -> tuple:
         """A rank's shape of the leaf split on fsdp dim ``dim`` (None:
@@ -168,6 +197,8 @@ class LeafSpec:
         """The JAX ``PartitionSpec`` of the leaf with fsdp dim ``dim``, as
         ``tuple(P(...))`` gives it (``()`` when replicated)."""
         axes = [None] * len(self.shape)
+        if self.stage_dim is not None:
+            axes[self.stage_dim] = STAGE_AXIS
         if self.expert_dim is not None:
             axes[self.expert_dim] = EXPERT_AXIS
         if self.tensor_dim is not None:
@@ -177,27 +208,40 @@ class LeafSpec:
         return () if all(a is None for a in axes) else tuple(axes)
 
 
+def stage_dim(name: str, shape, stage_size: int) -> Optional[int]:
+    """0 for a stacked ``layers.*`` leaf whose layer count the stage size
+    (above 1) divides, else None (the JAX ``_leaf_spec`` stage rule)."""
+    if (stage_size <= 1 or not shape or name.split(".")[0] != "layers"
+            or shape[0] % stage_size):
+        return None
+    return 0
+
+
 def leaf_specs(shapes: Dict[str, tuple], strategy: str,
-               fsdp_size: int, tensor_size: int = 1, expert_size: int = 1
+               fsdp_size: int, tensor_size: int = 1, expert_size: int = 1,
+               stage_size: int = 1, virtual: int = 1
                ) -> Dict[str, LeafSpec]:
     """The per-leaf split of params, grads and moments under ``strategy``
     (reference or canonical spelling) on an fsdp axis of ``fsdp_size``, a
-    tensor axis of ``tensor_size`` and an expert axis of ``expert_size``:
-    the expert dim by ``expert_dim`` and the tensor dim by ``tensor_dim``
-    in every strategy; then params shard over fsdp under zero3 only, grads
-    and moments under zero2 and zero3, every one by ``fsdp_dim`` over the
-    dims the expert and tensor axes left."""
+    tensor axis of ``tensor_size``, an expert axis of ``expert_size`` and
+    a stage axis of ``stage_size`` (``virtual`` chunks a rank): the stage
+    dim by ``stage_dim``, the expert dim by ``expert_dim`` and the tensor
+    dim by ``tensor_dim`` in every strategy; then params shard over fsdp
+    under zero3 only, grads and moments under zero2 and zero3, every one
+    by ``fsdp_dim`` over the dims the other axes left."""
     strategy = canonical_strategy(strategy)
     out = {}
     for name, shape in shapes.items():
+        g = stage_dim(name, shape, stage_size)
         e = expert_dim(name, shape, expert_size)
         t = tensor_dim(name, shape, tensor_size)
         if t == e:
             t = None
-        d = (fsdp_dim(shape, fsdp_size, exclude={e, t} - {None})
+        d = (fsdp_dim(shape, fsdp_size, exclude={g, e, t} - {None})
              if strategy in ("zero2", "zero3") else None)
         out[name] = LeafSpec(tuple(shape), d if strategy == "zero3" else None,
-                             d, fsdp_size, t, tensor_size, e, expert_size)
+                             d, fsdp_size, t, tensor_size, e, expert_size,
+                             g, stage_size, virtual if g is not None else 1)
     return out
 
 
@@ -220,9 +264,22 @@ def expert_slice(arr, spec: LeafSpec, rank: int):
     return _slice(arr, spec.expert_dim, spec.expert, rank)
 
 
+def stage_slice(arr, spec: LeafSpec, rank: int):
+    """Stage rank ``rank``'s layers of a leaf ``arr`` (numpy or torch), in
+    its local order; the leaf itself when the stage axis does not split
+    it."""
+    if spec.stage_dim is None:
+        return arr
+    idx = spec.stage_layers(rank)
+    lo = idx[0]
+    if idx == list(range(lo, lo + len(idx))):
+        return arr[lo:lo + len(idx)]
+    return arr[idx]
+
+
 def local_slice(arr, spec: LeafSpec, tensor_rank: int = 0,
-                expert_rank: int = 0):
-    """A rank's slice of a global leaf before any fsdp split: its experts,
-    and of them its tensor slice."""
-    return tensor_slice(expert_slice(arr, spec, expert_rank), spec,
-                        tensor_rank)
+                expert_rank: int = 0, stage_rank: int = 0):
+    """A rank's slice of a global leaf before any fsdp split: its stage's
+    layers, of them its experts, and of those its tensor slice."""
+    return tensor_slice(expert_slice(stage_slice(arr, spec, stage_rank),
+                                     spec, expert_rank), spec, tensor_rank)

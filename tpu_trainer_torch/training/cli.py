@@ -573,7 +573,6 @@ def resolve_configs(args, mode: str = "ddp"):
 # The ROADMAP Queue 1 entries (by title: re-anchors renumber the queue)
 # that own the options this port does not run yet.
 _ITEM_PLANNER = "ROADMAP Queue 1: the planner"
-_ITEM_PIPELINE = "ROADMAP Queue 1: pipeline and expert parallelism"
 
 
 def check_supported(args, model_config: GPTConfig,
@@ -587,9 +586,7 @@ def check_supported(args, model_config: GPTConfig,
     for flag, on, item in (
             ("--mesh auto", args.mesh is not None, _ITEM_PLANNER),
             ("--hbm_gb", args.hbm_gb is not None, _ITEM_PLANNER),
-            ("--no_comms_model", bool(args.no_comms_model), _ITEM_PLANNER),
-            ("--pipeline_microbatches",
-             model_config.pipeline_microbatches > 0, _ITEM_PIPELINE)):
+            ("--no_comms_model", bool(args.no_comms_model), _ITEM_PLANNER)):
         if on:
             later.append((flag, item))
     if later:
@@ -908,7 +905,9 @@ def _run_training(argv, mode: str, owned: dict) -> int:
                  if trainer.mesh_sizes[2] * trainer.mesh_sizes[3] > 1
                  else "")
               + (f", expert = {trainer.mesh_sizes[4]}"
-                 if trainer.mesh_sizes[4] > 1 else "") + " | model: "
+                 if trainer.mesh_sizes[4] > 1 else "")
+              + (f", stage = {trainer.mesh_sizes[5]}"
+                 if trainer.mesh_sizes[5] > 1 else "") + " | model: "
               f"{model_config.num_parameters():,} params | batch "
               f"{training_config.gradient_accumulation_steps} x "
               f"{training_config.batch_size} seqs x "
@@ -920,6 +919,12 @@ def _run_training(argv, mode: str, owned: dict) -> int:
               + (f" | MoE: {moe_lib.describe(model_config,
                                              trainer.mesh_sizes[4])}"
                  if model_config.num_experts > 0 else ""), flush=True)
+    sched = trainer.schedule
+    if main and sched is not None:
+        print(f"pipeline: {sched.kind} schedule, {sched.stages} stages, "
+              f"M={sched.micro} microbatches, v={sched.virtual}, window "
+              f"W={sched.window}, bubble fraction {sched.bubble:.3f}",
+              flush=True)
     if main and trainer.cpu_offload and trainer.offload_resident_bytes:
         print(f"partial offload: "
               f"{trainer.offload_resident_bytes / 2**30:.2f} GB of "

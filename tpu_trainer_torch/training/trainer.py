@@ -116,6 +116,24 @@ on every expert rank and is summed over ``rep`` alone, as under tensor;
 an expert leaf's is the rank's slice. The checks are the JAX trainer's:
 an expert axis above 1 needs ``num_experts > 0`` dividing by it.
 
+**Stage axis** (``mesh.stage``, innermost; ``parallel/pipeline.py``).
+Each rank holds its stage's layers of the stacked leaves (a block, or
+its chunks under the interleaved schedule) and the embedding and final
+norm whole; the ranks along it read the same rows. A micro-batch of the
+step runs as ``pipeline_microbatches`` strided microbatches through the
+schedule the model config names (``GPT.pipeline_step``: GPipe, 1F1B or
+interleaved), which returns the loss, the same on every stage rank, and
+the rank's gradients; a leaf outside the stack has a partial gradient
+on each stage rank, summed over the stage group once in ``_reduce``, and
+the global norm adds the layer leaves' sums of squares over the stage
+group. The checks are the JAX trainer's (the layers divide by the stage
+count, by ``S v`` interleaved, ``M`` by ``S`` interleaved, the global
+batch by ``M``), and the table is checked at start-up
+(``pipeline.check_schedule``). A telemetry step keeps the norms and
+skips the activation capture, as in JAX; ``eval_step`` and ``nan_scan``
+run the GPipe forward with the rank's rows as one microbatch. A stage
+axis beside a tensor axis is not ported yet (``NotImplementedError``).
+
 The moments' narrow forms and the offload hold on a shard too: a rank's
 moments are its slice, int8 packs of a slice of a leaf's last dim keep
 the whole leaf's blocks (``utils/quant.BlockCut``: a rank's pack is its
@@ -148,6 +166,7 @@ from tpu_trainer_torch.ops.loss import segment_target_mask
 from tpu_trainer_torch.parallel import collectives as coll_lib
 from tpu_trainer_torch.parallel import context as ctx_lib
 from tpu_trainer_torch.parallel import mesh as mesh_lib
+from tpu_trainer_torch.parallel import pipeline as pp_lib
 from tpu_trainer_torch.parallel.mesh import MeshConfig
 from tpu_trainer_torch.parallel.sharding import (
     LeafSpec,
@@ -225,7 +244,7 @@ class ParallelConfig:
     """The JAX ``ParallelConfig``: the process mesh and the strategy.
 
     ``mesh`` carves the processes into ``data x fsdp x sequence x tensor
-    x expert`` (``-1`` = the rest; the stage axis raises above 1).
+    x expert x stage`` (``-1`` = the rest).
     ``sharding_strategy`` is the fsdp CLI's choice (reference spellings
     allowed); at one process every strategy is the same step.
     ``cpu_offload`` keeps Adam's moments in pinned host memory and streams
@@ -283,22 +302,50 @@ def _split_packed(batch: torch.Tensor):
 
 
 def _shard_of(arr: np.ndarray, dim: Optional[int], index: int,
-              world: int) -> np.ndarray:
-    """Slice ``index`` of ``world`` equal slices of ``arr`` along ``dim``."""
+              world: int, layers=None) -> np.ndarray:
+    """Slice ``index`` of ``world`` equal slices of ``arr`` along ``dim``
+    (``layers``: those indices of ``dim`` instead, in order)."""
     if dim is None:
         return arr
+    if layers is not None:
+        return np.take(arr, layers, axis=dim)
     k = arr.shape[dim] // world
     return arr[(slice(None),) * dim + (slice(index * k, (index + 1) * k),)]
+
+
+def _runs(layers) -> list:
+    """``[(local start, global start, length)]``: ``layers`` (global
+    indices in local order) as runs of consecutive indices."""
+    out = []
+    for i, g in enumerate(layers):
+        if out and out[-1][1] + out[-1][2] == g:
+            out[-1] = (out[-1][0], out[-1][1], out[-1][2] + 1)
+        else:
+            out.append((i, g, 1))
+    return out
+
+
+def _split_box(starts: list, arr: np.ndarray, dim: int, layers) -> list:
+    """A box ``(starts, arr)`` whose ``dim`` holds the global indices
+    ``layers`` (in order), as boxes of consecutive indices."""
+    out = []
+    for lo, g, n in _runs(layers):
+        st = list(starts)
+        st[dim] = g
+        out.append((tuple(st), arr[(slice(None),) * dim
+                                   + (slice(lo, lo + n),)]))
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
 class StateSharding:
     """Which slice of each leaf a rank holds at world > 1: ``specs``
-    (``parallel/sharding.leaf_specs``), the rank's fsdp, tensor, expert
-    and sequence coordinates, and whether it writes checkpoint shards (the
-    ranks of data and sequence coordinate 0 hold every element once; of
-    them, for each of the fsdp, tensor and expert axes that does not split
-    a leaf, its rank 0 writes)."""
+    (``parallel/sharding.leaf_specs``), the rank's fsdp, tensor, expert,
+    stage and sequence coordinates, and whether it writes checkpoint
+    shards (the ranks of data and sequence coordinate 0 hold every
+    element once; of them, for each of the fsdp, tensor, expert and stage
+    axes that does not split a leaf, its rank 0 writes; a stage rank's
+    interleaved layers are written as one box a chunk)."""
 
     specs: Dict[str, LeafSpec]
     fsdp_rank: int
@@ -309,6 +356,8 @@ class StateSharding:
     seq_coord: int = 0
     expert_rank: int = 0
     expert: int = 1                   # the expert size
+    stage_rank: int = 0
+    stage: int = 1                    # the stage size
 
     def _spec(self, key: str) -> Tuple[LeafSpec, bool]:
         prefix, _, path = key.partition("/")
@@ -326,13 +375,19 @@ class StateSharding:
         return spec.param_dim if param else spec.state_dim
 
     def axes(self, key: str) -> list:
-        """``(dim, rank, size)`` of the fsdp, tensor and expert axes for
-        checkpoint key ``key``: the dim each splits (None: it does not)
-        and this rank's coordinate and the size along it."""
+        """``(dim, rank, size, layers)`` of the stage, fsdp, tensor and
+        expert axes for checkpoint key ``key``: the dim each splits (None:
+        it does not), this rank's coordinate and the size along it, and
+        for the stage axis under the interleaved schedule the global
+        layers the rank holds (None: its block ``rank`` of ``size``)."""
         spec = self._spec(key)[0]
-        return [(self.dim(key), self.fsdp_rank, self.world),
-                (spec.tensor_dim, self.tensor_rank, self.tensor),
-                (spec.expert_dim, self.expert_rank, self.expert)]
+        layers = (spec.stage_layers(self.stage_rank)
+                  if spec.stage_dim is not None and spec.virtual > 1
+                  else None)
+        return [(spec.stage_dim, self.stage_rank, self.stage, layers),
+                (self.dim(key), self.fsdp_rank, self.world, None),
+                (spec.tensor_dim, self.tensor_rank, self.tensor, None),
+                (spec.expert_dim, self.expert_rank, self.expert, None)]
 
 
 @dataclasses.dataclass
@@ -377,8 +432,8 @@ class TrainState:
     def _lead(self, key: str, ndim: int) -> list:
         """The axes of ``key`` that split one of its first ``ndim`` dims
         (a cut pack's leading dims)."""
-        return [(d, r, n) for d, r, n in self._axes(key)
-                if d is not None and d < ndim]
+        return [ax for ax in self._axes(key)
+                if ax[0] is not None and ax[0] < ndim]
 
     def layout(self) -> Dict[str, tuple]:
         """Checkpoint key -> ``(global shape, numpy dtype)`` of every
@@ -387,7 +442,7 @@ class TrainState:
         out = {}
         for k, t in self._targets().items():
             shape = list(t.shape)
-            for d, _, n in self._axes(k):
+            for d, _, n, _ in self._axes(k):
                 if d is not None:
                     shape[d] *= n
             out[k] = (tuple(shape), _array_dtype(t))
@@ -442,19 +497,29 @@ class TrainState:
                                        and sh.seq_coord == 0)
         write_whole = sh is None or (write_sharded and sh.fsdp_rank == 0
                                      and sh.tensor_rank == 0
-                                     and sh.expert_rank == 0)
+                                     and sh.expert_rank == 0
+                                     and sh.stage_rank == 0)
         layout = self.layout()
 
         def place(key, arr):
-            """This rank's ``arr``'s starts in the global array, and
-            whether it writes them (one rank of its replicas)."""
-            starts, mine = [0] * arr.ndim, write_sharded
-            for d, r, n in self._axes(key):
-                if d is not None:
-                    starts[d] = r * arr.shape[d]
-                else:
+            """This rank's ``arr``'s starts in the global array, whether it
+            writes them (one rank of its replicas), and the stage split
+            (dim and global layers) when the rank's layers are not one
+            block."""
+            starts, mine, split = [0] * arr.ndim, write_sharded, None
+            for d, r, n, layers in self._axes(key):
+                if d is None:
                     mine = mine and r == 0
-            return starts, mine
+                elif layers is not None:
+                    split = (d, layers)
+                else:
+                    starts[d] = r * arr.shape[d]
+            return starts, mine, split
+
+        def boxes(starts, arr, split):
+            if split is None:
+                return [(tuple(starts), arr)]
+            return _split_box(starts, arr, *split)
 
         out = []
         for prefix, tree in self._trees():
@@ -462,10 +527,16 @@ class TrainState:
                 key = f"{prefix}/{name.replace('.', '/')}"
                 if isinstance(m, QuantPack) and m.cut is not None:
                     arrs = _moment_arrays(key, m)
-                    starts, mine = place(f"{key}/q", arrs[f"{key}/q"])
-                    boxes = cut_boxes(arrs[f"{key}/q"], arrs[f"{key}/scale"],
-                                      m.cut, starts[:-2])
-                    for k, b in zip(("q", "scale"), boxes):
+                    starts, mine, split = place(f"{key}/q", arrs[f"{key}/q"])
+                    got = {"q": [], "scale": []}
+                    parts = zip(boxes(starts, arrs[f"{key}/q"], split),
+                                boxes(starts[:-1], arrs[f"{key}/scale"],
+                                      split))
+                    for (st, q), (_, sc) in parts:
+                        qb, sb = cut_boxes(q, sc, m.cut, st[:-2])
+                        got["q"] += qb
+                        got["scale"] += sb
+                    for k, b in got.items():
                         k = f"{key}/{k}"
                         out.append({"key": k, "global_shape": layout[k][0],
                                     "dtype": str(arrs[k].dtype),
@@ -473,10 +544,10 @@ class TrainState:
                                     if mine else []})
                     continue
                 for k, arr in _moment_arrays(key, m).items():
-                    starts, mine = place(k, arr)
+                    starts, mine, split = place(k, arr)
                     out.append({"key": k, "global_shape": layout[k][0],
                                 "dtype": str(arr.dtype),
-                                "shards": [(tuple(starts), arr)] if mine
+                                "shards": boxes(starts, arr, split) if mine
                                 else []})
         gen = self.generator.get_state().numpy().copy()
         out.append({"key": "generator", "global_shape": gen.shape,
@@ -507,9 +578,9 @@ class TrainState:
         for k, m in self._cut_packs().items():
             q_all, s_all = (np.asarray(sd[f"{k}/q"]),
                             np.asarray(sd[f"{k}/scale"]))
-            for d, r, n in self._lead(f"{k}/q", q_all.ndim - 2):
-                q_all = _shard_of(q_all, d, r, n)
-                s_all = _shard_of(s_all, d, r, n)
+            for d, r, n, layers in self._lead(f"{k}/q", q_all.ndim - 2):
+                q_all = _shard_of(q_all, d, r, n, layers)
+                s_all = _shard_of(s_all, d, r, n, layers)
             q, sc = cut_from_global(q_all, s_all, m.cut)
             cuts.update({f"{k}/q": q, f"{k}/scale": sc})
         with torch.no_grad():
@@ -522,8 +593,8 @@ class TrainState:
                 if key in cuts:
                     arr = cuts[key]
                 else:
-                    for d, r, n in self._axes(key):
-                        arr = _shard_of(arr, d, r, n)
+                    for d, r, n, layers in self._axes(key):
+                        arr = _shard_of(arr, d, r, n, layers)
                 if tuple(arr.shape) != tuple(t.shape):
                     raise ValueError(f"{key}: shape {arr.shape}, want "
                                      f"{tuple(t.shape)}")
@@ -562,8 +633,8 @@ class Trainer:
         self.process_index = mesh_lib.process_index()
         self.process_count = mesh_lib.process_count()
         self.mesh_sizes = parallel_config.mesh.resolve(self.process_count)
-        mesh_lib.check_ported(self.mesh_sizes)
         self._check_intra_layer(parallel_config)
+        self._check_stage()
         self.model = GPT(self.model_config, device="meta")
         self.optimizer = make_optimizer(training_config)
         self._init_mesh(parallel_config)
@@ -624,22 +695,76 @@ class Trainer:
                 self.model_config = dataclasses.replace(
                     cfg, fused_projections=False)
 
+    @property
+    def stage_size(self) -> int:
+        return self.mesh_sizes[5]
+
+    def _check_stage(self) -> None:
+        """The pipeline's rules (the JAX trainer's errors): the stage
+        size divides the layers (into ``S v`` chunks under interleaved),
+        interleaved needs ``M`` divisible by ``S``, and the global batch
+        divides into ``M`` microbatches. A stage axis with a tensor axis
+        is not ported."""
+        S = self.stage_size
+        if S <= 1:
+            return
+        cfg = self.model_config
+        if cfg.num_layers % S != 0:
+            raise ValueError(f"num_layers {cfg.num_layers} not divisible by "
+                             f"stage axis size {S}")
+        if self.mesh_sizes[3] > 1:
+            raise NotImplementedError(
+                "not ported yet: --mesh_tensor with --mesh_stage -> ROADMAP "
+                "Queue 1: pipeline under the tensor axis")
+        M = cfg.pipeline_microbatches or S
+        if cfg.pipeline_schedule == "interleaved":
+            v = cfg.pipeline_virtual_stages
+            if cfg.num_layers % (S * v):
+                raise ValueError(f"num_layers {cfg.num_layers} not divisible "
+                                 f"by stages*virtual ({S}*{v})")
+            if M % S:
+                raise ValueError(
+                    f"interleaved schedule needs pipeline_microbatches ({M}) "
+                    f"divisible by the stage count ({S})")
+        dp = mesh_lib.dp_size(self.mesh_sizes)
+        rows = self.training_config.batch_size * dp
+        if rows % M != 0:
+            raise ValueError(
+                f"global batch {rows} rows (batch_size "
+                f"{self.training_config.batch_size} x {dp} data shards) not "
+                f"divisible by pipeline_microbatches {M}")
+
     def _init_mesh(self, parallel_config: ParallelConfig) -> None:
         """The rank surface and, at world > 1, the groups, the per-leaf
         split, the model's ZeRO-3 gather, data shard and MoE routing
         group, and the mesh context of the sequence, tensor and expert
         axes."""
         self.strategy = canonical_strategy(parallel_config.sharding_strategy)
-        data, fsdp, seq, tensor, expert = self.mesh_sizes[:5]
+        data, fsdp, seq, tensor, expert, stage = self.mesh_sizes
         shapes = {n: tuple(p.shape) for n, p in self.model.named_parameters()}
-        self.specs = leaf_specs(shapes, self.strategy, fsdp, tensor, expert)
+        v = pp_lib.virtual_stages(self.model_config)
+        self.specs = leaf_specs(shapes, self.strategy, fsdp, tensor, expert,
+                                stage, v)
         self.topology = None
         self.mesh_context = None
+        self.schedule = None
+        # The last pipelined step's point-to-point traffic and waits.
+        self.pipeline_stats = pp_lib.Stats()
         self._cuts: Dict[str, BlockCut] = {}
         if self.process_count == 1:
             return
         self.topology = topo = coll_lib.topology(data, fsdp, seq, tensor,
-                                                 expert)
+                                                 expert, stage)
+        if stage > 1:
+            cfg = self.model_config
+            self.schedule = pp_lib.make_schedule(
+                cfg.pipeline_schedule, stage,
+                pp_lib.num_microbatches(cfg, stage), v)
+            # Every rank refuses a table its executor would break on (a
+            # window below the simulated one), before any message moves.
+            pp_lib.check_schedule(self.schedule)
+            self.model.stage_layers = pp_lib.stage_layers(
+                cfg.num_layers, stage, v, topo.stage_coord)
         self.mesh_context = ctx_lib.MeshContext(
             sizes=self.mesh_sizes,
             coords=mesh_lib.mesh_coords(self.mesh_sizes, self.process_index),
@@ -649,7 +774,9 @@ class Trainer:
                      else None),
             expert=topo.expert if expert > 1 else None,
             expert_tensor=(topo.expert_tensor if tensor * expert > 1
-                           else None))
+                           else None),
+            stage=topo.stage if stage > 1 else None,
+            schedule=self.schedule)
         for n, sp in self.specs.items():
             # A slice of a leaf's last dim (int8 blocks run along it): the
             # fsdp shard's, else the tensor slice's.
@@ -735,7 +862,8 @@ class Trainer:
         d = sp.param_dim if param else sp.state_dim
         return tuple(ax for ax, on in (("fsdp", d is not None),
                                        ("tensor", sp.tensor_dim is not None),
-                                       ("expert", sp.expert_dim is not None))
+                                       ("expert", sp.expert_dim is not None),
+                                       ("stage", sp.stage_dim is not None))
                      if on)
 
     def _state_shapes(self) -> Dict[str, tuple]:
@@ -905,7 +1033,8 @@ class Trainer:
             for n in self.specs:           # the model's parameter order
                 t = local_slice(torch.as_tensor(params[n]).detach(),
                                 self.specs[n], self.topology.tensor_coord,
-                                self.topology.expert_coord)
+                                self.topology.expert_coord,
+                                self.topology.stage_coord)
                 d = self.specs[n].param_dim
                 if d is not None:
                     t = t.narrow(d, fr * (t.shape[d] // world),
@@ -923,7 +1052,8 @@ class Trainer:
                 self.specs, fr, self.topology.data_coord, world,
                 self.topology.tensor_coord, self.topology.tensor_size,
                 self.topology.sequence_coord, self.topology.expert_coord,
-                self.topology.expert_size)
+                self.topology.expert_size, self.topology.stage_coord,
+                self.topology.stage_size)
         return TrainState(
             step=0, params=masters, opt_state=opt_state,
             generator=torch.Generator().manual_seed(seed),
@@ -1028,8 +1158,15 @@ class Trainer:
         with ctx_lib.use_mesh(self.mesh_context):
             for micro in batch:
                 tokens, labels, segs = self._inputs(micro)
-                _, loss = self.model(tokens, labels, train=False,
-                                     segment_ids=segs)
+                if self.schedule is not None:
+                    # The GPipe forward, the rank's rows one microbatch
+                    # (the loss the same on every stage rank).
+                    loss = self.model.pipeline_step(
+                        tokens, labels, [], train=False, backward=False,
+                        micro=1, segment_ids=segs)[0]
+                else:
+                    _, loss = self.model(tokens, labels, train=False,
+                                         segment_ids=segs)
                 if segs is None:
                     n = float(tokens.shape[0] * (tokens.shape[1] * sp - 1))
                 else:
@@ -1074,18 +1211,34 @@ class Trainer:
         grads = None
         loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
         fwd_stats = []
+        pp_stats = self.pipeline_stats = pp_lib.Stats()
         for micro in batch:
             tokens, labels, segs = self._inputs(micro)
-            # The capture covers the forward only: the backward (and a
-            # remat block's rerun inside it) records nothing.
-            with (telemetry_lib.capture() if telemetry
-                  else contextlib.nullcontext()) as cap:
-                _, loss = self.model(tokens, labels, train=True,
-                                     segment_ids=segs,
-                                     generator=state.generator)
-            if telemetry:
-                fwd_stats.append(telemetry_lib.assemble(cap.stats))
-            g = torch.autograd.grad(loss * state.loss_scale, leaves)
+            if self.schedule is not None:
+                # The pipeline: this stage's gradients of the microbatches
+                # it ran (and, for the replicated leaves, its partial
+                # ones). Activation capture is skipped under a stage axis,
+                # as in JAX; the norms below are kept.
+                loss, g, stats = self.model.pipeline_step(
+                    tokens, labels, leaves, train=True,
+                    generator=state.generator, loss_scale=state.loss_scale,
+                    segment_ids=segs)
+                pp_stats.add(stats)
+                g = [torch.zeros_like(p, dtype=torch.float32) if x is None
+                     else x for p, x in zip(leaves, g)]
+                if telemetry:
+                    fwd_stats.append({})
+            else:
+                # The capture covers the forward only: the backward (and a
+                # remat block's rerun inside it) records nothing.
+                with (telemetry_lib.capture() if telemetry
+                      else contextlib.nullcontext()) as cap:
+                    _, loss = self.model(tokens, labels, train=True,
+                                         segment_ids=segs,
+                                         generator=state.generator)
+                if telemetry:
+                    fwd_stats.append(telemetry_lib.assemble(cap.stats))
+                g = torch.autograd.grad(loss * state.loss_scale, leaves)
             if grads is None:
                 grads = [x.float() for x in g]
             else:
@@ -1110,15 +1263,18 @@ class Trainer:
                                                         self.topology.rep)
             telem = dict(fwd_stats[0] if accum == 1
                          else telemetry_lib.reduce_micro(fwd_stats))
-            norms = [telemetry_lib.GroupNorms(sharded=self._shard_axes),
+            layers = (self.model.stage_layers,
+                      self.model_config.num_layers)
+            norms = [telemetry_lib.GroupNorms(sharded=self._shard_axes,
+                                              layers=layers),
                      telemetry_lib.GroupNorms(sharded=lambda n: (
-                         self._shard_axes(n, param=True)))]
+                         self._shard_axes(n, param=True)), layers=layers)]
             for n, g in grads.items():
                 norms[0].add(n, g)
             for n, p in state.params.items():
                 norms[1].add(n, p)
             update_norms = telemetry_lib.GroupNorms(
-                sharded=self._shard_axes)
+                sharded=self._shard_axes, layers=layers)
         on_update = update_norms.add if update_norms is not None else None
         finite = (not self.use_loss_scaling
                   or bool(torch.isfinite(grad_norm)))
@@ -1147,7 +1303,8 @@ class Trainer:
                 norms + [update_norms],
                 None if topo is None else {"fsdp": topo.fsdp,
                                            "tensor": topo.tensor,
-                                           "expert": topo.expert})
+                                           "expert": topo.expert,
+                                           "stage": topo.stage})
             telem["grad_norm"], telem["param_norm"] = grad_n, param_n
             # A skipped fp16 step changes nothing: zero update norms.
             if not finite:
@@ -1169,7 +1326,10 @@ class Trainer:
         """The strategy's gradient collectives (module docstring): each
         leaf's f32 sum over every rank's rows, whole where its state is
         whole and this rank's slice where it is sharded; and the loss sum
-        over every rank."""
+        over every rank. Under a stage axis a leaf outside the layer stack
+        has a partial gradient on each stage rank: those are summed over
+        the stage group once (the loss is already the same on every stage
+        rank)."""
         topo = self.topology
         out = {}
         for n, g in grads.items():
@@ -1181,6 +1341,8 @@ class Trainer:
                     g = topo.fsdp.reduce_scatter_leaf(g, spec.state_dim)
                 # zero3's gather already summed it over the fsdp group.
                 g = topo.rep_data.all_reduce_sum(g)
+            if topo.stage_size > 1 and spec.stage_dim is None:
+                g = topo.stage.all_reduce_sum(g)
             out[n] = g
         return out, topo.rep.all_reduce_sum(loss_sum)
 
@@ -1191,12 +1353,28 @@ class Trainer:
         once."""
         if not self._sharded():
             return global_norm(grads.values())
-        zero = torch.zeros((), device=self.device)
+        layer_sums: Dict[tuple, torch.Tensor] = {}
         sums: Dict[tuple, torch.Tensor] = {}
         for n, g in grads.items():
             key = self._shard_axes(n)
+            acc = sums
+            if "stage" in key:
+                # A stage's layers: their sums add over the stage group.
+                key = tuple(ax for ax in key if ax != "stage")
+                acc = layer_sums
             sq = g.float().square().sum()
-            sums[key] = sums[key] + sq if key in sums else sq
+            acc[key] = acc[key] + sq if key in acc else sq
+        total = self._sum_squares(sums)
+        if layer_sums:
+            total = total + self.topology.stage.all_reduce_sum(
+                self._sum_squares(layer_sums))
+        return torch.sqrt(total)
+
+    def _sum_squares(self, sums: Dict[tuple, torch.Tensor]) -> torch.Tensor:
+        """The whole leaves' sum of squares from the shards' sums keyed by
+        the axes that split them: added over the fsdp, then the tensor,
+        then the expert group, plus the whole leaves' once."""
+        zero = torch.zeros((), device=self.device)
 
         def sq(*axes):
             return sums.get(axes, zero)
@@ -1207,7 +1385,7 @@ class Trainer:
         te, t = topo.tensor.all_reduce_sum(torch.stack([
             fte + sq("tensor", "expert"), ft + sq("tensor")]))
         e = topo.expert.all_reduce_sum(te + fe + sq("expert"))
-        return torch.sqrt(e + t + f + sq())
+        return e + t + f + sq()
 
     @torch.no_grad()
     def _sharded_update(self, state: TrainState, grads, lr: float,
@@ -1257,9 +1435,17 @@ class Trainer:
         tokens, labels, segs = self._inputs(batch[0])
         with telemetry_lib.capture(deep=True) as cap, \
                 ctx_lib.use_mesh(self.mesh_context):
-            _, loss = self.model(tokens, labels, train=False,
-                                 segment_ids=segs)
-        stats = telemetry_lib.assemble(cap.stats)
+            if self.schedule is not None:
+                loss = self.model.pipeline_step(
+                    tokens, labels, [], train=False, backward=False,
+                    micro=1, segment_ids=segs)[0]
+            else:
+                _, loss = self.model(tokens, labels, train=False,
+                                     segment_ids=segs)
+        raw = cap.stats
+        if self.schedule is not None:
+            raw = self._stage_stats(raw)
+        stats = telemetry_lib.assemble(raw)
         # A sequence rank's loss is its share: the ranks' mean of sp
         # shares is the mean over the data shards.
         stats["loss"] = loss.float() * self.mesh_sizes[2]
@@ -1271,6 +1457,44 @@ class Trainer:
             prefix="nan_scan")
         report["stats"]["nan_scan/loss"] = float(stats["loss"])
         return report
+
+    @torch.no_grad()
+    def _stage_stats(self, raw: dict) -> dict:
+        """A pipelined deep capture's stats as one process records them:
+        each site is recorded by the stage rank that runs it (the
+        embedding on stage 0, layer ``g`` as ``layer_g`` by its stage, the
+        final norm and the logits on the last stage); every rank's values
+        land in zeros elsewhere and one sum over the stage group puts them
+        together (a non-finite value stays non-finite)."""
+        L = self.model_config.num_layers
+        mine = [k for k in raw if k.startswith("layer_")]
+        like = raw[mine[0]]
+        sites = {"embed_out": ("rms", "absmax"),
+                 "final_norm": ("rms", "absmax"),
+                 "logits": ("rms", "absmax")}
+        parts, layout = [], []
+        zero = torch.zeros((), device=self.device)
+        for site, keys in sites.items():
+            for k in keys:
+                v = raw.get(site, {}).get(k)
+                parts.append((v if v is not None else zero).float()
+                             .reshape(-1))
+                layout.append((site, k, ()))
+        for k, v in like.items():
+            full = torch.zeros((L,) + tuple(v.shape), device=self.device)
+            for name in mine:
+                full[int(name[len("layer_"):])] = raw[name][k].float()
+            parts.append(full.reshape(-1))
+            layout.append(("layers", k, tuple(full.shape)))
+        flat = self.topology.stage.all_reduce_sum(torch.cat(parts),
+                                                  kind="pp_allreduce")
+        out: dict = {}
+        at = 0
+        for (site, k, shape), p in zip(layout, parts):
+            v = flat[at:at + p.numel()]
+            at += p.numel()
+            out.setdefault(site, {})[k] = v.reshape(shape)
+        return out
 
     def step_cost_analysis(self, state: TrainState, batch) -> Optional[dict]:
         """The compiler's cost model of one step: eager PyTorch has none,

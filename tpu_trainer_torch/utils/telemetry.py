@@ -121,13 +121,18 @@ class GroupNorms:
     copy of the whole parameter tree.
 
     ``sharded(name)`` names the axes of which this rank holds a slice of
-    a leaf (at world > 1: a tuple among ``"fsdp"``, ``"tensor"`` and
-    ``"expert"``; empty: whole): its sums are kept apart by those axes,
-    and ``combine_norms`` adds every rank's over them before the roots."""
+    a leaf (at world > 1: a tuple among ``"fsdp"``, ``"tensor"``,
+    ``"expert"`` and ``"stage"``; empty: whole): its sums are kept apart
+    by those axes, and ``combine_norms`` adds every rank's over them
+    before the roots. ``layers`` (``(global indices, num_layers)``): a
+    stage's layer leaves put their sums at their layers' global indices
+    of a ``[num_layers]`` vector (zero elsewhere)."""
 
-    def __init__(self, stacked_key: str = "layers", sharded=None):
+    def __init__(self, stacked_key: str = "layers", sharded=None,
+                 layers=None):
         self.stacked_key = stacked_key
         self.sharded = sharded or (lambda name: ())
+        self.layers = layers
         self._acc: Dict[str, torch.Tensor] = {}
         self._shard_acc: Dict[str, torch.Tensor] = {}
 
@@ -142,6 +147,10 @@ class GroupNorms:
         else:
             s = torch.sum(torch.square(leaf))
         axes = self.sharded(name)
+        if "stage" in axes and group == "per_layer":
+            idx, n = self.layers
+            s = torch.zeros(n, dtype=s.dtype, device=s.device).index_add_(
+                0, torch.tensor(idx, device=s.device), s)
         if axes:
             acc, group = self._shard_acc, (axes, group)
         else:
@@ -154,7 +163,7 @@ class GroupNorms:
         return {k: torch.sqrt(v) for k, v in self._acc.items()}
 
 
-_SHARD_AXES = ("fsdp", "tensor", "expert")
+_SHARD_AXES = ("fsdp", "tensor", "expert", "stage")
 
 
 @torch.no_grad()
@@ -163,13 +172,14 @@ def combine_norms(norms: List[GroupNorms], colls) -> List[Dict[str,
     """The norms of the whole leaves, from ``GroupNorms`` fed this rank's
     slices: every accumulator's shard sums added over the groups that
     split them, then the whole leaves' sums, then the roots. ``colls``
-    (None at one process) maps ``fsdp``, ``tensor`` and ``expert`` to
-    their ``Collectives``; the sums are added over them in that order,
-    one collective an axis. Without shard sums no collective runs."""
+    (None at one process) maps ``fsdp``, ``tensor``, ``expert`` and
+    ``stage`` to their ``Collectives``; the sums are added over them in
+    that order, one collective an axis. Without shard sums no collective
+    runs."""
     summed = {(i, k): v for i, g in enumerate(norms)
               for k, v in g._shard_acc.items()}
     for ax in _SHARD_AXES if colls is not None else ():
-        coll = colls[ax]
+        coll = colls.get(ax)
         # (i, (axes, group)): the entries split along ``ax``.
         keys = [key for key in summed if ax in key[1][0]]
         if not keys or coll is None or coll.world == 1:
