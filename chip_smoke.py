@@ -62,6 +62,28 @@ JAX package. Phases, each fatal on failure:
               one (2 and 31 blocks); prefill-role -> decode-role
               migration of 8 requests with chunked prefill and n-gram
               spec against one engine, the bytes migrated.
+5c. fleet  -- the serving fleet (``serving/frontend.py``, ``remote.py``,
+              ``worker.py``) at GPT-2 small's full width and depth (bf16
+              over f32 random weights, max batch 8 a replica, block 16)
+              on 24 requests in 3 shared-prefix groups (64-token
+              prefixes), 64 new tokens each, greedy and sampled, in
+              ``steps`` time: A, 2 in-process replicas (each group on one
+              replica); B, the same through ``WorkerSupervisor`` and 2
+              worker processes on the card (routing, streams and token
+              times bitwise A's; the workers' decode launches, from their
+              logs, A's); C, ``worker_kill`` mid-decode and D,
+              ``worker_hang`` (fenced within ``FLEET_RPC_TIMEOUT_S``, the
+              2 s per-call timeout, plus ``FLEET_FENCE_MARGIN_S``, 5 s):
+              every request finishes, streams A's under the tie rule
+              (sampled rows too: a draw that moved must be a tie under
+              the f32 model and the sampler's own noise); E, roles
+              prefill -> decode through the front-end's migration.
+              Planted faults that must fail: a mirror dropping a delta's
+              last token, a router ignoring affinity (a worker restarting
+              a resubmitted request's delta cursor is the mutation
+              ``fleet_resubmit_stale_cursor``). Prints worker start
+              seconds, step RPC p50/p99, tok/s of A and B, the stall and
+              the decode launches of A, B (in its workers) and E.
 6. train-kernel -- the flash forward and fused backward kernels against
               ``flash_attention_reference`` (o, lse, the rotated q/k, and
               dq/dk/dv through autograd of the plain version) at the
@@ -2879,7 +2901,8 @@ def _prefix_trace(n, *, seed, vocab, prefix_blocks=2, block=16,
 
 class _TieJudge:
     """Top-2 gaps of the f32 model (the target's weights, plain
-    attention) at a stream's first differing token."""
+    attention) at a stream's first differing token; for a sampled stream
+    (top-p off), the gap of its two draws there."""
 
     def __init__(self, params, cfg):
         from tpu_trainer_torch.models.weights import build_model
@@ -2895,6 +2918,38 @@ class _TieJudge:
         last = logits[0, -1].float()
         top = torch.topk(last, 2).values
         return float(top[0] - top[1]), float(last.abs().max())
+
+    def draw_margins(self, prompt, gen, pos, sampling, other, rel):
+        """Sampled token ``pos`` after ``prompt + gen[:pos]`` under the f32
+        model and the sampler's own Gumbel noise at that seed and token
+        index, for each of ``gen[pos]`` and ``other``: how far (in logits)
+        its score falls below the best score of the tokens surely in the
+        top-k (a logit ``rel x |logits| max`` above the k-th), and how far
+        its logit falls below the k-th; the larger of each over the two
+        tokens, and the logits' absolute maximum."""
+        from tpu_trainer_torch.serving.sampling import (gumbel_noise,
+                                                        request_key)
+
+        with torch.no_grad():
+            logits, _ = self.model(torch.tensor([prompt + gen[:pos]],
+                                                device=self.device))
+        last = logits[0, -1].float()
+        scale = float(last.abs().max())
+        tol = rel * scale
+        t = sampling.temperature
+        score = last / t + gumbel_noise(request_key(sampling.seed), pos,
+                                        last.numel(), self.device)
+        kth = (float(torch.topk(last, sampling.top_k).values[-1])
+               if sampling.top_k else float("-inf"))
+        sure = last >= kth + tol
+        below = short = 0.0
+        for tok in (gen[pos], other):
+            rest = sure.clone()
+            rest[tok] = False
+            best = float(score[rest].max()) if bool(rest.any()) else -math.inf
+            below = max(below, t * (best - float(score[tok])))
+            short = max(short, kth - float(last[tok]))
+        return below, short, scale
 
     def check(self, phase, what, got, want, reqs, rel) -> list:
         """``got`` equal to ``want`` (rid -> tokens), a row differing only
@@ -2921,6 +2976,41 @@ class _TieJudge:
                     f"{rel:.1e} x {scale:.3e})")
             ties.append({"rid": rid, "pos": pos, "gap": gap})
         return ties
+
+    def check_sampled(self, phase, what, got, want, reqs, rel) -> list:
+        """Sampled rows (top-p off): ``got`` equal to ``want`` up to its
+        first differing token, where each of the two draws is the argmax
+        of the sampler's scores over the top-k up to a bf16-sized change
+        of the logits (rel x their absolute maximum): a tie of two scores,
+        or a token at the k-th logit's edge. A wrong seed or token index
+        draws otherwise."""
+        moved = []
+        by_rid = {r.rid: r for r in reqs}
+        for rid in sorted(want):
+            a, b = want[rid], got[rid]
+            if a == b:
+                continue
+            pos = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                       min(len(a), len(b)))
+            req = by_rid[rid]
+            if len(a) != len(b) or pos >= len(a):
+                raise AssertionError(f"{phase}: {what}: sampled rid {rid} "
+                                     f"has {len(b)} tokens, want {len(a)}")
+            below, short, scale = self.draw_margins(
+                req.prompt, a, pos, req.sampling, b[pos], rel)
+            log(phase, f"{what}: sampled rid {rid} differs at token {pos}: "
+                       f"a draw's score below the top-k's best by "
+                       f"{below:.3e}, its logit below the k-th by "
+                       f"{short:.3e}, |logits| max {scale:.3e}")
+            if not (below < rel * scale and short < rel * scale):
+                raise AssertionError(
+                    f"{phase}: {what}: sampled rid {rid} differs at token "
+                    f"{pos}: a draw {below:.3e} below the top-k's best "
+                    f"score, {short:.3e} below the k-th logit (not a tie "
+                    f"at {rel:.1e} x {scale:.3e})")
+            moved.append({"rid": rid, "pos": pos, "below": below,
+                          "short": short})
+        return moved
 
 
 class _DecodeCount:
@@ -3444,6 +3534,466 @@ def phase_kv_store(results: dict) -> dict:
     rec["launches"] = total
     results[phase] = rec
     return rec
+
+
+# -- phase 5c: the serving fleet ---------------------------------------------
+
+FLEET_ENGINE = dict(max_batch=8, block_size=16, prefix_cache=True,
+                    device="cuda")
+# The per-call RPC deadline of the fleet's workers once warm, and the
+# margin the hang drill's stall may take past it (the fence's SIGKILL and
+# reap, the failover's re-prefill).
+FLEET_RPC_TIMEOUT_S = 2.0
+FLEET_FENCE_MARGIN_S = 5.0
+# The front-end iteration of the kill and hang drills: mid-decode.
+FLEET_FAULT_AT = 24
+
+
+def _fleet_owner(req) -> int:
+    """The replica of a 2-replica fleet that affinity routes ``req`` to
+    (the rendezvous of its first block digest)."""
+    import types
+
+    from tpu_trainer_torch.serving.frontend import ServingFrontend
+    from tpu_trainer_torch.serving.paged_cache import chained_block_digests
+
+    key = chained_block_digests(req.prompt, FLEET_ENGINE["block_size"])[0]
+    return ServingFrontend._rendezvous(
+        key, [types.SimpleNamespace(rid=r) for r in (0, 1)]).rid
+
+
+def _fleet_seed(vocab, seed) -> int:
+    """The first trace seed from ``seed`` whose 3 prefix groups affinity
+    spreads over both replicas of a 2-replica fleet: both serve."""
+    while len({_fleet_owner(r)
+               for r in _fleet_trace(vocab, n=3, seed=seed)}) < 2:
+        seed += 1
+    return seed
+
+
+def _fleet_trace(vocab, *, n=24, groups=3, new=64, seed=7):
+    """24 requests in 3 shared-prefix groups (64-token prefixes, 16-48
+    token tails; rid ``i`` in group ``i % 3``), ``new`` new tokens each,
+    all arriving at once; even rids greedy, odd rids sampled (temperature
+    1, top-k 50)."""
+    import numpy as np
+
+    from tpu_trainer_torch.serving.scheduler import Request, SamplingParams
+
+    rs = np.random.RandomState(seed)
+    systems = [rs.randint(1, vocab, size=64).tolist() for _ in range(groups)]
+    out = []
+    for i in range(n):
+        tail = rs.randint(1, vocab, size=int(rs.randint(16, 49))).tolist()
+        samp = (SamplingParams(temperature=0.0, seed=1000 + i) if i % 2 == 0
+                else SamplingParams(temperature=1.0, top_k=50,
+                                    seed=1000 + i))
+        out.append(Request(rid=i, prompt=systems[i % groups] + tail,
+                           max_new_tokens=new, sampling=samp))
+    return out
+
+
+def _fleet_affinity(phase, fe, reqs, groups=3) -> dict:
+    """Each prefix group routed to one replica: group -> replica."""
+    where: dict = {}
+    for r in reqs:
+        where.setdefault(r.rid % groups, set()).add(
+            fe.submit_results[r.rid].replica)
+    split = {g: sorted(v) for g, v in where.items() if len(v) != 1}
+    if split:
+        raise AssertionError(f"{phase}: prefix groups routed to several "
+                             f"replicas: {split}")
+    return {g: next(iter(v)) for g, v in where.items()}
+
+
+def _fleet_done(phase, what, fe, reqs, fin) -> dict:
+    """Conservation: every request accepted and finished with all its
+    tokens; the streams."""
+    s = fe.summary()
+    if not (s["accepted"] == s["finished"] == len(fin) == len(reqs)
+            and s["in_flight"] == 0):
+        raise AssertionError(
+            f"{phase}: {what}: accepted {s['accepted']}, finished "
+            f"{s['finished']}, returned {len(fin)} of {len(reqs)}")
+    for r in fin:
+        if len(r.generated) != r.max_new_tokens:
+            raise AssertionError(f"{phase}: {what}: rid {r.rid} has "
+                                 f"{len(r.generated)} of {r.max_new_tokens}")
+    if not s.get("span_conservation_ok", True):
+        raise AssertionError(f"{phase}: {what}: span conservation broken")
+    return {r.rid: list(r.generated) for r in fin}
+
+
+def _fleet_bitwise(phase, what, fe, fin, fe_ref, fin_ref) -> None:
+    """Routing decisions, streams and token times bitwise the
+    reference's (one clock domain: steps-mode times are iterations)."""
+    route = {k: (v.replica, v.routed) for k, v in fe.submit_results.items()}
+    want = {k: (v.replica, v.routed)
+            for k, v in fe_ref.submit_results.items()}
+    if route != want:
+        raise AssertionError(f"{phase}: {what}: routing differs from the "
+                             f"in-process fleet's")
+    got = {r.rid: (list(r.generated), list(r.token_times)) for r in fin}
+    ref = {r.rid: (list(r.generated), list(r.token_times)) for r in fin_ref}
+    bad = sorted(k for k in ref if got.get(k) != ref[k])
+    if bad or sorted(got) != sorted(ref):
+        raise AssertionError(f"{phase}: {what}: rids {bad} differ from the "
+                             f"in-process fleet's streams or token times")
+
+
+def _fleet_ties(phase, what, got, want, reqs, judge) -> dict:
+    """Greedy rows equal ``want``'s or differ only from a tie, sampled
+    rows only from a draw on a tie (the infer phase's rule at
+    ``TIE_BF16``, ``_TieJudge.check`` and ``check_sampled``)."""
+    greedy = {r.rid for r in reqs if r.sampling.temperature == 0.0}
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{phase}: {what}: rids {sorted(got)} != "
+                             f"{sorted(want)}")
+    ties = judge.check(phase, what, {k: got[k] for k in greedy},
+                       {k: want[k] for k in greedy}, reqs, TIE_BF16)
+    moved = judge.check_sampled(
+        phase, what, {k: got[k] for k in want if k not in greedy},
+        {k: want[k] for k in want if k not in greedy}, reqs, TIE_BF16)
+    return {"ties": ties, "sampled_moved": moved}
+
+
+def _fleet_inproc(params, cfg, reqs, *, timed=False, **kw):
+    """The in-process fleet (``LocalReplica``s on the card) over ``reqs``,
+    its decode launches counted exactly; the engine step times."""
+    from tpu_trainer_torch.serving.frontend import ServingFrontend
+
+    fe = ServingFrontend(params, cfg, time_mode="steps", spill_tokens=None,
+                         **FLEET_ENGINE, **kw)
+    step_s = []
+    for h in fe._replicas:
+        if timed:
+            def step(_rep=h.engine, _step=h.engine.step):
+                t = time.perf_counter()
+                out = _step()
+                step_s.append(time.perf_counter() - t)
+                return out
+            h.engine.step = step
+    with _DecodeCount(*[h.engine.engine for h in fe._replicas]) as cnt:
+        fin = fe.run(reqs)
+    if cnt.launches != cnt.want:
+        raise AssertionError(f"fleet: in-process decode launches "
+                             f"{cnt.launches}, want {cnt.want}")
+    return fe, fin, cnt.launches, step_s
+
+
+def _fleet_rpc(sup, cfg, reqs, **kw):
+    """The same fleet over ``sup``'s worker processes; the step RPCs'
+    seconds as the front-end waits for them."""
+    from tpu_trainer_torch.serving.frontend import ServingFrontend
+
+    fe = ServingFrontend(None, cfg, time_mode="steps", spill_tokens=None,
+                         replica_factory=sup, **kw)
+    step_s = []
+    handles = [h.engine._handle for h in fe._replicas]
+    for hd in handles:
+        def rpc(method, params=None, frames=None, _rpc=hd.rpc):
+            t = time.perf_counter()
+            try:
+                return _rpc(method, params, frames=frames)
+            finally:
+                if method == "step":
+                    step_s.append(time.perf_counter() - t)
+        hd.rpc = rpc
+    try:
+        fin = fe.run(reqs)
+    finally:
+        for hd in handles:
+            del hd.rpc
+    return fe, fin, step_s
+
+
+def _pct(xs, q) -> float:
+    xs = sorted(xs)
+    return xs[max(0, math.ceil(q * len(xs)) - 1)] if xs else float("nan")
+
+
+def _worker_launches(run_dir) -> dict:
+    """Each worker log's launch lines: worker -> the cumulative counts
+    it printed (at every reset and at its shutdown)."""
+    out: dict = {}
+    for name in sorted(os.listdir(run_dir)):
+        if not (name.startswith("worker") and name.endswith(".log")):
+            continue
+        with open(os.path.join(run_dir, name)) as f:
+            for line in f:
+                if line.startswith("{") and "flash_decode_launches" in line:
+                    d = json.loads(line)
+                    out.setdefault(d["worker"], []).append(
+                        d["flash_decode_launches"])
+    return out
+
+
+def phase_fleet(results: dict) -> dict:
+    """The serving fleet at GPT-2 small's width (bf16 over f32 random
+    weights, max batch 8 a replica, block 16, prefix caching) on 24
+    requests in 3 shared-prefix groups (64-token prefixes), 64 new tokens
+    each, greedy and sampled, ``steps`` time. At all 12 layers: A, two
+    in-process replicas: each group on one replica, decode launches
+    exact; B, the same through ``WorkerSupervisor`` with two worker
+    processes on the card: routing, streams and token times bitwise A's,
+    the workers' decode launches A's. At 4 of the 12 layers (the drills'
+    cut), against an undisturbed in-process run of that model: C,
+    ``worker_kill`` mid-decode: every request finishes, streams under the
+    tie rule; D, ``worker_hang``: the suspect fenced within the per-call
+    timeout plus a margin, streams as in C; E, roles prefill -> decode
+    through the front-end's own migration (a shared KV store): streams
+    under the tie rule, the fleet hit rate. Planted faults that must
+    fail: a mirror dropping the last token of a delta (B's check) and a
+    router ignoring affinity (A's); a worker restarting a resubmitted
+    request's delta cursor is ``scripts/torch_kernel_mutations.py``'s
+    ``fleet_resubmit_stale_cursor`` (C's conservation). The five workers
+    start together, beside the in-process runs that are not timed.
+    Prints worker start seconds, the step RPC's p50 / p99 against the
+    in-process step's, tok/s of A and B, the stall, and the decode
+    launches of the runs A, B and E: each counted from zero just before
+    the run (B's from its workers' logs, as a before / after delta). C's
+    and D's are not counted: a killed or fenced worker never reports its
+    count."""
+    from tpu_trainer_torch.models.config import GPTConfig
+    from tpu_trainer_torch.models.weights import init_params
+    from tpu_trainer_torch.serving import frontend as fe_lib
+    from tpu_trainer_torch.serving import remote
+    from tpu_trainer_torch.utils import faults
+
+    phase = "fleet"
+    card = nvidia_smi_line()
+    t_phase = time.perf_counter()
+    cfg = GPTConfig.gpt2_small(dropout=0.0, attention_dropout=0.0,
+                               dtype="bfloat16", param_dtype="float32")
+    cfg4 = dataclasses.replace(cfg, num_layers=4)
+    dev = FLEET_ENGINE["device"]
+    params = init_params(cfg, seed=0, device=dev)
+    params4 = init_params(cfg4, seed=0, device=dev)
+    vocab = cfg.vocab_size
+    rec = {"nvidia_smi": card}
+    dirs = [tempfile.mkdtemp(prefix=f"fleet{i}-") for i in range(2)]
+    sups = []
+    spawned = []
+
+    def supervisor(p, c, run_dir, **kw):
+        s = remote.WorkerSupervisor(
+            p, c, engine_kwargs=FLEET_ENGINE, run_dir=run_dir,
+            rpc_timeout_s=FLEET_RPC_TIMEOUT_S, first_step_timeout_s=300.0,
+            **kw)
+        sups.append(s)
+        return s
+
+    try:
+        t0 = time.perf_counter()
+        sup = supervisor(params, cfg, dirs[0])           # A's model: B
+        drill = supervisor(params4, cfg4, dirs[1])       # C and D
+        for s, n in ((sup, 2), (drill, 3)):
+            spawned += [(s, s._launch()) for _ in range(n)]
+        npz_s = time.perf_counter() - t0
+
+        # Beside the workers' start: the in-process runs nothing times.
+        seed, small_seed = _fleet_seed(vocab, 7), _fleet_seed(vocab, 11)
+        judge4 = _TieJudge(params4, cfg4)
+        _must_reject("a router that ignores affinity", lambda: (
+            _fleet_planted_router(phase, params, cfg, vocab, seed, fe_lib)))
+        reqs = _fleet_trace(vocab, seed=seed)
+        fe_r, fin_r, _, _ = _fleet_inproc(params4, cfg4, reqs, replicas=2)
+        want4 = _fleet_done(phase, "4-layer reference", fe_r, reqs, fin_r)
+        reqs = _fleet_trace(vocab, seed=seed)
+        fe_e, fin_e, le, _ = _fleet_inproc(
+            params4, cfg4, reqs, replicas=2,
+            replica_roles=["prefill", "decode"], kv_store_bytes=1 << 30)
+        got = _fleet_done(phase, "E", fe_e, reqs, fin_e)
+        se = fe_e.summary()
+        if se["migrations"] != len(reqs):
+            raise AssertionError(f"{phase}: E: {se['migrations']} "
+                                 f"migrations, want {len(reqs)}")
+        te = _fleet_ties(phase, "E roles", got, want4, reqs, judge4)
+        small = _fleet_trace(vocab, n=6, new=16, seed=small_seed)
+        fe_s, fin_s, _, _ = _fleet_inproc(params, cfg, small, replicas=2)
+        rec["E"] = {"migrations": se["migrations"],
+                    "migrated_bytes": se["migrated_bytes"],
+                    "fleet_prefix_hit_rate": se["fleet_prefix_hit_rate"],
+                    "reference_prefix_hit_rate":
+                        fe_r.summary()["prefix_hit_rate"],
+                    "launches": le, **te}
+
+        for s, args in spawned:
+            s._pool.append(s._handshake(*args))
+        start_s = time.perf_counter() - t0
+        # Every worker's first steps (the libraries' first calls) out of
+        # the timed runs; a warm worker gets the per-call timeout.
+        for s, n, c in ((sup, 2, cfg), (drill, 3, cfg4)):
+            _fleet_rpc(s, c, _fleet_trace(vocab, n=2 * n, new=4, seed=3),
+                       replicas=n, routing="least_loaded")
+            s.reset()
+        rec.update(worker_start_s=start_s, params_npz_s=npz_s,
+                   warmup_s=time.perf_counter() - t0 - start_s)
+        log(phase, f"5 workers started together in {start_s:.2f} s, beside "
+                   f"the untimed in-process runs (the params npz "
+                   f"{npz_s:.2f} s of it); warm-up {rec['warmup_s']:.2f} s; "
+                   f"nvidia-smi: {card}")
+
+        # A: the in-process fleet at 12 layers.
+        reqs = _fleet_trace(vocab, seed=seed)
+        fe_a, fin_a, l_a, step_a = _fleet_inproc(params, cfg, reqs,
+                                                 replicas=2, timed=True)
+        _fleet_done(phase, "A", fe_a, reqs, fin_a)
+        groups = _fleet_affinity(phase, fe_a, reqs)
+        sa = fe_a.summary()
+        rec["A"] = {"tokens_per_s": sa["tokens_per_s"],
+                    "wall_s": sa["wall_s"], "launches": l_a,
+                    "step_p50_ms": 1e3 * _pct(step_a, 0.5),
+                    "step_p99_ms": 1e3 * _pct(step_a, 0.99),
+                    "groups": groups,
+                    "prefix_hit_rate": sa["prefix_hit_rate"]}
+        log(phase, f"A in-process: 24/24 finished, groups -> replicas "
+                   f"{groups}, {sa['tokens_per_s']:.1f} tok/s, engine step "
+                   f"p50 {rec['A']['step_p50_ms']:.2f} ms p99 "
+                   f"{rec['A']['step_p99_ms']:.2f} ms, decode launches "
+                   f"{l_a}")
+
+        # B: the same fleet over two worker processes.
+        reqs = _fleet_trace(vocab, seed=seed)
+        before = _worker_launches(dirs[0])
+        fe_b, fin_b, rpc_b = _fleet_rpc(sup, cfg, reqs, replicas=2)
+        _fleet_done(phase, "B", fe_b, reqs, fin_b)
+        _fleet_bitwise(phase, "B", fe_b, fin_b, fe_a, fin_a)
+        sb = fe_b.summary()
+        wids_b = [h.engine.worker_id for h in fe_b._replicas]
+        sup.reset()
+        after = _worker_launches(dirs[0])
+        lb = sum(after[w][-1] - before.get(w, [0])[-1] for w in wids_b)
+        if lb != l_a:
+            raise AssertionError(f"{phase}: B's workers launched decode "
+                                 f"{lb} times, A's replicas {l_a}")
+        rec["B"] = {"tokens_per_s": sb["tokens_per_s"],
+                    "wall_s": sb["wall_s"], "launches": lb,
+                    "rpc_step_p50_ms": 1e3 * _pct(rpc_b, 0.5),
+                    "rpc_step_p99_ms": 1e3 * _pct(rpc_b, 0.99),
+                    "tok_s_ratio": sb["tokens_per_s"] / sa["tokens_per_s"]}
+        log(phase, f"B 2 workers: routing, streams and token times bitwise "
+                   f"A's; {sb['tokens_per_s']:.1f} tok/s "
+                   f"({rec['B']['tok_s_ratio']:.3f}x A); step RPC p50 "
+                   f"{rec['B']['rpc_step_p50_ms']:.2f} ms p99 "
+                   f"{rec['B']['rpc_step_p99_ms']:.2f} ms (in-process "
+                   f"step p50 {rec['A']['step_p50_ms']:.2f} ms p99 "
+                   f"{rec['A']['step_p99_ms']:.2f} ms); the workers' decode "
+                   f"launches {lb} == A's")
+        orig_apply = remote.RemoteReplica._apply_delta
+
+        def dropping(self, req, d):
+            orig_apply(self, req, dict(d, gen=d["gen"][:-1],
+                                       times=d["times"][:-1]))
+
+        def mirror_drop():
+            remote.RemoteReplica._apply_delta = dropping
+            try:
+                small = _fleet_trace(vocab, n=6, new=16, seed=small_seed)
+                fe, fin, _ = _fleet_rpc(sup, cfg, small, replicas=2)
+            finally:
+                remote.RemoteReplica._apply_delta = orig_apply
+                sup.reset()
+            _fleet_bitwise(phase, "planted mirror", fe, fin, fe_s, fin_s)
+        _must_reject("a mirror that drops the last delta token", mirror_drop)
+
+        # C: a real SIGKILL mid-decode (4 layers).
+        victim = groups[0]
+        os.environ["TPU_TRAINER_FAULT_REPLICA"] = str(victim)
+        try:
+            reqs = _fleet_trace(vocab, seed=seed)
+            with faults.plan(f"worker_kill@{FLEET_FAULT_AT}"):
+                fe_c, fin_c, _ = _fleet_rpc(drill, cfg4, reqs, replicas=2)
+            sc = fe_c.summary()
+            got = _fleet_done(phase, "C", fe_c, reqs, fin_c)
+            if sc["worker_deaths"] != 1 or sc["failover_events"] != 1:
+                raise AssertionError(f"{phase}: C: {sc['worker_deaths']} "
+                                     f"deaths, {sc['failover_events']} "
+                                     f"failovers, want 1 and 1")
+            tc = _fleet_ties(phase, "C worker_kill", got, want4, reqs,
+                             judge4)
+            drill.reset()
+
+            # D: a SIGSTOP; the per-call timeout fences the suspect.
+            reqs = _fleet_trace(vocab, seed=seed)
+            fenced0 = drill.n_fenced    # C's kill fenced its dead worker
+            with faults.plan(f"worker_hang@{FLEET_FAULT_AT}"):
+                fe_d, fin_d, _ = _fleet_rpc(drill, cfg4, reqs, replicas=2)
+            sd_ = fe_d.summary()
+            sd_["fenced"] -= fenced0
+            got = _fleet_done(phase, "D", fe_d, reqs, fin_d)
+            stall = sd_.get("stall_recovery_max_s", 0.0)
+            if not (sd_["fenced"] == 1 and sd_["worker_deaths"] == 1
+                    and 0.9 * FLEET_RPC_TIMEOUT_S <= stall
+                    <= FLEET_RPC_TIMEOUT_S + FLEET_FENCE_MARGIN_S):
+                raise AssertionError(
+                    f"{phase}: D: fenced {sd_['fenced']}, deaths "
+                    f"{sd_['worker_deaths']}, stall {stall:.3f} s (want "
+                    f"{FLEET_RPC_TIMEOUT_S} s + at most "
+                    f"{FLEET_FENCE_MARGIN_S} s)")
+            td = _fleet_ties(phase, "D worker_hang", got, want4, reqs,
+                             judge4)
+        finally:
+            os.environ.pop("TPU_TRAINER_FAULT_REPLICA", None)
+        rec["C"] = {"failed_over": sc["failed_over_requests"], **tc}
+        rec["D"] = {"stall_s": stall, "fenced": sd_["fenced"], **td}
+        log(phase, f"C worker_kill@{FLEET_FAULT_AT} on replica {victim} (4 "
+                   f"layers): {sc['failed_over_requests']} requests failed "
+                   f"over, 24/24 finished, greedy ties {len(tc['ties'])}, "
+                   f"sampled rows moved {len(tc['sampled_moved'])}")
+        log(phase, f"D worker_hang@{FLEET_FAULT_AT} (4 layers): fenced after "
+                   f"a stall of {stall:.3f} s (per-call timeout "
+                   f"{FLEET_RPC_TIMEOUT_S} s, margin "
+                   f"{FLEET_FENCE_MARGIN_S} s), 24/24 finished, greedy "
+                   f"ties {len(td['ties'])}, sampled rows moved "
+                   f"{len(td['sampled_moved'])}")
+        log(phase, f"E roles prefill -> decode (4 layers): "
+                   f"{se['migrations']} migrated ({se['migrated_bytes']} "
+                   f"bytes), fleet hit rate "
+                   f"{se['fleet_prefix_hit_rate']:.3f} (two plain replicas "
+                   f"{rec['E']['reference_prefix_hit_rate']:.3f}), greedy "
+                   f"ties {len(te['ties'])}, sampled rows moved "
+                   f"{len(te['sampled_moved'])}")
+    finally:
+        for s in sups:
+            s.close()
+        for s, (_wid, proc, _log) in spawned:
+            if proc.poll() is None:
+                proc.kill()
+        for d in dirs:
+            shutil.rmtree(d, ignore_errors=True)
+    rec["worker_launches"] = lb
+    rec["launches"] = l_a + lb + le
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(phase, f"flash_decode launches: A {l_a} in-process, B {lb} in its "
+               f"workers (their logs), E {le} in-process; phase "
+               f"{rec['seconds']:.1f} s")
+    results[phase] = rec
+    return rec
+
+
+def _fleet_planted_router(phase, params, cfg, vocab, seed, fe_lib) -> None:
+    """A's affinity check on a fleet whose router ignores affinity (the
+    least-loaded replica for every keyed request): submits only."""
+    route = fe_lib.ServingFrontend._route
+
+    def least(self, req):
+        target, how = route(self, req)
+        if how == "affinity":
+            return min(self._live(routable=True), key=self._load), how
+        return target, how
+
+    fe_lib.ServingFrontend._route = least
+    try:
+        fe = fe_lib.ServingFrontend(params, cfg, replicas=2,
+                                    time_mode="steps", spill_tokens=None,
+                                    **FLEET_ENGINE)
+        reqs = _fleet_trace(vocab, seed=seed)
+        for r in reqs:
+            fe.submit(r)
+    finally:
+        fe_lib.ServingFrontend._route = route
+    _fleet_affinity(phase, fe, reqs)
 
 
 # -- phases 16 and 17: the user surface -------------------------------------
@@ -6557,13 +7107,14 @@ PIPE_STATE_L2 = 0.15
 
 
 def _pipe_launches(cfg, stages: int, stage: int, steps: int,
-                   eval_micro: int = 1) -> dict:
+                   eval_batches: int = 1) -> dict:
     """A stage rank's launches over ``steps`` pipelined steps and
-    ``eval_micro`` eval batches: a forward of each of its layers a
-    microbatch (twice under remat) and one over each eval batch (the
-    GPipe forward at one microbatch), the fused backward a layer a
-    microbatch; the head + CE kernel on the last stage: GPipe's head a
-    step (1F1B's vocabulary slices are plain products) and the eval's."""
+    ``eval_batches`` eval batches: a forward of each of its layers a
+    microbatch (twice under remat), in training and in each eval batch
+    (the forward alone in the schedule's microbatches), the fused
+    backward a layer a microbatch; the head + CE kernel on the last
+    stage: GPipe's head a step (1F1B's vocabulary slices are plain
+    products) and the eval's whole-batch head."""
     from tpu_trainer_torch.ops import flash
     from tpu_trainer_torch.parallel import pipeline as pp
 
@@ -6573,11 +7124,12 @@ def _pipe_launches(cfg, stages: int, stage: int, steps: int,
     fused = flash.backward_impl(cfg.max_seq_len, False) == "fused"
     last = stage == stages - 1
     gpipe = cfg.pipeline_schedule == "gpipe"
-    return {"flash_forward": Ls * (fwd * M * steps + eval_micro),
+    return {"flash_forward": Ls * M * (fwd * steps + eval_batches),
             "flash_backward": Ls * M * steps if fused else 0,
             "flash_backward_dkv": 0 if fused else Ls * M * steps,
             "flash_backward_dq": 0 if fused else Ls * M * steps,
-            "head_ce": ((steps if gpipe else 0) + eval_micro) if last else 0,
+            "head_ce": ((steps if gpipe else 0) + eval_batches) if last
+            else 0,
             "gmm": 0, "tgmm": 0}
 
 
@@ -7697,6 +8249,7 @@ def main(argv=None) -> int:
     run("int8", phase_engine, kv_int8=True)
     spec = run("spec", phase_spec)
     kvs = run("kv-store", phase_kv_store)
+    fleet = run("fleet", phase_fleet)
     train_k = run("train-kernel", phase_train_kernel)
     mask = run("mask", phase_mask)
     split = run("train-split", phase_train_split)
@@ -7782,7 +8335,8 @@ def main(argv=None) -> int:
     # head slice of attention under tensor; expert: gmm and tgmm on a
     # rank's experts): each row counts its main path's launches plus theirs
     # (and flash_decode's the moe-capacity engine's and the spec and
-    # kv-store phases' engines and draft models').
+    # kv-store phases' engines and draft models', and the fleet phase's
+    # in-process replicas and worker processes).
     ftl = dict(ft["launches"])
     _add_launches(ftl, dist["launches"])
     _add_launches(ftl, pipe["launches"])
@@ -7790,7 +8344,8 @@ def main(argv=None) -> int:
     _add_launches(ftl, el["launches"])
     _add_launches(ftl, mr["launches"])
     _add_launches(ftl, mc["launches"])
-    launches += mc["engine"]["launches"] + spec["launches"] + kvs["launches"]
+    launches += (mc["engine"]["launches"] + spec["launches"]
+                 + kvs["launches"] + fleet["launches"])
     train_launches = {k: v + ftl.get(k, 0) for k, v in train_launches.items()}
     packed_launches = {k: v + ftl.get(k, 0)
                        for k, v in packed_launches.items()}

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Mutation checks of the port's hand-written CUDA kernels, its
-collectives and its pipeline, on the card.
+collectives, its pipeline and its serving fleet, on the card.
 
 For each named mutation: copy the port (``tpu_trainer_torch/``,
 ``configs/`` and ``chip_smoke.py``) into a temporary directory, plant one
@@ -49,6 +49,22 @@ out of step hang instead of failing):
 - ``pp_head_partial_cotangent``: the 1F1B head hands the last stage its
   own vocabulary slice's cotangent instead of the sum over the stage
   group; phase ``pipeline`` must fail.
+- ``fleet_mirror_drops_token``: ``RemoteReplica``'s mirror drops the last
+  token of every step delta; phase ``fleet`` must fail (run B against
+  the in-process fleet).
+- ``fleet_resubmit_stale_cursor``: a worker restarts a resubmitted
+  request's delta cursor at 0 instead of its generated count, so a
+  failed-over request's mirror is sent its tokens again; phase ``fleet``
+  must fail (run C). (The request's prefill cursors, status and slot that
+  a failover also resets are overwritten by the survivor's admission, so
+  a fault there would change nothing.)
+- ``fleet_resubmit_wrong_seed``: a request that crosses the wire with
+  tokens already generated (a failover's resubmit) samples under another
+  seed; phase ``fleet`` must fail (run C's sampled rows, each draw held to
+  the f32 model's scores under the sampler's own noise).
+- ``fleet_router_ignores_affinity``: the router sends a request with a
+  full prompt block to the least-loaded replica instead of its
+  rendezvous; phase ``fleet`` must fail (run A's prefix groups split).
 
 Needs one CUDA GPU and nvcc; writes nothing into the checkout. Run from the
 repository root: ``python3 scripts/torch_kernel_mutations.py [name ...]``.
@@ -127,6 +143,27 @@ MUTATIONS = {
         "dxn = self.mesh.stage.all_reduce_sum(gs[0].contiguous(),",
         "dxn = (lambda t, kind: t)(gs[0].contiguous(),",
         "pipeline"),
+    "fleet_mirror_drops_token": (
+        "tpu_trainer_torch/serving/remote.py",
+        'req.generated.extend(d["gen"])',
+        'req.generated.extend(d["gen"][:-1])',
+        "fleet"),
+    "fleet_resubmit_stale_cursor": (
+        "tpu_trainer_torch/serving/worker.py",
+        "self._sent[req.rid] = len(req.generated)",
+        "self._sent[req.rid] = 0",
+        "fleet"),
+    "fleet_resubmit_wrong_seed": (
+        "tpu_trainer_torch/serving/remote.py",
+        'sampling=SamplingParams(**d["sampling"]),',
+        'sampling=SamplingParams(**dict(d["sampling"], seed=d["sampling"]'
+        '["seed"] + bool(d.get("generated")))),',
+        "fleet"),
+    "fleet_router_ignores_affinity": (
+        "tpu_trainer_torch/serving/frontend.py",
+        "target = self._rendezvous(key, live)",
+        "target = min(live, key=self._load)",
+        "fleet"),
 }
 
 

@@ -70,9 +70,55 @@ def test_import_leaves_jax_out_of_sys_modules():
                 "tpu_trainer_torch.obs.metrics",
                 "tpu_trainer_torch.obs.http",
                 "tpu_trainer_torch.tools",
-                "tpu_trainer_torch.tools.analyze"):
+                "tpu_trainer_torch.tools.analyze",
+                "tpu_trainer_torch.serving.frontend",
+                "tpu_trainer_torch.serving.remote",
+                "tpu_trainer_torch.serving.worker",
+                "tpu_trainer_torch.serving.tracing"):
         assert mod in loaded
     assert [m for m in loaded if _forbidden(m)] == []
+
+
+def test_started_worker_imports_no_jax(tmp_path):
+    """A worker process started by the supervisor, after it built its
+    engine and served a request, has imported no JAX, Flax or JAX-package
+    module (``PYTHONPROFILEIMPORTTIME`` lists every import in its log).
+    It runs the TCP transport and the shard-streaming launch (the weights
+    as a 2-way ``export_param_shards`` export it stitches back)."""
+    import shutil
+    import tempfile
+
+    from tpu_trainer_torch.models.config import GPTConfig
+    from tpu_trainer_torch.models.weights import init_params
+    from tpu_trainer_torch.serving import (Request, ServingFrontend,
+                                           WorkerSupervisor)
+
+    cfg = GPTConfig(vocab_size=64, hidden_size=16, num_layers=1,
+                    num_heads=2, max_seq_len=32, dtype="float32",
+                    param_dtype="float32")
+    run_dir = tempfile.mkdtemp(prefix="ttb-")
+    sup = WorkerSupervisor(
+        init_params(cfg, 0, device="cpu"), cfg,
+        engine_kwargs={"device": "cpu", "block_size": 8, "max_batch": 2},
+        run_dir=run_dir, tcp=True, param_shard_world=2, launch_prefix=[
+            "env", "PYTHONPROFILEIMPORTTIME=1", "OMP_NUM_THREADS=1"])
+    try:
+        fe = ServingFrontend(None, cfg, replicas=1, time_mode="steps",
+                             replica_factory=sup)
+        fin = fe.run([Request(rid=0, prompt=[1, 2, 3], max_new_tokens=2)])
+        assert len(fin) == 1 and len(fin[0].generated) == 2
+        assert len(sup.param_shard_bytes) == 2
+        assert max(sup.param_shard_bytes) < sup.param_bytes_full
+        sup.close()
+        with open(f"{run_dir}/worker0.log") as f:
+            log = f.read()
+    finally:
+        sup.close()
+        shutil.rmtree(run_dir, ignore_errors=True)
+    mods = [line.rsplit("|", 1)[1].strip() for line in log.splitlines()
+            if line.startswith("import time:") and "|" in line]
+    assert "tpu_trainer_torch.serving.engine" in mods
+    assert [m for m in mods if _forbidden(m)] == []
 
 
 @pytest.mark.parametrize("path", sorted(

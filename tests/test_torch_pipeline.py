@@ -208,8 +208,9 @@ def test_mesh_layout_matches_jax():
 
 def _jax_losses(model_kw, batch_size, path):
     """The JAX ``Trainer`` on ``MeshConfig(data=2, stage=2)`` of four CPU
-    devices: its initial parameters (an npz at ``path``) and its losses
-    over ``STEPS`` dummy batches."""
+    devices: its initial parameters (an npz at ``path``), its losses over
+    ``STEPS`` dummy batches and its ``eval_step`` on the first batch at
+    the initial parameters."""
     jax = pytest.importorskip("jax")
     from tpu_trainer.models.config import GPTConfig as JConfig
     from tpu_trainer.parallel.mesh import MeshConfig, make_mesh
@@ -226,23 +227,27 @@ def _jax_losses(model_kw, batch_size, path):
                    mesh=make_mesh(mesh_cfg, devices=jax.devices()[:4]))
     jstate = jtr.init_state(0)
     save_params_npz(path, jax.tree.map(np.asarray, jstate.params))
-    losses = []
+    losses, ev = [], None
     for batch in DummyDataLoader(jtr.global_batch_size, SEQ,
                                  model_kw["vocab_size"], num_batches=STEPS,
                                  seed=11):
+        if ev is None:
+            ev = float(jtr.eval_step(jstate, batch))
         jstate, m = jtr.train_step(jstate, batch)
         losses.append(float(m["loss"]))
-    return losses
+    return losses, ev
 
 
 @pytest.fixture(scope="module")
 def jax_pp(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("pp_jax")
-    return {"gpipe": (str(tmp / "dense.npz"),
-                      _jax_losses(MODEL, 2, str(tmp / "dense.npz"))),
-            "moe_il": (str(tmp / "moe.npz"),
-                       _jax_losses({**DROPS, **IL}, 1,
-                                   str(tmp / "moe.npz")))}
+    out = {}
+    for tag, model, rows in (("gpipe", MODEL, 2),
+                             ("moe_il", {**DROPS, **IL}, 1)):
+        npz = str(tmp / f"{tag}.npz")
+        losses, ev = _jax_losses(model, rows, npz)
+        out[tag] = (npz, losses, ev)
+    return out
 
 
 def _strided(rows, micro):
@@ -402,7 +407,7 @@ def world4(tmp_path_factory, jax_pp):
         _job("jax_gpipe", D2S2, batch_size=2,
              params_npz=jax_pp["gpipe"][0]),
         _job("jax_moe_il", D2S2, model={**DROPS, **IL}, batch_size=1,
-             params_npz=jax_pp["moe_il"][0]),
+             params_npz=jax_pp["moe_il"][0], eval="init"),
         _job("f1b", D2S2, model={**MODEL, **F1}, batch_size=2, eval=True),
         _job("il", D2S2, model={**MODEL, **IL}, batch_size=2,
              save_at=[STEPS], save_dir=str(tmp / "ck"), restore=w1),
@@ -473,6 +478,18 @@ def test_interleaved_moe_uneven_micro_matches_jax(world4, jax_pp):
     for rank in world4["jax_moe_il"]:
         np.testing.assert_allclose(rank["losses"], jax_pp["moe_il"][1],
                                    **TOL)
+
+
+def test_capacity_moe_eval_under_stage_matches_jax(world4, jax_pp):
+    """``eval_step`` of the capacity-router model that drops tokens, at
+    data 2 x stage 2, against the JAX ``Trainer``'s eval at the same mesh
+    and parameters (the initial ones):
+    both run the GPipe forward in ``pipeline_microbatches`` microbatches,
+    so capacity and the aux are per microbatch (one microbatch of the
+    whole batch gives another loss where tokens drop)."""
+    want = jax_pp["moe_il"][2]
+    for rank in world4["jax_moe_il"]:
+        assert rank["eval"] == pytest.approx(want, rel=1e-5, abs=1e-5)
 
 
 # -- against the port's world 1 -----------------------------------------------------------

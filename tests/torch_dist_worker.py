@@ -14,7 +14,7 @@ numpy arrays and scalars) for the test to compare. Jobs:
   offload's kept leaves and bytes, this rank's local arrays at init and
   at the end, its ``shard_records()``, the collectives it ran
   (``collectives.calls``), with ``eval`` the ``eval_step`` of the first
-  batch after the last step, with ``record_dropout`` every residual
+  batch after the last step (``eval: "init"``: before the first step), with ``record_dropout`` every residual
   dropout call's seed, offsets and kept mask (``record_dropout`` below),
   with ``plant_local_fold`` the pipeline's dropout fold keyed by the
   rank's local layer index instead of the global one (a planted fault),
@@ -199,6 +199,16 @@ def plant_block(trainer: Trainer, layer: int, row: int) -> None:
     trainer.model._train_block = planted
 
 
+def _first_batch_eval(tr, job, state) -> float:
+    """``eval_step`` of this rank's rows of the job's first batch."""
+    first = next(iter(DummyDataLoader(
+        tr.global_batch_size, job["train"]["max_seq_len"],
+        job["model"]["vocab_size"], num_batches=1,
+        seed=job.get("data_seed", 11), process_index=tr.data_feed_rank,
+        process_count=tr.data_feed_world)))
+    return float(tr.eval_step(state, first))
+
+
 def load_params(job, tr):
     if not job.get("params_npz"):
         return None
@@ -230,6 +240,8 @@ def train(job) -> dict:
            "telemetry": [],
            "offload": {"keep": sorted(tr._offload_keep),
                        "resident": tr.offload_resident_bytes}}
+    if job.get("eval") == "init":
+        out["eval"] = _first_batch_eval(tr, job, state)
     loader = DummyDataLoader(tr.global_batch_size, job["train"]["max_seq_len"],
                              job["model"]["vocab_size"],
                              num_batches=job["steps"],
@@ -264,13 +276,8 @@ def train(job) -> dict:
                                              "seed": 11,
                                              **tr.feed_signature})
     moe.expert_sum = expert_sum
-    if job.get("eval"):
-        first = next(iter(DummyDataLoader(
-            tr.global_batch_size, job["train"]["max_seq_len"],
-            job["model"]["vocab_size"], num_batches=1,
-            seed=job.get("data_seed", 11), process_index=tr.data_feed_rank,
-            process_count=tr.data_feed_world)))
-        out["eval"] = float(tr.eval_step(state, first))
+    if job.get("eval") is True:
+        out["eval"] = _first_batch_eval(tr, job, state)
     if restore_drop is not None:
         restore_drop()
         out["dropout"] = drops

@@ -33,8 +33,7 @@ tensor rank samples the same tokens; a MoE layer runs its tensor slice of
 every expert's FFN and sums the layer's output over the tensor group
 (``models/moe.py``). ``fused_projections`` is turned off (the JAX
 gate). ``--serve`` with a mesh stays refused, as in JAX: the paged TP
-decode is ROADMAP Queue 1 "serving across devices: TP decode and the
-fleet".
+decode is ROADMAP Queue 1 "Serving across devices: TP decode".
 
 Runs on CUDA unless ``--device cpu``; without a GPU and without that flag
 it raises.

@@ -16,6 +16,10 @@ from typing import Optional, Tuple
 
 import torch
 
+# The ROADMAP entry that ports the tensor-parallel paged decode; every
+# refusal of it names the entry by its title.
+TP_DECODE_ENTRY = "ROADMAP Queue 1: Serving across devices: TP decode"
+
 _DTYPES = {
     "float32": torch.float32,
     "bfloat16": torch.bfloat16,
@@ -172,7 +176,7 @@ class GPTConfig:
         if self.paged_tp != 1:
             raise NotImplementedError(
                 f"paged_tp={self.paged_tp}: tensor-parallel decode is not "
-                f"ported yet")
+                f"ported yet -> {TP_DECODE_ENTRY}")
         if self.remat_policy not in ("full", "dots"):
             raise ValueError(
                 f"unknown remat_policy {self.remat_policy!r}; "

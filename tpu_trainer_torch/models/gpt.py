@@ -619,10 +619,10 @@ class GPT(nn.Module):
         schedule. Returns ``(loss, grads, stats)``: the step's loss, the
         same on every stage rank, the f32 gradients of ``leaves`` summed
         over the microbatches (seeded with ``loss_scale``; None entries
-        where a leaf got none), or None without ``backward`` (a GPipe
-        forward of ``micro`` microbatches, default the schedule's, under
-        no_grad: evaluation and the nan scan), and the executor's
-        ``parallel/pipeline.Stats``."""
+        where a leaf got none), or None without ``backward`` (a forward
+        of ``micro`` microbatches, default the schedule's, through
+        ``pipeline.forward_schedule`` under no_grad: evaluation and the
+        nan scan), and the executor's ``parallel/pipeline.Stats``."""
         from tpu_trainer_torch.parallel import pipeline as pp
 
         if segment_ids is not None:
@@ -631,8 +631,7 @@ class GPT(nn.Module):
         mesh = ctx_lib.current_mesh()
         sched = mesh.schedule
         if not backward:
-            sched = pp.make_schedule("gpipe", sched.stages,
-                                     micro or sched.micro)
+            sched = pp.forward_schedule(sched, micro)
         hooks = _StageHooks(self, mesh, sched, input_ids, labels, leaves,
                             train=train, generator=generator,
                             loss_scale=loss_scale)
@@ -1074,8 +1073,10 @@ class _StageHooks:
             if x is None:
                 emb = model._leaf("embed_tokens.embedding")
                 x = emb[self.ids[m]].to(cfg.compute_dtype)
-                if telemetry.capturing():
-                    telemetry.record("embed_out", telemetry.site_stats(x))
+                if telemetry.capturing() and self.rows[m]:
+                    telemetry.record_rows("embed_out",
+                                          telemetry.site_stats(x),
+                                          len(self.rows[m]))
             views = model._unstacked_layers()
             aux = None
             lo = c * self.chunk
@@ -1089,10 +1090,12 @@ class _StageHooks:
                     self.step, generator=gen,
                     rows=(self.row0[m], self.total_rows),
                     moe_tokens=self.moe_tokens[m],
-                    telem=[] if telemetry.capturing() else None)
+                    telem=([] if telemetry.capturing() and self.rows[m]
+                           else None))
                 x, a = self.block(x, views[li], step)
                 if step.telem:
-                    telemetry.record(f"layer_{gl}", step.telem[0])
+                    telemetry.record_rows(f"layer_{gl}", step.telem[0],
+                                          len(self.rows[m]))
                 if a is not None:
                     aux = a if aux is None else aux + a
         return x, aux

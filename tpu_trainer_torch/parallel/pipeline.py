@@ -242,6 +242,29 @@ def make_schedule(kind: str, stages: int, micro: int, virtual: int = 1,
                     tuple(tuple(r) for r in ticks))
 
 
+def forward_schedule(sched: Schedule, micro: Optional[int] = None
+                     ) -> Schedule:
+    """The forward-only table for ``sched``'s layer layout (evaluation, the
+    nan scan), over ``micro`` microbatches (default ``sched``'s): GPipe's
+    at one chunk a rank; under interleaved, the interleaved table's
+    forward items at their ticks (every message still consumed at the
+    next tick, the chunks in global layer order), its per-microbatch
+    heads replaced by GPipe's whole-batch head on the last stage."""
+    M = micro or sched.micro
+    if sched.virtual == 1:
+        return make_schedule("gpipe", sched.stages, M)
+    full = make_schedule("interleaved", sched.stages, M, sched.virtual)
+    S = sched.stages
+    ticks = []
+    for s, row in enumerate(full.ticks):
+        out = [Tick(fwd=tk.fwd, recv_fwd=tk.recv_fwd, send_fwd=tk.send_fwd)
+               for tk in row]
+        if s == S - 1:
+            out.append(Tick(head=-1))
+        ticks.append(tuple(out))
+    return Schedule("gpipe", S, M, sched.virtual, full.window, tuple(ticks))
+
+
 def check_schedule(sched: Schedule) -> Dict[str, int]:
     """Raise ``ValueError`` unless the table is sound: every (chunk,
     micro) item runs its forward once and its backward once after it;

@@ -31,6 +31,15 @@ JAX engine's leaf order. ``role="prefill"`` stops requests after their
 first token; ``extract_request`` hands one to another engine sharing the
 store (full blocks by digest, the tail raw in ``_kv_migration``).
 
+The fleet surface (``serving/frontend.py``, ``serving/worker.py``):
+``registry`` mirrors the cumulative stats as counters and gauges
+(``set_function``, read at scrape time; the metric names are the JAX
+engine's) and observes the step, TTFT and TPOT histograms;
+``export_requests`` hands every queued and in-flight request back for
+failover; ``device_block_budget`` sizes the pool. ``mesh_tensor`` /
+``mesh_devices`` above one device are the tensor-parallel decode, which
+is not ported (``models.config.TP_DECODE_ENTRY``).
+
 ``python -m tpu_trainer_torch.serving.engine`` replays a seeded open-loop
 Poisson trace against a synthetic checkpoint and prints the summary. It
 runs on CUDA unless ``--device cpu`` is given.
@@ -45,9 +54,10 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from tpu_trainer_torch.models.config import GPTConfig
+from tpu_trainer_torch.models.config import TP_DECODE_ENTRY, GPTConfig
 from tpu_trainer_torch.models.gpt import GPT, init_paged_cache
 from tpu_trainer_torch.models.weights import build_model
+from tpu_trainer_torch.obs.metrics import NULL_REGISTRY
 from tpu_trainer_torch.serving.kv_store import KVBlockStore, MigrationPricer
 from tpu_trainer_torch.serving.paged_cache import PagedKVCache
 from tpu_trainer_torch.serving.sampling import sample_tokens
@@ -106,6 +116,10 @@ class ServingEngine:
         clock=time.perf_counter,
         trace: bool = True,
         ts_interval: int = 32,
+        registry=None,
+        mesh_tensor: Optional[int] = None,
+        mesh_devices: Optional[Sequence[int]] = None,
+        device_block_budget: Optional[int] = None,
         kv_store: Optional[KVBlockStore] = None,
         kv_store_bytes: Optional[int] = None,
         kv_store_dir: Optional[str] = None,
@@ -122,6 +136,16 @@ class ServingEngine:
                 "attention always runs the flash-decode kernel")
         if max_blocks_per_request is None:
             max_blocks_per_request = -(-config.max_seq_len // block_size)
+        tp = int(mesh_tensor) if mesh_tensor else 1
+        if mesh_devices is not None and tp == 1 and len(mesh_devices) > 1:
+            tp = len(mesh_devices)
+        if tp != 1:
+            raise NotImplementedError(
+                f"mesh_tensor={tp}: tensor-parallel decode is not ported "
+                f"yet -> {TP_DECODE_ENTRY}")
+        if device_block_budget is not None and num_blocks is None:
+            # The pool per device: at tp 1 one device holds every block.
+            num_blocks = device_block_budget
         if num_blocks is None:
             # Enough for every slot to run at full context, + null block.
             num_blocks = max_batch * max_blocks_per_request + 1
@@ -212,6 +236,114 @@ class ServingEngine:
             "finished": 0, "cancelled": 0, "deadline_exceeded": 0,
             "failed": 0,
         }
+        # The live metrics plane (obs/): counters and gauges mirror the
+        # stats above through set_function, so a scrape equals summary()
+        # and costs the hot path nothing; only the latency histograms
+        # observe inline, no-op calls on the null registry.
+        self.registry = registry if registry is not None else NULL_REGISTRY
+        self._metrics_on = registry is not None
+        self._install_metrics()
+
+    def _install_metrics(self) -> None:
+        reg = self.registry
+        self._m_step_seconds = reg.histogram(
+            "serve_step_seconds", "Engine step wall-clock latency")
+        self._m_ttft = reg.histogram(
+            "serve_ttft_seconds", "Time to first token (engine clock)")
+        self._m_tpot = reg.histogram(
+            "serve_tpot_seconds", "Inter-token gap (engine clock)")
+        req_total = reg.counter(
+            "serve_requests_total", "Terminal requests by state",
+            labelnames=("state",))
+        for state in self.scheduler.terminal_counts:
+            req_total.labels(state=state).set_function(
+                lambda s=state: self.scheduler.terminal_counts[s])
+        reg.counter("serve_admissions_total", "Admission events "
+                    "(re-admission after preemption/failover counts)"
+                    ).set_function(lambda: self.scheduler.n_admissions)
+        reg.counter("serve_preemptions_total", "Recompute preemptions"
+                    ).set_function(lambda: self.scheduler.n_preemptions)
+        reg.counter("serve_generated_tokens_total", "Tokens emitted"
+                    ).set_function(lambda: self.stats["generated_tokens"])
+        reg.counter("serve_prefill_tokens_total", "Prompt tokens prefilled"
+                    ).set_function(lambda: self.stats["prefill_tokens"])
+        reg.counter("serve_prompt_tokens_total", "Prompt tokens admitted"
+                    ).set_function(lambda: self.scheduler.prompt_tokens)
+        reg.counter("serve_prefix_hit_tokens_total",
+                    "Prompt tokens served from the prefix index"
+                    ).set_function(lambda: self.scheduler.prefix_hit_tokens)
+        reg.counter("serve_prefix_evictions_total", "Prefix-index evictions"
+                    ).set_function(
+                        lambda: self.cache_state.n_prefix_evictions)
+        pool = reg.gauge("serve_pool_blocks",
+                         "Paged-pool fragmentation split",
+                         labelnames=("kind",))
+        pool.labels(kind="free").set_function(
+            lambda: self.cache_state.pool.free_blocks)
+        pool.labels(kind="evictable").set_function(
+            lambda: self.cache_state.evictable_blocks)
+        pool.labels(kind="referenced").set_function(
+            lambda: self.cache_state.referenced_blocks)
+        reg.gauge("serve_pool_occupancy", "Paged-pool occupancy fraction"
+                  ).set_function(lambda: self.cache_state.pool.occupancy)
+        reg.gauge("serve_prefix_index_entries", "Prefix-index size"
+                  ).set_function(
+                      lambda: self.cache_state.prefix_index_entries)
+        reg.gauge("serve_queue_depth", "Requests waiting for admission"
+                  ).set_function(lambda: self.queue_depth)
+        reg.gauge("serve_running", "Requests in flight"
+                  ).set_function(lambda: len(self.scheduler.running))
+        reg.gauge("serve_outstanding_tokens", "Token-steps of work owed"
+                  ).set_function(lambda: self.outstanding_tokens)
+        if self.kv_store is not None:
+            store, cs = self.kv_store, self.cache_state
+            kvb = reg.gauge("kv_store_bytes",
+                            "Fleet KV store payload bytes by tier",
+                            labelnames=("tier",))
+            kvb.labels(tier="host").set_function(
+                lambda: store.host_bytes_used)
+            kvb.labels(tier="disk").set_function(
+                lambda: store.disk_bytes_used)
+            kvh = reg.counter("kv_store_hits_total",
+                              "Store block hits by serving tier",
+                              labelnames=("tier",))
+            kvh.labels(tier="host").set_function(
+                lambda: store.counters["hits_host"])
+            kvh.labels(tier="disk").set_function(
+                lambda: store.counters["hits_disk"])
+            kvt = reg.counter("kv_store_hit_tokens_total",
+                              "Prompt tokens admitted from the store",
+                              labelnames=("tier",))
+            kvt.labels(tier="host").set_function(
+                lambda: cs.store_hit_tokens_host)
+            kvt.labels(tier="disk").set_function(
+                lambda: cs.store_hit_tokens_disk)
+            kve = reg.counter("kv_store_evictions_total",
+                              "Store entries evicted by tier",
+                              labelnames=("tier",))
+            kve.labels(tier="host").set_function(
+                lambda: store.counters["evictions_host"])
+            kve.labels(tier="disk").set_function(
+                lambda: store.counters["evictions_disk"])
+            reg.counter("kv_store_puts_total",
+                        "Blocks published into the store"
+                        ).set_function(lambda: store.counters["puts"])
+            reg.counter("kv_store_spills_total",
+                        "Evicted device blocks demoted into the store"
+                        ).set_function(lambda: cs.n_store_spills)
+            reg.counter("kv_store_migrated_tails_total",
+                        "Migrated raw tail blocks admitted"
+                        ).set_function(
+                            lambda: self.scheduler.n_migrated_tail_fills)
+        if self.spec_decoder is not None:
+            reg.counter("serve_spec_drafted_total", "Draft tokens proposed"
+                        ).set_function(lambda: self.stats["spec_drafted"])
+            reg.counter("serve_spec_accepted_total", "Draft tokens accepted"
+                        ).set_function(lambda: self.stats["spec_accepted"])
+            reg.gauge("serve_spec_accept_rate",
+                      "Accepted / drafted (cumulative)").set_function(
+                          lambda: self.stats["spec_accepted"]
+                          / max(1, int(self.stats["spec_drafted"])))
 
     def reset_stats(self) -> None:
         """Zero counters and clock between a warm-up and a timed run. The
@@ -249,6 +381,15 @@ class ServingEngine:
         """Run one scheduler iteration. Returns the requests that reached a
         terminal state this iteration (finished, or retired by the
         deadline sweep)."""
+        if not self._metrics_on:
+            return self._step_impl()
+        t0 = time.perf_counter()
+        try:
+            return self._step_impl()
+        finally:
+            self._m_step_seconds.observe(time.perf_counter() - t0)
+
+    def _step_impl(self) -> List[Request]:
         self._iters += 1
         with self.ledger.track("host_sched"):
             terminal = self._expire_deadlines()
@@ -376,6 +517,8 @@ class ServingEngine:
                     # chunk redraws at the same (seed, token index).
                     continue
             tok = int(tokens[r.slot])
+            if r.token_times:
+                self._m_tpot.observe(max(0.0, now - r.token_times[-1]))
             r.generated.append(tok)
             r.token_times.append(now)
             self.stats["generated_tokens"] += 1
@@ -383,6 +526,7 @@ class ServingEngine:
             cs.lengths[r.slot] = r.context_len() - 1
             if r.first_token_at is None:
                 r.first_token_at = now
+                self._m_ttft.observe(max(0.0, now - r.arrival_time))
                 self.tracer.emit(r.rid, "first_token", now)
             if (r.eos_id is not None and tok == r.eos_id) or (
                     len(r.generated) >= r.max_new_tokens):
@@ -481,10 +625,13 @@ class ServingEngine:
             for tok in emitted[r.slot, :j + 1]:
                 tok = int(tok)
                 r.generated.append(tok)
+                if r.token_times:
+                    self._m_tpot.observe(max(0.0, now - r.token_times[-1]))
                 r.token_times.append(now)
                 self.stats["generated_tokens"] += 1
                 if r.first_token_at is None:
                     r.first_token_at = now
+                    self._m_ttft.observe(max(0.0, now - r.arrival_time))
                     self.tracer.emit(r.rid, "first_token", now)
                 if (r.eos_id is not None and tok == r.eos_id) or (
                         len(r.generated) >= r.max_new_tokens):
@@ -550,12 +697,14 @@ class ServingEngine:
         bf16 leaf comes back as its raw 2-byte words (void ``V2``)."""
         out = []
         for leaf in self._pool_leaves():
-            blk = leaf[:, block_id]
+            # A copy on either device: on the CPU ``.cpu()`` would alias
+            # the pool, and the block's next tenant would rewrite a store
+            # entry or a migration tail still in flight.
+            blk = leaf[:, block_id].to("cpu", copy=True)
             if blk.dtype == torch.bfloat16:
-                out.append(blk.view(torch.int16).cpu().numpy()
-                           .view(_BF16_HOST))
+                out.append(blk.view(torch.int16).numpy().view(_BF16_HOST))
             else:
-                out.append(blk.cpu().numpy())
+                out.append(blk.numpy())
         return out
 
     def write_block(self, block_id: int, payload: List[np.ndarray]) -> bool:
@@ -666,6 +815,13 @@ class ServingEngine:
         if arr is None:
             return 0.0
         return max(0.0, (self._now() if now is None else now) - arr)
+
+    def export_requests(self, *, waiting_only: bool = False
+                        ) -> List[Request]:
+        """Drain this engine's requeueable requests
+        (``Scheduler.export_requests``): the failover and shrink path of
+        the front-end."""
+        return self.scheduler.export_requests(waiting_only=waiting_only)
 
     # -- trace replay ------------------------------------------------------
 

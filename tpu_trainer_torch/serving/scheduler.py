@@ -28,8 +28,9 @@ package's:
 - **KV migration**: ``extract`` hands a running request off (prefill
   role); a request arriving with ``_kv_migration`` matches its full prompt
   blocks through the store and gets its raw tail written in place.
-
-Fleet export (``export_requests``) is not ported yet.
+- **Fleet export** (``export_requests``): the failover and shrink path of
+  the front-end strips queued (and in-flight) requests out, reset to
+  fresh-waiting state, for resubmission on another replica.
 """
 
 from __future__ import annotations
@@ -219,6 +220,27 @@ class Scheduler:
             total += max(0, r.prefill_target - r.prefill_cursor)
             total += r.max_new_tokens - len(r.generated)
         return total
+
+    # -- drain/export (failover and shrink-teardown) -----------------------
+
+    def export_requests(self, *, waiting_only: bool = False) -> List[Request]:
+        """Strip every queued (and, unless ``waiting_only``, in-flight)
+        request out of this scheduler, reset to fresh-waiting state, for
+        resubmission elsewhere. Running requests are preempted first
+        (blocks released, cursors reset). Generated tokens, timestamps and
+        sampling state survive: re-admission re-prefills prompt +
+        generated, and (seed, token index) sampling makes the resumed
+        stream token-identical. Returned in (arrival_time, rid) order."""
+        if not waiting_only:
+            while self.running:
+                self.preempt(self.running[-1])
+        out = sorted(self.waiting, key=lambda r: (r.arrival_time, r.rid))
+        self.waiting.clear()
+        for req in out:
+            # A handoff, not a terminal: the obligation moves to whoever
+            # ingests the request next.
+            self._emit(req, "exported", generated=len(req.generated))
+        return out
 
     def extract(self, req: Request) -> None:
         """Migration handoff: strip one running request out (blocks

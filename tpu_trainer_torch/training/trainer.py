@@ -131,7 +131,10 @@ count, by ``S v`` interleaved, ``M`` by ``S`` interleaved, the global
 batch by ``M``), and the table is checked at start-up
 (``pipeline.check_schedule``). A telemetry step keeps the norms and
 skips the activation capture, as in JAX; ``eval_step`` and ``nan_scan``
-run the GPipe forward with the rank's rows as one microbatch. A stage
+run the forward alone in the schedule's ``pipeline_microbatches``
+microbatches, as the JAX model's pipeline branch does (a capacity
+router's capacity and aux are per microbatch; an interleaved model's
+chunks run in their global layer order). A stage
 axis beside a tensor axis is not ported yet (``NotImplementedError``).
 
 The moments' narrow forms and the offload hold on a shard too: a rank's
@@ -1159,11 +1162,14 @@ class Trainer:
             for micro in batch:
                 tokens, labels, segs = self._inputs(micro)
                 if self.schedule is not None:
-                    # The GPipe forward, the rank's rows one microbatch
-                    # (the loss the same on every stage rank).
+                    # The forward in the schedule's
+                    # ``pipeline_microbatches`` microbatches, as the JAX
+                    # model's pipeline branch evaluates: a capacity
+                    # router's capacity and aux are per microbatch (the
+                    # loss the same on every stage rank).
                     loss = self.model.pipeline_step(
                         tokens, labels, [], train=False, backward=False,
-                        micro=1, segment_ids=segs)[0]
+                        segment_ids=segs)[0]
                 else:
                     _, loss = self.model(tokens, labels, train=False,
                                          segment_ids=segs)
@@ -1436,9 +1442,11 @@ class Trainer:
         with telemetry_lib.capture(deep=True) as cap, \
                 ctx_lib.use_mesh(self.mesh_context):
             if self.schedule is not None:
+                # The forward in the schedule's microbatches, as
+                # ``eval_step`` runs it.
                 loss = self.model.pipeline_step(
                     tokens, labels, [], train=False, backward=False,
-                    micro=1, segment_ids=segs)[0]
+                    segment_ids=segs)[0]
             else:
                 _, loss = self.model(tokens, labels, train=False,
                                      segment_ids=segs)

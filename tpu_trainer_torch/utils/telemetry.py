@@ -51,6 +51,7 @@ class _Capture:
     def __init__(self, deep: bool = False):
         self.deep = deep
         self.stats: Dict[str, object] = {}
+        self.rows: Dict[str, int] = {}      # record_rows' weights
 
 
 @contextlib.contextmanager
@@ -82,6 +83,34 @@ def record(name: str, value) -> None:
     """Stash a (dict of) tensor(s) under ``name`` in the active capture."""
     if _STACK:
         _STACK[-1].stats[name] = value
+
+
+def record_rows(name: str, value: Dict[str, torch.Tensor],
+                rows: int) -> None:
+    """``record`` for a site one forward records once a microbatch (a
+    pipeline's), of ``rows`` rows: merged into the earlier microbatches'
+    value as one batch of all their rows gives it, an ``*_rms`` as the
+    root of the row-weighted mean square, an ``*_absmax`` as the max (a
+    NaN stays NaN); any other key keeps the last microbatch's. A share of
+    no rows records nothing."""
+    if not _STACK or rows == 0:
+        return
+    cap = _STACK[-1]
+    prev, n0 = cap.stats.get(name), cap.rows.get(name, 0)
+    cap.rows[name] = n0 + rows
+    if prev is None or n0 == 0:
+        cap.stats[name] = dict(value)
+        return
+    out = dict(value)
+    for k, v in value.items():
+        if k not in prev:
+            continue
+        if k.endswith("rms"):
+            out[k] = torch.sqrt((prev[k].float().square() * n0
+                                 + v.float().square() * rows) / (n0 + rows))
+        elif k.endswith("absmax"):
+            out[k] = torch.maximum(prev[k].float(), v.float())
+    cap.stats[name] = out
 
 
 def pop(name: str):
