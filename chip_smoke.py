@@ -84,6 +84,25 @@ JAX package. Phases, each fatal on failure:
               ``fleet_resubmit_stale_cursor``). Prints worker start
               seconds, step RPC p50/p99, tok/s of A and B, the stall and
               the decode launches of A, B (in its workers) and E.
+5d. tp-decode -- tensor-parallel paged decode on the one card
+              (``serving/sharding.py``, ``paged_attention_sharded``):
+              GPT-2 small at full width, max batch 8, block 16, the
+              engine phase's 24 requests in ``steps`` time, every shard
+              on card 0 (``mesh_devices`` of repeated zeros). The sharded
+              dispatch at the decode shape bitwise one ``flash_decode``
+              call with kv-sharded pools (tp 2, 4) and replicated ones (2
+              kv heads, tp 4: each shard reads its kv head in place,
+              ``kv_head_base``), the window against the plain version,
+              planted faults (shards reversed, a shard ignoring its kv
+              head) rejected; engines at tp 2 and 4 (12 layers), int8
+              pools at tp 2, and GQA at tp 4 (4 layers) against tp 1:
+              streams bitwise or at the tie rule, decode launches exactly
+              tp x layers x decode iterations, a shard's persistent bytes
+              ~P/tp of parameters and 1/tp of the pools (whole when they
+              replicate), ``KVB1`` frames one device's; one worker
+              process (``device_sets=[[0, 0]]``, 2-way parameter shards)
+              serving the in-process tp-2 streams bitwise. Prints tok/s
+              and TPOT p50 at tp 1, 2 and 4.
 6. train-kernel -- the flash forward and fused backward kernels against
               ``flash_attention_reference`` (o, lse, the rotated q/k, and
               dq/dk/dv through autograd of the plain version) at the
@@ -195,7 +214,7 @@ JAX package. Phases, each fatal on failure:
               small, bf16 over f32 masters, dropout 0.1, accumulation 4)
               with ``--tokenizer byte``, 8 steps, saves and evals every
               4; step 8's checkpoint set aside and deleted, and the same
-              argv again in a fresh process (``_cli_child``), which
+              argv again (a new trainer in this process), which
               resumes from step 4: step 8's params, Adam moments and
               dropout generator and the losses of steps 5-8 must be
               bitwise equal, and that run's launches exactly 4 steps x 4
@@ -215,8 +234,8 @@ JAX package. Phases, each fatal on failure:
 18. remat   -- ``train_ddp --config configs/large_1b_single_chip.yaml``
               at 2 of its 36 layers (hidden 1280, batch 4 x 1024, full
               remat, bf16 Adam moments) on the cli phase's corpus, 6
-              steps with a save at step 3; the same command in a fresh
-              process resumes from step 3, and step 6's state (params, the
+              steps with a save at step 3; the same command again
+              resumes from step 3, and step 6's state (params, the
               bf16 moments' bits, the generator) and the losses of steps
               4-6 must be bitwise equal; launches exact (the flash forward
               twice a layer a micro-batch). tok/s, MFU and peak memory
@@ -244,7 +263,7 @@ JAX package. Phases, each fatal on failure:
 21. moe-capacity -- the capacity router, the JAX default
               (``phase_moe_capacity``): ``configs/moe_small.yaml`` at 2
               of its 12 layers through ``train_ddp`` (3 steps, a restart
-              at step 2 in a fresh process, bitwise; a telemetry step's
+              at step 2, bitwise; a telemetry step's
               per-layer
               drop_frac; tok/s and MFU on the active parameters);
               ``infer.py`` on its checkpoint twice, bitwise; bench.py
@@ -377,7 +396,8 @@ the dist phase's MoE group and the expert runs and the moe-capacity
 phase's CLI run (moe_small.yaml at 2 layers), the offload phase and the
 dist phase's ZeRO and offload runs (medium_model.yaml at 2 layers), the
 remat phase (large_1b_single_chip.yaml at 2 layers), the dist phase's
-small_model.yaml runs (2 layers), the world-rest phase, the elastic
+small_model.yaml runs and the ft phase's NaN rollback run (2 layers),
+the world-rest phase, the elastic
 phase and the mesh-ranks phase (small_model.yaml at 2 layers), the
 spec and kv-store phases and the pipeline phase's three schedules (4
 layers) and the moe-capacity phase's dispatch bench (6 layers).
@@ -405,8 +425,10 @@ result. Run from the repository root: ``python3 chip_smoke.py``
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
+import io
 import json
 import math
 import os
@@ -2667,9 +2689,9 @@ def _serve(phase, engine, reqs, *, capture_call):
         finite.logical_and_(torch.isfinite(logits).all())
 
     def capture(q, pool_k, pool_v, tables, lengths, k_scale, v_scale,
-                n_splits):
+                n_splits, *window):
         out = launch(q, pool_k, pool_v, tables, lengths, k_scale, v_scale,
-                     n_splits)
+                     n_splits, *window)
         calls[0] += 1
         if calls[0] == capture_call:
             captured.update(
@@ -3037,9 +3059,9 @@ class _DecodeCount:
         self._launch = launch = flash._launch
 
         def capture(q, pool_k, pool_v, tables, lengths, k_scale, v_scale,
-                    n_splits):
+                    n_splits, kv_head_base=0, kv_heads=None):
             out = launch(q, pool_k, pool_v, tables, lengths, k_scale,
-                         v_scale, n_splits)
+                         v_scale, n_splits, kv_head_base, kv_heads)
             self.calls += 1
             if self.calls == self.capture_call:
                 self.captured.update(
@@ -3048,7 +3070,8 @@ class _DecodeCount:
                     kw={"k_scale": None if k_scale is None
                         else k_scale.clone(),
                         "v_scale": None if v_scale is None
-                        else v_scale.clone()},
+                        else v_scale.clone(),
+                        "kv_head_base": kv_head_base, "kv_heads": kv_heads},
                     out=out.clone())
             return out
 
@@ -3996,6 +4019,424 @@ def _fleet_planted_router(phase, params, cfg, vocab, seed, fe_lib) -> None:
     _fleet_affinity(phase, fe, reqs)
 
 
+# -- phase 5d: tensor-parallel decode on one card -----------------------------
+
+# The phase's engines: the engine phase's max batch and block; the device
+# is patched to "cpu" to rehearse the phase on a CPU.
+TP_ENGINE = dict(max_batch=8, block_size=16, device="cuda")
+
+
+def _tp_model(layers: int = 12, kv_heads=None):
+    """GPT-2 small at full width (bf16 over f32 random weights from seed
+    0), ``layers`` deep, ``kv_heads`` kv heads."""
+    from tpu_trainer_torch.models.config import GPTConfig
+    from tpu_trainer_torch.models.weights import init_params
+
+    cfg = dataclasses.replace(
+        GPTConfig.gpt2_small(dropout=0.0, attention_dropout=0.0,
+                             dtype="bfloat16", param_dtype="float32",
+                             num_kv_heads=kv_heads), num_layers=layers)
+    return cfg, init_params(cfg, seed=0, device=TP_ENGINE["device"])
+
+
+def _tp_engine(params, cfg, tp: int, **kw):
+    """A replica at ``tp`` shards, all on card 0 (``mesh_devices`` = tp
+    zeros: one H100 holds every shard)."""
+    from tpu_trainer_torch.serving.engine import ServingEngine
+
+    mesh = {"mesh_devices": (0,) * tp} if tp > 1 else {}
+    return ServingEngine(params, cfg, **TP_ENGINE, **mesh, **kw)
+
+
+def _tp_trace(vocab):
+    """The engine phase's 24-request trace (even rids greedy)."""
+    return _trace(24, seed=1, prompt_len_range=(64, 512),
+                  max_new_range=(16, 64), vocab=vocab)
+
+
+def _tp_serve(phase, what, engine, *, warm: bool) -> dict:
+    """The trace through ``engine`` in ``steps`` time (a 3-request warm-up
+    first when ``warm``), its decode launches counted from zero: exactly
+    tp x layers x decode iterations."""
+    vocab, layers = engine.config.vocab_size, engine.config.num_layers
+    tp = engine.config.paged_tp
+    if warm:
+        engine.run(_trace(3, seed=99, prompt_len_range=(64, 128),
+                          max_new_range=(4, 8), vocab=vocab),
+                   time_mode="steps")
+        engine.reset_stats()
+    reqs = _tp_trace(vocab)
+    with _DecodeCount(engine) as cnt:
+        done = engine.run(reqs, time_mode="steps")
+    summ = engine.summary()
+    if len(done) != len(reqs) or any(
+            len(r.generated) != r.max_new_tokens for r in done):
+        raise AssertionError(f"{phase}: {what}: {len(done)}/{len(reqs)} "
+                             f"finished whole")
+    if cnt.launches != cnt.want * tp:
+        raise AssertionError(
+            f"{phase}: {what}: {cnt.launches} decode launches, want tp "
+            f"{tp} x {layers} layers x {cnt.plain} decode iterations = "
+            f"{cnt.want * tp}")
+    out = {"reqs": reqs, "streams": {r.rid: list(r.generated) for r in done},
+           "launches": cnt.launches, "decode_iters": cnt.plain,
+           **_latency(done, summ)}
+    log(phase, f"{what}: 24/24 finished, decode launches {cnt.launches} == "
+               f"{tp} x {layers} x {cnt.plain}; {out['tokens_per_s']:.1f} "
+               f"tok/s, TPOT p50 {out['tpot_p50_ms']:.2f} ms")
+    return out
+
+
+def _tp_hold(phase, what, got, want, judge) -> dict:
+    """``got``'s streams against ``want``'s: bitwise, or under the tie
+    rule (``_fleet_ties``; the judge, the f32 model, built only then)."""
+    if got["streams"] == want["streams"]:
+        return {"bitwise": True, "ties": [], "sampled_moved": []}
+    log(phase, f"{what}: streams not bitwise; holding them at the tie rule")
+    return {"bitwise": False, **_fleet_ties(
+        phase, what, got["streams"], want["streams"], want["reqs"], judge())}
+
+
+def _tp_bytes(engine) -> dict:
+    """Persistent bytes of each shard, from the engine's own tensors: its
+    parameter pieces and its pools."""
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    cache = engine.device_cache
+    if "shards" not in cache:
+        return {"params": [nbytes(engine.model.parameters())],
+                "pools": [nbytes(cache[k] for k in
+                                 ("pool_k", "pool_v", "scale_k", "scale_v")
+                                 if k in cache)]}
+    return {"params": engine.model.params.nbytes(),
+            "pools": [nbytes(sh.values()) for sh in cache["shards"]]}
+
+
+def _tp_check_bytes(phase, what, got, one, tp, sharded_pools) -> None:
+    """A shard's parameters within 1 % of P/tp; its pools 1/tp of one
+    device's (kv-sharded) or all of them (replicated)."""
+    p, pools = one["params"][0], one["pools"][0]
+    want_pool = pools // tp if sharded_pools else pools
+    if (len(got["params"]) != tp or max(got["params"]) > 1.01 * p / tp
+            or sum(got["params"]) < p or got["pools"] != [want_pool] * tp):
+        raise AssertionError(
+            f"{phase}: {what}: shard bytes {got}, want params ~{p / tp:.0f} "
+            f"and pools {want_pool} each (one device: {one})")
+
+
+def _tp_blocks(phase, what, a, b, n: int, *, equal: bool) -> int:
+    """Blocks 0..n-1: ``b.read_block`` encodes to ``a``'s ``KVB1`` frame
+    byte for byte when ``equal``; always, ``a``'s frame written into
+    ``b`` reads back as that frame."""
+    from tpu_trainer_torch.serving.remote import encode_kv_block
+
+    for bid in range(n):
+        fa = a.read_block(bid)
+        if equal and encode_kv_block(b.read_block(bid)) != encode_kv_block(
+                fa):
+            raise AssertionError(f"{phase}: {what}: block {bid}'s frame "
+                                 f"differs from one device's")
+    spare = n - 1
+    keep = b.read_block(spare)
+    for bid in range(1, n, max(1, n // 4)):
+        fa = a.read_block(bid)
+        if not b.write_block(spare, fa) or encode_kv_block(
+                b.read_block(spare)) != encode_kv_block(fa):
+            raise AssertionError(f"{phase}: {what}: one device's block {bid} "
+                                 f"did not round-trip through the shards")
+    b.write_block(spare, keep)
+    return n
+
+
+def _tp_kernel_checks(phase) -> dict:
+    """The sharded dispatch at the engine's decode shape (b 8, 12 heads
+    of 64, block 16, 64 blocks a row, 513 pool blocks, ragged lengths),
+    bf16 and int8 pools: kv-sharded at tp 2 and 4 and replicated (2 kv
+    heads, tp 4: each shard reads its one kv head in place) bitwise one
+    ``flash_decode`` call on the whole pool; the ``kv_head_base`` window
+    against the plain version within ``KERNEL_ATOL``; two planted faults
+    (shards concatenated in reverse, a shard ignoring its kv head)
+    rejected; times of the replicated dispatch and of one call (12
+    layers' pools in a CUDA graph, as the kernel phase times)."""
+    from tpu_trainer_torch.ops import flash
+
+    lengths = [1024, 1, 517, 64, 300, 1000, 33, 768]
+    cases = {
+        12: _kernel_case("tp", b=8, h=12, kvh=12, d=64, bsz=16, mb=64,
+                         nblk=513, null_row=1, lengths=lengths, seed=3),
+        2: _kernel_case("tp-gqa", b=8, h=12, kvh=2, d=64, bsz=16, mb=64,
+                        nblk=513, layers=12, null_row=1, lengths=lengths,
+                        seed=4),
+    }
+    rec = {"window_max_abs_err": 0.0, "bitwise_calls": 0}
+
+    def chunks(x, tp, kvh):
+        if x is None:
+            return None
+        if kvh % tp == 0:
+            return [c.contiguous() for c in x.chunk(tp, dim=2)]
+        return [x] * tp
+
+    for kvh, case in cases.items():
+        q, ops = case["q"], (case["tables"], case["lengths"])
+        for dtype in ("bfloat16", "int8"):
+            pk, pv, sk, sv = _pools(case, dtype)
+            pk, pv = pk[0], pv[0]
+            sk, sv = (None, None) if sk is None else (sk[0], sv[0])
+            kw = {} if sk is None else {"k_scale": sk, "v_scale": sv}
+            one = flash.flash_decode(q, pk, pv, *ops, **kw)
+            for tp in ((2, 4) if kvh == 12 else (4,)):
+                def sharded(tp=tp):
+                    return flash.paged_attention_sharded(
+                        q, chunks(pk, tp, kvh), chunks(pv, tp, kvh), *ops,
+                        kv_heads=kvh, k_scales=chunks(sk, tp, kvh),
+                        v_scales=chunks(sv, tp, kvh))
+
+                def same(got, what, tp=tp):
+                    if not torch.equal(got, one):
+                        raise AssertionError(
+                            f"{phase}: {what} (kvh {kvh}, tp {tp}, {dtype}) "
+                            f"differs from one call by "
+                            f"{float((got - one).abs().max()):.3e}")
+                got = sharded()
+                same(got, "the sharded dispatch")
+                rec["bitwise_calls"] += 1
+                _must_reject("shards concatenated in reverse order",
+                             lambda got=got, tp=tp: same(torch.cat(
+                                 got.chunk(tp, dim=1)[::-1], dim=1),
+                                 "reversed shards"))
+            if kvh == 2:
+                hl = 12 // 4
+                for i in range(4):
+                    win = dict(kv_head_base=i // 2, kv_heads=1)
+                    qi = q[:, i * hl:(i + 1) * hl]
+                    got = flash.flash_decode(qi, pk, pv, *ops, **kw, **win)
+                    want = flash.paged_attention_reference(qi, pk, pv, *ops,
+                                                           **kw, **win)
+                    err = float((got - want).abs().max())
+                    rec["window_max_abs_err"] = max(
+                        rec["window_max_abs_err"], err)
+                    if err > KERNEL_ATOL:
+                        raise AssertionError(
+                            f"{phase}: kv_head_base {i // 2} ({dtype}) "
+                            f"kernel vs plain max |err| {err:.3e} > "
+                            f"{KERNEL_ATOL:.0e}")
+                    if i == 3:
+                        def ignores_base():
+                            bad = flash.flash_decode(qi, pk, pv, *ops, **kw,
+                                                     kv_head_base=0,
+                                                     kv_heads=1)
+                            if not torch.equal(bad, got):
+                                raise AssertionError("shard 3 read kv head "
+                                                     "0")
+                        _must_reject("a shard that ignores its kv head",
+                                     ignores_base)
+            del pk, pv, sk, sv
+    gq = cases[2]
+    pk, pv = gq["pk"].to(torch.bfloat16), gq["pv"].to(torch.bfloat16)
+    ops = (gq["tables"], gq["lengths"])
+    n_layers = pk.shape[0]
+    rec["replicated_tp4_ms"] = cuda_ms(
+        lambda i: flash.paged_attention_sharded(
+            gq["q"], [pk[i]] * 4, [pv[i]] * 4, *ops, kv_heads=2),
+        n_layers=n_layers)
+    rec["one_call_ms"] = cuda_ms(
+        lambda i: flash.flash_decode(gq["q"], pk[i], pv[i], *ops),
+        n_layers=n_layers)
+    rec["window_ms"] = cuda_ms(
+        lambda i: flash.flash_decode(gq["q"][:, :3], pk[i], pv[i], *ops,
+                                     kv_head_base=1, kv_heads=1),
+        n_layers=n_layers)
+    rec["one_call_bound_ms"], rec["bound_by"] = _bound_ms(gq, "bfloat16", 1)
+    rec["window_bound_ms"], _ = _bound_ms(dict(gq, h=3, kvh=1),
+                                          "bfloat16", 1)
+    log(phase, f"sharded dispatch bitwise one call in {rec['bitwise_calls']} "
+               f"cases (kv-sharded tp 2 and 4, replicated tp 4; bf16, "
+               f"int8); kv_head_base window vs plain max|err| "
+               f"{rec['window_max_abs_err']:.2e} <= {KERNEL_ATOL:.0e}; "
+               f"replicated tp 4 {rec['replicated_tp4_ms']:.4f} ms (4 "
+               f"launches) vs one call {rec['one_call_ms']:.4f} ms (bound "
+               f"{rec['one_call_bound_ms']:.4f} ms, {rec['bound_by']}); one "
+               f"shard's window {rec['window_ms']:.4f} ms (bound "
+               f"{rec['window_bound_ms']:.4f} ms)")
+    return rec
+
+
+def phase_tp_decode(results: dict) -> dict:
+    """Tensor-parallel paged decode on one card (``serving/sharding.py``,
+    ``ops/flash.py::paged_attention_sharded``): GPT-2 small at full width
+    (bf16 over f32 random weights), max batch 8, block 16, the engine
+    phase's 24-request trace in ``steps`` time. Every shard on card 0
+    (``mesh_devices`` of repeated zeros). Checks:
+
+    - the dispatch at the decode shape (``_tp_kernel_checks``): bitwise
+      one call in both pool layouts, the ``kv_head_base`` window against
+      its plain version, two planted faults rejected;
+    - at 12 layers, tp 2 ``(0, 0)`` and tp 4 ``(0, 0, 0, 0)`` with
+      kv-sharded pools against tp 1, and an int8-pool lane at tp 2
+      against int8 at tp 1: streams bitwise (or greedy rows at a tie
+      and sampled rows drawn at a tie, ``_fleet_ties``), decode launches
+      exactly tp x layers x decode iterations, a shard's persistent
+      bytes about P/tp of parameters and 1/tp of the pools, the first 64
+      blocks' ``KVB1`` frames one device's (when the streams are bitwise)
+      and one device's frames round-tripping through the shards;
+    - 2 kv heads (GQA, replicated pools) at tp 4, 4 of the 12 layers,
+      against tp 1: the same, each shard holding the whole pools;
+    - one worker process (``WorkerSupervisor(device_sets=[[0, 0]],
+      param_shard_world=2)``, a tp-2 engine from 2-way parameter shards)
+      serving the trace through a front-end: the in-process tp-2 streams
+      bitwise, its decode launches (its log) theirs.
+
+    Prints tok/s and TPOT p50 at tp 1, 2 and 4 (host-bound: no gain is
+    expected on one card) and the card's name and power limit."""
+    from tpu_trainer_torch.serving import remote
+    from tpu_trainer_torch.serving.frontend import ServingFrontend
+
+    phase = "tp-decode"
+    card = nvidia_smi_line()
+    t_phase = time.perf_counter()
+    cfg, params = _tp_model()
+    rec = {"nvidia_smi": card}
+    judges = {}
+
+    def judge(key, p, c):
+        def build():
+            if key not in judges:
+                judges[key] = _TieJudge(p, c)
+            return judges[key]
+        return build
+
+    wdir = tempfile.mkdtemp(prefix="tp-")
+    sup = remote.WorkerSupervisor(
+        params, cfg, engine_kwargs=dict(TP_ENGINE, mesh_tensor=2),
+        run_dir=wdir, device_sets=[[0, 0]], param_shard_world=2,
+        first_step_timeout_s=300.0)
+    spawned = sup._launch()
+    try:
+        # Beside the worker's start: the kernel checks and the untimed
+        # GQA and int8 lanes.
+        rec["kernel"] = _tp_kernel_checks(phase)
+
+        cfg_g, params_g = _tp_model(layers=4, kv_heads=2)
+        runs = {}
+        for tp in (1, 4):
+            eng = _tp_engine(params_g, cfg_g, tp)
+            runs[tp] = _tp_serve(phase, f"GQA 2 kv heads, 4 layers, tp {tp}",
+                                 eng, warm=False)
+            runs[tp]["bytes"] = _tp_bytes(eng)
+            if tp == 1:
+                one = eng
+            else:
+                _tp_check_bytes(phase, "GQA tp 4", runs[4]["bytes"],
+                                runs[1]["bytes"], 4, sharded_pools=False)
+                held = _tp_hold(phase, "GQA tp 4", runs[4], runs[1],
+                                judge("gqa", params_g, cfg_g))
+                _tp_blocks(phase, "GQA tp 4", one, eng, 32,
+                           equal=held["bitwise"])
+        rec["gqa_tp4"] = {"launches": runs[4]["launches"],
+                          "launches_tp1": runs[1]["launches"],
+                          "bytes": runs[4]["bytes"],
+                          "bytes_tp1": runs[1]["bytes"], **held}
+        del one, eng, params_g
+
+        int8 = {}
+        for tp in (1, 2):
+            eng = _tp_engine(params, cfg, tp, kv_int8=True)
+            int8[tp] = _tp_serve(phase, f"int8 pools, tp {tp}", eng,
+                                 warm=False)
+            if tp == 1:
+                one = eng
+            else:
+                held = _tp_hold(phase, "int8 tp 2", int8[2], int8[1],
+                                judge("12", params, cfg))
+                _tp_blocks(phase, "int8 tp 2", one, eng, 32,
+                           equal=held["bitwise"])
+        rec["int8_tp2"] = {"launches": int8[2]["launches"],
+                           "launches_tp1": int8[1]["launches"], **held}
+        del one, eng
+
+        # The worker: a tp-2 engine from 2-way parameter shards.
+        sup._pool.append(sup._handshake(*spawned))
+        worker_s = time.perf_counter() - t_phase
+        reqs = _tp_trace(cfg.vocab_size)
+        fe = ServingFrontend(None, cfg, replicas=1, time_mode="steps",
+                             replica_factory=sup)
+        fin = fe.run(reqs)
+        worker = {"reqs": reqs,
+                  "streams": {r.rid: list(r.generated) for r in fin}}
+        sup.reset()
+        counts = _worker_launches(wdir)
+        worker["launches"] = sum(v[-1] for v in counts.values())
+    finally:
+        sup.close()
+        if spawned[1].poll() is None:
+            spawned[1].kill()
+        shutil.rmtree(wdir, ignore_errors=True)
+
+    # The timed lanes, nothing beside them: tp 1, 2, 4.
+    lanes = {}
+    for tp in (1, 2, 4):
+        eng = _tp_engine(params, cfg, tp)
+        lanes[tp] = _tp_serve(phase, f"tp {tp}", eng, warm=True)
+        lanes[tp]["bytes"] = _tp_bytes(eng)
+        if tp == 1:
+            one = eng
+            continue
+        _tp_check_bytes(phase, f"tp {tp}", lanes[tp]["bytes"],
+                        lanes[1]["bytes"], tp, sharded_pools=True)
+        lanes[tp]["held"] = _tp_hold(phase, f"tp {tp}", lanes[tp], lanes[1],
+                                     judge("12", params, cfg))
+        _tp_blocks(phase, f"tp {tp}", one, eng, 64,
+                   equal=lanes[tp]["held"]["bitwise"])
+        del eng
+    del one
+    if worker["streams"] != lanes[2]["streams"]:
+        bad = sorted(k for k in lanes[2]["streams"]
+                     if worker["streams"].get(k) != lanes[2]["streams"][k])
+        raise AssertionError(f"{phase}: the worker's streams differ from "
+                             f"the in-process tp-2 engine's: rids {bad}")
+    if worker["launches"] != lanes[2]["launches"]:
+        raise AssertionError(f"{phase}: the worker launched decode "
+                             f"{worker['launches']} times, the in-process "
+                             f"tp-2 engine {lanes[2]['launches']}")
+    for tp in (1, 2, 4):
+        lane = lanes[tp]
+        rec[f"tp{tp}"] = {k: lane[k] for k in (
+            "launches", "decode_iters", "tokens_per_s", "wall_s",
+            "tpot_p50_ms", "tpot_p99_ms", "ttft_p50_ms", "bytes")}
+        if tp > 1:
+            rec[f"tp{tp}"].update(lane["held"])
+    rec["worker"] = {"launches": worker["launches"],
+                     "ready_s": worker_s}
+    rec["launches"] = (sum(lanes[tp]["launches"] for tp in lanes)
+                       + sum(int8[tp]["launches"] for tp in int8)
+                       + sum(runs[tp]["launches"] for tp in runs)
+                       + worker["launches"])
+    rec["seconds"] = time.perf_counter() - t_phase
+    p1 = lanes[1]["bytes"]["params"][0]
+    log(phase, "tok/s " + ", ".join(
+        f"tp {tp} {lanes[tp]['tokens_per_s']:.1f} (TPOT p50 "
+        f"{lanes[tp]['tpot_p50_ms']:.2f} ms)" for tp in lanes)
+        + f"; bitwise tp 2 {lanes[2]['held']['bitwise']}, tp 4 "
+        f"{lanes[4]['held']['bitwise']}, int8 tp 2 "
+        f"{rec['int8_tp2']['bitwise']}, GQA tp 4 {rec['gqa_tp4']['bitwise']}")
+    log(phase, "shard bytes: params " + ", ".join(
+        f"tp {tp} {max(lanes[tp]['bytes']['params']) / p1:.4f} of P"
+        for tp in (2, 4)) + ", pools " + ", ".join(
+        f"tp {tp} {lanes[tp]['bytes']['pools'][0]} of "
+        f"{lanes[1]['bytes']['pools'][0]}" for tp in (2, 4))
+        + f"; GQA tp 4 pools {rec['gqa_tp4']['bytes']['pools'][0]} of "
+        f"{rec['gqa_tp4']['bytes_tp1']['pools'][0]} a shard")
+    log(phase, f"the worker (device set [0, 0], 2-way parameter shards, "
+               f"ready {worker_s:.1f} s into the phase): streams bitwise "
+               f"the in-process tp-2 engine's, decode launches "
+               f"{worker['launches']}; phase decode launches "
+               f"{rec['launches']}; {rec['seconds']:.1f} s ({card})")
+    results[phase] = rec
+    return rec
+
+
 # -- phases 16 and 17: the user surface -------------------------------------
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -4020,23 +4461,6 @@ def _write_corpus(path: str, n_bytes: int = 4 << 20, seed: int = 0) -> int:
     with open(path, "w") as f:
         f.write("\n".join(lines) + "\n")
     return len(lines)
-
-
-def _cli_child(argv: list, out: str) -> None:
-    """The resumed run of the cli phase, in a fresh process: every launch
-    count zeroed, ``train_ddp.main(argv)``, the counts written to ``out``."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    from tpu_trainer_torch.training import train_ddp
-
-    counters = _counters()
-    for c in counters.values():
-        c.launches = 0
-    rc = train_ddp.main(argv)
-    torch.cuda.synchronize()
-    with open(out, "w") as f:
-        json.dump({"rc": rc, "launches": {k: c.launches
-                                          for k, c in counters.items()}}, f)
 
 
 def _cut_yaml(tmp: str, name: str, tag: str, **fields) -> str:
@@ -4173,7 +4597,7 @@ def phase_cli(results: dict, tmp: str) -> dict:
     """The training CLI as a user runs it: ``configs/small_model.yaml`` on
     a seeded corpus, 8 steps with saves and evals every 4 (run 1, here);
     step 8's checkpoint set aside and deleted, and the same command again
-    in a fresh process, which resumes from step 4 (run 2). Step 8's state
+    here, which resumes from step 4 (run 2). Step 8's state
     (params, Adam moments, dropout generator) and the losses of steps 5-8
     must be bitwise equal across the two; run 2's launches exact. Then 3
     packed steps (split dk/dv and dq launches), 3 dropless-MoE steps of
@@ -4448,11 +4872,13 @@ def phase_infer(results: dict, tmp: str, new: int = 64) -> dict:
 def _resume_check(phase: str, argv: list, tmp: str, last: int,
                   resume_at: int, entry: str = "train_ddp") -> dict:
     """Run ``argv`` here to step ``last`` (a save at ``resume_at``), move
-    step ``last``'s checkpoint aside, rerun ``argv`` in a fresh process
-    (``_cli_child``) and require that it resumed from ``resume_at`` and
-    that step ``last``'s ``state.npz`` and ``meta.json`` and the losses
-    of the steps after ``resume_at`` are bitwise equal. Returns run 1's
-    and run 2's launches, run 1's JSONL train records and the seconds."""
+    step ``last``'s checkpoint aside, rerun ``argv`` here too (run 2: a new
+    trainer that restores from disk; the ft phase's chain restarts in
+    fresh processes, and times them) and require that it resumed from
+    ``resume_at`` and that step ``last``'s ``state.npz`` and
+    ``meta.json`` and the losses of the steps after ``resume_at`` are
+    bitwise equal. Returns run 1's and run 2's launches, run 1's JSONL
+    train records and the seconds."""
     import numpy as np
 
     from tpu_trainer_torch.utils import checkpoint as ckpt_lib
@@ -4463,21 +4889,14 @@ def _resume_check(phase: str, argv: list, tmp: str, last: int,
     final = os.path.join(ckdir, f"step_{last:08d}")
     aside = os.path.join(tmp, f"{phase}_aside")
     os.replace(final, aside)
-    out = os.path.join(tmp, f"{phase}_child.json")
     t0 = time.perf_counter()
-    child = subprocess.run(
-        [sys.executable, "-c",
-         f"import chip_smoke; chip_smoke._cli_child({argv!r}, {out!r})"],
-        cwd=ROOT, capture_output=True, text=True, timeout=900)
+    said = io.StringIO()
+    with contextlib.redirect_stdout(said):
+        run2 = _cli_in_process(phase, argv)
     run2_s = time.perf_counter() - t0
-    for ln in child.stdout.splitlines():
+    for ln in said.getvalue().splitlines():
         log(phase, f"  run 2 | {ln}")
-    if child.returncode != 0:
-        raise AssertionError(f"{phase}: run 2 exited {child.returncode}: "
-                             f"{child.stderr[-3000:]}")
-    with open(out) as f:
-        run2 = json.load(f)
-    if f"step_{resume_at:08d}" not in child.stdout:
+    if f"step_{resume_at:08d}" not in said.getvalue():
         raise AssertionError(f"{phase}: run 2 did not resume from step "
                              f"{resume_at}")
     with np.load(os.path.join(final, "state.npz")) as a, np.load(
@@ -4561,7 +4980,7 @@ def phase_remat(results: dict, tmp: str) -> dict:
     1280, 20 heads of 64, vocab 50257, batch 4 x 1024, full remat, bf16
     Adam moments, dropout 0.1) on
     the cli phase's corpus: 6 steps with a save at step 3, then the same
-    command in a fresh process resumes from step 3, and step 6's state and
+    command again resumes from step 3, and step 6's state and
     the losses of steps 4-6 must be bitwise equal; launches exact (the
     flash forward twice a layer a micro-batch). Then at the same width one
     step's gradients without remat, with full remat and with "dots": the
@@ -4628,7 +5047,7 @@ def phase_remat(results: dict, tmp: str) -> dict:
                    f"{util:.4f}, max_memory_allocated "
                    f"{rec['peak_mem_gib']:.2f} GiB on {card} (run 1 "
                    f"{rec['run1_s']:.1f} s, run 2 {rec['run2_s']:.1f} s "
-                   f"with its process start and restore)")
+                   f"with its restore)")
 
     # One step at the same width without remat, with full and with dots.
     torch.cuda.empty_cache()
@@ -5122,8 +5541,8 @@ def phase_moe_capacity(results: dict, tmp: str) -> dict:
         checkpoints' writes and the run's time)
         through ``train_ddp`` with the byte tokenizer, 3 steps with a save
         at step 2 and a telemetry step at step 3; step 3's checkpoint set
-        aside and the same argv again in
-        a fresh process, which resumes from step 2 and must end bitwise;
+        aside and the same argv again,
+        which resumes from step 2 and must end bitwise;
         launches exact (no grouped matmul); windowed tok/s, MFU on the
         active parameters, and the telemetry step's per-layer drop_frac;
     (b) bench.py --moe's capacity lane (GPT-2 small's width at 6 of its
@@ -5213,7 +5632,7 @@ def phase_moe_capacity(results: dict, tmp: str) -> dict:
                         f"batch {accum} x {tc.batch_size} x "
                         f"{tc.max_seq_len}: losses "
         + " ".join(f"{x:.4f}" for x in cli_rec["losses"])
-        + f"; resumed at step 2 in a fresh process, {res['state_arrays']} "
+        + f"; resumed at step 2, {res['state_arrays']} "
           f"state arrays of step 3 and its loss bitwise; run 2 launches "
           f"{cli_rec['run2_launches']}")
     log("moe-capacity", f"tok/s of step 2 (the JSONL window; step 3 runs "
@@ -5564,8 +5983,8 @@ def phase_ft(results: dict, tmp: str) -> dict:
       at step 4 and ends with every loss and the step-8 state bitwise;
       each restart's time to its first step, split (the chain runs on a
       thread beside the rollback, notice, MoE and nan_scan sections);
-    - ``nan_loss@6``: one rollback record, exit 0, ``crash_report.json``
-      holding the ring of records;
+    - ``nan_loss@6`` (at 2 of the 12 layers): one rollback record, exit
+      0, ``crash_report.json`` holding the ring of records;
     - a preemption notice file present at launch: a drain after step 1,
       exit 143 with a complete checkpoint; the resumed run ends bitwise;
     - 8 steps with ``--telemetry_interval 2``, a 2-step profiling window
@@ -5692,9 +6111,15 @@ def phase_ft(results: dict, tmp: str) -> dict:
             calls["n"] += 1
             return original(self, state, batch, *args, **kwargs)
 
+        # At 2 of the 12 layers: nothing here is held to the straight run.
+        nan_base = list(base)
+        nan_base[1] = _cut_yaml(tmp, "small_model.yaml", "ftnan",
+                                num_layers=2)
+        nan_cfg = cli.resolve_configs(
+            cli.build_parser().parse_args(nan_base))[0]
         Trainer.train_step = counted
         try:
-            run = _cli_in_process("ft", base + [
+            run = _cli_in_process("ft", nan_base + [
                 "--save_interval", "2", "--guard_interval", "1",
                 "--inject_fault", "nan_loss@6",
                 "--flight_recorder_steps", "64",
@@ -5706,7 +6131,7 @@ def phase_ft(results: dict, tmp: str) -> dict:
                                              "crash_report.json")))
         n_eval = _jsonl(os.path.join(tmp, "ft_nan.jsonl"), "eval")[-1][
             "eval_batches"]
-        want = _micro_launches(cfg, calls["n"] * accum, n_eval * accum,
+        want = _micro_launches(nan_cfg, calls["n"] * accum, n_eval * accum,
                                segmented=False)
         if (len(rollbacks) != 1 or rollbacks[0]["restored_step"] != 6
                 or report["reason"] != "rollback:FloatingPointError"
@@ -8250,6 +8675,7 @@ def main(argv=None) -> int:
     spec = run("spec", phase_spec)
     kvs = run("kv-store", phase_kv_store)
     fleet = run("fleet", phase_fleet)
+    tpd = run("tp-decode", phase_tp_decode)
     train_k = run("train-kernel", phase_train_kernel)
     mask = run("mask", phase_mask)
     split = run("train-split", phase_train_split)
@@ -8315,7 +8741,7 @@ def main(argv=None) -> int:
     max_err = max(results["kernel_max_abs_err"],
                   results["engine"]["live_step_max_abs_err"],
                   results["int8"]["live_step_max_abs_err"],
-                  spec["max_abs_err"])
+                  spec["max_abs_err"], tpd["kernel"]["window_max_abs_err"])
     t, bounds, head = train_k["times"], train_k["bounds"], train_k["head"]
     st, sb = split["times"], split["bounds"]
     gt = grouped["times"]["balanced 768->3072"]
@@ -8335,8 +8761,9 @@ def main(argv=None) -> int:
     # head slice of attention under tensor; expert: gmm and tgmm on a
     # rank's experts): each row counts its main path's launches plus theirs
     # (and flash_decode's the moe-capacity engine's and the spec and
-    # kv-store phases' engines and draft models', and the fleet phase's
-    # in-process replicas and worker processes).
+    # kv-store phases' engines and draft models', the fleet phase's
+    # in-process replicas and worker processes, and the tp-decode phase's
+    # sharded engines and worker: tp launches a layer a decode step).
     ftl = dict(ft["launches"])
     _add_launches(ftl, dist["launches"])
     _add_launches(ftl, pipe["launches"])
@@ -8345,7 +8772,7 @@ def main(argv=None) -> int:
     _add_launches(ftl, mr["launches"])
     _add_launches(ftl, mc["launches"])
     launches += (mc["engine"]["launches"] + spec["launches"]
-                 + kvs["launches"] + fleet["launches"])
+                 + kvs["launches"] + fleet["launches"] + tpd["launches"])
     train_launches = {k: v + ftl.get(k, 0) for k, v in train_launches.items()}
     packed_launches = {k: v + ftl.get(k, 0)
                        for k, v in packed_launches.items()}

@@ -65,6 +65,17 @@ out of step hang instead of failing):
 - ``fleet_router_ignores_affinity``: the router sends a request with a
   full prompt block to the least-loaded replica instead of its
   rendezvous; phase ``fleet`` must fail (run A's prefix groups split).
+- ``decode_ignores_kv_head_base``: flash-decode reads kv head ``ikv`` of
+  the pool instead of ``kv_head_base + ikv``, so a tensor-parallel shard
+  of a replicated pool reads the first kv head; phase ``tp_decode`` must
+  fail.
+- ``tp_shards_reversed``: ``paged_attention_sharded`` concatenates the
+  shards' head slices in reverse order; phase ``tp_decode`` must fail.
+- ``tp_pool_write_shard0_only``: a sharded replica's attention writes
+  the new K/V to shard 0's pools only; phase ``tp_decode`` must fail.
+- ``tp_read_block_shard0``: a sharded replica's ``read_block`` returns
+  shard 0's kv heads alone; phase ``tp_decode`` must fail (its blocks'
+  ``KVB1`` frames against one device's).
 
 Needs one CUDA GPU and nvcc; writes nothing into the checkout. Run from the
 repository root: ``python3 scripts/torch_kernel_mutations.py [name ...]``.
@@ -164,6 +175,26 @@ MUTATIONS = {
         "target = self._rendezvous(key, live)",
         "target = min(live, key=self._load)",
         "fleet"),
+    "decode_ignores_kv_head_base": (
+        "tpu_trainer_torch/csrc/flash_decode.cu",
+        "const int pkv = kv_head_base + ikv;",
+        "const int pkv = ikv;",
+        "tp_decode"),
+    "tp_shards_reversed": (
+        "tpu_trainer_torch/ops/flash.py",
+        "    return torch.cat(outs, dim=1)",
+        "    return torch.cat(outs[::-1], dim=1)",
+        "tp_decode"),
+    "tp_pool_write_shard0_only": (
+        "tpu_trainer_torch/models/gpt.py",
+        "for i, sh in enumerate(shards):\n            lo = i * kvl",
+        "for i, sh in enumerate(shards[:1]):\n            lo = i * kvl",
+        "tp_decode"),
+    "tp_read_block_shard0": (
+        "tpu_trainer_torch/serving/engine.py",
+        "torch.cat([p[:, block_id].cpu() for p in parts], dim=2)",
+        "torch.cat([p[:, block_id].cpu() for p in parts[:1]], dim=2)",
+        "tp_decode"),
 }
 
 

@@ -74,7 +74,8 @@ def test_import_leaves_jax_out_of_sys_modules():
                 "tpu_trainer_torch.serving.frontend",
                 "tpu_trainer_torch.serving.remote",
                 "tpu_trainer_torch.serving.worker",
-                "tpu_trainer_torch.serving.tracing"):
+                "tpu_trainer_torch.serving.tracing",
+                "tpu_trainer_torch.serving.sharding"):
         assert mod in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 

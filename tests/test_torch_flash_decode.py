@@ -200,3 +200,39 @@ def test_kernel_rejects_what_it_cannot_take(cuda_device):
                             pv[..., :12].contiguous(), tb, ln)
     with pytest.raises(ValueError, match="contiguous"):
         tflash.flash_decode(q, pk.transpose(0, 1), pv.transpose(0, 1), tb, ln)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool_dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("base,n", [(0, 1), (1, 1), (3, 1), (2, 2)])
+def test_kernel_kv_head_window_on_card(cuda_device, pool_dtype, base, n):
+    """``kv_head_base`` / ``kv_heads``: the kernel reads kv heads ``base ..
+    base + n - 1`` of a 4-head pool in place (the pool's row stride),
+    against the plain version on the same window; and the sharded
+    dispatch over replicated pools (tp 4, 2 kv heads: shard i reads kv
+    head i // 2) equals one call, bitwise."""
+    q, pk, pv, tb, ln = _paged_fixture(h=4, kvh=4, d=64)
+    tb[0] = 0
+    args = [torch.from_numpy(x).to(cuda_device) for x in (q, pk, pv, tb, ln)]
+    scales = {}
+    if pool_dtype == "int8":
+        args[1], sk = tquant.quantize_kv_int8(args[1])
+        args[2], sv = tquant.quantize_kv_int8(args[2])
+        scales = {"k_scale": sk, "v_scale": sv}
+    else:
+        dt = getattr(torch, pool_dtype)
+        args[1], args[2] = args[1].to(dt), args[2].to(dt)
+    window = dict(kv_head_base=base, kv_heads=n)
+    got = tflash.flash_decode(*args, **scales, **window)
+    want = tflash.paged_attention_reference(*args, **scales, **window)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+    pk2, pv2 = args[1][:, :, :2].contiguous(), args[2][:, :, :2].contiguous()
+    sc2 = {k: v[:, :, :2].contiguous() for k, v in scales.items()}
+    one = tflash.flash_decode(args[0], pk2, pv2, *args[3:], **sc2)
+    before = tflash.flash_decode.launches
+    sharded = tflash.paged_attention_sharded(
+        args[0], [pk2] * 4, [pv2] * 4, *args[3:], kv_heads=2,
+        k_scales=[sc2["k_scale"]] * 4 if sc2 else None,
+        v_scales=[sc2["v_scale"]] * 4 if sc2 else None)
+    assert tflash.flash_decode.launches == before + 4
+    assert torch.equal(sharded, one)

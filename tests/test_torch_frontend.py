@@ -24,7 +24,7 @@ prefill -> decode roles migrating through the shared KV store.
 Port-only: a killed replica's sampled streams equal one undisturbed
 engine's; the metrics pull merges each replica's registry and the
 front-door counters equal the summary; the incident dump; ``statusz``;
-the tensor-parallel refusal.
+tensor-parallel replicas.
 
 Tiny geometry of ``tests/test_frontend.py`` (vocab 128, hidden 32, 2
 layers, f32, ``attention="reference"``, block 8), with
@@ -47,7 +47,6 @@ from tpu_trainer.serving import frontend as jfront
 from tpu_trainer.serving import remote as jremote
 from tpu_trainer.serving import scheduler as jsched
 from tpu_trainer.utils import faults as jfaults
-from tpu_trainer_torch.models.config import TP_DECODE_ENTRY
 from tpu_trainer_torch.models.config import GPTConfig as TConfig
 from tpu_trainer_torch.models.weights import from_jax_params, load_params_npz
 from tpu_trainer_torch.obs.metrics import MetricsRegistry
@@ -406,11 +405,24 @@ def test_incident_dump_statusz_and_ready(weights, tmp_path, monkeypatch):
 
 
 def test_tensor_parallel_fleet_is_refused(weights):
+    """What a fleet refuses (an unknown routing, killing its last live
+    replica), and what it no longer refuses: tensor-parallel replicas,
+    each on its own mesh (``replica_device_sets``) or all at
+    ``mesh_tensor``, serving the unsharded fleet's streams and routes."""
     side = _Side(True, weights[1])
-    with pytest.raises(NotImplementedError, match=TP_DECODE_ENTRY):
-        side.fe(replica_device_sets=[[0, 1]])
-    with pytest.raises(NotImplementedError, match=TP_DECODE_ENTRY):
-        side.fe(mesh_tensor=2)
+    reqs = side.prefix_requests(6, groups=2)
+    fe = side.fe()
+    want = _observe(fe, reqs, fe.run(reqs))
+    for kw in (dict(replica_device_sets=[[0, 1], [2, 3]]),
+               dict(mesh_tensor=2)):
+        reqs = side.prefix_requests(6, groups=2)
+        fe = side.fe(**kw)
+        got = _observe(fe, reqs, fe.run(reqs))
+        assert got["streams"] == want["streams"]
+        assert got["submit"] == want["submit"]
+        assert [h.engine.engine.mesh.ids for h in fe._replicas] == (
+            [(0, 1), (2, 3)] if "replica_device_sets" in kw
+            else [(0, 1), (0, 1)])
     with pytest.raises(ValueError, match="routing"):
         side.fe(routing="round_robin")
     with pytest.raises(RuntimeError, match="last live"):

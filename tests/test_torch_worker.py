@@ -24,6 +24,7 @@ between tests); the kill and hang drills each cost one new worker.
 Workers and the in-process reference run one CPU thread each.
 """
 
+import json
 import os
 import shutil
 import socket
@@ -220,9 +221,12 @@ def test_deaths_reported_once(tmp_path):
     assert sorted(s.poll_deaths()) == [0, 1]
     assert wedged.proc.rc == -9          # the flatlined worker is settled
     assert s.poll_deaths() == []
-    with pytest.raises(NotImplementedError, match="TP decode"):
-        WorkerSupervisor(None, None, run_dir=str(tmp_path / "d"),
-                         device_sets=[[0]])
+    # Per-worker meshes ride the spec's top level (engine kwargs are
+    # scalars on the wire): worker ``wid`` takes ``device_sets[wid % len]``.
+    m = WorkerSupervisor(None, None, run_dir=str(tmp_path / "d"),
+                         device_sets=[[0, 1], (2, 3)])
+    with open(os.path.join(m.run_dir, "spec.json")) as f:
+        assert json.load(f)["device_sets"] == [[0, 1], [2, 3]]
 
 
 # -- the real fleet -----------------------------------------------------------------

@@ -22,6 +22,11 @@
 // - One block of 8 warps per (split, kv head, row). The warps take the
 //   split's pages in turn (page j to warp j % 8), so the pages of a split
 //   are in flight at once; no barrier runs per page.
+// - A call may read a window of the pool's kv heads: kv heads kv_head_base
+//   .. kv_head_base + kvh - 1 of a pool whose rows hold kv_stride heads (a
+//   tensor-parallel shard whose query heads fall inside one kv group of a
+//   replicated pool reads that one kv head in place, no copy). The grid's
+//   kv head ikv reads pool head kv_head_base + ikv.
 // - Each warp reads its pages' table entries once, up front (lane i holds
 //   the entry of its i-th page), and stops at the first page wholly past
 //   lengths[row] (pages are in position order).
@@ -98,17 +103,17 @@ __device__ __forceinline__ void dequant(float (&x)[E], const float* scale,
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) decode_partial_kernel(
     const float* __restrict__ q,        // [b, h, D] f32
-    const T* __restrict__ pool_k,       // [nblk, bsz, kvh, D]
-    const T* __restrict__ pool_v,       // [nblk, bsz, kvh, D]
-    const float* __restrict__ k_scale,  // [nblk, bsz, kvh, nbq] (int8 only)
-    const float* __restrict__ v_scale,  // [nblk, bsz, kvh, nbq] (int8 only)
+    const T* __restrict__ pool_k,       // [nblk, bsz, kv_stride, D]
+    const T* __restrict__ pool_v,       // [nblk, bsz, kv_stride, D]
+    const float* __restrict__ k_scale,  // [nblk, bsz, kv_stride, nbq] (int8)
+    const float* __restrict__ v_scale,  // [nblk, bsz, kv_stride, nbq] (int8)
     const int* __restrict__ tables,     // [b, mb]
     const int* __restrict__ lengths,    // [b]
     float* __restrict__ m_out,          // [b, h, S]
     float* __restrict__ l_out,          // [b, h, S]
     float* __restrict__ acc_out,        // [b, h, S, D]
-    int h, int kvh, int nblk, int bsz, int mb, int n_splits, int nbq,
-    float scale) {
+    int h, int kvh, int kv_head_base, int kv_stride, int nblk, int bsz,
+    int mb, int n_splits, int nbq, float scale) {
   constexpr int E = 16 / sizeof(T);
   constexpr int L = D * static_cast<int>(sizeof(T)) / 16;  // lanes a row
   constexpr int P = 32 / L;                                // rows a pass
@@ -116,6 +121,7 @@ __global__ void __launch_bounds__(kThreads) decode_partial_kernel(
   static_assert(L >= 1 && L <= 32 && 32 % L == 0, "row lanes");
   const int isp = blockIdx.x;
   const int ikv = blockIdx.y;
+  const int pkv = kv_head_base + ikv;  // this block's kv head in the pool
   const int ib = blockIdx.z;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -171,7 +177,8 @@ __global__ void __launch_bounds__(kThreads) decode_partial_kernel(
             kr[r] = vr[r] = make_uint4(0u, 0u, 0u, 0u);
             if (t < bsz) {
               const size_t off =
-                  ((static_cast<size_t>(blk) * bsz + t) * kvh + ikv) * D +
+                  ((static_cast<size_t>(blk) * bsz + t) * kv_stride + pkv) *
+                      D +
                   c * E;
               kr[r] = __ldg(reinterpret_cast<const uint4*>(pool_k + off));
               vr[r] = __ldg(reinterpret_cast<const uint4*>(pool_v + off));
@@ -184,7 +191,7 @@ __global__ void __launch_bounds__(kThreads) decode_partial_kernel(
           for (int r = 0; r < kRounds; ++r) {
             const int t = t0 + r * P + pr;
             const size_t row =
-                (static_cast<size_t>(blk) * bsz + t) * kvh + ikv;
+                (static_cast<size_t>(blk) * bsz + t) * kv_stride + pkv;
             float kx[E];
             unpack(kr[r], kx);
             if (t < bsz) dequant<T, E>(kx, k_scale, row, nbq, qb, c);
@@ -237,9 +244,10 @@ __global__ void __launch_bounds__(kThreads) decode_partial_kernel(
             float vx[E];
             unpack(vr[r], vx);
             if (t < bsz)
-              dequant<T, E>(vx, v_scale,
-                            (static_cast<size_t>(blk) * bsz + t) * kvh + ikv,
-                            nbq, qb, c);
+              dequant<T, E>(
+                  vx, v_scale,
+                  (static_cast<size_t>(blk) * bsz + t) * kv_stride + pkv, nbq,
+                  qb, c);
 #pragma unroll
             for (int g = 0; g < GC; ++g)
 #pragma unroll
@@ -337,7 +345,7 @@ struct Args {
   float* l_part;
   float* acc_part;
   float* out;
-  int b, h, kvh, nblk, bsz, mb, n_splits, nbq;
+  int b, h, kvh, kv_head_base, kv_stride, nblk, bsz, mb, n_splits, nbq;
 };
 
 template <typename T, int D>
@@ -346,7 +354,8 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   decode_partial_kernel<T, D><<<grid, kThreads, 0, stream>>>(
       a.q, static_cast<const T*>(a.pool_k), static_cast<const T*>(a.pool_v),
       a.k_scale, a.v_scale, a.tables, a.lengths, a.m_part, a.l_part,
-      a.acc_part, a.h, a.kvh, a.nblk, a.bsz, a.mb, a.n_splits, a.nbq,
+      a.acc_part, a.h, a.kvh, a.kv_head_base, a.kv_stride, a.nblk, a.bsz,
+      a.mb, a.n_splits, a.nbq,
       1.0f / sqrtf(static_cast<float>(D)));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -376,15 +385,18 @@ cudaError_t dispatch_d(int d, const Args& a, cudaStream_t stream) {
 
 // q: [b, h, d] f32, unscaled (the kernel multiplies by 1/sqrt(d)).
 // kv_dtype: 0 = float32, 1 = bfloat16, 2 = int8 (with k_scale / v_scale).
+// The pools' rows hold kv_stride kv heads; the call reads kvh of them from
+// kv_head_base on (kv_head_base = 0, kv_stride = kvh: the whole pool).
 // m_part / l_part: [b, h, n_splits] f32; acc_part: [b, h, n_splits, d] f32;
 // out: [b, h, d] f32. Returns a cudaError_t code (0 = launched).
 extern "C" int flash_decode_launch(
     const void* q, const void* pool_k, const void* pool_v, const void* k_scale,
     const void* v_scale, const void* tables, const void* lengths,
     void* m_part, void* l_part, void* acc_part, void* out, int b, int h,
-    int kvh, int d, int nblk, int bsz, int mb, int n_splits, int nbq,
-    int kv_dtype, void* stream) {
-  if (b <= 0 || h <= 0 || kvh <= 0 || h % kvh != 0 || mb <= 0 ||
+    int kvh, int kv_head_base, int kv_stride, int d, int nblk, int bsz,
+    int mb, int n_splits, int nbq, int kv_dtype, void* stream) {
+  if (b <= 0 || h <= 0 || kvh <= 0 || h % kvh != 0 || kv_head_base < 0 ||
+      kv_head_base + kvh > kv_stride || mb <= 0 ||
       n_splits <= 0 || mb % n_splits != 0 || bsz <= 0 || nbq <= 0 ||
       d % nbq != 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -393,7 +405,7 @@ extern "C" int flash_decode_launch(
          static_cast<const int*>(tables), static_cast<const int*>(lengths),
          static_cast<float*>(m_part), static_cast<float*>(l_part),
          static_cast<float*>(acc_part), static_cast<float*>(out), b, h, kvh,
-         nblk, bsz, mb, n_splits, nbq};
+         kv_head_base, kv_stride, nblk, bsz, mb, n_splits, nbq};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (kv_dtype) {
     case 0:

@@ -33,7 +33,8 @@ tensor rank samples the same tokens; a MoE layer runs its tensor slice of
 every expert's FFN and sums the layer's output over the tensor group
 (``models/moe.py``). ``fused_projections`` is turned off (the JAX
 gate). ``--serve`` with a mesh stays refused, as in JAX: the paged TP
-decode is ROADMAP Queue 1 "Serving across devices: TP decode".
+decode is the serving engine's own (``ServingEngine(mesh_tensor=)``,
+``serving/sharding.py``), not this CLI's.
 
 Runs on CUDA unless ``--device cpu``; without a GPU and without that flag
 it raises.

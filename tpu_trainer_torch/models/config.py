@@ -16,10 +16,6 @@ from typing import Optional, Tuple
 
 import torch
 
-# The ROADMAP entry that ports the tensor-parallel paged decode; every
-# refusal of it names the entry by its title.
-TP_DECODE_ENTRY = "ROADMAP Queue 1: Serving across devices: TP decode"
-
 _DTYPES = {
     "float32": torch.float32,
     "bfloat16": torch.bfloat16,
@@ -174,9 +170,9 @@ class GPTConfig:
                 self, "paged_tp_devices",
                 tuple(int(d) for d in self.paged_tp_devices))
         if self.paged_tp != 1:
-            raise NotImplementedError(
-                f"paged_tp={self.paged_tp}: tensor-parallel decode is not "
-                f"ported yet -> {TP_DECODE_ENTRY}")
+            from tpu_trainer_torch.serving.sharding import validate_tp
+
+            validate_tp(self.num_heads, self.kv_heads, self.paged_tp)
         if self.remat_policy not in ("full", "dots"):
             raise ValueError(
                 f"unknown remat_policy {self.remat_policy!r}; "

@@ -30,7 +30,13 @@ Two branches of ``GPT.forward``, chosen by ``config.decode_paged``, and
   paged KV cache (``_paged_decode_attention``), decode attention through
   ``ops.flash.flash_decode``. A MoE layer routes all ``max_batch x
   width`` rows of the pass, idle slots' zero ids included, as the JAX
-  engine's does (its auxiliary is dropped).
+  engine's does (its auxiliary is dropped). Under ``paged_tp > 1`` the
+  cache holds one pool set a shard (``serving/sharding.py``): each shard's
+  kv-head slice is written to its pools (a replicated pool takes every
+  head), decode runs ``ops.flash.paged_attention_sharded``, and prefill
+  runs the local attention per query-head slice on the slice's shard,
+  the slices concatenated in shard order, as the JAX ``attend`` closure
+  under ``shard_map``.
 - **Contiguous KV cache** (``GPT.decode(input_ids, cache)``, the JAX
   ``_decode_attention``): ``init_cache``'s ``[L, b, len, kvh, d]`` buffers
   and running length; a call appends its tokens and attends every cached
@@ -266,6 +272,8 @@ class CausalSelfAttention(nn.Module):
         positions through ``flash_decode``.
         """
         cfg = self.config
+        if cfg.paged_tp > 1:
+            return self._paged_attention_tp(q, k, v, layer, cache, step)
         b, s, h, d = q.shape
         kvh = k.shape[2]
         bsz = cfg.paged_block_size
@@ -304,39 +312,133 @@ class CausalSelfAttention(nn.Module):
             kf = dequantize_kv_int8(k_q, k_s, q.dtype)
             vf = dequantize_kv_int8(v_q, v_s, q.dtype)
         kf, vf = repeat_kv(kf, vf, h)
-        scale = 1.0 / (d ** 0.5)
-        neg = torch.finfo(q.dtype).min
-        scores = torch.einsum("bqhd,bkhd->bhqk", q, kf) * scale
-        pos = torch.arange(s, device=q.device)
-        q_pos, k_pos = pos[:, None], pos[None, :]
-        chunk_len = (step.lengths - step.offsets).long()[:, None, None]
-        allowed = (k_pos <= q_pos)[None] & (
-            (k_pos[None] < chunk_len) | (k_pos == q_pos)[None])
-        scores = scores.masked_fill(~allowed[:, None], neg)
-        v_cat = vf
-        hb = step.hist_blocks
-        if hb > 0:
-            # The post-scatter pool: positions this chunk wrote are
-            # >= offsets and masked out here.
-            htab = step.tables[:, :hb].long()
-            hk = pool_k[htab].reshape(b, hb * bsz, kvh, d)
-            hv = pool_v[htab].reshape(b, hb * bsz, kvh, d)
-            if int8:
-                hk = dequantize_kv_int8(
-                    hk, scale_k[htab].reshape(b, hb * bsz, kvh, -1), q.dtype)
-                hv = dequantize_kv_int8(
-                    hv, scale_v[htab].reshape(b, hb * bsz, kvh, -1), q.dtype)
-            else:
-                hk, hv = hk.to(q.dtype), hv.to(q.dtype)
-            hk, hv = repeat_kv(hk, hv, h)
-            h_scores = torch.einsum("bqhd,bkhd->bhqk", q, hk) * scale
-            h_pos = torch.arange(hb * bsz, device=q.device)
-            h_allowed = h_pos[None] < step.offsets.long()[:, None]
-            h_scores = h_scores.masked_fill(~h_allowed[:, None, None], neg)
-            scores = torch.cat([h_scores, scores], dim=-1)
-            v_cat = torch.cat([hv, vf], dim=1)
-        weights = torch.softmax(scores.float(), dim=-1).to(q.dtype)
-        return torch.einsum("bhqk,bkhd->bqhd", weights, v_cat)
+        hist = ()
+        if step.hist_blocks > 0:
+            hist = _history(
+                {"pool_k": pool_k, "pool_v": pool_v, "scale_k": scale_k,
+                 "scale_v": scale_v}, step, slice(0, kvh), h, q.dtype)
+        return _prefill_attend(q, kf, vf, step.lengths, step.offsets, *hist)
+
+    def _paged_attention_tp(self, q, k, v, layer, cache, step: PagedStep):
+        """``_paged_attention`` over a tensor-parallel replica's shards
+        (``cache["shards"]``, one pool set each, ``serving/sharding.py``).
+        Shard ``i`` owns query heads ``i*h/tp ..`` and, with kv-sharded
+        pools, kv heads ``i*kvh/tp ..``; a replicated pool (``tp %
+        kvh == 0``) holds every kv head and its slice reads one."""
+        cfg = self.config
+        b, s, h, d = q.shape
+        kvh = k.shape[2]
+        shards = cache["shards"]
+        tp = len(shards)
+        hl = h // tp
+        kv_shard = kvh % tp == 0
+        kvl = kvh // tp if kv_shard else kvh
+        q, k = apply_rotary_pos_emb(q, k, step.cos, step.sin)
+        if cfg.paged_kv_int8:
+            k_q, k_s = quantize_kv_int8(k)
+            v_q, v_s = quantize_kv_int8(v)
+            rows = {"pool_k": k_q, "pool_v": v_q, "scale_k": k_s,
+                    "scale_v": v_s}
+        else:
+            rows = {"pool_k": k, "pool_v": v}
+        for i, sh in enumerate(shards):
+            lo = i * kvl if kv_shard else 0
+            dev = sh["pool_k"].device
+            idx = (step.blk_ids.to(dev), step.offs.to(dev))
+            for key, x in rows.items():
+                pool = sh[key][layer]
+                pool[idx] = x[:, :, lo:lo + kvl].to(
+                    device=dev, dtype=pool.dtype).reshape(b * s, kvl, -1)
+
+        def kv_window(i):
+            # The shard's kv heads, as indices into its own pools.
+            return (slice(0, kvl) if kv_shard
+                    else slice(i // (tp // kvh), i // (tp // kvh) + 1))
+
+        if s == 1:
+            pools = {key: [sh[key][layer] for sh in shards]
+                     for key in shards[0]}
+            out = flash_lib.paged_attention_sharded(
+                q[:, 0], pools["pool_k"], pools["pool_v"], step.tables,
+                step.lengths + 1, kv_heads=kvh,
+                k_scales=pools.get("scale_k"), v_scales=pools.get("scale_v"))
+            return out.to(q.dtype)[:, None]
+
+        kf, vf = k, v
+        if cfg.paged_kv_int8:
+            kf = dequantize_kv_int8(k_q, k_s, q.dtype)
+            vf = dequantize_kv_int8(v_q, v_s, q.dtype)
+        # Repeat to the query heads, then cut by head (the JAX order).
+        kf, vf = repeat_kv(kf, vf, h)
+        outs = []
+        for i, sh in enumerate(shards):
+            dev = sh["pool_k"].device
+            heads = slice(i * hl, (i + 1) * hl)
+            hist = ()
+            if step.hist_blocks > 0:
+                hist = _history({key: sh[key][layer] for key in sh}, step,
+                                kv_window(i), hl, q.dtype)
+            out = _prefill_attend(
+                *(x[:, :, heads].to(dev) for x in (q, kf, vf)),
+                step.lengths.to(dev), step.offsets.to(dev), *hist)
+            outs.append(out.to(q.device))
+        return torch.cat(outs, dim=2)
+
+
+def _history(pools, step: PagedStep, window: slice, heads: int, dtype):
+    """The first ``hist_blocks`` pooled blocks of each row's table, kv
+    heads ``window`` of ``pools`` (``pool_k`` / ``pool_v``, int8 with
+    ``scale_k`` / ``scale_v``), dequantized or cast to ``dtype`` and
+    repeated to ``heads`` query heads: ``(hk, hv)`` ``[b, hb*bsz, heads,
+    d]`` on the pools' device. The post-scatter pool: positions the pass
+    wrote are >= offsets and masked out by the caller."""
+    pool_k, pool_v = pools["pool_k"], pools["pool_v"]
+    _, bsz, _, d = pool_k.shape
+    hb = step.hist_blocks
+    b = step.tables.shape[0]
+    htab = step.tables[:, :hb].long().to(pool_k.device)
+    n = window.stop - window.start
+
+    def rows(pool):
+        return pool[htab][:, :, :, window].reshape(b, hb * bsz, n, -1)
+
+    hk, hv = rows(pool_k), rows(pool_v)
+    if pools.get("scale_k") is not None:
+        hk = dequantize_kv_int8(hk, rows(pools["scale_k"]), dtype)
+        hv = dequantize_kv_int8(hv, rows(pools["scale_v"]), dtype)
+    else:
+        hk, hv = hk.to(dtype), hv.to(dtype)
+    return repeat_kv(hk, hv, heads)
+
+
+def _prefill_attend(q, kf, vf, lengths, offsets, hk=None, hv=None):
+    """A prefill chunk's attention (the JAX ``attend`` closure): ``q``
+    ``[b, s, h, d]`` against its in-flight ``kf`` / ``vf`` (repeated to the
+    query heads; ragged causal in local coordinates, a pad query keeps its
+    own position so its row stays finite) and, given, the pooled history
+    ``hk`` / ``hv`` masked below ``offsets`` — history keys first, in
+    ascending global position. Heads are independent, so a slice of the
+    heads is the same arithmetic on fewer of them."""
+    b, s, _, d = q.shape
+    scale = 1.0 / (d ** 0.5)
+    neg = torch.finfo(q.dtype).min
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, kf) * scale
+    pos = torch.arange(s, device=q.device)
+    q_pos, k_pos = pos[:, None], pos[None, :]
+    chunk_len = (lengths - offsets).long()[:, None, None]
+    allowed = (k_pos <= q_pos)[None] & (
+        (k_pos[None] < chunk_len) | (k_pos == q_pos)[None])
+    scores = scores.masked_fill(~allowed[:, None], neg)
+    v_cat = vf
+    if hk is not None:
+        h_scores = torch.einsum("bqhd,bkhd->bhqk", q, hk) * scale
+        h_pos = torch.arange(hk.shape[1], device=q.device)
+        h_allowed = h_pos[None] < offsets.long()[:, None]
+        h_scores = h_scores.masked_fill(~h_allowed[:, None, None], neg)
+        scores = torch.cat([h_scores, scores], dim=-1)
+        v_cat = torch.cat([hv, vf], dim=1)
+    weights = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", weights, v_cat)
 
 
 class MLP(nn.Module):
@@ -1305,11 +1407,19 @@ def paged_step(cfg: GPTConfig, cache, s: int, hist_blocks: int) -> PagedStep:
 
 
 def init_paged_cache(config: GPTConfig, batch_size: int, *,
-                     device) -> Dict[str, torch.Tensor]:
+                     device, mesh=None) -> Dict[str, object]:
     """Zero-initialized paged cache: per-layer pools ``[L, nblk, bsz, kvh,
     d]`` (compute dtype, or int8 plus f32 scales ``[..., d // qb]``), and
     the ``tables [b, mb]`` / ``lengths [b]`` / ``offsets [b]`` int32
-    scheduling state the caller overwrites before every pass."""
+    scheduling state the caller overwrites before every pass.
+
+    Under ``paged_tp > 1`` the pools are per-shard instead,
+    ``cache["shards"][i]`` on ``mesh.devices[i]``
+    (``serving/sharding.shard_cache``: kvh/tp kv heads a shard, or all
+    of them when they replicate); the scheduling state stays on
+    ``device``."""
+    from tpu_trainer_torch.serving import sharding
+
     cfg = config
     if not cfg.decode_paged:
         raise ValueError("init_paged_cache needs config.decode_paged=True")
@@ -1317,9 +1427,11 @@ def init_paged_cache(config: GPTConfig, batch_size: int, *,
     shape = (cfg.num_layers, cfg.paged_num_blocks, cfg.paged_block_size,
              cfg.kv_heads, d)
     kv_dtype = torch.int8 if cfg.paged_kv_int8 else cfg.compute_dtype
-    cache = {
-        "pool_k": torch.zeros(shape, dtype=kv_dtype, device=device),
-        "pool_v": torch.zeros(shape, dtype=kv_dtype, device=device),
+    pools = {"pool_k": (shape, kv_dtype), "pool_v": (shape, kv_dtype)}
+    if cfg.paged_kv_int8:
+        sshape = shape[:-1] + (d // quant_block_len(d),)
+        pools["scale_k"] = pools["scale_v"] = (sshape, torch.float32)
+    cache: Dict[str, object] = {
         "tables": torch.zeros((batch_size, cfg.paged_max_blocks),
                               dtype=torch.int32, device=device),
         "lengths": torch.zeros((batch_size,), dtype=torch.int32,
@@ -1327,12 +1439,13 @@ def init_paged_cache(config: GPTConfig, batch_size: int, *,
         "offsets": torch.zeros((batch_size,), dtype=torch.int32,
                                device=device),
     }
-    if cfg.paged_kv_int8:
-        sshape = shape[:-1] + (d // quant_block_len(d),)
-        cache["scale_k"] = torch.zeros(sshape, dtype=torch.float32,
-                                       device=device)
-        cache["scale_v"] = torch.zeros(sshape, dtype=torch.float32,
-                                       device=device)
+    if cfg.paged_tp > 1:
+        if mesh is None or mesh.tp != cfg.paged_tp:
+            raise ValueError(f"paged_tp={cfg.paged_tp} needs its mesh")
+        cache["shards"] = sharding.shard_cache(pools, mesh, cfg.kv_heads)
+    else:
+        for key, (shp, dtype) in pools.items():
+            cache[key] = torch.zeros(shp, dtype=dtype, device=device)
     return cache
 
 

@@ -174,6 +174,21 @@ def to_jax_params(state: Dict[str, torch.Tensor]) -> dict:
     return tree
 
 
+def meta_model(config: GPTConfig, params):
+    """``(GPT(config) on "meta", its named parameters)``, after checking
+    that ``params`` names exactly those parameters (a missing or extra
+    name raises)."""
+    model = GPT(config, device="meta")
+    specs = dict(model.named_parameters())
+    missing = set(specs) - set(params)
+    if missing:
+        raise ValueError(f"missing parameters {sorted(missing)}")
+    extra = sorted(set(params) - set(specs))
+    if extra:
+        raise ValueError(f"unexpected parameter {extra[0]!r}")
+    return model, specs
+
+
 def build_model(config: GPTConfig, params, device, *,
                 tensor: tuple = (0, 1)) -> GPT:
     """``GPT(config)`` for inference on ``device`` holding ``params`` (a
@@ -182,15 +197,9 @@ def build_model(config: GPTConfig, params, device, *,
     size)``: the model holds tensor rank ``rank``'s Megatron slices
     (``parallel/sharding.leaf_specs``; a MoE layer's experts too) and runs
     under a mesh context whose tensor group has ``size`` ranks."""
-    model = GPT(config, device="meta")
-    specs = dict(model.named_parameters())
-    missing = set(specs) - set(params)
-    if missing:
-        raise ValueError(f"missing parameters {sorted(missing)}")
+    model, specs = meta_model(config, params)
     cut = _rank_slices(config, tensor, (0, 1))
     for name, value in params.items():
-        if name not in specs:
-            raise ValueError(f"unexpected parameter {name!r}")
         t = cut[name](torch.as_tensor(value))
         t = t.to(device=device, dtype=specs[name].dtype).contiguous()
         module, attr = name.rsplit(".", 1)

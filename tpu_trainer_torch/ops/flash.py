@@ -17,7 +17,8 @@ Two kinds of kernel, each with its plain PyTorch version in this module:
 - ``flash_decode``: single-query attention over a paged KV pool. On a
   CUDA tensor it launches ``csrc/flash_decode.cu``, which replaces
   ``tpu_trainer/ops/flash.py::_decode_kernel``; on a CPU tensor it runs
-  ``paged_attention_reference``.
+  ``paged_attention_reference``. ``paged_attention_sharded`` is its
+  tensor-parallel dispatch: one ``flash_decode`` a shard of the heads.
 
 There is no other fallback: a CUDA call either launches its kernel or
 raises. Each wrapper counts its launches in ``<wrapper>.launches``.
@@ -32,7 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -54,17 +55,24 @@ def _auto_splits(max_blocks: int) -> int:
     return 1
 
 
-def _check(q, pool_k, pool_v, tables, lengths, k_scale, v_scale):
+def _check(q, pool_k, pool_v, tables, lengths, k_scale, v_scale,
+           kv_head_base, kv_heads):
     if q.dim() != 3 or pool_k.dim() != 4:
         raise ValueError(
             f"q must be [b, h, d] and pools [nblk, bsz, kvh, d]; got "
             f"{tuple(q.shape)}, {tuple(pool_k.shape)}")
     b, h, d = q.shape
     nblk, bsz, kvh, dk = pool_k.shape
-    if pool_v.shape != pool_k.shape or dk != d or h % kvh != 0:
+    if pool_v.shape != pool_k.shape or dk != d or h % kv_heads != 0:
         raise ValueError(
             f"shape mismatch: q {tuple(q.shape)}, pool_k "
-            f"{tuple(pool_k.shape)}, pool_v {tuple(pool_v.shape)}")
+            f"{tuple(pool_k.shape)}, pool_v {tuple(pool_v.shape)}, "
+            f"kv_heads {kv_heads}")
+    if not (0 <= kv_head_base and kv_heads >= 1
+            and kv_head_base + kv_heads <= kvh):
+        raise ValueError(
+            f"kv heads {kv_head_base}..{kv_head_base + kv_heads - 1} outside "
+            f"the pool's {kvh}")
     if not q.is_floating_point():
         raise ValueError(f"q dtype {q.dtype} is not floating point")
     if pool_k.dtype not in _KV_CODES or pool_v.dtype != pool_k.dtype:
@@ -101,6 +109,8 @@ def flash_decode(
     k_scale: Optional[torch.Tensor] = None,
     v_scale: Optional[torch.Tensor] = None,
     n_splits: int = 0,
+    kv_head_base: int = 0,
+    kv_heads: Optional[int] = None,
 ) -> torch.Tensor:
     """Single-query attention over a paged KV cache (flash-decoding).
 
@@ -113,12 +123,18 @@ def flash_decode(
       current one (>= 1 for live rows; a length-0 row yields NaN).
 
     Returns f32 ``[batch, heads, head_dim]``. GQA: query head ``ih`` reads
-    kv head ``ih // (heads // kv_heads)``. ``flash_decode.launches``
+    kv head ``kv_head_base + ih // (heads // kv_heads)``. The call reads
+    the ``kv_heads`` kv heads from ``kv_head_base`` on (default: all of
+    the pool's), in place: a tensor-parallel shard of a replicated pool
+    reads its one kv head without a copy. ``flash_decode.launches``
     counts kernel launches (CUDA calls only). The kernel takes head_dim
     16, 32, 64 or 128, any block size and group, and pools that start
     16-byte aligned.
     """
-    _check(q, pool_k, pool_v, tables, lengths, k_scale, v_scale)
+    if kv_heads is None:
+        kv_heads = pool_k.shape[2] - kv_head_base
+    _check(q, pool_k, pool_v, tables, lengths, k_scale, v_scale,
+           kv_head_base, kv_heads)
     mb = tables.shape[1]
     if not n_splits:
         n_splits = _auto_splits(mb)
@@ -127,19 +143,22 @@ def flash_decode(
     if q.device.type == "cpu":
         return paged_attention_reference(
             q, pool_k, pool_v, tables, lengths,
-            k_scale=k_scale, v_scale=v_scale)
+            k_scale=k_scale, v_scale=v_scale, kv_head_base=kv_head_base,
+            kv_heads=kv_heads)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     return _launch(q, pool_k, pool_v, tables, lengths, k_scale, v_scale,
-                   n_splits)
+                   n_splits, kv_head_base, kv_heads)
 
 
 flash_decode.launches = 0
 
 
-def _launch(q, pool_k, pool_v, tables, lengths, k_scale, v_scale, n_splits):
+def _launch(q, pool_k, pool_v, tables, lengths, k_scale, v_scale, n_splits,
+            kv_head_base=0, kv_heads=None):
     b, h, d = q.shape
-    nblk, bsz, kvh, _ = pool_k.shape
+    nblk, bsz, kv_stride, _ = pool_k.shape
+    kvh = kv_stride if kv_heads is None else kv_heads
     mb = tables.shape[1]
     int8 = pool_k.dtype == torch.int8
     nbq = k_scale.shape[-1] if int8 else 1
@@ -175,8 +194,8 @@ def _launch(q, pool_k, pool_v, tables, lengths, k_scale, v_scale, n_splits):
             ptr(k_scale if int8 else None), ptr(v_scale if int8 else None),
             ptr(tables), ptr(lengths), ptr(m_part), ptr(l_part),
             ptr(acc_part), ptr(out),
-            b, h, kvh, d, nblk, bsz, mb, n_splits, nbq,
-            _KV_CODES[pool_k.dtype], ctypes.c_void_p(stream))
+            b, h, kvh, kv_head_base, kv_stride, d, nblk, bsz, mb, n_splits,
+            nbq, _KV_CODES[pool_k.dtype], ctypes.c_void_p(stream))
     if err != 0:
         msg = lib.flash_decode_error_string(err).decode()
         raise RuntimeError(f"flash_decode kernel launch failed: {msg} ({err})")
@@ -188,7 +207,7 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("flash_decode")
     fn = lib.flash_decode_launch
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10 + [
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 12 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.flash_decode_error_string.argtypes = [ctypes.c_int]
@@ -205,9 +224,17 @@ def paged_attention_reference(
     *,
     k_scale: Optional[torch.Tensor] = None,
     v_scale: Optional[torch.Tensor] = None,
+    kv_head_base: int = 0,
+    kv_heads: Optional[int] = None,
 ) -> torch.Tensor:
     """Plain ``flash_decode``: gather the whole table view, mask past each
     row's length, f32 softmax. Same operands/result contract."""
+    if kv_head_base or kv_heads is not None:
+        n = pool_k.shape[2] - kv_head_base if kv_heads is None else kv_heads
+        window = slice(kv_head_base, kv_head_base + n)
+        pool_k, pool_v = pool_k[:, :, window], pool_v[:, :, window]
+        if k_scale is not None:
+            k_scale, v_scale = k_scale[:, :, window], v_scale[:, :, window]
     b, h, d = q.shape
     nblk, bsz, kvh, _ = pool_k.shape
     group = h // kvh
@@ -235,6 +262,64 @@ def paged_attention_reference(
                     torch.full_like(s, float("-inf")))
     w = torch.softmax(s, dim=-1)
     return torch.einsum("bhk,bkhd->bhd", w, v)
+
+
+def paged_attention_sharded(
+    q: torch.Tensor,
+    pools_k: Sequence[torch.Tensor],
+    pools_v: Sequence[torch.Tensor],
+    tables: torch.Tensor,
+    lengths: torch.Tensor,
+    *,
+    kv_heads: int,
+    k_scales: Optional[Sequence[torch.Tensor]] = None,
+    v_scales: Optional[Sequence[torch.Tensor]] = None,
+) -> torch.Tensor:
+    """Tensor-parallel paged decode (port of the JAX
+    ``paged_attention_sharded``): ``tp = len(pools_k)`` shards, shard ``i``
+    running ``flash_decode`` (the kernel on CUDA, the plain version on the
+    CPU) on its contiguous slice ``q[:, i*h/tp:(i+1)*h/tp]`` and its own
+    pools, on their device.
+
+    Two pool layouts, the ones ``serving/sharding.shard_cache`` makes for
+    a model of ``kv_heads`` kv heads:
+
+    - ``kv_heads % tp == 0``: shard ``i`` holds kv heads ``i*kvh/tp ..``
+      (``[nblk, bsz, kvh/tp, d]``); its query heads keep the whole group
+      ``h/kvh``, so the call is the stock one.
+    - ``tp % kv_heads == 0`` (GQA, ``kv_heads < tp``): every shard holds
+      the whole pool and its query heads fall inside one kv group; it
+      reads kv head ``i // (tp // kv_heads)`` in place (``kv_head_base``).
+
+    The slices' outputs are disjoint, so concatenating them on the heads
+    axis in shard order (on ``q``'s device) is the JAX psum of
+    zero-padded slices, exactly. Returns f32 ``[b, h, d]``; a CUDA call
+    adds ``tp`` to ``flash_decode.launches``.
+    """
+    tp = len(pools_k)
+    b, h, d = q.shape
+    scales = ({} if k_scales is None else
+              {"k_scale": k_scales[0], "v_scale": v_scales[0]})
+    if tp == 1:
+        return flash_decode(q, pools_k[0], pools_v[0], tables, lengths,
+                            **scales)
+    if h % tp:
+        raise ValueError(f"heads {h} % tp {tp} != 0")
+    kv_shard = kv_heads % tp == 0
+    if not kv_shard and tp % kv_heads:
+        raise ValueError(f"kv_heads {kv_heads} vs tp {tp}: neither divides")
+    hl = h // tp
+    outs = []
+    for i in range(tp):
+        dev = pools_k[i].device
+        kw = ({} if k_scales is None else
+              {"k_scale": k_scales[i], "v_scale": v_scales[i]})
+        if not kv_shard:
+            kw.update(kv_head_base=i // (tp // kv_heads), kv_heads=1)
+        out = flash_decode(q[:, i * hl:(i + 1) * hl].to(dev), pools_k[i],
+                           pools_v[i], tables.to(dev), lengths.to(dev), **kw)
+        outs.append(out.to(q.device))
+    return torch.cat(outs, dim=1)
 
 
 # --------------------------------------------------------------------------

@@ -10,6 +10,8 @@
   one verify forward of the draft window, the acceptance rule.
 - ``kv_store``    — the digest-addressed tiered KV block store and the
   migration-vs-recompute pricer.
+- ``sharding``    — the tensor-parallel replica's layout: parameters and
+  KV pools as per-device shards, the exact gather.
 - ``engine``      — ``ServingEngine`` (block I/O, roles and request
   extraction for migration, the metrics registry, ``export_requests``)
   and the ``python -m tpu_trainer_torch.serving.engine`` trace-replay

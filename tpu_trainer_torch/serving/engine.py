@@ -36,9 +36,17 @@ The fleet surface (``serving/frontend.py``, ``serving/worker.py``):
 (``set_function``, read at scrape time; the metric names are the JAX
 engine's) and observes the step, TTFT and TPOT histograms;
 ``export_requests`` hands every queued and in-flight request back for
-failover; ``device_block_budget`` sizes the pool. ``mesh_tensor`` /
-``mesh_devices`` above one device are the tensor-parallel decode, which
-is not ported (``models.config.TP_DECODE_ENTRY``).
+failover; ``device_block_budget`` sizes the pool per shard.
+
+``mesh_tensor`` / ``mesh_devices`` make the replica tensor-parallel
+(``serving/sharding.py``): its parameters and KV pools are held as
+``tp`` shards, shard ``i`` on ``cuda:<mesh_devices[i]>`` (a repeated
+ordinal puts several on one card; on the CPU the ids are labels). Each
+step gathers the parameters on shard 0's device (an exact concatenation)
+and runs the module over them; decode attention runs one flash-decode
+call a shard. Greedy streams are one device's, bit for bit, and
+``read_block`` / ``write_block`` assemble and split the kv heads in
+shard order, so the store and migration frames are one device's too.
 
 ``python -m tpu_trainer_torch.serving.engine`` replays a seeded open-loop
 Poisson trace against a synthetic checkpoint and prints the summary. It
@@ -54,13 +62,14 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from tpu_trainer_torch.models.config import TP_DECODE_ENTRY, GPTConfig
+from tpu_trainer_torch.models.config import GPTConfig
 from tpu_trainer_torch.models.gpt import GPT, init_paged_cache
-from tpu_trainer_torch.models.weights import build_model
+from tpu_trainer_torch.models.weights import build_model, meta_model
 from tpu_trainer_torch.obs.metrics import NULL_REGISTRY
 from tpu_trainer_torch.serving.kv_store import KVBlockStore, MigrationPricer
 from tpu_trainer_torch.serving.paged_cache import PagedKVCache
 from tpu_trainer_torch.serving.sampling import sample_tokens
+from tpu_trainer_torch.serving import sharding as tp_lib
 from tpu_trainer_torch.serving.scheduler import Request, SamplingParams, Scheduler
 from tpu_trainer_torch.serving.spec import (DraftModelProposer, NGramProposer,
                                             SpecDecoder, _verify_step,
@@ -88,7 +97,9 @@ class ServingEngine:
 
     ``params`` is a state dict for ``GPT(config)`` (``models.weights``).
     ``device`` defaults to CUDA and raises without it; ``device="cpu"``
-    runs the plain attention path on the CPU.
+    runs the plain attention path on the CPU. Under ``mesh_tensor`` /
+    ``mesh_devices`` the device is the mesh's first (its type taken from
+    ``device``).
     """
 
     def __init__(
@@ -136,16 +147,19 @@ class ServingEngine:
                 "attention always runs the flash-decode kernel")
         if max_blocks_per_request is None:
             max_blocks_per_request = -(-config.max_seq_len // block_size)
+        # Tensor parallel: one replica = one mesh (serving/sharding.py).
+        # ``mesh_tensor`` is the mesh size; ``mesh_devices`` optionally
+        # names its CUDA ordinals; ``device_block_budget`` sizes the pool
+        # per SHARD: with kv-head-sharded pools each shard holds 1/tp of
+        # every block, so the replica affords budget * tp blocks.
         tp = int(mesh_tensor) if mesh_tensor else 1
-        if mesh_devices is not None and tp == 1 and len(mesh_devices) > 1:
-            tp = len(mesh_devices)
-        if tp != 1:
-            raise NotImplementedError(
-                f"mesh_tensor={tp}: tensor-parallel decode is not ported "
-                f"yet -> {TP_DECODE_ENTRY}")
+        if mesh_devices is not None:
+            mesh_devices = tuple(int(d) for d in mesh_devices)
+            if tp == 1 and len(mesh_devices) > 1:
+                tp = len(mesh_devices)
         if device_block_budget is not None and num_blocks is None:
-            # The pool per device: at tp 1 one device holds every block.
-            num_blocks = device_block_budget
+            num_blocks = device_block_budget * tp_lib.shard_factor(
+                config.kv_heads, tp)
         if num_blocks is None:
             # Enough for every slot to run at full context, + null block.
             num_blocks = max_batch * max_blocks_per_request + 1
@@ -160,8 +174,17 @@ class ServingEngine:
             paged_max_blocks=max_blocks_per_request,
             paged_kv_int8=kv_int8,
             paged_attention=attention,
+            paged_tp=tp,
+            paged_tp_devices=(mesh_devices if tp > 1 else None),
         )
-        self.model = build_model(self.config, params, self.device)
+        self.mesh = None
+        if tp > 1:
+            self.mesh = tp_lib.tp_mesh(tp, self.config.paged_tp_devices,
+                                       self.device.type)
+            self.device = self.mesh.compute_device
+            self.model = _ShardedModel(self.config, params, self.mesh)
+        else:
+            self.model = build_model(self.config, params, self.device)
         self.max_batch = max_batch
         self.eos_id = eos_id
         self.clock = clock
@@ -220,7 +243,7 @@ class ServingEngine:
         self.ts_interval = int(ts_interval)
         self.serve_ts: List[dict] = []
         self.device_cache = init_paged_cache(
-            self.config, max_batch, device=self.device)
+            self.config, max_batch, device=self.device, mesh=self.mesh)
         self._k_cap = 1
         self._iters = 0
         self._t0 = None
@@ -687,20 +710,42 @@ class ServingEngine:
             device_flops=peak, link_bytes_per_s=float(link_gbps) * 1e9)
 
     def _pool_leaves(self) -> List[torch.Tensor]:
-        return [self.device_cache[k] for k in _POOL_LEAF_KEYS
-                if k in self.device_cache]
+        """Every pool tensor of the device cache: the leaves at tp 1, each
+        shard's in shard order at tp > 1."""
+        return [t for parts, _ in self._pool_parts() for t in parts]
+
+    def _pool_parts(self) -> List[Tuple[List[torch.Tensor], bool]]:
+        """Each pool leaf in the JAX engine's order as ``(parts,
+        replicated)``: its tensors in shard order (one at tp 1), and
+        whether every part holds the whole leaf (GQA-replicated pools) —
+        otherwise the parts cut its kv-heads axis."""
+        cache = self.device_cache
+        if "shards" not in cache:
+            return [([cache[k]], True) for k in _POOL_LEAF_KEYS
+                    if k in cache]
+        shards = cache["shards"]
+        rep = not tp_lib.kv_sharded(self.config.kv_heads,
+                                    self.config.paged_tp)
+        return [([sh[k] for sh in shards], rep) for k in _POOL_LEAF_KEYS
+                if k in shards[0]]
 
     def read_block(self, block_id: int) -> List[np.ndarray]:
         """One block's K/V payload as host arrays, one per pool leaf in
         the JAX engine's order (``pool_k, pool_v[, scale_k, scale_v]``),
         each ``[L, bsz, kvh, d | nbq]`` — the store and wire entry. A
-        bf16 leaf comes back as its raw 2-byte words (void ``V2``)."""
+        bf16 leaf comes back as its raw 2-byte words (void ``V2``). A
+        sharded replica's kv heads are assembled in shard order (a
+        replicated pool read from shard 0), so its payload is one
+        device's."""
         out = []
-        for leaf in self._pool_leaves():
+        for parts, rep in self._pool_parts():
             # A copy on either device: on the CPU ``.cpu()`` would alias
             # the pool, and the block's next tenant would rewrite a store
             # entry or a migration tail still in flight.
-            blk = leaf[:, block_id].to("cpu", copy=True)
+            if rep:
+                blk = parts[0][:, block_id].to("cpu", copy=True)
+            else:
+                blk = torch.cat([p[:, block_id].cpu() for p in parts], dim=2)
             if blk.dtype == torch.bfloat16:
                 out.append(blk.view(torch.int16).numpy().view(_BF16_HOST))
             else:
@@ -712,23 +757,30 @@ class ServingEngine:
         ``block_id``. False, the device untouched, on any layout
         mismatch: a store shared by differently configured engines falls
         back to recompute instead of corrupting a pool."""
-        leaves = self._pool_leaves()
+        leaves = self._pool_parts()
         if len(payload) != len(leaves):
             return False
-        for leaf, arr in zip(leaves, payload):
+        for (parts, rep), arr in zip(leaves, payload):
+            leaf = parts[0]
+            kvh = leaf.shape[3] * (1 if rep else len(parts))
             want = (_BF16_HOST if leaf.dtype == torch.bfloat16 else
                     np.dtype(str(leaf.dtype).replace("torch.", "")))
-            if (tuple(arr.shape) != (leaf.shape[0],) + tuple(leaf.shape[2:])
+            if (tuple(arr.shape) != (leaf.shape[0], leaf.shape[2], kvh,
+                                     leaf.shape[4])
                     or np.dtype(arr.dtype) != want):
                 return False
-        for leaf, arr in zip(leaves, payload):
+        for (parts, rep), arr in zip(leaves, payload):
             arr = np.ascontiguousarray(arr)
-            if leaf.dtype == torch.bfloat16:
+            if parts[0].dtype == torch.bfloat16:
                 src = torch.from_numpy(arr.view(np.int16)).view(
                     torch.bfloat16)
             else:
                 src = torch.from_numpy(arr)
-            leaf[:, block_id].copy_(src)
+            # A replicated pool takes the whole block on every shard.
+            pieces = ([src] * len(parts) if rep
+                      else src.chunk(len(parts), dim=2))
+            for part, piece in zip(parts, pieces):
+                part[:, block_id].copy_(piece)
         return True
 
     def _store_put_block(self, digest: bytes, block_id: int) -> bool:
@@ -931,6 +983,26 @@ class ServingEngine:
         return s
 
 
+class _ShardedModel:
+    """The model of a tensor-parallel replica: ``GPT(config)`` on
+    ``meta`` (it allocates nothing) and its parameters as ``mesh``'s shards
+    (``sharding.shard_params``, no whole copy kept). A call gathers them on
+    the compute device (``sharding.gather_params``, an exact
+    concatenation, dropped after the call) and runs the module over the
+    gathered tensors."""
+
+    def __init__(self, config: GPTConfig, params, mesh):
+        self.module, specs = meta_model(config, params)
+        self.config = config
+        self.params = tp_lib.shard_params(
+            {n: torch.as_tensor(v).to(specs[n].dtype)
+             for n, v in params.items()}, mesh)
+
+    def __call__(self, *args, **kwargs):
+        return torch.func.functional_call(
+            self.module, tp_lib.gather_params(self.params), args, kwargs)
+
+
 @torch.inference_mode()
 def _engine_step(
     model: GPT, cache, tables, lengths, offsets, ids, temps, topks, topps,
@@ -938,7 +1010,9 @@ def _engine_step(
 ) -> torch.Tensor:
     """One engine step: copy host scheduling state into the device cache,
     forward (the pools update in place), take each row's last real logit
-    (position ``lengths - offsets - 1`` of a prefill chunk), sample."""
+    (position ``lengths - offsets - 1`` of a prefill chunk), sample. A
+    tensor-parallel replica's ``model`` (``_ShardedModel``) gathers its
+    parameter shards for the step."""
     dev = cache["tables"].device
     cache["tables"].copy_(torch.from_numpy(tables))
     cache["lengths"].copy_(torch.from_numpy(lengths))

@@ -97,7 +97,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from tpu_trainer_torch.models.config import TP_DECODE_ENTRY, GPTConfig
+from tpu_trainer_torch.models.config import GPTConfig
 from tpu_trainer_torch.obs.metrics import NULL_REGISTRY, MetricsRegistry
 from tpu_trainer_torch.serving.engine import ServingEngine
 from tpu_trainer_torch.serving.kv_store import KVBlockStore, leaves_nbytes
@@ -288,10 +288,6 @@ class ServingFrontend:
             raise ValueError(f"max_queue_depth={max_queue_depth}")
         if time_mode not in ("wall", "steps"):
             raise ValueError(f"time_mode={time_mode!r}")
-        if replica_device_sets:
-            raise NotImplementedError(
-                f"replica_device_sets: one tensor-parallel mesh a replica "
-                f"is not ported yet -> {TP_DECODE_ENTRY}")
         self.params = params
         self.config = config
         self.routing = routing
@@ -349,6 +345,14 @@ class ServingFrontend:
                                or (64 << 20)),
                 disk_dir=engine_kwargs.get("kv_store_dir"))
         self._kv_catalog: Dict[bytes, int] = {}
+        # Mesh-aware replica placement: one replica = one mesh. Each
+        # entry is a list of CUDA ordinals; replica ``rid`` takes entry
+        # ``rid % len`` as its ``mesh_devices``, so a fleet carves the
+        # host's cards into tensor-parallel meshes. None = every replica
+        # uses the default devices (engine_kwargs may set mesh_tensor).
+        self._replica_device_sets = (
+            [tuple(int(d) for d in ds) for ds in replica_device_sets]
+            if replica_device_sets else None)
         # Fleet observability: one merged tracer (front-door events plus
         # replica deltas drained after each step), per-replica flight-
         # recorder rings fed off every event, a serve-loop ledger, and
@@ -557,6 +561,9 @@ class ServingFrontend:
             rep = self._replica_factory(rid, self._now)
         else:
             kw = dict(self._engine_kwargs)
+            if self._replica_device_sets:
+                dsets = self._replica_device_sets
+                kw["mesh_devices"] = dsets[rid % len(dsets)]
             if self.kv_store is not None:
                 # Every in-process engine shares the front-end's one
                 # store object (kv_store wins over kv_store_bytes/_dir

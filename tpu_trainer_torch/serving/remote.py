@@ -78,7 +78,6 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
-from tpu_trainer_torch.models.config import TP_DECODE_ENTRY
 from tpu_trainer_torch.serving.scheduler import Request, SamplingParams
 from tpu_trainer_torch.utils.flight_recorder import read_heartbeat
 
@@ -842,9 +841,10 @@ class WorkerSupervisor:
     state.
 
     ``params`` is the port's state dict; it crosses to the workers as
-    the ``a/b/c``-key npz. The
-    per-worker ``device_sets`` of the JAX supervisor belong to the
-    tensor-parallel decode (``models.config.TP_DECODE_ENTRY``).
+    the ``a/b/c``-key npz (or, with ``param_shard_world``, as that many
+    host shards). ``device_sets`` gives each worker a tensor-parallel
+    mesh: worker ``wid`` takes ``device_sets[wid % len]`` (CUDA ordinals,
+    repeatable) as its engine's ``mesh_devices``.
     """
 
     def __init__(self, params, config, *, engine_kwargs=None,
@@ -857,10 +857,6 @@ class WorkerSupervisor:
                  param_shard_world: Optional[int] = None,
                  device_sets=None,
                  launch_prefix=None):
-        if device_sets is not None:
-            raise NotImplementedError(
-                f"device_sets: per-worker meshes are the tensor-parallel "
-                f"decode, not ported yet -> {TP_DECODE_ENTRY}")
         if heartbeat_timeout_s == _AUTO:
             heartbeat_timeout_s = DEFAULT_HEARTBEAT_TIMEOUT_S
         # None = explicit opt-out of flatline detection (exit codes only).
@@ -924,6 +920,12 @@ class WorkerSupervisor:
         }
         if params_shards is not None:
             spec["params_shards"] = params_shards
+        if device_sets is not None:
+            # Per-worker device sets (one mesh a worker): worker ``wid``
+            # takes ``device_sets[wid % len]`` as its ``mesh_devices``.
+            # Top-level in the spec: engine kwargs are scalars on the wire.
+            spec["device_sets"] = [
+                [int(d) for d in ds] for ds in device_sets]
         for k, v in spec["engine"].items():
             if not isinstance(v, (int, float, str, bool, type(None))):
                 raise ValueError(

@@ -41,15 +41,10 @@ from typing import Deque, List, Optional, Tuple
 
 from tpu_trainer_torch.serving.kv_store import leaves_nbytes
 from tpu_trainer_torch.serving.paged_cache import PagedKVCache
+from tpu_trainer_torch.serving.sharding import shard_factor
 
 TERMINAL_STATES = frozenset(
     {"finished", "cancelled", "deadline_exceeded", "failed"})
-
-
-def shard_factor(kv_heads: int, tp: int) -> int:
-    """Pool capacity multiplier of a tensor-parallel replica: with
-    kv-head-sharded pools each device holds 1/tp of every block."""
-    return tp if kv_heads % tp == 0 else 1
 
 
 @dataclasses.dataclass
@@ -189,8 +184,9 @@ class Scheduler:
         return bool(self.waiting or self.running)
 
     def pool_shard_stats(self) -> dict:
-        """Block budget per shard of the replica's pool (tp = 1 here:
-        device blocks == total blocks)."""
+        """Block budget per shard of the replica's pool: total blocks
+        over ``shard_factor`` (each kv-head-sharded shard holds 1/tp of
+        every block; a replicated pool holds every block whole)."""
         cfg = self.cache.config
         tp = cfg.paged_tp
         total = cfg.paged_num_blocks

@@ -377,7 +377,9 @@ def _verify_step(
     cache, forward the ``[b, W]`` window through the chunked-prefill
     branch at each row's cached offset keeping every position's logits,
     and run the acceptance rule on the device — the host reads back
-    tokens and counts, never ``[b, W, vocab]`` logits."""
+    tokens and counts, never ``[b, W, vocab]`` logits. A tensor-parallel
+    target's ``model`` gathers its parameter shards and attends over its
+    per-shard pools, as ``engine._engine_step`` does."""
     dev = cache["tables"].device
     cache["tables"].copy_(torch.from_numpy(tables))
     cache["lengths"].copy_(torch.from_numpy(lengths))

@@ -100,19 +100,21 @@ class WorkerServer:
         # Imported here, not at module top: torch and the model load in
         # the worker process only, once argument parsing and socket
         # binding have already succeeded.
-        from tpu_trainer_torch.models.config import TP_DECODE_ENTRY, GPTConfig
+        from tpu_trainer_torch.models.config import GPTConfig
         from tpu_trainer_torch.models.weights import (from_jax_params,
                                                       load_params_npz)
         from tpu_trainer_torch.obs.metrics import MetricsRegistry
         from tpu_trainer_torch.serving.engine import ServingEngine
         from tpu_trainer_torch.utils.device import resolve_device
 
-        if self.spec.get("device_sets"):
-            raise NotImplementedError(
-                f"device_sets: per-worker meshes are the tensor-parallel "
-                f"decode, not ported yet -> {TP_DECODE_ENTRY}")
         config = GPTConfig(**self.spec["config"])
         kw = dict(self.spec.get("engine", {}))
+        dsets = self.spec.get("device_sets")
+        if dsets:
+            # This worker's mesh: its entry of the fleet's device sets,
+            # assigned round-robin by worker id.
+            kw["mesh_devices"] = tuple(
+                int(d) for d in dsets[self.worker_id % len(dsets)])
         device = resolve_device(kw.get("device"))
         if device.type == "cuda":
             # The decode kernel is built and loaded now: a worker whose
