@@ -359,13 +359,21 @@ JAX package. Phases, each fatal on failure:
 24a. mesh-ranks -- tensor and sequence parallelism across processes
               (``phase_mesh_ranks``): ``train_ddp`` on small_model.yaml at
               2 of its 12 layers (dropout 0, batch 8 x 1024, 3 steps) at
-              one process, ``--mesh_tensor 2``, ``--mesh_sequence 2`` and
-              both (4 ranks), the ranks sharing the card over gloo, all
-              started together: each against the one process within
-              ``MESH_LOSS_RTOL`` / ``MESH_STATE_L2`` (a swapped-halves
-              control rejected), launches exact (the ring's schedule a
-              layer under sequence, no head + CE under tensor); a rank's
-              step ms, collectives a step and parameter bytes at rest.
+              one process, ``--mesh_tensor 2``, ``--mesh_sequence 2``,
+              both (4 ranks), ``--mesh_tensor 2 --mesh_stage 2`` (GPipe,
+              M 2) and ``train_fsdp --mesh auto`` over 2 ranks, the ranks
+              sharing the card over gloo, all started together: each
+              against the one process within ``MESH_LOSS_RTOL`` /
+              ``MESH_STATE_L2`` (a swapped-halves control rejected),
+              launches exact (the ring's schedule a layer under sequence,
+              no head + CE under tensor); a rank's step ms, collectives a
+              step and parameter bytes at rest; the auto run's plan
+              budgeted half the card (two ranks on it) and equal to
+              ``tools/plan``'s at that budget, and its ``comms_model``
+              crosscheck noting the model's gap and nothing else (the
+              gradient sums over the sequence ranks or the stage group,
+              which the model does not charge); ``tools/plan``'s tables
+              for the card.
 25. elastic -- ``python -m tpu_trainer_torch.training.elastic`` at
               small_model.yaml's width (2 layers), two ranks sharing the
               card: ``kill_host`` shrinks to world 1, which resumes from
@@ -383,8 +391,9 @@ JAX package. Phases, each fatal on failure:
               ``PIPE_STATE_L2`` relative L2, a swapped-halves control
               rejected); GPipe, 1F1B and interleaved at stage 2 (4 layers,
               M 8, dropout 0.1, the same masks) against each other, within
-              2x run A's readings; the
-              1F1B window planted one below the JAX simulation's, which
+              2x run A's readings; run A's model at ``--mesh_tensor 2
+              --mesh_stage 2`` (1F1B, M 8) against one process as run A;
+              the 1F1B window planted one below the JAX simulation's, which
               every rank must refuse; every rank's launches the
               schedule's; a rank's step ms, ``pp_send`` bytes and receive
               wait a step, the most microbatches in flight and its peak.
@@ -1756,22 +1765,29 @@ def _mesh_ranks_spawn(tmp: str) -> dict:
               "--eval_batches", "1", "--keep_last_n", "0",
               "--no_auto_resume"]
 
-    def argv(tag, *extra):
+    def argv(tag, *extra, bs=rows):
         return (["--config", yaml, "--max_steps", str(steps),
-                 "--batch_size", str(rows), "--grad_accum", "1",
+                 "--batch_size", str(bs), "--grad_accum", "1",
                  "--save_interval", "0",
                  "--checkpoint_dir", os.path.join(tmp, f"ck_{tag}"),
                  "--metrics_jsonl", os.path.join(tmp, f"{tag}.jsonl")]
                 + common + list(extra))
 
-    runs = {"one": (0, 1, 1), "tp2": (2, 1, 2), "sp2": (2, 2, 1),
-            "tp2sp2": (4, 2, 2)}
+    # tag: (world, sequence, tensor, CLI mode).
+    runs = {"one": (0, 1, 1, "ddp"), "tp2": (2, 1, 2, "ddp"),
+            "sp2": (2, 2, 1, "ddp"), "tp2sp2": (4, 2, 2, "ddp"),
+            "tp2pp2_gpipe": (4, 1, 2, "ddp"), "auto": (2, None, None, "fsdp")}
     args = {tag: argv(tag, *(["--mesh_tensor", str(tp)] if tp > 1 else [])
                       + (["--mesh_sequence", str(sp)] if sp > 1 else []))
-            for tag, (_, sp, tp) in runs.items()}
+            for tag, (_, sp, tp, _) in runs.items() if sp is not None}
+    # One layer a stage (GPipe, M 2); and the planner's mesh over two
+    # ranks for the same global batch (4 rows a rank), under FULL_SHARD.
+    args["tp2pp2_gpipe"] += ["--mesh_stage", "2", "--pipeline_microbatches",
+                             "2"]
+    args["auto"] = argv("auto", "--mesh", "auto", bs=rows // 2)
     t0 = time.perf_counter()
-    spawned = [(tag, _dist_spawn(tmp, f"mesh_{tag}", "ddp", args[tag], w))
-               for tag, (w, _, _) in runs.items()]
+    spawned = [(tag, _dist_spawn(tmp, f"mesh_{tag}", mode, args[tag], w))
+               for tag, (w, _, _, mode) in runs.items()]
     return {"t0": t0, "steps": steps, "rows": rows, "runs": runs,
             "args": args, "spawned": spawned}
 
@@ -1780,17 +1796,32 @@ def phase_mesh_ranks(results: dict, tmp: str, started=None) -> dict:
     """Tensor and sequence parallelism across processes on the one card
     (ranks sharing ``cuda:0`` over gloo, each a fresh process that joins
     its group and calls ``train_ddp``, as the dist phase's): one process,
-    ``--mesh_tensor 2``, ``--mesh_sequence 2`` and ``--mesh_tensor 2
-    --mesh_sequence 2`` (4 ranks), all started together, each
+    ``--mesh_tensor 2``, ``--mesh_sequence 2``, ``--mesh_tensor 2
+    --mesh_sequence 2`` (4 ranks), the pipeline under the tensor axis
+    (``--mesh_tensor 2 --mesh_stage 2``, GPipe, M 2, a layer a stage; 4
+    ranks) and ``train_fsdp --mesh auto`` over 2 ranks (4 rows a rank:
+    the same global batch), all started together, each
     ``small_model.yaml`` at 2 of its 12 layers (dropout 0, batch 8 x 1024,
     accumulation 1, 3 steps and one eval micro-batch). Each run against
     the one-process run: losses within ``MESH_LOSS_RTOL``, each final
     master and moment within ``MESH_STATE_L2`` relative L2 (a control with
     one moment's halves swapped must fail), a rank's launches exact
     (``_mesh_launches``: the ring's schedule under sequence, no head + CE
-    under tensor); a rank's step ms, its collectives' calls and bytes a
-    step, and its parameter bytes at rest (under tensor the sharded leaves
-    at half). Ranks time-slicing one card measure no multi-GPU speed.
+    under tensor; ``_pipe_launches`` under a stage axis); a rank's step
+    ms, its collectives' calls and bytes a step, and its parameter bytes
+    at rest (under tensor the sharded leaves at half, a quarter beside a
+    stage axis). The auto run's ``mesh_plan`` record is printed; its
+    budget must be half the card's memory (its two ranks share the card)
+    and its mesh ``tools/plan``'s for the same options, card and budget.
+    Its ``comms_model`` record is printed with the counted bytes beside
+    the modelled ones on each axis. Its crosscheck must note the model's
+    gap on the chosen mesh and nothing else: the trainer sums the
+    gradients over the sequence ranks, and the leaves outside the layer
+    stack over the stage group, and the model (the JAX arithmetic)
+    charges neither axis for those sums; a missing or any other note
+    fails the phase. ``tools/plan``'s tables for the card at 1, 4 and 8 devices,
+    GPT-2 small and medium, are printed. Ranks time-slicing one card
+    measure no multi-GPU speed.
     ``started``: the runs' ``_mesh_ranks_spawn``, when the caller started
     them earlier (the whole script starts them as the pipeline phase's
     runs end, beside that phase's checks)."""
@@ -1800,6 +1831,10 @@ def phase_mesh_ranks(results: dict, tmp: str, started=None) -> dict:
     from tpu_trainer_torch.parallel.sharding import leaf_specs
     from tpu_trainer_torch.training import cli
 
+    from tpu_trainer_torch.parallel import comms_model as comms_lib
+    from tpu_trainer_torch.parallel import planner as planner_lib
+    from tpu_trainer_torch.tools import plan as plan_tool
+
     phase = "mesh-ranks"
     st = started or _mesh_ranks_spawn(tmp)
     t0, steps, rows, runs, args = (st["t0"], st["steps"], st["rows"],
@@ -1808,6 +1843,14 @@ def phase_mesh_ranks(results: dict, tmp: str, started=None) -> dict:
     group_s = time.perf_counter() - t0
     cfg = cli.resolve_configs(cli.build_parser("ddp").parse_args(
         args["one"]), "ddp")[0]
+    card_name = torch.cuda.get_device_name(0)
+    plan, = _jsonl(os.path.join(tmp, "auto.jsonl"), "mesh_plan")
+    chosen = plan["chosen"]
+    meshes = {tag: {"data": 1, "fsdp": 1, "sequence": sp, "tensor": tp,
+                    "expert": 1, "stage": 1}
+              for tag, (_, sp, tp, _) in runs.items() if sp is not None}
+    meshes["tp2pp2_gpipe"]["stage"] = 2
+    meshes["auto"] = chosen["mesh"]
     reading = {tag: _background(lambda tag=tag: _dist_state(os.path.join(
         tmp, f"ck_{tag}", f"step_{steps:08d}"))) for tag in runs}
     ref = reading["one"]()
@@ -1827,13 +1870,32 @@ def phase_mesh_ranks(results: dict, tmp: str, started=None) -> dict:
     shapes = {n: tuple(p.shape)
               for n, p in GPT(cfg, device="meta").named_parameters()}
     full_bytes = 4 * sum(math.prod(sh) for sh in shapes.values())
-    tp_specs = leaf_specs(shapes, "replicated", 1, 2)
-    tp_bytes = 4 * sum(math.prod(sp.tp_shape) for sp in tp_specs.values())
+
+    def rest_bytes(tag):
+        """A rank's parameter bytes at rest on ``tag``'s mesh."""
+        m = meshes[tag]
+        specs = leaf_specs(shapes, "zero3" if runs[tag][3] == "fsdp"
+                           else "replicated", m["fsdp"], m["tensor"],
+                           m["expert"], m["stage"])
+        return 4 * sum(math.prod(sp.shard_shape(sp.param_dim))
+                       for sp in specs.values())
+
+    def want_launches(tag, rank):
+        m = meshes[tag]
+        if m["stage"] > 1:
+            pcfg = cli.resolve_configs(cli.build_parser(runs[tag][3])
+                                       .parse_args(args[tag]),
+                                       runs[tag][3])[0]
+            return _pipe_launches(pcfg, m["stage"], rank % m["stage"], steps,
+                                  tensor=m["tensor"])
+        return _mesh_launches(cfg, rows // (m["data"] * m["fsdp"]), steps, 1,
+                              m["sequence"], m["tensor"])
+
     launches, out = {}, {"group_s": group_s, "card": nvidia_smi_line()}
     faults = []
-    for tag, (world, sp, tp) in runs.items():
-        want = _mesh_launches(cfg, rows, steps, 1, sp, tp)
+    for tag, (world, _, _, _) in runs.items():
         for r in recs[tag]:
+            want = want_launches(tag, r["rank"])
             if r["launches"] != want:
                 raise AssertionError(f"{phase}: {tag} rank {r['rank']} "
                                      f"launches {r['launches']}, want "
@@ -1845,7 +1907,7 @@ def phase_mesh_ranks(results: dict, tmp: str, started=None) -> dict:
                "collectives_per_step": {
                    k: v / steps for k, v in sorted(r0["collectives"].items())},
                "launches": r0["launches"]}
-        want_bytes = tp_bytes if tp > 1 else full_bytes
+        want_bytes = rest_bytes(tag)
         if r0["rest"][0]["params"] != want_bytes:
             raise AssertionError(f"{phase}: {tag}: a rank's parameters at "
                                  f"rest {r0['rest'][0]['params']} bytes, "
@@ -1880,8 +1942,11 @@ def phase_mesh_ranks(results: dict, tmp: str, started=None) -> dict:
                                      f"(relative L2 {ctrl:.3e})")
             res["control_l2"] = ctrl
         out[tag] = res
-        log(phase, f"{tag} ({max(world, 1)} rank(s), sequence {sp} x tensor "
-                   f"{tp}): step ms {[round(x, 1) for x in res['step_ms'][0]]}"
+        m = meshes[tag]
+        log(phase, f"{tag} ({max(world, 1)} rank(s), "
+                   + (" x ".join(f"{ax} {n}" for ax, n in m.items() if n > 1)
+                      or "one process")
+                   + f"): step ms {[round(x, 1) for x in res['step_ms'][0]]}"
                    f" (rank 0), params at rest {res['params_bytes_at_rest'] / 1e6:.1f} MB "
                    f"of {full_bytes / 1e6:.1f} MB, collectives a step "
                    + ", ".join(f"{k} {v:g}" for k, v in
@@ -1890,7 +1955,56 @@ def phase_mesh_ranks(results: dict, tmp: str, started=None) -> dict:
                       f"state worst relative L2 {res['state_worst_l2'][1]:.2e}"
                       f" ({res['state_worst_l2'][0]}), control "
                       f"{res['control_l2']:.2e}" if tag != "one" else ""))
-    log(phase, f"four runs sharing the card in {group_s:.1f} s ({out['card']})")
+    log(phase, f"{len(runs)} runs sharing the card in {group_s:.1f} s "
+               f"({out['card']})")
+    # The auto run: its plan, against tools/plan's for the same options
+    # and card, and its comms model beside the collectives it counted.
+    for line in planner_lib.render_table(plan):
+        log(phase, f"auto | {line}")
+    half = torch.cuda.mem_get_info()[1] / 2 / planner_lib.GiB
+    if abs(plan["hbm_budget_gb"] - half) > 1e-9 * half:
+        faults.append(f"auto planned with {plan['hbm_budget_gb']} GiB, not "
+                      f"its half of the card ({half} GiB)")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = plan_tool.main(["--model", "small", "--devices", "2",
+                             "--batch-size", str(rows // 2), "--strategy",
+                             "zero3", "--device-kind", card_name,
+                             "--hbm_gb", repr(plan["hbm_budget_gb"]),
+                             "--json"])
+    tool = json.loads(buf.getvalue().strip().splitlines()[-1])
+    if rc != 0 or tool["chosen"]["mesh"] != chosen["mesh"]:
+        faults.append(f"auto chose {chosen['mesh']}, tools/plan "
+                      f"{tool['chosen']['mesh']} (rc {rc})")
+    comms, = _jsonl(os.path.join(tmp, "auto.jsonl"), "comms_model")
+    for line in comms_lib.summary_lines(comms):
+        log(phase, f"auto | {line}")
+    for ax, c in comms["collective_counts"].items():
+        log(phase, f"auto | {ax} [{c['size']}]: counted {c['calls']} calls, "
+                   f"{c['bytes'] / 1e6:.3f} MB, modelled "
+                   f"{comms['per_axis'][ax]['bytes'] / 1e6:.3f} MB "
+                   f"({c['kinds']})")
+    for m in comms["collective_mismatches"]:
+        log(phase, f"auto | crosscheck note: {m}")
+    gaps = [ax for ax in ("sequence", "stage") if chosen["mesh"][ax] > 1]
+    notes = comms["collective_mismatches"]
+    if len(notes) != len(gaps) or not all(
+            n.startswith("counted ") and
+            f"of ['all_gather', 'reduce_scatter'] on axis '{ax}'" in n
+            for ax, n in zip(gaps, notes)):
+        faults.append(f"auto's comms crosscheck: notes {notes}, expected "
+                      f"the gradient sums' gap on {gaps} alone")
+    out["auto"].update(plan=plan, tools_plan_mesh=tool["chosen"]["mesh"],
+                       comms_model=comms)
+    # tools/plan's tables for the card (host only).
+    for model in ("small", "medium"):
+        for n in (1, 4, 8):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                plan_tool.main(["--model", model, "--devices", str(n),
+                                "--device-kind", card_name, "--top-k", "3"])
+            for line in buf.getvalue().splitlines():
+                log(phase, f"tools/plan {model} x{n} | {line}")
     if faults:
         raise AssertionError(f"{phase}: " + "; ".join(faults))
     out["launches"] = launches
@@ -7531,15 +7645,23 @@ def _dist_tools(tmp: str):
 PIPE_STATE_L2 = 0.15
 
 
+def _mesh_flag(argv, axis: str) -> int:
+    """The size a CLI argv gives mesh axis ``axis`` (1 when it names
+    none)."""
+    flag = f"--mesh_{axis}"
+    return int(argv[argv.index(flag) + 1]) if flag in argv else 1
+
+
 def _pipe_launches(cfg, stages: int, stage: int, steps: int,
-                   eval_batches: int = 1) -> dict:
+                   eval_batches: int = 1, tensor: int = 1) -> dict:
     """A stage rank's launches over ``steps`` pipelined steps and
     ``eval_batches`` eval batches: a forward of each of its layers a
     microbatch (twice under remat), in training and in each eval batch
     (the forward alone in the schedule's microbatches), the fused
     backward a layer a microbatch; the head + CE kernel on the last
     stage: GPipe's head a step (1F1B's vocabulary slices are plain
-    products) and the eval's whole-batch head."""
+    products) and the eval's whole-batch head, unless a tensor axis
+    (``tensor`` above 1) takes the vocab-sharded head (``_tp_loss``)."""
     from tpu_trainer_torch.ops import flash
     from tpu_trainer_torch.parallel import pipeline as pp
 
@@ -7553,8 +7675,8 @@ def _pipe_launches(cfg, stages: int, stage: int, steps: int,
             "flash_backward": Ls * M * steps if fused else 0,
             "flash_backward_dkv": 0 if fused else Ls * M * steps,
             "flash_backward_dq": 0 if fused else Ls * M * steps,
-            "head_ce": ((steps if gpipe else 0) + eval_batches) if last
-            else 0,
+            "head_ce": ((steps if gpipe else 0) + eval_batches)
+            if last and tensor == 1 else 0,
             "gmm": 0, "tgmm": 0}
 
 
@@ -7572,7 +7694,9 @@ def _pipe_spawn(tmp: str, argv) -> dict:
             "pp_a": (argv("pp_a", a12, 3, 8, 1, "--mesh_stage", "4",
                           *micro), 4, None),
             "pp_w": (argv("pp_w", b4["1f1b"], 3, 8, 1, "--mesh_stage", "2",
-                          *micro), 2, {None: {"window_delta": -1}})}
+                          *micro), 2, {None: {"window_delta": -1}}),
+            "pp_tp": (argv("pp_tp", a12, 3, 8, 1, "--mesh_tensor", "2",
+                           "--mesh_stage", "2", *micro), 4, None)}
     for k, yaml in b4.items():
         runs[f"pp_b_{k}"] = (argv(f"pp_b_{k}", yaml, 3, 8, 1, "--mesh_stage",
                                   "2", *micro), 2, None)
@@ -7602,6 +7726,12 @@ def phase_pipeline(results: dict, tmp: str, started=None, then=None
       final states of 1F1B and interleaved against GPipe's within 2x run
       A's readings against one process (its worst loss rtol and leaf
       L2); each rank's peak memory under GPipe and 1F1B;
+    - run pp_tp, the pipeline under the tensor axis: run A's model and
+      batch at ``--mesh_tensor 2 --mesh_stage 2 --pipeline_microbatches
+      8``, 1F1B, 3 steps, held as run A against one process, every rank's
+      launches the schedule's (no head + CE under tensor); a rank's
+      parameter bytes at rest against one process's, its step ms, and its
+      ``pp_send`` and ``tp_*`` bytes a step;
     - a planted fault: the 1F1B window one below the simulation's (W 2
       where it gives 3 at S 2, M 8): the run must be refused.
 
@@ -7616,8 +7746,9 @@ def phase_pipeline(results: dict, tmp: str, started=None, then=None
     there)."""
     import numpy as np
 
+    from tpu_trainer_torch.models.gpt import GPT
     from tpu_trainer_torch.parallel import pipeline as pp
-    from tpu_trainer_torch.parallel.sharding import fsdp_dim
+    from tpu_trainer_torch.parallel.sharding import fsdp_dim, leaf_specs
     from tpu_trainer_torch.training import cli
 
     t_phase = time.perf_counter()
@@ -7658,7 +7789,9 @@ def phase_pipeline(results: dict, tmp: str, started=None, then=None
                                   "ddp")[0]
         for r in recs[tag]:
             if world:
-                want = _pipe_launches(cfg, world, r["rank"], 3)
+                stages = _mesh_flag(a, "stage")
+                want = _pipe_launches(cfg, stages, r["rank"] % stages, 3,
+                                      tensor=_mesh_flag(a, "tensor"))
             else:
                 want = _micro_launches(cfg, 3, 1, segmented=False)
             if r["launches"] != want:
@@ -7728,6 +7861,46 @@ def phase_pipeline(results: dict, tmp: str, started=None, then=None
                     f"{a['worst_l2']:.3e} at {a['worst_leaf']} (bound "
                     f"{PIPE_STATE_L2}; swapped halves {a['control_l2']:.3e}"
                     f" rejected)")
+    tp = held("run pp_tp (12 layers, tensor 2 x stage 2, 1F1B) vs one "
+              "process", "pp_tp", "pp_one", DIST_LOSS_RTOL, PIPE_STATE_L2)
+    one_bytes = recs["pp_one"][0]["rest"][0]["params"]
+    shapes = {n: tuple(p.shape) for n, p in GPT(cli.resolve_configs(
+        cli.build_parser("ddp").parse_args(spawned["pp_one"][0]), "ddp")[0],
+        device="meta").named_parameters()}
+    specs = leaf_specs(shapes, "replicated", 1, 2, 1, 2)
+    tp_rest = 4 * sum(math.prod(sp.tp_shape) for sp in specs.values())
+    tp["ranks"] = []
+    for r in recs["pp_tp"]:
+        line = rank_line(r)
+        line["params_bytes_at_rest"] = r["rest"][0]["params"]
+        line["tp_bytes"] = [sum(v for k, v in c.items()
+                                if k.startswith("tp_") and k.endswith("_bytes"))
+                            for c in r["step_calls"]]
+        if line["params_bytes_at_rest"] != tp_rest:
+            raise AssertionError(f"pipeline: pp_tp rank {r['rank']}: "
+                                 f"parameters at rest "
+                                 f"{line['params_bytes_at_rest']} bytes, "
+                                 f"want {tp_rest}")
+        tp["ranks"].append(line)
+        log("pipeline", f"run pp_tp rank {r['rank']} (tensor "
+                        f"{r['rank'] // 2}, stage {r['rank'] % 2}): step ms "
+                        f"{[round(x, 1) for x in line['step_ms']]}, params "
+                        f"at rest {line['params_bytes_at_rest'] / 1e6:.1f} "
+                        f"MB of one process's {one_bytes / 1e6:.1f} MB "
+                        f"({line['params_bytes_at_rest'] / one_bytes:.4f}), "
+                        f"pp_send "
+                        f"{[round(x / 1e6, 2) for x in line['pp_send_bytes']]}"
+                        f" MB and tp_* "
+                        f"{[round(x / 1e6, 2) for x in line['tp_bytes']]} MB"
+                        f" a step, receive wait "
+                        f"{[round(x, 3) for x in line['wait_s']]} s, peak "
+                        f"{line['peak_gb']:.2f} GB ({card})")
+    log("pipeline", f"run pp_tp vs one process: losses within rtol "
+                    f"{tp['loss_rtol']:.3e} (bound {DIST_LOSS_RTOL:.0e}), "
+                    f"worst leaf L2 {tp['worst_l2']:.3e} at "
+                    f"{tp['worst_leaf']} (bound {PIPE_STATE_L2}; swapped "
+                    f"halves {tp['control_l2']:.3e} rejected)")
+    out["run_pp_tp"] = tp
     b = {}
     bounds = (2 * a["loss_rtol"], 2 * a["worst_l2"])
     for k in ("1f1b", "interleaved"):

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Mutation checks of the port's hand-written CUDA kernels, its
-collectives, its pipeline and its serving fleet, on the card.
+collectives, its pipeline, its comms model and its serving fleet, on the
+card.
 
 For each named mutation: copy the port (``tpu_trainer_torch/``,
 ``configs/`` and ``chip_smoke.py``) into a temporary directory, plant one
@@ -76,6 +77,15 @@ out of step hang instead of failing):
 - ``tp_read_block_shard0``: a sharded replica's ``read_block`` returns
   shard 0's kv heads alone; phase ``tp_decode`` must fail (its blocks'
   ``KVB1`` frames against one device's).
+- ``pp_tp_head_stats_stage_only``: under tensor x stage the 1F1B head
+  sums its softmax statistics (the max, the log-sum and the label logit)
+  over the stage group only, leaving out the other tensor ranks' vocabulary
+  slices; phase ``pipeline`` must fail (run pp_tp against one process).
+- ``comms_crosscheck_drops_kind``: the comms model's crosscheck maps no
+  counter kind to the sequence axis, so the ring's permutes go uncounted;
+  phase ``mesh_ranks`` must fail (the ``--mesh auto`` run, whose plan is
+  a sequence split on the card, must show the model's one gap there, the
+  gradient sums over the sequence ranks, and no other crosscheck note).
 
 Needs one CUDA GPU and nvcc; writes nothing into the checkout. Run from the
 repository root: ``python3 scripts/torch_kernel_mutations.py [name ...]``.
@@ -195,6 +205,16 @@ MUTATIONS = {
         "torch.cat([p[:, block_id].cpu() for p in parts], dim=2)",
         "torch.cat([p[:, block_id].cpu() for p in parts[:1]], dim=2)",
         "tp_decode"),
+    "pp_tp_head_stats_stage_only": (
+        "tpu_trainer_torch/models/gpt.py",
+        "e_slice, x32, shifted, vocab=V, coll=group,",
+        "e_slice, x32, shifted, vocab=V, coll=self.mesh.stage,",
+        "pipeline"),
+    "comms_crosscheck_drops_kind": (
+        "tpu_trainer_torch/parallel/comms_model.py",
+        '"sequence": ("ring_permute",),',
+        '"sequence": (),',
+        "mesh_ranks"),
 }
 
 

@@ -75,7 +75,12 @@ def test_import_leaves_jax_out_of_sys_modules():
                 "tpu_trainer_torch.serving.remote",
                 "tpu_trainer_torch.serving.worker",
                 "tpu_trainer_torch.serving.tracing",
-                "tpu_trainer_torch.serving.sharding"):
+                "tpu_trainer_torch.serving.sharding",
+                "tpu_trainer_torch.parallel.comms_model",
+                "tpu_trainer_torch.parallel.planner",
+                "tpu_trainer_torch.tools.plan",
+                "tpu_trainer_torch.data.tinystories",
+                "tpu_trainer_torch.data.openwebtext"):
         assert mod in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 

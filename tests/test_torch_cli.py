@@ -265,7 +265,8 @@ def test_nan_loss_rolls_back_once(tmp_path, yaml_file, monkeypatch):
         "FloatingPointError"
     # Steps 0-5 on batches 0-5, then steps 4-7 on batches 6-9: the
     # diverging batch 5 is not replayed.
-    from tpu_trainer_torch.data.text import create_tinystories_dataloader
+    from tpu_trainer_torch.data.tinystories import (
+        create_tinystories_dataloader)
     data = list(create_tinystories_dataloader(
         str(tmp_path / "stories.txt"), 4, 32, tokenizer_name="byte",
         eval_split=0.02, prefetch=0))
@@ -308,16 +309,25 @@ def test_sigterm_saves_and_exits_143(tmp_path, yaml_file, monkeypatch):
     assert ckpt.load_meta(path)["data_state"]["batch_index"] == 3
 
 
-# -- options of later ROADMAP items ----------------------------------------------
+# -- the mesh options -----------------------------------------------------------
 
-_PLANNER = (NotImplementedError, "Queue 1: the planner")
 # The pipeline runs: at one process a 2-way stage axis beside the
 # default data=-1 is the JAX world-size error.
 _STAGE = (SystemExit, "1 devices not divisible by fixed axes product 2")
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--mesh", "auto"], _PLANNER),
+    # The planner picks every axis: an explicit split beside it is the
+    # JAX CLI's error.
+    (["--mesh", "auto", "--mesh_tensor", "2"],
+     (SystemExit, "--mesh auto and explicit --mesh_tensor are mutually "
+                  "exclusive")),
+    (["--mesh", "auto", "--mesh_data", "1"],
+     (SystemExit, "--mesh auto and explicit --mesh_data are mutually "
+                  "exclusive")),
+    (["--mesh", "auto", "--mesh_stage", "2", "--mesh_fsdp", "2"],
+     (SystemExit, "--mesh auto and explicit --mesh_fsdp/--mesh_stage are "
+                  "mutually exclusive")),
     # Tensor and sequence parallelism run; at one process a 2-way axis
     # beside the default data=-1 is the JAX world-size error.
     (["--mesh_tensor", "2"],
@@ -326,7 +336,6 @@ _STAGE = (SystemExit, "1 devices not divisible by fixed axes product 2")
     # world-size error.
     (["--mesh_data", "4"], (SystemExit, "wants 4 devices but 1 are")),
     (["--multihost"], (RuntimeError, "--multihost needs a rendezvous")),
-    (["--hbm_gb", "40"], _PLANNER),
     (["--mesh_stage", "2", "--pipeline_microbatches", "2"], _STAGE),
     (["--mesh_fsdp", "2"],
      (SystemExit, "1 devices not divisible by fixed axes product 2")),
@@ -339,12 +348,79 @@ _STAGE = (SystemExit, "1 devices not divisible by fixed axes product 2")
     (["--mesh_expert", "2"],
      (SystemExit, "1 devices not divisible by fixed axes product 2")),
     (["--mesh_stage", "2"], _STAGE),
-    (["--no_comms_model"], _PLANNER),
 ])
 def test_later_item_options_raise(extra, item):
     exc, match = item
     with pytest.raises(exc, match=match):
         cli.run_training(["--device", "cpu", "--max_steps", "1"] + extra)
+
+
+@pytest.mark.parametrize("axes,world", [
+    ({"mesh_tensor": 3}, 3), ({"mesh_stage": 3}, 3),
+    ({"mesh_sequence": 2, "mesh_data": 1}, 2)])
+def test_infeasible_explicit_split_is_the_jax_error(yaml_file, axes, world):
+    """An explicit split the model cannot take fails before the trainer
+    is built, with the JAX CLI's message (its planner's
+    ``feasibility_error``): 2 heads at tensor 3, 1 layer at stage 3, 15
+    positions over 2 sequence ranks."""
+    pytest.importorskip("jax", reason="the JAX reference is not installed")
+    from tpu_trainer.parallel import planner as jplanner
+    from tpu_trainer.training import cli as jcli
+
+    argv = ["--config", yaml_file(TINY_YAML.replace("max_seq_len: 32",
+                                                    "max_seq_len: 15"))]
+    for k, v in axes.items():
+        argv += [f"--{k}", str(v)]
+    mc, tc, pc, opts = cli.resolve_configs(cli.build_parser().parse_args(
+        argv))
+    jm, jt, jp, _ = jcli.resolve_configs(jcli.build_parser("ddp").parse_args(
+        argv), "ddp")
+    sizes = dict(zip(("data", "fsdp", "sequence", "tensor", "expert",
+                      "stage"), jp.mesh.resolve(world)))
+    err = jplanner.feasibility_error(
+        sizes, jm, n_devices=world,
+        global_rows=jt.batch_size * sizes["data"] * sizes["fsdp"],
+        max_seq_len=jt.max_seq_len)
+    assert err
+    with pytest.raises(SystemExit) as got:
+        cli.plan_mesh(mc, tc, pc, opts, world, "cpu")
+    assert str(got.value).startswith(
+        f"mesh: infeasible split {tuple(sizes.values())} "
+        f"(dataxfsdpxsequencextensorxexpertxstage): {err} — ")
+
+
+def _kinds(path):
+    return [r.get("kind") for r in map(json.loads, open(path))]
+
+
+@pytest.mark.parametrize("extra,plan,comms", [
+    (["--mesh", "auto"], True, True),
+    (["--mesh", "auto", "--hbm_gb", "40"], True, True),
+    (["--no_comms_model"], False, False),
+])
+def test_planner_options_run(tmp_path, yaml_file, extra, plan, comms):
+    """``--mesh auto`` trains a step at one process on the one mesh there
+    is and logs its ``mesh_plan`` record (``--hbm_gb`` its budget); the
+    first step writes the ``comms_model`` record unless
+    ``--no_comms_model``."""
+    jsonl = tmp_path / "m.jsonl"
+    assert cli.run_training(
+        ["--device", "cpu", "--config", yaml_file(TINY_YAML),
+         "--max_steps", "1", "--log_interval", "1",
+         "--checkpoint_dir", str(tmp_path / "ck"),
+         "--metrics_jsonl", str(jsonl)] + extra) == 0
+    kinds = _kinds(jsonl)
+    assert ("mesh_plan" in kinds) == plan
+    assert ("comms_model" in kinds) == comms
+    assert "train" in kinds
+    if plan:
+        rec, = [r for r in map(json.loads, open(jsonl))
+                if r.get("kind") == "mesh_plan"]
+        assert rec["auto"] is True and rec["devices"] == 1
+        assert rec["chosen"]["mesh"] == dict.fromkeys(
+            ("data", "fsdp", "sequence", "tensor", "expert", "stage"), 1)
+        assert rec["hbm_budget_gb"] == (40.0 if "--hbm_gb" in extra
+                                        else None)
 
 
 def test_pipeline_microbatches_at_one_process(tmp_path, yaml_file):
@@ -417,19 +493,20 @@ def test_standby_file_raises_naming_item_5(monkeypatch, tmp_path, yaml_file,
     ["--preemption_grace_s", "5"],
 ])
 def test_fault_tolerance_and_telemetry_options_are_supported(extra):
-    """The options ROADMAP Queue 1 item 4 brought pass ``check_supported``
-    (runs of them are in ``test_torch_faults.py`` and its neighbours)."""
+    """The fault-tolerance and telemetry options resolve and their run's
+    mesh plans at one process (runs of them are in ``test_torch_faults.py``
+    and its neighbours)."""
     args = cli.build_parser().parse_args(["--device", "cpu"] + extra)
-    mc, _, pc, opts = cli.resolve_configs(args)
-    cli.check_supported(args, mc, pc, opts)
+    mc, tc, pc, opts = cli.resolve_configs(args)
+    assert cli.plan_mesh(mc, tc, pc, opts, 1, "cpu") == (tc, pc, None)
 
 
 def test_heartbeat_and_notice_env_are_supported(monkeypatch, tmp_path):
     monkeypatch.setenv("TPU_TRAINER_HEARTBEAT_DIR", str(tmp_path / "hb"))
     monkeypatch.setenv("TPU_TRAINER_PREEMPT_NOTICE", "file:notice")
     args = cli.build_parser().parse_args(["--device", "cpu"])
-    mc, _, pc, opts = cli.resolve_configs(args)
-    cli.check_supported(args, mc, pc, opts)
+    mc, tc, pc, opts = cli.resolve_configs(args)
+    assert cli.plan_mesh(mc, tc, pc, opts, 1, "cpu") == (tc, pc, None)
 
 
 def test_train_fsdp_mode_and_missing_cuda_raise():
@@ -535,12 +612,13 @@ def test_fsdp_resolve_configs_matches_jax(path):
 @pytest.mark.parametrize("name,mode", [
     ("medium_model.yaml", "fsdp"), ("large_1b_single_chip.yaml", "ddp")])
 def test_remat_and_narrow_state_configs_are_supported(name, mode):
-    """The two configs of remat and narrow moments pass the support check
-    and build a trainer (meta parameters: nothing allocated)."""
+    """The two configs of remat and narrow moments pass the mesh check at
+    one process and build a trainer (meta parameters: nothing
+    allocated)."""
     argv = ["--config", os.path.join(ROOT, "configs", name)]
     args = cli.build_parser(mode).parse_args(argv)
     model, train, par, data = cli.resolve_configs(args, mode)
-    cli.check_supported(args, model, par, data)
+    assert cli.plan_mesh(model, train, par, data, 1, "cpu")[2] is None
     assert model.gradient_checkpointing
     trainer = Trainer(model, train, par, device="cpu")
     assert trainer.optimizer.state_dtype == train.optimizer_state_dtype

@@ -18,8 +18,8 @@ from tpu_trainer_torch.data import text as ttext
 from tpu_trainer_torch.data.device_prefetch import DevicePrefetcher
 from tpu_trainer_torch.data.packing import PackedDataLoader
 from tpu_trainer_torch.data.prefetch import Prefetcher
-from tpu_trainer_torch.data.text import (create_openwebtext_dataloader,
-                                         create_tinystories_dataloader)
+from tpu_trainer_torch.data.openwebtext import create_openwebtext_dataloader
+from tpu_trainer_torch.data.tinystories import create_tinystories_dataloader
 from tpu_trainer_torch.utils.tokenizer import ByteTokenizer, get_tokenizer
 
 SEQ = 32
@@ -142,6 +142,39 @@ def test_map_style_batches_and_eval_split_match_jax(jx, corpus, path,
     for _ in range(2):                       # two epochs
         _assert_batches_equal(_drain(ours), _drain(theirs))
         assert ours.state_dict() == theirs.state_dict()
+    _assert_batches_equal(_drain(ours.eval_loader),
+                          _drain(theirs.eval_loader))
+
+
+@pytest.mark.parametrize("name", ["tinystories", "openwebtext"])
+@pytest.mark.parametrize("streaming", [False, True])
+def test_dataset_factories_match_jax(jx, corpus, name, streaming):
+    """``data/tinystories.py`` and ``data/openwebtext.py``: the JAX
+    factories' signatures, and their batches, cursors and held-out eval
+    batches bitwise on the seeded corpus (map-style: the eval tail split;
+    streaming: the every-N-th-line holdout, through the gz file)."""
+    import inspect
+
+    ours_fn = {"tinystories": create_tinystories_dataloader,
+               "openwebtext": create_openwebtext_dataloader}[name]
+    theirs_fn = {"tinystories": jx.ts, "openwebtext": jx.owt}[name]
+    def params(fn):
+        """The positional parameters in order, the keyword-only ones by
+        name (their order does not change a call)."""
+        ps = inspect.signature(fn).parameters.values()
+        return ([(p.name, p.kind, p.default) for p in ps
+                 if p.kind != p.KEYWORD_ONLY],
+                {p.name: p.default for p in ps if p.kind == p.KEYWORD_ONLY})
+    assert params(ours_fn) == params(theirs_fn)
+    path = corpus.gz if name == "openwebtext" else corpus.txt
+    kw = dict(tokenizer_name="byte", seed=4, streaming=streaming,
+              process_index=1, process_count=2, prefetch=0,
+              **({"eval_holdout_every": 3} if streaming
+                 else {"eval_split": 0.1}))
+    ours = ours_fn(path, 2, SEQ, **kw)
+    theirs = theirs_fn(path, 2, SEQ, **kw)
+    _assert_batches_equal(_drain(ours), _drain(theirs))
+    assert ours.state_dict() == theirs.state_dict()
     _assert_batches_equal(_drain(ours.eval_loader),
                           _drain(theirs.eval_loader))
 

@@ -304,7 +304,8 @@ def world2(tmp_path_factory):
         {"name": "errors", "kind": "errors",
          "cases": {**{n: {"strategy": "replicated", "train": TRAIN, **c}
                       for n, c in _ERRORS.items()},
-                   # The CLI on a dense yaml: the trainer's ValueError.
+                   # The CLI on a dense yaml: the JAX CLI's mesh check
+                   # refuses the split before the trainer is built.
                    "cli_dense": {"argv": _cli_argv(
                        tmp, "dense", "--num_experts", "0",
                        "--mesh_expert", "2")}}},
@@ -689,7 +690,9 @@ def test_infer_tensor2_moe_equals_one_process(world2):
      "num_experts 3 not divisible by expert axis size 2"),
     ("stage", "ValueError",
      "num_layers 3 not divisible by stage axis size 2"),
-    ("cli_dense", "ValueError", "expert mesh axis > 1 requires a MoE model"),
+    ("cli_dense", "SystemExit",
+     "mesh: infeasible split (1, 1, 1, 1, 2, 1) (dataxfsdpxsequencextensorx"
+     "expertxstage): expert mesh axis > 1 requires a MoE model"),
 ])
 def test_refusals(world2, case, exc, match):
     for rank in world2["errors"]:

@@ -31,19 +31,6 @@ def test_mesh_resolve_matches_jax(axes, n):
     assert outcome(tmesh.MeshConfig(**axes)) == outcome(JMesh(**axes))
 
 
-def test_unported_axes_raise_naming_their_entry():
-    tmesh.check_ported((2, 2, 1, 1, 1, 1))
-    # The sequence ring, tensor and expert parallelism run.
-    tmesh.check_ported((1, 2, 2, 2, 1, 1))
-    tmesh.check_ported((1, 1, 1, 1, 2, 1))
-    tmesh.check_ported((2, 1, 1, 1, 4, 1))
-    # And the pipeline's stage axis: no axis is left unported.
-    sizes = tuple(2 if ax == "stage" else 1 for ax in tmesh.MESH_AXES)
-    tmesh.check_ported(sizes)
-    tmesh.check_ported((2, 2, 2, 1, 2, 4))
-    assert tmesh.UNPORTED_AXES == {}
-
-
 def _feed(axes, n_proc, pidx, rows=16):
     from tpu_trainer.parallel.mesh import MeshConfig as JMesh
 

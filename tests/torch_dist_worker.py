@@ -62,7 +62,7 @@ numpy arrays and scalars) for the test to compare. Jobs:
   "parallel", "forward", "step", "window_delta"}}``, ``step``: one train
   step of a dummy batch, ``window_delta``: the pipeline's simulated
   window changed by that much, a planted fault; or ``{name: {"argv"}}``
-  for ``run_training``);
+  for ``run_training``, whose mesh refusals are ``SystemExit``s);
 - ``cli``: ``training.cli.run_training(argv)`` in this process (the group
   is the worker's) for each argv of ``runs``, optionally removing a step
   directory first (``remove``), and ``eval.infer.main`` for each of
@@ -522,7 +522,7 @@ def errors(job) -> dict:
                     tr.model(ids[:, :ids.shape[1] // tr.mesh_sizes[2]],
                              segment_ids=torch.ones_like(ids))
             out[name] = ("ok", tr.model_config.fused_projections)
-        except Exception as e:  # noqa: BLE001 - the message is the result
+        except (Exception, SystemExit) as e:  # noqa: BLE001 - the result
             out[name] = (type(e).__name__, str(e))
     return out
 

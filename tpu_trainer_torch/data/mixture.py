@@ -11,9 +11,10 @@ normalized weights. The choice sequence is a pure function of ``(seed, i)``
 - **Exact resume**: the cursor is just ``batch_index`` plus
   each source's own cursor; replaying from it regenerates the identical
   batch sequence.
-- **Elastic remap** (multi-process, not ported yet): ``utils/checkpoint.remap_data_state``
-  floor-divides the top-level ``batch_index`` onto a resized global batch;
-  the per-source cursors are then *re-derived* from it (the number of draws
+- **Elastic remap** (multi-process: ``training/cli.py`` on a restart,
+  ``training/elastic.py`` across a resized world):
+  ``utils/checkpoint.remap_data_state`` floor-divides the top-level
+  ``batch_index`` onto a resized global batch; the per-source cursors are then *re-derived* from it (the number of draws
   source ``s`` received in steps ``[0, n)`` is itself a pure function of
   ``(seed, weights, n)`` — ``source_counts``), rather than trusted from the
   checkpoint, so a remapped top index never leaves a source cursor

@@ -627,10 +627,3 @@ def create_text_dataloader(
                             **ranks)
     loader.eval_loader = eval_loader
     return loader
-
-
-# The JAX package's two dataset factories (``data/tinystories.py:16``,
-# ``data/openwebtext.py:18``) only forward every argument to the factory
-# above, so here they are the same function under their names.
-create_tinystories_dataloader = create_text_dataloader
-create_openwebtext_dataloader = create_text_dataloader

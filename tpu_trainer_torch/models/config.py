@@ -103,7 +103,8 @@ class GPTConfig:
     # Chunked-prefill history width of THIS dispatch, in blocks (0 = the
     # offset-0 whole-prompt path). Set per dispatch, never a user knob.
     paged_hist_blocks: int = 0
-    # Tensor-parallel decode: not ported yet (> 1 raises).
+    # Tensor-parallel decode: the shards a replica's heads are cut into
+    # and their devices (serving/sharding.py).
     paged_tp: int = 1
     paged_tp_devices: Optional[Tuple[int, ...]] = None
 

@@ -620,10 +620,7 @@ class GPT(nn.Module):
             telemetry.record("final_norm", telemetry.site_stats(x))
 
         def attend(h):
-            # Under tensor: the row-parallel head, summed over the group.
-            h = coll_lib.slice_to_tensor(h, tp)
-            return coll_lib.reduce_from_tensor(
-                h.to(cd) @ coll_lib.derive(lambda e: e.to(cd), [emb]).T, tp)
+            return _tied_logits(h, emb, tp, cd)
 
         if telemetry.capturing(deep=True):
             # The full f32 logits, nan-scan only: without this site a NaN
@@ -739,6 +736,10 @@ class GPT(nn.Module):
                             loss_scale=loss_scale)
         head, aux, grads, stats = pp.execute(sched, mesh.stage, mesh.pp_rank,
                                              hooks, backward=backward)
+        if backward:
+            grads = [a if b is None else b.float() if a is None
+                     else a.add_(b.float())
+                     for a, b in zip(grads, hooks.finish())]
         last = mesh.pp_rank == sched.stages - 1
         dev = input_ids.device
         zero = torch.zeros((), dtype=torch.float32, device=dev)
@@ -1108,6 +1109,13 @@ class _StageHooks:
     last stage; 1F1B: this rank's vocabulary slice of a microbatch's head
     over the stage group).
 
+    Under a tensor axis the blocks run as ``_train_forward``'s (the step's
+    tensor group), stage 0's lookup is gathered over the tensor group,
+    GPipe's head is the vocab-sharded ``_tp_loss``, and the 1F1B head
+    cuts the tensor all-to-all's vocabulary slice (made once a step,
+    ``_tensor_vocab``) again over the stage group: its statistics and the
+    f32 cotangent of its input are summed over the tensor x stage ranks.
+
     Dropout: one seed a step is drawn from ``generator``, and each block's
     generator is seeded by ``fold_seed(fold_seed(seed, global layer),
     microbatch)``, so every schedule draws the same masks for a (layer,
@@ -1157,6 +1165,12 @@ class _StageHooks:
         # The targets of the rank's whole batch (its rows' global shift):
         # a microbatch's 1F1B head loss is its share of the batch mean.
         self.denom = float(b * (s * sp - 1))
+        # Under tensor, the 1F1B head's tensor vocabulary slice: made on
+        # the first head, its gradient summed over the step's heads and
+        # taken back through the all-to-all once (``finish``).
+        self._tv = None
+        self._tv_leaf = None
+        self._tv_grad = None
 
     def act(self, m: int):
         return ((len(self.rows[m]), self.s, self.model.config.hidden_size),
@@ -1174,7 +1188,8 @@ class _StageHooks:
         with self._scope():
             if x is None:
                 emb = model._leaf("embed_tokens.embedding")
-                x = emb[self.ids[m]].to(cfg.compute_dtype)
+                x = coll_lib.gather_from_tensor(
+                    emb[self.ids[m]].to(cfg.compute_dtype), self.step.tensor)
                 if telemetry.capturing() and self.rows[m]:
                     telemetry.record_rows("embed_out",
                                           telemetry.site_stats(x),
@@ -1217,45 +1232,77 @@ class _StageHooks:
             emb = model._leaf("embed_tokens.embedding")
             x = _rms_norm(x, model._leaf("norm.weight"), model.norm.eps,
                           model.norm.dtype)
+            tp, cd = self.step.tensor, cfg.compute_dtype
             if telemetry.capturing():
                 telemetry.record("final_norm", telemetry.site_stats(x))
                 if telemetry.capturing(deep=True):
                     with torch.no_grad():
-                        cd = cfg.compute_dtype
                         telemetry.record("logits", telemetry.site_stats(
-                            (x.to(cd) @ emb.to(cd).T).float()))
+                            _tied_logits(x, emb, tp, cd).float()))
             seq = self.step.seq
             seq_shard = (None if seq is None
                          else (seq[0] * self.s, self.s * seq[1]))
             if cfg.fused_loss:
                 return fused_shifted_cross_entropy(
                     emb, x, labels, chunk_size=cfg.loss_chunk_size,
-                    allow_pallas=cfg.fused_loss_pallas, seq_shard=seq_shard)
-            cd = cfg.compute_dtype
-            logits = (x.to(cd) @ emb.to(cd).T).float()
+                    allow_pallas=cfg.fused_loss_pallas, tensor=tp,
+                    seq_shard=seq_shard)
+            logits = _tied_logits(x, emb, tp, cd).float()
             return _shifted_loss(logits, labels, None, seq_shard)
+
+    def _tensor_vocab(self):
+        """Under tensor, the leaf standing for this rank's ``[ceil(V /
+        ts), H]`` vocabulary slice of the tied embedding in the compute
+        dtype (``_tp_loss``'s tiled all-to-all, run on the step's first
+        head)."""
+        if self._tv is None:
+            emb = self.model._leaf("embed_tokens.embedding")
+            ts = self.step.tensor.world
+            vt = -(-emb.shape[0] // ts)
+            e_pad = F.pad(emb.to(self.model.config.compute_dtype),
+                          (0, 0, 0, vt * ts - emb.shape[0]))
+            self._tv = coll_lib.tensor_all_to_all(e_pad, self.step.tensor)
+            self._tv_leaf = self._tv.detach().requires_grad_(True)
+        return self._tv_leaf
 
     def head_micro(self, y, m: int, last: bool):
         """This rank's vocabulary slice of microbatch ``m``'s head (the JAX
         ``head_vjp``) on the broadcast last-stage output ``y``: rows ``[r
         vs, (r + 1) vs)`` of the tied embedding, the loss the microbatch's
-        share of the batch mean. The slice's cotangent of the normed input
-        stays f32 until its sum over the stage group, then rounds once to
-        the compute dtype, as one process's head rounds it; the last stage
-        (``last``) takes it through the final norm. Returns ``(loss, dy
-        on the last stage else None, gradients of the leaves)``."""
+        share of the batch mean; under tensor, slice ``r`` of the tensor
+        all-to-all's vocabulary slice, the statistics over the tensor x
+        stage ranks. The slice's cotangent of the normed input stays f32
+        until its sum over the stage (tensor x stage) group, then rounds
+        once to the compute dtype, as one process's head rounds it; the
+        last stage (``last``) takes it through the final norm. Returns
+        ``(loss, dy on the last stage else None, gradients of the
+        leaves)``."""
         from tpu_trainer_torch.ops.loss import (
-            _shift, vocab_sharded_shifted_cross_entropy)
+            _shift, vocab_cut, vocab_sharded_shifted_cross_entropy)
 
         model = self.model
         cfg = model.config
         S, r = self.sched.stages, self.mesh.pp_rank
+        tp = self.step.tensor
         y = y.detach().requires_grad_(last)
         with self._scope():
-            emb = model._leaf("embed_tokens.embedding")
-            V = emb.shape[0]
-            vs = -(-V // S)
-            e_slice = F.pad(emb, (0, 0, 0, vs * S - V))[r * vs:(r + 1) * vs]
+            V = model.config.vocab_size
+            if tp is None:
+                emb = model._leaf("embed_tokens.embedding")
+                vs = -(-V // S)
+                e_slice = F.pad(emb, (0, 0, 0, vs * S - V))[
+                    r * vs:(r + 1) * vs]
+                group, cut = self.mesh.stage, vocab_cut(V, S, r)
+            else:
+                tv = self._tensor_vocab()
+                vt = tv.shape[0]
+                vs = -(-vt // S)
+                e_slice = F.pad(tv, (0, 0, 0, vs * S - vt))[
+                    r * vs:(r + 1) * vs]
+                lo, n = vocab_cut(vt, S, r)
+                off = tp.rank * vt + lo
+                group = self.mesh.tensor_stage
+                cut = (off, max(0, min(n, V - off)))
             xn = _rms_norm(y, model._leaf("norm.weight"), model.norm.eps,
                            model.norm.dtype)
             x32 = xn.detach().float().requires_grad_(True)
@@ -1267,15 +1314,21 @@ class _StageHooks:
                     self.labels[m], self.s, (seq[0] * self.s,
                                              self.s * seq[1]), y.device)
             loss = vocab_sharded_shifted_cross_entropy(
-                e_slice, x32, shifted, vocab=V, coll=self.mesh.stage,
+                e_slice, x32, shifted, vocab=V, coll=group,
                 chunk_size=cfg.loss_chunk_size, mask=mask,
                 denom=self.denom, prefix="pp",
-                compute_dtype=cfg.compute_dtype)
-        gs = torch.autograd.grad(loss * self.loss_scale,
-                                 [x32] + self.leaves, allow_unused=True)
-        dxn = self.mesh.stage.all_reduce_sum(gs[0].contiguous(),
-                                             kind="pp_allreduce")
-        grads, dy = list(gs[1:]), None
+                compute_dtype=cfg.compute_dtype, cut=cut)
+        wrt = [x32] + ([] if tp is None else [self._tv_leaf]) + self.leaves
+        gs = list(torch.autograd.grad(loss * self.loss_scale, wrt,
+                                      allow_unused=True))
+        dxn = group.all_reduce_sum(gs.pop(0).contiguous(),
+                                   kind="pp_allreduce")
+        if tp is not None:
+            # Summed over the step's microbatches in f32, rounded once.
+            g = gs.pop(0).float()
+            self._tv_grad = (g if self._tv_grad is None
+                             else self._tv_grad.add_(g))
+        grads, dy = gs, None
         if last:
             g2 = torch.autograd.grad(xn, [y] + self.leaves,
                                      dxn.to(xn.dtype), allow_unused=True)
@@ -1283,6 +1336,25 @@ class _StageHooks:
             grads = [b if a is None else a if b is None else a + b
                      for a, b in zip(grads, g2[1:])]
         return loss.detach(), dy, grads
+
+    def finish(self) -> list:
+        """The leaves' gradients still owed after the schedule ran (the
+        1F1B head's tensor vocabulary slice, taken back through the
+        all-to-all once), None entries where none is owed."""
+        if self._tv_grad is None:
+            return [None] * len(self.leaves)
+        return list(torch.autograd.grad(self._tv, self.leaves,
+                                        self._tv_grad.to(self._tv.dtype),
+                                        allow_unused=True))
+
+
+def _tied_logits(h, emb, tp, cd):
+    """The tied head's logits ``h @ emb.T`` in the compute dtype ``cd``;
+    under the tensor group ``tp`` the row-parallel product of the rank's
+    hidden slices, summed over the group."""
+    h = coll_lib.slice_to_tensor(h, tp)
+    return coll_lib.reduce_from_tensor(
+        h.to(cd) @ coll_lib.derive(lambda e: e.to(cd), [emb]).T, tp)
 
 
 def _tensor_group(mesh):

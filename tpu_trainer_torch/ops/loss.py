@@ -139,11 +139,17 @@ def _pallas_head_ok(x: torch.Tensor, chunk_size: int,
     return x.device.type == "cuda"
 
 
-def _vshard_cols(vs: int, vocab: int, rank: int, device):
-    """A vocab slice's global column offset and its valid columns (the
-    last slice may overhang a vocab that does not divide)."""
-    off = rank * vs
-    return off, (off + torch.arange(vs, device=device)) < vocab
+def _vshard_cols(vs: int, cut: Tuple[int, int], device):
+    """A vocab slice's valid columns: the first ``cut[1]`` of its ``vs``
+    (a slice may overhang a vocab that does not divide)."""
+    return torch.arange(vs, device=device) < cut[1]
+
+
+def vocab_cut(vocab: int, ranks: int, rank: int) -> Tuple[int, int]:
+    """``(global column offset, valid columns)`` of slice ``rank`` of
+    ``ranks`` equal slices of ``ceil(vocab / ranks)`` rows."""
+    vs = -(-vocab // ranks)
+    return rank * vs, max(0, min(vs, vocab - rank * vs))
 
 
 _NEG = -1e30   # -inf without the inf - inf hazard
@@ -158,12 +164,12 @@ class _ChunkedCEVShard(torch.autograd.Function):
     ``copy_to_tensor``)."""
 
     @staticmethod
-    def forward(ctx, e_slice, x, labels, mask, chunk, coll, vocab, denom,
+    def forward(ctx, e_slice, x, labels, mask, chunk, coll, cut, denom,
                 prefix, cdtype):
         b, s, _ = x.shape
         vs = e_slice.shape[0]
         e32 = e_slice.to(cdtype).float()
-        off, col_ok = _vshard_cols(vs, vocab, coll.rank, x.device)
+        off, col_ok = cut[0], _vshard_cols(vs, cut, x.device)
         total = torch.zeros((), dtype=torch.float32, device=x.device)
         lses = []
         for c0 in range(0, s, chunk):
@@ -172,7 +178,7 @@ class _ChunkedCEVShard(torch.autograd.Function):
             m = coll.all_reduce_max(lg.amax(dim=-1), kind=f"{prefix}_max")
             se = torch.exp(lg - m[..., None]).sum(dim=-1)
             lcol = labels[:, c0:c0 + chunk].long() - off
-            inside = (lcol >= 0) & (lcol < vs)
+            inside = (lcol >= 0) & (lcol < cut[1])
             ll = torch.where(inside, lg.gather(
                 -1, lcol.clamp(0, vs - 1)[..., None])[..., 0], 0.0)
             se, ll = coll.all_reduce_sum(torch.stack([se, ll]),
@@ -181,17 +187,17 @@ class _ChunkedCEVShard(torch.autograd.Function):
             total = total + ((lse - ll) * mask[:, c0:c0 + chunk]).sum()
             lses.append(lse)
         ctx.save_for_backward(e_slice, x, labels, mask, torch.cat(lses, 1))
-        ctx.opts = (chunk, coll.rank, vocab, denom, cdtype)
+        ctx.opts = (chunk, cut, denom, cdtype)
         return total / denom
 
     @staticmethod
     def backward(ctx, g):
         e_slice, x, labels, mask, lse = ctx.saved_tensors
-        chunk, rank, vocab, denom, cdtype = ctx.opts
+        chunk, cut, denom, cdtype = ctx.opts
         b, s, h = x.shape
         vs = e_slice.shape[0]
         e32 = e_slice.to(cdtype).float()
-        off, col_ok = _vshard_cols(vs, vocab, rank, x.device)
+        off, col_ok = cut[0], _vshard_cols(vs, cut, x.device)
         scale = g / denom
         de = torch.zeros((vs, h), dtype=torch.float32, device=x.device)
         dx = torch.empty_like(x)
@@ -201,7 +207,7 @@ class _ChunkedCEVShard(torch.autograd.Function):
             lg = torch.where(col_ok, xc @ e32.T, _NEG)
             p = torch.exp(lg - lse[:, sl, None])
             lcol = labels[:, sl].long() - off
-            inside = (lcol >= 0) & (lcol < vs)
+            inside = (lcol >= 0) & (lcol < cut[1])
             p.scatter_add_(-1, lcol.clamp(0, vs - 1)[..., None],
                            -inside[..., None].float())
             dlg = (p * (mask[:, sl] * scale)[..., None]).to(cdtype).float()
@@ -216,17 +222,22 @@ def vocab_sharded_shifted_cross_entropy(
         vocab: int, coll, chunk_size: int = 0,
         mask: Optional[torch.Tensor] = None,
         denom=None, prefix: str = "tp",
-        compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        compute_dtype: Optional[torch.dtype] = None,
+        cut: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """``fused_shifted_cross_entropy`` with the head sharded over the
-    group ``coll`` (the tensor group, or the stage group of the 1F1B
-    head): this rank holds rows ``[r * vs, (r + 1) * vs)`` of the
-    embedding (``vs = e_slice.shape[0]``, zero rows past ``vocab``).
+    group ``coll`` (the tensor group; the stage group of the 1F1B head, or
+    under tensor its tensor x stage group): this rank holds rows ``[r *
+    vs, (r + 1) * vs)`` of the embedding (``vs = e_slice.shape[0]``, zero
+    rows past ``vocab``), or where ``cut`` is given the rows ``[cut[0],
+    cut[0] + cut[1])`` in its first ``cut[1]`` rows (the rest padding,
+    which no label matches: under tensor x stage a padding row sits
+    inside the vocabulary, where the next tensor slice begins).
     ``labels [b, s]`` unshifted (``mask`` given: already shifted, with
     ``mask`` the targets kept); the loss comes back the same on every rank
     of the group, ``x``'s gradient is this rank's part (``_tp_loss`` sums
     it). ``denom``: the mean's count (default the kept targets, at least
     1). The collectives count as ``<prefix>_max`` and
-    ``<prefix>_allreduce`` (``tp``, or ``pp`` over the stage group).
+    ``<prefix>_allreduce`` (``tp``, or ``pp`` for the 1F1B head).
     ``compute_dtype`` (default ``x``'s): the dtype the embedding slice and
     the logits' cotangent round to; an f32 ``x`` holding compute-dtype
     values then gives an f32 partial ``dx``, rounded once after the
@@ -236,8 +247,11 @@ def vocab_sharded_shifted_cross_entropy(
         labels, mask = _shift(labels, s, x.device)
     if denom is None:
         denom = torch.clamp(mask.sum(), min=1.0)
+    if cut is None:
+        off = coll.rank * e_slice.shape[0]
+        cut = (off, max(0, min(e_slice.shape[0], vocab - off)))
     return _ChunkedCEVShard.apply(e_slice, x, labels, mask.contiguous(),
-                                  _chunk_len(b, s, chunk_size), coll, vocab,
+                                  _chunk_len(b, s, chunk_size), coll, cut,
                                   denom, prefix, compute_dtype or x.dtype)
 
 

@@ -68,7 +68,12 @@ count as ``moe_counts``, their sums over the expert and tensor ranks as
 ``ring_permute``, the pipeline's point-to-point sends as ``pp_send``, its
 head's broadcast and sums over the stage group as ``pp_bcast``,
 ``pp_allreduce`` and ``pp_max``), and ``regather_saved``, the saved
-tensors that autograd kept as a recipe.
+tensors that autograd kept as a recipe. ``group_calls`` counts the same
+calls and bytes by the mesh axes of the group each ran on (its axes of
+size above 1), keyed ``(axes, kind)`` and ``(axes, kind + "_bytes")``;
+there a plain reduce-scatter or all-gather of at most ``SCALAR_BYTES``
+(a sum of a few f32 scalars: the loss, the gradient norm's partial sums)
+counts as ``scalars`` (``parallel/comms_model.crosscheck`` reads it).
 """
 
 from __future__ import annotations
@@ -85,6 +90,8 @@ import torch.distributed as dist
 from tpu_trainer_torch.parallel import mesh as mesh_lib
 
 calls: Dict[str, int] = collections.Counter()
+group_calls: Dict[tuple, int] = collections.Counter()
+SCALAR_BYTES = 64
 
 
 def _ordered_sum(parts: torch.Tensor) -> torch.Tensor:
@@ -97,12 +104,15 @@ def _ordered_sum(parts: torch.Tensor) -> torch.Tensor:
 
 class Collectives:
     """Sums and gathers over one process group of ``ranks`` (global rank
-    numbers, in group order). A group of one rank is the identity and
+    numbers, in group order) along the mesh ``axes`` (those of size above
+    1 that the group spans). A group of one rank is the identity and
     needs no process group."""
 
-    def __init__(self, group, ranks: Sequence[int]):
+    def __init__(self, group, ranks: Sequence[int],
+                 axes: Sequence[str] = ()):
         self.group = group
         self.ranks = list(ranks)
+        self.axes = tuple(axes)
         self.world = len(self.ranks)
         self.rank = self.ranks.index(mesh_lib.process_index())
         self.backend = (dist.get_backend(group) if self.world > 1
@@ -142,8 +152,13 @@ class Collectives:
         return w.to(like.device) if w.device != like.device else w
 
     def _count(self, kind: str, t: torch.Tensor) -> None:
+        n = t.numel() * t.element_size()
         calls[kind] += 1
-        calls[f"{kind}_bytes"] += t.numel() * t.element_size()
+        calls[f"{kind}_bytes"] += n
+        if kind in ("reduce_scatter", "all_gather") and n <= SCALAR_BYTES:
+            kind = "scalars"
+        group_calls[(self.axes, kind)] += 1
+        group_calls[(self.axes, f"{kind}_bytes")] += n
 
     # -- collectives -----------------------------------------------------------
 
@@ -334,7 +349,8 @@ class Topology:
     - ``stage`` (varying stage: the pipeline's ranks, which hold a data
       shard's layers between them; ``rep`` and ``rep_data`` never vary
       it, and a leaf outside the layer stack sums its partial gradients
-      over it once).
+      over it once); ``tensor_stage`` (varying tensor and stage: the 1F1B
+      head's vocabulary slices under a tensor axis).
 
     At sequence = tensor = expert = 1, ``rep`` is ``dp`` and ``rep_data``
     is ``data``. Every rank creates every group, in one order."""
@@ -379,7 +395,9 @@ class Topology:
                                   if i not in varying)]
                 g = group(members)
                 if rank in members:
-                    mine = Collectives(g, members)
+                    mine = Collectives(g, members, [
+                        mesh_lib.MESH_AXES[i] for i in varying
+                        if sizes[i] > 1])
             return mine
 
         self.fsdp = coll((1,))
@@ -392,6 +410,7 @@ class Topology:
         self.rep = coll((0, 1, 2))
         self.rep_data = coll((0, 2))
         self.stage = coll((5,))
+        self.tensor_stage = coll((3, 5))
 
     @property
     def dp_rank(self) -> int:

@@ -39,7 +39,10 @@ class MeshContext:
     their output over it), None when both sizes are 1. ``stage``: likewise
     along ``stage`` (the pipeline's ranks; their point-to-point sends and
     the 1F1B head's vocabulary slices run over it), ``schedule`` its
-    ``parallel/pipeline.Schedule`` (None at stage size 1)."""
+    ``parallel/pipeline.Schedule`` (None at stage size 1);
+    ``tensor_stage`` the ranks that vary in their tensor and stage
+    coordinates (the 1F1B head's vocabulary slices under a tensor axis),
+    None unless both sizes are above 1."""
 
     sizes: tuple
     coords: tuple
@@ -50,6 +53,7 @@ class MeshContext:
     expert_tensor: Optional[object] = None
     stage: Optional[object] = None
     schedule: Optional[object] = None
+    tensor_stage: Optional[object] = None
 
     def _axis(self, name: str) -> int:
         return MESH_AXES.index(name)

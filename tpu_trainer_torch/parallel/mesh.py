@@ -5,8 +5,7 @@ the collectives; the port runs one process a device and does the
 collectives itself (``parallel/collectives.py``). What carries over:
 
 - ``MeshConfig`` and ``resolve``: the six axes, ``-1`` = the rest, the
-  same errors. All six run here (``UNPORTED_AXES`` is empty, and
-  ``check_ported`` refuses nothing).
+  same errors. All six run here, each beside any other.
 - Rank ``r`` sits at the row-major coordinate of ``MESH_AXES``
   (``mesh_coords``: stage innermost, then expert, tensor, sequence, fsdp,
   data, as ``make_mesh`` lays out one device a process). The batch rows
@@ -42,6 +41,7 @@ import dataclasses
 import datetime
 import math
 import os
+import socket
 from typing import Optional
 
 import torch
@@ -56,10 +56,6 @@ STAGE_AXIS = "stage"
 MESH_AXES = (
     DATA_AXIS, FSDP_AXIS, SEQUENCE_AXIS, TENSOR_AXIS, EXPERT_AXIS, STAGE_AXIS,
 )
-
-# The ROADMAP Queue 1 entries (by title: re-anchors renumber the queue)
-# that own the axes this port does not run yet: none is left.
-UNPORTED_AXES: dict = {}
 
 _DEFAULT_TIMEOUT_S = 600
 
@@ -96,16 +92,6 @@ class MeshConfig:
                 f"mesh {sizes} wants {fixed} devices but {n_devices} are "
                 f"available")
         return tuple(sizes)
-
-
-def check_ported(sizes: tuple) -> None:
-    """Raise ``NotImplementedError`` for every axis above 1 that a later
-    ROADMAP entry brings."""
-    later = [f"--mesh_{ax} {n} -> {UNPORTED_AXES[ax]}"
-             for ax, n in zip(MESH_AXES, sizes)
-             if ax in UNPORTED_AXES and n > 1]
-    if later:
-        raise NotImplementedError("not ported yet: " + "; ".join(later))
 
 
 def dp_size(sizes: tuple) -> int:
@@ -199,6 +185,22 @@ def shares_card() -> bool:
     """Do this host's ranks outnumber its cards (so two share one)?"""
     cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
     return cards > 0 and local_ranks()[1] > cards
+
+
+def ranks_on_card(device) -> int:
+    """How many ranks of the process group run on the CUDA card
+    ``device`` (1 outside a group): every rank's host and card, gathered
+    over the group, so the count holds however the ranks were started
+    (torchrun's ``LOCAL_WORLD_SIZE``, or spawned ranks that each name
+    card 0). Collective: every rank of the group calls it."""
+    if not (dist.is_available() and dist.is_initialized()):
+        return 1
+    dev = torch.device(device)
+    props = torch.cuda.get_device_properties(dev)
+    mine = (socket.gethostname(), str(getattr(props, "uuid", dev.index)))
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    return every.count(mine)
 
 
 def local_device(device) -> torch.device:

@@ -62,9 +62,14 @@ commit, and ``check_hosts_in_sync`` runs with the finite-loss guard.
   (``--inject_fault``).
 
 Each step's loss and grad norm stay on the device and are read two steps
-later (``utils/telemetry.DeferredFetcher``). Every option of a later
-ROADMAP entry raises ``NotImplementedError`` naming the entry by its title
-(``check_supported``); none is silently ignored.
+later (``utils/telemetry.DeferredFetcher``). The mesh is the JAX CLI's:
+``--mesh auto`` plans it over the world size with the global batch held
+at ``batch_size`` a process (``parallel/planner.py``; the ranked table
+printed on rank 0, the ``mesh_plan`` record logged), and an explicit
+``--mesh_*`` split is checked with the planner's ``feasibility_error``
+before the trainer is built. The first step writes the one-time
+``comms_model`` record (``parallel/comms_model.py``, cross-checked
+against the collectives that step ran) unless ``--no_comms_model``.
 """
 
 from __future__ import annotations
@@ -83,10 +88,17 @@ import torch
 from tpu_trainer_torch.data.device_prefetch import DevicePrefetcher
 from tpu_trainer_torch.models import moe as moe_lib
 from tpu_trainer_torch.models.config import GPTConfig
+from tpu_trainer_torch.parallel import collectives as coll_lib
+from tpu_trainer_torch.parallel import comms_model as comms_lib
 from tpu_trainer_torch.parallel import mesh as mesh_lib
+from tpu_trainer_torch.parallel import planner as planner_lib
 from tpu_trainer_torch.training.config import TrainingConfig
 from tpu_trainer_torch.training.optimizer import STATE_DTYPES
-from tpu_trainer_torch.training.trainer import ParallelConfig, Trainer
+from tpu_trainer_torch.training.trainer import (
+    _MP_TO_DTYPE,
+    ParallelConfig,
+    Trainer,
+)
 from tpu_trainer_torch.utils import checkpoint as ckpt_lib
 from tpu_trainer_torch.utils import faults, guards, profiling
 from tpu_trainer_torch.utils import flight_recorder as flight_lib
@@ -476,12 +488,22 @@ def resolve_configs(args, mode: str = "ddp"):
                   y_fsdp.get("sharding_strategy"), "FULL_SHARD"),
             _SHARDING_CHOICES, "sharding_strategy")
         default_mesh = mesh_lib.MeshConfig(data=1, fsdp=-1)
-        if (strategy == "HYBRID_SHARD" and args.mesh_data is None
-                and args.mesh_fsdp is None):
-            raise SystemExit(
-                "HYBRID_SHARD needs an explicit mesh split: pass --mesh_data "
-                "and --mesh_fsdp (data replicas x fsdp shards). (In the "
-                "reference this mode is documented but unselectable.)")
+    mesh_auto = args.mesh == "auto"
+    explicit_mesh = [
+        flag for flag in ("mesh_data", "mesh_fsdp", "mesh_sequence",
+                          "mesh_tensor", "mesh_expert", "mesh_stage")
+        if getattr(args, flag) is not None]
+    if mesh_auto and explicit_mesh:
+        raise SystemExit(
+            "--mesh auto and explicit --" + "/--".join(explicit_mesh) +
+            " are mutually exclusive: the planner picks every axis. Drop "
+            "the explicit split, or drop --mesh auto to pin it yourself.")
+    if (strategy == "HYBRID_SHARD" and not mesh_auto
+            and args.mesh_data is None and args.mesh_fsdp is None):
+        raise SystemExit(
+            "HYBRID_SHARD needs an explicit mesh split: pass --mesh_data "
+            "and --mesh_fsdp (data replicas x fsdp shards), or --mesh auto. "
+            "(In the reference this mode is documented but unselectable.)")
     mesh_config = mesh_lib.MeshConfig(
         data=_pick(args.mesh_data, default_mesh.data),
         fsdp=_pick(args.mesh_fsdp, default_mesh.fsdp),
@@ -564,35 +586,10 @@ def resolve_configs(args, mode: str = "ddp"):
         "comms_model": not bool(_pick(args.no_comms_model, False)),
         "flight_recorder_steps": _picki(args.flight_recorder_steps,
                                         None, 256),
-        "mesh_auto": args.mesh == "auto",
+        "mesh_auto": mesh_auto,
         "hbm_gb": args.hbm_gb,
     }
     return model_config, training_config, parallel_config, data_opts
-
-
-# The ROADMAP Queue 1 entries (by title: re-anchors renumber the queue)
-# that own the options this port does not run yet.
-_ITEM_PLANNER = "ROADMAP Queue 1: the planner"
-
-
-def check_supported(args, model_config: GPTConfig,
-                    parallel_config: ParallelConfig, data_opts: dict
-                    ) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP entry for every
-    requested option that a later port slice brings."""
-    later = [(f"--mesh_{ax} {getattr(args, f'mesh_{ax}')}", item)
-             for ax, item in mesh_lib.UNPORTED_AXES.items()
-             if getattr(args, f"mesh_{ax}") not in (None, 1)]
-    for flag, on, item in (
-            ("--mesh auto", args.mesh is not None, _ITEM_PLANNER),
-            ("--hbm_gb", args.hbm_gb is not None, _ITEM_PLANNER),
-            ("--no_comms_model", bool(args.no_comms_model), _ITEM_PLANNER)):
-        if on:
-            later.append((flag, item))
-    if later:
-        raise NotImplementedError(
-            "not ported yet: " + "; ".join(f"{what} -> {item}"
-                                           for what, item in later))
 
 
 # -- data --------------------------------------------------------------------
@@ -772,6 +769,8 @@ def build_dataloaders(data_opts, trainer: Trainer, model_config: GPTConfig):
     if not data_opts["data_path"]:
         raise SystemExit(f"--data_path is required for dataset {name!r}")
     streaming = data_opts["streaming"]
+    # Both datasets' factories are the text engine's
+    # (``data/tinystories.py``, ``data/openwebtext.py``).
     from tpu_trainer_torch.data.text import create_text_dataloader
 
     train = create_text_dataloader(
@@ -839,6 +838,84 @@ def _print_nan_scan(report: dict) -> None:
     print(f"nan_scan | loss: {stats['nan_scan/loss']:.6g}", flush=True)
 
 
+def plan_mesh(model_config: GPTConfig, training_config: TrainingConfig,
+              parallel_config: ParallelConfig, data_opts: dict, world: int,
+              device) -> tuple:
+    """The run's mesh over ``world`` processes (the JAX CLI's): under
+    ``--mesh auto`` the planner's choice, with the global batch held at
+    ``batch_size`` rows a process and the chosen rows a data shard, its
+    table printed on rank 0; else the explicit split, resolved and checked
+    with ``feasibility_error``. The plan is for this device's kind and
+    memory (a CPU has no budget) and for the port's memory, which keeps no
+    compute-dtype copy of the parameters (``carry_cast`` off); ranks that
+    share a card plan with their share of it. Returns
+    ``(training_config, parallel_config, the mesh_plan record or
+    None)``; an infeasible mesh is a ``SystemExit``."""
+    plan_mc = dataclasses.replace(
+        model_config, dtype=_MP_TO_DTYPE[training_config.mixed_precision])
+    if not data_opts["mesh_auto"]:
+        try:
+            resolved = parallel_config.mesh.resolve(world)
+        except ValueError as mesh_err:
+            raise SystemExit(f"mesh: {mesh_err}") from mesh_err
+        sizes = dict(zip(mesh_lib.MESH_AXES, resolved))
+        err = planner_lib.feasibility_error(
+            sizes, plan_mc, n_devices=world,
+            global_rows=training_config.batch_size
+            * sizes[mesh_lib.DATA_AXIS] * sizes[mesh_lib.FSDP_AXIS],
+            max_seq_len=training_config.max_seq_len)
+        if err:
+            raise SystemExit(
+                f"mesh: infeasible split {tuple(resolved)} "
+                f"({'x'.join(mesh_lib.MESH_AXES)}): {err} — fix the "
+                f"--mesh_* split, or let --mesh auto pick one")
+        return training_config, parallel_config, None
+    try:
+        record = planner_lib.plan(
+            plan_mc, world,
+            global_rows=training_config.batch_size * world,
+            max_seq_len=training_config.max_seq_len,
+            grad_accum=training_config.gradient_accumulation_steps,
+            strategy=parallel_config.sharding_strategy,
+            device_kind=comms_lib.local_device_kind(device),
+            hbm_gb=data_opts["hbm_gb"], device=device,
+            opt_state_bytes={"float32": 4, "bfloat16": 2, "int8": 1}[
+                training_config.optimizer_state_dtype],
+            carry_cast=False)
+    except planner_lib.NoFeasiblePlanError as plan_err:
+        raise SystemExit(f"--mesh auto: {plan_err}") from plan_err
+    record["auto"] = True
+    chosen = record["chosen"]
+    parallel_config = dataclasses.replace(
+        parallel_config, mesh=planner_lib.mesh_config_for(chosen))
+    training_config = dataclasses.replace(
+        training_config, batch_size=chosen["batch_per_shard"])
+    if mesh_lib.process_index() == 0:
+        for line in planner_lib.render_table(record):
+            print(line, flush=True)
+    return training_config, parallel_config, record
+
+
+def _log_comms_model(trainer: Trainer, logger: MetricLogger, step: int,
+                     before: dict, main: bool) -> None:
+    """The one-time ``comms_model`` record of the run's first step,
+    cross-checked against the collectives that step ran (``before``: the
+    ``collectives.group_calls`` counters ahead of it); a failure is printed and
+    the run trains on, as in the JAX CLI."""
+    try:
+        rec = comms_lib.build(trainer)
+        rec["step"] = step
+        ran = {k: v - before.get(k, 0)
+               for k, v in coll_lib.group_calls.items()
+               if v != before.get(k, 0)}
+        rec.update(comms_lib.crosscheck(rec, ran))
+        logger.log_record(rec, stdout_lines=comms_lib.summary_lines(rec))
+    except Exception as comms_err:  # noqa: BLE001 - reported, not fatal
+        if main:
+            print(f"comms_model failed: {type(comms_err).__name__}: "
+                  f"{comms_err}", flush=True)
+
+
 def run_training(argv=None, mode: str = "ddp") -> int:
     """Train as the flags and YAML say (``mode`` "ddp" or "fsdp");
     returns the exit code (0, or 143 after a SIGTERM or preemption-notice
@@ -859,7 +936,6 @@ def _run_training(argv, mode: str, owned: dict) -> int:
     args = build_parser(mode).parse_args(argv)
     model_config, training_config, parallel_config, data_opts = (
         resolve_configs(args, mode))
-    check_supported(args, model_config, parallel_config, data_opts)
     # A warm spare of the elastic supervisor has paid the interpreter,
     # the imports and the parse, and parks here, before the rendezvous
     # binds its rank; promotion hands it the env a fresh child gets.
@@ -884,10 +960,9 @@ def _run_training(argv, mode: str, owned: dict) -> int:
     joined = mesh_lib.process_count() > 1
     mesh_lib.initialize_distributed(auto=args.multihost, device=device)
     owned["group"] = not joined and mesh_lib.process_count() > 1
-    try:
-        parallel_config.mesh.resolve(mesh_lib.process_count())
-    except ValueError as mesh_err:
-        raise SystemExit(f"mesh: {mesh_err}") from mesh_err
+    training_config, parallel_config, plan_record = plan_mesh(
+        model_config, training_config, parallel_config, data_opts,
+        mesh_lib.process_count(), device)
     cuda = device.type == "cuda"
     trainer = Trainer(model_config, training_config, parallel_config,
                       device=device)
@@ -1040,6 +1115,9 @@ def _run_training(argv, mode: str, owned: dict) -> int:
         seq_len=training_config.max_seq_len, device=device,
         recorder=recorder, observer=metrics_bridge)
     logger.tokens_seen = tokens_seen
+    if plan_record is not None:
+        # The table printed at plan time; the record goes to the sinks.
+        logger.log_record(plan_record)
 
     if data_opts["nan_scan"]:
         # Debug mode: bisect the first non-finite site of one forward, exit
@@ -1261,6 +1339,7 @@ def _run_training(argv, mode: str, owned: dict) -> int:
     # (``trainer.RecompileWatchdog``, ``Trainer.step_cost_analysis``).
     warm = {"step": False, "telemetry": False}
     replay_until = -1
+    comms_pending = data_opts["comms_model"]
     try:
         while True:
             try:
@@ -1307,6 +1386,8 @@ def _run_training(argv, mode: str, owned: dict) -> int:
                         category = ("compile" if not warm[variant]
                                     else "rollback_replay"
                                     if step <= replay_until else "step")
+                        if comms_pending:
+                            before = dict(coll_lib.group_calls)
                         with ledger.track(category):
                             state, metrics = trainer.train_step(
                                 state, batch, telemetry=tel_step,
@@ -1333,6 +1414,9 @@ def _run_training(argv, mode: str, owned: dict) -> int:
                             consume(deferred.push(step, metrics, transform))
                     if heartbeat is not None:
                         heartbeat.beat(step + 1)
+                    if comms_pending:
+                        comms_pending = False
+                        _log_comms_model(trainer, logger, step, before, main)
                     if tel_step or _due(step, training_config.log_interval):
                         logger.log_record(ledger.record(step=step))
                     eval_now = _due(step, training_config.eval_interval)

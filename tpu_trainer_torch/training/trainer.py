@@ -134,8 +134,14 @@ skips the activation capture, as in JAX; ``eval_step`` and ``nan_scan``
 run the forward alone in the schedule's ``pipeline_microbatches``
 microbatches, as the JAX model's pipeline branch does (a capacity
 router's capacity and aux are per microbatch; an interleaved model's
-chunks run in their global layer order). A stage
-axis beside a tensor axis is not ported yet (``NotImplementedError``).
+chunks run in their global layer order). Beside a
+tensor axis (the JAX trainer's GSPMD sharding riding through its stage
+shard_map) a stage rank holds its layers' tensor slices: stage 0's
+lookup is gathered over the tensor group, GPipe's head is the
+vocab-sharded ``_tp_loss``, and the 1F1B head cuts the tensor
+all-to-all's vocabulary slice again over the stage group, its
+statistics and its input's cotangent summed over the tensor x stage
+ranks (``models/gpt.py::_StageHooks``).
 
 The moments' narrow forms and the offload hold on a shard too: a rank's
 moments are its slice, int8 packs of a slice of a leaf's last dim keep
@@ -706,8 +712,7 @@ class Trainer:
         """The pipeline's rules (the JAX trainer's errors): the stage
         size divides the layers (into ``S v`` chunks under interleaved),
         interleaved needs ``M`` divisible by ``S``, and the global batch
-        divides into ``M`` microbatches. A stage axis with a tensor axis
-        is not ported."""
+        divides into ``M`` microbatches."""
         S = self.stage_size
         if S <= 1:
             return
@@ -715,10 +720,6 @@ class Trainer:
         if cfg.num_layers % S != 0:
             raise ValueError(f"num_layers {cfg.num_layers} not divisible by "
                              f"stage axis size {S}")
-        if self.mesh_sizes[3] > 1:
-            raise NotImplementedError(
-                "not ported yet: --mesh_tensor with --mesh_stage -> ROADMAP "
-                "Queue 1: pipeline under the tensor axis")
         M = cfg.pipeline_microbatches or S
         if cfg.pipeline_schedule == "interleaved":
             v = cfg.pipeline_virtual_stages
@@ -779,7 +780,9 @@ class Trainer:
             expert_tensor=(topo.expert_tensor if tensor * expert > 1
                            else None),
             stage=topo.stage if stage > 1 else None,
-            schedule=self.schedule)
+            schedule=self.schedule,
+            tensor_stage=(topo.tensor_stage if tensor > 1 and stage > 1
+                          else None))
         for n, sp in self.specs.items():
             # A slice of a leaf's last dim (int8 blocks run along it): the
             # fsdp shard's, else the tensor slice's.
